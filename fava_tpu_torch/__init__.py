@@ -1,0 +1,23 @@
+"""fava_tpu_torch: the PyTorch/CUDA port of fava_tpu for NVIDIA Hopper.
+
+A second package beside the JAX reference ``fava_tpu``, ported slice by
+slice (ROADMAP.md). This slice runs the flagship analysis — kinetic-
+energy spectra plus Reynolds-stress and Favre x-profiles of a uniform
+volume — through four hand-written CUDA kernels. Every public entry
+takes ``device=`` ("cuda" by default); asking for CUDA where there is
+none raises. This package imports neither jax nor fava_tpu.
+"""
+
+from fava_tpu_torch.models import FLASH, FileType, InMemoryModel, Model, from_arrays
+from fava_tpu_torch.mesh import FlashUniform
+from fava_tpu_torch import analysis  # noqa: F401  (registers analyses onto Model)
+
+__all__ = [
+    "FLASH",
+    "FileType",
+    "FlashUniform",
+    "InMemoryModel",
+    "Model",
+    "analysis",
+    "from_arrays",
+]

@@ -1,0 +1,338 @@
+// Hopper (sm_90a) kernels of the flagship analysis step.
+//
+// Four kernels, each the counterpart of one Pallas kernel of
+// fava_tpu/ops/pallas_kernels.py. Plain C entry points (bound with ctypes
+// by fava_tpu_torch/ops/_build.py); each launches on the caller's stream,
+// allocates nothing, and returns cudaGetLastError() of its launch. The
+// Python wrappers in fava_tpu_torch/ops/cuda_kernels.py check devices,
+// dtypes, shapes and contiguity before calling in.
+//
+// Inputs are float32 field/power volumes; every accumulator is float64
+// (Hopper has native f64, so the TPU's two-stage f32 sums are not needed).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kRowThreads = 256;  // threads of a row-moment block
+constexpr int kBinThreads = 256;  // threads of a binning block (8 warps)
+
+// ---------------------------------------------------------------------------
+// Per-row moments (K1, K2).
+//
+// K1 replaces _moments_kernel (pallas_kernels.py:95) and K2 replaces
+// _centered_kernel (pallas_kernels.py:200). Both read four volumes once and
+// do ~20 flops per cell, far below the card's f64 rate: they are bound by
+// device-memory bandwidth (2 GiB per pass at 512^3 f32). Design: one block
+// per x row (the row is one contiguous ny*nz run of each field), 16-byte
+// vector loads where alignment allows, f64 register partials per thread,
+// then a warp-shuffle and shared-memory block reduction. Each row's sums are
+// written by one block, so results are deterministic and need no atomics.
+// The TPU's sequential grid carried nothing between rows either, so the
+// design maps directly; K2 reads the row means from a device pointer in
+// place of the TPU's scalar prefetch.
+
+struct RawCell {  // [d, vx, vy, vz, dvx, dvy, dvz, dvxvx, dvxvy, dvxvz, dvyvy, dvyvz, dvzvz]
+  __device__ __forceinline__ void operator()(double (&a)[13], float fd, float fx, float fy,
+                                             float fz) const {
+    const double d = fd, x = fx, y = fy, z = fz;
+    const double dx = d * x, dy = d * y, dz = d * z;
+    a[0] += d;
+    a[1] += x;
+    a[2] += y;
+    a[3] += z;
+    a[4] += dx;
+    a[5] += dy;
+    a[6] += dz;
+    a[7] += dx * x;
+    a[8] += dx * y;
+    a[9] += dx * z;
+    a[10] += dy * y;
+    a[11] += dy * z;
+    a[12] += dz * z;
+  }
+};
+
+struct CenteredCell {  // [d*ci*cj for xx,xy,xz,yy,yz,zz, then d*ci for x,y,z]
+  double mx, my, mz;
+  __device__ __forceinline__ void operator()(double (&a)[9], float fd, float fx, float fy,
+                                             float fz) const {
+    const double d = fd;
+    const double cx = fx - mx, cy = fy - my, cz = fz - mz;
+    const double dcx = d * cx, dcy = d * cy, dcz = d * cz;
+    a[0] += dcx * cx;
+    a[1] += dcx * cy;
+    a[2] += dcx * cz;
+    a[3] += dcy * cy;
+    a[4] += dcy * cz;
+    a[5] += dcz * cz;
+    a[6] += dcx;
+    a[7] += dcy;
+    a[8] += dcz;
+  }
+};
+
+template <int N, typename Cell>
+__device__ __forceinline__ void row_sweep(const float* __restrict__ d, const float* __restrict__ vx,
+                                          const float* __restrict__ vy, const float* __restrict__ vz,
+                                          int64_t len, bool vec, double (&acc)[N], const Cell& cell) {
+  int64_t start = 0;
+  if (vec) {
+    const float4* d4 = reinterpret_cast<const float4*>(d);
+    const float4* x4 = reinterpret_cast<const float4*>(vx);
+    const float4* y4 = reinterpret_cast<const float4*>(vy);
+    const float4* z4 = reinterpret_cast<const float4*>(vz);
+    const int64_t n4 = len >> 2;
+    for (int64_t i = threadIdx.x; i < n4; i += blockDim.x) {
+      const float4 a = __ldg(d4 + i), b = __ldg(x4 + i), c = __ldg(y4 + i), e = __ldg(z4 + i);
+      cell(acc, a.x, b.x, c.x, e.x);
+      cell(acc, a.y, b.y, c.y, e.y);
+      cell(acc, a.z, b.z, c.z, e.z);
+      cell(acc, a.w, b.w, c.w, e.w);
+    }
+    start = n4 << 2;
+  }
+  for (int64_t i = start + threadIdx.x; i < len; i += blockDim.x) {
+    cell(acc, __ldg(d + i), __ldg(vx + i), __ldg(vy + i), __ldg(vz + i));
+  }
+}
+
+// Sums acc[m] over the block and stores it at out[m * stride + col].
+template <int N>
+__device__ __forceinline__ void block_sum_store(double (&acc)[N], double* __restrict__ out,
+                                                int64_t stride, int64_t col) {
+  constexpr int kWarps = kRowThreads / 32;
+  __shared__ double partial[N][kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int m = 0; m < N; ++m) {
+    double v = acc[m];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFullMask, v, o);
+    if (lane == 0) partial[m][warp] = v;
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      double v = lane < kWarps ? partial[m][lane] : 0.0;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFullMask, v, o);
+      if (lane == 0) out[m * stride + col] = v;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kRowThreads)
+row_moments_kernel(const float* __restrict__ d, const float* __restrict__ vx,
+                   const float* __restrict__ vy, const float* __restrict__ vz,
+                   double* __restrict__ out, int64_t nx, int64_t len, int vec) {
+  const int64_t x = blockIdx.x;
+  const int64_t off = x * len;
+  double acc[13] = {};
+  row_sweep(d + off, vx + off, vy + off, vz + off, len, vec != 0, acc, RawCell{});
+  block_sum_store(acc, out, nx, x);
+}
+
+__global__ void __launch_bounds__(kRowThreads)
+centered_row_moments_kernel(const float* __restrict__ d, const float* __restrict__ vx,
+                            const float* __restrict__ vy, const float* __restrict__ vz,
+                            const double* __restrict__ means, double* __restrict__ out,
+                            int64_t nx, int64_t len, int vec) {
+  const int64_t x = blockIdx.x;
+  const int64_t off = x * len;
+  const CenteredCell cell{means[x], means[nx + x], means[2 * nx + x]};
+  double acc[9] = {};
+  row_sweep(d + off, vx + off, vy + off, vz + off, len, vec != 0, acc, cell);
+  block_sum_store(acc, out, nx, x);
+}
+
+// ---------------------------------------------------------------------------
+// Quadrant fold (K3), replacing _fold_pair_kernel (pallas_kernels.py:678).
+//
+// out[i, j, z] = sum of in[+-i, +-j, z] over the distinct mirror partners,
+// for i <= nx/2, j <= ny/2. Self-paired slabs (index 0 and, for even
+// extents, the Nyquist index n/2) are counted once. Bound by device memory:
+// each input element is read once and a quarter of it is written. One
+// thread per output element, neighbouring threads on neighbouring z, so
+// every load and store is coalesced. The TPU version folded y with an exact
+// 0/1 matmul to avoid relayouts; here the mirror rows are plain strided
+// loads. The output has exactly ny/2+1 rows (no pad to 8). The sum order
+// (in[i,j] + in[im,j]) + (in[i,jm] + in[im,jm]) is the plain version's.
+
+__global__ void fold_pair_kernel(const float* __restrict__ t, const float* __restrict__ l,
+                                 float* __restrict__ to, float* __restrict__ lo, int nx, int ny,
+                                 int nzr, int nxh, int nyh) {
+  const int64_t n = (int64_t)nxh * nyh * nzr;
+  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
+       idx += (int64_t)gridDim.x * blockDim.x) {
+    const int z = (int)(idx % nzr);
+    const int64_t r = idx / nzr;
+    const int j = (int)(r % nyh);
+    const int i = (int)(r / nyh);
+    const int im = (i > 0 && 2 * i != nx) ? nx - i : -1;
+    const int jm = (j > 0 && 2 * j != ny) ? ny - j : -1;
+    const int64_t p = ((int64_t)i * ny + j) * nzr + z;
+    float at = t[p], al = l[p];
+    if (im >= 0) {
+      const int64_t q = ((int64_t)im * ny + j) * nzr + z;
+      at += t[q];
+      al += l[q];
+    }
+    if (jm >= 0) {
+      const int64_t q = ((int64_t)i * ny + jm) * nzr + z;
+      float bt = t[q], bl = l[q];
+      if (im >= 0) {
+        const int64_t s = ((int64_t)im * ny + jm) * nzr + z;
+        bt += t[s];
+        bl += l[s];
+      }
+      at += bt;
+      al += bl;
+    }
+    to[idx] = at;
+    lo[idx] = al;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Folded shell binning (K4), replacing _shell_kernel_folded_v3
+// (pallas_kernels.py:955, defer_rows=True).
+//
+// For each folded cell (i, j, z): k = sqrt(i^2 + j^2 + z^2) in f32 (the
+// integer k^2 is exact in f32), shell = floor(k + 0.5), cells with
+// k > nbins - 0.5 or j > ny/2 dropped; the shell's two f64 sums gain
+// wz * value with wz = 1 on self-conjugate z planes (0, and nz/2 for even
+// nz) and 2 elsewhere.
+//
+// What bounds it: the TPU kernel looped over shells with masks, so it was
+// bound by the loop. Here each cell is touched once, and the limit is
+// contention on the histogram: neighbouring cells fall in the same shell.
+// Design: blocks run in parallel with no order, so nothing carries between
+// them; each block keeps its own 2 x nbins f64 histogram in shared memory
+// (sized from nbins at run time) and adds it to the output with f64 global
+// atomics at the end. A warp walks one (i, j) row along z, 32 cells at a
+// time (coalesced loads). Along a row the shell index never decreases, so
+// lanes of one shell form one contiguous run: a 5-step segmented shuffle
+// scan sums each run and only its last lane touches shared memory. Rows and
+// row tails beyond the last shell are skipped without reading them. The
+// atomics make the summation order vary between runs (f64, so the spread is
+// at rounding level).
+
+__global__ void __launch_bounds__(kBinThreads)
+shell_bin_folded_kernel(const float* __restrict__ t, const float* __restrict__ l,
+                        double* __restrict__ out, int nxh, int rows, int nzr, int nbins,
+                        int full_ny, int full_nz) {
+  extern __shared__ double hist[];  // [2][nbins]
+  for (int b = threadIdx.x; b < 2 * nbins; b += blockDim.x) hist[b] = 0.0;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int64_t nrows = (int64_t)nxh * rows;
+  const float kmax = (float)nbins - 0.5f;
+  const int ny_half = full_ny / 2;
+  const int z_nyq = (full_nz % 2 == 0) ? full_nz / 2 : -1;
+
+  for (int64_t row = (int64_t)blockIdx.x * warps + (threadIdx.x >> 5); row < nrows;
+       row += (int64_t)gridDim.x * warps) {
+    const int i = (int)(row / rows);
+    const int j = (int)(row % rows);
+    if (j > ny_half) continue;  // fold padding rows bin nothing (warp-uniform)
+    const int ij2 = i * i + j * j;
+    const float* tr = t + row * nzr;
+    const float* lr = l + row * nzr;
+    for (int z0 = 0; z0 < nzr; z0 += 32) {
+      // Warp-uniform: k grows with z, so every later cell is out of range.
+      if (sqrtf((float)(ij2 + z0 * z0)) > kmax) break;
+      const int z = z0 + lane;
+      int shell = nbins;  // sentinel: bins nothing, sorts after every shell
+      double vt = 0.0, vl = 0.0;
+      if (z < nzr) {
+        const float k = sqrtf((float)(ij2 + z * z));
+        if (k <= kmax) {
+          shell = min((int)floorf(k + 0.5f), nbins - 1);
+          const double wz = (z == 0 || z == z_nyq) ? 1.0 : 2.0;
+          vt = wz * (double)tr[z];
+          vl = wz * (double)lr[z];
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const double ut = __shfl_up_sync(kFullMask, vt, o);
+        const double ul = __shfl_up_sync(kFullMask, vl, o);
+        const int us = __shfl_up_sync(kFullMask, shell, o);
+        if (lane >= o && us == shell) {
+          vt += ut;
+          vl += ul;
+        }
+      }
+      const int next = __shfl_down_sync(kFullMask, shell, 1);
+      if (shell < nbins && (lane == 31 || next != shell)) {
+        atomicAdd(&hist[shell], vt);
+        atomicAdd(&hist[nbins + shell], vl);
+      }
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < 2 * nbins; b += blockDim.x) {
+    const double v = hist[b];
+    if (v != 0.0) atomicAdd(&out[b], v);
+  }
+}
+
+int launch_status() { return (int)cudaGetLastError(); }
+
+}  // namespace
+
+extern "C" {
+
+const char* fava_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+int fava_row_moments(const void* d, const void* vx, const void* vy, const void* vz, void* out,
+                     long long nx, long long row_len, int vec, void* stream) {
+  (void)cudaGetLastError();
+  row_moments_kernel<<<(unsigned)nx, kRowThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)d, (const float*)vx, (const float*)vy, (const float*)vz, (double*)out, nx,
+      row_len, vec);
+  return launch_status();
+}
+
+int fava_centered_row_moments(const void* d, const void* vx, const void* vy, const void* vz,
+                              const void* means, void* out, long long nx, long long row_len,
+                              int vec, void* stream) {
+  (void)cudaGetLastError();
+  centered_row_moments_kernel<<<(unsigned)nx, kRowThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)d, (const float*)vx, (const float*)vy, (const float*)vz,
+      (const double*)means, (double*)out, nx, row_len, vec);
+  return launch_status();
+}
+
+int fava_fold_quadrants_pair(const void* t, const void* l, void* to, void* lo, int nx, int ny,
+                             int nzr, int blocks, void* stream) {
+  (void)cudaGetLastError();
+  fold_pair_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)t, (const float*)l, (float*)to, (float*)lo, nx, ny, nzr, nx / 2 + 1,
+      ny / 2 + 1);
+  return launch_status();
+}
+
+int fava_shell_bin_values_folded(const void* t, const void* l, void* out, int nxh, int rows,
+                                 int nzr, int nbins, int full_ny, int full_nz, int blocks,
+                                 void* stream) {
+  (void)cudaGetLastError();
+  const size_t smem = 2 * (size_t)nbins * sizeof(double);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        shell_bin_folded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  shell_bin_folded_kernel<<<blocks, kBinThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)t, (const float*)l, (double*)out, nxh, rows, nzr, nbins, full_ny, full_nz);
+  return launch_status();
+}
+
+}  // extern "C"

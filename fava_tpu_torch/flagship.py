@@ -1,0 +1,123 @@
+"""Flagship analysis step: kinetic-energy spectra plus Reynolds-stress
+and Favre x-profiles of one uniform snapshot.
+
+Counterpart of fava_tpu/flagship.py, single-device branch only (the
+sharded branch is ROADMAP A11). PyTorch runs eagerly, so the step is a
+sequence of cuFFT transforms, plain tensor ops and the four hand-written
+kernels of ``ops/cuda_kernels.py``; ``series_analysis_step`` is a
+Python loop over snapshots where fava_tpu used ``lax.scan``.
+
+Outputs are float64 on every device (fava_tpu's are float32 on the TPU).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from fava_tpu_torch.ops import cuda_kernels
+from fava_tpu_torch.ops.profiles import assemble_profile_stats
+from fava_tpu_torch.ops.spectra import rfft_power_volumes
+from fava_tpu_torch.utils import field_dtype, resolve_device
+
+
+def uniform_analysis_step(dens, velx, vely, velz) -> Dict[str, torch.Tensor]:
+    """Spectra + Reynolds/Favre x-profiles of one uniform snapshot."""
+    nx, ny, nz = (int(s) for s in dens.shape)
+    nbins = max(nx, ny, nz) // 2 - 1
+    vels = (velx, vely, velz)
+
+    # --- Spectra: real input, so rfft halves the transform and binning
+    # work; Hermitian weights in the binning make the result equal to the
+    # full-grid computation.
+    sqrt_d = torch.sqrt(dens)
+    ffts = [torch.fft.rfftn(sqrt_d * v, norm="forward") for v in vels]
+    del sqrt_d
+    total, longi = rfft_power_volumes(ffts, (nx, ny, nz))
+    del ffts
+    counts, sums3 = cuda_kernels.shell_bin_sums_rfft(total, longi, nbins, nz)
+    del total, longi
+
+    # --- Profiles along x (uniform grid: rows are the bins). Two passes:
+    # raw first moments, then second moments centered on the row means,
+    # which avoids the cancellation of the one-pass expansion.
+    layer = float(ny * nz)
+    moments = cuda_kernels.row_moments_volume(dens, *vels)
+    d_row = moments[0]
+    means = moments[1:4] / layer
+    centered = cuda_kernels.centered_row_moments(dens, *vels, means.contiguous())
+    stress, favre_mean, favre_rms = assemble_profile_stats(
+        d_row, means, centered[6:9], centered[:6], layer
+    )
+
+    return {
+        "spectra_counts": counts,
+        "spectra_total": sums3[0],
+        "spectra_longitudinal": sums3[1],
+        "spectra_transverse": sums3[2],
+        "mean_dens": d_row / layer,
+        "reynolds_stress": stress,
+        "favre_mean": favre_mean,
+        "favre_rms": favre_rms,
+        # Row sums already hold every cell once: the total mass without
+        # another pass over the density volume.
+        "total_mass": d_row.sum(),
+    }
+
+
+def series_analysis_step(dens, velx, vely, velz) -> Dict[str, torch.Tensor]:
+    """Flagship step over a leading snapshot axis; outputs gain a
+    leading snapshot axis. The working set stays one snapshot wide
+    (inputs aside)."""
+    outs = [uniform_analysis_step(*snap) for snap in zip(dens, velx, vely, velz)]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def _synth_fields(n: int, dtype, device, s: float, out=None):
+    """Deterministic multi-frequency trig fields (no RNG), the same
+    formula as fava_tpu/flagship.py:306-325, written into ``out`` when
+    given so a batch is built without per-snapshot copies."""
+    ax = torch.arange(n, dtype=dtype, device=device) / n
+    x, y, z = ax[:, None, None], ax[None, :, None], ax[None, None, :]
+    two_pi = 2.0 * math.pi
+
+    def mix(a, b, c, p):
+        return (
+            torch.sin(two_pi * (a * x + b * y + c * z) + p + s)
+            + 0.5 * torch.cos(two_pi * (b * x + c * y + a * z) + 2 * p + s)
+            + 0.25 * torch.sin(two_pi * (c * x + a * y + b * z) + 3 * p - s)
+        )
+
+    makers = (
+        lambda: 1.3 + 0.3 * torch.cos(two_pi * (x + 2 * y - z) + s) * torch.sin(two_pi * (3 * x - y) - s),
+        lambda: mix(3, 7, 2, 0.3),
+        lambda: mix(5, 1, 6, 1.1),
+        lambda: mix(2, 4, 9, 2.7),
+    )
+    if out is None:
+        return tuple(make() for make in makers)
+    for dst, make in zip(out, makers):
+        dst.copy_(make())
+    return out
+
+
+def make_example_fields(n: int = 64, seed: int = 0, device="cuda"):
+    """Deterministic synthetic turbulence-like fields ``(dens, velx,
+    vely, velz)``, each (n, n, n), built on ``device`` in its field
+    dtype."""
+    dev = resolve_device(device)
+    return _synth_fields(int(n), field_dtype(dev), dev, float(seed))
+
+
+def make_example_field_batch(nsnap: int, n: int = 64, device="cuda"):
+    """Stacked example snapshots ``(dens, velx, vely, velz)``, each
+    (nsnap, n, n, n), synthesized directly into the batch buffers.
+    Snapshot ``i`` equals ``make_example_fields(n, seed=i)``."""
+    dev = resolve_device(device)
+    dtype = field_dtype(dev)
+    batch = tuple(torch.empty((nsnap, n, n, n), dtype=dtype, device=dev) for _ in range(4))
+    for i in range(nsnap):
+        _synth_fields(int(n), dtype, dev, float(i), out=[b[i] for b in batch])
+    return batch

@@ -1,0 +1,116 @@
+"""FLASH model frontend: file catalogs and load dispatch.
+
+Counterpart of fava_tpu/models/flash.py: the data directory is globbed
+into five catalogs (chk/plt/prt/uni/anl), each addressable "by number"
+(the 4-digit suffix) or "by index" (sorted position). Only
+``file_type="uni"`` loads in this slice; the AMR types are ROADMAP A4
+and the particle types ROADMAP A9.
+"""
+
+from __future__ import annotations
+
+from enum import Enum
+from pathlib import Path
+from typing import Dict, Optional
+
+from fava_tpu_torch.mesh import FlashUniform
+from fava_tpu_torch.models.model import Model
+from fava_tpu_torch.utils import resolve_device
+
+
+class FileType(Enum):
+    CHK = 0
+    PLT = 1
+    PRT = 2
+    CHK_PRT = 3
+    PLT_PRT = 4
+    UNI = 5
+    ANL = 6
+
+
+_PATTERNS = {
+    FileType.CHK: ("*hdf5_chk_????", "hdf5_chk_"),
+    FileType.PLT: ("*hdf5_plt_cnt_????", "hdf5_plt_cnt_"),
+    FileType.PRT: ("*hdf5_part_????", "hdf5_part_"),
+    FileType.UNI: ("*hdf5_uniform_????", "hdf5_uniform_"),
+    FileType.ANL: ("*hdf5_analysis_????", "hdf5_analysis_"),
+}
+
+_NOT_PORTED = {
+    FileType.CHK: "A4",
+    FileType.PLT: "A4",
+    FileType.PRT: "A9",
+    FileType.CHK_PRT: "A9",
+    FileType.PLT_PRT: "A9",
+}
+
+
+def _file_type(file_type: FileType | str) -> FileType:
+    return file_type if isinstance(file_type, FileType) else FileType[str(file_type).upper()]
+
+
+class FLASH(Model):
+    """Model over a directory of FLASH output files, computing on ``device``."""
+
+    def __init__(self, directory: str | Path, name: Optional[str] = None, device="cuda") -> None:
+        self.device = resolve_device(device)
+        super().__init__(directory, name)
+        self.mesh = None
+
+    def _directory_changed(self) -> None:
+        def catalog(ftype: FileType) -> Dict[str, Dict[int, Path]]:
+            pattern, splitter = _PATTERNS[ftype]
+            # The ???? glob matches any 4 chars: skip non-numeric suffixes.
+            files = [
+                p
+                for p in self._filter_files(pattern)
+                if str(p).split(splitter)[-1].isdigit()
+            ]
+            return {
+                "by number": {int(str(p).split(splitter)[-1]): p for p in files},
+                "by index": dict(enumerate(files)),
+            }
+
+        self.chk_files = catalog(FileType.CHK)
+        self.plt_files = catalog(FileType.PLT)
+        self.prt_files = catalog(FileType.PRT)
+        self.uni_files = catalog(FileType.UNI)
+        self.anl_files = catalog(FileType.ANL)
+
+    def _catalog(self, ftype: FileType) -> Dict[str, Dict[int, Path]]:
+        return {
+            FileType.CHK: self.chk_files,
+            FileType.PLT: self.plt_files,
+            FileType.PRT: self.prt_files,
+            FileType.UNI: self.uni_files,
+            FileType.ANL: self.anl_files,
+        }[ftype]
+
+    def nfiles(self, file_type: FileType | str = FileType.CHK) -> int:
+        return len(self._catalog(_file_type(file_type))["by index"])
+
+    def load(
+        self,
+        file_index: int = 0,
+        file_number: Optional[int] = None,
+        file_type: FileType | str = FileType.CHK,
+        fields=None,
+    ) -> None:
+        ftype = _file_type(file_type)
+        if ftype in _NOT_PORTED:
+            raise NotImplementedError(
+                f"file_type={ftype.name}: not ported yet (ROADMAP {_NOT_PORTED[ftype]})"
+            )
+        if ftype is not FileType.UNI:
+            raise ValueError(f"Cannot load file type {ftype}")
+
+        lookup = "by index" if file_number is None else "by number"
+        key = file_index if file_number is None else file_number
+        catalog = self._catalog(ftype)
+        if key not in catalog[lookup]:
+            raise ValueError(f"{ftype.name} file {lookup} {key} not found")
+
+        self.mesh = FlashUniform(filename=catalog[lookup][key], device=self.device)
+        self.mesh.load()
+        if fields:
+            self.mesh.load_data(names=fields)

@@ -1,0 +1,30 @@
+"""Host utilities: type tables, exceptions, timing, device/dtype policy."""
+
+from fava_tpu_torch.utils._exceptions import (
+    InvalidAnalysisError,
+    InvalidMeshError,
+    NotCallableError,
+)
+from fava_tpu_torch.utils._types import HID_T, NP_T
+from fava_tpu_torch.utils.precision import (
+    accum_dtype,
+    field_dtype,
+    numpy_dtype,
+    resolve_device,
+)
+from fava_tpu_torch.utils.timing import reset_timings, timer, timings
+
+__all__ = [
+    "HID_T",
+    "NP_T",
+    "InvalidAnalysisError",
+    "InvalidMeshError",
+    "NotCallableError",
+    "accum_dtype",
+    "field_dtype",
+    "numpy_dtype",
+    "reset_timings",
+    "resolve_device",
+    "timer",
+    "timings",
+]
