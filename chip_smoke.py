@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the fava_tpu_torch flagship path on one NVIDIA GPU.
+"""Smoke run of the fava_tpu_torch flagship and AMR paths on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -22,6 +22,24 @@ no result):
 5. timings: warm per-snapshot wall of the single step and of the batch
    of 4 (host clock around synchronized work), a per-stage breakdown and
    each kernel against its plain version (CUDA events).
+6. AMR file: ``io.synthetic.make_amr_file`` writes an rtflame-like plt
+   file in a temporary directory: 16^3-cell blocks on a 4x1x1 root grid
+   over [0,4]x[0,1]x[0,1], refined by x position to level 6 around the
+   flame (39,076 blocks, 34,192 leaves, finest grid 2048x512x512, 0.64 GB
+   per float32 field); ``FLASH(d).load(file_type="plt")`` and the four
+   velocity/density fields read onto the card, timed per field.
+7. AMR kernels: K5/K6 on the leaf stack and K7 on the full-domain regrid
+   (2048x512x512, scales 1-16) against their plain versions.
+8. AMR path, each step with the launch counters reset before and checked
+   after: ``reynolds_stress`` and ``favre_profiles`` (K5, K6);
+   ``mesh.from_amr`` of the window [1.5,2.5]x[0,1]x[0,1] to 512^3 with
+   the uniform file written (K7), the window equal to the plain regrid;
+   the file read back as ``uni`` and equal to the regridded tensors;
+   its ``flagship_analysis`` (K1-K4), finite with the static counts. The
+   profiles are then held to the plain float64 path on the CPU.
+9. AMR timings: file synthesis and write, HDF5->card per field, the
+   leaf gather, K5, K6, scatter and assembly, K7, the uniform write and
+   read-back and the window's flagship step.
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -34,6 +52,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -41,13 +60,26 @@ HERE = Path(__file__).resolve().parent
 N = 512
 NSNAP = 4
 NAMES = ("dens", "velx", "vely", "velz")
-SOURCE = "fava_tpu_torch/csrc/flagship_kernels.cu"
+SOURCES = {
+    "row_moments": "fava_tpu_torch/csrc/flagship_kernels.cu",
+    "centered_row_moments": "fava_tpu_torch/csrc/flagship_kernels.cu",
+    "fold_quadrants_pair": "fava_tpu_torch/csrc/flagship_kernels.cu",
+    "shell_bin_values_folded": "fava_tpu_torch/csrc/flagship_kernels.cu",
+    "block_row_moments": "fava_tpu_torch/csrc/amr_kernels.cu",
+    "block_centered_row_moments": "fava_tpu_torch/csrc/amr_kernels.cu",
+    "regrid_fields": "fava_tpu_torch/csrc/amr_kernels.cu",
+}
 REPLACES = {
     "row_moments": "fava_tpu/ops/pallas_kernels.py:95",
     "centered_row_moments": "fava_tpu/ops/pallas_kernels.py:200",
     "fold_quadrants_pair": "fava_tpu/ops/pallas_kernels.py:678",
     "shell_bin_values_folded": "fava_tpu/ops/pallas_kernels.py:955",
+    "block_row_moments": "fava_tpu/ops/pallas_kernels.py:331",
+    "block_centered_row_moments": "fava_tpu/ops/pallas_kernels.py:352",
+    "regrid_fields": "fava_tpu/ops/pallas_regrid.py:78",
 }
+FLAGSHIP_KERNELS = tuple(REPLACES)[:4]
+AMR_KERNELS = tuple(REPLACES)[4:]
 # Kernel vs plain float64 version on the same values (see phase_kernels).
 TOL_MOMENTS = 1e-10  # of the sum of |terms|: f64 sums of 2.6e5 terms, n*eps ~ 3e-11
 TOL_FOLD = 2e-7  # relative: <= 3 float32 roundings of a sum of <= 4 positive terms
@@ -57,6 +89,28 @@ TOL_BIN = 1e-9  # relative per shell: f64 sums of <= ~1e6 positive terms in anot
 # float32 FFT and power rounding; the profiles only summation order.
 TOL_SPECTRA = 1e-5
 TOL_PROFILES = 1e-9
+
+# The AMR path (phases 6-9): an rtflame-like tree, refined around the
+# flame at x in [1.5, 2.5] (see amr_refine), and the flame window regridded
+# to 512^3. The plain float64 path reads the same float32 file values, so
+# the profiles differ only in summation order (bound as TOL_PROFILES).
+AMR_NCELLS = (16, 16, 16)
+AMR_NBLKS = (4, 1, 1)
+AMR_DOMAIN = ((0.0, 4.0), (0.0, 1.0), (0.0, 1.0))
+AMR_LEVELS = ((1.5, 2.5, 6), (1.375, 2.625, 5), (1.125, 2.875, 4))  # (lo, hi, level) bands
+AMR_BASE_LEVEL = 2
+AMR_WINDOW = ((1.5, 2.5), (0.0, 1.0), (0.0, 1.0))
+AMR_EXPECT = {"blocks": 39076, "leaves": 34192, "window": (512, 512, 512), "full": (2048, 512, 512)}
+
+
+def amr_refine(bounds, level):
+    """Target level of a block by its x extent: the flame band and the
+    two shoulders around it, coarse elsewhere."""
+    lo, hi = bounds[0]
+    for band_lo, band_hi, target in AMR_LEVELS:
+        if hi > band_lo and lo < band_hi:
+            return target
+    return AMR_BASE_LEVEL
 
 
 def fail(msg: str) -> None:
@@ -255,7 +309,7 @@ def phase_main(torch, np, fields):
     out = model.flagship_analysis()
     launches = ck.launch_counts()
     say(f"phase 4 flagship_analysis launches: {launches}")
-    if any(v == 0 for v in launches.values()):
+    if any(launches[k] == 0 for k in FLAGSHIP_KERNELS):
         fail(f"a kernel of the path was never launched: {launches}")
     check_outputs(np, out, (N, N, N), "single")
 
@@ -286,7 +340,7 @@ def phase_main(torch, np, fields):
     torch.cuda.synchronize()
     s_launch = ck.launch_counts()
     say(f"phase 4 series_analysis_step x{NSNAP} launches: {s_launch}")
-    if any(v != NSNAP for v in s_launch.values()):
+    if any(s_launch[k] != NSNAP for k in FLAGSHIP_KERNELS):
         fail(f"series run launched {s_launch}, expected {NSNAP} each")
     series = {k: v.cpu().numpy() for k, v in series.items()}
     check_outputs(np, series, (N, N, N), "series")
@@ -377,6 +431,273 @@ def phase_timings(torch, fields, model, batch, card):
     }
     say(f"phase 5 timings: {json.dumps(timings)}")
 
+# ---------------------------------------------------------------------------
+# Phase 6: the AMR file and its load
+
+
+def phase_amr_file(torch, np, workdir: Path):
+    import fava_tpu_torch
+    from fava_tpu_torch.io import synthetic
+
+    t0 = time.perf_counter()
+    synthetic.make_amr_file(
+        workdir / "rt_hdf5_plt_cnt_0001", ncells=AMR_NCELLS, nblks=AMR_NBLKS,
+        domain=np.array(AMR_DOMAIN), refine_fn=amr_refine,
+    )
+    synth_s = time.perf_counter() - t0
+    model = fava_tpu_torch.FLASH(workdir)
+    model.load(file_type="plt")
+    mesh = model.mesh
+    leaves = int(mesh.get_blocklist("LEAF").size)
+    say(f"phase 6 AMR file: {mesh.nblocks} blocks, {leaves} leaves, levels "
+        f"{sorted(set(np.asarray(mesh.refine_level).tolist()))}, file "
+        f"{(workdir / 'rt_hdf5_plt_cnt_0001').stat().st_size / 1e9:.3f} GB, synthesis and write "
+        f"{synth_s!r} s")
+    if (mesh.nblocks, leaves) != (AMR_EXPECT["blocks"], AMR_EXPECT["leaves"]):
+        fail(f"AMR tree has {mesh.nblocks} blocks / {leaves} leaves, expected "
+             f"{AMR_EXPECT['blocks']} / {AMR_EXPECT['leaves']}")
+    load_s = {}
+    for name in NAMES:
+        t0 = time.perf_counter()
+        mesh.load_data([name])
+        torch.cuda.synchronize()
+        load_s[name] = time.perf_counter() - t0
+        if mesh._data[name].device.type != "cuda" or mesh._data[name].dtype != torch.float32:
+            fail(f"{name} was not read onto the card as float32")
+    say(f"phase 6 HDF5->card seconds per field: {load_s}")
+    return model, {"synthesis_and_write_s": synth_s, "hdf5_to_card_s": load_s}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: K5-K7 against their plain versions at the AMR path's shapes
+
+
+def phase_amr_kernels(torch, np, mesh):
+    from fava_tpu_torch.ops import cuda_kernels as ck
+    from fava_tpu_torch.ops import profiles
+    from fava_tpu_torch.ops.regrid import RegridPlan
+
+    geom = mesh._profile_geometry(0)
+    leaf = profiles._leaf_fields(mesh._profile_fields(), geom)
+    nb, ncx, ncy, ncz = leaf[0].shape
+    rows = {}
+
+    def as_rows(t):  # (nB, ncx, ncy, ncz) -> (nB*ncx, ncy, ncz): one x row per volume row
+        return t.reshape(nb * ncx, ncy, ncz)
+
+    def record(name, got, ref, mag, kernel_fn, plain_fn):
+        max_abs = float((got - ref).abs().max())
+        ratio = float(((got - ref).abs() / (TOL_MOMENTS * mag).clamp(min=1e-300)).max())
+        say(f"phase 7 {name}: max_abs_err {max_abs!r}, error/bound {ratio!r} "
+            f"(bound {TOL_MOMENTS!r} of the sum of |terms|), shape {tuple(got.shape)}")
+        if not ratio <= 1.0:
+            fail(f"{name} disagrees with its plain version (error/bound {ratio!r})")
+        rows[name] = {"max_abs_err": max_abs, "ms": cuda_ms(torch, kernel_fn, 20),
+                      "plain_ms": cuda_ms(torch, plain_fn, 3)}
+
+    f64 = [f.double() for f in leaf]
+    got = ck.block_row_moments(*leaf)
+    torch.cuda.synchronize()
+    ref = ck._block_row_moments_plain(*f64)
+    mag = ck._block_row_moments_plain(*(f.abs() for f in f64))
+    record("block_row_moments", got, ref, mag, lambda: ck.block_row_moments(*leaf),
+           lambda: ck._block_row_moments_plain(*leaf))
+
+    means = (ref[1:4] / (ncy * ncz)).contiguous()
+    got = ck.block_centered_row_moments(*leaf, means)
+    torch.cuda.synchronize()
+    ref = ck._block_centered_plain(*f64, means)
+    cabs = [as_rows((v - m[..., None, None]).abs()) for v, m in zip(f64[1:], means)]
+    amom = ck._row_moments_plain(as_rows(f64[0]), *cabs)
+    del cabs
+    mag = torch.cat([amom[7:13], amom[4:7]]).reshape(9, nb, ncx)
+    record("block_centered_row_moments", got, ref, mag,
+           lambda: ck.block_centered_row_moments(*leaf, means),
+           lambda: ck._block_centered_plain(*leaf, means))
+    del f64, amom, mag, ref, got, leaf
+    torch.cuda.empty_cache()
+
+    # K7 on the full-domain regrid of the density (scales 1-16): exact.
+    plan = RegridPlan(
+        block_bounds=mesh.block_bounds, node_type=np.asarray(mesh.node_type),
+        refine_level=np.asarray(mesh.refine_level), ncells_vec=mesh.nCellsVec,
+        nblks_vec=mesh.nBlksVec, ndim=mesh.ndim,
+    )
+    scales = plan.block_scales[plan.source_ids]
+    args = (*plan.device_tables(mesh._data["dens"].device), plan.out_shape,
+            tuple(plan.out_origin), tuple(plan.ncells_vec))
+    stacks = [mesh._data["dens"]]
+    got = ck.regrid_fields(stacks, *args)[0]
+    torch.cuda.synchronize()
+    ref = ck._regrid_plain(stacks, *args)[0]
+    exact = torch.equal(got, ref)
+    say(f"phase 7 regrid_fields full domain: shape {tuple(got.shape)}, scales "
+        f"{int(scales.min())}-{int(scales.max())}, equal to the plain regrid: {exact}")
+    if tuple(got.shape) != AMR_EXPECT["full"] or not exact:
+        fail("the full-domain regrid disagrees with its plain version")
+    del got, ref
+    full = {"ms": cuda_ms(torch, lambda: ck.regrid_fields(stacks, *args), 10),
+            "plain_ms": cuda_ms(torch, lambda: ck._regrid_plain(stacks, *args), 3)}
+    say(f"phase 7 regrid_fields full domain, dens only: {full}")
+    torch.cuda.empty_cache()
+    return rows, full
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the AMR path
+
+
+def counted(torch, ck, what, fn, expect):
+    """fn() with the launch counters reset before and read after; fails
+    unless every kernel in ``expect`` was launched."""
+    ck.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = ck.launch_counts()
+    say(f"phase 8 {what} launches: {launches}")
+    missing = [k for k in expect if launches[k] == 0]
+    if missing:
+        fail(f"{what} never launched {missing}")
+    return out, launches
+
+
+def compare_profiles(np, got, ref, vmax, dmax, what):
+    """max |diff| / scale of every profile array, floored as phase 4: by
+    the velocity scale for velocities, by dmax*vmax^2 for stresses."""
+    errs = {}
+
+    def walk(g, r, key):
+        if isinstance(r, (dict, tuple)):
+            for k in (r if isinstance(r, dict) else range(len(r))):
+                walk(g[k], r[k], f"{key}/{k}")
+            return
+        g, r = np.asarray(g), np.asarray(r)
+        if g.shape != r.shape or not np.isfinite(g).all():
+            fail(f"{what} {key}: shape {g.shape} vs {r.shape}, or not finite")
+        floor = dmax * vmax**2 if "/R" in key else (vmax if "vel" in key else 0.0)
+        scale = max(float(np.abs(r).max()), floor)
+        errs[key] = float(np.abs(g - r).max() / scale) if scale > 0 else 0.0
+
+    walk(got, ref, what)
+    worst = max(errs.values())
+    say(f"phase 8 {what} vs the plain float64 path: max |diff|/scale {worst!r} over "
+        f"{len(errs)} arrays (bound {TOL_PROFILES!r})")
+    if not worst <= TOL_PROFILES:
+        fail(f"{what} disagrees with the plain float64 path: {errs}")
+    return worst
+
+
+def amr_stage_ms(torch, mesh):
+    """Device ms of the leaf gather, K5 and K6 of one reynolds_stress
+    (CUDA events between the stages)."""
+    from fava_tpu_torch.ops import cuda_kernels as ck
+    from fava_tpu_torch.ops import profiles
+
+    data, geom = mesh._profile_fields(), mesh._profile_geometry(0)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    leaf = profiles._leaf_fields(data, geom)
+    ev[1].record()
+    raw = ck.block_row_moments(*leaf)
+    ev[2].record()
+    row_cells = leaf[0].shape[2] * leaf[0].shape[3]
+    ck.block_centered_row_moments(*leaf, (raw[1:4] / row_cells).contiguous())
+    ev[3].record()
+    torch.cuda.synchronize()
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(("leaf_gather", "K5", "K6"))}
+
+
+def phase_amr_path(torch, np, model, workdir: Path):
+    import fava_tpu_torch
+    from fava_tpu_torch.ops import cuda_kernels as ck
+    from fava_tpu_torch.ops.regrid import RegridPlan
+
+    mesh = model.mesh
+    totals = dict.fromkeys(AMR_KERNELS, 0)
+    rs, n = counted(torch, ck, "reynolds_stress", model.reynolds_stress, AMR_KERNELS[:2])
+    fav, n2 = counted(torch, ck, "favre_profiles", model.favre_profiles, AMR_KERNELS[:2])
+    for k in AMR_KERNELS:
+        totals[k] += n[k] + n2[k]
+    if rs[1]["Rxx"].shape != (AMR_EXPECT["full"][0],):
+        fail(f"x-profiles have {rs[1]['Rxx'].shape} bins, expected {AMR_EXPECT['full'][0]}")
+    times = {"reynolds_stress_wall_s": wall_per_call(torch, model.reynolds_stress, 3)}
+    amr_stage_ms(torch, mesh)
+    stages = amr_stage_ms(torch, mesh)
+    stages["scatter_and_assembly"] = (
+        1e3 * statistics.median(times["reynolds_stress_wall_s"]) - sum(stages.values())
+    )
+    times["reynolds_stress_stage_ms"] = stages
+
+    window = np.array(AMR_WINDOW)
+    stacks = [mesh._field_stack(k) for k in NAMES]
+    plan = RegridPlan(
+        block_bounds=mesh.block_bounds, node_type=np.asarray(mesh.node_type),
+        refine_level=np.asarray(mesh.refine_level), ncells_vec=mesh.nCellsVec,
+        nblks_vec=mesh.nBlksVec, ndim=mesh.ndim, subdomain_coords=window,
+    )
+    uni_path = workdir / "rt_hdf5_uniform_0001"
+    t0 = time.perf_counter()
+    _, n = counted(torch, ck, "from_amr", lambda: mesh.from_amr(
+        subdomain_coords=window, fields=list(NAMES), filename=uni_path), AMR_KERNELS[2:])
+    times["from_amr_with_write_s"] = time.perf_counter() - t0
+    totals["regrid_fields"] += n["regrid_fields"]
+    regridded = [mesh._data[k] for k in NAMES]
+    if tuple(regridded[0].shape) != AMR_EXPECT["window"]:
+        fail(f"window regridded to {tuple(regridded[0].shape)}")
+    tables = (*plan.device_tables(regridded[0].device), plan.out_shape,
+              tuple(plan.out_origin), tuple(plan.ncells_vec))
+    twin = ck._regrid_plain(stacks, *tables)
+    max_abs = max(float((r - t).abs().max()) for r, t in zip(regridded, twin))
+    if not all(torch.equal(r, t) for r, t in zip(regridded, twin)):
+        fail(f"the regridded window differs from the plain regrid (max |diff| {max_abs!r})")
+    del twin
+    window_ms = {"max_abs_err": max_abs,
+                 "ms": cuda_ms(torch, lambda: ck.regrid_fields(stacks, *tables), 10),
+                 "plain_ms": cuda_ms(torch, lambda: ck._regrid_plain(stacks, *tables), 3)}
+    say(f"phase 8 from_amr window {AMR_WINDOW} -> {AMR_EXPECT['window']}: equal to the plain "
+        f"regrid; K7 (4 fields) {window_ms}")
+    del stacks, model
+    torch.cuda.empty_cache()
+    extra = workdir / "rt_hdf5_uniform_0002"
+    t0 = time.perf_counter()
+    mesh.save(extra, names=list(NAMES))
+    times["uniform_write_s"] = time.perf_counter() - t0
+    extra.unlink()
+
+    t0 = time.perf_counter()
+    uni = fava_tpu_torch.FLASH(workdir)
+    uni.load(file_type="uni", fields=list(NAMES))
+    torch.cuda.synchronize()
+    times["uniform_read_back_s"] = time.perf_counter() - t0
+    if not all(torch.equal(uni.mesh.data(k), r) for k, r in zip(NAMES, regridded)):
+        fail("the uniform file read back differs from the regridded tensors")
+    say(f"phase 8 uniform file {uni_path.stat().st_size / 1e9:.3f} GB read back: equal to the "
+        "regridded tensors")
+    del regridded, mesh
+    torch.cuda.empty_cache()
+
+    out, _ = counted(torch, ck, "window flagship_analysis", uni.flagship_analysis, FLAGSHIP_KERNELS)
+    check_outputs(np, out, AMR_EXPECT["window"], "single")
+    say("phase 8 window flagship outputs: finite, expected shapes, static counts")
+    times["window_flagship_analysis_s"] = wall_per_call(torch, uni.flagship_analysis, 3)
+    del uni
+    torch.cuda.empty_cache()
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    cpu = fava_tpu_torch.FLASH(workdir, device="cpu")
+    cpu.load(file_type="plt")
+    rs_ref, fav_ref = cpu.reynolds_stress(), cpu.favre_profiles()
+    vmax = max(float(cpu.mesh.data(k).abs().max()) for k in NAMES[1:])
+    dmax = float(cpu.mesh.data("dens").abs().max())
+    say(f"phase 8 plain float64 profiles on the CPU: {time.perf_counter() - t0:.1f} s")
+    del cpu
+    times["profile_errors"] = {
+        "reynolds_stress": compare_profiles(np, rs[1:], rs_ref[1:], vmax, dmax, "reynolds_stress"),
+        "favre_profiles": compare_profiles(np, fav, fav_ref, vmax, dmax, "favre_profiles"),
+    }
+    return totals, window_ms, times
+
 
 def main() -> None:
     sys.path.insert(0, str(HERE))
@@ -397,15 +718,38 @@ def main() -> None:
 
     from fava_tpu_torch import flagship
 
+    from fava_tpu_torch.utils import timing
+
+    timing.VERBOSE = False
     fields = flagship.make_example_fields(N)
     rows = phase_kernels(torch, fields)
     launches, _errs, model, batch = phase_main(torch, np, fields)
     phase_timings(torch, fields, model, batch, card)
+    del fields, model, batch
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="fava_amr_") as tmp:
+        workdir = Path(tmp)
+        amr_model, amr_times = phase_amr_file(torch, np, workdir)
+        amr_rows, full_ms = phase_amr_kernels(torch, np, amr_model.mesh)
+        amr_times["regrid_full_domain_dens_ms"] = full_ms
+        rows.update(amr_rows)
+        amr_launches, window_ms, path_times = phase_amr_path(torch, np, amr_model, workdir)
+        del amr_model
+    rows["regrid_fields"] = window_ms
+    launches.update(amr_launches)
+    amr_times.update(path_times)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+    )
+    amr_times.update({"card": card, "nvidia_smi_after": smi.stdout.strip()})
+    say(f"phase 9 AMR timings: {json.dumps(amr_times)}")
 
     if any(m.split(".")[0] in ("jax", "fava_tpu") for m in sys.modules):
         fail("JAX or fava_tpu was imported")
     kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], **rows[name]}
         for name in REPLACES
     ]

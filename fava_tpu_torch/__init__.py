@@ -1,9 +1,12 @@
 """fava_tpu_torch: the PyTorch/CUDA port of fava_tpu for NVIDIA Hopper.
 
 A second package beside the JAX reference ``fava_tpu``, ported slice by
-slice (ROADMAP.md). This slice runs the flagship analysis — kinetic-
-energy spectra plus Reynolds-stress and Favre x-profiles of a uniform
-volume — through four hand-written CUDA kernels. Every public entry
+slice (ROADMAP.md). It runs the flagship analysis — kinetic-energy
+spectra plus Reynolds-stress and Favre x-profiles of a uniform volume —
+and the AMR path: FLASH plt/chk files, block-stack Reynolds and Favre
+profiles, and the regrid of a window onto a uniform file
+(``mesh.from_amr``), through seven hand-written CUDA kernels
+(``ops/cuda_kernels.py``). Every public entry
 takes ``device=`` ("cuda" by default); asking for CUDA where there is
 none raises. This package imports neither jax nor fava_tpu.
 """

@@ -1,5 +1,17 @@
 """Analyses registered onto the port's Model (importing registers them)."""
 
-from fava_tpu_torch.analysis import flagship_analysis  # noqa: F401
+from fava_tpu_torch.analysis import (  # noqa: F401
+    favre_profiles,
+    flagship_analysis,
+    reynolds_stress,
+    slice_average,
+    slice_integration,
+)
 
-__all__ = ["flagship_analysis"]
+__all__ = [
+    "favre_profiles",
+    "flagship_analysis",
+    "reynolds_stress",
+    "slice_average",
+    "slice_integration",
+]

@@ -13,9 +13,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_moments.cuh"
+
 namespace {
 
-constexpr unsigned kFullMask = 0xffffffffu;
+using fava::CenteredCell;
+using fava::kFullMask;
+using fava::launch_status;
+using fava::RawCell;
+using fava::row_sweep;
+
 constexpr int kRowThreads = 256;  // threads of a row-moment block
 constexpr int kBinThreads = 256;  // threads of a binning block (8 warps)
 
@@ -32,72 +39,8 @@ constexpr int kBinThreads = 256;  // threads of a binning block (8 warps)
 // written by one block, so results are deterministic and need no atomics.
 // The TPU's sequential grid carried nothing between rows either, so the
 // design maps directly; K2 reads the row means from a device pointer in
-// place of the TPU's scalar prefetch.
-
-struct RawCell {  // [d, vx, vy, vz, dvx, dvy, dvz, dvxvx, dvxvy, dvxvz, dvyvy, dvyvz, dvzvz]
-  __device__ __forceinline__ void operator()(double (&a)[13], float fd, float fx, float fy,
-                                             float fz) const {
-    const double d = fd, x = fx, y = fy, z = fz;
-    const double dx = d * x, dy = d * y, dz = d * z;
-    a[0] += d;
-    a[1] += x;
-    a[2] += y;
-    a[3] += z;
-    a[4] += dx;
-    a[5] += dy;
-    a[6] += dz;
-    a[7] += dx * x;
-    a[8] += dx * y;
-    a[9] += dx * z;
-    a[10] += dy * y;
-    a[11] += dy * z;
-    a[12] += dz * z;
-  }
-};
-
-struct CenteredCell {  // [d*ci*cj for xx,xy,xz,yy,yz,zz, then d*ci for x,y,z]
-  double mx, my, mz;
-  __device__ __forceinline__ void operator()(double (&a)[9], float fd, float fx, float fy,
-                                             float fz) const {
-    const double d = fd;
-    const double cx = fx - mx, cy = fy - my, cz = fz - mz;
-    const double dcx = d * cx, dcy = d * cy, dcz = d * cz;
-    a[0] += dcx * cx;
-    a[1] += dcx * cy;
-    a[2] += dcx * cz;
-    a[3] += dcy * cy;
-    a[4] += dcy * cz;
-    a[5] += dcz * cz;
-    a[6] += dcx;
-    a[7] += dcy;
-    a[8] += dcz;
-  }
-};
-
-template <int N, typename Cell>
-__device__ __forceinline__ void row_sweep(const float* __restrict__ d, const float* __restrict__ vx,
-                                          const float* __restrict__ vy, const float* __restrict__ vz,
-                                          int64_t len, bool vec, double (&acc)[N], const Cell& cell) {
-  int64_t start = 0;
-  if (vec) {
-    const float4* d4 = reinterpret_cast<const float4*>(d);
-    const float4* x4 = reinterpret_cast<const float4*>(vx);
-    const float4* y4 = reinterpret_cast<const float4*>(vy);
-    const float4* z4 = reinterpret_cast<const float4*>(vz);
-    const int64_t n4 = len >> 2;
-    for (int64_t i = threadIdx.x; i < n4; i += blockDim.x) {
-      const float4 a = __ldg(d4 + i), b = __ldg(x4 + i), c = __ldg(y4 + i), e = __ldg(z4 + i);
-      cell(acc, a.x, b.x, c.x, e.x);
-      cell(acc, a.y, b.y, c.y, e.y);
-      cell(acc, a.z, b.z, c.z, e.z);
-      cell(acc, a.w, b.w, c.w, e.w);
-    }
-    start = n4 << 2;
-  }
-  for (int64_t i = start + threadIdx.x; i < len; i += blockDim.x) {
-    cell(acc, __ldg(d + i), __ldg(vx + i), __ldg(vy + i), __ldg(vz + i));
-  }
-}
+// place of the TPU's scalar prefetch. The cell functors and the row sweep
+// live in row_moments.cuh, shared with the AMR block-stack kernels K5, K6.
 
 // Sums acc[m] over the block and stores it at out[m * stride + col].
 template <int N>
@@ -133,7 +76,8 @@ row_moments_kernel(const float* __restrict__ d, const float* __restrict__ vx,
   const int64_t x = blockIdx.x;
   const int64_t off = x * len;
   double acc[13] = {};
-  row_sweep(d + off, vx + off, vy + off, vz + off, len, vec != 0, acc, RawCell{});
+  row_sweep(d + off, vx + off, vy + off, vz + off, len, vec != 0, (int)threadIdx.x,
+            (int)blockDim.x, acc, RawCell{});
   block_sum_store(acc, out, nx, x);
 }
 
@@ -146,7 +90,8 @@ centered_row_moments_kernel(const float* __restrict__ d, const float* __restrict
   const int64_t off = x * len;
   const CenteredCell cell{means[x], means[nx + x], means[2 * nx + x]};
   double acc[9] = {};
-  row_sweep(d + off, vx + off, vy + off, vz + off, len, vec != 0, acc, cell);
+  row_sweep(d + off, vx + off, vy + off, vz + off, len, vec != 0, (int)threadIdx.x,
+            (int)blockDim.x, acc, cell);
   block_sum_store(acc, out, nx, x);
 }
 
@@ -283,8 +228,6 @@ shell_bin_folded_kernel(const float* __restrict__ t, const float* __restrict__ l
     if (v != 0.0) atomicAdd(&out[b], v);
   }
 }
-
-int launch_status() { return (int)cudaGetLastError(); }
 
 }  // namespace
 

@@ -1,4 +1,4 @@
-"""FLASH HDF5 readers."""
+"""FLASH HDF5 readers and writers, and synthetic FLASH files (``io.synthetic``)."""
 
 from fava_tpu_torch.io import flash_file
 

@@ -1,17 +1,23 @@
-"""FLASH HDF5 readers (read side of fava_tpu/io/flash_file.py:44-163).
+"""FLASH HDF5 readers and writers (fava_tpu/io/flash_file.py:44-276).
 
 Parameter tables ("real scalars", "integer runtime parameters", ...),
 the "unknown names" list, UNK field datasets (stored (nblocks, nz, ny,
-nx); returned (nblocks, nx, ny, nz)) and block metadata. The readers
-take an open ``h5py.File``; the callers that open files import h5py
-themselves, so importing this module needs no h5py.
+nx); read onto a device as (nblocks, nx, ny, nz) tensors) and block
+metadata. The readers
+and writers take an open ``h5lite.File`` (the port's own HDF5 codec,
+``io/h5lite.py``; h5py's File offers the same calls).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
+
+from fava_tpu_torch.io import h5lite
+from fava_tpu_torch.utils import HID_T
 
 PARAMETER_KINDS = ("real", "integer", "logical", "string")
 
@@ -29,6 +35,8 @@ FIELD_MAPPING: Dict[str, str] = {
     "velocity-divergence": "divv",
     "vorticity": "vort",
 }
+
+NGUARD: int = 4
 
 
 def _decode(value: Any) -> Any:
@@ -74,19 +82,23 @@ def read_unknown_names(handle) -> List[str]:
     return [_decode(n).strip() if isinstance(_decode(n), str) else str(n) for n in names]
 
 
-def read_field(handle, name: str, dtype=np.float64) -> np.ndarray:
-    """Read one UNK dataset, swapping the grid I and K axes.
+def read_field(handle, name: str, device, dtype: torch.dtype) -> torch.Tensor:
+    """Read one UNK dataset onto ``device`` as ``dtype``, swapping the
+    grid I and K axes.
 
     FLASH files store (nblocks, nzb, nyb, nxb); this returns
-    (nblocks, nxb, nyb, nzb) (3D for bare volumes) in ``dtype``.
+    (nblocks, nxb, nyb, nzb) (3D for bare volumes). The stored bytes go
+    to the device as they are and the swap happens there: on the card it
+    takes milliseconds, where a host transpose of a 512^3 field takes
+    seconds.
     """
     key = f"{name:4s}" if len(name) < 4 else name
     if key not in handle and name in handle:
         key = name
     if key not in handle:
         raise KeyError(f"{name} field not found in dataset")
-    raw = handle[key][()]
-    return np.ascontiguousarray(np.swapaxes(raw, -1, -3), dtype=dtype)
+    raw = torch.from_numpy(handle[key][()]).to(device=device, dtype=dtype)
+    return raw.transpose(-1, -3).contiguous()
 
 
 def read_block_metadata(handle) -> Dict[str, np.ndarray]:
@@ -108,3 +120,138 @@ def read_block_metadata(handle) -> Dict[str, np.ndarray]:
             data = handle[key][()]
             out[key] = data.astype(np.int64 if key in int_keys else np.float64)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Writers
+
+
+def _write_parameter_table(handle, name: str, params: Dict[str, Any], kind: str) -> None:
+    if kind == "real":
+        dtype = HID_T.F64_PARAMETER
+        conv = float
+    elif kind == "integer":
+        dtype = HID_T.I32_PARAMETER
+        conv = int
+    elif kind == "logical":
+        dtype = HID_T.BOOL_PARAMETER
+        conv = int
+    elif kind == "string":
+        dtype = HID_T.STR_PARAMETER
+        conv = lambda v: f"{v:<256s}".encode()
+    else:
+        raise ValueError(f"Unknown parameter kind {kind}")
+
+    data = np.array(
+        [(f"{k:<256s}".encode(), conv(v)) for k, v in params.items()],
+        dtype=dtype,
+    )
+    handle.create_dataset(name, data=data)
+
+
+def write_parameters(
+    handle,
+    scalars: Dict[str, Dict[str, Any]],
+    runtime_parameters: Dict[str, Dict[str, Any]],
+) -> None:
+    for kind in PARAMETER_KINDS:
+        _write_parameter_table(
+            handle, f"{kind} runtime parameters", runtime_parameters.get(kind, {}), kind
+        )
+        _write_parameter_table(handle, f"{kind} scalars", scalars.get(kind, {}), kind)
+
+
+def write_block_metadata(
+    handle,
+    *,
+    coordinates: np.ndarray,
+    block_size: np.ndarray,
+    bounding_box: np.ndarray,
+    node_type: np.ndarray,
+    refine_level: np.ndarray,
+    gid: np.ndarray,
+    which_child: np.ndarray,
+    bflags: np.ndarray,
+    processor_number: Optional[np.ndarray] = None,
+    chk_file: bool = False,
+) -> None:
+    FT = HID_T.F64 if chk_file else HID_T.F32
+    for key, value in (
+        ("coordinates", coordinates),
+        ("block size", block_size),
+        ("bounding box", bounding_box),
+    ):
+        handle.create_dataset(key, data=np.asarray(value, dtype=np.float64), dtype=FT)
+    for key, value in (
+        ("node type", node_type),
+        ("refine level", refine_level),
+        ("gid", gid),
+        ("which child", which_child),
+        ("bflags", bflags),
+        ("processor number", processor_number),
+    ):
+        if value is not None:
+            handle.create_dataset(key, data=np.asarray(value, dtype=np.int32), dtype=HID_T.I32)
+
+
+def write_unknown_names(handle, names: Sequence[str]) -> None:
+    """The "unknown names" dataset. FLASH UNK names are S4 records, and
+    numpy would silently truncate a longer name (recording b'myfi' for a
+    dataset written as 'myfield'), so longer names raise here."""
+    too_long = [n for n in names if len(n) > 4]
+    if too_long:
+        raise ValueError(
+            f"FLASH field names must be <= 4 characters (S4 'unknown names' "
+            f"records); got {too_long}"
+        )
+    data = np.array([[f"{n:4s}".encode()] for n in names], dtype=HID_T.UNKNOWN_NAMES)
+    handle.create_dataset("unknown names", data=data, dtype=HID_T.UNKNOWN_NAMES)
+
+
+def write_field(handle, name: str, data, chk_file: bool = False) -> None:
+    """Write one UNK dataset (a numpy array or a tensor), swapping grid I
+    and K axes back to file order (float64 for checkpoint files, float32
+    otherwise). A tensor is swapped on its own device before it comes to
+    the host."""
+    FT = HID_T.F64 if chk_file else HID_T.F32
+    if isinstance(data, torch.Tensor):
+        swapped = data.transpose(-1, -3).contiguous().cpu().numpy()
+    else:
+        swapped = np.swapaxes(np.asarray(data), -1, -3)
+    handle.create_dataset(name, data=swapped, dtype=FT)
+
+
+def write_mesh_file(
+    path: str | Path,
+    *,
+    scalars: Dict[str, Dict[str, Any]],
+    runtime_parameters: Dict[str, Dict[str, Any]],
+    metadata: Dict[str, np.ndarray],
+    fields: Dict[str, Any],
+    chk_file: bool = False,
+) -> None:
+    """Write a complete FLASH-layout mesh file (uniform/plt/chk); fields
+    are numpy arrays or tensors in grid order."""
+    with h5lite.File(path, "w") as f:
+        write_parameters(f, scalars, runtime_parameters)
+        write_metadata_dict(f, metadata, chk_file)
+        write_unknown_names(f, list(fields.keys()))
+        for name, data in fields.items():
+            write_field(f, name, data, chk_file=chk_file)
+
+
+def write_metadata_dict(handle, metadata: Dict[str, np.ndarray], chk_file: bool) -> None:
+    """``write_block_metadata`` from a dict keyed by the dataset names."""
+    write_block_metadata(
+        handle,
+        coordinates=metadata["coordinates"],
+        block_size=metadata["block size"],
+        bounding_box=metadata["bounding box"],
+        node_type=metadata["node type"],
+        refine_level=metadata["refine level"],
+        gid=metadata["gid"],
+        which_child=metadata["which child"],
+        bflags=metadata["bflags"],
+        processor_number=metadata.get("processor number"),
+        chk_file=chk_file,
+    )

@@ -1,4 +1,4 @@
-"""Mesh classes: FLASH metadata and the uniform-grid mesh."""
+"""Mesh classes: the FLASH AMR mesh and the uniform-grid mesh."""
 
 from fava_tpu_torch.mesh.base import Mesh, Structured, Unstructured
 from fava_tpu_torch.mesh.flash_amr import FLASH

@@ -1,25 +1,50 @@
-"""FLASH mesh metadata: the part of fava_tpu/mesh/flash_amr.py
-(:54-270) that FlashUniform inherits — scalars and runtime parameters,
-the synced integer/real attributes, lazy field reads onto the device,
-and the domain bounds. The AMR analyses wait for ROADMAP A4.
+"""FLASH AMR mesh: reader, geometry queries, and device-resident analyses.
+
+Counterpart of fava_tpu/mesh/flash_amr.py, single device. Field data
+lives as tensors of shape (nblocks, nxb, nyb, nzb) on ``device``
+(float32 on CUDA, float64 on the CPU); block bookkeeping stays as small
+host numpy arrays; the profile analyses and the regrid dispatch to
+``fava_tpu_torch.ops``. The volume, PDF and binned analyses wait for
+ROADMAP A7, the projection and flame window for A8 (they raise
+NotImplementedError naming the item).
 """
 
 from __future__ import annotations
 
 import logging
+from enum import Enum
+from functools import cached_property
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from fava_tpu_torch.io import flash_file
-from fava_tpu_torch.io.flash_file import FIELD_MAPPING
+from fava_tpu_torch.geometry import AXIS, EDGE, GEOMETRY
+from fava_tpu_torch.io import flash_file, h5lite
+from fava_tpu_torch.io.flash_file import FIELD_MAPPING, NGUARD
 from fava_tpu_torch.mesh.base import Structured
 from fava_tpu_torch.models.model import Model
-from fava_tpu_torch.utils import field_dtype, numpy_dtype, resolve_device
+from fava_tpu_torch.ops import profiles as profile_ops
+from fava_tpu_torch.ops import regrid as regrid_ops
+from fava_tpu_torch.utils import field_dtype, resolve_device, timer
 
 logger = logging.getLogger(__name__)
+
+
+class BLOCK_TYPE(Enum):
+    LEAF = 1
+    PARENT = 2
+    ANCESTOR = 3
+    IBDRY = 200
+    JBDRY = 201
+    KBDRY = 202
+    ANY_BDRY = 203
+    ACTIVE = 204
+    ALL = 205
+    TRAVERSED = 254
+    REFINEMENT = 321
+    TRAVERSED_AND_ACTIVE = 278
 
 
 class _SyncedInt:
@@ -55,9 +80,18 @@ class _SyncedInt:
         obj.__dict__[f"_{self.name}"] = value
 
 
+def _not_ported(item: str, what: str):
+    def method(self, *args, **kwargs):
+        raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+    method.__name__ = what
+    method.__doc__ = f"Not ported yet: raises NotImplementedError (ROADMAP {item})."
+    return method
+
+
 @Model.register_mesh()
 class FLASH(Structured):
-    """FLASH (Paramesh) file mesh: metadata and device-resident fields."""
+    """FLASH AMR (Paramesh) plt/chk file mesh on ``device``."""
 
     nxb = _SyncedInt()
     nyb = _SyncedInt()
@@ -65,6 +99,9 @@ class FLASH(Structured):
     nblockx = _SyncedInt()
     nblocky = _SyncedInt()
     nblockz = _SyncedInt()
+    # Both spellings appear in FLASH files; from_amr's collapse to one
+    # block must reach whichever the source carried, or save() writes a
+    # stale block count next to 1-entry block metadata.
     nblocks = _SyncedInt(key="globalnumblocks", aliases=("total blocks",))
     xmin = _SyncedInt(kind="real")
     xmax = _SyncedInt(kind="real")
@@ -77,10 +114,15 @@ class FLASH(Structured):
         super().__init__(*args, **kwargs)
         self.device = resolve_device(device)
         self._filename: Optional[Path] = None
+        self._chk_file = False
         self._loaded = False
         self._data: Dict[str, torch.Tensor] = {}
         self.fields: List[str] = []
         self.filename = filename
+
+    @classmethod
+    def is_this_your_mesh(cls, filename: str | Path, *args, **kwargs) -> bool:
+        return any(fn in str(filename) for fn in ("hdf5_chk_", "hdf5_plt_cnt_"))
 
     # ------------------------------------------------------------------
     @property
@@ -94,19 +136,25 @@ class FLASH(Structured):
         if not isinstance(filename, (str, Path)):
             logger.error("Filename must be a str or Path, not %s", type(filename))
             return
-        self._filename = Path(filename)
+        fn = Path(filename)
+        if fn == self._filename:
+            return
+        self._filename = fn
+        # The checkpoint file-type marker, not a bare substring, and reset
+        # when the mesh moves from a chk file to a plt file: _chk_file
+        # picks the float64 (chk) or float32 write format.
+        self._chk_file = "hdf5_chk_" in fn.name
 
     # ------------------------------------------------------------------
     # Loading
     def load(self) -> None:
         """Read scalars, runtime parameters, and block metadata (not UNK data)."""
-        import h5py
-
         if self._filename is None or not self._filename.is_file():
             raise FileNotFoundError(f"FLASH file does not exist: {self._filename}")
 
         self._data = {}
-        with h5py.File(self._filename, "r") as f:
+        self._delete_cached_properties()
+        with h5lite.File(self._filename, "r") as f:
             self.scalars = flash_file.read_scalars(f)
             self.runtime_parameters = flash_file.read_runtime_parameters(f)
             self._set_integers()
@@ -116,6 +164,7 @@ class FLASH(Structured):
         self.coordinates = meta.get("coordinates")
         self.block_size = meta.get("block size")
         self.block_bounds = meta.get("bounding box")
+        # Uniform files may carry no node types: one leaf.
         self.node_type = meta.get("node type", np.ones(self.nblocks, dtype=np.int64))
         self.refine_level = meta.get("refine level")
         self.gid = meta.get("gid")
@@ -150,17 +199,13 @@ class FLASH(Structured):
         self.zmax = float(reals.get("zmax", 1.0))
 
     def load_data(self, names: Optional[Sequence[str]] = None) -> None:
-        import h5py
-
         fields = list(names) if names is not None else list(self.fields)
-        with h5py.File(self._filename, "r") as f:
+        with h5lite.File(self._filename, "r") as f:
             for field in fields:
                 self._read_field(f, field)
 
     def _read_field(self, handle, name: str) -> None:
-        dtype = field_dtype(self.device)
-        host = flash_file.read_field(handle, name, dtype=numpy_dtype(dtype))
-        self._data[name] = torch.from_numpy(host).to(self.device)
+        self._data[name] = flash_file.read_field(handle, name, self.device, field_dtype(self.device))
 
     def data(self, name: str) -> Optional[torch.Tensor]:
         """Lazy device-resident access to a UNK field (long names mapped)."""
@@ -171,15 +216,395 @@ class FLASH(Structured):
             logger.warning("Cannot find %s in dataset", name)
             return None
         if field not in self._data:
-            import h5py
-
-            with h5py.File(self._filename, "r") as f:
+            with h5lite.File(self._filename, "r") as f:
                 self._read_field(f, field)
         return self._data[field]
+
+    def host_data(self, name: str) -> Optional[np.ndarray]:
+        d = self.data(name)
+        return None if d is None else d.cpu().numpy().astype(np.float64)
+
+    # ------------------------------------------------------------------
+    # Cached / derived geometry
+    def _delete_cached_properties(self) -> None:
+        for key in ("geometry", "domain_volume", "cell_volume_min", "cell_volume_max",
+                    "refine_level_max"):
+            self.__dict__.pop(key, None)
+
+    @cached_property
+    def geometry(self) -> GEOMETRY:
+        return GEOMETRY(self.scalars["string"].get("geometry", "cartesian").lower())
+
+    @cached_property
+    def refine_level_max(self) -> int:
+        return int(np.asarray(self.refine_level).max())
+
+    @cached_property
+    def domain_volume(self) -> float:
+        if self.geometry != GEOMETRY.CARTESIAN:
+            raise NotImplementedError(f"Domain volume not implemented for {self.geometry}")
+        return float(np.prod(np.diff(self.domain_bounds)))
+
+    @cached_property
+    def cell_volume_max(self) -> float:
+        return self.get_cell_volume_from_refinement()
+
+    @cached_property
+    def cell_volume_min(self) -> float:
+        return self.get_cell_volume_from_refinement(self.refine_level_max)
 
     @property
     def domain_bounds(self) -> np.ndarray:
         return np.array(
             [[self.xmin, self.xmax], [self.ymin, self.ymax], [self.zmin, self.zmax]],
             dtype=np.float64,
+        )
+
+    @property
+    def ncells(self) -> int:
+        return self.nxb * self.nyb * self.nzb
+
+    @property
+    def nCellsVec(self) -> np.ndarray:
+        return np.array([self.nxb, self.nyb, self.nzb], dtype=np.int64)
+
+    @property
+    def nBlksVec(self) -> np.ndarray:
+        return np.array([self.nblockx, self.nblocky, self.nblockz], dtype=np.int64)
+
+    @property
+    def blk_beg(self) -> int:
+        """First locally-owned block: this process owns every block."""
+        return 0
+
+    @property
+    def blk_end(self) -> int:
+        """One past the last locally-owned block."""
+        return int(self.nblocks)
+
+    # ------------------------------------------------------------------
+    # Block queries
+    def get_blocklist(self, block_type: str | BLOCK_TYPE = "LEAF") -> np.ndarray:
+        btype = block_type if isinstance(block_type, BLOCK_TYPE) else BLOCK_TYPE[block_type]
+        if btype == BLOCK_TYPE.LEAF:
+            return np.nonzero(np.asarray(self.node_type) == BLOCK_TYPE.LEAF.value)[0].astype(np.int64)
+        if btype == BLOCK_TYPE.ALL:
+            return np.arange(self.nblocks, dtype=np.int64)
+        raise ValueError(f"Do not recognize BLOCK TYPE {btype}")
+
+    def get_cell_volumes(self, block_type: str = "LEAF") -> np.ndarray:
+        blocklist = self.get_blocklist(block_type)
+        levels = np.asarray(self.refine_level)[blocklist]
+        return self._cell_volumes_for_levels(levels)
+
+    def _cell_volumes_for_levels(self, levels: np.ndarray) -> np.ndarray:
+        cells = np.ones_like(levels, dtype=np.float64)
+        nb = [self.nblockx, self.nblocky, self.nblockz]
+        nc = [self.nxb, self.nyb, self.nzb]
+        for a in range(self.ndim):
+            cells *= nc[a] * nb[a] * 2.0 ** (levels - 1)
+        return self.domain_volume / cells
+
+    def get_cell_volume_from_refinement(self, refine_level: int = 1) -> float:
+        return float(self._cell_volumes_for_levels(np.asarray([refine_level]))[0])
+
+    def get_minimum_deltas(self, axis: int) -> float:
+        return float(
+            (self.domain_bounds[axis, 1] - self.domain_bounds[axis, 0])
+            / (self.nCellsVec[axis] * self.nBlksVec[axis] * 2 ** (self.refine_level_max - 1))
+        )
+
+    def get_maximum_deltas(self, axis: int) -> float:
+        lmin = int(np.asarray(self.refine_level).min())
+        return float(
+            (self.domain_bounds[axis, 1] - self.domain_bounds[axis, 0])
+            / (self.nCellsVec[axis] * self.nBlksVec[axis] * 2 ** (lmin - 1))
+        )
+
+    def get_delta_from_refine_level(self, axis: int, refine_level) -> Any:
+        return (self.domain_bounds[axis, 1] - self.domain_bounds[axis, 0]) / (
+            self.nCellsVec[axis] * self.nBlksVec[axis] * 2.0 ** (np.asarray(refine_level) - 1)
+        )
+
+    def get_deltas_from_refine_level(self, refine_level: int) -> List[float]:
+        return [float(self.get_delta_from_refine_level(a, refine_level)) for a in range(self.ndim)]
+
+    def get_block_delta(self, axis: int, blockID: int) -> float:
+        return float(
+            (self.block_bounds[blockID, axis, 1] - self.block_bounds[blockID, axis, 0])
+            / self.nCellsVec[axis]
+        )
+
+    def get_block_deltas(self, blockID: int) -> List[float]:
+        return [self.get_block_delta(a, blockID) for a in range(self.ndim)]
+
+    # ------------------------------------------------------------------
+    # Point / coordinate queries
+    def get_cell_coords(
+        self, axis: int, blockID: int = 0, edge: str = "CENTER", guardcell: bool = False
+    ) -> np.ndarray:
+        """Cell coordinates of a block along ``axis`` (cell width (ub-lb)/n)."""
+        n = int(self.nCellsVec[axis])
+        lb, ub = self.block_bounds[blockID, axis, :]
+        dx = (ub - lb) / float(n)
+        m = n
+        if guardcell:
+            lb = lb - NGUARD * dx
+            m += NGUARD
+        match EDGE[edge]:
+            case EDGE.CENTER:
+                return lb + (np.arange(m) + 0.5) * dx
+            case EDGE.LEFT:
+                return lb + np.arange(m) * dx
+            case EDGE.RIGHT:
+                return lb + (np.arange(m) + 1.0) * dx
+
+    def is_point_in_block(self, point, blockID: int) -> bool:
+        box = self.block_bounds[blockID]
+        ok = box[0, 0] <= point[0] < box[0, 1]
+        if self.ndim > 1:
+            ok = ok and (box[1, 0] <= point[1] < box[1, 1])
+        if self.ndim > 2:
+            ok = ok and (box[2, 0] <= point[2] < box[2, 1])
+        return bool(ok)
+
+    def points_within_block(self, points, axis: int, blockID: int, return_indices: bool = False):
+        box = self.block_bounds[blockID, axis, :]
+        pts = np.asarray(points)
+        cond = (pts >= box[0]) & (pts <= box[1])
+        if return_indices:
+            return pts[cond], np.nonzero(cond)[0]
+        return pts[cond]
+
+    def locate_points(self, points: np.ndarray, block_list: Optional[np.ndarray] = None):
+        """Vectorized point -> (block, cell index, found) lookup over the
+        candidate blocks (leaves by default). Blocks are half-open, but
+        inclusive on the domain's max face."""
+        pts = np.atleast_2d(np.asarray(points, dtype=np.float64))  # (P, ndim)
+        blocks = self.get_blocklist("LEAF") if block_list is None else np.asarray(block_list)
+        bounds = np.asarray(self.block_bounds)[blocks]  # (B, 3, 2)
+
+        inside = np.ones((pts.shape[0], blocks.size), dtype=bool)
+        dom_hi = np.asarray(self.domain_bounds, dtype=np.float64)[:, 1]
+        for a in range(self.ndim):
+            hi_b = bounds[None, :, a, 1]
+            upper = np.where(hi_b == dom_hi[a], pts[:, a, None] <= hi_b, pts[:, a, None] < hi_b)
+            inside &= (bounds[None, :, a, 0] <= pts[:, a, None]) & upper
+        hit = inside.argmax(axis=1)
+        found = inside.any(axis=1)
+
+        blk = blocks[hit]
+        cells = np.zeros((pts.shape[0], self.ndim), dtype=np.int64)
+        nvec = self.nCellsVec
+        for a in range(self.ndim):
+            lo = np.asarray(self.block_bounds)[blk, a, 0]
+            hi = np.asarray(self.block_bounds)[blk, a, 1]
+            dx = (hi - lo) / nvec[a]
+            cells[:, a] = np.clip(((pts[:, a] - lo) / dx).astype(np.int64), 0, nvec[a] - 1)
+        return blk, cells, found
+
+    def get_coord_index(self, point, block_list) -> Tuple[List[int], int]:
+        blk, cells, found = self.locate_points(np.asarray(point)[None, :], block_list)
+        if not bool(found[0]):
+            raise ValueError(f"point {np.asarray(point)!r} is not inside any listed block")
+        idx = [int(c) for c in cells[0][: self.ndim]]
+        return idx, int(blk[0])
+
+    def get_point_data(self, blockID: int, point: List[int], field: str) -> float:
+        arr = self.host_data(field)
+        return float(arr[(blockID, *point[: self.ndim])])
+
+    def sample_fields(self, points: np.ndarray, fields: Sequence[str], block_list=None):
+        """Vectorized point sampling: {field: values}, per-point volume
+        fraction and found flags. The gather runs on the device
+        (``torch.take``) and only the sampled values come to the host."""
+        blk, cells, found = self.locate_points(points, block_list)
+        levels = np.asarray(self.refine_level)[blk]
+        vol_frac = self._cell_volumes_for_levels(levels) / self.cell_volume_min
+        out = {}
+        flat = None
+        for field in fields:
+            stack = self._field_stack(field)
+            if flat is None:
+                shape = stack.shape
+                idx = np.asarray(blk, dtype=np.int64)
+                for a in range(1, stack.ndim):
+                    idx = idx * shape[a] + (cells[:, a - 1] if a - 1 < self.ndim else 0)
+                flat = torch.as_tensor(idx, device=stack.device)
+            out[field] = torch.take(stack, flat).cpu().numpy().astype(np.float64)
+        return out, vol_frac, found
+
+    # ------------------------------------------------------------------
+    # Analyses
+    def _profile_geometry(self, raxis: int) -> profile_ops.ProfileGeometry:
+        return profile_ops.ProfileGeometry(
+            block_bounds=self.block_bounds,
+            refine_level=np.asarray(self.refine_level),
+            blocklist=self.get_blocklist("LEAF"),
+            domain_bounds=self.domain_bounds,
+            ncells_vec=self.nCellsVec,
+            nblks_vec=self.nBlksVec,
+            ndim=self.ndim,
+            raxis=raxis,
+        )
+
+    def _field_stack(self, name: str) -> torch.Tensor:
+        d = self.data(name)
+        if d is None:
+            raise KeyError(name)
+        if d.ndim == 3:
+            d = d[None]
+        return d
+
+    def _profile_fields(self) -> Dict[str, torch.Tensor]:
+        data = {"dens": self._field_stack("dens")}
+        for a in "xyz"[: self.ndim]:
+            data[f"vel{a}"] = self._field_stack(f"vel{a}")
+        return data
+
+    @timer
+    def reynolds_stress(self, raxis: int = 0):
+        """Reynolds stress profiles along ``raxis``: (span, stress, means)."""
+        return profile_ops.reynolds_stress(self._profile_fields(), self._profile_geometry(raxis))
+
+    @timer
+    def favre_profiles(self, raxis: int = 0):
+        """Favre means + mass-weighted RMS along ``raxis``."""
+        return profile_ops.favre_profiles(self._profile_fields(), self._profile_geometry(raxis))
+
+    def slice_integral(self, field: str, axis: int = 0):
+        geom = self._profile_geometry(int(AXIS(axis)))
+        return profile_ops.slice_integral(self._field_stack(field), geom)
+
+    # The analysis is registered as "slice_integration" but the mesh
+    # method of the reference is "slice_integral": provide both.
+    def slice_integration(self, field: str, axis: int = 0):
+        return self.slice_integral(field, axis=axis)
+
+    def slice_average(self, field: str, axis: int = 0):
+        geom = self._profile_geometry(int(AXIS(axis)))
+        return profile_ops.slice_average(self._field_stack(field), geom)
+
+    def _leaf_stack(self, field: str) -> torch.Tensor:
+        stack = self._field_stack(field)
+        blocklist = self.get_blocklist("LEAF")
+        if stack.shape[0] != blocklist.size:
+            stack = torch.index_select(stack, 0, torch.as_tensor(blocklist, device=stack.device))
+        return stack
+
+    volume_integration = _not_ported("A7", "volume_integration")
+    volume_average = _not_ported("A7", "volume_average")
+    mass_sum = _not_ported("A7", "mass_sum")
+    pdf1d = _not_ported("A7", "pdf1d")
+    pdf2d = _not_ported("A7", "pdf2d")
+    binned_statistic = _not_ported("A7", "binned_statistic")
+    density_pdf = _not_ported("A7", "density_pdf")
+    projection = _not_ported("A8", "projection")
+    flame_window = _not_ported("A8", "flame_window")
+
+    # ------------------------------------------------------------------
+    # Regrid
+    def from_amr(
+        self,
+        subdomain_coords: Optional[np.ndarray] = None,
+        refine_level: int = -1,
+        fields: Optional[List[str]] = None,
+        filename: Optional[Path] = None,
+        save_file: bool = True,
+    ) -> None:
+        """Regrid AMR data to a uniform grid (injection prolongation).
+
+        Collapses this mesh into a single uniform block in place and
+        (optionally) writes the ``hdf5_uniform_`` file. A subdomain that
+        exceeds the domain is a no-op, with a warning.
+        """
+        if subdomain_coords is not None:
+            sc = np.asarray(subdomain_coords, dtype=np.float64)
+            oob = sc[0, 0] < self.xmin or self.xmax < sc[0, 1]
+            if self.ndim > 1:
+                oob = oob or sc[1, 0] < self.ymin or self.ymax < sc[1, 1]
+            if self.ndim > 2:
+                oob = oob or sc[2, 0] < self.zmin or self.zmax < sc[2, 1]
+            if oob:
+                logger.warning(
+                    "from_amr: subdomain %s exceeds the domain %s; nothing regridded",
+                    sc.tolist(),
+                    self.domain_bounds.tolist(),
+                )
+                return
+
+        plan = regrid_ops.RegridPlan(
+            block_bounds=self.block_bounds,
+            node_type=np.asarray(self.node_type),
+            refine_level=np.asarray(self.refine_level),
+            ncells_vec=self.nCellsVec,
+            nblks_vec=self.nBlksVec,
+            ndim=self.ndim,
+            refine_to=refine_level,
+            subdomain_coords=subdomain_coords,
+        )
+        _fields = list(fields) if fields is not None else list(self.fields)
+        data = {key: self._field_stack(key) for key in _fields}
+        regridded = regrid_ops.regrid_fields(plan, data, _fields)
+        del data
+
+        total_cells = plan.total_cells
+        refdom = plan.domain_box
+
+        # Collapse to a single-block uniform mesh.
+        self._data = regridded
+        self.fields = list(_fields)
+        self.gid = -np.ones((1, int(2 * self.ndim + 1 + 2**self.ndim)), dtype=np.int32)
+        self.refine_level = np.ones(1, dtype=np.int64)
+        self.node_type = np.ones(1, dtype=np.int64)
+        self.bflags = -np.ones((1, 1), dtype=np.int32)
+        self.which_child = -np.ones(1, dtype=np.int32)
+        if self.processors is not None:
+            self.processors = np.zeros(1, dtype=np.int32)
+        self.nblockx = 1
+        self.nblocky = 1
+        self.nblockz = 1
+        self.nblocks = 1
+        self.nxb = int(total_cells[0])
+        self.nyb = int(total_cells[1])
+        self.nzb = int(total_cells[2])
+        self.block_size = (total_cells * plan.grid_delta)[None, ...]
+        self.block_bounds = refdom[None, ...]
+        self.coordinates = (0.5 * np.sum(refdom, axis=1))[None, ...]
+        self.xmin, self.xmax = float(refdom[0, 0]), float(refdom[0, 1])
+        self.ymin, self.ymax = float(refdom[1, 0]), float(refdom[1, 1])
+        self.zmin, self.zmax = float(refdom[2, 0]), float(refdom[2, 1])
+        self._delete_cached_properties()
+
+        if save_file:
+            if filename is None:
+                # The FLASH file-type markers, not bare substrings.
+                stem = self.filename.stem.replace("hdf5_plt_cnt_", "hdf5_uniform_").replace(
+                    "hdf5_chk_", "hdf5_uniform_"
+                )
+                filename = self.filename.with_stem(stem)
+            self.save(filename=filename, names=_fields)
+
+    def save(self, filename: Optional[str | Path] = None, names: Optional[List[str]] = None) -> None:
+        """Write this mesh as a FLASH-layout file (float64 fields and
+        bounds for a chk mesh, float32 otherwise)."""
+        target = Path(filename) if filename is not None else self._filename
+        names_ = list(names) if names is not None else list(self._data.keys())
+        flash_file.write_mesh_file(
+            target,
+            scalars=self.scalars,
+            runtime_parameters=self.runtime_parameters,
+            metadata={
+                "coordinates": np.asarray(self.coordinates),
+                "block size": np.asarray(self.block_size),
+                "bounding box": np.asarray(self.block_bounds),
+                "node type": np.asarray(self.node_type),
+                "refine level": np.asarray(self.refine_level),
+                "gid": np.asarray(self.gid),
+                "which child": np.asarray(self.which_child),
+                "bflags": np.asarray(self.bflags),
+                "processor number": None if self.processors is None else np.asarray(self.processors),
+            },
+            fields={n: self._data[n] for n in names_ if n in self._data},
+            chk_file=self._chk_file,
         )

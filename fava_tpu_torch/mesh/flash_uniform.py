@@ -2,8 +2,10 @@
 
 Counterpart of fava_tpu/mesh/flash_uniform.py, in-core only: field
 reads onto the device (the metadata ``load`` is FLASH's), ``from_arrays``,
-and the flagship analysis. The streamed out-of-core path is ROADMAP A10; the other
-uniform-grid analyses are ROADMAP A3/A7/A8.
+and the flagship analysis. ``reynolds_stress``, ``favre_profiles`` and
+the slice profiles are FLASH's: on one block profiled along x they take
+the uniform fast case (K1/K2). The streamed out-of-core path is ROADMAP
+A10; the other uniform-grid analyses are ROADMAP A3/A7/A8.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import torch
 from fava_tpu_torch.io import flash_file
 from fava_tpu_torch.mesh.flash_amr import FLASH
 from fava_tpu_torch.models.model import Model
-from fava_tpu_torch.utils import field_dtype, numpy_dtype, timer
+from fava_tpu_torch.utils import field_dtype, timer
+
 
 @Model.register_mesh()
 class FlashUniform(FLASH):
@@ -92,11 +95,11 @@ class FlashUniform(FLASH):
         return mesh
 
     def _read_field(self, handle, name: str) -> None:
-        host = flash_file.read_field(handle, name, dtype=numpy_dtype(field_dtype(self.device)))
+        vol = flash_file.read_field(handle, name, self.device, field_dtype(self.device))
         # Uniform files hold one block; store the bare 3D volume.
-        if host.ndim == 4 and host.shape[0] == 1:
-            host = host[0]
-        self._data[name] = torch.from_numpy(host).to(self.device)
+        if vol.ndim == 4 and vol.shape[0] == 1:
+            vol = vol[0]
+        self._data[name] = vol
 
     def _volume(self, name: str) -> torch.Tensor:
         d = self.data(name)

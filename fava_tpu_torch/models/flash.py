@@ -2,9 +2,9 @@
 
 Counterpart of fava_tpu/models/flash.py: the data directory is globbed
 into five catalogs (chk/plt/prt/uni/anl), each addressable "by number"
-(the 4-digit suffix) or "by index" (sorted position). Only
-``file_type="uni"`` loads in this slice; the AMR types are ROADMAP A4
-and the particle types ROADMAP A9.
+(the 4-digit suffix) or "by index" (sorted position). ``load`` sends
+``chk``/``plt`` files to the AMR mesh and ``uni`` files to the uniform
+mesh; the particle types raise NotImplementedError (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -13,9 +13,18 @@ from enum import Enum
 from pathlib import Path
 from typing import Dict, Optional
 
+from fava_tpu_torch.mesh import FLASH as FlashAMR
 from fava_tpu_torch.mesh import FlashUniform
 from fava_tpu_torch.models.model import Model
 from fava_tpu_torch.utils import resolve_device
+
+
+class FileSubStem(Enum):
+    CHK = "chk"
+    PLT = "plt_cnt"
+    PRT = "part"
+    UNI = "uniform"
+    ANL = "analysis"
 
 
 class FileType(Enum):
@@ -37,8 +46,6 @@ _PATTERNS = {
 }
 
 _NOT_PORTED = {
-    FileType.CHK: "A4",
-    FileType.PLT: "A4",
     FileType.PRT: "A9",
     FileType.CHK_PRT: "A9",
     FileType.PLT_PRT: "A9",
@@ -101,7 +108,12 @@ class FLASH(Model):
             raise NotImplementedError(
                 f"file_type={ftype.name}: not ported yet (ROADMAP {_NOT_PORTED[ftype]})"
             )
-        if ftype is not FileType.UNI:
+        mesh_cls = {
+            FileType.CHK: FlashAMR,
+            FileType.PLT: FlashAMR,
+            FileType.UNI: FlashUniform,
+        }.get(ftype)
+        if mesh_cls is None:
             raise ValueError(f"Cannot load file type {ftype}")
 
         lookup = "by index" if file_number is None else "by number"
@@ -110,7 +122,26 @@ class FLASH(Model):
         if key not in catalog[lookup]:
             raise ValueError(f"{ftype.name} file {lookup} {key} not found")
 
-        self.mesh = FlashUniform(filename=catalog[lookup][key], device=self.device)
+        self.mesh = None  # the old mesh's device fields go before the new ones come
+        self.mesh = mesh_cls(filename=catalog[lookup][key], device=self.device)
         self.mesh.load()
         if fields:
             self.mesh.load_data(names=fields)
+
+    def convert_filename_type(
+        self, current_filetype: FileType | str, new_filetype: FileType | str
+    ) -> Optional[Path]:
+        """The loaded mesh's filename with its ``hdf5_<type>_`` marker
+        swapped for another type's (None when nothing is loaded)."""
+        if self.mesh is None:
+            return None
+
+        def substem(ft: FileType) -> str:
+            # Combined mesh+particle types convert via their mesh substem.
+            name = ft.name[:-4] if ft.name.endswith("_PRT") else ft.name
+            return FileSubStem[name].value
+
+        curr, new = _file_type(current_filetype), _file_type(new_filetype)
+        current_stem = self.mesh.filename.stem
+        new_stem = current_stem.replace(f"hdf5_{substem(curr)}_", f"hdf5_{substem(new)}_")
+        return self.mesh.filename.with_stem(new_stem)

@@ -1,11 +1,12 @@
 """Build and bind the hand-written CUDA kernels.
 
-``fava_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded
+Each ``fava_tpu_torch/csrc/*.cu`` is compiled by its own ``nvcc``
+process for Hopper (``sm_90a``), all started together, and the objects
+are linked into one shared library with a plain C interface, loaded
 with ctypes. The build happens at first use, into
-``fava_tpu_torch/_build/``, keyed by a hash of the sources and flags,
-so a fresh checkout builds once and later processes reuse the library.
-Nothing here runs at import time.
+``fava_tpu_torch/_build/``, keyed by a hash of the sources, headers and
+flags, so a fresh checkout builds once and later processes reuse the
+library. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -29,7 +30,6 @@ NVCC_FLAGS = (
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
@@ -44,6 +44,9 @@ _SIGNATURES = {
     "fava_centered_row_moments": (_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P),
     "fava_fold_quadrants_pair": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "fava_shell_bin_values_folded": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "fava_block_row_moments": (_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P),
+    "fava_block_centered_row_moments": (_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P),
+    "fava_regrid_fields": (_P, _P, _I, _P, _P, _P) + (_LL,) * 14 + (_I, _I, _P),
 }
 
 
@@ -71,7 +74,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libfava_kernels_{h.hexdigest()[:16]}.so"
@@ -83,8 +86,9 @@ BUILD_LOG: Optional[str] = None
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists.
 
-    Raises when nvcc is missing or the compile fails. The compiler's
-    resource report (``-Xptxas -v``) is kept in ``BUILD_LOG``.
+    One nvcc per source, all running at once, then one link. Raises when
+    nvcc is missing or a compile or the link fails. The compilers'
+    resource reports (``-Xptxas -v``) are kept in ``BUILD_LOG``.
     """
     global BUILD_LOG
     out = library_path()
@@ -92,18 +96,33 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [Path(work) / f"{src.stem}.o" for src in _sources()]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT,
+                text=True,
+            )
+            for src, obj in zip(_sources(), objs)
+        ]
+        logs, failed = [], []
+        for src, proc in zip(_sources(), procs):
+            logs.append(f"== {src.name}\n{proc.communicate()[0]}")
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode})")
+        BUILD_LOG = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{BUILD_LOG}")
+        tmp = Path(work) / "lib.so"
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)], capture_output=True, text=True
+        )
+        BUILD_LOG += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{BUILD_LOG}")
         os.replace(tmp, out)  # atomic: a concurrent process never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return out
 
 

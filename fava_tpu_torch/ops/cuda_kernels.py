@@ -1,27 +1,32 @@
-"""Hand-written CUDA kernels of the flagship step, with their plain twins.
+"""Hand-written CUDA kernels, with their plain twins.
 
-Counterpart of fava_tpu/ops/pallas_kernels.py for the four Pallas
-kernels on the flagship path (sources and design notes in
-``fava_tpu_torch/csrc/flagship_kernels.cu``):
+Counterpart of the Pallas kernels of fava_tpu on the flagship and AMR
+paths (sources and design notes in ``fava_tpu_torch/csrc/``:
+``flagship_kernels.cu`` for K1-K4, ``amr_kernels.cu`` for K5-K7):
 
-=============================  ===========================================
-wrapper                        replaces (fava_tpu/ops/pallas_kernels.py)
-=============================  ===========================================
-``row_moments_volume``         ``_moments_kernel`` (:95)
-``centered_row_moments``       ``_centered_kernel`` (:200)
-``fold_quadrants_pair``        ``_fold_pair_kernel`` (:678)
-``shell_bin_values_folded``    ``_shell_kernel_folded_v3`` (:955)
-=============================  ===========================================
+================================  ==============================================
+wrapper                           replaces (fava_tpu/ops/)
+================================  ==============================================
+``row_moments_volume``            ``pallas_kernels.py:_moments_kernel`` (:95)
+``centered_row_moments``          ``pallas_kernels.py:_centered_kernel`` (:200)
+``fold_quadrants_pair``           ``pallas_kernels.py:_fold_pair_kernel`` (:678)
+``shell_bin_values_folded``       ``pallas_kernels.py:_shell_kernel_folded_v3`` (:955)
+``block_row_moments``             ``pallas_kernels.py:_raw_rows_kernel`` (:331)
+``block_centered_row_moments``    ``pallas_kernels.py:_centered_rows_kernel`` (:352)
+``regrid_fields``                 ``pallas_regrid.py:_regrid_kernel`` (:78)
+================================  ==============================================
 
 Every wrapper takes the plain PyTorch version of its function (the
 ``_*_plain`` functions below) only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises; any other device raises.
-Kernels take float32 volumes and produce float64 sums. A successful
-launch adds one to the kernel's count in ``launch_counts()``.
+Kernels take float32 volumes and produce float64 sums (the regrid
+copies float32 values). A successful launch adds one to the kernel's
+count in ``launch_counts()``.
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 from typing import Dict, Tuple
 
@@ -33,8 +38,18 @@ from fava_tpu_torch.utils import accum_dtype
 
 NMOM = 13  # raw row moments
 NCEN = 9  # 6 centered covariances + 3 centered first moments
+NRAW = 7  # block-stack raw row moments: d, v_i, d*v_i
+REGRID_MAX_FIELDS = 8  # fields per regrid launch (kRegridMaxFields)
 
-KERNELS = ("row_moments", "centered_row_moments", "fold_quadrants_pair", "shell_bin_values_folded")
+KERNELS = (
+    "row_moments",
+    "centered_row_moments",
+    "fold_quadrants_pair",
+    "shell_bin_values_folded",
+    "block_row_moments",
+    "block_centered_row_moments",
+    "regrid_fields",
+)
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -351,3 +366,188 @@ def shell_bin_sums_rfft(total, longi, nbins: int, full_nz: int):
         device=sums2.device,
     )
     return counts, torch.stack([sums2[0], sums2[1], sums2[0] - sums2[1]])
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6: per-(block, row) moments of an AMR block stack
+
+
+def _block_row_moments_plain(d, vx, vy, vz) -> torch.Tensor:
+    d, vx, vy, vz = (a.to(accum_dtype()) for a in (d, vx, vy, vz))
+
+    def rows(a):
+        return a.sum(dim=(2, 3))
+
+    return torch.stack(
+        [rows(d), rows(vx), rows(vy), rows(vz), rows(d * vx), rows(d * vy), rows(d * vz)]
+    )
+
+
+def _block_centered_plain(d, vx, vy, vz, means) -> torch.Tensor:
+    d, vx, vy, vz = (a.to(accum_dtype()) for a in (d, vx, vy, vz))
+    means = means.to(accum_dtype())
+
+    def rows(a):
+        return a.sum(dim=(2, 3))
+
+    cx = vx - means[0][..., None, None]
+    cy = vy - means[1][..., None, None]
+    cz = vz - means[2][..., None, None]
+    dcx, dcy, dcz = d * cx, d * cy, d * cz
+    return torch.stack(
+        [
+            rows(dcx * cx),
+            rows(dcx * cy),
+            rows(dcx * cz),
+            rows(dcy * cy),
+            rows(dcy * cz),
+            rows(dcz * cz),
+            rows(dcx),
+            rows(dcy),
+            rows(dcz),
+        ]
+    )
+
+
+def _check_stack(name: str, fields) -> Tuple[int, int, int]:
+    """(nblocks, ncx, ncy*ncz) of four same-shaped non-empty 4D stacks."""
+    d = fields[0]
+    if d.ndim != 4 or any(f.shape != d.shape for f in fields) or d.numel() == 0:
+        raise ValueError(f"{name}: four non-empty same-shaped (nB, ncx, ncy, ncz) stacks required")
+    nb, ncx, ncy, ncz = (int(s) for s in d.shape)
+    return nb, ncx, ncy * ncz
+
+
+def _row_blocks(nrows: int, device: torch.device) -> int:
+    warps = 256 // 32
+    return max(1, min(-(-nrows // warps), 32 * _sm_count(device.index or 0)))
+
+
+def block_row_moments(dens, vx, vy, vz) -> torch.Tensor:
+    """(7, nB, ncx) float64 raw moments [d, v_i, d*v_i] of each (block,
+    x row) of a block stack (nB, ncx, ncy, ncz)."""
+    name = "block_row_moments"
+    fields = (dens, vx, vy, vz)
+    nb, ncx, row_len = _check_stack(name, fields)
+    if _device_kind(name, *fields) == "cpu":
+        return _block_row_moments_plain(*fields)
+    _check_cuda(name, *fields)
+    nrows = nb * ncx
+    out = torch.empty((NRAW, nb, ncx), dtype=torch.float64, device=dens.device)
+    _launch(
+        name, dens.device, _build.library().fava_block_row_moments, *(f.data_ptr() for f in fields),
+        out.data_ptr(), nrows, row_len, _vec_ok(row_len, *fields), _row_blocks(nrows, dens.device),
+    )
+    return out
+
+
+def block_centered_row_moments(dens, vx, vy, vz, means) -> torch.Tensor:
+    """(9, nB, ncx) float64: [sum d*ci*cj (xx,xy,xz,yy,yz,zz), sum d*ci
+    (3)] per (block, x row), ci = vi - means[i]; ``means`` is (3, nB,
+    ncx), float64 on CUDA."""
+    name = "block_centered_row_moments"
+    fields = (dens, vx, vy, vz)
+    nb, ncx, row_len = _check_stack(name, fields)
+    if tuple(means.shape) != (3, nb, ncx):
+        raise ValueError(f"{name}: means must be (3, {nb}, {ncx}), got {tuple(means.shape)}")
+    if _device_kind(name, *fields, means) == "cpu":
+        return _block_centered_plain(*fields, means)
+    _check_cuda(name, *fields)
+    _check_cuda(name, means, dtype=torch.float64)
+    nrows = nb * ncx
+    out = torch.empty((NCEN, nb, ncx), dtype=torch.float64, device=dens.device)
+    _launch(
+        name, dens.device, _build.library().fava_block_centered_row_moments,
+        *(f.data_ptr() for f in fields), means.data_ptr(), out.data_ptr(), nrows, row_len,
+        _vec_ok(row_len, *fields), _row_blocks(nrows, dens.device),
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7: AMR -> uniform regrid (injection prolongation)
+
+
+def _regrid_flat_plain(leaf_table, offsets, scales, out_shape, origin, ncells, block_shape):
+    """Flat source index and validity of every output cell: regrid.py's
+    closed form (fava_tpu/ops/regrid.py:177-189)."""
+    nx, ny, nz = out_shape
+    ncx, ncy, ncz = ncells
+    bx, by, bz = block_shape
+    dev = leaf_table.device
+    gx = (torch.arange(nx, device=dev) + origin[0])[:, None, None]
+    gy = (torch.arange(ny, device=dev) + origin[1])[None, :, None]
+    gz = (torch.arange(nz, device=dev) + origin[2])[None, None, :]
+    blkid = leaf_table[gx // ncx, gy // ncy, gz // ncz].to(torch.int64)
+    safe = torch.clamp(blkid, min=0)
+    s = scales[safe]
+    cx = torch.clamp((gx - offsets[safe, 0]) // s, 0, bx - 1)
+    cy = torch.clamp((gy - offsets[safe, 1]) // s, 0, by - 1)
+    cz = torch.clamp((gz - offsets[safe, 2]) // s, 0, bz - 1)
+    flat = ((safe * bx + cx) * by + cy) * bz + cz
+    return flat, blkid >= 0
+
+
+def _regrid_plain(stacks, leaf_table, offsets, scales, out_shape, origin, ncells):
+    block_shape = tuple(int(s) for s in stacks[0].shape[1:])
+    flat, valid = _regrid_flat_plain(
+        leaf_table, offsets, scales, out_shape, origin, ncells, block_shape
+    )
+    zero = torch.zeros((), dtype=stacks[0].dtype, device=stacks[0].device)
+    return [torch.where(valid, torch.take(s, flat), zero) for s in stacks]
+
+
+def _regrid_shifts(scales: torch.Tensor) -> torch.Tensor:
+    """log2 of the block scales, which are powers of two (2^(lmax - level))."""
+    shifts = torch.round(torch.log2(scales.double())).to(torch.int32)
+    if not torch.equal(torch.ones_like(scales) << shifts.to(scales.dtype), scales):
+        raise ValueError("regrid_fields: block scales must be powers of two")
+    return shifts
+
+
+def regrid_fields(stacks, leaf_table, offsets, scales, out_shape, origin, ncells):
+    """Regrid each (nB, bx, by, bz) block stack onto the uniform grid.
+
+    ``leaf_table`` (int32, one entry per fine-block tile; -1 where no
+    source block) names the block covering each tile, ``offsets`` (int64,
+    (nB, 3)) each block's first fine cell and ``scales`` (int64, (nB,))
+    its power-of-two prolongation factor; ``out_shape`` and ``origin``
+    give the output box in fine cells and ``ncells`` the tile extents.
+    Returns one (nx, ny, nz) volume per stack, in the stacks' dtype.
+    """
+    name = "regrid_fields"
+    stacks = list(stacks)
+    first = stacks[0]
+    if first.ndim != 4 or any(s.shape != first.shape for s in stacks):
+        raise ValueError(f"{name}: same-shaped (nB, bx, by, bz) stacks required")
+    out_shape = tuple(int(n) for n in out_shape)
+    origin = tuple(int(o) for o in origin)
+    ncells = tuple(int(c) for c in ncells)
+    tables = (leaf_table, offsets, scales)
+    if _device_kind(name, *stacks, *tables) == "cpu":
+        return _regrid_plain(stacks, leaf_table, offsets, scales, out_shape, origin, ncells)
+    _check_cuda(name, *stacks)
+    _check_cuda(name, leaf_table, dtype=torch.int32)
+    _check_cuda(name, offsets, scales, dtype=torch.int64)
+    if leaf_table.ndim != 3 or tuple(offsets.shape) != (first.shape[0], 3):
+        raise ValueError(f"{name}: a 3D leaf table and (nB, 3) block offsets required")
+    shifts = _regrid_shifts(scales)
+    nx, ny, nz = out_shape
+    outs = [torch.empty(out_shape, dtype=first.dtype, device=first.device) for _ in stacks]
+    if nx * ny * nz == 0:
+        return outs
+    threads = min(256, 32 * -(-nz // 32))
+    blocks = max(1, min(nx * ny, 32 * _sm_count(first.device.index or 0)))
+    _ty, ty, tz = (int(n) for n in leaf_table.shape)
+    lib = _build.library()
+    for k in range(0, len(stacks), REGRID_MAX_FIELDS):
+        chunk = range(k, min(len(stacks), k + REGRID_MAX_FIELDS))
+        srcs = (ctypes.c_void_p * len(chunk))(*(stacks[i].data_ptr() for i in chunk))
+        dsts = (ctypes.c_void_p * len(chunk))(*(outs[i].data_ptr() for i in chunk))
+        _launch(
+            name, first.device, lib.fava_regrid_fields, ctypes.addressof(srcs),
+            ctypes.addressof(dsts), len(chunk), leaf_table.data_ptr(), offsets.data_ptr(),
+            shifts.data_ptr(), *out_shape, *origin, *ncells, ty, tz, *first.shape[1:], blocks,
+            threads,
+        )
+    return outs

@@ -1,15 +1,415 @@
-"""Reynolds-stress and Favre profile assembly (counterpart of
-fava_tpu/ops/profiles.py:531-561)."""
+"""Axis-binned profile statistics: AMR block stacks and profile assembly.
+
+Counterpart of fava_tpu/ops/profiles.py. Per-(block, row) moments of
+the leaf stack are reduced in one read of the fields, then scattered
+into finest-level bins, one refinement level at a time (every block of
+a level covers the same number of fine bins). Second moments are
+centered on per-row means, which keeps float32 fields accurate where a
+one-pass expansion cancels.
+
+Moments along x of a 3D stack go through the block-stack kernels K5/K6
+(``cuda_kernels.block_row_moments`` and
+``block_centered_row_moments``); a single uniform block profiled along x
+takes K1/K2. Other axes use the plain torch reductions here, the
+counterpart of fava_tpu's jnp code. Deviation from fava_tpu: its level
+groups are padded to power-of-two buckets to bound jit recompiles;
+PyTorch runs eagerly, so the groups hold the real blocks only and the
+scatter is an ``index_add_`` over them (the sums are the same). The
+per-row means stay float64 (fava_tpu cast them to the field dtype).
+Results come back to the host as float64 numpy arrays, as in fava_tpu.
+"""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
+
+from fava_tpu_torch.ops import cuda_kernels
+from fava_tpu_torch.utils import accum_dtype
+
+AXES_NAMES = "xyz"
 
 # Velocity-pair order shared by every profile consumer: xx,xy,xz,yy,yz,zz.
 VEL_PAIRS: Tuple[Tuple[int, int], ...] = tuple((i, j) for i in range(3) for j in range(i, 3))
 _DIAG = tuple(VEL_PAIRS.index((i, i)) for i in range(3))
+
+
+def _pair_indices(nvel: int) -> List[Tuple[int, int]]:
+    return [(i, j) for i in range(nvel) for j in range(i, nvel)]
+
+
+def _reduce_dims(raxis: int) -> Tuple[int, ...]:
+    return tuple(a for a in (1, 2, 3) if a != raxis + 1)
+
+
+def _row_moments(fields: Tuple[torch.Tensor, ...], raxis: int, nvel: int) -> torch.Tensor:
+    """Per-(block, row) raw sums along the profile axis, float64.
+
+    ``fields`` = (dens, v0..v_{nvel-1}); each (nB, nx, ny, nz). Returns
+    (1 + 2*nvel, nB, nrb): [dens, v_i..., dens*v_i...].
+    """
+    dens = fields[0].to(accum_dtype())
+    vels = [v.to(accum_dtype()) for v in fields[1 : 1 + nvel]]
+    red = _reduce_dims(raxis)
+    moments = [dens.sum(dim=red)]
+    moments += [v.sum(dim=red) for v in vels]
+    moments += [(dens * v).sum(dim=red) for v in vels]
+    return torch.stack(moments)
+
+
+def _centered_row_moments_stack(
+    fields: Tuple[torch.Tensor, ...], mu: torch.Tensor, raxis: int, nvel: int
+) -> torch.Tensor:
+    """Per-(block, row) moments about the per-row means ``mu`` (nvel, nB,
+    nrb). Returns (npairs + nvel, nB, nrb): [sum d*ci*cj (i<=j)..., sum d*ci...]."""
+    dens = fields[0].to(accum_dtype())
+    red = _reduce_dims(raxis)
+
+    def expand(m):
+        shape = [m.shape[0], 1, 1, 1]
+        shape[raxis + 1] = m.shape[1]
+        return m.reshape(shape)
+
+    cv = [v.to(accum_dtype()) - expand(mu[i]) for i, v in enumerate(fields[1 : 1 + nvel])]
+    moments = [(dens * cv[i] * cv[j]).sum(dim=red) for (i, j) in _pair_indices(nvel)]
+    moments += [(dens * c).sum(dim=red) for c in cv]
+    return torch.stack(moments)
+
+
+def _fine_index(ilo: torch.Tensor, length: int) -> torch.Tensor:
+    """(nBg * length,) fine-bin index of each repeated row value."""
+    return (ilo[:, None] + torch.arange(length, device=ilo.device)[None, :]).reshape(-1)
+
+
+def _scatter_groups(groups, scales: Tuple[int, ...], nfine: int) -> torch.Tensor:
+    """Scatter per-level grouped row sums into the finest-level profile.
+
+    groups: (S, vol_frac, ilo) per level with S (M, nBg, nrb). Each block
+    row spreads over ``scale`` consecutive fine bins starting at ilo.
+    """
+    m = groups[0][0].shape[0]
+    prof = torch.zeros((m, nfine), dtype=accum_dtype(), device=groups[0][0].device)
+    for (S, vf, ilo), s in zip(groups, scales):
+        nrb = S.shape[-1]
+        contrib = torch.repeat_interleave(S.to(accum_dtype()) * vf[None, :, None], s, dim=2)
+        prof.index_add_(1, _fine_index(ilo, nrb * s), contrib.reshape(m, -1))
+    return prof
+
+
+class ProfileGeometry:
+    """Host-side per-snapshot geometry for finest-level axis profiles."""
+
+    def __init__(
+        self,
+        *,
+        block_bounds: np.ndarray,
+        refine_level: np.ndarray,
+        blocklist: np.ndarray,
+        domain_bounds: np.ndarray,
+        ncells_vec: np.ndarray,
+        nblks_vec: np.ndarray,
+        ndim: int,
+        raxis: int,
+    ) -> None:
+        self.ndim = int(ndim)
+        self.raxis = int(raxis)
+        self.blocklist = np.asarray(blocklist, dtype=np.int64)
+        levels = np.asarray(refine_level)[self.blocklist]
+
+        lmax = int(np.asarray(refine_level).max())
+        self.lref_max = lmax
+        lrefcells = 2 ** (lmax - 1)
+        self.dims = [int(nc * nb * lrefcells) for nc, nb in zip(ncells_vec[:ndim], nblks_vec[:ndim])]
+        self.nfine = self.dims[raxis]
+        self.nrb = int(ncells_vec[raxis])
+
+        rmin, rmax = float(domain_bounds[raxis, 0]), float(domain_bounds[raxis, 1])
+        self.rmin, self.rmax = rmin, rmax
+        self.span = np.linspace(rmin, rmax, self.nfine + 1, dtype=np.float64)
+
+        widths = (domain_bounds[:ndim, 1] - domain_bounds[:ndim, 0]).astype(np.float64)
+        self.min_deltas = widths / (
+            np.asarray(ncells_vec[:ndim]) * np.asarray(nblks_vec[:ndim]) * 2 ** (lmax - 1)
+        )
+
+        # Layer cross-section (product of the non-profile axis widths).
+        lv = 1.0
+        full_widths = (domain_bounds[:, 1] - domain_bounds[:, 0]).astype(np.float64)
+        for a in range(3):
+            if a != raxis:
+                lv *= full_widths[a]
+        self.layer_area = lv
+
+        # Per-block: cell volume x (min_delta / block delta along raxis).
+        domain_volume = float(np.prod(full_widths))
+        cells_at_level = np.ones_like(levels, dtype=np.float64)
+        for a in range(ndim):
+            cells_at_level *= ncells_vec[a] * nblks_vec[a] * 2.0 ** (levels - 1)
+        cell_volumes = domain_volume / cells_at_level
+        delta_r = widths[raxis] / (ncells_vec[raxis] * nblks_vec[raxis] * 2.0 ** (levels - 1))
+        self.vol_fracs = cell_volumes * (self.min_deltas[raxis] / delta_r)
+
+        # Fine-bin start index of each block along the profile axis.
+        lo = np.asarray(block_bounds)[self.blocklist, raxis, 0].astype(np.float64)
+        fine_delta = (rmax - rmin) / self.nfine
+        self.ilo = np.rint((lo - rmin) / fine_delta).astype(np.int64)
+
+        self.lref_n = (2 ** (lmax - levels)).astype(np.int64)
+        self.levels = levels
+
+        # Leaf blocks grouped by refinement level (positions in the leaf stack).
+        self.groups: List[Tuple[int, np.ndarray]] = []
+        for lev in sorted(set(int(l) for l in levels)):
+            sel = np.nonzero(levels == lev)[0]
+            self.groups.append((int(2 ** (lmax - lev)), sel))
+
+    def device_groups(self, moments: torch.Tensor):
+        """Split row moments (M, nBleaf, nrb) into level groups:
+        ((S, vol_frac, ilo), ...) and their scales."""
+        dev = moments.device
+        groups = []
+        scales = []
+        for scale, sel in self.groups:
+            idx = torch.as_tensor(sel, device=dev)
+            S = torch.index_select(moments, 1, idx)
+            vf = torch.as_tensor(self.vol_fracs[sel], dtype=accum_dtype(), device=dev)
+            ilo = torch.as_tensor(self.ilo[sel], device=dev)
+            groups.append((S, vf, ilo))
+            scales.append(scale)
+        return tuple(groups), tuple(scales)
+
+
+def _leaf_fields(data: Dict[str, torch.Tensor], geom: ProfileGeometry) -> Tuple[torch.Tensor, ...]:
+    """(dens, vels...) leaf stacks: a contiguous copy of each field's leaves."""
+    idx = torch.as_tensor(geom.blocklist, device=data["dens"].device)
+    names = ["dens"] + [f"vel{a}" for a in AXES_NAMES[: geom.ndim]]
+    return tuple(torch.index_select(data[name], 0, idx) for name in names)
+
+
+def _stack_stats(data: Dict[str, torch.Tensor], geom: ProfileGeometry):
+    """Raw + per-row-mean-centered moments of the leaf stack, float64:
+    raw (1+2n, nB, nrb) [d, v_i, d*v_i], mu (n, nB, nrb) per-row velocity
+    means, cen (npairs+n, nB, nrb) [d*ci*cj, d*ci] about mu. 3D stacks
+    profiled along x take the K5/K6 kernels."""
+    fields = _leaf_fields(data, geom)
+    nvel = geom.ndim
+    ncells_row = int(np.prod(fields[0].shape[1:])) // int(fields[0].shape[1 + geom.raxis])
+    if geom.ndim == 3 and geom.raxis == 0:
+        raw = cuda_kernels.block_row_moments(*fields)
+        mu = (raw[1 : 1 + nvel] / ncells_row).contiguous()
+        cen = cuda_kernels.block_centered_row_moments(*fields, mu)
+        return raw, mu, cen
+    raw = _row_moments(fields, raxis=geom.raxis, nvel=nvel)
+    mu = raw[1 : 1 + nvel] / ncells_row
+    cen = _centered_row_moments_stack(fields, mu, raxis=geom.raxis, nvel=nvel)
+    return raw, mu, cen
+
+
+def _scatter_centered_pairs(groups, scales: Tuple[int, ...], nfine: int, ref_fine, nvel: int):
+    """Pass-2 scatter: centered covariances against a fine-bin reference.
+
+    groups: (cen, s_d, mu, vf, ilo) per refinement level, with cen
+    (npairs+nvel, nBg, nrb) centered about the per-row means mu and s_d
+    (nBg, nrb) the density row sums. ``ref_fine`` (nvel, nfine) is the
+    fine-bin profile to center against. Uses the exact identity
+
+      sum d*(vi-ri)*(vj-rj) = C_ij + (mu_i-ri)*C_j + (mu_j-rj)*C_i
+                              + (mu_i-ri)*(mu_j-rj)*S_d
+
+    whose terms are all at fluctuation scale.
+    """
+    pairs = _pair_indices(nvel)
+    npairs = len(pairs)
+    adt = accum_dtype()
+    ref = ref_fine.to(adt)
+    prof = torch.zeros((npairs, nfine), dtype=adt, device=ref.device)
+    for (cen, s_d, mu, vf, ilo), s in zip(groups, scales):
+        nrb = s_d.shape[-1]
+        idx = _fine_index(ilo, nrb * s).reshape(ilo.shape[0], nrb * s)  # (nBg, L)
+
+        def rep(a):
+            return torch.repeat_interleave(a.to(adt), s, dim=-1)
+
+        sd_r = rep(s_d)
+        delta = rep(mu) - ref[:, idx]  # (nvel, nBg, L)
+        cov_r = rep(cen[:npairs])
+        c1_r = rep(cen[npairs:])
+        contrib = torch.stack(
+            [
+                cov_r[p] + delta[i] * c1_r[j] + delta[j] * c1_r[i] + delta[i] * delta[j] * sd_r
+                for p, (i, j) in enumerate(pairs)
+            ]
+        )
+        prof.index_add_(1, idx.reshape(-1), (contrib * vf[None, :, None]).reshape(npairs, -1))
+    return prof
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.to(torch.float64).cpu().numpy()
+
+
+def _grouped_stats(data: Dict[str, torch.Tensor], geom: ProfileGeometry):
+    """Level-grouped (cen, S_d, mu) device groups + the pass-1 profile (host)."""
+    nvel = geom.ndim
+    nraw = 1 + 2 * nvel
+    npairs = len(_pair_indices(nvel))
+    raw, mu, cen = _stack_stats(data, geom)
+    # Recompose the d*v row sums from the centered residuals:
+    # sum(d*v) = c1 + mu*sum(d) exactly, and c1 stays accurate where the
+    # raw product sum cancels (near-zero-mean velocities).
+    raw = torch.cat([raw[: 1 + nvel], cen[npairs : npairs + nvel] + mu * raw[0][None]])
+    stacked = torch.cat([raw, cen, mu])
+    groups, scales = geom.device_groups(stacked)
+    raw_groups = tuple((g[0][:nraw], g[1], g[2]) for g in groups)
+    cen_groups = tuple(
+        (g[0][nraw : nraw + npairs + nvel], g[0][0], g[0][nraw + npairs + nvel :], g[1], g[2])
+        for g in groups
+    )
+    prof_raw = _host(_scatter_groups(raw_groups, scales, geom.nfine))
+    return prof_raw, cen_groups, scales
+
+
+def _is_uniform_fast_case(geom: ProfileGeometry) -> bool:
+    """Single uniform block profiled along x: rows == bins."""
+    return (
+        geom.ndim == 3
+        and geom.raxis == 0
+        and geom.blocklist.size == 1
+        and geom.nfine == geom.nrb
+    )
+
+
+def _uniform_centered_stats(data: Dict[str, torch.Tensor], geom: ProfileGeometry):
+    """Raw first moments + centered second moments of one uniform block
+    (K1, K2). Returns host (d_row, v_rows, cov(6,n), c1(3,n), means_rows),
+    all unscaled."""
+    blk = int(geom.blocklist[0])
+    vols = [data["dens"][blk]] + [data[f"vel{a}"][blk] for a in AXES_NAMES[:3]]
+    vols = [v.contiguous() for v in vols]
+    moments = cuda_kernels.row_moments_volume(*vols)
+    ncells_per_row = vols[0].shape[1] * vols[0].shape[2]
+    means_rows = (moments[1:4] / ncells_per_row).contiguous()
+    centered = cuda_kernels.centered_row_moments(*vols, means_rows)
+    packed = _host(torch.cat([moments[0][None], moments[1:4], centered, means_rows]))
+    return packed[0], packed[1:4], packed[4:10], packed[10:13], packed[13:16]
+
+
+def reynolds_stress(
+    data: Dict[str, torch.Tensor],
+    geom: ProfileGeometry,
+) -> Tuple[np.ndarray, Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """Finest-resolution Reynolds-stress profiles along ``geom.raxis``:
+    layer means of dens/vel, then density-weighted velocity covariances,
+    both normalized by layer volume (cross-section x finest cell width)."""
+    axes = AXES_NAMES[: geom.ndim]
+    layer_volume = geom.layer_area * geom.min_deltas[geom.raxis]
+
+    if _is_uniform_fast_case(geom):
+        d_row, v_rows, cov, _c1, _means_rows = _uniform_centered_stats(data, geom)
+        scale = float(geom.vol_fracs[0]) / layer_volume
+        means: Dict[str, np.ndarray] = {"dens": d_row * scale}
+        for i, a in enumerate(axes):
+            means[f"vel{a}"] = v_rows[i] * scale
+        stress: Dict[str, np.ndarray] = {}
+        for p, (i, j) in enumerate(_pair_indices(3)):
+            stress[f"R{axes[i]}{axes[j]}"] = cov[p] * scale
+        return geom.span.copy(), stress, means
+
+    prof_raw, cen_groups, scales = _grouped_stats(data, geom)
+    means = {"dens": prof_raw[0] / layer_volume}
+    for i, a in enumerate(axes):
+        means[f"vel{a}"] = prof_raw[1 + i] / layer_volume
+
+    ref_fine = torch.as_tensor(
+        np.stack([means[f"vel{a}"] for a in axes]), dtype=accum_dtype(), device=cen_groups[0][0].device
+    )
+    cov = _host(_scatter_centered_pairs(cen_groups, scales, geom.nfine, ref_fine, geom.ndim))
+    stress = {}
+    for p, (i, j) in enumerate(_pair_indices(geom.ndim)):
+        stress[f"R{axes[i]}{axes[j]}"] = cov[p] / layer_volume
+    return geom.span.copy(), stress, means
+
+
+def favre_profiles(
+    data: Dict[str, torch.Tensor],
+    geom: ProfileGeometry,
+) -> Dict[str, np.ndarray | Dict[str, np.ndarray]]:
+    """Favre (density-weighted) mean profiles and mass-weighted RMS:
+      favre_mean v~_i = <rho v_i> / <rho>
+      favre_rms  v''_i = sqrt(<rho (v_i - v~_i)^2> / <rho>)
+    from the same moments as reynolds_stress."""
+    nvel = geom.ndim
+    axes = AXES_NAMES[:nvel]
+    layer_volume = geom.layer_area * geom.min_deltas[geom.raxis]
+
+    if _is_uniform_fast_case(geom):
+        d64, _v_rows, cov, c1, means_rows = _uniform_centered_stats(data, geom)
+        scale = float(geom.vol_fracs[0]) / layer_volume
+        safe_d = np.where(d64 > 0, d64, 1.0)
+        pairs3 = _pair_indices(3)
+        out: Dict[str, np.ndarray | Dict[str, np.ndarray]] = {
+            "span": geom.span.copy(),
+            "mean_dens": d64 * scale,
+            "favre_mean": {},
+            "favre_rms": {},
+        }
+        for i, a in enumerate(axes):
+            # mu + sum(d*(v-mu))/sum(d): exact identity, conditioned
+            # where the raw sum(d*v) cancels (zero-mean velocities).
+            fmean = means_rows[i] + c1[i] / safe_d
+            di = fmean - means_rows[i]
+            p = pairs3.index((i, i))
+            var = (cov[p] - 2.0 * di * c1[i] + di * di * d64) / safe_d
+            out["favre_mean"][f"vel{a}"] = fmean
+            out["favre_rms"][f"vel{a}"] = np.sqrt(np.maximum(var, 0.0))
+        return out
+
+    prof_raw, cen_groups, scales = _grouped_stats(data, geom)
+    d0 = prof_raw[0]
+    dv = prof_raw[1 + nvel : 1 + 2 * nvel]
+    pairs = _pair_indices(nvel)
+
+    safe_d = np.where(d0 > 0, d0, 1.0)
+    fmeans = np.stack([dv[i] / safe_d for i in range(nvel)])
+    # Centered scatter against the Favre means: diagonal entries are
+    # the mass-weighted variance numerators sum(d*(v_i - v~_i)^2).
+    ref_fine = torch.as_tensor(fmeans, dtype=accum_dtype(), device=cen_groups[0][0].device)
+    cov = _host(_scatter_centered_pairs(cen_groups, scales, geom.nfine, ref_fine, nvel))
+    out = {
+        "span": geom.span.copy(),
+        "mean_dens": d0 / layer_volume,
+        "favre_mean": {},
+        "favre_rms": {},
+    }
+    for i, a in enumerate(axes):
+        var = cov[pairs.index((i, i))] / safe_d
+        out["favre_mean"][f"vel{a}"] = fmeans[i]
+        out["favre_rms"][f"vel{a}"] = np.sqrt(np.maximum(var, 0.0))
+    return out
+
+
+def slice_integral(
+    field_data: torch.Tensor,
+    geom: ProfileGeometry,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Finest-resolution axis profile of sum(field * vol_frac) per layer."""
+    idx = torch.as_tensor(geom.blocklist, device=field_data.device)
+    fields = (torch.index_select(field_data, 0, idx),)
+    moments = _row_moments(fields, raxis=geom.raxis, nvel=0)
+    groups, scales = geom.device_groups(moments)
+    return geom.span.copy(), _host(_scatter_groups(groups, scales, geom.nfine))[0]
+
+
+def slice_average(
+    field_data: torch.Tensor,
+    geom: ProfileGeometry,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """slice_integral normalized by layer volume."""
+    span, alp = slice_integral(field_data, geom)
+    layer_volume = geom.layer_area * geom.min_deltas[geom.raxis]
+    return span, alp / layer_volume
 
 
 def assemble_profile_stats(d_row, means, c1, cov, layer):

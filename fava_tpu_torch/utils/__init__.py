@@ -9,7 +9,6 @@ from fava_tpu_torch.utils._types import HID_T, NP_T
 from fava_tpu_torch.utils.precision import (
     accum_dtype,
     field_dtype,
-    numpy_dtype,
     resolve_device,
 )
 from fava_tpu_torch.utils.timing import reset_timings, timer, timings
@@ -22,7 +21,6 @@ __all__ = [
     "NotCallableError",
     "accum_dtype",
     "field_dtype",
-    "numpy_dtype",
     "reset_timings",
     "resolve_device",
     "timer",

@@ -15,7 +15,6 @@ CPU on its own.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 
@@ -41,7 +40,3 @@ def field_dtype(device) -> torch.dtype:
 def accum_dtype() -> torch.dtype:
     """Dtype of small accumulators (profiles, spectra, counts): always float64."""
     return torch.float64
-
-
-def numpy_dtype(dtype: torch.dtype) -> np.dtype:
-    return np.dtype({torch.float32: np.float32, torch.float64: np.float64}[dtype])

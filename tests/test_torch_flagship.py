@@ -143,11 +143,20 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stderr
 
 
-def test_unported_paths_raise_not_implemented(uniform_file):
+def test_unported_paths_raise_not_implemented(uniform_file, amr_file):
     tm = fava_tpu_torch.FLASH(uniform_file.parent, device="cpu")
-    for ftype, item in (("plt", "A4"), ("chk", "A4"), ("prt", "A9")):
-        with pytest.raises(NotImplementedError, match=item):
+    for ftype in ("prt", "chk_prt", "plt_prt"):
+        with pytest.raises(NotImplementedError, match="A9"):
             tm.load(file_type=ftype)
+    amr = fava_tpu_torch.FLASH(amr_file.parent, device="cpu")
+    amr.load(file_type="plt")
+    for method, item in (
+        ("volume_integration", "A7"), ("volume_average", "A7"), ("mass_sum", "A7"),
+        ("pdf1d", "A7"), ("pdf2d", "A7"), ("binned_statistic", "A7"), ("density_pdf", "A7"),
+        ("projection", "A8"), ("flame_window", "A8"),
+    ):
+        with pytest.raises(NotImplementedError, match=item):
+            getattr(amr.mesh, method)("dens")
     tm.load(file_type="uni")
     with pytest.raises(NotImplementedError, match="A10"):
         tm.flagship_analysis(streamed=True)
@@ -158,6 +167,8 @@ def test_unported_paths_raise_not_implemented(uniform_file):
 
 def test_registries_are_the_ports_own():
     assert fava_tpu_torch.Model is not fava_tpu.Model
-    assert "FlashUniform" in fava_tpu_torch.Model.mesh_names()
+    assert {"FLASH", "FlashUniform"} <= set(fava_tpu_torch.Model.mesh_names())
     assert fava_tpu_torch.Model.get_mesh_class("FlashUniform") is fava_tpu_torch.FlashUniform
-    assert callable(getattr(fava_tpu_torch.Model, "flagship_analysis"))
+    for name in ("flagship_analysis", "reynolds_stress", "favre_profiles", "slice_average",
+                 "slice_integration"):
+        assert callable(getattr(fava_tpu_torch.Model, name)), name

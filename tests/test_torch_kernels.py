@@ -11,7 +11,8 @@ handed to both packages. Tolerances:
   float64 interpret tests use — the two sides add up to ~2e5 terms in
   different orders;
 * fold: rtol 1e-14 — each output is a sum of <= 4 positive terms whose
-  order may differ.
+  order may differ;
+* regrid: exact (values are copied).
 
 The kernels themselves are held to these plain versions on the card by
 tests/test_torch_cuda.py.
@@ -22,12 +23,17 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from fava_tpu.io import synthetic as jsynthetic
+from fava_tpu.mesh import FLASH as JFlashAMR
 from fava_tpu.ops import pallas_kernels as pk
+from fava_tpu.ops import pallas_regrid
 from fava_tpu.ops import profiles as jprofiles
+from fava_tpu.ops import regrid as jregrid
 from fava_tpu.ops import spectra as jspectra
 from fava_tpu_torch.ops import _build
 from fava_tpu_torch.ops import cuda_kernels as ck
 from fava_tpu_torch.ops import profiles as tprofiles
+from fava_tpu_torch.ops import regrid as tregrid
 from fava_tpu_torch.ops import spectra as tspectra
 
 # Shapes of tests/test_pallas_kernels.py::test_shell_bin_folded_v2_matches_jnp:
@@ -51,7 +57,7 @@ def force_interpret():
 
 
 def _t(a):
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+    return torch.tensor(np.asarray(a))
 
 
 def _fields(shape, seed):
@@ -161,6 +167,115 @@ def test_odd_xy_extents_raise_not_implemented(shape):
 
 
 # ---------------------------------------------------------------------------
+# K5 / K6: block-stack row moments
+
+# (6, 8, 16, 16) meets fava_tpu's Pallas gate (_rows_ok: 256-lane rows)
+# and runs its interpret-mode kernels; (5, 8, 6, 10) (60-lane rows) takes
+# its jnp fallback.
+BLOCK_SHAPES = [(6, 8, 16, 16), (5, 8, 6, 10)]
+
+
+@pytest.mark.parametrize("shape", BLOCK_SHAPES)
+def test_block_row_moments_match_fava_tpu(force_interpret, shape):
+    nb, nx, ny, nz = shape
+    f = _fields(shape, seed=sum(shape))
+    assert pk._rows_ok(nb * nx, ny * nz) == (ny * nz % 128 == 0)
+    ref = np.asarray(pk.block_row_moments(*map(jnp.asarray, f)))
+    got = ck.block_row_moments(*map(_t, f))
+    assert got.shape == (7, nb, nx) and got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape", BLOCK_SHAPES)
+def test_block_centered_row_moments_match_fava_tpu(force_interpret, shape):
+    nb, nx, _, _ = shape
+    f = _fields(shape, seed=5 * sum(shape))
+    means = np.stack([v.mean(axis=(2, 3)) for v in f[1:]])
+    ref = np.asarray(pk.block_centered_row_moments(*map(jnp.asarray, f), jnp.asarray(means)))
+    got = ck.block_centered_row_moments(*map(_t, f), _t(means))
+    assert got.shape == (9, nb, nx) and got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-10, atol=1e-12)
+
+
+def test_block_moments_reject_mismatched_inputs():
+    f = [torch.ones(2, 4, 4, 4) for _ in range(4)]
+    with pytest.raises(ValueError, match="same-shaped"):
+        ck.block_row_moments(*f[:3], torch.ones(2, 4, 4, 5))
+    with pytest.raises(ValueError, match="means must be"):
+        ck.block_centered_row_moments(*f, torch.zeros(3, 2, 5))
+
+
+# ---------------------------------------------------------------------------
+# K7: the AMR -> uniform regrid
+
+
+def _regrid_case(tmp_path, ncells, refine, names=("dens", "velx")):
+    path = tmp_path / "rt_hdf5_plt_cnt_0001"
+    jsynthetic.make_amr_file(path, ncells=ncells, nblks=(2, 2, 2), refine=refine)
+    mesh = JFlashAMR(path)
+    mesh.load()
+    mesh.load_data(list(names))
+    return mesh
+
+
+def _plans(mesh, **kwargs):
+    common = dict(
+        block_bounds=mesh.block_bounds,
+        node_type=np.asarray(mesh.node_type),
+        refine_level=np.asarray(mesh.refine_level),
+        ncells_vec=mesh.nCellsVec,
+        nblks_vec=mesh.nBlksVec,
+        ndim=3,
+        **kwargs,
+    )
+    jplan, tplan = jregrid.RegridPlan(**common), tregrid.RegridPlan(**common)
+    for attr in ("leaf_table", "block_offsets", "block_scales", "out_origin", "total_cells",
+                 "domain_box", "source_ids", "grid_delta"):
+        np.testing.assert_array_equal(getattr(tplan, attr), getattr(jplan, attr), err_msg=attr)
+    return jplan, tplan
+
+
+REGRID_WINDOWS = {
+    "full": None,
+    "unaligned": np.array([[0.3, 0.8], [0.25, 0.75], [0.2, 0.7]]),
+}
+
+
+@pytest.mark.parametrize("window", sorted(REGRID_WINDOWS))
+def test_regrid_fields_match_fava_tpu_pallas(tmp_path, force_interpret, window):
+    mesh = _regrid_case(tmp_path, (8, 16, 16), {0: 2, 5: 3})
+    jplan, tplan = _plans(mesh, subdomain_coords=REGRID_WINDOWS[window])
+    data = {k: mesh._data[k] for k in ("dens", "velx")}
+    scale = int(jplan.block_scales[jplan.source_ids].max())
+    assert pallas_regrid.regrid_tiles_supported((8, 16, 16), scale)
+    ref = pallas_regrid.regrid_fields_pallas(jplan, data, ["dens", "velx"])
+    got = tregrid.regrid_fields(tplan, {k: _t(v) for k, v in data.items()}, ["dens", "velx"])
+    for k in ("dens", "velx"):
+        assert got[k].dtype == torch.float64
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]), err_msg=k)
+
+
+def test_regrid_fields_match_fava_tpu_off_the_tile_gate(tmp_path):
+    """Blocks that fava_tpu's tile kernel refuses (not powers of two,
+    scale 8 > ncx): K7 has no gate; its twin equals fava_tpu's gather."""
+    mesh = _regrid_case(tmp_path, (4, 6, 5), {0: 4, 3: 2})
+    jplan, tplan = _plans(mesh, subdomain_coords=np.array([[0.1, 0.9], [0.0, 1.0], [0.0, 1.0]]))
+    assert not pallas_regrid.regrid_tiles_supported((4, 6, 5), 8)
+    data = {k: mesh._data[k] for k in ("dens", "velx")}
+    ref = jregrid.regrid_fields(jplan, data, ["dens", "velx"])
+    got = tregrid.regrid_fields(tplan, {k: _t(v) for k, v in data.items()}, ["dens", "velx"])
+    for k in ("dens", "velx"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]), err_msg=k)
+
+
+def test_regrid_shifts_are_the_scale_exponents():
+    scales = torch.tensor([1, 2, 16, 1024])
+    assert ck._regrid_shifts(scales).tolist() == [0, 1, 4, 10]
+    with pytest.raises(ValueError, match="powers of two"):
+        ck._regrid_shifts(torch.tensor([1, 3]))
+
+
+# ---------------------------------------------------------------------------
 # Dispatch, counters and the build
 
 
@@ -171,6 +286,13 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     ck.centered_row_moments(*f, m[1:4] / 64.0)
     p = [v.abs()[:, :, :5].contiguous() for v in f[:2]]
     ck.shell_bin_sums_rfft(*p, 3, 8)
+    stacks = [v.reshape(2, 4, 8, 8) for v in f]
+    raw = ck.block_row_moments(*stacks)
+    ck.block_centered_row_moments(*stacks, raw[1:4] / 64.0)
+    table = torch.tensor([[[0]], [[1]]], dtype=torch.int32)
+    offsets = torch.tensor([[0, 0, 0], [4, 0, 0]])
+    scales = torch.ones(2, dtype=torch.int64)
+    ck.regrid_fields(stacks, table, offsets, scales, (8, 8, 8), (0, 0, 0), (4, 8, 8))
     assert ck.launch_counts() == dict.fromkeys(ck.KERNELS, 0)
 
 
@@ -202,7 +324,26 @@ def test_library_path_is_keyed_by_the_sources(monkeypatch, tmp_path):
 
 
 def test_package_sources_are_present():
-    assert [p.name for p in sorted(_build.CSRC.glob("*.cu"))] == ["flagship_kernels.cu"]
+    assert [p.name for p in sorted(_build.CSRC.glob("*.cu"))] == [
+        "amr_kernels.cu",
+        "flagship_kernels.cu",
+    ]
+    assert (_build.CSRC / "row_moments.cuh").is_file()
+    assert set(_build._SIGNATURES) >= {
+        "fava_block_row_moments",
+        "fava_block_centered_row_moments",
+        "fava_regrid_fields",
+    }
+
+
+def test_library_path_is_keyed_by_the_headers(monkeypatch, tmp_path):
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    head = tmp_path / "h.cuh"
+    head.write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path()
+    head.write_text("// v2\n")
+    assert _build.library_path() != first
 
 
 # ---------------------------------------------------------------------------
