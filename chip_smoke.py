@@ -40,6 +40,26 @@ no result):
 9. AMR timings: file synthesis and write, HDF5->card per field, the
    leaf gather, K5, K6, scatter and assembly, K7, the uniform write and
    read-back and the window's flagship step.
+10. Stage 4 on the AMR leaves (phase 8, before ``from_amr`` collapses
+   the mesh): the pdf2d kernel with cell-volume weights (pdf2d_weighted)
+   against its plain version on the 140 M leaf samples, then ``pdf2d``
+   (volume-weighted and unweighted), ``pdf1d``, ``density_pdf``,
+   ``binned_statistic``, ``mass_sum`` and ``volume_average`` with the
+   counters reset before and checked after each, held to the plain
+   float64 path on the CPU at the end of phase 8.
+11. Stage 4 on the 512^3 window read back from its file: pdf2d_counts on
+   (dens, velx) and the single-channel K4 on the folded dens power
+   against their plain versions; ``kinetic_energy_spectra``,
+   ``scalar_spectra("dens")``, ``pdf1d``, ``pdf2d`` (unweighted and
+   mass-weighted), ``density_pdf``, ``binned_statistic``, ``mass_sum``
+   and ``mass_fraction`` with counters; every result written to an
+   analysis file with ``save_to_hdf5`` and read back equal; each held to
+   the plain float64 path on the CPU; warm walls.
+12. Odd extents: the window cut to 511x512x512 through ``from_arrays``:
+   the unfolded binning kernel (B10) against its plain version, then
+   ``kinetic_energy_spectra``, ``scalar_spectra`` and
+   ``flagship_analysis`` through it, with counters, held to the plain
+   float64 path on the CPU.
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -68,6 +88,10 @@ SOURCES = {
     "block_row_moments": "fava_tpu_torch/csrc/amr_kernels.cu",
     "block_centered_row_moments": "fava_tpu_torch/csrc/amr_kernels.cu",
     "regrid_fields": "fava_tpu_torch/csrc/amr_kernels.cu",
+    "shell_bin_values_folded_1ch": "fava_tpu_torch/csrc/flagship_kernels.cu",
+    "shell_bin_sums_unfolded": "fava_tpu_torch/csrc/spectra_kernels.cu",
+    "pdf2d_counts": "fava_tpu_torch/csrc/pdf2d_kernels.cu",
+    "pdf2d_weighted": "fava_tpu_torch/csrc/pdf2d_kernels.cu",
 }
 REPLACES = {
     "row_moments": "fava_tpu/ops/pallas_kernels.py:95",
@@ -77,9 +101,14 @@ REPLACES = {
     "block_row_moments": "fava_tpu/ops/pallas_kernels.py:331",
     "block_centered_row_moments": "fava_tpu/ops/pallas_kernels.py:352",
     "regrid_fields": "fava_tpu/ops/pallas_regrid.py:78",
+    "shell_bin_values_folded_1ch": "fava_tpu/ops/pallas_kernels.py:955",
+    "shell_bin_sums_unfolded": "fava_tpu/ops/pallas_kernels.py:515",
+    "pdf2d_counts": "fava_tpu/ops/pallas_pdf2d.py:75",
+    "pdf2d_weighted": "fava_tpu/ops/pallas_pdf2d.py:91",
 }
-FLAGSHIP_KERNELS = tuple(REPLACES)[:4]
-AMR_KERNELS = tuple(REPLACES)[4:]
+FLAGSHIP_KERNELS = ("row_moments", "centered_row_moments", "fold_quadrants_pair",
+                    "shell_bin_values_folded")
+AMR_KERNELS = ("block_row_moments", "block_centered_row_moments", "regrid_fields")
 # Kernel vs plain float64 version on the same values (see phase_kernels).
 TOL_MOMENTS = 1e-10  # of the sum of |terms|: f64 sums of 2.6e5 terms, n*eps ~ 3e-11
 TOL_FOLD = 2e-7  # relative: <= 3 float32 roundings of a sum of <= 4 positive terms
@@ -89,6 +118,17 @@ TOL_BIN = 1e-9  # relative per shell: f64 sums of <= ~1e6 positive terms in anot
 # float32 FFT and power rounding; the profiles only summation order.
 TOL_SPECTRA = 1e-5
 TOL_PROFILES = 1e-9
+# Stage 4 (phases 10-12). Histogram counts are exact: each float32 sample
+# is compared as its exact double against the same float64 edges on both
+# sides. Weighted bin sums: f64 sums of the same float32 products in
+# another order (atomics on the card), relative per bin. Moments, means and
+# volume sums: f64 sums of ~1.4e8 terms in another order, as max |diff| /
+# max(|ref|, 1). density_pdf bins s = ln(rho/<rho>), whose log may differ by
+# an ulp between the card and the CPU and whose edges come from the moments:
+# at most TOL_SHIFT samples may change bin in all.
+TOL_WSUM = 1e-10
+TOL_SUMS = 1e-9
+TOL_SHIFT = 2
 
 # The AMR path (phases 6-9): an rtflame-like tree, refined around the
 # flame at x in [1.5, 2.5] (see amr_refine), and the flame window regridded
@@ -191,6 +231,15 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_row(torch, phase, name, max_abs, ratio, bound, kernel_fn, plain_fn):
+    """Print and check a kernel-vs-plain comparison; time both (CUDA events)."""
+    say(f"phase {phase} {name}: max_abs_err {max_abs!r}, error/bound {ratio!r} (bound {bound!r})")
+    if not ratio <= 1.0:
+        fail(f"{name} disagrees with its plain version (error/bound {ratio!r})")
+    return {"max_abs_err": max_abs, "ms": cuda_ms(torch, kernel_fn, 20),
+            "plain_ms": cuda_ms(torch, plain_fn, 3)}
+
+
 def path_powers(torch, fields):
     from fava_tpu_torch.ops.spectra import rfft_power_volumes
 
@@ -211,15 +260,7 @@ def phase_kernels(torch, fields):
 
     def record(name, got, ref, bound, err_ratio, kernel_fn, plain_fn):
         max_abs = float((got.double() - ref).abs().max())
-        say(f"phase 3 {name}: max_abs_err {max_abs!r}, error/bound {err_ratio!r} "
-            f"(bound {bound!r}), shapes {tuple(got.shape)}")
-        if not err_ratio <= 1.0:
-            fail(f"{name} disagrees with its plain version (error/bound {err_ratio!r})")
-        rows[name] = {
-            "max_abs_err": max_abs,
-            "ms": cuda_ms(torch, kernel_fn, 20),
-            "plain_ms": cuda_ms(torch, plain_fn, 5),
-        }
+        rows[name] = kernel_row(torch, 3, name, max_abs, err_ratio, bound, kernel_fn, plain_fn)
 
     # K1: |got - ref| against the sum of |terms| (plain moments of |fields|).
     got = ck.row_moments_volume(*fields)
@@ -299,6 +340,31 @@ def check_outputs(np, out, shape, where):
         fail(f"{where}: spectra_counts differ from the static counts")
 
 
+def output_floors(fields):
+    """Floors of the flagship outputs' scales: each output's scale is its
+    largest magnitude, floored by the field scale for outputs that can
+    vanish up to rounding (the trig fields' row means of v are ~0), as
+    fava_tpu's float32 step test normalizes."""
+    vmax = max(float(v.abs().max()) for v in fields[1:])
+    return {"favre_mean": vmax, "favre_rms": vmax,
+            "reynolds_stress": float(fields[0].abs().max()) * vmax**2}
+
+
+def compare_flagship(np, out, ref, fields, what, phase):
+    """max |diff| / scale of each flagship output against the float64 path."""
+    floor = output_floors(fields)
+    errs = {}
+    for key, r in ref.items():
+        r = np.asarray(r)
+        scale = max(float(np.abs(r).max()), floor.get(key, 0.0))
+        errs[key] = float(np.abs(np.asarray(out[key]) - r).max() / scale)
+        bound = TOL_SPECTRA if key.startswith("spectra_") else TOL_PROFILES
+        say(f"phase {phase} {what} {key}: max|diff|/scale {errs[key]!r} (bound {bound!r})")
+        if not errs[key] <= bound:
+            fail(f"{what} {key} disagrees with the plain float64 path")
+    return errs
+
+
 def phase_main(torch, np, fields):
     import fava_tpu_torch
     from fava_tpu_torch import flagship
@@ -317,21 +383,8 @@ def phase_main(torch, np, fields):
     t0 = time.perf_counter()
     ref = flagship.uniform_analysis_step(*(f.double().cpu() for f in fields))
     say(f"phase 4 plain float64 path on the CPU: {time.perf_counter() - t0:.1f} s")
-    # Scale of each output: its largest magnitude, floored by the field
-    # scale for outputs that can vanish up to rounding (the trig fields'
-    # row means of v are ~0), as fava_tpu's float32 step test normalizes.
-    vmax = max(float(v.abs().max()) for v in fields[1:])
-    floor = {"favre_mean": vmax, "favre_rms": vmax,
-             "reynolds_stress": float(fields[0].abs().max()) * vmax**2}
-    errs = {}
-    for key, r in ref.items():
-        r = r.numpy()
-        scale = max(float(np.abs(r).max()), floor.get(key, 0.0))
-        errs[key] = float(np.abs(out[key] - r).max() / scale)
-        bound = TOL_SPECTRA if key.startswith("spectra_") else TOL_PROFILES
-        say(f"phase 4 {key}: max|diff|/scale {errs[key]!r} (bound {bound!r})")
-        if not errs[key] <= bound:
-            fail(f"{key} disagrees with the plain float64 path")
+    errs = compare_flagship(np, out, ref, fields, "flagship_analysis", 4)
+    floor = output_floors(fields)
     del ref
 
     batch = flagship.make_example_field_batch(NSNAP, N)
@@ -488,12 +541,7 @@ def phase_amr_kernels(torch, np, mesh):
     def record(name, got, ref, mag, kernel_fn, plain_fn):
         max_abs = float((got - ref).abs().max())
         ratio = float(((got - ref).abs() / (TOL_MOMENTS * mag).clamp(min=1e-300)).max())
-        say(f"phase 7 {name}: max_abs_err {max_abs!r}, error/bound {ratio!r} "
-            f"(bound {TOL_MOMENTS!r} of the sum of |terms|), shape {tuple(got.shape)}")
-        if not ratio <= 1.0:
-            fail(f"{name} disagrees with its plain version (error/bound {ratio!r})")
-        rows[name] = {"max_abs_err": max_abs, "ms": cuda_ms(torch, kernel_fn, 20),
-                      "plain_ms": cuda_ms(torch, plain_fn, 3)}
+        rows[name] = kernel_row(torch, 7, name, max_abs, ratio, TOL_MOMENTS, kernel_fn, plain_fn)
 
     f64 = [f.double() for f in leaf]
     got = ck.block_row_moments(*leaf)
@@ -547,14 +595,14 @@ def phase_amr_kernels(torch, np, mesh):
 # Phase 8: the AMR path
 
 
-def counted(torch, ck, what, fn, expect):
+def counted(torch, ck, what, fn, expect, phase=8):
     """fn() with the launch counters reset before and read after; fails
     unless every kernel in ``expect`` was launched."""
     ck.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
     launches = ck.launch_counts()
-    say(f"phase 8 {what} launches: {launches}")
+    say(f"phase {phase} {what} launches: {({k: v for k, v in launches.items() if v})}")
     missing = [k for k in expect if launches[k] == 0]
     if missing:
         fail(f"{what} never launched {missing}")
@@ -628,6 +676,10 @@ def phase_amr_path(torch, np, model, workdir: Path):
     )
     times["reynolds_stress_stage_ms"] = stages
 
+    # Stage 4 on the leaves, before from_amr collapses the mesh to the window.
+    amr_results, pdf2d_row, times["stage4_wall_s"], stage4_launches = amr_stage4(
+        torch, np, ck, model)
+
     window = np.array(AMR_WINDOW)
     stacks = [mesh._field_stack(k) for k in NAMES]
     plan = RegridPlan(
@@ -691,12 +743,280 @@ def phase_amr_path(torch, np, model, workdir: Path):
     vmax = max(float(cpu.mesh.data(k).abs().max()) for k in NAMES[1:])
     dmax = float(cpu.mesh.data("dens").abs().max())
     say(f"phase 8 plain float64 profiles on the CPU: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    amr_ref = {name: fn() for name, (fn, _) in amr_stage4_runs(cpu).items()}
+    wmax = float(np.max(cpu.mesh.get_cell_volumes("LEAF")))
+    say(f"phase 10 plain float64 AMR stage 4 on the CPU: {time.perf_counter() - t0:.1f} s")
     del cpu
     times["profile_errors"] = {
         "reynolds_stress": compare_profiles(np, rs[1:], rs_ref[1:], vmax, dmax, "reynolds_stress"),
         "favre_profiles": compare_profiles(np, fav, fav_ref, vmax, dmax, "favre_profiles"),
     }
-    return totals, window_ms, times
+    times["stage4_errors"] = compare_stage4(
+        np, amr_results, amr_ref, AMR_WEIGHTED, wmax, "AMR stage 4", 10)
+    return totals, window_ms, times, pdf2d_row, stage4_launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 10-12: stage 4 (spectra, histograms, sums) on the AMR leaves and
+# the window, and the odd-extent window
+
+
+def add_counts(totals, launches):
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def check_pdf2d_kernel(torch, np, ck, phase, x, y, w):
+    """The pdf2d kernel against its plain version on the path's samples and
+    its default edges (100 x 100 over the data ranges): counts exact,
+    weighted sums within TOL_WSUM per bin."""
+    name = "pdf2d_counts" if w is None else "pdf2d_weighted"
+    xe = np.linspace(float(x.min()), float(x.max()), 101)
+    ye = np.linspace(float(y.min()), float(y.max()), 101)
+    got = ck.pdf2d_counts(x, y, xe, ye, weights=w)
+    again = ck.pdf2d_counts(x, y, xe, ye, weights=w)
+    torch.cuda.synchronize()
+    ref = ck._pdf2d_plain(x, y, xe, ye, w)
+    shared = ck.pdf2d_hist_in_shared_memory(100, 100, w is not None, x.device)
+    say(f"phase {phase} {name}: {x.numel()} samples, 100 x 100 bins, histogram in shared "
+        f"memory {shared}, run-to-run max |diff| {float((got - again).abs().max())!r}")
+    diff = (got - ref).abs()
+    if w is None:
+        ratio, bound = (0.0 if torch.equal(got, ref) else float("inf")), "exact"
+    else:
+        ratio, bound = float((diff / (TOL_WSUM * ref.abs()).clamp(min=1e-300)).max()), TOL_WSUM
+    return name, kernel_row(torch, phase, name, float(diff.max()), ratio, bound,
+                            lambda: ck.pdf2d_counts(x, y, xe, ye, weights=w),
+                            lambda: ck._pdf2d_plain(x, y, xe, ye, w))
+
+
+# AMR analyses whose histograms are weighted (by leaf cell volume): their
+# defaults, weight="volume"; binned_statistic counts stay raw sample counts.
+AMR_WEIGHTED = {"pdf2d volume", "pdf1d", "density pdf"}
+
+
+def amr_stage4_runs(model):
+    """The stage-4 analyses of the AMR leaves and the kernels each must launch."""
+    return {
+        "pdf2d volume": (lambda: model.pdf2d("dens", "velx"), ("pdf2d_weighted",)),
+        "pdf2d unweighted": (lambda: model.pdf2d("dens", "velx", weight=None), ("pdf2d_counts",)),
+        "pdf1d": (lambda: model.pdf1d("velx"), ()),
+        "density pdf": (model.density_pdf, ()),
+        "binned statistic": (lambda: model.binned_statistic("dens", "velx"), ()),
+        "mass sum": (model.mass_sum, ()),
+        "volume average": (lambda: model.volume_average("dens"), ()),
+    }
+
+
+def run_counted(torch, ck, phase, runs, prefix):
+    """Each analysis once with counters (checked), then its warm wall."""
+    results, walls, totals = {}, {}, {}
+    for name, (fn, expect) in runs.items():
+        results[name], launches = counted(torch, ck, f"{prefix} {name}", fn, expect, phase)
+        add_counts(totals, launches)
+        walls[name] = wall_per_call(torch, fn, 3)
+    say(f"phase {phase} {prefix} warm walls (s): {json.dumps(walls)}")
+    return results, walls, totals
+
+
+def amr_stage4(torch, np, ck, model):
+    """Phase 10 on the card: the weighted pdf2d kernel on the leaf samples,
+    then the AMR stage-4 analyses with counters."""
+    mesh = model.mesh
+    dens, velx = mesh._leaf_stack("dens"), mesh._leaf_stack("velx")
+    w = mesh._pdf_weights("volume", tuple(dens.shape))
+    row = check_pdf2d_kernel(torch, np, ck, 10, dens, velx, w)
+    del dens, velx, w
+    torch.cuda.empty_cache()
+    results, walls, totals = run_counted(torch, ck, 10, amr_stage4_runs(model), "AMR")
+    return results, row, walls, totals
+
+
+def compare_stage4(np, got, ref, weighted, wmax, what, phase):
+    """Hold stage-4 results to the plain float64 path: histogram counts
+    exact (the weighted histograms of the analyses named in ``weighted``
+    within TOL_WSUM per bin), density_pdf's within TOL_SHIFT moved samples
+    of weight <= wmax, spectra within TOL_SPECTRA of scale, everything
+    else within TOL_SUMS of max(|ref|, 1)."""
+    worst = {}
+
+    def walk(g, r, key):
+        if isinstance(r, dict):
+            if sorted(g) != sorted(r):
+                fail(f"{what} {key}: keys {sorted(g)} vs {sorted(r)}")
+            for k in r:
+                walk(g[k], r[k], f"{key}/{k}")
+            return
+        g, r = np.asarray(g, dtype=np.float64), np.asarray(r, dtype=np.float64)
+        if g.shape != r.shape or not np.array_equal(np.isnan(g), np.isnan(r)):
+            fail(f"{what} {key}: shape {g.shape} vs {r.shape}, or NaN in other places")
+        g, r = g[~np.isnan(r)], r[~np.isnan(r)]
+        analysis, leaf = key.split("/")[1], key.rsplit("/", 1)[-1]
+        diff = np.abs(g - r)
+        if "density pdf" in key and leaf in ("counts", "pdf"):
+            if leaf == "pdf":
+                return  # counts / (total * width): held through the counts
+            moved = float(np.maximum(diff - TOL_WSUM * np.abs(r), 0.0).sum())
+            worst[key] = moved / (2 * TOL_SHIFT * wmax)  # a moved sample changes two bins
+        elif leaf == "weight_sums" or (leaf in ("counts", "pdf") and analysis in weighted):
+            worst[key] = float((diff / (TOL_WSUM * np.abs(r)).clip(min=1e-300)).max(initial=0.0))
+        elif leaf in ("counts", "pdf", "k") or (leaf in ("edges", "xedges", "yedges", "centers")
+                                               and "density pdf" not in key):
+            worst[key] = 0.0 if np.array_equal(g, r) else float("inf")
+        elif leaf in ("total", "longitudinal", "transverse", "power") and "spectra" in key:
+            worst[key] = float(diff.max(initial=0.0) / np.abs(r).max() / TOL_SPECTRA)
+        else:
+            worst[key] = float(diff.max(initial=0.0) / max(np.abs(r).max(initial=0.0), 1.0) / TOL_SUMS)
+
+    walk(got, ref, "")
+    bad = {k: v for k, v in worst.items() if not v <= 1.0}
+    top = max(worst, key=worst.get)
+    say(f"phase {phase} {what} vs the plain float64 path: {len(worst)} arrays, worst "
+        f"error/bound {worst[top]!r} ({top})")
+    if bad:
+        fail(f"{what} disagrees with the plain float64 path (error/bound): {bad}")
+    return worst[top]
+
+
+def check_anl_file(np, path, results):
+    """The analysis file read back (h5lite) equals the results written."""
+    from fava_tpu_torch.io import h5lite
+
+    with h5lite.File(path) as f:
+        def walk(node, r, key):
+            if isinstance(r, dict):
+                for k in r:
+                    walk(node[k], r[k], f"{key}/{k}")
+                return
+            a, b = node[()], np.asarray(r)
+            if a.shape != b.shape or not np.array_equal(a, b, equal_nan=b.dtype.kind == "f"):
+                fail(f"analysis file {key} differs from the result written")
+
+        for name, res in results.items():
+            walk(f[name], res, name)
+
+
+def window_stage4_runs(model):
+    """The stage-4 analyses of the window and the kernels each must launch."""
+    return {
+        "kinetic energy spectra": (model.kinetic_energy_spectra,
+                                   ("fold_quadrants_pair", "shell_bin_values_folded")),
+        "scalar spectra": (lambda: model.scalar_spectra("dens"),
+                           ("fold_quadrants_pair", "shell_bin_values_folded_1ch")),
+        "pdf1d": (lambda: model.pdf1d("velx"), ()),
+        "pdf2d": (lambda: model.pdf2d("dens", "velx"), ("pdf2d_counts",)),
+        "pdf2d mass": (lambda: model.pdf2d("dens", "velx", weight="mass"), ("pdf2d_weighted",)),
+        "density pdf": (model.density_pdf, ()),
+        "binned statistic": (lambda: model.binned_statistic("dens", "velx"), ()),
+        "mass sum": (model.mass_sum, ()),
+        "mass fraction": (model.mesh.mass_fraction, ()),
+    }
+
+
+def phase_window_stage4(torch, np, workdir: Path):
+    """Phase 11: stage 4 on the 512^3 window read back from its file."""
+    import fava_tpu_torch
+    from fava_tpu_torch.ops import cuda_kernels as ck
+
+    uni = fava_tpu_torch.FLASH(workdir)
+    uni.load(file_type="uni", fields=list(NAMES))
+    dens, velx = uni.mesh.data("dens"), uni.mesh.data("velx")
+    rows = dict([check_pdf2d_kernel(torch, np, ck, 11, dens, velx, None)])
+
+    # Single-channel K4 on the folded dens power (the scalar spectrum's).
+    nx, ny, nz = dens.shape
+    nbins = max(nx, ny, nz) // 2 - 1
+    fw = torch.fft.rfftn(dens, norm="forward")
+    p = (fw.real.square() + fw.imag.square()).contiguous()
+    del fw
+    folded, _ = ck.fold_quadrants_pair(p, p)
+    del p
+    got = ck.shell_bin_values_folded_1ch(folded, nbins, ny, nz)
+    torch.cuda.synchronize()
+    ref = ck._shell_bin_folded_plain(folded.double(), None, nbins, ny, nz)[0]
+    rows["shell_bin_values_folded_1ch"] = kernel_row(
+        torch, 11, "shell_bin_values_folded_1ch", float((got - ref).abs().max()),
+        float(((got - ref).abs() / (TOL_BIN * ref.abs()).clamp(min=1e-300)).max()), TOL_BIN,
+        lambda: ck.shell_bin_values_folded_1ch(folded, nbins, ny, nz),
+        lambda: ck._shell_bin_folded_plain(folded, None, nbins, ny, nz))
+    del folded, dens, velx
+    torch.cuda.empty_cache()
+
+    results, walls, totals = run_counted(torch, ck, 11, window_stage4_runs(uni), "window")
+    anl = workdir / "rt_hdf5_analysis_0001"
+    t0 = time.perf_counter()
+    for name, res in results.items():  # one call per analysis, as pipeline stage 4 writes
+        uni.save_to_hdf5({name: res}, anl)
+    walls["analysis_file_write_s"] = time.perf_counter() - t0
+    check_anl_file(np, anl, results)
+    say(f"phase 11 analysis file {anl.name}: {len(results)} results written in "
+        f"{walls['analysis_file_write_s']!r} s and read back equal")
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    cpu = fava_tpu_torch.FLASH(workdir, device="cpu")
+    cpu.load(file_type="uni", fields=list(NAMES))
+    ref = {name: fn() for name, (fn, _) in window_stage4_runs(cpu).items()}
+    say(f"phase 11 plain float64 window stage 4 on the CPU: {time.perf_counter() - t0:.1f} s")
+    walls["errors"] = compare_stage4(np, results, ref, {"pdf2d mass"}, 1.0, "window stage 4", 11)
+    return uni, cpu, rows, walls, totals
+
+
+def phase_odd_extents(torch, np, uni, cpu):
+    """Phase 12: the window cut to 511 x 512 x 512 bins through B10."""
+    import fava_tpu_torch
+    from fava_tpu_torch.ops import cuda_kernels as ck
+
+    cut = [uni.mesh.data(k)[: N - 1].contiguous() for k in NAMES]
+    nx, ny, nz = cut[0].shape
+    nbins = max(nx, ny, nz) // 2 - 1
+    total, longi = path_powers(torch, cut)
+    got = ck.shell_bin_sums_unfolded(total, longi, nbins, nz)
+    again = ck.shell_bin_sums_unfolded(total, longi, nbins, nz)
+    torch.cuda.synchronize()
+    ref = ck._shell_bin_unfolded_plain(total.double(), longi.double(), nbins, nz)
+    ones = torch.ones(total.shape, dtype=torch.float64, device=total.device)
+    plain_counts = ck._shell_bin_unfolded_plain(ones, None, nbins, nz)[0]
+    del ones
+    if not torch.equal(ck._static_counts(total.shape, nbins, nz, total.device), plain_counts):
+        fail("the static shell counts differ from the plain binning of ones")
+    say(f"phase 12 shell_bin_sums_unfolded on {tuple(total.shape)}: static counts equal to the "
+        f"plain binning of ones; run-to-run max |diff| {float((got - again).abs().max())!r}")
+    rows = {"shell_bin_sums_unfolded": kernel_row(
+        torch, 12, "shell_bin_sums_unfolded", float((got - ref).abs().max()),
+        float(((got - ref).abs() / (TOL_BIN * ref.abs()).clamp(min=1e-300)).max()), TOL_BIN,
+        lambda: ck.shell_bin_sums_unfolded(total, longi, nbins, nz),
+        lambda: ck._shell_bin_unfolded_plain(total, longi, nbins, nz))}
+    del total, longi, got, again, ref
+    torch.cuda.empty_cache()
+
+    odd = fava_tpu_torch.from_arrays(dict(zip(NAMES, cut)))
+    unfolded = ("shell_bin_sums_unfolded",)
+    runs = {
+        "kinetic energy spectra": (odd.kinetic_energy_spectra, unfolded),
+        "scalar spectra": (lambda: odd.scalar_spectra("dens"), unfolded),
+        "flagship analysis": (odd.flagship_analysis,
+                              ("row_moments", "centered_row_moments", *unfolded)),
+    }
+    results, walls, totals = run_counted(torch, ck, 12, runs, "511x512x512")
+    if totals.get("fold_quadrants_pair", 0) or totals.get("shell_bin_values_folded", 0):
+        fail(f"the odd-extent path reached the folded binning: {totals}")
+    check_outputs(np, results["flagship analysis"], (nx, ny, nz), "single")
+
+    t0 = time.perf_counter()
+    cut_cpu = [cpu.mesh.data(k)[: N - 1].contiguous() for k in NAMES]
+    odd_cpu = fava_tpu_torch.from_arrays(dict(zip(NAMES, cut_cpu)), device="cpu")
+    ref = {"kinetic energy spectra": odd_cpu.kinetic_energy_spectra(),
+           "scalar spectra": odd_cpu.scalar_spectra("dens")}
+    flag_ref = odd_cpu.flagship_analysis()
+    say(f"phase 12 plain float64 odd-extent path on the CPU: {time.perf_counter() - t0:.1f} s")
+    walls["errors"] = compare_stage4(
+        np, {k: results[k] for k in ref}, ref, set(), 1.0, "511x512x512 spectra", 12)
+    walls["flagship_errors"] = compare_flagship(
+        np, results["flagship analysis"], flag_ref, cut_cpu, "511x512x512 flagship", 12)
+    return rows, walls, totals
+
 
 
 def main() -> None:
@@ -734,17 +1054,29 @@ def main() -> None:
         amr_rows, full_ms = phase_amr_kernels(torch, np, amr_model.mesh)
         amr_times["regrid_full_domain_dens_ms"] = full_ms
         rows.update(amr_rows)
-        amr_launches, window_ms, path_times = phase_amr_path(torch, np, amr_model, workdir)
+        amr_launches, window_ms, path_times, pdf2d_row, amr4_launches = phase_amr_path(
+            torch, np, amr_model, workdir)
         del amr_model
-    rows["regrid_fields"] = window_ms
-    launches.update(amr_launches)
-    amr_times.update(path_times)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
-    )
-    amr_times.update({"card": card, "nvidia_smi_after": smi.stdout.strip()})
-    say(f"phase 9 AMR timings: {json.dumps(amr_times)}")
+        rows["regrid_fields"] = window_ms
+        rows[pdf2d_row[0]] = pdf2d_row[1]
+        launches.update(amr_launches)
+        amr_times.update(path_times)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
+             "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+        )
+        amr_times.update({"card": card, "nvidia_smi_after": smi.stdout.strip()})
+        say(f"phase 9 AMR timings: {json.dumps(amr_times)}")
+        torch.cuda.empty_cache()
+
+        uni, cpu, win_rows, win_times, win_launches = phase_window_stage4(torch, np, workdir)
+        rows.update(win_rows)
+        odd_rows, odd_times, odd_launches = phase_odd_extents(torch, np, uni, cpu)
+        rows.update(odd_rows)
+        del uni, cpu
+    for counts in (amr4_launches, win_launches, odd_launches):
+        add_counts(launches, counts)
+    say(f"phase 11-12 stage-4 timings: {json.dumps({'card': card, 'window': win_times, 'odd': odd_times})}")
 
     if any(m.split(".")[0] in ("jax", "fava_tpu") for m in sys.modules):
         fail("JAX or fava_tpu was imported")

@@ -2,13 +2,16 @@
 
 A second package beside the JAX reference ``fava_tpu``, ported slice by
 slice (ROADMAP.md). It runs the flagship analysis — kinetic-energy
-spectra plus Reynolds-stress and Favre x-profiles of a uniform volume —
-and the AMR path: FLASH plt/chk files, block-stack Reynolds and Favre
+spectra plus Reynolds-stress and Favre x-profiles of a uniform volume;
+the AMR path: FLASH plt/chk files, block-stack Reynolds and Favre
 profiles, and the regrid of a window onto a uniform file
-(``mesh.from_amr``), through seven hand-written CUDA kernels
-(``ops/cuda_kernels.py``). Every public entry
-takes ``device=`` ("cuda" by default); asking for CUDA where there is
-none raises. This package imports neither jax nor fava_tpu.
+(``mesh.from_amr``); and the spectrum and histogram analyses of pipeline
+stage 4 on both meshes (KE and scalar spectra, pdf1d/pdf2d,
+density_pdf, binned_statistic, mass and volume sums), with results
+written by ``Model.save_to_hdf5``. The kernels are hand-written CUDA
+(``ops/cuda_kernels.py``). Every public entry takes ``device=``
+("cuda" by default); asking for CUDA where there is none raises. This
+package imports neither jax nor fava_tpu.
 """
 
 from fava_tpu_torch.models import FLASH, FileType, InMemoryModel, Model, from_arrays

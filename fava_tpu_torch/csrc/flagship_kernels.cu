@@ -1,9 +1,10 @@
 // Hopper (sm_90a) kernels of the flagship analysis step.
 //
-// Four kernels, each the counterpart of one Pallas kernel of
-// fava_tpu/ops/pallas_kernels.py. Plain C entry points (bound with ctypes
-// by fava_tpu_torch/ops/_build.py); each launches on the caller's stream,
-// allocates nothing, and returns cudaGetLastError() of its launch. The
+// Four kernels (K4 in a one- and a two-channel form), each the counterpart
+// of one Pallas kernel of fava_tpu/ops/pallas_kernels.py. Plain C entry
+// points (bound with ctypes by fava_tpu_torch/ops/_build.py); each launches
+// on the caller's stream, allocates nothing, and returns cudaGetLastError()
+// of its launch. The
 // Python wrappers in fava_tpu_torch/ops/cuda_kernels.py check devices,
 // dtypes, shapes and contiguity before calling in.
 //
@@ -14,6 +15,7 @@
 #include <stdint.h>
 
 #include "row_moments.cuh"
+#include "shell_bins.cuh"
 
 namespace {
 
@@ -145,11 +147,13 @@ __global__ void fold_pair_kernel(const float* __restrict__ t, const float* __res
 
 // ---------------------------------------------------------------------------
 // Folded shell binning (K4), replacing _shell_kernel_folded_v3
-// (pallas_kernels.py:955, defer_rows=True).
+// (pallas_kernels.py:955, defer_rows=True), with C = 2 channels (total and
+// longitudinal power, the KE spectra) or C = 1 (one power volume, the scalar
+// spectra: shell_bin_sums_rfft_scalar, pallas_kernels.py:1271).
 //
 // For each folded cell (i, j, z): k = sqrt(i^2 + j^2 + z^2) in f32 (the
 // integer k^2 is exact in f32), shell = floor(k + 0.5), cells with
-// k > nbins - 0.5 or j > ny/2 dropped; the shell's two f64 sums gain
+// k > nbins - 0.5 or j > ny/2 dropped; each channel's f64 shell sum gains
 // wz * value with wz = 1 on self-conjugate z planes (0, and nz/2 for even
 // nz) and 2 elsewhere.
 //
@@ -157,23 +161,22 @@ __global__ void fold_pair_kernel(const float* __restrict__ t, const float* __res
 // bound by the loop. Here each cell is touched once, and the limit is
 // contention on the histogram: neighbouring cells fall in the same shell.
 // Design: blocks run in parallel with no order, so nothing carries between
-// them; each block keeps its own 2 x nbins f64 histogram in shared memory
+// them; each block keeps its own C x nbins f64 histogram in shared memory
 // (sized from nbins at run time) and adds it to the output with f64 global
 // atomics at the end. A warp walks one (i, j) row along z, 32 cells at a
-// time (coalesced loads). Along a row the shell index never decreases, so
-// lanes of one shell form one contiguous run: a 5-step segmented shuffle
-// scan sums each run and only its last lane touches shared memory. Rows and
-// row tails beyond the last shell are skipped without reading them. The
-// atomics make the summation order vary between runs (f64, so the spread is
-// at rounding level).
+// time (coalesced loads), and sums runs of equal shells with a segmented
+// shuffle scan before touching shared memory (shell_bins.cuh). Rows and row
+// tails beyond the last shell are skipped without reading them. The
+// single-channel variant is the same kernel without the second channel's
+// loads, scan and atomics.
 
+template <int C>
 __global__ void __launch_bounds__(kBinThreads)
 shell_bin_folded_kernel(const float* __restrict__ t, const float* __restrict__ l,
                         double* __restrict__ out, int nxh, int rows, int nzr, int nbins,
                         int full_ny, int full_nz) {
-  extern __shared__ double hist[];  // [2][nbins]
-  for (int b = threadIdx.x; b < 2 * nbins; b += blockDim.x) hist[b] = 0.0;
-  __syncthreads();
+  extern __shared__ double hist[];  // [C][nbins]
+  fava::zero_hist(hist, C * nbins);
 
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
@@ -188,45 +191,41 @@ shell_bin_folded_kernel(const float* __restrict__ t, const float* __restrict__ l
     const int j = (int)(row % rows);
     if (j > ny_half) continue;  // fold padding rows bin nothing (warp-uniform)
     const int ij2 = i * i + j * j;
-    const float* tr = t + row * nzr;
-    const float* lr = l + row * nzr;
+    const int64_t off = row * nzr;
     for (int z0 = 0; z0 < nzr; z0 += 32) {
       // Warp-uniform: k grows with z, so every later cell is out of range.
       if (sqrtf((float)(ij2 + z0 * z0)) > kmax) break;
       const int z = z0 + lane;
       int shell = nbins;  // sentinel: bins nothing, sorts after every shell
-      double vt = 0.0, vl = 0.0;
+      double v[C] = {};
       if (z < nzr) {
         const float k = sqrtf((float)(ij2 + z * z));
         if (k <= kmax) {
           shell = min((int)floorf(k + 0.5f), nbins - 1);
           const double wz = (z == 0 || z == z_nyq) ? 1.0 : 2.0;
-          vt = wz * (double)tr[z];
-          vl = wz * (double)lr[z];
+          v[0] = wz * (double)t[off + z];
+          if constexpr (C == 2) v[1] = wz * (double)l[off + z];
         }
       }
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const double ut = __shfl_up_sync(kFullMask, vt, o);
-        const double ul = __shfl_up_sync(kFullMask, vl, o);
-        const int us = __shfl_up_sync(kFullMask, shell, o);
-        if (lane >= o && us == shell) {
-          vt += ut;
-          vl += ul;
-        }
-      }
-      const int next = __shfl_down_sync(kFullMask, shell, 1);
-      if (shell < nbins && (lane == 31 || next != shell)) {
-        atomicAdd(&hist[shell], vt);
-        atomicAdd(&hist[nbins + shell], vl);
-      }
+      fava::warp_bin_add<C>(shell, v, hist, nbins, lane);
     }
   }
-  __syncthreads();
-  for (int b = threadIdx.x; b < 2 * nbins; b += blockDim.x) {
-    const double v = hist[b];
-    if (v != 0.0) atomicAdd(&out[b], v);
+  fava::flush_hist(hist, out, C * nbins);
+}
+
+template <int C>
+int launch_shell_bin_folded(const float* t, const float* l, double* out, int nxh, int rows,
+                            int nzr, int nbins, int full_ny, int full_nz, int blocks,
+                            cudaStream_t stream) {
+  const size_t smem = C * (size_t)nbins * sizeof(double);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        shell_bin_folded_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  shell_bin_folded_kernel<C><<<blocks, kBinThreads, smem, stream>>>(t, l, out, nxh, rows, nzr,
+                                                                    nbins, full_ny, full_nz);
+  return launch_status();
 }
 
 }  // namespace
@@ -264,18 +263,18 @@ int fava_fold_quadrants_pair(const void* t, const void* l, void* to, void* lo, i
 }
 
 int fava_shell_bin_values_folded(const void* t, const void* l, void* out, int nxh, int rows,
-                                 int nzr, int nbins, int full_ny, int full_nz, int blocks,
-                                 void* stream) {
+                                 int nzr, int nbins, int full_ny, int full_nz, int channels,
+                                 int blocks, void* stream) {
   (void)cudaGetLastError();
-  const size_t smem = 2 * (size_t)nbins * sizeof(double);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        shell_bin_folded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  shell_bin_folded_kernel<<<blocks, kBinThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)t, (const float*)l, (double*)out, nxh, rows, nzr, nbins, full_ny, full_nz);
-  return launch_status();
+  const float* tf = (const float*)t;
+  const float* lf = (const float*)l;
+  double* o = (double*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (channels == 1)
+    return launch_shell_bin_folded<1>(tf, lf, o, nxh, rows, nzr, nbins, full_ny, full_nz, blocks, st);
+  if (channels == 2)
+    return launch_shell_bin_folded<2>(tf, lf, o, nxh, rows, nzr, nbins, full_ny, full_nz, blocks, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

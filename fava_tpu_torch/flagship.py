@@ -3,8 +3,9 @@ and Favre x-profiles of one uniform snapshot.
 
 Counterpart of fava_tpu/flagship.py, single-device branch only (the
 sharded branch is ROADMAP A11). PyTorch runs eagerly, so the step is a
-sequence of cuFFT transforms, plain tensor ops and the four hand-written
-kernels of ``ops/cuda_kernels.py``; ``series_analysis_step`` is a
+sequence of cuFFT transforms, plain tensor ops and the hand-written
+kernels of ``ops/cuda_kernels.py`` (K1-K4; the unfolded binning B10 in
+place of K3/K4 for odd x or y extents); ``series_analysis_step`` is a
 Python loop over snapshots where fava_tpu used ``lax.scan``.
 
 Outputs are float64 on every device (fava_tpu's are float32 on the TPU).
@@ -19,7 +20,7 @@ import torch
 
 from fava_tpu_torch.ops import cuda_kernels
 from fava_tpu_torch.ops.profiles import assemble_profile_stats
-from fava_tpu_torch.ops.spectra import rfft_power_volumes
+from fava_tpu_torch.ops.spectra import rfft_shell_sums
 from fava_tpu_torch.utils import field_dtype, resolve_device
 
 
@@ -32,13 +33,7 @@ def uniform_analysis_step(dens, velx, vely, velz) -> Dict[str, torch.Tensor]:
     # --- Spectra: real input, so rfft halves the transform and binning
     # work; Hermitian weights in the binning make the result equal to the
     # full-grid computation.
-    sqrt_d = torch.sqrt(dens)
-    ffts = [torch.fft.rfftn(sqrt_d * v, norm="forward") for v in vels]
-    del sqrt_d
-    total, longi = rfft_power_volumes(ffts, (nx, ny, nz))
-    del ffts
-    counts, sums3 = cuda_kernels.shell_bin_sums_rfft(total, longi, nbins, nz)
-    del total, longi
+    counts, sums3 = rfft_shell_sums(dens, vels, nbins)
 
     # --- Profiles along x (uniform grid: rows are the bins). Two passes:
     # raw first moments, then second moments centered on the row means,

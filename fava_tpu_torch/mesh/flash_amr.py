@@ -4,9 +4,9 @@ Counterpart of fava_tpu/mesh/flash_amr.py, single device. Field data
 lives as tensors of shape (nblocks, nxb, nyb, nzb) on ``device``
 (float32 on CUDA, float64 on the CPU); block bookkeeping stays as small
 host numpy arrays; the profile analyses and the regrid dispatch to
-``fava_tpu_torch.ops``. The volume, PDF and binned analyses wait for
-ROADMAP A7, the projection and flame window for A8 (they raise
-NotImplementedError naming the item).
+``fava_tpu_torch.ops``, as do the volume sums, PDFs and conditional
+statistics over the leaf cells. The projection and flame window wait
+for ROADMAP A8 (they raise NotImplementedError naming the item).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from fava_tpu_torch.mesh.base import Structured
 from fava_tpu_torch.models.model import Model
 from fava_tpu_torch.ops import profiles as profile_ops
 from fava_tpu_torch.ops import regrid as regrid_ops
+from fava_tpu_torch.ops import volume as volume_ops
 from fava_tpu_torch.utils import field_dtype, resolve_device, timer
 
 logger = logging.getLogger(__name__)
@@ -492,13 +493,69 @@ class FLASH(Structured):
             stack = torch.index_select(stack, 0, torch.as_tensor(blocklist, device=stack.device))
         return stack
 
-    volume_integration = _not_ported("A7", "volume_integration")
-    volume_average = _not_ported("A7", "volume_average")
-    mass_sum = _not_ported("A7", "mass_sum")
-    pdf1d = _not_ported("A7", "pdf1d")
-    pdf2d = _not_ported("A7", "pdf2d")
-    binned_statistic = _not_ported("A7", "binned_statistic")
-    density_pdf = _not_ported("A7", "density_pdf")
+    def volume_integration(self, field: str) -> float:
+        blocklist = self.get_blocklist("LEAF")
+        return volume_ops.volume_integration(
+            self._field_stack(field), self.get_cell_volumes(), blocklist
+        )
+
+    def volume_average(self, field: str) -> float:
+        blocklist = self.get_blocklist("LEAF")
+        return volume_ops.volume_average(
+            self._field_stack(field), self.get_cell_volumes(), self.domain_volume, blocklist
+        )
+
+    def mass_sum(self, masks: Optional[Dict[str, Any]] = None) -> Dict[str, float]:
+        """Total (and per-mask) mass over the leaf cells."""
+        dens = self._leaf_stack("dens")
+        cv = np.asarray(self.get_cell_volumes("LEAF")).reshape((-1,) + (1,) * (dens.ndim - 1))
+        return volume_ops.mass_sum(dens, cv, masks)
+
+    def pdf1d(self, field: str, weight: Optional[str] = "volume", **kwargs):
+        vals = self._leaf_stack(field)
+        return volume_ops.pdf1d(vals, weights=self._pdf_weights(weight, vals.shape), **kwargs)
+
+    def pdf2d(self, field1: str, field2: str, weight: Optional[str] = "volume", **kwargs):
+        vals1 = self._leaf_stack(field1)
+        vals2 = self._leaf_stack(field2)
+        return volume_ops.pdf2d(
+            vals1, vals2, weights=self._pdf_weights(weight, vals1.shape), **kwargs
+        )
+
+    def binned_statistic(self, xfield: str, yfield: str, weight: Optional[str] = "volume", **kwargs):
+        """Conditional bin statistics over the leaf cells: per-bin raw
+        counts + volume- (or mass-) weighted mean/std of yfield given
+        xfield (weight=None for unweighted)."""
+        xv = self._leaf_stack(xfield)
+        yv = self._leaf_stack(yfield)
+        return volume_ops.binned_statistic(
+            xv, yv, weights=self._pdf_weights(weight, xv.shape), **kwargs
+        )
+
+    def density_pdf(self, weight: Optional[str] = "volume", **kwargs):
+        """Lognormality diagnostics of s = ln(rho/<rho>) over the leaf
+        cells, per-level cell volumes weighting the mean and the s-PDF."""
+        vals = self._leaf_stack("dens")
+        return volume_ops.density_pdf(
+            vals, weights=self._pdf_weights(weight, vals.shape), **kwargs
+        )
+
+    def _pdf_weights(self, weight: Optional[str], shape):
+        """Per-cell PDF weights in the field dtype: the leaf cell volume,
+        optionally times density (contiguous, as the pdf2d kernel takes
+        them)."""
+        if weight is None:
+            return None
+        if weight not in ("volume", "mass"):
+            raise ValueError(f"Unknown pdf weight {weight}")
+        cv = torch.as_tensor(
+            self.get_cell_volumes("LEAF"), dtype=field_dtype(self.device), device=self.device
+        )
+        w = cv.reshape((-1,) + (1,) * (len(shape) - 1)).expand(shape)
+        if weight == "mass":
+            return w * self._leaf_stack("dens")
+        return w.contiguous()
+
     projection = _not_ported("A8", "projection")
     flame_window = _not_ported("A8", "flame_window")
 

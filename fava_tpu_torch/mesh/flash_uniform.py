@@ -2,15 +2,17 @@
 
 Counterpart of fava_tpu/mesh/flash_uniform.py, in-core only: field
 reads onto the device (the metadata ``load`` is FLASH's), ``from_arrays``,
-and the flagship analysis. ``reynolds_stress``, ``favre_profiles`` and
-the slice profiles are FLASH's: on one block profiled along x they take
+the flagship analysis, the kinetic-energy and scalar spectra, and the
+PDFs and conditional statistics of pipeline stage 4. ``reynolds_stress``,
+``favre_profiles``, the slice profiles, ``mass_sum`` and the volume
+averages are FLASH's: on one block profiled along x the profiles take
 the uniform fast case (K1/K2). The streamed out-of-core path is ROADMAP
-A10; the other uniform-grid analyses are ROADMAP A3/A7/A8.
+A10; the other uniform-grid analyses are ROADMAP A7/A8.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -18,6 +20,8 @@ import torch
 from fava_tpu_torch.io import flash_file
 from fava_tpu_torch.mesh.flash_amr import FLASH
 from fava_tpu_torch.models.model import Model
+from fava_tpu_torch.ops import spectra as spectra_ops
+from fava_tpu_torch.ops import volume as volume_ops
 from fava_tpu_torch.utils import field_dtype, timer
 
 
@@ -153,3 +157,81 @@ class FlashUniform(FLASH):
         vols = [self._volume(name) for name in ("dens", "velx", "vely", "velz")]
         out = flagship.uniform_analysis_step(*vols)
         return {k: v.cpu().numpy() for k, v in out.items()}
+
+    @timer
+    def kinetic_energy_spectra(self) -> Dict[str, np.ndarray]:
+        """KE spectra (reference: FlashUniform.py:229-304)."""
+        vels = [self._volume(f"vel{a}") for a in "xyz"[: self.ndim]]
+        return spectra_ops.kinetic_energy_spectra(self._volume("dens"), vels, ndim=self.ndim)
+
+    @timer
+    def scalar_spectra(self, field: str) -> Dict[str, Dict[str, np.ndarray]]:
+        """Power spectrum of one scalar field (density/flame/...): the KE
+        spectra's transform, binning convention and integral factor, so
+        slopes compare directly."""
+        return {field: spectra_ops.scalar_spectrum(self._volume(field), ndim=self.ndim)}
+
+    def _scalar_volume(self, name: str) -> torch.Tensor:
+        """Scalar field volume squeezed to ``ndim`` axes (2D datasets carry
+        (nx, ny, 1) volumes), so it pairs cell by cell with the others."""
+        v = self._volume(name)
+        nd = self.ndim
+        if v.ndim > nd:
+            if not all(s == 1 for s in v.shape[nd:]):
+                raise ValueError(
+                    f"dataset claims {nd}D but field {name!r} has "
+                    f"non-singleton trailing axes: {tuple(v.shape)}"
+                )
+            v = v.reshape(v.shape[:nd])
+        return v
+
+    def mass_fraction(self, masks: Optional[Dict[str, Any]] = None) -> Dict[str, float]:
+        """Total + per-mask mass (reference: FlashUniform.py:449-458)."""
+        return volume_ops.mass_sum(self._volume("dens"), self.cell_volume_min, masks)
+
+    def _uniform_pdf_weights(self, weight: Optional[str]):
+        """Uniform cells share one volume, so "volume" weighting is the
+        unweighted path (None); "mass" weights by dens."""
+        if weight in (None, "volume"):
+            return None
+        if weight == "mass":
+            return self._scalar_volume("dens")
+        raise ValueError(f"Unknown pdf weight {weight}")
+
+    @timer
+    def pdf1d(self, field: str, weight: Optional[str] = "volume", **kwargs):
+        """Weighted 1D PDF of a field."""
+        return volume_ops.pdf1d(
+            self._scalar_volume(field), weights=self._uniform_pdf_weights(weight), **kwargs
+        )
+
+    @timer
+    def pdf2d(self, field1: str, field2: str, weight: Optional[str] = "volume", **kwargs):
+        """Weighted joint PDF of two fields (the joint-histogram kernel)."""
+        return volume_ops.pdf2d(
+            self._scalar_volume(field1),
+            self._scalar_volume(field2),
+            weights=self._uniform_pdf_weights(weight),
+            **kwargs,
+        )
+
+    @timer
+    def binned_statistic(
+        self, xfield: str, yfield: str, weight: Optional[str] = "volume", **kwargs
+    ) -> Dict[str, Any]:
+        """Per-bin count/mean/std of ``yfield`` conditioned on ``xfield``;
+        weight="volume" is the exact unweighted path, "mass" weights by
+        dens."""
+        return volume_ops.binned_statistic(
+            self._scalar_volume(xfield),
+            self._scalar_volume(yfield),
+            weights=self._uniform_pdf_weights(weight),
+            **kwargs,
+        )
+
+    @timer
+    def density_pdf(self, weight: Optional[str] = "volume", **kwargs) -> Dict[str, Any]:
+        """Lognormality diagnostics of s = ln(rho/<rho>) (ops/volume.density_pdf)."""
+        return volume_ops.density_pdf(
+            self._scalar_volume("dens"), weights=self._uniform_pdf_weights(weight), **kwargs
+        )

@@ -3,8 +3,9 @@
 Counterpart of fava_tpu/models/model.py. The registries are separate
 from fava_tpu's on purpose: ``register_analysis`` skips names the class
 already has, so a shared Model would keep whichever package registered
-first. The HDF5 result writers and the generic sniffing ``load`` are
-not part of this slice (ROADMAP A3).
+first. The HDF5 result writers (``save_to_hdf5`` and its helpers) go
+through the port's own codec, ``io/h5lite.py``; the generic sniffing
+``load`` is not ported (FLASH's typed ``load`` is the entry point).
 """
 
 from __future__ import annotations
@@ -12,6 +13,9 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+
+from fava_tpu_torch.io import h5lite
 from fava_tpu_torch.utils import NotCallableError, timer
 from fava_tpu_torch.utils._exceptions import InvalidMeshError
 
@@ -93,3 +97,39 @@ class Model:
             return analysis_func
 
         return decorator
+
+    # ------------------------------------------------------------------
+    # HDF5 result output
+    def save_to_hdf5(self, data: dict, filename: Path | str) -> None:
+        """Write a nested dict of results as HDF5 groups/datasets
+        (appending: an existing file keeps its other keys)."""
+        _filename = Path(filename)
+        mode = "a" if _filename.is_file() else "w"
+        with h5lite.File(_filename, mode) as f:
+            self.write_to_hdf5(f, data)
+
+    def write_to_hdf5(self, handle, data: dict) -> None:
+        """Write ``data`` under ``handle``: a dict becomes a group (merged
+        into an existing one), anything else a dataset replacing any
+        object of that name; unicode strings are stored as bytes."""
+        for key, values in data.items():
+            if isinstance(values, dict):
+                if key in handle and not isinstance(handle[key], h5lite.WritableGroup):
+                    del handle[key]
+                group = handle[key] if key in handle else handle.create_group(key)
+                self.write_to_hdf5(group, values)
+            else:
+                if key in handle:
+                    del handle[key]
+                arr = np.asarray(values)
+                if arr.dtype.kind == "U":
+                    arr = arr.astype("S")
+                handle.create_dataset(key, data=arr)
+
+    def hdf5_key_exists(self, key: str, filename: str | Path) -> bool:
+        """Whether ``key`` (a name or a "group/name" path) is in the file."""
+        _filename = Path(filename)
+        if not _filename.is_file():
+            return False
+        with h5lite.File(_filename, "r") as f:
+            return key in f

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels, with their plain twins.
 
-Counterpart of the Pallas kernels of fava_tpu on the flagship and AMR
-paths (sources and design notes in ``fava_tpu_torch/csrc/``:
-``flagship_kernels.cu`` for K1-K4, ``amr_kernels.cu`` for K5-K7):
+Counterpart of the Pallas kernels of fava_tpu on the flagship, AMR and
+stage-4 paths (sources and design notes in ``fava_tpu_torch/csrc/``:
+``flagship_kernels.cu`` for K1-K4, ``amr_kernels.cu`` for K5-K7,
+``spectra_kernels.cu`` for B10 and ``pdf2d_kernels.cu`` for B8):
 
 ================================  ==============================================
 wrapper                           replaces (fava_tpu/ops/)
@@ -11,24 +12,29 @@ wrapper                           replaces (fava_tpu/ops/)
 ``centered_row_moments``          ``pallas_kernels.py:_centered_kernel`` (:200)
 ``fold_quadrants_pair``           ``pallas_kernels.py:_fold_pair_kernel`` (:678)
 ``shell_bin_values_folded``       ``pallas_kernels.py:_shell_kernel_folded_v3`` (:955)
+``shell_bin_values_folded_1ch``   the same, one channel (scalar spectra, :1282)
+``shell_bin_sums_unfolded``       ``pallas_kernels.py:_shell_kernel`` (:515)
 ``block_row_moments``             ``pallas_kernels.py:_raw_rows_kernel`` (:331)
 ``block_centered_row_moments``    ``pallas_kernels.py:_centered_rows_kernel`` (:352)
 ``regrid_fields``                 ``pallas_regrid.py:_regrid_kernel`` (:78)
+``pdf2d_counts`` (unweighted)     ``pallas_pdf2d.py:_pdf2d_kernel`` (:75)
+``pdf2d_counts`` (weighted)       ``pallas_pdf2d.py:_pdf2d_weighted_kernel`` (:91)
 ================================  ==============================================
 
 Every wrapper takes the plain PyTorch version of its function (the
 ``_*_plain`` functions below) only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises; any other device raises.
 Kernels take float32 volumes and produce float64 sums (the regrid
-copies float32 values). A successful launch adds one to the kernel's
-count in ``launch_counts()``.
+copies float32 values; the joint histogram counts in int64). A
+successful launch adds one to the kernel's count in ``launch_counts()``
+(the two pdf2d variants count as ``pdf2d_counts`` and ``pdf2d_weighted``).
 """
 
 from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +55,10 @@ KERNELS = (
     "block_row_moments",
     "block_centered_row_moments",
     "regrid_fields",
+    "shell_bin_values_folded_1ch",
+    "shell_bin_sums_unfolded",
+    "pdf2d_counts",
+    "pdf2d_weighted",
 )
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -280,36 +290,60 @@ def _folded_shells(fshape, nbins: int, full_ny: int, device) -> torch.Tensor:
     return torch.where(valid, torch.clamp(shell, max=nbins - 1), nbins)
 
 
-def _shell_bin_folded_plain(total, longi, nbins, full_ny, full_nz) -> torch.Tensor:
-    fshape = tuple(total.shape)
-    shell = _folded_shells(fshape, nbins, full_ny, total.device).reshape(-1)
-    wz = _z_weights(fshape[2], full_nz, total.device)
-    vals = torch.stack([total, longi]).to(accum_dtype()) * wz
-    out = torch.zeros((2, nbins + 1), dtype=accum_dtype(), device=total.device)
-    out.index_add_(1, shell, vals.reshape(2, -1))
+def _shell_sums(total, longi, shell, wz, nbins) -> torch.Tensor:
+    """(C, nbins) sums of wz-weighted values by shell (C = 2, or 1 when
+    ``longi`` is None); shell index nbins drops a cell."""
+    vols = [total] if longi is None else [total, longi]
+    vals = torch.stack(vols).to(accum_dtype()) * wz
+    out = torch.zeros((len(vols), nbins + 1), dtype=accum_dtype(), device=total.device)
+    out.index_add_(1, shell.reshape(-1), vals.reshape(len(vols), -1))
     return out[:, :nbins]
+
+
+def _shell_bin_folded_plain(total, longi, nbins, full_ny, full_nz) -> torch.Tensor:
+    """(C, nbins) shell sums of the folded volumes: C = 2, or 1 when
+    ``longi`` is None."""
+    fshape = tuple(total.shape)
+    shell = _folded_shells(fshape, nbins, full_ny, total.device)
+    return _shell_sums(total, longi, shell, _z_weights(fshape[2], full_nz, total.device), nbins)
+
+
+def _shell_bin_folded(name: str, vols, nbins: int, full_ny: int, full_nz: int) -> torch.Tensor:
+    total = vols[0]
+    if total.ndim != 3 or any(v.shape != total.shape for v in vols) or nbins < 1:
+        raise ValueError(f"{name}: same-shaped 3D volumes and nbins >= 1 required")
+    longi = vols[1] if len(vols) == 2 else None
+    if _device_kind(name, *vols) == "cpu":
+        return _shell_bin_folded_plain(total, longi, nbins, full_ny, full_nz)
+    _check_cuda(name, *vols)
+    nxh, rows, nzr = total.shape
+    out = torch.zeros((len(vols), nbins), dtype=torch.float64, device=total.device)
+    _launch(
+        name, total.device, _build.library().fava_shell_bin_values_folded,
+        total.data_ptr(), None if longi is None else longi.data_ptr(), out.data_ptr(), nxh, rows,
+        nzr, int(nbins), full_ny, full_nz, len(vols), _bin_blocks(nxh * rows, total.device),
+    )
+    return out
+
+
+def _bin_blocks(nrows: int, device: torch.device) -> int:
+    """Blocks of a shell-binning launch: 8 rows (one a warp) each, at
+    most 4 per SM (each zeroes and flushes its own histogram)."""
+    warps = 256 // 32
+    return max(1, min(-(-nrows // warps), 4 * _sm_count(device.index or 0)))
 
 
 def shell_bin_values_folded(total, longi, nbins: int, full_ny: int, full_nz: int):
     """(2, nbins) float64 Hermitian-weighted shell sums of the folded
     total and longitudinal power (values only: counts are the static
     ``_folded_counts``)."""
-    name = "shell_bin_values_folded"
-    if total.ndim != 3 or longi.shape != total.shape or nbins < 1:
-        raise ValueError(f"{name}: two same-shaped 3D volumes and nbins >= 1 required")
-    if _device_kind(name, total, longi) == "cpu":
-        return _shell_bin_folded_plain(total, longi, nbins, full_ny, full_nz)
-    _check_cuda(name, total, longi)
-    nxh, rows, nzr = total.shape
-    out = torch.zeros((2, nbins), dtype=torch.float64, device=total.device)
-    warps = 256 // 32
-    blocks = max(1, min(-(-(nxh * rows) // warps), 4 * _sm_count(total.device.index or 0)))
-    _launch(
-        name, total.device, _build.library().fava_shell_bin_values_folded,
-        total.data_ptr(), longi.data_ptr(), out.data_ptr(), nxh, rows, nzr, int(nbins), full_ny,
-        full_nz, blocks,
-    )
-    return out
+    return _shell_bin_folded("shell_bin_values_folded", (total, longi), nbins, full_ny, full_nz)
+
+
+def shell_bin_values_folded_1ch(power, nbins: int, full_ny: int, full_nz: int):
+    """(nbins,) float64 Hermitian-weighted shell sums of one folded power
+    volume (scalar spectra): K4 with one channel."""
+    return _shell_bin_folded("shell_bin_values_folded_1ch", (power,), nbins, full_ny, full_nz)[0]
 
 
 @lru_cache(maxsize=8)
@@ -342,30 +376,105 @@ def _folded_counts(
     return counts
 
 
+def _static_counts(shape, nbins: int, full_nz: int, device) -> torch.Tensor:
+    """Hermitian shell counts of an (nx, ny, nzr) rfft half-spectrum (or
+    full grid) of a volume of z extent ``full_nz``: a shape function."""
+    nx, ny, _ = (int(s) for s in shape)
+    fshape = (nx // 2 + 1, ny // 2 + 1, full_nz // 2 + 1)
+    counts = _folded_counts(fshape, int(nbins), nx, ny, int(full_nz))
+    return torch.tensor(counts, dtype=accum_dtype(), device=device)
+
+
+def _even_xy(shape) -> bool:
+    return shape[0] % 2 == 0 and shape[1] % 2 == 0
+
+
 def shell_bin_sums_rfft(total, longi, nbins: int, full_nz: int):
     """(counts, sums[3]) Hermitian shell binning of rfft half-spectrum
-    power volumes: fold, then folded values-only binning, with the
-    static counts. sums = [total, longitudinal, transverse], transverse
-    being total - longitudinal bin by bin (exact in exact arithmetic).
-
-    Odd x or y extents need the unfolded binning kernel (fava_tpu's
-    ``_shell_kernel``), which is not ported yet: they raise
-    NotImplementedError (ROADMAP B10) on every device.
-    """
-    nx, ny, nzr = (int(s) for s in total.shape)
-    if nx % 2 or ny % 2:
-        raise NotImplementedError(
-            f"shell binning of odd x/y extents {(nx, ny)} needs the unfolded "
-            "binning kernel, not ported yet (ROADMAP B10)"
-        )
-    ft, fl = fold_quadrants_pair(total, longi)
-    sums2 = shell_bin_values_folded(ft, fl, int(nbins), ny, full_nz)
-    counts = torch.tensor(
-        _folded_counts(tuple(ft.shape), int(nbins), nx, ny, full_nz),
-        dtype=accum_dtype(),
-        device=sums2.device,
-    )
+    power volumes, with the static counts. sums = [total, longitudinal,
+    transverse], transverse being total - longitudinal bin by bin (exact
+    in exact arithmetic). Even x and y extents fold the quadrants (K3)
+    and bin the folded values (K4); an odd one bins the volumes
+    unfolded (B10)."""
+    if _even_xy(total.shape):
+        ft, fl = fold_quadrants_pair(total, longi)
+        sums2 = shell_bin_values_folded(ft, fl, int(nbins), int(total.shape[1]), full_nz)
+    else:
+        sums2 = shell_bin_sums_unfolded(total, longi, int(nbins), full_nz)
+    counts = _static_counts(total.shape, nbins, full_nz, sums2.device)
     return counts, torch.stack([sums2[0], sums2[1], sums2[0] - sums2[1]])
+
+
+def shell_bin_sums_rfft_scalar(p, nbins: int, full_nz: int):
+    """(counts, sums) Hermitian shell binning of ONE rfft power volume
+    (scalar spectra): fold with K3 (on the volume twice, as fava_tpu
+    does) and the single-channel K4 for even x and y extents, the
+    single-channel B10 otherwise."""
+    if _even_xy(p.shape):
+        folded, _ = fold_quadrants_pair(p, p)
+        sums = shell_bin_values_folded_1ch(folded, int(nbins), int(p.shape[1]), full_nz)
+    else:
+        sums = shell_bin_sums_unfolded(p, None, int(nbins), full_nz)[0]
+    return _static_counts(p.shape, nbins, full_nz, sums.device), sums
+
+
+# ---------------------------------------------------------------------------
+# B10: unfolded Hermitian shell binning (odd x or y extents)
+
+
+def _unfolded_shells(shape, nbins: int, full_nz: int, device):
+    """(shell index of every cell, nbins where dropped; Hermitian weight
+    of every z plane) of an (nx, ny, nzr) half-spectrum, or of a full grid
+    when nzr == full_nz. |k| in float32, as the kernel takes it."""
+    nx, ny, nzr = shape
+    half = nzr != full_nz
+    i = _wavenumbers_int(nx, device)[:, None, None]
+    j = _wavenumbers_int(ny, device)[None, :, None]
+    z = torch.arange(nzr, device=device) if half else _wavenumbers_int(nzr, device)
+    k = torch.sqrt((i * i + j * j + z[None, None, :] ** 2).to(torch.float32))
+    shell = torch.floor(k + 0.5).to(torch.int64)
+    shell = torch.where(k <= nbins - 0.5, torch.clamp(shell, max=nbins - 1), nbins)
+    if half:
+        wz = _z_weights(nzr, full_nz, device)
+    else:
+        wz = torch.ones(nzr, dtype=accum_dtype(), device=device)
+    return shell, wz
+
+
+def _wavenumbers_int(n: int, device) -> torch.Tensor:
+    """Signed integer FFT wavenumbers of an axis of length n."""
+    k = torch.arange(n, device=device)
+    return torch.where(k <= (n - 1) // 2, k, k - n)
+
+
+def _shell_bin_unfolded_plain(total, longi, nbins, full_nz) -> torch.Tensor:
+    shell, wz = _unfolded_shells(tuple(total.shape), nbins, full_nz, total.device)
+    return _shell_sums(total, longi, shell, wz, nbins)
+
+
+def shell_bin_sums_unfolded(total, longi: Optional[torch.Tensor], nbins: int, full_nz: int):
+    """(C, nbins) float64 Hermitian-weighted shell sums of (nx, ny, nzr)
+    power volumes, any extents: C = 2 (total, longitudinal) or 1 when
+    ``longi`` is None. The volumes are rfft half-spectra of a volume of
+    z extent ``full_nz``, or the full grid when nzr == full_nz. Counts
+    are the shape function ``_static_counts``."""
+    name = "shell_bin_sums_unfolded"
+    vols = (total,) if longi is None else (total, longi)
+    if total.ndim != 3 or any(v.shape != total.shape for v in vols) or nbins < 1:
+        raise ValueError(f"{name}: same-shaped 3D volumes and nbins >= 1 required")
+    nx, ny, nzr = (int(s) for s in total.shape)
+    if nzr not in (full_nz, full_nz // 2 + 1):
+        raise ValueError(f"{name}: z extent {nzr} is neither {full_nz} nor {full_nz // 2 + 1}")
+    if _device_kind(name, *vols) == "cpu":
+        return _shell_bin_unfolded_plain(total, longi, int(nbins), int(full_nz))
+    _check_cuda(name, *vols)
+    out = torch.zeros((len(vols), nbins), dtype=torch.float64, device=total.device)
+    _launch(
+        name, total.device, _build.library().fava_shell_bin_sums_unfolded, total.data_ptr(),
+        None if longi is None else longi.data_ptr(), out.data_ptr(), nx, ny, nzr, int(nbins),
+        int(full_nz), len(vols), _bin_blocks(nx * ny, total.device),
+    )
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -551,3 +660,80 @@ def regrid_fields(stacks, leaf_table, offsets, scales, out_shape, origin, ncells
             threads,
         )
     return outs
+
+
+# ---------------------------------------------------------------------------
+# B8: the joint histogram (pdf2d)
+
+
+def bin_index(values: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """Bin of each value against monotone float64 ``edges`` with
+    np.histogram's semantics (edges[b] <= v < edges[b+1], the last bin
+    closed); -1 for values outside the edges and for NaN. Plain torch."""
+    nb = edges.numel() - 1
+    v = values.reshape(-1).to(torch.float64)
+    idx = torch.searchsorted(edges, v, right=True) - 1
+    idx = torch.where(v == edges[-1], nb - 1, idx)
+    inside = (v >= edges[0]) & (v <= edges[-1])  # False for NaN
+    return torch.where(inside, idx, -1)
+
+
+def _host_edges(name: str, edges) -> np.ndarray:
+    e = np.asarray(edges, dtype=np.float64).reshape(-1)
+    if e.size < 2 or not (np.diff(e) >= 0).all():
+        raise ValueError(f"{name}: edges must be >= 2 monotonically increasing values")
+    return e
+
+
+def _pdf2d_plain(x, y, xedges, yedges, weights=None) -> torch.Tensor:
+    """Plain twin of ``pdf2d_counts`` on the tensors' device."""
+    xe = torch.as_tensor(_host_edges("pdf2d", xedges), device=x.device)
+    ye = torch.as_tensor(_host_edges("pdf2d", yedges), device=x.device)
+    nbx, nby = xe.numel() - 1, ye.numel() - 1
+    bx, by = bin_index(x, xe), bin_index(y, ye)
+    keep = (bx >= 0) & (by >= 0)
+    flat = (bx * nby + by)[keep]
+    if weights is None:
+        return torch.bincount(flat, minlength=nbx * nby).reshape(nbx, nby)
+    out = torch.zeros(nbx * nby, dtype=torch.float64, device=x.device)
+    out.index_add_(0, flat, weights.reshape(-1).to(torch.float64)[keep])
+    return out.reshape(nbx, nby)
+
+
+def pdf2d_counts(x, y, xedges, yedges, weights=None) -> torch.Tensor:
+    """Joint histogram of the samples (x, y) against float64 host edges,
+    with np.histogram2d's semantics (half-open bins, the last closed;
+    samples outside the edges and NaN dropped): (nbx, nby) exact int64
+    counts, or float64 sums of ``weights`` per bin."""
+    name = "pdf2d_counts" if weights is None else "pdf2d_weighted"
+    samples = (x, y) if weights is None else (x, y, weights)
+    if any(s.shape != x.shape for s in samples):
+        raise ValueError(f"{name}: x, y (and weights) must share one shape")
+    if _device_kind(name, *samples) == "cpu":
+        return _pdf2d_plain(x, y, xedges, yedges, weights)
+    _check_cuda(name, *samples)
+    xe = torch.as_tensor(_host_edges(name, xedges), device=x.device)
+    ye = torch.as_tensor(_host_edges(name, yedges), device=x.device)
+    nbx, nby = xe.numel() - 1, ye.numel() - 1
+    out_dtype = torch.int64 if weights is None else torch.float64
+    out = torch.zeros((nbx, nby), dtype=out_dtype, device=x.device)
+    n = x.numel()
+    vec = int(all(s.data_ptr() % 16 == 0 for s in samples))  # float4 loads
+    blocks = max(1, min(-(-n // (256 * 4)), 4 * _sm_count(x.device.index or 0)))
+    _launch(
+        name, x.device, _build.library().fava_pdf2d, x.data_ptr(), y.data_ptr(),
+        None if weights is None else weights.data_ptr(), xe.data_ptr(), ye.data_ptr(),
+        out.data_ptr(), n, nbx, nby, vec, blocks,
+    )
+    return out
+
+
+def pdf2d_hist_in_shared_memory(nbx: int, nby: int, weighted: bool, device="cuda") -> bool:
+    """Whether the pdf2d kernel keeps an (nbx, nby) histogram in a block's
+    shared memory on ``device`` (else it adds to the output in global
+    memory)."""
+    with torch.cuda.device(torch.device(device)):
+        mode = _build.library().fava_pdf2d_hist_mode(int(nbx), int(nby), int(weighted))
+    if mode < 0:
+        raise ValueError(f"pdf2d: ({nbx}, {nby}) bins do not fit the kernel on {device}")
+    return mode == 1

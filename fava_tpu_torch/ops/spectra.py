@@ -1,15 +1,27 @@
-"""Spectral power volumes of z-rfft half-spectra (plain torch).
+"""Kinetic-energy and scalar power spectra: FFT + spherical shell binning.
 
-Counterpart of fava_tpu/ops/spectra.py:50-119. The transforms feeding
-this module are ``torch.fft.rfftn`` (cuFFT on the card); fava_tpu's
-dense-DFT matmuls exist only for the TPU.
+Counterpart of fava_tpu/ops/spectra.py, single device (the sharded
+branches are ROADMAP A11). The transforms are ``torch.fft`` (cuFFT on
+the card); fava_tpu's dense-DFT matmuls exist only for the TPU. 3D
+volumes take real transforms and the Hermitian shell binning of
+``ops/cuda_kernels.py`` (fold + K4 for even x and y extents, B10 for
+odd ones); 1D/2D datasets take full complex transforms and a plain
+``index_add_`` binning, as fava_tpu's generic branch does.
+
+Shell binning replicates ``scipy.stats.binned_statistic(..., "mean")``
+with edges ``arange(max(n)//2) - 0.5``: right-inclusive last edge, NaN
+for empty shells. Results are float64 numpy arrays on every device.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
+
+from fava_tpu_torch.ops import cuda_kernels
+from fava_tpu_torch.utils import accum_dtype
 
 
 def _wavenumbers(n: int, dtype, device) -> torch.Tensor:
@@ -76,3 +88,127 @@ def rfft_power_volumes(
     # cuFFT may return permuted strides, which elementwise ops keep; the
     # binning kernels take row-major volumes.
     return total.contiguous(), longi.contiguous()
+
+
+def rfft_shell_sums(dens, vels, nbins: int):
+    """(counts, sums[3]) of the kinetic-energy power of sqrt(rho)*v of a
+    3D volume, shell-binned: three real transforms, the power volumes,
+    then the Hermitian binning (even x and y: fold + K4; else B10)."""
+    nx, ny, nz = (int(s) for s in dens.shape)
+    sqrt_d = torch.sqrt(dens)
+    ffts = [torch.fft.rfftn(sqrt_d * v, norm="forward") for v in vels]
+    del sqrt_d
+    total, longi = rfft_power_volumes(ffts, (nx, ny, nz))
+    del ffts
+    return cuda_kernels.shell_bin_sums_rfft(total, longi, nbins, nz)
+
+
+def _wavenumber_grid(shape: Tuple[int, ...], dtype, device):
+    """Unshifted integer wavenumber component grids for an ndim volume."""
+    ks = []
+    nd = len(shape)
+    for axis, n in enumerate(shape):
+        kshape = [1] * nd
+        kshape[axis] = n
+        ks.append(_wavenumbers(n, dtype, device).reshape(kshape))
+    return ks
+
+
+def _k_abs(shape: Tuple[int, ...], dtype, device) -> torch.Tensor:
+    """|k| on the full unshifted wavenumber grid of a 1D/2D/3D volume."""
+    ks = _wavenumber_grid(shape, dtype, device)
+    return torch.sqrt(sum(k * k for k in ks)) if len(shape) > 1 else ks[0].abs()
+
+
+def _full_grid_shell_sums(k_abs: torch.Tensor, powers, nbins: int):
+    """(counts, sums[len(powers)]) of full-grid powers by shell
+    floor(|k| + 0.5), shells past nbins - 0.5 dropped (plain torch)."""
+    keep = (k_abs <= nbins - 0.5).reshape(-1)
+    idx = torch.clamp(torch.floor(k_abs + 0.5).to(torch.int64), 0, nbins - 1).reshape(-1)[keep]
+    adt = accum_dtype()
+    counts = torch.zeros(nbins, dtype=adt, device=k_abs.device)
+    counts.index_add_(0, idx, torch.ones_like(idx, dtype=adt))
+    stacked = torch.stack([p.reshape(-1)[keep] for p in powers]).to(adt)
+    sums = torch.zeros((len(powers), nbins), dtype=adt, device=k_abs.device)
+    sums.index_add_(1, idx, stacked)
+    return counts, sums
+
+
+def _shell_means(counts: torch.Tensor, sums: torch.Tensor) -> np.ndarray:
+    means = torch.where(counts > 0, sums / torch.clamp(counts, min=1), torch.nan)
+    return means.cpu().numpy().astype(np.float64)
+
+
+def _squeeze_trailing(arr: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Drop singleton trailing axes of low-dimensional datasets; raise
+    (a named error, not an assert) when a trailing axis is not
+    singleton."""
+    if arr.ndim > ndim:
+        if not all(s == 1 for s in arr.shape[ndim:]):
+            raise ValueError(
+                f"non-singleton trailing axes {tuple(arr.shape[ndim:])} for ndim={ndim}"
+            )
+        arr = arr.reshape(arr.shape[:ndim])
+    return arr
+
+
+def _shell_integral_factor(nbins: int, ndim: int):
+    """(k, k^(d-1) * 2*pi*(d-1)): the shell factor of the reference
+    (FlashUniform.py:295-302), shared by the KE and scalar spectra."""
+    k = np.arange(nbins, dtype=np.float64)
+    factor = k ** (ndim - 1)
+    if ndim > 1:
+        factor = factor * (2.0 * np.pi * (ndim - 1))
+    return k, factor
+
+
+def kinetic_energy_spectra(dens, vels: Sequence[torch.Tensor], ndim: int = None) -> Dict[str, np.ndarray]:
+    """Total/longitudinal/transverse KE spectra of sqrt(rho)*v:
+    {"k", "total", "longitudinal", "transverse"}, with the reference's
+    integral factor k^(d-1) * 2*pi*(d-1). For 1D/2D datasets (singleton
+    trailing axes) pass ``ndim``."""
+    ndim = int(ndim) if ndim is not None else len(vels)
+    if dens.ndim > ndim:
+        dens = _squeeze_trailing(dens, ndim)
+        vels = [v.reshape(v.shape[:ndim]) for v in vels]
+    shape = tuple(int(s) for s in dens.shape)
+    nbins = max(shape) // 2 - 1  # len(bins)-1 with bins = arange(max//2)-0.5
+    if ndim == 3:
+        counts, sums = rfft_shell_sums(dens, vels, nbins)
+    else:
+        sqrt_d = torch.sqrt(dens)
+        ffts = [torch.fft.fftn(sqrt_d * v, norm="forward") for v in vels]
+        ks = _wavenumber_grid(shape, ffts[0].real.dtype, dens.device)
+        k_abs = _k_abs(shape, ffts[0].real.dtype, dens.device)
+        total = 0.5 * sum(_abs2(f) for f in ffts)
+        proj = sum(k * f for k, f in zip(ks, ffts)) / torch.clamp(k_abs, min=1e-30)
+        longi = _abs2(proj)
+        counts, sums = _full_grid_shell_sums(k_abs, [total, longi, total - longi], nbins)
+    means = _shell_means(counts, sums)
+    k, factor = _shell_integral_factor(nbins, ndim)
+    return {
+        "k": k,
+        "total": means[0] * factor,
+        "longitudinal": means[1] * factor,
+        "transverse": means[2] * factor,
+    }
+
+
+def scalar_spectrum(field, ndim: int = None) -> Dict[str, np.ndarray]:
+    """Shell-binned power spectrum of ONE scalar field: {"k", "power"},
+    with the KE spectra's transform, binning and integral factor. 3D
+    volumes bin the rfft power with one channel (fold + single-channel
+    K4, or B10)."""
+    ndim = int(ndim) if ndim is not None else field.ndim
+    field = _squeeze_trailing(field, ndim)
+    shape = tuple(int(s) for s in field.shape)
+    nbins = max(shape) // 2 - 1
+    if ndim == 3:
+        p = _abs2(torch.fft.rfftn(field, norm="forward")).contiguous()
+        counts, sums = cuda_kernels.shell_bin_sums_rfft_scalar(p, nbins, shape[-1])
+    else:
+        p = _abs2(torch.fft.fftn(field, norm="forward"))
+        counts, sums = _full_grid_shell_sums(_k_abs(shape, p.dtype, field.device), [p], nbins)
+        sums = sums[0]
+    k, factor = _shell_integral_factor(nbins, ndim)
+    return {"k": k, "power": _shell_means(counts, sums) * factor}

@@ -9,7 +9,8 @@ Kernels take float32; the plain version gets the same values in float64.
 Tolerances: row and block-row moments rtol 1e-10 (f64 sums in another
 order); fold rtol 4e-7 (<= 3 float32 roundings of <= 4 positive terms);
 shell sums rtol 1e-10 (f64 sums, atomics in run-dependent order);
-regrid exact (values are copied).
+regrid exact (values are copied); joint-histogram counts exact, weighted
+sums rtol 1e-12 (f64 atomics in run-dependent order).
 """
 
 import numpy as np
@@ -73,15 +74,37 @@ def test_kernel_matches_plain(cuda_device, kernel):
             got, ref = ck.centered_row_moments(*f, means), ck._centered_plain(*f64, means)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref, rtol=1e-10, atol=1e-9)
+    elif kernel in ("pdf2d_counts", "pdf2d_weighted"):
+        xe, ye = np.linspace(0.9, 1.6, 41), np.linspace(-3.0, 3.0, 57)
+        w = f[2].abs() if kernel == "pdf2d_weighted" else None
+        got = ck.pdf2d_counts(f[0], f[1], xe, ye, weights=w)
+        torch.cuda.synchronize()
+        ref = ck._pdf2d_plain(f64[0], f64[1], xe, ye, None if w is None else w.double())
+        if w is None:
+            assert torch.equal(got, ref)
+        else:
+            torch.testing.assert_close(got, ref, rtol=1e-12, atol=0)
+    elif kernel == "shell_bin_sums_unfolded":
+        odd = [a.abs()[1:, :, : SHAPE[2] // 2 + 1].contiguous() for a in f[:2]]
+        nbins = max(SHAPE) // 2 - 1
+        got = ck.shell_bin_sums_unfolded(*odd, nbins, SHAPE[2])
+        torch.cuda.synchronize()
+        ref = ck._shell_bin_unfolded_plain(*(a.double() for a in odd), nbins, SHAPE[2])
+        torch.testing.assert_close(got, ref, rtol=1e-10, atol=0)
     else:
         p = [a.abs()[:, :, : SHAPE[2] // 2 + 1].contiguous() for a in f[:2]]
         folded = ck.fold_quadrants_pair(*p)
         torch.cuda.synchronize()
+        nbins = max(SHAPE) // 2 - 1
         if kernel == "fold_quadrants_pair":
             for g, r in zip(folded, map(ck._fold_plain, (a.double() for a in p))):
                 torch.testing.assert_close(g.double(), r, rtol=4e-7, atol=0)
+        elif kernel == "shell_bin_values_folded_1ch":
+            got = ck.shell_bin_values_folded_1ch(folded[0], nbins, SHAPE[1], SHAPE[2])
+            torch.cuda.synchronize()
+            ref = ck._shell_bin_folded_plain(folded[0].double(), None, nbins, SHAPE[1], SHAPE[2])
+            torch.testing.assert_close(got, ref[0], rtol=1e-10, atol=0)
         else:
-            nbins = max(SHAPE) // 2 - 1
             got = ck.shell_bin_values_folded(*folded, nbins, SHAPE[1], SHAPE[2])
             torch.cuda.synchronize()
             ref = ck._shell_bin_folded_plain(
@@ -177,6 +200,133 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         ck.row_moments_volume(*(a.double() for a in f))
     with pytest.raises(ValueError, match="contiguous"):
         ck.row_moments_volume(*(a.transpose(0, 1) for a in f))
-    with pytest.raises(NotImplementedError, match="B10"):
+    edges = np.linspace(0.0, 1.0, 5)
+    with pytest.raises(TypeError, match="float32"):
+        ck.pdf2d_counts(f[0], f[1], edges, edges, weights=f[2].double())
+    with pytest.raises(ValueError, match="z extent"):
         p = torch.ones(15, 16, 9, device=cuda_device)
-        ck.shell_bin_sums_rfft(p, p, 7, 16)
+        ck.shell_bin_sums_unfolded(p, p, 7, 20)
+
+
+def _samples(device, n, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0.5, 0.6, n)
+    y = rng.normal(-0.2, 1.1, n)
+    return [torch.from_numpy(a).float().to(device) for a in (x, y, rng.random(n))]
+
+
+PDF2D_CASES = {
+    "empty": dict(n=0),
+    "one sample": dict(n=1),
+    "all out of range": dict(n=5000, xr=(50.0, 60.0)),
+    "ragged and unaligned": dict(n=10007, offset=1),
+    "beyond shared memory": dict(n=200003, bins=(300, 300)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PDF2D_CASES))
+@pytest.mark.parametrize("weighted", [False, True])
+def test_pdf2d_edge_cases_match_plain(cuda_device, case, weighted):
+    c = PDF2D_CASES[case]
+    x, y, w = _samples(cuda_device, c["n"] + c.get("offset", 0))
+    off = c.get("offset", 0)
+    x, y, w = x[off:], y[off:], w[off:]  # offset 1: not 16-byte aligned, scalar loads
+    nbx, nby = c.get("bins", (37, 23))
+    xe = np.linspace(*c.get("xr", (-1.0, 2.0)), nbx + 1)
+    ye = np.linspace(-3.0, 3.0, nby + 1)
+    shared = ck.pdf2d_hist_in_shared_memory(nbx, nby, weighted, cuda_device)
+    assert shared == (case != "beyond shared memory")
+    ck.reset_launch_counts()
+    got = ck.pdf2d_counts(x, y, xe, ye, weights=w if weighted else None)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["pdf2d_weighted" if weighted else "pdf2d_counts"] == 1
+    ref = ck._pdf2d_plain(x.double(), y.double(), xe, ye, w.double() if weighted else None)
+    if weighted:
+        torch.testing.assert_close(got, ref, rtol=1e-12, atol=0)
+    else:
+        assert torch.equal(got, ref)
+    if case == "all out of range":
+        assert not got.any()
+
+
+# (nx, ny, nz, full grid): tiny, odd, a single y row, and full grids.
+UNFOLDED_CASES = [(3, 5, 7, False), (31, 1, 16, False), (9, 9, 9, False), (7, 6, 5, True),
+                  (8, 8, 8, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,nz,full", UNFOLDED_CASES)
+@pytest.mark.parametrize("channels", [1, 2])
+def test_unfolded_binning_small_and_odd_shapes(cuda_device, nx, ny, nz, full, channels):
+    nzr = nz if full else nz // 2 + 1
+    nbins = max(nx, ny, nz) // 2 - 1 or 1
+    vols = [a.abs() for a in _fields(cuda_device, shape=(nx, ny, nzr), seed=nx + nz)[:channels]]
+    longi = vols[1] if channels == 2 else None
+    got = ck.shell_bin_sums_unfolded(vols[0], longi, nbins, nz)
+    torch.cuda.synchronize()
+    ref = ck._shell_bin_unfolded_plain(
+        vols[0].double(), None if longi is None else longi.double(), nbins, nz
+    )
+    torch.testing.assert_close(got, ref, rtol=1e-10, atol=1e-300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 4, 4), (8, 6, 5), (2, 34, 9)])
+def test_folded_single_channel_small_shapes(cuda_device, shape):
+    nx, ny, nz = shape
+    nbins = max(shape) // 2 - 1
+    p = _fields(cuda_device, shape=(nx, ny, nz // 2 + 1), seed=sum(shape))[0].abs()
+    folded, _ = ck.fold_quadrants_pair(p, p)
+    got = ck.shell_bin_values_folded_1ch(folded, nbins, ny, nz)
+    torch.cuda.synchronize()
+    ref = ck._shell_bin_folded_plain(folded.double(), None, nbins, ny, nz)[0]
+    torch.testing.assert_close(got, ref, rtol=1e-10, atol=1e-300)
+
+
+def _spectra_close(got, ref, bound):
+    for key, r in ref.items():
+        g, r = np.asarray(got[key]), np.asarray(r)
+        assert np.array_equal(np.isnan(g), np.isnan(r)), key
+        ok = ~np.isnan(r)
+        assert float(np.abs(g[ok] - r[ok]).max() / np.abs(r[ok]).max()) <= bound, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 32, 32), (31, 32, 24), (32, 17, 20)])
+def test_stage4_on_cuda_matches_the_cpu_path(cuda_device, shape):
+    rng = np.random.default_rng(sum(shape))
+    arrays = {"dens": 1.0 + 0.5 * rng.random(shape), "flam": rng.random(shape)}
+    arrays.update({f"vel{a}": rng.standard_normal(shape) for a in "xyz"})
+    arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
+    models = {d: fava_tpu_torch.from_arrays(arrays, device=d) for d in ("cpu", "cuda")}
+    odd = shape[0] % 2 or shape[1] % 2
+    outs = {}
+    for dev, m in models.items():
+        ck.reset_launch_counts()
+        outs[dev] = {
+            "ke": m.kinetic_energy_spectra(),
+            "scalar": m.scalar_spectra("flam")["flam"],
+            "flagship": m.flagship_analysis(),
+            "pdf2d": m.pdf2d("dens", "velx"),
+            "pdf2d_mass": m.pdf2d("dens", "velx", weight="mass"),
+            "pdf1d": m.pdf1d("velx"),
+            "density": m.density_pdf(),
+            "binned": m.binned_statistic("dens", "velx"),
+        }
+        counts = ck.launch_counts()
+        if dev == "cuda":
+            assert counts["pdf2d_counts"] == counts["pdf2d_weighted"] == 1
+            if odd:
+                assert counts["shell_bin_sums_unfolded"] == 3 and counts["shell_bin_values_folded"] == 0
+            else:
+                assert counts["shell_bin_values_folded"] == 2
+                assert counts["shell_bin_values_folded_1ch"] == 1
+    cpu, gpu = outs["cpu"], outs["cuda"]
+    _spectra_close(gpu["ke"], cpu["ke"], 1e-5)
+    _spectra_close(gpu["scalar"], cpu["scalar"], 1e-5)
+    for key in ("pdf2d", "pdf1d"):
+        assert np.array_equal(gpu[key]["counts"], cpu[key]["counts"]), key
+    np.testing.assert_allclose(gpu["pdf2d_mass"]["counts"], cpu["pdf2d_mass"]["counts"], rtol=1e-12)
+    assert np.array_equal(gpu["binned"]["counts"], cpu["binned"]["counts"])
+    np.testing.assert_allclose(gpu["density"]["sigma_s"], cpu["density"]["sigma_s"], rtol=1e-12)

@@ -150,19 +150,12 @@ def test_unported_paths_raise_not_implemented(uniform_file, amr_file):
             tm.load(file_type=ftype)
     amr = fava_tpu_torch.FLASH(amr_file.parent, device="cpu")
     amr.load(file_type="plt")
-    for method, item in (
-        ("volume_integration", "A7"), ("volume_average", "A7"), ("mass_sum", "A7"),
-        ("pdf1d", "A7"), ("pdf2d", "A7"), ("binned_statistic", "A7"), ("density_pdf", "A7"),
-        ("projection", "A8"), ("flame_window", "A8"),
-    ):
-        with pytest.raises(NotImplementedError, match=item):
+    for method in ("projection", "flame_window"):
+        with pytest.raises(NotImplementedError, match="A8"):
             getattr(amr.mesh, method)("dens")
     tm.load(file_type="uni")
     with pytest.raises(NotImplementedError, match="A10"):
         tm.flagship_analysis(streamed=True)
-    odd = fava_tpu_torch.from_arrays(dict(zip(NAMES, _fields((15, 16, 16), seed=2))), device="cpu")
-    with pytest.raises(NotImplementedError, match="B10"):
-        odd.flagship_analysis()
 
 
 def test_registries_are_the_ports_own():
@@ -170,5 +163,7 @@ def test_registries_are_the_ports_own():
     assert {"FLASH", "FlashUniform"} <= set(fava_tpu_torch.Model.mesh_names())
     assert fava_tpu_torch.Model.get_mesh_class("FlashUniform") is fava_tpu_torch.FlashUniform
     for name in ("flagship_analysis", "reynolds_stress", "favre_profiles", "slice_average",
-                 "slice_integration"):
+                 "slice_integration", "kinetic_energy_spectra", "scalar_spectra", "pdf1d", "pdf2d",
+                 "density_pdf", "binned_statistic", "mass_sum", "volume_average",
+                 "volume_integration"):
         assert callable(getattr(fava_tpu_torch.Model, name)), name

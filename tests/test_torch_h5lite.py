@@ -2,8 +2,9 @@
 
 Files written by h5lite must read back identically in h5py, and files
 written by h5py (with its default, earliest-format settings, as FLASH
-and fava_tpu write them) must read identically in h5lite. What h5lite
-does not support raises NotImplementedError. Comparisons are exact.
+and fava_tpu write them) must read identically in h5lite: flat files,
+nested groups, and files one of them appended to. What h5lite does not
+support raises NotImplementedError. Comparisons are exact.
 """
 
 import h5py
@@ -97,7 +98,9 @@ def test_h5py_scalars_and_compact_layout_read(tmp_path):
     [
         (lambda f: f.create_dataset("x", data=np.ones((8, 8)), chunks=(4, 4)), "chunked"),
         (lambda f: f.create_dataset("x", data=np.ones((8, 8)), compression="gzip"), "filtered"),
-        (lambda f: f.create_group("g").create_dataset("x", data=np.ones(3)), "nested group"),
+        # Creation order tracking gives a group new-style link storage.
+        (lambda f: f.create_group("g", track_order=True).create_dataset("x", data=np.ones(3)),
+         "nested group"),
     ],
 )
 def test_unsupported_features_raise(tmp_path, make, match):
@@ -105,7 +108,8 @@ def test_unsupported_features_raise(tmp_path, make, match):
         make(f)
     with pytest.raises(NotImplementedError, match=match):
         with h5lite.File(tmp_path / "e.h5") as f:
-            f["x"][()]
+            (name,) = f.keys()
+            f[name][()]
 
 
 def test_newer_file_formats_and_non_hdf5_files_raise(tmp_path):
@@ -127,3 +131,99 @@ def test_writer_refuses_what_it_cannot_encode(tmp_path):
             f.create_dataset("x", data=np.ones(2))
     with h5py.File(tmp_path / "h.h5") as f:
         assert list(f.keys()) == ["x"]
+
+
+def _nested():
+    rng = np.random.default_rng(1)
+    return {
+        "top": np.arange(4.0),
+        "scalar": np.float64(2.5),
+        "spectra/k": np.arange(7.0),
+        "spectra/dens/power": rng.random((3, 5)).astype("<f4"),
+        "spectra/empty": None,  # an empty group
+        "pdf/label": np.array([b"dens", b"velx"]),
+        "pdf/counts": rng.integers(0, 9, (4, 3)),
+        **{f"many/m{i:02d}": np.full(2, i, dtype="<i4") for i in range(30)},
+    }
+
+
+def _write(f, tree):
+    for path, value in tree.items():
+        *groups, name = path.split("/")
+        node = f
+        for g in groups:
+            node = node[g] if g in node else node.create_group(g)
+        if value is None:
+            node.create_group(name)
+        else:
+            node.create_dataset(name, data=value)
+
+
+def _read(f, tree):
+    for path, value in tree.items():
+        assert path in f, path
+        if value is not None:
+            _assert_same(f[path][()], np.asarray(value), path)
+
+
+@pytest.mark.parametrize("writer,reader", [(h5lite, h5py), (h5py, h5lite)])
+def test_nested_groups_read_back_both_ways(tmp_path, writer, reader):
+    """30 members in one group span several of h5py's symbol nodes."""
+    tree = _nested()
+    with writer.File(tmp_path / "n.h5", "w") as f:
+        _write(f, tree)
+    with reader.File(tmp_path / "n.h5", "r") as f:
+        _read(f, tree)
+        assert sorted(f["spectra"].keys()) == ["dens", "empty", "k"]
+        assert list(f["spectra/empty"].keys()) == []
+        assert "spectra/dens/power" in f and "spectra/velx" not in f and "top/x" not in f
+
+
+@pytest.mark.parametrize("first,second", [(h5lite, h5py), (h5py, h5lite), (h5lite, h5lite)])
+def test_append_replaces_and_keeps_both_ways(tmp_path, first, second):
+    """One writes the file, the other appends to it: a replaced dataset,
+    a deleted one, a new nested member; the rest kept."""
+    tree = _nested()
+    with first.File(tmp_path / "a.h5", "w") as f:
+        _write(f, tree)
+    with second.File(tmp_path / "a.h5", "a") as f:
+        del f["spectra"]["k"]
+        f["spectra"].create_dataset("k", data=np.arange(3))
+        del f["top"]
+        f["pdf"].create_group("more").create_dataset("x", data=np.ones(2))
+    tree.update({"spectra/k": np.arange(3), "pdf/more/x": np.ones(2)})
+    del tree["top"]
+    for reader in (h5py, h5lite):
+        with reader.File(tmp_path / "a.h5", "r") as f:
+            _read(f, tree)
+            assert "top" not in f
+    assert not (tmp_path / "a.h5.tmp").exists()
+
+
+def test_scalars_keep_their_shape(tmp_path):
+    """A 0-d array is a scalar dataset (h5lite once wrote it as shape (1,))."""
+    with h5lite.File(tmp_path / "s.h5", "w") as f:
+        f.create_dataset("s", data=np.float64(1.25))
+        f.create_dataset("i", data=7)
+    with h5py.File(tmp_path / "s.h5") as f:
+        assert f["s"].shape == () and f["s"][()] == 1.25
+        assert f["i"].shape == () and f["i"][()] == 7
+    with h5lite.File(tmp_path / "s.h5") as f:
+        assert f["s"].shape == () and f["s"][()] == 1.25
+
+
+def test_append_creates_a_missing_file_and_names_are_checked(tmp_path):
+    with h5lite.File(tmp_path / "new.h5", "a") as f:
+        g = f.create_group("g")
+        with pytest.raises(ValueError, match="cannot create"):
+            f.create_group("g")
+        with pytest.raises(ValueError, match="cannot create"):
+            g.create_dataset("a/b", data=1.0)
+        g.create_dataset("x", data=[1, 2])
+    with h5py.File(tmp_path / "new.h5") as f:
+        np.testing.assert_array_equal(f["g/x"][()], [1, 2])
+    with h5lite.File(tmp_path / "new.h5") as f:
+        with pytest.raises(ValueError, match="mode 'w' or 'a'"):
+            f.create_dataset("y", data=1.0)
+        with pytest.raises(KeyError):
+            f["g/x/deeper"]

@@ -12,7 +12,10 @@ handed to both packages. Tolerances:
   different orders;
 * fold: rtol 1e-14 — each output is a sum of <= 4 positive terms whose
   order may differ;
-* regrid: exact (values are copied).
+* regrid: exact (values are copied);
+* joint histogram: counts exact; weighted sums rtol 1e-12 against numpy
+  and rtol 2e-6 against fava_tpu's kernel, which sums each 65,536-sample
+  step in float32 on the MXU.
 
 The kernels themselves are held to these plain versions on the card by
 tests/test_torch_cuda.py.
@@ -26,6 +29,7 @@ import torch
 from fava_tpu.io import synthetic as jsynthetic
 from fava_tpu.mesh import FLASH as JFlashAMR
 from fava_tpu.ops import pallas_kernels as pk
+from fava_tpu.ops import pallas_pdf2d
 from fava_tpu.ops import pallas_regrid
 from fava_tpu.ops import profiles as jprofiles
 from fava_tpu.ops import regrid as jregrid
@@ -159,11 +163,24 @@ def test_folded_counts_match_fava_tpu(shape):
     np.testing.assert_array_equal(ck._folded_counts(fshape, nbins, nx, ny, nz), ref)
 
 
-@pytest.mark.parametrize("shape", [(15, 16, 16), (16, 9, 16)])
-def test_odd_xy_extents_raise_not_implemented(shape):
-    p = torch.ones(shape[0], shape[1], shape[2] // 2 + 1, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="B10"):
-        ck.shell_bin_sums_rfft(p, p, 7, shape[2])
+@pytest.mark.parametrize("shape", BIN_SHAPES)
+def test_shell_bin_values_folded_1ch_matches_fava_tpu(force_interpret, shape):
+    """K4 with one channel against fava_tpu's single-channel v3 kernel
+    (the scalar spectra's, pallas_kernels.py:1282) on the same fold."""
+    nx, ny, nz = shape
+    nbins = max(shape) // 2 - 1
+    p, _ = _powers(shape, seed=5 * nx + ny + nz)
+    jfold, _ = pk.fold_quadrants_pair(jnp.asarray(p), jnp.asarray(p))
+    fshape = tuple(int(s) for s in jfold.shape)
+    ref, _ = pk._build_shell_folded_v3_fn(
+        fshape, nbins, "float64", True, nx, ny, nz, 16, 2, True, True
+    )(jfold, jfold)
+    tfold, _ = ck.fold_quadrants_pair(_t(p), _t(p))
+    got = ck.shell_bin_values_folded_1ch(tfold, nbins, ny, nz)
+    assert got.shape == (nbins,) and got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-10, atol=1e-12)
+    two = ck.shell_bin_values_folded(tfold, tfold, nbins, ny, nz)
+    assert torch.equal(two[0], got)
 
 
 # ---------------------------------------------------------------------------
@@ -293,6 +310,13 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     offsets = torch.tensor([[0, 0, 0], [4, 0, 0]])
     scales = torch.ones(2, dtype=torch.int64)
     ck.regrid_fields(stacks, table, offsets, scales, (8, 8, 8), (0, 0, 0), (4, 8, 8))
+    ck.shell_bin_sums_rfft_scalar(p[0], 3, 8)
+    odd = [v[:7].contiguous() for v in p]
+    ck.shell_bin_sums_rfft(*odd, 3, 8)
+    ck.shell_bin_sums_rfft_scalar(odd[0], 3, 8)
+    edges = np.linspace(-1.0, 1.0, 5)
+    ck.pdf2d_counts(f[1], f[2], edges, edges)
+    ck.pdf2d_counts(f[1], f[2], edges, edges, weights=f[0])
     assert ck.launch_counts() == dict.fromkeys(ck.KERNELS, 0)
 
 
@@ -327,13 +351,20 @@ def test_package_sources_are_present():
     assert [p.name for p in sorted(_build.CSRC.glob("*.cu"))] == [
         "amr_kernels.cu",
         "flagship_kernels.cu",
+        "pdf2d_kernels.cu",
+        "spectra_kernels.cu",
     ]
     assert (_build.CSRC / "row_moments.cuh").is_file()
+    assert (_build.CSRC / "shell_bins.cuh").is_file()
     assert set(_build._SIGNATURES) >= {
         "fava_block_row_moments",
         "fava_block_centered_row_moments",
         "fava_regrid_fields",
+        "fava_shell_bin_sums_unfolded",
+        "fava_pdf2d",
     }
+    for name in _build._SIGNATURES:  # every entry is defined in a source
+        assert any(f"int {name}(" in src.read_text() for src in _build.CSRC.glob("*.cu")), name
 
 
 def test_library_path_is_keyed_by_the_headers(monkeypatch, tmp_path):
@@ -393,3 +424,53 @@ def test_assemble_profile_stats_matches_fava_tpu():
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-13, atol=1e-15)
     assert got[2][:, 3].eq(0).all()
+
+
+# ---------------------------------------------------------------------------
+# B8: the joint histogram
+
+
+def _pdf2d_samples(n, seed):
+    """float32 samples with NaN, out-of-range and range-end values; edges
+    that are exact in float32, so fava_tpu's float32 compare is exact."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0.3, 0.8, n).astype(np.float32)
+    y = rng.normal(1.0, 1.5, n).astype(np.float32)
+    x[:4] = [np.nan, -9.0, -2.0, 2.0]
+    y[4:8] = [np.nan, 9.0, -3.0, 5.0]
+    x[8], y[8] = 2.0, 5.0
+    return x, y, np.linspace(-2.0, 2.0, 65), np.linspace(-3.0, 5.0, 33)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 70001])
+def test_pdf2d_counts_match_fava_tpu_kernel(force_interpret, n):
+    x, y, xe, ye = _pdf2d_samples(max(n, 9), seed=n)
+    x, y = x[:n], y[:n]
+    ref = np.asarray(pallas_pdf2d.pdf2d_counts(jnp.asarray(x), jnp.asarray(y), xe, ye))
+    got = ck.pdf2d_counts(_t(x.astype(np.float64)), _t(y.astype(np.float64)), xe, ye)
+    assert got.dtype == torch.int64 and tuple(got.shape) == (64, 32)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(got.numpy(), np.histogram2d(x, y, bins=(xe, ye))[0])
+
+
+def test_pdf2d_weighted_matches_fava_tpu_kernel(force_interpret):
+    x, y, xe, ye = _pdf2d_samples(70001, seed=2)
+    w = np.random.default_rng(3).random(x.size).astype(np.float32)
+    ref = np.asarray(
+        pallas_pdf2d.pdf2d_counts(jnp.asarray(x), jnp.asarray(y), xe, ye, weights=jnp.asarray(w))
+    )
+    got = ck.pdf2d_counts(*(_t(a.astype(np.float64)) for a in (x, y)), xe, ye,
+                          weights=_t(w.astype(np.float64)))
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), ref[0] + ref[1], rtol=2e-6, atol=0)
+    np.testing.assert_allclose(
+        got.numpy(), np.histogram2d(x, y, bins=(xe, ye), weights=w)[0], rtol=1e-12, atol=0
+    )
+
+
+def test_pdf2d_counts_reject_bad_edges_and_shapes():
+    x = torch.zeros(4, dtype=torch.float64)
+    with pytest.raises(ValueError, match="monotonically"):
+        ck.pdf2d_counts(x, x, [0.0, 1.0, 0.5], [0.0, 1.0])
+    with pytest.raises(ValueError, match="share one shape"):
+        ck.pdf2d_counts(x, torch.zeros(5, dtype=torch.float64), [0.0, 1.0], [0.0, 1.0])
