@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the fava_tpu_torch flagship and AMR paths on one NVIDIA GPU.
+"""Smoke run of the fava_tpu_torch flagship, AMR, stage-4 and streaming
+paths on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -60,6 +61,30 @@ no result):
    ``kinetic_energy_spectra``, ``scalar_spectra`` and
    ``flagship_analysis`` through it, with counters, held to the plain
    float64 path on the CPU.
+13. Chunk binning (B6): ``make_example_fields(1024)`` on the card (and a
+   host copy for phase 14), the in-core step as phase 14's reference,
+   then the kernel against its plain version on the path's (128, 1024,
+   513) chunks at kx0 = 0, 448 and 896 and on a chunk of an odd-nx
+   (1023) volume; the 8 chunks of a snapshot add up to B10 on the whole
+   volume.
+14. Streamed step at 1024^3: ``ops.outofcore.streamed_uniform_analysis``
+   from the host copy through a host-memory slab loader, twice, each run
+   with counters (B6 per chunk, K5/K6 per slab) and held to the in-core
+   step on the card; stage walls and peak memory.
+15. Beyond in-core: 1280^3 fields on the host, the auto-dispatch rule
+   (``mesh.flash_uniform.streams_out_of_core``) against the card's free
+   memory, the streamed step with counters; outputs finite with the
+   static counts, total_mass and mean_dens held to float64 host sums of
+   dens; stage walls, peak card memory and host RSS.
+16. Entry point: the 512^3 window file's x-slab read rate, then
+   ``FLASH(d).load("uni").flagship_analysis(streamed=True, slab_rows=64,
+   chunk_rows=128)`` and ``flagship_analysis()`` (in core: K1-K4, no
+   B6), held to each other and to the float64 CPU path of phase 11.
+17. Series: three more 512^3 uniform files from ``make_example_fields``;
+   ``flagship_series`` with the auto batch and with batch 3, each
+   snapshot held to ``flagship_analysis`` on its file; the ingest rate;
+   ``reynolds_series``/``favre_series`` over the plt catalog held to the
+   mesh's ``reynolds_stress``/``favre_profiles``.
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -68,6 +93,7 @@ The last two lines are one JSON object with a row per kernel, then
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -92,6 +118,7 @@ SOURCES = {
     "shell_bin_sums_unfolded": "fava_tpu_torch/csrc/spectra_kernels.cu",
     "pdf2d_counts": "fava_tpu_torch/csrc/pdf2d_kernels.cu",
     "pdf2d_weighted": "fava_tpu_torch/csrc/pdf2d_kernels.cu",
+    "shell_bin_values_rfft_chunk": "fava_tpu_torch/csrc/spectra_kernels.cu",
 }
 REPLACES = {
     "row_moments": "fava_tpu/ops/pallas_kernels.py:95",
@@ -105,6 +132,7 @@ REPLACES = {
     "shell_bin_sums_unfolded": "fava_tpu/ops/pallas_kernels.py:515",
     "pdf2d_counts": "fava_tpu/ops/pallas_pdf2d.py:75",
     "pdf2d_weighted": "fava_tpu/ops/pallas_pdf2d.py:91",
+    "shell_bin_values_rfft_chunk": "fava_tpu/ops/pallas_kernels.py:1291",
 }
 FLAGSHIP_KERNELS = ("row_moments", "centered_row_moments", "fold_quadrants_pair",
                     "shell_bin_values_folded")
@@ -129,6 +157,13 @@ TOL_PROFILES = 1e-9
 TOL_WSUM = 1e-10
 TOL_SUMS = 1e-9
 TOL_SHIFT = 2
+
+# The least time of each kernel (bound_ms in the kernels line): the larger
+# of the bytes it must move (each input it needs read once, each output
+# written once) over the memory rate and its arithmetic over the float32
+# rate outside the tensor cores; NVIDIA H100 SXM, at its full 700 W.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 # The AMR path (phases 6-9): an rtflame-like tree, refined around the
 # flame at x in [1.5, 2.5] (see amr_refine), and the flame window regridded
@@ -231,13 +266,35 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_row(torch, phase, name, max_abs, ratio, bound, kernel_fn, plain_fn):
-    """Print and check a kernel-vs-plain comparison; time both (CUDA events)."""
+def least_time(nbytes, ops):
+    """{"bound_ms", "bound_by"} of a kernel that moves ``nbytes`` and does
+    ``ops`` arithmetic operations."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / F32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def kernel_row(torch, phase, name, max_abs, ratio, bound, kernel_fn, plain_fn, work):
+    """Print and check a kernel-vs-plain comparison; time both (CUDA events).
+    ``work`` is (bytes, operations) of the kernel's call; no single PyTorch
+    call computes any of these kernels' functions on the card (library_ms)."""
     say(f"phase {phase} {name}: max_abs_err {max_abs!r}, error/bound {ratio!r} (bound {bound!r})")
     if not ratio <= 1.0:
         fail(f"{name} disagrees with its plain version (error/bound {ratio!r})")
     return {"max_abs_err": max_abs, "ms": cuda_ms(torch, kernel_fn, 20),
-            "plain_ms": cuda_ms(torch, plain_fn, 3)}
+            "plain_ms": cuda_ms(torch, plain_fn, 3), **least_time(*work), "library_ms": None}
+
+
+def inside_cells(ck, vol, nbins, full_ny=None, full_nz=None, kx0=0, full_nx=None):
+    """Cells a shell-binning kernel must read of ``vol``: those inside the
+    last shell of a folded volume (``full_ny`` given) or of an unfolded
+    half-spectrum."""
+    shape = tuple(vol.shape)
+    if full_ny is not None:
+        shell = ck._folded_shells(shape, nbins, full_ny, vol.device)
+    else:
+        shell = ck._unfolded_shells(shape, nbins, full_nz, vol.device, kx0, full_nx)[0]
+    return int((shell < nbins).sum())
 
 
 def path_powers(torch, fields):
@@ -258,9 +315,12 @@ def phase_kernels(torch, fields):
     f64 = [f.double() for f in fields]
     rows = {}
 
-    def record(name, got, ref, bound, err_ratio, kernel_fn, plain_fn):
+    def record(name, got, ref, bound, err_ratio, kernel_fn, plain_fn, work):
         max_abs = float((got.double() - ref).abs().max())
-        rows[name] = kernel_row(torch, 3, name, max_abs, err_ratio, bound, kernel_fn, plain_fn)
+        rows[name] = kernel_row(torch, 3, name, max_abs, err_ratio, bound, kernel_fn, plain_fn,
+                                work)
+
+    ncell = nx * ny * nz
 
     # K1: |got - ref| against the sum of |terms| (plain moments of |fields|).
     got = ck.row_moments_volume(*fields)
@@ -269,7 +329,8 @@ def phase_kernels(torch, fields):
     mag = ck._row_moments_plain(*(f.abs() for f in f64))
     record("row_moments", got, ref, TOL_MOMENTS,
            float(((got - ref).abs() / (TOL_MOMENTS * mag)).max()),
-           lambda: ck.row_moments_volume(*fields), lambda: ck._row_moments_plain(*fields))
+           lambda: ck.row_moments_volume(*fields), lambda: ck._row_moments_plain(*fields),
+           (16 * ncell + 8 * ck.NMOM * nx, 22 * ncell))
 
     # K2, on the float64 row means of the path.
     means = (ref[1:4] / layer).contiguous()
@@ -283,7 +344,8 @@ def phase_kernels(torch, fields):
     record("centered_row_moments", got, ref, TOL_MOMENTS,
            float(((got - ref).abs() / (TOL_MOMENTS * mag)).max()),
            lambda: ck.centered_row_moments(*fields, means),
-           lambda: ck._centered_plain(*fields, means))
+           lambda: ck._centered_plain(*fields, means),
+           (16 * ncell + 8 * (3 + ck.NCEN) * nx, 21 * ncell))
     del f64, amom, mag
 
     # K3 on the path's power volumes.
@@ -296,7 +358,8 @@ def phase_kernels(torch, fields):
         ratio = max(ratio, float(((g.double() - r).abs() / (TOL_FOLD * r).clamp(min=1e-300)).max()))
     record("fold_quadrants_pair", folded[0], ck._fold_plain(total.double()), TOL_FOLD, ratio,
            lambda: ck.fold_quadrants_pair(total, longi),
-           lambda: (ck._fold_plain(total), ck._fold_plain(longi)))
+           lambda: (ck._fold_plain(total), ck._fold_plain(longi)),
+           (8 * total.numel() + 8 * folded[0].numel(), 2 * total.numel()))
     del total, longi
 
     # K4 on the folded volumes; run twice to show the atomics' spread.
@@ -305,10 +368,12 @@ def phase_kernels(torch, fields):
     torch.cuda.synchronize()
     ref = ck._shell_bin_folded_plain(*(a.double() for a in folded), nbins, ny, nz)
     say(f"phase 3 shell_bin_values_folded: run-to-run max |diff| {float((got - again).abs().max())!r}")
+    inside = inside_cells(ck, folded[0], nbins, full_ny=ny)
     record("shell_bin_values_folded", got, ref, TOL_BIN,
            float(((got - ref).abs() / (TOL_BIN * ref.abs()).clamp(min=1e-300)).max()),
            lambda: ck.shell_bin_values_folded(*folded, nbins, ny, nz),
-           lambda: ck._shell_bin_folded_plain(*folded, nbins, ny, nz))
+           lambda: ck._shell_bin_folded_plain(*folded, nbins, ny, nz),
+           (8 * inside + 16 * nbins, 8 * inside))
     del folded
     torch.cuda.empty_cache()
     return rows
@@ -335,7 +400,7 @@ def check_outputs(np, out, shape, where):
             fail(f"{where}: {key} has shape {v.shape}, expected {lead + shp}")
         if not np.isfinite(v).all():
             fail(f"{where}: {key} is not finite")
-    counts = ck._folded_counts((nx // 2 + 1, ny // 2 + 1, nz // 2 + 1), nbins, nx, ny, nz)
+    counts = ck._folded_counts((nx // 2 + 1, ny // 2 + 1, nz // 2 + 1), nbins, nx, ny, nz, "cuda")
     if not (np.asarray(out["spectra_counts"]) == counts).all():
         fail(f"{where}: spectra_counts differ from the static counts")
 
@@ -350,18 +415,23 @@ def output_floors(fields):
             "reynolds_stress": float(fields[0].abs().max()) * vmax**2}
 
 
-def compare_flagship(np, out, ref, fields, what, phase):
-    """max |diff| / scale of each flagship output against the float64 path."""
-    floor = output_floors(fields)
+def compare_flagship(np, out, ref, fields, what, phase, bound_of=None):
+    """max |diff| / scale of each flagship output against a reference (the
+    float64 path unless ``bound_of`` maps keys to other bounds); ``fields``
+    are the input tensors, or their output_floors."""
+    floor = fields if isinstance(fields, dict) else output_floors(fields)
     errs = {}
     for key, r in ref.items():
         r = np.asarray(r)
         scale = max(float(np.abs(r).max()), floor.get(key, 0.0))
         errs[key] = float(np.abs(np.asarray(out[key]) - r).max() / scale)
-        bound = TOL_SPECTRA if key.startswith("spectra_") else TOL_PROFILES
+        if bound_of is not None:
+            bound = bound_of(key)
+        else:
+            bound = TOL_SPECTRA if key.startswith("spectra_") else TOL_PROFILES
         say(f"phase {phase} {what} {key}: max|diff|/scale {errs[key]!r} (bound {bound!r})")
         if not errs[key] <= bound:
-            fail(f"{what} {key} disagrees with the plain float64 path")
+            fail(f"{what} {key} disagrees with its reference")
     return errs
 
 
@@ -538,10 +608,13 @@ def phase_amr_kernels(torch, np, mesh):
     def as_rows(t):  # (nB, ncx, ncy, ncz) -> (nB*ncx, ncy, ncz): one x row per volume row
         return t.reshape(nb * ncx, ncy, ncz)
 
-    def record(name, got, ref, mag, kernel_fn, plain_fn):
+    def record(name, got, ref, mag, kernel_fn, plain_fn, work):
         max_abs = float((got - ref).abs().max())
         ratio = float(((got - ref).abs() / (TOL_MOMENTS * mag).clamp(min=1e-300)).max())
-        rows[name] = kernel_row(torch, 7, name, max_abs, ratio, TOL_MOMENTS, kernel_fn, plain_fn)
+        rows[name] = kernel_row(torch, 7, name, max_abs, ratio, TOL_MOMENTS, kernel_fn, plain_fn,
+                                work)
+
+    ncell, nrow = leaf[0].numel(), nb * ncx
 
     f64 = [f.double() for f in leaf]
     got = ck.block_row_moments(*leaf)
@@ -549,7 +622,7 @@ def phase_amr_kernels(torch, np, mesh):
     ref = ck._block_row_moments_plain(*f64)
     mag = ck._block_row_moments_plain(*(f.abs() for f in f64))
     record("block_row_moments", got, ref, mag, lambda: ck.block_row_moments(*leaf),
-           lambda: ck._block_row_moments_plain(*leaf))
+           lambda: ck._block_row_moments_plain(*leaf), (16 * ncell + 8 * ck.NRAW * nrow, 10 * ncell))
 
     means = (ref[1:4] / (ncy * ncz)).contiguous()
     got = ck.block_centered_row_moments(*leaf, means)
@@ -561,7 +634,8 @@ def phase_amr_kernels(torch, np, mesh):
     mag = torch.cat([amom[7:13], amom[4:7]]).reshape(9, nb, ncx)
     record("block_centered_row_moments", got, ref, mag,
            lambda: ck.block_centered_row_moments(*leaf, means),
-           lambda: ck._block_centered_plain(*leaf, means))
+           lambda: ck._block_centered_plain(*leaf, means),
+           (16 * ncell + 8 * (3 + ck.NCEN) * nrow, 21 * ncell))
     del f64, amom, mag, ref, got, leaf
     torch.cuda.empty_cache()
 
@@ -585,10 +659,24 @@ def phase_amr_kernels(torch, np, mesh):
         fail("the full-domain regrid disagrees with its plain version")
     del got, ref
     full = {"ms": cuda_ms(torch, lambda: ck.regrid_fields(stacks, *args), 10),
-            "plain_ms": cuda_ms(torch, lambda: ck._regrid_plain(stacks, *args), 3)}
+            "plain_ms": cuda_ms(torch, lambda: ck._regrid_plain(stacks, *args), 3),
+            **least_time(regrid_bytes(torch, ck, stacks, args), 0)}
     say(f"phase 7 regrid_fields full domain, dens only: {full}")
     torch.cuda.empty_cache()
     return rows, full
+
+
+def regrid_bytes(torch, ck, stacks, args):
+    """Bytes a regrid must move: each output cell written once and each
+    source cell that some output cell takes read once, per field."""
+    leaf_table, offsets, scales, out_shape, origin, ncells = args
+    flat, valid = ck._regrid_flat_plain(leaf_table, offsets, scales, out_shape, origin, ncells,
+                                        tuple(stacks[0].shape[1:]))
+    used = torch.zeros(stacks[0].numel(), dtype=torch.bool, device=flat.device)
+    used[flat[valid]] = True
+    nsrc = int(used.sum())
+    del flat, valid, used
+    return len(stacks) * 4 * (nsrc + math.prod(out_shape))
 
 
 # ---------------------------------------------------------------------------
@@ -609,7 +697,7 @@ def counted(torch, ck, what, fn, expect, phase=8):
     return out, launches
 
 
-def compare_profiles(np, got, ref, vmax, dmax, what):
+def compare_profiles(np, got, ref, vmax, dmax, what, phase=8):
     """max |diff| / scale of every profile array, floored as phase 4: by
     the velocity scale for velocities, by dmax*vmax^2 for stresses."""
     errs = {}
@@ -628,10 +716,10 @@ def compare_profiles(np, got, ref, vmax, dmax, what):
 
     walk(got, ref, what)
     worst = max(errs.values())
-    say(f"phase 8 {what} vs the plain float64 path: max |diff|/scale {worst!r} over "
+    say(f"phase {phase} {what} vs its reference: max |diff|/scale {worst!r} over "
         f"{len(errs)} arrays (bound {TOL_PROFILES!r})")
     if not worst <= TOL_PROFILES:
-        fail(f"{what} disagrees with the plain float64 path: {errs}")
+        fail(f"{what} disagrees with its reference: {errs}")
     return worst
 
 
@@ -705,7 +793,8 @@ def phase_amr_path(torch, np, model, workdir: Path):
     del twin
     window_ms = {"max_abs_err": max_abs,
                  "ms": cuda_ms(torch, lambda: ck.regrid_fields(stacks, *tables), 10),
-                 "plain_ms": cuda_ms(torch, lambda: ck._regrid_plain(stacks, *tables), 3)}
+                 "plain_ms": cuda_ms(torch, lambda: ck._regrid_plain(stacks, *tables), 3),
+                 **least_time(regrid_bytes(torch, ck, stacks, tables), 0), "library_ms": None}
     say(f"phase 8 from_amr window {AMR_WINDOW} -> {AMR_EXPECT['window']}: equal to the plain "
         f"regrid; K7 (4 fields) {window_ms}")
     del stacks, model
@@ -786,9 +875,11 @@ def check_pdf2d_kernel(torch, np, ck, phase, x, y, w):
         ratio, bound = (0.0 if torch.equal(got, ref) else float("inf")), "exact"
     else:
         ratio, bound = float((diff / (TOL_WSUM * ref.abs()).clamp(min=1e-300)).max()), TOL_WSUM
+    n_in = 2 if w is None else 3
     return name, kernel_row(torch, phase, name, float(diff.max()), ratio, bound,
                             lambda: ck.pdf2d_counts(x, y, xe, ye, weights=w),
-                            lambda: ck._pdf2d_plain(x, y, xe, ye, w))
+                            lambda: ck._pdf2d_plain(x, y, xe, ye, w),
+                            (4 * n_in * x.numel() + 8 * 100 * 100, 8 * x.numel()))
 
 
 # AMR analyses whose histograms are weighted (by leaf cell volume): their
@@ -933,13 +1024,15 @@ def phase_window_stage4(torch, np, workdir: Path):
     folded, _ = ck.fold_quadrants_pair(p, p)
     del p
     got = ck.shell_bin_values_folded_1ch(folded, nbins, ny, nz)
+    inside = inside_cells(ck, folded, nbins, full_ny=ny)
     torch.cuda.synchronize()
     ref = ck._shell_bin_folded_plain(folded.double(), None, nbins, ny, nz)[0]
     rows["shell_bin_values_folded_1ch"] = kernel_row(
         torch, 11, "shell_bin_values_folded_1ch", float((got - ref).abs().max()),
         float(((got - ref).abs() / (TOL_BIN * ref.abs()).clamp(min=1e-300)).max()), TOL_BIN,
         lambda: ck.shell_bin_values_folded_1ch(folded, nbins, ny, nz),
-        lambda: ck._shell_bin_folded_plain(folded, None, nbins, ny, nz))
+        lambda: ck._shell_bin_folded_plain(folded, None, nbins, ny, nz),
+        (4 * inside + 8 * nbins, 6 * inside))
     del folded, dens, velx
     torch.cuda.empty_cache()
 
@@ -974,6 +1067,7 @@ def phase_odd_extents(torch, np, uni, cpu):
     total, longi = path_powers(torch, cut)
     got = ck.shell_bin_sums_unfolded(total, longi, nbins, nz)
     again = ck.shell_bin_sums_unfolded(total, longi, nbins, nz)
+    inside = inside_cells(ck, total, nbins, full_nz=nz)
     torch.cuda.synchronize()
     ref = ck._shell_bin_unfolded_plain(total.double(), longi.double(), nbins, nz)
     ones = torch.ones(total.shape, dtype=torch.float64, device=total.device)
@@ -987,7 +1081,8 @@ def phase_odd_extents(torch, np, uni, cpu):
         torch, 12, "shell_bin_sums_unfolded", float((got - ref).abs().max()),
         float(((got - ref).abs() / (TOL_BIN * ref.abs()).clamp(min=1e-300)).max()), TOL_BIN,
         lambda: ck.shell_bin_sums_unfolded(total, longi, nbins, nz),
-        lambda: ck._shell_bin_unfolded_plain(total, longi, nbins, nz))}
+        lambda: ck._shell_bin_unfolded_plain(total, longi, nbins, nz),
+        (8 * inside + 16 * nbins, 8 * inside))}
     del total, longi, got, again, ref
     torch.cuda.empty_cache()
 
@@ -1018,6 +1113,307 @@ def phase_odd_extents(torch, np, uni, cpu):
     return rows, walls, totals
 
 
+# ---------------------------------------------------------------------------
+# Phases 13-15: the out-of-core flagship step, its chunk binning (B6) at
+# 1024^3, and a 1280^3 volume beyond the in-core step
+
+
+N_STREAM = 1024
+N_BEYOND = 1280
+SLAB_ROWS = 64
+CHUNK_ROWS = 128
+CHUNK_KX0 = (0, 448, 896)
+STREAM_KERNELS = ("shell_bin_values_rfft_chunk", "block_row_moments", "block_centered_row_moments")
+
+
+def host_loader(hosts):
+    """Slab loader over host arrays (the fields of a volume the card
+    cannot hold with its step)."""
+    def loader(name, x0, x1):
+        return hosts[name][x0:x1]
+
+    return loader
+
+
+def phase_chunk_kernel(torch, fields):
+    """Phase 13: B6 against its plain version on the 1024^3 chunk shapes
+    (128, 1024, 513) of the path's power volumes at kx0 = 0, 448 and 896,
+    and on a chunk of an odd-nx (1023) volume; the chunks of one snapshot
+    add up to B10 on the whole volume."""
+    from fava_tpu_torch.ops import cuda_kernels as ck
+
+    nx, ny, nz = (int(s) for s in fields[0].shape)
+    nbins = max(nx, ny, nz) // 2 - 1
+    total, longi = path_powers(torch, fields)
+    worst, max_abs = 0.0, 0.0
+    for full_nx, kx0 in [(nx, k) for k in CHUNK_KX0] + [(nx - 1, CHUNK_KX0[1])]:
+        t, lo = total[kx0 : kx0 + CHUNK_ROWS], longi[kx0 : kx0 + CHUNK_ROWS]
+        got = ck.shell_bin_values_rfft_chunk(t, lo, nbins, full_nx, nz, kx0)
+        torch.cuda.synchronize()
+        ref = ck._shell_bin_unfolded_plain(t.double(), lo.double(), nbins, nz, kx0, full_nx)
+        err = (got[:2] - ref).abs()
+        ratio = float((err / (TOL_BIN * ref.abs()).clamp(min=1e-300)).max())
+        say(f"phase 13 chunk {tuple(t.shape)} of nx {full_nx} at kx0 {kx0}: max_abs_err "
+            f"{float(err.max())!r}, error/bound {ratio!r}")
+        worst, max_abs = max(worst, ratio), max(max_abs, float(err.max()))
+    starts = range(0, nx, CHUNK_ROWS)
+    acc = sum(ck.shell_bin_values_rfft_chunk(total[k : k + CHUNK_ROWS], longi[k : k + CHUNK_ROWS],
+                                             nbins, nx, nz, k) for k in starts)
+    whole = ck.shell_bin_sums_unfolded(total, longi, nbins, nz)
+    ratio = float(((acc[:2] - whole).abs() / (TOL_BIN * whole.abs()).clamp(min=1e-300)).max())
+    say(f"phase 13 {len(starts)} chunks vs B10 on the whole {tuple(total.shape)}: error/bound "
+        f"{ratio!r} (bound {TOL_BIN!r})")
+    if not ratio <= 1.0:
+        fail("the chunk binning does not add up to the whole-volume binning")
+
+    def one_snapshot():
+        for k in starts:
+            ck.shell_bin_values_rfft_chunk(total[k : k + CHUNK_ROWS], longi[k : k + CHUNK_ROWS],
+                                           nbins, nx, nz, k)
+
+    inside_all = inside_cells(ck, total, nbins, full_nz=nz)
+    say(f"phase 13 {len(starts)} launches (one snapshot): {cuda_ms(torch, one_snapshot, 5)!r} ms, "
+        f"bound {least_time(8 * inside_all + 16 * nbins * len(starts), 8 * inside_all)}")
+    t, lo = total[:CHUNK_ROWS], longi[:CHUNK_ROWS]  # the chunk with the most cells inside
+    inside = inside_cells(ck, t, nbins, full_nz=nz, kx0=0, full_nx=nx)
+    row = kernel_row(torch, 13, "shell_bin_values_rfft_chunk", max_abs, worst, TOL_BIN,
+                     lambda: ck.shell_bin_values_rfft_chunk(t, lo, nbins, nx, nz, 0),
+                     lambda: ck._shell_bin_unfolded_plain(t, lo, nbins, nz, 0, nx),
+                     (8 * inside + 16 * nbins, 8 * inside))
+    del total, longi, t, lo, acc, whole
+    torch.cuda.empty_cache()
+    return row
+
+
+def streamed_run(torch, np, ck, loader, n, what, phase, **kw):
+    """One streamed_uniform_analysis with the counters reset before and
+    checked after: B6 once per chunk, K5/K6 once per slab, no K1-K4."""
+    from fava_tpu_torch.ops import outofcore
+
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = outofcore.streamed_uniform_analysis(loader, (n, n, n), slab_rows=SLAB_ROWS,
+                                              chunk_rows=CHUNK_ROWS, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ck.launch_counts()
+    say(f"phase {phase} {what}: {wall!r} s, launches {({k: v for k, v in launches.items() if v})}")
+    expect = {"shell_bin_values_rfft_chunk": n // CHUNK_ROWS, "block_row_moments": n // SLAB_ROWS,
+              "block_centered_row_moments": n // SLAB_ROWS}
+    if any(launches[k] != v for k, v in expect.items()) or any(
+            launches[k] for k in FLAGSHIP_KERNELS):
+        fail(f"{what} launched {launches}, expected {expect} and no in-core kernel")
+    check_outputs(np, out, (n, n, n), "single")
+    return out, wall, launches
+
+
+def phase_streamed(torch, np):
+    """Phases 13 and 14: make_example_fields(1024) on the card and on the
+    host; the in-core step on the card as the reference; B6 checked on
+    the path's powers; then the streamed step twice from the host copy
+    through a host-memory slab loader, each run held to the reference."""
+    from fava_tpu_torch import flagship
+    from fava_tpu_torch.ops import cuda_kernels as ck
+
+    n = N_STREAM
+    fields = flagship.make_example_fields(n)
+    floor = output_floors(fields)
+    hosts = dict(zip(NAMES, (f.cpu().numpy() for f in fields)))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = flagship.uniform_analysis_step(*fields)
+    torch.cuda.synchronize()
+    times = {"incore_1024_s": time.perf_counter() - t0,
+             "incore_1024_peak_allocated_GiB": torch.cuda.max_memory_allocated() / 2**30}
+    ref = {k: v.cpu().numpy() for k, v in ref.items()}
+    row = phase_chunk_kernel(torch, fields)
+    del fields
+    torch.cuda.empty_cache()
+
+    totals, walls = {}, []
+    for i in range(2):  # a copy/compute race would show as a run that disagrees
+        torch.cuda.reset_peak_memory_stats()
+        stages = {}
+        out, wall, launches = streamed_run(torch, np, ck, host_loader(hosts), n,
+                                           f"streamed {n}^3 run {i + 1}", 14, stage_ms=stages)
+        walls.append(wall)
+        add_counts(totals, launches)
+        compare_flagship(np, out, ref, floor, f"streamed {n}^3 run {i + 1} vs in-core", 14)
+    times.update({"streamed_1024_s": walls, "streamed_1024_stage_ms": stages,
+                  "streamed_1024_peak_allocated_GiB": torch.cuda.max_memory_allocated() / 2**30})
+    del hosts
+    return row, totals, times
+
+
+def host_memory_gb():
+    """(MemTotal, MemAvailable) of the host in GB, from /proc/meminfo."""
+    info = dict(line.split(":", 1) for line in Path("/proc/meminfo").read_text().splitlines())
+    return tuple(int(info[k].split()[0]) * 1024 / 1e9 for k in ("MemTotal", "MemAvailable"))
+
+
+def phase_beyond_incore(torch, np):
+    """Phase 15: a 1280^3 volume, which the in-core step cannot hold on an
+    80 GB card, streamed from host memory."""
+    import resource
+
+    from fava_tpu_torch import flagship
+    from fava_tpu_torch.mesh.flash_uniform import streams_out_of_core
+    from fava_tpu_torch.ops import cuda_kernels as ck
+
+    n = N_BEYOND
+    say(f"phase 15 host memory before (total, available GB): {host_memory_gb()}")
+    fields = flagship.make_example_fields(n)
+    hosts = dict(zip(NAMES, (f.cpu().numpy() for f in fields)))
+    del fields
+    torch.cuda.empty_cache()
+    d_rows = hosts["dens"].sum(axis=(1, 2), dtype=np.float64)  # float64 host sums
+    free, total = torch.cuda.mem_get_info()
+    streams = streams_out_of_core((n, n, n), torch.float32, free)
+    say(f"phase 15 auto-dispatch for {n}^3 float32 with {free / 1e9:.3f} GB free of "
+        f"{total / 1e9:.3f} GB: {'streams' if streams else 'in core'}")
+    if not streams:
+        fail(f"the auto-dispatch would run {n}^3 in core")
+    torch.cuda.reset_peak_memory_stats()
+    stages = {}
+    out, wall, launches = streamed_run(torch, np, ck, host_loader(hosts), n,
+                                       f"streamed {n}^3", 15, stage_ms=stages)
+    errs = {}
+    for key, ref in (("total_mass", d_rows.sum()), ("mean_dens", d_rows / (n * n))):
+        errs[key] = float(np.abs(out[key] - ref).max() / max(np.abs(ref).max(), 1.0))
+        say(f"phase 15 {key} vs float64 host sums of dens: max|diff|/max(|ref|, 1) "
+            f"{errs[key]!r} (bound {TOL_SUMS!r})")
+        if not errs[key] <= TOL_SUMS:
+            fail(f"{n}^3 {key} disagrees with the float64 host sums")
+    times = {"streamed_1280_s": wall, "streamed_1280_stage_ms": stages,
+             "streamed_1280_peak_allocated_GiB": torch.cuda.max_memory_allocated() / 2**30,
+             "host_peak_rss_GB": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
+             "errors": errs}
+    del hosts
+    return launches, times
+
+
+# ---------------------------------------------------------------------------
+# Phases 16-17: the streamed entry point and the snapshot-series drivers
+
+
+def phase_entry_point(torch, np, workdir: Path, cpu):
+    """Phase 16: the 512^3 window file through ``flagship_analysis``,
+    streamed and then by the auto-dispatch (in core), held to each other
+    and to the float64 CPU path; the file's slab read rate."""
+    import fava_tpu_torch
+    from fava_tpu_torch.ops import cuda_kernels as ck
+
+    uni = fava_tpu_torch.FLASH(workdir)
+    uni.load(file_type="uni")
+    loader = uni.mesh._streamed_loader()
+    nx = int(uni.mesh.nxb)
+
+    def read_all():
+        return sum(loader(k, x0, x0 + SLAB_ROWS).nbytes for k in NAMES for x0 in range(0, nx, SLAB_ROWS))
+
+    read_all()  # warm the page cache
+    t0 = time.perf_counter()
+    nbytes = read_all()
+    read_gbps = nbytes / (time.perf_counter() - t0) / 1e9
+    say(f"phase 16 x-slab reads of the window file ({SLAB_ROWS} rows, page cache warm): "
+        f"{nbytes / 1e9:.3f} GB at {read_gbps!r} GB/s")
+    streamed, n1 = counted(torch, ck, "flagship_analysis(streamed=True)", lambda: uni.flagship_analysis(
+        streamed=True, slab_rows=SLAB_ROWS, chunk_rows=CHUNK_ROWS), STREAM_KERNELS, 16)
+    incore, n2 = counted(torch, ck, "flagship_analysis()", uni.flagship_analysis, FLAGSHIP_KERNELS, 16)
+    if any(n1[k] for k in FLAGSHIP_KERNELS) or n2["shell_bin_values_rfft_chunk"]:
+        fail("the streamed and the in-core entry points crossed paths")
+    say("phase 16 flagship_analysis() ran in core (K1-K4 launched, B6 not)")
+    check_outputs(np, streamed, (nx, nx, nx), "single")
+    floor = output_floors([uni.mesh.data(k) for k in NAMES])
+    walls = {"streamed_s": wall_per_call(torch, lambda: uni.flagship_analysis(
+        streamed=True, slab_rows=SLAB_ROWS, chunk_rows=CHUNK_ROWS), 2)}
+    t0 = time.perf_counter()
+    ref = cpu.flagship_analysis()
+    say(f"phase 16 plain float64 flagship path on the CPU: {time.perf_counter() - t0:.1f} s")
+    compare_flagship(np, streamed, incore, floor, "streamed vs in-core", 16)
+    errs = {what: compare_flagship(np, out, ref, floor, f"{what} vs float64", 16)
+            for what, out in (("streamed", streamed), ("in-core", incore))}
+    add_counts(n1, n2)
+    return n1, {"slab_read_GBps": read_gbps, **walls, "errors": errs}
+
+
+def phase_series(torch, np, workdir: Path):
+    """Phase 17: three more 512^3 uniform files (make_example_fields with
+    seeds 1-3, the port's uniform writer) beside the window; the flagship
+    series with the auto batch and with batch 3, each snapshot held to
+    flagship_analysis on its file; the ingest rate; the Reynolds and Favre
+    series over the plt catalog held to the mesh's profiles."""
+    import fava_tpu_torch
+    from fava_tpu_torch import flagship
+    from fava_tpu_torch.analysis import time_series
+    from fava_tpu_torch.io import ingest, synthetic
+    from fava_tpu_torch.ops import cuda_kernels as ck
+
+    t0 = time.perf_counter()
+    for seed in (1, 2, 3):
+        synthetic.make_uniform_file(
+            workdir / f"rt_hdf5_uniform_{seed + 1:04d}", ncells=(N, N, N), time=float(seed),
+            field_data=dict(zip(NAMES, flagship.make_example_fields(N, seed=seed))))
+    times = {"write_3_files_s": time.perf_counter() - t0}
+    model = fava_tpu_torch.FLASH(workdir)
+    nsnap = model.nfiles("uni")
+    batch = time_series.auto_batch(4 * N**3 * 4, time_series.series_input_budget("cuda"))
+    say(f"phase 17 flagship_series over {nsnap} files: auto batch {batch}")
+    totals = {}
+    series = {}
+    for what, kw in (("auto", {}), ("batch 3", {"batch": 3})):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        series[what], n = counted(torch, ck, f"flagship_series {what}",
+                                  lambda: model.flagship_series(file_type="uni", **kw),
+                                  FLAGSHIP_KERNELS, 17)
+        times[f"series_{what}_per_snapshot_s"] = (time.perf_counter() - t0) / nsnap
+        times[f"series_{what}_peak_allocated_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+        if any(n[k] != nsnap for k in FLAGSHIP_KERNELS):
+            fail(f"flagship_series {what} launched {n}, expected {nsnap} each")
+        add_counts(totals, n)
+    for j in range(nsnap):
+        model.load(file_type="uni", file_index=j)
+        single = model.flagship_analysis()
+        floor = output_floors([model.mesh.data(k) for k in NAMES])
+        for what, out in series.items():
+            compare_flagship(np, {k: v[j] for k, v in out.items()}, single, floor,
+                             f"series {what} snapshot {j} vs flagship_analysis", 17,
+                             bound_of=lambda key: TOL_BIN)
+    model.mesh = None
+    torch.cuda.empty_cache()
+    paths = [model.uni_files["by index"][j] for j in range(nsnap)]
+    times["ingest_GBps"] = ingest.ingest_bandwidth_gbps(paths, NAMES)
+    say(f"phase 17 ingest over {nsnap} files (page cache warm: just written and read): "
+        f"{times['ingest_GBps']!r} GB/s")
+
+    rs, n = counted(torch, ck, "reynolds_series", lambda: model.reynolds_series(file_type="plt"),
+                    AMR_KERNELS[:2], 17)
+    add_counts(totals, n)
+    fav, n = counted(torch, ck, "favre_series", lambda: model.favre_series(file_type="plt"),
+                     AMR_KERNELS[:2], 17)
+    add_counts(totals, n)
+    model.load(file_type="plt")
+    _, stress, means = model.reynolds_stress()
+    prof = model.favre_profiles()
+    vmax = max(float(model.mesh.data(k).abs().max()) for k in NAMES[1:])
+    dmax = float(model.mesh.data("dens").abs().max())
+    got_rs = {**{k: rs[k][0] for k in stress}, **{f"mean_{k}": rs[f"mean_{k}"][0] for k in means}}
+    ref_rs = {**stress, **{f"mean_{k}": v for k, v in means.items()}}
+    got_fav = {"mean_dens": fav["mean_dens"][0],
+               **{f"favre_{p}_{k}": fav[f"favre_{p}_{k}"][0] for p in ("mean", "rms")
+                  for k in prof["favre_mean"]}}
+    ref_fav = {"mean_dens": prof["mean_dens"],
+               **{f"favre_{p}_{k}": prof[f"favre_{p}"][k] for p in ("mean", "rms")
+                  for k in prof["favre_mean"]}}
+    times["reynolds_series_error"] = compare_profiles(np, got_rs, ref_rs, vmax, dmax,
+                                                      "reynolds_series", 17)
+    times["favre_series_error"] = compare_profiles(np, got_fav, ref_fav, vmax, dmax,
+                                                   "favre_series", 17)
+    del model
+    torch.cuda.empty_cache()
+    return totals, times
+
 
 def main() -> None:
     sys.path.insert(0, str(HERE))
@@ -1031,6 +1427,7 @@ def main() -> None:
     if Path(fava_tpu_torch.__file__).resolve().parent.parent != HERE:
         fail(f"fava_tpu_torch was imported from {fava_tpu_torch.__file__}, not this checkout")
 
+    t_start = time.perf_counter()
     card = phase_device(torch)
     build_s = phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1046,6 +1443,14 @@ def main() -> None:
     launches, _errs, model, batch = phase_main(torch, np, fields)
     phase_timings(torch, fields, model, batch, card)
     del fields, model, batch
+    torch.cuda.empty_cache()
+
+    rows["shell_bin_values_rfft_chunk"], stream_launches, stream_times = phase_streamed(torch, np)
+    add_counts(launches, stream_launches)
+    torch.cuda.empty_cache()
+    beyond_launches, beyond_times = phase_beyond_incore(torch, np)
+    add_counts(launches, beyond_launches)
+    say(f"phase 13-15 streamed timings: {json.dumps({'card': card, **stream_times, **beyond_times})}")
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="fava_amr_") as tmp:
@@ -1073,10 +1478,16 @@ def main() -> None:
         rows.update(win_rows)
         odd_rows, odd_times, odd_launches = phase_odd_extents(torch, np, uni, cpu)
         rows.update(odd_rows)
-        del uni, cpu
-    for counts in (amr4_launches, win_launches, odd_launches):
+        del uni
+        torch.cuda.empty_cache()
+        entry_launches, entry_times = phase_entry_point(torch, np, workdir, cpu)
+        del cpu
+        series_launches, series_times = phase_series(torch, np, workdir)
+    for counts in (amr4_launches, win_launches, odd_launches, entry_launches, series_launches):
         add_counts(launches, counts)
     say(f"phase 11-12 stage-4 timings: {json.dumps({'card': card, 'window': win_times, 'odd': odd_times})}")
+    say(f"phase 16-17 entry point and series timings: "
+        f"{json.dumps({'card': card, 'entry': entry_times, 'series': series_times})}")
 
     if any(m.split(".")[0] in ("jax", "fava_tpu") for m in sys.modules):
         fail("JAX or fava_tpu was imported")
@@ -1085,7 +1496,7 @@ def main() -> None:
          "launches": launches[name], **rows[name]}
         for name in REPLACES
     ]
-    say(f"build seconds {build_s!r}; {card}")
+    say(f"smoke seconds {time.perf_counter() - t_start!r}; build seconds {build_s!r}; {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

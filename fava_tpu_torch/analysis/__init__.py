@@ -13,6 +13,7 @@ from fava_tpu_torch.analysis import (  # noqa: F401
     scalar_spectra,
     slice_average,
     slice_integration,
+    time_series,
     volume_average,
     volume_integration,
 )
@@ -30,6 +31,7 @@ __all__ = [
     "scalar_spectra",
     "slice_average",
     "slice_integration",
+    "time_series",
     "volume_average",
     "volume_integration",
 ]

@@ -1,25 +1,36 @@
-// Hopper (sm_90a) kernel of the unfolded Hermitian shell binning (B10).
+// Hopper (sm_90a) kernel of the unfolded Hermitian shell binning: B10 and,
+// with a run-time x offset, the out-of-core chunk binning B6.
 //
 // Replaces _shell_kernel (fava_tpu/ops/pallas_kernels.py:515), reached from
 // shell_bin_sums (:608) and the odd-extent branch of shell_bin_sums_rfft
-// (:649-653). The quadrant fold (K3) needs even x and y extents; volumes with
-// an odd one (a 511-wide window) bin their (nx, ny, nzr) power volumes here
-// directly. Plain C entry point, bound with ctypes by
-// fava_tpu_torch/ops/_build.py; it launches on the caller's stream,
-// allocates nothing and returns cudaGetLastError() of its launch.
+// (:649-653), and _shell_kernel_chunkx (:1291), reached from
+// shell_bin_values_rfft_chunk (:1516) and shell_bin_sums_rfft_chunk (:1715).
+// The quadrant fold (K3) needs even x and y extents; volumes with an odd one
+// (a 511-wide window) bin their (nx, ny, nzr) power volumes here directly.
+// The streamed flagship step (ops/outofcore.py) bins each x-chunk of rows
+// kx0 .. kx0+rows-1 of the full volume's half-spectrum as it is produced:
+// the chunks' sums add up to the whole volume's. Plain C entry points,
+// bound with ctypes by fava_tpu_torch/ops/_build.py; each launches on the
+// caller's stream, allocates nothing and returns cudaGetLastError() of its
+// launch.
 //
-// For each cell (i, j, z): kx, ky are the signed FFT wavenumbers
-// (idx <= (n-1)/2 ? idx : idx - n); on an rfft half-spectrum (nzr != full_nz)
-// kz = z >= 0 and the cell carries the Hermitian weight wz = 1 at z = 0 and,
-// for even full_nz, at the Nyquist plane z = full_nz/2, 2 elsewhere; on a full
-// grid (nzr == full_nz) kz is signed as well and every weight is 1.
-// k = sqrt(kx^2 + ky^2 + kz^2) in f32 (k^2 is an exact integer there),
-// shell = floor(k + 0.5), cells with k > nbins - 0.5 dropped. Output: C f64
-// shell sums, C = 1 (scalar power) or 2 (total and longitudinal power); the
-// counts are a shape function the wrapper takes from the host.
+// For each cell (i, j, z): kx is the signed FFT wavenumber of the global row
+// jx = kx0 + i of an x extent full_nx (jx <= (full_nx-1)/2 ? jx : jx -
+// full_nx; kx0 = 0 and full_nx = nx for a whole volume), ky that of j; on an
+// rfft half-spectrum (nzr != full_nz) kz = z >= 0 and the cell carries the
+// Hermitian weight wz = 1 at z = 0 and, for even full_nz, at the Nyquist
+// plane z = full_nz/2, 2 elsewhere; on a full grid (nzr == full_nz) kz is
+// signed as well and every weight is 1. k = sqrt(kx^2 + ky^2 + kz^2) in f32
+// (k^2 is an exact integer there), shell = floor(k + 0.5), cells with
+// k > nbins - 0.5 dropped. Output: C f64 shell sums, C = 1 (scalar power) or
+// 2 (total and longitudinal power); the counts are a shape function the
+// wrapper takes from the host. kx0 is an ordinary argument: what the TPU
+// passed by scalar prefetch costs nothing here, and one build serves every
+// chunk.
 //
-// What bounds it: at the path's size (511 x 512 x 257, 0.27 GB per channel)
-// the read of the volumes and the histogram contention, as for K4, which it
+// What bounds it: the read of the volumes' cells inside the last shell
+// (511 x 512 x 257 for B10, 0.27 GB per channel; a 1024^3 chunk of 128 rows,
+// 0.27 GB per channel) and the histogram contention, as for K4, which it
 // follows: one warp walks one (i, j) row, 32 cells at a time, f64 shared
 // histogram per block, segmented shuffle scan over runs of equal shells,
 // f64 atomics at the end (shell_bins.cuh). The scan needs shells that never
@@ -45,7 +56,7 @@ template <int C>
 __global__ void __launch_bounds__(kBinThreads)
 shell_bin_unfolded_kernel(const float* __restrict__ t, const float* __restrict__ l,
                           double* __restrict__ out, int nx, int ny, int nzr, int nbins,
-                          int full_nz) {
+                          int full_nz, int kx0, int full_nx) {
   extern __shared__ double hist[];  // [C][nbins]
   fava::zero_hist(hist, C * nbins);
 
@@ -61,9 +72,9 @@ shell_bin_unfolded_kernel(const float* __restrict__ t, const float* __restrict__
 
   for (int64_t row = (int64_t)blockIdx.x * warps + (threadIdx.x >> 5); row < nrows;
        row += (int64_t)gridDim.x * warps) {
-    const int i = (int)(row / ny);
+    const int jx = kx0 + (int)(row / ny);
     const int j = (int)(row % ny);
-    const int kx = i <= (nx - 1) / 2 ? i : i - nx;
+    const int kx = jx <= (full_nx - 1) / 2 ? jx : jx - full_nx;
     const int ky = j <= (ny - 1) / 2 ? j : j - ny;
     const int ij2 = kx * kx + ky * ky;
     const int64_t off = row * nzr;
@@ -97,32 +108,49 @@ shell_bin_unfolded_kernel(const float* __restrict__ t, const float* __restrict__
 
 template <int C>
 int launch_unfolded(const float* t, const float* l, double* out, int nx, int ny, int nzr,
-                    int nbins, int full_nz, int blocks, cudaStream_t stream) {
+                    int nbins, int full_nz, int kx0, int full_nx, int blocks,
+                    cudaStream_t stream) {
   const size_t smem = C * (size_t)nbins * sizeof(double);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         shell_bin_unfolded_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  shell_bin_unfolded_kernel<C><<<blocks, kBinThreads, smem, stream>>>(t, l, out, nx, ny, nzr,
-                                                                      nbins, full_nz);
+  shell_bin_unfolded_kernel<C><<<blocks, kBinThreads, smem, stream>>>(
+      t, l, out, nx, ny, nzr, nbins, full_nz, kx0, full_nx);
   return launch_status();
+}
+
+int launch_channels(const void* t, const void* l, void* out, int nx, int ny, int nzr, int nbins,
+                    int full_nz, int kx0, int full_nx, int channels, int blocks, void* stream) {
+  (void)cudaGetLastError();
+  const float* tf = (const float*)t;
+  const float* lf = (const float*)l;
+  double* o = (double*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (channels == 1)
+    return launch_unfolded<1>(tf, lf, o, nx, ny, nzr, nbins, full_nz, kx0, full_nx, blocks, st);
+  if (channels == 2)
+    return launch_unfolded<2>(tf, lf, o, nx, ny, nzr, nbins, full_nz, kx0, full_nx, blocks, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
+// B10: a whole volume (kx0 = 0, full_nx = nx).
 int fava_shell_bin_sums_unfolded(const void* t, const void* l, void* out, int nx, int ny, int nzr,
                                  int nbins, int full_nz, int channels, int blocks, void* stream) {
-  (void)cudaGetLastError();
-  const float* tf = (const float*)t;
-  const float* lf = (const float*)l;
-  double* o = (double*)out;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (channels == 1) return launch_unfolded<1>(tf, lf, o, nx, ny, nzr, nbins, full_nz, blocks, st);
-  if (channels == 2) return launch_unfolded<2>(tf, lf, o, nx, ny, nzr, nbins, full_nz, blocks, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_channels(t, l, out, nx, ny, nzr, nbins, full_nz, 0, nx, channels, blocks, stream);
+}
+
+// B6: rows kx0 .. kx0+rows-1 of the half-spectrum of a full_nx-wide volume.
+int fava_shell_bin_sums_rfft_chunk(const void* t, const void* l, void* out, int rows, int ny,
+                                   int nzr, int nbins, int full_nx, int full_nz, int kx0,
+                                   int channels, int blocks, void* stream) {
+  return launch_channels(t, l, out, rows, ny, nzr, nbins, full_nz, kx0, full_nx, channels, blocks,
+                         stream);
 }
 
 }  // extern "C"

@@ -2,8 +2,8 @@
 
 Parameter tables ("real scalars", "integer runtime parameters", ...),
 the "unknown names" list, UNK field datasets (stored (nblocks, nz, ny,
-nx); read onto a device as (nblocks, nx, ny, nz) tensors) and block
-metadata. The readers
+nx); read onto a device as (nblocks, nx, ny, nz) tensors, or as host
+x-slabs for the streamed paths) and block metadata. The readers
 and writers take an open ``h5lite.File`` (the port's own HDF5 codec,
 ``io/h5lite.py``; h5py's File offers the same calls).
 """
@@ -99,6 +99,34 @@ def read_field(handle, name: str, device, dtype: torch.dtype) -> torch.Tensor:
         raise KeyError(f"{name} field not found in dataset")
     raw = torch.from_numpy(handle[key][()]).to(device=device, dtype=dtype)
     return raw.transpose(-1, -3).contiguous()
+
+
+def read_field_slab(handle, name: str, x0: int, x1: int) -> np.ndarray:
+    """Read an x-slab [x0, x1) of a single-block uniform field
+    (fava_tpu/io/flash_file.py:104).
+
+    The file stores (1, nzb, nyb, nxb), so the slab is a strided read of
+    the trailing axis (the whole field never lands in host memory). It
+    comes back in grid order, (x1-x0, nyb, nzb), as a swapped view of
+    the stored (nzb, nyb, x1-x0) values in their stored type: the slab
+    stream (``ops/outofcore._slab_stream``) copies the stored layout to
+    the device and swaps and casts there, as ``read_field`` does.
+    """
+    key = f"{name:4s}" if len(name) < 4 else name
+    if key not in handle and name in handle:
+        key = name
+    if key not in handle:
+        raise KeyError(f"{name} field not found in dataset")
+    raw = handle[key][..., x0:x1]
+    if raw.ndim == 4:
+        if raw.shape[0] != 1:
+            # Taking block 0 of multi-block data would make every streamed
+            # analysis compute statistics of one block only.
+            raise ValueError(
+                f"read_field_slab expects single-block uniform data; got {raw.shape[0]} blocks"
+            )
+        raw = raw[0]
+    return np.swapaxes(raw, -1, -3)
 
 
 def read_block_metadata(handle) -> Dict[str, np.ndarray]:

@@ -139,7 +139,9 @@ def _encode_datatype(dtype: np.dtype) -> bytes:
 
 
 class Dataset:
-    """A contiguous or compact dataset: ``shape``, ``dtype`` and ``[()]``."""
+    """A contiguous or compact dataset: ``shape``, ``dtype``, ``[()]`` for
+    the whole dataset and numpy basic indexing (``[..., x0:x1]``) for a
+    part of it."""
 
     def __init__(self, path: Path, shape, dtype, address: int, nbytes: int, inline: Optional[bytes]):
         self._path = path
@@ -150,8 +152,7 @@ class Dataset:
         self._inline = inline
 
     def __getitem__(self, key) -> np.ndarray:
-        if key != ():
-            raise NotImplementedError("dataset reads take [()] (the whole dataset)")
+        whole = isinstance(key, tuple) and not key
         count = int(np.prod(self.shape, dtype=np.int64))
         if self._nbytes < count * self.dtype.itemsize:
             raise OSError(f"{self._path}: dataset storage smaller than its shape and type")
@@ -159,11 +160,20 @@ class Dataset:
             out = np.frombuffer(self._inline, dtype=self.dtype, count=count).copy()
         elif count == 0 or self._address == UNDEF:
             out = np.zeros(count, dtype=self.dtype)
+        elif not whole:
+            # A part of contiguous storage: slice a read-only map of the
+            # file, so only the pages the key touches are read.
+            if os.path.getsize(self._path) < self._address + count * self.dtype.itemsize:
+                raise OSError(f"{self._path}: dataset data runs past the end of the file")
+            view = np.memmap(self._path, dtype=self.dtype, mode="r", offset=self._address,
+                             shape=self.shape)
+            return np.array(view[key])
         else:
             out = np.fromfile(self._path, dtype=self.dtype, count=count, offset=self._address)
             if out.size != count:
                 raise OSError(f"{self._path}: dataset data runs past the end of the file")
-        return out.reshape(self.shape)
+        out = out.reshape(self.shape)
+        return out if whole else np.array(out[key])
 
 
 def _split(path: str) -> Tuple[str, str]:

@@ -18,6 +18,7 @@ from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from fava_tpu_torch.io import flash_file, h5lite
 
@@ -285,7 +286,8 @@ def make_uniform_file(
 ) -> Path:
     """Write a synthetic single-block FLASH uniform-grid file.
 
-    ``field_data`` overrides the analytic fields; with ``seed`` set, a
+    ``field_data`` (numpy arrays or tensors in grid order) overrides the
+    analytic fields; with ``seed`` set, a
     reproducible random perturbation is added. 2D datasets use
     ncells=(nx, ny, 1) with ndim=2.
     """
@@ -306,7 +308,11 @@ def make_uniform_file(
                 data = np.abs(data) + 0.1
             field_data[name] = data
     else:
-        field_data = {k: np.asarray(v, dtype=np.float64) for k, v in field_data.items()}
+        # Tensors go to the writer as they are: it swaps them on their device.
+        field_data = {
+            k: v if isinstance(v, torch.Tensor) else np.asarray(v, dtype=np.float64)
+            for k, v in field_data.items()
+        }
 
     scalars, runtime = _scalars_and_params(
         ncells=ncells, nblks=(1, 1, 1), nblocks=1, domain=domain, time=time, ndim=ndim

@@ -1,13 +1,15 @@
 """FLASH uniform-grid mesh (single-block ``hdf5_uniform_`` files).
 
-Counterpart of fava_tpu/mesh/flash_uniform.py, in-core only: field
+Counterpart of fava_tpu/mesh/flash_uniform.py, single device: field
 reads onto the device (the metadata ``load`` is FLASH's), ``from_arrays``,
-the flagship analysis, the kinetic-energy and scalar spectra, and the
-PDFs and conditional statistics of pipeline stage 4. ``reynolds_stress``,
-``favre_profiles``, the slice profiles, ``mass_sum`` and the volume
-averages are FLASH's: on one block profiled along x the profiles take
-the uniform fast case (K1/K2). The streamed out-of-core path is ROADMAP
-A10; the other uniform-grid analyses are ROADMAP A7/A8.
+the flagship analysis (in core, or streamed from the file by
+``ops/outofcore.py`` when the volume does not fit the card), the
+kinetic-energy and scalar spectra, and the PDFs and conditional
+statistics of pipeline stage 4. ``reynolds_stress``, ``favre_profiles``,
+the slice profiles, ``mass_sum`` and the volume averages are FLASH's: on
+one block profiled along x the profiles take the uniform fast case
+(K1/K2). The other uniform-grid analyses, streamed or not, are ROADMAP
+A7/A8.
 """
 
 from __future__ import annotations
@@ -17,12 +19,30 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from fava_tpu_torch.io import flash_file
+from fava_tpu_torch.io import flash_file, h5lite
 from fava_tpu_torch.mesh.flash_amr import FLASH
 from fava_tpu_torch.models.model import Model
+from fava_tpu_torch.ops import outofcore
 from fava_tpu_torch.ops import spectra as spectra_ops
 from fava_tpu_torch.ops import volume as volume_ops
 from fava_tpu_torch.utils import field_dtype, timer
+
+
+def streams_out_of_core(shape, dtype: torch.dtype, free_bytes: float, resident_bytes: int = 0) -> bool:
+    """Whether the in-core flagship step of a ``shape`` volume of
+    ``dtype`` fields would not fit ``free_bytes`` of card memory, with
+    ``resident_bytes`` of its fields already there: the auto-dispatch
+    rule of ``flagship_analysis(streamed=None)``. It counts 4 fields, 3
+    complex half-spectra, ~6 half-size complex power and projection
+    temporaries and one full-size product, against 90% of the free
+    memory. On an 80 GB card 1024^3 float32 (~60 GB) runs in core and
+    1280^3 (~118 GB) streams."""
+    item = torch.finfo(dtype).bits // 8
+    nx, ny, nz = (int(s) for s in shape)
+    ntot = nx * ny * nz
+    nhalf = nx * ny * (nz // 2 + 1)
+    need = 5 * item * ntot - resident_bytes + 9 * 2 * item * nhalf
+    return need > 0.9 * free_bytes
 
 
 @Model.register_mesh()
@@ -113,47 +133,96 @@ class FlashUniform(FLASH):
             d = d[0]
         return d
 
-    def _check_fits(self, shape) -> None:
-        """Raise NotImplementedError when the in-core step would not fit
-        the card's free memory (the streamed path is ROADMAP A10)."""
+    def _streams(self, shape) -> bool:
+        """``streams_out_of_core`` against this card's free memory (the
+        CPU never streams on its own)."""
         if self.device.type != "cuda":
-            return
-        item = torch.finfo(field_dtype(self.device)).bits // 8
-        nx, ny, nz = shape
-        ntot = nx * ny * nz
-        nhalf = nx * ny * (nz // 2 + 1)
-        resident = sum(t.numel() * t.element_size() for t in self._data.values())
-        # 4 fields + 3 complex half-spectra + ~6 half-size power and
-        # complex projection temporaries + one full-size product.
-        need = 4 * item * ntot - resident + 3 * 2 * item * nhalf + 6 * 2 * item * nhalf + item * ntot
+            return False
         free, _total = torch.cuda.mem_get_info(self.device)
         free += torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
-        if need > 0.9 * free:
-            raise NotImplementedError(
-                f"flagship_analysis of a {shape} volume needs ~{need / 1e9:.1f} GB but "
-                f"{free / 1e9:.1f} GB is free on {self.device}; the streamed "
-                "out-of-core path is not ported yet (ROADMAP A10)"
+        resident = sum(t.numel() * t.element_size() for t in self._data.values())
+        return streams_out_of_core(shape, field_dtype(self.device), free, resident)
+
+    def _streamed_loader(self):
+        """Host x-slab loader of this mesh's file for the out-of-core path."""
+        if self._filename is None:
+            raise ValueError(
+                "streamed paths need a file-backed mesh; from_arrays data "
+                "is fully resident — use the in-core analyses"
+            )
+        path = self._filename
+
+        def loader(name: str, x0: int, x1: int) -> np.ndarray:
+            with h5lite.File(path, "r") as f:
+                return flash_file.read_field_slab(f, name, x0, x1)
+
+        return loader
+
+    @staticmethod
+    def _largest_divisor(n: int, target) -> int:
+        # The largest divisor of n NOT EXCEEDING the request: the slab and
+        # chunk knobs exist to shrink memory, so never round up.
+        target = max(1, min(int(target or 64), n))
+        return next(c for c in range(target, 0, -1) if n % c == 0)
+
+    @staticmethod
+    def _reject_stream_knobs(**knobs):
+        """Streaming knobs passed with streamed=False would be silently
+        ignored by the in-core path (a caller asking for the bf16 wire
+        must not silently get the full-precision in-core run)."""
+        ignored = sorted(k for k, (v, default) in knobs.items() if v is not None and v != default)
+        if ignored:
+            raise TypeError(
+                f"{ignored} only apply to the streamed out-of-core path; "
+                "pass streamed=True (these knobs have no effect in-core)"
             )
 
     @timer
-    def flagship_analysis(self, streamed: Optional[bool] = None) -> Dict[str, np.ndarray]:
-        """Fused spectra + Reynolds/Favre x-profiles of the in-core volume.
+    def flagship_analysis(
+        self,
+        streamed: Optional[bool] = None,
+        slab_rows: Optional[int] = None,
+        chunk_rows: Optional[int] = None,
+        wire_dtype: Optional[torch.dtype] = None,
+        prefetch_depth: int = 2,
+    ) -> Dict[str, np.ndarray]:
+        """Fused spectra + Reynolds/Favre x-profiles.
 
-        ``streamed=True``, or a volume that does not fit the card's free
-        memory under ``streamed=None``, raises NotImplementedError: the
-        out-of-core path is ROADMAP A10.
+        In core (``flagship.uniform_analysis_step``) when the volume fits
+        the card, or streamed from the file by
+        ``ops/outofcore.streamed_uniform_analysis`` when it does not:
+        ``streamed=None`` decides by ``streams_out_of_core`` against the
+        card's free memory. ``slab_rows``/``chunk_rows`` round down to
+        divisors of nx (64 when None); ``wire_dtype`` (e.g.
+        ``torch.bfloat16``) casts the slabs on the host and widens them
+        on the card.
         """
         from fava_tpu_torch import flagship
 
         if self.ndim != 3:
             raise ValueError("flagship_analysis requires a 3D dataset")
         shape = tuple(int(n) for n in (self.nxb, self.nyb, self.nzb))
-        if streamed:
-            raise NotImplementedError(
-                "streamed=True: the out-of-core flagship path is not ported yet (ROADMAP A10)"
+        if streamed is False:
+            # An explicit in-core request; under streamed=None the knobs
+            # are legitimate in case the volume streams.
+            self._reject_stream_knobs(
+                slab_rows=(slab_rows, None),
+                chunk_rows=(chunk_rows, None),
+                wire_dtype=(wire_dtype, None),
+                prefetch_depth=(prefetch_depth, 2),
             )
         if streamed is None:
-            self._check_fits(shape)
+            streamed = self._streams(shape)
+        if streamed:
+            return outofcore.streamed_uniform_analysis(
+                self._streamed_loader(),
+                shape,
+                slab_rows=self._largest_divisor(shape[0], slab_rows),
+                chunk_rows=self._largest_divisor(shape[0], chunk_rows),
+                device=self.device,
+                wire_dtype=wire_dtype,
+                prefetch_depth=prefetch_depth,
+            )
         vols = [self._volume(name) for name in ("dens", "velx", "vely", "velz")]
         out = flagship.uniform_analysis_step(*vols)
         return {k: v.cpu().numpy() for k, v in out.items()}

@@ -48,6 +48,7 @@ _SIGNATURES = {
     "fava_block_centered_row_moments": (_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P),
     "fava_regrid_fields": (_P, _P, _I, _P, _P, _P) + (_LL,) * 14 + (_I, _I, _P),
     "fava_shell_bin_sums_unfolded": (_P, _P, _P) + (_I,) * 7 + (_P,),
+    "fava_shell_bin_sums_rfft_chunk": (_P, _P, _P) + (_I,) * 9 + (_P,),
     "fava_pdf2d": (_P,) * 6 + (_LL, _I, _I, _I, _I, _P),
     "fava_pdf2d_hist_mode": (_I, _I, _I),
 }

@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels, with their plain twins.
 
-Counterpart of the Pallas kernels of fava_tpu on the flagship, AMR and
-stage-4 paths (sources and design notes in ``fava_tpu_torch/csrc/``:
-``flagship_kernels.cu`` for K1-K4, ``amr_kernels.cu`` for K5-K7,
-``spectra_kernels.cu`` for B10 and ``pdf2d_kernels.cu`` for B8):
+Counterpart of the Pallas kernels of fava_tpu on the flagship, AMR,
+stage-4 and out-of-core paths (sources and design notes in
+``fava_tpu_torch/csrc/``: ``flagship_kernels.cu`` for K1-K4,
+``amr_kernels.cu`` for K5-K7, ``spectra_kernels.cu`` for B10 and B6 and
+``pdf2d_kernels.cu`` for B8):
 
 ================================  ==============================================
 wrapper                           replaces (fava_tpu/ops/)
@@ -14,6 +15,7 @@ wrapper                           replaces (fava_tpu/ops/)
 ``shell_bin_values_folded``       ``pallas_kernels.py:_shell_kernel_folded_v3`` (:955)
 ``shell_bin_values_folded_1ch``   the same, one channel (scalar spectra, :1282)
 ``shell_bin_sums_unfolded``       ``pallas_kernels.py:_shell_kernel`` (:515)
+``shell_bin_values_rfft_chunk``   ``pallas_kernels.py:_shell_kernel_chunkx`` (:1291)
 ``block_row_moments``             ``pallas_kernels.py:_raw_rows_kernel`` (:331)
 ``block_centered_row_moments``    ``pallas_kernels.py:_centered_rows_kernel`` (:352)
 ``regrid_fields``                 ``pallas_regrid.py:_regrid_kernel`` (:78)
@@ -59,6 +61,7 @@ KERNELS = (
     "shell_bin_sums_unfolded",
     "pdf2d_counts",
     "pdf2d_weighted",
+    "shell_bin_values_rfft_chunk",
 )
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -346,42 +349,59 @@ def shell_bin_values_folded_1ch(power, nbins: int, full_ny: int, full_nz: int):
     return _shell_bin_folded("shell_bin_values_folded_1ch", (power,), nbins, full_ny, full_nz)[0]
 
 
+def _hermitian_multiplicity(n_idx: int, n: int, device) -> torch.Tensor:
+    """1 on an axis's self-conjugate indices (0 and, for even n, n/2), else 2."""
+    idx = torch.arange(n_idx, device=device)
+    self_conj = idx == 0
+    if n % 2 == 0:
+        self_conj |= idx == n // 2
+    return torch.where(self_conj, 1.0, 2.0).to(torch.float64)
+
+
 @lru_cache(maxsize=8)
 def _folded_counts(
-    fshape: Tuple[int, int, int], nbins: int, full_nx: int, full_ny: int, full_nz: int
+    fshape: Tuple[int, int, int], nbins: int, full_nx: int, full_ny: int, full_nz: int,
+    device: str = "cpu",
 ) -> np.ndarray:
-    """Per-shell unfold-multiplicity counts: a pure shape function in
-    host numpy (fava_tpu/ops/pallas_kernels.py:1198). Each folded cell
-    stands for mx*my original (kx, ky) partners and carries the
-    Hermitian kz weight wz; integer weights sum exactly. Read-only: the
-    cached array is shared by every caller."""
+    """Per-shell unfold-multiplicity counts: a pure shape function
+    (fava_tpu/ops/pallas_kernels.py:1198), computed on ``device`` a block
+    of x planes at a time (at 1280^3 the table has 263 M cells: seconds
+    on the host, milliseconds on the card). Each folded cell stands for
+    mx*my original (kx, ky) partners and carries the Hermitian kz weight
+    wz; |k| is taken in float32 from exact integer k^2, and the integer
+    weights sum exactly. Read-only: the cached array is shared by every
+    caller."""
     nxh, _rows, nzr = fshape
     nyh = full_ny // 2 + 1
-    ix = np.arange(nxh, dtype=np.float32)
-    jy = np.arange(nyh, dtype=np.float32)
-    jz = np.arange(nzr, dtype=np.float32)
-
-    def mult(idx, n):
-        self_conj = idx == 0
-        if n % 2 == 0:
-            self_conj |= idx == n // 2
-        return np.where(self_conj, 1.0, 2.0)
-
-    k_abs = np.sqrt(ix[:, None, None] ** 2 + jy[None, :, None] ** 2 + jz[None, None, :] ** 2)
-    shell = np.floor(k_abs + 0.5).astype(np.int64)
-    shell = np.where(k_abs <= (nbins - 0.5), np.minimum(shell, nbins - 1), nbins)
-    w = mult(ix, full_nx)[:, None, None] * mult(jy, full_ny)[None, :, None] * mult(jz, full_nz)
-    counts = np.bincount(shell.ravel(), weights=w.ravel(), minlength=nbins + 1)[:nbins]
-    counts.setflags(write=False)
-    return counts
+    dev = torch.device(device)
+    jy = torch.arange(nyh, dtype=torch.float32, device=dev)[:, None]
+    jz = torch.arange(nzr, dtype=torch.float32, device=dev)[None, :]
+    yz2 = jy * jy + jz * jz
+    mx = _hermitian_multiplicity(nxh, full_nx, dev)
+    wyz = _hermitian_multiplicity(nyh, full_ny, dev)[:, None] * _hermitian_multiplicity(
+        nzr, full_nz, dev
+    )[None, :]
+    counts = torch.zeros(nbins + 1, dtype=torch.float64, device=dev)
+    step = max(1, (1 << 24) // (nyh * nzr))  # x planes per block
+    for x0 in range(0, nxh, step):
+        ix = torch.arange(x0, min(nxh, x0 + step), dtype=torch.float32, device=dev)
+        k_abs = torch.sqrt(ix[:, None, None] ** 2 + yz2)
+        shell = torch.floor(k_abs + 0.5).to(torch.int64)
+        shell = torch.where(k_abs <= nbins - 0.5, torch.clamp(shell, max=nbins - 1), nbins)
+        w = mx[x0 : x0 + ix.numel(), None, None] * wyz
+        counts += torch.bincount(shell.reshape(-1), weights=w.reshape(-1), minlength=nbins + 1)
+    out = counts[:nbins].cpu().numpy()
+    out.setflags(write=False)
+    return out
 
 
 def _static_counts(shape, nbins: int, full_nz: int, device) -> torch.Tensor:
     """Hermitian shell counts of an (nx, ny, nzr) rfft half-spectrum (or
-    full grid) of a volume of z extent ``full_nz``: a shape function."""
+    full grid) of a volume of z extent ``full_nz``: a shape function,
+    computed on ``device``."""
     nx, ny, _ = (int(s) for s in shape)
     fshape = (nx // 2 + 1, ny // 2 + 1, full_nz // 2 + 1)
-    counts = _folded_counts(fshape, int(nbins), nx, ny, int(full_nz))
+    counts = _folded_counts(fshape, int(nbins), nx, ny, int(full_nz), str(torch.device(device)))
     return torch.tensor(counts, dtype=accum_dtype(), device=device)
 
 
@@ -422,13 +442,16 @@ def shell_bin_sums_rfft_scalar(p, nbins: int, full_nz: int):
 # B10: unfolded Hermitian shell binning (odd x or y extents)
 
 
-def _unfolded_shells(shape, nbins: int, full_nz: int, device):
+def _unfolded_shells(shape, nbins: int, full_nz: int, device, kx0: int = 0, full_nx=None):
     """(shell index of every cell, nbins where dropped; Hermitian weight
     of every z plane) of an (nx, ny, nzr) half-spectrum, or of a full grid
-    when nzr == full_nz. |k| in float32, as the kernel takes it."""
+    when nzr == full_nz. |k| in float32, as the kernel takes it. Row i
+    is the global row kx0 + i of a volume of x extent ``full_nx`` (nx
+    when None)."""
     nx, ny, nzr = shape
     half = nzr != full_nz
-    i = _wavenumbers_int(nx, device)[:, None, None]
+    full_nx = nx if full_nx is None else int(full_nx)
+    i = _wavenumbers_int(full_nx, device)[kx0 : kx0 + nx, None, None]
     j = _wavenumbers_int(ny, device)[None, :, None]
     z = torch.arange(nzr, device=device) if half else _wavenumbers_int(nzr, device)
     k = torch.sqrt((i * i + j * j + z[None, None, :] ** 2).to(torch.float32))
@@ -447,8 +470,10 @@ def _wavenumbers_int(n: int, device) -> torch.Tensor:
     return torch.where(k <= (n - 1) // 2, k, k - n)
 
 
-def _shell_bin_unfolded_plain(total, longi, nbins, full_nz) -> torch.Tensor:
-    shell, wz = _unfolded_shells(tuple(total.shape), nbins, full_nz, total.device)
+def _shell_bin_unfolded_plain(total, longi, nbins, full_nz, kx0: int = 0, full_nx=None):
+    """(C, nbins) plain twin of B10 (kx0 = 0, full_nx = nx) and of B6 (the
+    rows kx0.. of a full_nx-wide volume)."""
+    shell, wz = _unfolded_shells(tuple(total.shape), nbins, full_nz, total.device, kx0, full_nx)
     return _shell_sums(total, longi, shell, wz, nbins)
 
 
@@ -475,6 +500,69 @@ def shell_bin_sums_unfolded(total, longi: Optional[torch.Tensor], nbins: int, fu
         int(full_nz), len(vols), _bin_blocks(nx * ny, total.device),
     )
     return out
+
+
+# ---------------------------------------------------------------------------
+# B6: shell binning of an x-chunk of a half-spectrum (the streamed step)
+
+
+def shell_bin_values_rfft_chunk(total, longi, nbins: int, full_nx: int, full_nz: int, kx0: int):
+    """(3, nbins) float64 Hermitian-weighted shell sums [total,
+    longitudinal, transverse] of the rfft power volumes of an x-chunk:
+    rows kx0 .. kx0+rows-1 of the (full_nx, ny, full_nz//2+1)
+    half-spectrum. Values only: the chunks' sums add up to the whole
+    volume's, whose counts are ``rfft_shell_counts``. Transverse is
+    total - longitudinal shell by shell, as fava_tpu's kernel path
+    forms it."""
+    name = "shell_bin_values_rfft_chunk"
+    if total.ndim != 3 or longi.shape != total.shape or nbins < 1:
+        raise ValueError(f"{name}: two same-shaped 3D volumes and nbins >= 1 required")
+    rows, ny, nzr = (int(s) for s in total.shape)
+    kx0, full_nx, full_nz = int(kx0), int(full_nx), int(full_nz)
+    if nzr != full_nz // 2 + 1:
+        raise ValueError(f"{name}: z extent {nzr} is not the half-spectrum's {full_nz // 2 + 1}")
+    if kx0 < 0 or kx0 + rows > full_nx:
+        raise ValueError(f"{name}: rows {kx0}..{kx0 + rows - 1} outside an x extent of {full_nx}")
+    if _device_kind(name, total, longi) == "cpu":
+        sums2 = _shell_bin_unfolded_plain(total, longi, int(nbins), full_nz, kx0, full_nx)
+    else:
+        _check_cuda(name, total, longi)
+        sums2 = torch.zeros((2, nbins), dtype=torch.float64, device=total.device)
+        _launch(
+            name, total.device, _build.library().fava_shell_bin_sums_rfft_chunk, total.data_ptr(),
+            longi.data_ptr(), sums2.data_ptr(), rows, ny, nzr, int(nbins), full_nx, full_nz, kx0,
+            2, _bin_blocks(rows * ny, total.device),
+        )
+    return torch.stack([sums2[0], sums2[1], sums2[0] - sums2[1]])
+
+
+def rfft_shell_counts(full_shape: Tuple[int, int, int], nbins: int, device="cpu") -> torch.Tensor:
+    """Static Hermitian shell counts of a whole volume's rfft
+    half-spectrum, on ``device``: what the chunks' counts add up to
+    (fava_tpu/ops/pallas_kernels.py:1504)."""
+    nx, ny, nz = (int(s) for s in full_shape)
+    return _static_counts((nx, ny, nz // 2 + 1), nbins, nz, device)
+
+
+@lru_cache(maxsize=16)
+def _chunk_counts(rows: int, ny: int, nbins: int, full_nx: int, full_nz: int, kx0: int):
+    """Hermitian shell counts of the rows kx0.. of a half-spectrum (host
+    numpy, read-only): a shape function, as the kernel computes no counts."""
+    ones = torch.ones((rows, ny, full_nz // 2 + 1), dtype=torch.float64)
+    counts = _shell_bin_unfolded_plain(ones, None, nbins, full_nz, kx0, full_nx)[0].numpy()
+    counts.setflags(write=False)
+    return counts
+
+
+def shell_bin_sums_rfft_chunk(total, longi, nbins: int, full_nx: int, full_nz: int, kx0: int):
+    """(counts, sums[3]) of an x-chunk of rfft powers
+    (fava_tpu/ops/pallas_kernels.py:1715): the chunk's Hermitian shell
+    counts (a shape function) and ``shell_bin_values_rfft_chunk``'s sums.
+    Counts and sums over all chunks equal the whole-volume binning."""
+    sums = shell_bin_values_rfft_chunk(total, longi, nbins, full_nx, full_nz, kx0)
+    rows, ny, _ = (int(s) for s in total.shape)
+    counts = _chunk_counts(rows, ny, int(nbins), int(full_nx), int(full_nz), int(kx0))
+    return torch.tensor(counts, dtype=accum_dtype(), device=total.device), sums
 
 
 # ---------------------------------------------------------------------------

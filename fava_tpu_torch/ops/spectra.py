@@ -49,7 +49,7 @@ def _abs2(z: torch.Tensor) -> torch.Tensor:
 
 
 def rfft_power_volumes(
-    ffts: Sequence[torch.Tensor], full_shape: Tuple[int, int, int]
+    ffts: Sequence[torch.Tensor], full_shape: Tuple[int, int, int], jx=None, kx=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(total, longi) power volumes of the three velocity half-spectra.
 
@@ -61,15 +61,23 @@ def rfft_power_volumes(
     volume and |k| are not returned: the binning forms transverse sums
     as total - longitudinal, and in eager mode each extra volume would
     cost a full pass. Both volumes are returned contiguous.
+
+    ``jx``/``kx`` (1D tensors of global x indices and their signed
+    wavenumbers) give the rows of an x-chunk of the half-spectrum (the
+    streamed step); the Nyquist split applies where a global row is
+    nx/2, and only there.
     """
     nx, ny, nz = full_shape
     nzr = ffts[0].shape[-1]
     rdt = ffts[0].real.dtype
     dev = ffts[0].device
-    jx = torch.arange(nx, device=dev)[:, None, None]
+    if kx is None:
+        jx = torch.arange(nx, device=dev)
+        kx = _wavenumbers(nx, rdt, dev)
+    jx = jx.to(dev)[:, None, None]
+    kx = kx.to(device=dev, dtype=rdt)[:, None, None]
     jy = torch.arange(ny, device=dev)[None, :, None]
     jz = torch.arange(nzr, device=dev)[None, None, :]
-    kx = _wavenumbers(nx, rdt, dev)[:, None, None]
     ky = _wavenumbers(ny, rdt, dev)[None, :, None]
     kz = jz.to(rdt)
 

@@ -8,7 +8,8 @@ device. The file imports no JAX, so it also runs where JAX is absent:
 Kernels take float32; the plain version gets the same values in float64.
 Tolerances: row and block-row moments rtol 1e-10 (f64 sums in another
 order); fold rtol 4e-7 (<= 3 float32 roundings of <= 4 positive terms);
-shell sums rtol 1e-10 (f64 sums, atomics in run-dependent order);
+shell sums rtol 1e-10 (f64 sums, atomics in run-dependent order), the
+chunk binning (B6) at kx0 = 0 equal to B10's up to that rounding;
 regrid exact (values are copied); joint-histogram counts exact, weighted
 sums rtol 1e-12 (f64 atomics in run-dependent order).
 """
@@ -84,6 +85,13 @@ def test_kernel_matches_plain(cuda_device, kernel):
             assert torch.equal(got, ref)
         else:
             torch.testing.assert_close(got, ref, rtol=1e-12, atol=0)
+    elif kernel == "shell_bin_values_rfft_chunk":
+        p = [a.abs()[8:24, :, : SHAPE[2] // 2 + 1].contiguous() for a in f[:2]]
+        nbins = max(SHAPE) // 2 - 1
+        got = ck.shell_bin_values_rfft_chunk(*p, nbins, SHAPE[0], SHAPE[2], 8)
+        torch.cuda.synchronize()
+        ref = ck._shell_bin_unfolded_plain(*(a.double() for a in p), nbins, SHAPE[2], 8, SHAPE[0])
+        torch.testing.assert_close(got[:2], ref, rtol=1e-10, atol=0)
     elif kernel == "shell_bin_sums_unfolded":
         odd = [a.abs()[1:, :, : SHAPE[2] // 2 + 1].contiguous() for a in f[:2]]
         nbins = max(SHAPE) // 2 - 1
@@ -330,3 +338,90 @@ def test_stage4_on_cuda_matches_the_cpu_path(cuda_device, shape):
     np.testing.assert_allclose(gpu["pdf2d_mass"]["counts"], cpu["pdf2d_mass"]["counts"], rtol=1e-12)
     assert np.array_equal(gpu["binned"]["counts"], cpu["binned"]["counts"])
     np.testing.assert_allclose(gpu["density"]["sigma_s"], cpu["density"]["sigma_s"], rtol=1e-12)
+
+
+# (full_nx, ny, nz, rows): even and odd x, the Nyquist row nx/2 at a chunk's
+# first, middle and last row, a single-row chunk, a non-multiple-of-32 z.
+CHUNK_CASES = [(32, 32, 48, 8), (24, 16, 16, 8), (22, 16, 16, 2), (15, 9, 10, 5), (16, 8, 70, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,nz,rows", CHUNK_CASES)
+def test_chunk_binning_matches_plain_at_every_offset(cuda_device, nx, ny, nz, rows):
+    nbins = max(nx, ny, nz) // 2 - 1
+    t, lo = (a.abs() for a in _fields(cuda_device, shape=(nx, ny, nz // 2 + 1), seed=nx + rows)[:2])
+    ck.reset_launch_counts()
+    acc = torch.zeros(3, nbins, dtype=torch.float64, device=cuda_device)
+    for kx0 in range(0, nx, rows):
+        part = [a[kx0 : kx0 + rows].contiguous() for a in (t, lo)]
+        got = ck.shell_bin_values_rfft_chunk(*part, nbins, nx, nz, kx0)
+        ref = ck._shell_bin_unfolded_plain(*(a.double() for a in part), nbins, nz, kx0, nx)
+        torch.testing.assert_close(got[:2], ref, rtol=1e-10, atol=1e-300)
+        acc += got
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["shell_bin_values_rfft_chunk"] == -(-nx // rows)
+    whole = ck.shell_bin_sums_unfolded(t, lo, nbins, nz)
+    torch.testing.assert_close(acc[:2], whole, rtol=1e-10, atol=1e-300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 32, 48), (31, 32, 24)])
+def test_chunk_binning_at_kx0_zero_is_b10(cuda_device, shape):
+    nx, ny, nz = shape
+    nbins = max(shape) // 2 - 1
+    t, lo = (a.abs() for a in _fields(cuda_device, shape=(nx, ny, nz // 2 + 1), seed=3)[:2])
+    chunk = ck.shell_bin_values_rfft_chunk(t, lo, nbins, nx, nz, 0)
+    whole = ck.shell_bin_sums_unfolded(t, lo, nbins, nz)
+    torch.testing.assert_close(chunk[:2], whole, rtol=1e-12, atol=1e-300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", [None, torch.bfloat16])
+def test_streamed_step_on_cuda_matches_the_cpu_path(cuda_device, tmp_path, wire):
+    """The out-of-core step on the card (pinned staging, side stream, B6,
+    K5/K6) against the same step on the CPU on the same file, twice."""
+    from fava_tpu_torch.ops import outofcore
+
+    synthetic.make_uniform_file(tmp_path / "rt_hdf5_uniform_0001", ncells=(32, 32, 48), seed=4)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        m = fava_tpu_torch.FLASH(tmp_path, device=dev)
+        m.load(file_type="uni")
+        ck.reset_launch_counts()
+        outs[dev] = [m.flagship_analysis(streamed=True, slab_rows=8, chunk_rows=16,
+                                         wire_dtype=wire) for _ in range(2)]
+        if dev == "cuda":
+            counts = ck.launch_counts()
+            assert counts["shell_bin_values_rfft_chunk"] == 2 * 2
+            assert counts["block_row_moments"] == counts["block_centered_row_moments"] == 2 * 4
+    for got in outs["cuda"]:
+        for key, r in outs["cpu"][0].items():
+            bound = 1e-5 if key.startswith("spectra_") else 1e-9
+            assert float(np.abs(got[key] - r).max() / np.abs(r).max()) <= bound, key
+    loader = m.mesh._streamed_loader()
+    stages = {}
+    outofcore.streamed_uniform_analysis(loader, (32, 32, 48), slab_rows=8, chunk_rows=16,
+                                        stage_ms=stages)
+    assert set(stages) == {"stage_a", "x_transform", "stage_b"}
+
+
+@pytest.mark.cuda
+def test_series_on_cuda_match_the_cpu_path(cuda_device, tmp_path):
+    """Snapshot ingest on the card (pinned staging, side stream, the swap
+    on the card) feeding flagship_series and reynolds_series."""
+    for i in (1, 2, 3):
+        synthetic.make_uniform_file(tmp_path / f"rt_hdf5_uniform_000{i}", ncells=(16, 32, 24),
+                                    seed=i)
+        synthetic.make_amr_file(tmp_path / f"rt_hdf5_plt_cnt_000{i}", ncells=(8, 8, 8),
+                                nblks=(2, 1, 1), refine={0: 2}, time=0.1 * i)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        m = fava_tpu_torch.FLASH(tmp_path, device=dev)
+        outs[dev] = (m.flagship_series(batch=2), m.reynolds_series(), m.favre_series())
+    (fc, rc, vc), (fg, rg, vg) = outs["cpu"], outs["cuda"]
+    for key, r in fc.items():
+        bound = 1e-5 if key.startswith("spectra_") else 1e-9
+        assert float(np.abs(fg[key] - r).max() / max(np.abs(r).max(), 1.0)) <= bound, key
+    for got, ref in ((rg, rc), (vg, vc)):
+        for key, r in ref.items():
+            assert float(np.abs(got[key] - r).max()) <= 1e-9 * max(float(np.abs(r).max()), 1.0), key

@@ -153,9 +153,6 @@ def test_unported_paths_raise_not_implemented(uniform_file, amr_file):
     for method in ("projection", "flame_window"):
         with pytest.raises(NotImplementedError, match="A8"):
             getattr(amr.mesh, method)("dens")
-    tm.load(file_type="uni")
-    with pytest.raises(NotImplementedError, match="A10"):
-        tm.flagship_analysis(streamed=True)
 
 
 def test_registries_are_the_ports_own():
@@ -165,5 +162,5 @@ def test_registries_are_the_ports_own():
     for name in ("flagship_analysis", "reynolds_stress", "favre_profiles", "slice_average",
                  "slice_integration", "kinetic_energy_spectra", "scalar_spectra", "pdf1d", "pdf2d",
                  "density_pdf", "binned_statistic", "mass_sum", "volume_average",
-                 "volume_integration"):
+                 "volume_integration", "flagship_series", "reynolds_series", "favre_series"):
         assert callable(getattr(fava_tpu_torch.Model, name)), name
