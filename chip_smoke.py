@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the fava_tpu_torch flagship, AMR, stage-4 and streaming
-paths on one NVIDIA GPU.
+"""Smoke run of the fava_tpu_torch flagship, AMR, stage-4, streaming and
+fused-spectrum paths on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -66,7 +66,7 @@ no result):
    then the kernel against its plain version on the path's (128, 1024,
    513) chunks at kx0 = 0, 448 and 896 and on a chunk of an odd-nx
    (1023) volume; the 8 chunks of a snapshot add up to B10 on the whole
-   volume.
+   volume; phase 18's spectra paths (a) and (b) on these fields, timed.
 14. Streamed step at 1024^3: ``ops.outofcore.streamed_uniform_analysis``
    from the host copy through a host-memory slab loader, twice, each run
    with counters (B6 per chunk, K5/K6 per slab) and held to the in-core
@@ -85,6 +85,18 @@ no result):
    snapshot held to ``flagship_analysis`` on its file; the ingest rate;
    ``reynolds_series``/``favre_series`` over the plt catalog held to the
    mesh's ``reynolds_stress``/``favre_profiles``.
+18. Fused-spectrum path (run after phase 5, on phase 3's 512^3 fields):
+   the fused powers binning (B9) on the normalized stacked transforms,
+   the one-pass (B11a) and row-chunked (B11b: K4's kernel through its
+   own entry) folded binning on fava_tpu-style folds whose 7 pad rows
+   hold NaN, and the fused z+y transform (B12) on sqrt(rho)*v_x against
+   their plain versions (B12 also against ``torch.fft.rfftn`` over y and
+   z, its library call); then the spectra five ways, each with counters:
+   (a) the main path (cuFFT, powers, K3, K4), (b) one stacked cuFFT into
+   B9, (c) B12 and cuFFT along x into B9, (d)/(e) the main path's powers
+   and fold padded as fava_tpu pads it into B11a/B11b; counts exact and
+   sums held to (a) and to phase 4's float64 CPU path; each path's entry
+   and its two stages timed by CUDA events.
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -119,6 +131,10 @@ SOURCES = {
     "pdf2d_counts": "fava_tpu_torch/csrc/pdf2d_kernels.cu",
     "pdf2d_weighted": "fava_tpu_torch/csrc/pdf2d_kernels.cu",
     "shell_bin_values_rfft_chunk": "fava_tpu_torch/csrc/spectra_kernels.cu",
+    "shell_bin_powers_fused": "fava_tpu_torch/csrc/fused_spectra_kernels.cu",
+    "shell_bin_sums_folded_onepass": "fava_tpu_torch/csrc/flagship_kernels.cu",
+    "shell_bin_values_folded_rows": "fava_tpu_torch/csrc/flagship_kernels.cu",
+    "zy_rfft_planar": "fava_tpu_torch/csrc/dft_kernels.cu",
 }
 REPLACES = {
     "row_moments": "fava_tpu/ops/pallas_kernels.py:95",
@@ -133,6 +149,10 @@ REPLACES = {
     "pdf2d_counts": "fava_tpu/ops/pallas_pdf2d.py:75",
     "pdf2d_weighted": "fava_tpu/ops/pallas_pdf2d.py:91",
     "shell_bin_values_rfft_chunk": "fava_tpu/ops/pallas_kernels.py:1291",
+    "shell_bin_powers_fused": "fava_tpu/ops/pallas_kernels.py:1539",
+    "shell_bin_sums_folded_onepass": "fava_tpu/ops/pallas_kernels.py:758",
+    "shell_bin_values_folded_rows": "fava_tpu/ops/pallas_kernels.py:851",
+    "zy_rfft_planar": "fava_tpu/experiments/pallas_dft.py:53",
 }
 FLAGSHIP_KERNELS = ("row_moments", "centered_row_moments", "fold_quadrants_pair",
                     "shell_bin_values_folded")
@@ -164,6 +184,17 @@ TOL_SHIFT = 2
 # rate outside the tensor cores; NVIDIA H100 SXM, at its full 700 W.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+
+# The fused-spectrum path (phase 18). B12 against the float64 dense DFT, as
+# max |diff| / max |coefficient|: float32 products summed in a fixed order
+# (~1e-7 expected). Path (c) against (a) and against the float64 path, as
+# max |diff| / scale per spectrum: TOL_SPECTRA for the float32 transforms
+# and powers, plus 2 TOL_ZY for the power of a coefficient that carries
+# B12's relative error e (|W (1 + e)|^2 = |W|^2 (1 + 2e + e^2)); the shells
+# that set the scale hold the largest coefficients, whose relative error is
+# at most TOL_ZY.
+TOL_ZY = 1e-5
+TOL_ZY_PATH = TOL_SPECTRA + 2 * TOL_ZY
 
 # The AMR path (phases 6-9): an rtflame-like tree, refined around the
 # flame at x in [1.5, 2.5] (see amr_refine), and the flame window regridded
@@ -274,10 +305,19 @@ def least_time(nbytes, ops):
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def zy_fft_ops(nx, ny, nz):
+    """Operations of B12's function done the cheapest known way, as FFTs
+    (cuFFT computes it so): a real z-transform of each of the nx*ny rows,
+    2.5 nz log2 nz, and a complex y-transform of each of the nx*(nz/2+1)
+    columns, 5 ny log2 ny. B12's dense DFT does O(n) times more."""
+    return nx * ny * 2.5 * nz * math.log2(max(nz, 2)) + nx * (nz // 2 + 1) * 5 * ny * math.log2(max(ny, 2))
+
+
 def kernel_row(torch, phase, name, max_abs, ratio, bound, kernel_fn, plain_fn, work):
     """Print and check a kernel-vs-plain comparison; time both (CUDA events).
-    ``work`` is (bytes, operations) of the kernel's call; no single PyTorch
-    call computes any of these kernels' functions on the card (library_ms)."""
+    ``work`` is (bytes, operations) of the kernel's call. library_ms is null:
+    no single PyTorch call computes these kernels' functions on the card
+    (the caller of the one kernel that has one, B12, fills it in)."""
     say(f"phase {phase} {name}: max_abs_err {max_abs!r}, error/bound {ratio!r} (bound {bound!r})")
     if not ratio <= 1.0:
         fail(f"{name} disagrees with its plain version (error/bound {ratio!r})")
@@ -298,12 +338,9 @@ def inside_cells(ck, vol, nbins, full_ny=None, full_nz=None, kx0=0, full_nx=None
 
 
 def path_powers(torch, fields):
-    from fava_tpu_torch.ops.spectra import rfft_power_volumes
+    from fava_tpu_torch.ops.spectra import kinetic_power_volumes
 
-    dens, *vels = fields
-    sq = torch.sqrt(dens)
-    ffts = [torch.fft.rfftn(sq * v, norm="forward") for v in vels]
-    return rfft_power_volumes(ffts, tuple(dens.shape))
+    return kinetic_power_volumes(fields[0], fields[1:])
 
 
 def phase_kernels(torch, fields):
@@ -455,6 +492,7 @@ def phase_main(torch, np, fields):
     say(f"phase 4 plain float64 path on the CPU: {time.perf_counter() - t0:.1f} s")
     errs = compare_flagship(np, out, ref, fields, "flagship_analysis", 4)
     floor = output_floors(fields)
+    ref_spectra = {k: v for k, v in ref.items() if k.startswith("spectra_")}
     del ref
 
     batch = flagship.make_example_field_batch(NSNAP, N)
@@ -473,7 +511,7 @@ def phase_main(torch, np, fields):
         if not d <= TOL_BIN:
             fail(f"series snapshot 0 {key} differs from the single step by {d!r}")
     say("phase 4 series snapshot 0 equals the single step (within the binning tolerance)")
-    return launches, errs, model, batch
+    return launches, errs, model, batch, ref_spectra
 
 
 # ---------------------------------------------------------------------------
@@ -1185,6 +1223,28 @@ def phase_chunk_kernel(torch, fields):
     return row
 
 
+def main_vs_fused_ms(torch, fields, reps=3):
+    """Phase 13 on the 1024^3 fields: phase 18's paths (a) (the main path's
+    spectra) and (b) (stacked cuFFT into B9), warm device ms per call
+    (CUDA events); counts equal and sums within TOL_SPECTRA of scale."""
+    from fava_tpu_torch.experiments import planar_dft
+    from fava_tpu_torch.ops.spectra import rfft_shell_sums
+
+    dens, *vels = fields
+    nbins = max(dens.shape) // 2 - 1
+    paths = {"a": lambda: rfft_shell_sums(dens, vels, nbins),
+             "b": lambda: planar_dft.rfft_shell_sums_fused(dens, vels, nbins)}
+    (ca, sa), (cb, sb) = (run() for run in paths.values())
+    err = float((sa - sb).abs().max() / sa.abs().max())
+    if not (torch.equal(ca, cb) and err <= TOL_SPECTRA):
+        fail(f"at 1024^3 path (b) disagrees with path (a): max|diff|/scale {err!r}")
+    del ca, sa, cb, sb
+    out = {f"{key}_ms": cuda_ms(torch, run, reps) for key, run in paths.items()}
+    out["b_vs_a"] = err
+    say(f"phase 13 spectra at 1024^3, (a) main path vs (b) stacked cuFFT -> B9: {out}")
+    return out
+
+
 def streamed_run(torch, np, ck, loader, n, what, phase, **kw):
     """One streamed_uniform_analysis with the counters reset before and
     checked after: B6 once per chunk, K5/K6 once per slab, no K1-K4."""
@@ -1227,6 +1287,7 @@ def phase_streamed(torch, np):
              "incore_1024_peak_allocated_GiB": torch.cuda.max_memory_allocated() / 2**30}
     ref = {k: v.cpu().numpy() for k, v in ref.items()}
     row = phase_chunk_kernel(torch, fields)
+    times["spectra_1024_ms"] = main_vs_fused_ms(torch, fields)
     del fields
     torch.cuda.empty_cache()
 
@@ -1415,6 +1476,215 @@ def phase_series(torch, np, workdir: Path):
     return totals, times
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the fused-spectrum path (B9, B11, B12)
+
+
+def fused_kernel_rows(torch, ck, fields, nbins):
+    """Phase 18's kernel checks: B9, B11a, B11b and B12 against their plain
+    versions at the path's shapes."""
+    from fava_tpu_torch.experiments import folded_bins, planar_dft
+
+    dens, *vels = fields
+    nx, ny, nz = (int(s) for s in dens.shape)
+    nzr = nz // 2 + 1
+    static = ck._static_counts((nx, ny, nzr), nbins, nz, dens.device)
+    rows = {}
+
+    def rel(got, ref):
+        err = (got - ref).abs()
+        return float(err.max()), float((err / (TOL_BIN * ref.abs()).clamp(min=1e-300)).max())
+
+    # B9 on the normalized stacked transforms, cuFFT's interleaved output read in place.
+    re, im = planar_dft.velocity_transforms(dens, vels)
+    counts, sums = ck.shell_bin_powers_fused(re, im, nbins, nz)
+    torch.cuda.synchronize()
+    ref = ck._powers_fused_plain(re.double(), im.double(), nbins, nz)
+    if not (torch.equal(counts, ref[0]) and torch.equal(counts, static)):
+        fail("shell_bin_powers_fused counts differ from the static counts")
+    inside = inside_cells(ck, re[0], nbins, full_nz=nz)
+    rows["shell_bin_powers_fused"] = kernel_row(
+        torch, 18, "shell_bin_powers_fused", *rel(sums[:2], ref[1:]), TOL_BIN,
+        lambda: ck.shell_bin_powers_fused(re, im, nbins, nz),
+        lambda: ck._powers_fused_plain(re, im, nbins, nz), (24 * inside + 24 * nbins, 60 * inside))
+    del re, im, ref
+    torch.cuda.empty_cache()
+
+    # B11a and B11b on pad8 folds of the path's powers, NaN in the pad rows.
+    total, longi = path_powers(torch, fields)
+    folds = ck.fold_quadrants_pair(total, longi)
+    del total, longi
+    padded = [folded_bins.pad_rows8(f, float("nan")) for f in folds]
+    ref = ck._onepass_plain(*(p.double() for p in padded), nbins, nx, ny, nz)
+    inside = inside_cells(ck, padded[0], nbins, full_ny=ny)
+    counts, sums = ck.shell_bin_sums_folded_onepass(*padded, nbins, nx, ny, nz)
+    torch.cuda.synchronize()
+    if not (torch.equal(counts, ref[0]) and torch.equal(counts, static)):
+        fail("shell_bin_sums_folded_onepass counts differ from the static counts")
+    say(f"phase 18 pad8 folds {tuple(padded[0].shape)} (rows {ny // 2 + 1}.. NaN): one-pass counts "
+        "equal to the static counts")
+    rows["shell_bin_sums_folded_onepass"] = kernel_row(
+        torch, 18, "shell_bin_sums_folded_onepass", *rel(sums[:2], ref[1:]), TOL_BIN,
+        lambda: ck.shell_bin_sums_folded_onepass(*padded, nbins, nx, ny, nz),
+        lambda: ck._onepass_plain(*padded, nbins, nx, ny, nz), (8 * inside + 24 * nbins, 8 * inside))
+    got = torch.stack(ck.shell_bin_values_folded_rows(*padded, nbins, nx, ny, nz))
+    k4 = ck.shell_bin_values_folded(*folds, nbins, ny, nz)
+    torch.cuda.synchronize()
+    k4_abs, k4_ratio = rel(got, k4)
+    say(f"phase 18 shell_bin_values_folded_rows vs K4 on the unpadded folds: max |diff| {k4_abs!r}, "
+        f"error/bound {k4_ratio!r} (bound {TOL_BIN!r})")
+    if not k4_ratio <= 1.0:
+        fail("shell_bin_values_folded_rows differs from K4's result")
+    rows["shell_bin_values_folded_rows"] = kernel_row(
+        torch, 18, "shell_bin_values_folded_rows", *rel(got, ref[1:]), TOL_BIN,
+        lambda: ck.shell_bin_values_folded_rows(*padded, nbins, nx, ny, nz),
+        lambda: ck._shell_bin_folded_plain(*padded, nbins, ny, nz), (8 * inside + 16 * nbins, 8 * inside))
+    del folds, padded, ref, got, k4
+    torch.cuda.empty_cache()
+
+    # B12 on sqrt(rho)*v_x against the float64 dense DFT; its library call is
+    # one cuFFT rfftn over the y and z axes.
+    x = torch.sqrt(dens) * vels[0]
+    got = ck.zy_rfft_planar(x)
+    torch.cuda.synchronize()
+    ref = ck._zy_rfft_plain(x.double())
+    scale = max(float(r.abs().max()) for r in ref)
+    max_abs = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref))
+    del got, ref
+    torch.cuda.empty_cache()
+    row = kernel_row(torch, 18, "zy_rfft_planar", max_abs, max_abs / (TOL_ZY * scale),
+                     f"{TOL_ZY!r} of the largest coefficient {scale!r}",
+                     lambda: ck.zy_rfft_planar(x), lambda: ck._zy_rfft_plain(x),
+                     (4 * x.numel() + 8 * nx * ny * nzr, zy_fft_ops(nx, ny, nz)))
+    row["library_ms"] = cuda_ms(torch, lambda: torch.fft.rfftn(x, dim=(1, 2)), 20)
+    rows["zy_rfft_planar"] = row
+    say(f"phase 18 zy_rfft_planar library call torch.fft.rfftn(x, dim=(1, 2)): {row['library_ms']!r} ms; "
+        "library_ms null for B9 and B11: no single PyTorch call bins powers by shell")
+    del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def fused_path_ms(torch, fields, nbins, reps=3):
+    """Median device ms over ``reps`` warm runs (CUDA events) of each
+    spectra path: the total of its entry function, and its two stages,
+    timed through the functions the entry composes: (a)
+    ops.spectra.rfft_shell_sums, (b) experiments.planar_dft.rfft_shell_sums_fused,
+    (c) planar_dft.rfft_shell_sums_fused_zy, (d) and (e)
+    experiments.folded_bins.rfft_shell_sums_folded."""
+    from fava_tpu_torch.experiments import folded_bins, planar_dft
+    from fava_tpu_torch.ops import cuda_kernels as ck
+    from fava_tpu_torch.ops import spectra
+
+    dens, *vels = fields
+    shape = tuple(int(s) for s in dens.shape)
+    nz = shape[2]
+
+    def powers_then(binning):
+        return lambda ffts: binning(*spectra.rfft_power_volumes(ffts, shape))
+
+    def b9(stacks):
+        return ck.shell_bin_powers_fused(*stacks, nbins, nz)
+
+    def folded(binning):
+        return (lambda: folded_bins.rfft_shell_sums_folded(dens, vels, nbins, binning),
+                lambda: spectra.kinetic_transforms(dens, vels),
+                powers_then(lambda t, lo: folded_bins.shell_sums_padded_fold(t, lo, nbins, nz, binning)))
+
+    paths = {
+        "a": ((lambda: spectra.rfft_shell_sums(dens, vels, nbins),
+               lambda: spectra.kinetic_transforms(dens, vels),
+               powers_then(lambda t, lo: ck.shell_bin_sums_rfft(t, lo, nbins, nz))), "powers_K3_K4"),
+        "b": ((lambda: planar_dft.rfft_shell_sums_fused(dens, vels, nbins),
+               lambda: planar_dft.velocity_transforms(dens, vels), b9), "B9"),
+        "c": ((lambda: planar_dft.rfft_shell_sums_fused_zy(dens, vels, nbins),
+               lambda: planar_dft.velocity_transforms_fused_zy(dens, vels), b9), "B9"),
+        "d": (folded("onepass"), "powers_K3_pad_B11a"),
+        "e": (folded("rows"), "powers_K3_pad_B11b"),
+    }
+    out = {}
+    for key, ((entry, transforms, binning), bin_name) in paths.items():
+        samples = []
+        for _ in range(reps + 1):  # the first run warms up
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            entry()
+            ev[1].record()
+            spec = transforms()
+            ev[2].record()
+            binning(spec)
+            ev[3].record()
+            torch.cuda.synchronize()
+            del spec
+            samples.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        t = [statistics.median(s[i] for s in samples[1:]) for i in range(3)]
+        out[key] = {"total_ms": t[0], "transforms_ms": t[1], f"{bin_name}_ms": t[2]}
+    return out
+
+
+def phase_fused(torch, np, fields, ref_spectra):
+    """Phase 18 on phase 3's 512^3 fields: the four kernels against their
+    plain versions, then the spectra five ways with counters, held to
+    each other and to phase 4's float64 CPU path; stage times."""
+    from fava_tpu_torch.experiments import folded_bins, planar_dft
+    from fava_tpu_torch.ops import cuda_kernels as ck
+    from fava_tpu_torch.ops.spectra import rfft_shell_sums
+
+    dens, *vels = fields
+    nx, ny, nz = (int(s) for s in dens.shape)
+    nbins = max(nx, ny, nz) // 2 - 1
+    rows = fused_kernel_rows(torch, ck, fields, nbins)
+    fold_then = {"fold_quadrants_pair": 1}
+
+    runs = {
+        "(a) cuFFT, powers, K3, K4": (lambda: rfft_shell_sums(dens, vels, nbins),
+                                      {"fold_quadrants_pair": 1, "shell_bin_values_folded": 1}),
+        "(b) stacked cuFFT, B9": (lambda: planar_dft.rfft_shell_sums_fused(dens, vels, nbins),
+                                  {"shell_bin_powers_fused": 1}),
+        "(c) B12 and cuFFT along x, B9": (
+            lambda: planar_dft.rfft_shell_sums_fused_zy(dens, vels, nbins),
+            {"zy_rfft_planar": 3, "shell_bin_powers_fused": 1}),
+        "(d) cuFFT, powers, K3, pad8, B11a": (
+            lambda: folded_bins.rfft_shell_sums_folded(dens, vels, nbins, "onepass"),
+            {**fold_then, "shell_bin_sums_folded_onepass": 1}),
+        "(e) cuFFT, powers, K3, pad8, B11b": (
+            lambda: folded_bins.rfft_shell_sums_folded(dens, vels, nbins, "rows"),
+            {**fold_then, "shell_bin_values_folded": 1}),
+    }
+    totals, spectra = {}, {}
+    for what, (fn, expect) in runs.items():
+        (counts, sums), launches = counted(torch, ck, what, fn, tuple(expect), 18)
+        if {k: v for k, v in launches.items() if v} != expect:
+            fail(f"{what} launched {launches}, expected exactly {expect}")
+        add_counts(totals, launches)
+        if what.startswith("(e)"):  # B11b is K4's kernel: its row counts K4's launches in (e)
+            totals["shell_bin_values_folded_rows"] = launches["shell_bin_values_folded"]
+        spectra[what] = {"spectra_counts": counts.cpu().numpy(), "spectra_total": sums[0].cpu().numpy(),
+                         "spectra_longitudinal": sums[1].cpu().numpy(),
+                         "spectra_transverse": sums[2].cpu().numpy()}
+    if not all(np.array_equal(s["spectra_counts"], np.asarray(ref_spectra["spectra_counts"]))
+               for s in spectra.values()):
+        fail("the spectra paths' counts differ from the float64 path's")
+    say(f"phase 18 counts of the {len(spectra)} paths: equal to the float64 path's")
+    # Against (a): (b) differs by float32 vs float64 powers, (c) also by B12,
+    # (d) and (e) only by the order of the same float64 sums.
+    bounds = {"a": TOL_SPECTRA, "b": TOL_SPECTRA, "c": TOL_ZY_PATH, "d": TOL_BIN, "e": TOL_BIN}
+    a_key = next(iter(spectra))
+    no_counts = {k: v for k, v in spectra[a_key].items() if k != "spectra_counts"}
+    ref = {k: v for k, v in ref_spectra.items() if k != "spectra_counts"}
+    floor, errs = {}, {}
+    for key, out in spectra.items():
+        p = key[1]
+        if p != "a":
+            errs[f"{p}_vs_a"] = compare_flagship(np, out, no_counts, floor, f"{key} vs {a_key}", 18,
+                                                 bound_of=lambda k, b=bounds[p]: b)
+        errs[f"{p}_vs_float64"] = compare_flagship(
+            np, out, ref, floor, f"{key} vs float64", 18,
+            bound_of=lambda k, b=max(bounds[p], TOL_SPECTRA): b)
+    times = {"stages_ms": fused_path_ms(torch, fields, nbins), "errors": errs}
+    return rows, totals, times
+
+
 def main() -> None:
     sys.path.insert(0, str(HERE))
     try:
@@ -1440,9 +1710,15 @@ def main() -> None:
     timing.VERBOSE = False
     fields = flagship.make_example_fields(N)
     rows = phase_kernels(torch, fields)
-    launches, _errs, model, batch = phase_main(torch, np, fields)
+    launches, _errs, model, batch, ref_spectra = phase_main(torch, np, fields)
     phase_timings(torch, fields, model, batch, card)
-    del fields, model, batch
+    del model, batch
+    torch.cuda.empty_cache()
+    fused_rows, fused_launches, fused_times = phase_fused(torch, np, fields, ref_spectra)
+    rows.update(fused_rows)
+    add_counts(launches, fused_launches)
+    say(f"phase 18 fused-spectrum timings: {json.dumps({'card': card, **fused_times})}")
+    del fields, ref_spectra
     torch.cuda.empty_cache()
 
     rows["shell_bin_values_rfft_chunk"], stream_launches, stream_times = phase_streamed(torch, np)

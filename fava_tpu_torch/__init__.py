@@ -8,8 +8,10 @@ profiles, and the regrid of a window onto a uniform file
 (``mesh.from_amr``); and the spectrum and histogram analyses of pipeline
 stage 4 on both meshes (KE and scalar spectra, pdf1d/pdf2d,
 density_pdf, binned_statistic, mass and volume sums), with results
-written by ``Model.save_to_hdf5``. The kernels are hand-written CUDA
-(``ops/cuda_kernels.py``). Every public entry takes ``device=``
+written by ``Model.save_to_hdf5``; and fava_tpu's fused-spectrum path
+(``experiments/``: the spectra straight from the transforms, the fused
+z+y transform, the padded-fold binnings). The kernels are hand-written
+CUDA (``ops/cuda_kernels.py``). Every public entry takes ``device=``
 ("cuda" by default); asking for CUDA where there is none raises. This
 package imports neither jax nor fava_tpu.
 """

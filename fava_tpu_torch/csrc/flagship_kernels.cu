@@ -1,7 +1,8 @@
 // Hopper (sm_90a) kernels of the flagship analysis step.
 //
-// Four kernels (K4 in a one- and a two-channel form), each the counterpart
-// of one Pallas kernel of fava_tpu/ops/pallas_kernels.py. Plain C entry
+// Four kernels (K4 in a one- and a two-channel form, and with a count
+// channel as B11a), each the counterpart of one Pallas kernel of
+// fava_tpu/ops/pallas_kernels.py. Plain C entry
 // points (bound with ctypes by fava_tpu_torch/ops/_build.py); each launches
 // on the caller's stream, allocates nothing, and returns cudaGetLastError()
 // of its launch. The
@@ -169,14 +170,26 @@ __global__ void fold_pair_kernel(const float* __restrict__ t, const float* __res
 // tails beyond the last shell are skipped without reading them. The
 // single-channel variant is the same kernel without the second channel's
 // loads, scan and atomics.
+//
+// The one-pass folded binning B11a, replacing _shell_kernel_folded
+// (pallas_kernels.py:758), is this kernel with kCounts: a leading count
+// channel of weight mx * my * wz (the unfold multiplicities of the row's x
+// and y indices, from full_nx and full_ny) beside the two value channels;
+// out is then [counts, total, longi]. Its counts equal the static
+// _folded_counts exactly (integer weights summed in f64). B11b, replacing
+// the row-chunked _shell_kernel_folded_v2 (:851), is K4's values-only launch
+// on a fold with rows >= ny/2+1 (fava_tpu pads them to a multiple of 8):
+// rows past ny/2 are skipped unread, whatever they hold.
 
-template <int C>
+template <int C, bool kCounts>
 __global__ void __launch_bounds__(kBinThreads)
 shell_bin_folded_kernel(const float* __restrict__ t, const float* __restrict__ l,
                         double* __restrict__ out, int nxh, int rows, int nzr, int nbins,
-                        int full_ny, int full_nz) {
-  extern __shared__ double hist[];  // [C][nbins]
-  fava::zero_hist(hist, C * nbins);
+                        int full_nx, int full_ny, int full_nz) {
+  constexpr int kOff = kCounts ? 1 : 0;  // value channels follow the count channel
+  constexpr int kOut = C + kOff;
+  extern __shared__ double hist[];  // [kOut][nbins]
+  fava::zero_hist(hist, kOut * nbins);
 
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
@@ -192,39 +205,43 @@ shell_bin_folded_kernel(const float* __restrict__ t, const float* __restrict__ l
     if (j > ny_half) continue;  // fold padding rows bin nothing (warp-uniform)
     const int ij2 = i * i + j * j;
     const int64_t off = row * nzr;
+    double mxy = 0.0;
+    if constexpr (kCounts) mxy = fava::hermitian_mult(i, full_nx) * fava::hermitian_mult(j, full_ny);
     for (int z0 = 0; z0 < nzr; z0 += 32) {
       // Warp-uniform: k grows with z, so every later cell is out of range.
       if (sqrtf((float)(ij2 + z0 * z0)) > kmax) break;
       const int z = z0 + lane;
       int shell = nbins;  // sentinel: bins nothing, sorts after every shell
-      double v[C] = {};
+      double v[kOut] = {};
       if (z < nzr) {
         const float k = sqrtf((float)(ij2 + z * z));
         if (k <= kmax) {
           shell = min((int)floorf(k + 0.5f), nbins - 1);
           const double wz = (z == 0 || z == z_nyq) ? 1.0 : 2.0;
-          v[0] = wz * (double)t[off + z];
-          if constexpr (C == 2) v[1] = wz * (double)l[off + z];
+          if constexpr (kCounts) v[0] = wz * mxy;
+          v[kOff] = wz * (double)t[off + z];
+          if constexpr (C == 2) v[kOff + 1] = wz * (double)l[off + z];
         }
       }
-      fava::warp_bin_add<C>(shell, v, hist, nbins, lane);
+      fava::warp_bin_add<kOut>(shell, v, hist, nbins, lane);
     }
   }
-  fava::flush_hist(hist, out, C * nbins);
+  fava::flush_hist(hist, out, kOut * nbins);
 }
 
-template <int C>
+template <int C, bool kCounts>
 int launch_shell_bin_folded(const float* t, const float* l, double* out, int nxh, int rows,
-                            int nzr, int nbins, int full_ny, int full_nz, int blocks,
-                            cudaStream_t stream) {
-  const size_t smem = C * (size_t)nbins * sizeof(double);
+                            int nzr, int nbins, int full_nx, int full_ny, int full_nz,
+                            int blocks, cudaStream_t stream) {
+  const size_t smem = (C + (kCounts ? 1 : 0)) * (size_t)nbins * sizeof(double);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        shell_bin_folded_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(shell_bin_folded_kernel<C, kCounts>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  shell_bin_folded_kernel<C><<<blocks, kBinThreads, smem, stream>>>(t, l, out, nxh, rows, nzr,
-                                                                    nbins, full_ny, full_nz);
+  shell_bin_folded_kernel<C, kCounts><<<blocks, kBinThreads, smem, stream>>>(
+      t, l, out, nxh, rows, nzr, nbins, full_nx, full_ny, full_nz);
   return launch_status();
 }
 
@@ -271,10 +288,22 @@ int fava_shell_bin_values_folded(const void* t, const void* l, void* out, int nx
   double* o = (double*)out;
   cudaStream_t st = (cudaStream_t)stream;
   if (channels == 1)
-    return launch_shell_bin_folded<1>(tf, lf, o, nxh, rows, nzr, nbins, full_ny, full_nz, blocks, st);
+    return launch_shell_bin_folded<1, false>(tf, lf, o, nxh, rows, nzr, nbins, 0, full_ny, full_nz,
+                                             blocks, st);
   if (channels == 2)
-    return launch_shell_bin_folded<2>(tf, lf, o, nxh, rows, nzr, nbins, full_ny, full_nz, blocks, st);
+    return launch_shell_bin_folded<2, false>(tf, lf, o, nxh, rows, nzr, nbins, 0, full_ny, full_nz,
+                                             blocks, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// B11a: out is (3, nbins) [counts, total, longi].
+int fava_shell_bin_sums_folded_onepass(const void* t, const void* l, void* out, int nxh, int rows,
+                                       int nzr, int nbins, int full_nx, int full_ny, int full_nz,
+                                       int blocks, void* stream) {
+  (void)cudaGetLastError();
+  return launch_shell_bin_folded<2, true>((const float*)t, (const float*)l, (double*)out, nxh,
+                                          rows, nzr, nbins, full_nx, full_ny, full_nz, blocks,
+                                          (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // Shell-binning building blocks shared by the folded binning kernel (K4 in
-// flagship_kernels.cu) and the unfolded one (B10 in spectra_kernels.cu): a
-// warp adds 32 consecutive cells of one row to a block's shared-memory
-// histogram of C channels, and the block adds its histogram to the output.
+// flagship_kernels.cu), the unfolded one (B10 in spectra_kernels.cu) and the
+// fused powers binning (B9 in fused_spectra_kernels.cu): a warp adds 32
+// consecutive cells of one row to a block's shared-memory histogram of C
+// channels, and the block adds its histogram to the output.
 
 #pragma once
 
@@ -10,6 +11,12 @@
 #include "row_moments.cuh"
 
 namespace fava {
+
+// Unfold multiplicity of index idx of a folded axis of extent n: 1 for the
+// self-conjugate indices (0 and, for even n, n/2), 2 for the others.
+__device__ __forceinline__ double hermitian_mult(int idx, int n) {
+  return (idx == 0 || (n % 2 == 0 && 2 * idx == n)) ? 1.0 : 2.0;
+}
 
 // Adds v[c] of every lane to hist[c * nbins + shell]; lanes with shell ==
 // nbins add nothing. Along the 32 lanes the shell must never decrease (the

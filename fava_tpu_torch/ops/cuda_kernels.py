@@ -1,13 +1,14 @@
 """Hand-written CUDA kernels, with their plain twins.
 
 Counterpart of the Pallas kernels of fava_tpu on the flagship, AMR,
-stage-4 and out-of-core paths (sources and design notes in
-``fava_tpu_torch/csrc/``: ``flagship_kernels.cu`` for K1-K4,
-``amr_kernels.cu`` for K5-K7, ``spectra_kernels.cu`` for B10 and B6 and
-``pdf2d_kernels.cu`` for B8):
+stage-4, out-of-core and fused-spectrum paths (sources and design notes
+in ``fava_tpu_torch/csrc/``: ``flagship_kernels.cu`` for K1-K4 and B11,
+``amr_kernels.cu`` for K5-K7, ``spectra_kernels.cu`` for B10 and B6,
+``pdf2d_kernels.cu`` for B8, ``fused_spectra_kernels.cu`` for B9 and
+``dft_kernels.cu`` for B12):
 
 ================================  ==============================================
-wrapper                           replaces (fava_tpu/ops/)
+wrapper                           replaces (fava_tpu/ops/, fava_tpu/experiments/)
 ================================  ==============================================
 ``row_moments_volume``            ``pallas_kernels.py:_moments_kernel`` (:95)
 ``centered_row_moments``          ``pallas_kernels.py:_centered_kernel`` (:200)
@@ -21,15 +22,22 @@ wrapper                           replaces (fava_tpu/ops/)
 ``regrid_fields``                 ``pallas_regrid.py:_regrid_kernel`` (:78)
 ``pdf2d_counts`` (unweighted)     ``pallas_pdf2d.py:_pdf2d_kernel`` (:75)
 ``pdf2d_counts`` (weighted)       ``pallas_pdf2d.py:_pdf2d_weighted_kernel`` (:91)
+``shell_bin_powers_fused``        ``pallas_kernels.py:_powers_fold_bin_kernel`` (:1539)
+``shell_bin_sums_folded_onepass`` ``pallas_kernels.py:_shell_kernel_folded`` (:758)
+``shell_bin_values_folded_rows``  ``pallas_kernels.py:_shell_kernel_folded_v2`` (:851)
+``zy_rfft_planar``                ``pallas_dft.py:_zy_rfft_kernel`` (:53)
 ================================  ==============================================
 
-Every wrapper takes the plain PyTorch version of its function (the
+``shell_bin_values_folded_rows`` is an alias of
+``shell_bin_values_folded`` (K4's kernel serves both Pallas kernels); it
+counts as K4. Every wrapper takes the plain PyTorch version of its function (the
 ``_*_plain`` functions below) only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises; any other device raises.
 Kernels take float32 volumes and produce float64 sums (the regrid
-copies float32 values; the joint histogram counts in int64). A
-successful launch adds one to the kernel's count in ``launch_counts()``
-(the two pdf2d variants count as ``pdf2d_counts`` and ``pdf2d_weighted``).
+copies float32 values; the joint histogram counts in int64; the fused
+z+y transform writes float32). A successful launch adds one to the
+kernel's count in ``launch_counts()`` (the two pdf2d variants count as
+``pdf2d_counts`` and ``pdf2d_weighted``).
 """
 
 from __future__ import annotations
@@ -41,8 +49,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from fava_tpu_torch.ops import _build
-from fava_tpu_torch.utils import accum_dtype
+from fava_tpu_torch.ops import _build, dft
+from fava_tpu_torch.utils import accum_dtype, resolve_device
 
 NMOM = 13  # raw row moments
 NCEN = 9  # 6 centered covariances + 3 centered first moments
@@ -62,6 +70,9 @@ KERNELS = (
     "pdf2d_counts",
     "pdf2d_weighted",
     "shell_bin_values_rfft_chunk",
+    "shell_bin_powers_fused",
+    "shell_bin_sums_folded_onepass",
+    "zy_rfft_planar",
 )
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -421,8 +432,7 @@ def shell_bin_sums_rfft(total, longi, nbins: int, full_nz: int):
         sums2 = shell_bin_values_folded(ft, fl, int(nbins), int(total.shape[1]), full_nz)
     else:
         sums2 = shell_bin_sums_unfolded(total, longi, int(nbins), full_nz)
-    counts = _static_counts(total.shape, nbins, full_nz, sums2.device)
-    return counts, torch.stack([sums2[0], sums2[1], sums2[0] - sums2[1]])
+    return _with_transverse(_static_counts(total.shape, nbins, full_nz, sums2.device), sums2)
 
 
 def shell_bin_sums_rfft_scalar(p, nbins: int, full_nz: int):
@@ -536,12 +546,12 @@ def shell_bin_values_rfft_chunk(total, longi, nbins: int, full_nx: int, full_nz:
     return torch.stack([sums2[0], sums2[1], sums2[0] - sums2[1]])
 
 
-def rfft_shell_counts(full_shape: Tuple[int, int, int], nbins: int, device="cpu") -> torch.Tensor:
+def rfft_shell_counts(full_shape: Tuple[int, int, int], nbins: int, device="cuda") -> torch.Tensor:
     """Static Hermitian shell counts of a whole volume's rfft
     half-spectrum, on ``device``: what the chunks' counts add up to
     (fava_tpu/ops/pallas_kernels.py:1504)."""
     nx, ny, nz = (int(s) for s in full_shape)
-    return _static_counts((nx, ny, nz // 2 + 1), nbins, nz, device)
+    return _static_counts((nx, ny, nz // 2 + 1), nbins, nz, resolve_device(device))
 
 
 @lru_cache(maxsize=16)
@@ -563,6 +573,209 @@ def shell_bin_sums_rfft_chunk(total, longi, nbins: int, full_nx: int, full_nz: i
     rows, ny, _ = (int(s) for s in total.shape)
     counts = _chunk_counts(rows, ny, int(nbins), int(full_nx), int(full_nz), int(kx0))
     return torch.tensor(counts, dtype=accum_dtype(), device=total.device), sums
+
+
+def _with_transverse(counts, sums2):
+    """(counts, sums[3]): [total, longitudinal, transverse = total - longitudinal]."""
+    return counts, torch.stack([sums2[0], sums2[1], sums2[0] - sums2[1]])
+
+
+# ---------------------------------------------------------------------------
+# B11: the one-pass folded binning with counts (fava_tpu's v1) and the
+# row-chunked values-only one (v2), on folds with any row count >= ny/2+1
+
+
+def _check_fold(name: str, total, longi, nbins: int, full_nx: int, full_ny: int, full_nz: int):
+    """(nxh, rows, nzr) of two folds of a (full_nx, full_ny, full_nz) volume."""
+    if total.ndim != 3 or longi.shape != total.shape or nbins < 1:
+        raise ValueError(f"{name}: two same-shaped 3D volumes and nbins >= 1 required")
+    nxh, rows, nzr = (int(s) for s in total.shape)
+    if nxh != full_nx // 2 + 1 or nzr != full_nz // 2 + 1 or rows < full_ny // 2 + 1:
+        raise ValueError(
+            f"{name}: the fold of a ({full_nx}, {full_ny}, {full_nz}) volume is ({full_nx // 2 + 1}, "
+            f">= {full_ny // 2 + 1}, {full_nz // 2 + 1}), got {tuple(total.shape)}"
+        )
+    return nxh, rows, nzr
+
+
+def _onepass_plain(total, longi, nbins: int, full_nx: int, full_ny: int, full_nz: int):
+    """(3, nbins) [counts, total, longi]: the static counts and K4's plain
+    sums; rows past full_ny/2 bin nothing."""
+    counts = _folded_counts(tuple(total.shape), nbins, full_nx, full_ny, full_nz,
+                            str(total.device))
+    counts = torch.tensor(counts, dtype=accum_dtype(), device=total.device)
+    return torch.cat([counts[None], _shell_bin_folded_plain(total, longi, nbins, full_ny, full_nz)])
+
+
+def shell_bin_sums_folded_onepass(total, longi, nbins: int, full_nx: int, full_ny: int,
+                                  full_nz: int):
+    """(counts, sums[3]) of folded total and longitudinal power volumes
+    (nx//2+1, rows >= ny//2+1, nz//2+1) with the counts accumulated in the
+    kernel (weight mx*my*wz): fava_tpu's one-pass folded binning
+    (pallas_kernels.py:811). Rows past ny/2 (fava_tpu pads the fold to a
+    multiple of 8) bin nothing, whatever they hold."""
+    name = "shell_bin_sums_folded_onepass"
+    nbins, full_nx, full_ny, full_nz = (int(a) for a in (nbins, full_nx, full_ny, full_nz))
+    nxh, rows, nzr = _check_fold(name, total, longi, nbins, full_nx, full_ny, full_nz)
+    if _device_kind(name, total, longi) == "cpu":
+        out = _onepass_plain(total, longi, nbins, full_nx, full_ny, full_nz)
+    else:
+        _check_cuda(name, total, longi)
+        out = torch.zeros((3, nbins), dtype=torch.float64, device=total.device)
+        _launch(
+            name, total.device, _build.library().fava_shell_bin_sums_folded_onepass,
+            total.data_ptr(), longi.data_ptr(), out.data_ptr(), nxh, rows, nzr, nbins, full_nx,
+            full_ny, full_nz, _bin_blocks(nxh * rows, total.device),
+        )
+    return _with_transverse(out[0], out[1:])
+
+
+def shell_bin_values_folded_rows(total, longi, nbins: int, full_nx: int, full_ny: int,
+                                 full_nz: int):
+    """(t_sum, l_sum): the values-only Hermitian shell sums of folded power
+    volumes with any row count >= ny//2+1 (fava_tpu's row-chunked binning,
+    pallas_kernels.py:1140). An alias of ``shell_bin_values_folded`` that
+    checks the fold's shape: K4's kernel skips the rows past ny/2 unread,
+    and its launch counts as K4's. Counts are the static ``_folded_counts``."""
+    nbins, full_nx, full_ny, full_nz = (int(a) for a in (nbins, full_nx, full_ny, full_nz))
+    _check_fold("shell_bin_values_folded_rows", total, longi, nbins, full_nx, full_ny, full_nz)
+    sums = shell_bin_values_folded(total, longi, nbins, full_ny, full_nz)
+    return sums[0], sums[1]
+
+
+# ---------------------------------------------------------------------------
+# B9: powers, fold and shell binning straight from the stacked transforms
+
+
+def _dense_strides(shape) -> Tuple[int, ...]:
+    strides, step = [], 1
+    for n in reversed(shape):
+        strides.append(step)
+        step *= int(n)
+    return tuple(reversed(strides))
+
+
+def _stack_layout(name: str, re_stack, im_stack) -> int:
+    """1 when re/im are the two halves of ``torch.view_as_real`` of one
+    contiguous complex64 stack (read in place), 0 for two contiguous
+    planar float32 stacks; raises for anything else."""
+    for t in (re_stack, im_stack):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the CUDA kernel takes torch.float32, got {t.dtype}")
+    if re_stack.is_contiguous() and im_stack.is_contiguous():
+        return 0
+    halves = tuple(2 * s for s in _dense_strides(re_stack.shape))
+    if (re_stack.stride() == halves and im_stack.stride() == halves
+            and im_stack.data_ptr() == re_stack.data_ptr() + 4 and re_stack.data_ptr() % 8 == 0):
+        return 1
+    raise ValueError(
+        f"{name}: the CUDA kernel takes contiguous planar stacks or the two halves of "
+        "torch.view_as_real of one contiguous complex64 stack"
+    )
+
+
+def _powers_fused_plain(re_stack, im_stack, nbins: int, full_nz: int) -> torch.Tensor:
+    """(3, nbins) [counts, total, longi] of the plain path: the power
+    volumes (ops/spectra.py), K3's fold and K4's binning, in float64."""
+    from fava_tpu_torch.ops.spectra import rfft_power_volumes
+
+    _, nx, ny, nzr = (int(s) for s in re_stack.shape)
+    adt = accum_dtype()
+    ffts = [torch.complex(re_stack[c].to(adt), im_stack[c].to(adt)) for c in range(3)]
+    total, longi = rfft_power_volumes(ffts, (nx, ny, full_nz))
+    del ffts
+    sums2 = _shell_bin_folded_plain(_fold_plain(total), _fold_plain(longi), nbins, ny, full_nz)
+    counts = _static_counts((nx, ny, nzr), nbins, full_nz, re_stack.device)
+    return torch.cat([counts[None], sums2])
+
+
+def shell_bin_powers_fused(re_stack, im_stack, nbins: int, full_nz: int):
+    """(counts, sums[3]) straight from the stacked rfft half-spectra of the
+    three velocity components (fava_tpu/ops/pallas_kernels.py:1697):
+    ``re_stack``/``im_stack`` are (3, nx, ny, nz//2+1), already normalized
+    (1/ntot), with even nx and ny. The powers (with the Nyquist split),
+    the +-kx/+-ky fold and the Hermitian shell binning in one pass; the
+    power volumes are never formed. sums = [total, longitudinal,
+    transverse = total - longitudinal]. On CUDA the stacks are float32,
+    contiguous planar or the two ``torch.view_as_real`` halves of one
+    contiguous complex64 stack (cuFFT's output, read in place); counts
+    come from the kernel and equal the static counts."""
+    name = "shell_bin_powers_fused"
+    if re_stack.ndim != 4 or re_stack.shape[0] != 3 or im_stack.shape != re_stack.shape:
+        raise ValueError(f"{name}: two (3, nx, ny, nzr) stacks required")
+    _, nx, ny, nzr = (int(s) for s in re_stack.shape)
+    nbins, full_nz = int(nbins), int(full_nz)
+    if nx % 2 or ny % 2:
+        raise ValueError(f"{name}: even x and y extents only, got ({nx}, {ny})")
+    if nzr != full_nz // 2 + 1 or nbins < 1:
+        raise ValueError(f"{name}: z extent {nzr} is not {full_nz // 2 + 1}, or nbins < 1")
+    if _device_kind(name, re_stack, im_stack) == "cpu":
+        out = _powers_fused_plain(re_stack, im_stack, nbins, full_nz)
+    else:
+        interleaved = _stack_layout(name, re_stack, im_stack)
+        out = torch.zeros((3, nbins), dtype=torch.float64, device=re_stack.device)
+        _launch(
+            name, re_stack.device, _build.library().fava_shell_bin_powers_fused,
+            re_stack.data_ptr(), None if interleaved else im_stack.data_ptr(), out.data_ptr(), nx,
+            ny, nzr, nbins, full_nz, interleaved,
+            _bin_blocks((nx // 2 + 1) * (ny // 2 + 1), re_stack.device),
+        )
+    return _with_transverse(out[0], out[1:])
+
+
+# ---------------------------------------------------------------------------
+# B12: the fused z-rfft + y-DFT of a real volume (dense DFT products)
+
+ZY_MAX_EXTENT = 1024  # largest y and z extent of the kernel (kMaxExtent, csrc/dft_kernels.cu)
+ZY_MAX_SLABS = 65535  # largest x extent (the launch grid's y extent)
+
+
+def zy_rfft_fits(shape) -> bool:
+    """Whether the B12 kernel takes a real volume of this shape: 3D, x
+    extent 1..65535, y and z extents 1..1024, any parity. The limit is a
+    block's shared memory, which holds a 16-column tile of the slab's
+    intermediate (ny x 16 complex), a chunk of the slab and the twiddle
+    tables: ~165 KB of the 227 KB at ny = nz = 1024."""
+    if len(shape) != 3:
+        return False
+    nx, ny, nz = (int(s) for s in shape)
+    return 1 <= nx <= ZY_MAX_SLABS and 1 <= ny <= ZY_MAX_EXTENT and 1 <= nz <= ZY_MAX_EXTENT
+
+
+def _zy_rfft_plain(x: torch.Tensor):
+    """(re, im) of the dense z-rfft then y-DFT of every x slab, in x's
+    dtype: ops/dft.py's matrices as matmuls (fava_tpu's contraction)."""
+    nx, ny, nz = (int(s) for s in x.shape)
+    name = str(x.dtype).split(".")[-1]
+    czr, czi = (torch.tensor(m, device=x.device) for m in dft._rdft_mats(nz, name))
+    wy = torch.tensor(dft._dft_mat(ny, name), device=x.device)
+    wr, wi = wy.real.contiguous(), wy.imag.contiguous()
+    zr, zi = x @ czr, x @ czi
+    return wr @ zr - wi @ zi, wr @ zi + wi @ zr
+
+
+def zy_rfft_planar(x: torch.Tensor):
+    """(re, im), each (nx, ny, nz//2+1): the rfft along z then the DFT
+    along y of a real (nx, ny, nz) volume, unnormalized, planar
+    (fava_tpu/experiments/pallas_dft.py:92). On CUDA: float32, contiguous,
+    within ``zy_rfft_fits``; the plain matmuls on the CPU."""
+    name = "zy_rfft_planar"
+    if x.ndim != 3:
+        raise ValueError(f"{name}: a 3D volume required, got {tuple(x.shape)}")
+    if _device_kind(name, x) == "cpu":
+        return _zy_rfft_plain(x)
+    _check_cuda(name, x)
+    if not zy_rfft_fits(x.shape):
+        raise ValueError(
+            f"{name}: the CUDA kernel takes x extents 1..{ZY_MAX_SLABS} and y, z extents "
+            f"1..{ZY_MAX_EXTENT}, got {tuple(x.shape)}"
+        )
+    nx, ny, nz = (int(s) for s in x.shape)
+    re = torch.empty((nx, ny, nz // 2 + 1), dtype=torch.float32, device=x.device)
+    im = torch.empty_like(re)
+    _launch(name, x.device, _build.library().fava_zy_rfft, x.data_ptr(), re.data_ptr(),
+            im.data_ptr(), nx, ny, nz)
+    return re, im
 
 
 # ---------------------------------------------------------------------------

@@ -98,17 +98,24 @@ def rfft_power_volumes(
     return total.contiguous(), longi.contiguous()
 
 
+def kinetic_transforms(dens, vels):
+    """The three normalized real transforms of sqrt(rho)*v of a 3D volume."""
+    sqrt_d = torch.sqrt(dens)
+    return [torch.fft.rfftn(sqrt_d * v, norm="forward") for v in vels]
+
+
+def kinetic_power_volumes(dens, vels) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(total, longi) rfft power volumes of sqrt(rho)*v of a 3D volume:
+    ``kinetic_transforms``, then ``rfft_power_volumes``."""
+    return rfft_power_volumes(kinetic_transforms(dens, vels), tuple(int(s) for s in dens.shape))
+
+
 def rfft_shell_sums(dens, vels, nbins: int):
     """(counts, sums[3]) of the kinetic-energy power of sqrt(rho)*v of a
     3D volume, shell-binned: three real transforms, the power volumes,
     then the Hermitian binning (even x and y: fold + K4; else B10)."""
-    nx, ny, nz = (int(s) for s in dens.shape)
-    sqrt_d = torch.sqrt(dens)
-    ffts = [torch.fft.rfftn(sqrt_d * v, norm="forward") for v in vels]
-    del sqrt_d
-    total, longi = rfft_power_volumes(ffts, (nx, ny, nz))
-    del ffts
-    return cuda_kernels.shell_bin_sums_rfft(total, longi, nbins, nz)
+    total, longi = kinetic_power_volumes(dens, vels)
+    return cuda_kernels.shell_bin_sums_rfft(total, longi, nbins, int(dens.shape[2]))
 
 
 def _wavenumber_grid(shape: Tuple[int, ...], dtype, device):

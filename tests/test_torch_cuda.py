@@ -11,7 +11,12 @@ order); fold rtol 4e-7 (<= 3 float32 roundings of <= 4 positive terms);
 shell sums rtol 1e-10 (f64 sums, atomics in run-dependent order), the
 chunk binning (B6) at kx0 = 0 equal to B10's up to that rounding;
 regrid exact (values are copied); joint-histogram counts exact, weighted
-sums rtol 1e-12 (f64 atomics in run-dependent order).
+sums rtol 1e-12 (f64 atomics in run-dependent order). The fused powers
+binning (B9) and the one-pass folded binning (B11a): counts from the
+kernel exact, sums rtol 1e-10 (f64 powers and sums in another order);
+the fused z+y transform (B12): max |diff| within 1e-5 of the largest
+coefficient of the float64 dense DFT (f32 products summed in a fixed
+order).
 """
 
 import numpy as np
@@ -99,6 +104,26 @@ def test_kernel_matches_plain(cuda_device, kernel):
         torch.cuda.synchronize()
         ref = ck._shell_bin_unfolded_plain(*(a.double() for a in odd), nbins, SHAPE[2])
         torch.testing.assert_close(got, ref, rtol=1e-10, atol=0)
+    elif kernel == "shell_bin_powers_fused":
+        r = torch.view_as_real(torch.fft.rfftn(torch.stack(f[1:]), dim=(1, 2, 3), norm="forward"))
+        nbins = max(SHAPE) // 2 - 1
+        counts, sums = ck.shell_bin_powers_fused(r[..., 0], r[..., 1], nbins, SHAPE[2])
+        torch.cuda.synchronize()
+        ref = ck._powers_fused_plain(r[..., 0].double(), r[..., 1].double(), nbins, SHAPE[2])
+        assert torch.equal(counts, ref[0])
+        torch.testing.assert_close(sums[:2], ref[1:], rtol=1e-10, atol=0)
+    elif kernel == "shell_bin_sums_folded_onepass":
+        folded = _padded_folds([a.abs()[:, :, : SHAPE[2] // 2 + 1] for a in f[:2]], SHAPE[1])
+        nbins = max(SHAPE) // 2 - 1
+        ref = ck._onepass_plain(*(a.double() for a in folded), nbins, *SHAPE)
+        counts, sums = ck.shell_bin_sums_folded_onepass(*folded, nbins, *SHAPE)
+        torch.cuda.synchronize()
+        assert torch.equal(counts, ref[0])
+        torch.testing.assert_close(sums[:2], ref[1:], rtol=1e-10, atol=0)
+    elif kernel == "zy_rfft_planar":
+        got = ck.zy_rfft_planar(f[1])
+        torch.cuda.synchronize()
+        _assert_zy_close(got, ck._zy_rfft_plain(f[1].double()))
     else:
         p = [a.abs()[:, :, : SHAPE[2] // 2 + 1].contiguous() for a in f[:2]]
         folded = ck.fold_quadrants_pair(*p)
@@ -120,6 +145,30 @@ def test_kernel_matches_plain(cuda_device, kernel):
             )
             torch.testing.assert_close(got, ref, rtol=1e-10, atol=0)
     assert ck.launch_counts()[kernel] == 1
+
+
+def _padded_folds(vols, ny):
+    """Plain folds of (nx, ny, nzr) volumes with their rows padded to a
+    multiple of 8 (at least one pad row), as fava_tpu pads them, the pad
+    rows holding NaN."""
+    out = []
+    nyh = ny // 2 + 1
+    for v in vols:
+        fo = ck._fold_plain(v)
+        pad = torch.full((fo.shape[0], nyh + ((-nyh) % 8 or 8), fo.shape[2]), float("nan"),
+                         dtype=fo.dtype, device=fo.device)
+        pad[:, :nyh] = fo
+        out.append(pad)
+    return out
+
+
+def _assert_zy_close(got, ref):
+    """B12's float32 result against the float64 dense DFT: max |diff| within
+    1e-5 of the largest coefficient (f32 products summed in a fixed order)."""
+    scale = max(float(r.abs().max()) for r in ref)
+    err = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref))
+    assert all(g.shape == r.shape for g, r in zip(got, ref))
+    assert err <= 1e-5 * scale, (err, scale)
 
 
 def _regrid_inputs(device, nfields=2):
@@ -425,3 +474,116 @@ def test_series_on_cuda_match_the_cpu_path(cuda_device, tmp_path):
     for got, ref in ((rg, rc), (vg, vc)):
         for key, r in ref.items():
             assert float(np.abs(got[key] - r).max()) <= 1e-9 * max(float(np.abs(r).max()), 1.0), key
+
+
+# B9: Nyquist rows at both folds in every even shape; odd and tiny z; the
+# folded grid smaller than a warp, and a y extent of 2 (no mirror rows).
+FUSED_CASES = [(4, 4, 4), (8, 6, 5), (16, 10, 9), (2, 34, 9), (6, 2, 70), (32, 32, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FUSED_CASES)
+@pytest.mark.parametrize("layout", ["planar", "interleaved"])
+def test_powers_fused_small_and_odd_shapes(cuda_device, shape, layout):
+    nx, ny, nz = shape
+    nbins = max(shape) // 2 - 1
+    spec = torch.fft.rfftn(torch.stack(_fields(cuda_device, shape=shape, seed=sum(shape))[1:]),
+                           dim=(1, 2, 3), norm="forward")
+    r = torch.view_as_real(spec)
+    re, im = (r[..., 0], r[..., 1]) if layout == "interleaved" else (
+        r[..., 0].contiguous(), r[..., 1].contiguous())
+    ck.reset_launch_counts()
+    counts, sums = ck.shell_bin_powers_fused(re, im, nbins, nz)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["shell_bin_powers_fused"] == 1
+    ref = ck._powers_fused_plain(re.double(), im.double(), nbins, nz)
+    assert torch.equal(counts, ref[0])
+    assert torch.equal(counts, ck._static_counts((nx, ny, nz // 2 + 1), nbins, nz, cuda_device))
+    torch.testing.assert_close(sums[:2], ref[1:], rtol=1e-10, atol=1e-300)
+    torch.testing.assert_close(sums[2], sums[0] - sums[1], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 4, 4), (16, 10, 9), (32, 126, 16), (16, 16, 400)])
+def test_onepass_folded_with_garbage_pad_rows(cuda_device, shape):
+    nx, ny, nz = shape
+    nbins = max(shape) // 2 - 1
+    vols = [a.abs() for a in _fields(cuda_device, shape=(nx, ny, nz // 2 + 1), seed=nx + ny)[:2]]
+    folded = _padded_folds(vols, ny)
+    ck.reset_launch_counts()
+    counts, sums = ck.shell_bin_sums_folded_onepass(*folded, nbins, nx, ny, nz)
+    rows = ck.shell_bin_values_folded_rows(*folded, nbins, nx, ny, nz)
+    torch.cuda.synchronize()
+    # The row-chunked entry is an alias of K4's wrapper: its launch counts as K4's.
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        "shell_bin_sums_folded_onepass": 1, "shell_bin_values_folded": 1}
+    ref = ck._onepass_plain(*(a.double() for a in folded), nbins, nx, ny, nz)
+    assert torch.equal(counts, ref[0])
+    torch.testing.assert_close(sums[:2], ref[1:], rtol=1e-10, atol=1e-300)
+    torch.testing.assert_close(torch.stack(rows), ref[1:], rtol=1e-10, atol=1e-300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 40, 50), (2, 64, 33), (1, 1, 1), (2, 1024, 1024)])
+def test_zy_rfft_matches_plain(cuda_device, shape):
+    x = _fields(cuda_device, shape=shape, seed=sum(shape))[1]
+    ck.reset_launch_counts()
+    got = ck.zy_rfft_planar(x)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["zy_rfft_planar"] == 1
+    _assert_zy_close(got, ck._zy_rfft_plain(x.double()))
+
+
+@pytest.mark.cuda
+def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    spec = torch.zeros((3, 8, 8, 5), dtype=torch.complex64, device=cuda_device)
+    r = torch.view_as_real(spec)
+    with pytest.raises(TypeError, match="float32"):
+        ck.shell_bin_powers_fused(r[..., 0].double(), r[..., 1].double(), 3, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.shell_bin_powers_fused(r[..., 0].transpose(1, 2), r[..., 1].transpose(1, 2), 3, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.shell_bin_powers_fused(r[..., 1], r[..., 0], 3, 8)  # not the (re, im) halves
+    odd = torch.view_as_real(torch.zeros((3, 9, 8, 5), dtype=torch.complex64, device=cuda_device))
+    with pytest.raises(ValueError, match="even x and y"):
+        ck.shell_bin_powers_fused(odd[..., 0], odd[..., 1], 3, 8)
+    fold = torch.zeros((5, 8, 5), device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        ck.shell_bin_sums_folded_onepass(fold.double(), fold.double(), 3, 8, 8, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.shell_bin_values_folded_rows(fold.transpose(0, 2), fold.transpose(0, 2), 3, 8, 8, 8)
+    x = torch.zeros((2, 16, 12), device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        ck.zy_rfft_planar(x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.zy_rfft_planar(x.transpose(1, 2))
+    with pytest.raises(ValueError, match="extents"):
+        ck.zy_rfft_planar(torch.zeros((1, 8, ck.ZY_MAX_EXTENT + 1), device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 32, 48), (16, 20, 15)])
+def test_fused_path_on_cuda_matches_the_cpu_path(cuda_device, shape):
+    from fava_tpu_torch.experiments import folded_bins, planar_dft
+    from fava_tpu_torch.ops import spectra
+
+    f = _fields(cuda_device, shape=shape, seed=7)
+    nbins = max(shape) // 2 - 1
+    ref = spectra.rfft_shell_sums(f[0].double().cpu(), [v.double().cpu() for v in f[1:]], nbins)
+    paths = {
+        "stacked cuFFT, B9": (lambda: planar_dft.rfft_shell_sums_fused(f[0], f[1:], nbins),
+                              {"shell_bin_powers_fused": 1}),
+        "B12, B9": (lambda: planar_dft.rfft_shell_sums_fused_zy(f[0], f[1:], nbins),
+                    {"shell_bin_powers_fused": 1, "zy_rfft_planar": 3}),
+        "pad8 fold, B11a": (lambda: folded_bins.rfft_shell_sums_folded(f[0], f[1:], nbins, "onepass"),
+                            {"fold_quadrants_pair": 1, "shell_bin_sums_folded_onepass": 1}),
+        "pad8 fold, B11b": (lambda: folded_bins.rfft_shell_sums_folded(f[0], f[1:], nbins, "rows"),
+                            {"fold_quadrants_pair": 1, "shell_bin_values_folded": 1}),
+    }
+    for what, (run, expect) in paths.items():
+        ck.reset_launch_counts()
+        counts, sums = run()
+        torch.cuda.synchronize()
+        assert {k: v for k, v in ck.launch_counts().items() if v} == expect, what
+        assert torch.equal(counts.cpu(), ref[0]), what
+        assert float((sums.cpu() - ref[1]).abs().max() / ref[1].abs().max()) <= 1e-5, what

@@ -350,7 +350,9 @@ def test_library_path_is_keyed_by_the_sources(monkeypatch, tmp_path):
 def test_package_sources_are_present():
     assert [p.name for p in sorted(_build.CSRC.glob("*.cu"))] == [
         "amr_kernels.cu",
+        "dft_kernels.cu",
         "flagship_kernels.cu",
+        "fused_spectra_kernels.cu",
         "pdf2d_kernels.cu",
         "spectra_kernels.cu",
     ]
@@ -362,6 +364,9 @@ def test_package_sources_are_present():
         "fava_regrid_fields",
         "fava_shell_bin_sums_unfolded",
         "fava_pdf2d",
+        "fava_shell_bin_powers_fused",
+        "fava_shell_bin_sums_folded_onepass",
+        "fava_zy_rfft",
     }
     for name in _build._SIGNATURES:  # every entry is defined in a source
         assert any(f"int {name}(" in src.read_text() for src in _build.CSRC.glob("*.cu")), name
