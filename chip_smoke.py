@@ -90,13 +90,18 @@ no result):
    the one-pass (B11a) and row-chunked (B11b: K4's kernel through its
    own entry) folded binning on fava_tpu-style folds whose 7 pad rows
    hold NaN, and the fused z+y transform (B12) on sqrt(rho)*v_x against
-   their plain versions (B12 also against ``torch.fft.rfftn`` over y and
-   z, its library call); then the spectra five ways, each with counters:
-   (a) the main path (cuFFT, powers, K3, K4), (b) one stacked cuFFT into
-   B9, (c) B12 and cuFFT along x into B9, (d)/(e) the main path's powers
-   and fold padded as fava_tpu pads it into B11a/B11b; counts exact and
-   sums held to (a) and to phase 4's float64 CPU path; each path's entry
-   and its two stages timed by CUDA events.
+   their plain versions: B12's cluster FFT kernel (its plan, occupancy
+   and ptxas report printed) and its dense kernel on the same input, both
+   against the float64 dense DFT and timed beside ``torch.fft.rfftn``
+   over y and z (the library call), and the FFT kernel's two-pass plan on
+   an (8, 1024, 1024) volume; then the spectra five ways, each with
+   counters: (a) the main path (cuFFT, powers, K3, K4), (b) one stacked
+   cuFFT into B9, (c) B12 and cuFFT along x into B9, (d)/(e) the main
+   path's powers and fold padded as fava_tpu pads it into B11a/B11b;
+   counts exact and sums held to (a) and to phase 4's float64 CPU path;
+   then (c) on the fields cut to 512x512x480, where B12 takes its dense
+   kernel, held to (a) on the same cut; each path's entry and its two
+   stages timed by CUDA events.
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -135,6 +140,7 @@ SOURCES = {
     "shell_bin_sums_folded_onepass": "fava_tpu_torch/csrc/flagship_kernels.cu",
     "shell_bin_values_folded_rows": "fava_tpu_torch/csrc/flagship_kernels.cu",
     "zy_rfft_planar": "fava_tpu_torch/csrc/dft_kernels.cu",
+    "zy_rfft_planar_dense": "fava_tpu_torch/csrc/dft_kernels.cu",
 }
 REPLACES = {
     "row_moments": "fava_tpu/ops/pallas_kernels.py:95",
@@ -153,6 +159,7 @@ REPLACES = {
     "shell_bin_sums_folded_onepass": "fava_tpu/ops/pallas_kernels.py:758",
     "shell_bin_values_folded_rows": "fava_tpu/ops/pallas_kernels.py:851",
     "zy_rfft_planar": "fava_tpu/experiments/pallas_dft.py:53",
+    "zy_rfft_planar_dense": "fava_tpu/experiments/pallas_dft.py:53",
 }
 FLAGSHIP_KERNELS = ("row_moments", "centered_row_moments", "fold_quadrants_pair",
                     "shell_bin_values_folded")
@@ -1542,27 +1549,72 @@ def fused_kernel_rows(torch, ck, fields, nbins):
     del folds, padded, ref, got, k4
     torch.cuda.empty_cache()
 
-    # B12 on sqrt(rho)*v_x against the float64 dense DFT; its library call is
-    # one cuFFT rfftn over the y and z axes.
+    # B12 on sqrt(rho)*v_x: the cluster FFT kernel and the dense kernel
+    # against the float64 dense DFT, each timed beside one cuFFT rfftn over
+    # the y and z axes (the library call).
     x = torch.sqrt(dens) * vels[0]
-    got = ck.zy_rfft_planar(x)
-    torch.cuda.synchronize()
+    plan = ck._zy_fft_plan(ny, nz)
+    say(f"phase 18 zy_rfft_planar plan at ({ny}, {nz}): cluster {plan.cluster}, tile {plan.tile}, "
+        f"passes {plan.passes}, row batch {plan.batch}, shared bytes {plan.smem}, active clusters "
+        f"{ck.zy_fft_active_clusters(plan)}; radices z {plan.logs_z} y {plan.logs_y} (log2)")
+    for line in ptxas_report("zy_fft_kernel"):
+        say(f"phase 18 zy_fft_kernel ptxas: {line}")
     ref = ck._zy_rfft_plain(x.double())
     scale = max(float(r.abs().max()) for r in ref)
-    max_abs = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref))
-    del got, ref
-    torch.cuda.empty_cache()
-    row = kernel_row(torch, 18, "zy_rfft_planar", max_abs, max_abs / (TOL_ZY * scale),
-                     f"{TOL_ZY!r} of the largest coefficient {scale!r}",
-                     lambda: ck.zy_rfft_planar(x), lambda: ck._zy_rfft_plain(x),
-                     (4 * x.numel() + 8 * nx * ny * nzr, zy_fft_ops(nx, ny, nz)))
-    row["library_ms"] = cuda_ms(torch, lambda: torch.fft.rfftn(x, dim=(1, 2)), 20)
-    rows["zy_rfft_planar"] = row
-    say(f"phase 18 zy_rfft_planar library call torch.fft.rfftn(x, dim=(1, 2)): {row['library_ms']!r} ms; "
-        "library_ms null for B9 and B11: no single PyTorch call bins powers by shell")
+    work = (4 * x.numel() + 8 * nx * ny * nzr, zy_fft_ops(nx, ny, nz))
+    library_ms = cuda_ms(torch, lambda: torch.fft.rfftn(x, dim=(1, 2)), 20)
+    for name, fn in (("zy_rfft_planar", ck.zy_rfft_planar), ("zy_rfft_planar_dense", ck._zy_rfft_dense)):
+        got = fn(x)
+        torch.cuda.synchronize()
+        max_abs = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref))
+        del got
+        rows[name] = kernel_row(torch, 18, name, max_abs, max_abs / (TOL_ZY * scale),
+                                f"{TOL_ZY!r} of the largest coefficient {scale!r}", lambda: fn(x),
+                                lambda: ck._zy_rfft_plain(x), work)
+        rows[name]["library_ms"] = library_ms
+    del ref
+    say(f"phase 18 zy_rfft_planar: cluster FFT {rows['zy_rfft_planar']['ms']!r} ms, dense kernel "
+        f"{rows['zy_rfft_planar_dense']['ms']!r} ms, library call torch.fft.rfftn(x, dim=(1, 2)) "
+        f"{library_ms!r} ms; library_ms null for B9 and B11: no single PyTorch call bins powers by shell")
     del x
     torch.cuda.empty_cache()
+
+    # The FFT kernel's multi-pass plan: a random (8, 1024, 1024) volume.
+    gen = torch.Generator(device=dens.device).manual_seed(18)
+    x = torch.randn((8, 1024, 1024), generator=gen, device=dens.device)
+    plan = ck._zy_fft_plan(1024, 1024)
+    ck.reset_launch_counts()
+    got = ck.zy_rfft_planar(x)
+    torch.cuda.synchronize()
+    if ck.launch_counts()["zy_rfft_planar"] != 1:
+        fail(f"zy_rfft_planar at (8, 1024, 1024) did not take the FFT kernel: {ck.launch_counts()}")
+    ref = ck._zy_rfft_plain(x.double())
+    scale = max(float(r.abs().max()) for r in ref)
+    ratio = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref)) / (TOL_ZY * scale)
+    say(f"phase 18 zy_rfft_planar (8, 1024, 1024), plan cluster {plan.cluster}, tile {plan.tile}, "
+        f"passes {plan.passes}, shared bytes {plan.smem}, active clusters "
+        f"{ck.zy_fft_active_clusters(plan)}: error/bound {ratio!r} (bound {TOL_ZY!r} of the largest "
+        f"coefficient); {cuda_ms(torch, lambda: ck.zy_rfft_planar(x), 20)!r} ms, torch.fft.rfftn "
+        f"{cuda_ms(torch, lambda: torch.fft.rfftn(x, dim=(1, 2)), 20)!r} ms")
+    if not ratio <= 1.0:
+        fail("zy_rfft_planar's two-pass plan disagrees with the float64 dense DFT")
+    del x, got, ref
+    torch.cuda.empty_cache()
     return rows
+
+
+def ptxas_report(kernel: str):
+    """The -Xptxas -v lines of the build about ``kernel``: its entry, its
+    stack and spills, its registers and shared memory."""
+    from fava_tpu_torch.ops import _build
+
+    out, inside = [], False
+    for line in (_build.BUILD_LOG or "").splitlines():
+        if "Compiling entry" in line:
+            inside = kernel in line
+        elif inside and ("registers" in line or "spill" in line):
+            out.append(line.strip())
+    return out
 
 
 def fused_path_ms(torch, fields, nbins, reps=3):
@@ -1682,7 +1734,41 @@ def phase_fused(torch, np, fields, ref_spectra):
             np, out, ref, floor, f"{key} vs float64", 18,
             bound_of=lambda k, b=max(bounds[p], TOL_SPECTRA): b)
     times = {"stages_ms": fused_path_ms(torch, fields, nbins), "errors": errs}
+    times["dense_route"] = dense_route_path(torch, np, ck, fields, totals)
     return rows, totals, times
+
+
+def dense_route_path(torch, np, ck, fields, totals):
+    """Path (c) on the fields cut to 512x512x480: z = 480 is no power of
+    two, so B12 takes its dense kernel (3 launches); held to path (a) on
+    the same cut, counts exact."""
+    from fava_tpu_torch.experiments import planar_dft
+    from fava_tpu_torch.ops.spectra import rfft_shell_sums
+
+    dens, *vels = (f[..., :480].contiguous() for f in fields)
+    nbins = max(dens.shape) // 2 - 1
+    expect = {"zy_rfft_planar_dense": 3, "shell_bin_powers_fused": 1}
+    (counts, sums), launches = counted(
+        torch, ck, "(c) on 512x512x480, B12 dense", lambda: planar_dft.rfft_shell_sums_fused_zy(
+            dens, vels, nbins), tuple(expect), 18)
+    if {k: v for k, v in launches.items() if v} != expect:
+        fail(f"(c) on 512x512x480 launched {launches}, expected exactly {expect}")
+    add_counts(totals, launches)
+    ref_counts, ref_sums = rfft_shell_sums(dens, vels, nbins)
+    if not torch.equal(counts, ref_counts):
+        fail("(c) on 512x512x480: counts differ from (a)'s")
+    err = float((sums - ref_sums).abs().max() / ref_sums.abs().max())
+    say(f"phase 18 (c) on 512x512x480 vs (a): max|diff|/scale {err!r} (bound {TOL_ZY_PATH!r})")
+    if not err <= TOL_ZY_PATH:
+        fail("(c) on 512x512x480 disagrees with (a)")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    planar_dft.rfft_shell_sums_fused_zy(dens, vels, nbins)
+    end.record()
+    torch.cuda.synchronize()
+    del dens, vels
+    torch.cuda.empty_cache()
+    return {"error_vs_a": err, "total_ms": start.elapsed_time(end)}
 
 
 def main() -> None:

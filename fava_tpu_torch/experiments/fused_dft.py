@@ -3,15 +3,17 @@
 fava_tpu's dense rfftn applied one matrix product per axis; its Pallas
 kernel did the z-rfft and the y-DFT of an x-slab in one pass, keeping the
 slab's intermediate in VMEM. Here that kernel is B12
-(``ops.cuda_kernels.zy_rfft_planar``, ``csrc/dft_kernels.cu``), with
-the dense DFT products of ``ops/dft.py`` as its plain twin on the CPU.
-The x axis, which fava_tpu contracted with a dense einsum, is cuFFT
-(``torch.fft.fft``).
+(``ops.cuda_kernels.zy_rfft_planar``, ``csrc/dft_kernels.cu``): a
+cluster FFT kernel that keeps the slab's intermediate in a thread-block
+cluster's shared memory, for power-of-two y and z extents, and the dense
+DFT kernel for other shapes; the dense DFT products of ``ops/dft.py`` are
+the plain twin on the CPU. The x axis, which fava_tpu contracted with a
+dense einsum, is cuFFT (``torch.fft.fft``).
 
-``use_fused_zy(shape)`` is the kernel's own size check
+``use_fused_zy(shape)`` is the kernels' own size check
 (``ops.cuda_kernels.zy_rfft_fits``): fava_tpu's gate (multiples of 128,
-ny*nz <= 512^2) was its matrix unit's tiling and VMEM; here the limit is
-a block's shared memory, which holds y and z extents up to 1024.
+ny*nz <= 512^2) was its matrix unit's tiling and VMEM; here both kernels
+take y and z extents up to 1024.
 """
 
 from __future__ import annotations

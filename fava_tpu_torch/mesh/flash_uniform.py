@@ -14,6 +14,7 @@ A7/A8.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -48,6 +49,10 @@ def streams_out_of_core(shape, dtype: torch.dtype, free_bytes: float, resident_b
 @Model.register_mesh()
 class FlashUniform(FLASH):
     """Uniform-grid FLASH mesh; field data is a single 3D volume on the device."""
+
+    @classmethod
+    def is_this_your_mesh(cls, filename: str | Path, *args, **kwargs) -> bool:
+        return "hdf5_uniform_" in str(filename)
 
     @classmethod
     def from_arrays(

@@ -54,6 +54,10 @@ _SIGNATURES = {
     "fava_shell_bin_sums_folded_onepass": (_P, _P, _P) + (_I,) * 8 + (_P,),
     "fava_shell_bin_powers_fused": (_P, _P, _P) + (_I,) * 7 + (_P,),
     "fava_zy_rfft": (_P, _P, _P, _I, _I, _I, _P),
+    "fava_zy_fft": (_P, _P, _P, _P, _I, _P, _I, _P),
+    "fava_zy_fft_tables": (_P, _P, _P),
+    "fava_zy_fft_table_bytes": (_P,),
+    "fava_zy_fft_clusters": (_P,),
 }
 
 

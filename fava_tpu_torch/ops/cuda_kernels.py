@@ -26,6 +26,7 @@ wrapper                           replaces (fava_tpu/ops/, fava_tpu/experiments/
 ``shell_bin_sums_folded_onepass`` ``pallas_kernels.py:_shell_kernel_folded`` (:758)
 ``shell_bin_values_folded_rows``  ``pallas_kernels.py:_shell_kernel_folded_v2`` (:851)
 ``zy_rfft_planar``                ``pallas_dft.py:_zy_rfft_kernel`` (:53)
+``_zy_rfft_dense``                the same, shapes off the FFT kernel's route
 ================================  ==============================================
 
 ``shell_bin_values_folded_rows`` is an alias of
@@ -43,6 +44,7 @@ kernel's count in ``launch_counts()`` (the two pdf2d variants count as
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from functools import lru_cache
 from typing import Dict, Optional, Tuple
 
@@ -73,6 +75,7 @@ KERNELS = (
     "shell_bin_powers_fused",
     "shell_bin_sums_folded_onepass",
     "zy_rfft_planar",
+    "zy_rfft_planar_dense",
 )
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -724,22 +727,249 @@ def shell_bin_powers_fused(re_stack, im_stack, nbins: int, full_nz: int):
 
 
 # ---------------------------------------------------------------------------
-# B12: the fused z-rfft + y-DFT of a real volume (dense DFT products)
+# B12: the fused z-rfft + y-DFT of a real volume. Power-of-two y and z
+# extents take the cluster FFT kernel; every other shape the dense one.
 
-ZY_MAX_EXTENT = 1024  # largest y and z extent of the kernel (kMaxExtent, csrc/dft_kernels.cu)
+ZY_MAX_EXTENT = 1024  # largest y and z extent of both kernels (csrc/dft_kernels.cu)
 ZY_MAX_SLABS = 65535  # largest x extent (the launch grid's y extent)
+ZY_SMEM_MAX = 232448 - 256  # dynamic shared bytes of a block: sm_90's limit less static arrays
+ZY_SMEM_HALF = 233472 // 2 - 1024 - 256  # the same when two blocks share an SM (1 KB reserved each)
+ZY_MAX_STAGES = 10  # kMaxStages: FFT passes per axis
+ZY_CLUSTERS = (16, 8, 4, 2, 1)  # cluster sizes, in the plan's order of preference
 
 
 def zy_rfft_fits(shape) -> bool:
-    """Whether the B12 kernel takes a real volume of this shape: 3D, x
-    extent 1..65535, y and z extents 1..1024, any parity. The limit is a
-    block's shared memory, which holds a 16-column tile of the slab's
-    intermediate (ny x 16 complex), a chunk of the slab and the twiddle
-    tables: ~165 KB of the 227 KB at ny = nz = 1024."""
+    """Whether B12 takes a real volume of this shape: 3D, x extent
+    1..65535, y and z extents 1..1024, any parity (the cluster FFT kernel
+    for power-of-two y and z >= 2, the dense kernel for the rest)."""
     if len(shape) != 3:
         return False
     nx, ny, nz = (int(s) for s in shape)
     return 1 <= nx <= ZY_MAX_SLABS and 1 <= ny <= ZY_MAX_EXTENT and 1 <= nz <= ZY_MAX_EXTENT
+
+
+def _pow2(n: int) -> bool:
+    return n >= 1 and n & (n - 1) == 0
+
+
+def _zy_uses_fft(shape) -> bool:
+    """The route of a shape within ``zy_rfft_fits``: the cluster FFT kernel
+    for power-of-two ny (>= 1) and nz (>= 2: its real z-transform is an
+    nz/2-point complex FFT), the dense kernel otherwise."""
+    if not zy_rfft_fits(shape):
+        return False
+    _nx, ny, nz = (int(s) for s in shape)
+    return _pow2(ny) and _pow2(nz) and nz >= 2
+
+
+def _radix_logs(n: int) -> Tuple[int, ...]:
+    """log2 of the radices of an n-point FFT's passes, first pass first:
+    the fewest passes of radix <= 16, the radices as even as they go,
+    larger first (256 = 16 x 16, 512 = 8 x 8 x 8, 1024 = 16 x 8 x 8).
+    Radix 32 would save a pass at 512 and 1024 but spills registers at two
+    blocks an SM."""
+    m = n.bit_length() - 1
+    passes = -(-m // 4)
+    return tuple(m // passes + (i < m % passes) for i in range(passes))
+
+
+@dataclass(frozen=True)
+class ZyFftPlan:
+    """How the cluster FFT kernel splits one x slab (csrc/dft_kernels.cu).
+
+    A cluster of ``cluster`` blocks does one pass over ``passes`` ranges of
+    column slots of one slab. Block (rank) r transforms the slab rows
+    [r rows, (r+1) rows) along z, ``batch`` rows at a time in its work
+    buffer (row stride ``ws``), and stores each X[k] into the shared
+    memory of the rank that owns slot k: rank r owns the ``tile`` slots
+    [bound(p C + r), bound(p C + r + 1)) and holds all ny rows of them
+    (row stride ``es``). After one cluster barrier each rank transforms its
+    slots along y in place and writes them out (slot 0 split into kz = 0
+    and nz/2 after its transform). Strides are odd, so lanes that step by
+    them hit distinct banks; batches and slot ranges are powers of two,
+    so the kernel splits its work items with shifts."""
+
+    ny: int
+    nz: int
+    cluster: int
+    passes: int
+    rows: int
+    batch: int
+    tile: int
+    ws: int
+    es: int
+    work: int  # float2 elements of the row-batch buffer
+    smem: int  # dynamic shared bytes of a block
+    logs_z: Tuple[int, ...]  # radix passes of the nz/2-point z transform
+    logs_y: Tuple[int, ...]  # radix passes of the ny-point y transform
+
+    def bound(self, u: int) -> int:
+        """First column slot of range u of the passes * cluster ranges. The
+        nz/2 slots cover the nz/2 + 1 kz columns: slot 0 holds the two real
+        columns kz = 0 and kz = nz/2 packed as one complex column, slot
+        u > 0 holds kz = u."""
+        return u * (self.nz // 2) // (self.passes * self.cluster)
+
+    def as_ints(self) -> Tuple[int, ...]:
+        """The int vector the C entry reads (struct ZyFftPlan)."""
+        def pad(logs):
+            return tuple(logs) + (0,) * (ZY_MAX_STAGES - len(logs))
+
+        head = (self.ny, self.nz, self.cluster, self.passes, self.rows, self.batch, self.tile,
+                self.ws, self.es, self.work, self.smem, len(self.logs_z), len(self.logs_y))
+        return head + pad(self.logs_z) + pad(self.logs_y)
+
+
+def _fit_plan(ny: int, nz: int, cluster: int, passes: int, budget: int) -> Optional[ZyFftPlan]:
+    """The plan of this cluster size and pass count within ``budget``
+    shared bytes, or None: a rank's slots (all ny rows of them) and the
+    largest power-of-two batch of rows that fit beside the tables (the
+    twiddles of the post-process and of each pass, then the z positions
+    and the y rows in 16 bits, 16-byte rounded: ``_zy_fft_tables``). ``passes`` is a power of
+    two <= nz/2, so every range of slots is a power of two wide (or 0/1
+    wide when nz/2 < passes * cluster). Phase 1's rows hold one padding
+    slot per span of the first pass's digit (``ws``), which spreads the
+    post-process's digit-reversed reads over the shared-memory banks."""
+    n = nz // 2
+    tile = max(1, n // (passes * cluster))
+    rows = ny // cluster
+    logs_z, logs_y = _radix_logs(n), _radix_logs(ny)
+    zpad = (n.bit_length() - 1) - (logs_z[0] if logs_z else 0)
+    ws, es = (n + ((n - 1) >> zpad)) | 1, tile | 1
+    tables = -(-(8 * (n + _pass_tables(n, logs_z) + _pass_tables(ny, logs_y)) + 2 * (n + ny)) // 16) * 16
+    room = budget - tables - 8 * ny * es
+    batch = 1 << (rows.bit_length() - 1)
+    while batch > 1 and 8 * batch * ws > room:
+        batch //= 2
+    if 8 * batch * ws > room:
+        return None
+    work = batch * ws
+    return ZyFftPlan(ny, nz, cluster, passes, rows, batch, tile, ws, es, work,
+                     tables + 8 * (ny * es + work), logs_z, logs_y)
+
+
+def _pass_tables(n: int, logs: Tuple[int, ...]) -> int:
+    """Twiddle entries of an n-point transform's per-pass tables: a pass
+    on sub-transforms of length L keeps W_L^(j t) for t < R, j < L/R."""
+    total = 0
+    for lg in logs:
+        total += n
+        n >>= lg
+    return total
+
+
+@lru_cache(maxsize=64)
+def _zy_fft_plan(ny: int, nz: int) -> ZyFftPlan:
+    """The cluster FFT kernel's plan for power-of-two ny <= 1024 and
+    2 <= nz <= 1024: the fewest passes over the slab; then two blocks an
+    SM if they fit, else one; then the largest cluster (<= 16, <= ny)
+    whose blocks' shared memory fits."""
+    ny, nz = int(ny), int(nz)
+    if not (_pow2(ny) and _pow2(nz) and ny <= ZY_MAX_EXTENT and 2 <= nz <= ZY_MAX_EXTENT):
+        raise ValueError(f"the cluster FFT kernel takes power-of-two y <= 1024 and 2 <= z <= 1024, "
+                         f"got ({ny}, {nz})")
+    passes = 1
+    while passes <= nz // 2:
+        for budget in (ZY_SMEM_HALF, ZY_SMEM_MAX):
+            for cluster in ZY_CLUSTERS:
+                if cluster <= ny:
+                    plan = _fit_plan(ny, nz, cluster, passes, budget)
+                    if plan is not None:
+                        return plan
+        passes *= 2
+    raise ValueError(f"no cluster FFT plan fits ({ny}, {nz})")  # unreachable for the extents above
+
+
+def _twiddles(n: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """exp(-2 pi i m / n), m < n, computed in float64 and rounded once to
+    ``dtype``'s complex type (the kernel's tables)."""
+    ang = 2.0 * np.pi * np.arange(n) / n
+    tw = torch.complex(torch.tensor(np.cos(ang)), torch.tensor(-np.sin(ang)))
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    return tw.to(device=device, dtype=cdt)
+
+
+def _fft_positions(n: int, logs: Tuple[int, ...]) -> torch.Tensor:
+    """Where the in-place decimation-in-frequency passes leave X[k]: the
+    digit reversal of k in the passes' radices (fft_pos in the kernel)."""
+    pos = np.zeros(n, dtype=np.int64)
+    k = np.arange(n)
+    span = n
+    for lg in logs:
+        span >>= lg
+        pos += (k & ((1 << lg) - 1)) * span
+        k = k >> lg
+    return torch.from_numpy(pos)
+
+
+def _dif_passes(v: torch.Tensor, logs: Tuple[int, ...], table: torch.Tensor) -> torch.Tensor:
+    """The kernel's radix passes along v's last axis (length n dividing
+    the table's length T), in the same order: a radix-R pass on
+    sub-transforms of length L takes x[g L + j + t L/R], t < R, does an
+    R-point DFT and stores output s times W_L^(j s) at g L + s L/R + j.
+    The output is in digit-reversed order (``_fft_positions``)."""
+    n, big = v.shape[-1], table.numel()
+    lead = v.shape[:-1]
+    length = n
+    for lg in logs:
+        r = 1 << lg
+        sub = length // r
+        t = torch.arange(r)
+        dft_r = table[(t[:, None] * t[None, :] * (big // r)) % big]
+        tw = table[t[:, None] * torch.arange(sub)[None, :] * (big // length)]
+        u = v.reshape(*lead, n // length, r, sub)
+        v = (torch.einsum("...tj,ts->...sj", u, dft_r) * tw).reshape(*lead, n)
+        length = sub
+    return v
+
+
+def _zy_rfft_fft_plain(x: torch.Tensor, plan: ZyFftPlan):
+    """(re, im) of the z-rfft then y-DFT of every x slab, as the cluster
+    FFT kernel computes them: plain torch, in x's dtype, walking the
+    plan's ranks, passes, row batches and slot ranges. Phase 1: each
+    row's nz reals as nz/2 complex values, the z passes, then X[k] =
+    E[k] + W_nz^k O[k] from the digit-reversed result, with the real X[0]
+    and X[nz/2] packed in slot 0, each rank's rows landing in the slots'
+    owners. Phase 2: each rank's slots, all rows, the y passes, written
+    out; slot 0 split by Hermitian symmetry."""
+    nx, ny, nz = (int(s) for s in x.shape)
+    if (ny, nz) != (plan.ny, plan.nz):
+        raise ValueError(f"plan for ({plan.ny}, {plan.nz}), volume {tuple(x.shape)}")
+    n, c = nz // 2, plan.cluster
+    tz, ty = _twiddles(nz, x.dtype, x.device), _twiddles(ny, x.dtype, x.device)
+    pos_z = _fft_positions(n, plan.logs_z).to(x.device)
+    pos_y = _fft_positions(ny, plan.logs_y).to(x.device)
+    re = torch.empty((nx, ny, n + 1), dtype=x.dtype, device=x.device)
+    im = torch.empty_like(re)
+    for p in range(plan.passes):
+        cp0, cp1 = plan.bound(p * c), plan.bound(p * c + c)
+        k = torch.arange(cp0, cp1, device=x.device)
+        slices = []
+        for r in range(c):
+            zsl = []
+            for b0 in range(r * plan.rows, (r + 1) * plan.rows, plan.batch):
+                rows = x[:, b0 : b0 + plan.batch]
+                zc = _dif_passes(torch.complex(rows[..., 0::2], rows[..., 1::2]), plan.logs_z, tz)
+                a, b = zc[..., pos_z[k]], zc[..., pos_z[(n - k) % n]].conj()
+                z = 0.5 * (a + b) - 0.5j * tz[k] * (a - b)
+                if cp0 == 0:  # slot 0: X[0] + i X[n], X[0] = Re A + Im A, X[n] = Re A - Im A
+                    a0 = a[..., 0]
+                    z[..., 0] = torch.complex(a0.real + a0.imag, a0.real - a0.imag)
+                zsl.append(z)
+            slices.append(torch.cat(zsl, dim=1))
+        z = torch.cat(slices, dim=1)  # row a of the slab is row a % rows of rank a // rows
+        for r in range(c):
+            cr0, cr1 = plan.bound(p * c + r), plan.bound(p * c + r + 1)
+            for t0 in range(cr0, cr1, plan.tile):
+                t1 = min(t0 + plan.tile, cr1)
+                y = _dif_passes(z[..., t0 - cp0 : t1 - cp0].transpose(1, 2), plan.logs_y, ty)
+                y = y[..., pos_y].transpose(1, 2)
+                re[..., t0:t1], im[..., t0:t1] = y.real, y.imag
+                if t0 == 0:  # Y0 = (C[a] + conj C[-a]) / 2, Yn = (C[a] - conj C[-a]) / 2i
+                    ca, cb = y[..., 0], y[:, (-torch.arange(ny, device=x.device)) % ny, 0].conj()
+                    y0, yn = 0.5 * (ca + cb), -0.5j * (ca - cb)
+                    re[..., 0], im[..., 0], re[..., n], im[..., n] = y0.real, y0.imag, yn.real, yn.imag
+    return re, im
 
 
 def _zy_rfft_plain(x: torch.Tensor):
@@ -754,27 +984,99 @@ def _zy_rfft_plain(x: torch.Tensor):
     return wr @ zr - wi @ zi, wr @ zi + wi @ zr
 
 
+def _zy_outputs(x: torch.Tensor):
+    nx, ny, nz = (int(s) for s in x.shape)
+    re = torch.empty((nx, ny, nz // 2 + 1), dtype=torch.float32, device=x.device)
+    return re, torch.empty_like(re)
+
+
+def _zy_check(name: str, x: torch.Tensor) -> str:
+    if x.ndim != 3:
+        raise ValueError(f"{name}: a 3D volume required, got {tuple(x.shape)}")
+    kind = _device_kind(name, x)
+    if kind == "cuda":
+        _check_cuda(name, x)
+        if not zy_rfft_fits(x.shape):
+            raise ValueError(
+                f"{name}: the CUDA kernels take x extents 1..{ZY_MAX_SLABS} and y, z extents "
+                f"1..{ZY_MAX_EXTENT}, got {tuple(x.shape)}"
+            )
+    return kind
+
+
+def _zy_rfft_dense(x: torch.Tensor):
+    """B12's dense-DFT kernel (f32 products, O(n) work per output): the
+    route of ``zy_rfft_planar`` for shapes the FFT kernel does not take.
+    Counted as ``zy_rfft_planar_dense``; the plain matmuls on the CPU."""
+    name = "zy_rfft_planar_dense"
+    if _zy_check(name, x) == "cpu":
+        return _zy_rfft_plain(x)
+    nx, ny, nz = (int(s) for s in x.shape)
+    re, im = _zy_outputs(x)
+    _launch(name, x.device, _build.library().fava_zy_rfft, x.data_ptr(), re.data_ptr(),
+            im.data_ptr(), nx, ny, nz)
+    return re, im
+
+
+def _plan_ints(plan: ZyFftPlan):
+    return (ctypes.c_int * len(plan.as_ints()))(*plan.as_ints())
+
+
+@lru_cache(maxsize=16)
+def _zy_fft_tables(plan: ZyFftPlan, device: str) -> torch.Tensor:
+    """The plan's tables in device memory, built once per plan and card by
+    the library (twiddles in double, rounded once to float); every block of
+    the FFT kernel copies them into its shared memory. Read-only."""
+    ints = _plan_ints(plan)
+    lib = _build.library()
+    nbytes = lib.fava_zy_fft_table_bytes(ctypes.addressof(ints))
+    if nbytes < 0:
+        raise ValueError(f"zy_rfft_planar: the kernel refuses the plan {plan}")
+    out = torch.empty(nbytes // 4, dtype=torch.float32, device=device)
+    with torch.cuda.device(out.device):
+        err = lib.fava_zy_fft_tables(ctypes.addressof(ints), out.data_ptr(),
+                                     torch.cuda.current_stream(out.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"zy_rfft_planar: building the tables failed with error {err} "
+                           f"({lib.fava_error_string(err).decode()})")
+    return out
+
+
+def zy_fft_active_clusters(plan: ZyFftPlan, device="cuda") -> int:
+    """Clusters of the FFT kernel under ``plan`` that fit the card at once
+    (cudaOccupancyMaxActiveClusters); 0 means the launch cannot run."""
+    ints = _plan_ints(plan)
+    with torch.cuda.device(torch.device(device)):
+        n = _build.library().fava_zy_fft_clusters(ctypes.addressof(ints))
+    if n < 0:
+        raise RuntimeError(f"zy_rfft_planar: occupancy query failed with error {-n}")
+    return n
+
+
 def zy_rfft_planar(x: torch.Tensor):
     """(re, im), each (nx, ny, nz//2+1): the rfft along z then the DFT
     along y of a real (nx, ny, nz) volume, unnormalized, planar
     (fava_tpu/experiments/pallas_dft.py:92). On CUDA: float32, contiguous,
-    within ``zy_rfft_fits``; the plain matmuls on the CPU."""
+    within ``zy_rfft_fits``; power-of-two y and z (``_zy_uses_fft``) take
+    the cluster FFT kernel, other shapes the dense kernel
+    (``_zy_rfft_dense``). On the CPU the plain dense matmuls."""
     name = "zy_rfft_planar"
-    if x.ndim != 3:
-        raise ValueError(f"{name}: a 3D volume required, got {tuple(x.shape)}")
-    if _device_kind(name, x) == "cpu":
+    if _zy_check(name, x) == "cpu":
         return _zy_rfft_plain(x)
-    _check_cuda(name, x)
-    if not zy_rfft_fits(x.shape):
-        raise ValueError(
-            f"{name}: the CUDA kernel takes x extents 1..{ZY_MAX_SLABS} and y, z extents "
-            f"1..{ZY_MAX_EXTENT}, got {tuple(x.shape)}"
-        )
-    nx, ny, nz = (int(s) for s in x.shape)
-    re = torch.empty((nx, ny, nz // 2 + 1), dtype=torch.float32, device=x.device)
-    im = torch.empty_like(re)
-    _launch(name, x.device, _build.library().fava_zy_rfft, x.data_ptr(), re.data_ptr(),
-            im.data_ptr(), nx, ny, nz)
+    if not _zy_uses_fft(x.shape):
+        return _zy_rfft_dense(x)
+    return _zy_rfft_fft(x, _zy_fft_plan(int(x.shape[1]), int(x.shape[2])))
+
+
+def _zy_rfft_fft(x: torch.Tensor, plan: ZyFftPlan):
+    """The cluster FFT kernel on a checked CUDA volume under ``plan``."""
+    nx = int(x.shape[0])
+    ints = _plan_ints(plan)
+    tables = _zy_fft_tables(plan, str(x.device))
+    re, im = _zy_outputs(x)
+    vec = int(x.data_ptr() % 8 == 0)  # float2 row loads
+    _launch("zy_rfft_planar", x.device, _build.library().fava_zy_fft, x.data_ptr(), re.data_ptr(),
+            im.data_ptr(), tables.data_ptr(), nx, ctypes.addressof(ints), vec)
     return re, im
 
 

@@ -338,6 +338,20 @@ def test_filename_setter_tracks_the_chk_marker(amr_dir, tmp_path):
     assert not chk._chk_file
 
 
+@pytest.mark.parametrize(
+    "name", ["run_hdf5_plt_cnt_0001", "run_hdf5_chk_0001", "run_hdf5_uniform_0001", "run_hdf5_part_0001"]
+)
+def test_file_sniffing_matches_fava_tpu(name):
+    """Repaired fault: FlashUniform inherited FLASH's AMR sniff, so it
+    claimed plt/chk files and refused uniform ones (tests/test_mesh.py)."""
+    from fava_tpu.mesh import FLASH as JFLASH
+    from fava_tpu_torch.mesh import FLASH, FlashUniform
+
+    assert FLASH.is_this_your_mesh(name) == JFLASH.is_this_your_mesh(name)
+    assert FlashUniform.is_this_your_mesh(name) == JFlashUniform.is_this_your_mesh(name)
+    assert FlashUniform.is_this_your_mesh(name) == ("uniform" in name)
+
+
 def test_convert_filename_type_matches_fava_tpu(amr_dir):
     jm, tm = _models(amr_dir)
     for new in ("uni", "chk", "anl", "PLT_PRT"):

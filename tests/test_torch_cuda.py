@@ -14,9 +14,11 @@ regrid exact (values are copied); joint-histogram counts exact, weighted
 sums rtol 1e-12 (f64 atomics in run-dependent order). The fused powers
 binning (B9) and the one-pass folded binning (B11a): counts from the
 kernel exact, sums rtol 1e-10 (f64 powers and sums in another order);
-the fused z+y transform (B12): max |diff| within 1e-5 of the largest
-coefficient of the float64 dense DFT (f32 products summed in a fixed
-order).
+the fused z+y transform (B12), both its cluster FFT kernel (power-of-two
+y and z) and its dense kernel (other shapes): max |diff| within 1e-5 of
+the largest coefficient of the float64 dense DFT (f32 FFT stages or f32
+products summed in a fixed order); the FFT kernel also within 1e-6 of its
+float32 FFT twin, which rounds at the same stages.
 """
 
 import numpy as np
@@ -120,8 +122,13 @@ def test_kernel_matches_plain(cuda_device, kernel):
         torch.cuda.synchronize()
         assert torch.equal(counts, ref[0])
         torch.testing.assert_close(sums[:2], ref[1:], rtol=1e-10, atol=0)
-    elif kernel == "zy_rfft_planar":
-        got = ck.zy_rfft_planar(f[1])
+    elif kernel == "zy_rfft_planar":  # the FFT kernel: power-of-two y and z
+        x = f[1][..., :32].contiguous()
+        got = ck.zy_rfft_planar(x)
+        torch.cuda.synchronize()
+        _assert_zy_close(got, ck._zy_rfft_plain(x.double()))
+    elif kernel == "zy_rfft_planar_dense":
+        got = ck._zy_rfft_dense(f[1])
         torch.cuda.synchronize()
         _assert_zy_close(got, ck._zy_rfft_plain(f[1].double()))
     else:
@@ -523,15 +530,45 @@ def test_onepass_folded_with_garbage_pad_rows(cuda_device, shape):
     torch.testing.assert_close(torch.stack(rows), ref[1:], rtol=1e-10, atol=1e-300)
 
 
+# B12's shapes and the kernel each takes: the cluster FFT kernel for
+# power-of-two y (1..1024) and z (2..1024), the dense kernel otherwise.
+ZY_ROUTES = [((2, 2, 2), "zy_rfft_planar"), ((3, 64, 32), "zy_rfft_planar"),
+             ((4, 512, 512), "zy_rfft_planar"), ((2, 1024, 1024), "zy_rfft_planar"),
+             ((1, 1024, 2), "zy_rfft_planar"), ((3, 40, 50), "zy_rfft_planar_dense"),
+             ((2, 64, 33), "zy_rfft_planar_dense"), ((1, 1, 1), "zy_rfft_planar_dense")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 40, 50), (2, 64, 33), (1, 1, 1), (2, 1024, 1024)])
-def test_zy_rfft_matches_plain(cuda_device, shape):
+@pytest.mark.parametrize("shape,route", ZY_ROUTES)
+def test_zy_rfft_matches_plain(cuda_device, shape, route):
     x = _fields(cuda_device, shape=shape, seed=sum(shape))[1]
     ck.reset_launch_counts()
     got = ck.zy_rfft_planar(x)
     torch.cuda.synchronize()
-    assert ck.launch_counts()["zy_rfft_planar"] == 1
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {route: 1}
     _assert_zy_close(got, ck._zy_rfft_plain(x.double()))
+    if route == "zy_rfft_planar":  # the same stages as its float32 twin
+        twin = ck._zy_rfft_fft_plain(x, ck._zy_fft_plan(shape[1], shape[2]))
+        scale = max(float(t.abs().max()) for t in twin)
+        assert max(float((g - t).abs().max()) for g, t in zip(got, twin)) <= 1e-6 * scale
+
+
+@pytest.mark.cuda
+def test_zy_fft_kernel_fits_the_card_and_reads_unaligned_rows(cuda_device):
+    """Every plan the rule makes for the path's shapes schedules at least
+    one cluster; volumes that start 4 or 8 bytes off a 16-byte boundary
+    take the FFT kernel all the same (scalar or float2 row loads)."""
+    for ny, nz in ((512, 512), (1024, 1024), (1024, 2), (1, 1024), (16, 16)):
+        assert ck.zy_fft_active_clusters(ck._zy_fft_plan(ny, nz), cuda_device) >= 1
+    base = _fields(cuda_device, shape=(3 * 64 * 64 + 2,), seed=1)[1]
+    for off in (1, 2):
+        x = base[off : off + 3 * 64 * 64].view(3, 64, 64)
+        assert x.data_ptr() % 16 == 4 * off
+        ck.reset_launch_counts()
+        got = ck.zy_rfft_planar(x)
+        torch.cuda.synchronize()
+        assert ck.launch_counts()["zy_rfft_planar"] == 1
+        _assert_zy_close(got, ck._zy_rfft_plain(x.double()))
 
 
 @pytest.mark.cuda
@@ -562,7 +599,7 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(32, 32, 48), (16, 20, 15)])
+@pytest.mark.parametrize("shape", [(32, 32, 48), (16, 20, 15), (32, 32, 32)])
 def test_fused_path_on_cuda_matches_the_cpu_path(cuda_device, shape):
     from fava_tpu_torch.experiments import folded_bins, planar_dft
     from fava_tpu_torch.ops import spectra
@@ -570,11 +607,12 @@ def test_fused_path_on_cuda_matches_the_cpu_path(cuda_device, shape):
     f = _fields(cuda_device, shape=shape, seed=7)
     nbins = max(shape) // 2 - 1
     ref = spectra.rfft_shell_sums(f[0].double().cpu(), [v.double().cpu() for v in f[1:]], nbins)
+    b12 = "zy_rfft_planar" if ck._zy_uses_fft(shape) else "zy_rfft_planar_dense"
     paths = {
         "stacked cuFFT, B9": (lambda: planar_dft.rfft_shell_sums_fused(f[0], f[1:], nbins),
                               {"shell_bin_powers_fused": 1}),
         "B12, B9": (lambda: planar_dft.rfft_shell_sums_fused_zy(f[0], f[1:], nbins),
-                    {"shell_bin_powers_fused": 1, "zy_rfft_planar": 3}),
+                    {"shell_bin_powers_fused": 1, b12: 3}),
         "pad8 fold, B11a": (lambda: folded_bins.rfft_shell_sums_folded(f[0], f[1:], nbins, "onepass"),
                             {"fold_quadrants_pair": 1, "shell_bin_sums_folded_onepass": 1}),
         "pad8 fold, B11b": (lambda: folded_bins.rfft_shell_sums_folded(f[0], f[1:], nbins, "rows"),

@@ -1,0 +1,168 @@
+"""B12's cluster FFT plan and its plain twin, held on the CPU to numpy, to
+the dense twin and to fava_tpu's fused z+y Pallas kernel.
+
+``_zy_fft_plan`` is the split the CUDA kernel runs (csrc/dft_kernels.cu):
+clusters of blocks, kz column slots per rank and pass, row batches and
+column tiles. ``_zy_rfft_fft_plain`` walks that plan in plain torch: the
+same radix passes in the same order, the same packing of the real kz = 0
+and kz = nz/2 columns into slot 0, the same split of rows and slots over
+the ranks and passes. It runs here in float64. Tolerances:
+
+* against np.fft (float64 FFTs in another order): rtol 1e-12 of the
+  largest coefficient;
+* against the dense twin ``_zy_rfft_plain`` (float64 DFT matrices, sums
+  of up to 1024 terms): 1e-12 of the largest coefficient;
+* against fava_tpu's Pallas kernel in interpret mode (float64 dense
+  products): rtol 1e-9, atol 1e-9, as tests/test_torch_fused.py.
+
+The kernel itself is held to these twins on the card by
+tests/test_torch_cuda.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fava_tpu.experiments import pallas_dft
+from fava_tpu.ops import pallas_kernels as pk
+from fava_tpu_torch.ops import cuda_kernels as ck
+
+POW2 = [1 << i for i in range(11)]  # 1 .. 1024
+
+
+@pytest.fixture()
+def force_interpret():
+    """fava_tpu's Pallas kernels in interpret mode, as its own tests run them."""
+    pk.FORCE_INTERPRET = True
+    yield
+    pk.FORCE_INTERPRET = False
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _close(got, ref_re, ref_im, rtol):
+    scale = max(np.abs(ref_re).max(), np.abs(ref_im).max())
+    err = max(np.abs(got[0].numpy() - ref_re).max(), np.abs(got[1].numpy() - ref_im).max())
+    assert err <= rtol * scale, (err, scale)
+
+
+@pytest.mark.parametrize("ny", POW2)
+def test_plan_covers_every_slot_and_row_once_and_fits(ny):
+    for nz in POW2[1:]:
+        plan = ck._zy_fft_plan(ny, nz)
+        n = nz // 2
+        c, parts = plan.cluster, plan.passes * plan.cluster
+        assert plan.rows * c == ny and c <= 16 and c & (c - 1) == 0
+        assert plan.passes & (plan.passes - 1) == 0 and plan.passes <= n
+        bounds = [plan.bound(u) for u in range(parts + 1)]
+        assert bounds[0] == 0 and bounds[-1] == n and bounds == sorted(bounds)
+        # n slots (slot 0 = kz 0 and nz/2) cover the nz/2 + 1 kz columns once.
+        slots = [u for a, b in zip(bounds, bounds[1:]) for u in range(a, b)]
+        assert slots == list(range(n))
+        widths = {b - a for a, b in zip(bounds, bounds[1:])}
+        assert widths <= {0, 1} if n < parts else widths == {plan.tile}
+        assert plan.tile & (plan.tile - 1) == 0 and plan.es >= plan.tile and plan.es % 2 == 1
+        assert plan.batch & (plan.batch - 1) == 0 and plan.rows % plan.batch == 0
+        assert plan.work == plan.batch * plan.ws and plan.ws >= n
+        assert plan.smem <= ck.ZY_SMEM_MAX <= 232448 and plan.smem % 8 == 0
+        assert sum(plan.logs_z) == n.bit_length() - 1 and sum(plan.logs_y) == ny.bit_length() - 1
+        assert len(plan.as_ints()) == 13 + 2 * ck.ZY_MAX_STAGES
+
+
+@pytest.mark.parametrize("shape", [(512, 512), (1024, 1024), (256, 1024), (1024, 256)])
+def test_plan_at_the_path_shapes(shape):
+    """512^2 fits one pass with two blocks an SM; 1024^2 needs two passes."""
+    plan = ck._zy_fft_plan(*shape)
+    assert plan.cluster == 16
+    if shape == (512, 512):
+        assert plan.passes == 1 and plan.smem <= ck.ZY_SMEM_HALF
+    if shape == (1024, 1024):
+        assert plan.passes == 2
+
+
+@pytest.mark.parametrize("n", [1, 2, 8, 64, 256, 512, 1024])
+def test_fft_positions_are_the_digit_reversal(n):
+    logs = ck._radix_logs(n)
+    pos = ck._fft_positions(n, logs).numpy()
+    assert sorted(pos.tolist()) == list(range(n))
+    v = np.random.default_rng(n).standard_normal(n) + 1j * np.random.default_rng(n + 1).standard_normal(n)
+    out = ck._dif_passes(_t(v), logs, ck._twiddles(n, torch.float64, "cpu")).numpy()
+    np.testing.assert_allclose(out[pos], np.fft.fft(v), rtol=1e-12, atol=1e-12)
+
+
+# Edges: y or z extent 1 or 2, a rank of one row (ny = 16 over 16 ranks),
+# ranks with no slot (nz/2 < ranks), and the 1024^2 two-pass plan.
+TWIN_SHAPES = [(2, 1, 2), (3, 2, 2), (2, 1, 8), (2, 8, 2), (2, 2, 1024), (2, 16, 4), (3, 64, 32),
+               (2, 16, 64), (1, 1024, 1024)]
+
+
+@pytest.mark.parametrize("shape", TWIN_SHAPES)
+def test_fft_twin_matches_numpy_and_the_dense_twin(shape):
+    v = np.random.default_rng(sum(shape)).standard_normal(shape)
+    got = ck._zy_rfft_fft_plain(_t(v), ck._zy_fft_plan(shape[1], shape[2]))
+    assert got[0].shape == (shape[0], shape[1], shape[2] // 2 + 1) and got[0].dtype == torch.float64
+    ref = np.fft.fft(np.fft.rfft(v, axis=2), axis=1)
+    _close(got, ref.real, ref.imag, 1e-12)
+    dense = ck._zy_rfft_plain(_t(v))
+    _close(got, dense[0].numpy(), dense[1].numpy(), 1e-12)
+
+
+@pytest.mark.parametrize("ny,nz,cluster,passes", [(64, 64, 4, 2), (32, 128, 8, 4), (16, 32, 2, 8),
+                                                  (8, 16, 8, 2)])
+def test_fft_twin_under_other_plans(ny, nz, cluster, passes):
+    """Plans with several passes and other cluster sizes than the rule's:
+    pass and rank boundaries in the slots, the tiles and the rows."""
+    plan = ck._fit_plan(ny, nz, cluster, passes, ck.ZY_SMEM_MAX)
+    assert plan is not None and (plan.cluster, plan.passes) == (cluster, passes)
+    v = np.random.default_rng(ny + nz).standard_normal((2, ny, nz))
+    ref = np.fft.fft(np.fft.rfft(v, axis=2), axis=1)
+    _close(ck._zy_rfft_fft_plain(_t(v), plan), ref.real, ref.imag, 1e-12)
+
+
+def test_fft_twin_matches_fava_tpu(force_interpret):
+    rng = np.random.default_rng(5)
+    v = rng.standard_normal((4, 128, 128))
+    assert pallas_dft.use_fused_zy(v.shape)
+    re_ref, im_ref = pallas_dft.zy_rfft_planar(jnp.asarray(v))
+    re, im = ck._zy_rfft_fft_plain(_t(v), ck._zy_fft_plan(128, 128))
+    np.testing.assert_allclose(re.numpy(), np.asarray(re_ref), rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(im.numpy(), np.asarray(im_ref), rtol=1e-9, atol=1e-9)
+
+
+def test_fft_twin_in_float32_is_close():
+    """In float32 the twin carries log2 n roundings, as the kernel does."""
+    v = np.random.default_rng(9).standard_normal((2, 256, 256))
+    got = ck._zy_rfft_fft_plain(_t(v).float(), ck._zy_fft_plan(256, 256))
+    assert got[0].dtype == torch.float32
+    ref = np.fft.fft(np.fft.rfft(v, axis=2), axis=1)
+    _close([g.double() for g in got], ref.real, ref.imag, 1e-6)
+
+
+ROUTES = {
+    (2, 2, 2): True, (3, 64, 32): True, (4, 512, 512): True, (2, 1024, 1024): True,
+    (1, 1024, 2): True, (1, 1, 2): True, (3, 40, 50): False, (2, 64, 33): False, (1, 1, 1): False,
+    (4, 512, 480): False, (2, 1, 7): False, (1, 2048, 2): False, (65536, 2, 2): False,
+}
+
+
+@pytest.mark.parametrize("shape", sorted(ROUTES))
+def test_route_by_shape(shape):
+    """Power-of-two y (1..1024) and z (2..1024) take the FFT kernel; other
+    shapes within zy_rfft_fits the dense one; the rest neither."""
+    assert ck._zy_uses_fft(shape) == ROUTES[shape]
+    if not ROUTES[shape]:
+        fits = 1 <= shape[0] <= 65535 and max(shape[1:]) <= 1024
+        assert ck.zy_rfft_fits(shape) == fits
+
+
+def test_cpu_wrappers_take_the_dense_twin():
+    """On the CPU both routes' wrappers return the dense twin's result."""
+    v = _t(np.random.default_rng(3).standard_normal((2, 16, 8)))
+    ck.reset_launch_counts()
+    for got in (ck.zy_rfft_planar(v), ck._zy_rfft_dense(v)):
+        for g, r in zip(got, ck._zy_rfft_plain(v)):
+            assert torch.equal(g, r)
+    assert not any(ck.launch_counts().values())
