@@ -30,7 +30,8 @@ no result):
    per float32 field); ``FLASH(d).load(file_type="plt")`` and the four
    velocity/density fields read onto the card, timed per field.
 7. AMR kernels: K5/K6 on the leaf stack and K7 on the full-domain regrid
-   (2048x512x512, scales 1-16) against their plain versions.
+   (2048x512x512, scales 1-16) against their plain versions; K7's ptxas
+   report, launch and occupancy.
 8. AMR path, each step with the launch counters reset before and checked
    after: ``reynolds_stress`` and ``favre_profiles`` (K5, K6);
    ``mesh.from_amr`` of the window [1.5,2.5]x[0,1]x[0,1] to 512^3 with
@@ -57,7 +58,8 @@ no result):
    analysis file with ``save_to_hdf5`` and read back equal; each held to
    the plain float64 path on the CPU; warm walls.
 12. Odd extents: the window cut to 511x512x512 through ``from_arrays``:
-   the unfolded binning kernel (B10) against its plain version, then
+   the unfolded binning kernel (B10) against its plain version (its
+   ptxas report, launch and occupancy printed), then
    ``kinetic_energy_spectra``, ``scalar_spectra`` and
    ``flagship_analysis`` through it, with counters, held to the plain
    float64 path on the CPU.
@@ -66,7 +68,8 @@ no result):
    then the kernel against its plain version on the path's (128, 1024,
    513) chunks at kx0 = 0, 448 and 896 and on a chunk of an odd-nx
    (1023) volume; the 8 chunks of a snapshot add up to B10 on the whole
-   volume; phase 18's spectra paths (a) and (b) on these fields, timed.
+   volume, and their time against their bound; B6's launch and
+   occupancy; phase 18's spectra paths (a) and (b) on these fields, timed.
 14. Streamed step at 1024^3: ``ops.outofcore.streamed_uniform_analysis``
    from the host copy through a host-memory slab loader, twice, each run
    with counters (B6 per chunk, K5/K6 per slab) and held to the in-core
@@ -707,6 +710,8 @@ def phase_amr_kernels(torch, np, mesh):
             "plain_ms": cuda_ms(torch, lambda: ck._regrid_plain(stacks, *args), 3),
             **least_time(regrid_bytes(torch, ck, stacks, args), 0)}
     say(f"phase 7 regrid_fields full domain, dens only: {full}")
+    regrid_launch(torch, ck, 7, AMR_EXPECT["full"],
+                  ck._regrid_wide(args[3], args[4], args[5], tuple(args[0].shape[1:])))
     torch.cuda.empty_cache()
     return rows, full
 
@@ -1128,6 +1133,7 @@ def phase_odd_extents(torch, np, uni, cpu):
         lambda: ck.shell_bin_sums_unfolded(total, longi, nbins, nz),
         lambda: ck._shell_bin_unfolded_plain(total, longi, nbins, nz),
         (8 * inside + 16 * nbins, 8 * inside))}
+    unfolded_launch(torch, ck, 12, total.shape, nz, 2, nbins)
     del total, longi, got, again, ref
     torch.cuda.empty_cache()
 
@@ -1217,8 +1223,9 @@ def phase_chunk_kernel(torch, fields):
                                            nbins, nx, nz, k)
 
     inside_all = inside_cells(ck, total, nbins, full_nz=nz)
-    say(f"phase 13 {len(starts)} launches (one snapshot): {cuda_ms(torch, one_snapshot, 5)!r} ms, "
-        f"bound {least_time(8 * inside_all + 16 * nbins * len(starts), 8 * inside_all)}")
+    say(f"phase 13 {len(starts)} launches (one {nx}^3 snapshot): {cuda_ms(torch, one_snapshot, 5)!r} ms "
+        f"against {least_time(8 * inside_all + 16 * nbins * len(starts), 8 * inside_all)}")
+    unfolded_launch(torch, ck, 13, (CHUNK_ROWS, ny, nz // 2 + 1), nz, 2, nbins)
     t, lo = total[:CHUNK_ROWS], longi[:CHUNK_ROWS]  # the chunk with the most cells inside
     inside = inside_cells(ck, t, nbins, full_nz=nz, kx0=0, full_nx=nx)
     row = kernel_row(torch, 13, "shell_bin_values_rfft_chunk", max_abs, worst, TOL_BIN,
@@ -1601,6 +1608,38 @@ def fused_kernel_rows(torch, ck, fields, nbins):
     del x, got, ref
     torch.cuda.empty_cache()
     return rows
+
+
+def unfolded_launch(torch, ck, phase, shape, full_nz, channels, nbins):
+    """Print B6/B10's ptxas report and launch: warps and dynamic shared
+    bytes a block (a histogram of channels * nbins doubles a warp, and the
+    nbins + 2 int thresholds of the shells), blocks an SM (occupancy) and
+    the grid."""
+    for line in ptxas_report("shell_bin_unfolded_kernel"):
+        say(f"phase {phase} shell_bin_unfolded_kernel ptxas: {line}")
+    bps = ck.unfolded_blocks_per_sm(channels, nbins)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    say(f"phase {phase} shell_bin_unfolded_kernel<{channels}> launch on {tuple(shape)}, {nbins} shells: "
+        f"{ck.UNFOLDED_WARPS} warps and {ck.UNFOLDED_WARPS * channels * nbins * 8 + (nbins + 2) * 4} "
+        f"shared bytes a block, "
+        f"{bps} blocks an SM ({bps * ck.UNFOLDED_WARPS} warps of 64), grid "
+        f"{ck._unfolded_launch_blocks(shape, full_nz, channels, nbins, torch.device('cuda'))} "
+        f"on {sms} SMs")
+
+
+def regrid_launch(torch, ck, phase, out_shape, wide):
+    """Print K7's ptxas report and launch: threads along z and rows a
+    block, blocks an SM (occupancy) and the grid."""
+    for line in ptxas_report("regrid_kernel"):
+        say(f"phase {phase} regrid_kernel ptxas: {line}")
+    nx, ny, nz = out_shape
+    tz = ck._regrid_threads(nz)
+    bps = ck.regrid_blocks_per_sm(wide)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    say(f"phase {phase} regrid_kernel launch on {tuple(out_shape)}: {tz} threads along z x "
+        f"{ck.REGRID_THREADS // tz} rows a block, {'wide' if wide else 'narrow'} indices, {bps} "
+        f"blocks an SM ({bps * ck.REGRID_THREADS // 32} warps of 64), grid "
+        f"{ck._regrid_blocks(nx * ny, tz)} on {sms} SMs")
 
 
 def ptxas_report(kernel: str):

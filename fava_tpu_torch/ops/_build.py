@@ -47,8 +47,10 @@ _SIGNATURES = {
     "fava_block_row_moments": (_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P),
     "fava_block_centered_row_moments": (_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P),
     "fava_regrid_fields": (_P, _P, _I, _P, _P, _P) + (_LL,) * 14 + (_I, _I, _P),
+    "fava_regrid_blocks_per_sm": (_I,),
     "fava_shell_bin_sums_unfolded": (_P, _P, _P) + (_I,) * 7 + (_P,),
     "fava_shell_bin_sums_rfft_chunk": (_P, _P, _P) + (_I,) * 9 + (_P,),
+    "fava_shell_bin_unfolded_blocks_per_sm": (_I, _I),
     "fava_pdf2d": (_P,) * 6 + (_LL, _I, _I, _I, _I, _P),
     "fava_pdf2d_hist_mode": (_I, _I, _I),
     "fava_shell_bin_sums_folded_onepass": (_P, _P, _P) + (_I,) * 8 + (_P,),

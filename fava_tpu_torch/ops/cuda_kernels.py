@@ -344,8 +344,9 @@ def _shell_bin_folded(name: str, vols, nbins: int, full_ny: int, full_nz: int) -
 
 
 def _bin_blocks(nrows: int, device: torch.device) -> int:
-    """Blocks of a shell-binning launch: 8 rows (one a warp) each, at
-    most 4 per SM (each zeroes and flushes its own histogram)."""
+    """Blocks of a folded shell-binning launch (K4, B11a, B9): 8 rows (one
+    a warp) each, at most 4 per SM (each zeroes and flushes its own
+    histogram)."""
     warps = 256 // 32
     return max(1, min(-(-nrows // warps), 4 * _sm_count(device.index or 0)))
 
@@ -490,6 +491,37 @@ def _shell_bin_unfolded_plain(total, longi, nbins, full_nz, kx0: int = 0, full_n
     return _shell_sums(total, longi, shell, wz, nbins)
 
 
+UNFOLDED_WARPS = 8  # warps of a B6/B10 block (kMaxWarps in csrc/spectra_kernels.cu)
+
+
+@lru_cache(maxsize=16)
+def unfolded_blocks_per_sm(channels: int, nbins: int, index: int = 0) -> int:
+    """Blocks of B6/B10's kernel (UNFOLDED_WARPS warps, each with its own
+    histogram of channels * nbins doubles in shared memory) that fit one
+    SM of card ``index`` at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    with torch.cuda.device(index):
+        n = _build.library().fava_shell_bin_unfolded_blocks_per_sm(int(channels), int(nbins))
+    if n <= 0:
+        raise RuntimeError(f"shell_bin_sums_unfolded: no block fits an SM for {nbins} shells "
+                           f"(occupancy query {n})")
+    return n
+
+
+def _unfolded_blocks(nwalks: int, blocks_per_sm: int, sms: int) -> int:
+    """Blocks of a B6/B10 launch over ``nwalks`` walks (one per row of a
+    half-spectrum, two per row of a full grid): a walk for each warp, at
+    most as many blocks as the card holds at once (the warps stride over
+    the walks; each block zeroes and flushes its own histograms)."""
+    return max(1, min(-(-nwalks // UNFOLDED_WARPS), blocks_per_sm * sms))
+
+
+def _unfolded_launch_blocks(shape, full_nz: int, channels: int, nbins: int, device) -> int:
+    nx, ny, nzr = (int(s) for s in shape)
+    walks = nx * ny * (2 if nzr == full_nz else 1)
+    index = device.index or 0
+    return _unfolded_blocks(walks, unfolded_blocks_per_sm(channels, nbins, index), _sm_count(index))
+
+
 def shell_bin_sums_unfolded(total, longi: Optional[torch.Tensor], nbins: int, full_nz: int):
     """(C, nbins) float64 Hermitian-weighted shell sums of (nx, ny, nzr)
     power volumes, any extents: C = 2 (total, longitudinal) or 1 when
@@ -510,7 +542,8 @@ def shell_bin_sums_unfolded(total, longi: Optional[torch.Tensor], nbins: int, fu
     _launch(
         name, total.device, _build.library().fava_shell_bin_sums_unfolded, total.data_ptr(),
         None if longi is None else longi.data_ptr(), out.data_ptr(), nx, ny, nzr, int(nbins),
-        int(full_nz), len(vols), _bin_blocks(nx * ny, total.device),
+        int(full_nz), len(vols),
+        _unfolded_launch_blocks(total.shape, full_nz, len(vols), int(nbins), total.device),
     )
     return out
 
@@ -544,7 +577,7 @@ def shell_bin_values_rfft_chunk(total, longi, nbins: int, full_nx: int, full_nz:
         _launch(
             name, total.device, _build.library().fava_shell_bin_sums_rfft_chunk, total.data_ptr(),
             longi.data_ptr(), sums2.data_ptr(), rows, ny, nzr, int(nbins), full_nx, full_nz, kx0,
-            2, _bin_blocks(rows * ny, total.device),
+            2, _unfolded_launch_blocks(total.shape, full_nz, 2, int(nbins), total.device),
         )
     return torch.stack([sums2[0], sums2[1], sums2[0] - sums2[1]])
 
@@ -1217,6 +1250,59 @@ def _regrid_shifts(scales: torch.Tensor) -> torch.Tensor:
     return shifts
 
 
+REGRID_THREADS = 256  # threads of a K7 block (kRegridThreads in csrc/amr_kernels.cu)
+
+
+REGRID_THREADS_Z = 16  # most threads along z: a thread takes every 16th 4-cell group of a row
+
+
+def _regrid_threads(nz: int) -> int:
+    """K7's threads along z: the least power of two that covers a row's
+    4-cell groups (``_regrid_groups``), at most
+    REGRID_THREADS_Z. The block holds REGRID_THREADS // this many rows;
+    a thread takes every this-many-th group of its row, so the row's
+    setup serves several groups (nz = 512: 16 rows a block, 8 groups a
+    thread; faster than 32-256 threads along z on an NVIDIA H100 80GB
+    HBM3 at 700 W, probe_bin_regrid.py)."""
+    return min(REGRID_THREADS_Z, 1 << max(0, _regrid_groups(nz) - 1).bit_length())
+
+
+def _regrid_groups(nz: int) -> int:
+    """4-cell groups of a K7 output row: groups are aligned to the flat
+    output, so rows start aligned when 4 divides nz, and otherwise 0-3
+    cells into their first group."""
+    return nz // 4 if nz % 4 == 0 else (nz + 6) // 4
+
+
+def _regrid_blocks(nrows: int, threads: int) -> int:
+    """Blocks of a K7 launch: one for each REGRID_THREADS // threads rows.
+    Rows of coarse tiles cost less than rows of fine ones, so the card's
+    block scheduler balances them better than a grid of one wave striding
+    over the rows (full-domain regrid on an NVIDIA H100 80GB HBM3 at 700 W:
+    1.652 against 1.912 ms, probe_bin_regrid.py)."""
+    return max(1, -(-nrows // (REGRID_THREADS // threads)))
+
+
+@lru_cache(maxsize=4)
+def regrid_blocks_per_sm(wide: bool, index: int = 0) -> int:
+    """Blocks of K7 (narrow or wide indices) that fit one SM of card
+    ``index`` at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    with torch.cuda.device(index):
+        n = _build.library().fava_regrid_blocks_per_sm(int(wide))
+    if n <= 0:
+        raise RuntimeError(f"regrid_fields: occupancy query failed ({n})")
+    return n
+
+
+def _regrid_wide(out_shape, origin, ncells, tile_shape) -> bool:
+    """Whether K7 needs 64-bit coordinates (the C entry's test)."""
+    (nx, ny, nz), (ox, oy, oz), (ncx, _ncy, ncz) = out_shape, origin, ncells
+    ty, tz = tile_shape
+    lim = 1 << 31
+    return not (nx * ny < lim and ox + nx < lim and oy + ny < lim and oz + nz < lim
+                and ty * tz * ((ox + nx) // ncx + 1) < lim and tz * ncz < lim)
+
+
 def regrid_fields(stacks, leaf_table, offsets, scales, out_shape, origin, ncells):
     """Regrid each (nB, bx, by, bz) block stack onto the uniform grid.
 
@@ -1248,9 +1334,9 @@ def regrid_fields(stacks, leaf_table, offsets, scales, out_shape, origin, ncells
     outs = [torch.empty(out_shape, dtype=first.dtype, device=first.device) for _ in stacks]
     if nx * ny * nz == 0:
         return outs
-    threads = min(256, 32 * -(-nz // 32))
-    blocks = max(1, min(nx * ny, 32 * _sm_count(first.device.index or 0)))
     _ty, ty, tz = (int(n) for n in leaf_table.shape)
+    threads = _regrid_threads(nz)
+    blocks = _regrid_blocks(nx * ny, threads)
     lib = _build.library()
     for k in range(0, len(stacks), REGRID_MAX_FIELDS):
         chunk = range(k, min(len(stacks), k + REGRID_MAX_FIELDS))

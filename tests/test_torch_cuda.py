@@ -335,6 +335,131 @@ def test_unfolded_binning_small_and_odd_shapes(cuda_device, nx, ny, nz, full, ch
     torch.testing.assert_close(got, ref, rtol=1e-10, atol=1e-300)
 
 
+# (nx, ny, nz, full grid): z extents nzr = 1, 2, 33, 257 and 513, none a
+# multiple of a lane's span; odd x and y; full grids (both walks); rows of
+# 511 cells (two trips of four float4 groups a lane).
+SPAN_CASES = [(5, 3, 1, True), (4, 7, 3, False), (9, 6, 64, False), (3, 5, 512, False),
+              (2, 3, 1024, False), (6, 5, 9, True), (5, 7, 64, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,nz,full", SPAN_CASES)
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("first_span", [False, True])
+def test_unfolded_binning_spans_and_walks(cuda_device, nx, ny, nz, full, channels, first_span):
+    """B10 against its twin; with ``first_span`` nbins = 2, so every walk
+    stops inside its first span."""
+    nzr = nz if full else nz // 2 + 1
+    nbins = 2 if first_span else max(max(nx, ny, nz) // 2 - 1, 1)
+    vols = [a.abs() for a in _fields(cuda_device, shape=(nx, ny, nzr), seed=nx * nz)[:channels]]
+    longi = vols[1] if channels == 2 else None
+    ck.reset_launch_counts()
+    got = ck.shell_bin_sums_unfolded(vols[0], longi, nbins, nz)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["shell_bin_sums_unfolded"] == 1
+    ref = ck._shell_bin_unfolded_plain(
+        vols[0].double(), None if longi is None else longi.double(), nbins, nz
+    )
+    torch.testing.assert_close(got, ref, rtol=1e-10, atol=1e-300)
+
+
+def _chunk_entry(t, lo, out, nbins, full_nx, full_nz, kx0, channels):
+    """B6's C entry with ``channels`` 1 or 2 (the wrapper always bins two)."""
+    rows, ny, nzr = t.shape
+    dev = t.device
+    blocks = ck._unfolded_blocks(rows * ny, ck.unfolded_blocks_per_sm(channels, nbins),
+                                 ck._sm_count(dev.index or 0))
+    ck._launch("shell_bin_values_rfft_chunk", dev, ck._build.library().fava_shell_bin_sums_rfft_chunk,
+               t.data_ptr(), lo.data_ptr() if channels == 2 else None, out.data_ptr(), rows, ny, nzr,
+               nbins, full_nx, full_nz, kx0, channels, blocks)
+
+
+# (full_nx, ny, nz, kx0, rows): 5 x 5 cells a row, so kx0 * 100 bytes leaves
+# the views unaligned to 16 bytes; the Nyquist row 9 of x extent 18 at a
+# chunk's first, middle and last row; an odd x extent.
+CHUNK_VIEW_CASES = [(18, 5, 9, 9, 3), (18, 5, 9, 7, 5), (18, 5, 9, 5, 5), (15, 7, 64, 3, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,nz,kx0,rows", CHUNK_VIEW_CASES)
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("same_alignment", [True, False])
+def test_chunk_binning_on_unaligned_views(cuda_device, nx, ny, nz, kx0, rows, channels,
+                                          same_alignment):
+    """B6 on views of whole half-spectra; without ``same_alignment`` the
+    longitudinal chunk starts one row later in its volume, so the two
+    volumes' rows sit at different offsets from 16 bytes (scalar loads)."""
+    nbins = max(nx, ny, nz) // 2 - 1
+    t, lo = (a.abs() for a in _fields(cuda_device, shape=(nx + 1, ny, nz // 2 + 1), seed=kx0)[:2])
+    tc = t[kx0 : kx0 + rows]
+    lc = lo[kx0 : kx0 + rows] if same_alignment else lo[kx0 + 1 : kx0 + 1 + rows]
+    assert tc.is_contiguous() and tc.data_ptr() % 16 != 0
+    out = torch.zeros((channels, nbins), dtype=torch.float64, device=cuda_device)
+    ck.reset_launch_counts()
+    _chunk_entry(tc, lc, out, nbins, nx, nz, kx0, channels)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["shell_bin_values_rfft_chunk"] == 1
+    ref = ck._shell_bin_unfolded_plain(tc.double(), lc.double() if channels == 2 else None, nbins,
+                                       nz, kx0, nx)
+    torch.testing.assert_close(out, ref, rtol=1e-10, atol=1e-300)
+
+
+def _regrid_case(device, ncells, window, depth, nfields):
+    """A plan over a 2 x 1 x 1 root grid whose corner block is refined to
+    ``depth`` (scales 1 .. 2^(depth-1)), cut to ``window``, and random stacks."""
+    from fava_tpu_torch.io.synthetic import build_amr_tree
+
+    blocks = build_amr_tree(
+        (2, 1, 1), np.array([[0.0, 2.0], [0.0, 1.0], [0.0, 1.0]]),
+        refine_fn=lambda b, lev: depth if b[0, 0] < 0.2 and b[1, 0] < 0.2 else 1,
+    )
+    plan = regrid.RegridPlan(
+        block_bounds=np.stack([b.bounds for b in blocks]),
+        node_type=np.array([b.node_type for b in blocks]),
+        refine_level=np.array([b.level for b in blocks]), ncells_vec=np.array(ncells),
+        nblks_vec=np.array([2, 1, 1]), ndim=3, subdomain_coords=np.array(window),
+    )
+    rng = np.random.default_rng(depth + nfields)
+    stacks = [torch.from_numpy(rng.standard_normal((len(blocks), *ncells))).float().to(device)
+              for _ in range(nfields)]
+    return plan, stacks
+
+
+# name: (ncells, window, refinement depth, fields).
+REGRID_CASES = {
+    "scales 1-16": ((8, 8, 8), [[0.05, 1.9], [0, 1], [0, 1]], 5, 1),
+    "scale 1 only": ((8, 8, 8), [[0.0, 2.0], [0, 1], [0, 1]], 1, 4),
+    "nz not a multiple of 4": ((4, 4, 6), [[0.3, 1.7], [0, 1], [0.17, 0.93]], 3, 8),
+    "origin off a multiple of 4": ((8, 8, 8), [[0.05, 1.9], [0.1, 0.9], [0.013, 0.77]], 4, 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(REGRID_CASES))
+@pytest.mark.parametrize("holes", [False, True])
+def test_regrid_is_bit_exact(cuda_device, case, holes):
+    ncells, window, depth, nfields = REGRID_CASES[case]
+    plan, stacks = _regrid_case(cuda_device, ncells, window, depth, nfields)
+    scales = plan.block_scales[plan.source_ids]
+    assert int(scales.max()) == 2 ** (depth - 1) and int(scales.min()) == 1
+    table, offsets, block_scales = plan.device_tables(cuda_device)
+    if holes:  # blk < 0: no source block, the cells are 0
+        table = table.clone()
+        table.view(-1)[::3] = -1
+    args = (table, offsets, block_scales, plan.out_shape, tuple(plan.out_origin),
+            tuple(plan.ncells_vec))
+    if case == "nz not a multiple of 4":
+        assert plan.out_shape[2] % 4 != 0
+    if case == "origin off a multiple of 4":
+        assert plan.out_origin[2] % 4 != 0
+    ck.reset_launch_counts()
+    got = ck.regrid_fields(stacks, *args)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["regrid_fields"] == 1
+    for g, r in zip(got, ck._regrid_plain(stacks, *args)):
+        assert torch.equal(g, r)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4, 4, 4), (8, 6, 5), (2, 34, 9)])
 def test_folded_single_channel_small_shapes(cuda_device, shape):
