@@ -43,15 +43,20 @@ no result):
    leaf gather, K5, K6, scatter and assembly, K7, the uniform write and
    read-back and the window's flagship step.
 10. Stage 4 on the AMR leaves (phase 8, before ``from_amr`` collapses
-   the mesh): the pdf2d kernel with cell-volume weights (pdf2d_weighted)
-   against its plain version on the 140 M leaf samples, then ``pdf2d``
+   the mesh): the pdf2d kernel's ptxas report, launch and occupancy; the
+   kernel with cell-volume weights (pdf2d_weighted) against its plain
+   version on the 140 M leaf samples, and unweighted (pdf2d_counts) on the
+   same samples, timed against its bound; then ``pdf2d``
    (volume-weighted and unweighted), ``pdf1d``, ``density_pdf``,
    ``binned_statistic``, ``mass_sum`` and ``volume_average`` with the
    counters reset before and checked after each, held to the plain
    float64 path on the CPU at the end of phase 8.
 11. Stage 4 on the 512^3 window read back from its file: pdf2d_counts on
    (dens, velx) and the single-channel K4 on the folded dens power
-   against their plain versions; ``kinetic_energy_spectra``,
+   against their plain versions; pdf2d_weighted on the window with mass
+   weights, and both pdf2d kernels on 134 M uncorrelated uniform samples,
+   each held to its plain version and timed against its bound;
+   ``kinetic_energy_spectra``,
    ``scalar_spectra("dens")``, ``pdf1d``, ``pdf2d`` (unweighted and
    mass-weighted), ``density_pdf``, ``binned_statistic``, ``mass_sum``
    and ``mass_fraction`` with counters; every result written to an
@@ -906,30 +911,81 @@ def add_counts(totals, launches):
         totals[k] = totals.get(k, 0) + v
 
 
-def check_pdf2d_kernel(torch, np, ck, phase, x, y, w):
-    """The pdf2d kernel against its plain version on the path's samples and
-    its default edges (100 x 100 over the data ranges): counts exact,
-    weighted sums within TOL_WSUM per bin."""
-    name = "pdf2d_counts" if w is None else "pdf2d_weighted"
+def pdf2d_against_plain(torch, np, ck, x, y, w):
+    """The pdf2d kernel and its plain version on the samples and the
+    default edges (100 x 100 over the data ranges): (x edges, y edges, the
+    kernel's result, the plain one, error/bound: counts exact, weighted
+    sums within TOL_WSUM per bin)."""
     xe = np.linspace(float(x.min()), float(x.max()), 101)
     ye = np.linspace(float(y.min()), float(y.max()), 101)
     got = ck.pdf2d_counts(x, y, xe, ye, weights=w)
-    again = ck.pdf2d_counts(x, y, xe, ye, weights=w)
     torch.cuda.synchronize()
     ref = ck._pdf2d_plain(x, y, xe, ye, w)
+    if w is None:
+        ratio = 0.0 if torch.equal(got, ref) else float("inf")
+    else:
+        ratio = float(((got - ref).abs() / (TOL_WSUM * ref.abs()).clamp(min=1e-300)).max())
+    return xe, ye, got, ref, ratio
+
+
+def check_pdf2d_kernel(torch, np, ck, phase, x, y, w):
+    """The pdf2d kernel against its plain version on the path's samples,
+    run to run, and timed beside it (the kernels line's row)."""
+    name = "pdf2d_counts" if w is None else "pdf2d_weighted"
+    xe, ye, got, ref, ratio = pdf2d_against_plain(torch, np, ck, x, y, w)
+    again = ck.pdf2d_counts(x, y, xe, ye, weights=w)
     shared = ck.pdf2d_hist_in_shared_memory(100, 100, w is not None, x.device)
     say(f"phase {phase} {name}: {x.numel()} samples, 100 x 100 bins, histogram in shared "
         f"memory {shared}, run-to-run max |diff| {float((got - again).abs().max())!r}")
-    diff = (got - ref).abs()
-    if w is None:
-        ratio, bound = (0.0 if torch.equal(got, ref) else float("inf")), "exact"
-    else:
-        ratio, bound = float((diff / (TOL_WSUM * ref.abs()).clamp(min=1e-300)).max()), TOL_WSUM
-    n_in = 2 if w is None else 3
-    return name, kernel_row(torch, phase, name, float(diff.max()), ratio, bound,
+    return name, kernel_row(torch, phase, name, float((got - ref).abs().max()), ratio,
+                            "exact" if w is None else TOL_WSUM,
                             lambda: ck.pdf2d_counts(x, y, xe, ye, weights=w),
                             lambda: ck._pdf2d_plain(x, y, xe, ye, w),
-                            (4 * n_in * x.numel() + 8 * 100 * 100, 8 * x.numel()))
+                            pdf2d_work(x.numel(), w is not None))
+
+
+def pdf2d_work(n, weighted):
+    """(bytes, operations) of a pdf2d call on n samples and 100 x 100 bins:
+    the samples (and weights) read once, the output written once."""
+    return 4 * (3 if weighted else 2) * n + 8 * 100 * 100, 8 * n
+
+
+def pdf2d_launch_report(torch, ck, phase, n):
+    """Print B8's ptxas report and its launch on n samples: threads and
+    dynamic shared bytes a block, blocks an SM (occupancy) and the grid."""
+    for line in ptxas_report("pdf2d_kernel", entries=True):
+        say(f"phase {phase} pdf2d_kernel ptxas: {line}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for weighted in (False, True):
+        launch = ck.pdf2d_launch(n, 100, 100, weighted)
+        bps = launch["blocks_per_sm"]
+        say(f"phase {phase} pdf2d_kernel<{'weighted' if weighted else 'counted'}> launch on {n} samples, "
+            f"100 x 100 bins: {ck.PDF2D_THREADS} threads and {launch['smem']} shared bytes a block "
+            f"(histogram in shared memory {bool(launch['shared'])}), {bps} blocks an SM "
+            f"({bps * ck.PDF2D_THREADS // 32} warps of 64), grid {launch['blocks']} on {sms} SMs")
+
+
+def pdf2d_beside(torch, np, ck, phase, label, x, y, w):
+    """A pdf2d kernel on samples beside its path's: held to its plain
+    version as check_pdf2d_kernel holds it, timed, against its bound."""
+    name = "pdf2d_counts" if w is None else "pdf2d_weighted"
+    xe, ye, _, _, ratio = pdf2d_against_plain(torch, np, ck, x, y, w)
+    if not ratio <= 1.0:
+        fail(f"{name} on {label} disagrees with its plain version (error/bound {ratio!r})")
+    ms = cuda_ms(torch, lambda: ck.pdf2d_counts(x, y, xe, ye, weights=w), 20)
+    bound = least_time(*pdf2d_work(x.numel(), w is not None))["bound_ms"]
+    say(f"phase {phase} {name} on {label} ({x.numel()} samples): error/bound {ratio!r}, {ms!r} ms "
+        f"against its bound {bound!r} ms ({ms / bound!r}x)")
+
+
+def pdf2d_uncorrelated(torch, np, ck, phase, n=134217728):
+    """Both pdf2d kernels on n uncorrelated uniform samples (no runs)."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x, y, w = (torch.rand(n, device="cuda", generator=g) for _ in range(3))
+    for weights in (None, w):
+        pdf2d_beside(torch, np, ck, phase, "uncorrelated uniform samples", x, y, weights)
+    del x, y, w
+    torch.cuda.empty_cache()
 
 
 # AMR analyses whose histograms are weighted (by leaf cell volume): their
@@ -967,7 +1023,9 @@ def amr_stage4(torch, np, ck, model):
     mesh = model.mesh
     dens, velx = mesh._leaf_stack("dens"), mesh._leaf_stack("velx")
     w = mesh._pdf_weights("volume", tuple(dens.shape))
+    pdf2d_launch_report(torch, ck, 10, dens.numel())
     row = check_pdf2d_kernel(torch, np, ck, 10, dens, velx, w)
+    pdf2d_beside(torch, np, ck, 10, "the AMR leaves", dens, velx, None)
     del dens, velx, w
     torch.cuda.empty_cache()
     results, walls, totals = run_counted(torch, ck, 10, amr_stage4_runs(model), "AMR")
@@ -1064,6 +1122,8 @@ def phase_window_stage4(torch, np, workdir: Path):
     uni.load(file_type="uni", fields=list(NAMES))
     dens, velx = uni.mesh.data("dens"), uni.mesh.data("velx")
     rows = dict([check_pdf2d_kernel(torch, np, ck, 11, dens, velx, None)])
+    pdf2d_beside(torch, np, ck, 11, "the window, mass weights", dens, velx, dens)
+    pdf2d_uncorrelated(torch, np, ck, 11)
 
     # Single-channel K4 on the folded dens power (the scalar spectrum's).
     nx, ny, nz = dens.shape
@@ -1642,15 +1702,18 @@ def regrid_launch(torch, ck, phase, out_shape, wide):
         f"{ck._regrid_blocks(nx * ny, tz)} on {sms} SMs")
 
 
-def ptxas_report(kernel: str):
-    """The -Xptxas -v lines of the build about ``kernel``: its entry, its
-    stack and spills, its registers and shared memory."""
+def ptxas_report(kernel: str, entries: bool = False):
+    """The -Xptxas -v lines of the build about ``kernel``: its stack and
+    spills, its registers and shared memory (and, with ``entries``, the
+    line that names each instantiation)."""
     from fava_tpu_torch.ops import _build
 
     out, inside = [], False
     for line in (_build.BUILD_LOG or "").splitlines():
         if "Compiling entry" in line:
             inside = kernel in line
+            if inside and entries:
+                out.append(line.strip())
         elif inside and ("registers" in line or "spill" in line):
             out.append(line.strip())
     return out

@@ -2,37 +2,69 @@
 //
 // Replaces _pdf2d_kernel (fava_tpu/ops/pallas_pdf2d.py:75, exact counts) and
 // _pdf2d_weighted_kernel (:91, per-bin weight sums), entries pdf2d_counts
-// (:233) and pdf2d_counts_traced (:207). Plain C entry point, bound with
-// ctypes by fava_tpu_torch/ops/_build.py; it launches on the caller's
-// stream, allocates nothing and returns cudaGetLastError() of its launch.
-// The output must be zeroed by the caller.
+// (:233) and pdf2d_counts_traced (:207). Plain C entry points, bound with
+// ctypes by fava_tpu_torch/ops/_build.py; the kernel launches on the
+// caller's stream, allocates nothing and returns cudaGetLastError() of its
+// launch. The output must be zeroed by the caller.
 //
 // Semantics are np.histogram2d's, against float64 edges: sample s falls in
 // bin (bx, by) when xe[bx] <= x_s < xe[bx+1] and ye[by] <= y_s < ye[by+1],
 // the last bin of each axis closed at its upper edge; samples outside the
-// edges, or NaN, are dropped. Each float32 sample is compared as the double
-// it converts to exactly, so the counts equal numpy's on the same values.
+// edges, or NaN, are dropped. The float64 edges never reach the card: the
+// host (cuda_kernels._pdf2d_axis) turns each axis into float32 thresholds,
+// t[b] the least float f with (double)f >= e[b] and hi the largest float
+// <= e[nb], so that for every float v, v >= e[b] exactly when v >= t[b] and
+// v <= e[nb] exactly when v <= hi. A sample's bin is then the largest b
+// with t[b] <= v, all in float32, and the counts stay numpy's bit for bit.
 //
 // What bounds it: one pass over 8 (counts) or 12 (weighted) bytes per
-// sample, 1.07 / 1.61 GB at 512^3 — or, on a smooth field whose samples
-// crowd a few bins, the atomic traffic on those bins. The TPU kernel's
-// mechanisms (one-hot matrices contracted on the MXU, bf16 Dekker splits of
-// the weights, 2Sum planes, inf padding, 128-bin edge columns) do not carry
-// over. Design: a grid-stride loop with float4 loads; each sample's bin is
-// guessed by arithmetic on the uniform edges and corrected against the
-// exact edges held in shared memory (0 or 1 steps for linspace edges, any
-// monotone edges stay exact). Each block keeps a private histogram in
-// shared memory (uint32 counts, 40 KB at 100 x 100; f64 weight sums, 80 KB)
-// and adds it to the output with 64-bit global atomics at the end. Counts
-// are aggregated per warp first: lanes that hit one bin are found with
-// __match_any_sync and their leader adds the population count. Where the
-// histogram does not fit a block's 227 KB of shared memory (beyond about
-// 57,000 bins counted, 28,500 weighted) the block adds to the output in
-// global memory directly. Counts are exact integers; weight sums are f64 added by
-// atomics in an order that varies between runs (rounding-level spread).
+// sample, 1.07 / 1.68 GB on the path's 134 M / 140 M samples. The TPU
+// kernel's mechanisms (one-hot matrices contracted on the MXU, bf16 Dekker
+// splits of the weights, 2Sum planes, inf padding, 128-bin edge columns) do
+// not carry over: on Hopper a histogram is a scatter. Design:
+// - A warp takes tiles of 32 x kSpan consecutive samples (a grid-stride walk
+//   over tiles, one wave of blocks); each lane takes kSpan consecutive
+//   samples of the tile and issues all of its float4 loads before it bins.
+// - The bin of an axis: g = (v - lo) * scale in float32 and b = floor(g).
+//   The host bounds how far g can lie from the exact position of v among
+//   the thresholds (the edges' departure from uniform plus the float32
+//   rounding of g) as fast_lo; when g's fraction lies in (fast_lo,
+//   1 - fast_lo), b is the bin and no threshold is read. Otherwise (a
+//   sample within ~1e-5 of a bin's width of an edge, or edges that are far
+//   from uniform, where the host switches this test off) a search of the
+//   thresholds in shared memory from b finds it exactly.
+// - Runs of one bin along a lane's span are summed in registers (an int
+//   count, an f64 weight sum) and added when the bin changes. The runs that
+//   reach the ends of the lanes' spans are summed across lanes in one
+//   segmented shuffle scan per tile (lanes in a row on one bin add once).
+// - Each block keeps a private histogram in shared memory (uint32 counts,
+//   40 KB at 100 x 100, added with native shared atomics; f64 sums, 80 KB,
+//   whose shared atomicAdd sm_90a compiles to a compare-and-swap loop, so
+//   fewer adds matter most there) and adds it to the output with 64-bit
+//   global atomics at the end. The launch caps a block's samples below
+//   2^32, so its uint32 counts cannot wrap. Where the histogram does not
+//   fit a block's shared memory (beyond about 57,000 bins counted, 28,500
+//   weighted) runs are added to the output in global memory directly.
+// Counts are exact integers; weight sums are f64 added by atomics in an
+// order that varies between runs (rounding-level spread).
+//
+// Where its time goes (NVIDIA H100 80GB HBM3 at 700 W, probe_pdf2d.py,
+// through the C entry): counted on the 512^3 window's samples 0.375 ms
+// (bound 0.321), weighted on the 140 M AMR leaves 0.593 (bound 0.502);
+// with its loads served from L1 the counted kernel takes 0.313, without
+// the binning 0.349, without the shared adds 0.364: loads and arithmetic
+// overlap, and neither alone is far below the whole. A sample's runs are
+// short on these fields (5.1 and 3.9 samples, 3.4 and 3.3 within a span),
+// so the weighted kernel's shared compare-and-swap adds still cost ~0.05
+// ms of its 0.59 there and 0.13 of 0.66 on uncorrelated samples. 64
+// registers a thread (60 counted) and the 80 KB weighted histogram hold an
+// SM to 2 blocks of 16 warps; spans of 16 samples or blocks of 256
+// threads make the weighted kernel 1.3-1.5x slower.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "row_moments.cuh"
 
@@ -41,182 +73,229 @@ namespace {
 using fava::kFullMask;
 using fava::launch_status;
 
-constexpr int kHistThreads = 256;
+constexpr int kThreads = 512;       // threads a block
+constexpr int kSpan = 8;            // consecutive samples a lane bins per tile
+constexpr int kTile = 32 * kSpan;   // samples a warp bins per tile
+constexpr int kAxisHead = 5;        // per axis: lo, hi, scale, fast_lo, fast_hi
+constexpr int kHead = 2 * kAxisHead;
 
-// Bin of v against the edges e[0..nb]: e[b] <= v < e[b+1], the last bin
-// closed; -1 outside [e[0], e[nb]] or for NaN. ``scale`` = nb / (e[nb] -
-// e[0]) gives the guess; the walk makes it exact.
-__device__ __forceinline__ int find_bin(double v, const double* e, int nb, double scale) {
-  if (!(v >= e[0] && v <= e[nb])) return -1;
-  const double g = (v - e[0]) * scale;
-  int b = g >= 0.0 && g < (double)nb ? (int)g : (g >= (double)nb ? nb - 1 : 0);
-  while (b > 0 && v < e[b]) --b;
-  while (b < nb - 1 && v >= e[b + 1]) ++b;
-  return b;
+struct Axis {
+  float lo, hi, scale, fast_lo, fast_hi;
+  int nb;
+  const float* t;  // t[0 .. nb-1], in shared memory
+};
+
+__device__ __forceinline__ Axis load_axis(const float* head, int nb, const float* t) {
+  return Axis{head[0], head[1], head[2], head[3], head[4], nb, t};
 }
 
-template <bool kWeighted, bool kSharedHist>
-__global__ void __launch_bounds__(kHistThreads)
-pdf2d_kernel(const float* __restrict__ x, const float* __restrict__ y,
-             const float* __restrict__ w, const double* __restrict__ xe,
-             const double* __restrict__ ye, void* __restrict__ out, int64_t n, int nbx, int nby,
-             int vec) {
-  extern __shared__ double smem[];
-  double* sxe = smem;
-  double* sye = smem + nbx + 1;
-  void* shist = sye + nby + 1;  // [nbx * nby] when kSharedHist
-  const int nbins = nbx * nby;
-  for (int b = threadIdx.x; b <= nbx; b += blockDim.x) sxe[b] = xe[b];
-  for (int b = threadIdx.x; b <= nby; b += blockDim.x) sye[b] = ye[b];
-  if constexpr (kSharedHist) {
-    for (int b = threadIdx.x; b < nbins; b += blockDim.x) {
-      if constexpr (kWeighted) ((double*)shist)[b] = 0.0;
-      else ((unsigned*)shist)[b] = 0u;
+// The largest b in [0, nb-1] with t[b] <= v, given t[0] <= v, starting
+// from the guess b: exact for any non-decreasing thresholds.
+__device__ __forceinline__ int search_bin(float v, const float* t, int nb, int b) {
+  int lo = 0, hi = nb - 1;
+  if (v >= t[b]) {
+    if (b == hi || v < t[b + 1]) return b;
+    lo = b + 1;
+  } else {
+    hi = b - 1;
+  }
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (v >= t[mid]) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+// Bin of v on one axis, or -1 outside [lo, hi] and for NaN.
+__device__ __forceinline__ int axis_bin(float v, const Axis& a) {
+  if (!(v >= a.lo && v <= a.hi)) return -1;
+  const float g = __fmul_rn(__fsub_rn(v, a.lo), a.scale);
+  const int b = (int)fminf(fmaxf(g, 0.f), (float)(a.nb - 1));
+  const float f = __fsub_rn(g, (float)b);
+  if (g < (float)a.nb && f > a.fast_lo && f < a.fast_hi) return b;
+  return search_bin(v, a.t, a.nb, b);
+}
+
+// The kSpan samples i0 .. i0+kSpan-1 of p; ``fill`` past n.
+__device__ __forceinline__ void load_span(const float* __restrict__ p, int64_t i0, int64_t n,
+                                          int vec, float fill, float (&v)[kSpan]) {
+  if (vec && i0 + kSpan <= n) {
+    const float4* p4 = reinterpret_cast<const float4*>(p + i0);
+#pragma unroll
+    for (int j = 0; j < kSpan / 4; ++j) {
+      const float4 q = __ldg(p4 + j);
+      v[4 * j] = q.x;
+      v[4 * j + 1] = q.y;
+      v[4 * j + 2] = q.z;
+      v[4 * j + 3] = q.w;
     }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kSpan; ++k) v[k] = i0 + k < n ? __ldg(p + i0 + k) : fill;
+  }
+}
+
+// Adds a run to its bin: in the block's shared histogram, or in the output.
+template <bool kShared, typename Acc>
+__device__ __forceinline__ void add_run(Acc* hist, void* out, int bin, Acc v) {
+  if constexpr (kShared) {
+    atomicAdd(hist + bin, v);
+  } else if constexpr (std::is_same<Acc, double>::value) {
+    atomicAdd(static_cast<double*>(out) + bin, v);
+  } else {
+    atomicAdd(static_cast<unsigned long long*>(out) + bin, (unsigned long long)v);
+  }
+}
+
+// Segmented sum over the lanes of the runs that end their spans: lanes in a
+// row on one bin form a segment, whose first lane (``first``) gets its sum.
+template <typename Acc>
+__device__ __forceinline__ Acc segment_sum(int bin, Acc v, int lane, bool& first) {
+  const int prev = __shfl_up_sync(kFullMask, bin, 1);
+  const unsigned heads = __ballot_sync(kFullMask, lane == 0 || prev != bin);
+  const unsigned after = heads & (0xfffffffeu << lane);  // segment heads beyond this lane
+  const int end = after ? __ffs(after) - 2 : 31;         // this segment's last lane
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const Acc o = __shfl_down_sync(kFullMask, v, d);
+    if (lane + d <= end) v += o;
+  }
+  first = (heads >> lane) & 1u;
+  return v;
+}
+
+template <bool kWeighted, bool kShared>
+__global__ void __launch_bounds__(kThreads, 2)
+pdf2d_kernel(const float* __restrict__ x, const float* __restrict__ y,
+             const float* __restrict__ w, const float* __restrict__ table,
+             void* __restrict__ out, int64_t n, int nbx, int nby, int vec) {
+  using Acc = typename std::conditional<kWeighted, double, unsigned>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nbins = nbx * nby;
+  Acc* hist = reinterpret_cast<Acc*>(smem);  // [nbins] when kShared
+  float* tab = reinterpret_cast<float*>(smem + (kShared ? (size_t)nbins * sizeof(Acc) : 0));
+  for (int i = threadIdx.x; i < kHead + nbx + nby; i += kThreads) tab[i] = table[i];
+  if constexpr (kShared) {
+    for (int b = threadIdx.x; b < nbins; b += kThreads) hist[b] = Acc(0);
   }
   __syncthreads();
-  const double xs = nbx / (sxe[nbx] - sxe[0]);
-  const double ys = nby / (sye[nby] - sye[0]);
+  const Axis ax = load_axis(tab, nbx, tab + kHead);
+  const Axis ay = load_axis(tab + kAxisHead, nby, tab + kHead + nbx);
   const int lane = threadIdx.x & 31;
+  const float nan = __int_as_float(0x7fc00000);
 
-  // Every lane of a warp calls this the same number of times (the loops
-  // below are warp-uniform), as __match_any_sync needs.
-  auto put = [&](float fx, float fy, float fw, bool valid) {
-    int bin = -1;
-    if (valid) {
-      const int bx = find_bin((double)fx, sxe, nbx, xs);
-      const int by = bx < 0 ? -1 : find_bin((double)fy, sye, nby, ys);
-      bin = by < 0 ? -1 : bx * nby + by;
-    }
-    if constexpr (kWeighted) {
-      if (bin >= 0) {
-        double* h = kSharedHist ? (double*)shist : (double*)out;
-        atomicAdd(&h[bin], (double)fw);
+  const int64_t ntiles = (n + kTile - 1) / kTile;
+  const int64_t nwarps = (int64_t)gridDim.x * (kThreads / 32);
+  for (int64_t t = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32; t < ntiles;
+       t += nwarps) {
+    const int64_t i0 = t * kTile + (int64_t)lane * kSpan;
+    float xs[kSpan], ys[kSpan], ws[kSpan];
+    load_span(x, i0, n, vec, nan, xs);  // NaN past n: dropped
+    load_span(y, i0, n, vec, 0.f, ys);
+    if constexpr (kWeighted) load_span(w, i0, n, vec, 0.f, ws);
+    int cur = -1;
+    Acc run = Acc(0);
+#pragma unroll
+    for (int k = 0; k < kSpan; ++k) {
+      const int bx = axis_bin(xs[k], ax);
+      const int by = axis_bin(ys[k], ay);
+      const int bin = (bx | by) < 0 ? -1 : bx * nby + by;
+      if (bin != cur) {
+        if (cur >= 0) add_run<kShared>(hist, out, cur, run);
+        cur = bin;
+        run = Acc(0);
       }
-    } else {
-      const unsigned peers = __match_any_sync(kFullMask, bin);
-      if (bin >= 0 && lane == __ffs(peers) - 1) {
-        if constexpr (kSharedHist) {
-          atomicAdd(&((unsigned*)shist)[bin], (unsigned)__popc(peers));
-        } else {
-          atomicAdd(&((unsigned long long*)out)[bin], (unsigned long long)__popc(peers));
-        }
-      }
+      if constexpr (kWeighted) run += (double)ws[k];
+      else run += 1u;
     }
-  };
-
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x - lane;  // warp's base
-  int64_t scalar_from = 0;
-  if (vec) {
-    const int64_t nv = n / 4;
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    const float4* y4 = reinterpret_cast<const float4*>(y);
-    const float4* w4 = reinterpret_cast<const float4*>(w);
-    for (int64_t base = first; base < nv; base += stride) {
-      const int64_t i = base + lane;
-      const bool ok = i < nv;
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      const float4 a = ok ? x4[i] : zero;
-      const float4 c = ok ? y4[i] : zero;
-      float4 u = zero;
-      if constexpr (kWeighted) u = ok ? w4[i] : zero;
-      put(a.x, c.x, u.x, ok);
-      put(a.y, c.y, u.y, ok);
-      put(a.z, c.z, u.z, ok);
-      put(a.w, c.w, u.w, ok);
-    }
-    scalar_from = 4 * nv;
-  }
-  for (int64_t base = scalar_from + first; base < n; base += stride) {
-    const int64_t i = base + lane;
-    const bool ok = i < n;
-    float u = 0.f;
-    if constexpr (kWeighted) u = ok ? w[i] : 0.f;
-    put(ok ? x[i] : 0.f, ok ? y[i] : 0.f, u, ok);
+    bool first;
+    run = segment_sum(cur, run, lane, first);
+    if (first && cur >= 0) add_run<kShared>(hist, out, cur, run);
   }
 
-  if constexpr (kSharedHist) {
+  if constexpr (kShared) {
     __syncthreads();
-    for (int b = threadIdx.x; b < nbins; b += blockDim.x) {
-      if constexpr (kWeighted) {
-        const double v = ((double*)shist)[b];
-        if (v != 0.0) atomicAdd(&((double*)out)[b], v);
-      } else {
-        const unsigned v = ((unsigned*)shist)[b];
-        if (v != 0u) atomicAdd(&((unsigned long long*)out)[b], (unsigned long long)v);
-      }
+    for (int b = threadIdx.x; b < nbins; b += kThreads) {
+      const Acc v = hist[b];
+      if (v != Acc(0)) add_run<false>(hist, out, b, v);
     }
   }
 }
 
-template <bool kWeighted, bool kSharedHist>
-int launch_pdf2d(const float* x, const float* y, const float* w, const double* xe,
-                 const double* ye, void* out, int64_t n, int nbx, int nby, int vec, int blocks,
-                 size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        pdf2d_kernel<kWeighted, kSharedHist>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  pdf2d_kernel<kWeighted, kSharedHist>
-      <<<blocks, kHistThreads, smem, stream>>>(x, y, w, xe, ye, out, n, nbx, nby, vec);
+template <bool kWeighted, bool kShared>
+cudaError_t allow_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(pdf2d_kernel<kWeighted, kShared>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <bool kWeighted, bool kShared>
+int launch_pdf2d(const float* x, const float* y, const float* w, const float* table, void* out,
+                 int64_t n, int nbx, int nby, int vec, int blocks, size_t smem,
+                 cudaStream_t stream) {
+  const cudaError_t err = allow_smem<kWeighted, kShared>(smem);
+  if (err != cudaSuccess) return (int)err;
+  pdf2d_kernel<kWeighted, kShared>
+      <<<blocks, kThreads, smem, stream>>>(x, y, w, table, out, n, nbx, nby, vec);
   return launch_status();
 }
 
-// Where an (nbx, nby) histogram goes on the current device: 1 in shared
-// memory beside the edges, 0 in global memory (only the edges fit), -1 when
-// not even the edges fit or the device cannot be queried. ``smem`` gets the
-// dynamic shared memory a block needs.
-int hist_mode(int nbx, int nby, bool weighted, size_t* smem) {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return -1;
-  const size_t edges = (size_t)(nbx + nby + 2) * sizeof(double);
-  const size_t hist = (size_t)nbx * nby * (weighted ? sizeof(double) : sizeof(unsigned));
-  if (edges + hist <= (size_t)optin) {
-    *smem = edges + hist;
-    return 1;
-  }
-  *smem = edges;
-  return edges <= (size_t)optin ? 0 : -1;
+template <bool kWeighted, bool kShared>
+int blocks_per_sm(size_t smem) {
+  cudaError_t err = allow_smem<kWeighted, kShared>(smem);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, pdf2d_kernel<kWeighted, kShared>,
+                                                        kThreads, smem);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Joint histogram of n samples (x, y), weighted by w unless w is null:
-// out is (nbx, nby) int64 counts, or f64 sums when weighted.
-int fava_pdf2d(const void* x, const void* y, const void* w, const void* xe, const void* ye,
-               void* out, long long n, int nbx, int nby, int vec, int blocks, void* stream) {
+// Joint histogram of n samples (x, y), weighted by w unless w is null: out
+// is (nbx, nby) int64 counts, or f64 sums when weighted. ``table`` holds
+// the two axes' heads (lo, hi, scale, fast_lo, fast_hi) and then their
+// thresholds (nbx, then nby floats); ``shared`` says whether the histogram
+// lives in shared memory, ``smem`` is the dynamic shared bytes a block
+// takes (the histogram, if shared, then the table).
+int fava_pdf2d(const void* x, const void* y, const void* w, const void* table, void* out,
+               long long n, int nbx, int nby, int vec, int shared, long long smem, int blocks,
+               void* stream) {
   (void)cudaGetLastError();
-  const bool weighted = w != nullptr;
-  size_t smem = 0;
-  const int mode = hist_mode(nbx, nby, weighted, &smem);
-  if (mode < 0) return (int)cudaErrorInvalidValue;
   const float* xf = (const float*)x;
   const float* yf = (const float*)y;
   const float* wf = (const float*)w;
-  const double* xd = (const double*)xe;
-  const double* yd = (const double*)ye;
+  const float* tf = (const float*)table;
+  const size_t sb = (size_t)smem;
   cudaStream_t st = (cudaStream_t)stream;
-  if (weighted) {
-    return mode == 1
-               ? launch_pdf2d<true, true>(xf, yf, wf, xd, yd, out, n, nbx, nby, vec, blocks, smem, st)
-               : launch_pdf2d<true, false>(xf, yf, wf, xd, yd, out, n, nbx, nby, vec, blocks, smem, st);
+  if (w != nullptr) {
+    return shared ? launch_pdf2d<true, true>(xf, yf, wf, tf, out, n, nbx, nby, vec, blocks, sb, st)
+                  : launch_pdf2d<true, false>(xf, yf, wf, tf, out, n, nbx, nby, vec, blocks, sb, st);
   }
-  return mode == 1
-             ? launch_pdf2d<false, true>(xf, yf, wf, xd, yd, out, n, nbx, nby, vec, blocks, smem, st)
-             : launch_pdf2d<false, false>(xf, yf, wf, xd, yd, out, n, nbx, nby, vec, blocks, smem, st);
+  return shared ? launch_pdf2d<false, true>(xf, yf, wf, tf, out, n, nbx, nby, vec, blocks, sb, st)
+                : launch_pdf2d<false, false>(xf, yf, wf, tf, out, n, nbx, nby, vec, blocks, sb, st);
 }
 
-// hist_mode for the current device, for callers that report the path.
-int fava_pdf2d_hist_mode(int nbx, int nby, int weighted) {
-  size_t smem = 0;
-  return hist_mode(nbx, nby, weighted != 0, &smem);
+// Blocks of the kernel that fit one SM of the current device at once with
+// ``smem`` dynamic shared bytes; a negative CUDA error code on failure.
+int fava_pdf2d_blocks_per_sm(int weighted, int shared, long long smem) {
+  (void)cudaGetLastError();
+  const size_t sb = (size_t)smem;
+  if (weighted) return shared ? blocks_per_sm<true, true>(sb) : blocks_per_sm<true, false>(sb);
+  return shared ? blocks_per_sm<false, true>(sb) : blocks_per_sm<false, false>(sb);
+}
+
+// The dynamic shared bytes a block may opt in to on the current device; a
+// negative CUDA error code on failure.
+int fava_pdf2d_smem_optin() {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return err == cudaSuccess ? optin : -(int)err;
 }
 
 }  // extern "C"

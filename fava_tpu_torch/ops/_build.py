@@ -51,8 +51,9 @@ _SIGNATURES = {
     "fava_shell_bin_sums_unfolded": (_P, _P, _P) + (_I,) * 7 + (_P,),
     "fava_shell_bin_sums_rfft_chunk": (_P, _P, _P) + (_I,) * 9 + (_P,),
     "fava_shell_bin_unfolded_blocks_per_sm": (_I, _I),
-    "fava_pdf2d": (_P,) * 6 + (_LL, _I, _I, _I, _I, _P),
-    "fava_pdf2d_hist_mode": (_I, _I, _I),
+    "fava_pdf2d": (_P,) * 5 + (_LL, _I, _I, _I, _I, _LL, _I, _P),
+    "fava_pdf2d_blocks_per_sm": (_I, _I, _LL),
+    "fava_pdf2d_smem_optin": (),
     "fava_shell_bin_sums_folded_onepass": (_P, _P, _P) + (_I,) * 8 + (_P,),
     "fava_shell_bin_powers_fused": (_P, _P, _P) + (_I,) * 7 + (_P,),
     "fava_zy_rfft": (_P, _P, _P, _I, _I, _I, _P),

@@ -1389,6 +1389,149 @@ def _pdf2d_plain(x, y, xedges, yedges, weights=None) -> torch.Tensor:
     return out.reshape(nbx, nby)
 
 
+PDF2D_THREADS = 512  # threads of a B8 block (kThreads in csrc/pdf2d_kernels.cu)
+PDF2D_SPAN = 8  # consecutive samples a lane bins per tile (kSpan)
+PDF2D_TILE = 32 * PDF2D_SPAN  # samples a warp bins per tile
+PDF2D_AXIS_HEAD = 5  # floats of an axis's head in the table (kAxisHead)
+PDF2D_BLOCK_SAMPLES = 1 << 31  # samples a block may take: its uint32 counts never wrap
+_F32_MAX_BINS = 1 << 22  # beyond this many bins an axis always searches its thresholds
+
+
+def _ceil_f32(e: np.ndarray) -> np.ndarray:
+    """The least float32 f with float64(f) >= e, elementwise."""
+    with np.errstate(over="ignore"):
+        f = np.asarray(e, dtype=np.float64).astype(np.float32)
+    low = f.astype(np.float64) < e
+    f[low] = np.nextafter(f[low], np.float32(np.inf))
+    return f
+
+
+def _floor_f32(e: np.ndarray) -> np.ndarray:
+    """The largest float32 f with float64(f) <= e, elementwise."""
+    with np.errstate(over="ignore"):
+        f = np.asarray(e, dtype=np.float64).astype(np.float32)
+    high = f.astype(np.float64) > e
+    f[high] = np.nextafter(f[high], np.float32(-np.inf))
+    return f
+
+
+def _pdf2d_axis(edges: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """One axis of B8's table: ``head`` = float32 [lo, hi, scale, fast_lo,
+    fast_hi] and the float32 thresholds ``t`` (nb of them). For every
+    float32 v: v >= edges[b] iff v >= t[b], and v <= edges[-1] iff v <= hi
+    (lo = t[0]), so the bin of an inside v is the largest b with t[b] <= v.
+
+    The kernel guesses b = floor(g), g = (v - lo) * scale in float32, and
+    takes it without reading t when g < nb and g - b lies strictly between
+    fast_lo and fast_hi. Why that is exact: with phi(u) = (u - lo) * scale
+    in exact arithmetic, phi(t[b]) lies within D of b (D is measured here)
+    and g within E of phi(v) (two float32 roundings of a value <= phi(hi),
+    plus underflow); fast_lo >= D + E, fast_hi <= 1 - fast_lo. Then phi(v)
+    lies strictly between phi(t[b]) and phi(t[b+1]), and phi is increasing.
+    Edges far from uniform (D + E >= 1/4), non-finite thresholds or more
+    than 2^22 bins switch the shortcut off (scale 0, fast_lo 1, fast_hi 0):
+    the kernel then always searches t."""
+    e = np.asarray(edges, dtype=np.float64)
+    nb = e.size - 1
+    t = _ceil_f32(e[:-1])
+    lo, hi = t[0], _floor_f32(e[-1:])[0]
+    span = float(hi) - float(lo)
+    slack = np.inf
+    with np.errstate(all="ignore"):
+        scale = np.float32(nb / span) if span > 0 else np.float32(0.0)
+        if nb < _F32_MAX_BINS and np.isfinite(t).all() and np.isfinite(hi) and np.isfinite(scale) \
+                and scale > 0:
+            s = float(scale)
+            dev = float(np.abs((t.astype(np.float64) - float(lo)) * s - np.arange(nb)).max())
+            slack = dev + 2.0**-22 * (span * s + 1.0) + 2.0**-148 * s + 1e-12 * (nb + 1)
+    if slack < 0.25:
+        fast_lo = _ceil_f32(np.array([slack]))[0]
+        fast_hi = _floor_f32(np.array([1.0 - float(fast_lo)]))[0]
+    else:
+        scale, fast_lo, fast_hi = np.float32(0.0), np.float32(1.0), np.float32(0.0)
+    return np.array([lo, hi, scale, fast_lo, fast_hi], dtype=np.float32), t
+
+
+def _pdf2d_table(xedges: np.ndarray, yedges: np.ndarray) -> np.ndarray:
+    """B8's float32 table: both axes' heads, then x's and y's thresholds."""
+    (hx, tx), (hy, ty) = _pdf2d_axis(xedges), _pdf2d_axis(yedges)
+    return np.concatenate([hx, hy, tx, ty])
+
+
+def _threshold_bins(values: torch.Tensor, head: np.ndarray, t: np.ndarray) -> torch.Tensor:
+    """The kernel's bin of each float32 value on one axis (``axis_bin`` in
+    csrc/pdf2d_kernels.cu: the float32 guess where ``head`` certifies it,
+    else the largest b with t[b] <= v), -1 outside and for NaN. Plain torch
+    on the values' device; the tests hold it to ``bin_index``."""
+    lo, hi, scale, fast_lo, fast_hi = (float(h) for h in head)
+    nb = t.size
+    v = values.reshape(-1).to(torch.float32)
+    inside = (v >= lo) & (v <= hi)
+    g = (v - lo) * scale  # two float32 roundings, as __fsub_rn and __fmul_rn
+    b = torch.nan_to_num(g, nan=0.0).clamp(0.0, float(nb - 1)).to(torch.int64)
+    f = g - b.to(torch.float32)
+    fast = (g < nb) & (f > fast_lo) & (f < fast_hi)
+    tt = torch.as_tensor(t, device=v.device)
+    found = (torch.searchsorted(tt, v, right=True) - 1).clamp(0, nb - 1)
+    return torch.where(inside, torch.where(fast, b, found), -1)
+
+
+def _pdf2d_layout(nbx: int, nby: int, weighted: bool, optin: int) -> Tuple[bool, int]:
+    """(histogram in shared memory, dynamic shared bytes a block) of an
+    (nbx, nby) B8 launch on a card whose blocks may opt in to ``optin``
+    shared bytes: the histogram (uint32 counts or f64 sums) and the table
+    when both fit, else the table alone (the runs go to the output)."""
+    table = 4 * (2 * PDF2D_AXIS_HEAD + nbx + nby)
+    hist = nbx * nby * (8 if weighted else 4)
+    if hist + table <= optin:
+        return True, hist + table
+    if table <= optin:
+        return False, table
+    raise ValueError(f"pdf2d: ({nbx}, {nby}) bins do not fit the kernel ({table} table bytes, "
+                     f"{optin} shared bytes a block)")
+
+
+def _pdf2d_blocks(n: int, blocks_per_sm: int, sms: int) -> int:
+    """Blocks of a B8 launch over n samples: one wave (the blocks the card
+    holds at once), fewer when there are fewer tiles than warps, and never
+    so few that a block takes PDF2D_BLOCK_SAMPLES samples or more."""
+    tiles = -(-int(n) // PDF2D_TILE)
+    wave = max(1, min(-(-tiles // (PDF2D_THREADS // 32)), blocks_per_sm * sms))
+    return max(wave, -(-int(n) // PDF2D_BLOCK_SAMPLES))
+
+
+@lru_cache(maxsize=8)
+def _pdf2d_smem_optin(index: int) -> int:
+    with torch.cuda.device(index):
+        n = _build.library().fava_pdf2d_smem_optin()
+    if n <= 0:
+        raise RuntimeError(f"pdf2d: shared memory query failed ({n})")
+    return n
+
+
+@lru_cache(maxsize=16)
+def _pdf2d_blocks_per_sm(weighted: bool, shared: bool, smem: int, index: int = 0) -> int:
+    """Blocks of B8's kernel (PDF2D_THREADS threads, ``smem`` dynamic
+    shared bytes) that fit one SM of card ``index`` at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    with torch.cuda.device(index):
+        n = _build.library().fava_pdf2d_blocks_per_sm(int(weighted), int(shared), int(smem))
+    if n <= 0:
+        raise RuntimeError(f"pdf2d: no block fits an SM with {smem} shared bytes (occupancy {n})")
+    return n
+
+
+def pdf2d_launch(n: int, nbx: int, nby: int, weighted: bool, device="cuda") -> Dict[str, int]:
+    """B8's launch on ``device`` for n samples and (nbx, nby) bins:
+    histogram in shared memory (1/0), dynamic shared bytes, blocks an SM
+    and the grid."""
+    index = torch.device(device).index or 0
+    shared, smem = _pdf2d_layout(nbx, nby, weighted, _pdf2d_smem_optin(index))
+    bps = _pdf2d_blocks_per_sm(weighted, shared, smem, index)
+    return {"shared": int(shared), "smem": smem, "blocks_per_sm": bps,
+            "blocks": _pdf2d_blocks(n, bps, _sm_count(index))}
+
+
 def pdf2d_counts(x, y, xedges, yedges, weights=None) -> torch.Tensor:
     """Joint histogram of the samples (x, y) against float64 host edges,
     with np.histogram2d's semantics (half-open bins, the last closed;
@@ -1401,18 +1544,21 @@ def pdf2d_counts(x, y, xedges, yedges, weights=None) -> torch.Tensor:
     if _device_kind(name, *samples) == "cpu":
         return _pdf2d_plain(x, y, xedges, yedges, weights)
     _check_cuda(name, *samples)
-    xe = torch.as_tensor(_host_edges(name, xedges), device=x.device)
-    ye = torch.as_tensor(_host_edges(name, yedges), device=x.device)
-    nbx, nby = xe.numel() - 1, ye.numel() - 1
+    xe, ye = _host_edges(name, xedges), _host_edges(name, yedges)
+    nbx, nby = xe.size - 1, ye.size - 1
+    if nbx * nby >= 1 << 31:
+        raise ValueError(f"{name}: {nbx} x {nby} bins exceed the kernel's int bin index")
+    # From pinned memory, so the copy does not wait for the card to drain.
+    table = torch.from_numpy(_pdf2d_table(xe, ye)).pin_memory().to(x.device, non_blocking=True)
     out_dtype = torch.int64 if weights is None else torch.float64
     out = torch.zeros((nbx, nby), dtype=out_dtype, device=x.device)
     n = x.numel()
     vec = int(all(s.data_ptr() % 16 == 0 for s in samples))  # float4 loads
-    blocks = max(1, min(-(-n // (256 * 4)), 4 * _sm_count(x.device.index or 0)))
+    launch = pdf2d_launch(n, nbx, nby, weights is not None, x.device)
     _launch(
         name, x.device, _build.library().fava_pdf2d, x.data_ptr(), y.data_ptr(),
-        None if weights is None else weights.data_ptr(), xe.data_ptr(), ye.data_ptr(),
-        out.data_ptr(), n, nbx, nby, vec, blocks,
+        None if weights is None else weights.data_ptr(), table.data_ptr(), out.data_ptr(), n, nbx,
+        nby, vec, launch["shared"], launch["smem"], launch["blocks"],
     )
     return out
 
@@ -1421,8 +1567,5 @@ def pdf2d_hist_in_shared_memory(nbx: int, nby: int, weighted: bool, device="cuda
     """Whether the pdf2d kernel keeps an (nbx, nby) histogram in a block's
     shared memory on ``device`` (else it adds to the output in global
     memory)."""
-    with torch.cuda.device(torch.device(device)):
-        mode = _build.library().fava_pdf2d_hist_mode(int(nbx), int(nby), int(weighted))
-    if mode < 0:
-        raise ValueError(f"pdf2d: ({nbx}, {nby}) bins do not fit the kernel on {device}")
-    return mode == 1
+    index = torch.device(device).index or 0
+    return _pdf2d_layout(int(nbx), int(nby), weighted, _pdf2d_smem_optin(index))[0]

@@ -279,26 +279,78 @@ def _samples(device, n, seed=0):
     return [torch.from_numpy(a).float().to(device) for a in (x, y, rng.random(n))]
 
 
+def _centres(edges, idx):
+    return 0.5 * (edges[idx] + edges[idx + 1])
+
+
+def _edge_neighbours(edges, n, rng):
+    """n float32 samples drawn from the nearest float32 of every edge and its
+    neighbours 1 and 2 steps below and above."""
+    e = np.asarray(edges).astype(np.float32)
+    near = [e] + [np.nextafter(e, np.float32(d)) for d in (-np.inf, np.inf)]
+    near += [np.nextafter(a, np.float32(d)) for a, d in zip(near[1:], (-np.inf, np.inf))]
+    return rng.choice(np.concatenate(near), n)
+
+
+def _runs(n, length, edges, step):
+    """Bin centres held for runs of ``length`` samples, the bin moving by
+    ``step`` (mod the bins) from run to run."""
+    nb = len(edges) - 1
+    return _centres(edges, (np.arange(n) // length * step) % nb)
+
+
+XE, YE = np.linspace(-1.0, 2.0, 38), np.linspace(-3.0, 3.0, 24)
+PDF2D_MADE = {  # name: (make(n, rng) -> (x, y), x edges, y edges)
+    "one bin": (lambda n, r: (np.full(n, 0.51), np.full(n, 0.12)), XE, YE),
+    "two bins alternating": (lambda n, r: (np.where(np.arange(n) % 2, 0.51, 1.49), np.full(n, 0.12)),
+                             XE, YE),
+    **{f"runs of {k}": (lambda n, r, k=k: (_runs(n, k, XE, 13), _runs(n, k, YE, 5)), XE, YE)
+       for k in (1, 7, 8, 9, 31, 33)},
+    "edge neighbours": (lambda n, r: (_edge_neighbours(XE + 1e-9, n, r),
+                                      _edge_neighbours(np.linspace(-0.3, 0.7, 24), n, r)),
+                        XE + 1e-9, np.linspace(-0.3, 0.7, 24)),
+    "closed last edge": (lambda n, r: (np.where(r.random(n) < 0.5, XE[-1], r.uniform(-1, 2, n)),
+                                       np.where(r.random(n) < 0.5, 3.0, r.uniform(-3, 3, n))), XE, YE),
+    "geometric edges": (lambda n, r: (10.0 ** r.uniform(-3.5, 3.5, n), r.uniform(-3, 3, n)),
+                        np.geomspace(1e-3, 1e3, 38), YE),
+    "nan and inf": (lambda n, r: tuple(r.choice([np.nan, np.inf, -np.inf, 0.3, 0.7, 1.1, 2.0], n)
+                                       for _ in range(2)), XE, YE),
+}
+
 PDF2D_CASES = {
     "empty": dict(n=0),
     "one sample": dict(n=1),
     "all out of range": dict(n=5000, xr=(50.0, 60.0)),
     "ragged and unaligned": dict(n=10007, offset=1),
     "beyond shared memory": dict(n=200003, bins=(300, 300)),
+    **{name: dict(n=100003, made=name) for name in PDF2D_MADE},
+    "span remainder": dict(n=8 * 4099 + 5),
+    "unaligned by 2": dict(n=8 * 4099 + 3, offset=2),
+    "unaligned by 3 in runs": dict(n=65539, offset=3, made="runs of 9"),
 }
+
+
+def _pdf2d_case(device, c):
+    """(x, y, w, x edges, y edges) of a PDF2D_CASES entry on ``device``."""
+    off, n = c.get("offset", 0), c["n"]
+    x, y, w = _samples(device, n + off)
+    nbx, nby = c.get("bins", (37, 23))
+    xe = np.linspace(*c.get("xr", (-1.0, 2.0)), nbx + 1)
+    ye = np.linspace(-3.0, 3.0, nby + 1)
+    if "made" in c:
+        make, xe, ye = PDF2D_MADE[c["made"]]
+        with np.errstate(invalid="ignore"):
+            x, y = (torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device)
+                    for a in make(n + off, np.random.default_rng(n)))
+    return x[off:], y[off:], w[off:], xe, ye  # offset: not 16-byte aligned, scalar loads
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(PDF2D_CASES))
 @pytest.mark.parametrize("weighted", [False, True])
 def test_pdf2d_edge_cases_match_plain(cuda_device, case, weighted):
-    c = PDF2D_CASES[case]
-    x, y, w = _samples(cuda_device, c["n"] + c.get("offset", 0))
-    off = c.get("offset", 0)
-    x, y, w = x[off:], y[off:], w[off:]  # offset 1: not 16-byte aligned, scalar loads
-    nbx, nby = c.get("bins", (37, 23))
-    xe = np.linspace(*c.get("xr", (-1.0, 2.0)), nbx + 1)
-    ye = np.linspace(-3.0, 3.0, nby + 1)
+    x, y, w, xe, ye = _pdf2d_case(cuda_device, PDF2D_CASES[case])
+    nbx, nby = len(xe) - 1, len(ye) - 1
     shared = ck.pdf2d_hist_in_shared_memory(nbx, nby, weighted, cuda_device)
     assert shared == (case != "beyond shared memory")
     ck.reset_launch_counts()
@@ -312,6 +364,8 @@ def test_pdf2d_edge_cases_match_plain(cuda_device, case, weighted):
         assert torch.equal(got, ref)
     if case == "all out of range":
         assert not got.any()
+    if case == "one bin":
+        assert int((ref != 0).sum()) == 1
 
 
 # (nx, ny, nz, full grid): tiny, odd, a single y row, and full grids.
