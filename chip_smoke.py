@@ -14,7 +14,10 @@ no result):
 2. build: compile fava_tpu_torch/csrc/*.cu for sm_90a and load it.
 3. kernels: each of the four kernels against its plain PyTorch version
    at the 512^3 shapes of the flagship path (float32 in; the plain
-   version gets the same values in float64), with stated tolerances.
+   version gets the same values in float64), with stated tolerances;
+   K4's ptxas report and launch, and its time through its C entry beside
+   its wrapper's, each against its bound (as phases 11, 12, 13 and 18 do
+   for B4, B10, B6, B9, B11a and B11b).
 4. main path: ``from_arrays(make_example_fields(512)).flagship_analysis()``
    with every launch counter reset before and checked after; outputs
    finite, counts equal to the static counts, and within a stated bound
@@ -135,18 +138,18 @@ SOURCES = {
     "row_moments": "fava_tpu_torch/csrc/flagship_kernels.cu",
     "centered_row_moments": "fava_tpu_torch/csrc/flagship_kernels.cu",
     "fold_quadrants_pair": "fava_tpu_torch/csrc/flagship_kernels.cu",
-    "shell_bin_values_folded": "fava_tpu_torch/csrc/flagship_kernels.cu",
+    "shell_bin_values_folded": "fava_tpu_torch/csrc/shell_bins.cuh",
     "block_row_moments": "fava_tpu_torch/csrc/amr_kernels.cu",
     "block_centered_row_moments": "fava_tpu_torch/csrc/amr_kernels.cu",
     "regrid_fields": "fava_tpu_torch/csrc/amr_kernels.cu",
-    "shell_bin_values_folded_1ch": "fava_tpu_torch/csrc/flagship_kernels.cu",
-    "shell_bin_sums_unfolded": "fava_tpu_torch/csrc/spectra_kernels.cu",
+    "shell_bin_values_folded_1ch": "fava_tpu_torch/csrc/shell_bins.cuh",
+    "shell_bin_sums_unfolded": "fava_tpu_torch/csrc/shell_bins.cuh",
     "pdf2d_counts": "fava_tpu_torch/csrc/pdf2d_kernels.cu",
     "pdf2d_weighted": "fava_tpu_torch/csrc/pdf2d_kernels.cu",
-    "shell_bin_values_rfft_chunk": "fava_tpu_torch/csrc/spectra_kernels.cu",
+    "shell_bin_values_rfft_chunk": "fava_tpu_torch/csrc/shell_bins.cuh",
     "shell_bin_powers_fused": "fava_tpu_torch/csrc/fused_spectra_kernels.cu",
-    "shell_bin_sums_folded_onepass": "fava_tpu_torch/csrc/flagship_kernels.cu",
-    "shell_bin_values_folded_rows": "fava_tpu_torch/csrc/flagship_kernels.cu",
+    "shell_bin_sums_folded_onepass": "fava_tpu_torch/csrc/shell_bins.cuh",
+    "shell_bin_values_folded_rows": "fava_tpu_torch/csrc/shell_bins.cuh",
     "zy_rfft_planar": "fava_tpu_torch/csrc/dft_kernels.cu",
     "zy_rfft_planar_dense": "fava_tpu_torch/csrc/dft_kernels.cu",
 }
@@ -426,6 +429,11 @@ def phase_kernels(torch, fields):
            lambda: ck.shell_bin_values_folded(*folded, nbins, ny, nz),
            lambda: ck._shell_bin_folded_plain(*folded, nbins, ny, nz),
            (8 * inside + 16 * nbins, 8 * inside))
+    nxh, nyh, nzr = folded[0].shape
+    walk_report(torch, ck, 3, "shell_bin_values_folded", rows["shell_bin_values_folded"],
+                ck.walk_launch("fava_shell_bin_folded_blocks_per_sm", (2, 0), 2, nxh * nyh, nbins),
+                "fava_shell_bin_values_folded", folded[0].data_ptr(), folded[1].data_ptr(),
+                got.data_ptr(), nxh, nyh, nzr, nbins, ny, nz, 2)
     del folded
     torch.cuda.empty_cache()
     return rows
@@ -1143,6 +1151,11 @@ def phase_window_stage4(torch, np, workdir: Path):
         lambda: ck.shell_bin_values_folded_1ch(folded, nbins, ny, nz),
         lambda: ck._shell_bin_folded_plain(folded, None, nbins, ny, nz),
         (4 * inside + 8 * nbins, 6 * inside))
+    nxh, nyh, nzr = folded.shape
+    walk_report(torch, ck, 11, "shell_bin_values_folded_1ch", rows["shell_bin_values_folded_1ch"],
+                ck.walk_launch("fava_shell_bin_folded_blocks_per_sm", (1, 0), 1, nxh * nyh, nbins),
+                "fava_shell_bin_values_folded", folded.data_ptr(), None, got.data_ptr(), nxh, nyh, nzr,
+                nbins, ny, nz, 1)
     del folded, dens, velx
     torch.cuda.empty_cache()
 
@@ -1193,7 +1206,9 @@ def phase_odd_extents(torch, np, uni, cpu):
         lambda: ck.shell_bin_sums_unfolded(total, longi, nbins, nz),
         lambda: ck._shell_bin_unfolded_plain(total, longi, nbins, nz),
         (8 * inside + 16 * nbins, 8 * inside))}
-    unfolded_launch(torch, ck, 12, total.shape, nz, 2, nbins)
+    walk_report(torch, ck, 12, "shell_bin_sums_unfolded", rows["shell_bin_sums_unfolded"],
+                unfolded_launch(torch, ck, total.shape, nz, 2, nbins), "fava_shell_bin_sums_unfolded",
+                total.data_ptr(), longi.data_ptr(), got.data_ptr(), nx, ny, nz // 2 + 1, nbins, nz, 2)
     del total, longi, got, again, ref
     torch.cuda.empty_cache()
 
@@ -1285,13 +1300,17 @@ def phase_chunk_kernel(torch, fields):
     inside_all = inside_cells(ck, total, nbins, full_nz=nz)
     say(f"phase 13 {len(starts)} launches (one {nx}^3 snapshot): {cuda_ms(torch, one_snapshot, 5)!r} ms "
         f"against {least_time(8 * inside_all + 16 * nbins * len(starts), 8 * inside_all)}")
-    unfolded_launch(torch, ck, 13, (CHUNK_ROWS, ny, nz // 2 + 1), nz, 2, nbins)
     t, lo = total[:CHUNK_ROWS], longi[:CHUNK_ROWS]  # the chunk with the most cells inside
     inside = inside_cells(ck, t, nbins, full_nz=nz, kx0=0, full_nx=nx)
     row = kernel_row(torch, 13, "shell_bin_values_rfft_chunk", max_abs, worst, TOL_BIN,
                      lambda: ck.shell_bin_values_rfft_chunk(t, lo, nbins, nx, nz, 0),
                      lambda: ck._shell_bin_unfolded_plain(t, lo, nbins, nz, 0, nx),
                      (8 * inside + 16 * nbins, 8 * inside))
+    sums2 = torch.zeros((2, nbins), dtype=torch.float64, device=t.device)
+    walk_report(torch, ck, 13, "shell_bin_values_rfft_chunk", row,
+                unfolded_launch(torch, ck, tuple(t.shape), nz, 2, nbins),
+                "fava_shell_bin_sums_rfft_chunk", t.data_ptr(), lo.data_ptr(), sums2.data_ptr(),
+                CHUNK_ROWS, ny, nz // 2 + 1, nbins, nx, nz, 0, 2)
     del total, longi, t, lo, acc, whole
     torch.cuda.empty_cache()
     return row
@@ -1581,7 +1600,13 @@ def fused_kernel_rows(torch, ck, fields, nbins):
         torch, 18, "shell_bin_powers_fused", *rel(sums[:2], ref[1:]), TOL_BIN,
         lambda: ck.shell_bin_powers_fused(re, im, nbins, nz),
         lambda: ck._powers_fused_plain(re, im, nbins, nz), (24 * inside + 24 * nbins, 60 * inside))
-    del re, im, ref
+    out9 = torch.zeros((3, nbins), dtype=torch.float64, device=dens.device)
+    walk_report(torch, ck, 18, "shell_bin_powers_fused", rows["shell_bin_powers_fused"],
+                ck.walk_launch("fava_shell_bin_powers_fused_blocks_per_sm", (1,), 3,
+                               (nx // 2 + 1) * (ny // 2 + 1), nbins),
+                "fava_shell_bin_powers_fused", re.data_ptr(), None, out9.data_ptr(), nx, ny, nzr, nbins,
+                nz, 1)
+    del re, im, ref, out9
     torch.cuda.empty_cache()
 
     # B11a and B11b on pad8 folds of the path's powers, NaN in the pad rows.
@@ -1601,6 +1626,12 @@ def fused_kernel_rows(torch, ck, fields, nbins):
         torch, 18, "shell_bin_sums_folded_onepass", *rel(sums[:2], ref[1:]), TOL_BIN,
         lambda: ck.shell_bin_sums_folded_onepass(*padded, nbins, nx, ny, nz),
         lambda: ck._onepass_plain(*padded, nbins, nx, ny, nz), (8 * inside + 24 * nbins, 8 * inside))
+    nxh, rows8, _ = padded[0].shape
+    out3 = torch.zeros((3, nbins), dtype=torch.float64, device=dens.device)
+    walk_report(torch, ck, 18, "shell_bin_sums_folded_onepass", rows["shell_bin_sums_folded_onepass"],
+                ck.walk_launch("fava_shell_bin_folded_blocks_per_sm", (2, 1), 3, nxh * rows8, nbins),
+                "fava_shell_bin_sums_folded_onepass", padded[0].data_ptr(), padded[1].data_ptr(),
+                out3.data_ptr(), nxh, rows8, nzr, nbins, nx, ny, nz)
     got = torch.stack(ck.shell_bin_values_folded_rows(*padded, nbins, nx, ny, nz))
     k4 = ck.shell_bin_values_folded(*folds, nbins, ny, nz)
     torch.cuda.synchronize()
@@ -1613,7 +1644,11 @@ def fused_kernel_rows(torch, ck, fields, nbins):
         torch, 18, "shell_bin_values_folded_rows", *rel(got, ref[1:]), TOL_BIN,
         lambda: ck.shell_bin_values_folded_rows(*padded, nbins, nx, ny, nz),
         lambda: ck._shell_bin_folded_plain(*padded, nbins, ny, nz), (8 * inside + 16 * nbins, 8 * inside))
-    del folds, padded, ref, got, k4
+    walk_report(torch, ck, 18, "shell_bin_values_folded_rows", rows["shell_bin_values_folded_rows"],
+                ck.walk_launch("fava_shell_bin_folded_blocks_per_sm", (2, 0), 2, nxh * rows8, nbins),
+                "fava_shell_bin_values_folded", padded[0].data_ptr(), padded[1].data_ptr(),
+                out3.data_ptr(), nxh, rows8, nzr, nbins, ny, nz, 2)
+    del folds, padded, ref, got, k4, out3
     torch.cuda.empty_cache()
 
     # B12 on sqrt(rho)*v_x: the cluster FFT kernel and the dense kernel
@@ -1670,21 +1705,54 @@ def fused_kernel_rows(torch, ck, fields, nbins):
     return rows
 
 
-def unfolded_launch(torch, ck, phase, shape, full_nz, channels, nbins):
-    """Print B6/B10's ptxas report and launch: warps and dynamic shared
-    bytes a block (a histogram of channels * nbins doubles a warp, and the
-    nbins + 2 int thresholds of the shells), blocks an SM (occupancy) and
-    the grid."""
-    for line in ptxas_report("shell_bin_unfolded_kernel"):
-        say(f"phase {phase} shell_bin_unfolded_kernel ptxas: {line}")
-    bps = ck.unfolded_blocks_per_sm(channels, nbins)
+# The shell-binning walk's kernels (csrc/shell_bins.cuh) in the build log:
+# the instantiation of each kernels-line row.
+WALK_PTXAS = {
+    "shell_bin_values_folded": "shell_walk_kernelILi2ELb0ENS_10FoldedRows",
+    "shell_bin_values_folded_1ch": "shell_walk_kernelILi1ELb0ENS_10FoldedRows",
+    "shell_bin_sums_folded_onepass": "shell_walk_kernelILi2ELb1ENS_10FoldedRows",
+    "shell_bin_values_folded_rows": "shell_walk_kernelILi2ELb0ENS_10FoldedRows",
+    "shell_bin_powers_fused": "powers_fold_bin_kernelILb1E",
+    "shell_bin_sums_unfolded": "shell_walk_kernelILi2ELb0ENS_12UnfoldedRows",
+    "shell_bin_values_rfft_chunk": "shell_walk_kernelILi2ELb0ENS_12UnfoldedRows",
+}
+
+
+def walk_report(torch, ck, phase, name, row, launch, entry, *args):
+    """Print a shell-binning kernel's ptxas report (registers, spills), its
+    launch (threads and dynamic shared bytes a block, blocks an SM from the
+    occupancy query, the grid), and its time through the C entry alone
+    (``entry`` with ``args``, the output already allocated: no checks, no
+    allocation or zeroing) beside the wrapper's time in ``row``, each
+    against the bound (CUDA events, 20 warm calls)."""
+    from fava_tpu_torch.ops import _build
+
+    for line in ptxas_report(WALK_PTXAS[name]):
+        say(f"phase {phase} {name} ptxas: {line}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    say(f"phase {phase} shell_bin_unfolded_kernel<{channels}> launch on {tuple(shape)}, {nbins} shells: "
-        f"{ck.UNFOLDED_WARPS} warps and {ck.UNFOLDED_WARPS * channels * nbins * 8 + (nbins + 2) * 4} "
-        f"shared bytes a block, "
-        f"{bps} blocks an SM ({bps * ck.UNFOLDED_WARPS} warps of 64), grid "
-        f"{ck._unfolded_launch_blocks(shape, full_nz, channels, nbins, torch.device('cuda'))} "
-        f"on {sms} SMs")
+    say(f"phase {phase} {name} launch: {32 * launch['warps']} threads and {launch['smem']} shared "
+        f"bytes a block, {launch['blocks_per_sm']} blocks an SM "
+        f"({launch['blocks_per_sm'] * launch['warps']} warps of 64), grid {launch['blocks']} on {sms} SMs")
+    fn = getattr(_build.library(), entry)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = fn(*args, launch["blocks"], stream)
+        if err:
+            fail(f"{name}: C entry {entry} failed with {err}")
+
+    c_ms = cuda_ms(torch, run, 20)
+    bound = row["bound_ms"]
+    say(f"phase {phase} {name}: C entry {c_ms!r} ms ({c_ms / bound!r} x its bound), wrapper "
+        f"{row['ms']!r} ms ({row['ms'] / bound!r} x), bound {bound!r} ms")
+
+
+def unfolded_launch(torch, ck, shape, full_nz, channels, nbins):
+    """B6/B10's launch over the walks of an (nx, ny, nzr) volume: one a row
+    of a half-spectrum, two a row of a full grid."""
+    nx, ny, nzr = (int(s) for s in shape)
+    walks = nx * ny * (2 if nzr == full_nz else 1)
+    return ck.walk_launch("fava_shell_bin_unfolded_blocks_per_sm", (channels,), channels, walks, nbins)
 
 
 def regrid_launch(torch, ck, phase, out_shape, wide):

@@ -27,7 +27,6 @@ using fava::RawCell;
 using fava::row_sweep;
 
 constexpr int kRowThreads = 256;  // threads of a row-moment block
-constexpr int kBinThreads = 256;  // threads of a binning block (8 warps)
 
 // ---------------------------------------------------------------------------
 // Per-row moments (K1, K2).
@@ -158,91 +157,47 @@ __global__ void fold_pair_kernel(const float* __restrict__ t, const float* __res
 // wz * value with wz = 1 on self-conjugate z planes (0, and nz/2 for even
 // nz) and 2 elsewhere.
 //
-// What bounds it: the TPU kernel looped over shells with masks, so it was
-// bound by the loop. Here each cell is touched once, and the limit is
-// contention on the histogram: neighbouring cells fall in the same shell.
-// Design: blocks run in parallel with no order, so nothing carries between
-// them; each block keeps its own C x nbins f64 histogram in shared memory
-// (sized from nbins at run time) and adds it to the output with f64 global
-// atomics at the end. A warp walks one (i, j) row along z, 32 cells at a
-// time (coalesced loads), and sums runs of equal shells with a segmented
-// shuffle scan before touching shared memory (shell_bins.cuh). Rows and row
-// tails beyond the last shell are skipped without reading them. The
-// single-channel variant is the same kernel without the second channel's
-// loads, scan and atomics.
+// What bounds it: the read of the cells inside the last shell, 4 bytes a
+// channel (8.7 M cells of the 512^3 fold, 0.021 ms at 3.35 TB/s for two
+// channels). The TPU kernel looped over shells with masks; here each cell
+// is touched once. Design: the walk of shell_bins.cuh (shell_walk_kernel)
+// over FoldedRows, the kernel of B6/B10: one warp a folded row along z,
+// only as far as the last shell (first_kz_outside); 4m consecutive cells a
+// lane, their float4 loads issued together behind a masked head (rows of
+// nzr = 257 cells alternate 4-byte offsets from 16 bytes); each cell's
+// shell from the block's table of class thresholds, no square root; runs
+// of one shell summed in f64 registers and added to the warp's own
+// histogram with plain shared adds; one segmented shuffle scan a trip;
+// blocks of as many warps as shared memory holds histograms for, one wave.
+// Rows past ny/2 are skipped unread.
 //
 // The one-pass folded binning B11a, replacing _shell_kernel_folded
 // (pallas_kernels.py:758), is this kernel with kCounts: a leading count
 // channel of weight mx * my * wz (the unfold multiplicities of the row's x
-// and y indices, from full_nx and full_ny) beside the two value channels;
-// out is then [counts, total, longi]. Its counts equal the static
-// _folded_counts exactly (integer weights summed in f64). B11b, replacing
-// the row-chunked _shell_kernel_folded_v2 (:851), is K4's values-only launch
-// on a fold with rows >= ny/2+1 (fava_tpu pads them to a multiple of 8):
-// rows past ny/2 are skipped unread, whatever they hold.
+// and y indices, from full_nx and full_ny), summed a run at a time beside
+// the two value channels; out is then [counts, total, longi]. Its counts
+// equal the static _folded_counts exactly (integer weights summed in f64).
+// B11b, replacing the row-chunked _shell_kernel_folded_v2 (:851), is K4's
+// values-only launch on a fold with rows >= ny/2+1 (fava_tpu pads them to
+// a multiple of 8): rows past ny/2 are skipped unread, whatever they hold.
 
-template <int C, bool kCounts>
-__global__ void __launch_bounds__(kBinThreads)
-shell_bin_folded_kernel(const float* __restrict__ t, const float* __restrict__ l,
-                        double* __restrict__ out, int nxh, int rows, int nzr, int nbins,
-                        int full_nx, int full_ny, int full_nz) {
-  constexpr int kOff = kCounts ? 1 : 0;  // value channels follow the count channel
-  constexpr int kOut = C + kOff;
-  extern __shared__ double hist[];  // [kOut][nbins]
-  fava::zero_hist(hist, kOut * nbins);
-
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  const int64_t nrows = (int64_t)nxh * rows;
-  const float kmax = (float)nbins - 0.5f;
-  const int ny_half = full_ny / 2;
-  const int z_nyq = (full_nz % 2 == 0) ? full_nz / 2 : -1;
-
-  for (int64_t row = (int64_t)blockIdx.x * warps + (threadIdx.x >> 5); row < nrows;
-       row += (int64_t)gridDim.x * warps) {
-    const int i = (int)(row / rows);
-    const int j = (int)(row % rows);
-    if (j > ny_half) continue;  // fold padding rows bin nothing (warp-uniform)
-    const int ij2 = i * i + j * j;
-    const int64_t off = row * nzr;
-    double mxy = 0.0;
-    if constexpr (kCounts) mxy = fava::hermitian_mult(i, full_nx) * fava::hermitian_mult(j, full_ny);
-    for (int z0 = 0; z0 < nzr; z0 += 32) {
-      // Warp-uniform: k grows with z, so every later cell is out of range.
-      if (sqrtf((float)(ij2 + z0 * z0)) > kmax) break;
-      const int z = z0 + lane;
-      int shell = nbins;  // sentinel: bins nothing, sorts after every shell
-      double v[kOut] = {};
-      if (z < nzr) {
-        const float k = sqrtf((float)(ij2 + z * z));
-        if (k <= kmax) {
-          shell = min((int)floorf(k + 0.5f), nbins - 1);
-          const double wz = (z == 0 || z == z_nyq) ? 1.0 : 2.0;
-          if constexpr (kCounts) v[0] = wz * mxy;
-          v[kOff] = wz * (double)t[off + z];
-          if constexpr (C == 2) v[kOff + 1] = wz * (double)l[off + z];
-        }
-      }
-      fava::warp_bin_add<kOut>(shell, v, hist, nbins, lane);
-    }
-  }
-  fava::flush_hist(hist, out, kOut * nbins);
-}
+using fava::FoldedRows;
+using fava::shell_walk_kernel;
 
 template <int C, bool kCounts>
 int launch_shell_bin_folded(const float* t, const float* l, double* out, int nxh, int rows,
                             int nzr, int nbins, int full_nx, int full_ny, int full_nz,
                             int blocks, cudaStream_t stream) {
-  const size_t smem = (C + (kCounts ? 1 : 0)) * (size_t)nbins * sizeof(double);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(shell_bin_folded_kernel<C, kCounts>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  shell_bin_folded_kernel<C, kCounts><<<blocks, kBinThreads, smem, stream>>>(
-      t, l, out, nxh, rows, nzr, nbins, full_nx, full_ny, full_nz);
-  return launch_status();
+  // Vector loads need both volumes' rows at the same offset from 16 bytes.
+  const int vec = C == 1 || ((reinterpret_cast<uintptr_t>(t) ^ reinterpret_cast<uintptr_t>(l)) & 15) == 0;
+  return fava::launch_walk(shell_walk_kernel<C, kCounts, FoldedRows>, C + kCounts, nbins, blocks,
+                           stream, t, l, out, FoldedRows{nxh, rows, nzr, full_nz, full_nx, full_ny},
+                           nbins, vec);
+}
+
+template <int C, bool kCounts>
+int folded_blocks_per_sm(int nbins) {
+  return fava::walk_blocks_per_sm(shell_walk_kernel<C, kCounts, FoldedRows>, C + kCounts, nbins);
 }
 
 }  // namespace
@@ -304,6 +259,16 @@ int fava_shell_bin_sums_folded_onepass(const void* t, const void* l, void* out, 
   return launch_shell_bin_folded<2, true>((const float*)t, (const float*)l, (double*)out, nxh,
                                           rows, nzr, nbins, full_nx, full_ny, full_nz, blocks,
                                           (cudaStream_t)stream);
+}
+
+// Blocks of the folded kernel with ``channels`` value channels (1 or 2;
+// ``counts``: B11a's, with its count channel) that fit one SM at once; a
+// negative CUDA error code on failure (also for nbins > kMaxBins).
+int fava_shell_bin_folded_blocks_per_sm(int channels, int counts, int nbins) {
+  if (counts) return channels == 2 ? folded_blocks_per_sm<2, true>(nbins) : -(int)cudaErrorInvalidValue;
+  if (channels == 1) return folded_blocks_per_sm<1, false>(nbins);
+  if (channels == 2) return folded_blocks_per_sm<2, false>(nbins);
+  return -(int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

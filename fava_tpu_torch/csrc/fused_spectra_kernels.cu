@@ -9,7 +9,8 @@
 // Input: the normalized rfft half-spectra w_c (c = x, y, z velocity
 // component) of an (nx, ny, nz) volume, even nx and ny, as a stack of three
 // (nx, ny, nzr = nz/2+1) complex64 volumes: either cuFFT's interleaved
-// output read directly (8-byte float2 loads) or two planar float32 stacks.
+// output read directly (float4 loads of two complex cells) or two planar
+// float32 stacks.
 // For each folded cell (i <= nx/2, j <= ny/2, z) the kernel takes its up to
 // four partners (+-i, +-j): the mirror row nx - i exists for 0 < i < nx/2
 // and ny - j for 0 < j < ny/2, as the fold K3 decides. Each partner's total
@@ -30,16 +31,25 @@
 // 3.35 TB/s); ~60 f64 operations per partner cell are far below the card's
 // rate. The power volumes (two f32 volumes written and read again, and the
 // ~40 eager passes that form them) and the fold's volumes are never
-// materialized. Design: K4's walk. One warp takes one folded row (i, j) and
-// walks z upward 32 cells at a time: the partner rows are contiguous along
-// z, so each of the up-to-12 loads of a step is coalesced (256 contiguous
-// bytes per warp in the interleaved layout); the walk stops at the first 32
-// cells beyond the last shell, so cells outside it are never read. Shells
-// never decrease along the lanes, so the warp sums runs of equal shells with
-// the segmented scan of shell_bins.cuh before one shared-memory atomic per
-// run; each block keeps a 3 x nbins f64 histogram and adds it to the output
-// with f64 global atomics. The TPU kernel's mirror-slab refs, anti-diagonal
-// y-fold matmul and per-shell mask loop are gone.
+// materialized. Design: the walk of shell_bins.cuh. One warp takes one
+// folded row (i, j) and walks z upward only as far as the last shell
+// (first_kz_outside); each lane takes a span of kSpan consecutive cells of
+// the four partner rows, all of them contiguous along z, and issues every
+// load of the span (4 partners x 3 components) before any arithmetic, so
+// one memory latency serves them all. In the interleaved layout a float4
+// holds two complex cells; in the planar one a float4 holds four floats of
+// re or im. Rows start at any 8-byte (interleaved) or 4-byte (planar)
+// offset, so the lanes' spans start at a head of up to 1 (3) cells before
+// the row, masked; the partner rows and components share the (i, j) row's
+// offset from 16 bytes (even nx and ny), except a planar y-partner at an
+// odd nzr and a planar im stack at another offset than re, which take
+// scalar loads. Each cell's shell comes from the block's table of class
+// thresholds, runs of one shell are summed in f64 registers and added to
+// the warp's own histogram with plain shared adds, the span-end runs meet
+// in one segmented shuffle scan a trip of 32 kSpan cells; blocks of as many
+// warps as shared memory holds 3-channel histograms for, one wave. The TPU
+// kernel's mirror-slab refs, anti-diagonal y-fold matmul and per-shell
+// mask loop are gone.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,9 +59,17 @@
 
 namespace {
 
-using fava::launch_status;
+using fava::Run;
 
-constexpr int kBinThreads = 256;  // 8 warps, one folded row each at a time
+// Cells of a lane's span: one float4 of each stream in the interleaved
+// layout (two complex cells), one of re and one of im in the planar one
+// (four cells); and the blocks an SM that the registers must leave room
+// for (the loads of a span take 24 kSpan registers, and more spill).
+template <bool kInterleaved>
+struct Layout {
+  static constexpr int kSpan = kInterleaved ? 2 : 4;
+  static constexpr int kMinBlocks = kInterleaved ? 2 : 1;
+};
 
 // One axis's wavenumber split: the conjugate-even part r and the Nyquist
 // magnitude n (nonzero only at an even extent's index n/2, where r = 0).
@@ -63,35 +81,83 @@ __device__ __forceinline__ Wave own_wave(int idx, int n) {
   return 2 * idx == n ? Wave{0.0, 0.5 * n} : Wave{(double)idx, 0.0};
 }
 
-// The three components of one cell of the stacked transforms.
+// The three components' transforms: cells per component, and either the
+// complex stack as (re, im) float pairs (kInterleaved) or two planar
+// float stacks.
 template <bool kInterleaved>
 struct Stack {
-  const float* re;  // interleaved: the complex stack as (re, im) float pairs
-  const float* im;  // planar only
-  int64_t cells;    // cells per component
+  const float* re;
+  const float* im;
+  int64_t cells;
+};
 
-  __device__ __forceinline__ void load(int64_t idx, double (&wr)[3], double (&wi)[3]) const {
+// One partner row's span: the three components at kSpan cells.
+template <int kSpan>
+struct Span {
+  float re[3][kSpan], im[3][kSpan];
+};
+
+// Four floats of a planar row at cells z .. z+3 (cells outside 0 .. len-1
+// read as 0): one float4 when the row's cell z sits on 16 bytes (vec),
+// else four scalar loads.
+__device__ __forceinline__ float4 load4(const float* row, int z, int len, bool on, bool vec) {
+  if (vec)
+    return (on && z + 3 >= 0 && z < len) ? __ldg(reinterpret_cast<const float4*>(row + z))
+                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+  float e[4];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      if constexpr (kInterleaved) {
-        const float2 v = __ldg(reinterpret_cast<const float2*>(re) + c * cells + idx);
-        wr[c] = v.x;
-        wi[c] = v.y;
-      } else {
-        wr[c] = __ldg(re + c * cells + idx);
-        wi[c] = __ldg(im + c * cells + idx);
+  for (int i = 0; i < 4; ++i) e[i] = (on && z + i >= 0 && z + i < len) ? __ldg(row + z + i) : 0.f;
+  return make_float4(e[0], e[1], e[2], e[3]);
+}
+
+// Loads cells z0 .. z0+kSpan-1 of the partner row at cell offset rowoff
+// (``on``: the partner exists). Interleaved: cell z0 of every row sits on
+// 16 bytes. Planar: re's does; vec_im says whether im's does too, and
+// vec_row whether this row's does (a y-partner at an odd nzr may not).
+template <bool kInterleaved, int kSpan>
+__device__ __forceinline__ void load_span(const Stack<kInterleaved>& s, int64_t rowoff, int z0,
+                                          int len, bool on, bool vec_row, bool vec_im,
+                                          Span<kSpan>& sp) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const int64_t o = c * s.cells + rowoff;
+    if constexpr (kInterleaved) {
+#pragma unroll
+      for (int k = 0; k < kSpan; k += 2) {
+        const int z = z0 + k;
+        const float4 v = (on && z + 1 >= 0 && z < len)
+                             ? __ldg(reinterpret_cast<const float4*>(s.re + 2 * (o + z)))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        sp.re[c][k] = v.x;
+        sp.im[c][k] = v.y;
+        sp.re[c][k + 1] = v.z;
+        sp.im[c][k + 1] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kSpan; k += 4) {
+        const float4 a = load4(s.re + o, z0 + k, len, on, vec_row);
+        const float4 b = load4(s.im + o, z0 + k, len, on, vec_row && vec_im);
+        sp.re[c][k] = a.x, sp.re[c][k + 1] = a.y, sp.re[c][k + 2] = a.z, sp.re[c][k + 3] = a.w;
+        sp.im[c][k] = b.x, sp.im[c][k + 1] = b.y, sp.im[c][k + 2] = b.z, sp.im[c][k + 3] = b.w;
       }
     }
   }
-};
+}
 
-// Total and longitudinal power of one partner cell.
-template <bool kInterleaved>
-__device__ __forceinline__ void partner_powers(const Stack<kInterleaved>& s, int64_t idx, Wave kx,
-                                               Wave ky, Wave kz, bool kz0, double inv_k2,
-                                               double& tot, double& lon) {
+// Total and longitudinal power of cell k of one partner's span, with the
+// partner's own wavenumber split; on the kz = 0 plane |reg - nyq|^2, else
+// |reg|^2 + |nyq|^2. A missing partner's span holds zeros: its powers are
+// exactly 0, and adding them leaves a sum unchanged.
+template <int kSpan>
+__device__ __forceinline__ void partner_powers(const Span<kSpan>& sp, int k, Wave kx, Wave ky, Wave kz,
+                                               bool kz0, double inv_k2, double& tot, double& lon) {
   double wr[3], wi[3];
-  s.load(idx, wr, wi);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    wr[c] = sp.re[c][k];
+    wi[c] = sp.im[c][k];
+  }
   tot = 0.5 * ((wr[0] * wr[0] + wi[0] * wi[0]) + (wr[1] * wr[1] + wi[1] * wi[1]) +
                (wr[2] * wr[2] + wi[2] * wi[2]));
   const double reg_r = kx.r * wr[0] + ky.r * wr[1] + kz.r * wr[2];
@@ -108,91 +174,109 @@ __device__ __forceinline__ void partner_powers(const Stack<kInterleaved>& s, int
   lon = p * inv_k2;
 }
 
-template <bool kInterleaved>
-__global__ void __launch_bounds__(kBinThreads)
-powers_fold_bin_kernel(Stack<kInterleaved> s, double* __restrict__ out, int nx, int ny, int nzr,
-                       int nbins, int full_nz) {
-  extern __shared__ double hist[];  // [3][nbins]: counts, total, longi
-  fava::zero_hist(hist, 3 * nbins);
+// The row's four partners: (i, j), (-i, j), (i, -j), (-i, -j), and their
+// own wavenumber splits along x and y.
+struct Partners {
+  Wave kx[4], ky[4];
+  double mxy;  // the count weight: the partners that exist
+};
 
+// Bins cell k of the span, at z (inside the walk), weight wz: the
+// partners' powers summed in the plain fold's order, ((i, j) + (-i, j)) +
+// ((i, -j) + (-i, -j)), then [mxy, total, longi] added to the run.
+template <int kSpan>
+__device__ __forceinline__ void bin_cell(const Span<kSpan> (&sp)[4], int k, const Partners& pt, Wave kz,
+                                         bool kz0, double wz, const int* thr, double* hist,
+                                         Run<3>& r) {
+  const double inv_k2 = 1.0 / fmax((double)r.k2, 1.0);  // r.k2 = i^2 + j^2 + z^2 here
+  double t[4], l[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) partner_powers(sp[p], k, pt.kx[p], pt.ky[p], kz, kz0, inv_k2, t[p], l[p]);
+  const double v[3] = {pt.mxy, (t[0] + t[1]) + (t[2] + t[3]), (l[0] + l[1]) + (l[2] + l[3])};
+  r.add(v, wz, thr, hist);
+}
+
+template <bool kInterleaved>
+__global__ void __launch_bounds__(fava::kBinMaxWarps * 32, Layout<kInterleaved>::kMinBlocks)
+powers_fold_bin_kernel(Stack<kInterleaved> s, double* __restrict__ out, int nx, int ny, int nzr,
+                       int nbins, int full_nz, int vec_im) {
+  extern __shared__ __align__(16) double hists[];  // [warps][nbins][3]: counts, total, longi
+  const int* thr;
+  double* hist = fava::warp_hists_init<3>(hists, nbins, thr);
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
   const int nyh = ny / 2 + 1;
   const int64_t nrows = (int64_t)(nx / 2 + 1) * nyh;
-  const float kmax = (float)nbins - 0.5f;
   const int z_nyq = (full_nz % 2 == 0) ? full_nz / 2 : -1;
+  const int k2_out = thr[nbins];
+  constexpr int kSpan = Layout<kInterleaved>::kSpan;
+  // Cells of the layout's 16 bytes: a row's head is its offset from them.
+  constexpr int kUnit = kInterleaved ? 2 : 4;
+  const uintptr_t base = reinterpret_cast<uintptr_t>(s.re) / (kInterleaved ? 8 : 4);
 
   for (int64_t row = (int64_t)blockIdx.x * warps + (threadIdx.x >> 5); row < nrows;
        row += (int64_t)gridDim.x * warps) {
     const int i = (int)(row / nyh);
-    const int j = (int)(row % nyh);
-    // Warp-uniform: whether the mirror rows exist.
+    const int j = (int)(row - (int64_t)i * nyh);
+    const int ij2 = i * i + j * j;
+    const int len = min(nzr, fava::first_kz_outside(ij2, k2_out));
+    if (len == 0) continue;
+    // Warp-uniform: whether the mirror rows exist (K3's rule).
     const bool x_pair = i > 0 && 2 * i < nx;
     const bool y_pair = j > 0 && 2 * j < ny;
-    const Wave kx = own_wave(i, nx), kxm{-(double)i, 0.0};
-    const Wave ky = own_wave(j, ny), kym{-(double)j, 0.0};
-    const double mxy = (x_pair ? 2.0 : 1.0) * (y_pair ? 2.0 : 1.0);
-    const int ij2 = i * i + j * j;
+    Partners pt;
+    pt.kx[0] = pt.kx[2] = own_wave(i, nx);
+    pt.kx[1] = pt.kx[3] = Wave{-(double)i, 0.0};
+    pt.ky[0] = pt.ky[1] = own_wave(j, ny);
+    pt.ky[2] = pt.ky[3] = Wave{-(double)j, 0.0};
+    pt.mxy = fava::hermitian_mult(i, nx) * fava::hermitian_mult(j, ny);
     const int64_t p00 = ((int64_t)i * ny + j) * nzr;
-    const int64_t p10 = ((int64_t)(nx - i) * ny + j) * nzr;
-    const int64_t p01 = ((int64_t)i * ny + (ny - j)) * nzr;
-    const int64_t p11 = ((int64_t)(nx - i) * ny + (ny - j)) * nzr;
-    for (int z0 = 0; z0 < nzr; z0 += 32) {
-      // Warp-uniform: k grows with z, so every later cell is out of range.
-      if (sqrtf((float)(ij2 + z0 * z0)) > kmax) break;
-      const int z = z0 + lane;
-      int shell = nbins;  // sentinel: bins nothing, sorts after every shell
-      double v[3] = {};
-      if (z < nzr) {
-        const float k = sqrtf((float)(ij2 + z * z));
-        if (k <= kmax) {
-          shell = min((int)floorf(k + 0.5f), nbins - 1);
-          const Wave kz = own_wave(z, full_nz);
-          const bool kz0 = z == 0;
-          const double inv_k2 = 1.0 / fmax((double)(ij2 + z * z), 1.0);
-          double t, l, tq, lq;
-          partner_powers(s, p00 + z, kx, ky, kz, kz0, inv_k2, t, l);
-          if (x_pair) {
-            partner_powers(s, p10 + z, kxm, ky, kz, kz0, inv_k2, tq, lq);
-            t += tq;
-            l += lq;
+    const int64_t off[4] = {p00, x_pair ? ((int64_t)(nx - i) * ny + j) * nzr : p00,
+                            y_pair ? ((int64_t)i * ny + (ny - j)) * nzr : p00,
+                            x_pair && y_pair ? ((int64_t)(nx - i) * ny + (ny - j)) * nzr : p00};
+    const bool on[4] = {true, x_pair, y_pair, x_pair && y_pair};
+    const int head = (int)((base + p00) % kUnit);
+    // A planar y-partner sits (ny - 2j) nzr cells from its x-partner.
+    const bool vec_y = kInterleaved || ((ny - 2 * j) * nzr) % 4 == 0;
+    const int lo = 1, hi = z_nyq >= 0 ? min(len, z_nyq) : len;  // cells of weight 2
+    const int cells = head + len;
+    for (int q0 = 0; q0 < cells; q0 += 32 * kSpan) {
+      const int qs = q0 + lane * kSpan;
+      Run<3> r;
+      r.none(nbins);
+      if (qs < cells) {
+        const int z0 = qs - head;  // the span's first cell (z0 < 0: before the row)
+        r.open(ij2, max(z0, 0), z0, nbins, thr);
+        // Every load of the span first, so one memory latency serves the trip.
+        Span<kSpan> sp[4];
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+          load_span<kInterleaved, kSpan>(s, off[p], z0, len, on[p], p < 2 || vec_y, vec_im != 0, sp[p]);
+        if (z0 >= lo && z0 + kSpan - 1 < hi) {
+#pragma unroll
+          for (int k = 0; k < kSpan; ++k) {
+            bin_cell(sp, k, pt, Wave{(double)(z0 + k), 0.0}, false, 2.0, thr, hist, r);
+            r.step();
           }
-          if (y_pair) {
-            double ty, ly;
-            partner_powers(s, p01 + z, kx, kym, kz, kz0, inv_k2, ty, ly);
-            if (x_pair) {
-              partner_powers(s, p11 + z, kxm, kym, kz, kz0, inv_k2, tq, lq);
-              ty += tq;
-              ly += lq;
-            }
-            t += ty;
-            l += ly;
+        } else {
+#pragma unroll
+          for (int k = 0; k < kSpan; ++k) {
+            const int z = z0 + k;
+            if (z >= 0 && z < len)
+              bin_cell(sp, k, pt, own_wave(z, full_nz), z == 0, z == 0 || z == z_nyq ? 1.0 : 2.0,
+                       thr, hist, r);
+            r.step();
           }
-          const double wz = (z == 0 || z == z_nyq) ? 1.0 : 2.0;
-          v[0] = wz * mxy;
-          v[1] = wz * t;
-          v[2] = wz * l;
         }
       }
-      fava::warp_bin_add<3>(shell, v, hist, nbins, lane);
+      // Runs that reach a span's end may continue in the next lanes' spans
+      // (or the next trip's): added after a barrier, one add a shell.
+      __syncwarp();
+      fava::add_span_ends<3>(r, hist, nbins, lane);
+      __syncwarp();
     }
   }
-  fava::flush_hist(hist, out, 3 * nbins);
-}
-
-template <bool kInterleaved>
-int launch_powers_fold_bin(Stack<kInterleaved> s, double* out, int nx, int ny, int nzr, int nbins,
-                           int full_nz, int blocks, cudaStream_t stream) {
-  const size_t smem = 3 * (size_t)nbins * sizeof(double);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(powers_fold_bin_kernel<kInterleaved>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  powers_fold_bin_kernel<kInterleaved><<<blocks, kBinThreads, smem, stream>>>(s, out, nx, ny, nzr,
-                                                                             nbins, full_nz);
-  return launch_status();
+  fava::warp_hists_flush<3>(hists, out, nbins);
 }
 
 }  // namespace
@@ -208,10 +292,21 @@ int fava_shell_bin_powers_fused(const void* re, const void* im, void* out, int n
   double* o = (double*)out;
   cudaStream_t st = (cudaStream_t)stream;
   if (interleaved)
-    return launch_powers_fold_bin(Stack<true>{(const float*)re, nullptr, cells}, o, nx, ny, nzr,
-                                  nbins, full_nz, blocks, st);
-  return launch_powers_fold_bin(Stack<false>{(const float*)re, (const float*)im, cells}, o, nx, ny,
-                                nzr, nbins, full_nz, blocks, st);
+    return fava::launch_walk(powers_fold_bin_kernel<true>, 3, nbins, blocks, st,
+                             Stack<true>{(const float*)re, nullptr, cells}, o, nx, ny, nzr, nbins,
+                             full_nz, 1);
+  // im's rows sit at re's offset from 16 bytes when the stacks do.
+  const int vec_im = ((reinterpret_cast<uintptr_t>(re) ^ reinterpret_cast<uintptr_t>(im)) & 15) == 0;
+  return fava::launch_walk(powers_fold_bin_kernel<false>, 3, nbins, blocks, st,
+                           Stack<false>{(const float*)re, (const float*)im, cells}, o, nx, ny, nzr,
+                           nbins, full_nz, vec_im);
+}
+
+// Blocks of the kernel that fit one SM at once; a negative CUDA error code
+// on failure (also for nbins > kMaxBins).
+int fava_shell_bin_powers_fused_blocks_per_sm(int interleaved, int nbins) {
+  return interleaved ? fava::walk_blocks_per_sm(powers_fold_bin_kernel<true>, 3, nbins)
+                     : fava::walk_blocks_per_sm(powers_fold_bin_kernel<false>, 3, nbins);
 }
 
 }  // extern "C"

@@ -55,7 +55,9 @@ _SIGNATURES = {
     "fava_pdf2d_blocks_per_sm": (_I, _I, _LL),
     "fava_pdf2d_smem_optin": (),
     "fava_shell_bin_sums_folded_onepass": (_P, _P, _P) + (_I,) * 8 + (_P,),
+    "fava_shell_bin_folded_blocks_per_sm": (_I, _I, _I),
     "fava_shell_bin_powers_fused": (_P, _P, _P) + (_I,) * 7 + (_P,),
+    "fava_shell_bin_powers_fused_blocks_per_sm": (_I, _I),
     "fava_zy_rfft": (_P, _P, _P, _I, _I, _I, _P),
     "fava_zy_fft": (_P, _P, _P, _P, _I, _P, _I, _P),
     "fava_zy_fft_tables": (_P, _P, _P),

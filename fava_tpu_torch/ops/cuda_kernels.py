@@ -2,10 +2,11 @@
 
 Counterpart of the Pallas kernels of fava_tpu on the flagship, AMR,
 stage-4, out-of-core and fused-spectrum paths (sources and design notes
-in ``fava_tpu_torch/csrc/``: ``flagship_kernels.cu`` for K1-K4 and B11,
-``amr_kernels.cu`` for K5-K7, ``spectra_kernels.cu`` for B10 and B6,
-``pdf2d_kernels.cu`` for B8, ``fused_spectra_kernels.cu`` for B9 and
-``dft_kernels.cu`` for B12):
+in ``fava_tpu_torch/csrc/``: ``flagship_kernels.cu`` for K1-K3 and the
+launches of K4 and B11, ``amr_kernels.cu`` for K5-K7, ``spectra_kernels.cu``
+for the launches of B10 and B6, ``shell_bins.cuh`` for the shell-binning
+walk that K4, B11, B10 and B6 run and B9 shares, ``pdf2d_kernels.cu`` for
+B8, ``fused_spectra_kernels.cu`` for B9 and ``dft_kernels.cu`` for B12):
 
 ================================  ==============================================
 wrapper                           replaces (fava_tpu/ops/, fava_tpu/experiments/)
@@ -333,22 +334,89 @@ def _shell_bin_folded(name: str, vols, nbins: int, full_ny: int, full_nz: int) -
     if _device_kind(name, *vols) == "cpu":
         return _shell_bin_folded_plain(total, longi, nbins, full_ny, full_nz)
     _check_cuda(name, *vols)
+    _check_bins(name, nbins)
     nxh, rows, nzr = total.shape
     out = torch.zeros((len(vols), nbins), dtype=torch.float64, device=total.device)
     _launch(
         name, total.device, _build.library().fava_shell_bin_values_folded,
         total.data_ptr(), None if longi is None else longi.data_ptr(), out.data_ptr(), nxh, rows,
-        nzr, int(nbins), full_ny, full_nz, len(vols), _bin_blocks(nxh * rows, total.device),
+        nzr, int(nbins), full_ny, full_nz, len(vols),
+        _walk_blocks("fava_shell_bin_folded_blocks_per_sm", (len(vols), 0), len(vols), nxh * rows,
+                     int(nbins), total.device),
     )
     return out
 
 
-def _bin_blocks(nrows: int, device: torch.device) -> int:
-    """Blocks of a folded shell-binning launch (K4, B11a, B9): 8 rows (one
-    a warp) each, at most 4 per SM (each zeroes and flushes its own
-    histogram)."""
-    warps = 256 // 32
-    return max(1, min(-(-nrows // warps), 4 * _sm_count(device.index or 0)))
+# ---------------------------------------------------------------------------
+# The launch of the shell-binning walk (csrc/shell_bins.cuh): B6/B10, K4,
+# B11a and B9. A block has as many warps (up to BIN_MAX_WARPS) as shared
+# memory holds f64 histograms for, a warp a walk; the grid is one wave.
+
+BIN_MAX_WARPS = 8  # kBinMaxWarps
+SHELL_MAX_BINS = 4095  # kMaxBins: (nbins + 1)^2 <= 2^24, so every binned |k|^2 is exact in f32
+
+
+def _check_bins(name: str, nbins: int) -> None:
+    """The shell-binning kernels take 1 .. SHELL_MAX_BINS shells."""
+    if not 1 <= int(nbins) <= SHELL_MAX_BINS:
+        raise ValueError(f"{name}: the CUDA kernel bins 1 to SHELL_MAX_BINS = {SHELL_MAX_BINS} "
+                         f"shells, got {nbins}")
+
+
+def walk_smem_bytes(warps: int, channels: int, nbins: int) -> int:
+    """Dynamic shared bytes of a walk block (walk_smem_bytes in
+    csrc/shell_bins.cuh): each warp's histogram of ``channels`` f64
+    channels, then the nbins + 2 int class thresholds."""
+    return warps * channels * nbins * 8 + (nbins + 2) * 4
+
+
+def bin_block_warps(channels: int, nbins: int, smem_optin: int) -> int:
+    """Warps of a walk block (walk_block_warps): as many as BIN_MAX_WARPS
+    whose histograms fit ``smem_optin`` shared bytes; 0 when not even one
+    does or nbins lies outside 1 .. SHELL_MAX_BINS."""
+    if not 1 <= nbins <= SHELL_MAX_BINS:
+        return 0
+    fixed = walk_smem_bytes(0, channels, nbins)
+    if smem_optin <= fixed:
+        return 0
+    return min(BIN_MAX_WARPS, (smem_optin - fixed) // (8 * channels * nbins))
+
+
+def _wave_blocks(nwalks: int, warps: int, blocks_per_sm: int, sms: int) -> int:
+    """Blocks of a walk launch over ``nwalks`` walks: a walk for each warp,
+    at most as many blocks as the card holds at once (the warps stride over
+    the walks; each block zeroes and flushes its own histograms)."""
+    return max(1, min(-(-nwalks // warps), blocks_per_sm * sms))
+
+
+@lru_cache(maxsize=64)
+def walk_blocks_per_sm(entry: str, args: Tuple[int, ...], nbins: int, index: int = 0) -> int:
+    """Blocks of a walk kernel that fit one SM of card ``index`` at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), from the C entry
+    ``entry`` with ``args`` (the kernel's variant) and nbins."""
+    with torch.cuda.device(index):
+        n = getattr(_build.library(), entry)(*args, int(nbins))
+    if n <= 0:
+        raise RuntimeError(f"{entry}{args}: no block fits an SM for {nbins} shells "
+                           f"(occupancy query {n})")
+    return n
+
+
+def walk_launch(entry: str, args: Tuple[int, ...], channels: int, nwalks: int, nbins: int,
+                device="cuda") -> Dict[str, int]:
+    """A walk kernel's launch on ``device``: warps and dynamic shared
+    bytes a block (``channels`` histogram channels), blocks an SM and the
+    grid over ``nwalks`` walks."""
+    index = torch.device(device).index or 0
+    warps = bin_block_warps(channels, nbins, _smem_optin(index))
+    bps = walk_blocks_per_sm(entry, tuple(args), nbins, index)
+    return {"warps": warps, "smem": walk_smem_bytes(warps, channels, nbins), "blocks_per_sm": bps,
+            "blocks": _wave_blocks(nwalks, warps, bps, _sm_count(index))}
+
+
+def _walk_blocks(entry: str, args: Tuple[int, ...], channels: int, nwalks: int, nbins: int,
+                 device) -> int:
+    return walk_launch(entry, args, channels, nwalks, nbins, device)["blocks"]
 
 
 def shell_bin_values_folded(total, longi, nbins: int, full_ny: int, full_nz: int):
@@ -491,35 +559,13 @@ def _shell_bin_unfolded_plain(total, longi, nbins, full_nz, kx0: int = 0, full_n
     return _shell_sums(total, longi, shell, wz, nbins)
 
 
-UNFOLDED_WARPS = 8  # warps of a B6/B10 block (kMaxWarps in csrc/spectra_kernels.cu)
-
-
-@lru_cache(maxsize=16)
-def unfolded_blocks_per_sm(channels: int, nbins: int, index: int = 0) -> int:
-    """Blocks of B6/B10's kernel (UNFOLDED_WARPS warps, each with its own
-    histogram of channels * nbins doubles in shared memory) that fit one
-    SM of card ``index`` at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    with torch.cuda.device(index):
-        n = _build.library().fava_shell_bin_unfolded_blocks_per_sm(int(channels), int(nbins))
-    if n <= 0:
-        raise RuntimeError(f"shell_bin_sums_unfolded: no block fits an SM for {nbins} shells "
-                           f"(occupancy query {n})")
-    return n
-
-
-def _unfolded_blocks(nwalks: int, blocks_per_sm: int, sms: int) -> int:
-    """Blocks of a B6/B10 launch over ``nwalks`` walks (one per row of a
-    half-spectrum, two per row of a full grid): a walk for each warp, at
-    most as many blocks as the card holds at once (the warps stride over
-    the walks; each block zeroes and flushes its own histograms)."""
-    return max(1, min(-(-nwalks // UNFOLDED_WARPS), blocks_per_sm * sms))
-
-
 def _unfolded_launch_blocks(shape, full_nz: int, channels: int, nbins: int, device) -> int:
+    """Blocks of a B6/B10 launch: one walk a row of a half-spectrum, two a
+    row of a full grid."""
     nx, ny, nzr = (int(s) for s in shape)
     walks = nx * ny * (2 if nzr == full_nz else 1)
-    index = device.index or 0
-    return _unfolded_blocks(walks, unfolded_blocks_per_sm(channels, nbins, index), _sm_count(index))
+    return _walk_blocks("fava_shell_bin_unfolded_blocks_per_sm", (channels,), channels, walks,
+                        nbins, device)
 
 
 def shell_bin_sums_unfolded(total, longi: Optional[torch.Tensor], nbins: int, full_nz: int):
@@ -538,6 +584,7 @@ def shell_bin_sums_unfolded(total, longi: Optional[torch.Tensor], nbins: int, fu
     if _device_kind(name, *vols) == "cpu":
         return _shell_bin_unfolded_plain(total, longi, int(nbins), int(full_nz))
     _check_cuda(name, *vols)
+    _check_bins(name, nbins)
     out = torch.zeros((len(vols), nbins), dtype=torch.float64, device=total.device)
     _launch(
         name, total.device, _build.library().fava_shell_bin_sums_unfolded, total.data_ptr(),
@@ -573,6 +620,7 @@ def shell_bin_values_rfft_chunk(total, longi, nbins: int, full_nx: int, full_nz:
         sums2 = _shell_bin_unfolded_plain(total, longi, int(nbins), full_nz, kx0, full_nx)
     else:
         _check_cuda(name, total, longi)
+        _check_bins(name, nbins)
         sums2 = torch.zeros((2, nbins), dtype=torch.float64, device=total.device)
         _launch(
             name, total.device, _build.library().fava_shell_bin_sums_rfft_chunk, total.data_ptr(),
@@ -657,11 +705,14 @@ def shell_bin_sums_folded_onepass(total, longi, nbins: int, full_nx: int, full_n
         out = _onepass_plain(total, longi, nbins, full_nx, full_ny, full_nz)
     else:
         _check_cuda(name, total, longi)
+        _check_bins(name, nbins)
         out = torch.zeros((3, nbins), dtype=torch.float64, device=total.device)
         _launch(
             name, total.device, _build.library().fava_shell_bin_sums_folded_onepass,
             total.data_ptr(), longi.data_ptr(), out.data_ptr(), nxh, rows, nzr, nbins, full_nx,
-            full_ny, full_nz, _bin_blocks(nxh * rows, total.device),
+            full_ny, full_nz,
+            _walk_blocks("fava_shell_bin_folded_blocks_per_sm", (2, 1), 3, nxh * rows, nbins,
+                         total.device),
         )
     return _with_transverse(out[0], out[1:])
 
@@ -749,12 +800,14 @@ def shell_bin_powers_fused(re_stack, im_stack, nbins: int, full_nz: int):
         out = _powers_fused_plain(re_stack, im_stack, nbins, full_nz)
     else:
         interleaved = _stack_layout(name, re_stack, im_stack)
+        _check_bins(name, nbins)
         out = torch.zeros((3, nbins), dtype=torch.float64, device=re_stack.device)
         _launch(
             name, re_stack.device, _build.library().fava_shell_bin_powers_fused,
             re_stack.data_ptr(), None if interleaved else im_stack.data_ptr(), out.data_ptr(), nx,
             ny, nzr, nbins, full_nz, interleaved,
-            _bin_blocks((nx // 2 + 1) * (ny // 2 + 1), re_stack.device),
+            _walk_blocks("fava_shell_bin_powers_fused_blocks_per_sm", (interleaved,), 3,
+                         (nx // 2 + 1) * (ny // 2 + 1), nbins, re_stack.device),
         )
     return _with_transverse(out[0], out[1:])
 
@@ -1501,11 +1554,12 @@ def _pdf2d_blocks(n: int, blocks_per_sm: int, sms: int) -> int:
 
 
 @lru_cache(maxsize=8)
-def _pdf2d_smem_optin(index: int) -> int:
+def _smem_optin(index: int) -> int:
+    """The dynamic shared bytes a block may opt in to on card ``index``."""
     with torch.cuda.device(index):
         n = _build.library().fava_pdf2d_smem_optin()
     if n <= 0:
-        raise RuntimeError(f"pdf2d: shared memory query failed ({n})")
+        raise RuntimeError(f"shared memory query failed ({n})")
     return n
 
 
@@ -1526,7 +1580,7 @@ def pdf2d_launch(n: int, nbx: int, nby: int, weighted: bool, device="cuda") -> D
     histogram in shared memory (1/0), dynamic shared bytes, blocks an SM
     and the grid."""
     index = torch.device(device).index or 0
-    shared, smem = _pdf2d_layout(nbx, nby, weighted, _pdf2d_smem_optin(index))
+    shared, smem = _pdf2d_layout(nbx, nby, weighted, _smem_optin(index))
     bps = _pdf2d_blocks_per_sm(weighted, shared, smem, index)
     return {"shared": int(shared), "smem": smem, "blocks_per_sm": bps,
             "blocks": _pdf2d_blocks(n, bps, _sm_count(index))}
@@ -1568,4 +1622,4 @@ def pdf2d_hist_in_shared_memory(nbx: int, nby: int, weighted: bool, device="cuda
     shared memory on ``device`` (else it adds to the output in global
     memory)."""
     index = torch.device(device).index or 0
-    return _pdf2d_layout(int(nbx), int(nby), weighted, _pdf2d_smem_optin(index))[0]
+    return _pdf2d_layout(int(nbx), int(nby), weighted, _smem_optin(index))[0]

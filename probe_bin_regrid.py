@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Probe of the unfolded shell binning (B6/B10) and the AMR regrid (K7) on
-one NVIDIA GPU.
+"""Probe of the shell-binning walk (B6/B10, the folded K4/B4/B11a/B11b and
+the fused powers binning B9) and the AMR regrid (K7) on one NVIDIA GPU.
 
 Run from the repository root:
 
-    python3 probe_bin_regrid.py [--quick] [--old DIR] [--bin | --regrid]
+    python3 probe_bin_regrid.py [--quick] [--old DIR] [--bin | --walk | --regrid]
 
 It builds the kernels, prints each kernel's ptxas report, the atomics its
 SASS holds (cuobjdump) and its launch configuration, then holds B6/B10 to
@@ -13,17 +13,24 @@ shell on small shapes and at the path's shapes: (128, 1024, 513) chunks of
 a 1024^3 half-spectrum at kx0 = 0, 448, 896, their 8 chunks against the
 whole volume, and 511 x 512 x 257 (random positive powers). Then it times
 (CUDA events, warm) the kernel beside builds of it with other constants or
-with a part cut out (BIN_VARIANTS: their results are wrong; only their
+with a part cut out (WALK_VARIANTS: their results are wrong; only their
 times count), other grid sizes, and the kernel of the source tree ``DIR``
-(a checkout of an earlier commit), each against its bound. K7 the same
-way: bit-exact against ``_regrid_plain`` on small plans (odd nz, window
+(a checkout of an earlier commit), each against its bound. The folded
+kernels and B9 (``--walk``) the same way at chip_smoke.py's 512^3 shapes:
+K4, B4, B11a and B11b on (257, 257, 257) folds and (257, 264, 257) pad8
+folds with NaN pad rows, B9 on a (3, 512, 512, 257) complex64 stack read
+in place and on planar stacks, each held to its twin (counts exactly),
+then timed through its C entry beside the cut-out builds
+(WALK_VARIANTS, FUSED_VARIANTS), other grids and DIR's kernels, and
+through its wrapper (device time of 20 calls, and host time a call). K7
+the same way: bit-exact against ``_regrid_plain`` on small plans (odd nz, window
 origins off a multiple of 4, 1/4/8 fields, scale 1 only, holes) and on
 chip_smoke.py's rtflame-like tree (random stacks): the 2048x512x512
 full-domain regrid of one field and the 512^3 window of four, then timed
 through its wrapper and its C entry at other block shapes and grids,
 beside builds with a part cut out (REGRID_VARIANTS), a library write and
 copy of the same bytes, and the kernel of ``DIR``. ``--bin`` /
-``--regrid`` run one kernel's part only; ``--quick`` stops after the
+``--walk`` / ``--regrid`` run one part only; ``--quick`` stops after the
 checks. Its last line is all its results as one JSON object.
 """
 
@@ -45,24 +52,70 @@ HBM_BYTES_PER_S = 3.35e12
 SMALL = [(3, 5, 7, False, 2), (31, 1, 16, False, 1), (9, 9, 9, False, 2), (7, 6, 5, True, 2),
          (8, 8, 8, True, 1), (33, 17, 64, False, 2), (64, 64, 1024, False, 2), (5, 7, 2, False, 2)]
 
-# Text edits of csrc/spectra_kernels.cu: other constants, and cuts.
-BIN_VARIANTS = {
-    "groups 1": [("constexpr int kMaxGroups = 2;", "constexpr int kMaxGroups = 1;")],
-    "groups 4": [("constexpr int kMaxGroups = 2;", "constexpr int kMaxGroups = 4;")],
-    "launch bounds (256, 4)": [("__launch_bounds__(kMaxWarps * 32)\n", "__launch_bounds__(kMaxWarps * 32, 4)\n")],
-    "warps 4": [("constexpr int kMaxWarps = 8;", "constexpr int kMaxWarps = 4;")],
-    "warps 16": [("constexpr int kMaxWarps = 8;", "constexpr int kMaxWarps = 16;")],
-    "walk setup only": [("    if (w.len == 0) continue;\n",
+# Text edits (file, old, new) of the walk, csrc/shell_bins.cuh, that every
+# walk kernel shares: other constants, and cuts.
+WALK = "shell_bins.cuh"
+WALK_VARIANTS = {
+    "groups 1": [(WALK, "constexpr int kMaxGroups = 2;", "constexpr int kMaxGroups = 1;")],
+    "groups 4": [(WALK, "constexpr int kMaxGroups = 2;", "constexpr int kMaxGroups = 4;")],
+    "launch bounds (256, 4)": [(WALK, "__launch_bounds__(kBinMaxWarps * 32)\nshell_walk_kernel",
+                                "__launch_bounds__(kBinMaxWarps * 32, 4)\nshell_walk_kernel")],
+    "launch bounds (256, 5)": [(WALK, "__launch_bounds__(kBinMaxWarps * 32)\nshell_walk_kernel",
+                                "__launch_bounds__(kBinMaxWarps * 32, 5)\nshell_walk_kernel")],
+    "launch bounds (256, 6)": [(WALK, "__launch_bounds__(kBinMaxWarps * 32)\nshell_walk_kernel",
+                                "__launch_bounds__(kBinMaxWarps * 32, 6)\nshell_walk_kernel")],
+    "launch bounds (256, 8)": [(WALK, "__launch_bounds__(kBinMaxWarps * 32)\nshell_walk_kernel",
+                                "__launch_bounds__(kBinMaxWarps * 32, 8)\nshell_walk_kernel")],
+    "warps 16, launch bounds (512, 3)": [
+        (WALK, "constexpr int kBinMaxWarps = 8;", "constexpr int kBinMaxWarps = 16;"),
+        (WALK, "__launch_bounds__(kBinMaxWarps * 32)\nshell_walk_kernel",
+         "__launch_bounds__(kBinMaxWarps * 32, 3)\nshell_walk_kernel")],
+    "warps 4": [(WALK, "constexpr int kBinMaxWarps = 8;", "constexpr int kBinMaxWarps = 4;")],
+    "warps 16": [(WALK, "constexpr int kBinMaxWarps = 8;", "constexpr int kBinMaxWarps = 16;")],
+    "walk setup only": [(WALK, "    if (w.len == 0) continue;\n",
                          "    if (w.len == 0) continue;\n    if (w.len != -5) continue;\n")],
-    "without the binning": [("          if (g < m) bin_group<C>(a[g], p0 + 4 * g, w, bw, z_nyq, thr, hist, r);\n",
-                             "          if (g < m) r.acc[0] += (double)(a[g][0].x + a[g][0].w + a[g][C - 1].x);\n")],
-    "without the span-end scan": [("      add_span_ends<C>(r.cur, r.acc, hist, nbins, lane);\n",
-                                   "      if (r.cur < nbins) add_plain<C>(hist, r.cur, r.acc);\n")],
-    "without the run adds": [("    add_plain<C>(hist, r.cur, r.acc);\n", "")],
-    "without run ends": [("  if (r.k2 >= r.next) {\n", "  if (false) {\n")],
-    "without loads": [("? __ldg(reinterpret_cast<const float4*>(w.row[c] - w.head + q))",
+    "without the binning": [(WALK, "          if (g < m) bin_group<CV, kCounts>(a[g], p0 + 4 * g, w, bw, z_nyq, rw.mxy, thr, hist, r);\n",
+                             "          if (g < m) r.acc[0] += (double)(a[g][0].x + a[g][0].w + a[g][CV - 1].x);\n")],
+    "without the span-end scan": [(WALK, "      add_span_ends<CO>(r, hist, nbins, lane);\n",
+                                   "      if (r.cur < nbins) add_plain<CO>(hist, r.cur, r.acc);\n")],
+    "without the run adds": [(WALK, "      add_plain<C>(hist, cur, acc);\n", "")],
+    "without run ends": [(WALK, "    if (k2 >= next) {\n", "    if (false) {\n")],
+    "without loads": [(WALK, "? __ldg(reinterpret_cast<const float4*>(w.row[c] - w.head + q))",
                        "? make_float4(1.f, 1.f, 1.f, 1.f)")],
-    "without the global flush": [("    if (s != 0.0) atomicAdd(", "    if (s == -1.0) atomicAdd(")],
+    "without the global flush": [(WALK, "    if (s != 0.0) atomicAdd(", "    if (s == -1.0) atomicAdd(")],
+    "smem attribute at the card's maximum": [
+        (WALK, "  if (smem <= 48 * 1024) return cudaSuccess;\n", ""),
+        (WALK, "cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);",
+         "cudaFuncAttributeMaxDynamicSharedMemorySize, smem_optin());")],
+    "folded rows i-major": [(WALK, """    const unsigned j = (unsigned)idx / (unsigned)nxh;""",
+                             """    const unsigned j = (unsigned)idx % (unsigned)rows;"""),
+                            (WALK, """    const int i = (int)((unsigned)idx - j * (unsigned)nxh);""",
+                             """    const int i = (int)((unsigned)idx / (unsigned)rows);""")],
+}
+# Text edits of csrc/fused_spectra_kernels.cu (B9): its span and register
+# budget, and cuts.
+FUSED = "fused_spectra_kernels.cu"
+FUSED_VARIANTS = {
+    "span 4, 1 block an SM": [(FUSED, "kSpan = kInterleaved ? 2 : 4;", "kSpan = kInterleaved ? 4 : 4;"),
+                              (FUSED, "kMinBlocks = kInterleaved ? 2 : 1;", "kMinBlocks = kInterleaved ? 1 : 1;")],
+    "span 4, 2 blocks an SM": [(FUSED, "kSpan = kInterleaved ? 2 : 4;", "kSpan = kInterleaved ? 4 : 4;")],
+    "span 2, 1 block an SM": [(FUSED, "kMinBlocks = kInterleaved ? 2 : 1;", "kMinBlocks = kInterleaved ? 1 : 1;")],
+    "span 2, 3 blocks an SM": [(FUSED, "kMinBlocks = kInterleaved ? 2 : 1;", "kMinBlocks = kInterleaved ? 3 : 1;")],
+    "warps 4": WALK_VARIANTS["warps 4"],
+    "warps 16, span 2, 1 block an SM": WALK_VARIANTS["warps 16"] + [
+        (FUSED, "kMinBlocks = kInterleaved ? 2 : 1;", "kMinBlocks = kInterleaved ? 1 : 1;")],
+    "walk setup only": [(FUSED, "    if (len == 0) continue;\n",
+                         "    if (len == 0) continue;\n    if (len != -5) continue;\n")],
+    "without loads": [(FUSED, "? __ldg(reinterpret_cast<const float4*>(s.re + 2 * (o + z)))",
+                       "? make_float4(1.f, 2.f, 3.f, 4.f)")],
+    "without the powers": [(FUSED, "  for (int p = 0; p < 4; ++p) partner_powers(sp[p], k, pt.kx[p], pt.ky[p], kz, kz0, inv_k2, t[p], l[p]);\n",
+                            "  for (int p = 0; p < 4; ++p)\n    t[p] = l[p] = (double)(sp[p].re[0][k] + sp[p].im[0][k] + sp[p].re[1][k] + "
+                            "sp[p].im[1][k] + sp[p].re[2][k] + sp[p].im[2][k]);\n")],
+    "without the binning": [(FUSED, "  r.add(v, wz, thr, hist);\n", "  r.acc[1] += v[1];\n  r.acc[2] += v[2];\n")],
+    "without the span-end scan": [(FUSED, "      fava::add_span_ends<3>(r, hist, nbins, lane);\n",
+                                   "      if (r.cur < nbins) fava::add_plain<3>(hist, r.cur, r.acc);\n")],
+    "without the global flush": WALK_VARIANTS["without the global flush"],
+    "smem attribute at the card's maximum": WALK_VARIANTS["smem attribute at the card's maximum"],
 }
 
 # Text edits of csrc/amr_kernels.cu: cuts (their results are wrong; only
@@ -92,14 +145,16 @@ def cuda_ms(torch, fn, reps):
 
 
 def build_libs(nvcc, flags, sources, work: Path):
-    """{name: CDLL} of each (source text, headers dir) in ``sources``, built
-    by one nvcc each, all at once."""
+    """{name: CDLL} of each (source text, headers dir[, {header: text}]) in
+    ``sources``, built by one nvcc each, all at once."""
     procs = {}
-    for i, (name, (text, headers)) in enumerate(sources.items()):
+    for i, (name, (text, headers, *edits)) in enumerate(sources.items()):
         d = work / str(i)
         d.mkdir()
         for h in headers.glob("*.cuh"):
             shutil.copy(h, d / h.name)
+        for h, body in (edits[0] if edits else {}).items():
+            (d / h).write_text(body)
         (d / "k.cu").write_text(text)
         procs[name] = (d / "k.so", subprocess.Popen(
             [nvcc, *flags, "-shared", "-o", str(d / "k.so"), str(d / "k.cu")],
@@ -110,7 +165,22 @@ def build_libs(nvcc, flags, sources, work: Path):
         if proc.returncode != 0:
             sys.exit(f"build of {name} failed:\n{log}")
         libs[name] = ctypes.CDLL(str(lib))
+        BUILD_LOGS[name] = log
     return libs
+
+
+BUILD_LOGS = {}  # build_libs' compiler output of each library
+
+
+def log_ptxas(log: str, kernel: str):
+    """The registers and spills lines of ``kernel``'s entries in a ptxas log."""
+    out, inside = [], False
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            inside = kernel in line
+        elif inside and ("registers" in line or "spill" in line):
+            out.append(line.strip())
+    return out
 
 
 def edited(path: Path, edits):
@@ -120,6 +190,17 @@ def edited(path: Path, edits):
             sys.exit(f"edit target not found: {old!r}")
         src = src.replace(old, new)
     return src
+
+
+def variant(source: str, edits):
+    """(text of csrc/``source``, CSRC, {header: text}) with the (file, old,
+    new) ``edits`` applied: a build with a constant changed or a part cut."""
+    texts = {source: (CSRC / source).read_text(), WALK: (CSRC / WALK).read_text()}
+    for f, old, new in edits:
+        if old not in texts[f]:
+            sys.exit(f"edit target not found in {f}: {old!r}")
+        texts[f] = texts[f].replace(old, new)
+    return texts[source], CSRC, {WALK: texts[WALK]}
 
 
 def sass_atomics(_build, kernel: str):
@@ -173,14 +254,14 @@ def least_ms(nbytes):
 
 
 def bin_probe(torch, _build, ck, out):
-    out.update({"ptxas": ptxas_lines(_build, "shell_bin_unfolded"),
-           "sass_atomics": sass_atomics(_build, "shell_bin_unfolded")})
+    out.update({"ptxas": ptxas_lines(_build, "UnfoldedRows"),
+           "sass_atomics": sass_atomics(_build, "UnfoldedRows")})
     for line in out["ptxas"]:
         print(f"ptxas: {line}", flush=True)
     print(f"SASS atomics: {json.dumps(out['sass_atomics'])}", flush=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    out["launch"] = {f"C{c} nbins {nb}": {"blocks_per_sm": ck.unfolded_blocks_per_sm(c, nb),
-                                          "warps": ck.UNFOLDED_WARPS}
+    out["launch"] = {f"C{c} nbins {nb}": ck.walk_launch("fava_shell_bin_unfolded_blocks_per_sm", (c,), c,
+                                                        511 * 512, nb)
                      for c, nb in ((2, 511), (2, 255), (1, 255))}
     print(f"launch: {json.dumps(out['launch'])}; SMs {sms}", flush=True)
 
@@ -241,7 +322,7 @@ def bin_probe(torch, _build, ck, out):
     nvcc = _build.find_nvcc()
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     sources = {"shipped": ((CSRC / "spectra_kernels.cu").read_text(), CSRC)}
-    sources.update({k: (edited(CSRC / "spectra_kernels.cu", e), CSRC) for k, e in BIN_VARIANTS.items()})
+    sources.update({k: variant("spectra_kernels.cu", e) for k, e in WALK_VARIANTS.items()})
     old = sys.argv[sys.argv.index("--old") + 1] if "--old" in sys.argv else None
     if old:
         old_csrc = Path(old) / "fava_tpu_torch" / "csrc"
@@ -255,15 +336,12 @@ def bin_probe(torch, _build, ck, out):
             for lib_name, lib in libs.items():
                 fn = lib.fava_shell_bin_sums_rfft_chunk
                 fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-                if lib_name != "old (parent)":
-                    bps = lib.fava_shell_bin_unfolded_blocks_per_sm(2, nb)
-                    times[f"{lib_name} blocks/SM"] = bps
-                    base = ck._unfolded_blocks(nx * ny, bps, sms)
+                bps = lib.fava_shell_bin_unfolded_blocks_per_sm(2, nb)
+                times[f"{lib_name} blocks/SM"] = bps
+                base = ck._wave_blocks(nx * ny, ck.BIN_MAX_WARPS, bps, sms)
                 grids = {"": base}
                 if lib_name == "shipped":
                     grids.update({" grid x2": 2 * base, " grid x4": 4 * base, " grid /2": max(1, base // 2)})
-                if lib_name == "old (parent)":
-                    grids = {"": max(1, min(-(-nx * ny // 8), 4 * sms))}
                 for suffix, blocks in grids.items():
                     def run():
                         err = fn(t.data_ptr(), lo.data_ptr(), res.data_ptr(), nx, ny, nz_r, nb, full_nx,
@@ -284,6 +362,187 @@ def bin_probe(torch, _build, ck, out):
         print(f"times B6 snapshot: {json.dumps(out['times']['B6 8 launches (one 1024^3 snapshot)'])}",
               flush=True)
     del total, longi, odd, chunk
+    torch.cuda.empty_cache()
+
+
+def host_ms(fn, reps=200):
+    """Host time a call (enqueue, no synchronize) over ``reps`` calls."""
+    import time
+
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def walk_probe(torch, _build, ck, out):
+    """The folded kernels (K4, B4, B11a, B11b) and B9 at chip_smoke.py's
+    512^3 shapes: checks, then C entry against wrapper, cut-out builds,
+    other grids and another checkout's kernels."""
+    for kernel in ("FoldedRows", "powers_fold_bin_kernel"):
+        out[f"ptxas {kernel}"] = ptxas_lines(_build, kernel)
+        for line in out[f"ptxas {kernel}"]:
+            print(f"ptxas: {line}", flush=True)
+        out[f"sass_atomics {kernel}"] = sass_atomics(_build, kernel)
+        print(f"SASS atomics {kernel}: {json.dumps(out[f'sass_atomics {kernel}'])}", flush=True)
+    n, nb = 512, 255
+    nxh, nzr, rows8 = n // 2 + 1, n // 2 + 1, n // 2 + 1 + 7
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator(device="cuda").manual_seed(3)
+    folds = [torch.rand((nxh, nxh, nzr), device="cuda", generator=g) for _ in range(2)]
+    padded = [torch.full((nxh, rows8, nzr), float("nan"), device="cuda") for _ in range(2)]
+    for p_, f in zip(padded, folds):
+        p_[:, :nxh] = f
+    spec = torch.randn((3, n, n, nzr), dtype=torch.complex64, device="cuda", generator=g) / n**1.5
+    ri = torch.view_as_real(spec)
+    planar = (ri[..., 0].contiguous(), ri[..., 1].contiguous())
+    launches = {
+        "K4": ("fava_shell_bin_folded_blocks_per_sm", (2, 0), 2, nxh * nxh),
+        "B4": ("fava_shell_bin_folded_blocks_per_sm", (1, 0), 1, nxh * nxh),
+        "B11a": ("fava_shell_bin_folded_blocks_per_sm", (2, 1), 3, nxh * rows8),
+        "B11b": ("fava_shell_bin_folded_blocks_per_sm", (2, 0), 2, nxh * rows8),
+        "B9": ("fava_shell_bin_powers_fused_blocks_per_sm", (1,), 3, nxh * nxh),
+        "B9 planar": ("fava_shell_bin_powers_fused_blocks_per_sm", (0,), 3, nxh * nxh),
+    }
+    out["walk launch"] = {k: ck.walk_launch(e, a, c, w, nb) for k, (e, a, c, w) in launches.items()}
+    print(f"walk launch: {json.dumps(out['walk launch'])}; SMs {sms}", flush=True)
+
+    def rel(got, ref):
+        return float(((got - ref).abs() / (TOL_BIN * ref.abs()).clamp(min=1e-300)).max())
+
+    ok = True
+    ref = ck._onepass_plain(*(p_.double() for p_ in padded), nb, n, n, n)
+    counts, sums = ck.shell_bin_sums_folded_onepass(*padded, nb, n, n, n)
+    checks = {"K4": rel(ck.shell_bin_values_folded(*folds, nb, n, n), ref[1:]),
+              "B4": rel(ck.shell_bin_values_folded_1ch(folds[1], nb, n, n), ref[2]),
+              "B11a": rel(sums[:2], ref[1:]),
+              "B11b": rel(torch.stack(ck.shell_bin_values_folded_rows(*padded, nb, n, n, n)), ref[1:])}
+    ok &= bool(torch.equal(counts, ref[0]))
+    for name, (re_, im_) in (("B9", (ri[..., 0], ri[..., 1])), ("B9 planar", planar)):
+        ref9 = ck._powers_fused_plain(re_.double(), im_.double(), nb, n)
+        c9, s9 = ck.shell_bin_powers_fused(re_, im_, nb, n)
+        ok &= bool(torch.equal(c9, ref9[0]))
+        checks[name] = rel(s9[:2], ref9[1:])
+        del ref9
+    for name, r in checks.items():
+        out["checks"][f"walk {name}"] = r
+        print(f"check {name} at 512^3: error/bound {r!r}", flush=True)
+        ok &= r <= 1.0
+    print(json.dumps({"walk_checks_ok": bool(ok), "counts_exact": bool(ok)}), flush=True)
+    if not ok:
+        print(json.dumps(out), flush=True)
+        sys.exit("a walk kernel disagrees with its plain version")
+    del ref
+    torch.cuda.empty_cache()
+    if "--quick" in sys.argv:
+        return
+
+    inside_f = int((ck._folded_shells(tuple(folds[0].shape), nb, n, "cuda") < nb).sum())
+    inside_9 = int((ck._unfolded_shells((n, n, nzr), nb, n, "cuda")[0] < nb).sum())
+    bounds = {"K4": least_ms(8 * inside_f + 16 * nb), "B4": least_ms(4 * inside_f + 8 * nb),
+              "B11a": least_ms(8 * inside_f + 24 * nb), "B11b": least_ms(8 * inside_f + 16 * nb),
+              "B9": least_ms(24 * inside_9 + 24 * nb), "B9 planar": least_ms(24 * inside_9 + 24 * nb)}
+    wrappers = {
+        "K4": lambda: ck.shell_bin_values_folded(*folds, nb, n, n),
+        "B4": lambda: ck.shell_bin_values_folded_1ch(folds[1], nb, n, n),
+        "B11a": lambda: ck.shell_bin_sums_folded_onepass(*padded, nb, n, n, n),
+        "B11b": lambda: ck.shell_bin_values_folded_rows(*padded, nb, n, n, n),
+        "B9": lambda: ck.shell_bin_powers_fused(ri[..., 0], ri[..., 1], nb, n),
+        "B9 planar": lambda: ck.shell_bin_powers_fused(*planar, nb, n),
+    }
+    res = torch.zeros((3, nb), dtype=torch.float64, device="cuda")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    # name: (source, C entry, its argtypes, its arguments but blocks and stream, occupancy query's args)
+    entries = {
+        "K4": ("flagship_kernels.cu", "fava_shell_bin_values_folded", [P] * 3 + [I] * 7,
+               (folds[0].data_ptr(), folds[1].data_ptr(), res.data_ptr(), nxh, nxh, nzr, nb, n, n, 2)),
+        "B4": ("flagship_kernels.cu", "fava_shell_bin_values_folded", [P] * 3 + [I] * 7,
+               (folds[1].data_ptr(), None, res.data_ptr(), nxh, nxh, nzr, nb, n, n, 1)),
+        "B11a": ("flagship_kernels.cu", "fava_shell_bin_sums_folded_onepass", [P] * 3 + [I] * 7,
+                 (padded[0].data_ptr(), padded[1].data_ptr(), res.data_ptr(), nxh, rows8, nzr, nb, n, n, n)),
+        "B11b": ("flagship_kernels.cu", "fava_shell_bin_values_folded", [P] * 3 + [I] * 7,
+                 (padded[0].data_ptr(), padded[1].data_ptr(), res.data_ptr(), nxh, rows8, nzr, nb, n, n, 2)),
+        "B9": (FUSED, "fava_shell_bin_powers_fused", [P] * 3 + [I] * 6,
+               (ri.data_ptr(), None, res.data_ptr(), n, n, nzr, nb, n, 1)),
+        "B9 planar": (FUSED, "fava_shell_bin_powers_fused", [P] * 3 + [I] * 6,
+                      (planar[0].data_ptr(), planar[1].data_ptr(), res.data_ptr(), n, n, nzr, nb, n, 0)),
+    }
+    nvcc = _build.find_nvcc()
+    flags = list(_build.NVCC_FLAGS)
+    sources = {f"{k} [{src}]": variant(src, e) for src, table in
+               (("flagship_kernels.cu", WALK_VARIANTS), (FUSED, FUSED_VARIANTS)) for k, e in table.items()}
+    old = sys.argv[sys.argv.index("--old") + 1] if "--old" in sys.argv else None
+    if old:
+        old_csrc = Path(old) / "fava_tpu_torch" / "csrc"
+        for src in ("flagship_kernels.cu", FUSED):
+            sources[f"old (parent) [{src}]"] = ((old_csrc / src).read_text(), old_csrc)
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_libs(nvcc, flags, sources, Path(tmp))
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, (src, entry, argtypes, args) in entries.items():
+        qentry, qargs, channels, nwalks = launches[name]
+        times = {"bound_ms": bounds[name]}
+        runs = {"shipped": (_build.library(), out["walk launch"][name]["blocks"])}
+        grid = runs["shipped"][1]
+        runs.update({"shipped grid x2": (_build.library(), 2 * grid),
+                     "shipped grid /2": (_build.library(), max(1, grid // 2))})
+        mangled = {"K4": "ILi2ELb0ENS_10FoldedRows", "B4": "ILi1ELb0ENS_10FoldedRows",
+                   "B11a": "ILi2ELb1ENS_10FoldedRows", "B11b": "ILi2ELb0ENS_10FoldedRows",
+                   "B9": "powers_fold_bin_kernelILb1", "B9 planar": "powers_fold_bin_kernelILb0"}[name]
+        for lib_name, lib in libs.items():
+            if not lib_name.endswith(f"[{src}]"):
+                continue
+            parent = {"FoldedRows": "shell_bin_folded_kernel" + mangled[:8]}.get(mangled[-10:], mangled)
+            times[f"{lib_name} ptxas"] = " ".join(
+                log_ptxas(BUILD_LOGS[lib_name], parent if lib_name.startswith("old") else mangled))
+            if lib_name.startswith("old (parent)"):
+                blocks = max(1, min(-(-nwalks // 8), 4 * sms))  # the parent's _bin_blocks
+            else:
+                bps = getattr(lib, qentry)(*qargs, nb)
+                if bps <= 0:
+                    times[lib_name] = f"occupancy query {bps}"
+                    continue
+                blocks = ck._wave_blocks(nwalks, ck.BIN_MAX_WARPS, bps, sms)
+            runs[lib_name.rsplit(" [", 1)[0]] = (lib, blocks)
+        for run_name, (lib, blocks) in runs.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes + [I, P]
+
+            def run():
+                err = fn(*args, blocks, stream)
+                if err:
+                    sys.exit(f"{name} {run_name}: launch error {err}")
+
+            times[run_name] = cuda_ms(torch, run, 20)
+        times["wrapper"] = cuda_ms(torch, wrappers[name], 20)
+        times["wrapper host ms a call"] = host_ms(wrappers[name])
+        torch.cuda.synchronize()
+        shipped = getattr(_build.library(), entry)
+        times["C entry host ms a call"] = host_ms(lambda: shipped(*args, grid, stream))
+        torch.cuda.synchronize()
+        out["times"][name] = times
+        print(f"times {name} (ms): {json.dumps(times)}", flush=True)
+    # Where a K4 wrapper call's host time goes: each step alone, many calls.
+    dev = folds[0].device
+    k4 = getattr(_build.library(), "fava_shell_bin_values_folded")
+    steps = {
+        "wrapper": wrappers["K4"],
+        "shape and device checks": lambda: (ck._device_kind("k", *folds), ck._check_cuda("k", *folds),
+                                            ck._check_bins("k", nb)),
+        "torch.zeros (2, nbins) on the card": lambda: torch.zeros((2, nb), dtype=torch.float64, device=dev),
+        "torch.empty (2, nbins) on the card": lambda: torch.empty((2, nb), dtype=torch.float64, device=dev),
+        "grid (_walk_blocks)": lambda: ck._walk_blocks(*launches["K4"][:2], 2, nxh * nxh, nb, dev),
+        "current stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "_launch of the C entry": lambda: ck._launch("shell_bin_values_folded", dev, k4, *entries["K4"][3], grid),
+        "C entry alone": lambda: k4(*entries["K4"][3], grid, stream),
+    }
+    grid = out["walk launch"]["K4"]["blocks"]
+    out["times"]["K4 wrapper host ms a call, by step"] = {k: host_ms(f, 500) for k, f in steps.items()}
+    torch.cuda.synchronize()
+    print(f"times K4 wrapper host ms a call, by step: {json.dumps(out['times']['K4 wrapper host ms a call, by step'])}",
+          flush=True)
+    del folds, padded, spec, ri, planar
     torch.cuda.empty_cache()
 
 
@@ -434,9 +693,12 @@ def main() -> None:
     print(card, flush=True)
     _build.library()
     out = {"card": card, "checks": {}, "times": {}}
-    if "--regrid" not in sys.argv:
+    parts = [a for a in ("--bin", "--walk", "--regrid") if a in sys.argv] or ["--bin", "--walk", "--regrid"]
+    if "--bin" in parts:
         bin_probe(torch, _build, ck, out)
-    if "--bin" not in sys.argv:
+    if "--walk" in parts:
+        walk_probe(torch, _build, ck, out)
+    if "--regrid" in parts:
         regrid_probe(torch, _build, ck, out)
     print(json.dumps(out), flush=True)
 

@@ -271,7 +271,7 @@ def main() -> None:
             nbytes = 4 * (3 if wt else 2) * n + 8 * NBINS * NBINS
             t = {"bound_ms": least_ms(nbytes),
                  "wrapper": cuda_ms(torch, lambda: ck.pdf2d_counts(x, y, xe, ye, weights=weights), 20)}
-            shared, smem = ck._pdf2d_layout(NBINS, NBINS, wt, ck._pdf2d_smem_optin(0))
+            shared, smem = ck._pdf2d_layout(NBINS, NBINS, wt, ck._smem_optin(0))
             wp = None if weights is None else weights.data_ptr()
             for lname, lib in libs.items():
                 fn = lib.fava_pdf2d

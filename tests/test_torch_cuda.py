@@ -421,8 +421,8 @@ def _chunk_entry(t, lo, out, nbins, full_nx, full_nz, kx0, channels):
     """B6's C entry with ``channels`` 1 or 2 (the wrapper always bins two)."""
     rows, ny, nzr = t.shape
     dev = t.device
-    blocks = ck._unfolded_blocks(rows * ny, ck.unfolded_blocks_per_sm(channels, nbins),
-                                 ck._sm_count(dev.index or 0))
+    blocks = ck._walk_blocks("fava_shell_bin_unfolded_blocks_per_sm", (channels,), channels,
+                             rows * ny, nbins, dev)
     ck._launch("shell_bin_values_rfft_chunk", dev, ck._build.library().fava_shell_bin_sums_rfft_chunk,
                t.data_ptr(), lo.data_ptr() if channels == 2 else None, out.data_ptr(), rows, ny, nzr,
                nbins, full_nx, full_nz, kx0, channels, blocks)
@@ -804,3 +804,98 @@ def test_fused_path_on_cuda_matches_the_cpu_path(cuda_device, shape):
         assert {k: v for k, v in ck.launch_counts().items() if v} == expect, what
         assert torch.equal(counts.cpu(), ref[0]), what
         assert float((sums.cpu() - ref[1]).abs().max() / ref[1].abs().max()) <= 1e-5, what
+
+
+# The folded walk (K4, B4, B11a, B11b) and B9: z extents nzr = 1, 2, 3, 33,
+# 257 and 513; x or y extents of 2 (no mirror rows).
+WALK_SHAPES = [(4, 4, 1), (2, 6, 2), (6, 2, 4), (8, 6, 64), (4, 4, 512), (2, 2, 1024)]
+WALK_BINS = [1, 2, 255, 511, ck.SHELL_MAX_BINS]
+
+
+def _at_offset(t, floats):
+    """A contiguous copy of ``t`` that starts ``floats`` elements past the
+    start of its allocation (off 16 bytes unless a multiple of 4 floats,
+    or of 2 complex values)."""
+    buf = torch.empty(t.numel() + floats, dtype=t.dtype, device=t.device)
+    view = buf[floats:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WALK_SHAPES)
+@pytest.mark.parametrize("nbins", WALK_BINS)
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (2, 3)])
+def test_folded_walk_matches_plain(cuda_device, shape, nbins, offsets):
+    """K4 (two channels, and one), B11b and B11a on folds at the given
+    float offsets from 16 bytes (the same: float4 loads after a head;
+    different: scalar loads), NaN in the pad rows past ny/2; B11a's counts
+    exact."""
+    nx, ny, nz = shape
+    vols = [a.abs() for a in _fields(cuda_device, shape=(nx, ny, nz // 2 + 1), seed=nx + nz)[:2]]
+    folds = [_at_offset(ck._fold_plain(v), o) for v, o in zip(vols, offsets)]
+    padded = [_at_offset(p, o) for p, o in zip(_padded_folds(vols, ny), offsets)]
+    ck.reset_launch_counts()
+    got = {
+        "K4": ck.shell_bin_values_folded(*folds, nbins, ny, nz),
+        "B4": ck.shell_bin_values_folded_1ch(folds[1], nbins, ny, nz)[None],
+        "B11b": torch.stack(ck.shell_bin_values_folded_rows(*padded, nbins, nx, ny, nz)),
+    }
+    counts, sums = ck.shell_bin_sums_folded_onepass(*padded, nbins, nx, ny, nz)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        "shell_bin_values_folded": 2, "shell_bin_values_folded_1ch": 1,
+        "shell_bin_sums_folded_onepass": 1}
+    ref = ck._onepass_plain(*(p.double() for p in padded), nbins, nx, ny, nz)
+    assert torch.equal(counts, ref[0])
+    torch.testing.assert_close(sums[:2], ref[1:], rtol=1e-10, atol=1e-300)
+    torch.testing.assert_close(got["K4"], ref[1:], rtol=1e-10, atol=1e-300)
+    torch.testing.assert_close(got["B11b"], ref[1:], rtol=1e-10, atol=1e-300)
+    torch.testing.assert_close(got["B4"], ref[2:], rtol=1e-10, atol=1e-300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WALK_SHAPES)
+@pytest.mark.parametrize("nbins", WALK_BINS)
+@pytest.mark.parametrize("layout", ["interleaved", "interleaved off 16", "planar", "planar off 16"])
+def test_powers_walk_matches_plain(cuda_device, shape, nbins, layout):
+    """B9 on cuFFT's interleaved output (at a complex offset of 0 or 1 from
+    16 bytes) and on planar stacks (re and im at float offsets 0, or 1 and
+    2): counts exact, sums to rtol 1e-10."""
+    nx, ny, nz = shape
+    spec = torch.fft.rfftn(torch.stack(_fields(cuda_device, shape=shape, seed=sum(shape))[1:]),
+                           dim=(1, 2, 3), norm="forward")
+    off = layout.endswith("off 16")
+    if layout.startswith("interleaved"):
+        r = torch.view_as_real(_at_offset(spec, 1) if off else spec)
+        re, im = r[..., 0], r[..., 1]
+        assert (re.data_ptr() % 16 == 8) == off
+    else:
+        re = _at_offset(spec.real.contiguous(), 1 if off else 0)
+        im = _at_offset(spec.imag.contiguous(), 2 if off else 0)
+    ck.reset_launch_counts()
+    counts, sums = ck.shell_bin_powers_fused(re, im, nbins, nz)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["shell_bin_powers_fused"] == 1
+    ref = ck._powers_fused_plain(re.double(), im.double(), nbins, nz)
+    assert torch.equal(counts, ref[0])
+    torch.testing.assert_close(sums[:2], ref[1:], rtol=1e-10, atol=1e-300)
+
+
+@pytest.mark.cuda
+def test_walk_wrappers_refuse_nbins_beyond_the_kernels(cuda_device):
+    nb = ck.SHELL_MAX_BINS + 1
+    fold = torch.zeros((5, 8, 5), device=cuda_device)
+    spec = torch.view_as_real(torch.zeros((3, 8, 8, 5), dtype=torch.complex64, device=cuda_device))
+    vol = torch.zeros((7, 6, 4), device=cuda_device)
+    for run in (lambda: ck.shell_bin_values_folded(fold, fold, nb, 8, 8),
+                lambda: ck.shell_bin_sums_folded_onepass(fold, fold, nb, 8, 8, 8),
+                lambda: ck.shell_bin_powers_fused(spec[..., 0], spec[..., 1], nb, 8),
+                lambda: ck.shell_bin_sums_unfolded(vol, vol, nb, 6)):
+        with pytest.raises(ValueError, match="SHELL_MAX_BINS"):
+            run()
+    for kind, args, channels in (("fava_shell_bin_folded_blocks_per_sm", (2, 1), 3),
+                                 ("fava_shell_bin_powers_fused_blocks_per_sm", (1,), 3),
+                                 ("fava_shell_bin_unfolded_blocks_per_sm", (2,), 2)):
+        launch = ck.walk_launch(kind, args, channels, 10**6, ck.SHELL_MAX_BINS, cuda_device)
+        assert launch["warps"] >= 1 and launch["blocks_per_sm"] >= 1

@@ -3,6 +3,8 @@
 Pure Python: the grid and block shapes the wrappers in
 fava_tpu_torch/ops/cuda_kernels.py hand to the CUDA kernels, held to what
 the kernels in csrc/spectra_kernels.cu and csrc/amr_kernels.cu assume.
+The walk's launch shared by every shell binning is tested in
+tests/test_torch_walk.py.
 """
 
 import pytest
@@ -16,11 +18,11 @@ from fava_tpu_torch.ops import cuda_kernels as ck
     (128 * 1024, 3, 132, 396), (511 * 512, 3, 132, 396), (1000, 6, 132, 125),
 ])
 def test_unfolded_blocks_cover_the_walks_up_to_the_card(nwalks, bps, sms, expect):
-    blocks = ck._unfolded_blocks(nwalks, bps, sms)
+    blocks = ck._wave_blocks(nwalks, ck.BIN_MAX_WARPS, bps, sms)
     assert blocks == expect
     assert blocks <= max(1, bps * sms)
     # A warp for each walk, unless the card is full: then the warps stride.
-    assert blocks * ck.UNFOLDED_WARPS >= nwalks or blocks == bps * sms
+    assert blocks * ck.BIN_MAX_WARPS >= nwalks or blocks == bps * sms
 
 
 @pytest.mark.parametrize("shape,full_nz,walks", [
@@ -30,15 +32,16 @@ def test_unfolded_blocks_cover_the_walks_up_to_the_card(nwalks, bps, sms, expect
 def test_unfolded_launch_counts_two_walks_a_full_grid_row(monkeypatch, shape, full_nz, walks):
     seen = {}
 
-    def blocks(nwalks, bps, sms):
-        seen.update(nwalks=nwalks, bps=bps, sms=sms)
+    def blocks(nwalks, warps, bps, sms):
+        seen.update(nwalks=nwalks, warps=warps, bps=bps, sms=sms)
         return 1
 
-    monkeypatch.setattr(ck, "unfolded_blocks_per_sm", lambda c, n, i=0: 3)
+    monkeypatch.setattr(ck, "walk_blocks_per_sm", lambda entry, args, n, i=0: 3)
+    monkeypatch.setattr(ck, "_smem_optin", lambda i: 232448)
     monkeypatch.setattr(ck, "_sm_count", lambda i: 132)
-    monkeypatch.setattr(ck, "_unfolded_blocks", blocks)
+    monkeypatch.setattr(ck, "_wave_blocks", blocks)
     ck._unfolded_launch_blocks(shape, full_nz, 2, 255, torch.device("cpu"))
-    assert seen == {"nwalks": walks, "bps": 3, "sms": 132}
+    assert seen == {"nwalks": walks, "warps": 8, "bps": 3, "sms": 132}
 
 
 @pytest.mark.parametrize("nz", [1, 2, 3, 4, 5, 7, 8, 18, 48, 63, 64, 257, 512, 513, 1023, 2048])
