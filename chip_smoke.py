@@ -29,7 +29,8 @@ no result):
 6. AMR file: ``io.synthetic.make_amr_file`` writes an rtflame-like plt
    file in a temporary directory: 16^3-cell blocks on a 4x1x1 root grid
    over [0,4]x[0,1]x[0,1], refined by x position to level 6 around the
-   flame (39,076 blocks, 34,192 leaves, finest grid 2048x512x512, 0.64 GB
+   flame (a wrinkled front at x = 2 in ``flam``; 39,076 blocks, 34,192
+   leaves, finest grid 2048x512x512, 0.64 GB
    per float32 field); ``FLASH(d).load(file_type="plt")`` and the four
    velocity/density fields read onto the card, timed per field.
 7. AMR kernels: K5/K6 on the leaf stack and K7 on the full-domain regrid
@@ -113,6 +114,24 @@ no result):
    then (c) on the fields cut to 512x512x480, where B12 takes its dense
    kernel, held to (a) on the same cut; each path's entry and its two
    stages timed by CUDA events.
+19. Stage 4's fractal dimension and structure functions (run after
+   phase 12) on the 512^3 window as stage 4 reads it: the plt file's
+   ``flam`` regridded to the window's uniform file (K7, its own
+   directory), ``fractal_dimension(field="flam", contours=0.5)`` with
+   its box counts equal to the plain float64 path's on the same float32
+   values; ``structure_functions()``, ``structure_function_exponents``
+   and ``velocity_increment_pdfs()`` with the pipeline's defaults on the
+   window file's velocities, held to the float64 CPU path (TOL_STRUCTURE,
+   TOL_SHIFT), with the share of draws whose gathered cell differs
+   between the card and the CPU; warm walls.
+20. Shell binning past 4095 shells (the walk's wide path, run after
+   phase 18): a (16384, 64, 64) float32 volume (8191 shells) made on the
+   card from a seed; K4, B4, B6 (a chunk at kx0 = 0), B10, B9, B11a and
+   B11b against their plain versions (counts exact, sums within TOL_BIN
+   per shell), each timed against its bound with its launch printed;
+   then ``from_arrays(...).kinetic_energy_spectra()`` and
+   ``flagship_analysis()`` with counters, held to the float64 CPU path
+   (counts exact, spectra within TOL_SPECTRA of scale).
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -214,6 +233,25 @@ F32_OPS_PER_S = 67e12
 TOL_ZY = 1e-5
 TOL_ZY_PATH = TOL_SPECTRA + 2 * TOL_ZY
 
+# Phase 19: the structure functions and increment PDFs draw, gather and sum
+# in float64 on both sides, from the same Threefry words; the float32 file
+# values widen exactly. The card and the CPU then differ by the last-place
+# rounding of acos/sin/cos (a drawn direction's error, amplified at most
+# R/s ~ 1.3e3 in the wrapped unit vector at the smallest separation s, and
+# 10-fold by the 10th power) and by the sums' order: 1e-9 of each value
+# (moments: of max(|ref|, std)). A gathered cell can differ only at an
+# ulp-level tie with a cell boundary (about one endpoint in a million on
+# the H100 against its host's libm): a separation whose draw holds such a
+# pair is held to TOL_TIE instead, one moved sample of N (10^4 or 65536)
+# changing a mean by its neighbour difference over N, and the exponents,
+# which fit every separation, to TOL_TIE when any pair moved; the share is
+# printed and held to MAX_TIE_SHARE.
+TOL_STRUCTURE = 1e-9
+TOL_TIE = 1e-3
+MAX_TIE_SHARE = 1e-5
+# Phase 20: a (16384, 64, 64) volume, 8191 shells, made on the card.
+WIDE_SHAPE = (16384, 64, 64)
+
 # The AMR path (phases 6-9): an rtflame-like tree, refined around the
 # flame at x in [1.5, 2.5] (see amr_refine), and the flame window regridded
 # to 512^3. The plain float64 path reads the same float32 file values, so
@@ -235,6 +273,18 @@ def amr_refine(bounds, level):
         if hi > band_lo and lo < band_hi:
             return target
     return AMR_BASE_LEVEL
+
+
+def amr_flam(np):
+    """The flame progress variable of the AMR file: 0 in the fuel, 1
+    behind a front at x = 2 (the window's middle, inside the finest band)
+    wrinkled by two modes across y and z, about 8 finest cells thick."""
+    def flam(x, y, z):
+        front = (2.0 + 0.08 * np.sin(6 * np.pi * y) * np.cos(4 * np.pi * z)
+                 + 0.03 * np.sin(22 * np.pi * y + 1.0) * np.sin(14 * np.pi * z))
+        return 1.0 / (1.0 + np.exp(-60.0 * (x - front)))
+
+    return flam
 
 
 def fail(msg: str) -> None:
@@ -626,7 +676,7 @@ def phase_amr_file(torch, np, workdir: Path):
     t0 = time.perf_counter()
     synthetic.make_amr_file(
         workdir / "rt_hdf5_plt_cnt_0001", ncells=AMR_NCELLS, nblks=AMR_NBLKS,
-        domain=np.array(AMR_DOMAIN), refine_fn=amr_refine,
+        domain=np.array(AMR_DOMAIN), refine_fn=amr_refine, field_fns={"flam": amr_flam(np)},
     )
     synth_s = time.perf_counter() - t0
     model = fava_tpu_torch.FLASH(workdir)
@@ -1708,14 +1758,17 @@ def fused_kernel_rows(torch, ck, fields, nbins):
 # The shell-binning walk's kernels (csrc/shell_bins.cuh) in the build log:
 # the instantiation of each kernels-line row.
 WALK_PTXAS = {
-    "shell_bin_values_folded": "shell_walk_kernelILi2ELb0ENS_10FoldedRows",
-    "shell_bin_values_folded_1ch": "shell_walk_kernelILi1ELb0ENS_10FoldedRows",
-    "shell_bin_sums_folded_onepass": "shell_walk_kernelILi2ELb1ENS_10FoldedRows",
-    "shell_bin_values_folded_rows": "shell_walk_kernelILi2ELb0ENS_10FoldedRows",
-    "shell_bin_powers_fused": "powers_fold_bin_kernelILb1E",
-    "shell_bin_sums_unfolded": "shell_walk_kernelILi2ELb0ENS_12UnfoldedRows",
-    "shell_bin_values_rfft_chunk": "shell_walk_kernelILi2ELb0ENS_12UnfoldedRows",
+    "shell_bin_values_folded": "shell_walk_kernelILi2ELb0ENS_10FoldedRowsELb0E",
+    "shell_bin_values_folded_1ch": "shell_walk_kernelILi1ELb0ENS_10FoldedRowsELb0E",
+    "shell_bin_sums_folded_onepass": "shell_walk_kernelILi2ELb1ENS_10FoldedRowsELb0E",
+    "shell_bin_values_folded_rows": "shell_walk_kernelILi2ELb0ENS_10FoldedRowsELb0E",
+    "shell_bin_powers_fused": "powers_fold_bin_kernelILb1ELb0E",
+    "shell_bin_sums_unfolded": "shell_walk_kernelILi2ELb0ENS_12UnfoldedRowsELb0E",
+    "shell_bin_values_rfft_chunk": "shell_walk_kernelILi2ELb0ENS_12UnfoldedRowsELb0E",
 }
+# Their wide instantiations (nbins > 4095, phase 20): the same names with
+# the last template argument true.
+WIDE_PTXAS = {k: v[: -len("Lb0E")] + "Lb1E" for k, v in WALK_PTXAS.items()}
 
 
 def walk_report(torch, ck, phase, name, row, launch, entry, *args):
@@ -1941,6 +1994,268 @@ def dense_route_path(torch, np, ck, fields, totals):
     return {"error_vs_a": err, "total_ms": start.elapsed_time(end)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: stage 4's fractal dimension and structure functions on the window
+
+
+def structure_runs(uni, flm):
+    """Stage 4's fractal and structure analyses with the pipeline's defaults (no kernel)."""
+    return {
+        "fractal dimension": (lambda: flm.fractal_dimension(field="flam", contours=0.5), ()),
+        "structure functions": (uni.structure_functions, ()),
+        "structure function exponents": (uni.structure_function_exponents, ()),
+        "velocity increment pdfs": (uni.velocity_increment_pdfs, ()),
+    }
+
+
+def differing_cells(torch, np, uni):
+    """Which draws gather other cells on the card than on the CPU, for
+    the pipeline's defaults: {analysis: (share of endpoints, per
+    (order, separation) flags)} — ten orders of the structure functions,
+    the increment PDFs' one draw."""
+    from fava_tpu_torch.ops import structure as st
+
+    vels = [uni.mesh._scalar_volume(f"vel{a}") for a in "xyz"]
+    _, shape, lo, width, cell = st._geometry(vels, uni.mesh.domain_bounds)
+    out = {}
+    for what, seps, points, bases in (
+        ("structure functions", st._separations(None, 100, True, cell, width), 10000,
+         [3 * o for o in range(10)]),
+        ("velocity increment pdfs", st._separations(None, 8, True, cell, width), 65536,
+         [st._INC_STREAM]),
+    ):
+        flags, differ = [], 0
+        for base in bases:
+            draws = [st._draw_pairs(seps, lo, width, cell, shape, 0, base, points, torch.float64, d)
+                     for d in ("cuda", "cpu")]
+            moved = sum((a.cpu() != b).any(dim=-1) for a, b in zip(draws[0][3:], draws[1][3:]))
+            differ += int(moved.sum())
+            flags.append(moved.any(dim=1).numpy())
+        out[what] = (differ / (2 * len(bases) * len(seps) * points), np.stack(flags))
+    return out
+
+
+def compare_structure(np, got, ref, ties, what):
+    """Hold the fractal and structure results to the float64 CPU path:
+    the fractal statistics (built from equal box counts) exactly;
+    structure functions, exponents and increment moments within
+    TOL_STRUCTURE (moments of max(|ref|, std)), TOL_TIE where a draw of
+    that separation gathered another cell (``ties``, differing_cells);
+    increment counts within TOL_SHIFT moved samples a tie-free
+    separation."""
+    worst = {}
+    if got["fractal dimension"] != ref["fractal dimension"]:
+        fail(f"{what} fractal dimension {got['fractal dimension']} differs from "
+             f"{ref['fractal dimension']}")
+    sf_ties, pdf_ties = ties["structure functions"][1], ties["velocity increment pdfs"][1][0]
+
+    def held(err, tie):
+        return np.where(tie, err / TOL_TIE, err / TOL_STRUCTURE)
+
+    for comp in ("longitudinal", "transverse"):
+        for o, r in ref["structure functions"][comp].items():
+            err = np.abs(got["structure functions"][comp][o] - r) / np.abs(r)
+            worst[f"sf {comp} {o}"] = float(np.max(held(err, sf_ties[int(o) - 1])))
+        zeta = np.abs(ref["structure function exponents"][comp]["zeta"])
+        for k, r in ref["structure function exponents"][comp].items():
+            scale = np.maximum(np.abs(r), zeta)  # a fit's error of the exponent's size
+            err = np.abs(got["structure function exponents"][comp][k] - r) / scale
+            worst[f"exponents {comp} {k}"] = float(np.max(held(err, sf_ties.any())))
+        pg, pr = got["velocity increment pdfs"][comp], ref["velocity increment pdfs"][comp]
+        moved = np.abs(pg["counts"] - pr["counts"]).sum(axis=1) / 2
+        worst[f"pdf {comp} counts"] = float(np.max(np.where(pdf_ties, 0.0, moved)) / TOL_SHIFT)
+        for k in ("mean", "std", "skewness", "flatness"):
+            err = np.abs(pg[k] - pr[k]) / np.maximum(np.abs(pr[k]), pr["std"])
+            worst[f"pdf {comp} {k}"] = float(np.max(held(err, pdf_ties)))
+    top = max(worst, key=worst.get)
+    say(f"phase 19 {what} vs the plain float64 path: {len(worst)} arrays, worst error/bound "
+        f"{worst[top]!r} ({top}); separations held to TOL_TIE: structure functions "
+        f"{int(sf_ties.sum())} of {sf_ties.size}, increment pdfs {int(pdf_ties.sum())} of {pdf_ties.size}")
+    bad = {k: v for k, v in worst.items() if not v <= 1.0}
+    if bad:
+        fail(f"{what} disagrees with the plain float64 path (error/bound): {bad}")
+    return worst[top]
+
+
+def phase_fractal_structure(torch, np, workdir: Path, uni, cpu):
+    """Phase 19: fractal dimension and structure functions on the window."""
+    import fava_tpu_torch
+    from fava_tpu_torch.ops import cuda_kernels as ck
+    from fava_tpu_torch.ops import fractal
+
+    flam_dir = workdir / "flam"
+    flam_dir.mkdir()
+    amr = fava_tpu_torch.FLASH(workdir)
+    amr.load(file_type="plt", fields=["flam"])
+    t0 = time.perf_counter()
+    _, launches = counted(torch, ck, "from_amr flam", lambda: amr.mesh.from_amr(
+        subdomain_coords=np.array(AMR_WINDOW), fields=["flam"],
+        filename=flam_dir / "rt_hdf5_uniform_0001"), ("regrid_fields",), 19)
+    times = {"flam_window_from_amr_with_write_s": time.perf_counter() - t0}
+    del amr
+    torch.cuda.empty_cache()
+    flm = fava_tpu_torch.FLASH(flam_dir)
+    flm.load(file_type="uni", fields=["flam"])
+    results, walls, totals = run_counted(torch, ck, 19, structure_runs(uni, flm), "window fractal/structure")
+    add_counts(totals, launches)
+    times["walls_s"] = walls
+    for key in ("longitudinal", "transverse"):
+        sf = results["structure functions"][key]
+        if sorted(sf, key=int) != [f"{o}" for o in range(1, 11)] or not all(
+                v.shape == (100,) and np.isfinite(v).all() for v in sf.values()):
+            fail(f"structure functions {key}: not ten finite (100,) orders")
+        counts = results["velocity increment pdfs"][key]["counts"]
+        if counts.shape != (8, 101) or not (counts.sum(axis=1) <= 65536).all():
+            fail(f"velocity increment pdfs {key}: counts {counts.shape}")
+    fd = results["fractal dimension"]["flam"]["0.5"]
+    if not all(np.isfinite(v) for v in fd.values()):
+        fail(f"fractal dimension of flam at 0.5 is not finite: {fd}")
+
+    flam = flm.mesh._volume("flam")
+    largest = min(flam.shape)
+    flength = int(np.log2(largest)) + 1
+    boxes = fractal.box_counts(fractal.edge_detect(flam, 0.5), flength)
+    times["fractal_boxes"] = boxes.tolist()
+    ties = differing_cells(torch, np, uni)
+    times["share_of_endpoints_with_other_cells"] = {k: v[0] for k, v in ties.items()}
+    say(f"phase 19 flam box counts {boxes.tolist()}; share of draw endpoints whose gathered cell "
+        f"differs between the card and the CPU: {times['share_of_endpoints_with_other_cells']}")
+    if not max(times["share_of_endpoints_with_other_cells"].values()) <= MAX_TIE_SHARE:
+        fail("the card's draws gather other cells than the CPU's beyond ulp-level ties")
+    del flam, flm
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    flm_cpu = fava_tpu_torch.FLASH(flam_dir, device="cpu")
+    flm_cpu.load(file_type="uni", fields=["flam"])
+    ref_boxes = fractal.box_counts(fractal.edge_detect(flm_cpu.mesh._volume("flam"), 0.5), flength)
+    if not np.array_equal(boxes, ref_boxes):
+        fail(f"flam box counts {boxes.tolist()} differ from the float64 path's {ref_boxes.tolist()}")
+    ref = {name: fn() for name, (fn, _) in structure_runs(cpu, flm_cpu).items()}
+    say(f"phase 19 plain float64 fractal and structure analyses on the CPU: {time.perf_counter() - t0:.1f} s")
+    times["errors"] = compare_structure(np, results, ref, ties, "window fractal/structure")
+    return times, totals
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: shell binning past 4095 shells (the walk's wide path)
+
+
+def wide_rows(torch, ck, fields, nbins):
+    """Each walk kernel on the wide volume's shapes against its plain
+    version (counts exact, TOL_BIN per shell), timed against its bound,
+    with its wide instantiation's ptxas report and launch."""
+    from fava_tpu_torch.experiments import folded_bins, planar_dft
+
+    dens, *vels = fields
+    nx, ny, nz = (int(s) for s in dens.shape)
+    nzr = nz // 2 + 1
+    static = ck._static_counts((nx, ny, nzr), nbins, nz, dens.device)
+    rows = {}
+
+    def check(name, got, ref, kernel_fn, work, counts=None):
+        if counts is not None and not (torch.equal(counts[0], counts[1])
+                                       and torch.equal(counts[0], static)):
+            fail(f"{name} (wide) counts differ from the static counts")
+        err = (got - ref).abs()
+        ratio = float((err / (TOL_BIN * ref.abs()).clamp(min=1e-300)).max())
+        rows[name] = {"max_abs_err": float(err.max()), "error/bound": ratio,
+                      "ms": cuda_ms(torch, kernel_fn, 10), **least_time(*work)}
+        say(f"phase 20 {name} at {nbins} shells: {rows[name]}")
+        if not ratio <= 1.0:
+            fail(f"{name} (wide) disagrees with its plain version (error/bound {ratio!r})")
+        for line in ptxas_report(WIDE_PTXAS[name]):
+            say(f"phase 20 {name} wide ptxas: {line}")
+
+    total, longi = path_powers(torch, fields)
+    folds = ck.fold_quadrants_pair(total, longi)
+    inside = inside_cells(ck, folds[0], nbins, full_ny=ny)
+    nxh, nyh, _ = folds[0].shape
+    launch = ck.walk_launch("fava_shell_bin_folded_blocks_per_sm", (2, 0), 2, nxh * nyh, nbins)
+    say(f"phase 20 folded walk launch at {nbins} shells: {launch}")
+    check("shell_bin_values_folded", ck.shell_bin_values_folded(*folds, nbins, ny, nz),
+          ck._shell_bin_folded_plain(*(f.double() for f in folds), nbins, ny, nz),
+          lambda: ck.shell_bin_values_folded(*folds, nbins, ny, nz), (8 * inside + 16 * nbins, 8 * inside))
+    check("shell_bin_values_folded_1ch", ck.shell_bin_values_folded_1ch(folds[1], nbins, ny, nz),
+          ck._shell_bin_folded_plain(folds[1].double(), None, nbins, ny, nz)[0],
+          lambda: ck.shell_bin_values_folded_1ch(folds[1], nbins, ny, nz), (4 * inside + 8 * nbins, 4 * inside))
+    padded = [folded_bins.pad_rows8(f, float("nan")) for f in folds]
+    ref = ck._onepass_plain(*(p.double() for p in padded), nbins, nx, ny, nz)
+    counts, sums = ck.shell_bin_sums_folded_onepass(*padded, nbins, nx, ny, nz)
+    check("shell_bin_sums_folded_onepass", sums[:2], ref[1:],
+          lambda: ck.shell_bin_sums_folded_onepass(*padded, nbins, nx, ny, nz),
+          (8 * inside + 24 * nbins, 8 * inside), (counts, ref[0]))
+    check("shell_bin_values_folded_rows",
+          torch.stack(ck.shell_bin_values_folded_rows(*padded, nbins, nx, ny, nz)), ref[1:],
+          lambda: ck.shell_bin_values_folded_rows(*padded, nbins, nx, ny, nz),
+          (8 * inside + 16 * nbins, 8 * inside))
+    del folds, padded, ref
+    inside = inside_cells(ck, total, nbins, full_nz=nz)
+    check("shell_bin_sums_unfolded", ck.shell_bin_sums_unfolded(total, longi, nbins, nz),
+          ck._shell_bin_unfolded_plain(total.double(), longi.double(), nbins, nz),
+          lambda: ck.shell_bin_sums_unfolded(total, longi, nbins, nz), (8 * inside + 16 * nbins, 8 * inside))
+    rows_b6 = nx // 8
+    ct, cl = total[:rows_b6].contiguous(), longi[:rows_b6].contiguous()
+    inside = inside_cells(ck, ct, nbins, full_nz=nz, kx0=0, full_nx=nx)
+    check("shell_bin_values_rfft_chunk", ck.shell_bin_values_rfft_chunk(ct, cl, nbins, nx, nz, 0)[:2],
+          ck._shell_bin_unfolded_plain(ct.double(), cl.double(), nbins, nz, 0, nx),
+          lambda: ck.shell_bin_values_rfft_chunk(ct, cl, nbins, nx, nz, 0),
+          (8 * inside + 24 * nbins, 8 * inside))
+    del total, longi, ct, cl
+    torch.cuda.empty_cache()
+    re, im = planar_dft.velocity_transforms(dens, vels)
+    counts, sums = ck.shell_bin_powers_fused(re, im, nbins, nz)
+    ref = ck._powers_fused_plain(re.double(), im.double(), nbins, nz)
+    inside = inside_cells(ck, re[0], nbins, full_nz=nz)
+    check("shell_bin_powers_fused", sums[:2], ref[1:],
+          lambda: ck.shell_bin_powers_fused(re, im, nbins, nz), (24 * inside + 24 * nbins, 60 * inside),
+          (counts, ref[0]))
+    del re, im, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_wide_walk(torch, np):
+    """Phase 20: a (16384, 64, 64) volume, 8191 shells, on the wide walk."""
+    import fava_tpu_torch
+    from fava_tpu_torch.ops import cuda_kernels as ck
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    dens = 1.0 + 0.5 * torch.rand(WIDE_SHAPE, generator=gen, device="cuda")
+    vels = [torch.randn(WIDE_SHAPE, generator=gen, device="cuda") for _ in range(3)]
+    fields = [dens, *vels]
+    nbins = max(WIDE_SHAPE) // 2 - 1
+    if not nbins > ck.SHELL_MAX_BINS:
+        fail(f"{WIDE_SHAPE} bins {nbins} shells, within the narrow walk")
+    rows = wide_rows(torch, ck, fields, nbins)
+
+    model = fava_tpu_torch.from_arrays(dict(zip(NAMES, fields)))
+    runs = {"kinetic energy spectra": (model.kinetic_energy_spectra,
+                                       ("fold_quadrants_pair", "shell_bin_values_folded")),
+            "flagship analysis": (model.flagship_analysis, FLAGSHIP_KERNELS)}
+    results, walls, totals = run_counted(torch, ck, 20, runs, "16384x64x64")
+    check_outputs(np, results["flagship analysis"], WIDE_SHAPE, "single")
+    host = [f.cpu() for f in fields]
+    del model, fields, dens, vels
+    torch.cuda.empty_cache()
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    cpu = fava_tpu_torch.from_arrays(dict(zip(NAMES, host)), device="cpu")
+    ref_spec, ref_flag = cpu.kinetic_energy_spectra(), cpu.flagship_analysis()
+    say(f"phase 20 plain float64 path on the CPU: {time.perf_counter() - t0:.1f} s")
+    if not np.array_equal(np.asarray(results["flagship analysis"]["spectra_counts"]),
+                          np.asarray(ref_flag["spectra_counts"])):
+        fail("16384x64x64 flagship shell counts differ from the float64 path's")
+    errors = {"spectra": compare_stage4(np, {"kinetic energy spectra": results["kinetic energy spectra"]},
+                                        {"kinetic energy spectra": ref_spec}, set(), 1.0,
+                                        "16384x64x64 spectra", 20),
+              "flagship": compare_flagship(np, results["flagship analysis"], ref_flag, host,
+                                           "16384x64x64 flagship", 20)}
+    del cpu, host
+    return rows, {"walls_s": walls, "errors": errors}, totals
+
+
 def main() -> None:
     sys.path.insert(0, str(HERE))
     try:
@@ -1976,6 +2291,10 @@ def main() -> None:
     say(f"phase 18 fused-spectrum timings: {json.dumps({'card': card, **fused_times})}")
     del fields, ref_spectra
     torch.cuda.empty_cache()
+    wide_kernels, wide_times, wide_launches = phase_wide_walk(torch, np)
+    add_counts(launches, wide_launches)
+    say(f"phase 20 wide-walk timings: {json.dumps({'card': card, 'kernels': wide_kernels, **wide_times})}")
+    torch.cuda.empty_cache()
 
     rows["shell_bin_values_rfft_chunk"], stream_launches, stream_times = phase_streamed(torch, np)
     add_counts(launches, stream_launches)
@@ -2010,6 +2329,9 @@ def main() -> None:
         rows.update(win_rows)
         odd_rows, odd_times, odd_launches = phase_odd_extents(torch, np, uni, cpu)
         rows.update(odd_rows)
+        fs_times, fs_launches = phase_fractal_structure(torch, np, workdir, uni, cpu)
+        add_counts(launches, fs_launches)
+        say(f"phase 19 fractal and structure timings: {json.dumps({'card': card, **fs_times})}")
         del uni
         torch.cuda.empty_cache()
         entry_launches, entry_times = phase_entry_point(torch, np, workdir, cpu)

@@ -16,13 +16,19 @@ CUDA (``ops/cuda_kernels.py``). Every public entry takes ``device=``
 package imports neither jax nor fava_tpu.
 """
 
-from fava_tpu_torch.models import FLASH, FileType, InMemoryModel, Model, from_arrays
+from fava_tpu_torch._version import __version__, __version_tuple__
+from fava_tpu_torch.models import FLASH, FileSubStem, FileType, InMemoryModel, Model, from_arrays
 from fava_tpu_torch.mesh import FlashUniform
+from fava_tpu_torch.mesh import FLASH as FlashAMR
 from fava_tpu_torch import analysis  # noqa: F401  (registers analyses onto Model)
 
 __all__ = [
+    "__version__",
+    "__version_tuple__",
     "FLASH",
+    "FileSubStem",
     "FileType",
+    "FlashAMR",
     "FlashUniform",
     "InMemoryModel",
     "Model",

@@ -152,7 +152,8 @@ __global__ void fold_pair_kernel(const float* __restrict__ t, const float* __res
 // spectra: shell_bin_sums_rfft_scalar, pallas_kernels.py:1271).
 //
 // For each folded cell (i, j, z): k = sqrt(i^2 + j^2 + z^2) in f32 (the
-// integer k^2 is exact in f32), shell = floor(k + 0.5), cells with
+// integer k^2 is exact in f32; past 4095 shells, the wide walk of
+// shell_bins.cuh, in f64), shell = floor(k + 0.5), cells with
 // k > nbins - 0.5 or j > ny/2 dropped; each channel's f64 shell sum gains
 // wz * value with wz = 1 on self-conjugate z planes (0, and nz/2 for even
 // nz) and 2 elsewhere.
@@ -190,14 +191,16 @@ int launch_shell_bin_folded(const float* t, const float* l, double* out, int nxh
                             int blocks, cudaStream_t stream) {
   // Vector loads need both volumes' rows at the same offset from 16 bytes.
   const int vec = C == 1 || ((reinterpret_cast<uintptr_t>(t) ^ reinterpret_cast<uintptr_t>(l)) & 15) == 0;
-  return fava::launch_walk(shell_walk_kernel<C, kCounts, FoldedRows>, C + kCounts, nbins, blocks,
-                           stream, t, l, out, FoldedRows{nxh, rows, nzr, full_nz, full_nx, full_ny},
-                           nbins, vec);
+  return fava::launch_walk(shell_walk_kernel<C, kCounts, FoldedRows, false>,
+                           shell_walk_kernel<C, kCounts, FoldedRows, true>, C + kCounts, nbins,
+                           blocks, stream, t, l, out,
+                           FoldedRows{nxh, rows, nzr, full_nz, full_nx, full_ny}, nbins, vec);
 }
 
 template <int C, bool kCounts>
 int folded_blocks_per_sm(int nbins) {
-  return fava::walk_blocks_per_sm(shell_walk_kernel<C, kCounts, FoldedRows>, C + kCounts, nbins);
+  return fava::walk_blocks_per_sm(shell_walk_kernel<C, kCounts, FoldedRows, false>,
+                                  shell_walk_kernel<C, kCounts, FoldedRows, true>, C + kCounts, nbins);
 }
 
 }  // namespace
@@ -263,7 +266,8 @@ int fava_shell_bin_sums_folded_onepass(const void* t, const void* l, void* out, 
 
 // Blocks of the folded kernel with ``channels`` value channels (1 or 2;
 // ``counts``: B11a's, with its count channel) that fit one SM at once; a
-// negative CUDA error code on failure (also for nbins > kMaxBins).
+// negative CUDA error code on failure (also for nbins outside 1 ..
+// kMaxWideBins).
 int fava_shell_bin_folded_blocks_per_sm(int channels, int counts, int nbins) {
   if (counts) return channels == 2 ? folded_blocks_per_sm<2, true>(nbins) : -(int)cudaErrorInvalidValue;
   if (channels == 1) return folded_blocks_per_sm<1, false>(nbins);

@@ -19,11 +19,11 @@
 // signed kx, ky (a mirror row is never a Nyquist row); on the kz = 0 plane
 // |reg - nyq|^2, elsewhere |reg|^2 + |nyq|^2. The partners' powers are
 // summed in the plain fold's order, ((i, j) + (-i, j)) + ((i, -j) + (-i,
-// -j)), and binned as K4 bins a folded cell: k = sqrt(i^2 + j^2 + z^2) in f32,
-// shell floor(k + 0.5), cells beyond nbins - 0.5 dropped, Hermitian z weight
-// wz. Output (3, nbins) f64: [counts (weight mx * my * wz), total, longi];
-// the counts equal the static _folded_counts exactly (integer weights in
-// f64). Powers are formed in f64 registers from the f32 values, so the
+// -j)), and binned as K4 bins a folded cell: k = sqrt(i^2 + j^2 + z^2) in f32
+// (in f64 past 4095 shells), shell floor(k + 0.5), cells beyond nbins - 0.5
+// dropped, Hermitian z weight wz. Output (3, nbins) f64: [counts (weight
+// mx * my * wz), total, longi]; the counts equal the static _folded_counts
+// exactly (integer weights in f64). Powers are formed in f64 registers from the f32 values, so the
 // kernel differs from its plain f64 twin only in summation order.
 //
 // What bounds it: the read of the transforms' cells inside the last shell,
@@ -184,9 +184,9 @@ struct Partners {
 // Bins cell k of the span, at z (inside the walk), weight wz: the
 // partners' powers summed in the plain fold's order, ((i, j) + (-i, j)) +
 // ((i, -j) + (-i, -j)), then [mxy, total, longi] added to the run.
-template <int kSpan>
+template <int kSpan, class H>
 __device__ __forceinline__ void bin_cell(const Span<kSpan> (&sp)[4], int k, const Partners& pt, Wave kz,
-                                         bool kz0, double wz, const int* thr, double* hist,
+                                         bool kz0, double wz, const int* thr, const H& hist,
                                          Run<3>& r) {
   const double inv_k2 = 1.0 / fmax((double)r.k2, 1.0);  // r.k2 = i^2 + j^2 + z^2 here
   double t[4], l[4];
@@ -196,13 +196,14 @@ __device__ __forceinline__ void bin_cell(const Span<kSpan> (&sp)[4], int k, cons
   r.add(v, wz, thr, hist);
 }
 
-template <bool kInterleaved>
+// kWide: the wide walk of shell_bins.cuh (nbins > kMaxBins).
+template <bool kInterleaved, bool kWide>
 __global__ void __launch_bounds__(fava::kBinMaxWarps * 32, Layout<kInterleaved>::kMinBlocks)
 powers_fold_bin_kernel(Stack<kInterleaved> s, double* __restrict__ out, int nx, int ny, int nzr,
                        int nbins, int full_nz, int vec_im) {
   extern __shared__ __align__(16) double hists[];  // [warps][nbins][3]: counts, total, longi
   const int* thr;
-  double* hist = fava::warp_hists_init<3>(hists, nbins, thr);
+  const fava::Hist<kWide> hist = fava::walk_hists_init<3, kWide>(hists, out, nbins, thr);
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
   const int nyh = ny / 2 + 1;
@@ -246,7 +247,7 @@ powers_fold_bin_kernel(Stack<kInterleaved> s, double* __restrict__ out, int nx, 
       r.none(nbins);
       if (qs < cells) {
         const int z0 = qs - head;  // the span's first cell (z0 < 0: before the row)
-        r.open(ij2, max(z0, 0), z0, nbins, thr);
+        r.template open<kWide>(ij2, max(z0, 0), z0, nbins, thr);
         // Every load of the span first, so one memory latency serves the trip.
         Span<kSpan> sp[4];
 #pragma unroll
@@ -276,7 +277,7 @@ powers_fold_bin_kernel(Stack<kInterleaved> s, double* __restrict__ out, int nx, 
       __syncwarp();
     }
   }
-  fava::warp_hists_flush<3>(hists, out, nbins);
+  fava::walk_hists_flush<3, kWide>(hists, out, nbins);
 }
 
 }  // namespace
@@ -292,21 +293,25 @@ int fava_shell_bin_powers_fused(const void* re, const void* im, void* out, int n
   double* o = (double*)out;
   cudaStream_t st = (cudaStream_t)stream;
   if (interleaved)
-    return fava::launch_walk(powers_fold_bin_kernel<true>, 3, nbins, blocks, st,
+    return fava::launch_walk(powers_fold_bin_kernel<true, false>, powers_fold_bin_kernel<true, true>,
+                             3, nbins, blocks, st,
                              Stack<true>{(const float*)re, nullptr, cells}, o, nx, ny, nzr, nbins,
                              full_nz, 1);
   // im's rows sit at re's offset from 16 bytes when the stacks do.
   const int vec_im = ((reinterpret_cast<uintptr_t>(re) ^ reinterpret_cast<uintptr_t>(im)) & 15) == 0;
-  return fava::launch_walk(powers_fold_bin_kernel<false>, 3, nbins, blocks, st,
+  return fava::launch_walk(powers_fold_bin_kernel<false, false>, powers_fold_bin_kernel<false, true>,
+                           3, nbins, blocks, st,
                            Stack<false>{(const float*)re, (const float*)im, cells}, o, nx, ny, nzr,
                            nbins, full_nz, vec_im);
 }
 
 // Blocks of the kernel that fit one SM at once; a negative CUDA error code
-// on failure (also for nbins > kMaxBins).
+// on failure (also for nbins outside 1 .. kMaxWideBins).
 int fava_shell_bin_powers_fused_blocks_per_sm(int interleaved, int nbins) {
-  return interleaved ? fava::walk_blocks_per_sm(powers_fold_bin_kernel<true>, 3, nbins)
-                     : fava::walk_blocks_per_sm(powers_fold_bin_kernel<false>, 3, nbins);
+  return interleaved ? fava::walk_blocks_per_sm(powers_fold_bin_kernel<true, false>,
+                                                powers_fold_bin_kernel<true, true>, 3, nbins)
+                     : fava::walk_blocks_per_sm(powers_fold_bin_kernel<false, false>,
+                                                powers_fold_bin_kernel<false, true>, 3, nbins);
 }
 
 }  // extern "C"

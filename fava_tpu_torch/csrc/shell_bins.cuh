@@ -10,7 +10,7 @@
 // which each class starts (class_thresholds: the f32 formula bit for bit),
 // so a cell costs an integer step of k^2 and one compare, no square root.
 // A run that ends inside a lane's span belongs to that lane alone, so it
-// is added with plain shared loads and stores (add_plain; sm_90a compiles
+// is added with plain shared loads and stores (Hist<false>; sm_90a compiles
 // a shared f64 atomicAdd to a compare-and-swap loop, ATOMS.CAST.SPIN.64);
 // the runs that reach the ends of spans meet in one segmented shuffle scan
 // a trip (add_span_ends). The block sums its warps' histograms into the
@@ -18,6 +18,16 @@
 // (up to kBinMaxWarps) as shared memory holds histograms for; the grid is
 // one wave (the wrappers size it from walk_blocks_per_sm), whose warps
 // stride over the walks.
+//
+// That is the narrow walk, for up to kMaxBins shells: past them a warp's
+// histogram outgrows shared memory (131 KB at 8191 shells and 2 channels)
+// and k^2 outgrows f32's exact integers. The wide walk (kWide, up to
+// kMaxWideBins shells) runs the same walks, runs and scans, but classifies
+// on the exact integer k^2 (its thresholds from the f64 formula), keeps
+// only the thresholds in shared memory, and adds each run's f64 sums to the
+// output with global atomics where the narrow walk adds them to the warp's
+// histogram. Runs along z are long where k is large, so the atomics are
+// few; their order varies between runs, as the narrow flush's does.
 //
 // This header also holds the walk of float32 channel volumes
 // (shell_walk_kernel, for B6/B10 and the folded kernels): a lane takes 4m
@@ -41,7 +51,11 @@
 namespace fava {
 
 constexpr int kBinMaxWarps = 8;  // warps of a binning block, each with its own histogram
-constexpr int kMaxBins = 4095;   // (nbins + 1)^2 <= 2^24: |k|^2 of every binned cell is exact in f32
+constexpr int kMaxBins = 4095;   // the narrow walk: (nbins + 1)^2 <= 2^24, |k|^2 of every binned cell exact in f32
+// The wide walk: every k^2 it steps to stays below 2^31 (the last shell's
+// (nbins - 1/2)^2 plus a lane span's overrun), given rows of kx^2 + ky^2 <
+// 2^31 (the wrappers' check).
+constexpr int kMaxWideBins = 46000;
 constexpr int kMaxGroups = 2;    // float4 groups of a lane's span in shell_walk_kernel: at most 8 cells
 // Unfold multiplicity of index idx of a folded axis of extent n: 1 for the
 // self-conjugate indices (0 and, for even n, n/2), 2 for the others.
@@ -50,18 +64,31 @@ __device__ __forceinline__ double hermitian_mult(int idx, int n) {
 }
 
 // The class of a cell of squared wavenumber k2: its shell, or nbins when it
-// lies beyond the last shell (k > nbins - 0.5). k2 < 2^24 is exact in f32.
+// lies beyond the last shell (k > nbins - 0.5). The narrow walk takes the
+// f32 formula (k2 < 2^24 is exact in f32), as fava_tpu's kernels do; the
+// wide walk the shell of the exact integer k2, in f64: k never sits on a
+// half-integer (s + 1/2)^2 = s^2 + s + 1/4, and the nearest k2, s^2 + s, is
+// 1/(8s) below it, far above f64's rounding of sqrt at k2 < 2^31.
+template <bool kWide = false>
 __device__ __forceinline__ int cell_class(int k2, int nbins) {
-  const float k = sqrtf((float)k2);
-  if (!(k <= (float)nbins - 0.5f)) return nbins;
-  return min(__float2int_rd(k + 0.5f), nbins - 1);
+  if constexpr (kWide) {
+    const double k = sqrt((double)k2);
+    if (!(k <= (double)nbins - 0.5)) return nbins;
+    return min((int)floor(k + 0.5), nbins - 1);
+  } else {
+    const float k = sqrtf((float)k2);
+    if (!(k <= (float)nbins - 0.5f)) return nbins;
+    return min(__float2int_rd(k + 0.5f), nbins - 1);
+  }
 }
 
 // thr[s], s = 0 .. nbins + 1: the least k2 whose class is >= s (thr[nbins]
 // the first k2 beyond the last shell, thr[nbins + 1] none). The class never
 // decreases with k2, so a cell's class is the s with thr[s] <= k2 <
-// thr[s + 1]: the f32 formula above, bit for bit, without a square root
-// per cell. The guess (s - 1/2)^2 is off by at most a few integers.
+// thr[s + 1]: cell_class above, bit for bit, without a square root per
+// cell. The guess (s - 1/2)^2 is off by at most a few integers (exact in
+// the wide walk).
+template <bool kWide>
 __device__ inline void class_thresholds(int* thr, int nbins) {
   for (int s = threadIdx.x; s <= nbins + 1; s += blockDim.x) {
     int g = 0;
@@ -69,8 +96,8 @@ __device__ inline void class_thresholds(int* thr, int nbins) {
       g = INT_MAX;
     } else if (s > 0) {
       g = s * s - s + 1;
-      while (g > 0 && cell_class(g - 1, nbins) >= s) --g;
-      while (cell_class(g, nbins) < s) ++g;
+      while (g > 0 && cell_class<kWide>(g - 1, nbins) >= s) --g;
+      while (cell_class<kWide>(g, nbins) < s) ++g;
     }
     thr[s] = g;
   }
@@ -87,22 +114,44 @@ __device__ __forceinline__ int first_kz_outside(int ij2, int out) {
   return g;
 }
 
-// hist[shell] += acc with plain shared-memory loads and stores; the
-// histogram holds [nbins][C] doubles. Callers never let two lanes add to
-// one shell at once.
-template <int C>
-__device__ __forceinline__ void add_plain(double* hist, int shell, const double (&acc)[C]) {
-  if constexpr (C == 2) {
-    double2* p = reinterpret_cast<double2*>(hist) + shell;
-    double2 x = *p;
-    x.x += acc[0];
-    x.y += acc[1];
-    *p = x;
-  } else {
+// Where a run's sums go. The narrow walk: the warp's histogram in shared
+// memory, [nbins][C] doubles, hist[shell] += acc with plain loads and
+// stores (callers never let two lanes add to one shell at once). The wide
+// walk: the output out[c * nbins + shell], with f64 global atomics.
+template <bool kWide>
+struct Hist;
+
+template <>
+struct Hist<false> {
+  double* hist;
+
+  template <int C>
+  __device__ __forceinline__ void add(int shell, const double (&acc)[C]) const {
+    if constexpr (C == 2) {
+      double2* p = reinterpret_cast<double2*>(hist) + shell;
+      double2 x = *p;
+      x.x += acc[0];
+      x.y += acc[1];
+      *p = x;
+    } else {
 #pragma unroll
-    for (int c = 0; c < C; ++c) hist[shell * C + c] += acc[c];
+      for (int c = 0; c < C; ++c) hist[shell * C + c] += acc[c];
+    }
   }
-}
+};
+
+template <>
+struct Hist<true> {
+  double* out;
+  int nbins;
+
+  template <int C>
+  __device__ __forceinline__ void add(int shell, const double (&acc)[C]) const {
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (acc[c] != 0.0) atomicAdd(out + (int64_t)c * nbins + shell, acc[c]);
+  }
+};
 
 // A lane's run: its class (nbins: none), the k2 that ends it (thr[cur +
 // 1]), its f64 sums; and k2 of the lane's next position with the step to
@@ -121,8 +170,9 @@ struct Run {
   // Opens the run of the lane's first cell, at |kz| = kz_cell (inside the
   // last shell), with the lane's first position at |kz| = kz_pos (-head
   // <= kz_pos <= kz_cell: positions before the row are stepped over).
+  template <bool kWide>
   __device__ __forceinline__ void open(int ij2, int kz_cell, int kz_pos, int nbins, const int* thr) {
-    cur = cell_class(ij2 + kz_cell * kz_cell, nbins);
+    cur = cell_class<kWide>(ij2 + kz_cell * kz_cell, nbins);
     next = thr[cur + 1];
     k2 = ij2 + kz_pos * kz_pos;
     dk = 2 * kz_pos + 1;
@@ -138,10 +188,11 @@ struct Run {
   // Adds w * v of the inside cell at the current position: a cell past the
   // run's end closes the run (its sums go to hist) and opens the run of its
   // class. Does not step.
+  template <class H>
   __device__ __forceinline__ void add(const double (&v)[C], double w, const int* thr,
-                                      double* hist) {
+                                      const H& hist) {
     if (k2 >= next) {
-      add_plain<C>(hist, cur, acc);
+      hist.add(cur, acc);
 #pragma unroll
       for (int c = 0; c < C; ++c) acc[c] = 0.0;
       do {
@@ -158,8 +209,8 @@ struct Run {
 // of one shell are contiguous; a segmented shuffle scan sums them and the
 // last lane of each adds the sum. Called by the whole warp, between
 // __syncwarp()s (the adds inside spans must have landed).
-template <int C>
-__device__ __forceinline__ void add_span_ends(Run<C>& r, double* hist, int nbins, int lane) {
+template <int C, class H>
+__device__ __forceinline__ void add_span_ends(Run<C>& r, const H& hist, int nbins, int lane) {
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     double u[C];
@@ -172,34 +223,42 @@ __device__ __forceinline__ void add_span_ends(Run<C>& r, double* hist, int nbins
     }
   }
   const int next = __shfl_down_sync(kFullMask, r.cur, 1);
-  if (r.cur < nbins && (lane == 31 || next != r.cur)) add_plain<C>(hist, r.cur, r.acc);
+  if (r.cur < nbins && (lane == 31 || next != r.cur)) hist.add(r.cur, r.acc);
 }
 
-// The block's shared memory: [warps][nbins][C] doubles, then the nbins + 2
-// int class thresholds. Zeroes the histograms, fills the thresholds and
-// returns this warp's histogram (after a barrier).
-template <int C>
-__device__ __forceinline__ double* warp_hists_init(double* hists, int nbins, const int*& thr) {
-  const int nh = (blockDim.x >> 5) * C * nbins;
+// The block's shared memory: in the narrow walk [warps][nbins][C] doubles,
+// then the nbins + 2 int class thresholds; in the wide walk the thresholds
+// alone. Zeroes the histograms, fills the thresholds and returns where
+// this warp's runs go (after a barrier).
+template <int C, bool kWide>
+__device__ __forceinline__ Hist<kWide> walk_hists_init(double* hists, double* out, int nbins,
+                                                       const int*& thr) {
+  const int nh = kWide ? 0 : (blockDim.x >> 5) * C * nbins;
   int* t = reinterpret_cast<int*>(hists + nh);
   for (int b = threadIdx.x; b < nh; b += blockDim.x) hists[b] = 0.0;
-  class_thresholds(t, nbins);
+  class_thresholds<kWide>(t, nbins);
   __syncthreads();
   thr = t;
-  return hists + (threadIdx.x >> 5) * C * nbins;
+  if constexpr (kWide)
+    return Hist<true>{out, nbins};
+  else
+    return Hist<false>{hists + (threadIdx.x >> 5) * C * nbins};
 }
 
-// Sums the warps' histograms into out[c * nbins + shell] with f64 global
-// atomics (their order varies between runs: the sums agree to rounding).
-template <int C>
-__device__ __forceinline__ void warp_hists_flush(const double* hists, double* out, int nbins) {
-  __syncthreads();
-  const int warps = blockDim.x >> 5;
-  const int nh = C * nbins;
-  for (int b = threadIdx.x; b < nh; b += blockDim.x) {
-    double s = 0.0;
-    for (int w = 0; w < warps; ++w) s += hists[w * nh + b];
-    if (s != 0.0) atomicAdd(&out[(b % C) * nbins + b / C], s);
+// The narrow walk's end: sums the warps' histograms into out[c * nbins +
+// shell] with f64 global atomics (their order varies between runs: the
+// sums agree to rounding). The wide walk's runs are in out already.
+template <int C, bool kWide>
+__device__ __forceinline__ void walk_hists_flush(const double* hists, double* out, int nbins) {
+  if constexpr (!kWide) {
+    __syncthreads();
+    const int warps = blockDim.x >> 5;
+    const int nh = C * nbins;
+    for (int b = threadIdx.x; b < nh; b += blockDim.x) {
+      double s = 0.0;
+      for (int w = 0; w < warps; ++w) s += hists[w * nh + b];
+      if (s != 0.0) atomicAdd(&out[(b % C) * nbins + b / C], s);
+    }
   }
 }
 
@@ -316,10 +375,10 @@ __device__ __forceinline__ void group_cell(const float4 (&a)[CV], int i, double 
 // Bins the 4 cells at walk positions p0 .. p0+3. A group wholly inside
 // [lo, hi) takes no test but the run's end; the others mask the cells
 // outside the walk and weigh z = 0 and the Nyquist plane 1.
-template <int CV, bool kCounts>
+template <int CV, bool kCounts, class H>
 __device__ __forceinline__ void bin_group(const float4 (&a)[CV], int p0, const Walk<CV>& w,
                                           double bw, int z_nyq, double mxy, const int* thr,
-                                          double* hist, Run<CV + kCounts>& r) {
+                                          const H& hist, Run<CV + kCounts>& r) {
   double v[CV + kCounts];
   if (p0 >= w.lo && p0 + 3 < w.hi) {
 #pragma unroll
@@ -347,14 +406,15 @@ __device__ __forceinline__ void bin_group(const float4 (&a)[CV], int p0, const W
 // a cell's weight wz is 1 at z = 0 and, for even full_nz, at the Nyquist
 // plane z = full_nz/2, 2 elsewhere; on a full grid 1. ``vec``: every
 // channel's rows sit at the same offset from 16 bytes (float4 loads).
-template <int CV, bool kCounts, class Rows>
+// kWide: the wide walk (nbins > kMaxBins).
+template <int CV, bool kCounts, class Rows, bool kWide>
 __global__ void __launch_bounds__(kBinMaxWarps * 32)
 shell_walk_kernel(const float* __restrict__ t, const float* __restrict__ l,
                   double* __restrict__ out, Rows rows, int nbins, int vec) {
   constexpr int CO = CV + kCounts;
   extern __shared__ __align__(16) double hists[];
   const int* thr;
-  double* hist = warp_hists_init<CO>(hists, nbins, thr);
+  const Hist<kWide> hist = walk_hists_init<CO, kWide>(hists, out, nbins, thr);
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
   const int nzr = rows.nzr;
@@ -393,9 +453,9 @@ shell_walk_kernel(const float* __restrict__ t, const float* __restrict__ l,
         const int p0 = qs - w.head;  // the lane's first position; its first cell max(p0, 0)
         // |kz| of the first cell and of position p0 (p0 < 0: before the row)
         if (w.down)
-          r.open(rw.ij2, max(p0, 0) + 1, p0 + 1, nbins, thr);
+          r.template open<kWide>(rw.ij2, max(p0, 0) + 1, p0 + 1, nbins, thr);
         else
-          r.open(rw.ij2, max(p0, 0), p0, nbins, thr);
+          r.template open<kWide>(rw.ij2, max(p0, 0), p0, nbins, thr);
         // Every load of the span first, so one memory latency serves the trip.
         float4 a[kMaxGroups][CV];
 #pragma unroll
@@ -414,16 +474,17 @@ shell_walk_kernel(const float* __restrict__ t, const float* __restrict__ l,
       __syncwarp();
     }
   }
-  warp_hists_flush<CO>(hists, out, nbins);
+  walk_hists_flush<CO, kWide>(hists, out, nbins);
 }
 
 // ---------------------------------------------------------------------------
 // Host side of a walk kernel's launch.
 
 // Dynamic shared bytes of a block of ``warps`` warps: their histograms of
-// ``channels`` f64 channels and the class thresholds.
+// ``channels`` f64 channels (the narrow walk's) and the class thresholds.
 inline size_t walk_smem_bytes(int warps, int channels, int nbins) {
-  return warps * channels * (size_t)nbins * sizeof(double) + (nbins + 2) * sizeof(int);
+  const size_t hist = nbins > kMaxBins ? 0 : warps * channels * (size_t)nbins * sizeof(double);
+  return hist + (nbins + 2) * sizeof(int);
 }
 
 // The dynamic shared bytes a block may opt in to on the current device (0
@@ -437,12 +498,15 @@ inline int smem_optin() {
 }
 
 // Warps of a block: as many as kBinMaxWarps whose histograms fit the
-// shared memory (0: not even one; nbins > kMaxBins is refused as well).
+// shared memory; kBinMaxWarps in the wide walk, whose warps share the
+// thresholds alone (0: not even one fits, or nbins lies outside 1 ..
+// kMaxWideBins).
 inline int walk_block_warps(int channels, int nbins) {
-  if (nbins < 1 || nbins > kMaxBins) return 0;
+  if (nbins < 1 || nbins > kMaxWideBins) return 0;
   const size_t optin = (size_t)smem_optin();
   const size_t fixed = walk_smem_bytes(0, channels, nbins);
   if (optin <= fixed) return 0;
+  if (nbins > kMaxBins) return kBinMaxWarps;
   const size_t per_warp = walk_smem_bytes(1, channels, nbins) - fixed;
   return (int)std::min<size_t>(kBinMaxWarps, (optin - fixed) / per_warp);
 }
@@ -467,11 +531,13 @@ inline cudaError_t allow_smem(const void* kernel, size_t smem) {
   return err;
 }
 
-// Launches ``kernel`` (a walk kernel of ``channels`` histogram channels)
-// with as many warps a block as its histograms allow.
+// Launches a walk kernel of ``channels`` histogram channels, ``narrow``
+// up to kMaxBins shells and ``wide`` (its kWide variant) beyond, with as
+// many warps a block as its histograms allow.
 template <class... Params, class... Args>
-int launch_walk(void (*kernel)(Params...), int channels, int nbins, int blocks,
-                cudaStream_t stream, Args... args) {
+int launch_walk(void (*narrow)(Params...), void (*wide)(Params...), int channels, int nbins,
+                int blocks, cudaStream_t stream, Args... args) {
+  void (*kernel)(Params...) = nbins > kMaxBins ? wide : narrow;
   const int warps = walk_block_warps(channels, nbins);
   if (warps < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = walk_smem_bytes(warps, channels, nbins);
@@ -481,11 +547,14 @@ int launch_walk(void (*kernel)(Params...), int channels, int nbins, int blocks,
   return launch_status();
 }
 
-// Blocks of ``kernel`` that fit one SM at once (occupancy query); a
-// negative CUDA error code on failure (also for nbins > kMaxBins).
+// Blocks of the walk kernel that launch_walk takes for nbins (``narrow``
+// or ``wide``) that fit one SM at once (occupancy query); a negative CUDA
+// error code on failure (also for nbins outside 1 .. kMaxWideBins).
 template <class... Params>
-int walk_blocks_per_sm(void (*kernel)(Params...), int channels, int nbins) {
+int walk_blocks_per_sm(void (*narrow)(Params...), void (*wide)(Params...), int channels,
+                       int nbins) {
   (void)cudaGetLastError();
+  void (*kernel)(Params...) = nbins > kMaxBins ? wide : narrow;
   const int warps = walk_block_warps(channels, nbins);
   if (warps < 1) return -(int)cudaErrorInvalidValue;
   const size_t smem = walk_smem_bytes(warps, channels, nbins);

@@ -21,7 +21,8 @@
 // Hermitian weight wz = 1 at z = 0 and, for even full_nz, at the Nyquist
 // plane z = full_nz/2, 2 elsewhere; on a full grid (nzr == full_nz) kz is
 // signed as well and every weight is 1. k = sqrt(kx^2 + ky^2 + kz^2) in f32
-// (k^2 is an exact integer there), shell = floor(k + 0.5), cells with
+// (k^2 is an exact integer there; in f64 past 4095 shells, the wide walk of
+// shell_bins.cuh), shell = floor(k + 0.5), cells with
 // k > nbins - 0.5 dropped. Output: C f64 shell sums, C = 1 (scalar power) or
 // 2 (total and longitudinal power); the counts are a shape function the
 // wrapper takes from the host. kx0 is an ordinary argument: what the TPU
@@ -68,13 +69,15 @@ int launch_channels(const void* t, const void* l, void* out, int nx, int ny, int
   const UnfoldedRows rows{nx, ny, nzr, full_nz, kx0, full_nx};
   cudaStream_t st = (cudaStream_t)stream;
   if (channels == 1)
-    return fava::launch_walk(shell_walk_kernel<1, false, UnfoldedRows>, 1, nbins, blocks, st, tf,
-                             lf, (double*)out, rows, nbins, 1);
+    return fava::launch_walk(shell_walk_kernel<1, false, UnfoldedRows, false>,
+                             shell_walk_kernel<1, false, UnfoldedRows, true>, 1, nbins, blocks, st,
+                             tf, lf, (double*)out, rows, nbins, 1);
   // Vector loads need both volumes' rows at the same offset from 16 bytes.
   const int vec = ((reinterpret_cast<uintptr_t>(t) ^ reinterpret_cast<uintptr_t>(l)) & 15) == 0;
   if (channels == 2)
-    return fava::launch_walk(shell_walk_kernel<2, false, UnfoldedRows>, 2, nbins, blocks, st, tf,
-                             lf, (double*)out, rows, nbins, vec);
+    return fava::launch_walk(shell_walk_kernel<2, false, UnfoldedRows, false>,
+                             shell_walk_kernel<2, false, UnfoldedRows, true>, 2, nbins, blocks, st,
+                             tf, lf, (double*)out, rows, nbins, vec);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -98,12 +101,14 @@ int fava_shell_bin_sums_rfft_chunk(const void* t, const void* l, void* out, int 
 
 // Blocks of the kernel (up to kBinMaxWarps warps, channels * nbins doubles
 // of shared memory a warp) that fit one SM at once; a negative CUDA error
-// code on failure (also for nbins > kMaxBins).
+// code on failure (also for nbins outside 1 .. kMaxWideBins).
 int fava_shell_bin_unfolded_blocks_per_sm(int channels, int nbins) {
   if (channels == 1)
-    return fava::walk_blocks_per_sm(shell_walk_kernel<1, false, UnfoldedRows>, 1, nbins);
+    return fava::walk_blocks_per_sm(shell_walk_kernel<1, false, UnfoldedRows, false>,
+                                    shell_walk_kernel<1, false, UnfoldedRows, true>, 1, nbins);
   if (channels == 2)
-    return fava::walk_blocks_per_sm(shell_walk_kernel<2, false, UnfoldedRows>, 2, nbins);
+    return fava::walk_blocks_per_sm(shell_walk_kernel<2, false, UnfoldedRows, false>,
+                                    shell_walk_kernel<2, false, UnfoldedRows, true>, 2, nbins);
   return -(int)cudaErrorInvalidValue;
 }
 

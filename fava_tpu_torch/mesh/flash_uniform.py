@@ -4,18 +4,19 @@ Counterpart of fava_tpu/mesh/flash_uniform.py, single device: field
 reads onto the device (the metadata ``load`` is FLASH's), ``from_arrays``,
 the flagship analysis (in core, or streamed from the file by
 ``ops/outofcore.py`` when the volume does not fit the card), the
-kinetic-energy and scalar spectra, and the PDFs and conditional
-statistics of pipeline stage 4. ``reynolds_stress``, ``favre_profiles``,
-the slice profiles, ``mass_sum`` and the volume averages are FLASH's: on
-one block profiled along x the profiles take the uniform fast case
-(K1/K2). The other uniform-grid analyses, streamed or not, are ROADMAP
-A7/A8.
+kinetic-energy and scalar spectra, the PDFs and conditional statistics
+of pipeline stage 4, the fractal dimension, and the velocity structure
+functions with their scaling exponents and increment PDFs.
+``reynolds_stress``, ``favre_profiles``, the slice profiles, ``mass_sum``
+and the volume averages are FLASH's: on one block profiled along x the
+profiles take the uniform fast case (K1/K2). The other uniform-grid
+analyses, streamed or not, are ROADMAP A8/A10.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,8 +24,10 @@ import torch
 from fava_tpu_torch.io import flash_file, h5lite
 from fava_tpu_torch.mesh.flash_amr import FLASH
 from fava_tpu_torch.models.model import Model
+from fava_tpu_torch.ops import fractal as fractal_ops
 from fava_tpu_torch.ops import outofcore
 from fava_tpu_torch.ops import spectra as spectra_ops
+from fava_tpu_torch.ops import structure as structure_ops
 from fava_tpu_torch.ops import volume as volume_ops
 from fava_tpu_torch.utils import field_dtype, timer
 
@@ -244,6 +247,96 @@ class FlashUniform(FLASH):
         spectra's transform, binning convention and integral factor, so
         slopes compare directly."""
         return {field: spectra_ops.scalar_spectrum(self._volume(field), ndim=self.ndim)}
+
+    @timer
+    def fractal_dimension(self, field: str, contours=0.5) -> Dict[str, Any]:
+        """Box-counting dimension (reference: FlashUniform.py:85-227)."""
+        return {field: fractal_ops.fractal_dimension(self._volume(field), contours)}
+
+    def _velocities(self):
+        return [self._scalar_volume(f"vel{a}") for a in "xyz"[: self.ndim]]
+
+    @timer
+    def structure_functions(
+        self,
+        num_seps: int = 100,
+        num_points: int = 10000,
+        sep_bounds: Optional[Sequence[float]] = None,
+        log_scale: bool = True,
+        anisotropic: bool = False,
+        seed: int = 0,
+        resample_per_order: bool = True,
+        **kwargs,
+    ) -> Dict[str, Any]:
+        """Velocity structure functions (reference: FlashUniform.py:306-447).
+
+        Accepts the reference settings-file spelling ``anistropic`` too.
+        ``sep_bounds`` defaults to the resolvable separation range;
+        ``resample_per_order=False`` evaluates all ten orders on one
+        shared pair draw (ops/structure.structure_functions). 2D datasets
+        sample their (nx, ny) planes (fava_tpu's mesh passes the
+        (nx, ny, 1) volumes, which its 2D gather does not take).
+        """
+        if "anistropic" in kwargs:
+            anisotropic = kwargs.pop("anistropic")
+        if kwargs:
+            raise TypeError(f"structure_functions got unexpected keyword arguments {sorted(kwargs)}")
+        return structure_ops.structure_functions(
+            self._velocities(),
+            domain_bounds=self.domain_bounds,
+            num_seps=num_seps,
+            num_points=num_points,
+            sep_bounds=tuple(sep_bounds) if sep_bounds is not None else None,
+            log_scale=log_scale,
+            anisotropic=anisotropic,
+            seed=seed,
+            resample_per_order=resample_per_order,
+        )
+
+    @timer
+    def structure_function_exponents(
+        self,
+        vsfs: Optional[Dict[str, Any]] = None,
+        reference_order: int = 3,
+        fit_range: Optional[Sequence[float]] = None,
+        ess: bool = True,
+        **sf_kwargs,
+    ) -> Dict[str, Any]:
+        """Intermittency scaling exponents zeta_p, ESS by default (beyond
+        the reference) of ``vsfs``, a :meth:`structure_functions` result,
+        or of one computed here with ``**sf_kwargs``."""
+        if vsfs is None:
+            vsfs = self.structure_functions(**sf_kwargs)
+        return structure_ops.scaling_exponents(
+            vsfs, reference_order=reference_order, fit_range=fit_range, ess=ess
+        )
+
+    @timer
+    def velocity_increment_pdfs(
+        self,
+        num_seps: int = 8,
+        num_points: int = 65536,
+        sep_bounds: Optional[Sequence[float]] = None,
+        log_scale: bool = True,
+        nbins: int = 101,
+        nsigma: float = 10.0,
+        anisotropic: bool = False,
+        seed: int = 0,
+    ) -> Dict[str, Any]:
+        """PDFs of signed velocity increments vs separation (beyond the
+        reference; ops/structure.velocity_increment_pdfs)."""
+        return structure_ops.velocity_increment_pdfs(
+            self._velocities(),
+            domain_bounds=self.domain_bounds,
+            num_seps=num_seps,
+            num_points=num_points,
+            sep_bounds=tuple(sep_bounds) if sep_bounds is not None else None,
+            log_scale=log_scale,
+            nbins=nbins,
+            nsigma=nsigma,
+            anisotropic=anisotropic,
+            seed=seed,
+        )
 
     def _scalar_volume(self, name: str) -> torch.Tensor:
         """Scalar field volume squeezed to ``ndim`` axes (2D datasets carry

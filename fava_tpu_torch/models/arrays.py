@@ -25,6 +25,11 @@ class InMemoryModel(Model):
         self._name = name
         self.mesh = mesh
 
+    def load(self, *args, **kwargs):
+        raise NotImplementedError(
+            "InMemoryModel has no file catalog; construct it via fava_tpu_torch.from_arrays"
+        )
+
 
 def from_arrays(
     fields: Dict[str, np.ndarray],

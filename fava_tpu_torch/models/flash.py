@@ -16,7 +16,6 @@ from typing import Dict, Optional
 from fava_tpu_torch.mesh import FLASH as FlashAMR
 from fava_tpu_torch.mesh import FlashUniform
 from fava_tpu_torch.models.model import Model
-from fava_tpu_torch.utils import resolve_device
 
 
 class FileSubStem(Enum):
@@ -60,8 +59,7 @@ class FLASH(Model):
     """Model over a directory of FLASH output files, computing on ``device``."""
 
     def __init__(self, directory: str | Path, name: Optional[str] = None, device="cuda") -> None:
-        self.device = resolve_device(device)
-        super().__init__(directory, name)
+        super().__init__(directory, name, device)
         self.mesh = None
 
     def _directory_changed(self) -> None:

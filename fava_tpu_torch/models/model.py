@@ -4,8 +4,9 @@ Counterpart of fava_tpu/models/model.py. The registries are separate
 from fava_tpu's on purpose: ``register_analysis`` skips names the class
 already has, so a shared Model would keep whichever package registered
 first. The HDF5 result writers (``save_to_hdf5`` and its helpers) go
-through the port's own codec, ``io/h5lite.py``; the generic sniffing
-``load`` is not ported (FLASH's typed ``load`` is the entry point).
+through the port's own codec, ``io/h5lite.py``. ``load`` sniffs a file
+with every registered mesh and loads it on the model's device; FLASH's
+typed ``load`` is the usual entry point.
 """
 
 from __future__ import annotations
@@ -16,16 +17,18 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from fava_tpu_torch.io import h5lite
-from fava_tpu_torch.utils import NotCallableError, timer
+from fava_tpu_torch.utils import NotCallableError, resolve_device, timer
 from fava_tpu_torch.utils._exceptions import InvalidMeshError
 
 
 class Model:
-    """A directory of simulation output plus registered meshes/analyses."""
+    """A directory of simulation output plus registered meshes/analyses,
+    computing on ``device``."""
 
     _meshes: Dict[str, Any] = {}
 
-    def __init__(self, directory: str | Path, name: Optional[str] = None):
+    def __init__(self, directory: str | Path, name: Optional[str] = None, device="cuda"):
+        self.device = resolve_device(device)
         self.directory = Path(directory)
         self.name = name
 
@@ -83,6 +86,28 @@ class Model:
         if mesh_cls is None:
             raise InvalidMeshError(name)
         return mesh_cls
+
+    def _load_mesh(self, filename: str | Path, fields: Optional[List[str]] = None) -> None:
+        """Sniff the file with every registered mesh class and load it."""
+        filename = str(filename)
+        for mesh_cls in self._meshes.values():
+            if mesh_cls.is_this_your_mesh(filename):
+                self.mesh = None  # the old mesh's device fields go before the new ones come
+                self.mesh = mesh_cls(filename, device=self.device)
+                self.mesh.load()
+                if fields:
+                    self.mesh.load_data(names=fields)
+                return
+        raise InvalidMeshError(filename)
+
+    def load(self, filenumber: int = 0) -> None:
+        """Load the ``filenumber``-th file of the sorted directory listing
+        with the mesh class that recognises it."""
+        if len(self.files) <= filenumber:
+            raise IndexError(
+                f"Filenumber {filenumber} is out of bounds for filelist of length {len(self.files)}"
+            )
+        self._load_mesh(self.files[filenumber])
 
     # ------------------------------------------------------------------
     # Analysis registry

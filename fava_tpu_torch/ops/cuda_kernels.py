@@ -30,6 +30,8 @@ wrapper                           replaces (fava_tpu/ops/, fava_tpu/experiments/
 ``_zy_rfft_dense``                the same, shapes off the FFT kernel's route
 ================================  ==============================================
 
+The shell binnings take 1 to WALK_MAX_BINS shells: past SHELL_MAX_BINS
+their kernels run the wide path of the walk (``shell_bins.cuh``).
 ``shell_bin_values_folded_rows`` is an alias of
 ``shell_bin_values_folded`` (K4's kernel serves both Pallas kernels); it
 counts as K4. Every wrapper takes the plain PyTorch version of its function (the
@@ -294,18 +296,24 @@ def _z_weights(nzr: int, full_nz: int, device) -> torch.Tensor:
     return torch.where(self_conj, 1.0, 2.0).to(accum_dtype())
 
 
+def _shell_index(k2: torch.Tensor, nbins: int) -> torch.Tensor:
+    """The shell of each integer |k|^2 (int64), as the kernels classify
+    it: floor(|k| + 0.5), ``nbins`` for a cell beyond the last shell (|k| >
+    nbins - 0.5). Up to SHELL_MAX_BINS shells |k| is taken in float32
+    (fava_tpu's kernels' formula; k^2 is an exact integer there), beyond in
+    float64: the exact shell of the integer k^2 (the wide walk)."""
+    k = torch.sqrt(k2.to(torch.float32 if nbins <= SHELL_MAX_BINS else torch.float64))
+    shell = torch.floor(k + 0.5).to(torch.int64)
+    return torch.where(k <= nbins - 0.5, torch.clamp(shell, max=nbins - 1), nbins)
+
+
 def _folded_shells(fshape, nbins: int, full_ny: int, device) -> torch.Tensor:
-    """Shell index of every folded cell; ``nbins`` marks dropped cells.
-    |k| is taken in float32 as the kernel does (k^2 is an exact integer
-    there)."""
+    """Shell index of every folded cell; ``nbins`` marks dropped cells."""
     nxh, rows, nzr = fshape
     i = torch.arange(nxh, device=device)[:, None, None]
     j = torch.arange(rows, device=device)[None, :, None]
     z = torch.arange(nzr, device=device)[None, None, :]
-    k = torch.sqrt((i * i + j * j + z * z).to(torch.float32))
-    shell = torch.floor(k + 0.5).to(torch.int64)
-    valid = (k <= nbins - 0.5) & (j <= full_ny // 2)
-    return torch.where(valid, torch.clamp(shell, max=nbins - 1), nbins)
+    return torch.where(j <= full_ny // 2, _shell_index(i * i + j * j + z * z, nbins), nbins)
 
 
 def _shell_sums(total, longi, shell, wz, nbins) -> torch.Tensor:
@@ -334,8 +342,8 @@ def _shell_bin_folded(name: str, vols, nbins: int, full_ny: int, full_nz: int) -
     if _device_kind(name, *vols) == "cpu":
         return _shell_bin_folded_plain(total, longi, nbins, full_ny, full_nz)
     _check_cuda(name, *vols)
-    _check_bins(name, nbins)
     nxh, rows, nzr = total.shape
+    _check_bins(name, nbins, (nxh - 1) ** 2 + (full_ny // 2) ** 2)
     out = torch.zeros((len(vols), nbins), dtype=torch.float64, device=total.device)
     _launch(
         name, total.device, _build.library().fava_shell_bin_values_folded,
@@ -349,36 +357,48 @@ def _shell_bin_folded(name: str, vols, nbins: int, full_ny: int, full_nz: int) -
 
 # ---------------------------------------------------------------------------
 # The launch of the shell-binning walk (csrc/shell_bins.cuh): B6/B10, K4,
-# B11a and B9. A block has as many warps (up to BIN_MAX_WARPS) as shared
-# memory holds f64 histograms for, a warp a walk; the grid is one wave.
+# B11a and B9. Up to SHELL_MAX_BINS shells (the narrow walk) a block has as
+# many warps (up to BIN_MAX_WARPS) as shared memory holds f64 histograms
+# for; beyond (the wide walk, up to WALK_MAX_BINS) BIN_MAX_WARPS warps add
+# their runs to the output with global atomics. A warp a walk; the grid is
+# one wave.
 
 BIN_MAX_WARPS = 8  # kBinMaxWarps
-SHELL_MAX_BINS = 4095  # kMaxBins: (nbins + 1)^2 <= 2^24, so every binned |k|^2 is exact in f32
+SHELL_MAX_BINS = 4095  # kMaxBins: the narrow walk; (nbins + 1)^2 <= 2^24, binned |k|^2 exact in f32
+WALK_MAX_BINS = 46000  # kMaxWideBins: every k^2 the wide walk steps to stays below 2^31
+WALK_MAX_K2 = 2**31 - 1  # the largest kx^2 + ky^2 of a walk's row (int32)
 
 
-def _check_bins(name: str, nbins: int) -> None:
-    """The shell-binning kernels take 1 .. SHELL_MAX_BINS shells."""
-    if not 1 <= int(nbins) <= SHELL_MAX_BINS:
-        raise ValueError(f"{name}: the CUDA kernel bins 1 to SHELL_MAX_BINS = {SHELL_MAX_BINS} "
-                         f"shells, got {nbins}")
+def _check_bins(name: str, nbins: int, row_k2: int = 0) -> None:
+    """The shell-binning kernels take 1 .. WALK_MAX_BINS shells, on rows
+    whose kx^2 + ky^2 (at most ``row_k2``) fits int32: |k|^2 is an int32
+    on the card (extents up to 2 x 32767 on two axes)."""
+    if not 1 <= int(nbins) <= WALK_MAX_BINS or int(row_k2) > WALK_MAX_K2:
+        raise ValueError(f"{name}: the CUDA walk bins 1 to WALK_MAX_BINS = {WALK_MAX_BINS} "
+                         f"shells on rows of kx^2 + ky^2 <= {WALK_MAX_K2}, got {nbins} shells "
+                         f"and rows up to {row_k2}")
 
 
 def walk_smem_bytes(warps: int, channels: int, nbins: int) -> int:
     """Dynamic shared bytes of a walk block (walk_smem_bytes in
-    csrc/shell_bins.cuh): each warp's histogram of ``channels`` f64
-    channels, then the nbins + 2 int class thresholds."""
-    return warps * channels * nbins * 8 + (nbins + 2) * 4
+    csrc/shell_bins.cuh): in the narrow walk each warp's histogram of
+    ``channels`` f64 channels, then the nbins + 2 int class thresholds."""
+    hist = 0 if nbins > SHELL_MAX_BINS else warps * channels * nbins * 8
+    return hist + (nbins + 2) * 4
 
 
 def bin_block_warps(channels: int, nbins: int, smem_optin: int) -> int:
     """Warps of a walk block (walk_block_warps): as many as BIN_MAX_WARPS
-    whose histograms fit ``smem_optin`` shared bytes; 0 when not even one
-    does or nbins lies outside 1 .. SHELL_MAX_BINS."""
-    if not 1 <= nbins <= SHELL_MAX_BINS:
+    whose histograms fit ``smem_optin`` shared bytes, BIN_MAX_WARPS in the
+    wide walk (nbins > SHELL_MAX_BINS); 0 when not even one fits or nbins
+    lies outside 1 .. WALK_MAX_BINS."""
+    if not 1 <= nbins <= WALK_MAX_BINS:
         return 0
     fixed = walk_smem_bytes(0, channels, nbins)
     if smem_optin <= fixed:
         return 0
+    if nbins > SHELL_MAX_BINS:
+        return BIN_MAX_WARPS
     return min(BIN_MAX_WARPS, (smem_optin - fixed) // (8 * channels * nbins))
 
 
@@ -451,14 +471,14 @@ def _folded_counts(
     of x planes at a time (at 1280^3 the table has 263 M cells: seconds
     on the host, milliseconds on the card). Each folded cell stands for
     mx*my original (kx, ky) partners and carries the Hermitian kz weight
-    wz; |k| is taken in float32 from exact integer k^2, and the integer
-    weights sum exactly. Read-only: the cached array is shared by every
-    caller."""
+    wz; each cell's shell is the kernels' (``_shell_index``), and the
+    integer weights sum exactly. Read-only: the cached array is shared by
+    every caller."""
     nxh, _rows, nzr = fshape
     nyh = full_ny // 2 + 1
     dev = torch.device(device)
-    jy = torch.arange(nyh, dtype=torch.float32, device=dev)[:, None]
-    jz = torch.arange(nzr, dtype=torch.float32, device=dev)[None, :]
+    jy = torch.arange(nyh, device=dev)[:, None]
+    jz = torch.arange(nzr, device=dev)[None, :]
     yz2 = jy * jy + jz * jz
     mx = _hermitian_multiplicity(nxh, full_nx, dev)
     wyz = _hermitian_multiplicity(nyh, full_ny, dev)[:, None] * _hermitian_multiplicity(
@@ -467,10 +487,8 @@ def _folded_counts(
     counts = torch.zeros(nbins + 1, dtype=torch.float64, device=dev)
     step = max(1, (1 << 24) // (nyh * nzr))  # x planes per block
     for x0 in range(0, nxh, step):
-        ix = torch.arange(x0, min(nxh, x0 + step), dtype=torch.float32, device=dev)
-        k_abs = torch.sqrt(ix[:, None, None] ** 2 + yz2)
-        shell = torch.floor(k_abs + 0.5).to(torch.int64)
-        shell = torch.where(k_abs <= nbins - 0.5, torch.clamp(shell, max=nbins - 1), nbins)
+        ix = torch.arange(x0, min(nxh, x0 + step), device=dev)
+        shell = _shell_index(ix[:, None, None] ** 2 + yz2, nbins)
         w = mx[x0 : x0 + ix.numel(), None, None] * wyz
         counts += torch.bincount(shell.reshape(-1), weights=w.reshape(-1), minlength=nbins + 1)
     out = counts[:nbins].cpu().numpy()
@@ -527,18 +545,16 @@ def shell_bin_sums_rfft_scalar(p, nbins: int, full_nz: int):
 def _unfolded_shells(shape, nbins: int, full_nz: int, device, kx0: int = 0, full_nx=None):
     """(shell index of every cell, nbins where dropped; Hermitian weight
     of every z plane) of an (nx, ny, nzr) half-spectrum, or of a full grid
-    when nzr == full_nz. |k| in float32, as the kernel takes it. Row i
-    is the global row kx0 + i of a volume of x extent ``full_nx`` (nx
-    when None)."""
+    when nzr == full_nz; shells as the kernel takes them (``_shell_index``).
+    Row i is the global row kx0 + i of a volume of x extent ``full_nx``
+    (nx when None)."""
     nx, ny, nzr = shape
     half = nzr != full_nz
     full_nx = nx if full_nx is None else int(full_nx)
     i = _wavenumbers_int(full_nx, device)[kx0 : kx0 + nx, None, None]
     j = _wavenumbers_int(ny, device)[None, :, None]
     z = torch.arange(nzr, device=device) if half else _wavenumbers_int(nzr, device)
-    k = torch.sqrt((i * i + j * j + z[None, None, :] ** 2).to(torch.float32))
-    shell = torch.floor(k + 0.5).to(torch.int64)
-    shell = torch.where(k <= nbins - 0.5, torch.clamp(shell, max=nbins - 1), nbins)
+    shell = _shell_index(i * i + j * j + z[None, None, :] ** 2, nbins)
     if half:
         wz = _z_weights(nzr, full_nz, device)
     else:
@@ -584,7 +600,7 @@ def shell_bin_sums_unfolded(total, longi: Optional[torch.Tensor], nbins: int, fu
     if _device_kind(name, *vols) == "cpu":
         return _shell_bin_unfolded_plain(total, longi, int(nbins), int(full_nz))
     _check_cuda(name, *vols)
-    _check_bins(name, nbins)
+    _check_bins(name, nbins, (nx // 2) ** 2 + (ny // 2) ** 2)
     out = torch.zeros((len(vols), nbins), dtype=torch.float64, device=total.device)
     _launch(
         name, total.device, _build.library().fava_shell_bin_sums_unfolded, total.data_ptr(),
@@ -620,7 +636,7 @@ def shell_bin_values_rfft_chunk(total, longi, nbins: int, full_nx: int, full_nz:
         sums2 = _shell_bin_unfolded_plain(total, longi, int(nbins), full_nz, kx0, full_nx)
     else:
         _check_cuda(name, total, longi)
-        _check_bins(name, nbins)
+        _check_bins(name, nbins, (full_nx // 2) ** 2 + (ny // 2) ** 2)
         sums2 = torch.zeros((2, nbins), dtype=torch.float64, device=total.device)
         _launch(
             name, total.device, _build.library().fava_shell_bin_sums_rfft_chunk, total.data_ptr(),
@@ -705,7 +721,7 @@ def shell_bin_sums_folded_onepass(total, longi, nbins: int, full_nx: int, full_n
         out = _onepass_plain(total, longi, nbins, full_nx, full_ny, full_nz)
     else:
         _check_cuda(name, total, longi)
-        _check_bins(name, nbins)
+        _check_bins(name, nbins, (nxh - 1) ** 2 + (full_ny // 2) ** 2)
         out = torch.zeros((3, nbins), dtype=torch.float64, device=total.device)
         _launch(
             name, total.device, _build.library().fava_shell_bin_sums_folded_onepass,
@@ -800,7 +816,7 @@ def shell_bin_powers_fused(re_stack, im_stack, nbins: int, full_nz: int):
         out = _powers_fused_plain(re_stack, im_stack, nbins, full_nz)
     else:
         interleaved = _stack_layout(name, re_stack, im_stack)
-        _check_bins(name, nbins)
+        _check_bins(name, nbins, (nx // 2) ** 2 + (ny // 2) ** 2)
         out = torch.zeros((3, nbins), dtype=torch.float64, device=re_stack.device)
         _launch(
             name, re_stack.device, _build.library().fava_shell_bin_powers_fused,

@@ -77,8 +77,8 @@ WALK_VARIANTS = {
     "without the binning": [(WALK, "          if (g < m) bin_group<CV, kCounts>(a[g], p0 + 4 * g, w, bw, z_nyq, rw.mxy, thr, hist, r);\n",
                              "          if (g < m) r.acc[0] += (double)(a[g][0].x + a[g][0].w + a[g][CV - 1].x);\n")],
     "without the span-end scan": [(WALK, "      add_span_ends<CO>(r, hist, nbins, lane);\n",
-                                   "      if (r.cur < nbins) add_plain<CO>(hist, r.cur, r.acc);\n")],
-    "without the run adds": [(WALK, "      add_plain<C>(hist, cur, acc);\n", "")],
+                                   "      if (r.cur < nbins) hist.add(r.cur, r.acc);\n")],
+    "without the run adds": [(WALK, "      hist.add(cur, acc);\n", "")],
     "without run ends": [(WALK, "    if (k2 >= next) {\n", "    if (false) {\n")],
     "without loads": [(WALK, "? __ldg(reinterpret_cast<const float4*>(w.row[c] - w.head + q))",
                        "? make_float4(1.f, 1.f, 1.f, 1.f)")],
@@ -113,7 +113,7 @@ FUSED_VARIANTS = {
                             "sp[p].im[1][k] + sp[p].re[2][k] + sp[p].im[2][k]);\n")],
     "without the binning": [(FUSED, "  r.add(v, wz, thr, hist);\n", "  r.acc[1] += v[1];\n  r.acc[2] += v[2];\n")],
     "without the span-end scan": [(FUSED, "      fava::add_span_ends<3>(r, hist, nbins, lane);\n",
-                                   "      if (r.cur < nbins) fava::add_plain<3>(hist, r.cur, r.acc);\n")],
+                                   "      if (r.cur < nbins) hist.add(r.cur, r.acc);\n")],
     "without the global flush": WALK_VARIANTS["without the global flush"],
     "smem attribute at the card's maximum": WALK_VARIANTS["smem attribute at the card's maximum"],
 }

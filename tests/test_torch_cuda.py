@@ -884,7 +884,11 @@ def test_powers_walk_matches_plain(cuda_device, shape, nbins, layout):
 
 @pytest.mark.cuda
 def test_walk_wrappers_refuse_nbins_beyond_the_kernels(cuda_device):
-    nb = ck.SHELL_MAX_BINS + 1
+    """Past WALK_MAX_BINS shells the wrappers raise; at the last narrow
+    nbins, the first wide one and WALK_MAX_BINS the occupancy query finds
+    room for a block (the wide walk's BIN_MAX_WARPS warps beside its
+    thresholds)."""
+    nb = ck.WALK_MAX_BINS + 1
     fold = torch.zeros((5, 8, 5), device=cuda_device)
     spec = torch.view_as_real(torch.zeros((3, 8, 8, 5), dtype=torch.complex64, device=cuda_device))
     vol = torch.zeros((7, 6, 4), device=cuda_device)
@@ -892,10 +896,75 @@ def test_walk_wrappers_refuse_nbins_beyond_the_kernels(cuda_device):
                 lambda: ck.shell_bin_sums_folded_onepass(fold, fold, nb, 8, 8, 8),
                 lambda: ck.shell_bin_powers_fused(spec[..., 0], spec[..., 1], nb, 8),
                 lambda: ck.shell_bin_sums_unfolded(vol, vol, nb, 6)):
-        with pytest.raises(ValueError, match="SHELL_MAX_BINS"):
+        with pytest.raises(ValueError, match="WALK_MAX_BINS"):
             run()
     for kind, args, channels in (("fava_shell_bin_folded_blocks_per_sm", (2, 1), 3),
                                  ("fava_shell_bin_powers_fused_blocks_per_sm", (1,), 3),
                                  ("fava_shell_bin_unfolded_blocks_per_sm", (2,), 2)):
-        launch = ck.walk_launch(kind, args, channels, 10**6, ck.SHELL_MAX_BINS, cuda_device)
-        assert launch["warps"] >= 1 and launch["blocks_per_sm"] >= 1
+        for nbins in (ck.SHELL_MAX_BINS, ck.SHELL_MAX_BINS + 1, ck.WALK_MAX_BINS):
+            launch = ck.walk_launch(kind, args, channels, 10**6, nbins, cuda_device)
+            assert launch["warps"] >= 1 and launch["blocks_per_sm"] >= 1
+            if nbins > ck.SHELL_MAX_BINS:
+                assert launch["warps"] == ck.BIN_MAX_WARPS and launch["smem"] == (nbins + 2) * 4
+
+
+# The wide walk (past SHELL_MAX_BINS shells) on elongated volumes, beside
+# the last narrow nbins: every wrapper of the walk, held to its f64 twin.
+WIDE_SHAPES = [(16384, 4, 4), (8194, 6, 5)]
+WIDE_BINS = [ck.SHELL_MAX_BINS, ck.SHELL_MAX_BINS + 1, 8191]
+WIDE_KERNELS = ["K4", "B4", "B6", "B10", "B9", "B11a"]
+
+
+def _wide_case(kernel, shape, nbins, device):
+    """(launched kernel, got, ref): got [counts (B9, B11a)], sums from the
+    kernel; ref the same from the plain twin on the same float32 values
+    in float64."""
+    nx, ny, nz = shape
+    nzr = nz // 2 + 1
+    t, lo = (a.abs() for a in _fields(device, shape=(nx, ny, nzr), seed=nx + nz)[:2])
+    if kernel in ("K4", "B4", "B11a"):
+        ft, fl = ck._fold_plain(t).contiguous(), ck._fold_plain(lo).contiguous()
+        if kernel == "K4":
+            return ("shell_bin_values_folded", ck.shell_bin_values_folded(ft, fl, nbins, ny, nz),
+                    ck._shell_bin_folded_plain(ft.double(), fl.double(), nbins, ny, nz))
+        if kernel == "B4":
+            return ("shell_bin_values_folded_1ch", ck.shell_bin_values_folded_1ch(fl, nbins, ny, nz)[None],
+                    ck._shell_bin_folded_plain(fl.double(), None, nbins, ny, nz))
+        counts, sums = ck.shell_bin_sums_folded_onepass(ft, fl, nbins, nx, ny, nz)
+        return ("shell_bin_sums_folded_onepass", torch.cat([counts[None], sums[:2]]),
+                ck._onepass_plain(ft.double(), fl.double(), nbins, nx, ny, nz))
+    if kernel == "B10":
+        return ("shell_bin_sums_unfolded", ck.shell_bin_sums_unfolded(t, lo, nbins, nz),
+                ck._shell_bin_unfolded_plain(t.double(), lo.double(), nbins, nz))
+    if kernel == "B6":
+        kx0, rows = nx // 8, nx // 4  # |kx| from nx/8 up: shells on both sides of 4095
+        ct, cl = t[kx0 : kx0 + rows].contiguous(), lo[kx0 : kx0 + rows].contiguous()
+        return ("shell_bin_values_rfft_chunk",
+                ck.shell_bin_values_rfft_chunk(ct, cl, nbins, nx, nz, kx0)[:2],
+                ck._shell_bin_unfolded_plain(ct.double(), cl.double(), nbins, nz, kx0, nx))
+    spec = torch.fft.rfftn(torch.stack(_fields(device, shape=shape, seed=sum(shape))[1:]),
+                           dim=(1, 2, 3), norm="forward")
+    r = torch.view_as_real(spec)
+    counts, sums = ck.shell_bin_powers_fused(r[..., 0], r[..., 1], nbins, nz)
+    return ("shell_bin_powers_fused", torch.cat([counts[None], sums[:2]]),
+            ck._powers_fused_plain(r[..., 0].double(), r[..., 1].double(), nbins, nz))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+@pytest.mark.parametrize("nbins", WIDE_BINS)
+@pytest.mark.parametrize("kernel", WIDE_KERNELS)
+def test_wide_walk_matches_plain(cuda_device, kernel, shape, nbins):
+    """K4 (2 channels), B4 (1), B6 (an x-chunk at kx0 > 0), B10, B9 and
+    B11a at 4095 (narrow), 4096 and 8191 shells (wide): counts exact, sums
+    within 1e-12 relative per shell (f64 sums in another order)."""
+    ck.reset_launch_counts()
+    name, got, ref = _wide_case(kernel, shape, nbins, cuda_device)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {name: 1}
+    ref = ref.to(got.device)
+    if kernel in ("B9", "B11a"):
+        assert torch.equal(got[0], ref[0])
+        got, ref = got[1:], ref[1:]
+    assert (ref[0] != 0).sum() > 0.2 * min(nbins, max(shape) // 2)  # many shells, not a few
+    torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-300)

@@ -1,0 +1,116 @@
+"""fava_tpu_torch's package and model surface held to fava_tpu's, on the CPU.
+
+Mirrors tests/test_model.py (the generic sniffing ``Model.load`` and its
+InvalidMeshError), tests/test_from_arrays.py (``InMemoryModel.load``
+raises NotImplementedError) and tests/test_misc.py (the version); both
+packages read the same synthetic files, so the loaded meshes and their
+fields must agree exactly (values are read, not computed). Also: the
+kernel headers ship with the package (every ``#include "..."`` of
+``csrc/`` matches a package-data glob of pyproject.toml).
+"""
+
+import fnmatch
+import re
+import tomllib
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import fava_tpu
+import fava_tpu_torch
+from fava_tpu.io import synthetic
+from fava_tpu_torch.utils import InvalidMeshError
+
+ROOT = Path(__file__).resolve().parent.parent
+CSRC = ROOT / "fava_tpu_torch" / "csrc"
+
+
+@pytest.fixture()
+def model_dir(tmp_path):
+    synthetic.make_amr_file(tmp_path / "rt_hdf5_plt_cnt_0001", ncells=(4, 4, 4), nblks=(1, 1, 1))
+    synthetic.make_amr_file(tmp_path / "rt_hdf5_plt_cnt_0003", ncells=(4, 4, 4), nblks=(1, 1, 1))
+    synthetic.make_amr_file(tmp_path / "rt_hdf5_chk_0002", ncells=(4, 4, 4), nblks=(1, 1, 1))
+    synthetic.make_uniform_file(tmp_path / "rt_hdf5_uniform_0001", ncells=(8, 8, 8))
+    return tmp_path
+
+
+def test_version():
+    assert fava_tpu_torch.__version__ == fava_tpu.__version__
+    assert isinstance(fava_tpu_torch.__version_tuple__, tuple)
+    assert fava_tpu_torch.__version_tuple__ == fava_tpu.__version_tuple__
+
+
+def test_package_exports_the_reference_names():
+    from fava_tpu_torch.mesh import FLASH as AMR
+    from fava_tpu_torch.models.flash import FileSubStem
+
+    assert fava_tpu_torch.FlashAMR is AMR
+    assert fava_tpu_torch.FileSubStem is FileSubStem
+    assert {m.name: m.value for m in fava_tpu_torch.FileSubStem} == {
+        m.name: m.value for m in fava_tpu.FileSubStem}
+    for name in ("FileSubStem", "FlashAMR", "__version__", "__version_tuple__"):
+        assert name in fava_tpu_torch.__all__
+
+
+@pytest.mark.parametrize("index", [0, 1, 3])
+def test_generic_model_load_sniffing(model_dir, index):
+    """The index-th file of the sorted listing (chk first, then the plt
+    files, the uniform file last) loads with the mesh that sniffs it, on
+    the model's device, as fava_tpu loads it."""
+    m = fava_tpu_torch.Model(model_dir, device="cpu")
+    ref = fava_tpu.Model(model_dir)
+    m.load(index)
+    ref.load(index)
+    assert m.mesh.mesh_type == ref.mesh.mesh_type
+    assert m.mesh.filename == ref.mesh.filename
+    assert m.mesh.device.type == "cpu"
+    m.mesh.load_data(names=["dens"])
+    ref.mesh.load_data(names=["dens"])
+    np.testing.assert_array_equal(m.mesh.data("dens").numpy(), np.asarray(ref.mesh.data("dens")))
+
+
+def test_generic_model_load_past_the_listing_raises(model_dir):
+    m = fava_tpu_torch.Model(model_dir, device="cpu")
+    with pytest.raises(IndexError, match="out of bounds"):
+        m.load(len(m.files))
+
+
+def test_load_unknown_file_raises(tmp_path):
+    (tmp_path / "random.txt").write_text("not flash data")
+    m = fava_tpu_torch.Model(tmp_path, device="cpu")
+    with pytest.raises(InvalidMeshError):
+        m.load(0)
+
+
+def test_in_memory_model_has_no_load():
+    m = fava_tpu_torch.from_arrays({"dens": np.ones((4, 4, 4))}, device="cpu")
+    with pytest.raises(NotImplementedError, match="from_arrays"):
+        m.load()
+
+
+def test_model_asks_for_cuda_by_default(model_dir):
+    import torch
+
+    if torch.cuda.is_available():
+        assert fava_tpu_torch.Model(model_dir).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            fava_tpu_torch.Model(model_dir)
+
+
+def test_kernel_sources_and_headers_ship_with_the_package():
+    """An installed package builds its kernels only if every source and
+    every header it includes is package data (the build hashes csrc/*.cu
+    and csrc/*.cuh, ops/_build.py)."""
+    globs = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"][
+        "package-data"]["fava_tpu_torch"]
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    assert any(p.suffix == ".cuh" for p in sources)
+    needed = {f"csrc/{p.name}" for p in sources}
+    for p in sources:
+        for inc in re.findall(r'^\s*#include\s+"([^"]+)"', p.read_text(), flags=re.M):
+            assert (CSRC / inc).is_file(), (p.name, inc)
+            needed.add(f"csrc/{inc}")
+    for rel in sorted(needed):
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), rel

@@ -95,6 +95,24 @@ def test_scalar_spectra_match_fava_tpu(force_interpret, shape):
         _close(got["flam"][key], ref["flam"][key], key)
 
 
+@pytest.mark.parametrize("shape", [(8194, 96, 6), (8195, 96, 5)])
+def test_spectra_past_4095_shells_match_fava_tpu(shape):
+    """4096 shells (the card's wide walk): the port's twins take the exact
+    shell of each integer k^2, as fava_tpu's float64 binning does. These
+    volumes hold cells at k^2 = s^2 + s, s >= 2048, which float32's
+    sqrt puts one shell too far (1e-3 of scale off)."""
+    i = np.arange(shape[0] // 2 + 1)[:, None, None]
+    j = np.arange(shape[1] // 2 + 1)[None, :, None]
+    z = np.arange(shape[2] // 2 + 1)[None, None, :]
+    k2 = i * i + j * j + z * z
+    s = np.floor(np.sqrt(k2)).astype(np.int64)
+    assert ((k2 == s * s + s) & (s >= 2048) & (s < max(shape) // 2 - 1)).any()
+    jm, tm = _models(shape, seed=5)
+    ref, got = jm.kinetic_energy_spectra(), tm.kinetic_energy_spectra()
+    for key in ref:
+        _close(got[key], ref[key], key)
+
+
 def test_spectra_of_a_uniform_file_match_fava_tpu(uniform_file):
     jm = fava_tpu.FLASH(uniform_file.parent)
     jm.load(file_type="uni")

@@ -9,8 +9,10 @@ Here that decomposition is mirrored in numpy and held to the plain twins
 to rtol 1e-10 in float64 (the same sums in another order), the counts
 exactly; the thresholds to the float32 formula bit for bit; the heads'
 alignment claims on every row; the launch helpers to what the kernels
-assume; and the constants to the sources. The kernels themselves run in
-tests/test_torch_cuda.py.
+assume; and the constants to the sources. Past SHELL_MAX_BINS shells (the
+wide walk) the thresholds are the exact shells of the integer k^2, held
+to the integer rule exactly, and the walk to the twins as above. The
+kernels themselves run in tests/test_torch_cuda.py.
 """
 
 import re
@@ -31,11 +33,13 @@ INT_MAX = 2**31 - 1
 
 
 def _cell_class(k2, nbins):
-    """The kernels' f32 formula: floor(sqrtf(k2) + 0.5), nbins beyond the
-    last shell (k > nbins - 0.5)."""
-    k = np.sqrt(np.asarray(k2, dtype=np.float32))
-    cls = np.minimum(np.floor(k + np.float32(0.5)).astype(np.int64), nbins - 1)
-    return np.where(k <= np.float32(nbins) - np.float32(0.5), cls, nbins)
+    """The kernels' formula: floor(sqrtf(k2) + 0.5), nbins beyond the
+    last shell (k > nbins - 0.5), in f32 up to SHELL_MAX_BINS shells and
+    in f64 past them (the wide walk)."""
+    dt = np.float32 if nbins <= ck.SHELL_MAX_BINS else np.float64
+    k = np.sqrt(np.asarray(k2, dtype=dt))
+    cls = np.minimum(np.floor(k + dt(0.5)).astype(np.int64), nbins - 1)
+    return np.where(k <= dt(nbins) - dt(0.5), cls, nbins)
 
 
 def _thresholds(nbins):
@@ -188,13 +192,35 @@ def test_class_thresholds_equal_the_float32_formula(nbins):
     assert thr[0] == 0 and (np.diff(thr) > 0).all()
 
 
-@pytest.mark.parametrize("nbins", [1, 2, 30, 255])
+@pytest.mark.parametrize("nbins", [4096, 8191, 26753, ck.WALK_MAX_BINS])
+def test_wide_class_thresholds_are_the_exact_shells(nbins):
+    """The wide walk's thresholds: thr[s] = s^2 - s + 1, the least integer
+    k^2 above (s - 1/2)^2, found by the f64 formula from the same guess;
+    s^2 + s (1/(8s) below the next half-integer) stays in shell s, where
+    f32 already moves it to s + 1. Every k^2 a walk steps to (the last
+    shell plus a lane span's overrun of 8 positions) fits int32."""
+    thr = _thresholds(nbins)
+    s = np.arange(1, nbins + 1)
+    assert np.array_equal(thr[1 : nbins + 1], s * s - s + 1)
+    assert np.array_equal(_cell_class(s * s + s, nbins), np.minimum(s, nbins))
+    assert np.array_equal(_cell_class(s * s - s, nbins), s - 1)
+    top = nbins * nbins - nbins  # k = nbins - 1/2 - 1/(8 nbins): the last inside
+    assert _cell_class(top, nbins) == nbins - 1 and _cell_class(top + 1, nbins) == nbins
+    big = s[s >= 2048]
+    assert (np.floor(np.sqrt((big * big + big).astype(np.float32)) + np.float32(0.5)) == big + 1).all()
+    out = int(thr[nbins])
+    g = _first_kz_outside(0, out)
+    assert (g + 8) ** 2 + 2 * (g + 8) + 1 < 2**31
+
+
+@pytest.mark.parametrize("nbins", [1, 2, 30, 255, 4096, 8191, ck.WALK_MAX_BINS])
 def test_first_kz_outside_ends_each_walk_at_the_last_shell(nbins):
     out = int(_thresholds(nbins)[nbins])
     for ij2 in list(range(0, 3 * out, max(1, out // 50))) + [out - 1, out, out + 1]:
         g = _first_kz_outside(ij2, out)
         inside = _cell_class(ij2 + np.arange(g + 40) ** 2, nbins) < nbins
         assert inside[:g].all() and not inside[g:].any()
+        assert ij2 >= out or ij2 + (g + 8) ** 2 < 2**31  # a lane's overrun past the walk
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +299,26 @@ def test_folded_walk_equals_the_plain_twin(full, nbins, channels, base):
     torch.testing.assert_close(got, ref, rtol=1e-10, atol=1e-300)
 
 
+WIDE_CASES = [((8194, 4, 4), 4096), ((16384, 2, 4), 8191), ((8194, 2, 2), 8191)]
+
+
+@pytest.mark.parametrize("full,nbins", WIDE_CASES)
+def test_wide_walk_equals_the_plain_twin(full, nbins):
+    """The wide walk (past SHELL_MAX_BINS shells) over folds of elongated
+    volumes: B11a's counts equal the static counts exactly, K4's and B4's
+    sums the twins' (the exact shells of the integer k^2 on both sides)."""
+    nx, ny, nz = full
+    fshape = (nx // 2 + 1, ny // 2 + 1, nz // 2 + 1)
+    vols = [_rand(fshape, 3 + s) for s in range(2)]
+    got = _mirror_folded(vols, nbins, nx, ny, nz, counts=True, base=2)
+    ref = ck._onepass_plain(*(v.double() for v in vols), nbins, nx, ny, nz)
+    assert torch.equal(got[0], ref[0])
+    assert torch.equal(got[0], ck._static_counts((nx, ny, nz // 2 + 1), nbins, nz, "cpu"))
+    torch.testing.assert_close(got[1:], ref[1:], rtol=1e-10, atol=1e-300)
+    one = _mirror_folded(vols[1:], nbins, nx, ny, nz, counts=False)
+    torch.testing.assert_close(one, ref[2:], rtol=1e-10, atol=1e-300)
+
+
 @pytest.mark.parametrize("full,nbins", FOLDED_CASES)
 def test_onepass_walk_counts_exactly(full, nbins):
     """B11a: the count channel mx my wz summed a run at a time equals the
@@ -312,6 +358,13 @@ def test_powers_walk_equals_the_plain_twin(full, nbins, layout, base):
     torch.testing.assert_close(got[1:], ref[1:], rtol=1e-10, atol=1e-300)
 
 
+@pytest.mark.parametrize("layout,base", [("interleaved", 1), ("planar", 3)])
+def test_wide_powers_walk_equals_the_plain_twin(layout, base):
+    """B9 on the wide walk (4096 shells of an (8194, 2, 3) volume): counts
+    exact, sums equal to _powers_fused_plain."""
+    test_powers_walk_equals_the_plain_twin((8194, 2, 3), 4096, layout, base)
+
+
 # ---------------------------------------------------------------------------
 # The launch: one wave, histograms that fit, every caller on it
 
@@ -331,16 +384,33 @@ def test_block_warps_fit_the_histograms(channels):
     assert ck.bin_block_warps(3, ck.SHELL_MAX_BINS, H100_SMEM_OPTIN) == 2
 
 
-@pytest.mark.parametrize("nbins", [0, -1, ck.SHELL_MAX_BINS + 1, 10**6])
+@pytest.mark.parametrize("channels", [1, 2, 3])
+def test_wide_walk_blocks_hold_the_thresholds_alone(channels):
+    """Past SHELL_MAX_BINS shells a block of BIN_MAX_WARPS warps keeps
+    only the nbins + 2 int thresholds in shared memory, which fit up to
+    WALK_MAX_BINS."""
+    for nb in list(range(ck.SHELL_MAX_BINS + 1, ck.WALK_MAX_BINS + 1, 997)) + [ck.WALK_MAX_BINS]:
+        assert ck.bin_block_warps(channels, nb, H100_SMEM_OPTIN) == ck.BIN_MAX_WARPS
+        assert ck.walk_smem_bytes(ck.BIN_MAX_WARPS, channels, nb) == (nb + 2) * 4 <= H100_SMEM_OPTIN
+
+
+@pytest.mark.parametrize("nbins", [0, -1, ck.WALK_MAX_BINS + 1, 10**6])
 def test_nbins_beyond_the_kernels_raise_a_named_error(nbins):
     assert ck.bin_block_warps(2, nbins, H100_SMEM_OPTIN) == 0
-    with pytest.raises(ValueError, match="SHELL_MAX_BINS"):
+    with pytest.raises(ValueError, match="WALK_MAX_BINS"):
         ck._check_bins("k", nbins)
 
 
-@pytest.mark.parametrize("nbins", [1, 255, ck.SHELL_MAX_BINS])
+@pytest.mark.parametrize("row_k2", [ck.WALK_MAX_K2 + 1, 2 * 32768**2, 10**12])
+def test_rows_beyond_int32_raise_a_named_error(row_k2):
+    with pytest.raises(ValueError, match="WALK_MAX_BINS"):
+        ck._check_bins("k", 255, row_k2)
+
+
+@pytest.mark.parametrize("nbins", [1, 255, ck.SHELL_MAX_BINS, ck.SHELL_MAX_BINS + 1, 8191,
+                                   ck.WALK_MAX_BINS])
 def test_nbins_within_the_kernels_pass(nbins):
-    ck._check_bins("k", nbins)
+    ck._check_bins("k", nbins, ck.WALK_MAX_K2)
 
 
 @pytest.mark.parametrize("nwalks,warps,bps,sms,expect", [
@@ -408,19 +478,44 @@ def test_every_shell_binning_launches_one_wave_of_the_walk(launches):
     ]
 
 
+def _wrapper_calls(nb, fold, vol, spec, full_nx=9):
+    return {"folded": lambda: ck.shell_bin_values_folded(fold, fold, nb, 8, 8),
+            "onepass": lambda: ck.shell_bin_sums_folded_onepass(fold, fold, nb, 2 * fold.shape[0] - 2,
+                                                                8, 8),
+            "powers": lambda: ck.shell_bin_powers_fused(spec[..., 0], spec[..., 1], nb, 8),
+            "unfolded": lambda: ck.shell_bin_sums_unfolded(vol, vol, nb, 6),
+            "chunk": lambda: ck.shell_bin_values_rfft_chunk(vol, vol, nb, full_nx, 6, 2)}
+
+
 @pytest.mark.parametrize("call", ["folded", "onepass", "powers", "unfolded", "chunk"])
-def test_wrappers_refuse_nbins_beyond_the_kernels(launches, call):
-    nb = ck.SHELL_MAX_BINS + 1
+def test_wrappers_refuse_nbins_beyond_the_kernels(launches, monkeypatch, call):
+    """nbins past WALK_MAX_BINS, and rows whose kx^2 + ky^2 leaves int32
+    (zero-stride volumes: nothing is allocated; B9's layout check is
+    skipped for them), raise before a launch."""
     fold, vol = torch.zeros((5, 8, 5)), torch.zeros((7, 6, 4))
     spec = torch.view_as_real(torch.zeros((3, 8, 8, 5), dtype=torch.complex64))
-    run = {"folded": lambda: ck.shell_bin_values_folded(fold, fold, nb, 8, 8),
-           "onepass": lambda: ck.shell_bin_sums_folded_onepass(fold, fold, nb, 8, 8, 8),
-           "powers": lambda: ck.shell_bin_powers_fused(spec[..., 0], spec[..., 1], nb, 8),
-           "unfolded": lambda: ck.shell_bin_sums_unfolded(vol, vol, nb, 6),
-           "chunk": lambda: ck.shell_bin_values_rfft_chunk(vol, vol, nb, 9, 6, 2)}[call]
-    with pytest.raises(ValueError, match="SHELL_MAX_BINS"):
-        run()
+    with pytest.raises(ValueError, match="WALK_MAX_BINS"):
+        _wrapper_calls(ck.WALK_MAX_BINS + 1, fold, vol, spec)[call]()
+    monkeypatch.setattr(ck, "_stack_layout", lambda name, re, im: 0)
+    n = 100000  # kx^2 up to 50000^2 > 2^31
+    fold = torch.zeros(1).expand(n // 2 + 1, 8, 5)
+    vol = torch.zeros(1).expand(n, n, 4)
+    spec = torch.view_as_real(torch.zeros(1, dtype=torch.complex64).expand(3, n, n, 5))
+    with pytest.raises(ValueError, match="WALK_MAX_BINS"):
+        _wrapper_calls(255, fold, vol, spec, full_nx=n + 7)[call]()
     assert not launches["launch"]
+
+
+@pytest.mark.parametrize("call", ["folded", "onepass", "powers", "unfolded", "chunk"])
+@pytest.mark.parametrize("nbins", [ck.SHELL_MAX_BINS + 1, 8191])
+def test_wrappers_launch_the_wide_walk_past_4095_shells(launches, call, nbins):
+    """Past SHELL_MAX_BINS shells every walk wrapper launches its kernel
+    (the C entry takes the wide walk for that nbins), as below them."""
+    fold, vol = torch.zeros((5, 8, 5)), torch.zeros((7, 6, 4))
+    spec = torch.view_as_real(torch.zeros((3, 8, 8, 5), dtype=torch.complex64))
+    _wrapper_calls(nbins, fold, vol, spec)[call]()
+    assert [w[-1] for w in launches["walk"]] == [nbins]
+    assert len(launches["launch"]) == 1 and launches["launch"][0][2] == 77
 
 
 # ---------------------------------------------------------------------------
@@ -439,13 +534,17 @@ def test_constants_match_the_sources():
     assert _constant(walk, "kMaxBins") == ck.SHELL_MAX_BINS
     assert (ck.SHELL_MAX_BINS + 1) ** 2 <= 2**24 < (ck.SHELL_MAX_BINS + 2) ** 2
     assert _constant(walk, "kMaxGroups") == MAX_GROUPS
-    assert "warps * channels * (size_t)nbins * sizeof(double) + (nbins + 2) * sizeof(int)" in walk
+    assert _constant(walk, "kMaxWideBins") == ck.WALK_MAX_BINS
+    assert "nbins > kMaxBins ? 0 : warps * channels * (size_t)nbins * sizeof(double)" in walk
+    assert "return hist + (nbins + 2) * sizeof(int);" in walk
     assert ck.walk_smem_bytes(8, 2, 255) == 8 * 2 * 255 * 8 + 257 * 4
+    assert ck.walk_smem_bytes(8, 2, 8191) == 8193 * 4
     fused = (CSRC / "fused_spectra_kernels.cu").read_text()
     m = re.search(r"kSpan = kInterleaved \? (\d+) : (\d+);", fused)
     assert m and (int(m.group(1)), int(m.group(2))) == (B9_LAYOUTS["interleaved"][1],
                                                       B9_LAYOUTS["planar"][1])
     assert all(span % unit == 0 for unit, span in B9_LAYOUTS.values())  # whole float4s a span
-    for old in ("warp_bin_add", "zero_hist", "flush_hist", "kBinThreads"):
+    for old in ("warp_bin_add", "zero_hist", "flush_hist", "kBinThreads", "add_plain",
+                "warp_hists_init", "warp_hists_flush"):
         for src in CSRC.glob("*.cu*"):
             assert old not in src.read_text(), (old, src.name)
