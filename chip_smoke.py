@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the fava_tpu_torch flagship, AMR, stage-4, streaming and
-fused-spectrum paths on one NVIDIA GPU.
+fused-spectrum paths and of its pipeline CLI on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -10,7 +10,8 @@ Phases (each prints its lines; any failure exits non-zero and prints
 no result):
 
 1. device: CUDA present; card name and power limit (nvidia-smi), CUDA,
-   nvcc and triton versions.
+   nvcc, triton and scipy versions (scipy must import: stage 1 fits with
+   it).
 2. build: compile fava_tpu_torch/csrc/*.cu for sm_90a and load it.
 3. kernels: each of the four kernels against its plain PyTorch version
    at the 512^3 shapes of the flagship path (float32 in; the plain
@@ -132,6 +133,28 @@ no result):
    then ``from_arrays(...).kinetic_energy_spectra()`` and
    ``flagship_analysis()`` with counters, held to the float64 CPU path
    (counts exact, spectra within TOL_SPECTRA of scale).
+21. The pipeline on the card. First (after phase 19, on phase 6's files):
+   ``flame_surface`` of the window's flam and the window's projections,
+   and the plt file's AMR ``projection``, against the float64 CPU path
+   (TOL_SURFACE, TOL_PROJECTION). Then, in a directory of its own:
+   a. a two-snapshot plt series with phase 6's tree shape (its refined
+      bands moving with the front, 4 finest blocks between snapshots;
+      scripts/tpu_pipeline_bench.py's fields, computed on the card) and a
+      pipeline_settings.json with the three fixed analyses plus scalar
+      spectra, pdf2d, flame surface and projection; ``pipeline.main``
+      in process with the counters reset around it: rc 0, two analysis
+      files and two 512^3 uniform files, fava_tpu's checkpoint, no fit
+      fallback and each centroid within PIPE_FIT_CELLS finest cells of
+      the front, K3, K4, B4, K5, K6, K7 and B8 launched, and every
+      stage-4 dataset equal (TOL_RERUN) to the analyses run again on the
+      extracted files; the stage walls from the pipeline's prints.
+   b. ``python -m fava_tpu_torch`` again in the same directory: rc 0, no
+      work line but "window exists", the outputs byte-identical.
+   c. a fresh three-snapshot series (PIPELINE_128.json's catalog):
+      ``python -m fava_tpu_torch`` sent SIGINT twice after its first
+      [stage 4] line; the checkpoint has stages 1 and 3 complete and stage
+      4 short of the end; resumed to rc 0, its files hold an uninterrupted
+      run's datasets (TOL_RERUN).
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -139,9 +162,12 @@ The last two lines are one JSON object with a row per kernel, then
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -264,6 +290,54 @@ AMR_BASE_LEVEL = 2
 AMR_WINDOW = ((1.5, 2.5), (0.0, 1.0), (0.0, 1.0))
 AMR_EXPECT = {"blocks": 39076, "leaves": 34192, "window": (512, 512, 512), "full": (2048, 512, 512)}
 
+# Phase 21: the pipeline (python -m fava_tpu_torch) on the card. 21a: two
+# snapshots with phase 6's tree shape, its refined bands moved with a front at
+# x_f(t) = PIPE_XF0 + PIPE_SPEED * t, which moves 4 finest-level blocks (4/32)
+# between them; a 1.0-wide window, 512 cells at dx 1/512.
+PIPE_TIMES = (0.0, 1.0)
+PIPE_XF0, PIPE_SPEED = 1.9375, 0.125
+PIPE_FIELDS = ("flam", "dens", "pres", "temp", "velx", "vely", "velz")
+PIPE_HALF_WIDTH = 0.5
+PIPE_WINDOW = (512, 512, 512)
+PIPE_STRUCTURE = {"num_seps": 100, "num_points": 10000, "sep_bounds": [0.01, 0.45]}
+PIPE_EXTRA = {
+    "scalar spectra": {"skip": False, "settings": {"field": "flam"}},
+    "pdf2d": {"skip": False, "settings": {"field1": "dens", "field2": "flam"}},
+    "flame surface": {"skip": False, "settings": {"field": "flam"}},
+    "projection": {"skip": False, "settings": {"field": "dens", "axis": 0}},
+}
+# Stage-4 keys of the settings and the Model method each runs.
+PIPE_STAGE4 = {"fractal dimension": "fractal_dimension", "structure functions": "structure_functions",
+               "kinetic energy spectra": "kinetic_energy_spectra", "scalar spectra": "scalar_spectra",
+               "pdf2d": "pdf2d", "flame surface": "flame_surface", "projection": "projection"}
+# K3, K4, B4 (stage 4 spectra), K5, K6 (stage 1), K7 (stage 3), B8 (pdf2d).
+PIPE_KERNELS = ("fold_quadrants_pair", "shell_bin_values_folded", "shell_bin_values_folded_1ch",
+                "block_row_moments", "block_centered_row_moments", "regrid_fields", "pdf2d_counts")
+PIPE_WORK_LINES = ("[stage 1] reynolds stress", "[stage 3] extract window", "[stage 3] window exists",
+                   "[stage 4] uniform analyses", "pipeline complete")
+# Stage 1's centroid is the peak of the density-weighted Ryy + Rzz (fava_tpu's
+# fit starts there and, with the sigma guess its XFACT scaling gives on this
+# domain, stays there): by the fields' construction ~0.024 behind x_f, 12.5
+# finest cells at dx 1/512 (a float64 sum over a 128^2 y-z grid).
+PIPE_FIT_CELLS = 16
+# The analysis file's stage-4 datasets against the same analyses run again in
+# process on the extracted file, and 21c's files against an uninterrupted
+# run's (the same float32 values and draws; float64 atomics may add in another
+# order): max |diff| per dataset, of max(its largest |value|, 1).
+TOL_RERUN = 1e-12
+# flame_surface on the card (float32 differences and magnitudes, float64 plane
+# means) against the float64 CPU path on the same values: relative per value,
+# sigma of its largest. Projections sum the same widened values in float64 on
+# both sides: max |diff| of the largest |value|.
+TOL_SURFACE = 1e-6
+TOL_PROJECTION = 1e-12
+# 21c: three snapshots as PIPELINE_128.json's catalog (scripts/tpu_pipeline_bench.py
+# at N = 128: 32^3-cell blocks on 8x2x2 roots, level 2 around the front).
+SMALL_TIMES = (0.0, 0.25, 0.5)
+SMALL_XF0, SMALL_SPEED = 0.9, 0.4
+SMALL_FIELDS = ("flam", "dens", "temp", "velx", "vely", "velz")
+SMALL_NCELLS, SMALL_NBLKS = (32, 32, 32), (8, 2, 2)
+
 
 def amr_refine(bounds, level):
     """Target level of a block by its x extent: the flame band and the
@@ -324,9 +398,14 @@ def phase_device(torch):
         triton_state = f"imports ({triton.__version__})"
     except ImportError:
         triton_state = "does not import"
+    try:
+        import scipy
+    except ImportError:
+        fail("scipy does not import: pipeline stage 1 fits the flame window with scipy")
     say(f"phase 1 device: {torch.cuda.get_device_name(0)}; count {torch.cuda.device_count()}; "
         f"torch {torch.__version__}; torch.version.cuda {torch.version.cuda}; "
-        f"nvcc {nvcc}: {release[0].strip() if release else ver.stdout.strip()}; triton {triton_state}")
+        f"nvcc {nvcc}: {release[0].strip() if release else ver.stdout.strip()}; triton {triton_state}; "
+        f"scipy {scipy.__version__}")
     return card
 
 
@@ -2256,6 +2335,449 @@ def phase_wide_walk(torch, np):
     return rows, {"walls_s": walls, "errors": errors}, totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the pipeline on the card
+
+
+def window_surface_projection(torch, np, workdir: Path, uni, cpu):
+    """Phase 21, on phase 6's files: ``flame_surface`` of the window's flam
+    (phase 19's file) and the window's projections (phase 8's file, on
+    ``uni`` and its CPU copy ``cpu``) on the card against the float64 CPU
+    path; the AMR ``projection`` of the plt file likewise."""
+    import fava_tpu_torch
+
+    ratios, walls = {}, {}
+    flm = fava_tpu_torch.FLASH(workdir / "flam")
+    flm.load(file_type="uni", fields=["flam"])
+    flm_cpu = fava_tpu_torch.FLASH(workdir / "flam", device="cpu")
+    flm_cpu.load(file_type="uni", fields=["flam"])
+    got, ref = flm.flame_surface(field="flam"), flm_cpu.flame_surface(field="flam")
+    if not np.array_equal(got["x"], ref["x"]) or got["sigma"].shape != (N,):
+        fail(f"flame_surface x or sigma shape differs: {got['sigma'].shape}")
+    surf = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in
+            ("area", "wrinkling", "max_gradient", "thickness")}
+    surf["sigma"] = float(np.abs(got["sigma"] - ref["sigma"]).max() / np.abs(ref["sigma"]).max())
+    ratios["flame_surface"] = max(surf.values()) / TOL_SURFACE
+    walls["flame_surface_s"] = wall_per_call(torch, lambda: flm.flame_surface(field="flam"), 3)
+    say(f"phase 21 window flame_surface: area {got['area']!r}, wrinkling {got['wrinkling']!r}, "
+        f"thickness {got['thickness']!r}; vs the float64 CPU path {surf} (bound {TOL_SURFACE!r})")
+    del flm, flm_cpu
+    torch.cuda.empty_cache()
+
+    def projections(what, card, host, runs):
+        for kw in runs:
+            got, ref = card.projection(**kw), host.projection(**kw)
+            if sorted(got) != sorted(ref) or any(
+                    not np.array_equal(got[c], ref[c]) for c in ref if c != "map"):
+                fail(f"{what} projection {kw}: keys or coordinates differ")
+            err = float(np.abs(got["map"] - ref["map"]).max() / np.abs(ref["map"]).max())
+            ratios[f"{what} projection {kw}"] = err / TOL_PROJECTION
+            walls[f"{what} projection {kw}"] = wall_per_call(torch, lambda: card.projection(**kw), 3)
+            say(f"phase 21 {what} projection {kw}: map {got['map'].shape}, max|diff|/scale vs the "
+                f"float64 CPU path {err!r} (bound {TOL_PROJECTION!r})")
+
+    runs = ({"field": "dens", "axis": 0}, {"field": "velx", "axis": 2, "weight": "dens"})
+    projections("window", uni, cpu, runs)
+    amr = fava_tpu_torch.FLASH(workdir)
+    amr.load(file_type="plt", fields=["dens", "velx"])
+    amr_cpu = fava_tpu_torch.FLASH(workdir, device="cpu")
+    amr_cpu.load(file_type="plt", fields=["dens", "velx"])
+    projections("AMR", amr.mesh, amr_cpu.mesh, runs)
+    del amr, amr_cpu
+    torch.cuda.empty_cache()
+    if not max(ratios.values()) <= 1.0:
+        fail(f"flame_surface or a projection disagrees with the float64 CPU path: {ratios}")
+    return {"walls_s": walls, "error_over_bound": ratios}
+
+
+def pipe_field_fns(torch, xf):
+    """The fields of scripts/tpu_pipeline_bench.py's snapshot with its front
+    at x = xf, evaluated on the card: a sigmoid progress variable at xf and
+    a turbulent brush whose amplitude peaks on the front (so stage 1's
+    Ryy + Rzz profile is a bump the fit converges on); pres as
+    io/synthetic.py's default."""
+    two_pi = 2.0 * math.pi
+
+    def flam(x, y, z):
+        return torch.sigmoid(-(x - xf) / 0.02)
+
+    def amp(x):
+        return 0.2 + torch.exp(-(((x - xf) / 0.15) ** 2))
+
+    fns = {
+        "flam": flam,
+        "dens": lambda x, y, z: (1.0 + 0.5 * torch.sin(two_pi * x) * torch.cos(two_pi * y)
+                                 + 0.6 * flam(x, y, z)),
+        "pres": lambda x, y, z: 2.0 + 0.5 * torch.sin(two_pi * x) * torch.cos(two_pi * z),
+        "temp": lambda x, y, z: 1.0 + 2.0 * flam(x, y, z),
+        "velx": lambda x, y, z: amp(x) * 0.5 * torch.sin(two_pi * y) * torch.cos(two_pi * z),
+        "vely": lambda x, y, z: amp(x) * torch.sin(two_pi * z + 0.5 * torch.cos(two_pi * x)),
+        "velz": lambda x, y, z: amp(x) * torch.cos(two_pi * y + 0.3 * torch.sin(two_pi * x)),
+    }
+
+    def on_device(fn):
+        def run(x, y, z):
+            xyz = (torch.from_numpy(a).cuda() for a in (x, y, z))
+            return fn(*xyz).float().cpu().numpy()
+
+        return run
+
+    return {name: on_device(fn) for name, fn in fns.items()}
+
+
+def pipe_series(torch, data: Path, times, xf0, speed, refine_of, fields, **tree):
+    """One plt file a time of the series (io/synthetic.make_amr_file), its
+    front at xf0 + speed * t and its tree refined by ``refine_of(xf)``."""
+    from fava_tpu_torch.io import synthetic
+
+    data.mkdir(parents=True)
+    for i, t in enumerate(times, start=1):
+        xf = xf0 + speed * t
+        synthetic.make_amr_file(data / f"rt_hdf5_plt_cnt_{i:04d}", refine_fn=refine_of(xf),
+                                fields=fields, field_fns=pipe_field_fns(torch, xf), time=t, **tree)
+
+
+def pipe_bands(xf):
+    """Phase 6's refined bands moved with the front from x = 2 to xf."""
+    bands = tuple((lo + xf - 2.0, hi + xf - 2.0, level) for lo, hi, level in AMR_LEVELS)
+
+    def refine(bounds, level):
+        lo, hi = bounds[0]
+        for band_lo, band_hi, target in bands:
+            if hi > band_lo and lo < band_hi:
+                return target
+        return AMR_BASE_LEVEL
+
+    return refine
+
+
+def bench_band(xf):
+    """scripts/tpu_pipeline_bench.py's tree at N = 128: level 2 around the
+    front (the window's extent), level 1 elsewhere."""
+    def refine(bounds, level):
+        return 2 if bounds[0, 1] > xf - 0.5 and bounds[0, 0] < xf + 0.5 else 1
+
+    return refine
+
+
+def pipe_settings(work: Path, data: Path, half_width, structure, extra):
+    settings = {
+        "data folder": str(data),
+        "output folder": str(work / "out"),
+        "basename": "rt_hdf5_plt_cnt",
+        "dimension": 3,
+        "model": "synthetic rtflame",
+        "reynolds stress": {"skip": False},
+        "extract windows": {"skip": False},
+        "flame window": {"half width": half_width, "transverse": [0.0, 1.0]},
+        "fractal dimension": {"skip": False, "settings": {"field": "flam", "contours": 0.5}},
+        "kinetic energy spectra": {"skip": False},
+        "structure functions": {"skip": False, "settings": structure},
+        **extra,
+    }
+    (work / "pipeline_settings.json").write_text(json.dumps(settings, indent=2))
+    return settings
+
+
+class StampedLines:
+    """A stdout that passes writes through and keeps each line with the
+    host time it was printed."""
+
+    def __init__(self, out):
+        self.out, self.lines, self._part = out, [], ""
+
+    def write(self, text):
+        self.out.write(text)
+        *done, self._part = (self._part + text).split("\n")
+        now = time.perf_counter()
+        self.lines.extend((now, line) for line in done)
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def stage_walls(lines, t_end):
+    """Seconds from each stage's work line (one per snapshot) to the next
+    work line or the end: as scripts/tpu_pipeline_bench.py times them, from
+    the pipeline's own prints (stage 2 lies in the last stage-1 span)."""
+    marks = [(t, line) for t, line in lines if line.startswith(PIPE_WORK_LINES)]
+    walls = {}
+    for (t, line), (t_next, _) in zip(marks, marks[1:] + [(t_end, "")]):
+        if line.startswith("[stage"):
+            walls.setdefault(line[1:8], []).append(t_next - t)
+    return walls
+
+
+def h5_datasets(node, prefix=""):
+    """Every dataset under an h5lite group, by its path."""
+    from fava_tpu_torch.io import h5lite
+
+    out = {}
+    for key in node:
+        child = node[key]
+        if isinstance(child, h5lite.Group):
+            out.update(h5_datasets(child, f"{prefix}{key}/"))
+        else:
+            out[f"{prefix}{key}"] = child[()]
+    return out
+
+
+def flat_results(np, results, prefix=""):
+    out = {}
+    for key, value in results.items():
+        if isinstance(value, dict):
+            out.update(flat_results(np, value, f"{prefix}{key}/"))
+        else:
+            out[f"{prefix}{key}"] = np.asarray(value)
+    return out
+
+
+def same_datasets(np, got, ref, what):
+    """Dataset by dataset: floats within TOL_RERUN of max(largest |value|, 1)
+    (a mean that is rounding noise about 0 has no scale of its own),
+    everything else equal. Returns the worst error/bound."""
+    if sorted(got) != sorted(ref):
+        fail(f"{what}: datasets {sorted(set(got) ^ set(ref))} are not in both")
+    worst, worst_key = 0.0, None
+    for key, r in ref.items():
+        g, r = np.asarray(got[key]), np.asarray(r)
+        if r.dtype.kind == "U":
+            r = r.astype("S")
+        if g.shape != r.shape:
+            fail(f"{what} {key}: shape {g.shape} vs {r.shape}")
+        if r.dtype.kind != "f":
+            if not np.array_equal(g, r):
+                fail(f"{what} {key}: not equal")
+            continue
+        if not np.array_equal(np.isnan(g), np.isnan(r)):
+            fail(f"{what} {key}: NaN in other places")
+        keep = ~np.isnan(r)
+        scale = max(float(np.abs(r[keep]).max(initial=0.0)), 1.0)
+        err = float(np.abs(g[keep] - r[keep]).max(initial=0.0)) / (TOL_RERUN * scale)
+        if err > worst:
+            worst, worst_key = err, key
+    if not worst <= 1.0:
+        fail(f"{what}: {worst_key} error/bound {worst!r}")
+    return worst
+
+
+def digests(directory: Path):
+    import hashlib
+
+    out = {}
+    for path in sorted(directory.iterdir()):
+        with path.open("rb") as f:
+            out[path.name] = hashlib.file_digest(f, "sha1").hexdigest()
+    return out
+
+
+def run_cli(work: Path, **popen):
+    """``python -m fava_tpu_torch`` in ``work``, on the card (its default)."""
+    env = dict(os.environ, PYTHONPATH=str(HERE) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    return subprocess.Popen([sys.executable, "-m", "fava_tpu_torch"], cwd=work, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, **popen)
+
+
+def pipeline_cold(torch, np, work: Path):
+    """21a: the two-snapshot series at full width, stages 1 -> 4 in process."""
+    import logging
+
+    import fava_tpu_torch
+    from fava_tpu_torch import pipeline
+    from fava_tpu_torch.io import h5lite
+    from fava_tpu_torch.ops import cuda_kernels as ck
+
+    t0 = time.perf_counter()
+    pipe_series(torch, work / "data", PIPE_TIMES, PIPE_XF0, PIPE_SPEED, pipe_bands,
+                PIPE_FIELDS, ncells=AMR_NCELLS, nblks=AMR_NBLKS, domain=np.array(AMR_DOMAIN))
+    times = {"synthesis_and_write_s": time.perf_counter() - t0,
+             "plt_GB": [p.stat().st_size / 1e9 for p in sorted((work / "data").iterdir())]}
+    say(f"phase 21a plt series: {times}")
+    settings = pipe_settings(work, work / "data", PIPE_HALF_WIDTH, PIPE_STRUCTURE, PIPE_EXTRA)
+
+    records = []
+    catch = logging.Handler()
+    catch.emit = records.append
+    logger = logging.getLogger("fava_tpu_torch.pipeline.pipeline")
+    logger.addHandler(catch)
+    stamped = StampedLines(sys.stdout)
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    sys.stdout = stamped
+    try:
+        rc = pipeline.main(work)
+        torch.cuda.synchronize()
+    finally:
+        sys.stdout = stamped.out
+        logger.removeHandler(catch)
+    t_end = time.perf_counter()
+    launches = ck.launch_counts()
+    times.update({"cold_wall_s": t_end - t0, "stage_walls_s": stage_walls(stamped.lines, t_end)})
+    say(f"phase 21a pipeline.main: rc {rc}, {times['cold_wall_s']!r} s, stage walls "
+        f"{times['stage_walls_s']}, launches {({k: v for k, v in launches.items() if v})}")
+    if rc != 0:
+        fail(f"pipeline.main returned {rc}")
+    if any("flame_window fit failed" in r.getMessage() for r in records):
+        fail("the stage-1 flame_window fit failed and fell back to the stress peak")
+    missing = [k for k in PIPE_KERNELS if not launches[k]]
+    if missing:
+        fail(f"the pipeline launched no {missing}")
+
+    out = work / "out"
+    anl = sorted(out.glob("*hdf5_analysis_????"))
+    uni = sorted(out.glob("*hdf5_uniform_????"))
+    if len(anl) != len(PIPE_TIMES) or len(uni) != len(PIPE_TIMES):
+        fail(f"outputs: {len(anl)} analysis and {len(uni)} uniform files")
+    for path in uni:
+        with h5lite.File(path) as f:
+            shapes = {name: f[name].shape[-3:][::-1] for name in PIPE_FIELDS}
+        if set(shapes.values()) != {PIPE_WINDOW}:
+            fail(f"{path.name}: fields {shapes}, expected {PIPE_WINDOW}")
+    state = json.loads((work / "fava.checkpoint").read_text())
+    n = len(PIPE_TIMES)
+    expect = {"reynolds stress": {"index": n}, "extract windows": {"index": n},
+              "analyze uniform data": {"analysis": None, "index": n}}
+    if {k: state.get(k) for k in expect} != expect or state.get("settings") != settings:
+        fail(f"checkpoint {({k: state.get(k) for k in expect})}, expected {expect}")
+
+    dx = (AMR_DOMAIN[0][1] - AMR_DOMAIN[0][0]) / (
+        AMR_NCELLS[0] * AMR_NBLKS[0] * 2 ** (max(lv for *_, lv in AMR_LEVELS) - 1))
+    offsets = []
+    for path, t in zip(anl, PIPE_TIMES):
+        with h5lite.File(path) as f:
+            right = f["scalars/window right"][()]
+        offsets.append(float((right[0] - PIPE_HALF_WIDTH - (PIPE_XF0 + PIPE_SPEED * t)) / dx))
+    times["centroid_minus_front_cells"] = offsets
+    say(f"phase 21a stage-1 centroids minus x_f(t), in finest cells: {offsets} "
+        f"(bound {PIPE_FIT_CELLS})")
+    if not max(abs(o) for o in offsets) <= PIPE_FIT_CELLS:
+        fail("a fitted centroid lies off the front")
+
+    model = fava_tpu_torch.FLASH(out)
+    worst = 0.0
+    for i, path in enumerate(anl):
+        model.load(file_index=i, file_type="uni")
+        with h5lite.File(path) as f:
+            stored = h5_datasets(f)
+        if set(k.split("/")[0] for k in stored) != {"reynolds stresses", "scalars", *PIPE_STAGE4}:
+            fail(f"{path.name} holds {sorted(set(k.split('/')[0] for k in stored))}")
+        again = {}
+        for name, method in PIPE_STAGE4.items():
+            kwargs = settings[name].get("settings", {})
+            again.update(flat_results(np, {name: getattr(model, method)(**kwargs)}))
+        stage4 = {k: v for k, v in stored.items() if k.split("/")[0] in PIPE_STAGE4}
+        worst = max(worst, same_datasets(np, again, stage4, f"{path.name} stage 4 run again"))
+    times["stage4_rerun_error_over_bound"] = worst
+    say(f"phase 21a stage-4 datasets of both analysis files equal the analyses run again on the "
+        f"extracted files: worst error/bound {worst!r}")
+    del model
+    torch.cuda.empty_cache()
+    return launches, times
+
+
+def pipeline_resumed(work: Path):
+    """21b: ``python -m fava_tpu_torch`` again in the same directory."""
+    before = digests(work / "out")
+    state = json.loads((work / "fava.checkpoint").read_text())
+    t0 = time.perf_counter()
+    proc = run_cli(work)
+    stdout, _ = proc.communicate(timeout=600)
+    wall = time.perf_counter() - t0
+    work_lines = [line for line in stdout.splitlines()
+                  if line.startswith("[stage") and "window exists" not in line]
+    say(f"phase 21b python -m fava_tpu_torch resumed: rc {proc.returncode}, {wall!r} s, "
+        f"work lines {work_lines}")
+    if proc.returncode != 0:
+        fail(f"the resumed run failed:\n{stdout[-4000:]}")
+    if work_lines or "pipeline complete" not in stdout:
+        fail("the resumed run did work again")
+    if digests(work / "out") != before or json.loads((work / "fava.checkpoint").read_text()) != state:
+        fail("the resumed run changed an output or the checkpoint")
+    say(f"phase 21b outputs byte-identical ({len(before)} files), checkpoint unchanged")
+    return wall
+
+
+def pipeline_interrupted(torch, np, work: Path):
+    """21c: a fresh three-snapshot series as PIPELINE_128.json's, SIGINT
+    twice after the first [stage 4] line, the checkpoint read, then resumed
+    to its end and held to an uninterrupted run's outputs."""
+    import signal
+
+    from fava_tpu_torch import pipeline
+    from fava_tpu_torch.io import h5lite
+
+    pipe_series(torch, work / "data", SMALL_TIMES, SMALL_XF0, SMALL_SPEED, bench_band,
+                SMALL_FIELDS, ncells=SMALL_NCELLS, nblks=SMALL_NBLKS, domain=np.array(AMR_DOMAIN))
+    pipe_settings(work, work / "data", PIPE_HALF_WIDTH, PIPE_STRUCTURE, {})
+    ckpt = work / "fava.checkpoint"
+    t0 = time.perf_counter()
+    proc = run_cli(work)
+    sent, lines = 0, []
+    for line in proc.stdout:
+        lines.append(line.rstrip("\n"))
+        if sent == 0 and line.startswith("[stage 4]"):
+            proc.send_signal(signal.SIGINT)
+            sent = 1
+        elif sent == 1 and line.startswith("Calling external handler"):
+            # The first SIGINT writes the checkpoint right after this line and
+            # restores the default handlers; the second kills the run, as a
+            # second Ctrl-C does.
+            time.sleep(0.05)
+            proc.send_signal(signal.SIGINT)
+            sent = 2
+    rc = proc.wait(timeout=600)
+    times = {"interrupted_wall_s": time.perf_counter() - t0, "interrupted_rc": rc}
+    state = json.loads(ckpt.read_text())
+    n = len(SMALL_TIMES)
+    s4 = state.get("analyze uniform data", {})
+    say(f"phase 21c interrupted run: rc {rc}, checkpoint stages 1/3 "
+        f"{state.get('reynolds stress')}/{state.get('extract windows')}, stage 4 {s4}")
+    if sent != 2 or rc == 0:
+        fail(f"the run was not interrupted in stage 4:\n" + "\n".join(lines[-40:]))
+    if (state.get("reynolds stress"), state.get("extract windows")) != ({"index": n}, {"index": n}) \
+            or not s4.get("index", 0) < n:
+        fail(f"checkpoint after the interrupt: {state}")
+
+    t0 = time.perf_counter()
+    proc = run_cli(work)
+    stdout, _ = proc.communicate(timeout=600)
+    times["resume_wall_s"] = time.perf_counter() - t0
+    if proc.returncode != 0 or "pipeline complete" not in stdout:
+        fail(f"the resume after the interrupt failed (rc {proc.returncode}):\n{stdout[-4000:]}")
+
+    ref = work.parent / "uninterrupted"
+    ref.mkdir()
+    pipe_settings(ref, work / "data", PIPE_HALF_WIDTH, PIPE_STRUCTURE, {})
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = pipeline.main(ref)
+    if rc != 0:
+        fail("the uninterrupted run failed")
+    worst = 0.0
+    got_files = sorted(p.name for p in (work / "out").glob("*hdf5_*_????"))
+    if got_files != sorted(p.name for p in (ref / "out").glob("*hdf5_*_????")) \
+            or len(got_files) != 2 * n:
+        fail(f"outputs after the resume: {got_files}")
+    for name in got_files:
+        with h5lite.File(work / "out" / name) as f, h5lite.File(ref / "out" / name) as g:
+            worst = max(worst, same_datasets(np, h5_datasets(f), h5_datasets(g), name))
+    times["resumed_vs_uninterrupted_error_over_bound"] = worst
+    say(f"phase 21c resumed to rc 0 in {times['resume_wall_s']!r} s; its {len(got_files)} files "
+        f"hold the uninterrupted run's datasets (worst error/bound {worst!r})")
+    return times
+
+
+def phase_pipeline(torch, np):
+    """Phase 21: the pipeline on the card (21a-c), in its own directory."""
+    with tempfile.TemporaryDirectory(prefix="fava_pipe_") as tmp:
+        work = Path(tmp) / "run"
+        launches, times = pipeline_cold(torch, np, work)
+        times["resumed_wall_s"] = pipeline_resumed(work)
+        shutil.rmtree(work)
+        times.update(pipeline_interrupted(torch, np, Path(tmp) / "interrupt"))
+    return launches, times
+
+
 def main() -> None:
     sys.path.insert(0, str(HERE))
     try:
@@ -2332,16 +2854,22 @@ def main() -> None:
         fs_times, fs_launches = phase_fractal_structure(torch, np, workdir, uni, cpu)
         add_counts(launches, fs_launches)
         say(f"phase 19 fractal and structure timings: {json.dumps({'card': card, **fs_times})}")
+        surface_times = window_surface_projection(torch, np, workdir, uni, cpu)
         del uni
         torch.cuda.empty_cache()
         entry_launches, entry_times = phase_entry_point(torch, np, workdir, cpu)
         del cpu
         series_launches, series_times = phase_series(torch, np, workdir)
-    for counts in (amr4_launches, win_launches, odd_launches, entry_launches, series_launches):
+    torch.cuda.empty_cache()
+    pipe_launches, pipe_times = phase_pipeline(torch, np)
+    for counts in (amr4_launches, win_launches, odd_launches, entry_launches, series_launches,
+                   pipe_launches):
         add_counts(launches, counts)
     say(f"phase 11-12 stage-4 timings: {json.dumps({'card': card, 'window': win_times, 'odd': odd_times})}")
     say(f"phase 16-17 entry point and series timings: "
         f"{json.dumps({'card': card, 'entry': entry_times, 'series': series_times})}")
+    say(f"phase 21 pipeline timings: "
+        f"{json.dumps({'card': card, 'window': surface_times, 'pipeline': pipe_times})}")
 
     if any(m.split(".")[0] in ("jax", "fava_tpu") for m in sys.modules):
         fail("JAX or fava_tpu was imported")

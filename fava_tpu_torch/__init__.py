@@ -7,8 +7,11 @@ the AMR path: FLASH plt/chk files, block-stack Reynolds and Favre
 profiles, and the regrid of a window onto a uniform file
 (``mesh.from_amr``); and the spectrum and histogram analyses of pipeline
 stage 4 on both meshes (KE and scalar spectra, pdf1d/pdf2d,
-density_pdf, binned_statistic, mass and volume sums), with results
-written by ``Model.save_to_hdf5``; and fava_tpu's fused-spectrum path
+density_pdf, binned_statistic, mass and volume sums), the uniform
+mesh's fractal, structure-function and flame-surface analyses, the
+projections and the flame-window fit, with results written by
+``Model.save_to_hdf5``; the four-stage pipeline CLI, ``python -m
+fava_tpu_torch`` (``pipeline/``); and fava_tpu's fused-spectrum path
 (``experiments/``: the spectra straight from the transforms, the fused
 z+y transform, the padded-fold binnings). The kernels are hand-written
 CUDA (``ops/cuda_kernels.py``). Every public entry takes ``device=``

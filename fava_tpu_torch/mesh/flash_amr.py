@@ -5,8 +5,8 @@ lives as tensors of shape (nblocks, nxb, nyb, nzb) on ``device``
 (float32 on CUDA, float64 on the CPU); block bookkeeping stays as small
 host numpy arrays; the profile analyses and the regrid dispatch to
 ``fava_tpu_torch.ops``, as do the volume sums, PDFs and conditional
-statistics over the leaf cells. The projection and flame window wait
-for ROADMAP A8 (they raise NotImplementedError naming the item).
+statistics over the leaf cells, the line-of-sight projection
+(``ops/projection.py``) and the flame-window fit (``ops/flame.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +25,9 @@ from fava_tpu_torch.io import flash_file, h5lite
 from fava_tpu_torch.io.flash_file import FIELD_MAPPING, NGUARD
 from fava_tpu_torch.mesh.base import Structured
 from fava_tpu_torch.models.model import Model
+from fava_tpu_torch.ops import flame as flame_ops
 from fava_tpu_torch.ops import profiles as profile_ops
+from fava_tpu_torch.ops import projection as projection_ops
 from fava_tpu_torch.ops import regrid as regrid_ops
 from fava_tpu_torch.ops import volume as volume_ops
 from fava_tpu_torch.utils import field_dtype, resolve_device, timer
@@ -79,15 +81,6 @@ class _SyncedInt:
                 if key in d.get(self.kind, {}):
                     d[self.kind][key] = value
         obj.__dict__[f"_{self.name}"] = value
-
-
-def _not_ported(item: str, what: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-    method.__name__ = what
-    method.__doc__ = f"Not ported yet: raises NotImplementedError (ROADMAP {item})."
-    return method
 
 
 @Model.register_mesh()
@@ -556,8 +549,38 @@ class FLASH(Structured):
             return w * self._leaf_stack("dens")
         return w.contiguous()
 
-    projection = _not_ported("A8", "projection")
-    flame_window = _not_ported("A8", "flame_window")
+    def projection(
+        self,
+        field: str = "dens",
+        axis: int = 0,
+        weight: Optional[str] = None,
+    ) -> Dict[str, Any]:
+        """Line-of-sight projection map integral(field dl) along
+        ``axis`` (column density for field="dens"), exact on the AMR
+        tree via per-level scatter + piecewise-constant upsampling; no
+        uniform regrid volume is materialized
+        (ops/projection.project_amr). ``weight`` switches to the
+        w-weighted line average. Returns the map over the two kept axes
+        plus their cell-center coordinates."""
+        plan = regrid_ops.RegridPlan(
+            block_bounds=self.block_bounds,
+            node_type=np.asarray(self.node_type),
+            refine_level=np.asarray(self.refine_level),
+            ncells_vec=self.nCellsVec,
+            nblks_vec=self.nBlksVec,
+            ndim=self.ndim,
+        )
+        w = self._field_stack(weight) if weight is not None else None
+        maps, coords = projection_ops.project_amr(
+            plan, {field: self._field_stack(field)}, axis=axis, weight=w
+        )
+        return {"map": maps[field], "coord1": coords[0], "coord2": coords[1]}
+
+    @timer
+    def flame_window(self, radius, stress, mask=None) -> float:
+        """Flame centroid from a super-Gaussian fit of the transverse
+        stress Ryy + Rzz over ``radius`` (ops/flame.flame_window)."""
+        return flame_ops.flame_window(np.asarray(radius), stress, mask)
 
     # ------------------------------------------------------------------
     # Regrid

@@ -6,11 +6,13 @@ the flagship analysis (in core, or streamed from the file by
 ``ops/outofcore.py`` when the volume does not fit the card), the
 kinetic-energy and scalar spectra, the PDFs and conditional statistics
 of pipeline stage 4, the fractal dimension, and the velocity structure
-functions with their scaling exponents and increment PDFs.
+functions with their scaling exponents and increment PDFs, the flame
+surface density and the line-of-sight projection.
 ``reynolds_stress``, ``favre_profiles``, the slice profiles, ``mass_sum``
 and the volume averages are FLASH's: on one block profiled along x the
-profiles take the uniform fast case (K1/K2). The other uniform-grid
-analyses, streamed or not, are ROADMAP A8/A10.
+profiles take the uniform fast case (K1/K2). The velocity, gradient,
+filtering and two-point analyses raise NotImplementedError naming
+ROADMAP A8; their streamed drivers are A10.
 """
 
 from __future__ import annotations
@@ -24,12 +26,43 @@ import torch
 from fava_tpu_torch.io import flash_file, h5lite
 from fava_tpu_torch.mesh.flash_amr import FLASH
 from fava_tpu_torch.models.model import Model
+from fava_tpu_torch.ops import flame as flame_ops
 from fava_tpu_torch.ops import fractal as fractal_ops
 from fava_tpu_torch.ops import outofcore
+from fava_tpu_torch.ops import projection as projection_ops
 from fava_tpu_torch.ops import spectra as spectra_ops
 from fava_tpu_torch.ops import structure as structure_ops
 from fava_tpu_torch.ops import volume as volume_ops
 from fava_tpu_torch.utils import field_dtype, timer
+
+
+def _not_ported(item: str, what: str):
+    def method(self, *args, **kwargs):
+        raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+    method.__name__ = what
+    method.__doc__ = f"Not ported yet: raises NotImplementedError (ROADMAP {item})."
+    return method
+
+
+# fava_tpu's uniform-mesh velocity, gradient, filtering and two-point
+# analyses (its flash_uniform.py), which ROADMAP A8 ports.
+_A8_METHODS = (
+    "helmholtz_decomposition",
+    "vorticity",
+    "dilatation",
+    "enstrophy_spectra",
+    "helicity_spectra",
+    "velocity_gradient_statistics",
+    "gradient_invariant_pdfs",
+    "decomposed_kinetic_energy_spectra",
+    "turbulence_summary",
+    "anisotropic_kinetic_energy_spectra",
+    "transfer_spectra",
+    "filtered_kinetic_energy_flux",
+    "two_point_correlation",
+    "velocity_correlations",
+)
 
 
 def streams_out_of_core(shape, dtype: torch.dtype, free_bytes: float, resident_bytes: int = 0) -> bool:
@@ -150,6 +183,10 @@ class FlashUniform(FLASH):
         free += torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
         resident = sum(t.numel() * t.element_size() for t in self._data.values())
         return streams_out_of_core(shape, field_dtype(self.device), free, resident)
+
+    def _domain_lengths(self):
+        b = np.asarray(self.domain_bounds, dtype=np.float64)
+        return tuple(float(b[i, 1] - b[i, 0]) for i in range(self.ndim))
 
     def _streamed_loader(self):
         """Host x-slab loader of this mesh's file for the out-of-core path."""
@@ -402,3 +439,43 @@ class FlashUniform(FLASH):
         return volume_ops.density_pdf(
             self._scalar_volume("dens"), weights=self._uniform_pdf_weights(weight), **kwargs
         )
+
+    @timer
+    def flame_surface(self, field: str = "flam", axis: int = 0) -> Dict[str, np.ndarray]:
+        """Flame surface density of a progress variable: coarea-formula
+        front area, wrinkling factor against the axis-normal
+        cross-section, slab-resolved sigma(x) profile and gradient
+        flame thickness (ops/flame.flame_surface). Central differences,
+        right for the non-periodic flame axis."""
+        vol = self._scalar_volume(field)
+        lengths = self._domain_lengths()
+        deltas = [lengths[a] / vol.shape[a] for a in range(self.ndim)]
+        return flame_ops.flame_surface(vol, deltas, axis=axis)
+
+    @timer
+    def projection(
+        self, field: str = "dens", axis: int = 0, weight: Optional[str] = None
+    ) -> Dict[str, Any]:
+        """Line-of-sight projection map integral(field dl) along
+        ``axis`` (column density for field="dens"); ``weight`` gives
+        the w-weighted line average (ops/projection.project_uniform).
+        The map is over the kept axes with cell-center coordinates (2D
+        datasets give a 1D column profile: "map" + "coord1")."""
+        vol = self._scalar_volume(field)
+        nd = vol.dim()
+        lengths = self._domain_lengths()
+        deltas = [lengths[a] / vol.shape[a] for a in range(nd)]
+        w = self._scalar_volume(weight) if weight is not None else None
+        m = projection_ops.project_uniform(vol, deltas, axis=axis, weight=w)
+        b = np.asarray(self.domain_bounds, dtype=np.float64)
+        keep = [a for a in range(nd) if a != axis]
+        out: Dict[str, Any] = {"map": m}
+        for i, a in enumerate(keep, start=1):
+            out[f"coord{i}"] = b[a, 0] + (np.arange(vol.shape[a]) + 0.5) * deltas[a]
+        return out
+
+
+for _name in _A8_METHODS:
+    setattr(FlashUniform, _name, _not_ported("A8", _name))
+
+del _name

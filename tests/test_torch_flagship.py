@@ -26,6 +26,7 @@ import fava_tpu
 import fava_tpu_torch
 from fava_tpu import flagship as jflag
 from fava_tpu_torch import flagship as tflag
+from fava_tpu_torch.pipeline import pipeline as tpipeline
 
 SHAPES = [(16, 16, 16), (32, 32, 32), (16, 32, 24)]
 NAMES = ("dens", "velx", "vely", "velz")
@@ -143,16 +144,18 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stderr
 
 
-def test_unported_paths_raise_not_implemented(uniform_file, amr_file):
+def test_unported_paths_raise_not_implemented(uniform_file):
     tm = fava_tpu_torch.FLASH(uniform_file.parent, device="cpu")
     for ftype in ("prt", "chk_prt", "plt_prt"):
         with pytest.raises(NotImplementedError, match="A9"):
             tm.load(file_type=ftype)
-    amr = fava_tpu_torch.FLASH(amr_file.parent, device="cpu")
-    amr.load(file_type="plt")
-    for method in ("projection", "flame_window"):
+    tm.load(file_type="uni")
+    for method in ("enstrophy_spectra", "turbulence_summary", "two_point_correlation",
+                   "filtered_kinetic_energy_flux", "velocity_correlations"):
         with pytest.raises(NotImplementedError, match="A8"):
-            getattr(amr.mesh, method)("dens")
+            getattr(tm.mesh, method)()
+    with pytest.raises(NotImplementedError, match="A8"):
+        tpipeline.check_ported({"enstrophy spectra": {"skip": False}})
 
 
 def test_registries_are_the_ports_own():
@@ -162,5 +165,6 @@ def test_registries_are_the_ports_own():
     for name in ("flagship_analysis", "reynolds_stress", "favre_profiles", "slice_average",
                  "slice_integration", "kinetic_energy_spectra", "scalar_spectra", "pdf1d", "pdf2d",
                  "density_pdf", "binned_statistic", "mass_sum", "volume_average",
-                 "volume_integration", "flagship_series", "reynolds_series", "favre_series"):
+                 "volume_integration", "flagship_series", "reynolds_series", "favre_series",
+                 "flame_surface", "projection"):
         assert callable(getattr(fava_tpu_torch.Model, name)), name

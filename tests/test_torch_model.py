@@ -112,5 +112,7 @@ def test_kernel_sources_and_headers_ship_with_the_package():
         for inc in re.findall(r'^\s*#include\s+"([^"]+)"', p.read_text(), flags=re.M):
             assert (CSRC / inc).is_file(), (p.name, inc)
             needed.add(f"csrc/{inc}")
+    needed.add("pipeline/pipeline_settings.json")
+    assert (CSRC.parent / "pipeline" / "pipeline_settings.json").is_file()
     for rel in sorted(needed):
         assert any(fnmatch.fnmatch(rel, g) for g in globs), rel

@@ -59,6 +59,16 @@ def force_interpret():
     pk.FORCE_INTERPRET = False
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _leave_fava_tpu_chunk_kernels_as_found():
+    """The interpret-mode streamed steps here fill fava_tpu's chunk-kernel
+    builder cache (8 entries); empty it after the module, so that a later
+    test file in the same worker that checks the builder runs
+    (tests/test_parallel.py) does not find it full."""
+    yield
+    pk._build_shell_chunk_fn.cache_clear()
+
+
 def _fields(shape, seed):
     rng = np.random.default_rng(seed)
     out = {"dens": 1.0 + 0.4 * rng.random(shape)}
