@@ -141,7 +141,10 @@ no result):
       bands moving with the front, 4 finest blocks between snapshots;
       scripts/tpu_pipeline_bench.py's fields, computed on the card) and a
       pipeline_settings.json with the three fixed analyses plus scalar
-      spectra, pdf2d, flame surface and projection; ``pipeline.main``
+      spectra, pdf2d, flame surface, projection and the eight velocity
+      and gradient keys (enstrophy, helicity, dealiased transfer,
+      decomposed and y-axis anisotropic spectra, the turbulence summary,
+      the interior gradient statistics and Q-R PDF); ``pipeline.main``
       in process with the counters reset around it: rc 0, two analysis
       files and two 512^3 uniform files, fava_tpu's checkpoint, no fit
       fallback and each centroid within PIPE_FIT_CELLS finest cells of
@@ -155,6 +158,28 @@ no result):
       [stage 4] line; the checkpoint has stages 1 and 3 complete and stage
       4 short of the end; resumed to rc 0, its files hold an uninterrupted
       run's datasets (TOL_RERUN).
+22. Velocity diagnostics and gradient statistics (run after phase 17, on
+   the 512^3 window file phase 8 wrote): the signed helicity density
+   through K3 + B4, and on the 511-wide cut through B10, against the
+   plain versions (TOL_SIGNED_FOLD, TOL_BIN); B8 on the card's own Q and
+   R, counts exact; the Helmholtz identities on the card; then the 11
+   analyses through the Model, each with the counters reset before and
+   its exact launches checked after (K3 + B4 once for the enstrophy,
+   helicity and transfer spectra, three times for the decomposed
+   spectra, B8 once for the Q-R PDF, nothing else), finite, timed warm,
+   and held to the float64 CPU path on the same float32 values (the
+   fields on a 128^3 cut; TOL_SPECTRA, TOL_TRANSFER of sum |T|,
+   TOL_SUMS/TOL_SPECTRA for the summary, TOL_GRADIENT, MAX_QR_MOVED);
+   the enstrophy spectrum of the 511-wide cut (B10); the pieces of the
+   window's spectra, summary, gradients and Helmholtz split by CUDA
+   events (layer_breakdown). Then a 512^3 file of seeded compressible,
+   helical random velocity (RANDOM_SEED), which the window cannot stand
+   in for: the Helmholtz identities, the helicity, transfer, decomposed
+   spectra and the summary with Mach statistics, counted and held to the
+   float64 path (transfer and flux to TOL_TRANSFER of sum |T|, the rest
+   to their own scales), the fields on a 128^3 cut. Last, summary_series
+   and gradient_series over phase 17's four files, each row held to the
+   analysis of its file (TOL_RERUN).
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -278,6 +303,36 @@ MAX_TIE_SHARE = 1e-5
 # Phase 20: a (16384, 64, 64) volume, 8191 shells, made on the card.
 WIDE_SHAPE = (16384, 64, 64)
 
+# Phase 22: the velocity diagnostics and gradient statistics on the window.
+# The signed helicity density through K3 + B4: K3 adds up to 4 float32 terms
+# in 3 roundings, each within 2^-24 of the sum of their magnitudes; B4 then
+# sums those float32 values in float64 (TOL_BIN). Against the float64 path:
+# transfer and flux, cancellations of signed products, within TOL_TRANSFER
+# of the sum of the products' magnitudes (float32 transforms and products,
+# ~1e-7 relative each; the helicity spectrum likewise, TOL_SPECTRA of its
+# largest shell bound: signed_scales); each entry of the gradient statistics within TOL_GRADIENT of its
+# natural scale (gradient_scales; float32 differences and their scaling by
+# 1/(2 dx), ~1e-7 relative, raised to the 4th power); the Q-R histogram
+# within MAX_QR_MOVED of the cells moved (float32 Q and R change bin only
+# within ~1e-6 of an edge); the Helmholtz fields on a CUT_FIELDS^3 cut.
+TOL_SIGNED_FOLD = 3 * 2.0**-24
+TOL_IDENTITY = 2.0**-20  # 16 float32 roundings (helmholtz_identities)
+TOL_TRANSFER = 1e-5
+TOL_GRADIENT = 1e-5
+MAX_QR_MOVED = 1e-4
+CUT_FIELDS = 128
+# The window's velocity has no divergence, helicity or transfer, so on it
+# those analyses meet only rounding. Phase 22 therefore also runs them on
+# a 512^3 uniform file of seeded random velocity (every component a
+# Gaussian field with E(k) ~ k^-5/3: compressible, helical, with transfer),
+# lognormal density, polytropic pressure and a per-cell gamc. There
+# transfer and flux are held to TOL_TRANSFER of sum |T| (as measured by the
+# float64 path), every other array to its own scale, and the file must
+# carry at least MIN_COMPRESSIVE of its energy in the compressive part.
+RANDOM_SEED = 22
+RANDOM_RUNS = ("helicity spectra", "transfer spectra", "decomposed spectra", "turbulence summary")
+MIN_COMPRESSIVE = 0.1
+
 # The AMR path (phases 6-9): an rtflame-like tree, refined around the
 # flame at x in [1.5, 2.5] (see amr_refine), and the flame window regridded
 # to 512^3. The plain float64 path reads the same float32 file values, so
@@ -305,11 +360,26 @@ PIPE_EXTRA = {
     "pdf2d": {"skip": False, "settings": {"field1": "dens", "field2": "flam"}},
     "flame surface": {"skip": False, "settings": {"field": "flam"}},
     "projection": {"skip": False, "settings": {"field": "dens", "axis": 0}},
+    "enstrophy spectra": {"skip": False},
+    "helicity spectra": {"skip": False},
+    "transfer spectra": {"skip": False, "settings": {"dealias": True}},
+    "decomposed spectra": {"skip": False},
+    "anisotropic spectra": {"skip": False, "settings": {"axis": 1}},
+    "turbulence summary": {"skip": False},
+    "velocity gradient statistics": {"skip": False, "settings": {"boundary": "interior"}},
+    "gradient invariant pdfs": {"skip": False, "settings": {"boundary": "interior"}},
 }
 # Stage-4 keys of the settings and the Model method each runs.
 PIPE_STAGE4 = {"fractal dimension": "fractal_dimension", "structure functions": "structure_functions",
                "kinetic energy spectra": "kinetic_energy_spectra", "scalar spectra": "scalar_spectra",
-               "pdf2d": "pdf2d", "flame surface": "flame_surface", "projection": "projection"}
+               "pdf2d": "pdf2d", "flame surface": "flame_surface", "projection": "projection",
+               "enstrophy spectra": "enstrophy_spectra", "helicity spectra": "helicity_spectra",
+               "transfer spectra": "transfer_spectra",
+               "decomposed spectra": "decomposed_kinetic_energy_spectra",
+               "anisotropic spectra": "anisotropic_kinetic_energy_spectra",
+               "turbulence summary": "turbulence_summary",
+               "velocity gradient statistics": "velocity_gradient_statistics",
+               "gradient invariant pdfs": "gradient_invariant_pdfs"}
 # K3, K4, B4 (stage 4 spectra), K5, K6 (stage 1), K7 (stage 3), B8 (pdf2d).
 PIPE_KERNELS = ("fold_quadrants_pair", "shell_bin_values_folded", "shell_bin_values_folded_1ch",
                 "block_row_moments", "block_centered_row_moments", "regrid_fields", "pdf2d_counts")
@@ -1699,6 +1769,530 @@ def phase_series(torch, np, workdir: Path):
 
 
 # ---------------------------------------------------------------------------
+# Phase 22: the velocity diagnostics and gradient statistics on the window
+
+
+def velocity_runs(model):
+    """The 11 analyses of the velocity diagnostics and gradient statistics
+    through the Model and the launches each must make on an even window:
+    {name: (fn, {kernel: launches})}."""
+    one_bin = {"fold_quadrants_pair": 1, "shell_bin_values_folded_1ch": 1}
+    return {
+        "helmholtz decomposition": (model.helmholtz_decomposition, {}),
+        "vorticity": (model.vorticity, {}),
+        "dilatation": (model.dilatation, {}),
+        "enstrophy spectra": (model.enstrophy_spectra, one_bin),
+        "helicity spectra": (model.helicity_spectra, one_bin),
+        "transfer spectra": (model.transfer_spectra, one_bin),
+        "decomposed spectra": (lambda: model.decomposed_kinetic_energy_spectra(weighted=True),
+                               {k: 3 for k in one_bin}),
+        "anisotropic spectra": (model.anisotropic_kinetic_energy_spectra, {}),
+        "turbulence summary": (model.turbulence_summary, {}),
+        "velocity gradient statistics": (model.velocity_gradient_statistics, {}),
+        "gradient invariant pdfs": (model.gradient_invariant_pdfs, {"pdf2d_counts": 1}),
+    }
+
+
+def run_exact_counts(torch, ck, phase, runs, prefix):
+    """Each analysis once with the counters reset before and read after,
+    held to its exact launches (no other kernel), then its warm wall (one
+    call after a warm one, host clock around synchronized work)."""
+    results, walls, totals = {}, {}, {}
+    for name, (fn, expect) in runs.items():
+        ck.reset_launch_counts()
+        results[name] = fn()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ck.launch_counts().items() if v}
+        say(f"phase {phase} {prefix} {name} launches: {launches}")
+        if launches != expect:
+            fail(f"{prefix} {name} launched {launches}, expected {expect}")
+        add_counts(totals, launches)
+        walls[name] = wall_per_call(torch, fn, 1)[0]
+    say(f"phase {phase} {prefix} warm walls (s): {json.dumps(walls)}")
+    return results, walls, totals
+
+
+def signed_scales(torch, ck, vel_ops, vels, lengths):
+    """The scales of the signed spectra, from float64 copies of the card's
+    fields (on the card). Their shell values are sums of products that
+    may cancel to nothing (the helicity of a flow without any), while the
+    float32 transforms' rounding scales with the factors: each shell is
+    bounded by Cauchy-Schwarz over its modes, |H(k)| <= 2 sqrt(E(k) Z(k))
+    (E and Z the shell's energy and enstrophy, as the spectra bin them)
+    and |T(k)| <= sqrt(sum |v̂|^2 * sum |adv|^2), adv_i = sum_j k_j
+    F[u_i u_j] (transfer_density's factors). The helicity spectrum is held
+    to the largest of its shells' bounds, transfer and flux to their sum."""
+    shape = tuple(int(s) for s in vels[0].shape)
+    nbins, nz, ntot = max(shape) // 2 - 1, shape[2], math.prod(shape)
+
+    def shell_sums(p):
+        return ck._shell_bin_unfolded_plain(p, None, nbins, nz)[0]
+
+    v64 = [v.double() for v in vels]
+    vh = [torch.fft.rfftn(v) / ntot for v in v64]
+    sv = shell_sums(sum(a.real.square() + a.imag.square() for a in vh))
+    sw = shell_sums(sum(a.real.square() + a.imag.square()
+                        for a in vel_ops._vorticity_hats(vh, shape, lengths)))
+    counts = ck._static_counts(vh[0].shape, nbins, nz, sv.device)
+    k = torch.arange(nbins, dtype=torch.float64, device=sv.device)
+    helicity = float((torch.sqrt(sv * sw) / counts * k * k).max()) * 4.0 * math.pi
+    ks = vel_ops._k_grids(shape, torch.float64, sv.device, lengths, True)
+    sa = 0.0
+    for i in range(3):
+        adv = sum(ks[j] * torch.fft.rfftn(v64[i] * v64[j]) / ntot for j in range(3))
+        sa = sa + shell_sums(adv.real.square() + adv.imag.square())
+    del adv, vh
+    return {"helicity spectra": helicity, "transfer spectra": float(torch.sqrt(sv * sa).sum())}
+
+
+def check_signed_binning(torch, ck, p, nz, phase, what):
+    """The scalar shell binning of the signed density ``p`` (K3 + B4 for
+    even x and y, else B10) against the plain versions on the same float32
+    values in float64 (on the card): each shell within TOL_SIGNED_FOLD +
+    TOL_BIN (B10: TOL_BIN) of its sum of |p|, K3 alone within
+    TOL_SIGNED_FOLD of the fold of |p|. Returns the errors/bound."""
+    nx, ny = int(p.shape[0]), int(p.shape[1])
+    nbins = max(nx, ny, nz) // 2 - 1
+    _, got = ck.shell_bin_sums_rfft_scalar(p, nbins, nz)
+    p64 = p.double()
+    out = {}
+    if nx % 2 == 0 and ny % 2 == 0:
+        fold64, abs64 = ck._fold_plain(p64), ck._fold_plain(p64.abs())
+        folded, _ = ck.fold_quadrants_pair(p, p)
+        out["fold"] = float(((folded.double() - fold64).abs()
+                             / (TOL_SIGNED_FOLD * abs64).clamp(min=1e-300)).max())
+        ref = ck._shell_bin_folded_plain(fold64, None, nbins, ny, nz)[0]
+        ref_abs = ck._shell_bin_folded_plain(abs64, None, nbins, ny, nz)[0]
+        bound = TOL_SIGNED_FOLD + TOL_BIN
+        del fold64, abs64, folded
+    else:
+        ref = ck._shell_bin_unfolded_plain(p64, None, nbins, nz)[0]
+        ref_abs = ck._shell_bin_unfolded_plain(p64.abs(), None, nbins, nz)[0]
+        bound = TOL_BIN
+    out["bins"] = float(((got - ref).abs() / (bound * ref_abs).clamp(min=1e-300)).max())
+    out["negative_shells"] = int((ref < 0).sum())
+    say(f"phase {phase} {what} on the signed helicity density {tuple(p.shape)}: error/bound {out}")
+    if not max(out.get("fold", 0.0), out["bins"]) <= 1.0 or not out["negative_shells"]:
+        fail(f"{what}: the signed binning disagrees with its plain version, or no shell is negative")
+    return out
+
+
+def gradient_scales(np, ref):
+    """The natural scale of each entry of a gradient-statistics report:
+    the p-th central moment of g_ij against c2_ij^(p/2), the mean against
+    sqrt(c2_ij), the normalised ratios against 1, the squared-gradient
+    sums against the pseudo-dissipation, the velocity mean against its
+    standard deviation."""
+    c2 = np.asarray(ref["gradient_moment2"])
+    sums = ref["pseudo_dissipation"]
+    return {
+        "gradient_mean": np.sqrt(c2), "gradient_moment2": c2, "gradient_moment3": c2**1.5,
+        "gradient_moment4": c2**2, "longitudinal_skewness": 1.0, "derivative_skewness": 1.0,
+        "longitudinal_flatness": 1.0, "derivative_flatness": 1.0, "transverse_flatness": 1.0,
+        "pseudo_dissipation": sums, "enstrophy": sums, "dilatation_msq": sums,
+        "velocity_mean": np.sqrt(ref["velocity_variance"]), "velocity_variance": ref["velocity_variance"],
+        "taylor_microscale": ref["taylor_microscale"], "taylor_microscale_mean": ref["taylor_microscale_mean"],
+    }
+
+
+SUMMARY_REAL_SPACE = ("u_rms", "kinetic_energy", "kinetic_energy_density", "mean_s", "sigma_s",
+                      "mach_rms", "mach_max", "sound_speed_mean")
+
+
+def compare_velocity(np, got, ref, what, phase, ncells, scales=None):
+    """Hold the velocity diagnostics to the float64 path (error/bound per
+    array): spectra and fields TOL_SPECTRA of scale (the helicity
+    spectrum's from signed_scales, the fields' from ``scales``), with NaN
+    in the same shells; transfer and flux
+    TOL_TRANSFER of the sum of their shells' bounds (signed_scales;
+    without it, of sum |T|); the summary's real-space
+    entries TOL_SUMS (relative; float64 sums of the same values, ln rho
+    in float64 on both sides), its spectral ones TOL_SPECTRA; gradient
+    statistics TOL_GRADIENT of each entry's natural scale; the Q-R counts
+    within MAX_QR_MOVED of the cells moved, Q_w TOL_SPECTRA, the edges
+    exact. ``scales`` overrides a spectrum's scale (signed_scales)."""
+    worst = {}
+    scales = scales or {}
+    for name, r in ref.items():
+        g = got[name]
+        if name == "transfer spectra":
+            scale = scales.get(name, float(np.abs(r["transfer"]).sum()))
+            for key in ("transfer", "flux"):
+                worst[f"{name}/{key}"] = float(np.abs(g[key] - r[key]).max() / scale / TOL_TRANSFER)
+        elif name.endswith("spectra"):
+            for key, rv in r.items():
+                gv = np.asarray(g[key])
+                if key.startswith("k"):
+                    worst[f"{name}/{key}"] = 0.0 if np.array_equal(gv, rv) else float("inf")
+                    continue
+                if not np.array_equal(np.isnan(gv), np.isnan(rv)):
+                    fail(f"{what} {name}/{key}: NaN in other shells than the float64 path's")
+                ok = ~np.isnan(rv)
+                worst[f"{name}/{key}"] = float(np.abs(gv[ok] - rv[ok]).max()
+                                               / scales.get(name, np.abs(rv[ok]).max()) / TOL_SPECTRA)
+        elif name == "turbulence summary":
+            if list(g) != list(r):
+                fail(f"{what} summary entries {list(g)} vs {list(r)}")
+            for key, rv in r.items():
+                tol = TOL_SUMS if key in SUMMARY_REAL_SPACE else TOL_SPECTRA
+                worst[f"{name}/{key}"] = abs(g[key] - rv) / max(abs(rv), 1e-300) / tol
+        elif name == "velocity gradient statistics":
+            for key, scale in gradient_scales(np, r).items():
+                err = np.abs(np.asarray(g[key]) - np.asarray(r[key])) / np.maximum(scale, 1e-300)
+                worst[f"{name}/{key}"] = float(np.max(err)) / TOL_GRADIENT
+        elif name == "gradient invariant pdfs":
+            for key in ("q_edges", "r_edges"):
+                worst[f"{name}/{key}"] = 0.0 if np.array_equal(g[key], r[key]) else float("inf")
+            worst[f"{name}/q_w"] = abs(g["q_w"] - r["q_w"]) / r["q_w"] / TOL_SPECTRA
+            moved = float(np.abs(g["counts"] - r["counts"]).sum()) / 2
+            worst[f"{name}/counts moved"] = moved / ncells / MAX_QR_MOVED
+        else:  # fields: Helmholtz parts, vorticity, dilatation
+            flat = {f"{k}/{c}": v for k, d in r.items() for c, v in (d.items() if isinstance(d, dict) else [("", d)])}
+            gflat = {f"{k}/{c}": v for k, d in g.items() for c, v in (d.items() if isinstance(d, dict) else [("", d)])}
+            for key, rv in flat.items():
+                scale = scales.get(name, float(np.abs(rv).max()))
+                worst[f"{name}/{key}"] = float(np.abs(gflat[key] - rv).max()) / max(scale, 1e-300) / TOL_SPECTRA
+    top = max(worst, key=worst.get)
+    say(f"phase {phase} {what} vs the plain float64 path: {len(worst)} arrays, worst error/bound "
+        f"{worst[top]!r} ({top})")
+    bad = {k: v for k, v in worst.items() if not v <= 1.0}
+    if bad:
+        fail(f"{what} disagrees with the plain float64 path (error/bound): {bad}")
+    return worst
+
+
+def check_velocity_outputs(np, results, shape):
+    """Every output finite (the spectra: in every shell, as the float64
+    path on a cube) and of its shape."""
+    nbins = max(shape) // 2 - 1
+    for name, out in results.items():
+        leaves = out.items() if isinstance(out, dict) else [("", out)]
+        for key, v in leaves:
+            for sub, a in (v.items() if isinstance(v, dict) else [("", v)]):
+                a = np.asarray(a)
+                if not np.isfinite(a).all():
+                    fail(f"phase 22 {name} {key} {sub}: not finite")
+    for name in ("enstrophy spectra", "helicity spectra"):
+        if name in results and results[name]["power"].shape != (nbins,):
+            fail(f"phase 22 {name}: {results[name]['power'].shape} shells, expected {nbins}")
+    if ("helmholtz decomposition" in results
+            and results["helmholtz decomposition"]["solenoidal"]["velx"].shape != shape):
+        fail("phase 22 helmholtz decomposition: wrong field shape")
+
+
+def helmholtz_identities(torch, vels, phase):
+    """On the card: the Helmholtz parts sum to the input (float32: within
+    4 * 2^-24 of |v| + |comp|); the solenoidal part's divergence and the
+    compressive part's curl vanish to the derivative of float32 rounding:
+    sol = v - comp carries ~2^-24 |v| of it at every wavenumber, which the
+    spectral derivative raises by up to |k| (integer k here, sum n_i/2 at
+    the Nyquist corner), so both are held within TOL_IDENTITY * max |v| *
+    sum_i n_i/2. Also printed: both against the input's own largest
+    divergence or curl."""
+    from fava_tpu_torch.ops import velocity as vel_ops
+
+    hd = vel_ops.helmholtz_decompose(*vels)
+    names = ("velx", "vely", "velz")
+    sol = [hd["solenoidal"][n] for n in names]
+    comp = [hd["compressive"][n] for n in names]
+    del hd
+    out = {"sum": max(float(((s + c - v).abs() / (4 * 2.0**-24 * (v.abs() + c.abs())).clamp(min=1e-30)).max())
+                      for s, c, v in zip(sol, comp, vels))}
+    bound = TOL_IDENTITY * max(float(v.abs().max()) for v in vels) * sum(int(n) // 2 for n in vels[0].shape)
+    deriv = max(float(vel_ops.dilatation(*vels).abs().max()),
+                *(float(w.abs().max()) for w in vel_ops.vorticity(*vels)))
+    div_sol = float(vel_ops.dilatation(*sol).abs().max())
+    del sol
+    curl_comp = max(float(w.abs().max()) for w in vel_ops.vorticity(*comp))
+    out.update({"div_solenoidal": div_sol / bound, "curl_compressive": curl_comp / bound})
+    say(f"phase {phase} Helmholtz identities on the card, error/bound: {out}; max |div sol| and "
+        f"|curl comp| of the input's largest divergence or curl: {div_sol / deriv!r}, {curl_comp / deriv!r}")
+    if not max(out.values()) <= 1.0:
+        fail("the Helmholtz parts do not sum to the input or are not divergence/curl free")
+    return out
+
+
+def layer_breakdown(torch, ck, vel_ops, grad_ops, uni, wall_s):
+    """Where the time of the window's analyses goes, by CUDA events (mean
+    of 3 warm calls; Helmholtz 1): the three forward transforms, the
+    enstrophy density (transforms included), K3 + B4 on it, the whole
+    enstrophy spectrum with its fetch; the summary's and the gradient
+    statistics' device vectors beside the calls that fetch them; the
+    Helmholtz projection on the card beside its warm wall (``wall_s``),
+    the rest of which is the copy of its six fields to the host."""
+    vels = [uni.mesh.data(f"vel{a}") for a in "xyz"]
+    dens = uni.mesh.data("dens")
+    lengths = uni.mesh._domain_lengths()
+    shape = tuple(int(s) for s in vels[0].shape)
+    nbins = max(shape) // 2 - 1
+    p = vel_ops.spectrum_density(vels, shape, lengths, "enstrophy").contiguous()
+    out = {
+        "rfftn_x3_ms": cuda_ms(torch, lambda: [vel_ops._rfft(v) for v in vels], 3),
+        "enstrophy_density_ms": cuda_ms(
+            torch, lambda: vel_ops.spectrum_density(vels, shape, lengths, "enstrophy"), 3),
+        "k3_b4_ms": cuda_ms(torch, lambda: ck.shell_bin_sums_rfft_scalar(p, nbins, shape[2]), 3),
+        "enstrophy_spectrum_ms": cuda_ms(
+            torch, lambda: vel_ops.enstrophy_spectrum(*vels, lengths=lengths), 3),
+        "summary_device_ms": cuda_ms(
+            torch, lambda: vel_ops.turbulence_summary_device(*vels, dens=dens, lengths=lengths), 3),
+        "summary_ms": cuda_ms(
+            torch, lambda: vel_ops.turbulence_summary(*vels, dens=dens, lengths=lengths), 3),
+        "gradient_device_ms": cuda_ms(
+            torch, lambda: grad_ops.gradient_stats_device(vels, lengths=lengths), 3),
+        "gradient_ms": cuda_ms(
+            torch, lambda: grad_ops.velocity_gradient_statistics(*vels, lengths=lengths), 3),
+        "helmholtz_device_ms": cuda_ms(
+            torch, lambda: vel_ops.helmholtz_decompose(*vels, lengths=lengths), 1),
+    }
+    del p
+    out["helmholtz_wall_ms"] = wall_s * 1e3
+    say(f"phase 22 layer breakdown on the window (CUDA events, ms): {json.dumps(out)}")
+    return out
+
+
+def random_velocity_fields(torch, n, seed):
+    """Seeded fields on the card: each velocity component an independent
+    Gaussian field with |v̂(k)| ~ k^(-11/6) (E(k) ~ k^-5/3) and unit rms;
+    lognormal density (sigma_s 0.3), polytropic pressure 0.6 rho^1.4 and
+    gamc 1.4 + 0.05 tanh of a fourth field."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f = torch.fft.fftfreq(n, 1.0 / n, device="cuda")
+    k = torch.sqrt(f[:, None, None] ** 2 + f[None, :, None] ** 2
+                   + torch.fft.rfftfreq(n, 1.0 / n, device="cuda")[None, None, :] ** 2)
+    amp = torch.where(k > 0, k.clamp(min=1.0) ** (-11.0 / 6.0), torch.zeros((), device="cuda"))
+    del k, f
+
+    def field():
+        re = torch.randn(amp.shape, generator=gen, device="cuda")
+        im = torch.randn(amp.shape, generator=gen, device="cuda")
+        v = torch.fft.irfftn(torch.complex(re * amp, im * amp), s=(n, n, n))
+        return v / v.square().mean().sqrt()
+
+    out = {f"vel{a}": field() for a in "xyz"}
+    out["dens"] = torch.exp(0.3 * field())
+    out["pres"] = 0.6 * out["dens"] ** 1.4
+    out["gamc"] = 1.4 + 0.05 * torch.tanh(field())
+    return out
+
+
+def phase_velocity_random(torch, np, workdir: Path):
+    """Phase 22, second file: the analyses the window cannot exercise on a
+    512^3 file of seeded compressible, helical random velocity (see
+    RANDOM_SEED): the Helmholtz identities on the card; the helicity,
+    transfer, decomposed (weighted) spectra and the summary with its Mach
+    statistics, counted and held to the float64 path on the CPU (transfer
+    and flux to sum |T|, the rest to their own scales); the Helmholtz
+    parts, vorticity and dilatation on a CUT_FIELDS^3 cut, each to its
+    own scale."""
+    import fava_tpu_torch
+    from fava_tpu_torch.io import synthetic
+    from fava_tpu_torch.ops import cuda_kernels as ck
+
+    t0 = time.perf_counter()
+    rdir = workdir / "random"
+    rdir.mkdir()
+    names = list(NAMES) + ["pres", "gamc"]
+    synthetic.make_uniform_file(rdir / "rt_hdf5_uniform_0001", ncells=(N, N, N),
+                                field_data=random_velocity_fields(torch, N, RANDOM_SEED))
+    torch.cuda.empty_cache()
+    times = {"make_and_write_s": time.perf_counter() - t0}
+    rnd = fava_tpu_torch.FLASH(rdir)
+    rnd.load(file_type="uni", file_index=0, fields=names)
+    vels = [rnd.mesh.data(f"vel{a}") for a in "xyz"]
+    shape = tuple(int(s) for s in vels[0].shape)
+    times["helmholtz_identities"] = helmholtz_identities(torch, vels, 22)
+    del vels
+    torch.cuda.empty_cache()
+    runs = {k: v for k, v in velocity_runs(rnd).items() if k in RANDOM_RUNS}
+    results, times["walls_s"], totals = run_exact_counts(torch, ck, 22, runs, "random")
+    check_velocity_outputs(np, results, shape)
+
+    t0 = time.perf_counter()
+    cpu = fava_tpu_torch.FLASH(rdir, device="cpu")
+    cpu.load(file_type="uni", file_index=0, fields=names)
+    ref = {k: fn() for k, (fn, _) in velocity_runs(cpu).items() if k in RANDOM_RUNS}
+    c = CUT_FIELDS
+    cut_cpu = fava_tpu_torch.from_arrays(
+        {f"vel{a}": cpu.mesh.data(f"vel{a}")[:c, :c, :c].numpy() for a in "xyz"}, device="cpu")
+    cut_gpu = fava_tpu_torch.from_arrays(
+        {f"vel{a}": rnd.mesh.data(f"vel{a}")[:c, :c, :c] for a in "xyz"})
+    for name in ("helmholtz decomposition", "vorticity", "dilatation"):
+        ref[name] = velocity_runs(cut_cpu)[name][0]()
+        results[name] = velocity_runs(cut_gpu)[name][0]()
+    del cpu, cut_cpu, cut_gpu
+    rnd.mesh = None
+    times["cpu_reference_s"] = time.perf_counter() - t0
+    summary = ref["turbulence summary"]
+    helicity = ref["helicity spectra"]["power"]
+    times["input"] = {"compressive_fraction": summary["compressive_fraction"],
+                      "mach_rms": summary["mach_rms"],
+                      "helicity_shells_negative_positive": [int((helicity < 0).sum()),
+                                                            int((helicity > 0).sum())],
+                      "transfer_abs_sum": float(np.abs(ref["transfer spectra"]["transfer"]).sum())}
+    say(f"phase 22 random file: {json.dumps(times['input'])}; float64 path on the CPU "
+        f"{times['cpu_reference_s']:.1f} s")
+    if not (summary["compressive_fraction"] >= MIN_COMPRESSIVE and min(times["input"][
+            "helicity_shells_negative_positive"]) > 0 and times["input"]["transfer_abs_sum"] > 0):
+        fail("the random file does not exercise the compressive part, helicity and transfer")
+    errs = compare_velocity(np, results, ref, "random-file velocity diagnostics", 22, math.prod(shape))
+    times["error_over_bound"] = {name: max(v for k, v in errs.items() if k.split("/")[0] == name)
+                                 for name in dict.fromkeys(k.split("/")[0] for k in errs)}
+    torch.cuda.empty_cache()
+    return totals, times
+
+
+def series_against_files(np, series, singles, what, phase):
+    """Each snapshot's row of a series equal to the analysis run on its
+    file alone (the same function on the same values): TOL_RERUN of
+    max(|ref|, 1) per entry."""
+    worst = 0.0
+    for j, single in enumerate(singles):
+        for key, r in single.items():
+            err = np.abs(np.asarray(series[key][j]) - np.asarray(r)).max() / max(np.abs(r).max(), 1.0)
+            worst = max(worst, float(err) / TOL_RERUN)
+    say(f"phase {phase} {what}: {len(singles)} rows against the analysis on each file, worst "
+        f"error/bound {worst!r}")
+    if not worst <= 1.0:
+        fail(f"{what} disagrees with the analysis run on each file")
+    return worst
+
+
+def phase_velocity(torch, np, workdir: Path, card: str):
+    """Phase 22: the 11 velocity-diagnostic and gradient analyses on the
+    512^3 window (and the enstrophy spectrum on its 511-wide cut), the
+    kernels on their signed and Q-R inputs, and summary_series and
+    gradient_series over phase 17's files."""
+    import fava_tpu_torch
+    from fava_tpu_torch.ops import cuda_kernels as ck
+    from fava_tpu_torch.ops import gradients as grad_ops
+    from fava_tpu_torch.ops import velocity as vel_ops
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    uni = fava_tpu_torch.FLASH(workdir)
+    uni.load(file_type="uni", file_index=0, fields=list(NAMES))
+    vels = [uni.mesh.data(f"vel{a}") for a in "xyz"]
+    shape = tuple(int(s) for s in vels[0].shape)
+    times = {"card": card}
+
+    # The kernels on this phase's inputs: the signed helicity density through
+    # K3 + B4 (and B10 on the 511-wide cut), B8 on the card's own Q and R.
+    p = vel_ops.spectrum_density(vels, shape, None, "helicity").contiguous()
+    times["signed_binning"] = check_signed_binning(torch, ck, p, shape[2], 22, "K3 + B4")
+    cut = [v[: N - 1].contiguous() for v in vels]
+    p = vel_ops.spectrum_density(cut, (N - 1,) + shape[1:], None, "helicity").contiguous()
+    times["signed_binning_odd"] = check_signed_binning(torch, ck, p, shape[2], 22, "B10")
+    del p
+    spacings = grad_ops._spacings(shape, uni.mesh._domain_lengths())
+    Q, R, qw = grad_ops.invariant_fields(vels, spacings, "periodic")
+    qs = max(float(qw), grad_ops.QW_FLOOR)
+    xe, ye = np.linspace(-8.0 * qs, 8.0 * qs, 101), np.linspace(-8.0 * qs**1.5, 8.0 * qs**1.5, 101)
+    got = ck.pdf2d_counts(Q.reshape(-1), R.reshape(-1), xe, ye)
+    ref = ck._pdf2d_plain(Q.reshape(-1).double(), R.reshape(-1).double(), xe, ye)
+    if not torch.equal(got, ref):
+        fail(f"B8 on the card's Q and R differs from its plain version in "
+             f"{int((got != ref).sum())} bins")
+    say(f"phase 22 B8 on the card's float32 Q and R ({Q.numel()} cells, Q_w {float(qw)!r}): counts "
+        f"equal to the plain version's, {int(ref.sum())} inside")
+    del Q, R, got, ref
+    times["helmholtz_identities"] = helmholtz_identities(torch, vels, 22)
+    scales = signed_scales(torch, ck, vel_ops, vels, uni.mesh._domain_lengths())
+    del vels
+    torch.cuda.empty_cache()
+
+    results, walls, totals = run_exact_counts(torch, ck, 22, velocity_runs(uni), "window")
+    check_velocity_outputs(np, results, shape)
+    times["layers_ms"] = layer_breakdown(torch, ck, vel_ops, grad_ops, uni,
+                                         walls["helmholtz decomposition"])
+    torch.cuda.empty_cache()
+    odd = fava_tpu_torch.from_arrays({f"vel{a}": v for a, v in zip("xyz", cut)})
+    odd_ens, odd_counts = counted(torch, ck, "511x512x512 enstrophy spectra", odd.enstrophy_spectra,
+                                  ("shell_bin_sums_unfolded",), 22)
+    if odd_counts["shell_bin_sums_unfolded"] != 1 or odd_counts["fold_quadrants_pair"]:
+        fail(f"the odd-extent enstrophy spectrum launched {odd_counts}")
+    add_counts(totals, odd_counts)
+    walls["enstrophy spectra 511"] = wall_per_call(torch, odd.enstrophy_spectra, 1)[0]
+    del odd, cut
+    times["walls_s"] = walls
+    times["peak_allocated_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+
+    # The float64 path on the CPU over the same float32 values; the fields
+    # on a 128^3 cut of the window.
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    cpu = fava_tpu_torch.FLASH(workdir, device="cpu")
+    cpu.load(file_type="uni", file_index=0, fields=list(NAMES))
+    field_runs = ("helmholtz decomposition", "vorticity", "dilatation")
+    ref = {name: fn() for name, (fn, _) in velocity_runs(cpu).items() if name not in field_runs}
+    c = CUT_FIELDS
+    cut_cpu = fava_tpu_torch.from_arrays(
+        {f"vel{a}": cpu.mesh.data(f"vel{a}")[:c, :c, :c].numpy() for a in "xyz"}, device="cpu")
+    cut_gpu = fava_tpu_torch.from_arrays(
+        {f"vel{a}": uni.mesh.data(f"vel{a}")[:c, :c, :c] for a in "xyz"})
+    for name in field_runs:
+        ref[name] = velocity_runs(cut_cpu)[name][0]()
+        results[name] = velocity_runs(cut_gpu)[name][0]()
+    # A part or a derivative may vanish (a solenoidal window has no
+    # compressive part): the parts are held to the largest |v| of the cut,
+    # vorticity and dilatation to its largest first derivative.
+    scales["helmholtz decomposition"] = max(float(cut_cpu.mesh.data(f"vel{a}").abs().max()) for a in "xyz")
+    scales["vorticity"] = scales["dilatation"] = max(
+        float(np.abs(ref["dilatation"]["dilatation"]).max()),
+        *(float(np.abs(w).max()) for w in ref["vorticity"].values()))
+    odd_cpu = fava_tpu_torch.from_arrays(
+        {f"vel{a}": cpu.mesh.data(f"vel{a}")[: N - 1].numpy() for a in "xyz"}, device="cpu")
+    ref_odd = {"enstrophy spectra": odd_cpu.enstrophy_spectra()}
+    del cpu, cut_cpu, cut_gpu, odd_cpu
+    times["cpu_reference_s"] = time.perf_counter() - t0
+    say(f"phase 22 plain float64 path on the CPU: {times['cpu_reference_s']:.1f} s")
+    times["scales"] = scales
+    errs = compare_velocity(np, results, ref, "window velocity diagnostics", 22, math.prod(shape),
+                            scales)
+    odd_errs = compare_velocity(np, {"enstrophy spectra": odd_ens}, ref_odd, "511-wide enstrophy", 22,
+                                (N - 1) * N * N)
+    dec = results["decomposed spectra"]
+    times["decomposed_identity"] = float(np.abs(dec["total"] - dec["solenoidal"] - dec["compressive"]).max()
+                                         / np.abs(dec["total"]).max()) / TOL_SPECTRA
+    say(f"phase 22 decomposed total = solenoidal + compressive on the card: error/bound "
+        f"{times['decomposed_identity']!r}")
+    if not times["decomposed_identity"] <= 1.0:
+        fail("the decomposed spectra do not add up")
+    times["error_over_bound"] = {name: max(v for k, v in errs.items() if k.split("/")[0] == name)
+                                 for name in dict.fromkeys(k.split("/")[0] for k in errs)}
+    times["error_over_bound"]["enstrophy spectra 511"] = max(odd_errs.values())
+    del results, ref
+    uni.mesh = None
+    torch.cuda.empty_cache()
+    random_totals, times["random"] = phase_velocity_random(torch, np, workdir)
+    add_counts(totals, random_totals)
+
+    # The two series over phase 17's four 512^3 files, each row held to the
+    # analysis on its file alone.
+    model = fava_tpu_torch.FLASH(workdir)
+    nsnap = model.nfiles("uni")
+    for what, series_fn, single_fn in (
+            ("summary_series", model.summary_series, lambda: model.turbulence_summary()),
+            ("gradient_series", model.gradient_series, lambda: model.velocity_gradient_statistics())):
+        t0 = time.perf_counter()
+        series, n = counted(torch, ck, what, lambda: series_fn(file_type="uni"), (), 22)
+        times[f"{what}_per_snapshot_s"] = (time.perf_counter() - t0) / nsnap
+        if any(n.values()):
+            fail(f"{what} launched {n}; it runs no kernel")
+        singles = []
+        for j in range(nsnap):
+            model.load(file_type="uni", file_index=j, fields=list(NAMES))
+            singles.append(single_fn())
+        model.mesh = None
+        times[f"{what}_error_over_bound"] = series_against_files(np, series, singles, what, 22)
+    del model
+    torch.cuda.empty_cache()
+    times["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase 22 velocity diagnostics timings: {json.dumps(times)}")
+    return totals, times
+
+
+# ---------------------------------------------------------------------------
 # Phase 18: the fused-spectrum path (B9, B11, B12)
 
 
@@ -2860,10 +3454,12 @@ def main() -> None:
         entry_launches, entry_times = phase_entry_point(torch, np, workdir, cpu)
         del cpu
         series_launches, series_times = phase_series(torch, np, workdir)
+        torch.cuda.empty_cache()
+        velocity_launches, _ = phase_velocity(torch, np, workdir, card)
     torch.cuda.empty_cache()
     pipe_launches, pipe_times = phase_pipeline(torch, np)
     for counts in (amr4_launches, win_launches, odd_launches, entry_launches, series_launches,
-                   pipe_launches):
+                   velocity_launches, pipe_launches):
         add_counts(launches, counts)
     say(f"phase 11-12 stage-4 timings: {json.dumps({'card': card, 'window': win_times, 'odd': odd_times})}")
     say(f"phase 16-17 entry point and series timings: "

@@ -1,11 +1,11 @@
 """Multi-snapshot time-series drivers on the async ingest.
 
 Counterpart of fava_tpu/analysis/time_series.py, single device: the
-flagship, Reynolds-stress and Favre series. ``io/ingest.SnapshotPrefetcher``
-overlaps the read and the copy to the card of snapshot N+1 with the
-compute on snapshot N. The pod branch of ``flagship_series`` is ROADMAP
-A11; the summary, gradient and particle series wait for their analyses
-(A8, A9).
+flagship, Reynolds-stress, Favre, turbulence-summary and
+gradient-statistics series. ``io/ingest.SnapshotPrefetcher`` overlaps the
+read and the copy to the card of snapshot N+1 with the compute on
+snapshot N. The pod branch of ``flagship_series`` is ROADMAP A11; the
+particle series waits for its analyses (A9).
 """
 
 from __future__ import annotations
@@ -231,4 +231,134 @@ def flagship_series(
 
     result: Dict[str, np.ndarray] = {k: np.concatenate(v) for k, v in chunks.items()}
     result["times"] = np.asarray(times)
+    return result
+
+
+def _packed_stat_series(paths, fields, make_vec, prefetch_depth: int, device, group: int = 16):
+    """The packed-vector series loop of ``summary_series`` and
+    ``gradient_series``: prefetch each snapshot, ``make_vec(snap) ->
+    (vector on the device, names)``, and fetch the vectors ``group``
+    snapshots at a time as one stacked array. Returns ``(times (nfiles,),
+    names, table (nfiles, nstats) or None)``; raises when the columns
+    change between files (optional fields present in only some)."""
+    times: list = []
+    names: Optional[tuple] = None
+    pending: list = []  # packed vectors still on the device
+    rows: list = []  # fetched (group, nstats) blocks
+
+    def flush():
+        if pending:
+            rows.append(torch.stack(pending).cpu().numpy().astype(np.float64))
+            pending.clear()
+
+    for snap in SnapshotPrefetcher(paths, fields, depth=prefetch_depth, strict=False, device=device):
+        vec, snap_names = make_vec(snap)
+        if names is None:
+            names = tuple(snap_names)
+        elif tuple(snap_names) != names:
+            missing = sorted(set(names) - set(snap_names))
+            extra = sorted(set(snap_names) - set(names))
+            detail = (
+                f"missing {missing}, unexpected {extra}"
+                if (missing or extra)
+                else f"same columns in a different order: got {list(snap_names)}, "
+                f"expected {list(names)}"
+            )
+            raise ValueError(f"{snap.path}: inconsistent stat columns across the series ({detail})")
+        times.append(snap.time)
+        pending.append(vec)
+        if len(pending) >= group:
+            flush()
+    flush()
+    table = np.concatenate(rows) if rows else None
+    return np.asarray(times), names, table
+
+
+def _series_velocities(snap: Snapshot, what: str):
+    """(ndim, domain lengths, the in-plane velocity volumes) of a snapshot."""
+    ndim = int(snap.scalars["integer"]["dimensionality"])
+    reals = snap.runtime_parameters["real"]
+    lengths = tuple(float(reals.get(f"{a}max", 1.0)) - float(reals.get(f"{a}min", 0.0))
+                    for a in "xyz"[:ndim])
+    vels = [_uniform_volume(snap, f"vel{a}", what) for a in "xyz"[:ndim]]
+    if any(v is None for v in vels):
+        raise KeyError(f"{snap.path}: missing velocity components")
+    return ndim, lengths, [v.reshape(v.shape[:ndim]) for v in vels]
+
+
+@Model.register_analysis(use_timer=True)
+def summary_series(
+    self,
+    file_type: str = "uni",
+    gamma: float = 5.0 / 3.0,
+    prefetch_depth: int = 2,
+    file_indices: Optional[Sequence[int]] = None,
+) -> Dict[str, np.ndarray]:
+    """Turbulence-summary time series over a uniform-file catalog: one
+    ``ops/velocity.turbulence_summary_device`` per snapshot on the
+    prefetched fields, the packed vectors fetched 16 snapshots at a time.
+    ``pres``/``gamc`` ride along when the files carry them (the Mach
+    columns appear only then; ``gamma`` is the fallback ratio). Returns
+    {"times", <scalar name>: (nfiles,) arrays}."""
+    from fava_tpu_torch.ops import velocity as vel_ops
+
+    _indices, paths = mesh_series_paths(self, file_type, file_indices)
+    fields = ["dens", "velx", "vely", "velz", "pres", "gamc"]
+
+    def make_vec(snap: Snapshot):
+        ndim, lengths, vels = _series_velocities(snap, "summary_series")
+
+        def squeeze(name):
+            v = _uniform_volume(snap, name, "summary_series")
+            return None if v is None else v.reshape(v.shape[:ndim])
+
+        dens, pres, gamc = squeeze("dens"), squeeze("pres"), squeeze("gamc")
+        return vel_ops.turbulence_summary_device(
+            *vels, dens=dens, pres=pres,
+            gamma=gamc if (pres is not None and gamc is not None) else gamma, lengths=lengths,
+        )
+
+    times, names, table = _packed_stat_series(paths, fields, make_vec, prefetch_depth, self.device)
+    result: Dict[str, np.ndarray] = (
+        {k: table[:, i] for i, k in enumerate(names)} if table is not None else {}
+    )
+    result["times"] = times
+    return result
+
+
+@Model.register_analysis(use_timer=True)
+def gradient_series(
+    self,
+    file_type: str = "uni",
+    boundary: str = "periodic",
+    prefetch_depth: int = 2,
+    file_indices: Optional[Sequence[int]] = None,
+) -> Dict[str, np.ndarray]:
+    """Velocity-gradient statistics time series over a uniform catalog
+    (ops/gradients.py, moments centred on the device), on the loop of
+    :func:`summary_series`. Returns {"times": (nfiles,), <scalar>:
+    (nfiles,), <table>: (nfiles, nd, nd) / (nfiles, nd) arrays}."""
+    from fava_tpu_torch.ops import gradients as grad_ops
+
+    _indices, paths = mesh_series_paths(self, file_type, file_indices)
+
+    def make_vec(snap: Snapshot):
+        _ndim, lengths, vels = _series_velocities(snap, "gradient_series")
+        return grad_ops.gradient_stats_device(vels, lengths=lengths, boundary=boundary)
+
+    times, names, table = _packed_stat_series(paths, ["velx", "vely", "velz"], make_vec,
+                                              prefetch_depth, self.device)
+    result: Dict[str, np.ndarray] = {"times": times}
+    if table is not None:
+        # The packed length identifies nd (48 entries in 3D, 22 in 2D).
+        by_len = {len(grad_ops.packed_names(nd)): nd for nd in (3, 2)}
+        if len(names) not in by_len:
+            raise RuntimeError(
+                f"gradient_series: packed vector length {len(names)} matches neither the 3D "
+                f"({len(grad_ops.packed_names(3))}) nor the 2D ({len(grad_ops.packed_names(2))}) "
+                "layout"
+            )
+        reports = [grad_ops.assemble_gradient_stats(row, by_len[len(names)]) for row in table]
+        for key in reports[0]:
+            result[key] = np.stack([np.asarray(r[key]) for r in reports])
     return result

@@ -10,9 +10,13 @@ functions with their scaling exponents and increment PDFs, the flame
 surface density and the line-of-sight projection.
 ``reynolds_stress``, ``favre_profiles``, the slice profiles, ``mass_sum``
 and the volume averages are FLASH's: on one block profiled along x the
-profiles take the uniform fast case (K1/K2). The velocity, gradient,
+profiles take the uniform fast case (K1/K2). The velocity diagnostics
+(Helmholtz parts, vorticity, dilatation, the enstrophy, helicity,
+transfer, decomposed and anisotropic spectra, the turbulence summary)
+and the gradient statistics and Q-R PDF run in core (ops/velocity.py,
+ops/gradients.py); their streamed drivers are ROADMAP A10. The
 filtering and two-point analyses raise NotImplementedError naming
-ROADMAP A8; their streamed drivers are A10.
+ROADMAP A8c.
 """
 
 from __future__ import annotations
@@ -28,10 +32,12 @@ from fava_tpu_torch.mesh.flash_amr import FLASH
 from fava_tpu_torch.models.model import Model
 from fava_tpu_torch.ops import flame as flame_ops
 from fava_tpu_torch.ops import fractal as fractal_ops
+from fava_tpu_torch.ops import gradients as grad_ops
 from fava_tpu_torch.ops import outofcore
 from fava_tpu_torch.ops import projection as projection_ops
 from fava_tpu_torch.ops import spectra as spectra_ops
 from fava_tpu_torch.ops import structure as structure_ops
+from fava_tpu_torch.ops import velocity as vel_ops
 from fava_tpu_torch.ops import volume as volume_ops
 from fava_tpu_torch.utils import field_dtype, timer
 
@@ -45,20 +51,9 @@ def _not_ported(item: str, what: str):
     return method
 
 
-# fava_tpu's uniform-mesh velocity, gradient, filtering and two-point
-# analyses (its flash_uniform.py), which ROADMAP A8 ports.
+# fava_tpu's uniform-mesh filtering and two-point analyses (its
+# flash_uniform.py), which ROADMAP A8c ports.
 _A8_METHODS = (
-    "helmholtz_decomposition",
-    "vorticity",
-    "dilatation",
-    "enstrophy_spectra",
-    "helicity_spectra",
-    "velocity_gradient_statistics",
-    "gradient_invariant_pdfs",
-    "decomposed_kinetic_energy_spectra",
-    "turbulence_summary",
-    "anisotropic_kinetic_energy_spectra",
-    "transfer_spectra",
     "filtered_kinetic_energy_flux",
     "two_point_correlation",
     "velocity_correlations",
@@ -375,6 +370,137 @@ class FlashUniform(FLASH):
             seed=seed,
         )
 
+    @staticmethod
+    def _no_stream(what: str, streamed: bool) -> None:
+        if streamed:
+            raise NotImplementedError(
+                f"{what}(streamed=True) is not ported yet (ROADMAP A10); the in-core path runs "
+                "with streamed=False"
+            )
+
+    @timer
+    def helmholtz_decomposition(self) -> Dict[str, Dict[str, np.ndarray]]:
+        """Solenoidal/compressive velocity split by spectral projection on
+        this domain's physical wavenumber grid (ops/velocity.py)."""
+        out = vel_ops.helmholtz_decompose(*self._velocities(), lengths=self._domain_lengths())
+        return {part: {name: v.cpu().numpy() for name, v in comps.items()}
+                for part, comps in out.items()}
+
+    @timer
+    def vorticity(self) -> Dict[str, np.ndarray]:
+        """Vorticity by spectral differentiation (2D: the scalar
+        out-of-plane component only)."""
+        out = vel_ops.vorticity(*self._velocities(), lengths=self._domain_lengths())
+        if self.ndim == 2:
+            return {"vortz": out.cpu().numpy()}
+        return {k: v.cpu().numpy() for k, v in zip(("vortx", "vorty", "vortz"), out)}
+
+    @timer
+    def dilatation(self) -> Dict[str, np.ndarray]:
+        """Dilatation (velocity divergence) by spectral differentiation."""
+        d = vel_ops.dilatation(*self._velocities(), lengths=self._domain_lengths())
+        return {"dilatation": d.cpu().numpy()}
+
+    @timer
+    def enstrophy_spectra(self) -> Dict[str, np.ndarray]:
+        """Shell-binned enstrophy spectrum (KE-spectra conventions)."""
+        return vel_ops.enstrophy_spectrum(*self._velocities(), lengths=self._domain_lengths())
+
+    @timer
+    def helicity_spectra(self) -> Dict[str, np.ndarray]:
+        """Shell-binned signed helicity spectrum (3D only: helicity
+        vanishes identically in in-plane 2D flows)."""
+        if self.ndim != 3:
+            raise ValueError("helicity vanishes identically in 2D flows (3D datasets only)")
+        return vel_ops.helicity_spectrum(*self._velocities(), lengths=self._domain_lengths())
+
+    @timer
+    def velocity_gradient_statistics(
+        self,
+        boundary: str = "periodic",
+        streamed: bool = False,
+    ) -> Dict[str, Any]:
+        """Velocity-gradient tensor statistics: central-difference g_ij
+        moments to fourth order, derivative skewness and flatness,
+        pseudo-dissipation, enstrophy and dilatation mean squares, Taylor
+        microscales (ops/gradients.py). ``boundary="interior"`` drops the
+        periodic wrap (windowed extracts such as the flame windows). The
+        streamed path is ROADMAP A10."""
+        self._no_stream("velocity_gradient_statistics", streamed)
+        return grad_ops.velocity_gradient_statistics(
+            *self._velocities(), lengths=self._domain_lengths(), boundary=boundary
+        )
+
+    @timer
+    def gradient_invariant_pdfs(
+        self, nbins=(100, 100), qr_range: float = 8.0, boundary: str = "periodic"
+    ) -> Dict[str, Any]:
+        """Joint PDF of the velocity-gradient invariants (Q, R) on axes
+        normalised by Q_w = <omega^2>/4, exact counts through the
+        joint-histogram kernel (ops/gradients.gradient_invariant_pdfs).
+        3D datasets only."""
+        return grad_ops.gradient_invariant_pdfs(
+            *self._velocities(), lengths=self._domain_lengths(), nbins=nbins,
+            qr_range=qr_range, boundary=boundary,
+        )
+
+    @timer
+    def decomposed_kinetic_energy_spectra(self, weighted: bool = False) -> Dict[str, np.ndarray]:
+        """Solenoidal/compressive split of the KE spectrum (the Helmholtz
+        projection in k-space: total == solenoidal + compressive shell by
+        shell). ``weighted=True`` transforms sqrt(rho) u
+        (ops/velocity.decomposed_ke_spectra)."""
+        return vel_ops.decomposed_ke_spectra(
+            *self._velocities(),
+            dens=self._scalar_volume("dens") if weighted else None,
+            lengths=self._domain_lengths(),
+        )
+
+    @timer
+    def turbulence_summary(
+        self,
+        gamma: float = 5.0 / 3.0,
+        streamed: bool = False,
+    ) -> Dict[str, float]:
+        """One-call scalar turbulence report (ops/velocity.turbulence_summary):
+        u_rms and KE, integral and Taylor scales, the solenoidal and
+        compressive energy fractions, vorticity and dilatation rms, the
+        log-density moments, and the Mach statistics when this file
+        carries ``pres`` (its per-cell ``gamc`` over the scalar ``gamma``
+        when present). The streamed path is ROADMAP A10."""
+        self._no_stream("turbulence_summary", streamed)
+
+        def opt(name):
+            return None if self.data(name) is None else self._scalar_volume(name)
+
+        pres = opt("pres")
+        gamc = opt("gamc") if pres is not None else None
+        return vel_ops.turbulence_summary(
+            *self._velocities(),
+            dens=opt("dens"),
+            pres=pres,
+            gamma=gamc if gamc is not None else gamma,
+            lengths=self._domain_lengths(),
+        )
+
+    @timer
+    def anisotropic_kinetic_energy_spectra(self, axis: int = 0) -> Dict[str, np.ndarray]:
+        """Axis-resolved KE spectra relative to ``axis`` (default x, the
+        flame-propagation axis): parallel and perpendicular sums, each
+        split into axial and transverse components, energy-exact
+        (ops/velocity.anisotropic_ke_spectra)."""
+        return vel_ops.anisotropic_ke_spectra(
+            *self._velocities(), axis=axis, lengths=self._domain_lengths()
+        )
+
+    @timer
+    def transfer_spectra(self, dealias: bool = False) -> Dict[str, np.ndarray]:
+        """Nonlinear kinetic-energy transfer T(k) and flux Π(k), shell
+        sums (ops/velocity.transfer_spectrum)."""
+        return vel_ops.transfer_spectrum(
+            *self._velocities(), lengths=self._domain_lengths(), dealias=dealias
+        )
+
     def _scalar_volume(self, name: str) -> torch.Tensor:
         """Scalar field volume squeezed to ``ndim`` axes (2D datasets carry
         (nx, ny, 1) volumes), so it pairs cell by cell with the others."""
@@ -476,6 +602,6 @@ class FlashUniform(FLASH):
 
 
 for _name in _A8_METHODS:
-    setattr(FlashUniform, _name, _not_ported("A8", _name))
+    setattr(FlashUniform, _name, _not_ported("A8c", _name))
 
 del _name

@@ -1,7 +1,7 @@
 """Model base class: the port's own mesh and analysis registries.
 
-Counterpart of fava_tpu/models/model.py. The registries are separate
-from fava_tpu's on purpose: ``register_analysis`` skips names the class
+Counterpart of fava_tpu/models/model.py. The port keeps registries of
+its own on purpose (not fava_tpu's): ``register_analysis`` skips names the class
 already has, so a shared Model would keep whichever package registered
 first. The HDF5 result writers (``save_to_hdf5`` and its helpers) go
 through the port's own codec, ``io/h5lite.py``. ``load`` sniffs a file

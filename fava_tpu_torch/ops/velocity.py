@@ -1,0 +1,582 @@
+"""Spectral velocity-field diagnostics: Helmholtz decomposition,
+vorticity, dilatation, the enstrophy, helicity, transfer, decomposed and
+anisotropic spectra, and the turbulence summary.
+
+Counterpart of fava_tpu/ops/velocity.py, single device. The transforms
+are ``torch.fft`` (cuFFT on the card): an unnormalised forward ``rfftn``
+over every axis and an ``irfftn`` that carries the whole 1/N, so the two
+round-trip exactly, as fava_tpu's ``rfftn_fast``/``irfftn_fast``. The 3D
+spectra bin their density through ``cuda_kernels.shell_bin_sums_rfft_scalar``
+(K3 + the single-channel walk for even x and y extents, B10 otherwise);
+the density is formed in the field dtype (float32 on the card) and the
+walk sums it in float64. 2D data bins by a plain Hermitian-weighted
+``index_add_``, as fava_tpu's scatter. The summary's sums and moments are
+float64 on every device.
+
+Conventions (fava_tpu's, unchanged):
+
+* Periodic boxes. Wavenumbers are the signed integer grid, scaled by
+  2*pi/L_i per axis when ``lengths`` is given, else integer k (the
+  2*pi-periodic unit box).
+* Every spectral operator zeroes the Nyquist wavenumber of even axes, so
+  the Nyquist modes join the k = 0 mode in the solenoidal part.
+* Spectra are shell means over the integer-|k| grid with Hermitian
+  weights, 1/N forward transforms, NaN for empty shells and the
+  k^(d-1) * 2*pi*(d-1) integral factor of the KE spectra; transfer and
+  flux are shell sums (they telescope).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from fava_tpu_torch.ops import cuda_kernels
+from fava_tpu_torch.utils import accum_dtype
+
+GUARD = 1e-30  # fava_tpu's floor of every divisor that is an energy, |k| or |k|^2
+
+
+def _phys_factors(lengths: Optional[Sequence[float]], nd: int):
+    """Per-axis 2*pi/L factors turning integer wavenumbers into physical
+    ones (unit factors when no domain lengths are given)."""
+    if lengths is None:
+        return (1.0,) * nd
+    if len(lengths) != nd:
+        raise ValueError(f"lengths must have {nd} entries, got {len(lengths)}")
+    return tuple(2.0 * np.pi / float(L) for L in lengths)
+
+
+def _signed_host(n: int) -> np.ndarray:
+    """Signed integer wavenumbers of an axis of length n (float64, host)."""
+    j = np.arange(n)
+    return np.where(j <= (n - 1) // 2, j, j - n).astype(np.float64)
+
+
+def _axis_view(values: np.ndarray, axis: int, nd: int, dtype, device) -> torch.Tensor:
+    kshape = [1] * nd
+    kshape[axis] = len(values)
+    return torch.as_tensor(values, dtype=dtype, device=device).reshape(kshape)
+
+
+def _k_grids(shape: Tuple[int, ...], dtype, device, lengths, zero_nyquist: bool):
+    """Broadcastable wavenumber grids on the trailing-axis rfft
+    half-spectrum of a 2D or 3D volume (computed in float64 on the host,
+    then cast). ``zero_nyquist`` zeroes the Nyquist entry of even axes."""
+    nd = len(shape)
+    grids = []
+    for axis, (n, f) in enumerate(zip(shape, _phys_factors(lengths, nd))):
+        kv = np.arange(n // 2 + 1, dtype=np.float64) if axis == nd - 1 else _signed_host(n)
+        kv = kv * f
+        if zero_nyquist and n % 2 == 0:
+            kv[n // 2] = 0.0
+        grids.append(_axis_view(kv, axis, nd, dtype, device))
+    return grids
+
+
+def _rfft(v: torch.Tensor) -> torch.Tensor:
+    """Unnormalised forward real transform over every axis."""
+    return torch.fft.rfftn(v)
+
+
+def _irfft(spec: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """Inverse of ``_rfft`` (carries the whole 1/N) onto ``shape``."""
+    return torch.fft.irfftn(spec, s=shape)
+
+
+def _abs2(z: torch.Tensor) -> torch.Tensor:
+    return z.real.square() + z.imag.square()
+
+
+def _vorticity_hats(vhats, shape, lengths):
+    """i k x v̂ on the half-spectrum grid (Nyquist-zeroed k)."""
+    kx, ky, kz = _k_grids(shape, vhats[0].real.dtype, vhats[0].device, lengths, True)
+    wx, wy, wz = vhats
+    return (1j * (ky * wz - kz * wy), 1j * (kz * wx - kx * wz), 1j * (kx * wy - ky * wx))
+
+
+def _check_vels(vels, lengths, what: str):
+    """Common validation; returns (shape, lengths as a tuple or None)."""
+    shape = tuple(int(s) for s in vels[0].shape)
+    nd = len(shape)
+    if nd not in (2, 3):
+        raise ValueError(f"{what} requires 2D or 3D velocity volumes, got {nd}D")
+    if len(vels) != nd:
+        raise ValueError(f"{what}: {nd}D flow needs {nd} velocity components, got {len(vels)}")
+    for i, v in enumerate(vels[1:], start=1):
+        # a broadcast-compatible mismatch (an unsqueezed (n, n, 1)
+        # component) would silently give full-shaped wrong fields
+        if tuple(int(s) for s in v.shape) != shape:
+            raise ValueError(
+                f"{what}: velocity component {i} shape {tuple(v.shape)} "
+                f"does not match component 0 shape {shape}"
+            )
+    if lengths is not None and len(lengths) != nd:
+        raise ValueError(f"lengths must have {nd} entries, got {len(lengths)}")
+    key = None if lengths is None else tuple(float(L) for L in lengths)
+    return shape, key
+
+
+def _vels(velx, vely, velz):
+    return (velx, vely) if velz is None else (velx, vely, velz)
+
+
+def _compressive_hats(vhats, ks):
+    """k (k . v̂) / |k|^2 per component: the compressive projection
+    (|k|^2 floored at 1e-30, so k = 0 and the Nyquist modes stay out)."""
+    k2 = sum(k * k for k in ks)
+    div = sum(k * w for k, w in zip(ks, vhats)) / torch.clamp(k2, min=GUARD)
+    return [k * div for k in ks]
+
+
+def helmholtz_decompose(velx, vely, velz=None, lengths=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Solenoidal/compressive split of a periodic velocity field.
+
+    The compressive (curl-free) part is the spectral projection onto k̂;
+    the solenoidal part is the remainder, so the two sum to the input
+    exactly. The k = 0 and Nyquist modes land in the solenoidal part.
+    2D flows pass two (nx, ny) components and ``velz=None``. Returns
+    {"solenoidal": {velx, vely[, velz]}, "compressive": {...}} on the
+    input's device.
+    """
+    vels = _vels(velx, vely, velz)
+    shape, key = _check_vels(vels, lengths, "helmholtz_decompose")
+    vhats = [_rfft(v) for v in vels]
+    ks = _k_grids(shape, vhats[0].real.dtype, vels[0].device, key, True)
+    comp_hats = _compressive_hats(vhats, ks)
+    del vhats
+    comp = []
+    while comp_hats:
+        comp.append(_irfft(comp_hats.pop(0), shape))
+    sol = [v - c for v, c in zip(vels, comp)]
+    names = ("velx", "vely", "velz")[: len(vels)]
+    return {"solenoidal": dict(zip(names, sol)), "compressive": dict(zip(names, comp))}
+
+
+def vorticity(velx, vely, velz=None, lengths=None):
+    """Vorticity ω = ∇ x v by spectral differentiation (periodic): the
+    (ωx, ωy, ωz) tuple in 3D, the scalar ∂x vy - ∂y vx in 2D."""
+    vels = _vels(velx, vely, velz)
+    shape, key = _check_vels(vels, lengths, "vorticity")
+    vhats = [_rfft(v) for v in vels]
+    if len(shape) == 2:
+        kx, ky = _k_grids(shape, vhats[0].real.dtype, vels[0].device, key, True)
+        return _irfft(1j * (kx * vhats[1] - ky * vhats[0]), shape)
+    whats = list(_vorticity_hats(vhats, shape, key))
+    del vhats
+    return tuple(_irfft(whats.pop(0), shape) for _ in range(3))
+
+
+def dilatation(velx, vely, velz=None, lengths=None) -> torch.Tensor:
+    """Dilatation θ = ∇ . v by spectral differentiation (periodic)."""
+    vels = _vels(velx, vely, velz)
+    shape, key = _check_vels(vels, lengths, "dilatation")
+    vhats = [_rfft(v) for v in vels]
+    ks = _k_grids(shape, vhats[0].real.dtype, vels[0].device, key, True)
+    return _irfft(1j * sum(k * w for k, w in zip(ks, vhats)), shape)
+
+
+def _hermitian_weights(shape: Tuple[int, ...], dtype, device) -> torch.Tensor:
+    """Trailing-axis conjugate-pair weights on the rfft half grid (1 for
+    the self-conjugate k = 0 and Nyquist planes, 2 otherwise)."""
+    n_last = shape[-1]
+    j = np.arange(n_last // 2 + 1)
+    self_conj = j == 0
+    if n_last % 2 == 0:
+        self_conj = self_conj | (j == n_last // 2)
+    return _axis_view(np.where(self_conj, 1.0, 2.0), len(shape) - 1, len(shape), dtype, device)
+
+
+def _bin_rfft_stats(p: torch.Tensor, full_shape, nbins: int):
+    """(counts, sums) float64 Hermitian-weighted shell statistics of one
+    density on the trailing-axis half-spectrum. 3D: the scalar shell
+    binning of ``cuda_kernels`` (K3 + single-channel walk, or B10); 2D: a
+    Hermitian-weighted ``index_add_`` (shells floor(|k| + 0.5), cells past
+    nbins - 0.5 dropped)."""
+    if len(full_shape) == 3:
+        return cuda_kernels.shell_bin_sums_rfft_scalar(p.contiguous(), nbins, full_shape[-1])
+    adt = accum_dtype()
+    ks = _k_grids(full_shape, adt, p.device, None, False)
+    k_abs = torch.sqrt(sum(k * k for k in ks))
+    weight = _hermitian_weights(full_shape, adt, p.device).expand(k_abs.shape)
+    keep = (k_abs <= nbins - 0.5).reshape(-1)
+    idx = torch.clamp(torch.floor(k_abs + 0.5).to(torch.int64), 0, nbins - 1).reshape(-1)[keep]
+    w = weight.reshape(-1)[keep]
+    counts = torch.zeros(nbins, dtype=adt, device=p.device).index_add_(0, idx, w)
+    sums = torch.zeros(nbins, dtype=adt, device=p.device)
+    sums.index_add_(0, idx, p.to(adt).reshape(-1)[keep] * w)
+    return counts, sums
+
+
+def _bin_rfft_power(p: torch.Tensor, full_shape, nbins: int) -> torch.Tensor:
+    """Shell mean of one Hermitian density (NaN for empty shells)."""
+    counts, sums = _bin_rfft_stats(p, full_shape, nbins)
+    return torch.where(counts > 0, sums / torch.clamp(counts, min=1), torch.nan)
+
+
+def _integral_factor(nbins: int, nd: int):
+    k = np.arange(nbins, dtype=np.float64)
+    return k, k ** (nd - 1) * (2.0 * np.pi * (nd - 1))
+
+
+def spectrum_density(vels, shape, lengths, which: str) -> torch.Tensor:
+    """The density the enstrophy ("enstrophy": 0.5 |ω̂|², 2D: the scalar
+    out-of-plane ω) or helicity ("helicity": Re(v̂* . ω̂), signed) spectrum
+    bins, on the rfft half-spectrum, 1/N forward transforms."""
+    ntot = int(np.prod(shape))
+    vhats = [_rfft(v) / ntot for v in vels]
+    if len(shape) == 2:  # enstrophy only (helicity vanishes in 2D)
+        kx, ky = _k_grids(shape, vhats[0].real.dtype, vels[0].device, lengths, True)
+        return 0.5 * _abs2(1j * (kx * vhats[1] - ky * vhats[0]))
+    whats = _vorticity_hats(vhats, shape, lengths)
+    if which == "enstrophy":
+        return 0.5 * sum(_abs2(w) for w in whats)
+    return sum(v.real * w.real + v.imag * w.imag for v, w in zip(vhats, whats))
+
+
+def _velocity_spectrum(vels, lengths, which: str) -> Dict[str, np.ndarray]:
+    shape, key = _check_vels(vels, lengths, f"{which}_spectrum")
+    nbins = max(shape) // 2 - 1
+    mean = _bin_rfft_power(spectrum_density(vels, shape, key, which), shape, nbins).cpu().numpy()
+    k, factor = _integral_factor(nbins, len(shape))
+    return {"k": k, "power": mean * factor}
+
+
+def enstrophy_spectrum(velx, vely, velz=None, lengths=None) -> Dict[str, np.ndarray]:
+    """Shell-binned enstrophy spectrum 0.5 |ω̂|² (shell means, the KE
+    spectra's binning and integral factor). 2D flows pass two components
+    (ω is the scalar out-of-plane vorticity there)."""
+    return _velocity_spectrum(_vels(velx, vely, velz), lengths, "enstrophy")
+
+
+def helicity_spectrum(velx, vely, velz, lengths=None) -> Dict[str, np.ndarray]:
+    """Shell-binned helicity spectrum Re(v̂* . ω̂): signed, so shells may
+    be negative. 3D only (helicity vanishes identically in 2D flows)."""
+    return _velocity_spectrum((velx, vely, velz), lengths, "helicity")
+
+
+def _dealias_keep(shape: Tuple[int, ...], device) -> torch.Tensor:
+    """2/3-rule mask on the rfft half grid: keep only the modes with
+    |k_i| < n_i/3 on every axis (bool, broadcast from the axes' masks)."""
+    nd = len(shape)
+    keep = None
+    for axis, n in enumerate(shape):
+        k = np.arange(n // 2 + 1, dtype=np.float64) if axis == nd - 1 else np.abs(_signed_host(n))
+        m = _axis_view(k < (n / 3.0), axis, nd, torch.bool, device)
+        keep = m if keep is None else keep & m
+    return keep
+
+
+def dealiased_nbins(shape: Tuple[int, ...]) -> int:
+    """Shell count covering every mode the 2/3-rule mask keeps: the kept
+    corner modes reach |k| = sqrt(sum_i m_i^2), m_i = (n_i - 1) // 3, past
+    the default max(n)//2 - 1 shells."""
+    kmax = float(np.sqrt(sum(((n - 1) // 3) ** 2 for n in shape)))
+    return int(np.floor(kmax + 0.5)) + 1
+
+
+def transfer_spectrum(velx, vely, velz=None, lengths=None, dealias: bool = False) -> Dict[str, np.ndarray]:
+    """Spectral kinetic-energy transfer T(k) and flux Π(k).
+
+    T(k) = -Σ_shell Re(v̂*_i · i k_j F[u_i u_j]): the shell-summed
+    (Hermitian-weighted) nonlinear transfer in conservative form, so for
+    a divergence-free, alias-free field Σ_k T(k) = 0. Π(k) = -Σ_{k'≤k}
+    T(k') is the flux through k (positive: forward cascade). No integral
+    factor: these are shell sums. ``dealias`` applies the 2/3 rule to the
+    velocities before the products are formed (from the filtered fields,
+    after the inverse transforms) and bins ``dealiased_nbins`` shells.
+    2D flows pass two components. Returns {"k", "transfer", "flux"}.
+    """
+    vels = _vels(velx, vely, velz)
+    shape, key = _check_vels(vels, lengths, "transfer_spectrum")
+    nbins = dealiased_nbins(shape) if dealias else max(shape) // 2 - 1
+    _, sums = _bin_rfft_stats(transfer_density(vels, shape, key, dealias), shape, nbins)
+    flux = -torch.cumsum(sums, 0)
+    stacked = torch.stack([sums, flux]).cpu().numpy()
+    return {"k": np.arange(nbins, dtype=np.float64), "transfer": stacked[0], "flux": stacked[1]}
+
+
+def transfer_density(vels, shape, lengths, dealias: bool) -> torch.Tensor:
+    """The transfer density -Re(v̂*_i · i k_j F[u_i u_j]) on the rfft
+    half-spectrum that ``transfer_spectrum`` shell-sums (2/3-rule
+    filtered velocities when ``dealias``)."""
+    ntot = int(np.prod(shape))
+    nd = len(shape)
+    raw = [_rfft(v) for v in vels]  # unnormalised forward
+    if dealias:
+        keep = _dealias_keep(shape, vels[0].device)
+        raw = [w * keep for w in raw]
+        # The products must be formed from the FILTERED fields, or the
+        # masked triads come back through aliasing.
+        vels = [_irfft(w, shape) for w in raw]
+    vhats = [w / ntot for w in raw]
+    del raw
+    ks = _k_grids(shape, vhats[0].real.dtype, vels[0].device, lengths, True)
+    # adv_i = Σ_j k_j Q̂_ij, Q_ij = u_i u_j symmetric: each product
+    # transform is added to the rows it feeds, then dropped.
+    adv = [None] * nd
+    for i in range(nd):
+        for j in range(i, nd):
+            q = _rfft(vels[i] * vels[j]) / ntot
+            rows = [(i, ks[j])] + ([(j, ks[i])] if i != j else [])
+            for row, k in rows:
+                adv[row] = k * q if adv[row] is None else adv[row] + k * q
+            del q
+    t_density = None
+    for i in range(nd):
+        # -Re(conj(v̂_i) * (i adv_i)) = Re(v̂_i) Im(adv_i) - Im(v̂_i) Re(adv_i)
+        term = vhats[i].real * adv[i].imag - vhats[i].imag * adv[i].real
+        t_density = term if t_density is None else t_density + term
+        adv[i] = None
+    return t_density
+
+
+def decomposed_ke_spectra(velx, vely, velz=None, dens=None, lengths=None) -> Dict[str, np.ndarray]:
+    """Solenoidal/compressive decomposition of the KE spectrum: the
+    Helmholtz projection in spectral space, each power shell-binned with
+    the KE spectra's conventions. The split is pointwise orthogonal, so
+    total == solenoidal + compressive shell by shell. With ``dens`` the
+    variable w = sqrt(rho) u is transformed instead. The k = 0 and
+    Nyquist modes land in the solenoidal part. 2D flows pass two
+    components. Returns {"k", "total", "solenoidal", "compressive"}.
+    """
+    vels = _vels(velx, vely, velz)
+    shape, key = _check_vels(vels, lengths, "decomposed_ke_spectra")
+    if dens is not None and tuple(int(s) for s in dens.shape) != shape:
+        raise ValueError(f"dens shape {tuple(dens.shape)} does not match velocity shape {shape}")
+    nd = len(shape)
+    nbins = max(shape) // 2 - 1
+    ntot = int(np.prod(shape))
+    if dens is not None:
+        sq = torch.sqrt(dens)
+        vels = [sq * v for v in vels]
+        del sq
+    vhats = [_rfft(v) / ntot for v in vels]
+    del vels
+    ks = _k_grids(shape, vhats[0].real.dtype, vhats[0].device, key, True)
+    comp_hats = _compressive_hats(vhats, ks)
+    p_tot = p_sol = p_comp = None
+    for w, c in zip(vhats, comp_hats):
+        pt, ps, pc = 0.5 * _abs2(w), 0.5 * _abs2(w - c), 0.5 * _abs2(c)
+        p_tot = pt if p_tot is None else p_tot + pt
+        p_sol = ps if p_sol is None else p_sol + ps
+        p_comp = pc if p_comp is None else p_comp + pc
+    del vhats, comp_hats
+    stacked = torch.stack([_bin_rfft_power(p, shape, nbins) for p in (p_tot, p_sol, p_comp)])
+    stacked = stacked.cpu().numpy()
+    k, f = _integral_factor(nbins, nd)
+    return {"k": k, "total": stacked[0] * f, "solenoidal": stacked[1] * f,
+            "compressive": stacked[2] * f}
+
+
+def _axis_bins(shape: Tuple[int, ...], axis: int) -> np.ndarray:
+    """Bin (integer |k_axis|) of each index of the line along ``axis``:
+    bins 0..n//2 inclusive, so the sums cover every mode."""
+    n = shape[axis]
+    if axis == len(shape) - 1:
+        return np.arange(n // 2 + 1)
+    return np.abs(_signed_host(n)).astype(np.int64)
+
+
+def _perp_bin_index(shape: Tuple[int, ...], axis: int):
+    """Flattened ring-bin index of the plane perpendicular to ``axis``
+    (integer-rounded cylindrical radius) and its bin count; covers every
+    mode."""
+    nd = len(shape)
+    grids = []
+    for a in (a for a in range(nd) if a != axis):
+        n = shape[a]
+        grids.append(np.arange(n // 2 + 1, dtype=np.float64) if a == nd - 1
+                     else np.abs(_signed_host(n)))
+    if len(grids) == 1:
+        r = grids[0]
+    else:
+        r = np.sqrt(grids[0][:, None] ** 2 + grids[1][None, :] ** 2)
+    bidx = np.floor(r + 0.5).astype(np.int64)
+    return bidx.ravel(), int(bidx.max()) + 1
+
+
+def anisotropic_ke_spectra(velx, vely, velz=None, axis: int = 0, lengths=None) -> Dict[str, np.ndarray]:
+    """Axis-resolved kinetic-energy spectra relative to ``axis``:
+    parallel E(k_par) (summed over each perpendicular plane, binned by
+    integer |k_axis|, bins 0..n/2) and perpendicular E(k_perp) (summed
+    along the axis, binned by the rounded cylindrical radius), each split
+    into the ``axis`` velocity component (axial) and the others
+    (transverse). Exact sums over every Hermitian mode, so sum(par_total)
+    == sum(perp_total) == 0.5*mean(|u|^2). ``lengths`` is accepted for API
+    symmetry (the binning is geometric). 2D flows pass two components.
+
+    Returns {"k_par", "par_total", "par_axial", "par_transverse",
+    "k_perp", "perp_total", "perp_axial", "perp_transverse"}.
+    """
+    vels = _vels(velx, vely, velz)
+    shape, _ = _check_vels(vels, lengths, "anisotropic_ke_spectra")
+    nd = len(shape)
+    if not 0 <= axis < nd:
+        raise ValueError(f"axis must be in [0, {nd}), got {axis}")
+    adt = accum_dtype()
+    dev = vels[0].device
+    ntot = int(np.prod(shape))
+    npar = shape[axis] // 2 + 1
+    line_bins = torch.as_tensor(_axis_bins(shape, axis), device=dev)
+    ring_host, nperp = _perp_bin_index(shape, axis)
+    ring = torch.as_tensor(ring_host, device=dev)
+    perp_axes = tuple(a for a in range(nd) if a != axis)
+    hw = _hermitian_weights(shape, vels[0].dtype, dev)
+    p_ax = p_tr = None
+    for i, v in enumerate(vels):
+        q = 0.5 * _abs2(_rfft(v) / ntot) * hw
+        if i == axis:
+            p_ax = q if p_ax is None else p_ax + q
+        else:
+            p_tr = q if p_tr is None else p_tr + q
+        del q
+
+    def one(p):
+        # float64 sums of the density: the line over the perpendicular
+        # planes, binned by |k_axis|; the plane along the axis, by ring.
+        line = p.sum(dim=perp_axes, dtype=adt)
+        epar = torch.zeros(npar, dtype=adt, device=dev).index_add_(0, line_bins, line)
+        plane = p.sum(dim=axis, dtype=adt).reshape(-1)
+        eperp = torch.zeros(nperp, dtype=adt, device=dev).index_add_(0, ring, plane)
+        return epar, eperp
+
+    (par_ax, perp_ax), (par_tr, perp_tr) = one(p_ax), one(p_tr)
+    packed = torch.cat([par_ax, perp_ax, par_tr, perp_tr]).cpu().numpy()
+    par_ax, perp_ax = packed[:npar], packed[npar : npar + nperp]
+    par_tr, perp_tr = packed[npar + nperp : 2 * npar + nperp], packed[2 * npar + nperp :]
+    return {
+        "k_par": np.arange(npar, dtype=np.float64),
+        "par_total": par_ax + par_tr,
+        "par_axial": par_ax,
+        "par_transverse": par_tr,
+        "k_perp": np.arange(nperp, dtype=np.float64),
+        "perp_total": perp_ax + perp_tr,
+        "perp_axial": perp_ax,
+        "perp_transverse": perp_tr,
+    }
+
+
+def summary_names(has_dens: bool, has_pres: bool) -> Tuple[str, ...]:
+    """Entry order of the packed turbulence-summary vector."""
+    names = ["u_rms", "kinetic_energy"]
+    if has_dens:
+        names += ["kinetic_energy_density", "mean_s", "sigma_s"]
+    if has_pres:
+        names += ["mach_rms", "mach_max", "sound_speed_mean"]
+    names += ["integral_scale", "taylor_scale", "compressive_fraction", "solenoidal_fraction",
+              "dilatation_rms", "vorticity_rms"]
+    return tuple(names)
+
+
+def _summary_vector(vels, dens, pres, gamma, shape, lengths) -> torch.Tensor:
+    """The packed float64 summary (``summary_names`` order)."""
+    nd = len(shape)
+    adt = accum_dtype()
+    ntot = int(np.prod(shape))
+    out = {}
+    u2 = sum(v.to(adt).square() for v in vels)
+    out["u_rms"] = torch.sqrt(u2.mean())
+    out["kinetic_energy"] = 0.5 * u2.mean()
+    if dens is not None:
+        da = dens.to(adt)
+        out["kinetic_energy_density"] = 0.5 * (da * u2).mean()
+        # log-density contrast moments, float64 on every device
+        s = torch.log(da / da.mean())
+        mu_s = s.mean()
+        out["mean_s"] = mu_s
+        out["sigma_s"] = torch.sqrt((s - mu_s).square().mean())
+        del s
+    if pres is not None:
+        cs2 = gamma.to(adt) * pres.to(adt) / dens.to(adt)
+        m2 = u2 / cs2
+        out["mach_rms"] = torch.sqrt(m2.mean())
+        out["mach_max"] = torch.sqrt(m2.max())
+        out["sound_speed_mean"] = torch.sqrt(cs2).mean()
+        del cs2, m2
+    del u2
+
+    # Spectral moments: one forward-transform set, Hermitian sums.
+    vhats = [_rfft(v) / ntot for v in vels]
+    rdt = vhats[0].real.dtype
+    dev = vhats[0].device
+    hw = _hermitian_weights(shape, adt, dev)
+    ks = _k_grids(shape, rdt, dev, lengths, True)
+    k2 = sum(k * k for k in ks)
+    kmag = torch.sqrt(k2)
+    e_mode = sum((0.5 * _abs2(w)).to(adt) for w in vhats) * hw
+    e_sum = e_mode.sum()
+    # The moments leave out the k = 0 (mean-flow) mode, where 1/k diverges.
+    inv_k = torch.where(kmag > 0, 1.0 / torch.clamp(kmag, min=GUARD), 0.0).to(adt)
+    e_fluct = e_sum - e_mode.reshape(-1)[0]
+    m_inv = (e_mode * inv_k).sum()
+    k2a = k2.to(adt)
+    m_2 = (e_mode * k2a).sum()
+    del e_mode, inv_k, kmag
+    # L = (3 pi/4) int E/k dk / int E dk, lambda^2 = 5 int E dk / int k^2 E dk
+    # (pi/2 and 2 in 2D).
+    out["integral_scale"] = ((3.0 * np.pi / 4.0 if nd == 3 else np.pi / 2.0) * m_inv
+                             / torch.clamp(e_fluct, min=GUARD))
+    out["taylor_scale"] = torch.sqrt((5.0 if nd == 3 else 2.0) * e_fluct
+                                     / torch.clamp(m_2, min=GUARD))
+    # Exact Helmholtz energy split (k = 0 and Nyquist: solenoidal).
+    div_amp2 = _abs2(sum(k * w for k, w in zip(ks, vhats))).to(adt) / torch.clamp(k2a, min=GUARD)
+    comp_e = (0.5 * div_amp2 * hw).sum()
+    out["compressive_fraction"] = comp_e / torch.clamp(e_sum, min=GUARD)
+    out["solenoidal_fraction"] = 1.0 - out["compressive_fraction"]
+    # Enstrophy and dilatation rms by Parseval (Nyquist-zeroed derivatives).
+    out["dilatation_rms"] = torch.sqrt((div_amp2 * k2a * hw).sum())
+    del div_amp2, k2a
+    if nd == 3:
+        ens = sum(_abs2(w).to(adt) for w in _vorticity_hats(vhats, shape, lengths)) * hw
+    else:
+        kx, ky = ks
+        ens = _abs2(1j * (kx * vhats[1] - ky * vhats[0])).to(adt) * hw
+    out["vorticity_rms"] = torch.sqrt(ens.sum())
+    names = summary_names(dens is not None, pres is not None)
+    return torch.stack([out[k].to(adt) for k in names])
+
+
+def turbulence_summary_device(velx, vely, velz=None, dens=None, pres=None, gamma=5.0 / 3.0,
+                              lengths=None) -> Tuple[torch.Tensor, Tuple[str, ...]]:
+    """:func:`turbulence_summary` without the host fetch: the packed
+    float64 vector on the input's device and its name order (series
+    drivers stack many of these and fetch once)."""
+    vels = _vels(velx, vely, velz)
+    shape, key = _check_vels(vels, lengths, "turbulence_summary")
+    if pres is not None and dens is None:
+        raise ValueError("mach statistics need BOTH pres and dens")
+    for name, f in (("dens", dens), ("pres", pres)):
+        if f is not None and tuple(int(s) for s in f.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(f.shape)} does not match velocity shape {shape}")
+    g = None
+    if pres is not None:
+        # A scalar gamma stays 0-d (in float64: it is not rounded to the
+        # card's float32); a per-cell field must match the volumes.
+        if isinstance(gamma, (int, float)):
+            g = torch.tensor(float(gamma), dtype=accum_dtype(), device=vels[0].device)
+        else:
+            g = torch.as_tensor(gamma, dtype=vels[0].dtype, device=vels[0].device)
+        if g.ndim != 0 and tuple(int(s) for s in g.shape) != shape:
+            raise ValueError(f"gamma shape {tuple(g.shape)} does not match velocity shape {shape}")
+    return _summary_vector(vels, dens, pres, g, shape, key), summary_names(dens is not None,
+                                                                          pres is not None)
+
+
+def turbulence_summary(velx, vely, velz=None, dens=None, pres=None, gamma=5.0 / 3.0,
+                       lengths=None) -> Dict[str, float]:
+    """One-call scalar turbulence report: ``u_rms``, specific
+    ``kinetic_energy``; with ``dens`` the ``kinetic_energy_density``
+    0.5<rho u^2> and the log-density moments ``mean_s``/``sigma_s``; with
+    ``pres`` + ``dens`` the per-cell Mach statistics (c_s = sqrt(gamma p /
+    rho), ``gamma`` a scalar or a per-cell field like FLASH's gamc); and
+    from the same forward transforms the integral scale (3 pi/4) sum
+    E/|k| / sum E (pi/2 in 2D), the Taylor scale sqrt(5 sum E / sum k^2 E)
+    (factor 2 in 2D), the exact solenoidal/compressive energy fractions
+    and the vorticity and dilatation rms. The scale moments leave out
+    the k = 0 mode. Every sum is float64."""
+    vec, names = turbulence_summary_device(velx, vely, velz, dens=dens, pres=pres, gamma=gamma,
+                                           lengths=lengths)
+    return dict(zip(names, vec.cpu().numpy().astype(np.float64).tolist()))

@@ -83,17 +83,9 @@ _ALWAYS_RUN = {"fractal dimension", "structure functions", "kinetic energy spect
 # Stage-4 keys whose analysis the port does not run yet, with the
 # ROADMAP item that ports it.
 _NOT_PORTED = {
-    "enstrophy spectra": "A8",
-    "helicity spectra": "A8",
-    "transfer spectra": "A8",
-    "decomposed spectra": "A8",
-    "anisotropic spectra": "A8",
-    "turbulence summary": "A8",
-    "velocity gradient statistics": "A8",
-    "gradient invariant pdfs": "A8",
-    "filtered ke flux": "A8",
-    "two point correlation": "A8",
-    "velocity correlations": "A8",
+    "filtered ke flux": "A8c",
+    "two point correlation": "A8c",
+    "velocity correlations": "A8c",
 }
 _KNOWN_TOP_KEYS = (
     {"basename", "dimension", "model", "data folder", "output folder", "flame window"}
@@ -471,15 +463,21 @@ class Pipeline:
             "density pdf": lambda **kw: self.model.density_pdf(**kw),
             "projection": lambda **kw: self.model.projection(**kw),
             "scalar spectra": lambda **kw: self.model.scalar_spectra(**kw),
-            "enstrophy spectra": _not_ported("enstrophy spectra"),
-            "helicity spectra": _not_ported("helicity spectra"),
-            "transfer spectra": _not_ported("transfer spectra"),
-            "decomposed spectra": _not_ported("decomposed spectra"),
-            "anisotropic spectra": _not_ported("anisotropic spectra"),
+            "enstrophy spectra": lambda **kw: self.model.enstrophy_spectra(**kw),
+            "helicity spectra": lambda **kw: self.model.helicity_spectra(**kw),
+            "transfer spectra": lambda **kw: self.model.transfer_spectra(**kw),
+            "decomposed spectra": lambda **kw: self.model.decomposed_kinetic_energy_spectra(
+                **kw
+            ),
+            "anisotropic spectra": lambda **kw: self.model.anisotropic_kinetic_energy_spectra(
+                **kw
+            ),
             "flame surface": lambda **kw: self.model.flame_surface(**kw),
-            "turbulence summary": _not_ported("turbulence summary"),
-            "velocity gradient statistics": _not_ported("velocity gradient statistics"),
-            "gradient invariant pdfs": _not_ported("gradient invariant pdfs"),
+            "turbulence summary": lambda **kw: self.model.turbulence_summary(**kw),
+            "velocity gradient statistics": lambda **kw: self.model.velocity_gradient_statistics(
+                **kw
+            ),
+            "gradient invariant pdfs": lambda **kw: self.model.gradient_invariant_pdfs(**kw),
             "velocity increment pdfs": lambda **kw: self.model.velocity_increment_pdfs(**kw),
             "filtered ke flux": _not_ported("filtered ke flux"),
             "structure function exponents": lambda **kw: _exponents_as_dict(

@@ -968,3 +968,140 @@ def test_wide_walk_matches_plain(cuda_device, kernel, shape, nbins):
         got, ref = got[1:], ref[1:]
     assert (ref[0] != 0).sum() > 0.2 * min(nbins, max(shape) // 2)  # many shells, not a few
     torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-300)
+
+
+# ---------------------------------------------------------------------------
+# The velocity diagnostics' densities are signed (helicity, transfer): the
+# scalar shell binning (K3 + the single-channel walk, or B10) on signed
+# input. K3 adds up to 4 signed float32 terms: its error is at most
+# 3 * 2^-24 of the sum of their magnitudes, so each shell is held within
+# 4 * 2^-24 of its sum of |p| (plus the walk's f64 1e-10); B10 sums the
+# float32 values in f64 (1e-10 of the sum of |p|).
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 32, 48), (16, 16, 16), (31, 32, 24), (32, 17, 20)])
+def test_scalar_binning_of_signed_densities_matches_plain(cuda_device, shape):
+    nx, ny, nz = shape
+    nbins = max(shape) // 2 - 1
+    p = _fields(cuda_device, shape=(nx, ny, nz // 2 + 1), seed=sum(shape))[1]  # signed
+    assert (p < 0).any() and (p > 0).any()
+    ck.reset_launch_counts()
+    counts, got = ck.shell_bin_sums_rfft_scalar(p, nbins, nz)
+    torch.cuda.synchronize()
+    launches = ck.launch_counts()
+    if nx % 2 or ny % 2:
+        assert launches["shell_bin_sums_unfolded"] == 1 and launches["fold_quadrants_pair"] == 0
+        bound = 1e-10
+    else:
+        assert launches["fold_quadrants_pair"] == launches["shell_bin_values_folded_1ch"] == 1
+        bound = 4 * 2.0**-24 + 1e-10
+    ref_counts, ref = ck.shell_bin_sums_rfft_scalar(p.double().cpu(), nbins, nz)
+    _, ref_abs = ck.shell_bin_sums_rfft_scalar(p.double().abs().cpu(), nbins, nz)
+    assert torch.equal(counts.cpu(), ref_counts)
+    assert ((got.cpu() - ref).abs() <= bound * ref_abs).all()
+    assert (ref < 0).any()  # shells whose sums cancel to negative values
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1 << 20, 3 * 100003])
+def test_pdf2d_on_heavy_tailed_qr_samples_matches_plain(cuda_device, n):
+    """Q and R of random float32 3x3 gradient tensors (Q ~ products of two
+    normals, R of three: heavy tails) against Q_w-scaled edges, as
+    gradient_invariant_pdfs bins them: counts exact."""
+    g = torch.randn((3, 3, n), generator=torch.Generator().manual_seed(n)).float().to(cuda_device)
+    P = -(g[0, 0] + g[1, 1] + g[2, 2])
+    Q = 0.5 * (P * P - sum(g[i, j] * g[j, i] for i in range(3) for j in range(3)))
+    R = -torch.linalg.det(g.permute(2, 0, 1))
+    qw = float(((g[2, 1] - g[1, 2]) ** 2 + (g[0, 2] - g[2, 0]) ** 2 + (g[1, 0] - g[0, 1]) ** 2)
+               .double().mean() / 4.0)
+    xe = np.linspace(-8.0 * qw, 8.0 * qw, 101)
+    ye = np.linspace(-8.0 * qw**1.5, 8.0 * qw**1.5, 101)
+    Q, R = Q.contiguous(), R.contiguous()
+    ck.reset_launch_counts()
+    got = ck.pdf2d_counts(Q, R, xe, ye)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["pdf2d_counts"] == 1
+    ref = ck._pdf2d_plain(Q.double(), R.double(), xe, ye)
+    assert torch.equal(got, ref)
+    assert 0 < int(ref.sum()) < n  # the tails fall outside the range
+
+
+def _velocity_runs(m):
+    return {
+        "helmholtz": m.helmholtz_decomposition,
+        "vorticity": m.vorticity,
+        "dilatation": m.dilatation,
+        "enstrophy": m.enstrophy_spectra,
+        "helicity": m.helicity_spectra,
+        "transfer": lambda: m.transfer_spectra(dealias=True),
+        "decomposed": lambda: m.decomposed_kinetic_energy_spectra(weighted=True),
+        "anisotropic": lambda: m.anisotropic_kinetic_energy_spectra(axis=0),
+        "summary": m.turbulence_summary,
+        "gradients": lambda: m.velocity_gradient_statistics(boundary="interior"),
+        "qr": m.gradient_invariant_pdfs,
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 32, 32), (31, 32, 24)])
+def test_velocity_diagnostics_on_cuda_match_the_cpu_path(cuda_device, shape):
+    """The 11 analyses on float32 fields against the float64 CPU path on
+    the same values: spectra and fields within 1e-5 of scale (float32
+    transforms), transfer within 1e-5 of sum |T|, the summary's real-space
+    entries 1e-10 (float64 sums), its spectral ones 1e-5, the gradient
+    moments 1e-4 of each table's scale (float32 differences), the Q-R
+    counts within 1e-3 of the samples moved; K3 + B4 (B10 when x is odd)
+    and B8 launched as the wrappers' counts say."""
+    rng = np.random.default_rng(sum(shape))
+    arrays = {"dens": 1.0 + 0.5 * rng.random(shape), "pres": 1.0 + rng.random(shape)}
+    arrays.update({f"vel{a}": rng.standard_normal(shape) for a in "xyz"})
+    arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
+    odd = shape[0] % 2 == 1
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        m = fava_tpu_torch.from_arrays(arrays, device=dev)
+        outs[dev] = {}
+        for name, fn in _velocity_runs(m).items():
+            ck.reset_launch_counts()
+            outs[dev][name] = fn()
+            n = ck.launch_counts()
+            if dev != "cuda":
+                continue
+            bins = {"enstrophy": 1, "helicity": 1, "transfer": 1, "decomposed": 3}.get(name, 0)
+            if odd:
+                assert n["shell_bin_sums_unfolded"] == bins and n["fold_quadrants_pair"] == 0, name
+            else:
+                assert n["fold_quadrants_pair"] == n["shell_bin_values_folded_1ch"] == bins, name
+            assert n["pdf2d_counts"] == (name == "qr"), name
+    cpu, gpu = outs["cpu"], outs["cuda"]
+    for name in ("enstrophy", "helicity", "decomposed"):
+        _spectra_close({k: v for k, v in gpu[name].items() if k != "k"},
+                       {k: v for k, v in cpu[name].items() if k != "k"}, 1e-5)
+    aniso = {k: v for k, v in cpu["anisotropic"].items() if not k.startswith("k_")}
+    _spectra_close(gpu["anisotropic"], aniso, 1e-5)
+    scale = np.abs(cpu["transfer"]["transfer"]).sum()
+    for key in ("transfer", "flux"):
+        assert np.abs(gpu["transfer"][key] - cpu["transfer"][key]).max() <= 1e-5 * scale
+    for part in ("solenoidal", "compressive"):
+        _spectra_close(gpu["helmholtz"][part], cpu["helmholtz"][part], 1e-5)
+    _spectra_close(gpu["vorticity"], cpu["vorticity"], 1e-5)
+    _spectra_close(gpu["dilatation"], cpu["dilatation"], 1e-5)
+    real_space = {"u_rms", "kinetic_energy", "kinetic_energy_density", "mean_s", "sigma_s",
+                  "mach_rms", "mach_max", "sound_speed_mean"}
+    for key, r in cpu["summary"].items():
+        tol = 1e-10 if key in real_space else 1e-5
+        assert abs(gpu["summary"][key] - r) <= tol * max(abs(r), 1e-3), (key, gpu["summary"][key], r)
+    c2 = cpu["gradients"]["gradient_moment2"]
+    natural = {"gradient_mean": np.sqrt(c2), "gradient_moment2": c2, "gradient_moment3": c2**1.5,
+               "gradient_moment4": c2**2, "velocity_mean": np.sqrt(cpu["gradients"]["velocity_variance"])}
+    for key, r in cpu["gradients"].items():
+        r = np.asarray(r)
+        scale = natural.get(key, np.abs(r) if "skewness" not in key else 1.0)
+        if key in ("enstrophy", "dilatation_msq"):
+            scale = cpu["gradients"]["pseudo_dissipation"]
+        err = np.abs(np.asarray(gpu["gradients"][key]) - r) / np.maximum(scale, 1e-300)
+        assert err.max() <= 1e-4, (key, err.max())
+    moved = np.abs(gpu["qr"]["counts"] - cpu["qr"]["counts"]).sum() / 2
+    assert moved <= 1e-3 * np.prod(shape), moved
+    np.testing.assert_allclose(gpu["qr"]["q_w"], cpu["qr"]["q_w"], rtol=1e-5)

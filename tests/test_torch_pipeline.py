@@ -86,6 +86,21 @@ OPTIONAL = {
         "settings": {"num_seps": 4, "num_points": 32, "sep_bounds": [0.05, 0.3]},
     },
 }
+# The stage-4 keys of the velocity diagnostics and gradient statistics,
+# with fava_tpu's settings (a non-default option where one exists).
+VELOCITY_KEYS = {
+    "enstrophy spectra": {"skip": False},
+    "helicity spectra": {"skip": False},
+    "transfer spectra": {"skip": False, "settings": {"dealias": True}},
+    "decomposed spectra": {"skip": False, "settings": {"weighted": True}},
+    "anisotropic spectra": {"skip": False, "settings": {"axis": 1}},
+    "turbulence summary": {"skip": False},
+    "velocity gradient statistics": {"skip": False, "settings": {"boundary": "interior"}},
+    "gradient invariant pdfs": {
+        "skip": False,
+        "settings": {"nbins": 12, "qr_range": 4.0, "boundary": "interior"},
+    },
+}
 CENTROID_RTOL = 1e-9
 
 
@@ -126,6 +141,26 @@ def both_runs(tmp_path_factory):
     finally:
         os.chdir(cwd)
     return dirs["jax"], dirs["torch"]
+
+
+@pytest.fixture(scope="module")
+def velocity_runs(tmp_path_factory):
+    """fava_tpu's pipeline and ``python -m fava_tpu_torch --device cpu``
+    over copies of one catalog, with the velocity keys enabled."""
+    base = tmp_path_factory.mktemp("pipes_velocity")
+    _catalog(base / "catalog")
+    settings = {**SETTINGS, **VELOCITY_KEYS}
+    jax_dir = _workdir(base / "jax", base / "catalog", settings)
+    cwd = os.getcwd()
+    try:
+        os.chdir(jax_dir)
+        assert jax_pipeline.main(jax_dir) == 0
+    finally:
+        os.chdir(cwd)
+    torch_dir = _workdir(base / "torch", base / "catalog", settings)
+    proc = _run_module(torch_dir, "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return jax_dir, torch_dir
 
 
 @pytest.fixture()
@@ -183,6 +218,24 @@ def test_analysis_files_match_fava_tpu(both_runs):
         groups |= {name.split("/")[0] for name in ref}
     assert groups == {"reynolds stresses", "scalars", "fractal dimension", "structure functions",
                       "kinetic energy spectra", *OPTIONAL}
+
+
+@pytest.mark.parametrize("key", sorted(VELOCITY_KEYS))
+def test_velocity_keys_write_fava_tpus_datasets(velocity_runs, key):
+    """``python -m fava_tpu_torch --device cpu`` writes the datasets of
+    each velocity key that fava_tpu's pipeline writes, in both analysis
+    files, within the tolerances above."""
+    jax_dir, torch_dir = velocity_runs
+    ref_files = sorted(p.name for p in (jax_dir / "out").glob("*hdf5_analysis_*"))
+    assert len(ref_files) == 2
+    for fname in ref_files:
+        ref = {k: v for k, v in _datasets(jax_dir / "out" / fname).items()
+               if k.split("/")[0] == key}
+        got = {k: v for k, v in _datasets(torch_dir / "out" / fname).items()
+               if k.split("/")[0] == key}
+        assert ref and sorted(got) == sorted(ref), fname
+        for name in ref:
+            _assert_dataset(name, got[name], ref[name])
 
 
 def test_uniform_files_equal_field_by_field(both_runs):
@@ -330,7 +383,7 @@ def test_settings_validation_skipped_stage4_allows_stub_entries():
     settings["pdf1d"] = {"settings": {"nbins": 16}}  # missing 'field': fine, stage off
     del settings["fractal dimension"]
     tpl.validate_settings(settings)
-    tpl.check_ported(dict(settings, **{"enstrophy spectra": {"skip": False}}))
+    tpl.check_ported(dict(settings, **{"filtered ke flux": {"skip": False}}))
 
 
 def test_settings_validation_unknown_key_warns(caplog):
@@ -413,8 +466,8 @@ def test_unported_stage4_key_raises_at_load_settings(pipeline_dir, key):
 def test_unported_stage4_key_raises_before_any_stage(pipeline_dir):
     workdir, data, out = pipeline_dir
     (workdir / "pipeline_settings.json").write_text(
-        json.dumps(dict(SETTINGS, **{"enstrophy spectra": {"skip": False}})))
-    with pytest.raises(AnalysisNotPortedError, match="enstrophy spectra"):
+        json.dumps(dict(SETTINGS, **{"filtered ke flux": {"skip": False}})))
+    with pytest.raises(AnalysisNotPortedError, match="filtered ke flux"):
         main(workdir, device="cpu")
     assert not list(out.iterdir())
     assert not (workdir / PIPELINE_CHECKPOINT_NAME).exists()
