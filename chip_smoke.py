@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the fava_tpu_torch flagship, AMR, stage-4, streaming and
-fused-spectrum paths and of its pipeline CLI on one NVIDIA GPU.
+fused-spectrum paths, its velocity, filtering and two-point analyses and
+its pipeline CLI on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -83,12 +84,21 @@ no result):
 14. Streamed step at 1024^3: ``ops.outofcore.streamed_uniform_analysis``
    from the host copy through a host-memory slab loader, twice, each run
    with counters (B6 per chunk, K5/K6 per slab) and held to the in-core
-   step on the card; stage walls and peak memory.
+   step on the card; stage walls and peak memory. Then the streamed
+   velocity correlations and two-point lines of dens from the same host
+   copy, held to the in-core analyses on the card (two-point's K3 + B4
+   counted), with walls and peak memory.
 15. Beyond in-core: 1280^3 fields on the host, the auto-dispatch rule
    (``mesh.flash_uniform.streams_out_of_core``) against the card's free
    memory, the streamed step with counters; outputs finite with the
    static counts, total_mass and mean_dens held to float64 host sums of
-   dens; stage walls, peak card memory and host RSS.
+   dens; stage walls, peak card memory and host RSS. Then the four
+   streamed statistics drivers on the same host arrays (the summary
+   without Mach statistics, gradients, correlations, lines of dens), each
+   with its wall and peak card memory, held to plain float64 sums of the
+   host arrays (slab by slab on the card): the summary's real-space
+   entries, the variance of dens, the zero mean of every du_i/dx_j on the
+   periodic box.
 16. Entry point: the 512^3 window file's x-slab read rate, then
    ``FLASH(d).load("uni").flagship_analysis(streamed=True, slab_rows=64,
    chunk_rows=128)`` and ``flagship_analysis()`` (in core: K1-K4, no
@@ -141,10 +151,12 @@ no result):
       bands moving with the front, 4 finest blocks between snapshots;
       scripts/tpu_pipeline_bench.py's fields, computed on the card) and a
       pipeline_settings.json with the three fixed analyses plus scalar
-      spectra, pdf2d, flame surface, projection and the eight velocity
+      spectra, pdf2d, flame surface, projection, the eight velocity
       and gradient keys (enstrophy, helicity, dealiased transfer,
       decomposed and y-axis anisotropic spectra, the turbulence summary,
-      the interior gradient statistics and Q-R PDF); ``pipeline.main``
+      the interior gradient statistics and Q-R PDF) and the three
+      filtering and two-point keys (filtered ke flux, two point
+      correlation of dens, velocity correlations); ``pipeline.main``
       in process with the counters reset around it: rc 0, two analysis
       files and two 512^3 uniform files, fava_tpu's checkpoint, no fit
       fallback and each centroid within PIPE_FIT_CELLS finest cells of
@@ -177,9 +189,26 @@ no result):
    in for: the Helmholtz identities, the helicity, transfer, decomposed
    spectra and the summary with Mach statistics, counted and held to the
    float64 path (transfer and flux to TOL_TRANSFER of sum |T|, the rest
-   to their own scales), the fields on a 128^3 cut. Last, summary_series
-   and gradient_series over phase 17's four files, each row held to the
-   analysis of its file (TOL_RERUN).
+   to their own scales), the fields on a 128^3 cut; the same file through
+   the mesh with ``streamed=True`` (summary with Mach statistics, gradient
+   statistics, velocity correlations, two-point lines) held to the
+   in-core analyses on the card. Last, summary_series and gradient_series
+   over phase 17's four files, each row held to the analysis of its file
+   (TOL_RERUN).
+23. Filtering and two-point analyses (after phase 22, on its two files):
+   the correlation half-volume's shell binning (K3 + B4, and B10 on the
+   511-wide cut) against the plain versions; on the window
+   ``two_point_correlation("dens")`` (K3 + B4 counted),
+   ``velocity_correlations()`` and ``filtered_kinetic_energy_flux()``
+   with the pipeline's defaults, and the 511-wide cut's two-point
+   correlation (B10 counted); on the random file the velocity
+   correlations and the flux with pressure, gaussian and sharp; each
+   counted, finite, timed warm, and held to the float64 CPU path on a
+   128^3 cut (lines TOL_SPECTRA, integral scales where both runs cross
+   zero at the same sample, the flux TOL_FLUX of its term scales; the
+   sharp Favre flux printed only); identity (b), <Pi_l> = flux(k_c) on
+   the file's solenoidal part at 512^3 (both sides on the card); the
+   flux's pieces by CUDA events.
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -332,6 +361,14 @@ CUT_FIELDS = 128
 RANDOM_SEED = 22
 RANDOM_RUNS = ("helicity spectra", "transfer spectra", "decomposed spectra", "turbulence summary")
 MIN_COMPRESSIVE = 0.1
+# Phase 23: the filtered flux against the float64 path on a cut, each
+# cutoff's mean and rms within TOL_FLUX of its term scale (flux_term_scales:
+# the magnitudes whose difference tau is, times the velocity gradient;
+# float32 transforms and products, ~1e-7 relative each, through ~22 inverse
+# transforms and a quotient by rho_b). Identity (b): the sharp filter at
+# k_c = s + 0.5 for these shells s (3 k_c < 512).
+TOL_FLUX = 1e-5
+IDENTITY_SHELLS = (8, 32, 128)
 
 # The AMR path (phases 6-9): an rtflame-like tree, refined around the
 # flame at x in [1.5, 2.5] (see amr_refine), and the flame window regridded
@@ -368,6 +405,9 @@ PIPE_EXTRA = {
     "turbulence summary": {"skip": False},
     "velocity gradient statistics": {"skip": False, "settings": {"boundary": "interior"}},
     "gradient invariant pdfs": {"skip": False, "settings": {"boundary": "interior"}},
+    "filtered ke flux": {"skip": False},
+    "two point correlation": {"skip": False, "settings": {"field": "dens"}},
+    "velocity correlations": {"skip": False},
 }
 # Stage-4 keys of the settings and the Model method each runs.
 PIPE_STAGE4 = {"fractal dimension": "fractal_dimension", "structure functions": "structure_functions",
@@ -379,7 +419,10 @@ PIPE_STAGE4 = {"fractal dimension": "fractal_dimension", "structure functions": 
                "anisotropic spectra": "anisotropic_kinetic_energy_spectra",
                "turbulence summary": "turbulence_summary",
                "velocity gradient statistics": "velocity_gradient_statistics",
-               "gradient invariant pdfs": "gradient_invariant_pdfs"}
+               "gradient invariant pdfs": "gradient_invariant_pdfs",
+               "filtered ke flux": "filtered_kinetic_energy_flux",
+               "two point correlation": "two_point_correlation",
+               "velocity correlations": "velocity_correlations"}
 # K3, K4, B4 (stage 4 spectra), K5, K6 (stage 1), K7 (stage 3), B8 (pdf2d).
 PIPE_KERNELS = ("fold_quadrants_pair", "shell_bin_values_folded", "shell_bin_values_folded_1ch",
                 "block_row_moments", "block_centered_row_moments", "regrid_fields", "pdf2d_counts")
@@ -1566,6 +1609,7 @@ def phase_streamed(torch, np):
     through a host-memory slab loader, each run held to the reference."""
     from fava_tpu_torch import flagship
     from fava_tpu_torch.ops import cuda_kernels as ck
+    from fava_tpu_torch.ops import twopoint
 
     n = N_STREAM
     fields = flagship.make_example_fields(n)
@@ -1578,12 +1622,20 @@ def phase_streamed(torch, np):
     times = {"incore_1024_s": time.perf_counter() - t0,
              "incore_1024_peak_allocated_GiB": torch.cuda.max_memory_allocated() / 2**30}
     ref = {k: v.cpu().numpy() for k, v in ref.items()}
+    t0 = time.perf_counter()
+    incore_stats = {"velocity correlations": twopoint.velocity_correlations(*fields[1:])}
+    times["incore_1024_velocity_correlations_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    incore_stats["two point lines"], tp_launches = counted(
+        torch, ck, f"in-core {n}^3 two point correlation", lambda: twopoint.two_point_correlation(
+            fields[0]), ("fold_quadrants_pair", "shell_bin_values_folded_1ch"), 14)
+    times["incore_1024_two_point_s"] = time.perf_counter() - t0
     row = phase_chunk_kernel(torch, fields)
     times["spectra_1024_ms"] = main_vs_fused_ms(torch, fields)
     del fields
     torch.cuda.empty_cache()
 
-    totals, walls = {}, []
+    totals, walls = dict(tp_launches), []
     for i in range(2):  # a copy/compute race would show as a run that disagrees
         torch.cuda.reset_peak_memory_stats()
         stages = {}
@@ -1594,6 +1646,7 @@ def phase_streamed(torch, np):
         compare_flagship(np, out, ref, floor, f"streamed {n}^3 run {i + 1} vs in-core", 14)
     times.update({"streamed_1024_s": walls, "streamed_1024_stage_ms": stages,
                   "streamed_1024_peak_allocated_GiB": torch.cuda.max_memory_allocated() / 2**30})
+    times["streamed_1024_statistics"] = streamed_lines_vs_incore(torch, np, hosts, incore_stats, n, 14)
     del hosts
     return row, totals, times
 
@@ -1639,8 +1692,9 @@ def phase_beyond_incore(torch, np):
             fail(f"{n}^3 {key} disagrees with the float64 host sums")
     times = {"streamed_1280_s": wall, "streamed_1280_stage_ms": stages,
              "streamed_1280_peak_allocated_GiB": torch.cuda.max_memory_allocated() / 2**30,
-             "host_peak_rss_GB": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
              "errors": errs}
+    times["streamed_1280_statistics"] = streamed_beyond_incore(torch, np, hosts, n, 15)
+    times["host_peak_rss_GB"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
     del hosts
     return launches, times
 
@@ -2138,6 +2192,7 @@ def phase_velocity_random(torch, np, workdir: Path):
     times["error_over_bound"] = {name: max(v for k, v in errs.items() if k.split("/")[0] == name)
                                  for name in dict.fromkeys(k.split("/")[0] for k in errs)}
     torch.cuda.empty_cache()
+    times["streamed_vs_incore"] = streamed_vs_incore_random(torch, np, rdir)
     return totals, times
 
 
@@ -2290,6 +2345,571 @@ def phase_velocity(torch, np, workdir: Path, card: str):
     times["phase_s"] = time.perf_counter() - t_phase
     say(f"phase 22 velocity diagnostics timings: {json.dumps(times)}")
     return totals, times
+
+
+# ---------------------------------------------------------------------------
+# Phase 23 (and the streamed checks of phases 14, 15 and 22): the filtered
+# kinetic-energy flux, the two-point and velocity correlations and the four
+# streamed statistics drivers
+
+
+def first_crossing(np, line):
+    """Index of the first sample <= 0 of a line normalised by its R(0) (the
+    line's length when it stays positive): where _integral_scale stops."""
+    neg = np.nonzero(np.asarray(line) <= 0)[0]
+    return int(neg[0]) if neg.size else len(line)
+
+
+def hold_lines(np, got, ref, tol, what, phase, keys=None):
+    """Correlation lines against a reference (error/bound per array):
+    lines normalised by R(0) (R_*, f_*, g_*, R_shell) within ``tol``; the
+    separations exact; ``variance`` relative ``tol``; an integral scale
+    (L11, L22, integral_scale) only where both runs cross zero at the same
+    sample j, within tol * dx * (j + 3) (the trapezoid's j samples and the
+    interpolated triangle, whose sensitivity to either end sample is below
+    1.5 dx); where they do not, the sample that flipped must lie within
+    ``tol`` of zero in both runs (a float32 sign flip at a near-zero
+    sample). The isotropy ratio L11 / (2 L22) where both of its scales
+    were held, within the sum of their relative bounds. Returns the worst
+    error/bound and the crossings that differed."""
+    worst, moved, bounds = {}, [], {}
+    keys = [k for k in ref if keys is None or k in keys]
+    for key in keys:
+        r, g = ref[key], got[key]
+        if key.startswith("r_"):
+            worst[key] = 0.0 if np.array_equal(g, r) else float("inf")
+        elif key == "variance":
+            worst[key] = abs(g - r) / abs(r) / tol
+        elif key.split("_")[0] in ("R", "f", "g"):
+            if not np.array_equal(np.isnan(g), np.isnan(r)):
+                fail(f"{what} {key}: NaN in other shells")
+            ok = ~np.isnan(r)
+            worst[key] = float(np.abs(np.asarray(g)[ok] - r[ok]).max()) / tol
+        elif key.startswith(("L11_", "L22_", "integral_scale_")):
+            ax = key[-1]
+            line = {"L11": "f_", "L22": "g_", "integral": "R_"}[key.split("_")[0]] + ax
+            lg, lr = np.asarray(got[line]), np.asarray(ref[line])
+            jg, jr = first_crossing(np, lg), first_crossing(np, lr)
+            if jg == jr:
+                bounds[key] = tol * float(ref[f"r_{ax}"][1]) * (jr + 3)
+                worst[key] = abs(got[key] - r) / bounds[key]
+            else:
+                j = min(jg, jr)
+                near = abs(jg - jr) == 1 and max(abs(lg[j]), abs(lr[j])) <= tol
+                moved.append({"scale": key, "crossings": [jg, jr], "near_zero": bool(near)})
+                worst[key] = 0.0 if near else float("inf")
+    for key in keys:
+        ax = key[-1]
+        if key.startswith("isotropy_ratio_") and {f"L11_{ax}", f"L22_{ax}"} <= set(bounds):
+            rel = sum(bounds[k] / abs(ref[k]) for k in (f"L11_{ax}", f"L22_{ax}"))
+            worst[key] = abs(got[key] - ref[key]) / (rel * abs(ref[key]))
+    top = max(worst, key=worst.get)
+    say(f"phase {phase} {what}: {len(worst)} arrays, worst error/bound {worst[top]!r} ({top})"
+        + (f"; crossings that differ: {moved}" if moved else ""))
+    bad = {k: v for k, v in worst.items() if not v <= 1.0}
+    if bad:
+        fail(f"{what} disagrees with its reference (error/bound): {bad}")
+    return {"worst": worst[top], "crossings_differ": moved}
+
+
+def flux_term_scales(torch, cg, vel_ops, vels, dens, pres, kcs, kernel, lengths):
+    """The magnitude scale of each cutoff's flux statistics, from the same
+    filtered terms the flux is made of: S_pi = mean over cells of
+    sum_ij (|bar(rho u_i u_j)| + |rho_b u~_i u~_j|) |d_j u~_i| (tau is their
+    difference, which cancels towards small scales), and with ``pres``
+    S_lambda = mean of sum_j |d_j bar(p)| (|bar(rho u_j)| + |rho_b bar(u_j)|)
+    / rho_b. ``dens=None``: rho = 1. Float64 means of the given dtype's
+    terms (the scale needs no more)."""
+    shape = tuple(int(s) for s in vels[0].shape)
+    nd = len(shape)
+    f = cg._forward(vels, dens, pres)
+    spec0 = f["mom"][0]
+    rdt, dev = spec0.real.dtype, spec0.device
+    k2 = cg._k2_int(shape, rdt, dev)
+    dks = vel_ops._k_grids(shape, rdt, dev, lengths, True)
+    out = []
+    for kc in kcs:
+        g = cg._filter_gain(k2, float(kc), kernel)
+
+        def bar(s):
+            return torch.fft.irfftn(g * s, s=shape)
+
+        mb = [bar(s) for s in f["mom"]]
+        rb = bar(f["rho"]) if dens is not None else None
+        ub = [m / rb for m in mb] if dens is not None else mb
+        drb = [bar(1j * dks[j] * f["rho"]) for j in range(nd)] if dens is not None else None
+        s_pi = 0.0
+        for i in range(nd):
+            for j in range(nd):
+                d = bar(1j * dks[j] * f["mom"][i])
+                du = (d - ub[i] * drb[j]) / rb if dens is not None else d
+                q = bar(f["qq"][(min(i, j), max(i, j))])
+                r = ub[i] * ub[j] if dens is None else rb * ub[i] * ub[j]
+                s_pi += float(((q.abs() + r.abs()) * du.abs()).to(torch.float64).mean())
+        row = {"pi": s_pi}
+        if pres is not None:
+            s_l = 0.0
+            for j in range(nd):
+                dp = bar(1j * dks[j] * f["p"])
+                s_l += float((dp.abs() * (mb[j].abs() + (rb * bar(f["u"][j])).abs())
+                              / rb.abs()).to(torch.float64).mean())
+            row["baropycnal"] = s_l
+        out.append(row)
+    return out
+
+
+def hold_flux(np, got, ref, scales, tol, what, phase):
+    """Flux statistics against a reference, each cutoff's mean and rms
+    within ``tol`` of its term scale (flux_term_scales)."""
+    if sorted(got) != sorted(ref) or not np.array_equal(got["kc"], ref["kc"]):
+        fail(f"{what}: keys or cutoffs differ")
+    worst = {}
+    for key in ref:
+        if key in ("kc", "scale"):
+            continue
+        s = np.array([row[key.rsplit("_", 1)[0]] for row in scales])
+        worst[key] = float((np.abs(np.asarray(got[key]) - ref[key]) / (tol * s)).max())
+    top = max(worst, key=worst.get)
+    say(f"phase {phase} {what}: worst error/bound {worst[top]!r} ({top}); term scales "
+        f"{[{k: float(v) for k, v in row.items()} for row in scales]}")
+    if not worst[top] <= 1.0:
+        fail(f"{what} disagrees with its reference (error/bound): {worst}")
+    return worst[top]
+
+
+def all_finite(np, out, what):
+    for key, v in out.items():
+        if key == "R_shell":  # empty shells are NaN by design
+            continue
+        if not np.isfinite(np.asarray(v, dtype=np.float64)).all():
+            fail(f"{what} {key}: not finite")
+
+
+def check_corr_binning(torch, ck, field, phase, what):
+    """The shell binning of a signed correlation half-volume (two_point's
+    K3 + B4 for even x and y, else B10) against its plain versions on the
+    same float32 values in float64 (on the card), as check_signed_binning:
+    within TOL_SIGNED_FOLD + TOL_BIN (B10: TOL_BIN) of each shell's sum of
+    |corr|."""
+    from fava_tpu_torch.ops.velocity import _irfft, _rfft
+
+    shape = tuple(int(s) for s in field.shape)
+    nbins = min(shape) // 2
+    fm = field - field.double().mean().float()
+    fh = _rfft(fm)
+    corr = _irfft(fh.real.square() + fh.imag.square(), shape) / math.prod(shape)
+    p = corr[..., : shape[2] // 2 + 1].contiguous()
+    del fm, fh, corr
+    _, got = ck.shell_bin_sums_rfft_scalar(p, nbins, shape[2])
+    p64 = p.double()
+    if shape[0] % 2 == 0 and shape[1] % 2 == 0:
+        ref = ck._shell_bin_folded_plain(ck._fold_plain(p64), None, nbins, shape[1], shape[2])[0]
+        ref_abs = ck._shell_bin_folded_plain(ck._fold_plain(p64.abs()), None, nbins, shape[1],
+                                             shape[2])[0]
+        bound = TOL_SIGNED_FOLD + TOL_BIN
+    else:
+        ref = ck._shell_bin_unfolded_plain(p64, None, nbins, shape[2])[0]
+        ref_abs = ck._shell_bin_unfolded_plain(p64.abs(), None, nbins, shape[2])[0]
+        bound = TOL_BIN
+    out = {"bins": float(((got - ref).abs() / (bound * ref_abs).clamp(min=1e-300)).max()),
+           "negative_shells": int((ref < 0).sum())}
+    say(f"phase {phase} {what} on the correlation half-volume {tuple(p.shape)}: error/bound {out}")
+    if not out["bins"] <= 1.0:
+        fail(f"{what}: the correlation binning disagrees with its plain version")
+    return out
+
+
+def flux_pieces_ms(torch, cg, vels, dens, kcs, kernel, lengths, reps=3):
+    """Where the time of filtered_ke_flux goes, by CUDA events (mean of
+    ``reps`` warm calls): the forward transforms; the sweep over the
+    cutoffs, split into its inverse transforms (one timed, times the 22 a
+    cutoff takes with dens and no pres) and the eager products (the rest:
+    gains, products, quotients and the float64 means); the fetch of the
+    stacked statistics; and the whole call."""
+    from fava_tpu_torch.ops.velocity import _irfft
+
+    shape = tuple(int(s) for s in vels[0].shape)
+    f = cg._forward(vels, dens, None)
+    spec = f["mom"][0]
+    g = cg._filter_gain(cg._k2_int(shape, spec.real.dtype, spec.device), float(kcs[0]), kernel)
+    rows = [cg._scale_stats(f, shape, float(k), kernel, lengths) for k in kcs]
+    out = {
+        "forward_ms": cuda_ms(torch, lambda: cg._forward(vels, dens, None), reps),
+        "one_inverse_ms": cuda_ms(torch, lambda: _irfft(g * spec, shape), reps),
+        "sweep_ms": cuda_ms(torch, lambda: [cg._scale_stats(f, shape, float(k), kernel, lengths)
+                                            for k in kcs], reps),
+        "fetch_ms": cuda_ms(torch, lambda: torch.stack(rows, dim=1).cpu(), reps),
+        "call_ms": cuda_ms(torch, lambda: cg.filtered_ke_flux(*vels, dens=dens, cutoffs=kcs,
+                                                              kernel=kernel, lengths=lengths), reps),
+    }
+    del f, spec, g, rows
+    out["inverse_transforms"] = 22 * len(kcs)
+    out["inverse_ms"] = out["one_inverse_ms"] * out["inverse_transforms"]
+    out["products_ms"] = out["sweep_ms"] - out["inverse_ms"]
+    return out
+
+
+def a8c_runs(model, with_corr=True):
+    """The A8c analyses on a uniform model: {name: (fn, {kernel: launches})}
+    on an even-extent window."""
+    fold = {"fold_quadrants_pair": 1, "shell_bin_values_folded_1ch": 1}
+    runs = {"filtered ke flux": (model.filtered_kinetic_energy_flux, {}),
+            "velocity correlations": (model.velocity_correlations, {})}
+    if with_corr:
+        runs["two point correlation"] = (lambda: model.two_point_correlation("dens"), fold)
+    return runs
+
+
+def random_a8c_runs(model):
+    return {"velocity correlations": (model.velocity_correlations, {}),
+            "filtered ke flux pressure gaussian": (
+                lambda: model.filtered_kinetic_energy_flux(with_pressure=True), {}),
+            "filtered ke flux pressure sharp": (
+                lambda: model.filtered_kinetic_energy_flux(with_pressure=True, kernel="sharp"), {})}
+
+
+def hold_a8c(torch, np, cg, vel_ops, got, ref, cpu_mesh, what, phase, with_pres=False):
+    """The card's A8c results on a cut against the float64 path on the CPU
+    (same float32 values): the lines TOL_SPECTRA (hold_lines); the flux to
+    TOL_FLUX of its term scales (the sharp kernel's Favre flux is printed
+    only: it is held to identity (b))."""
+    out = {}
+    for name, r in ref.items():
+        g = got[name]
+        if name.startswith("filtered ke flux"):
+            kernel = "sharp" if name.endswith("sharp") else "gaussian"
+            vels = [cpu_mesh.data(f"vel{a}") for a in "xyz"]
+            pres = cpu_mesh.data("pres") if with_pres else None
+            scales = flux_term_scales(torch, cg, vel_ops, vels, cpu_mesh.data("dens"), pres, r["kc"],
+                                      kernel, cpu_mesh._domain_lengths())
+            if kernel == "sharp":
+                err = {k: float((np.abs(np.asarray(g[k]) - r[k])
+                                 / np.array([s[k.rsplit("_", 1)[0]] for s in scales])).max())
+                       for k in r if k not in ("kc", "scale")}
+                say(f"phase {phase} {what} {name} (not held; sharp Favre, see identity (b)): "
+                    f"max |diff| / term scale {err}")
+                out[name] = err
+            else:
+                out[name] = hold_flux(np, g, r, scales, TOL_FLUX, f"{what} {name}", phase)
+        else:
+            out[name] = hold_lines(np, g, r, TOL_SPECTRA, f"{what} {name}", phase)
+    return out
+
+
+def identity_b(torch, np, rdir: Path, times):
+    """Identity (b) at 512^3 on the card, both sides in the port: the
+    solenoidal part of the random velocity file, the sharp filter at
+    k_c = s + 0.5 (3 k_c < n keeps the products of the filtered field
+    alias-free): <Pi_l> = flux(k_c) of transfer_spectrum, within
+    TOL_TRANSFER of the sum of the two sides' magnitude scales (the term
+    scale S_pi of the flux, sum_{k <= k_c} |T(k)| of the transfer)."""
+    import fava_tpu_torch
+    from fava_tpu_torch.ops import coarse_grain as cg
+    from fava_tpu_torch.ops import cuda_kernels as ck
+    from fava_tpu_torch.ops import velocity as vel_ops
+
+    rnd = fava_tpu_torch.FLASH(rdir)
+    rnd.load(file_type="uni", file_index=0, fields=["velx", "vely", "velz"])
+    sol = vel_ops.helmholtz_decompose(*[rnd.mesh.data(f"vel{a}") for a in "xyz"])["solenoidal"]
+    rnd.mesh = None
+    sol = [sol[f"vel{a}"] for a in "xyz"]
+    torch.cuda.empty_cache()
+    shells = IDENTITY_SHELLS
+    kcs = tuple(s + 0.5 for s in shells)
+    ck.reset_launch_counts()
+    flux = cg.filtered_ke_flux(*sol, cutoffs=kcs, kernel="sharp")
+    tr = vel_ops.transfer_spectrum(*sol)
+    torch.cuda.synchronize()
+    scales = flux_term_scales(torch, cg, vel_ops, sol, None, None, kcs, "sharp", None)
+    del sol
+    torch.cuda.empty_cache()
+    rows = []
+    for i, s in enumerate(shells):
+        t_abs = float(np.abs(tr["transfer"][: s + 1]).sum())
+        bound = TOL_TRANSFER * (scales[i]["pi"] + t_abs)
+        rows.append({"kc": kcs[i], "pi_mean": float(flux["pi_mean"][i]),
+                     "spectral_flux": float(tr["flux"][s]), "term_scale": scales[i]["pi"],
+                     "sum_abs_T": t_abs,
+                     "error_over_bound": abs(flux["pi_mean"][i] - tr["flux"][s]) / bound})
+    times["identity_b"] = rows
+    say(f"phase 23 identity (b) at 512^3 on the card (solenoidal random velocity, sharp filter): "
+        f"{json.dumps(rows)}")
+    if not all(r["error_over_bound"] <= 1.0 for r in rows):
+        fail("identity (b): <Pi_l> differs from the spectral flux at k_c")
+    if not max(abs(r["spectral_flux"]) / (TOL_TRANSFER * (r["term_scale"] + r["sum_abs_T"]))
+               for r in rows) >= 10:
+        fail("identity (b): every spectral flux is too small for the check to mean anything")
+
+
+def phase_a8c(torch, np, workdir: Path, card: str):
+    """Phase 23: the filtered flux and the two-point and velocity
+    correlations at 512^3 on the window (the pipeline's defaults), its
+    511-wide cut and the random-velocity file, counted, finite and timed
+    warm; the correlation volumes' binning against the plain versions;
+    each held to the float64 CPU path on a CUT_FIELDS^3 cut; identity (b);
+    the flux's pieces by CUDA events."""
+    import fava_tpu_torch
+    from fava_tpu_torch.ops import coarse_grain as cg
+    from fava_tpu_torch.ops import cuda_kernels as ck
+    from fava_tpu_torch.ops import velocity as vel_ops
+
+    t_phase = time.perf_counter()
+    times = {"card": card}
+    torch.cuda.reset_peak_memory_stats()
+    uni = fava_tpu_torch.FLASH(workdir)
+    uni.load(file_type="uni", file_index=0, fields=list(NAMES))
+    dens = uni.mesh.data("dens")
+    times["binning"] = check_corr_binning(torch, ck, dens, 23, "K3 + B4")
+    cut = dens[: N - 1].contiguous()
+    times["binning_odd"] = check_corr_binning(torch, ck, cut, 23, "B10")
+    results, times["walls_s"], totals = run_exact_counts(torch, ck, 23, a8c_runs(uni), "window")
+    odd = fava_tpu_torch.from_arrays({"dens": cut})
+    odd_tp, odd_counts = counted(torch, ck, "511x512x512 two point correlation",
+                                 lambda: odd.two_point_correlation("dens"),
+                                 ("shell_bin_sums_unfolded",), 23)
+    if odd_counts["shell_bin_sums_unfolded"] != 1 or odd_counts["fold_quadrants_pair"]:
+        fail(f"the odd-extent two-point correlation launched {odd_counts}")
+    add_counts(totals, odd_counts)
+    times["walls_s"]["two point correlation 511"] = wall_per_call(
+        torch, lambda: odd.two_point_correlation("dens"), 1)[0]
+    del odd, cut
+    for name, out in list(results.items()) + [("two point correlation 511", odd_tp)]:
+        all_finite(np, out, f"phase 23 window {name}")
+    if odd_tp["R_shell"].shape != ((N - 1) // 2,) or results["two point correlation"][
+            "R_shell"].shape != (N // 2,):
+        fail("phase 23: wrong shell count of the two-point correlation")
+    vels = [uni.mesh.data(f"vel{a}") for a in "xyz"]
+    times["flux_pieces_ms"] = flux_pieces_ms(torch, cg, vels, dens, (4.0, 8.0, 16.0), "gaussian",
+                                             uni.mesh._domain_lengths())
+    say(f"phase 23 filtered_ke_flux pieces on the window (CUDA events, ms): "
+        f"{json.dumps(times['flux_pieces_ms'])}")
+    del vels, dens
+    times["window_peak_allocated_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # The float64 path on the CPU on a CUT_FIELDS^3 cut of the same values.
+    torch.set_num_threads(os.cpu_count() or 1)
+    c = CUT_FIELDS
+    t0 = time.perf_counter()
+    cpu = fava_tpu_torch.FLASH(workdir, device="cpu")
+    cpu.load(file_type="uni", file_index=0, fields=list(NAMES))
+    arrays = {k: cpu.mesh.data(k)[:c, :c, :c].numpy() for k in NAMES}
+    del cpu
+    cut_cpu = fava_tpu_torch.from_arrays(arrays, device="cpu")
+    cut_gpu = fava_tpu_torch.from_arrays(arrays)
+    ref = {k: fn() for k, (fn, _) in a8c_runs(cut_cpu).items()}
+    got = {k: fn() for k, (fn, _) in a8c_runs(cut_gpu).items()}
+    times["errors"] = hold_a8c(torch, np, cg, vel_ops, got, ref, cut_cpu.mesh, "window cut", 23)
+    times["cpu_reference_s"] = time.perf_counter() - t0
+    del cut_cpu, cut_gpu, got, ref
+    uni.mesh = None
+    torch.cuda.empty_cache()
+
+    # The random-velocity file of phase 22 (compressible, with pres).
+    rdir = workdir / "random"
+    rnd = fava_tpu_torch.FLASH(rdir)
+    rnd.load(file_type="uni", file_index=0, fields=list(NAMES) + ["pres"])
+    rres, times["random_walls_s"], rtot = run_exact_counts(torch, ck, 23, random_a8c_runs(rnd),
+                                                           "random")
+    add_counts(totals, rtot)
+    for name, out in rres.items():
+        all_finite(np, out, f"phase 23 random {name}")
+    arrays = {k: rnd.mesh.data(k)[:c, :c, :c].cpu().numpy() for k in list(NAMES) + ["pres"]}
+    rnd.mesh = None
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cut_cpu = fava_tpu_torch.from_arrays(arrays, device="cpu")
+    cut_gpu = fava_tpu_torch.from_arrays(arrays)
+    ref = {k: fn() for k, (fn, _) in random_a8c_runs(cut_cpu).items()}
+    got = {k: fn() for k, (fn, _) in random_a8c_runs(cut_gpu).items()}
+    times["random_errors"] = hold_a8c(torch, np, cg, vel_ops, got, ref, cut_cpu.mesh, "random cut",
+                                      23, with_pres=True)
+    times["random_cpu_reference_s"] = time.perf_counter() - t0
+    del cut_cpu, cut_gpu
+    torch.cuda.empty_cache()
+    identity_b(torch, np, rdir, times)
+    times["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase 23 filtering and two-point timings: {json.dumps(times)}")
+    return totals, times
+
+
+def streamed_stat_runs(loader, shape, lines_field="dens", with_mach=False, **kw):
+    """The four streamed drivers on a host slab loader: {name: fn}."""
+    from fava_tpu_torch.ops import outofcore
+
+    common = dict(slab_rows=SLAB_ROWS, **kw)
+    return {
+        "turbulence summary": lambda: outofcore.streamed_turbulence_summary(
+            loader, shape, chunk_rows=CHUNK_ROWS, with_mach=with_mach, **common),
+        "velocity gradient statistics": lambda: outofcore.streamed_gradient_stats(
+            loader, shape, **common),
+        "velocity correlations": lambda: outofcore.streamed_velocity_correlations(
+            loader, shape, chunk_rows=CHUNK_ROWS, **common),
+        "two point lines": lambda: outofcore.streamed_two_point_lines(
+            loader, shape, lines_field, chunk_rows=CHUNK_ROWS, **common),
+    }
+
+
+def run_streamed_stats(torch, np, ck, runs, phase, what):
+    """Each streamed driver once, counters reset before and read after (they
+    launch no kernel), its wall and peak card memory."""
+    results, times = {}, {}
+    for name, fn in runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        results[name] = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in ck.launch_counts().items() if v}
+        if launches:
+            fail(f"streamed {name} launched {launches}; it runs no kernel")
+        times[name] = {"wall_s": wall, "peak_allocated_GiB": torch.cuda.max_memory_allocated() / 2**30}
+        all_finite(np, results[name], f"phase {phase} {what} streamed {name}")
+    say(f"phase {phase} {what} streamed statistics (wall, peak card memory): {json.dumps(times)}")
+    return results, times
+
+
+def hold_summary(np, got, ref, what, phase, real_only=False):
+    """A summary against a reference: real-space entries TOL_SUMS relative
+    (float64 sums of the same float32 values), spectral ones TOL_SPECTRA
+    (float32 transforms split otherwise)."""
+    if not real_only and list(got) != list(ref):
+        fail(f"{what}: entries {list(got)} vs {list(ref)}")
+    worst = {}
+    for key, r in ref.items():
+        tol = TOL_SUMS if key in SUMMARY_REAL_SPACE else TOL_SPECTRA
+        worst[key] = abs(got[key] - r) / max(abs(r), 1e-300) / tol
+    top = max(worst, key=worst.get)
+    say(f"phase {phase} {what}: worst error/bound {worst[top]!r} ({top})")
+    if not worst[top] <= 1.0:
+        fail(f"{what} disagrees (error/bound): {worst}")
+    return worst[top]
+
+
+def hold_gradients(np, got, ref, what, phase):
+    """Gradient statistics against a reference: the same float32
+    differences summed in float64 in another order (and combined across
+    slabs by Chan/Pebay): each entry within TOL_SUMS of its natural scale
+    (gradient_scales)."""
+    worst = {}
+    for key, scale in gradient_scales(np, ref).items():
+        err = np.abs(np.asarray(got[key]) - np.asarray(ref[key])) / np.maximum(scale, 1e-300)
+        worst[key] = float(np.max(err)) / TOL_SUMS
+    top = max(worst, key=worst.get)
+    say(f"phase {phase} {what}: worst error/bound {worst[top]!r} ({top})")
+    if not worst[top] <= 1.0:
+        fail(f"{what} disagrees (error/bound): {worst}")
+    return worst[top]
+
+
+def streamed_vs_incore_random(torch, np, rdir: Path):
+    """Phase 22: the random file through the mesh with ``streamed=True``
+    (its _streamed_loader with check_fields, gamc on file) against the
+    in-core analyses on the card: the summary with Mach statistics, the
+    gradient statistics, the velocity correlations and the two-point
+    lines of dens."""
+    import fava_tpu_torch
+    from fava_tpu_torch.ops import cuda_kernels as ck
+
+    rnd = fava_tpu_torch.FLASH(rdir)
+    rnd.load(file_type="uni", file_index=0, fields=list(NAMES) + ["pres", "gamc"])
+    runs = {"turbulence summary": rnd.turbulence_summary,
+            "velocity gradient statistics": rnd.velocity_gradient_statistics,
+            "velocity correlations": rnd.velocity_correlations,
+            "two point lines": lambda: rnd.two_point_correlation("dens")}
+    incore = {name: fn() for name, fn in runs.items()}
+    knobs = {"slab_rows": SLAB_ROWS, "chunk_rows": CHUNK_ROWS}
+    streamed_runs = {
+        "turbulence summary": lambda: rnd.turbulence_summary(streamed=True, **knobs),
+        "velocity gradient statistics": lambda: rnd.velocity_gradient_statistics(
+            streamed=True, slab_rows=SLAB_ROWS),
+        "velocity correlations": lambda: rnd.velocity_correlations(streamed=True, **knobs),
+        "two point lines": lambda: rnd.two_point_correlation("dens", streamed=True, **knobs),
+    }
+    got, times = run_streamed_stats(torch, np, ck, streamed_runs, 22, "random 512^3 file")
+    rnd.mesh = None
+    torch.cuda.empty_cache()
+    if "mach_rms" not in got["turbulence summary"]:
+        fail("the streamed summary of the random file has no Mach statistics")
+    times["errors"] = {
+        "turbulence summary": hold_summary(np, got["turbulence summary"], incore["turbulence summary"],
+                                           "streamed vs in-core summary", 22),
+        "velocity gradient statistics": hold_gradients(
+            np, got["velocity gradient statistics"], incore["velocity gradient statistics"],
+            "streamed vs in-core gradient statistics", 22),
+        "velocity correlations": hold_lines(np, got["velocity correlations"],
+                                            incore["velocity correlations"], TOL_SPECTRA,
+                                            "streamed vs in-core velocity correlations", 22),
+        "two point lines": hold_lines(np, got["two point lines"], incore["two point lines"],
+                                      TOL_SPECTRA, "streamed vs in-core two-point lines", 22,
+                                      keys=set(got["two point lines"])),
+    }
+    return times
+
+
+def streamed_lines_vs_incore(torch, np, hosts, incore, n, phase):
+    """Phase 14: the streamed velocity correlations and two-point lines of
+    dens from the 1024^3 host copy against the in-core analyses on the
+    card (``incore``)."""
+    from fava_tpu_torch.ops import cuda_kernels as ck
+
+    runs = streamed_stat_runs(host_loader(hosts), (n, n, n))
+    runs = {k: runs[k] for k in ("velocity correlations", "two point lines")}
+    got, times = run_streamed_stats(torch, np, ck, runs, phase, f"{n}^3")
+    times["errors"] = {
+        name: hold_lines(np, got[name], incore[name], TOL_SPECTRA,
+                         f"streamed vs in-core {name} at {n}^3", phase, keys=set(got[name]))
+        for name in runs}
+    return times
+
+
+def streamed_beyond_incore(torch, np, hosts, n, phase):
+    """Phase 15: the four streamed drivers on the 1280^3 host arrays (dens
+    and velocities, so the summary has no Mach statistics), held to what
+    plain float64 sums of the host arrays give (taken slab by slab on the
+    card, where they cost seconds; on the host's cores they took 40 s):
+    the summary's real-space entries (TOL_SUMS), the variance of dens from
+    its two-point lines (TOL_SPECTRA: float32 transforms), the zero mean
+    of every du_i/dx_j on the periodic box (within 2^-22 of its rms: the
+    float32 differences telescope up to their rounding), and f(0) = g(0)
+    = 1."""
+    from fava_tpu_torch.ops import cuda_kernels as ck
+
+    got, times = run_streamed_stats(torch, np, ck, streamed_stat_runs(host_loader(hosts), (n, n, n)),
+                                    phase, f"{n}^3")
+    t0 = time.perf_counter()
+    acc = torch.zeros(6, dtype=torch.float64, device="cuda")
+    for x0 in range(0, n, SLAB_ROWS):
+        d, vx, vy, vz = (torch.from_numpy(hosts[k][x0 : x0 + SLAB_ROWS]).cuda().double()
+                         for k in NAMES)
+        u2 = vx.square() + vy.square() + vz.square()
+        ld = d.log()
+        acc += torch.stack([u2.sum(), (d * u2).sum(), d.sum(), ld.sum(), ld.square().sum(),
+                            d.square().sum()])
+        del d, vx, vy, vz, u2, ld
+    ntot = float(n) ** 3
+    s_u2, s_du2, s_d, s_ld, s_ld2, s_d2 = acc.tolist()
+    mu_ld = s_ld / ntot
+    host = {"u_rms": math.sqrt(s_u2 / ntot), "kinetic_energy": 0.5 * s_u2 / ntot,
+            "kinetic_energy_density": 0.5 * s_du2 / ntot, "mean_s": mu_ld - math.log(s_d / ntot),
+            "sigma_s": math.sqrt(max(s_ld2 / ntot - mu_ld**2, 0.0))}
+    var = s_d2 / ntot - (s_d / ntot) ** 2
+    times["float64_sums_s"] = time.perf_counter() - t0
+    errs = {"summary": hold_summary(np, got["turbulence summary"], host,
+                                    f"streamed {n}^3 summary vs plain float64 sums", phase,
+                                    real_only=True)}
+    errs["dens_variance"] = abs(got["two point lines"]["variance"] - var) / var / TOL_SPECTRA
+    grad = got["velocity gradient statistics"]
+    errs["gradient_mean"] = float((np.abs(grad["gradient_mean"])
+                                   / (2.0**-22 * np.sqrt(grad["gradient_moment2"]))).max())
+    vc = got["velocity correlations"]
+    ones = all(vc[f"{k}_{ax}"][0] == 1.0 for k in ("f", "g") for ax in "xyz")
+    say(f"phase {phase} streamed {n}^3 vs plain float64 sums (error/bound): {errs}; f(0) = g(0) = 1: "
+        f"{ones}; the sums {times['float64_sums_s']:.1f} s")
+    if not (max(errs.values()) <= 1.0 and ones):
+        fail(f"the streamed statistics at {n}^3 disagree with the plain float64 sums: {errs}")
+    times["errors"] = errs
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -3456,10 +4076,12 @@ def main() -> None:
         series_launches, series_times = phase_series(torch, np, workdir)
         torch.cuda.empty_cache()
         velocity_launches, _ = phase_velocity(torch, np, workdir, card)
+        torch.cuda.empty_cache()
+        a8c_launches, _ = phase_a8c(torch, np, workdir, card)
     torch.cuda.empty_cache()
     pipe_launches, pipe_times = phase_pipeline(torch, np)
     for counts in (amr4_launches, win_launches, odd_launches, entry_launches, series_launches,
-                   velocity_launches, pipe_launches):
+                   velocity_launches, a8c_launches, pipe_launches):
         add_counts(launches, counts)
     say(f"phase 11-12 stage-4 timings: {json.dumps({'card': card, 'window': win_times, 'odd': odd_times})}")
     say(f"phase 16-17 entry point and series timings: "

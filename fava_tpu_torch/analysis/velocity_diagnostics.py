@@ -2,23 +2,8 @@
 the active mesh (counterpart of fava_tpu/analysis/velocity_diagnostics.py,
 ops/velocity.py and ops/gradients.py)."""
 
+from fava_tpu_torch.analysis.two_point import _uniform_mesh_method
 from fava_tpu_torch.models.model import Model
-
-
-def _uniform_mesh_method(mesh, name: str):
-    """The uniform mesh's method ``name``; AMR meshes have none, and fail
-    with a route forward instead of a bare AttributeError (jax-free copy
-    of fava_tpu/analysis/two_point.py's helper)."""
-    if mesh is None:
-        raise AttributeError(f"{name} needs a loaded dataset — call model.load(...) first")
-    method = getattr(mesh, name, None)
-    if method is None:
-        raise AttributeError(
-            f"{name} needs a uniform-grid dataset ({type(mesh).__name__} has no "
-            f"{name}); regrid AMR data first via mesh.from_amr(...) and load the "
-            "resulting uniform file"
-        )
-    return method
 
 
 @Model.register_analysis(use_timer=True)

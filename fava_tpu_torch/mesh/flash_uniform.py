@@ -14,9 +14,11 @@ profiles take the uniform fast case (K1/K2). The velocity diagnostics
 (Helmholtz parts, vorticity, dilatation, the enstrophy, helicity,
 transfer, decomposed and anisotropic spectra, the turbulence summary)
 and the gradient statistics and Q-R PDF run in core (ops/velocity.py,
-ops/gradients.py); their streamed drivers are ROADMAP A10. The
-filtering and two-point analyses raise NotImplementedError naming
-ROADMAP A8c.
+ops/gradients.py), as do the filtered kinetic-energy flux
+(ops/coarse_grain.py) and the two-point and velocity correlations
+(ops/twopoint.py). The summary, the gradient statistics and both
+correlations also stream from the file (``streamed=True``,
+ops/outofcore.py) for volumes the card cannot hold.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from fava_tpu_torch.io import flash_file, h5lite
 from fava_tpu_torch.mesh.flash_amr import FLASH
 from fava_tpu_torch.models.model import Model
+from fava_tpu_torch.ops import coarse_grain as cg_ops
 from fava_tpu_torch.ops import flame as flame_ops
 from fava_tpu_torch.ops import fractal as fractal_ops
 from fava_tpu_torch.ops import gradients as grad_ops
@@ -37,27 +40,10 @@ from fava_tpu_torch.ops import outofcore
 from fava_tpu_torch.ops import projection as projection_ops
 from fava_tpu_torch.ops import spectra as spectra_ops
 from fava_tpu_torch.ops import structure as structure_ops
+from fava_tpu_torch.ops import twopoint as tp_ops
 from fava_tpu_torch.ops import velocity as vel_ops
 from fava_tpu_torch.ops import volume as volume_ops
 from fava_tpu_torch.utils import field_dtype, timer
-
-
-def _not_ported(item: str, what: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-    method.__name__ = what
-    method.__doc__ = f"Not ported yet: raises NotImplementedError (ROADMAP {item})."
-    return method
-
-
-# fava_tpu's uniform-mesh filtering and two-point analyses (its
-# flash_uniform.py), which ROADMAP A8c ports.
-_A8_METHODS = (
-    "filtered_kinetic_energy_flux",
-    "two_point_correlation",
-    "velocity_correlations",
-)
 
 
 def streams_out_of_core(shape, dtype: torch.dtype, free_bytes: float, resident_bytes: int = 0) -> bool:
@@ -183,16 +169,21 @@ class FlashUniform(FLASH):
         b = np.asarray(self.domain_bounds, dtype=np.float64)
         return tuple(float(b[i, 1] - b[i, 0]) for i in range(self.ndim))
 
-    def _streamed_loader(self):
-        """Host x-slab loader of this mesh's file for the out-of-core path."""
+    def _streamed_loader(self, check_fields: bool = False):
+        """Host x-slab loader of this mesh's file for the out-of-core paths.
+        ``check_fields`` raises KeyError for a field absent from the file
+        (the streamed summary's gamc fallback relies on it)."""
         if self._filename is None:
             raise ValueError(
                 "streamed paths need a file-backed mesh; from_arrays data "
                 "is fully resident — use the in-core analyses"
             )
         path = self._filename
+        fields = set(self.fields)
 
         def loader(name: str, x0: int, x1: int) -> np.ndarray:
+            if check_fields and name not in fields:
+                raise KeyError(name)
             with h5lite.File(path, "r") as f:
                 return flash_file.read_field_slab(f, name, x0, x1)
 
@@ -370,13 +361,11 @@ class FlashUniform(FLASH):
             seed=seed,
         )
 
-    @staticmethod
-    def _no_stream(what: str, streamed: bool) -> None:
-        if streamed:
-            raise NotImplementedError(
-                f"{what}(streamed=True) is not ported yet (ROADMAP A10); the in-core path runs "
-                "with streamed=False"
-            )
+    def _shape3(self, what: str):
+        """The (nx, ny, nz) of a 3D dataset, which every streamed path needs."""
+        if self.ndim != 3:
+            raise ValueError(f"streamed {what} requires a 3D dataset")
+        return tuple(int(n) for n in (self.nxb, self.nyb, self.nzb))
 
     @timer
     def helmholtz_decomposition(self) -> Dict[str, Dict[str, np.ndarray]]:
@@ -419,16 +408,41 @@ class FlashUniform(FLASH):
         self,
         boundary: str = "periodic",
         streamed: bool = False,
+        slab_rows: Optional[int] = None,
+        wire_dtype: Optional[torch.dtype] = None,
+        prefetch_depth: int = 2,
     ) -> Dict[str, Any]:
         """Velocity-gradient tensor statistics: central-difference g_ij
         moments to fourth order, derivative skewness and flatness,
         pseudo-dissipation, enstrophy and dilatation mean squares, Taylor
         microscales (ops/gradients.py). ``boundary="interior"`` drops the
-        periodic wrap (windowed extracts such as the flame windows). The
-        streamed path is ROADMAP A10."""
-        self._no_stream("velocity_gradient_statistics", streamed)
-        return grad_ops.velocity_gradient_statistics(
-            *self._velocities(), lengths=self._domain_lengths(), boundary=boundary
+        periodic wrap (windowed extracts such as the flame windows).
+        ``streamed=True`` takes the out-of-core halo-slab path from the
+        file (3D, periodic only; ops/outofcore.streamed_gradient_stats);
+        ``slab_rows`` rounds down to a divisor of nx (64 when None)."""
+        if not streamed:
+            self._reject_stream_knobs(
+                slab_rows=(slab_rows, None),
+                wire_dtype=(wire_dtype, None),
+                prefetch_depth=(prefetch_depth, 2),
+            )
+            return grad_ops.velocity_gradient_statistics(
+                *self._velocities(), lengths=self._domain_lengths(), boundary=boundary
+            )
+        shape = self._shape3("gradient statistics")
+        if boundary != "periodic":
+            raise ValueError(
+                "streamed gradient statistics are periodic-only (windowed "
+                "interior extracts fit in core by construction)"
+            )
+        return outofcore.streamed_gradient_stats(
+            self._streamed_loader(),
+            shape,
+            slab_rows=self._largest_divisor(shape[0], slab_rows),
+            device=self.device,
+            lengths=self._domain_lengths(),
+            wire_dtype=wire_dtype,
+            prefetch_depth=prefetch_depth,
         )
 
     @timer
@@ -461,14 +475,39 @@ class FlashUniform(FLASH):
         self,
         gamma: float = 5.0 / 3.0,
         streamed: bool = False,
+        slab_rows: Optional[int] = None,
+        chunk_rows: Optional[int] = None,
+        wire_dtype: Optional[torch.dtype] = None,
+        prefetch_depth: int = 2,
     ) -> Dict[str, float]:
         """One-call scalar turbulence report (ops/velocity.turbulence_summary):
         u_rms and KE, integral and Taylor scales, the solenoidal and
         compressive energy fractions, vorticity and dilatation rms, the
         log-density moments, and the Mach statistics when this file
         carries ``pres`` (its per-cell ``gamc`` over the scalar ``gamma``
-        when present). The streamed path is ROADMAP A10."""
-        self._no_stream("turbulence_summary", streamed)
+        when present). ``streamed=True`` takes the out-of-core x-slab path
+        from the file (3D; ops/outofcore.streamed_turbulence_summary);
+        ``slab_rows``/``chunk_rows`` round down to divisors of nx."""
+        if streamed:
+            shape = self._shape3("turbulence_summary")
+            return outofcore.streamed_turbulence_summary(
+                self._streamed_loader(check_fields=True),
+                shape,
+                slab_rows=self._largest_divisor(shape[0], slab_rows),
+                chunk_rows=self._largest_divisor(shape[0], chunk_rows),
+                device=self.device,
+                gamma=gamma,
+                lengths=self._domain_lengths(),
+                with_mach="pres" in self.fields,
+                wire_dtype=wire_dtype,
+                prefetch_depth=prefetch_depth,
+            )
+        self._reject_stream_knobs(
+            slab_rows=(slab_rows, None),
+            chunk_rows=(chunk_rows, None),
+            wire_dtype=(wire_dtype, None),
+            prefetch_depth=(prefetch_depth, 2),
+        )
 
         def opt(name):
             return None if self.data(name) is None else self._scalar_volume(name)
@@ -499,6 +538,114 @@ class FlashUniform(FLASH):
         sums (ops/velocity.transfer_spectrum)."""
         return vel_ops.transfer_spectrum(
             *self._velocities(), lengths=self._domain_lengths(), dealias=dealias
+        )
+
+    @timer
+    def filtered_kinetic_energy_flux(
+        self,
+        cutoffs: Sequence[float] = (4.0, 8.0, 16.0),
+        kernel: str = "gaussian",
+        with_pressure: bool = False,
+    ) -> Dict[str, np.ndarray]:
+        """Favre-filtered SGS kinetic-energy flux sweep Pi_l: mean/RMS
+        deformation work across a list of filter cutoffs, density-weighted,
+        plus the baropycnal work when ``with_pressure`` and a ``pres``
+        field is on file (ops/coarse_grain.py)."""
+        pres = None
+        if with_pressure:
+            if "pres" not in self.fields:
+                raise KeyError("with_pressure=True but this file carries no 'pres' field")
+            pres = self._scalar_volume("pres")
+        return cg_ops.filtered_ke_flux(
+            *self._velocities(),
+            dens=self._scalar_volume("dens"),
+            pres=pres,
+            cutoffs=tuple(float(k) for k in cutoffs),
+            kernel=kernel,
+            lengths=self._domain_lengths(),
+        )
+
+    @timer
+    def two_point_correlation(
+        self,
+        field: str = "dens",
+        streamed: bool = False,
+        slab_rows: Optional[int] = None,
+        chunk_rows: Optional[int] = None,
+        wire_dtype: Optional[torch.dtype] = None,
+        prefetch_depth: int = 2,
+        **kwargs,
+    ) -> Dict[str, Any]:
+        """Scalar two-point autocorrelation R(r) = <f'(x)f'(x+r)>/var: the
+        shell-averaged isotropic curve and per-axis lines with integral
+        length scales (ops/twopoint.two_point_correlation; ``nbins`` and
+        the other keywords go there). ``streamed=True`` takes the
+        out-of-core path for 3D volumes: the per-axis lines and integral
+        scales only, the shell curve needing the whole correlation volume
+        (ops/outofcore.streamed_two_point_lines)."""
+        if not streamed:
+            self._reject_stream_knobs(
+                slab_rows=(slab_rows, None),
+                chunk_rows=(chunk_rows, None),
+                wire_dtype=(wire_dtype, None),
+                prefetch_depth=(prefetch_depth, 2),
+            )
+            return tp_ops.two_point_correlation(
+                self._scalar_volume(field), lengths=self._domain_lengths(), **kwargs
+            )
+        if kwargs:
+            # silently dropping e.g. nbins= would return a result that
+            # ignored the request: the streamed path has no shell curve
+            raise TypeError(
+                f"{sorted(kwargs)} not supported with streamed=True: the "
+                "shell curve (and its nbins) needs the full correlation "
+                "volume; the streamed path returns per-axis lines only"
+            )
+        shape = self._shape3("two_point_correlation")
+        return outofcore.streamed_two_point_lines(
+            self._streamed_loader(),
+            shape,
+            field,
+            slab_rows=self._largest_divisor(shape[0], slab_rows),
+            chunk_rows=self._largest_divisor(shape[0], chunk_rows),
+            device=self.device,
+            lengths=self._domain_lengths(),
+            wire_dtype=wire_dtype,
+            prefetch_depth=prefetch_depth,
+        )
+
+    @timer
+    def velocity_correlations(
+        self,
+        streamed: bool = False,
+        slab_rows: Optional[int] = None,
+        chunk_rows: Optional[int] = None,
+        wire_dtype: Optional[torch.dtype] = None,
+        prefetch_depth: int = 2,
+    ) -> Dict[str, Any]:
+        """Karman-Howarth longitudinal f(r) and transverse g(r) velocity
+        correlations per axis with the L11/L22 integral scales and the
+        isotropy ratio L11/(2 L22) (ops/twopoint.velocity_correlations).
+        ``streamed=True`` takes the out-of-core x-slab path for 3D volumes
+        (ops/outofcore.streamed_velocity_correlations)."""
+        if not streamed:
+            self._reject_stream_knobs(
+                slab_rows=(slab_rows, None),
+                chunk_rows=(chunk_rows, None),
+                wire_dtype=(wire_dtype, None),
+                prefetch_depth=(prefetch_depth, 2),
+            )
+            return tp_ops.velocity_correlations(*self._velocities(), lengths=self._domain_lengths())
+        shape = self._shape3("velocity_correlations")
+        return outofcore.streamed_velocity_correlations(
+            self._streamed_loader(),
+            shape,
+            slab_rows=self._largest_divisor(shape[0], slab_rows),
+            chunk_rows=self._largest_divisor(shape[0], chunk_rows),
+            device=self.device,
+            lengths=self._domain_lengths(),
+            wire_dtype=wire_dtype,
+            prefetch_depth=prefetch_depth,
         )
 
     def _scalar_volume(self, name: str) -> torch.Tensor:
@@ -599,9 +746,3 @@ class FlashUniform(FLASH):
         for i, a in enumerate(keep, start=1):
             out[f"coord{i}"] = b[a, 0] + (np.arange(vol.shape[a]) + 0.5) * deltas[a]
         return out
-
-
-for _name in _A8_METHODS:
-    setattr(FlashUniform, _name, _not_ported("A8c", _name))
-
-del _name

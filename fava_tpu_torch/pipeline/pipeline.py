@@ -9,9 +9,7 @@ with a ``fava.checkpoint`` JSON for resumability and SIGINT/SIGTERM-safe
 checkpointing via the interrupt handler. The settings schema, the
 checkpoint format and the analysis files' group and dataset names are
 fava_tpu's. The analysis files are read through ``io/h5lite``; every
-model is built on the pipeline's ``device``. An enabled stage-4 analysis
-that the port does not run yet fails at settings time
-(``AnalysisNotPortedError``).
+model is built on the pipeline's ``device``.
 """
 
 from __future__ import annotations
@@ -36,11 +34,6 @@ PIPELINE_SETTINGS_NAME = "pipeline_settings.json"
 
 class PipelineSettingsError(ValueError):
     """Raised at load_settings time for malformed pipeline settings."""
-
-
-class AnalysisNotPortedError(NotImplementedError):
-    """Raised at load_settings time for an enabled stage-4 analysis that
-    fava_tpu_torch does not run yet."""
 
 
 # Settings schema (reference contract: fava/__main__.py:27-43 +
@@ -80,13 +73,6 @@ _ANALYSIS_KEYS = {
 # reference's fixed three) — their required keys are validated even
 # when the entry is absent.
 _ALWAYS_RUN = {"fractal dimension", "structure functions", "kinetic energy spectra"}
-# Stage-4 keys whose analysis the port does not run yet, with the
-# ROADMAP item that ports it.
-_NOT_PORTED = {
-    "filtered ke flux": "A8c",
-    "two point correlation": "A8c",
-    "velocity correlations": "A8c",
-}
 _KNOWN_TOP_KEYS = (
     {"basename", "dimension", "model", "data folder", "output folder", "flame window"}
     | _STAGE_KEYS
@@ -170,30 +156,6 @@ def validate_settings(settings: Dict[str, Any]) -> None:
                 )
 
 
-def check_ported(settings: Dict[str, Any]) -> None:
-    """Raise AnalysisNotPortedError for an enabled, not-skipped stage-4
-    key whose analysis the port lacks (nothing to check when stage 4 is
-    skipped): at startup, not as an AttributeError mid-stage-4."""
-    if settings.get("analyze uniform data", {}).get("skip", False):
-        return
-    for name, item in _NOT_PORTED.items():
-        if name in settings and not settings[name].get("skip", False):
-            raise AnalysisNotPortedError(
-                f"stage-4 analysis {name!r} is enabled but not ported to fava_tpu_torch "
-                f"yet (ROADMAP {item}); skip it or remove it from the settings"
-            )
-
-
-def _not_ported(name: str):
-    def run(**kwargs):
-        raise AnalysisNotPortedError(
-            f"stage-4 analysis {name!r} is not ported to fava_tpu_torch yet "
-            f"(ROADMAP {_NOT_PORTED[name]})"
-        )
-
-    return run
-
-
 class Pipeline:
     """Stage driver over a FLASH model directory, computing on ``device``."""
 
@@ -212,7 +174,6 @@ class Pipeline:
             self.settings: Dict[str, Any] = json.load(f)
 
         validate_settings(self.settings)
-        check_ported(self.settings)
         self.checkpoint_data["settings"] = copy.deepcopy(self.settings)
         self.basename: str = self._validated("basename", str)
         self.ndim: int = self._validated("dimension", int)
@@ -450,8 +411,7 @@ class Pipeline:
         }
         # Optional extra analyses, enabled by their presence in settings
         # (beyond the reference's fixed three). The order is fava_tpu's,
-        # so a checkpointed resume cursor means the same analysis in both;
-        # the keys the port lacks never run (check_ported refuses them).
+        # so a checkpointed resume cursor means the same analysis in both.
         optional = {
             "favre profiles": lambda **kw: _favre_as_dict(self.model.favre_profiles(**kw)),
             "reynolds stresses uniform": lambda **kw: _reynolds_as_dict(
@@ -479,12 +439,12 @@ class Pipeline:
             ),
             "gradient invariant pdfs": lambda **kw: self.model.gradient_invariant_pdfs(**kw),
             "velocity increment pdfs": lambda **kw: self.model.velocity_increment_pdfs(**kw),
-            "filtered ke flux": _not_ported("filtered ke flux"),
+            "filtered ke flux": lambda **kw: self.model.filtered_kinetic_energy_flux(**kw),
             "structure function exponents": lambda **kw: _exponents_as_dict(
                 self.model.structure_function_exponents(**kw)
             ),
-            "two point correlation": _not_ported("two point correlation"),
-            "velocity correlations": _not_ported("velocity correlations"),
+            "two point correlation": lambda **kw: self.model.two_point_correlation(**kw),
+            "velocity correlations": lambda **kw: self.model.velocity_correlations(**kw),
         }
         for key, opt_fn in optional.items():
             if key in self.settings:

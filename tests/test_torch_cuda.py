@@ -1105,3 +1105,186 @@ def test_velocity_diagnostics_on_cuda_match_the_cpu_path(cuda_device, shape):
     moved = np.abs(gpu["qr"]["counts"] - cpu["qr"]["counts"]).sum() / 2
     assert moved <= 1e-3 * np.prod(shape), moved
     np.testing.assert_allclose(gpu["qr"]["q_w"], cpu["qr"]["q_w"], rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The filtered flux, the two-point and velocity correlations and the four
+# streamed statistics drivers on the card against the CPU path (the same
+# float32 values in float64). Correlation lines (normalised by R(0)) within
+# 1e-5 (float32 transforms); integral scales within 1e-5 * dx * (j + 3)
+# where both runs cross zero at the same sample j (the trapezoid's j
+# samples and the interpolated triangle); the flux statistics within 1e-5
+# of the mean of sum_ij (|bar(rho u_i u_j)| + |rho_b u~_i u~_j|) |d_j u~_i|
+# (the terms tau is the difference of); the summary's real-space entries
+# 1e-10 and spectral ones 1e-5; gradient moments of each table's natural
+# scale 1e-10 streamed against in-core on the card (the same float32
+# differences, float64 sums) and 1e-4 against the CPU (float64 differences).
+
+
+def _corr_close(got, ref, tol=1e-5):
+    for key, r in ref.items():
+        g = got[key]
+        if key.split("_")[0] in ("R", "f", "g", "r"):
+            r = np.asarray(r)
+            ok = ~np.isnan(r)
+            assert np.array_equal(np.isnan(g), np.isnan(r)), key
+            assert np.abs(np.asarray(g)[ok] - r[ok]).max() <= tol, key
+        elif key == "variance":
+            assert abs(g - r) <= tol * abs(r), key
+        elif key.startswith(("L11_", "L22_", "integral_scale_")):
+            ax = key[-1]
+            line = {"L11": "f_", "L22": "g_", "integral": "R_"}[key.split("_")[0]] + ax
+
+            def cross(v):
+                neg = np.nonzero(np.asarray(v) <= 0)[0]
+                return int(neg[0]) if neg.size else len(v)
+
+            j = cross(ref[line])
+            if cross(got[line]) == j:
+                assert abs(g - r) <= tol * float(ref[f"r_{ax}"][1]) * (j + 3), key
+
+
+def _flux_scales(cg, vels, dens, kcs, kernel):
+    """Per cutoff, the float64 mean of sum_ij (|bar(rho u_i u_j)| +
+    |rho_b u~_i u~_j|) |d_j u~_i| (CPU, float64)."""
+    from fava_tpu_torch.ops.velocity import _k_grids
+
+    shape = tuple(vels[0].shape)
+    f = cg._forward(vels, dens, None)
+    k2 = cg._k2_int(shape, torch.float64, "cpu")
+    dks = _k_grids(shape, torch.float64, "cpu", None, True)
+    out = []
+    for kc in kcs:
+        g = cg._filter_gain(k2, float(kc), kernel)
+
+        def bar(s):
+            return torch.fft.irfftn(g * s, s=shape)
+
+        rb = bar(f["rho"])
+        ub = [bar(s) / rb for s in f["mom"]]
+        drb = [bar(1j * dks[j] * f["rho"]) for j in range(3)]
+        total = 0.0
+        for i in range(3):
+            for j in range(3):
+                du = (bar(1j * dks[j] * f["mom"][i]) - ub[i] * drb[j]) / rb
+                q = bar(f["qq"][(min(i, j), max(i, j))])
+                total += float(((q.abs() + (rb * ub[i] * ub[j]).abs()) * du.abs()).mean())
+        out.append(total)
+    return np.array(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 32, 48), (31, 32, 24)])
+def test_correlation_volume_binning_matches_plain(cuda_device, shape):
+    """two_point_correlation's shell average of a signed correlation
+    half-volume: K3 + B4 for even x and y, B10 otherwise, against the plain
+    versions (4 * 2^-24 + 1e-10, B10 1e-10, of each shell's sum of |corr|)."""
+    from fava_tpu_torch.ops.velocity import _irfft, _rfft
+
+    f = _fields(cuda_device, shape=shape, seed=3)[1]
+    fh = _rfft(f - f.double().mean().float())
+    corr = _irfft(fh.real.square() + fh.imag.square(), shape) / np.prod(shape)
+    p = corr[..., : shape[2] // 2 + 1].contiguous()
+    nbins = min(shape) // 2
+    ck.reset_launch_counts()
+    counts, got = ck.shell_bin_sums_rfft_scalar(p, nbins, shape[2])
+    torch.cuda.synchronize()
+    n = ck.launch_counts()
+    if shape[0] % 2:
+        assert n["shell_bin_sums_unfolded"] == 1 and n["fold_quadrants_pair"] == 0
+        bound = 1e-10
+    else:
+        assert n["fold_quadrants_pair"] == n["shell_bin_values_folded_1ch"] == 1
+        bound = 4 * 2.0**-24 + 1e-10
+    ref_counts, ref = ck.shell_bin_sums_rfft_scalar(p.double().cpu(), nbins, shape[2])
+    _, ref_abs = ck.shell_bin_sums_rfft_scalar(p.double().abs().cpu(), nbins, shape[2])
+    assert torch.equal(counts.cpu(), ref_counts)
+    assert ((got.cpu() - ref).abs() <= bound * ref_abs).all()
+    assert (ref < 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 32, 32), (31, 32, 24)])
+def test_a8c_analyses_on_cuda_match_the_cpu_path(cuda_device, shape):
+    """The flux sweep (gaussian Favre, with pressure), both correlations and
+    sgs_flux_fields on float32 fields, against the float64 CPU path."""
+    from fava_tpu_torch.ops import coarse_grain as cg
+
+    rng = np.random.default_rng(sum(shape) + 1)
+    arrays = {"dens": 1.0 + 0.5 * rng.random(shape), "pres": 1.0 + rng.random(shape)}
+    arrays.update({f"vel{a}": rng.standard_normal(shape) for a in "xyz"})
+    arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        m = fava_tpu_torch.from_arrays(arrays, device=dev)
+        ck.reset_launch_counts()
+        outs[dev] = {
+            "tp": m.two_point_correlation("dens"),
+            "vc": m.velocity_correlations(),
+            "flux": m.filtered_kinetic_energy_flux(cutoffs=(2.0, 4.0, 8.0)),
+        }
+        if dev == "cuda":
+            n = ck.launch_counts()
+            key = "shell_bin_sums_unfolded" if shape[0] % 2 else "shell_bin_values_folded_1ch"
+            assert n[key] == 1 and sum(n.values()) == (1 if shape[0] % 2 else 2), n
+    cpu, gpu = outs["cpu"], outs["cuda"]
+    _corr_close(gpu["tp"], cpu["tp"])
+    _corr_close(gpu["vc"], cpu["vc"])
+    c = {k: torch.tensor(v, dtype=torch.float64) for k, v in arrays.items()}
+    scales = _flux_scales(cg, [c["velx"], c["vely"], c["velz"]], c["dens"], (2.0, 4.0, 8.0),
+                          "gaussian")
+    for key in ("pi_mean", "pi_rms"):
+        assert (np.abs(gpu["flux"][key] - cpu["flux"][key]) <= 1e-5 * scales).all(), key
+    vg = [torch.tensor(arrays[f"vel{a}"], device=cuda_device) for a in "xyz"]
+    fields = cg.sgs_flux_fields(*vg, cutoff=4.0, dens=torch.tensor(arrays["dens"], device=cuda_device),
+                                pres=torch.tensor(arrays["pres"], device=cuda_device))
+    ref = cg.sgs_flux_fields(c["velx"], c["vely"], c["velz"], cutoff=4.0, dens=c["dens"],
+                             pres=c["pres"])
+    assert fields["pi"].device.type == "cuda" and fields["pi"].dtype == torch.float32
+    err = float((fields["pi"].double().cpu() - ref["pi"]).abs().mean())
+    assert err <= 1e-5 * scales[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", [None, torch.bfloat16])
+def test_streamed_statistics_on_cuda_match_the_cpu_path_and_incore(cuda_device, tmp_path, wire):
+    """The four streamed drivers through the mesh (pinned staging, side
+    stream) on the card against the same drivers on the CPU and against the
+    card's in-core analyses (bf16 wire: against the CPU's bf16 run)."""
+    fields = ("dens", "velx", "vely", "velz", "pres", "gamc")
+    synthetic.make_uniform_file(tmp_path / "rt_hdf5_uniform_0001", ncells=(32, 24, 20), seed=8,
+                                fields=fields)
+    calls = {
+        "summary": lambda m, **kw: m.turbulence_summary(**kw),
+        "gradients": lambda m, **kw: m.velocity_gradient_statistics(
+            **{k: v for k, v in kw.items() if k != "chunk_rows"}),
+        "vc": lambda m, **kw: m.velocity_correlations(**kw),
+        "lines": lambda m, **kw: m.two_point_correlation("dens", **kw),
+    }
+    stream = {"streamed": True, "slab_rows": 8, "chunk_rows": 4, "wire_dtype": wire}
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        m = fava_tpu_torch.FLASH(tmp_path, device=dev)
+        m.load(file_type="uni")
+        ck.reset_launch_counts()
+        outs[dev] = {k: fn(m, **stream) for k, fn in calls.items()}
+        if dev == "cuda":
+            assert not any(ck.launch_counts().values())
+            outs["incore"] = {k: fn(m) for k, fn in calls.items()}
+    for ref_name in ("cpu", "incore") if wire is None else ("cpu",):
+        ref, gpu = outs[ref_name], outs["cuda"]
+        real = {"u_rms", "kinetic_energy", "kinetic_energy_density", "mean_s", "sigma_s",
+                "mach_rms", "mach_max", "sound_speed_mean"}
+        assert list(gpu["summary"]) == list(ref["summary"])
+        for key, r in ref["summary"].items():
+            tol = 1e-10 if key in real and (wire is None or ref_name == "cpu") else 1e-5
+            assert abs(gpu["summary"][key] - r) <= tol * max(abs(r), 1e-3), (ref_name, key)
+        c2 = ref["gradients"]["gradient_moment2"]
+        natural = {"gradient_mean": np.sqrt(c2), "gradient_moment2": c2, "gradient_moment3": c2**1.5,
+                   "gradient_moment4": c2**2}
+        tol = 1e-10 if ref_name == "incore" else 1e-4  # the CPU differences are float64
+        for key, scale in natural.items():
+            err = np.abs(gpu["gradients"][key] - ref["gradients"][key]) / scale
+            assert err.max() <= tol, (ref_name, key, err.max())
+        _corr_close(gpu["vc"], ref["vc"])
+        _corr_close(gpu["lines"], {k: v for k, v in ref["lines"].items() if k in gpu["lines"]})

@@ -26,7 +26,6 @@ import fava_tpu
 import fava_tpu_torch
 from fava_tpu import flagship as jflag
 from fava_tpu_torch import flagship as tflag
-from fava_tpu_torch.pipeline import pipeline as tpipeline
 
 SHAPES = [(16, 16, 16), (32, 32, 32), (16, 32, 24)]
 NAMES = ("dens", "velx", "vely", "velz")
@@ -149,13 +148,6 @@ def test_unported_paths_raise_not_implemented(uniform_file):
     for ftype in ("prt", "chk_prt", "plt_prt"):
         with pytest.raises(NotImplementedError, match="A9"):
             tm.load(file_type=ftype)
-    tm.load(file_type="uni")
-    for method in ("two_point_correlation", "filtered_kinetic_energy_flux",
-                   "velocity_correlations"):
-        with pytest.raises(NotImplementedError, match="A8c"):
-            getattr(tm.mesh, method)()
-    with pytest.raises(NotImplementedError, match="A8c"):
-        tpipeline.check_ported({"filtered ke flux": {"skip": False}})
 
 
 def test_registries_are_the_ports_own():

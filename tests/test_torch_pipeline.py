@@ -20,10 +20,10 @@ fava_tpu's, read with h5py:
 
 The extracted uniform files are equal field by field and the two
 ``fava.checkpoint`` JSONs are equal. The rest mirrors the control-flow
-tests of tests/test_pipeline.py on the port, adds the settings-time
-refusal of an enabled stage-4 analysis the port lacks, and runs
-``python -m fava_tpu_torch --device cpu`` in a subprocess, which must
-import neither jax nor fava_tpu (nor h5py).
+tests of tests/test_pipeline.py on the port and runs ``python -m
+fava_tpu_torch --device cpu`` in a subprocess, which must import neither
+jax nor fava_tpu (nor h5py), with the velocity, gradient, filtering and
+two-point keys enabled.
 """
 
 import json
@@ -42,7 +42,6 @@ import fava_tpu.pipeline as jax_pipeline
 from fava_tpu.io import synthetic
 from fava_tpu_torch.pipeline import (
     PIPELINE_CHECKPOINT_NAME,
-    AnalysisNotPortedError,
     Pipeline,
     PipelineSettingsError,
     main,
@@ -101,6 +100,13 @@ VELOCITY_KEYS = {
         "settings": {"nbins": 12, "qr_range": 4.0, "boundary": "interior"},
     },
 }
+# The filtering and two-point stage-4 keys, with fava_tpu's settings (the
+# synthetic plt files carry no pres, so no baropycnal work).
+A8C_KEYS = {
+    "filtered ke flux": {"skip": False, "settings": {"cutoffs": [2.0, 3.0], "kernel": "sharp"}},
+    "two point correlation": {"skip": False, "settings": {"field": "dens", "nbins": 4}},
+    "velocity correlations": {"skip": False},
+}
 CENTROID_RTOL = 1e-9
 
 
@@ -146,10 +152,10 @@ def both_runs(tmp_path_factory):
 @pytest.fixture(scope="module")
 def velocity_runs(tmp_path_factory):
     """fava_tpu's pipeline and ``python -m fava_tpu_torch --device cpu``
-    over copies of one catalog, with the velocity keys enabled."""
+    over copies of one catalog, with the velocity and A8c keys enabled."""
     base = tmp_path_factory.mktemp("pipes_velocity")
     _catalog(base / "catalog")
-    settings = {**SETTINGS, **VELOCITY_KEYS}
+    settings = {**SETTINGS, **VELOCITY_KEYS, **A8C_KEYS}
     jax_dir = _workdir(base / "jax", base / "catalog", settings)
     cwd = os.getcwd()
     try:
@@ -225,6 +231,18 @@ def test_velocity_keys_write_fava_tpus_datasets(velocity_runs, key):
     """``python -m fava_tpu_torch --device cpu`` writes the datasets of
     each velocity key that fava_tpu's pipeline writes, in both analysis
     files, within the tolerances above."""
+    _key_matches_fava_tpu(velocity_runs, key)
+
+
+@pytest.mark.parametrize("key", sorted(A8C_KEYS))
+def test_a8c_keys_write_fava_tpus_datasets(velocity_runs, key):
+    """The same for the filtered flux and the two-point and velocity
+    correlations (their integral scales and isotropy ratios are scalar
+    datasets, held like every other float)."""
+    _key_matches_fava_tpu(velocity_runs, key)
+
+
+def _key_matches_fava_tpu(velocity_runs, key):
     jax_dir, torch_dir = velocity_runs
     ref_files = sorted(p.name for p in (jax_dir / "out").glob("*hdf5_analysis_*"))
     assert len(ref_files) == 2
@@ -383,7 +401,6 @@ def test_settings_validation_skipped_stage4_allows_stub_entries():
     settings["pdf1d"] = {"settings": {"nbins": 16}}  # missing 'field': fine, stage off
     del settings["fractal dimension"]
     tpl.validate_settings(settings)
-    tpl.check_ported(dict(settings, **{"filtered ke flux": {"skip": False}}))
 
 
 def test_settings_validation_unknown_key_warns(caplog):
@@ -442,35 +459,6 @@ def test_stage3_not_checkpointed_without_trajectory(pipeline_dir):
     ckpt = json.loads((workdir / PIPELINE_CHECKPOINT_NAME).read_text())
     assert ckpt["extract windows"]["index"] == 2
     assert len(list(out.glob("*hdf5_uniform_*"))) == 2
-
-
-@pytest.mark.parametrize("key", sorted(tpl._NOT_PORTED))
-def test_unported_stage4_key_raises_at_load_settings(pipeline_dir, key):
-    """An enabled stage-4 analysis the port lacks fails at settings time
-    with a named NotImplementedError naming its ROADMAP item; skipped, or
-    with stage 4 skipped, it does not."""
-    workdir, data, out = pipeline_dir
-    path = workdir / "pipeline_settings.json"
-    entry = {"skip": False, "settings": {"field": "dens"}}  # complete for validate_settings
-    path.write_text(json.dumps(dict(SETTINGS, **{key: entry})))
-    with pytest.raises(AnalysisNotPortedError, match=f"'{key}'.*ROADMAP A8") as err:
-        Pipeline(workdir, device="cpu").load_settings()
-    assert isinstance(err.value, NotImplementedError)
-    for settings in (dict(SETTINGS, **{key: dict(entry, skip=True)}),
-                     dict(SETTINGS, **{key: entry, "analyze uniform data": {"skip": True}})):
-        path.write_text(json.dumps(settings))
-        Pipeline(workdir, device="cpu").load_settings()
-    assert main(workdir, device="cpu") == 0  # stage 4 skipped: the stages before it run
-
-
-def test_unported_stage4_key_raises_before_any_stage(pipeline_dir):
-    workdir, data, out = pipeline_dir
-    (workdir / "pipeline_settings.json").write_text(
-        json.dumps(dict(SETTINGS, **{"filtered ke flux": {"skip": False}})))
-    with pytest.raises(AnalysisNotPortedError, match="filtered ke flux"):
-        main(workdir, device="cpu")
-    assert not list(out.iterdir())
-    assert not (workdir / PIPELINE_CHECKPOINT_NAME).exists()
 
 
 def _run_module(workdir: Path, *args):
