@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the fava_tpu_torch flagship, AMR, stage-4, streaming and
-fused-spectrum paths, its velocity, filtering and two-point analyses and
-its pipeline CLI on one NVIDIA GPU.
+fused-spectrum paths, its velocity, filtering and two-point analyses, its
+pipeline CLI and its particle analyses on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -209,6 +209,30 @@ no result):
    sharp Favre flux printed only); identity (b), <Pi_l> = flux(k_c) on
    the file's solenoidal part at 512^3 (both sides on the card); the
    flux's pieces by CUDA events.
+24. The particle analyses (after phase 21, in a directory of its own; no
+   kernel on this path, and none may launch): a series of 9 part files
+   of 1,000,000 tracers each, written with the port's
+   ``write_particle_file`` (tag, posx/y/z, velx/y/z; the tag-keyed
+   kinematics of scripts/tpu_particles_bench.py, x = x0 + u t and v =
+   cos(omega t + phi), a fresh row order per file); through
+   ``FLASH(d)``: ``load(file_type="prt")`` and ``statistics()`` (its
+   columns float64 tensors on the card) against numpy,
+   ``particle_series`` against float64 numpy on the tables (TOL_PRT),
+   ``lagrangian_autocorrelation`` against the closed form and
+   ``cross_correlation`` (the whole series and an ``ibeg``/``iend``
+   window) against a recompute from the constructed tables (abs
+   TOL_PRT), ``dispersion_statistics(npairs=1024)``: the partners equal
+   to scipy's cKDTree's on the t = 0 coordinates, single_msd against
+   <|u|^2> t^2 and pair_msd against a recompute from those partners
+   (TOL_PRT), the float64 NN sweep alone by CUDA events;
+   ``particle_structure_functions()`` with the defaults and with
+   ``lengths=(1, 1, 1), num_pairs=4194304``, its counts equal to a
+   float64 host oracle on the same draws and the moments within
+   TOL_PAIR_MOMENTS; ``eulerian_autocorrelation(nsamples=65536,
+   fields=["dens"])`` over two three-file plt series of 288 leaves, a
+   static field (1 within TOL_PRT) and a translating one (held to the
+   same driver on the CPU). Every call is made twice and its second
+   (warm) wall printed, with the peak card memory and the phase's wall.
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -3992,6 +4016,360 @@ def phase_pipeline(torch, np):
     return launches, times
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the particle analyses over a 1,000,000-tracer series
+
+PRT_N = 1_000_000
+PRT_SNAPSHOTS = 9
+PRT_OMEGA = 2.0 * math.pi
+PRT_USCALE = 0.1
+PRT_NPAIRS = 1024
+EUL_SAMPLES = 65536
+EUL_SPEED = 0.5
+# Float64 on both sides, sums in another order.
+TOL_PRT = 1e-12
+# The pair moments against the float64 host oracle (powers up to 10 of
+# increments summed in another order).
+TOL_PAIR_MOMENTS = 1e-9
+
+
+def on_card(t) -> bool:
+    return t.device.type == "cuda"
+
+
+def prt_tables(np, npart: int, seed: int = 0):
+    """Tag-keyed kinematics (scripts/tpu_particles_bench.py): per tag a
+    phase phi (3,), a start x0 (3,) and a drift u = USCALE cos(phi); at
+    time t, x = x0 + u t and v = cos(OMEGA t + phi). Row i is tag i+1."""
+    rng = np.random.default_rng(seed)
+    phases = rng.uniform(0.0, 2.0 * np.pi, size=(npart, 3))
+    x0 = rng.uniform(0.0, 1.0, size=(npart, 3))
+    return phases, x0, PRT_USCALE * np.cos(phases)
+
+
+def prt_snapshot(np, phases, x0, u, t):
+    return x0 + u * t, np.cos(PRT_OMEGA * t + phases)
+
+
+def prt_write_series(np, data: Path, tables, times, seed: int = 1):
+    """One part file a snapshot, the rows in a fresh permutation each."""
+    from fava_tpu_torch.io import flash_file
+
+    phases, x0, u = tables
+    npart = x0.shape[0]
+    rng = np.random.default_rng(seed)
+    tags = np.arange(1, npart + 1, dtype=np.float64)
+    for i, t in enumerate(times, start=1):
+        pos, vel = prt_snapshot(np, phases, x0, u, t)
+        perm = rng.permutation(npart)
+        table = {"tag": tags[perm]}
+        for a, axis in enumerate("xyz"):
+            table[f"pos{axis}"] = pos[perm, a]
+        for a, axis in enumerate("xyz"):
+            table[f"vel{axis}"] = vel[perm, a]
+        flash_file.write_particle_file(
+            data / f"rt_hdf5_part_{i:04d}",
+            int_scalars={"dimensionality": 3, "globalnumparticles": npart},
+            real_scalars={"time": float(t), "dt": 1.0e-3, "dtold": 1.0e-3},
+            particles=table,
+        )
+
+
+def hold_close(np, got, ref, what, rtol=0.0, atol=0.0):
+    got, ref = np.asarray(got, dtype=np.float64), np.asarray(ref, dtype=np.float64)
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        fail(f"phase 24 {what}: shape {got.shape} against {ref.shape}, or not finite")
+    err = np.abs(got - ref)
+    if not (err <= atol + rtol * np.abs(ref)).all():
+        worst = float(np.max(err / np.maximum(atol + rtol * np.abs(ref), 1e-300)))
+        fail(f"phase 24 {what}: max |diff| {float(err.max())!r} ({worst!r} of the tolerance)")
+    return float(err.max())
+
+
+def warm(torch, fn, walls, name):
+    """Call ``fn`` twice; the second call's wall goes into ``walls``;
+    both results come back."""
+    first = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    second = fn()
+    torch.cuda.synchronize()
+    walls[f"{name}_s"] = time.perf_counter() - t0
+    return first, second
+
+
+def same_result(np, a, b, what):
+    """Two runs of one analysis on the same files are identical (the
+    sums are float64 in a fixed order, the draws counter-based)."""
+    if isinstance(b, dict):
+        for k in b:
+            same_result(np, a[k], b[k], f"{what}/{k}")
+    elif isinstance(b, (tuple, list)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_result(np, x, y, f"{what}[{i}]")
+    elif not np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True):
+        fail(f"phase 24 {what}: a second run differs")
+
+
+def pair_oracle(np, pos, vel, idx, lo, hi, nbins, orders, lengths):
+    """Float64 numpy on the given pair draws: counts and mean moments per
+    bin, r^2 against the squared edges as the port decides."""
+    from fava_tpu_torch.ops.structure import pair_bin_edges
+
+    dr = pos[idx[1]] - pos[idx[0]]
+    if lengths is not None:
+        L = np.asarray(lengths, dtype=np.float64)
+        dr = dr - L * np.round(dr / L)
+    r2 = dr[:, 0] * dr[:, 0] + dr[:, 1] * dr[:, 1] + dr[:, 2] * dr[:, 2]
+    e2 = pair_bin_edges(lo, hi, nbins, True) ** 2
+    keep = (r2 >= e2[0]) & (r2 <= e2[nbins])
+    dr, r2 = dr[keep], r2[keep]
+    bidx = np.searchsorted(e2[1:nbins], r2, side="right")
+    r = np.sqrt(r2)
+    dv = vel[idx[1][keep]] - vel[idx[0][keep]]
+    dl = np.abs((dv * dr).sum(axis=-1) / np.maximum(r, 1e-30))
+    dt = np.sqrt(np.maximum((dv * dv).sum(axis=-1) - dl * dl, 0.0))
+    counts = np.bincount(bidx, minlength=nbins).astype(np.float64)
+    safe = np.maximum(counts, 1)
+    out = {"counts": counts, "separations": np.bincount(bidx, weights=r, minlength=nbins) / safe,
+           "longitudinal": {}, "transverse": {}}
+    for o in range(1, orders + 1):
+        out["longitudinal"][f"{o}"] = np.bincount(bidx, weights=dl**o, minlength=nbins) / safe
+        out["transverse"][f"{o}"] = np.bincount(bidx, weights=dt**o, minlength=nbins) / safe
+    return out
+
+
+def hold_pairs(np, got, ref, what):
+    if not np.array_equal(got["counts"], ref["counts"]):
+        bad = int(np.sum(got["counts"] != ref["counts"]))
+        fail(f"phase 24 {what}: counts differ from the float64 oracle in {bad} bins")
+    full = ref["counts"] > 0
+    hold_close(np, got["separations"][full], ref["separations"][full], f"{what} separations",
+               rtol=TOL_PAIR_MOMENTS)
+    for comp in ("longitudinal", "transverse"):
+        for o, r in ref[comp].items():
+            hold_close(np, got[comp][o][full], r[full], f"{what} {comp} {o}", rtol=TOL_PAIR_MOMENTS)
+    return int(ref["counts"].sum())
+
+
+def eulerian_series(np, data: Path, translating: bool):
+    """Three plt files on a tree of 288 leaves (a 4^3 root grid, the
+    roots over 0.25 < x < 0.75 refined once; 16^3 cells a block): dens
+    either static or 2 + cos(2 pi (x - U t))."""
+    from fava_tpu_torch.io import synthetic
+
+    def refine(bounds, level):
+        return 2 if bounds[0, 1] > 0.25 and bounds[0, 0] < 0.75 else 1
+
+    for i, t in enumerate((0.0, 0.5, 1.0), start=1):
+        fns = None
+        if translating:
+            fns = {"dens": lambda x, y, z, t=t: 2.0 + np.cos(2.0 * np.pi * (x - EUL_SPEED * t))}
+        synthetic.make_amr_file(data / f"rt_hdf5_plt_cnt_{i:04d}", ncells=(16, 16, 16), nblks=(4, 4, 4),
+                                refine_fn=refine, field_fns=fns, time=t)
+
+
+def phase_particles(torch, np, card: str):
+    """Phase 24: a 1,000,000-tracer series of 9 part files through the six
+    particle analyses on the card, each held to its oracle and timed warm."""
+    import fava_tpu_torch
+    from fava_tpu_torch.analysis import dispersion as disp
+    from fava_tpu_torch.ops import cuda_kernels as ck
+    from fava_tpu_torch.ops.structure import pair_indices
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    walls = {}
+    times = [0.1 * k for k in range(PRT_SNAPSHOTS)]
+    with tempfile.TemporaryDirectory(prefix="fava_prt_") as tmp:
+        data = Path(tmp) / "prt"
+        data.mkdir()
+        # a. the series
+        tables = prt_tables(np, PRT_N)
+        phases, x0, u = tables
+        t0 = time.perf_counter()
+        prt_write_series(np, data, tables, times)
+        walls["write_s"] = time.perf_counter() - t0
+        nbytes = sum(p.stat().st_size for p in data.iterdir())
+        say(f"phase 24a: {PRT_SNAPSHOTS} part files of {PRT_N} tracers, {nbytes} bytes, "
+            f"written in {walls['write_s']!r} s")
+        model = fava_tpu_torch.FLASH(data)
+
+        # b. load, statistics, the particle series
+        t0 = time.perf_counter()
+        model.load(file_type="prt")
+        walls["load_first_s"] = time.perf_counter() - t0
+        model.load(file_type="prt")
+        walls["load_s"] = time.perf_counter() - t0 - walls["load_first_s"]
+        reduced = []
+        column = model.particles.device_column
+        model.particles.device_column = lambda f: reduced.append(column(f)) or reduced[-1]
+        stats = model.particles.statistics()
+        del model.particles.device_column
+        if sorted(stats) != ["posx", "posy", "posz", "velx", "vely", "velz"]:
+            fail(f"phase 24b statistics: fields {sorted(stats)}")
+        if not reduced or not all(on_card(c) and c.dtype == torch.float64 for c in reduced):
+            fail(f"phase 24b statistics: reduced {[(str(c.device), c.dtype) for c in reduced]}")
+        del reduced
+        for f, st in stats.items():
+            a = "xyz".index(f[-1])
+            col = prt_snapshot(np, phases, x0, u, 0.0)[0 if f.startswith("pos") else 1][:, a]
+            ref = {"mean": col.mean(), "rms": col.std(), "min": col.min(), "max": col.max()}
+            for key in ref:
+                hold_close(np, st[key], ref[key], f"statistics {f} {key}", rtol=TOL_PRT)
+        vel_fields = ["velx", "vely", "velz"]
+        first, series = warm(torch, lambda: model.particle_series(fields=vel_fields), walls,
+                             "particle_series")
+        same_result(np, first, series, "particle_series")
+        hold_close(np, series["times"], times, "particle_series times", rtol=TOL_PRT)
+        for a, f in enumerate(vel_fields):
+            vel = np.stack([prt_snapshot(np, phases, x0, u, t)[1][:, a] for t in times])
+            ref = {"mean": vel.mean(axis=1), "rms": vel.std(axis=1), "min": vel.min(axis=1),
+                   "max": vel.max(axis=1)}
+            for key, r in ref.items():
+                hold_close(np, series[f"{f}_{key}"], r, f"particle_series {f}_{key}", rtol=TOL_PRT)
+        say(f"phase 24b: statistics on the card (float64 columns), particle_series held to "
+            f"float64 numpy (rtol {TOL_PRT})")
+
+        # c. the Lagrangian autocorrelation against the closed form
+        lag_fields = ["velx", "vely"]
+        first, (lag_t, lag) = warm(
+            torch, lambda: model.lagrangian_autocorrelation(nsamples=PRT_N, fields=lag_fields), walls,
+            "lagrangian_autocorrelation")
+        same_result(np, first, (lag_t, lag), "lagrangian_autocorrelation")
+        v0 = prt_snapshot(np, phases, x0, u, 0.0)[1]
+        lag_err = 0.0
+        for a, f in enumerate(lag_fields):
+            ref = []
+            for t in times:
+                v = prt_snapshot(np, phases, x0, u, t)[1][:, a]
+                ref.append(np.sum(v0[:, a] * v) / (np.linalg.norm(v0[:, a]) * np.linalg.norm(v)))
+            lag_err = max(lag_err, hold_close(np, lag[f], ref, f"lagrangian_autocorrelation {f}",
+                                              atol=TOL_PRT))
+        hold_close(np, lag_t, times, "lagrangian times", rtol=TOL_PRT)
+
+        # d. the cross correlation, whole series and a window
+        sample_tags = np.arange(2, 2 * 1024 + 2, 2, dtype=np.float64)
+        poi = 777.0
+        kw = dict(lagrangian_tracking=True, tag_field="tag")
+        cross_err = 0.0
+        for name, win in (("cross_correlation", {}), ("cross_correlation_window", {"ibeg": 2, "iend": 7})):
+            first, rho = warm(torch, lambda: model.cross_correlation(
+                "velx", "vely", sample_points=sample_tags, poi_idx=poi, **win, **kw), walls, name)
+            same_result(np, first, rho, name)
+            sel = times[win.get("ibeg", 0):win.get("iend", PRT_SNAPSHOTS)]
+            vels = [prt_snapshot(np, phases, x0, u, t)[1] for t in sel]
+            samp = np.stack([v[(sample_tags - 1).astype(np.int64), 0] for v in vels])
+            temp = np.array([[v[int(poi) - 1, 1]] for v in vels])
+            rts = np.sum(temp[1:] * samp[:-1], axis=0) / float(len(sel) - 1)
+            ref = (rts - samp[:-1].mean(axis=0) * temp[1:].mean()) / (samp[:-1].std(axis=0) * temp[1:].std())
+            cross_err = max(cross_err, hold_close(np, rho, ref, name, atol=TOL_PRT))
+
+        # e. dispersion: partners against scipy's cKDTree, MSDs against the construction
+        from scipy.spatial import cKDTree
+
+        first, dsp = warm(torch, lambda: model.dispersion_statistics(npairs=PRT_NPAIRS), walls,
+                          "dispersion_statistics")
+        same_result(np, first, dsp, "dispersion_statistics")
+        anchors = np.random.default_rng(0).choice(PRT_N, size=PRT_NPAIRS, replace=False)
+        t0 = time.perf_counter()
+        _, nn = cKDTree(x0).query(x0[anchors], k=2)
+        walls["kdtree_oracle_s"] = time.perf_counter() - t0
+        kd_partners = np.where(nn[:, 0] == anchors, nn[:, 1], nn[:, 0])
+        dev = model.particles.device
+        partners = disp._nearest_neighbor_pairs(x0, anchors, dev)
+        if not np.array_equal(partners, kd_partners):
+            fail(f"phase 24e: {int(np.sum(partners != kd_partners))} of {PRT_NPAIRS} partners differ "
+                 "from cKDTree's")
+        c = torch.as_tensor(np.ascontiguousarray(x0.T), device=dev)
+        a = torch.as_tensor(anchors, device=dev)
+        walls["nn_sweep_ms"] = cuda_ms(torch, lambda: disp.nn_sweep(c, a), 3)
+        del c, a
+        hold_close(np, dsp["single_msd"], [np.sum(u**2, axis=1).mean() * t**2 for t in times],
+                   "single_msd", rtol=TOL_PRT)
+        pair_ref = []
+        for t in times:
+            pos = prt_snapshot(np, phases, x0, u, t)[0]
+            pair_ref.append(((pos[anchors] - pos[kd_partners]) ** 2).sum(axis=1).mean())
+        hold_close(np, dsp["pair_msd"], pair_ref, "pair_msd", rtol=TOL_PRT)
+        if dsp["npairs"] != PRT_NPAIRS:
+            fail(f"phase 24e: npairs {dsp['npairs']}")
+        # The host pieces a tracked snapshot pays: the loader's sort of a
+        # permuted tag column, then rows_for_tags on the sorted one.
+        from fava_tpu_torch.mesh.flash_particles import rows_for_tags
+
+        raw = np.random.default_rng(3).permutation(PRT_N).astype(np.float64) + 1.0
+        t0 = time.perf_counter()
+        tags = raw[np.argsort(raw)]
+        walls["tag_sort_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows_for_tags(tags, tags)
+        walls["rows_for_tags_s"] = time.perf_counter() - t0
+        del raw, tags
+
+        # f. pair structure functions against the float64 host oracle
+        model.load(file_index=0, file_type="prt")
+        pos, vel = model.particles.get_coords(), np.stack(
+            [model.particles.data[f"vel{a}"] for a in "xyz"], axis=-1)
+        pairs = {}
+        for name, kwp in (("pairs_default", {}),
+                          ("pairs_periodic", {"lengths": (1.0, 1.0, 1.0), "num_pairs": 4_194_304})):
+            # float64 atomics: the warm run's sums may differ in their last bits.
+            _, got = warm(torch, lambda: model.particle_structure_functions(**kwp), walls, name)
+            span = pos.max(axis=0) - pos.min(axis=0)
+            hi = float(np.min(span[span > 0])) / 2.0
+            lo = hi / max(PRT_N ** (1.0 / 3.0), 2.0)
+            t0 = time.perf_counter()
+            idx = pair_indices(0, kwp.get("num_pairs", 200000), PRT_N, device="cpu").numpy().astype(np.int64)
+            ref = pair_oracle(np, pos, vel, idx, lo, hi, 24, 10, kwp.get("lengths"))
+            walls[f"{name}_oracle_s"] = time.perf_counter() - t0
+            pairs[name] = hold_pairs(np, got, ref, name)
+        del pos, vel
+
+        # g. the Eulerian autocorrelation over plt series (static, translating)
+        for name, translating in (("eulerian_static", False), ("eulerian_translating", True)):
+            edir = Path(tmp) / name
+            edir.mkdir()
+            eulerian_series(np, edir, translating)
+            emodel = fava_tpu_torch.FLASH(edir)
+            first, (et, eres) = warm(torch, lambda: emodel.eulerian_autocorrelation(
+                nsamples=EUL_SAMPLES, fields=["dens"]), walls, name)
+            same_result(np, first, (et, eres), name)
+            hold_close(np, et, [0.0, 0.5, 1.0], f"{name} times", rtol=TOL_PRT)
+            if translating:
+                ct, cres = fava_tpu_torch.FLASH(edir, device="cpu").eulerian_autocorrelation(
+                    nsamples=EUL_SAMPLES, fields=["dens"])
+                hold_close(np, eres["dens"], cres["dens"], f"{name} against the CPU", rtol=TOL_PRT)
+                if not eres["dens"][-1] < 0.95:
+                    fail(f"phase 24g: the translating field does not decorrelate: {eres['dens']}")
+            else:
+                hold_close(np, eres["dens"], np.ones(3), name, rtol=TOL_PRT)
+            leaves = int(emodel.mesh.get_blocklist("LEAF").size)
+            if translating:
+                # The driver's host lookup: a (points x leaves) boolean matrix.
+                from fava_tpu_torch.analysis.auto_correlations import _sample_grid_points
+
+                points = _sample_grid_points(emodel.mesh, EUL_SAMPLES, np.random.default_rng(0))
+                t0 = time.perf_counter()
+                emodel.mesh.locate_points(points)
+                walls["locate_points_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                emodel.mesh.sample_fields(points, ["dens"])
+                walls["sample_fields_s"] = time.perf_counter() - t0
+            del emodel
+    launched = {k: v for k, v in ck.launch_counts().items() if v}
+    if launched:
+        fail(f"phase 24: the particle paths launched kernels: {launched}")
+    walls["peak_allocated_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    walls["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase 24 checks: lagrangian max |diff| {lag_err!r}, cross {cross_err!r}, partners equal "
+        f"cKDTree's, pair counts exact over {pairs} binned pairs, Eulerian on {leaves} leaves")
+    say(f"phase 24 particle timings: {json.dumps({'card': card, 'tracers': PRT_N, 'snapshots': PRT_SNAPSHOTS, 'file_bytes': nbytes, **walls})}")
+    return walls
+
+
 def main() -> None:
     sys.path.insert(0, str(HERE))
     try:
@@ -4088,6 +4466,8 @@ def main() -> None:
         f"{json.dumps({'card': card, 'entry': entry_times, 'series': series_times})}")
     say(f"phase 21 pipeline timings: "
         f"{json.dumps({'card': card, 'window': surface_times, 'pipeline': pipe_times})}")
+    torch.cuda.empty_cache()
+    phase_particles(torch, np, card)
 
     if any(m.split(".")[0] in ("jax", "fava_tpu") for m in sys.modules):
         fail("JAX or fava_tpu was imported")

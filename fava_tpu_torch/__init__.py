@@ -11,17 +11,22 @@ density_pdf, binned_statistic, mass and volume sums), the uniform
 mesh's fractal, structure-function and flame-surface analyses, the
 projections and the flame-window fit, with results written by
 ``Model.save_to_hdf5``; the four-stage pipeline CLI, ``python -m
-fava_tpu_torch`` (``pipeline/``); and fava_tpu's fused-spectrum path
+fava_tpu_torch`` (``pipeline/``); fava_tpu's fused-spectrum path
 (``experiments/``: the spectra straight from the transforms, the fused
-z+y transform, the padded-fold binnings). The kernels are hand-written
-CUDA (``ops/cuda_kernels.py``). Every public entry takes ``device=``
+z+y transform, the padded-fold binnings); and the tracer particles of
+part and checkpoint files (``FlashParticles``, the ``prt``, ``chk_prt``
+and ``plt_prt`` load types) with the particle analyses: the series
+statistics, the Lagrangian and Eulerian autocorrelations, the
+space-time cross correlation, dispersion and the pair structure
+functions (plain torch in float64: fava_tpu has no kernel there). The
+kernels are hand-written CUDA (``ops/cuda_kernels.py``). Every public entry takes ``device=``
 ("cuda" by default); asking for CUDA where there is none raises. This
 package imports neither jax nor fava_tpu.
 """
 
 from fava_tpu_torch._version import __version__, __version_tuple__
 from fava_tpu_torch.models import FLASH, FileSubStem, FileType, InMemoryModel, Model, from_arrays
-from fava_tpu_torch.mesh import FlashUniform
+from fava_tpu_torch.mesh import FlashParticles, FlashUniform
 from fava_tpu_torch.mesh import FLASH as FlashAMR
 from fava_tpu_torch import analysis  # noqa: F401  (registers analyses onto Model)
 
@@ -32,6 +37,7 @@ __all__ = [
     "FileSubStem",
     "FileType",
     "FlashAMR",
+    "FlashParticles",
     "FlashUniform",
     "InMemoryModel",
     "Model",

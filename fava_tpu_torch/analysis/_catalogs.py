@@ -1,6 +1,7 @@
 """File-catalog resolution of the series analyses
-(fava_tpu/analysis/_catalogs.py; the particle resolver waits for ROADMAP
-A9): one place maps a ``file_type`` to the FLASH model's catalog."""
+(fava_tpu/analysis/_catalogs.py): one place maps a ``file_type`` to the
+FLASH model's catalog, one resolver for the mesh series and one for the
+particle series."""
 
 from __future__ import annotations
 
@@ -25,3 +26,23 @@ def mesh_series_paths(self, file_type, file_indices: Optional[Sequence[int]] = N
         ) from None
     indices = sorted(catalog["by index"].keys()) if file_indices is None else list(file_indices)
     return indices, [catalog["by index"][i] for i in indices]
+
+
+def particle_series_indices(self, file_type, file_indices: Optional[Sequence[int]] = None):
+    """Sorted file indices a particle-series analysis will load.
+
+    ``load(file_type='chk_prt', file_index=i)`` resolves ``i`` against
+    the CHK catalog (checkpoints carry the particle table themselves);
+    plain ``prt`` and the ``plt_prt`` combination read particles from
+    part files.
+    """
+    catalog_names = {"prt": "prt_files", "chk_prt": "chk_files", "plt_prt": "prt_files"}
+    key = _type_key(file_type)
+    try:
+        catalog = getattr(self, catalog_names[key])
+    except KeyError:
+        raise ValueError(
+            f"unknown file_type {key!r} for a particle-series analysis; "
+            f"expected one of {sorted(catalog_names)}"
+        ) from None
+    return sorted(catalog["by index"].keys()) if file_indices is None else list(file_indices)

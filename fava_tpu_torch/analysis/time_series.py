@@ -1,11 +1,11 @@
 """Multi-snapshot time-series drivers on the async ingest.
 
 Counterpart of fava_tpu/analysis/time_series.py, single device: the
-flagship, Reynolds-stress, Favre, turbulence-summary and
-gradient-statistics series. ``io/ingest.SnapshotPrefetcher`` overlaps the
-read and the copy to the card of snapshot N+1 with the compute on
-snapshot N. The pod branch of ``flagship_series`` is ROADMAP A11; the
-particle series waits for its analyses (A9).
+flagship, Reynolds-stress, Favre, turbulence-summary,
+gradient-statistics and particle series. ``io/ingest.SnapshotPrefetcher``
+overlaps the read and the copy to the card of snapshot N+1 with the
+compute on snapshot N (the mesh series). The pod branch of
+``flagship_series`` is ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -117,6 +117,32 @@ def favre_series(
     result["times"] = np.asarray(times)
     result["span"] = span
     return result
+
+
+@Model.register_analysis(use_timer=True)
+def particle_series(
+    self,
+    fields: Optional[Sequence[str]] = None,
+    file_indices: Optional[Sequence[int]] = None,
+) -> Dict[str, np.ndarray]:
+    """Per-snapshot particle statistics (mean/RMS/min/max, float64 on the
+    device through ``FlashParticles.statistics``) over the part-file
+    series: {"<field>_<stat>": (nfiles,), "times"}."""
+    indices = (
+        sorted(self.prt_files["by index"].keys()) if file_indices is None else list(file_indices)
+    )
+    times = []
+    stacked: Dict[str, list] = {}
+    for i in indices:
+        self.load(file_index=i, file_type="prt", fields=list(fields) if fields else None)
+        times.append(self.particles.time)
+        stats = self.particles.statistics(fields)
+        for fname, s in stats.items():
+            for key, val in s.items():
+                stacked.setdefault(f"{fname}_{key}", []).append(val)
+    out = {k: np.asarray(v) for k, v in stacked.items()}
+    out["times"] = np.asarray(times)
+    return out
 
 
 @Model.register_analysis(use_timer=True)

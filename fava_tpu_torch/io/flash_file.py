@@ -3,7 +3,8 @@
 Parameter tables ("real scalars", "integer runtime parameters", ...),
 the "unknown names" list, UNK field datasets (stored (nblocks, nz, ny,
 nx); read onto a device as (nblocks, nx, ny, nz) tensors, or as host
-x-slabs for the streamed paths) and block metadata. The readers
+x-slabs for the streamed paths), block metadata and the tracer-particle
+tables of part and checkpoint files (:283-321). The readers
 and writers take an open ``h5lite.File`` (the port's own HDF5 codec,
 ``io/h5lite.py``; h5py's File offers the same calls).
 """
@@ -11,7 +12,7 @@ and writers take an open ``h5lite.File`` (the port's own HDF5 codec,
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -283,3 +284,59 @@ def write_metadata_dict(handle, metadata: Dict[str, np.ndarray], chk_file: bool)
         processor_number=metadata.get("processor number"),
         chk_file=chk_file,
     )
+
+
+# ---------------------------------------------------------------------------
+# Particles
+
+
+def read_particle_metadata(handle) -> Dict[str, Any]:
+    """Particle-file metadata: the integer and real scalars, the per-rank
+    counts ("localnp") and the column names ("particle names", S24
+    records)."""
+    int_scalars = read_parameter_table(handle, "integer scalars", string_values=False)
+    real_scalars = read_parameter_table(handle, "real scalars", string_values=False)
+    # atleast_1d: squeeze of a single-column file is 0-d (not iterable).
+    names = [_decode(v).strip() for v in np.atleast_1d(np.squeeze(handle["particle names"][()]))]
+    return {
+        "integer scalars": int_scalars,
+        "real scalars": real_scalars,
+        "localnp": handle["localnp"][()],
+        "particle names": names,
+    }
+
+
+def read_particles(
+    handle, field_names: Sequence[str], select: Optional[Iterable[str]] = None
+) -> Dict[str, np.ndarray]:
+    """Bulk-read the "tracer particles" table into {field: host column}."""
+    table = handle["tracer particles"][()]
+    wanted = list(select) if select is not None else list(field_names)
+    out: Dict[str, np.ndarray] = {}
+    for k, field in enumerate(field_names):
+        if field in wanted:
+            out[field] = np.asarray(table[..., k])
+    return out
+
+
+def write_particle_file(
+    path: str | Path,
+    *,
+    int_scalars: Dict[str, int],
+    real_scalars: Dict[str, float],
+    particles: Dict[str, np.ndarray],
+) -> None:
+    """Write a FLASH part file: the scalar tables, "localnp", the S24
+    column names and the (N, ncolumns) float64 table."""
+    names = list(particles.keys())
+    nparticles = len(next(iter(particles.values()))) if particles else 0
+    with h5lite.File(path, "w") as f:
+        _write_parameter_table(f, "integer scalars", int_scalars, "integer")
+        _write_parameter_table(f, "real scalars", real_scalars, "real")
+        f.create_dataset("localnp", data=np.array([nparticles], dtype=np.int32))
+        f.create_dataset(
+            "particle names",
+            data=np.array([[f"{n:24s}".encode()] for n in names], dtype="S24"),
+        )
+        table = np.stack([np.asarray(particles[n], dtype=np.float64) for n in names], axis=-1)
+        f.create_dataset("tracer particles", data=table)

@@ -1,7 +1,8 @@
-"""Synthetic FLASH files: AMR plt/chk trees and uniform-grid files.
+"""Synthetic FLASH files: AMR plt/chk trees, uniform-grid files and
+tracer-particle files.
 
-Jax-free copy of fava_tpu/io/synthetic.py (:25-324) that writes the same
-arrays. One change of method: fava_tpu fills each AMR field one block
+Jax-free copy of fava_tpu/io/synthetic.py (:25-350) that writes the same
+arrays (a particle file from the same seed holds the same table). One change of method: fava_tpu fills each AMR field one block
 per Python iteration; here every field is computed over many blocks at
 once (chunks of ``_CHUNK_CELLS`` cells) straight in the file's
 (nblocks, nz, ny, nx) order and written before the next field is
@@ -335,5 +336,35 @@ def make_uniform_file(
         },
         fields=field_data,
         chk_file=False,
+    )
+    return path
+
+
+def make_particle_file(
+    path: str | Path,
+    *,
+    nparticles: int = 64,
+    fields: Sequence[str] = ("tag", "posx", "posy", "posz", "velx", "vely", "velz", "dens"),
+    time: float = 0.0,
+    seed: int = 0,
+) -> Path:
+    """Write a synthetic FLASH tracer-particle file."""
+    path = Path(path)
+    rng = np.random.default_rng(seed)
+    particles: Dict[str, np.ndarray] = {}
+    tags = rng.permutation(nparticles).astype(np.float64) + 1.0
+    for name in fields:
+        if name == "tag":
+            particles[name] = tags
+        elif name.startswith("pos"):
+            particles[name] = rng.uniform(0.0, 1.0, nparticles)
+        else:
+            particles[name] = rng.standard_normal(nparticles)
+
+    flash_file.write_particle_file(
+        path,
+        int_scalars={"dimensionality": 3, "globalnumparticles": nparticles},
+        real_scalars={"time": float(time), "dt": 1.0e-3, "dtold": 1.0e-3},
+        particles=particles,
     )
     return path

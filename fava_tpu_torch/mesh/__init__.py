@@ -1,7 +1,9 @@
-"""Mesh classes: the FLASH AMR mesh and the uniform-grid mesh."""
+"""Mesh classes: the FLASH AMR mesh, the uniform-grid mesh and the
+tracer-particle table."""
 
 from fava_tpu_torch.mesh.base import Mesh, Structured, Unstructured
 from fava_tpu_torch.mesh.flash_amr import FLASH
+from fava_tpu_torch.mesh.flash_particles import FlashParticles
 from fava_tpu_torch.mesh.flash_uniform import FlashUniform
 
-__all__ = ["FLASH", "FlashUniform", "Mesh", "Structured", "Unstructured"]
+__all__ = ["FLASH", "FlashParticles", "FlashUniform", "Mesh", "Structured", "Unstructured"]

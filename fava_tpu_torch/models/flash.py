@@ -3,8 +3,10 @@
 Counterpart of fava_tpu/models/flash.py: the data directory is globbed
 into five catalogs (chk/plt/prt/uni/anl), each addressable "by number"
 (the 4-digit suffix) or "by index" (sorted position). ``load`` sends
-``chk``/``plt`` files to the AMR mesh and ``uni`` files to the uniform
-mesh; the particle types raise NotImplementedError (ROADMAP A9).
+``chk``/``plt`` files to the AMR mesh, ``uni`` files to the uniform mesh
+and ``prt`` files to the particle table (``self.particles``);
+``chk_prt`` reads the mesh and the particle table of one checkpoint,
+``plt_prt`` a plt mesh and the part file of the same index.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 from fava_tpu_torch.mesh import FLASH as FlashAMR
-from fava_tpu_torch.mesh import FlashUniform
+from fava_tpu_torch.mesh import FlashParticles, FlashUniform
 from fava_tpu_torch.models.model import Model
 
 
@@ -44,12 +46,6 @@ _PATTERNS = {
     FileType.ANL: ("*hdf5_analysis_????", "hdf5_analysis_"),
 }
 
-_NOT_PORTED = {
-    FileType.PRT: "A9",
-    FileType.CHK_PRT: "A9",
-    FileType.PLT_PRT: "A9",
-}
-
 
 def _file_type(file_type: FileType | str) -> FileType:
     return file_type if isinstance(file_type, FileType) else FileType[str(file_type).upper()]
@@ -61,6 +57,7 @@ class FLASH(Model):
     def __init__(self, directory: str | Path, name: Optional[str] = None, device="cuda") -> None:
         super().__init__(directory, name, device)
         self.mesh = None
+        self.particles = None
 
     def _directory_changed(self) -> None:
         def catalog(ftype: FileType) -> Dict[str, Dict[int, Path]]:
@@ -100,31 +97,55 @@ class FLASH(Model):
         file_number: Optional[int] = None,
         file_type: FileType | str = FileType.CHK,
         fields=None,
+        *args,
+        **kwargs,
     ) -> None:
+        """Load one file of the ``file_type`` catalog; extra arguments go
+        to the particle loader (``ordered=``)."""
         ftype = _file_type(file_type)
-        if ftype in _NOT_PORTED:
-            raise NotImplementedError(
-                f"file_type={ftype.name}: not ported yet (ROADMAP {_NOT_PORTED[ftype]})"
-            )
-        mesh_cls = {
-            FileType.CHK: FlashAMR,
-            FileType.PLT: FlashAMR,
-            FileType.UNI: FlashUniform,
-        }.get(ftype)
-        if mesh_cls is None:
-            raise ValueError(f"Cannot load file type {ftype}")
-
         lookup = "by index" if file_number is None else "by number"
         key = file_index if file_number is None else file_number
-        catalog = self._catalog(ftype)
-        if key not in catalog[lookup]:
-            raise ValueError(f"{ftype.name} file {lookup} {key} not found")
 
-        self.mesh = None  # the old mesh's device fields go before the new ones come
-        self.mesh = mesh_cls(filename=catalog[lookup][key], device=self.device)
-        self.mesh.load()
-        if fields:
-            self.mesh.load_data(names=fields)
+        # The old mesh's device fields go before the new ones come.
+        self.mesh = None
+        self.particles = None
+
+        def resolve(base: FileType) -> Path:
+            catalog = self._catalog(base)
+            if key not in catalog[lookup]:
+                raise ValueError(f"{ftype.name} file {lookup} {key} not found")
+            return catalog[lookup][key]
+
+        def attach_mesh(base: FileType, mesh_cls) -> Path:
+            path = resolve(base)
+            self.mesh = mesh_cls(filename=path, device=self.device)
+            self.mesh.load()
+            if fields:
+                self.mesh.load_data(names=fields)
+            return path
+
+        def attach_particles(path: Path) -> None:
+            particle_kwargs = dict(kwargs)
+            if fields is not None:
+                particle_kwargs["fields"] = fields
+            self.particles = FlashParticles(filename=path, device=self.device)
+            self.particles._load_particles(*args, **particle_kwargs)
+
+        match ftype:
+            case FileType.CHK | FileType.PLT:
+                attach_mesh(ftype, FlashAMR)
+            case FileType.UNI:
+                attach_mesh(FileType.UNI, FlashUniform)
+            case FileType.PRT:
+                attach_particles(resolve(FileType.PRT))
+            case FileType.CHK_PRT:
+                # Checkpoint files carry the particle table themselves.
+                attach_particles(attach_mesh(FileType.CHK, FlashAMR))
+            case FileType.PLT_PRT:
+                attach_mesh(FileType.PLT, FlashAMR)
+                attach_particles(resolve(FileType.PRT))
+            case _:
+                raise ValueError(f"Cannot load file type {ftype}")
 
     def convert_filename_type(
         self, current_filetype: FileType | str, new_filetype: FileType | str

@@ -23,7 +23,14 @@ the increments (the gathered values widened before they are subtracted),
 the moments and the sums are float64 on every device, and the counts
 int64: the card samples the cells the float64 reference samples, up to
 an ulp-level tie of a transcendental at a cell boundary.
-``pair_structure_functions`` (particles) comes with ROADMAP A9.
+
+``pair_structure_functions`` (tracer particles, fava_tpu/ops/structure.py
+:565-729) draws its pairs from stream ``_PAIR_STREAM`` of the same
+Threefry, so both packages pair the same particles. Deviation: fava_tpu
+decides bin membership in two-float words against split squared edges
+(float32 on the TPU). Here separations, the periodic minimum image, r^2,
+the bin decisions and the moment sums are float64 on the device, so the
+counts are those of the float64 oracle by construction.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import numpy as np
 import torch
 
 from fava_tpu_torch.ops import volume
-from fava_tpu_torch.utils import accum_dtype, prng
+from fava_tpu_torch.utils import accum_dtype, prng, resolve_device
 
 # Increment-PDF sampling owns stream base 1<<17: structure-function orders
 # use streams 0..29 and the particle pair sampler 1<<16, so the analyses
@@ -334,4 +341,116 @@ def scaling_exponents(
         fits = [_log_slope(x, log_positive(vsfs[comp][str(o)])[sel]) for o in orders]
         out[comp] = {"zeta": np.asarray([f[0] for f in fits]),
                      "zeta_err": np.asarray([f[1] for f in fits])}
+    return out
+
+
+# Pair sampling draws from a dedicated stream far outside the
+# structure-function stream range (orders 1-10 use streams 0..29), so
+# the two analyses never reuse Threefry words under a shared seed.
+_PAIR_STREAM = 1 << 16
+
+
+def pair_bin_edges(lo: float, hi: float, nbins: int, log_bins: bool) -> np.ndarray:
+    """The float64 separation-bin edges (nbins+1,) that the binning and
+    the same-draw oracles share."""
+    if log_bins:
+        return np.geomspace(float(lo), float(hi), nbins + 1)
+    return np.linspace(float(lo), float(hi), nbins + 1)
+
+
+def pair_indices(seed, num_pairs: int, n: int, device="cuda") -> torch.Tensor:
+    """The pair-sampling index draw: one (2, num_pairs) int32 block from
+    stream ``_PAIR_STREAM`` of ``seed`` (row 0 the first endpoints, row 1
+    the second), word for word fava_tpu's ``pair_indices``."""
+    return prng.randint(seed, _PAIR_STREAM, (2, int(num_pairs)), int(n), device=device)
+
+
+def pair_structure_functions(
+    positions,
+    velocities,
+    *,
+    num_pairs: int = 200000,
+    nbins: int = 24,
+    sep_bounds: Optional[Sequence[float]] = None,
+    orders: int = 10,
+    lengths: Optional[Sequence[float]] = None,
+    log_bins: bool = True,
+    seed: int = 0,
+    device="cuda",
+) -> Dict[str, Dict[str, np.ndarray] | np.ndarray]:
+    """Structure functions from particle pairs (no grid interpolation).
+
+    ``positions`` and ``velocities`` are matching (N, ndim) tables (numpy
+    arrays or tensors; they go to ``device`` as float64). Samples
+    ``num_pairs`` random pairs (``pair_indices``), projects the velocity
+    increments on the pair separation (longitudinal |du_L|, transverse
+    magnitude) and bins them by separation into ``nbins`` bins (log by
+    default) over ``sep_bounds``: bin k covers [e_k, e_{k+1}), the top
+    edge inclusive, decided on r^2 against the squared edges. With
+    ``lengths`` the separations take the periodic minimum image.
+    Returns {"longitudinal": {"1".."orders"}, "transverse": {...},
+    "separations" (per-bin mean pair distance), "counts"}; empty bins
+    are NaN.
+    """
+    dev = resolve_device(device)
+    pos = torch.as_tensor(positions).to(device=dev, dtype=torch.float64)
+    vel = torch.as_tensor(velocities).to(device=dev, dtype=torch.float64)
+    if pos.ndim != 2 or vel.shape != pos.shape:
+        raise ValueError(
+            f"positions/velocities must be matching (N, ndim) tables, got "
+            f"{tuple(pos.shape)} / {tuple(vel.shape)}"
+        )
+    n, ndim = int(pos.shape[0]), int(pos.shape[1])
+    if n < 2:
+        raise ValueError("need at least 2 particles")
+    if sep_bounds is None:
+        # The resolvable range from the data: the mean spacing
+        # (narrowest span over N^(1/ndim)) to half the narrowest span.
+        span = (pos.amax(dim=0) - pos.amin(dim=0)).cpu().numpy()
+        hi = float(np.min(span[span > 0])) / 2.0 if np.any(span > 0) else 1.0
+        lo = hi / max(n ** (1.0 / ndim), 2.0)
+        sep_bounds = (lo, hi)
+    lo, hi = (float(s) for s in sep_bounds)
+    if not 0 < lo < hi:
+        raise ValueError(f"sep_bounds must satisfy 0 < lo < hi, got ({lo}, {hi})")
+    nbins, orders = int(nbins), int(orders)
+    e2 = torch.as_tensor(pair_bin_edges(lo, hi, nbins, bool(log_bins)) ** 2, device=dev)
+
+    idx = pair_indices(seed, num_pairs, n, dev).long()
+    d = pos[idx[1]] - pos[idx[0]]
+    if lengths is not None:
+        L = torch.tensor([float(x) for x in lengths], dtype=torch.float64, device=dev)
+        d = d - L * torch.round(d / L)
+    # r^2 summed x, y, z in that order: the oracle's float64 operations.
+    r2 = d[:, 0] * d[:, 0]
+    for a in range(1, ndim):
+        r2 = r2 + d[:, a] * d[:, a]
+    keep = torch.nonzero((r2 >= e2[0]) & (r2 <= e2[nbins])).squeeze(1)
+    d, r2 = d[keep], r2[keep]
+    bidx = torch.bucketize(r2, e2[1:nbins].contiguous(), right=True)
+    dv = vel[idx[1, keep]] - vel[idx[0, keep]]
+    r = torch.sqrt(r2)
+    dl = torch.abs((dv * d).sum(dim=-1) / torch.clamp_min(r, 1e-30))
+    dt = torch.sqrt(torch.clamp_min((dv * dv).sum(dim=-1) - dl * dl, 0.0))
+
+    # One scatter of every column: [count, r, |du_L|^p, du_T^p for p = 1..orders].
+    cols = [torch.ones_like(r), r]
+    pl, pt = torch.ones_like(dl), torch.ones_like(dt)
+    for _ in range(orders):
+        pl, pt = pl * dl, pt * dt
+        cols += [pl, pt]
+    sums = torch.zeros((nbins, len(cols)), dtype=accum_dtype(), device=dev)
+    sums.index_add_(0, bidx, torch.stack(cols, dim=1))
+    packed = sums.T.cpu().numpy()
+    counts = packed[0]
+    safe = np.maximum(counts, 1)
+    out: Dict[str, Dict[str, np.ndarray] | np.ndarray] = {
+        "counts": counts,
+        "separations": np.where(counts > 0, packed[1] / safe, np.nan),
+        "longitudinal": {},
+        "transverse": {},
+    }
+    for o in range(1, orders + 1):
+        out["longitudinal"][f"{o}"] = np.where(counts > 0, packed[2 * o] / safe, np.nan)
+        out["transverse"][f"{o}"] = np.where(counts > 0, packed[2 * o + 1] / safe, np.nan)
     return out

@@ -18,7 +18,11 @@ the fused z+y transform (B12), both its cluster FFT kernel (power-of-two
 y and z) and its dense kernel (other shapes): max |diff| within 1e-5 of
 the largest coefficient of the float64 dense DFT (f32 FFT stages or f32
 products summed in a fixed order); the FFT kernel also within 1e-6 of its
-float32 FFT twin, which rounds at the same stages.
+float32 FFT twin, which rounds at the same stages. The particle paths
+(plain torch, float64, no kernel): ``statistics()`` means and RMS at
+rtol 1e-12 and min/max exact; the pair structure functions' counts exact
+and sums rtol 1e-12 (float64 atomics in run-dependent order); the
+nearest-neighbour sweep's partners exact.
 """
 
 import numpy as np
@@ -1288,3 +1292,56 @@ def test_streamed_statistics_on_cuda_match_the_cpu_path_and_incore(cuda_device, 
             assert err.max() <= tol, (ref_name, key, err.max())
         _corr_close(gpu["vc"], ref["vc"])
         _corr_close(gpu["lines"], {k: v for k, v in ref["lines"].items() if k in gpu["lines"]})
+
+
+@pytest.mark.cuda
+def test_particle_statistics_on_cuda_match_the_cpu_path(cuda_device, tmp_path):
+    path = synthetic.make_particle_file(tmp_path / "rt_hdf5_part_0001", nparticles=100_003, seed=2)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        p = fava_tpu_torch.FlashParticles(path, device=dev)
+        p.load()
+        assert p.device_column("velx").device.type == dev
+        got[dev] = p.statistics()
+    assert sorted(got["cuda"]) == sorted(got["cpu"])
+    for f, ref in got["cpu"].items():
+        np.testing.assert_allclose(got["cuda"][f]["mean"], ref["mean"], rtol=1e-12)
+        np.testing.assert_allclose(got["cuda"][f]["rms"], ref["rms"], rtol=1e-12)
+        assert (got["cuda"][f]["min"], got["cuda"][f]["max"]) == (ref["min"], ref["max"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [None, (1.0, 1.0, 1.0)])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_pair_structure_on_cuda_matches_the_cpu_path(cuda_device, lengths, dtype):
+    from fava_tpu_torch.ops.structure import pair_indices, pair_structure_functions
+
+    rng = np.random.default_rng(61)
+    pos = rng.random((200_000, 3)).astype(dtype)
+    vel = rng.standard_normal((200_000, 3)).astype(dtype)
+    np.testing.assert_array_equal(pair_indices(9, 4096, 200_000, device="cuda").cpu().numpy(),
+                                  pair_indices(9, 4096, 200_000, device="cpu").numpy())
+    kw = dict(num_pairs=1 << 20, nbins=24, orders=10, lengths=lengths, seed=9)
+    gpu = pair_structure_functions(pos, vel, device="cuda", **kw)
+    cpu = pair_structure_functions(pos, vel, device="cpu", **kw)
+    np.testing.assert_array_equal(gpu["counts"], cpu["counts"])
+    np.testing.assert_allclose(gpu["separations"], cpu["separations"], rtol=1e-12)
+    for comp in ("longitudinal", "transverse"):
+        for o, ref in cpu[comp].items():
+            np.testing.assert_allclose(gpu[comp][o], ref, rtol=1e-12, err_msg=f"{comp} {o}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nanchors", [(5000, 300), (300_000, 1024)])
+def test_nn_sweep_on_cuda_matches_the_cpu_path(cuda_device, n, nanchors):
+    from fava_tpu_torch.analysis import dispersion as disp
+
+    rng = np.random.default_rng(3)
+    coords = rng.uniform(0.0, 1.0, size=(n, 3))
+    coords[100:200] = coords[0] + 1e-4 * rng.standard_normal((100, 3))  # a tight cluster
+    anchors = rng.choice(n, size=nanchors, replace=False)
+    anchors[:5] = [0, 100, 101, 150, 199]
+    gpu = disp._nearest_neighbor_pairs(coords, anchors, "cuda")
+    np.testing.assert_array_equal(gpu, disp._nearest_neighbor_pairs(coords, anchors, "cpu"))
+    if n <= 5000:
+        np.testing.assert_array_equal(gpu, disp._nn_host(coords, anchors))

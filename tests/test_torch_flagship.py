@@ -143,20 +143,18 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stderr
 
 
-def test_unported_paths_raise_not_implemented(uniform_file):
-    tm = fava_tpu_torch.FLASH(uniform_file.parent, device="cpu")
-    for ftype in ("prt", "chk_prt", "plt_prt"):
-        with pytest.raises(NotImplementedError, match="A9"):
-            tm.load(file_type=ftype)
-
-
 def test_registries_are_the_ports_own():
     assert fava_tpu_torch.Model is not fava_tpu.Model
-    assert {"FLASH", "FlashUniform"} <= set(fava_tpu_torch.Model.mesh_names())
+    assert {"FLASH", "FlashUniform", "FlashParticles"} <= set(fava_tpu_torch.Model.mesh_names())
     assert fava_tpu_torch.Model.get_mesh_class("FlashUniform") is fava_tpu_torch.FlashUniform
+    assert fava_tpu_torch.Model.get_mesh_class("FlashParticles") is fava_tpu_torch.FlashParticles
+    assert fava_tpu_torch.FlashParticles is not fava_tpu.FlashParticles
     for name in ("flagship_analysis", "reynolds_stress", "favre_profiles", "slice_average",
                  "slice_integration", "kinetic_energy_spectra", "scalar_spectra", "pdf1d", "pdf2d",
                  "density_pdf", "binned_statistic", "mass_sum", "volume_average",
                  "volume_integration", "flagship_series", "reynolds_series", "favre_series",
-                 "flame_surface", "projection"):
+                 "flame_surface", "projection", "eulerian_autocorrelation",
+                 "lagrangian_autocorrelation", "cross_correlation", "dispersion_statistics",
+                 "particle_structure_functions", "particle_series"):
         assert callable(getattr(fava_tpu_torch.Model, name)), name
+        assert getattr(fava_tpu_torch.Model, name) is not getattr(fava_tpu.Model, name), name
