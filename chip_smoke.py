@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the fava_tpu_torch flagship, AMR, stage-4, streaming and
 fused-spectrum paths, its velocity, filtering and two-point analyses, its
-pipeline CLI and its particle analyses on one NVIDIA GPU.
+pipeline CLI, its particle analyses and its sharded paths on one NVIDIA
+GPU.
 
 Run from the repository root, with no arguments:
 
@@ -233,6 +234,24 @@ no result):
    static field (1 within TOL_PRT) and a translating one (held to the
    same driver on the CPU). Every call is made twice and its second
    (warm) wall printed, with the peak card memory and the phase's wall.
+25. The sharded paths (after phase 23, on its window file): a one-rank
+   NCCL world on cuda:0 (a file:// store in the phase's temp dir) with
+   the meshes (1,) "space" and (1, 1) "snap", "space". A one-rank space
+   axis takes the single-device paths, so the sharded functions are
+   called directly on the 512^3 example fields, each with its exact
+   launches: ``sharded_power_spectra`` (B6), the mesh branch of
+   ``uniform_analysis_step`` (B6, K1, K2) and
+   ``sharded_series_analysis_step`` on a batch of 2, held to the
+   single-device step (counts exact, spectra TOL_SPECTRA, profiles
+   TOL_PROFILES); ``pfft3`` equal to ``torch.fft.fftn`` and the pencil
+   transform through the exchange within TOL_SPECTRA; virtual ranks: the
+   global rfftn cut into d = 2, 4, 8 y-slabs, each binned by B6 at its
+   offset, summed and held to the single-device sums (TOL_VIRTUAL), and
+   B6 on a transposed slab against its plain twin, timed against its
+   bound; ``FLASH(d)`` on the window file under the mesh
+   (``load("uni")``, ``kinetic_energy_spectra``, ``flagship_analysis``)
+   equal (TOL_BIN) to the same calls without one; the sharded and the
+   single-device steps and the collectives alone by CUDA events.
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -4370,6 +4389,207 @@ def phase_particles(torch, np, card: str):
     return walls
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the sharded paths (parallel/) in a one-rank NCCL world
+
+VIRTUAL_RANKS = (2, 4, 8)
+# The virtual ranks' summed shell sums against the single-device sums:
+# float64 sums of the same float32 powers in another order, of scale. The
+# sharded step against the single-device step takes compare_flagship's
+# bounds: the spectra carry two float32 transform decompositions (rfft2 +
+# fft along x, against rfftn), the profiles the same kernels on the same
+# rows.
+TOL_VIRTUAL = 1e-9
+SHARDED_KERNELS = ("shell_bin_values_rfft_chunk", "row_moments", "centered_row_moments")
+
+
+def hold_sums(what, got, ref, tol, phase=25):
+    """max |diff| / scale of shell sums (scale: the largest |ref|)."""
+    err = float((got - ref).abs().max() / ref.abs().max())
+    say(f"phase {phase} {what}: max|diff|/scale {err!r} (bound {tol!r})")
+    if not err <= tol:
+        fail(f"{what} disagrees with its reference")
+    return err
+
+
+def virtual_ranks(torch, ck, spectra, fields, nbins):
+    """The global rfftn cut into d y-slabs; each slab's powers and B6 at
+    its offset (the rank-local binning of the sharded spectra), summed,
+    against the single-device shell sums; B6 on one transposed slab
+    against its plain twin, and timed against its bound."""
+    nx, ny, nz = (int(s) for s in fields[0].shape)
+    ffts = spectra.kinetic_transforms(fields[0], fields[1:])
+    _counts, whole = spectra.rfft_shell_sums(fields[0], fields[1:], nbins)
+    def summed(d):
+        cols = ny // d
+        return sum(spectra.slab_shell_sums([f[:, r * cols : (r + 1) * cols] for f in ffts],
+                                           (nx, ny, nz), r * cols, nbins) for r in range(d))
+
+    runs = {f"{d} virtual ranks": (lambda d=d: summed(d), {"shell_bin_values_rfft_chunk": d})
+            for d in VIRTUAL_RANKS}
+    sums, _, _ = run_exact_counts(torch, ck, 25, runs, "sharded")
+    errs = {d: hold_sums(f"{d} virtual ranks' summed shell sums vs the single device",
+                         sums[f"{d} virtual ranks"], whole, TOL_VIRTUAL) for d in VIRTUAL_RANKS}
+    lo, cols = ny // 4, ny // 4  # rank 1 of 4: a slab off the origin
+    total, longi = spectra.rfft_power_volumes(
+        [f[:, lo : lo + cols] for f in ffts], (nx, ny, nz),
+        jy=torch.arange(lo, lo + cols, device=fields[0].device),
+        ky=spectra._wavenumbers(ny, torch.float32, fields[0].device)[lo : lo + cols])
+    t, lg = total.transpose(0, 1).contiguous(), longi.transpose(0, 1).contiguous()
+    del ffts, total, longi
+    got = ck.shell_bin_values_rfft_chunk(t, lg, nbins, ny, nz, lo)
+    torch.cuda.synchronize()
+    ref = ck._shell_bin_unfolded_plain(t.double(), lg.double(), nbins, nz, lo, ny)
+    err = (got[:2] - ref).abs()
+    ratio = float((err / (TOL_BIN * ref.abs()).clamp(min=1e-300)).max())
+    inside = inside_cells(ck, t, nbins, full_nz=nz, kx0=lo, full_nx=ny)
+    row = kernel_row(torch, 25, f"B6 on the transposed slab {tuple(t.shape)} at kx0 {lo}",
+                     float(err.max()), ratio, TOL_BIN,
+                     lambda: ck.shell_bin_values_rfft_chunk(t, lg, nbins, ny, nz, lo),
+                     lambda: ck._shell_bin_unfolded_plain(t, lg, nbins, nz, lo, ny),
+                     (8 * inside + 16 * nbins, 8 * inside))
+    return errs, row
+
+
+def collectives_ms(torch, dist, fft, runtime, mesh, shape, nbins):
+    """Device ms of the sharded step's collectives alone, at its shapes:
+    three x <-> y exchanges of a (nx, ny, nz//2+1) complex64 transform
+    (with their layout copies), the all_reduce of the (3, nbins) sums and
+    the all_gather of the (22, nx) row statistics."""
+    nx, ny, nz = shape
+    dev = mesh.device_type
+    w = torch.zeros((nx, ny, nz // 2 + 1), dtype=torch.complex64, device=dev)
+    sums = torch.zeros((3, nbins), dtype=torch.float64, device=dev)
+    rows = torch.zeros((22, nx), dtype=torch.float64, device=dev)
+
+    def run():
+        for _ in range(3):
+            fft.transpose_xy(w, mesh)
+        dist.all_reduce(sums, group=runtime.space_group(mesh))
+        runtime.gather_slabs(rows, mesh, dim=1)
+
+    ms = cuda_ms(torch, run, 5)
+    del w
+    return ms
+
+
+def phase_sharded(torch, np, workdir: Path, card: str):
+    """Phase 25 (after phase 23, on its window file): a one-rank NCCL
+    world on cuda:0 (file:// store in the phase's temp dir) and the meshes
+    (1,) "space" and (1, 1) "snap", "space". A one-rank space axis takes
+    the single-device path, so the sharded functions are called directly:
+    ``sharded_power_spectra``, the mesh branch of
+    ``uniform_analysis_step``, ``sharded_series_analysis_step`` (a batch
+    of 2) and the pencil transform, each with exact launches and held to
+    the single-device step on the 512^3 example fields; virtual ranks
+    d = 2, 4, 8 (the global rfftn cut into d y-slabs, each binned by B6
+    at its offset, summed) against the single-device sums, and B6 on a
+    transposed slab against its plain twin; ``FLASH(d)`` on the window
+    file under the mesh (``load("uni")``, ``kinetic_energy_spectra``,
+    ``flagship_analysis``) against the same calls without one; then the
+    sharded and single-device steps and the collectives alone by CUDA
+    events."""
+    import torch.distributed as dist
+
+    import fava_tpu_torch
+    from fava_tpu_torch import flagship, parallel
+    from fava_tpu_torch.ops import cuda_kernels as ck
+    from fava_tpu_torch.ops import spectra
+    from fava_tpu_torch.parallel import fft, runtime
+
+    t_phase = time.perf_counter()
+    times = {"card": card}
+    totals = {}
+    with tempfile.TemporaryDirectory(prefix="fava_world_") as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+                                timeout=runtime.COLLECTIVE_TIMEOUT)
+        try:
+            m1 = parallel.make_device_mesh((1,), device="cuda")
+            m2 = parallel.make_device_mesh((1, 1), (parallel.SNAP_AXIS, parallel.SPACE_AXIS),
+                                           device="cuda")
+            say(f"phase 25 one-rank NCCL world: backend {dist.get_backend()}, meshes {m1} and {m2}")
+            fields = flagship.make_example_fields(N)
+            batch = flagship.make_example_field_batch(2, N)
+            nbins = N // 2 - 1
+            runs = {
+                "sharded_power_spectra": (
+                    lambda: spectra.sharded_power_spectra(fields[0], fields[1:], m1, nbins),
+                    {"shell_bin_values_rfft_chunk": 1}),
+                "uniform_analysis_step(mesh)": (
+                    lambda: flagship.uniform_analysis_step(*fields, mesh=m1),
+                    dict.fromkeys(SHARDED_KERNELS, 1)),
+                "sharded_series_analysis_step x2": (
+                    lambda: flagship.sharded_series_analysis_step(*batch, mesh=m2),
+                    dict.fromkeys(SHARDED_KERNELS, 2)),
+            }
+            out, times["walls_s"], totals = run_exact_counts(torch, ck, 25, runs, "sharded")
+            counts, sums = spectra.rfft_shell_sums(fields[0], fields[1:], nbins)
+            c1, s1 = out["sharded_power_spectra"]
+            if not torch.equal(c1, counts):
+                fail("sharded_power_spectra's counts differ from the single device's")
+            hold_sums("sharded_power_spectra vs the single device", s1, sums, TOL_SPECTRA)
+            floor = output_floors(fields)
+            step = {k: v.cpu().numpy() for k, v in out["uniform_analysis_step(mesh)"].items()}
+            check_outputs(np, step, (N, N, N), "single")
+            single = {k: v.cpu().numpy() for k, v in flagship.uniform_analysis_step(*fields).items()}
+            times["step_errors"] = compare_flagship(np, step, single, floor, "mesh step vs single", 25)
+            series = {k: v.cpu().numpy() for k, v in out["sharded_series_analysis_step x2"].items()}
+            check_outputs(np, series, (N, N, N), "series")
+            for i in range(2):
+                ref = {k: v.cpu().numpy() for k, v in
+                       flagship.uniform_analysis_step(*(b[i] for b in batch)).items()}
+                compare_flagship(np, {k: v[i] for k, v in series.items()}, ref, floor,
+                                 f"pod step snapshot {i} vs single", 25)
+            del batch, series, out
+
+            x = fields[0]
+            want = torch.fft.fftn(x)
+            if not torch.equal(parallel.pfft3(x, m1), want):
+                fail("pfft3 on a one-rank space axis is not torch.fft.fftn")
+            pencil = torch.fft.fft(fft.transpose_xy(torch.fft.fftn(x, dim=(1, 2)), m1), dim=0)
+            hold_sums("the pencil transform (fftn over y, z; exchange; fft over x) vs fftn",
+                      pencil, want, TOL_SPECTRA)
+            del want, pencil
+
+            times["virtual_rank_errors"], times["b6_transposed_slab"] = virtual_ranks(
+                torch, ck, spectra, fields, nbins)
+
+            plain_uni = fava_tpu_torch.FLASH(workdir)
+            plain_uni.load(file_type="uni", file_index=0)
+            ke0, flag0 = plain_uni.kinetic_energy_spectra(), plain_uni.flagship_analysis()
+            wfloor = output_floors([plain_uni.mesh.data(k) for k in NAMES])
+            del plain_uni
+            with parallel.use_mesh(m1):
+                uni = fava_tpu_torch.FLASH(workdir)
+                uni.load(file_type="uni", file_index=0)
+                if uni.mesh._dmesh is not None or tuple(uni.mesh._slab("dens").shape) != (N, N, N):
+                    fail("a one-rank space axis sharded the window volume")
+                ke1 = uni.kinetic_energy_spectra()
+                flag1, n = counted(torch, ck, "flagship_analysis() under the mesh",
+                                   uni.flagship_analysis, FLAGSHIP_KERNELS, 25)
+                add_counts(totals, n)
+            del uni
+            for key in ("total", "longitudinal", "transverse"):
+                hold_sums(f"window KE spectra {key} under the mesh vs without",
+                          torch.from_numpy(ke1[key]), torch.from_numpy(ke0[key]), TOL_BIN)
+            compare_flagship(np, flag1, flag0, wfloor, "window flagship under the mesh vs without",
+                             25, bound_of=lambda key: TOL_BIN)
+
+            step_ms = cuda_ms(torch, lambda: flagship.uniform_analysis_step(*fields, mesh=m1), 5)
+            single_ms = cuda_ms(torch, lambda: flagship.uniform_analysis_step(*fields), 5)
+            coll_ms = collectives_ms(torch, dist, fft, runtime, m1, (N, N, N), nbins)
+            times.update({"sharded_step_ms": step_ms, "single_step_ms": single_ms,
+                          "collectives_ms": coll_ms, "collectives_share": coll_ms / step_ms})
+            del fields
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    times["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase 25 sharded-path timings: {json.dumps(times)}")
+    return totals
+
+
 def main() -> None:
     sys.path.insert(0, str(HERE))
     try:
@@ -4456,10 +4676,12 @@ def main() -> None:
         velocity_launches, _ = phase_velocity(torch, np, workdir, card)
         torch.cuda.empty_cache()
         a8c_launches, _ = phase_a8c(torch, np, workdir, card)
+        torch.cuda.empty_cache()
+        sharded_launches = phase_sharded(torch, np, workdir, card)
     torch.cuda.empty_cache()
     pipe_launches, pipe_times = phase_pipeline(torch, np)
     for counts in (amr4_launches, win_launches, odd_launches, entry_launches, series_launches,
-                   velocity_launches, a8c_launches, pipe_launches):
+                   velocity_launches, a8c_launches, sharded_launches, pipe_launches):
         add_counts(launches, counts)
     say(f"phase 11-12 stage-4 timings: {json.dumps({'card': card, 'window': win_times, 'odd': odd_times})}")
     say(f"phase 16-17 entry point and series timings: "

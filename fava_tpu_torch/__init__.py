@@ -18,7 +18,10 @@ part and checkpoint files (``FlashParticles``, the ``prt``, ``chk_prt``
 and ``plt_prt`` load types) with the particle analyses: the series
 statistics, the Lagrangian and Eulerian autocorrelations, the
 space-time cross correlation, dispersion and the pair structure
-functions (plain torch in float64: fava_tpu has no kernel there). The
+functions (plain torch in float64: fava_tpu has no kernel there); and,
+over the ranks of a ``torch.distributed`` world (``parallel/``), the
+slab-sharded uniform volume with the pencil FFT, the sharded spectra and
+the sharded flagship step. The
 kernels are hand-written CUDA (``ops/cuda_kernels.py``). Every public entry takes ``device=``
 ("cuda" by default); asking for CUDA where there is none raises. This
 package imports neither jax nor fava_tpu.
@@ -29,6 +32,7 @@ from fava_tpu_torch.models import FLASH, FileSubStem, FileType, InMemoryModel, M
 from fava_tpu_torch.mesh import FlashParticles, FlashUniform
 from fava_tpu_torch.mesh import FLASH as FlashAMR
 from fava_tpu_torch import analysis  # noqa: F401  (registers analyses onto Model)
+from fava_tpu_torch import geometry, io, ops, parallel, utils  # noqa: F401
 
 __all__ = [
     "__version__",
@@ -43,4 +47,9 @@ __all__ = [
     "Model",
     "analysis",
     "from_arrays",
+    "geometry",
+    "io",
+    "ops",
+    "parallel",
+    "utils",
 ]

@@ -5,7 +5,8 @@ flagship, Reynolds-stress, Favre, turbulence-summary,
 gradient-statistics and particle series. ``io/ingest.SnapshotPrefetcher``
 overlaps the read and the copy to the card of snapshot N+1 with the
 compute on snapshot N (the mesh series). The pod branch of
-``flagship_series`` is ROADMAP A11.
+``flagship_series``, which collects ``flagship.sharded_series_analysis_step``
+over the snap axis of a snap x space mesh, is ROADMAP A11c.
 """
 
 from __future__ import annotations

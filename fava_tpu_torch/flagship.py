@@ -1,12 +1,19 @@
 """Flagship analysis step: kinetic-energy spectra plus Reynolds-stress
 and Favre x-profiles of one uniform snapshot.
 
-Counterpart of fava_tpu/flagship.py, single-device branch only (the
-sharded branch is ROADMAP A11). PyTorch runs eagerly, so the step is a
-sequence of cuFFT transforms, plain tensor ops and the hand-written
+Counterpart of fava_tpu/flagship.py. PyTorch runs eagerly, so the step
+is a sequence of cuFFT transforms, plain tensor ops and the hand-written
 kernels of ``ops/cuda_kernels.py`` (K1-K4; the unfolded binning B10 in
 place of K3/K4 for odd x or y extents); ``series_analysis_step`` is a
 Python loop over snapshots where fava_tpu used ``lax.scan``.
+
+With a device mesh (``parallel/``) the inputs are the rank's x-slabs:
+the spectra come from the pencil transform and B6 on each rank's
+y-slab (``ops/spectra.sharded_power_spectra``), and the profiles from
+K1 and K2 on the local x-slab, whose rows are whole on the rank, then
+one all_gather on the space group. ``sharded_series_analysis_step``
+runs that step over the rank's snapshots of a snap x space batch; the
+series driver that collects them over the snap axis is ROADMAP A11c.
 
 Outputs are float64 on every device (fava_tpu's are float32 on the TPU).
 """
@@ -20,29 +27,43 @@ import torch
 
 from fava_tpu_torch.ops import cuda_kernels
 from fava_tpu_torch.ops.profiles import assemble_profile_stats
-from fava_tpu_torch.ops.spectra import rfft_shell_sums
+from fava_tpu_torch.ops.spectra import rfft_shell_sums, sharded_power_spectra
+from fava_tpu_torch.parallel import runtime
 from fava_tpu_torch.utils import field_dtype, resolve_device
 
 
-def uniform_analysis_step(dens, velx, vely, velz) -> Dict[str, torch.Tensor]:
-    """Spectra + Reynolds/Favre x-profiles of one uniform snapshot."""
+def uniform_analysis_step(dens, velx, vely, velz, mesh=None) -> Dict[str, torch.Tensor]:
+    """Spectra + Reynolds/Favre x-profiles of one uniform snapshot; with
+    ``mesh``, of the volume whose x-slabs on the mesh's space axis the
+    inputs are (every rank gets the whole volume's outputs)."""
     nx, ny, nz = (int(s) for s in dens.shape)
+    if mesh is not None:
+        nx *= runtime.space_axis_size(mesh)
     nbins = max(nx, ny, nz) // 2 - 1
     vels = (velx, vely, velz)
 
     # --- Spectra: real input, so rfft halves the transform and binning
     # work; Hermitian weights in the binning make the result equal to the
     # full-grid computation.
-    counts, sums3 = rfft_shell_sums(dens, vels, nbins)
+    if mesh is None:
+        counts, sums3 = rfft_shell_sums(dens, vels, nbins)
+    else:
+        counts, sums3 = sharded_power_spectra(dens, vels, mesh, nbins)
 
     # --- Profiles along x (uniform grid: rows are the bins). Two passes:
     # raw first moments, then second moments centered on the row means,
-    # which avoids the cancellation of the one-pass expansion.
+    # which avoids the cancellation of the one-pass expansion. Under a
+    # mesh every row is whole on one rank, so both passes are local.
     layer = float(ny * nz)
     moments = cuda_kernels.row_moments_volume(dens, *vels)
+    centered = cuda_kernels.centered_row_moments(
+        dens, *vels, (moments[1:4] / layer).contiguous()
+    )
+    if mesh is not None:
+        rows = runtime.gather_slabs(torch.cat([moments, centered]), mesh, dim=1)
+        moments, centered = rows.split([cuda_kernels.NMOM, cuda_kernels.NCEN])
     d_row = moments[0]
     means = moments[1:4] / layer
-    centered = cuda_kernels.centered_row_moments(dens, *vels, means.contiguous())
     stress, favre_mean, favre_rms = assemble_profile_stats(
         d_row, means, centered[6:9], centered[:6], layer
     )
@@ -67,6 +88,20 @@ def series_analysis_step(dens, velx, vely, velz) -> Dict[str, torch.Tensor]:
     leading snapshot axis. The working set stays one snapshot wide
     (inputs aside)."""
     outs = [uniform_analysis_step(*snap) for snap in zip(dens, velx, vely, velz)]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def sharded_series_analysis_step(dens, velx, vely, velz, mesh) -> Dict[str, torch.Tensor]:
+    """Flagship step over the rank's share of a snapshot batch on a snap
+    x space mesh (fava_tpu/flagship.py:197).
+
+    The inputs are this rank's (B/snap, nx/space, ny, nz) block of a (B,
+    nx, ny, nz) batch: its snap row's snapshots, each as its x-slab on
+    the space axis. Each snapshot runs ``uniform_analysis_step`` with the
+    mesh (collectives on the space group only: snap rows never talk).
+    Returns the local snapshots' outputs with a leading snapshot axis.
+    """
+    outs = [uniform_analysis_step(*snap, mesh=mesh) for snap in zip(dens, velx, vely, velz)]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 

@@ -38,6 +38,7 @@ FIELD_MAPPING: Dict[str, str] = {
 }
 
 NGUARD: int = 4
+MESH_MDIM: int = 3
 
 
 def _decode(value: Any) -> Any:

@@ -8,6 +8,15 @@ kinetic-energy and scalar spectra, the PDFs and conditional statistics
 of pipeline stage 4, the fractal dimension, and the velocity structure
 functions with their scaling exponents and increment PDFs, the flame
 surface density and the line-of-sight projection.
+Under an active device mesh (``parallel/``) whose space axis shards the
+volume (the placement rule, ``parallel.runtime.shards_volume``), ``load``
+and ``from_arrays`` keep only this rank's x-slab of each field (``load``
+reads the slab straight from the file), ``kinetic_energy_spectra`` and
+``flagship_analysis`` run the sharded paths, and every other analysis,
+like ``data()``, gets the whole volume by one all_gather on the space
+group: fava_tpu's numbers, as its partitioner gathers, until those
+analyses are made rank-local (ROADMAP A11d). The streamed paths read
+the file whole on every rank.
 ``reynolds_stress``, ``favre_profiles``, the slice profiles, ``mass_sum``
 and the volume averages are FLASH's: on one block profiled along x the
 profiles take the uniform fast case (K1/K2). The velocity diagnostics
@@ -43,6 +52,7 @@ from fava_tpu_torch.ops import structure as structure_ops
 from fava_tpu_torch.ops import twopoint as tp_ops
 from fava_tpu_torch.ops import velocity as vel_ops
 from fava_tpu_torch.ops import volume as volume_ops
+from fava_tpu_torch.parallel import runtime
 from fava_tpu_torch.utils import field_dtype, timer
 
 
@@ -65,7 +75,11 @@ def streams_out_of_core(shape, dtype: torch.dtype, free_bytes: float, resident_b
 
 @Model.register_mesh()
 class FlashUniform(FLASH):
-    """Uniform-grid FLASH mesh; field data is a single 3D volume on the device."""
+    """Uniform-grid FLASH mesh; field data is a single 3D volume on the
+    device, or this rank's x-slab of it under a mesh that shards it."""
+
+    # The mesh whose space axis the volume is slab-sharded over, or None.
+    _dmesh = None
 
     @classmethod
     def is_this_your_mesh(cls, filename: str | Path, *args, **kwargs) -> bool:
@@ -132,20 +146,58 @@ class FlashUniform(FLASH):
         mesh.node_type = np.ones(1, dtype=np.int64)
         mesh.refine_level = np.ones(1, dtype=np.int64)
         mesh.coordinates = 0.5 * bounds3.sum(axis=1)[None]
+        mesh._place()
         dtype = field_dtype(mesh.device)
-        mesh._data = {
-            name: torch.as_tensor(v, dtype=dtype, device=mesh.device).reshape(full).contiguous()
-            for name, v in fields.items()
-        }
+        mesh._data = {}
+        for name, v in fields.items():
+            src = torch.as_tensor(v).reshape(full)
+            if mesh._dmesh is not None:
+                src = runtime.shard_volume(src, mesh._dmesh)
+            mesh._data[name] = src.to(device=mesh.device, dtype=dtype).contiguous()
         mesh._loaded = True
         return mesh
 
+    def load(self) -> None:
+        super().load()
+        self._place()
+
+    def _place(self) -> None:
+        """The placement rule at load: the active mesh shards a 3D volume
+        when both nx and ny divide its space axis."""
+        mesh = runtime.get_mesh()
+        shape = (self.nxb, self.nyb, self.nzb)
+        self._dmesh = mesh if self.ndim == 3 and runtime.shards_volume(shape, mesh) else None
+
     def _read_field(self, handle, name: str) -> None:
-        vol = flash_file.read_field(handle, name, self.device, field_dtype(self.device))
+        dtype = field_dtype(self.device)
+        if self._dmesh is not None:
+            # This rank's rows only, from the stored (nz, ny, nx) layout,
+            # swapped on the device as read_field does.
+            lo, hi = runtime.slab_rows(self.nxb, self._dmesh)
+            stored = np.swapaxes(flash_file.read_field_slab(handle, name, lo, hi), 0, 2)
+            raw = torch.from_numpy(np.ascontiguousarray(stored))
+            self._data[name] = raw.to(device=self.device, dtype=dtype).transpose(0, 2).contiguous()
+            return
+        vol = flash_file.read_field(handle, name, self.device, dtype)
         # Uniform files hold one block; store the bare 3D volume.
         if vol.ndim == 4 and vol.shape[0] == 1:
             vol = vol[0]
         self._data[name] = vol
+
+    def data(self, name: str) -> Optional[torch.Tensor]:
+        """The whole field on the device: under a sharding mesh, the
+        ranks' x-slabs gathered (one all_gather on the space group)."""
+        d = super().data(name)
+        if d is None or self._dmesh is None:
+            return d
+        return runtime.gather_slabs(d, self._dmesh)
+
+    def _slab(self, name: str) -> torch.Tensor:
+        """This rank's x-slab of a field of a sharded volume."""
+        d = super().data(name)
+        if d is None:
+            raise KeyError(name)
+        return d
 
     def _volume(self, name: str) -> torch.Tensor:
         d = self.data(name)
@@ -155,6 +207,21 @@ class FlashUniform(FLASH):
             d = d[0]
         return d
 
+    def _refuse_sharded(self, what: str) -> None:
+        if self._dmesh is not None:
+            raise NotImplementedError(
+                f"{what} of a uniform mesh sharded over a device mesh is not supported "
+                "(ROADMAP A11b, A11c); load it outside the mesh"
+            )
+
+    def from_amr(self, *args, **kwargs) -> None:
+        self._refuse_sharded("from_amr")
+        super().from_amr(*args, **kwargs)
+
+    def save(self, filename=None, names=None) -> None:
+        self._refuse_sharded("save")
+        super().save(filename=filename, names=names)
+
     def _streams(self, shape) -> bool:
         """``streams_out_of_core`` against this card's free memory (the
         CPU never streams on its own)."""
@@ -163,6 +230,8 @@ class FlashUniform(FLASH):
         free, _total = torch.cuda.mem_get_info(self.device)
         free += torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
         resident = sum(t.numel() * t.element_size() for t in self._data.values())
+        if self._dmesh is not None:
+            shape = (shape[0] // runtime.space_axis_size(self._dmesh),) + tuple(shape[1:])
         return streams_out_of_core(shape, field_dtype(self.device), free, resident)
 
     def _domain_lengths(self):
@@ -254,13 +323,22 @@ class FlashUniform(FLASH):
                 wire_dtype=wire_dtype,
                 prefetch_depth=prefetch_depth,
             )
-        vols = [self._volume(name) for name in ("dens", "velx", "vely", "velz")]
-        out = flagship.uniform_analysis_step(*vols)
+        names = ("dens", "velx", "vely", "velz")
+        if self._dmesh is not None:
+            out = flagship.uniform_analysis_step(*map(self._slab, names), mesh=self._dmesh)
+        else:
+            out = flagship.uniform_analysis_step(*map(self._volume, names))
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     @timer
     def kinetic_energy_spectra(self) -> Dict[str, np.ndarray]:
-        """KE spectra (reference: FlashUniform.py:229-304)."""
+        """KE spectra (reference: FlashUniform.py:229-304); sharded over
+        the mesh the volume is placed on."""
+        if self._dmesh is not None:
+            vels = [self._slab(f"vel{a}") for a in "xyz"]
+            return spectra_ops.kinetic_energy_spectra(
+                self._slab("dens"), vels, ndim=3, mesh=self._dmesh
+            )
         vels = [self._volume(f"vel{a}") for a in "xyz"[: self.ndim]]
         return spectra_ops.kinetic_energy_spectra(self._volume("dens"), vels, ndim=self.ndim)
 

@@ -88,7 +88,9 @@ class FLASH(Model):
             FileType.ANL: self.anl_files,
         }[ftype]
 
-    def nfiles(self, file_type: FileType | str = FileType.CHK) -> int:
+    def nfiles(self, file_type: FileType | str = FileType.CHK, **kwargs) -> int:
+        """Number of files of ``file_type``; other keywords are taken and
+        ignored, as fava_tpu does."""
         return len(self._catalog(_file_type(file_type))["by index"])
 
     def load(

@@ -1,7 +1,7 @@
 """AMR -> uniform regridding through one kernel launch per 8 fields.
 
 Counterpart of fava_tpu/ops/regrid.py (single device; the sharded plan
-and regrid wait for ROADMAP A11). The mapping is closed-form:
+and regrid are ROADMAP A11b). The mapping is closed-form:
 
   output fine cell g (global fine-index space at the target level)
    -> block = leaf_table[g // ncells_per_block]   (small int32 table)
@@ -20,9 +20,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from fava_tpu_torch.io.flash_file import MESH_MDIM
 from fava_tpu_torch.ops import cuda_kernels
-
-MESH_MDIM = 3
 
 
 class RegridPlan:

@@ -1,12 +1,20 @@
 """Kinetic-energy and scalar power spectra: FFT + spherical shell binning.
 
-Counterpart of fava_tpu/ops/spectra.py, single device (the sharded
-branches are ROADMAP A11). The transforms are ``torch.fft`` (cuFFT on
-the card); fava_tpu's dense-DFT matmuls exist only for the TPU. 3D
-volumes take real transforms and the Hermitian shell binning of
+Counterpart of fava_tpu/ops/spectra.py. The transforms are ``torch.fft``
+(cuFFT on the card); fava_tpu's dense-DFT matmuls exist only for the
+TPU. 3D volumes take real transforms and the Hermitian shell binning of
 ``ops/cuda_kernels.py`` (fold + K4 for even x and y extents, B10 for
 odd ones); 1D/2D datasets take full complex transforms and a plain
 ``index_add_`` binning, as fava_tpu's generic branch does.
+
+Over a device mesh (``parallel/``), ``sharded_power_spectra`` runs the
+rank-local body ``local_spectra_fn``: the pencil transform of the
+rank's x-slab, the powers of its y-slab, B6 on the transposed block at
+the slab's global offset, then one all_reduce of the sums. It always
+bins with B6's wrapper, whose plain twin serves CPU tensors: fava_tpu's
+scatter-add branch and ``use_kernel_shell_binning`` exist for XLA's
+trace cache and its TPU/interpret choice. The scalar spectrum of a
+sharded volume is taken on the gathered volume (mesh/flash_uniform.py).
 
 Shell binning replicates ``scipy.stats.binned_statistic(..., "mean")``
 with edges ``arange(max(n)//2) - 0.5``: right-inclusive last edge, NaN
@@ -19,15 +27,12 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fava_tpu_torch.ops import cuda_kernels
+from fava_tpu_torch.parallel import runtime
+from fava_tpu_torch.parallel.fft import _wavenumbers, transpose_xy
 from fava_tpu_torch.utils import accum_dtype
-
-
-def _wavenumbers(n: int, dtype, device) -> torch.Tensor:
-    """Integer wavenumbers in unshifted FFT order: [0..n/2-1, -n/2..-1]."""
-    k = torch.arange(n, device=device)
-    return torch.where(k <= (n - 1) // 2, k, k - n).to(dtype)
 
 
 def _split_nyquist(k: torch.Tensor, n: int, idx: torch.Tensor):
@@ -49,7 +54,8 @@ def _abs2(z: torch.Tensor) -> torch.Tensor:
 
 
 def rfft_power_volumes(
-    ffts: Sequence[torch.Tensor], full_shape: Tuple[int, int, int], jx=None, kx=None
+    ffts: Sequence[torch.Tensor], full_shape: Tuple[int, int, int], jx=None, kx=None, jy=None,
+    ky=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(total, longi) power volumes of the three velocity half-spectra.
 
@@ -64,8 +70,9 @@ def rfft_power_volumes(
 
     ``jx``/``kx`` (1D tensors of global x indices and their signed
     wavenumbers) give the rows of an x-chunk of the half-spectrum (the
-    streamed step); the Nyquist split applies where a global row is
-    nx/2, and only there.
+    streamed step), and ``jy``/``ky`` the columns of a y-slab (a rank's
+    share of the pencil transform); the Nyquist split applies where a
+    global index is n/2, and only there.
     """
     nx, ny, nz = full_shape
     nzr = ffts[0].shape[-1]
@@ -74,11 +81,14 @@ def rfft_power_volumes(
     if kx is None:
         jx = torch.arange(nx, device=dev)
         kx = _wavenumbers(nx, rdt, dev)
+    if ky is None:
+        jy = torch.arange(ny, device=dev)
+        ky = _wavenumbers(ny, rdt, dev)
     jx = jx.to(dev)[:, None, None]
     kx = kx.to(device=dev, dtype=rdt)[:, None, None]
-    jy = torch.arange(ny, device=dev)[None, :, None]
+    jy = jy.to(dev)[None, :, None]
+    ky = ky.to(device=dev, dtype=rdt)[None, :, None]
     jz = torch.arange(nzr, device=dev)[None, None, :]
-    ky = _wavenumbers(ny, rdt, dev)[None, :, None]
     kz = jz.to(rdt)
 
     total = 0.5 * (_abs2(ffts[0]) + _abs2(ffts[1]) + _abs2(ffts[2]))
@@ -116,6 +126,77 @@ def rfft_shell_sums(dens, vels, nbins: int):
     then the Hermitian binning (even x and y: fold + K4; else B10)."""
     total, longi = kinetic_power_volumes(dens, vels)
     return cuda_kernels.shell_bin_sums_rfft(total, longi, nbins, int(dens.shape[2]))
+
+
+def static_shell_counts(full_shape, nbins: int, device) -> torch.Tensor:
+    """The Hermitian shell counts of a whole volume's rfft half-spectrum,
+    a shape function: what every consumer of ``local_spectra_fn``
+    substitutes for counts, since B6 bins values only."""
+    return cuda_kernels.rfft_shell_counts(tuple(int(s) for s in full_shape), int(nbins), device)
+
+
+def slab_shell_sums(ffts: Sequence[torch.Tensor], full_shape, lo: int, nbins: int) -> torch.Tensor:
+    """(3, nbins) float64 shell sums [total, longitudinal, transverse] of
+    one y-slab of the three normalized velocity half-spectra: ``ffts``
+    are (nx, ny_l, nz//2+1), the columns ``lo .. lo+ny_l-1`` of the
+    whole (nx, ny, nz//2+1) transforms. The powers, then B6 on the
+    transposed block, whose slab axis is global y at offset ``lo``
+    (fava_tpu/ops/spectra.py:191-209). The slabs' sums add up to the
+    whole volume's."""
+    nx, ny, nz = (int(s) for s in full_shape)
+    nyl = int(ffts[0].shape[1])
+    dev = ffts[0].device
+    rdt = ffts[0].real.dtype
+    jy = torch.arange(lo, lo + nyl, device=dev)
+    ky = _wavenumbers(ny, rdt, dev)[lo : lo + nyl]
+    total, longi = rfft_power_volumes(ffts, (nx, ny, nz), jy=jy, ky=ky)
+    return cuda_kernels.shell_bin_values_rfft_chunk(
+        total.transpose(0, 1).contiguous(),
+        longi.transpose(0, 1).contiguous(),
+        nbins,
+        full_nx=ny,
+        full_nz=nz,
+        kx0=lo,
+    )
+
+
+def local_spectra_fn(full_shape, nbins: int, mesh, axis_name: str = runtime.SPACE_AXIS):
+    """The rank-local spectra body over the ``axis_name`` axis of ``mesh``.
+
+    Returns ``local(d_loc, *v_loc) -> (counts, sums[3])`` for the rank's
+    x-slabs of one snapshot: rfft2 over (y, z), the x <-> y exchange, the
+    FFT over x (the two ``norm="forward"`` factors make up 1/ntot), the
+    powers and B6 binning of the local y-slab (``slab_shell_sums``), one
+    all_reduce of the (3, nbins) float64 sums on the axis's group, and the
+    static counts. Shared by ``sharded_power_spectra`` and the pod series
+    step (flagship.sharded_series_analysis_step).
+    """
+    nx, ny, nz = (int(s) for s in full_shape)
+    group = mesh.get_group(axis_name)
+    d = runtime.axis_size(mesh, axis_name)
+    lo = int(mesh.get_local_rank(axis_name)) * (ny // d)
+
+    def local(d_loc, *v_loc):
+        sqrt_d = torch.sqrt(d_loc)
+        ffts = []
+        for v in v_loc:
+            w = torch.fft.rfft2(sqrt_d * v, dim=(1, 2), norm="forward")
+            ffts.append(torch.fft.fft(transpose_xy(w, mesh, axis_name), dim=0, norm="forward"))
+        sums = slab_shell_sums(ffts, (nx, ny, nz), lo, nbins)
+        dist.all_reduce(sums, group=group)
+        return static_shell_counts((nx, ny, nz), nbins, d_loc.device), sums
+
+    return local
+
+
+def sharded_power_spectra(dens, vels, mesh, nbins: int, axis_name: str = None):
+    """(counts, sums[3]) of the shell-binned kinetic-energy powers of a
+    volume slab-sharded over ``mesh``: ``dens`` and ``vels`` are the
+    rank's x-slabs; every rank gets the whole volume's result."""
+    axis_name = axis_name or runtime.SPACE_AXIS
+    nxl, ny, nz = (int(s) for s in dens.shape)
+    full = (nxl * runtime.axis_size(mesh, axis_name), ny, nz)
+    return local_spectra_fn(full, nbins, mesh, axis_name)(dens, *vels)
 
 
 def _wavenumber_grid(shape: Tuple[int, ...], dtype, device):
@@ -177,18 +258,35 @@ def _shell_integral_factor(nbins: int, ndim: int):
     return k, factor
 
 
-def kinetic_energy_spectra(dens, vels: Sequence[torch.Tensor], ndim: int = None) -> Dict[str, np.ndarray]:
+def kinetic_energy_spectra(
+    dens, vels: Sequence[torch.Tensor], ndim: int = None, mesh=None
+) -> Dict[str, np.ndarray]:
     """Total/longitudinal/transverse KE spectra of sqrt(rho)*v:
     {"k", "total", "longitudinal", "transverse"}, with the reference's
     integral factor k^(d-1) * 2*pi*(d-1). For 1D/2D datasets (singleton
-    trailing axes) pass ``ndim``."""
+    trailing axes) pass ``ndim``.
+
+    With ``mesh`` (whose space axis is larger than 1) ``dens`` and
+    ``vels`` are the rank's x-slabs of a 3D volume the placement rule
+    shards, and the spectra are ``sharded_power_spectra``'s. Unlike
+    fava_tpu, the active mesh is not taken by default: a slab and a whole
+    volume cannot be told apart by their shapes, so the caller that
+    placed the volume says which it holds."""
     ndim = int(ndim) if ndim is not None else len(vels)
     if dens.ndim > ndim:
         dens = _squeeze_trailing(dens, ndim)
         vels = [v.reshape(v.shape[:ndim]) for v in vels]
     shape = tuple(int(s) for s in dens.shape)
+    if mesh is not None and runtime.space_axis_size(mesh) > 1:
+        if ndim != 3:
+            raise ValueError("sharded spectra need a 3D volume")
+        shape = (shape[0] * runtime.space_axis_size(mesh),) + shape[1:]
+    else:
+        mesh = None
     nbins = max(shape) // 2 - 1  # len(bins)-1 with bins = arange(max//2)-0.5
-    if ndim == 3:
+    if mesh is not None:
+        counts, sums = sharded_power_spectra(dens, vels, mesh, nbins)
+    elif ndim == 3:
         counts, sums = rfft_shell_sums(dens, vels, nbins)
     else:
         sqrt_d = torch.sqrt(dens)

@@ -1,0 +1,42 @@
+"""Multi-device runtime on ``torch.distributed``: the device mesh, the
+slab placement of volumes and the pencil FFT (fava_tpu/parallel/)."""
+
+from fava_tpu_torch.parallel.runtime import (
+    SNAP_AXIS,
+    SPACE_AXIS,
+    device_axis_total,
+    device_count,
+    gather_slabs,
+    get_mesh,
+    is_pod_mesh,
+    make_device_mesh,
+    replicated,
+    set_mesh,
+    shard_volume,
+    shards_volume,
+    snap_axis_size,
+    space_axis_size,
+    use_mesh,
+    volume_sharding,
+)
+from fava_tpu_torch.parallel.fft import pfft3
+
+__all__ = [
+    "SNAP_AXIS",
+    "SPACE_AXIS",
+    "device_axis_total",
+    "device_count",
+    "gather_slabs",
+    "get_mesh",
+    "is_pod_mesh",
+    "make_device_mesh",
+    "pfft3",
+    "replicated",
+    "set_mesh",
+    "shard_volume",
+    "shards_volume",
+    "snap_axis_size",
+    "space_axis_size",
+    "use_mesh",
+    "volume_sharding",
+]

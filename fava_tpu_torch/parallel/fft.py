@@ -1,0 +1,68 @@
+"""Distributed 3D FFT over the mesh's space axis (slab decomposition).
+
+Counterpart of fava_tpu/parallel/fft.py, on ``torch.distributed``:
+
+  input: the rank's x-slab (nx/d, ny, nz)
+    1. local FFT over the two resident axes (y, z)
+    2. ``all_to_all_single`` on the space group: x <-> y transpose
+    3. local FFT over the now-resident x axis
+  output: the rank's y-slab (nx, ny/d, nz)
+
+Shell-binned spectra are permutation-invariant in k, so the output stays
+in unshifted k order; callers build the matching local k-grid from
+``_wavenumbers`` (ops/spectra.local_spectra_fn slices the y wavenumbers
+to its slab).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from fava_tpu_torch.parallel import runtime
+
+
+def transpose_xy(local: torch.Tensor, mesh, axis_name: str = runtime.SPACE_AXIS) -> torch.Tensor:
+    """(nx/d, ny, m) x-slab -> (nx, ny/d, m) y-slab over the ``axis_name``
+    group of ``mesh``: one ``all_to_all_single``. It splits and
+    concatenates along dim 0 only, so the block bound for rank j (its y
+    rows) is made the major index first; after the exchange the source
+    rank is the major index, which is global x order. Complex tensors
+    travel as their real views (NCCL takes no complex dtype)."""
+    d = runtime.axis_size(mesh, axis_name)
+    nxl, ny, m = (int(s) for s in local.shape)
+    if ny % d:
+        raise ValueError(f"y extent {ny} does not split over {d} ranks")
+    send = local.reshape(nxl, d, ny // d, m).transpose(0, 1).contiguous()
+    recv = torch.empty_like(send)
+    if send.is_complex():
+        dist.all_to_all_single(
+            torch.view_as_real(recv), torch.view_as_real(send), group=mesh.get_group(axis_name)
+        )
+    else:
+        dist.all_to_all_single(recv, send, group=mesh.get_group(axis_name))
+    return recv.reshape(d * nxl, ny // d, m)
+
+
+def pfft3(x_local: torch.Tensor, mesh=None, axis_name: str = runtime.SPACE_AXIS) -> torch.Tensor:
+    """Forward unnormalized 3D FFT of a volume slab-sharded along x.
+
+    ``x_local`` is this rank's x-slab; the result is its y-slab (nx,
+    ny/d, nz) in unshifted k order. With no mesh, a one-rank space axis,
+    or a volume the placement rule leaves whole (ny not a multiple of
+    the space axis: ``x_local`` is then the whole volume), it is
+    ``torch.fft.fftn``, as in fava_tpu.
+    """
+    mesh = mesh if mesh is not None else runtime.get_mesh()
+    d = runtime.axis_size(mesh, axis_name)
+    if mesh is None or d == 1 or x_local.shape[1] % d:
+        return torch.fft.fftn(x_local)
+    local = torch.fft.fftn(x_local, dim=(1, 2))
+    return torch.fft.fft(transpose_xy(local, mesh, axis_name), dim=0)
+
+
+def _wavenumbers(n: int, dtype, device=None) -> torch.Tensor:
+    """Integer wavenumbers in unshifted FFT order: [0..n/2-1, -n/2..-1]
+    (the reference's fftshift + linspace grid on even n)."""
+    k = torch.arange(n, device=device)
+    return torch.where(k <= (n - 1) // 2, k, k - n).to(dtype)

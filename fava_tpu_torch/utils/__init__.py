@@ -11,8 +11,13 @@ from fava_tpu_torch.utils.interrupt import FAVAInterruptHandler, InterruptHandle
 from fava_tpu_torch.utils.logging_config import configure as configure_logging
 from fava_tpu_torch.utils.precision import (
     accum_dtype,
+    asdevice,
+    complex_dtype,
+    compute_dtype,
     field_dtype,
     resolve_device,
+    set_compute_dtype,
+    to_device,
 )
 from fava_tpu_torch.utils.timing import reset_timings, timer, timings
 
@@ -25,10 +30,15 @@ __all__ = [
     "InvalidMeshError",
     "NotCallableError",
     "accum_dtype",
+    "asdevice",
+    "complex_dtype",
+    "compute_dtype",
     "configure_logging",
     "field_dtype",
     "reset_timings",
     "resolve_device",
+    "set_compute_dtype",
     "timer",
     "timings",
+    "to_device",
 ]

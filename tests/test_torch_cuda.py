@@ -1345,3 +1345,76 @@ def test_nn_sweep_on_cuda_matches_the_cpu_path(cuda_device, n, nanchors):
     np.testing.assert_array_equal(gpu, disp._nearest_neighbor_pairs(coords, anchors, "cpu"))
     if n <= 5000:
         np.testing.assert_array_equal(gpu, disp._nn_host(coords, anchors))
+
+
+# (nx, ny, nz, d): y-slabs of d ranks; every rank's slab is binned at its
+# offset r*ny/d (nonzero but for rank 0), the Nyquist column ny/2 inside one.
+SLAB_CASES = [(32, 32, 48, 4), (16, 24, 20, 3), (15, 16, 18, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,nz,d", SLAB_CASES)
+def test_b6_on_transposed_y_slabs_matches_plain(cuda_device, nx, ny, nz, d):
+    """The sharded spectra's binning: B6 on each rank's transposed y-slab
+    (global y as its slab axis at kx0 = r*ny/d) against its plain twin,
+    one launch a slab, and the slabs' sums against B10 on the whole
+    half-spectrum's powers (float64 sums in another order; the folded
+    path would add its float32 fold's rounding)."""
+    from fava_tpu_torch.ops import spectra
+
+    f = _fields(cuda_device, shape=(nx, ny, nz), seed=ny + d)
+    nbins = max(nx, ny, nz) // 2 - 1
+    ffts = spectra.kinetic_transforms(f[0], f[1:])
+    cols = ny // d
+    ck.reset_launch_counts()
+    acc = torch.zeros(3, nbins, dtype=torch.float64, device=cuda_device)
+    for r in range(d):
+        lo = r * cols
+        jy = torch.arange(lo, lo + cols, device=cuda_device)
+        ky = spectra._wavenumbers(ny, torch.float32, cuda_device)[lo : lo + cols]
+        total, longi = spectra.rfft_power_volumes([a[:, lo : lo + cols] for a in ffts],
+                                                  (nx, ny, nz), jy=jy, ky=ky)
+        t, lg = total.transpose(0, 1).contiguous(), longi.transpose(0, 1).contiguous()
+        got = ck.shell_bin_values_rfft_chunk(t, lg, nbins, ny, nz, lo)
+        ref = ck._shell_bin_unfolded_plain(t.double(), lg.double(), nbins, nz, lo, ny)
+        torch.testing.assert_close(got[:2], ref, rtol=1e-10, atol=1e-300)
+        acc += spectra.slab_shell_sums([a[:, lo : lo + cols] for a in ffts], (nx, ny, nz), lo, nbins)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["shell_bin_values_rfft_chunk"] == 2 * d
+    whole = ck.shell_bin_sums_unfolded(*spectra.rfft_power_volumes(ffts, (nx, ny, nz)), nbins, nz)
+    torch.testing.assert_close(acc[:2], whole, rtol=1e-10, atol=1e-300)
+
+
+@pytest.mark.cuda
+def test_sharded_step_in_a_one_rank_nccl_world(cuda_device):
+    """The mesh branch of the flagship step and the pod step in a one-rank
+    NCCL world against the single-device step: counts exact, spectra
+    within 1e-5 of scale (two float32 transform decompositions), profiles
+    rtol 1e-9."""
+    import torch.distributed as dist
+
+    from fava_tpu_torch import parallel
+
+    f = _fields(cuda_device, shape=(32, 32, 48), seed=8)
+    try:
+        mesh = parallel.make_device_mesh((1,), device="cuda")
+        pod = parallel.make_device_mesh((1, 1), ("snap", "space"), device="cuda")
+        ck.reset_launch_counts()
+        got = flagship.uniform_analysis_step(*f, mesh=mesh)
+        series = flagship.sharded_series_analysis_step(*(a[None] for a in f), mesh=pod)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ck.launch_counts().items() if v}
+        assert launches == {"shell_bin_values_rfft_chunk": 2, "row_moments": 2,
+                            "centered_row_moments": 2}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    ref = flagship.uniform_analysis_step(*f)
+    for out in (got, {k: v[0] for k, v in series.items()}):
+        assert torch.equal(out["spectra_counts"], ref["spectra_counts"])
+        for key, want in ref.items():
+            if key.startswith("spectra_"):
+                scale = float(want.abs().max())
+                assert float((out[key] - want).abs().max()) <= 1e-5 * scale, key
+            else:
+                torch.testing.assert_close(out[key], want, rtol=1e-9, atol=1e-12)

@@ -135,7 +135,7 @@ def test_cuda_request_raises_without_cuda(monkeypatch, uniform_file):
 
 def test_import_leaves_jax_out():
     code = (
-        "import sys, fava_tpu_torch; "
+        "import sys, fava_tpu_torch, fava_tpu_torch.parallel; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'fava_tpu', 'h5py')]; "
         "assert not bad, bad"
     )

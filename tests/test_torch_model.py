@@ -6,16 +6,21 @@ raises NotImplementedError) and tests/test_misc.py (the version); both
 packages read the same synthetic files, so the loaded meshes and their
 fields must agree exactly (values are read, not computed). Also: the
 kernel headers ship with the package (every ``#include "..."`` of
-``csrc/`` matches a package-data glob of pyproject.toml).
+``csrc/`` matches a package-data glob of pyproject.toml); every
+subpackage exports fava_tpu's names, less those ROADMAP lists as not
+ported (A12) or as later slices (A11b, A11c), plus the port's own.
 """
 
 import fnmatch
+import importlib
 import re
 import tomllib
+import types
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import fava_tpu
 import fava_tpu_torch
@@ -51,6 +56,72 @@ def test_package_exports_the_reference_names():
         m.name: m.value for m in fava_tpu.FileSubStem}
     for name in ("FileSubStem", "FlashAMR", "__version__", "__version_tuple__"):
         assert name in fava_tpu_torch.__all__
+
+
+# fava_tpu's exports the port leaves out: ROADMAP A12 (enable_compilation_cache,
+# trace) and the AMR and ingest shardings of A11b and A11c.
+NOT_PORTED = {
+    "utils": {"enable_compilation_cache", "trace"},
+    "parallel": {"block_sharding", "ingest_sharding_fn", "ingest_volume_sharding"},
+}
+# The port's exports beyond fava_tpu's.
+PORT_ONLY = {
+    "utils": {"field_dtype", "resolve_device"},
+    "parallel": {"gather_slabs", "shards_volume", "space_axis_size"},
+}
+
+
+@pytest.mark.parametrize("sub", ["", "io", "mesh", "utils", "parallel", "ops", "geometry"])
+def test_subpackage_exports_match_fava_tpu(sub):
+    ref = importlib.import_module(f"fava_tpu.{sub}" if sub else "fava_tpu")
+    port = importlib.import_module(f"fava_tpu_torch.{sub}" if sub else "fava_tpu_torch")
+    want = set(ref.__all__) - NOT_PORTED.get(sub, set()) | PORT_ONLY.get(sub, set())
+    assert set(port.__all__) == want
+    assert all(hasattr(port, name) for name in port.__all__)
+
+
+def test_analysis_exports_fava_tpus_functions():
+    assert set(fava_tpu_torch.analysis.__all__) == set(fava_tpu.analysis.__all__)
+    for name in fava_tpu_torch.analysis.__all__:
+        f = getattr(fava_tpu_torch.analysis, name)
+        assert callable(f) and not isinstance(f, types.ModuleType), name
+    from fava_tpu_torch.analysis import turbulence_summary
+
+    assert turbulence_summary.__name__ == "turbulence_summary"
+
+
+def test_nfiles_takes_and_ignores_keywords(model_dir):
+    m = fava_tpu_torch.FLASH(model_dir, device="cpu")
+    ref = fava_tpu.FLASH(model_dir)
+    for ftype in ("plt", "chk", "uni"):
+        assert m.nfiles(ftype, x=1) == ref.nfiles(ftype, x=1) == m.nfiles(ftype)
+    assert m.nfiles("plt", x=1) == 2
+
+
+def test_set_compute_dtype_overrides_the_field_dtype():
+    from fava_tpu_torch import utils
+
+    assert utils.field_dtype("cuda") == torch.float32
+    try:
+        utils.set_compute_dtype(torch.float64)
+        assert utils.field_dtype("cuda") == utils.compute_dtype("cuda") == torch.float64
+        assert utils.complex_dtype("cuda") == torch.complex128
+        utils.set_compute_dtype("float32")
+        assert utils.field_dtype("cpu") == torch.float32
+        assert utils.to_device(np.ones(3), device="cpu").dtype == torch.float32
+        with pytest.raises(TypeError, match="floating dtype"):
+            utils.set_compute_dtype(torch.int32)
+        assert utils.field_dtype("cpu") == torch.float32
+    finally:
+        utils.set_compute_dtype(None)
+    assert utils.field_dtype("cuda") == torch.float32
+    assert utils.field_dtype("cpu") == torch.float64
+    assert utils.complex_dtype("cpu") == torch.complex128
+    assert utils.to_device(np.arange(3), device="cpu").dtype == torch.int64
+    assert utils.to_device(np.arange(3), dtype="float32", device="cpu").dtype == torch.float32
+    assert utils.asdevice([1, 2], device="cpu").dtype == torch.float64
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        utils.to_device(np.ones(3))
 
 
 @pytest.mark.parametrize("index", [0, 1, 3])
