@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the fava_tpu_torch flagship, AMR, stage-4, streaming and
 fused-spectrum paths, its velocity, filtering and two-point analyses, its
-pipeline CLI, its particle analyses and its sharded paths on one NVIDIA
-GPU.
+pipeline CLI, its particle analyses, its sharded paths, its AMR paths over
+devices and its pod series on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -252,6 +252,22 @@ no result):
    (``load("uni")``, ``kinetic_energy_spectra``, ``flagship_analysis``)
    equal (TOL_BIN) to the same calls without one; the sharded and the
    single-device steps and the collectives alone by CUDA events.
+26. AMR over devices and the pod series (after phase 25, on phase 6's plt
+   file, phase 8's window and phase 17's files): a one-rank NCCL world on
+   cuda:0 with the (1, 1) "snap", "space" mesh. A one-rank mesh takes the
+   single-device paths, so the sharded pieces run on virtual ranks, each
+   step with its exact launches: (a) K5/K6 on d = 2, 4, 8 virtual leaf
+   shares of the 34,192 leaves (``ops/profiles``), concatenated and equal
+   bit for bit to the single launch; (b) ``ShardedRegridPlan``'s per-rank
+   tables and K7 on each virtual slab from its local stack, for the 512^3
+   window (4 fields) and the 2048x512x512 full domain (dens), stacked and
+   equal to the single regrid, each rank's bmax printed against nB; (c)
+   ``flagship_series(batch=2)`` on the pod (B6, K1, K2 a snapshot) against
+   the call without a mesh (K1-K4; TOL_SPECTRA, TOL_PROFILES, counts
+   exact); (d) ``reynolds_series`` and ``favre_series`` on phase 24's
+   288-leaf plt series under the pod against the calls without one; (e)
+   ``SnapshotPrefetcher`` with ``ingest_sharding_fn`` on the window file:
+   the fields arrive whole. (a)-(c) timed by CUDA events.
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -4590,6 +4606,232 @@ def phase_sharded(torch, np, workdir: Path, card: str):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: AMR over devices and the pod series in a one-rank NCCL world
+
+POD_KERNELS = {"shell_bin_values_rfft_chunk": NSNAP, "row_moments": NSNAP,
+               "centered_row_moments": NSNAP}
+
+
+def events_ms(torch, fn):
+    """(fn(), device ms of the one call by CUDA events)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def counted_exact(torch, ck, what, fn, expect, totals, warm=False):
+    """fn() once with the counters reset before and read after, held to
+    its exact launches (no other kernel), timed by CUDA events; with
+    ``warm``, the time is that of a second call (not counted)."""
+    ck.reset_launch_counts()
+    out, ms = events_ms(torch, fn)
+    launches = {k: v for k, v in ck.launch_counts().items() if v}
+    if launches != expect:
+        fail(f"{what} launched {launches}, expected {expect}")
+    add_counts(totals, launches)
+    if warm:
+        ms = events_ms(torch, fn)[1]
+    say(f"phase 26 {what}: launches {launches}, {ms!r} ms{' warm' if warm else ''}")
+    return out, ms
+
+
+def virtual_leaf_shares(torch, np, ck, profiles, Placement, mesh, totals):
+    """26a: K5/K6 on d virtual ranks' leaf shares, concatenated and
+    trimmed, equal bit for bit to the single launch."""
+    data, geom = mesh._profile_fields(), mesh._profile_geometry(0)
+    nleaf = int(geom.blocklist.size)
+    kernels = ("block_row_moments", "block_centered_row_moments")
+    single, ms = counted_exact(torch, ck, f"K5/K6 on the {nleaf} leaves",
+                               lambda: torch.cat(profiles._stack_stats(data, geom)),
+                               dict.fromkeys(kernels, 1), totals, warm=True)
+    times = {"single_ms": ms}
+
+    def shares(d):
+        parts = [torch.cat(profiles._share_stats(
+            profiles._leaf_fields(data, geom, Placement(0, r, d)), geom)) for r in range(d)]
+        return torch.cat(parts, dim=1)
+
+    for d in VIRTUAL_RANKS:
+        joined, times[f"{d}_ranks_ms"] = counted_exact(
+            torch, ck, f"K5/K6 on {d} virtual leaf shares of {-(-nleaf // d)}", lambda: shares(d),
+            dict.fromkeys(kernels, d), totals, warm=True)
+        if not torch.equal(joined[:, :nleaf], single) or joined[:, nleaf:].any():
+            fail(f"K5/K6 on {d} leaf shares differ from the single launch")
+        say(f"phase 26 K5/K6 on {d} virtual leaf shares: equal bit for bit to the single launch")
+    return times
+
+
+def virtual_slabs(torch, np, ck, regrid, mesh, subdomain, names, totals):
+    """26b: regrid_fields_sharded's per-rank tables and K7 on each virtual
+    slab from its local stack, stacked, equal to the single regrid."""
+    plan = regrid.RegridPlan(
+        block_bounds=mesh.block_bounds, node_type=np.asarray(mesh.node_type),
+        refine_level=np.asarray(mesh.refine_level), ncells_vec=mesh.nCellsVec,
+        nblks_vec=mesh.nBlksVec, ndim=3,
+        subdomain_coords=None if subdomain is None else np.array(subdomain))
+    data = {k: mesh._field_stack(k) for k in names}
+    what = f"{plan.out_shape} ({len(names)} fields)"
+    single, ms = counted_exact(torch, ck, f"K7 on {what}",
+                               lambda: regrid.regrid_fields(plan, data, names),
+                               {"regrid_fields": 1}, totals, warm=True)
+    times = {"single_ms": ms}
+    nb = int(mesh.nblocks)
+    for d in VIRTUAL_RANKS:
+        splan = regrid.ShardedRegridPlan(plan, d)
+        say(f"phase 26 {what} over {d} virtual ranks: bmax {splan.bmax} of nB {nb}, blocks a rank "
+            f"{list(splan.block_counts)}")
+
+        def slabs(d=d, splan=splan):
+            parts = [regrid.regrid_slab(splan, r, [splan.local_stack(r, data[k], "cuda")
+                                                    for k in names]) for r in range(d)]
+            return [torch.cat([p[i] for p in parts]) for i in range(len(names))]
+
+        got, times[f"{d}_ranks_ms"] = counted_exact(
+            torch, ck, f"K7 on {d} virtual slabs of {what}", slabs, {"regrid_fields": d}, totals,
+            warm=True)
+        for k, g in zip(names, got):
+            if not torch.equal(g, single[k]):
+                fail(f"the {d} stacked slabs of {k} differ from the single regrid")
+        times[f"{d}_ranks_bmax"] = splan.bmax
+        del got
+        say(f"phase 26 K7 on {d} virtual slabs of {what}: stacked, equal to the single regrid")
+    del single, data
+    torch.cuda.empty_cache()
+    return times
+
+
+def pod_series(torch, np, ck, fava_tpu_torch, parallel, workdir: Path, pod, totals):
+    """26c: flagship_series(batch=2) on the (1, 1) pod against the call
+    without a mesh, row by row."""
+    model = fava_tpu_torch.FLASH(workdir)
+    if model.nfiles("uni") != NSNAP:
+        fail(f"phase 26 expected phase 17's {NSNAP} uniform files, found {model.nfiles('uni')}")
+    # One snapshot through each path first, so that neither timed call
+    # pays the first call's plans and allocations.
+    model.flagship_series(batch=1, file_indices=[0])
+    with parallel.use_mesh(pod):
+        model.flagship_series(batch=1, file_indices=[0])
+    ref, ref_ms = counted_exact(torch, ck, "flagship_series(batch=2) without a mesh",
+                                lambda: model.flagship_series(batch=2),
+                                dict.fromkeys(FLAGSHIP_KERNELS, NSNAP), totals)
+    with parallel.use_mesh(pod):
+        got, pod_ms = counted_exact(torch, ck, "flagship_series(batch=2) on the (1, 1) pod",
+                                    lambda: model.flagship_series(batch=2), POD_KERNELS, totals)
+    if not np.array_equal(got["times"], ref["times"]) or not np.array_equal(
+            got["spectra_counts"], ref["spectra_counts"]):
+        fail("the pod series' times or shell counts differ from the series without a mesh")
+    rms = float(np.abs(ref["favre_rms"]).max())
+    floor = {"favre_mean": rms, "favre_rms": rms,
+             "reynolds_stress": float(np.abs(ref["mean_dens"]).max()) * rms**2}
+    errs = {}
+    for j in range(NSNAP):
+        errs[j] = compare_flagship(np, {k: v[j] for k, v in got.items() if k != "times"},
+                                   {k: v[j] for k, v in ref.items() if k != "times"}, floor,
+                                   f"pod series snapshot {j} vs without a mesh", 26)
+    return {"series_ms": ref_ms, "pod_series_ms": pod_ms,
+            "worst": max(max(e.values()) for e in errs.values())}
+
+
+def pod_profile_series(torch, np, ck, fava_tpu_torch, parallel, ddir: Path, pod, totals):
+    """26d: reynolds_series and favre_series on the 288-leaf plt series
+    under the (1, 1) pod against the calls without a mesh."""
+    eulerian_series(np, ddir, translating=True)
+    model = fava_tpu_torch.FLASH(ddir)
+    model.load(file_type="plt", file_index=0)
+    vmax = max(float(model.mesh.data(k).abs().max()) for k in NAMES[1:])
+    dmax = float(model.mesh.data("dens").abs().max())
+    model.mesh = None
+    kernels = dict.fromkeys(("block_row_moments", "block_centered_row_moments"), 3)
+    errs = {}
+    for name in ("reynolds_series", "favre_series"):
+        fn = getattr(model, name)
+        ref, _ = counted_exact(torch, ck, f"{name} without a mesh", lambda: fn(file_type="plt"),
+                               kernels, totals)
+        with parallel.use_mesh(pod):
+            got, _ = counted_exact(torch, ck, f"{name} on the (1, 1) pod",
+                                   lambda: fn(file_type="plt"), kernels, totals)
+        errs[name] = compare_profiles(np, got, ref, vmax, dmax, f"{name} on the pod", 26)
+    return errs
+
+
+def phase_pod(torch, np, workdir: Path, card: str):
+    """Phase 26 (after phase 25, on phase 6's plt file, phase 8's window and
+    phase 17's four 512^3 files): a one-rank NCCL world on cuda:0 and the
+    (1, 1) "snap", "space" mesh. A one-rank mesh takes the single-device
+    paths, so the sharded pieces run on virtual ranks: (a) K5/K6 on d = 2,
+    4, 8 virtual leaf shares of the plt file's 34,192 leaves, concatenated,
+    equal bit for bit to the single launch; (b) ``regrid_fields_sharded``'s
+    per-rank tables and K7 on each virtual slab from its local stack, for
+    the 512^3 window and the 2048x512x512 full domain, stacked and equal to
+    the single regrid, with each rank's bmax against nB; (c)
+    ``flagship_series(batch=2)`` on the pod against the call without a
+    mesh (TOL_SPECTRA, TOL_PROFILES, counts exact); (d) ``reynolds_series``
+    and ``favre_series`` on phase 24's 288-leaf plt series under the pod
+    against the calls without one; (e) ``SnapshotPrefetcher`` with the
+    ingest placement on the window file: the fields arrive whole. Every
+    step's launches are exact; (a)-(c) are timed by CUDA events."""
+    import torch.distributed as dist
+
+    import fava_tpu_torch
+    from fava_tpu_torch import parallel
+    from fava_tpu_torch.io import ingest
+    from fava_tpu_torch.ops import cuda_kernels as ck
+    from fava_tpu_torch.ops import profiles, regrid
+
+    t_phase = time.perf_counter()
+    times = {"card": card}
+    totals = {}
+    with tempfile.TemporaryDirectory(prefix="fava_pod_") as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+                                timeout=parallel.runtime.COLLECTIVE_TIMEOUT)
+        try:
+            pod = parallel.make_device_mesh((1, 1), (parallel.SNAP_AXIS, parallel.SPACE_AXIS),
+                                            device="cuda")
+            amr = fava_tpu_torch.FLASH(workdir)
+            amr.load(file_type="plt")
+            t0 = time.perf_counter()
+            amr.mesh.load_data(list(NAMES))
+            torch.cuda.synchronize()
+            times["plt_read_s"] = time.perf_counter() - t0
+            times["leaf_shares"] = virtual_leaf_shares(torch, np, ck, profiles, parallel.Placement,
+                                                       amr.mesh, totals)
+            times["regrid_window"] = virtual_slabs(torch, np, ck, regrid, amr.mesh, AMR_WINDOW,
+                                                   list(NAMES), totals)
+            times["regrid_full_domain"] = virtual_slabs(torch, np, ck, regrid, amr.mesh, None,
+                                                        ["dens"], totals)
+            del amr
+            torch.cuda.empty_cache()
+            times["pod_series"] = pod_series(torch, np, ck, fava_tpu_torch, parallel, workdir, pod,
+                                             totals)
+            ddir = Path(tmp) / "plt288"
+            ddir.mkdir()
+            times["profile_series_errors"] = pod_profile_series(
+                torch, np, ck, fava_tpu_torch, parallel, ddir, pod, totals)
+            window = workdir / "rt_hdf5_uniform_0001"
+            fn = parallel.ingest_sharding_fn(pod)
+            (placed,) = ingest.SnapshotPrefetcher([window], list(NAMES), sharding=fn)
+            (whole,) = ingest.SnapshotPrefetcher([window], list(NAMES))
+            if any(p != parallel.Placement(0, 0, 1) for p in placed.placements.values()):
+                fail(f"the ingest placement on a one-rank pod is {placed.placements}")
+            if not all(torch.equal(placed.fields[k], whole.fields[k]) for k in NAMES):
+                fail("the placed ingest of the window differs from the whole read")
+            say(f"phase 26 ingest on the (1, 1) pod: {len(NAMES)} fields of the window arrive whole "
+                f"{tuple(placed.fields['dens'].shape)}, equal to the read without a placement")
+            del placed, whole
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    times["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase 26 AMR-over-devices and pod timings: {json.dumps(times)}")
+    return totals
+
+
 def main() -> None:
     sys.path.insert(0, str(HERE))
     try:
@@ -4678,10 +4920,12 @@ def main() -> None:
         a8c_launches, _ = phase_a8c(torch, np, workdir, card)
         torch.cuda.empty_cache()
         sharded_launches = phase_sharded(torch, np, workdir, card)
+        torch.cuda.empty_cache()
+        pod_launches = phase_pod(torch, np, workdir, card)
     torch.cuda.empty_cache()
     pipe_launches, pipe_times = phase_pipeline(torch, np)
     for counts in (amr4_launches, win_launches, odd_launches, entry_launches, series_launches,
-                   velocity_launches, a8c_launches, sharded_launches, pipe_launches):
+                   velocity_launches, a8c_launches, sharded_launches, pod_launches, pipe_launches):
         add_counts(launches, counts)
     say(f"phase 11-12 stage-4 timings: {json.dumps({'card': card, 'window': win_times, 'odd': odd_times})}")
     say(f"phase 16-17 entry point and series timings: "

@@ -1,12 +1,35 @@
 """Multi-snapshot time-series drivers on the async ingest.
 
-Counterpart of fava_tpu/analysis/time_series.py, single device: the
-flagship, Reynolds-stress, Favre, turbulence-summary,
-gradient-statistics and particle series. ``io/ingest.SnapshotPrefetcher``
-overlaps the read and the copy to the card of snapshot N+1 with the
-compute on snapshot N (the mesh series). The pod branch of
-``flagship_series``, which collects ``flagship.sharded_series_analysis_step``
-over the snap axis of a snap x space mesh, is ROADMAP A11c.
+Counterpart of fava_tpu/analysis/time_series.py: the flagship,
+Reynolds-stress, Favre, turbulence-summary, gradient-statistics and
+particle series. ``io/ingest.SnapshotPrefetcher`` overlaps the read and
+the copy to the card of snapshot N+1 with the compute on snapshot N (the
+mesh series).
+
+Under a snap x space mesh (``parallel.runtime.is_pod_mesh``)
+``flagship_series`` takes the pod branch: each batch is padded to a
+multiple of the snap axis by repeating its last snapshot, snap row s
+takes the batch's snapshots s, s + n_snap, ... and rank (s, r) runs
+``flagship.sharded_series_analysis_step`` on them, each as its x-slab r
+(B6, K1 and K2 a rank); one all_gather on the snap group joins the rows'
+outputs, so every rank returns the same dict, and the pad is trimmed.
+Deviations from fava_tpu, which reads each snapshot split over all
+devices and restacks it to ``P(snap, space)`` over the interconnect
+(fava_tpu/analysis/time_series.py:25-36): each rank reads from the file
+only the slabs its step takes, so each field byte is read once, by the
+rank that uses it, with no restack; and a row's share is strided rather
+than a contiguous block, so that halving a batch in whole snap rows
+after an out-of-memory error leaves every rank's snapshots its own (the
+ranks of a space group run the same shapes, so such an error strikes
+them alike; one that struck a single rank would leave its peers in the
+step's collectives until ``runtime.COLLECTIVE_TIMEOUT``). The
+eligibility of every file (nx and ny multiples of the space axis) is
+decided from the file headers before the series starts, so a series
+falls back to the single-device scan as a whole, with fava_tpu's
+warning. ``reynolds_series`` and ``favre_series`` read each snapshot
+whole; under a mesh of more than one rank their AMR profiles split the
+leaf blocks over every rank (``ops/profiles.py``). ``particle_series``
+runs unsharded under a mesh, as in fava_tpu.
 """
 
 from __future__ import annotations
@@ -16,11 +39,15 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fava_tpu_torch.analysis._catalogs import mesh_series_paths
+from fava_tpu_torch.io import flash_file, h5lite
 from fava_tpu_torch.io.ingest import Snapshot, SnapshotPrefetcher
 from fava_tpu_torch.models.model import Model
 from fava_tpu_torch.ops import profiles as profile_ops
+from fava_tpu_torch.parallel import runtime
+from fava_tpu_torch.utils import field_dtype
 
 logger = logging.getLogger(__name__)
 
@@ -189,10 +216,24 @@ def flagship_series(
     ``series_input_budget`` (``auto_batch``); a short final batch runs
     as it is. A batch that runs out of device memory is halved and
     retried, and the smaller batch holds for the rest of the series.
+    Under a snap x space mesh the batches run on the pod (module
+    docstring): the auto batch is ``auto_batch(...) * n_snap``, and a
+    batch is halved in whole snap rows.
     """
     from fava_tpu_torch import flagship
 
     _indices, paths = mesh_series_paths(self, file_type, file_indices)
+    mesh = runtime.get_mesh()
+    if runtime.is_pod_mesh(mesh) and paths:
+        headers = [_volume_header(p) for p in paths]
+        d = runtime.space_axis_size(mesh)
+        bad = next((shape for _t, shape in headers if shape[0] % d or shape[1] % d), None)
+        if bad is None:
+            return _pod_flagship_series(self, paths, headers, batch, prefetch_depth, mesh)
+        logger.warning(
+            "flagship_series: volume extents %s do not divide the space axis %d; falling back "
+            "to the single-chip series scan", bad, d,
+        )
 
     def vol(snap: Snapshot, name: str):
         v = _uniform_volume(snap, name, "flagship_series")
@@ -258,6 +299,117 @@ def flagship_series(
 
     result: Dict[str, np.ndarray] = {k: np.concatenate(v) for k, v in chunks.items()}
     result["times"] = np.asarray(times)
+    return result
+
+
+def _volume_header(path):
+    """(time, (nx, ny, nz)) of a single-block uniform file, from its
+    header and the stored shape of its dens field."""
+    with h5lite.File(path, "r") as f:
+        time = float(flash_file.read_scalars(f)["real"].get("time", 0.0))
+        if "dens" not in flash_file.read_unknown_names(f):
+            raise KeyError(f"{path}: missing required field 'dens'")
+        shape = flash_file.field_grid_shape(f, "dens")
+    if len(shape) == 4:
+        if shape[0] != 1:
+            raise ValueError(
+                f"flagship_series needs single-block uniform volumes; got {shape[0]} blocks from "
+                f"{path} — use favre_series/reynolds_series for AMR series, or regrid with "
+                "from_amr first."
+            )
+        shape = shape[1:]
+    return time, shape
+
+
+def _join_snap_rows(out: Dict[str, torch.Tensor], mesh, n_snap: int) -> Dict[str, torch.Tensor]:
+    """Every snap row's outputs in batch order: one all_gather on the
+    snap group of this row's outputs packed as float64 (counts are exact
+    there), interleaved as the rows hold the batch (row s: s, s +
+    n_snap, ...)."""
+    keys = list(out)
+    rows = int(out[keys[0]].shape[0])
+    flat = [out[k].reshape(rows, -1).to(torch.float64) for k in keys]
+    packed = torch.cat(flat, dim=1)
+    parts = [torch.empty_like(packed) for _ in range(n_snap)]
+    dist.all_gather(parts, packed, group=mesh.get_group(runtime.SNAP_AXIS))
+    joined = torch.stack(parts, dim=1).reshape(rows * n_snap, -1)
+    pieces = joined.split([f.shape[1] for f in flat], dim=1)
+    return {
+        k: p.reshape((rows * n_snap,) + tuple(out[k].shape[1:])).to(out[k].dtype)
+        for k, p in zip(keys, pieces)
+    }
+
+
+def _pod_flagship_series(model, paths, headers, batch: int, prefetch_depth: int, mesh):
+    """``flagship_series`` on a snap x space mesh (module docstring)."""
+    from fava_tpu_torch import flagship
+
+    n_snap = runtime.snap_axis_size(mesh)
+    row = int(mesh.get_local_rank(runtime.SNAP_AXIS))
+    if batch <= 0:
+        itemsize = torch.finfo(field_dtype(model.device)).bits // 8
+        per_snap = len(FIELDS) * itemsize * int(np.prod(headers[0][1]))
+        batch = auto_batch(per_snap, series_input_budget(model.device)) * n_snap
+        logger.info("flagship_series: auto batch %d", batch)
+    groups = [list(range(k, min(k + batch, len(paths)))) for k in range(0, len(paths), batch)]
+
+    def share(group):
+        padded = group + [group[-1]] * ((-len(group)) % n_snap)
+        return padded[row::n_snap]
+
+    def slab(name, shape):
+        return runtime.space_placement(mesh, axis=len(shape) - 3)
+
+    chunks: Dict[str, list] = {}
+    batch_cap = [0]  # the batch that fits, in whole snap rows, once an OOM has shown it
+
+    def run(local, k):
+        stacked = []
+        try:
+            for f in FIELDS:
+                stacked.append(torch.stack([_uniform_volume(s, f, "flagship_series") for s in local]))
+            out = flagship.sharded_series_analysis_step(*stacked, mesh=mesh)
+        finally:
+            stacked.clear()
+        for key, v in _join_snap_rows(out, mesh, n_snap).items():
+            chunks.setdefault(key, []).append(v[:k].cpu().numpy())
+
+    def flush(local, k):
+        # ``local``: this rank's snapshots of a batch of ``k`` real ones
+        # (len(local) * n_snap once padded).
+        cap = batch_cap[0] // n_snap
+        if cap and len(local) > cap:
+            for j in range(0, len(local), cap):
+                flush(local[j : j + cap], min(k - j * n_snap, cap * n_snap))
+            return
+        half = 0
+        try:
+            run(local, k)
+        except torch.cuda.OutOfMemoryError:
+            if len(local) <= 1:
+                raise
+            half = (len(local) + 1) // 2
+            batch_cap[0] = half * n_snap
+            logger.warning(
+                "flagship_series: batch %d exhausted device memory; falling back to batches "
+                "of %d for the rest of the series", k, half * n_snap,
+            )
+        if half:
+            if model.device.type == "cuda":
+                torch.cuda.empty_cache()
+            flush(local[:half], half * n_snap)
+            flush(local[half:], k - half * n_snap)
+
+    order = [paths[i] for g in groups for i in share(g)]
+    snaps = iter(SnapshotPrefetcher(order, FIELDS, depth=prefetch_depth, sharding=slab,
+                                    device=model.device))
+    try:
+        for g in groups:
+            flush([next(snaps) for _ in range(-(-len(g) // n_snap))], len(g))
+    finally:
+        snaps.close()
+    result: Dict[str, np.ndarray] = {k: np.concatenate(v) for k, v in chunks.items()}
+    result["times"] = np.asarray([t for t, _shape in headers])
     return result
 
 

@@ -84,6 +84,23 @@ def read_unknown_names(handle) -> List[str]:
     return [_decode(n).strip() if isinstance(_decode(n), str) else str(n) for n in names]
 
 
+def field_key(handle, name: str) -> str:
+    """The dataset of a UNK field: FLASH pads names to 4 characters."""
+    key = f"{name:4s}" if len(name) < 4 else name
+    if key not in handle and name in handle:
+        key = name
+    if key not in handle:
+        raise KeyError(f"{name} field not found in dataset")
+    return key
+
+
+def field_grid_shape(handle, name: str) -> tuple:
+    """A UNK field's shape in grid order, (nblocks, nxb, nyb, nzb) (3D
+    for bare volumes), from its stored (nblocks, nzb, nyb, nxb)."""
+    stored = tuple(int(n) for n in handle[field_key(handle, name)].shape)
+    return stored[:-3] + stored[-3:][::-1]
+
+
 def read_field(handle, name: str, device, dtype: torch.dtype) -> torch.Tensor:
     """Read one UNK dataset onto ``device`` as ``dtype``, swapping the
     grid I and K axes.
@@ -94,13 +111,18 @@ def read_field(handle, name: str, device, dtype: torch.dtype) -> torch.Tensor:
     takes milliseconds, where a host transpose of a 512^3 field takes
     seconds.
     """
-    key = f"{name:4s}" if len(name) < 4 else name
-    if key not in handle and name in handle:
-        key = name
-    if key not in handle:
-        raise KeyError(f"{name} field not found in dataset")
-    raw = torch.from_numpy(handle[key][()]).to(device=device, dtype=dtype)
+    raw = torch.from_numpy(handle[field_key(handle, name)][()]).to(device=device, dtype=dtype)
     return raw.transpose(-1, -3).contiguous()
+
+
+def read_field_blocks(handle, name: str, b0: int = 0, b1: Optional[int] = None) -> np.ndarray:
+    """Blocks [b0, b1) of a UNK field (all of them by default) in grid
+    order, (b1-b0, nxb, nyb, nzb): a swapped view of the stored values in
+    their stored type. A part is a hyperslab read of the leading axis
+    (the other blocks never land in host memory)."""
+    ds = handle[field_key(handle, name)]
+    raw = ds[()] if b0 == 0 and b1 is None else ds[b0:b1]
+    return np.swapaxes(raw, -1, -3)
 
 
 def read_field_slab(handle, name: str, x0: int, x1: int) -> np.ndarray:
@@ -114,12 +136,7 @@ def read_field_slab(handle, name: str, x0: int, x1: int) -> np.ndarray:
     stream (``ops/outofcore._slab_stream``) copies the stored layout to
     the device and swaps and casts there, as ``read_field`` does.
     """
-    key = f"{name:4s}" if len(name) < 4 else name
-    if key not in handle and name in handle:
-        key = name
-    if key not in handle:
-        raise KeyError(f"{name} field not found in dataset")
-    raw = handle[key][..., x0:x1]
+    raw = handle[field_key(handle, name)][..., x0:x1]
     if raw.ndim == 4:
         if raw.shape[0] != 1:
             # Taking block 0 of multi-block data would make every streamed

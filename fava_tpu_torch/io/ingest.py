@@ -20,6 +20,12 @@ the out-of-core slab stream (``ops/outofcore._slab_stream``):
 
 On the CPU (the tests) the same calls copy and cast in the worker, with
 no staging and no streams.
+
+Under a device mesh a placement callback (``sharding``, e.g.
+``parallel.runtime.ingest_sharding_fn``) names each field's split: the
+rank then reads only its rows from the file (an x-slab through
+``flash_file.read_field_slab``, or a hyperslab of the block axis), and
+nothing whole is read and then cut.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import contextlib
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -146,18 +152,43 @@ class Snapshot:
     runtime_parameters: Dict[str, Dict]
     metadata: Dict[str, np.ndarray]
     nbytes: int
+    # Each field's ``parallel.runtime.Placement`` (None: read whole).
+    placements: Dict[str, object] = field(default_factory=dict)
+
+
+def _read_part(handle, name: str, grid, placement) -> np.ndarray:
+    """A field in grid order (a view of the stored layout): whole, or
+    this rank's rows of the placement's axis of the ``grid``-shaped
+    field (an x-slab of a volume or a single block, or a run of blocks
+    of a stack)."""
+    if placement is None:
+        return flash_file.read_field_blocks(handle, name)
+    lo, hi = placement.bounds(int(grid[placement.axis]))
+    if placement.axis == len(grid) - 3:
+        slab = flash_file.read_field_slab(handle, name, lo, hi)
+        return slab[None] if len(grid) == 4 else slab
+    if placement.axis == 0 and len(grid) == 4:
+        return flash_file.read_field_blocks(handle, name, lo, hi)
+    raise ValueError(f"{name}: no partial read along axis {placement.axis} of a {grid} field")
 
 
 def _read_snapshot(
-    path: Path, fields: Sequence[str], copier: DeviceCopier, slot: int, strict: bool = True
+    path: Path,
+    fields: Sequence[str],
+    copier: DeviceCopier,
+    slot: int,
+    sharding=None,
+    strict: bool = True,
 ) -> Tuple[Snapshot, object]:
-    """Worker side: (snapshot with its fields on the device, copy event)."""
+    """Worker side: (snapshot with its fields on the device, copy event).
+    ``sharding`` is a placement, or a callback ``(name, grid-order
+    shape) -> placement or None``."""
     with h5lite.File(path, "r") as f:
         scalars = flash_file.read_scalars(f)
         runtime = flash_file.read_runtime_parameters(f)
         meta = flash_file.read_block_metadata(f)
         available = flash_file.read_unknown_names(f)
-        names, hosts = [], []
+        names, hosts, placements = [], [], {}
         for name in fields:
             if name not in available:
                 # A silently dropped field surfaces later as a bare KeyError
@@ -168,11 +199,12 @@ def _read_snapshot(
                         f"field {name!r} not in {Path(path).name} (available: {sorted(available)})"
                     )
                 continue
-            key = f"{name:4s}" if len(name) < 4 else name
-            # (nb, nz, ny, nx) as stored, viewed in grid order: the swap
-            # happens on the device.
-            hosts.append(np.swapaxes(f[key if key in f else name][()], -1, -3))
+            grid = flash_file.field_grid_shape(f, name)
+            placement = sharding(name, grid) if callable(sharding) else sharding
+            # Viewed in grid order: the swap happens on the device.
+            hosts.append(_read_part(f, name, grid, placement))
             names.append(name)
+            placements[name] = placement
     tensors, event, nbytes = copier.put(slot, hosts)
     snap = Snapshot(
         path=Path(path),
@@ -182,6 +214,7 @@ def _read_snapshot(
         runtime_parameters=runtime,
         metadata=meta,
         nbytes=nbytes,
+        placements=placements,
     )
     return snap, event
 
@@ -193,6 +226,9 @@ class SnapshotPrefetcher:
     workers read snapshots N+1..N+depth and copy them to ``device``.
     ``wire_dtype`` (e.g. ``torch.bfloat16``) casts on the host and widens
     on the device, at the cost of its rounding of the raw fields.
+    ``sharding`` (a placement, or a callback as
+    ``parallel.runtime.ingest_sharding_fn`` returns) makes the rank read
+    only its rows of each field it places.
     """
 
     def __init__(
@@ -200,6 +236,7 @@ class SnapshotPrefetcher:
         paths: Sequence[str | Path],
         fields: Sequence[str],
         depth: int = 2,
+        sharding=None,
         strict: bool = True,
         wire_dtype: Optional[torch.dtype] = None,
         device="cuda",
@@ -207,6 +244,7 @@ class SnapshotPrefetcher:
         self.paths = [Path(p) for p in paths]
         self.fields = list(fields)
         self.depth = max(1, int(depth))
+        self.sharding = sharding
         self.strict = bool(strict)
         self.wire_dtype = wire_dtype
         self.device = resolve_device(device)
@@ -220,7 +258,7 @@ class SnapshotPrefetcher:
         copier = DeviceCopier(self.device, self.wire_dtype, slots=self.depth + 1)
 
         def load(i: int):
-            return _read_snapshot(self.paths[i], self.fields, copier, i, self.strict)
+            return _read_snapshot(self.paths[i], self.fields, copier, i, self.sharding, self.strict)
 
         with contextlib.closing(prefetched(load, len(self.paths), self.depth)) as snaps:
             for snap, event in snaps:

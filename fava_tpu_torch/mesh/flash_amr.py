@@ -1,12 +1,23 @@
 """FLASH AMR mesh: reader, geometry queries, and device-resident analyses.
 
-Counterpart of fava_tpu/mesh/flash_amr.py, single device. Field data
-lives as tensors of shape (nblocks, nxb, nyb, nzb) on ``device``
-(float32 on CUDA, float64 on the CPU); block bookkeeping stays as small
-host numpy arrays; the profile analyses and the regrid dispatch to
-``fava_tpu_torch.ops``, as do the volume sums, PDFs and conditional
-statistics over the leaf cells, the line-of-sight projection
-(``ops/projection.py``) and the flame-window fit (``ops/flame.py``).
+Counterpart of fava_tpu/mesh/flash_amr.py. Field data lives as tensors
+of shape (nblocks, nxb, nyb, nzb) on ``device`` (float32 on CUDA,
+float64 on the CPU); block bookkeeping stays as small host numpy arrays;
+the profile analyses and the regrid dispatch to ``fava_tpu_torch.ops``,
+as do the volume sums, PDFs and conditional statistics over the leaf
+cells, the line-of-sight projection (``ops/projection.py``) and the
+flame-window fit (``ops/flame.py``).
+
+Under an active device mesh (``parallel/``) the profiles split the leaf
+blocks over every rank (``ops/profiles.py``), and ``from_amr`` shards
+its output along x over the space axis when the output's nx and ny
+divide it (the placement rule, ``parallel.runtime.shards_volume``):
+each rank regrids its x-slab from only the source blocks that slab
+reads (``ops/regrid.regrid_fields_sharded``), and the collapsed mesh
+holds that slab (``_dmesh``). A sharded mesh answers ``data()`` with
+the volume gathered over the space group, and ``save`` writes the
+gathered volume from rank 0 alone. A uniform mesh runs its sharded
+spectra and flagship step on the slab (``mesh/flash_uniform.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +30,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fava_tpu_torch.geometry import AXIS, EDGE, GEOMETRY
 from fava_tpu_torch.io import flash_file, h5lite
@@ -30,6 +42,7 @@ from fava_tpu_torch.ops import profiles as profile_ops
 from fava_tpu_torch.ops import projection as projection_ops
 from fava_tpu_torch.ops import regrid as regrid_ops
 from fava_tpu_torch.ops import volume as volume_ops
+from fava_tpu_torch.parallel import runtime
 from fava_tpu_torch.utils import field_dtype, resolve_device, timer
 
 logger = logging.getLogger(__name__)
@@ -104,6 +117,10 @@ class FLASH(Structured):
     zmin = _SyncedInt(kind="real")
     zmax = _SyncedInt(kind="real")
 
+    # The mesh whose space axis the field volumes are slab-sharded over
+    # (each rank holds its x-slab), or None.
+    _dmesh = None
+
     def __init__(self, filename: Optional[str | Path] = None, *args, device="cuda", **kwargs) -> None:
         super().__init__(*args, **kwargs)
         self.device = resolve_device(device)
@@ -147,6 +164,7 @@ class FLASH(Structured):
             raise FileNotFoundError(f"FLASH file does not exist: {self._filename}")
 
         self._data = {}
+        self._dmesh = None
         self._delete_cached_properties()
         with h5lite.File(self._filename, "r") as f:
             self.scalars = flash_file.read_scalars(f)
@@ -201,18 +219,38 @@ class FLASH(Structured):
     def _read_field(self, handle, name: str) -> None:
         self._data[name] = flash_file.read_field(handle, name, self.device, field_dtype(self.device))
 
-    def data(self, name: str) -> Optional[torch.Tensor]:
-        """Lazy device-resident access to a UNK field (long names mapped)."""
-        field = name
-        if field not in self.fields:
-            field = FIELD_MAPPING.get(name)
-        if field is None or field not in self.fields:
+    def _field_name(self, name: str) -> Optional[str]:
+        """The UNK name of a field (long names mapped), None if absent."""
+        field = name if name in self.fields else FIELD_MAPPING.get(name)
+        return field if field is not None and field in self.fields else None
+
+    def _local_data(self, name: str) -> Optional[torch.Tensor]:
+        """A UNK field as this rank holds it: its x-slab when the volume
+        is sharded, else the whole field (read on first use)."""
+        field = self._field_name(name)
+        if field is None:
             logger.warning("Cannot find %s in dataset", name)
             return None
         if field not in self._data:
             with h5lite.File(self._filename, "r") as f:
                 self._read_field(f, field)
         return self._data[field]
+
+    def data(self, name: str) -> Optional[torch.Tensor]:
+        """Lazy device-resident access to a UNK field (long names
+        mapped): under a sharding mesh, the ranks' x-slabs gathered (one
+        all_gather on the space group)."""
+        d = self._local_data(name)
+        if d is None or self._dmesh is None:
+            return d
+        return runtime.gather_slabs(d, self._dmesh)
+
+    def _slab(self, name: str) -> torch.Tensor:
+        """This rank's x-slab of a field of a sharded volume."""
+        d = self._local_data(name)
+        if d is None:
+            raise KeyError(name)
+        return d
 
     def host_data(self, name: str) -> Optional[np.ndarray]:
         d = self.data(name)
@@ -450,6 +488,20 @@ class FLASH(Structured):
             d = d[None]
         return d
 
+    def _host_field_stack(self, name: str):
+        """A field's whole block stack without a copy on the card: the
+        stack already on the device (gathered when the volume is
+        sharded), or else the file's values as a host array in grid
+        order (a swapped view of the stored layout)."""
+        field = self._field_name(name)
+        if field is None:
+            raise KeyError(name)
+        if field in self._data:
+            return self._field_stack(field)
+        with h5lite.File(self._filename, "r") as f:
+            host = flash_file.read_field_blocks(f, field)
+        return host[None] if host.ndim == 3 else host
+
     def _profile_fields(self) -> Dict[str, torch.Tensor]:
         data = {"dens": self._field_stack("dens")}
         for a in "xyz"[: self.ndim]:
@@ -591,12 +643,22 @@ class FLASH(Structured):
         fields: Optional[List[str]] = None,
         filename: Optional[Path] = None,
         save_file: bool = True,
+        sharding=None,
     ) -> None:
         """Regrid AMR data to a uniform grid (injection prolongation).
 
         Collapses this mesh into a single uniform block in place and
         (optionally) writes the ``hdf5_uniform_`` file. A subdomain that
         exceeds the domain is a no-op, with a warning.
+
+        Under an active mesh whose space axis shards the output (nx and
+        ny multiples of it), each rank regrids its x-slab from only the
+        blocks that slab reads and keeps it (module docstring); other
+        output extents fall back, with a warning, to the whole output
+        on every rank. ``sharding`` (the output's x placement over the
+        space axis, ``parallel.runtime.space_placement()``) instead makes
+        each rank regrid its slab from the whole block stack. A source
+        volume that is itself sharded is gathered first.
         """
         if subdomain_coords is not None:
             sc = np.asarray(subdomain_coords, dtype=np.float64)
@@ -624,15 +686,14 @@ class FLASH(Structured):
             subdomain_coords=subdomain_coords,
         )
         _fields = list(fields) if fields is not None else list(self.fields)
-        data = {key: self._field_stack(key) for key in _fields}
-        regridded = regrid_ops.regrid_fields(plan, data, _fields)
-        del data
 
+        regridded, dmesh = self._regrid(plan, _fields, sharding)
         total_cells = plan.total_cells
         refdom = plan.domain_box
 
         # Collapse to a single-block uniform mesh.
         self._data = regridded
+        self._dmesh = dmesh
         self.fields = list(_fields)
         self.gid = -np.ones((1, int(2 * self.ndim + 1 + 2**self.ndim)), dtype=np.int32)
         self.refine_level = np.ones(1, dtype=np.int64)
@@ -665,26 +726,65 @@ class FLASH(Structured):
                 filename = self.filename.with_stem(stem)
             self.save(filename=filename, names=_fields)
 
+    def _regrid(self, plan, fields: List[str], sharding):
+        """(regridded fields, the mesh they are slab-sharded over or
+        None): from_amr's choice of path under the active mesh."""
+        mesh = runtime.get_mesh()
+        if sharding is not None:
+            if sharding != runtime.space_placement(mesh) or not runtime.shards_volume(
+                plan.out_shape, mesh
+            ):
+                raise ValueError(
+                    f"from_amr: sharding {sharding} is not the x placement of an output of "
+                    f"{plan.out_shape} over the active mesh's space axis"
+                )
+            data = {key: self._field_stack(key) for key in fields}
+            return regrid_ops.regrid_fields(plan, data, fields, sharding=sharding), mesh
+        if self.ndim == 3 and runtime.shards_volume(plan.out_shape, mesh):
+            stacks = {key: self._host_field_stack(key) for key in fields}
+            return regrid_ops.regrid_fields_sharded(
+                plan, stacks, fields, mesh, device=self.device, dtype=field_dtype(self.device)
+            ), mesh
+        n_space = runtime.space_axis_size(mesh)
+        if n_space > 1:
+            logger.warning(
+                "from_amr: output extents %s do not divide the space axis %d (or ndim != 3); "
+                "falling back to the whole output on every rank",
+                plan.out_shape,
+                n_space,
+            )
+        data = {key: self._field_stack(key) for key in fields}
+        return regrid_ops.regrid_fields(plan, data, fields), None
+
     def save(self, filename: Optional[str | Path] = None, names: Optional[List[str]] = None) -> None:
         """Write this mesh as a FLASH-layout file (float64 fields and
-        bounds for a chk mesh, float32 otherwise)."""
+        bounds for a chk mesh, float32 otherwise). Under a mesh of more
+        than one rank, the fields are gathered (when sharded), rank 0
+        alone writes the file, and every rank waits at a barrier, so no
+        rank reads the file back before it is whole."""
         target = Path(filename) if filename is not None else self._filename
-        names_ = list(names) if names is not None else list(self._data.keys())
-        flash_file.write_mesh_file(
-            target,
-            scalars=self.scalars,
-            runtime_parameters=self.runtime_parameters,
-            metadata={
-                "coordinates": np.asarray(self.coordinates),
-                "block size": np.asarray(self.block_size),
-                "bounding box": np.asarray(self.block_bounds),
-                "node type": np.asarray(self.node_type),
-                "refine level": np.asarray(self.refine_level),
-                "gid": np.asarray(self.gid),
-                "which child": np.asarray(self.which_child),
-                "bflags": np.asarray(self.bflags),
-                "processor number": None if self.processors is None else np.asarray(self.processors),
-            },
-            fields={n: self._data[n] for n in names_ if n in self._data},
-            chk_file=self._chk_file,
-        )
+        names_ = [n for n in (names if names is not None else self._data) if n in self._data]
+        fields = {n: self.data(n) for n in names_}
+        mesh = self._dmesh if self._dmesh is not None else runtime.get_mesh()
+        writer = runtime.device_axis_total(mesh) == 1 or runtime.flat_index(mesh) == 0
+        if writer:
+            flash_file.write_mesh_file(
+                target,
+                scalars=self.scalars,
+                runtime_parameters=self.runtime_parameters,
+                metadata={
+                    "coordinates": np.asarray(self.coordinates),
+                    "block size": np.asarray(self.block_size),
+                    "bounding box": np.asarray(self.block_bounds),
+                    "node type": np.asarray(self.node_type),
+                    "refine level": np.asarray(self.refine_level),
+                    "gid": np.asarray(self.gid),
+                    "which child": np.asarray(self.which_child),
+                    "bflags": np.asarray(self.bflags),
+                    "processor number": None if self.processors is None else np.asarray(self.processors),
+                },
+                fields=fields,
+                chk_file=self._chk_file,
+            )
+        if runtime.device_axis_total(mesh) > 1:
+            dist.barrier()

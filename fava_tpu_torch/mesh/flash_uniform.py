@@ -14,9 +14,11 @@ and ``from_arrays`` keep only this rank's x-slab of each field (``load``
 reads the slab straight from the file), ``kinetic_energy_spectra`` and
 ``flagship_analysis`` run the sharded paths, and every other analysis,
 like ``data()``, gets the whole volume by one all_gather on the space
-group: fava_tpu's numbers, as its partitioner gathers, until those
-analyses are made rank-local (ROADMAP A11d). The streamed paths read
-the file whole on every rank.
+group (mesh/flash_amr.py, which a sharded ``from_amr`` shares):
+fava_tpu's numbers, as its partitioner gathers, until those analyses
+are made rank-local (ROADMAP A11d). ``save`` gathers the slabs and
+writes from rank 0; ``from_amr`` gathers before it collapses. The
+streamed paths read the file whole on every rank.
 ``reynolds_stress``, ``favre_profiles``, the slice profiles, ``mass_sum``
 and the volume averages are FLASH's: on one block profiled along x the
 profiles take the uniform fast case (K1/K2). The velocity diagnostics
@@ -77,9 +79,6 @@ def streams_out_of_core(shape, dtype: torch.dtype, free_bytes: float, resident_b
 class FlashUniform(FLASH):
     """Uniform-grid FLASH mesh; field data is a single 3D volume on the
     device, or this rank's x-slab of it under a mesh that shards it."""
-
-    # The mesh whose space axis the volume is slab-sharded over, or None.
-    _dmesh = None
 
     @classmethod
     def is_this_your_mesh(cls, filename: str | Path, *args, **kwargs) -> bool:
@@ -184,21 +183,6 @@ class FlashUniform(FLASH):
             vol = vol[0]
         self._data[name] = vol
 
-    def data(self, name: str) -> Optional[torch.Tensor]:
-        """The whole field on the device: under a sharding mesh, the
-        ranks' x-slabs gathered (one all_gather on the space group)."""
-        d = super().data(name)
-        if d is None or self._dmesh is None:
-            return d
-        return runtime.gather_slabs(d, self._dmesh)
-
-    def _slab(self, name: str) -> torch.Tensor:
-        """This rank's x-slab of a field of a sharded volume."""
-        d = super().data(name)
-        if d is None:
-            raise KeyError(name)
-        return d
-
     def _volume(self, name: str) -> torch.Tensor:
         d = self.data(name)
         if d is None:
@@ -206,21 +190,6 @@ class FlashUniform(FLASH):
         if d.ndim == 4:
             d = d[0]
         return d
-
-    def _refuse_sharded(self, what: str) -> None:
-        if self._dmesh is not None:
-            raise NotImplementedError(
-                f"{what} of a uniform mesh sharded over a device mesh is not supported "
-                "(ROADMAP A11b, A11c); load it outside the mesh"
-            )
-
-    def from_amr(self, *args, **kwargs) -> None:
-        self._refuse_sharded("from_amr")
-        super().from_amr(*args, **kwargs)
-
-    def save(self, filename=None, names=None) -> None:
-        self._refuse_sharded("save")
-        super().save(filename=filename, names=names)
 
     def _streams(self, shape) -> bool:
         """``streams_out_of_core`` against this card's free memory (the

@@ -17,6 +17,19 @@ PyTorch runs eagerly, so the groups hold the real blocks only and the
 scatter is an ``index_add_`` over them (the sums are the same). The
 per-row means stay float64 (fava_tpu cast them to the field dtype).
 Results come back to the host as float64 numpy arrays, as in fava_tpu.
+
+Under an active device mesh of more than one rank, the leaf blocks split
+over every rank of the mesh (``parallel.runtime.block_sharding``): the
+leaf list is zero-padded to a multiple of the rank total, each rank
+copies only its share of the leaves out of the block stack and runs
+K5 and then K6 on it (the per-row means are per (block, row), so K6
+needs nothing from another rank), and one all_gather over the world
+joins the shares' (raw, mu, cen) in the mesh's flat order before the pad
+is trimmed. The level groups and the scatter then run as on one device.
+Deviation from fava_tpu, which falls back to jnp reductions on the
+sharded stack (fava_tpu/ops/profiles.py:240-251): the port keeps its
+kernels on every rank; the outputs are the same, since each block's
+moments are its own.
 """
 
 from __future__ import annotations
@@ -27,6 +40,7 @@ import numpy as np
 import torch
 
 from fava_tpu_torch.ops import cuda_kernels
+from fava_tpu_torch.parallel import runtime
 from fava_tpu_torch.utils import accum_dtype
 
 AXES_NAMES = "xyz"
@@ -181,19 +195,35 @@ class ProfileGeometry:
         return tuple(groups), tuple(scales)
 
 
-def _leaf_fields(data: Dict[str, torch.Tensor], geom: ProfileGeometry) -> Tuple[torch.Tensor, ...]:
-    """(dens, vels...) leaf stacks: a contiguous copy of each field's leaves."""
-    idx = torch.as_tensor(geom.blocklist, device=data["dens"].device)
+def _leaf_fields(
+    data: Dict[str, torch.Tensor], geom: ProfileGeometry, placement=None
+) -> Tuple[torch.Tensor, ...]:
+    """(dens, vels...) leaf stacks: a contiguous copy of each field's
+    leaves, or with ``placement`` (a ``parallel.runtime.Placement`` of
+    the leaf axis) of this rank's share only, the leaf list zero-padded
+    to a multiple of its parts (the pad blocks have zero moments)."""
     names = ["dens"] + [f"vel{a}" for a in AXES_NAMES[: geom.ndim]]
-    return tuple(torch.index_select(data[name], 0, idx) for name in names)
+    dev = data["dens"].device
+    if placement is None:
+        idx = torch.as_tensor(geom.blocklist, device=dev)
+        return tuple(torch.index_select(data[name], 0, idx) for name in names)
+    nleaf = geom.blocklist.size
+    lo, hi = placement.bounds(-(-nleaf // placement.parts) * placement.parts)
+    idx = torch.as_tensor(geom.blocklist[lo:hi], device=dev)
+    out = []
+    for name in names:
+        x = data[name]
+        share = x.new_zeros((hi - lo,) + tuple(x.shape[1:]))
+        torch.index_select(x, 0, idx, out=share.narrow(0, 0, idx.numel()))
+        out.append(share)
+    return tuple(out)
 
 
-def _stack_stats(data: Dict[str, torch.Tensor], geom: ProfileGeometry):
-    """Raw + per-row-mean-centered moments of the leaf stack, float64:
-    raw (1+2n, nB, nrb) [d, v_i, d*v_i], mu (n, nB, nrb) per-row velocity
+def _share_stats(fields: Tuple[torch.Tensor, ...], geom: ProfileGeometry):
+    """Raw + per-row-mean-centered moments of leaf stacks, float64: raw
+    (1+2n, nB, nrb) [d, v_i, d*v_i], mu (n, nB, nrb) per-row velocity
     means, cen (npairs+n, nB, nrb) [d*ci*cj, d*ci] about mu. 3D stacks
     profiled along x take the K5/K6 kernels."""
-    fields = _leaf_fields(data, geom)
     nvel = geom.ndim
     ncells_row = int(np.prod(fields[0].shape[1:])) // int(fields[0].shape[1 + geom.raxis])
     if geom.ndim == 3 and geom.raxis == 0:
@@ -205,6 +235,19 @@ def _stack_stats(data: Dict[str, torch.Tensor], geom: ProfileGeometry):
     mu = raw[1 : 1 + nvel] / ncells_row
     cen = _centered_row_moments_stack(fields, mu, raxis=geom.raxis, nvel=nvel)
     return raw, mu, cen
+
+
+def _stack_stats(data: Dict[str, torch.Tensor], geom: ProfileGeometry):
+    """``_share_stats`` of the whole leaf stack; under a mesh of more
+    than one rank, of this rank's share, joined over the world (module
+    docstring)."""
+    placement = runtime.block_sharding()
+    if placement is None or placement.parts == 1:
+        return _share_stats(_leaf_fields(data, geom), geom)
+    raw, mu, cen = _share_stats(_leaf_fields(data, geom, placement), geom)
+    sizes = (raw.shape[0], mu.shape[0], cen.shape[0])
+    whole = runtime.gather_flat(torch.cat([raw, mu, cen]), dim=1)
+    return whole[:, : geom.blocklist.size].split(sizes)
 
 
 def _scatter_centered_pairs(groups, scales: Tuple[int, ...], nfine: int, ref_fine, nvel: int):

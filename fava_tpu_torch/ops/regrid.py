@@ -1,7 +1,7 @@
 """AMR -> uniform regridding through one kernel launch per 8 fields.
 
-Counterpart of fava_tpu/ops/regrid.py (single device; the sharded plan
-and regrid are ROADMAP A11b). The mapping is closed-form:
+Counterpart of fava_tpu/ops/regrid.py, the sharded plan and regrid
+included. The mapping is closed-form:
 
   output fine cell g (global fine-index space at the target level)
    -> block = leaf_table[g // ncells_per_block]   (small int32 table)
@@ -11,17 +11,31 @@ and regrid are ROADMAP A11b). The mapping is closed-form:
 (truncating float math, the subdomain sentinel, the scale clip);
 ``regrid_fields`` hands them to K7 (``cuda_kernels.regrid_fields``),
 whose plain twin is the same closed form with ``torch.take``.
+
+Under a device mesh the output is slab-sharded along x over the space
+axis, and ``ShardedRegridPlan`` gives each space rank only the source
+blocks its slab reads (``block_ids``, padded to the largest count
+``bmax``): the rank builds its own tables on the host (the leaf table
+with block ids remapped to positions in its local stack, -1 kept, and
+the offsets and scales of its local blocks), and K7 runs unchanged on
+the slab's box, ``out_shape=(nx/d, ny, nz)`` at ``origin=(ox + r*nx/d,
+oy, oz)``. No collective: the block distribution is worked out on the
+host. fava_tpu refuses a local stack whose flat index space
+``bmax*bx*by*bz`` passes int32 (its gather index is int32); K7's source
+offsets are 64-bit (csrc/amr_kernels.cu), so the port needs no such
+bound, as its single-device regrid needs none.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from fava_tpu_torch.io.flash_file import MESH_MDIM
 from fava_tpu_torch.ops import cuda_kernels
+from fava_tpu_torch.parallel import runtime
 
 
 class RegridPlan:
@@ -152,24 +166,143 @@ class RegridPlan:
         )
 
 
+class ShardedRegridPlan:
+    """Host-side block distribution of a regrid whose output is
+    slab-sharded along x over ``n_space`` ranks: ``block_ids[r]`` are
+    the source blocks rank r's slab reads (padded with block 0 to
+    ``bmax``), ``remap[r]`` each global block's position in that local
+    stack (-1 where the block is not local)."""
+
+    def __init__(self, plan: RegridPlan, n_space: int) -> None:
+        nx = plan.out_shape[0]
+        if nx % n_space != 0:
+            raise ValueError(
+                f"sharded regrid: the space axis ({n_space}) must evenly divide the output x "
+                f"extent ({nx}); crop or pad the subdomain, or use the unsharded regrid_fields"
+            )
+        self.plan = plan
+        self.n_space = int(n_space)
+        self.nxs = nx // self.n_space
+        ncx = int(plan.ncells_vec[0])
+        ox = int(plan.out_origin[0])
+        table = plan.leaf_table
+        nb_total = len(plan.block_scales)
+        dev_ids = []
+        for d in range(self.n_space):
+            r0 = (d * self.nxs + ox) // ncx
+            r1 = ((d + 1) * self.nxs - 1 + ox) // ncx
+            sub = table[r0 : r1 + 1]
+            dev_ids.append(np.unique(sub[sub >= 0]).astype(np.int64))
+        self.bmax = max(1, max(ids.size for ids in dev_ids))
+        self.block_counts = tuple(int(ids.size) for ids in dev_ids)
+        self.block_ids = np.zeros((self.n_space, self.bmax), dtype=np.int64)
+        self.remap = -np.ones((self.n_space, max(1, nb_total)), dtype=np.int32)
+        for d, ids in enumerate(dev_ids):
+            self.block_ids[d, : ids.size] = ids
+            self.remap[d, ids] = np.arange(ids.size, dtype=np.int32)
+
+    @property
+    def slab_shape(self) -> Tuple[int, int, int]:
+        _nx, ny, nz = self.plan.out_shape
+        return self.nxs, ny, nz
+
+    def slab_origin(self, r: int) -> Tuple[int, int, int]:
+        """The first fine cell of rank r's slab."""
+        ox, oy, oz = (int(o) for o in self.plan.out_origin)
+        return ox + r * self.nxs, oy, oz
+
+    def local_tables(self, r: int, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Rank r's (leaf table of local block positions, int32; offsets
+        (bmax, 3) and scales (bmax,), int64) on ``device``."""
+        table = self.plan.leaf_table
+        local = np.where(table >= 0, self.remap[r][np.maximum(table, 0)], -1).astype(np.int32)
+        ids = self.block_ids[r]
+        return (
+            torch.as_tensor(local, device=device),
+            torch.as_tensor(self.plan.block_offsets[ids], dtype=torch.int64, device=device),
+            torch.as_tensor(self.plan.block_scales[ids], dtype=torch.int64, device=device),
+        )
+
+    def local_stack(self, r: int, stack, device, dtype=None) -> torch.Tensor:
+        """Rank r's (bmax, bx, by, bz) block stack on ``device`` (as
+        ``dtype``), taken from a whole stack (a host array, possibly a
+        swapped view of the stored layout, or a tensor) by its block ids:
+        only those blocks are copied, in the stack's memory order, and
+        put in grid order on ``device``."""
+        ids = self.block_ids[r]
+        if isinstance(stack, torch.Tensor):
+            local = torch.index_select(stack, 0, torch.as_tensor(ids, device=stack.device))
+        else:
+            local = torch.as_tensor(np.asarray(stack)[ids])
+        return local.to(device=device, dtype=dtype or local.dtype).contiguous()
+
+
+def regrid_slab(splan: ShardedRegridPlan, r: int, stacks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Rank r's (nx/d, ny, nz) output slab of each local (bmax, bx, by,
+    bz) stack: K7 on the slab's box with the rank's tables."""
+    return cuda_kernels.regrid_fields(
+        stacks,
+        *splan.local_tables(r, stacks[0].device),
+        splan.slab_shape,
+        splan.slab_origin(r),
+        tuple(int(c) for c in splan.plan.ncells_vec),
+    )
+
+
+def regrid_fields_sharded(
+    plan: RegridPlan,
+    host_stacks: Dict[str, object],
+    fields: Sequence[str],
+    mesh,
+    axis_name: str = runtime.SPACE_AXIS,
+    device=None,
+    dtype=None,
+) -> Dict[str, torch.Tensor]:
+    """Sharded regrid: this rank's x-slab over the mesh's ``axis_name``
+    axis of each field, regridded from only the source blocks that slab
+    reads (``ShardedRegridPlan``).
+    ``host_stacks`` map each field to its whole (nB, bx, by, bz) stack,
+    a host array or a tensor; only the local blocks are copied to
+    ``device`` (the first stack's device when it is a tensor, else the
+    CPU), as ``dtype`` (default: the stacks' own)."""
+    splan = ShardedRegridPlan(plan, runtime.axis_size(mesh, axis_name))
+    r = int(mesh.get_local_rank(axis_name))
+    first = host_stacks[fields[0]]
+    if device is None:
+        device = first.device if isinstance(first, torch.Tensor) else "cpu"
+    stacks = [splan.local_stack(r, host_stacks[name], device, dtype) for name in fields]
+    return dict(zip(fields, regrid_slab(splan, r, stacks)))
+
+
 def regrid_fields(
     plan: RegridPlan,
     data: Dict[str, torch.Tensor],
     fields: Sequence[str],
+    sharding=None,
 ) -> Dict[str, torch.Tensor]:
     """Regrid each field's (nblocks, nx, ny, nz) stack to the uniform grid.
 
     The source index of each output cell is worked out once per launch
-    and copied for every field of that launch.
+    and copied for every field of that launch. With ``sharding`` (a
+    ``parallel.runtime.Placement`` of the output's x axis) the result is
+    this rank's rows of the output, regridded from the whole stack.
     """
     first = data[fields[0]]
     if first.ndim != 4:
         raise ValueError("regrid expects (nblocks, ncx, ncy, ncz) stacks")
+    out_shape = plan.out_shape
+    origin = tuple(int(o) for o in plan.out_origin)
+    if sharding is not None:
+        if sharding.axis != 0:
+            raise ValueError(f"regrid output is sharded along x, not axis {sharding.axis}")
+        lo, hi = sharding.bounds(out_shape[0])
+        out_shape = (hi - lo,) + tuple(out_shape[1:])
+        origin = (origin[0] + lo,) + origin[1:]
     outs = cuda_kernels.regrid_fields(
         [data[name] for name in fields],
         *plan.device_tables(first.device),
-        plan.out_shape,
-        tuple(int(o) for o in plan.out_origin),
+        out_shape,
+        origin,
         tuple(int(c) for c in plan.ncells_vec),
     )
     return dict(zip(fields, outs))

@@ -1,13 +1,18 @@
 """Multi-device runtime on ``torch.distributed``: the device mesh, the
-slab placement of volumes and the pencil FFT (fava_tpu/parallel/)."""
+slab placement of volumes, the block and ingest placements and the
+pencil FFT (fava_tpu/parallel/)."""
 
 from fava_tpu_torch.parallel.runtime import (
     SNAP_AXIS,
     SPACE_AXIS,
+    Placement,
+    block_sharding,
     device_axis_total,
     device_count,
     gather_slabs,
     get_mesh,
+    ingest_sharding_fn,
+    ingest_volume_sharding,
     is_pod_mesh,
     make_device_mesh,
     replicated,
@@ -24,10 +29,14 @@ from fava_tpu_torch.parallel.fft import pfft3
 __all__ = [
     "SNAP_AXIS",
     "SPACE_AXIS",
+    "Placement",
+    "block_sharding",
     "device_axis_total",
     "device_count",
     "gather_slabs",
     "get_mesh",
+    "ingest_sharding_fn",
+    "ingest_volume_sharding",
     "is_pod_mesh",
     "make_device_mesh",
     "pfft3",

@@ -20,15 +20,20 @@ spectra (ops/spectra.py:281-288). Any other volume is held whole on
 every rank and takes the single-device paths. This moves data, not
 numbers.
 
-``block_sharding``, ``ingest_volume_sharding`` and ``ingest_sharding_fn``
-(the block-sharded AMR stacks and the sharded ingest) are not ported
-yet (ROADMAP A11b, A11c).
+Block and ingest placement (fava_tpu's ``block_sharding``,
+``ingest_volume_sharding`` and ``ingest_sharding_fn``): a
+``Placement`` takes the place of a ``NamedSharding``. It names the split
+axis and this rank's part by its flat index in the mesh (row-major over
+the mesh's dimensions, fava_tpu's device order), so an AMR leaf stack or
+an ingested array splits over every rank of a snap x space pod, as
+fava_tpu splits it over all devices.
 """
 
 from __future__ import annotations
 
 import os
 from contextlib import contextmanager
+from dataclasses import dataclass
 from datetime import timedelta
 from typing import Optional, Sequence, Tuple
 
@@ -227,3 +232,108 @@ def gather_slabs(slab: torch.Tensor, mesh=None, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(slab) for _ in range(space_axis_size(mesh))]
     dist.all_gather(parts, slab.contiguous(), group=space_group(mesh))
     return torch.cat(parts, dim=dim)
+
+
+@dataclass(frozen=True)
+class Placement:
+    """An array split evenly along ``axis`` into ``parts`` parts, of which
+    this rank holds part ``index``: the rows ``bounds(n)`` of an axis of
+    length ``n``."""
+
+    axis: int
+    index: int
+    parts: int
+
+    def bounds(self, n: int) -> Tuple[int, int]:
+        """This rank's rows ``[lo, hi)`` of an axis of length ``n``."""
+        if n % self.parts:
+            raise ValueError(f"an axis of {n} does not split evenly into {self.parts} parts")
+        rows = n // self.parts
+        return self.index * rows, (self.index + 1) * rows
+
+
+def flat_ranks(mesh) -> Tuple[int, ...]:
+    """The world ranks of the mesh's devices in flat (row-major) order."""
+    return tuple(int(r) for r in mesh.mesh.flatten().tolist())
+
+
+def flat_index(mesh=None) -> int:
+    """This rank's flat index in the mesh (0 with no mesh)."""
+    mesh = mesh if mesh is not None else _MESH
+    if mesh is None:
+        return 0
+    return flat_ranks(mesh).index(dist.get_rank())
+
+
+def space_placement(mesh=None, axis: int = 0) -> Optional[Placement]:
+    """The placement of a volume slab-sharded along ``axis`` over the
+    mesh's space axis: this rank's part is its space rank (None with no
+    mesh or no space axis)."""
+    mesh = mesh if mesh is not None else _MESH
+    if mesh is None or SPACE_AXIS not in (mesh.mesh_dim_names or ()):
+        return None
+    d = space_axis_size(mesh)
+    return Placement(axis, int(mesh.get_local_rank(SPACE_AXIS)) if d > 1 else 0, d)
+
+
+def _flat_placement(mesh, axis: int) -> Placement:
+    return Placement(axis, flat_index(mesh), device_axis_total(mesh))
+
+
+def block_sharding(mesh=None, ndim: int = 4) -> Optional[Placement]:
+    """The placement of an (nblocks, nx, ny, nz) stack split along blocks
+    over ALL mesh axes (blocks are independent, so a snap x space pod
+    uses every rank instead of replicating the stack over snap rows).
+    None with no mesh or no space axis."""
+    mesh = mesh if mesh is not None else _MESH
+    if mesh is None or SPACE_AXIS not in (mesh.mesh_dim_names or ()):
+        return None
+    return _flat_placement(mesh, 0)
+
+
+def ingest_volume_sharding(mesh=None, ndim: int = 3) -> Optional[Placement]:
+    """The placement of one prefetched snapshot volume: its leading axis
+    split over ALL mesh axes, so each byte is read by one rank only. None
+    with no mesh."""
+    mesh = mesh if mesh is not None else _MESH
+    if mesh is None:
+        return None
+    return _flat_placement(mesh, 0)
+
+
+def ingest_sharding_fn(mesh=None):
+    """The shape-aware placement callback of ``SnapshotPrefetcher``:
+    ``fn(name, shape) -> Placement | None`` on grid-order shapes, with
+    fava_tpu's rules. A 3D volume splits on x when nx divides the rank
+    total and ny the space axis (the eligibility of the sharded
+    analysis paths); a ``(1, nx, ny, nz)`` single block likewise on its
+    second axis; a 4D block stack splits on blocks when the block count
+    divides the rank total (above 1); anything else is read whole. None
+    with no mesh."""
+    mesh = mesh if mesh is not None else _MESH
+    if mesh is None:
+        return None
+    total = device_axis_total(mesh)
+    n_space = max(space_axis_size(mesh), 1)
+
+    def fn(name, shape):
+        shape = tuple(int(s) for s in shape)
+        if len(shape) == 3 and shape[0] % total == 0 and shape[1] % n_space == 0:
+            return ingest_volume_sharding(mesh)
+        if len(shape) == 4 and shape[0] == 1 and shape[1] % total == 0 and shape[2] % n_space == 0:
+            return _flat_placement(mesh, 1)
+        if len(shape) == 4 and total > 1 and shape[0] % total == 0:
+            return block_sharding(mesh)
+        return None
+
+    return fn
+
+
+def gather_flat(part: torch.Tensor, mesh=None, dim: int = 0) -> torch.Tensor:
+    """The whole tensor from every rank's equal part along ``dim``,
+    concatenated in the mesh's flat order: one all_gather over the world,
+    which the mesh covers (``make_device_mesh``)."""
+    mesh = mesh if mesh is not None else _MESH
+    parts = [torch.empty_like(part) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, part.contiguous())
+    return torch.cat([parts[r] for r in flat_ranks(mesh)], dim=dim)

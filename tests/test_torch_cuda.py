@@ -22,7 +22,8 @@ float32 FFT twin, which rounds at the same stages. The particle paths
 (plain torch, float64, no kernel): ``statistics()`` means and RMS at
 rtol 1e-12 and min/max exact; the pair structure functions' counts exact
 and sums rtol 1e-12 (float64 atomics in run-dependent order); the
-nearest-neighbour sweep's partners exact.
+nearest-neighbour sweep's partners exact. K5/K6 on leaf shares and K7
+on output slabs from local stacks, joined, equal one launch exactly.
 """
 
 import numpy as np
@@ -1418,3 +1419,56 @@ def test_sharded_step_in_a_one_rank_nccl_world(cuda_device):
                 assert float((out[key] - want).abs().max()) <= 1e-5 * scale, key
             else:
                 torch.testing.assert_close(out[key], want, rtol=1e-9, atol=1e-12)
+
+
+def _amr_mesh(device, tmp_path):
+    path = synthetic.make_amr_file(tmp_path / "rt_hdf5_plt_cnt_0001", ncells=(16, 16, 16),
+                                   nblks=(4, 1, 1), refine={0: 2, 1: 3, 3: 2})
+    mesh = fava_tpu_torch.mesh.FLASH(path, device=device)
+    mesh.load()
+    return mesh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 3, 8])
+def test_block_moments_on_leaf_shares_equal_one_launch(cuda_device, tmp_path, parts):
+    """K5/K6 on each share of the zero-padded leaf list, joined and
+    trimmed, equal the single launch bit for bit, one launch a share."""
+    from fava_tpu_torch.ops import profiles
+    from fava_tpu_torch.parallel import Placement
+
+    mesh = _amr_mesh(cuda_device, tmp_path)
+    data, geom = mesh._profile_fields(), mesh._profile_geometry(0)
+    whole = torch.cat(profiles._stack_stats(data, geom))
+    ck.reset_launch_counts()
+    joined = torch.cat([torch.cat(profiles._share_stats(
+        profiles._leaf_fields(data, geom, Placement(0, r, parts)), geom)) for r in range(parts)], dim=1)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ck.launch_counts().items() if v}
+    assert launches == {"block_row_moments": parts, "block_centered_row_moments": parts}
+    nleaf = geom.blocklist.size
+    assert torch.equal(joined[:, :nleaf], whole)
+    assert not joined[:, nleaf:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 4, 8])
+def test_regrid_slabs_equal_the_whole_regrid(cuda_device, tmp_path, parts):
+    """K7 on each rank's slab from its local stack of bmax blocks,
+    stacked, equals the single regrid exactly (injection is a copy)."""
+    mesh = _amr_mesh(cuda_device, tmp_path)
+    names = ["dens", "velx"]
+    data = {k: mesh._field_stack(k) for k in names}
+    plan = regrid.RegridPlan(block_bounds=mesh.block_bounds, node_type=mesh.node_type,
+                             refine_level=mesh.refine_level, ncells_vec=mesh.nCellsVec,
+                             nblks_vec=mesh.nBlksVec, ndim=3)
+    whole = regrid.regrid_fields(plan, data, names)
+    splan = regrid.ShardedRegridPlan(plan, parts)
+    assert splan.bmax < mesh.nblocks
+    ck.reset_launch_counts()
+    slabs = [regrid.regrid_slab(splan, r, [splan.local_stack(r, data[k], cuda_device) for k in names])
+             for r in range(parts)]
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {"regrid_fields": parts}
+    for i, k in enumerate(names):
+        assert torch.equal(torch.cat([sl[i] for sl in slabs]), whole[k])

@@ -59,15 +59,15 @@ def test_package_exports_the_reference_names():
 
 
 # fava_tpu's exports the port leaves out: ROADMAP A12 (enable_compilation_cache,
-# trace) and the AMR and ingest shardings of A11b and A11c.
+# trace).
 NOT_PORTED = {
     "utils": {"enable_compilation_cache", "trace"},
-    "parallel": {"block_sharding", "ingest_sharding_fn", "ingest_volume_sharding"},
 }
-# The port's exports beyond fava_tpu's.
+# The port's exports beyond fava_tpu's (Placement stands in for jax's
+# NamedSharding).
 PORT_ONLY = {
     "utils": {"field_dtype", "resolve_device"},
-    "parallel": {"gather_slabs", "shards_volume", "space_axis_size"},
+    "parallel": {"Placement", "gather_slabs", "shards_volume", "space_axis_size"},
 }
 
 

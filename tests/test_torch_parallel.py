@@ -53,7 +53,7 @@ def _np(out):
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
-def _scenarios(rank: int, world: int, uni_path: str):
+def _scenarios(rank: int, world: int, uni_path: str, workdir: str):
     from fava_tpu_torch import flagship, parallel
     from fava_tpu_torch.mesh import FlashUniform
     from fava_tpu_torch.ops import cuda_kernels
@@ -86,12 +86,10 @@ def _scenarios(rank: int, world: int, uni_path: str):
             arr = FlashUniform.from_arrays(_named(inp["arrays"]), device="cpu")
             out["arrays"] = (arr._dmesh is mesh, tuple(arr._slab("dens").shape))
             out["arrays_ke"] = arr.kinetic_energy_spectra()
-            out["refused"] = []
-            for call in (lambda: arr.save("unused"), lambda: uni.from_amr(save_file=False)):
-                try:
-                    call()
-                except NotImplementedError as e:
-                    out["refused"].append(str(e))
+            saved = os.path.join(workdir, "rt_hdf5_uniform_0001")
+            uni.save(saved, names=["dens", "velx"])
+            uni.from_amr(save_file=False, fields=["dens", "velx"])
+            out["saved"] = (saved, uni._dmesh is mesh, uni._slab("velx").numpy())
     out["use_mesh"] = (before, inside, parallel.get_mesh() is None)
 
     x = parallel.shard_volume(inp["pfft"], mesh)
@@ -124,7 +122,7 @@ def _rank_main(rank: int, world: int, store: str, workdir: str, uni_path: str):
         timeout=timedelta(seconds=COLLECTIVE_SECONDS),
     )
     try:
-        out = _scenarios(rank, world, uni_path)
+        out = _scenarios(rank, world, uni_path, workdir)
         torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -323,13 +321,33 @@ def test_placement_rule(four):
         _assert_step(r["odd_y_flagship"], flag_odd)
 
 
-def test_sharded_mesh_refuses_save_and_from_amr(four):
-    """Writing a sharded volume and regridding it are later slices
-    (ROADMAP A11b, A11c): both raise a named error on every rank."""
+def test_sharded_mesh_saves_and_regrids(four, uniform_file_32, tmp_path):
+    """A sharded volume's save gathers the slabs and rank 0 writes the
+    file, whose datasets equal fava_tpu's save of the same fields; its
+    from_amr regrids each rank's slab of the output, fava_tpu's rows."""
+    import h5py
+
+    from fava_tpu.mesh import FlashUniform
+
+    ref = FlashUniform(uniform_file_32)
+    ref.load()
+    for name in ("dens", "velx"):
+        ref.data(name)
+    ref.save(tmp_path / "rt_hdf5_uniform_0001", names=["dens", "velx"])
+    ref.from_amr(save_file=False, fields=["dens", "velx"])
+    rows = 32 // len(four)
+    paths = {r["saved"][0] for r in four}
+    assert len(paths) == 1
+    with h5py.File(paths.pop(), "r") as got, h5py.File(tmp_path / "rt_hdf5_uniform_0001", "r") as want:
+        assert set(got) == set(want)
+        for key in ("dens", "velx", "bounding box", "block size", "node type", "refine level"):
+            np.testing.assert_array_equal(got[key][()], want[key][()], err_msg=key)
+            assert got[key].dtype == want[key].dtype, key
+    whole = np.asarray(ref.data("velx"))
     for r in four:
-        assert len(r["refused"]) == 2
-        for msg, what in zip(r["refused"], ("save", "from_amr")):
-            assert msg.startswith(f"{what} of a uniform mesh sharded over a device mesh")
+        _path, sharded, slab = r["saved"]
+        assert sharded
+        np.testing.assert_array_equal(slab, whole[r["rank"] * rows : (r["rank"] + 1) * rows])
 
 
 def test_mesh_must_cover_the_world(four):
