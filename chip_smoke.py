@@ -4640,35 +4640,44 @@ def counted_exact(torch, ck, what, fn, expect, totals, warm=False):
     return out, ms
 
 
-def virtual_leaf_shares(torch, np, ck, profiles, Placement, mesh, totals):
-    """26a: K5/K6 on d virtual ranks' leaf shares, concatenated and
-    trimmed, equal bit for bit to the single launch."""
+def virtual_leaf_shares(torch, np, ck, profiles, runtime, mesh, pod, totals):
+    """26a: K5/K6 on d virtual ranks' leaf shares, each passed through the
+    world all_gather of the one-rank pod, joined, trimmed and split as
+    ``_stack_stats`` does, equal bit for bit to the single launch."""
     data, geom = mesh._profile_fields(), mesh._profile_geometry(0)
     nleaf = int(geom.blocklist.size)
     kernels = ("block_row_moments", "block_centered_row_moments")
     single, ms = counted_exact(torch, ck, f"K5/K6 on the {nleaf} leaves",
-                               lambda: torch.cat(profiles._stack_stats(data, geom)),
+                               lambda: profiles._stack_stats(data, geom),
                                dict.fromkeys(kernels, 1), totals, warm=True)
     times = {"single_ms": ms}
 
+    sizes = tuple(t.shape[0] for t in single)
+
     def shares(d):
         parts = [torch.cat(profiles._share_stats(
-            profiles._leaf_fields(data, geom, Placement(0, r, d)), geom)) for r in range(d)]
-        return torch.cat(parts, dim=1)
+            profiles._leaf_fields(data, geom, runtime.Placement(0, r, d)), geom)) for r in range(d)]
+        joined = torch.cat([runtime.gather_flat(p, pod, dim=1) for p in parts], dim=1)
+        return joined, torch.cat(profiles._split_joined(joined, sizes, geom))
 
     for d in VIRTUAL_RANKS:
-        joined, times[f"{d}_ranks_ms"] = counted_exact(
+        (joined, whole), times[f"{d}_ranks_ms"] = counted_exact(
             torch, ck, f"K5/K6 on {d} virtual leaf shares of {-(-nleaf // d)}", lambda: shares(d),
             dict.fromkeys(kernels, d), totals, warm=True)
-        if not torch.equal(joined[:, :nleaf], single) or joined[:, nleaf:].any():
+        if not torch.equal(whole, torch.cat(single)) or joined[:, nleaf:].any():
             fail(f"K5/K6 on {d} leaf shares differ from the single launch")
         say(f"phase 26 K5/K6 on {d} virtual leaf shares: equal bit for bit to the single launch")
     return times
 
 
-def virtual_slabs(torch, np, ck, regrid, mesh, subdomain, names, totals):
-    """26b: regrid_fields_sharded's per-rank tables and K7 on each virtual
-    slab from its local stack, stacked, equal to the single regrid."""
+def virtual_slabs(torch, np, ck, regrid, mesh, hosts, subdomain, names, totals):
+    """26b: ``regrid_fields_slab``, the step of ``regrid_fields_sharded``,
+    on each virtual rank: its tables, its local stack copied from the host
+    arrays that ``from_amr`` passes (``hosts``, ``_host_field_stack`` of
+    a mesh whose fields are not loaded) as the card's field dtype, and K7
+    on its slab; stacked, equal to the single regrid."""
+    from fava_tpu_torch.utils import field_dtype
+
     plan = regrid.RegridPlan(
         block_bounds=mesh.block_bounds, node_type=np.asarray(mesh.node_type),
         refine_level=np.asarray(mesh.refine_level), ncells_vec=mesh.nCellsVec,
@@ -4687,15 +4696,15 @@ def virtual_slabs(torch, np, ck, regrid, mesh, subdomain, names, totals):
             f"{list(splan.block_counts)}")
 
         def slabs(d=d, splan=splan):
-            parts = [regrid.regrid_slab(splan, r, [splan.local_stack(r, data[k], "cuda")
-                                                    for k in names]) for r in range(d)]
-            return [torch.cat([p[i] for p in parts]) for i in range(len(names))]
+            parts = [regrid.regrid_fields_slab(splan, r, hosts, names, "cuda", field_dtype("cuda"))
+                     for r in range(d)]
+            return {k: torch.cat([p[k] for p in parts]) for k in names}
 
         got, times[f"{d}_ranks_ms"] = counted_exact(
-            torch, ck, f"K7 on {d} virtual slabs of {what}", slabs, {"regrid_fields": d}, totals,
-            warm=True)
-        for k, g in zip(names, got):
-            if not torch.equal(g, single[k]):
+            torch, ck, f"K7 on {d} virtual slabs of {what} from host stacks", slabs,
+            {"regrid_fields": d}, totals, warm=True)
+        for k in names:
+            if not torch.equal(got[k], single[k]):
                 fail(f"the {d} stacked slabs of {k} differ from the single regrid")
         times[f"{d}_ranks_bmax"] = splan.bmax
         del got
@@ -4764,11 +4773,13 @@ def phase_pod(torch, np, workdir: Path, card: str):
     phase 17's four 512^3 files): a one-rank NCCL world on cuda:0 and the
     (1, 1) "snap", "space" mesh. A one-rank mesh takes the single-device
     paths, so the sharded pieces run on virtual ranks: (a) K5/K6 on d = 2,
-    4, 8 virtual leaf shares of the plt file's 34,192 leaves, concatenated,
-    equal bit for bit to the single launch; (b) ``regrid_fields_sharded``'s
-    per-rank tables and K7 on each virtual slab from its local stack, for
-    the 512^3 window and the 2048x512x512 full domain, stacked and equal to
-    the single regrid, with each rank's bmax against nB; (c)
+    4, 8 virtual leaf shares of the plt file's 34,192 leaves, joined through
+    the pod's world all_gather and ``_stack_stats``' trim, equal bit for bit
+    to the single launch; (b) ``regrid_fields_sharded``'s step on each
+    virtual rank (its tables, its local stack copied from the host arrays
+    ``from_amr`` passes, K7 on its slab), for the 512^3 window and the
+    2048x512x512 full domain, stacked and equal to the single regrid, with
+    each rank's bmax against nB; (c)
     ``flagship_series(batch=2)`` on the pod against the call without a
     mesh (TOL_SPECTRA, TOL_PROFILES, counts exact); (d) ``reynolds_series``
     and ``favre_series`` on phase 24's 288-leaf plt series under the pod
@@ -4799,13 +4810,20 @@ def phase_pod(torch, np, workdir: Path, card: str):
             amr.mesh.load_data(list(NAMES))
             torch.cuda.synchronize()
             times["plt_read_s"] = time.perf_counter() - t0
-            times["leaf_shares"] = virtual_leaf_shares(torch, np, ck, profiles, parallel.Placement,
-                                                       amr.mesh, totals)
-            times["regrid_window"] = virtual_slabs(torch, np, ck, regrid, amr.mesh, AMR_WINDOW,
-                                                   list(NAMES), totals)
-            times["regrid_full_domain"] = virtual_slabs(torch, np, ck, regrid, amr.mesh, None,
-                                                        ["dens"], totals)
-            del amr
+            times["leaf_shares"] = virtual_leaf_shares(torch, np, ck, profiles, parallel.runtime,
+                                                       amr.mesh, pod, totals)
+            cold = fava_tpu_torch.FLASH(workdir)
+            cold.load(file_type="plt")
+            t0 = time.perf_counter()
+            hosts = {k: cold.mesh._host_field_stack(k) for k in NAMES}
+            times["host_stacks_read_s"] = time.perf_counter() - t0
+            if not all(isinstance(h, np.ndarray) for h in hosts.values()):
+                fail("_host_field_stack of a mesh without loaded fields is not a host array")
+            times["regrid_window"] = virtual_slabs(torch, np, ck, regrid, amr.mesh, hosts,
+                                                   AMR_WINDOW, list(NAMES), totals)
+            times["regrid_full_domain"] = virtual_slabs(torch, np, ck, regrid, amr.mesh, hosts,
+                                                        None, ["dens"], totals)
+            del amr, cold, hosts
             torch.cuda.empty_cache()
             times["pod_series"] = pod_series(torch, np, ck, fava_tpu_torch, parallel, workdir, pod,
                                              totals)

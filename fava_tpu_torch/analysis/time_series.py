@@ -235,71 +235,91 @@ def flagship_series(
             "to the single-chip series scan", bad, d,
         )
 
-    def vol(snap: Snapshot, name: str):
-        v = _uniform_volume(snap, name, "flagship_series")
-        if v is None:
-            raise KeyError(f"{snap.path}: missing required field {name!r}")
-        return v
-
     times: list = []
-    chunks: Dict[str, list] = {}
-    pending: list = []
-    batch_cap = [0]  # the batch that fits, once an OOM has shown it (0: none yet)
 
-    def flush_once(group):
+    def batches(batch):
+        pending = []
+        for snap in SnapshotPrefetcher(paths, FIELDS, depth=prefetch_depth, device=self.device):
+            if batch <= 0:
+                per_snap = sum(_series_volume(snap, f).nbytes for f in FIELDS)
+                batch = auto_batch(per_snap, series_input_budget(self.device))
+                logger.info("flagship_series: auto batch %d", batch)
+            times.append(snap.time)
+            pending.append(snap)
+            if len(pending) >= batch:
+                yield pending, len(pending)
+                pending = []
+        if pending:
+            yield pending, len(pending)
+
+    scan = batches(batch)
+    try:
+        result = _batched_series(scan, flagship.series_analysis_step, 1, self.device)
+    finally:
+        scan.close()
+    result["times"] = np.asarray(times)
+    return result
+
+
+def _series_volume(snap: Snapshot, name: str):
+    v = _uniform_volume(snap, name, "flagship_series")
+    if v is None:
+        raise KeyError(f"{snap.path}: missing required field {name!r}")
+    return v
+
+
+def _batched_series(batches, step, n_snap: int, device) -> Dict[str, np.ndarray]:
+    """The flagship series' outputs over ``batches``, pairs (this rank's
+    snapshots of a batch, the batch's count k of real ones): ``step`` on
+    the stacked fields of a rank's snapshots returns the outputs of the
+    batch padded to ``len(local) * n_snap`` (``n_snap`` 1 off a pod),
+    trimmed here to k. A batch that runs out of device memory is halved
+    in whole snap rows and retried, and the smaller batch holds for the
+    rest of the series."""
+    chunks: Dict[str, list] = {}
+    cap = [0]  # a rank's snapshots that fit, once an OOM has shown it (0: none yet)
+
+    def run(local, k):
         stacked = []
         try:
             for f in FIELDS:
-                stacked.append(torch.stack([vol(s, f) for s in group]))
-            out = flagship.series_analysis_step(*stacked)
+                stacked.append(torch.stack([_series_volume(s, f) for s in local]))
+            out = step(*stacked)
         finally:
             # Drop the stacked batch before an OOM unwinds: the traceback
             # would pin it through the retries.
             stacked.clear()
-        for k, v in out.items():
-            chunks.setdefault(k, []).append(v.cpu().numpy())
+        for key, v in out.items():
+            chunks.setdefault(key, []).append(v[:k].cpu().numpy())
 
-    def flush(group):
-        if batch_cap[0] and len(group) > batch_cap[0]:
-            for k in range(0, len(group), batch_cap[0]):
-                flush(group[k : k + batch_cap[0]])
+    def flush(local, k):
+        if cap[0] and len(local) > cap[0]:
+            for j in range(0, len(local), cap[0]):
+                flush(local[j : j + cap[0]], min(k - j * n_snap, cap[0] * n_snap))
             return
         half = 0
         try:
-            flush_once(group)
+            run(local, k)
         except torch.cuda.OutOfMemoryError:
-            if len(group) <= 1:
+            if len(local) <= 1:
                 raise
-            half = batch_cap[0] = (len(group) + 1) // 2
+            half = cap[0] = (len(local) + 1) // 2
             logger.warning(
                 "flagship_series: batch %d exhausted device memory; falling back to batches "
-                "of %d for the rest of the series", len(group), half,
+                "of %d for the rest of the series", k, half * n_snap,
             )
         if half:
             # Retry OUTSIDE the except block: the live exception's traceback
             # pins the failed batch's tensors; leaving the handler releases
             # them, and empty_cache returns their memory to the card.
-            if self.device.type == "cuda":
+            if device.type == "cuda":
                 torch.cuda.empty_cache()
-            flush(group[:half])
-            flush(group[half:])
+            flush(local[:half], half * n_snap)
+            flush(local[half:], k - half * n_snap)
 
-    for snap in SnapshotPrefetcher(paths, FIELDS, depth=prefetch_depth, device=self.device):
-        if batch <= 0:
-            per_snap = sum(vol(snap, f).nbytes for f in FIELDS)
-            batch = auto_batch(per_snap, series_input_budget(self.device))
-            logger.info("flagship_series: auto batch %d", batch)
-        times.append(snap.time)
-        pending.append(snap)
-        if len(pending) >= batch:
-            flush(pending)
-            pending = []
-    if pending:
-        flush(pending)
-
-    result: Dict[str, np.ndarray] = {k: np.concatenate(v) for k, v in chunks.items()}
-    result["times"] = np.asarray(times)
-    return result
+    for local, k in batches:
+        flush(local, k)
+    return {key: np.concatenate(v) for key, v in chunks.items()}
 
 
 def _volume_header(path):
@@ -360,55 +380,17 @@ def _pod_flagship_series(model, paths, headers, batch: int, prefetch_depth: int,
     def slab(name, shape):
         return runtime.space_placement(mesh, axis=len(shape) - 3)
 
-    chunks: Dict[str, list] = {}
-    batch_cap = [0]  # the batch that fits, in whole snap rows, once an OOM has shown it
-
-    def run(local, k):
-        stacked = []
-        try:
-            for f in FIELDS:
-                stacked.append(torch.stack([_uniform_volume(s, f, "flagship_series") for s in local]))
-            out = flagship.sharded_series_analysis_step(*stacked, mesh=mesh)
-        finally:
-            stacked.clear()
-        for key, v in _join_snap_rows(out, mesh, n_snap).items():
-            chunks.setdefault(key, []).append(v[:k].cpu().numpy())
-
-    def flush(local, k):
-        # ``local``: this rank's snapshots of a batch of ``k`` real ones
-        # (len(local) * n_snap once padded).
-        cap = batch_cap[0] // n_snap
-        if cap and len(local) > cap:
-            for j in range(0, len(local), cap):
-                flush(local[j : j + cap], min(k - j * n_snap, cap * n_snap))
-            return
-        half = 0
-        try:
-            run(local, k)
-        except torch.cuda.OutOfMemoryError:
-            if len(local) <= 1:
-                raise
-            half = (len(local) + 1) // 2
-            batch_cap[0] = half * n_snap
-            logger.warning(
-                "flagship_series: batch %d exhausted device memory; falling back to batches "
-                "of %d for the rest of the series", k, half * n_snap,
-            )
-        if half:
-            if model.device.type == "cuda":
-                torch.cuda.empty_cache()
-            flush(local[:half], half * n_snap)
-            flush(local[half:], k - half * n_snap)
+    def step(*fields):
+        return _join_snap_rows(flagship.sharded_series_analysis_step(*fields, mesh=mesh), mesh, n_snap)
 
     order = [paths[i] for g in groups for i in share(g)]
     snaps = iter(SnapshotPrefetcher(order, FIELDS, depth=prefetch_depth, sharding=slab,
                                     device=model.device))
     try:
-        for g in groups:
-            flush([next(snaps) for _ in range(-(-len(g) // n_snap))], len(g))
+        batches = (([next(snaps) for _ in range(-(-len(g) // n_snap))], len(g)) for g in groups)
+        result = _batched_series(batches, step, n_snap, model.device)
     finally:
         snaps.close()
-    result: Dict[str, np.ndarray] = {k: np.concatenate(v) for k, v in chunks.items()}
     result["times"] = np.asarray([t for t, _shape in headers])
     return result
 

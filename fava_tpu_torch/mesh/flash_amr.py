@@ -655,10 +655,11 @@ class FLASH(Structured):
         ny multiples of it), each rank regrids its x-slab from only the
         blocks that slab reads and keeps it (module docstring); other
         output extents fall back, with a warning, to the whole output
-        on every rank. ``sharding`` (the output's x placement over the
-        space axis, ``parallel.runtime.space_placement()``) instead makes
-        each rank regrid its slab from the whole block stack. A source
-        volume that is itself sharded is gathered first.
+        on every rank. ``sharding``, kept for fava_tpu's signature, may
+        only name that placement (``parallel.runtime.space_placement()``)
+        of an output that shards, and takes the same path; any other
+        value raises. A source volume that is itself sharded is gathered
+        first.
         """
         if subdomain_coords is not None:
             sc = np.asarray(subdomain_coords, dtype=np.float64)
@@ -730,17 +731,13 @@ class FLASH(Structured):
         """(regridded fields, the mesh they are slab-sharded over or
         None): from_amr's choice of path under the active mesh."""
         mesh = runtime.get_mesh()
-        if sharding is not None:
-            if sharding != runtime.space_placement(mesh) or not runtime.shards_volume(
-                plan.out_shape, mesh
-            ):
-                raise ValueError(
-                    f"from_amr: sharding {sharding} is not the x placement of an output of "
-                    f"{plan.out_shape} over the active mesh's space axis"
-                )
-            data = {key: self._field_stack(key) for key in fields}
-            return regrid_ops.regrid_fields(plan, data, fields, sharding=sharding), mesh
-        if self.ndim == 3 and runtime.shards_volume(plan.out_shape, mesh):
+        shards = self.ndim == 3 and runtime.shards_volume(plan.out_shape, mesh)
+        if sharding is not None and (not shards or sharding != runtime.space_placement(mesh)):
+            raise ValueError(
+                f"from_amr: sharding {sharding} is not the x placement of an output of "
+                f"{plan.out_shape} over the active mesh's space axis"
+            )
+        if shards:
             stacks = {key: self._host_field_stack(key) for key in fields}
             return regrid_ops.regrid_fields_sharded(
                 plan, stacks, fields, mesh, device=self.device, dtype=field_dtype(self.device)

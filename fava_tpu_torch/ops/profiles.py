@@ -244,10 +244,16 @@ def _stack_stats(data: Dict[str, torch.Tensor], geom: ProfileGeometry):
     placement = runtime.block_sharding()
     if placement is None or placement.parts == 1:
         return _share_stats(_leaf_fields(data, geom), geom)
-    raw, mu, cen = _share_stats(_leaf_fields(data, geom, placement), geom)
-    sizes = (raw.shape[0], mu.shape[0], cen.shape[0])
-    whole = runtime.gather_flat(torch.cat([raw, mu, cen]), dim=1)
-    return whole[:, : geom.blocklist.size].split(sizes)
+    share = _share_stats(_leaf_fields(data, geom, placement), geom)
+    joined = runtime.gather_flat(torch.cat(share), dim=1)
+    return _split_joined(joined, tuple(t.shape[0] for t in share), geom)
+
+
+def _split_joined(joined: torch.Tensor, sizes: Tuple[int, ...], geom: ProfileGeometry):
+    """(raw, mu, cen) of the whole leaf stack from every rank's packed
+    share (``sizes`` rows each of raw, mu and cen) joined along the
+    leaves in flat-rank order: the zero pad trimmed, the rows split."""
+    return joined[:, : geom.blocklist.size].split(sizes)
 
 
 def _scatter_centered_pairs(groups, scales: Tuple[int, ...], nfine: int, ref_fine, nvel: int):

@@ -28,7 +28,7 @@ bound, as its single-device regrid needs none.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +36,7 @@ import torch
 from fava_tpu_torch.io.flash_file import MESH_MDIM
 from fava_tpu_torch.ops import cuda_kernels
 from fava_tpu_torch.parallel import runtime
+from fava_tpu_torch.utils import resolve_device
 
 
 class RegridPlan:
@@ -237,16 +238,29 @@ class ShardedRegridPlan:
         return local.to(device=device, dtype=dtype or local.dtype).contiguous()
 
 
-def regrid_slab(splan: ShardedRegridPlan, r: int, stacks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Rank r's (nx/d, ny, nz) output slab of each local (bmax, bx, by,
-    bz) stack: K7 on the slab's box with the rank's tables."""
-    return cuda_kernels.regrid_fields(
-        stacks,
-        *splan.local_tables(r, stacks[0].device),
+def regrid_fields_slab(
+    splan: ShardedRegridPlan,
+    r: int,
+    stacks: Dict[str, object],
+    fields: Sequence[str],
+    device="cuda",
+    dtype=None,
+) -> Dict[str, torch.Tensor]:
+    """Rank r's (nx/d, ny, nz) output slab of each field: only the
+    blocks that slab reads are copied from the field's whole (nB, bx,
+    by, bz) stack in ``stacks`` (a host array or a tensor) to ``device``
+    as ``dtype`` (default: the stack's own), and K7 runs on the slab's
+    box with the rank's tables."""
+    device = resolve_device(device)
+    local = [splan.local_stack(r, stacks[name], device, dtype) for name in fields]
+    outs = cuda_kernels.regrid_fields(
+        local,
+        *splan.local_tables(r, device),
         splan.slab_shape,
         splan.slab_origin(r),
         tuple(int(c) for c in splan.plan.ncells_vec),
     )
+    return dict(zip(fields, outs))
 
 
 def regrid_fields_sharded(
@@ -255,23 +269,16 @@ def regrid_fields_sharded(
     fields: Sequence[str],
     mesh,
     axis_name: str = runtime.SPACE_AXIS,
-    device=None,
+    device="cuda",
     dtype=None,
 ) -> Dict[str, torch.Tensor]:
     """Sharded regrid: this rank's x-slab over the mesh's ``axis_name``
-    axis of each field, regridded from only the source blocks that slab
-    reads (``ShardedRegridPlan``).
-    ``host_stacks`` map each field to its whole (nB, bx, by, bz) stack,
-    a host array or a tensor; only the local blocks are copied to
-    ``device`` (the first stack's device when it is a tensor, else the
-    CPU), as ``dtype`` (default: the stacks' own)."""
+    axis of each field, regridded on ``device`` from only the source
+    blocks that slab reads (``ShardedRegridPlan``,
+    ``regrid_fields_slab``)."""
     splan = ShardedRegridPlan(plan, runtime.axis_size(mesh, axis_name))
     r = int(mesh.get_local_rank(axis_name))
-    first = host_stacks[fields[0]]
-    if device is None:
-        device = first.device if isinstance(first, torch.Tensor) else "cpu"
-    stacks = [splan.local_stack(r, host_stacks[name], device, dtype) for name in fields]
-    return dict(zip(fields, regrid_slab(splan, r, stacks)))
+    return regrid_fields_slab(splan, r, host_stacks, fields, device, dtype)
 
 
 def regrid_fields(
@@ -285,24 +292,21 @@ def regrid_fields(
     The source index of each output cell is worked out once per launch
     and copied for every field of that launch. With ``sharding`` (a
     ``parallel.runtime.Placement`` of the output's x axis) the result is
-    this rank's rows of the output, regridded from the whole stack.
+    that part's x-slab, from the blocks it reads (``regrid_fields_slab``).
     """
     first = data[fields[0]]
     if first.ndim != 4:
         raise ValueError("regrid expects (nblocks, ncx, ncy, ncz) stacks")
-    out_shape = plan.out_shape
-    origin = tuple(int(o) for o in plan.out_origin)
     if sharding is not None:
         if sharding.axis != 0:
             raise ValueError(f"regrid output is sharded along x, not axis {sharding.axis}")
-        lo, hi = sharding.bounds(out_shape[0])
-        out_shape = (hi - lo,) + tuple(out_shape[1:])
-        origin = (origin[0] + lo,) + origin[1:]
+        splan = ShardedRegridPlan(plan, sharding.parts)
+        return regrid_fields_slab(splan, sharding.index, data, fields, first.device)
     outs = cuda_kernels.regrid_fields(
         [data[name] for name in fields],
         *plan.device_tables(first.device),
-        out_shape,
-        origin,
+        plan.out_shape,
+        tuple(int(o) for o in plan.out_origin),
         tuple(int(c) for c in plan.ncells_vec),
     )
     return dict(zip(fields, outs))

@@ -284,7 +284,9 @@ def block_sharding(mesh=None, ndim: int = 4) -> Optional[Placement]:
     """The placement of an (nblocks, nx, ny, nz) stack split along blocks
     over ALL mesh axes (blocks are independent, so a snap x space pod
     uses every rank instead of replicating the stack over snap rows).
-    None with no mesh or no space axis."""
+    None with no mesh or no space axis. ``ndim`` is kept for fava_tpu's
+    signature only: a placement names its axis, not the rank of the
+    array."""
     mesh = mesh if mesh is not None else _MESH
     if mesh is None or SPACE_AXIS not in (mesh.mesh_dim_names or ()):
         return None
@@ -294,7 +296,8 @@ def block_sharding(mesh=None, ndim: int = 4) -> Optional[Placement]:
 def ingest_volume_sharding(mesh=None, ndim: int = 3) -> Optional[Placement]:
     """The placement of one prefetched snapshot volume: its leading axis
     split over ALL mesh axes, so each byte is read by one rank only. None
-    with no mesh."""
+    with no mesh. ``ndim`` is kept for fava_tpu's signature only, as in
+    ``block_sharding``."""
     mesh = mesh if mesh is not None else _MESH
     if mesh is None:
         return None

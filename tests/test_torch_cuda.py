@@ -1447,15 +1447,17 @@ def test_block_moments_on_leaf_shares_equal_one_launch(cuda_device, tmp_path, pa
     launches = {k: v for k, v in ck.launch_counts().items() if v}
     assert launches == {"block_row_moments": parts, "block_centered_row_moments": parts}
     nleaf = geom.blocklist.size
-    assert torch.equal(joined[:, :nleaf], whole)
+    sizes = tuple(t.shape[0] for t in profiles._stack_stats(data, geom))
+    assert torch.equal(torch.cat(profiles._split_joined(joined, sizes, geom)), whole)
     assert not joined[:, nleaf:].any()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("parts", [2, 4, 8])
 def test_regrid_slabs_equal_the_whole_regrid(cuda_device, tmp_path, parts):
-    """K7 on each rank's slab from its local stack of bmax blocks,
-    stacked, equals the single regrid exactly (injection is a copy)."""
+    """K7 on each rank's slab from its local stack of bmax blocks, copied
+    from the host arrays that from_amr passes, stacked, equals the single
+    regrid exactly (injection is a copy)."""
     mesh = _amr_mesh(cuda_device, tmp_path)
     names = ["dens", "velx"]
     data = {k: mesh._field_stack(k) for k in names}
@@ -1466,9 +1468,16 @@ def test_regrid_slabs_equal_the_whole_regrid(cuda_device, tmp_path, parts):
     splan = regrid.ShardedRegridPlan(plan, parts)
     assert splan.bmax < mesh.nblocks
     ck.reset_launch_counts()
-    slabs = [regrid.regrid_slab(splan, r, [splan.local_stack(r, data[k], cuda_device) for k in names])
+    # from_amr's inputs: a mesh whose fields are not loaded hands over
+    # host arrays read from the file, copied to the card block by block.
+    cold = fava_tpu_torch.mesh.FLASH(mesh.filename, device=cuda_device)
+    cold.load()
+    hosts = {k: cold._host_field_stack(k) for k in names}
+    assert all(isinstance(h, np.ndarray) for h in hosts.values())
+    slabs = [regrid.regrid_fields_slab(splan, r, hosts, names, cuda_device,
+                                       fava_tpu_torch.utils.field_dtype(cuda_device))
              for r in range(parts)]
     torch.cuda.synchronize()
     assert {k: v for k, v in ck.launch_counts().items() if v} == {"regrid_fields": parts}
-    for i, k in enumerate(names):
-        assert torch.equal(torch.cat([sl[i] for sl in slabs]), whole[k])
+    for k in names:
+        assert torch.equal(torch.cat([sl[k] for sl in slabs]), whole[k])

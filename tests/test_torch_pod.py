@@ -186,7 +186,7 @@ def _scenarios(rank: int, world: int, paths: dict, workdir: str):
         _, out["regrid_calls"] = run(lambda: m.from_amr(fields=["dens", "velx"], save_file=False))
         out["regrid"] = ({k: m._slab(k).numpy() for k in ("dens", "velx")}, m._dmesh is space,
                          m.data("dens").numpy())
-        # An explicit placement: the rank's slab from the whole stack.
+        # An explicit placement takes the same path.
         m = AMR(paths["amr"], device="cpu")
         m.load()
         _, out["placed_calls"] = run(lambda: m.from_amr(
@@ -555,7 +555,6 @@ def test_sharded_amr_regrid_via_from_amr(request, world, files):
     from a local stack of bmax blocks."""
     from fava_tpu.mesh import FLASH as FlashAMR
     from fava_tpu.parallel import use_mesh
-    from fava_tpu_torch.mesh import FLASH as TorchAMR
     from fava_tpu_torch.ops import regrid as tregrid
 
     ranks, n = _world(request, world)
@@ -583,7 +582,7 @@ def test_sharded_amr_regrid_via_from_amr(request, world, files):
         np.testing.assert_array_equal(whole, np.asarray(ref0._data["dens"]))
         np.testing.assert_array_equal(r["placed"], slabs["dens"])
         ((_name, placed),) = r["placed_calls"]
-        assert placed[0] == [(len(plan.block_scales), 8, 8, 8)] and placed[5] == (lo, 0, 0)
+        assert placed[0] == [(splan.bmax, 8, 8, 8)] and placed[5] == (lo, 0, 0)
         ((name, shapes),) = r["regrid_calls"]
         assert name == "regrid_fields"
         stacks, table, offsets, scales, out_shape, origin, _ncells = shapes
@@ -676,5 +675,78 @@ def test_stack_stats_shares_concatenate_exactly(parts, amr_file):
     joined = torch.cat(shares, dim=1)
     nleaf = geom.blocklist.size
     assert joined.shape[1] == -(-nleaf // parts) * parts
-    assert torch.equal(joined[:, :nleaf], whole)
+    sizes = tuple(t.shape[0] for t in profiles._stack_stats(data, geom))
+    assert torch.equal(torch.cat(profiles._split_joined(joined, sizes, geom)), whole)
     assert not joined[:, nleaf:].any()
+
+
+def _regrid_plan(mesh, tregrid):
+    return tregrid.RegridPlan(block_bounds=mesh.block_bounds, node_type=mesh.node_type,
+                              refine_level=mesh.refine_level, ncells_vec=mesh.nCellsVec,
+                              nblks_vec=mesh.nBlksVec, ndim=3)
+
+
+@pytest.mark.parametrize("parts", [1, 2, 4, 8])
+def test_placed_regrid_slabs_equal_the_whole_regrid(parts, amr_file):
+    """regrid_fields with a placement of the output's x axis gives that
+    part's slab from only the blocks it reads; the parts, stacked, equal
+    the whole regrid exactly."""
+    from fava_tpu_torch.mesh import FLASH as TorchAMR
+    from fava_tpu_torch.ops import regrid as tregrid
+    from fava_tpu_torch.parallel import Placement
+
+    m = TorchAMR(amr_file, device="cpu")
+    m.load()
+    names = ["dens", "velx"]
+    data = {k: m._field_stack(k) for k in names}
+    plan = _regrid_plan(m, tregrid)
+    whole = tregrid.regrid_fields(plan, data, names)
+    slabs = [tregrid.regrid_fields(plan, data, names, sharding=Placement(0, r, parts))
+             for r in range(parts)]
+    for k in names:
+        assert torch.equal(torch.cat([sl[k] for sl in slabs]), whole[k])
+    with pytest.raises(ValueError, match="sharded along x"):
+        tregrid.regrid_fields(plan, data, names, sharding=Placement(1, 0, parts))
+
+
+def test_sharded_regrid_defaults_to_the_card(amr_file):
+    """regrid_fields_sharded runs on cuda unless the caller asks for the
+    CPU, whatever the type of the stacks it is given: host arrays from
+    _host_field_stack raise without CUDA and are regridded on the CPU
+    only with device="cpu"."""
+    from fava_tpu_torch.mesh import FLASH as TorchAMR
+    from fava_tpu_torch.ops import regrid as tregrid
+
+    class OneRank:
+        """A one-rank space mesh, as far as the regrid reads it."""
+
+        mesh_dim_names = ("space",)
+        shape = (1,)
+
+        def get_local_rank(self, axis):
+            return 0
+
+    m = TorchAMR(amr_file, device="cpu")
+    m.load()
+    plan = _regrid_plan(m, tregrid)
+    stacks = {"dens": m._host_field_stack("dens")}
+    assert isinstance(stacks["dens"], np.ndarray)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tregrid.regrid_fields_sharded(plan, stacks, ["dens"], OneRank())
+    got = tregrid.regrid_fields_sharded(plan, stacks, ["dens"], OneRank(), device="cpu",
+                                        dtype=torch.float64)
+    want = tregrid.regrid_fields(plan, {"dens": m._field_stack("dens")}, ["dens"])
+    assert got["dens"].device.type == "cpu" and torch.equal(got["dens"], want["dens"])
+
+
+def test_from_amr_refuses_a_foreign_placement(amr_file):
+    """from_amr's sharding may only name the output's x placement over
+    the active mesh's space axis; with no mesh any placement raises."""
+    from fava_tpu_torch.mesh import FLASH as TorchAMR
+    from fava_tpu_torch.parallel import Placement
+
+    m = TorchAMR(amr_file, device="cpu")
+    m.load()
+    with pytest.raises(ValueError, match="is not the x placement"):
+        m.from_amr(fields=["dens"], save_file=False, sharding=Placement(0, 0, 2))
