@@ -268,6 +268,22 @@ no result):
    288-leaf plt series under the pod against the calls without one; (e)
    ``SnapshotPrefetcher`` with ``ingest_sharding_fn`` on the window file:
    the fields arrive whole. (a)-(c) timed by CUDA events.
+27. The rank-local analyses (after phase 26, on phase 8's 512^3 window
+   and phase 19's flam window): a one-rank NCCL world on cuda:0 with the
+   (1,) "space" mesh. (a) The profiles (Reynolds and Favre along x: K1,
+   K2; Reynolds along y; the slice integral along z), the volume
+   integral and mass sum with a mask, the scalar spectrum (the pencil
+   transform and the one-channel B6), the fractal dimension (0.5 and the
+   mean), the structure functions and increment PDFs (the pipeline's
+   defaults), the turbulence summary and the gradient statistics
+   (periodic and interior), each through its ops entry with ``mesh=``
+   the (1,) mesh and on the single device, with exact launches, held to
+   each other (TOL_RANKLOCAL, TOL_SPECTRA, equality), with warm walls;
+   (b) the rank-local bodies on d = 2, 4, 8 virtual ranks joined by
+   ``SpaceRanks(d=d)``: launches exactly d, box counts equal, the
+   structure family equal bit for bit, sums within the same bounds; (c)
+   the one-channel B6 on a transposed (128, 512, 257) slab at kx0 = 128
+   against its plain twin and its bound. At most 60 s.
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -305,6 +321,7 @@ SOURCES = {
     "pdf2d_counts": "fava_tpu_torch/csrc/pdf2d_kernels.cu",
     "pdf2d_weighted": "fava_tpu_torch/csrc/pdf2d_kernels.cu",
     "shell_bin_values_rfft_chunk": "fava_tpu_torch/csrc/shell_bins.cuh",
+    "shell_bin_values_rfft_chunk_1ch": "fava_tpu_torch/csrc/shell_bins.cuh",
     "shell_bin_powers_fused": "fava_tpu_torch/csrc/fused_spectra_kernels.cu",
     "shell_bin_sums_folded_onepass": "fava_tpu_torch/csrc/shell_bins.cuh",
     "shell_bin_values_folded_rows": "fava_tpu_torch/csrc/shell_bins.cuh",
@@ -324,6 +341,7 @@ REPLACES = {
     "pdf2d_counts": "fava_tpu/ops/pallas_pdf2d.py:75",
     "pdf2d_weighted": "fava_tpu/ops/pallas_pdf2d.py:91",
     "shell_bin_values_rfft_chunk": "fava_tpu/ops/pallas_kernels.py:1291",
+    "shell_bin_values_rfft_chunk_1ch": "fava_tpu/ops/pallas_kernels.py:1291",
     "shell_bin_powers_fused": "fava_tpu/ops/pallas_kernels.py:1539",
     "shell_bin_sums_folded_onepass": "fava_tpu/ops/pallas_kernels.py:758",
     "shell_bin_values_folded_rows": "fava_tpu/ops/pallas_kernels.py:851",
@@ -4850,6 +4868,262 @@ def phase_pod(torch, np, workdir: Path, card: str):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the rank-local analyses (A11d) in a one-rank NCCL world
+
+# The one-rank mesh path and the virtual ranks against the single device:
+# the profiles, the volume sums and the real-space summary and gradient
+# sums are float64 sums of the same float32 values in another order
+# (TOL_RANKLOCAL of scale; the profiles floored as compare_profiles
+# floors them, the gradient entries by their natural scale); the scalar
+# spectrum and the summary's spectral entries carry another float32
+# transform decomposition (the pencil: rfft2, exchange, fft along x,
+# against rfftn; TOL_SPECTRA of scale); the structure functions and the
+# increment PDFs read the same float32 cells and are equal bit for bit;
+# the box counts are equal.
+TOL_RANKLOCAL = 1e-9
+RANKLOCAL_K12 = {"row_moments": 1, "centered_row_moments": 1}
+RANKLOCAL_B6 = "shell_bin_values_rfft_chunk_1ch"
+RANKLOCAL_SLAB = (128, 512, 257)  # (c): rank 1 of 4's transposed y-slab of the 512^3 half-spectrum
+
+
+def ranklocal_runs(ops, inputs, mesh):
+    """{name: (fn, exact launches)} of the slice's analyses through their
+    ops entries, with ``mesh`` or on the single device (mesh None)."""
+    profiles, volume, spectra, fractal, structure, velocity, gradients = ops
+    data, geoms, cv, cvb, blocklist, mask, flam, dens, vels, bounds, lengths = inputs
+    scalar = {RANKLOCAL_B6: 1} if mesh is not None else {"fold_quadrants_pair": 1,
+                                                          "shell_bin_values_folded_1ch": 1}
+    return {
+        "reynolds_stress x": (lambda: profiles.reynolds_stress(data, geoms[0], mesh=mesh)[1:],
+                              RANKLOCAL_K12),
+        "favre_profiles x": (lambda: profiles.favre_profiles(data, geoms[0], mesh=mesh), RANKLOCAL_K12),
+        "reynolds_stress y": (lambda: profiles.reynolds_stress(data, geoms[1], mesh=mesh)[1:], {}),
+        "slice_integral z": (lambda: profiles.slice_integral(data["dens"], geoms[2], mesh=mesh)[1], {}),
+        "volume_integration": (lambda: volume.volume_integration(data["dens"], cv, blocklist,
+                                                                 mesh=mesh), {}),
+        "mass_sum": (lambda: volume.mass_sum(data["dens"], cvb, {"dense": mask}, mesh=mesh), {}),
+        "scalar spectrum": (lambda: spectra.scalar_spectrum(dens, mesh=mesh), scalar),
+        "fractal dimension": (lambda: fractal.fractal_dimension(flam, [0.5, None], mesh=mesh), {}),
+        "structure functions": (lambda: structure.structure_functions(
+            vels, domain_bounds=bounds, mesh=mesh), {}),
+        "velocity increment pdfs": (lambda: structure.velocity_increment_pdfs(
+            vels, domain_bounds=bounds, mesh=mesh), {}),
+        "turbulence summary": (lambda: velocity.turbulence_summary(
+            *vels, dens=dens, lengths=lengths, mesh=mesh), {}),
+        "gradient statistics": (lambda: gradients.velocity_gradient_statistics(
+            *vels, lengths=lengths, mesh=mesh), {}),
+        "gradient statistics interior": (lambda: gradients.velocity_gradient_statistics(
+            *vels, lengths=lengths, boundary="interior", mesh=mesh), {}),
+    }
+
+
+def virtual_ranklocal_runs(ops, runtime, inputs, d):
+    """The rank-local bodies on d virtual ranks' x-slabs (views of the
+    whole volumes), joined by the code that the collectives feed
+    (``runtime.SpaceRanks(d=d)``); the spectral bodies take their y-slab
+    of the whole transform. The same names as ``ranklocal_runs``."""
+    profiles, volume, spectra, fractal, structure, velocity, gradients = ops
+    data, geoms, cv, cvb, blocklist, mask, flam, dens, vels, bounds, lengths = inputs
+    ranks = runtime.SpaceRanks(d=d)
+    n = int(dens.shape[0]) // d
+
+    def cut(t, dim=0):
+        return [t.narrow(dim, r * n, n) for r in range(d)]
+
+    stacks = [{k: v.narrow(1, r * n, n) for k, v in data.items()} for r in range(d)]
+    vel_slabs = [list(v) for v in zip(*(cut(v) for v in vels))]
+    k12 = {k: d for k in RANKLOCAL_K12}
+    return {
+        "reynolds_stress x": (lambda: profiles.reynolds_stress_ranked(stacks, geoms[0], ranks)[1:],
+                              k12),
+        "favre_profiles x": (lambda: profiles.favre_profiles_ranked(stacks, geoms[0], ranks), k12),
+        "reynolds_stress y": (lambda: profiles.reynolds_stress_ranked(stacks, geoms[1], ranks)[1:],
+                              {}),
+        "slice_integral z": (lambda: profiles.slice_integral_ranked(
+            cut(data["dens"], 1), geoms[2], ranks)[1], {}),
+        "scalar spectrum": (lambda: spectra.scalar_spectrum_from_slabs(
+            ranks.pencil_rfft(cut(dens)), tuple(dens.shape), ranks), {RANKLOCAL_B6: d}),
+        "fractal dimension": (lambda: fractal.fractal_dimension_ranked(cut(flam), ranks,
+                                                                       [0.5, None]), {}),
+        "structure functions": (lambda: structure.structure_functions_ranked(
+            vel_slabs, ranks, domain_bounds=bounds), {}),
+        "velocity increment pdfs": (lambda: structure.velocity_increment_pdfs_ranked(
+            vel_slabs, ranks, domain_bounds=bounds), {}),
+        "turbulence summary": (lambda: dict(zip(
+            velocity.summary_names(True, False),
+            velocity.turbulence_summary_ranked(vel_slabs, ranks, cut(dens), lengths=lengths)
+            .cpu().numpy().tolist())), {}),
+        "gradient statistics": (lambda: gradients.assemble_gradient_stats(
+            gradients.gradient_stats_ranked(vel_slabs, ranks, lengths).cpu().numpy(), 3), {}),
+        "gradient statistics interior": (lambda: gradients.assemble_gradient_stats(
+            gradients.gradient_stats_ranked(vel_slabs, ranks, lengths, "interior").cpu().numpy(),
+            3), {}),
+    }
+
+
+def same_nested(np, a, b):
+    """Nested dicts of arrays and floats equal bit for bit (NaN where NaN)."""
+    if isinstance(b, dict):
+        return sorted(a) == sorted(b) and all(same_nested(np, a[k], b[k]) for k in b)
+    return np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True)
+
+
+def hold_ranklocal(np, got, ref, vmax, dmax, what):
+    """Hold each analysis of the slice to the single device's result
+    (TOL_RANKLOCAL, TOL_SPECTRA, equality: the phase's comment)."""
+    worst = {}
+    for name, r in ref.items():
+        g = got[name]
+        if name.startswith(("reynolds", "favre", "slice")):
+            worst[name] = compare_profiles(np, g, r, vmax, dmax, f"{what} {name}", 27) / TOL_PROFILES
+        elif name in ("volume_integration", "mass_sum"):
+            pairs = [(g, r)] if name == "volume_integration" else [(g[k], r[k]) for k in r]
+            worst[name] = max(abs(a - b) / abs(b) for a, b in pairs) / TOL_RANKLOCAL
+        elif name == "scalar spectrum":
+            gv, rv = g["power"], r["power"]
+            if not np.array_equal(np.isnan(gv), np.isnan(rv)) or not np.array_equal(g["k"], r["k"]):
+                fail(f"{what} {name}: other shells than the single device's")
+            ok = ~np.isnan(rv)
+            worst[name] = float(np.abs(gv[ok] - rv[ok]).max() / np.abs(rv[ok]).max()) / TOL_SPECTRA
+        elif name == "turbulence summary":
+            if list(g) != list(r):
+                fail(f"{what} summary entries {list(g)} vs {list(r)}")
+            worst[name] = max(abs(g[k] - v) / max(abs(v), 1e-300)
+                              / (TOL_RANKLOCAL if k in SUMMARY_REAL_SPACE else TOL_SPECTRA)
+                              for k, v in r.items())
+        elif name.startswith("gradient statistics"):
+            worst[name] = max(float(np.max(np.abs(np.asarray(g[k]) - np.asarray(r[k]))
+                                           / np.maximum(scale, 1e-300)))
+                              for k, scale in gradient_scales(np, r).items()) / TOL_RANKLOCAL
+        else:  # the fractal dimension, structure functions, increment PDFs
+            worst[name] = 0.0 if same_nested(np, g, r) else float("inf")
+    top = max(worst, key=worst.get)
+    say(f"phase 27 {what} vs the single device: worst error/bound {worst[top]!r} ({top}); "
+        f"{json.dumps(worst)}")
+    bad = {k: v for k, v in worst.items() if not v <= 1.0}
+    if bad:
+        fail(f"{what} disagrees with the single device (error/bound): {bad}")
+    return worst
+
+
+def ranklocal_b6_row(torch, ck, dens):
+    """(c): the one-channel B6 on a transposed (128, 512, 257) y-slab of
+    the dens power at kx0 = 128 against its plain twin, timed against its
+    bound (CUDA events)."""
+    nx, ny, nz = (int(s) for s in dens.shape)
+    nbins = max(nx, ny, nz) // 2 - 1
+    cols, lo = RANKLOCAL_SLAB[0], RANKLOCAL_SLAB[0]
+    f = torch.fft.rfftn(dens, norm="forward")[:, lo : lo + cols]
+    p = (f.real.square() + f.imag.square()).transpose(0, 1).contiguous()
+    del f
+    if tuple(p.shape) != RANKLOCAL_SLAB:
+        fail(f"phase 27 B6 slab {tuple(p.shape)}, expected {RANKLOCAL_SLAB}")
+    got = ck.shell_bin_values_rfft_chunk(p, None, nbins, ny, nz, lo)
+    torch.cuda.synchronize()
+    ref = ck._shell_bin_unfolded_plain(p.double(), None, nbins, nz, lo, ny)
+    if got.shape != (1, nbins):
+        fail(f"the one-channel B6 gave {tuple(got.shape)}")
+    err = (got - ref).abs()
+    ratio = float((err / (TOL_BIN * ref.abs()).clamp(min=1e-300)).max())
+    inside = inside_cells(ck, p, nbins, full_nz=nz, kx0=lo, full_nx=ny)
+    return kernel_row(torch, 27, f"one-channel B6 on the transposed slab {RANKLOCAL_SLAB} at kx0 {lo}",
+                      float(err.max()), ratio, TOL_BIN,
+                      lambda: ck.shell_bin_values_rfft_chunk(p, None, nbins, ny, nz, lo),
+                      lambda: ck._shell_bin_unfolded_plain(p, None, nbins, nz, lo, ny),
+                      (4 * inside + 8 * nbins, 4 * inside))
+
+
+def phase_ranklocal(torch, np, workdir: Path, card: str):
+    """Phase 27 (after phase 26, on phase 8's 512^3 window and phase 19's
+    flam window): a one-rank NCCL world on cuda:0 and the (1,) "space"
+    mesh. (a) Each analysis of the slice through its ops entry with
+    ``mesh=`` the (1,) mesh (the rank-local path; the placement rule
+    shards nothing on one rank) and on the single device, each with exact
+    launches (the mesh's: K1 1 and K2 1 for the profiles along x, the
+    one-channel B6 1 for the scalar spectrum), held to each other, with
+    warm walls. (b) The rank-local bodies on d = 2, 4, 8 virtual ranks,
+    joined by ``SpaceRanks(d=d)``: launches exactly d, box counts equal,
+    the structure functions and increment PDFs equal bit for bit, sums
+    within the stated bounds of the single device. (c) The one-channel B6
+    on a transposed (128, 512, 257) slab at kx0 = 128 against its plain
+    twin and its bound."""
+    import torch.distributed as dist
+
+    import fava_tpu_torch
+    from fava_tpu_torch import parallel
+    from fava_tpu_torch.ops import cuda_kernels as ck
+    from fava_tpu_torch.ops import fractal, gradients, profiles, spectra, structure, velocity, volume
+
+    t_phase = time.perf_counter()
+    times = {"card": card}
+    totals = {}
+    ops = (profiles, volume, spectra, fractal, structure, velocity, gradients)
+    with tempfile.TemporaryDirectory(prefix="fava_ranklocal_") as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+                                timeout=parallel.runtime.COLLECTIVE_TIMEOUT)
+        try:
+            m1 = parallel.make_device_mesh((1,), device="cuda")
+            uni = fava_tpu_torch.FLASH(workdir)
+            uni.load(file_type="uni", file_index=0)
+            mesh = uni.mesh
+            flm = fava_tpu_torch.FLASH(workdir / "flam")
+            flm.load(file_type="uni", fields=["flam"])
+            dens = mesh._volume("dens")
+            vels = [mesh._volume(f"vel{a}") for a in "xyz"]
+            flam = flm.mesh._volume("flam")
+            mask = (dens > dens.median()).cpu().numpy()[None]
+            cv = mesh.get_cell_volumes()
+            inputs = (mesh._profile_fields(), [mesh._profile_geometry(a) for a in range(3)],
+                      cv, np.asarray(cv).reshape(-1, 1, 1, 1), mesh.get_blocklist("LEAF"), mask,
+                      flam, dens, vels, mesh.domain_bounds, mesh._domain_lengths())
+            vmax = max(float(v.abs().max()) for v in vels)
+            dmax = float(dens.abs().max())
+            single, times["single_walls_s"], counts = run_exact_counts(
+                torch, ck, 27, ranklocal_runs(ops, inputs, None), "single device")
+            add_counts(totals, counts)
+            meshed, times["mesh_walls_s"], counts = run_exact_counts(
+                torch, ck, 27, ranklocal_runs(ops, inputs, m1), "(1,) mesh")
+            add_counts(totals, counts)
+            times["mesh_errors"] = hold_ranklocal(np, meshed, single, vmax, dmax, "(1,) mesh")
+            times["mesh_over_single"] = {k: times["mesh_walls_s"][k] / times["single_walls_s"][k]
+                                         for k in single}
+            del meshed
+            flength = int(np.log2(min(flam.shape))) + 1
+            for d in VIRTUAL_RANKS:
+                got, times[f"{d}_ranks_walls_s"], counts = run_exact_counts(
+                    torch, ck, 27, virtual_ranklocal_runs(ops, parallel.runtime, inputs, d),
+                    f"{d} virtual ranks")
+                add_counts(totals, counts)
+                ref = {k: v for k, v in single.items() if k in got}
+                times[f"{d}_ranks_errors"] = hold_ranklocal(np, got, ref, vmax, dmax,
+                                                            f"{d} virtual ranks")
+                ranks = parallel.runtime.SpaceRanks(d=d)
+                n = N // d
+                slabs = [flam.narrow(0, r * n, n) for r in range(d)]
+                for c in (0.5, flam.double().mean().float()):
+                    masks = [fractal.edge_detect(s, c, h, r * n, N)
+                             for s, h, r in zip(slabs, ranks.halos(slabs), ranks.ranks)]
+                    boxes = fractal.box_counts_ranked(masks, ranks, tuple(flam.shape), flength)
+                    whole = fractal.box_counts(fractal.edge_detect(flam, c), flength)
+                    if not np.array_equal(boxes, whole):
+                        fail(f"box counts on {d} virtual ranks {boxes.tolist()} differ from the "
+                             f"single device's {whole.tolist()}")
+                say(f"phase 27 {d} virtual ranks: box counts equal to the single device's")
+                del got
+            row = ranklocal_b6_row(torch, ck, dens)
+            del uni, flm, mesh, dens, vels, flam, inputs, single
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    times["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase 27 rank-local timings: {json.dumps(times)}")
+    if times["phase_s"] > 60:
+        fail(f"phase 27 took {times['phase_s']:.1f} s, over its 60 s")
+    return totals, row
+
+
 def main() -> None:
     sys.path.insert(0, str(HERE))
     try:
@@ -4940,10 +5214,13 @@ def main() -> None:
         sharded_launches = phase_sharded(torch, np, workdir, card)
         torch.cuda.empty_cache()
         pod_launches = phase_pod(torch, np, workdir, card)
+        torch.cuda.empty_cache()
+        ranklocal_launches, rows[RANKLOCAL_B6] = phase_ranklocal(torch, np, workdir, card)
     torch.cuda.empty_cache()
     pipe_launches, pipe_times = phase_pipeline(torch, np)
     for counts in (amr4_launches, win_launches, odd_launches, entry_launches, series_launches,
-                   velocity_launches, a8c_launches, sharded_launches, pod_launches, pipe_launches):
+                   velocity_launches, a8c_launches, sharded_launches, pod_launches,
+                   ranklocal_launches, pipe_launches):
         add_counts(launches, counts)
     say(f"phase 11-12 stage-4 timings: {json.dumps({'card': card, 'window': win_times, 'odd': odd_times})}")
     say(f"phase 16-17 entry point and series timings: "

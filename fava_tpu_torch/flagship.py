@@ -11,7 +11,8 @@ With a device mesh (``parallel/``) the inputs are the rank's x-slabs:
 the spectra come from the pencil transform and B6 on each rank's
 y-slab (``ops/spectra.sharded_power_spectra``), and the profiles from
 K1 and K2 on the local x-slab, whose rows are whole on the rank, then
-one all_gather on the space group. ``sharded_series_analysis_step``
+one all_gather of the row statistics on the space group
+(``ops/profiles.uniform_row_stats``, which the sharded profiles share). ``sharded_series_analysis_step``
 runs that step over the rank's snapshots of a snap x space batch; the
 series driver that collects them over the snap axis is ROADMAP A11c.
 
@@ -25,8 +26,7 @@ from typing import Dict
 
 import torch
 
-from fava_tpu_torch.ops import cuda_kernels
-from fava_tpu_torch.ops.profiles import assemble_profile_stats
+from fava_tpu_torch.ops.profiles import assemble_profile_stats, uniform_row_stats
 from fava_tpu_torch.ops.spectra import rfft_shell_sums, sharded_power_spectra
 from fava_tpu_torch.parallel import runtime
 from fava_tpu_torch.utils import field_dtype, resolve_device
@@ -55,13 +55,8 @@ def uniform_analysis_step(dens, velx, vely, velz, mesh=None) -> Dict[str, torch.
     # which avoids the cancellation of the one-pass expansion. Under a
     # mesh every row is whole on one rank, so both passes are local.
     layer = float(ny * nz)
-    moments = cuda_kernels.row_moments_volume(dens, *vels)
-    centered = cuda_kernels.centered_row_moments(
-        dens, *vels, (moments[1:4] / layer).contiguous()
-    )
-    if mesh is not None:
-        rows = runtime.gather_slabs(torch.cat([moments, centered]), mesh, dim=1)
-        moments, centered = rows.split([cuda_kernels.NMOM, cuda_kernels.NCEN])
+    moments, centered = uniform_row_stats(
+        [(dens, *vels)], None if mesh is None else runtime.SpaceRanks(mesh))
     d_row = moments[0]
     means = moments[1:4] / layer
     stress, favre_mean, favre_rms = assemble_profile_stats(

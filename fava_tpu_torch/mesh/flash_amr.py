@@ -14,10 +14,17 @@ its output along x over the space axis when the output's nx and ny
 divide it (the placement rule, ``parallel.runtime.shards_volume``):
 each rank regrids its x-slab from only the source blocks that slab
 reads (``ops/regrid.regrid_fields_sharded``), and the collapsed mesh
-holds that slab (``_dmesh``). A sharded mesh answers ``data()`` with
-the volume gathered over the space group, and ``save`` writes the
-gathered volume from rank 0 alone. A uniform mesh runs its sharded
-spectra and flagship step on the slab (``mesh/flash_uniform.py``).
+holds that slab (``_dmesh``). On a sharded mesh the profiles
+(``reynolds_stress``, ``favre_profiles``, the slice profiles along
+every axis) and the volume sums (``volume_integration``,
+``volume_average``, ``mass_sum``) are rank-local (ROADMAP A11d): they
+read the rank's slab (``_local_stack``) and join by collectives of row
+statistics or packed sums (``ops/profiles.py``, ``ops/volume.py``). The
+PDFs, ``binned_statistic``, ``sample_fields`` and the projection still
+take the volume gathered over the space group (A11e), as ``data()``
+answers, and ``save`` writes the gathered volume from rank 0 alone. A
+uniform mesh runs its further rank-local analyses on the slab
+(``mesh/flash_uniform.py``).
 """
 
 from __future__ import annotations
@@ -488,6 +495,15 @@ class FLASH(Structured):
             d = d[None]
         return d
 
+    def _local_stack(self, name: str) -> torch.Tensor:
+        """A field's block stack as this rank holds it: under a sharding
+        mesh its x-slab as one block (1, nx/d, ny, nz), else the whole
+        stack (``_field_stack``). The rank-local analyses read it."""
+        if self._dmesh is None:
+            return self._field_stack(name)
+        d = self._slab(name)
+        return d if d.ndim == 4 else d[None]
+
     def _host_field_stack(self, name: str):
         """A field's whole block stack without a copy on the card: the
         stack already on the device (gathered when the volume is
@@ -503,24 +519,26 @@ class FLASH(Structured):
         return host[None] if host.ndim == 3 else host
 
     def _profile_fields(self) -> Dict[str, torch.Tensor]:
-        data = {"dens": self._field_stack("dens")}
+        data = {"dens": self._local_stack("dens")}
         for a in "xyz"[: self.ndim]:
-            data[f"vel{a}"] = self._field_stack(f"vel{a}")
+            data[f"vel{a}"] = self._local_stack(f"vel{a}")
         return data
 
     @timer
     def reynolds_stress(self, raxis: int = 0):
         """Reynolds stress profiles along ``raxis``: (span, stress, means)."""
-        return profile_ops.reynolds_stress(self._profile_fields(), self._profile_geometry(raxis))
+        return profile_ops.reynolds_stress(self._profile_fields(), self._profile_geometry(raxis),
+                                           mesh=self._dmesh)
 
     @timer
     def favre_profiles(self, raxis: int = 0):
         """Favre means + mass-weighted RMS along ``raxis``."""
-        return profile_ops.favre_profiles(self._profile_fields(), self._profile_geometry(raxis))
+        return profile_ops.favre_profiles(self._profile_fields(), self._profile_geometry(raxis),
+                                          mesh=self._dmesh)
 
     def slice_integral(self, field: str, axis: int = 0):
         geom = self._profile_geometry(int(AXIS(axis)))
-        return profile_ops.slice_integral(self._field_stack(field), geom)
+        return profile_ops.slice_integral(self._local_stack(field), geom, mesh=self._dmesh)
 
     # The analysis is registered as "slice_integration" but the mesh
     # method of the reference is "slice_integral": provide both.
@@ -529,7 +547,7 @@ class FLASH(Structured):
 
     def slice_average(self, field: str, axis: int = 0):
         geom = self._profile_geometry(int(AXIS(axis)))
-        return profile_ops.slice_average(self._field_stack(field), geom)
+        return profile_ops.slice_average(self._local_stack(field), geom, mesh=self._dmesh)
 
     def _leaf_stack(self, field: str) -> torch.Tensor:
         stack = self._field_stack(field)
@@ -541,20 +559,22 @@ class FLASH(Structured):
     def volume_integration(self, field: str) -> float:
         blocklist = self.get_blocklist("LEAF")
         return volume_ops.volume_integration(
-            self._field_stack(field), self.get_cell_volumes(), blocklist
+            self._local_stack(field), self.get_cell_volumes(), blocklist, mesh=self._dmesh
         )
 
     def volume_average(self, field: str) -> float:
         blocklist = self.get_blocklist("LEAF")
         return volume_ops.volume_average(
-            self._field_stack(field), self.get_cell_volumes(), self.domain_volume, blocklist
+            self._local_stack(field), self.get_cell_volumes(), self.domain_volume, blocklist,
+            mesh=self._dmesh,
         )
 
     def mass_sum(self, masks: Optional[Dict[str, Any]] = None) -> Dict[str, float]:
-        """Total (and per-mask) mass over the leaf cells."""
-        dens = self._leaf_stack("dens")
+        """Total (and per-mask) mass over the leaf cells (under a sharding
+        mesh, over the rank's x-slab, the masks cut to its rows)."""
+        dens = self._leaf_stack("dens") if self._dmesh is None else self._local_stack("dens")
         cv = np.asarray(self.get_cell_volumes("LEAF")).reshape((-1,) + (1,) * (dens.ndim - 1))
-        return volume_ops.mass_sum(dens, cv, masks)
+        return volume_ops.mass_sum(dens, cv, masks, mesh=self._dmesh)
 
     def pdf1d(self, field: str, weight: Optional[str] = "volume", **kwargs):
         vals = self._leaf_stack(field)

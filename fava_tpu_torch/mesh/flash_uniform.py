@@ -11,13 +11,19 @@ surface density and the line-of-sight projection.
 Under an active device mesh (``parallel/``) whose space axis shards the
 volume (the placement rule, ``parallel.runtime.shards_volume``), ``load``
 and ``from_arrays`` keep only this rank's x-slab of each field (``load``
-reads the slab straight from the file), ``kinetic_energy_spectra`` and
-``flagship_analysis`` run the sharded paths, and every other analysis,
-like ``data()``, gets the whole volume by one all_gather on the space
-group (mesh/flash_amr.py, which a sharded ``from_amr`` shares):
-fava_tpu's numbers, as its partitioner gathers, until those analyses
-are made rank-local (ROADMAP A11d). ``save`` gathers the slabs and
-writes from rank 0; ``from_amr`` gathers before it collapses. The
+reads the slab straight from the file). These analyses then run on the
+slab and join by halos, packed all_reduces, all_gathers of row
+statistics or coarse masks and the pencil transform, never of a whole
+field (ROADMAP A11a, A11d): ``kinetic_energy_spectra``,
+``flagship_analysis``, ``scalar_spectra``, ``fractal_dimension``,
+``structure_functions`` and ``structure_function_exponents``,
+``velocity_increment_pdfs``, ``turbulence_summary``,
+``velocity_gradient_statistics``, ``mass_fraction`` and FLASH's
+profiles and volume sums (mesh/flash_amr.py, which a sharded
+``from_amr`` shares). Every other analysis, like ``data()``, gets the
+whole volume by one all_gather on the space group: fava_tpu's numbers,
+as its partitioner gathers (ROADMAP A11e). ``save`` gathers the slabs
+and writes from rank 0; ``from_amr`` gathers before it collapses. The
 streamed paths read the file whole on every rank.
 ``reynolds_stress``, ``favre_profiles``, the slice profiles, ``mass_sum``
 and the volume averages are FLASH's: on one block profiled along x the
@@ -191,6 +197,14 @@ class FlashUniform(FLASH):
             d = d[0]
         return d
 
+    def _local_volume(self, name: str) -> torch.Tensor:
+        """A field as this rank holds it: its x-slab under a sharding
+        mesh, else the whole volume squeezed to ``ndim`` axes."""
+        return self._slab(name) if self._dmesh is not None else self._scalar_volume(name)
+
+    def _local_velocities(self):
+        return [self._local_volume(f"vel{a}") for a in "xyz"[: self.ndim]]
+
     def _streams(self, shape) -> bool:
         """``streams_out_of_core`` against this card's free memory (the
         CPU never streams on its own)."""
@@ -316,12 +330,16 @@ class FlashUniform(FLASH):
         """Power spectrum of one scalar field (density/flame/...): the KE
         spectra's transform, binning convention and integral factor, so
         slopes compare directly."""
+        if self._dmesh is not None:
+            return {field: spectra_ops.scalar_spectrum(self._slab(field), ndim=3,
+                                                       mesh=self._dmesh)}
         return {field: spectra_ops.scalar_spectrum(self._volume(field), ndim=self.ndim)}
 
     @timer
     def fractal_dimension(self, field: str, contours=0.5) -> Dict[str, Any]:
         """Box-counting dimension (reference: FlashUniform.py:85-227)."""
-        return {field: fractal_ops.fractal_dimension(self._volume(field), contours)}
+        vol = self._slab(field) if self._dmesh is not None else self._volume(field)
+        return {field: fractal_ops.fractal_dimension(vol, contours, mesh=self._dmesh)}
 
     def _velocities(self):
         return [self._scalar_volume(f"vel{a}") for a in "xyz"[: self.ndim]]
@@ -352,8 +370,9 @@ class FlashUniform(FLASH):
         if kwargs:
             raise TypeError(f"structure_functions got unexpected keyword arguments {sorted(kwargs)}")
         return structure_ops.structure_functions(
-            self._velocities(),
+            self._local_velocities(),
             domain_bounds=self.domain_bounds,
+            mesh=self._dmesh,
             num_seps=num_seps,
             num_points=num_points,
             sep_bounds=tuple(sep_bounds) if sep_bounds is not None else None,
@@ -396,8 +415,9 @@ class FlashUniform(FLASH):
         """PDFs of signed velocity increments vs separation (beyond the
         reference; ops/structure.velocity_increment_pdfs)."""
         return structure_ops.velocity_increment_pdfs(
-            self._velocities(),
+            self._local_velocities(),
             domain_bounds=self.domain_bounds,
+            mesh=self._dmesh,
             num_seps=num_seps,
             num_points=num_points,
             sep_bounds=tuple(sep_bounds) if sep_bounds is not None else None,
@@ -474,7 +494,8 @@ class FlashUniform(FLASH):
                 prefetch_depth=(prefetch_depth, 2),
             )
             return grad_ops.velocity_gradient_statistics(
-                *self._velocities(), lengths=self._domain_lengths(), boundary=boundary
+                *self._local_velocities(), lengths=self._domain_lengths(), boundary=boundary,
+                mesh=self._dmesh,
             )
         shape = self._shape3("gradient statistics")
         if boundary != "periodic":
@@ -557,16 +578,17 @@ class FlashUniform(FLASH):
         )
 
         def opt(name):
-            return None if self.data(name) is None else self._scalar_volume(name)
+            return None if self._local_data(name) is None else self._local_volume(name)
 
         pres = opt("pres")
         gamc = opt("gamc") if pres is not None else None
         return vel_ops.turbulence_summary(
-            *self._velocities(),
+            *self._local_velocities(),
             dens=opt("dens"),
             pres=pres,
             gamma=gamc if gamc is not None else gamma,
             lengths=self._domain_lengths(),
+            mesh=self._dmesh,
         )
 
     @timer
@@ -711,6 +733,9 @@ class FlashUniform(FLASH):
 
     def mass_fraction(self, masks: Optional[Dict[str, Any]] = None) -> Dict[str, float]:
         """Total + per-mask mass (reference: FlashUniform.py:449-458)."""
+        if self._dmesh is not None:
+            return volume_ops.mass_sum(self._slab("dens"), self.cell_volume_min, masks,
+                                       mesh=self._dmesh)
         return volume_ops.mass_sum(self._volume("dens"), self.cell_volume_min, masks)
 
     def _uniform_pdf_weights(self, weight: Optional[str]):

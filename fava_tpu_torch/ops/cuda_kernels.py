@@ -18,6 +18,7 @@ wrapper                           replaces (fava_tpu/ops/, fava_tpu/experiments/
 ``shell_bin_values_folded_1ch``   the same, one channel (scalar spectra, :1282)
 ``shell_bin_sums_unfolded``       ``pallas_kernels.py:_shell_kernel`` (:515)
 ``shell_bin_values_rfft_chunk``   ``pallas_kernels.py:_shell_kernel_chunkx`` (:1291)
+(``longi`` None)                  the same, one channel (the sharded scalar spectrum)
 ``block_row_moments``             ``pallas_kernels.py:_raw_rows_kernel`` (:331)
 ``block_centered_row_moments``    ``pallas_kernels.py:_centered_rows_kernel`` (:352)
 ``regrid_fields``                 ``pallas_regrid.py:_regrid_kernel`` (:78)
@@ -75,6 +76,7 @@ KERNELS = (
     "pdf2d_counts",
     "pdf2d_weighted",
     "shell_bin_values_rfft_chunk",
+    "shell_bin_values_rfft_chunk_1ch",
     "shell_bin_powers_fused",
     "shell_bin_sums_folded_onepass",
     "zy_rfft_planar",
@@ -615,35 +617,43 @@ def shell_bin_sums_unfolded(total, longi: Optional[torch.Tensor], nbins: int, fu
 # B6: shell binning of an x-chunk of a half-spectrum (the streamed step)
 
 
-def shell_bin_values_rfft_chunk(total, longi, nbins: int, full_nx: int, full_nz: int, kx0: int):
+def shell_bin_values_rfft_chunk(total, longi: Optional[torch.Tensor], nbins: int, full_nx: int,
+                                full_nz: int, kx0: int):
     """(3, nbins) float64 Hermitian-weighted shell sums [total,
     longitudinal, transverse] of the rfft power volumes of an x-chunk:
     rows kx0 .. kx0+rows-1 of the (full_nx, ny, full_nz//2+1)
     half-spectrum. Values only: the chunks' sums add up to the whole
     volume's, whose counts are ``rfft_shell_counts``. Transverse is
     total - longitudinal shell by shell, as fava_tpu's kernel path
-    forms it."""
-    name = "shell_bin_values_rfft_chunk"
-    if total.ndim != 3 or longi.shape != total.shape or nbins < 1:
-        raise ValueError(f"{name}: two same-shaped 3D volumes and nbins >= 1 required")
+    forms it. With ``longi`` None, (1, nbins): the shell sums of one
+    power volume (the sharded scalar spectrum), the kernel with one
+    channel, counted as ``shell_bin_values_rfft_chunk_1ch``."""
+    name = "shell_bin_values_rfft_chunk" if longi is not None else "shell_bin_values_rfft_chunk_1ch"
+    vols = (total,) if longi is None else (total, longi)
+    if total.ndim != 3 or any(v.shape != total.shape for v in vols) or nbins < 1:
+        raise ValueError(f"{name}: same-shaped 3D volumes and nbins >= 1 required")
     rows, ny, nzr = (int(s) for s in total.shape)
     kx0, full_nx, full_nz = int(kx0), int(full_nx), int(full_nz)
     if nzr != full_nz // 2 + 1:
         raise ValueError(f"{name}: z extent {nzr} is not the half-spectrum's {full_nz // 2 + 1}")
     if kx0 < 0 or kx0 + rows > full_nx:
         raise ValueError(f"{name}: rows {kx0}..{kx0 + rows - 1} outside an x extent of {full_nx}")
-    if _device_kind(name, total, longi) == "cpu":
-        sums2 = _shell_bin_unfolded_plain(total, longi, int(nbins), full_nz, kx0, full_nx)
+    if _device_kind(name, *vols) == "cpu":
+        sums = _shell_bin_unfolded_plain(total, longi, int(nbins), full_nz, kx0, full_nx)
     else:
-        _check_cuda(name, total, longi)
+        _check_cuda(name, *vols)
         _check_bins(name, nbins, (full_nx // 2) ** 2 + (ny // 2) ** 2)
-        sums2 = torch.zeros((2, nbins), dtype=torch.float64, device=total.device)
+        c = len(vols)
+        sums = torch.zeros((c, nbins), dtype=torch.float64, device=total.device)
         _launch(
             name, total.device, _build.library().fava_shell_bin_sums_rfft_chunk, total.data_ptr(),
-            longi.data_ptr(), sums2.data_ptr(), rows, ny, nzr, int(nbins), full_nx, full_nz, kx0,
-            2, _unfolded_launch_blocks(total.shape, full_nz, 2, int(nbins), total.device),
+            None if longi is None else longi.data_ptr(), sums.data_ptr(), rows, ny, nzr,
+            int(nbins), full_nx, full_nz, kx0, c,
+            _unfolded_launch_blocks(total.shape, full_nz, c, int(nbins), total.device),
         )
-    return torch.stack([sums2[0], sums2[1], sums2[0] - sums2[1]])
+    if longi is None:
+        return sums
+    return torch.stack([sums[0], sums[1], sums[0] - sums[1]])
 
 
 def rfft_shell_counts(full_shape: Tuple[int, int, int], nbins: int, device="cuda") -> torch.Tensor:
@@ -667,8 +677,9 @@ def _chunk_counts(rows: int, ny: int, nbins: int, full_nx: int, full_nz: int, kx
 def shell_bin_sums_rfft_chunk(total, longi, nbins: int, full_nx: int, full_nz: int, kx0: int):
     """(counts, sums[3]) of an x-chunk of rfft powers
     (fava_tpu/ops/pallas_kernels.py:1715): the chunk's Hermitian shell
-    counts (a shape function) and ``shell_bin_values_rfft_chunk``'s sums.
-    Counts and sums over all chunks equal the whole-volume binning."""
+    counts (a shape function) and ``shell_bin_values_rfft_chunk``'s sums
+    (one row with ``longi`` None). Counts and sums over all chunks equal
+    the whole-volume binning."""
     sums = shell_bin_values_rfft_chunk(total, longi, nbins, full_nx, full_nz, kx0)
     rows, ny, _ = (int(s) for s in total.shape)
     counts = _chunk_counts(rows, ny, int(nbins), int(full_nx), int(full_nz), int(kx0))

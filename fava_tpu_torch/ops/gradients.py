@@ -1,8 +1,9 @@
 """Real-space velocity-gradient statistics and the Q-R invariant PDF.
 
-Counterpart of fava_tpu/ops/gradients.py, single device. The gradients
-g_ij = du_i/dx_j are 2nd-order central differences by ``torch.roll`` on
-the periodic wrap (``boundary="interior"``: the common interior, where
+Counterpart of fava_tpu/ops/gradients.py. The gradients
+g_ij = du_i/dx_j are 2nd-order central differences on the periodic wrap
+(``torch.roll``; along x the slab's halo planes) (``boundary="interior"``:
+the common interior, where
 they need no wrap); ``lengths=None`` means the 2*pi-periodic unit box
 (dx = 2*pi/n), else dx_j = L_j/n_j. The differences are taken in the
 field dtype (float32 on the card) and every mean and moment in float64,
@@ -11,6 +12,13 @@ keeps fava_tpu's entry order (``packed_names``), so the report assembly
 is the same host function. The Q-R joint PDF bins the card's float32 Q
 and R through the joint-histogram kernel (B8, ``cuda_kernels.pdf2d_counts``)
 against float64 host edges scaled by Q_w.
+
+The gradient statistics of a volume slab-sharded over a device mesh
+(``mesh=``, ROADMAP A11d) are rank-local: each rank differentiates its
+x-slab with one halo plane from each neighbour (``parallel.runtime.halo_x``),
+one packed all_reduce joins the sums of pass 1 and one those of pass 2;
+``boundary="interior"`` drops the global first and last x planes, on
+ranks 0 and d-1 only. The Q-R PDF takes the whole volume (A11e).
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 
 from fava_tpu_torch.ops import cuda_kernels
 from fava_tpu_torch.ops.velocity import _check_vels
+from fava_tpu_torch.parallel import runtime
 from fava_tpu_torch.utils import accum_dtype
 
 _BOUNDARIES = ("periodic", "interior")
@@ -59,53 +68,105 @@ def _check_boundary(shape, boundary: str) -> None:
         raise ValueError("interior gradients need at least 3 cells per axis")
 
 
-def _gradient(u: torch.Tensor, j: int, dx: float, interior: bool) -> torch.Tensor:
+def _gradient(u: torch.Tensor, j: int, dx: float, interior: bool, halo=None,
+              x_cut: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """du/dx_j by a central difference in u's dtype (interior: the
-    common interior of every axis)."""
-    d = (torch.roll(u, -1, dims=j) - torch.roll(u, 1, dims=j)) / (2.0 * dx)
+    common interior of every axis). With ``halo``, ``u`` is an x-slab,
+    its x neighbours the (below, above) halo planes, and its interior x
+    rows ``x_cut`` = (first, end); else the periodic wrap of ``u``."""
+    if halo is None:
+        halo, x_cut = (u[-1:], u[:1]), (1, u.shape[0] - 1)
+    if j == 0:
+        ext = torch.cat([halo[0], u, halo[1]])
+        d = (ext[2:] - ext[:-2]) / (2.0 * dx)
+    else:
+        d = (torch.roll(u, -1, dims=j) - torch.roll(u, 1, dims=j)) / (2.0 * dx)
     if interior:
-        d = d[tuple(slice(1, -1) for _ in range(u.ndim))]
+        d = d[(slice(*x_cut),) + tuple(slice(1, -1) for _ in range(u.ndim - 1))]
     return d
 
 
 def gradient_stats_device(vels: Sequence[torch.Tensor], lengths: Optional[Sequence[float]] = None,
-                          boundary: str = "periodic") -> Tuple[torch.Tensor, Tuple[str, ...]]:
+                          boundary: str = "periodic", mesh=None) -> Tuple[torch.Tensor, Tuple[str, ...]]:
     """Packed float64 central gradient-moment vector on the input's
     device (no host fetch) and its ``packed_names``; series drivers
-    stack these and fetch once (:func:`assemble_gradient_stats`)."""
+    stack these and fetch once (:func:`assemble_gradient_stats`). With
+    ``mesh``, ``vels`` are the rank's x-slabs of a 3D volume slab-sharded
+    over the mesh's space axis (``gradient_stats_ranked``); every rank
+    gets the whole volume's vector."""
     shape, key = _check_vels(vels, lengths, "velocity_gradient_statistics")
+    ranks = runtime.SpaceRanks(mesh)
+    if mesh is not None:
+        if len(shape) != 3:
+            raise ValueError("sharded gradient statistics need a 3D volume")
+        shape = (shape[0] * ranks.d,) + shape[1:]
     _check_boundary(shape, boundary)
-    nd = len(shape)
-    dx = _spacings(shape, key)
+    return gradient_stats_ranked([list(vels)], ranks, key, boundary), packed_names(len(shape))
+
+
+def gradient_stats_ranked(vel_slabs, ranks: runtime.SpaceRanks, lengths=None,
+                          boundary: str = "periodic") -> torch.Tensor:
+    """The packed vector of the volume whose x-slabs ``ranks`` plays (a
+    list of velocity components each; the whole volumes on a single
+    device). One halo plane on each side of each slab for the
+    x-derivatives; pass 1 the float64 sums of every g_ij and u_i, one
+    all_reduce; pass 2 the sums of the centred moments and cross terms,
+    one all_reduce. ``boundary="interior"`` drops the first x plane of
+    rank 0 and the last of rank d-1."""
+    nd = len(vel_slabs[0])
+    rows = int(vel_slabs[0][0].shape[0])
+    shape = (rows * ranks.d,) + tuple(int(s) for s in vel_slabs[0][0].shape[1:])
+    dx = _spacings(shape, lengths)
     interior = boundary == "interior"
+    count = float(np.prod([n - 2 for n in shape] if interior else shape))
     adt = accum_dtype()
-    # Pass 1: the gradients in float64 and their means; pass 2: centre in
+    halos = [ranks.halos([v[i] for v in vel_slabs]) for i in range(nd)]
+    cuts = [(1 if interior and r == 0 else 0, rows - 1 if interior and r == ranks.d - 1 else rows)
+            for r in ranks.ranks]
+    # Pass 1: the gradients in float64 and their sums; pass 2: centre in
     # place and take the moments (every cross term over the same cells).
-    fl = {}
-    means = {}
+    grads, us, parts = [], [], []
+    for k, vels in enumerate(vel_slabs):
+        g = {}
+        for i in range(nd):
+            for j in range(nd):
+                g[(i, j)] = _gradient(vels[i], j, dx[j], interior, halos[i][k], cuts[k]).to(adt)
+        u = [v[(slice(*cuts[k]),) + tuple(slice(1, -1) for _ in range(nd - 1))] if interior else v
+             for v in vels]
+        u = [a.to(adt) for a in u]
+        parts.append(torch.stack([g[(i, j)].sum() for i in range(nd) for j in range(nd)]
+                                 + [a.sum() for a in u]))
+        grads.append(g)
+        us.append(u)
+    sums = ranks.reduce(parts) / count
+    means = {(i, j): sums[i * nd + j] for i in range(nd) for j in range(nd)}
+    u_means = sums[nd * nd :]
+    parts = []
+    for g, u in zip(grads, us):
+        acc = []
+        for i in range(nd):
+            for j in range(nd):
+                f = g[(i, j)].sub_(means[(i, j)])
+                f2 = f * f
+                acc += [f2.sum(), (f2 * f).sum(), (f2 * f2).sum()]
+                del f2
+        acc += [(g[(a, b)] * g[(b, a)]).sum() for a, b in _ROT_PAIRS[nd]]
+        acc += [(g[(i, i)] * g[(j, j)]).sum() for i, j in _DIV_PAIRS[nd]]
+        acc += [(u[i] - u_means[i]).square().sum() for i in range(nd)]
+        parts.append(torch.stack(acc))
+    del grads, us
+    mom = ranks.reduce(parts) / count
+    out = []
     for i in range(nd):
         for j in range(nd):
-            g = _gradient(vels[i], j, dx[j], interior).to(adt)
-            means[(i, j)] = g.mean()
-            fl[(i, j)] = g.sub_(means[(i, j)])
-    acc = []
+            k = 3 * (i * nd + j)
+            out += [means[(i, j)], mom[k], mom[k + 1], mom[k + 2]]
+    k = 3 * nd * nd
+    extra = len(_ROT_PAIRS[nd]) + len(_DIV_PAIRS[nd])
+    out += list(mom[k : k + extra])
     for i in range(nd):
-        for j in range(nd):
-            f = fl[(i, j)]
-            f2 = f * f
-            acc += [means[(i, j)], f2.mean(), (f2 * f).mean(), (f2 * f2).mean()]
-            del f2
-    acc += [(fl[(a, b)] * fl[(b, a)]).mean() for a, b in _ROT_PAIRS[nd]]
-    acc += [(fl[(i, i)] * fl[(j, j)]).mean() for i, j in _DIV_PAIRS[nd]]
-    del fl
-    for i in range(nd):
-        u = vels[i]
-        if interior:
-            u = u[tuple(slice(1, -1) for _ in range(nd))]
-        ua = u.to(adt)
-        um = ua.mean()
-        acc += [um, (ua - um).square().mean()]
-    return torch.stack(acc), packed_names(nd)
+        out += [u_means[i], mom[k + extra + i]]
+    return torch.stack(out)
 
 
 def assemble_gradient_stats(vec, nd: int) -> Dict[str, np.ndarray | float]:
@@ -157,8 +218,8 @@ def assemble_gradient_stats(vec, nd: int) -> Dict[str, np.ndarray | float]:
     }
 
 
-def velocity_gradient_statistics(velx, vely, velz=None, lengths=None,
-                                 boundary: str = "periodic") -> Dict[str, np.ndarray | float]:
+def velocity_gradient_statistics(velx, vely, velz=None, lengths=None, boundary: str = "periodic",
+                                 mesh=None) -> Dict[str, np.ndarray | float]:
     """Velocity-gradient tensor statistics: the (nd, nd) mean and central
     moment tables of g_ij to fourth order, the longitudinal skewness and
     flatness per axis and their means, the transverse flatness, the
@@ -167,9 +228,9 @@ def velocity_gradient_statistics(velx, vely, velz=None, lengths=None,
     microscales and the velocity means and variances, all float64 on the
     host. ``boundary="periodic"`` wraps; ``"interior"`` averages over the
     common interior (windowed extracts such as the pipeline's flame
-    windows)."""
+    windows). ``mesh`` as in :func:`gradient_stats_device`."""
     vels = (velx, vely) if velz is None else (velx, vely, velz)
-    vec, _ = gradient_stats_device(vels, lengths=lengths, boundary=boundary)
+    vec, _ = gradient_stats_device(vels, lengths=lengths, boundary=boundary, mesh=mesh)
     return assemble_gradient_stats(vec.cpu().numpy(), len(vels))
 
 

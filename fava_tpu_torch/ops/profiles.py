@@ -30,6 +30,21 @@ Deviation from fava_tpu, which falls back to jnp reductions on the
 sharded stack (fava_tpu/ops/profiles.py:240-251): the port keeps its
 kernels on every rank; the outputs are the same, since each block's
 moments are its own.
+
+A uniform volume slab-sharded along x (``mesh=``, ROADMAP A11d) is one
+block held as the ranks' x-slabs: its profiles are rank-local. Along x
+the rows are whole on a rank, so the uniform fast case runs K1 and then
+K2 on the slab and one all_gather joins the row statistics
+(``uniform_row_stats``, which the flagship step's mesh branch shares);
+fava_tpu's uniform fast case leaves its Pallas kernels when the array is
+sharded (fava_tpu/ops/profiles.py:240-251, :330-343): the port keeps
+them and gives the same outputs. Along y or z, and for the slice
+profiles, each rank reduces its slab's cells into the whole profile's
+rows (along x: its own rows, zero elsewhere), one all_reduce SUM joins
+the raw sums, and the centred sums take a second pass about the global
+row means and a second all_reduce. The bodies run on the slabs that a
+``parallel.runtime.SpaceRanks`` plays (the ``*_ranked`` functions), so
+the virtual-rank checks run the code that the collectives feed.
 """
 
 from __future__ import annotations
@@ -237,6 +252,51 @@ def _share_stats(fields: Tuple[torch.Tensor, ...], geom: ProfileGeometry):
     return raw, mu, cen
 
 
+def _slab_fields(data: Dict[str, torch.Tensor], nvel: int) -> Tuple[torch.Tensor, ...]:
+    """(dens, vels...) of one uniform block's x-slab as (1, nx/d, ny, nz)."""
+    names = ["dens"] + [f"vel{a}" for a in AXES_NAMES[:nvel]]
+    return tuple(data[name].reshape((1,) + tuple(data[name].shape[-3:])) for name in names)
+
+
+def _slab_row_sums(parts, geom: ProfileGeometry, ranks: runtime.SpaceRanks) -> torch.Tensor:
+    """The whole profile's (M, 1, nrb) row sums from each rank's (M, 1,
+    rows) part, by one all_reduce SUM: along x each part holds the rank's
+    own rows, placed at their offset in zeros (x + 0 = x); along y or z
+    each part sums the slab's cells of every row."""
+    if geom.raxis == 0:
+        placed = []
+        for part, r in zip(parts, ranks.ranks):
+            rows = part.shape[-1]
+            full = part.new_zeros(tuple(part.shape[:-1]) + (geom.nrb,))
+            full[..., r * rows : (r + 1) * rows] = part
+            placed.append(full)
+        parts = placed
+    return ranks.reduce(parts)
+
+
+def _slab_stats(data_list, geom: ProfileGeometry, ranks: runtime.SpaceRanks):
+    """(raw, mu, cen) of one uniform block from its x-slabs (``data_list``,
+    one dict per rank that ``ranks`` plays), as ``_share_stats`` gives
+    them for the whole block: pass 1 the raw row sums and their join,
+    pass 2 the sums about the global row means and their join."""
+    nvel = geom.ndim
+    fields = [_slab_fields(data, nvel) for data in data_list]
+    ncells_row = int(np.prod(fields[0][0].shape[1:])) * ranks.d // geom.nrb
+    raw = _slab_row_sums([_row_moments(f, geom.raxis, nvel) for f in fields], geom, ranks)
+    mu = raw[1 : 1 + nvel] / ncells_row
+
+    def rank_mu(f, r):
+        if geom.raxis != 0:
+            return mu
+        rows = f[0].shape[1]
+        return mu[..., r * rows : (r + 1) * rows]
+
+    cen = _slab_row_sums(
+        [_centered_row_moments_stack(f, rank_mu(f, r), geom.raxis, nvel)
+         for f, r in zip(fields, ranks.ranks)], geom, ranks)
+    return raw, mu, cen
+
+
 def _stack_stats(data: Dict[str, torch.Tensor], geom: ProfileGeometry):
     """``_share_stats`` of the whole leaf stack; under a mesh of more
     than one rank, of this rank's share, joined over the world (module
@@ -299,12 +359,17 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.to(torch.float64).cpu().numpy()
 
 
-def _grouped_stats(data: Dict[str, torch.Tensor], geom: ProfileGeometry):
-    """Level-grouped (cen, S_d, mu) device groups + the pass-1 profile (host)."""
+def _grouped_stats(data_list, geom: ProfileGeometry, ranks=None):
+    """Level-grouped (cen, S_d, mu) device groups + the pass-1 profile
+    (host), of the leaf stack (``ranks`` None, ``data_list`` one dict) or
+    of the x-slabs that ``ranks`` plays."""
     nvel = geom.ndim
     nraw = 1 + 2 * nvel
     npairs = len(_pair_indices(nvel))
-    raw, mu, cen = _stack_stats(data, geom)
+    if ranks is None:
+        raw, mu, cen = _stack_stats(data_list[0], geom)
+    else:
+        raw, mu, cen = _slab_stats(data_list, geom, ranks)
     # Recompose the d*v row sums from the centered residuals:
     # sum(d*v) = c1 + mu*sum(d) exactly, and c1 stays accurate where the
     # raw product sum cancels (near-zero-mean velocities).
@@ -330,33 +395,63 @@ def _is_uniform_fast_case(geom: ProfileGeometry) -> bool:
     )
 
 
-def _uniform_centered_stats(data: Dict[str, torch.Tensor], geom: ProfileGeometry):
+def uniform_row_stats(slabs, ranks=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(moments (13, nx), centered (9, nx)) float64 row statistics of a
+    uniform volume profiled along x: K1, then K2 about the per-row means,
+    on each (dens, vx, vy, vz) x-slab in ``slabs`` (one for each rank that
+    ``ranks`` plays; the whole volume on a single device, ``ranks`` None).
+    Rows are whole on a rank, so both passes are local; one all_gather of
+    the row statistics joins the slabs."""
+    parts = []
+    for dens, vx, vy, vz in slabs:
+        layer = float(dens.shape[1] * dens.shape[2])
+        moments = cuda_kernels.row_moments_volume(dens, vx, vy, vz)
+        centered = cuda_kernels.centered_row_moments(
+            dens, vx, vy, vz, (moments[1:4] / layer).contiguous())
+        parts.append(torch.cat([moments, centered]))
+    rows = parts[0] if ranks is None else ranks.gather(parts, dim=1)
+    return rows.split([cuda_kernels.NMOM, cuda_kernels.NCEN])
+
+
+def _uniform_centered_stats(data_list, geom: ProfileGeometry, ranks=None):
     """Raw first moments + centered second moments of one uniform block
-    (K1, K2). Returns host (d_row, v_rows, cov(6,n), c1(3,n), means_rows),
-    all unscaled."""
+    (K1, K2), whole or as the x-slabs that ``ranks`` plays. Returns host
+    (d_row, v_rows, cov(6,n), c1(3,n), means_rows), all unscaled."""
     blk = int(geom.blocklist[0])
-    vols = [data["dens"][blk]] + [data[f"vel{a}"][blk] for a in AXES_NAMES[:3]]
-    vols = [v.contiguous() for v in vols]
-    moments = cuda_kernels.row_moments_volume(*vols)
-    ncells_per_row = vols[0].shape[1] * vols[0].shape[2]
-    means_rows = (moments[1:4] / ncells_per_row).contiguous()
-    centered = cuda_kernels.centered_row_moments(*vols, means_rows)
+    slabs = [tuple(data[name][blk].contiguous() for name in ("dens", "velx", "vely", "velz"))
+             for data in data_list]
+    moments, centered = uniform_row_stats(slabs, ranks)
+    ncells_per_row = slabs[0][0].shape[1] * slabs[0][0].shape[2]
+    means_rows = moments[1:4] / ncells_per_row
     packed = _host(torch.cat([moments[0][None], moments[1:4], centered, means_rows]))
     return packed[0], packed[1:4], packed[4:10], packed[10:13], packed[13:16]
+
+
+def _ranks(mesh):
+    return None if mesh is None else runtime.SpaceRanks(mesh)
 
 
 def reynolds_stress(
     data: Dict[str, torch.Tensor],
     geom: ProfileGeometry,
+    mesh=None,
 ) -> Tuple[np.ndarray, Dict[str, np.ndarray], Dict[str, np.ndarray]]:
     """Finest-resolution Reynolds-stress profiles along ``geom.raxis``:
     layer means of dens/vel, then density-weighted velocity covariances,
-    both normalized by layer volume (cross-section x finest cell width)."""
+    both normalized by layer volume (cross-section x finest cell width).
+    With ``mesh``, ``data`` holds the rank's x-slabs of one uniform block
+    slab-sharded over the mesh's space axis (module docstring)."""
+    return reynolds_stress_ranked([data], geom, _ranks(mesh))
+
+
+def reynolds_stress_ranked(data_list, geom: ProfileGeometry, ranks=None):
+    """``reynolds_stress`` of the leaf stack (``ranks`` None) or of the
+    x-slabs that ``ranks`` plays, one dict of ``data_list`` each."""
     axes = AXES_NAMES[: geom.ndim]
     layer_volume = geom.layer_area * geom.min_deltas[geom.raxis]
 
     if _is_uniform_fast_case(geom):
-        d_row, v_rows, cov, _c1, _means_rows = _uniform_centered_stats(data, geom)
+        d_row, v_rows, cov, _c1, _means_rows = _uniform_centered_stats(data_list, geom, ranks)
         scale = float(geom.vol_fracs[0]) / layer_volume
         means: Dict[str, np.ndarray] = {"dens": d_row * scale}
         for i, a in enumerate(axes):
@@ -366,7 +461,7 @@ def reynolds_stress(
             stress[f"R{axes[i]}{axes[j]}"] = cov[p] * scale
         return geom.span.copy(), stress, means
 
-    prof_raw, cen_groups, scales = _grouped_stats(data, geom)
+    prof_raw, cen_groups, scales = _grouped_stats(data_list, geom, ranks)
     means = {"dens": prof_raw[0] / layer_volume}
     for i, a in enumerate(axes):
         means[f"vel{a}"] = prof_raw[1 + i] / layer_volume
@@ -384,17 +479,24 @@ def reynolds_stress(
 def favre_profiles(
     data: Dict[str, torch.Tensor],
     geom: ProfileGeometry,
+    mesh=None,
 ) -> Dict[str, np.ndarray | Dict[str, np.ndarray]]:
     """Favre (density-weighted) mean profiles and mass-weighted RMS:
       favre_mean v~_i = <rho v_i> / <rho>
       favre_rms  v''_i = sqrt(<rho (v_i - v~_i)^2> / <rho>)
-    from the same moments as reynolds_stress."""
+    from the same moments as reynolds_stress (``mesh`` as there)."""
+    return favre_profiles_ranked([data], geom, _ranks(mesh))
+
+
+def favre_profiles_ranked(data_list, geom: ProfileGeometry, ranks=None):
+    """``favre_profiles`` of the leaf stack or of the x-slabs that
+    ``ranks`` plays (``reynolds_stress_ranked``)."""
     nvel = geom.ndim
     axes = AXES_NAMES[:nvel]
     layer_volume = geom.layer_area * geom.min_deltas[geom.raxis]
 
     if _is_uniform_fast_case(geom):
-        d64, _v_rows, cov, c1, means_rows = _uniform_centered_stats(data, geom)
+        d64, _v_rows, cov, c1, means_rows = _uniform_centered_stats(data_list, geom, ranks)
         scale = float(geom.vol_fracs[0]) / layer_volume
         safe_d = np.where(d64 > 0, d64, 1.0)
         pairs3 = _pair_indices(3)
@@ -415,7 +517,7 @@ def favre_profiles(
             out["favre_rms"][f"vel{a}"] = np.sqrt(np.maximum(var, 0.0))
         return out
 
-    prof_raw, cen_groups, scales = _grouped_stats(data, geom)
+    prof_raw, cen_groups, scales = _grouped_stats(data_list, geom, ranks)
     d0 = prof_raw[0]
     dv = prof_raw[1 + nvel : 1 + 2 * nvel]
     pairs = _pair_indices(nvel)
@@ -442,11 +544,25 @@ def favre_profiles(
 def slice_integral(
     field_data: torch.Tensor,
     geom: ProfileGeometry,
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Finest-resolution axis profile of sum(field * vol_frac) per layer."""
-    idx = torch.as_tensor(geom.blocklist, device=field_data.device)
-    fields = (torch.index_select(field_data, 0, idx),)
-    moments = _row_moments(fields, raxis=geom.raxis, nvel=0)
+    """Finest-resolution axis profile of sum(field * vol_frac) per layer.
+    With ``mesh``, ``field_data`` is the rank's x-slab of one uniform
+    block slab-sharded over the mesh's space axis."""
+    return slice_integral_ranked([field_data], geom, _ranks(mesh))
+
+
+def slice_integral_ranked(field_list, geom: ProfileGeometry, ranks=None):
+    """``slice_integral`` of the block stack (``ranks`` None) or of the
+    x-slabs that ``ranks`` plays: each slab's row sums, one all_reduce."""
+    if ranks is None:
+        field_data = field_list[0]
+        idx = torch.as_tensor(geom.blocklist, device=field_data.device)
+        moments = _row_moments((torch.index_select(field_data, 0, idx),), raxis=geom.raxis, nvel=0)
+    else:
+        moments = _slab_row_sums(
+            [_row_moments(_slab_fields({"dens": f}, 0), raxis=geom.raxis, nvel=0)
+             for f in field_list], geom, ranks)
     groups, scales = geom.device_groups(moments)
     return geom.span.copy(), _host(_scatter_groups(groups, scales, geom.nfine))[0]
 
@@ -454,9 +570,10 @@ def slice_integral(
 def slice_average(
     field_data: torch.Tensor,
     geom: ProfileGeometry,
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """slice_integral normalized by layer volume."""
-    span, alp = slice_integral(field_data, geom)
+    span, alp = slice_integral(field_data, geom, mesh)
     layer_volume = geom.layer_area * geom.min_deltas[geom.raxis]
     return span, alp / layer_volume
 

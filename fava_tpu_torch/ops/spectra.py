@@ -13,8 +13,9 @@ rank's x-slab, the powers of its y-slab, B6 on the transposed block at
 the slab's global offset, then one all_reduce of the sums. It always
 bins with B6's wrapper, whose plain twin serves CPU tensors: fava_tpu's
 scatter-add branch and ``use_kernel_shell_binning`` exist for XLA's
-trace cache and its TPU/interpret choice. The scalar spectrum of a
-sharded volume is taken on the gathered volume (mesh/flash_uniform.py).
+trace cache and its TPU/interpret choice. ``scalar_spectrum(...,
+mesh=)`` runs the same pencil transform on one field and bins the power
+of the rank's y-slab with the one-channel B6.
 
 Shell binning replicates ``scipy.stats.binned_statistic(..., "mean")``
 with edges ``arange(max(n)//2) - 0.5``: right-inclusive last edge, NaN
@@ -31,7 +32,7 @@ import torch.distributed as dist
 
 from fava_tpu_torch.ops import cuda_kernels
 from fava_tpu_torch.parallel import runtime
-from fava_tpu_torch.parallel.fft import _wavenumbers, transpose_xy
+from fava_tpu_torch.parallel.fft import _wavenumbers, pencil_rfft
 from fava_tpu_torch.utils import accum_dtype
 
 
@@ -160,6 +161,36 @@ def slab_shell_sums(ffts: Sequence[torch.Tensor], full_shape, lo: int, nbins: in
     )
 
 
+def scalar_slab_shell_sums(fhat: torch.Tensor, full_shape, lo: int, nbins: int) -> torch.Tensor:
+    """(1, nbins) float64 Hermitian-weighted shell sums of the power of
+    one y-slab of a normalized half-spectrum: ``fhat`` is (nx, ny_l,
+    nz//2+1), the columns ``lo .. lo+ny_l-1`` of the whole transform.
+    The rank-local body of the sharded scalar spectrum: the power,
+    transposed so that its slab axis is global y, binned by B6 with one
+    channel at offset ``lo``. The slabs' sums add up to the whole
+    volume's."""
+    _nx, ny, nz = (int(s) for s in full_shape)
+    p = _abs2(fhat).transpose(0, 1).contiguous()
+    return cuda_kernels.shell_bin_values_rfft_chunk(p, None, nbins, full_nx=ny, full_nz=nz, kx0=lo)
+
+
+def scalar_spectrum_from_slabs(fhats: Sequence[torch.Tensor], full_shape,
+                               ranks: runtime.SpaceRanks) -> Dict[str, np.ndarray]:
+    """The scalar spectrum of a 3D volume from the y-slabs of its
+    normalized half-spectrum that ``ranks`` plays (``fhats``, in that
+    order): each slab's ``scalar_slab_shell_sums``, one join of the sums,
+    the static counts and the shell means."""
+    full_shape = tuple(int(s) for s in full_shape)
+    nbins = max(full_shape) // 2 - 1
+    cols = full_shape[1] // ranks.d
+    parts = [scalar_slab_shell_sums(f, full_shape, r * cols, nbins)
+             for f, r in zip(fhats, ranks.ranks)]
+    sums = ranks.reduce(parts)[0]
+    counts = static_shell_counts(full_shape, nbins, sums.device)
+    k, factor = _shell_integral_factor(nbins, 3)
+    return {"k": k, "power": _shell_means(counts, sums) * factor}
+
+
 def local_spectra_fn(full_shape, nbins: int, mesh, axis_name: str = runtime.SPACE_AXIS):
     """The rank-local spectra body over the ``axis_name`` axis of ``mesh``.
 
@@ -178,10 +209,7 @@ def local_spectra_fn(full_shape, nbins: int, mesh, axis_name: str = runtime.SPAC
 
     def local(d_loc, *v_loc):
         sqrt_d = torch.sqrt(d_loc)
-        ffts = []
-        for v in v_loc:
-            w = torch.fft.rfft2(sqrt_d * v, dim=(1, 2), norm="forward")
-            ffts.append(torch.fft.fft(transpose_xy(w, mesh, axis_name), dim=0, norm="forward"))
+        ffts = [pencil_rfft(sqrt_d * v, mesh, axis_name) for v in v_loc]
         sums = slab_shell_sums(ffts, (nx, ny, nz), lo, nbins)
         dist.all_reduce(sums, group=group)
         return static_shell_counts((nx, ny, nz), nbins, d_loc.device), sums
@@ -307,11 +335,26 @@ def kinetic_energy_spectra(
     }
 
 
-def scalar_spectrum(field, ndim: int = None) -> Dict[str, np.ndarray]:
+def scalar_spectrum(field, ndim: int = None, mesh=None) -> Dict[str, np.ndarray]:
     """Shell-binned power spectrum of ONE scalar field: {"k", "power"},
     with the KE spectra's transform, binning and integral factor. 3D
     volumes bin the rfft power with one channel (fold + single-channel
-    K4, or B10)."""
+    K4, or B10).
+
+    With ``mesh`` the field is the rank's x-slab of a 3D volume
+    slab-sharded over the mesh's space axis (any size, 1 included): the
+    pencil transform (``pencil_rfft``), the power of the rank's y-slab
+    binned by B6 with one channel at its offset, one all_reduce of the
+    sums and the static counts (``scalar_spectrum_from_slabs``; fava_tpu's
+    ``pfft3`` path, fava_tpu/ops/spectra.py:423-446). Every rank gets the
+    whole volume's spectrum."""
+    if mesh is not None:
+        if field.ndim != 3 or (ndim is not None and int(ndim) != 3):
+            raise ValueError("the sharded scalar spectrum needs a 3D volume")
+        d = runtime.space_axis_size(mesh)
+        full = (int(field.shape[0]) * d,) + tuple(int(s) for s in field.shape[1:])
+        ranks = runtime.SpaceRanks(mesh)
+        return scalar_spectrum_from_slabs(ranks.pencil_rfft([field]), full, ranks)
     ndim = int(ndim) if ndim is not None else field.ndim
     field = _squeeze_trailing(field, ndim)
     shape = tuple(int(s) for s in field.shape)

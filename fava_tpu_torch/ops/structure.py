@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from fava_tpu_torch.ops import volume
+from fava_tpu_torch.parallel import runtime
 from fava_tpu_torch.utils import accum_dtype, prng, resolve_device
 
 # Increment-PDF sampling owns stream base 1<<17: structure-function orders
@@ -64,11 +65,12 @@ def _separations(sep_bounds, num_seps: int, log_scale: bool, cell_size, width) -
     return np.linspace(sep_bounds[0], sep_bounds[1], num_seps)
 
 
-def _geometry(vels, domain_bounds):
+def _geometry(vels, domain_bounds, vol_shape=None):
     """(ndim, volume shape, lo, width, cell size): the domain's float64
-    host arrays over the fields' ndim axes."""
+    host arrays over the fields' ndim axes (of a volume of ``vol_shape``
+    when given: ``vels`` are then x-slabs of it)."""
     ndim = len(vels)
-    vol_shape = tuple(int(s) for s in vels[0].shape)
+    vol_shape = tuple(int(s) for s in (vels[0].shape if vol_shape is None else vol_shape))
     bounds = np.asarray(domain_bounds, dtype=np.float64)
     lo = bounds[:ndim, 0]
     width = bounds[:ndim, 1] - bounds[:ndim, 0]
@@ -119,22 +121,53 @@ def _sample(vol: torch.Tensor, idx: torch.Tensor, ndim: int) -> torch.Tensor:
     return vol[tuple(idx[..., a] for a in range(ndim))]
 
 
+def _sample_rows(slab: torch.Tensor, idx: torch.Tensor, lo: int, ndim: int) -> torch.Tensor:
+    """``_sample`` of the rank's x-slab of rows lo .. lo+rows-1: the cells
+    ``idx`` whose x lies in its rows, zero for every other."""
+    rows = int(slab.shape[0])
+    x = idx[..., 0] - lo
+    inside = (x >= 0) & (x < rows)
+    local = torch.cat([x.clamp(0, rows - 1)[..., None], idx[..., 1:]], dim=-1)
+    return torch.where(inside, _sample(slab, local, ndim), 0)
+
+
+def _sampler(vel_slabs, ranks):
+    """``sample(idx) -> (ndim, *idx.shape[:-1])`` values of the velocity
+    components at the cells ``idx``, in the field dtype. ``ranks`` None:
+    gathered from the whole volumes ``vel_slabs[0]``. Else each rank that
+    ``ranks`` plays reads the cells in its rows of its slabs (one list of
+    components each, ``vel_slabs``) and writes zero elsewhere, and one
+    all_reduce SUM joins them: every cell lies in one rank's rows, so the
+    sum is the cell's value exactly (x + 0 = x)."""
+    ndim = len(vel_slabs[0])
+    if ranks is None:
+        return lambda idx: torch.stack([_sample(v, idx, ndim) for v in vel_slabs[0]])
+
+    def sample(idx):
+        parts = [torch.stack([_sample_rows(v, idx, r * int(v.shape[0]), ndim) for v in vels])
+                 for vels, r in zip(vel_slabs, ranks.ranks)]
+        return ranks.reduce(parts)
+
+    return sample
+
+
 def _draw_increments(vels, separations, lo, width, cell_size, seed, base, *, num_points: int,
-                     anisotropic: bool):
+                     anisotropic: bool, draw=None):
     """``(dv, rhat, dirhat)`` of one float64 pair draw (``_draw_pairs``):
     the raw velocity-increment vectors, the *wrapped* separation unit
     vectors (reference parity, FlashUniform.py:418-427) and the *pre-wrap*
     draw directions (the minimal-image separation), renormalised in 2D.
-    The structure functions and the increment PDFs share it."""
-    ndim = len(vels)
+    Both endpoints' cells are read by one ``sample`` of ``draw``
+    (``_ranked_draw``; of the whole volumes ``vels`` when None). The
+    structure functions and the increment PDFs share it."""
+    sample, vol_shape, device = draw if draw is not None else _ranked_draw([list(vels)], None)
     adt = accum_dtype()
     p1, p2, direction, i1, i2 = _draw_pairs(
-        separations, lo, width, cell_size, tuple(vels[0].shape), seed, base, num_points, adt,
-        vels[0].device,
+        separations, lo, width, cell_size, tuple(vol_shape), seed, base, num_points, adt, device,
     )
-    dv = torch.stack(
-        [_sample(v, i2, ndim).to(adt) - _sample(v, i1, ndim).to(adt) for v in vels], dim=-1
-    )
+    vals = sample(torch.stack([i2, i1])).to(adt)
+    dv = (vals[:, 0] - vals[:, 1]).movedim(0, -1)
+    del vals
     if anisotropic:
         rhat = torch.zeros_like(dv)
         rhat[..., 0] = 1.0
@@ -146,17 +179,45 @@ def _draw_increments(vels, separations, lo, width, cell_size, seed, base, *, num
     return dv, rhat, dirhat
 
 
-def _components(vels, separations, lo, width, cell_size, seed, base, num_points, anisotropic):
+def _components(draw, separations, lo, width, cell_size, seed, base, num_points, anisotropic):
     """(longitudinal, transverse) float64 magnitudes of one draw:
-    |dv . rhat| and |dv - |dv . rhat| rhat| (the reference's)."""
-    dv, rhat, _ = _draw_increments(vels, separations, lo, width, cell_size, seed, base,
-                                   num_points=num_points, anisotropic=anisotropic)
+    |dv . rhat| and |dv - |dv . rhat| rhat| (the reference's). ``draw``
+    is ``_ranked_draw``'s."""
+    dv, rhat, _ = _draw_increments(None, separations, lo, width, cell_size, seed, base,
+                                   num_points=num_points, anisotropic=anisotropic, draw=draw)
     long_comp = torch.abs(torch.sum(dv * rhat, dim=-1))
     return long_comp, torch.sqrt(torch.sum((dv - long_comp[..., None] * rhat) ** 2, dim=-1))
 
 
+def _ranked_draw(vel_slabs, ranks):
+    """(sample, whole volume shape, device) of the velocity slabs that
+    ``ranks`` plays (the whole volumes with ``ranks`` None)."""
+    shape = [int(s) for s in vel_slabs[0][0].shape]
+    if ranks is not None:
+        shape[0] *= ranks.d
+    return _sampler(vel_slabs, ranks), tuple(shape), vel_slabs[0][0].device
+
+
 def structure_functions(
     vels: Sequence[torch.Tensor],
+    *,
+    domain_bounds: np.ndarray,
+    mesh=None,
+    **kwargs,
+) -> Dict[str, Dict[str, np.ndarray] | np.ndarray]:
+    """Longitudinal/transverse velocity structure functions, orders 1-10
+    (``structure_functions_ranked``'s keywords). With ``mesh``, ``vels``
+    are the rank's x-slabs of a volume slab-sharded over the mesh's space
+    axis: every rank makes the same draw, reads the endpoints in its rows
+    and one all_reduce a draw joins them, so the moments equal the single
+    device's bit for bit; every rank gets them."""
+    ranks = None if mesh is None else runtime.SpaceRanks(mesh)
+    return structure_functions_ranked([list(vels)], ranks, domain_bounds=domain_bounds, **kwargs)
+
+
+def structure_functions_ranked(
+    vel_slabs,
+    ranks,
     *,
     domain_bounds: np.ndarray,
     num_seps: int = 100,
@@ -169,13 +230,16 @@ def structure_functions(
 ) -> Dict[str, Dict[str, np.ndarray] | np.ndarray]:
     """Longitudinal/transverse velocity structure functions, orders 1-10:
     {"longitudinal": {"1".."10": (num_seps,)}, "transverse": {...},
-    "separations"}. ``resample_per_order=True`` (the reference's loop
-    nesting) draws fresh pairs for every order; ``False`` draws once
-    (order 1's streams) and evaluates all ten orders on that draw, so
-    order 1 is identical between the modes."""
-    ndim, vol_shape, lo, width, cell_size = _geometry(vels, domain_bounds)
+    "separations"}, of the whole volumes ``vel_slabs[0]`` (``ranks``
+    None) or of the x-slabs that ``ranks`` plays (a list of components
+    each). ``resample_per_order=True`` (the reference's loop nesting)
+    draws fresh pairs for every order; ``False`` draws once (order 1's
+    streams) and evaluates all ten orders on that draw, so order 1 is
+    identical between the modes."""
+    draw = _ranked_draw(vel_slabs, ranks)
+    ndim, vol_shape, lo, width, cell_size = _geometry(vel_slabs[0], domain_bounds, draw[1])
     separations = _separations(sep_bounds, int(num_seps), log_scale, cell_size, width)
-    args = (vels, separations, lo, width, cell_size, seed)
+    args = (draw, separations, lo, width, cell_size, seed)
     num_points = int(num_points)
     long_v, trans_v = [], []
     if resample_per_order:
@@ -238,6 +302,22 @@ def velocity_increment_pdfs(
     vels: Sequence[torch.Tensor],
     *,
     domain_bounds: np.ndarray,
+    mesh=None,
+    **kwargs,
+) -> Dict[str, Dict[str, np.ndarray] | np.ndarray]:
+    """PDFs of signed velocity increments (``velocity_increment_pdfs_ranked``'s
+    keywords); ``mesh`` as in ``structure_functions``: the increments, and
+    so the counts, equal the single device's exactly."""
+    ranks = None if mesh is None else runtime.SpaceRanks(mesh)
+    return velocity_increment_pdfs_ranked([list(vels)], ranks, domain_bounds=domain_bounds,
+                                          **kwargs)
+
+
+def velocity_increment_pdfs_ranked(
+    vel_slabs,
+    ranks,
+    *,
+    domain_bounds: np.ndarray,
     num_seps: int = 8,
     num_points: int = 65536,
     sep_bounds: Optional[Sequence[float]] = None,
@@ -264,11 +344,12 @@ def velocity_increment_pdfs(
         raise ValueError(f"nbins must be positive, got {nbins}")
     if not nsigma > 0:
         raise ValueError(f"nsigma must be positive, got {nsigma}")
-    ndim, vol_shape, lo, width, cell_size = _geometry(vels, domain_bounds)
+    draw = _ranked_draw(vel_slabs, ranks)
+    ndim, vol_shape, lo, width, cell_size = _geometry(vel_slabs[0], domain_bounds, draw[1])
     separations = _separations(sep_bounds, int(num_seps), log_scale, cell_size, width)
     edges = np.linspace(-float(nsigma), float(nsigma), int(nbins) + 1)
-    dv, _, rhat = _draw_increments(vels, separations, lo, width, cell_size, seed, _INC_STREAM,
-                                   num_points=int(num_points), anisotropic=anisotropic)
+    dv, _, rhat = _draw_increments(None, separations, lo, width, cell_size, seed, _INC_STREAM,
+                                   num_points=int(num_points), anisotropic=anisotropic, draw=draw)
     dl = torch.sum(dv * rhat, dim=-1)
     dt = torch.sum(dv * _transverse_direction(rhat), dim=-1)
     return {

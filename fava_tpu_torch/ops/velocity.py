@@ -2,7 +2,7 @@
 vorticity, dilatation, the enstrophy, helicity, transfer, decomposed and
 anisotropic spectra, and the turbulence summary.
 
-Counterpart of fava_tpu/ops/velocity.py, single device. The transforms
+Counterpart of fava_tpu/ops/velocity.py. The transforms
 are ``torch.fft`` (cuFFT on the card): an unnormalised forward ``rfftn``
 over every axis and an ``irfftn`` that carries the whole 1/N, so the two
 round-trip exactly, as fava_tpu's ``rfftn_fast``/``irfftn_fast``. The 3D
@@ -11,7 +11,11 @@ spectra bin their density through ``cuda_kernels.shell_bin_sums_rfft_scalar``
 the density is formed in the field dtype (float32 on the card) and the
 walk sums it in float64. 2D data bins by a plain Hermitian-weighted
 ``index_add_``, as fava_tpu's scatter. The summary's sums and moments are
-float64 on every device.
+float64 on every device. The summary of a volume slab-sharded over a
+device mesh (``mesh=``, ROADMAP A11d) is rank-local: packed float64 sums
+of each rank's x-slab joined by all_reduces, and the spectral sums of
+its y-slab of the pencil transform (``turbulence_summary_ranked``); the
+other analyses here take the whole volume (A11e).
 
 Conventions (fava_tpu's, unchanged):
 
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from fava_tpu_torch.ops import cuda_kernels
+from fava_tpu_torch.parallel import runtime
 from fava_tpu_torch.utils import accum_dtype
 
 GUARD = 1e-30  # fava_tpu's floor of every divisor that is an energy, |k| or |k|^2
@@ -471,81 +476,145 @@ def summary_names(has_dens: bool, has_pres: bool) -> Tuple[str, ...]:
     return tuple(names)
 
 
-def _summary_vector(vels, dens, pres, gamma, shape, lengths) -> torch.Tensor:
-    """The packed float64 summary (``summary_names`` order)."""
-    nd = len(shape)
+def _summary_real_parts(vels, dens, pres, gamma):
+    """A rank's pass-1 float64 sums (sum u^2; with dens sum rho u^2, sum
+    rho; with pres sum M^2, sum c_s) and, with pres, the max of M^2."""
     adt = accum_dtype()
-    ntot = int(np.prod(shape))
-    out = {}
     u2 = sum(v.to(adt).square() for v in vels)
-    out["u_rms"] = torch.sqrt(u2.mean())
-    out["kinetic_energy"] = 0.5 * u2.mean()
+    sums = [u2.sum()]
+    m2_max = None
     if dens is not None:
         da = dens.to(adt)
-        out["kinetic_energy_density"] = 0.5 * (da * u2).mean()
-        # log-density contrast moments, float64 on every device
-        s = torch.log(da / da.mean())
-        mu_s = s.mean()
-        out["mean_s"] = mu_s
-        out["sigma_s"] = torch.sqrt((s - mu_s).square().mean())
-        del s
+        sums += [(da * u2).sum(), da.sum()]
     if pres is not None:
         cs2 = gamma.to(adt) * pres.to(adt) / dens.to(adt)
         m2 = u2 / cs2
-        out["mach_rms"] = torch.sqrt(m2.mean())
-        out["mach_max"] = torch.sqrt(m2.max())
-        out["sound_speed_mean"] = torch.sqrt(cs2).mean()
+        sums += [m2.sum(), torch.sqrt(cs2).sum()]
+        m2_max = m2.max()[None]
         del cs2, m2
-    del u2
+    return torch.stack(sums), m2_max
 
-    # Spectral moments: one forward-transform set, Hermitian sums.
-    vhats = [_rfft(v) / ntot for v in vels]
+
+def summary_spectral_sums(vhats, full_shape, lo: int, lengths) -> torch.Tensor:
+    """The spectral body of the summary: (7,) float64 Hermitian sums
+    [E, E(k = 0), E/|k|, k^2 E, compressive E, dilatation^2, enstrophy]
+    of one y-slab of the normalized velocity half-spectra (``vhats``
+    (nx, ny_l, nz//2+1), the columns lo .. lo+ny_l-1 of the whole 3D
+    transforms; the whole half-spectra in 2D, ``lo`` 0). The k = 0 term
+    is the slab's that holds ky = 0. The slabs' sums add up to the
+    whole volume's."""
+    nd = len(full_shape)
+    adt = accum_dtype()
     rdt = vhats[0].real.dtype
     dev = vhats[0].device
-    hw = _hermitian_weights(shape, adt, dev)
-    ks = _k_grids(shape, rdt, dev, lengths, True)
+    hw = _hermitian_weights(full_shape, adt, dev)
+    ks = _k_grids(full_shape, rdt, dev, lengths, True)
+    if nd == 3:
+        ks[1] = ks[1][:, lo : lo + int(vhats[0].shape[1])]
     k2 = sum(k * k for k in ks)
     kmag = torch.sqrt(k2)
     e_mode = sum((0.5 * _abs2(w)).to(adt) for w in vhats) * hw
     e_sum = e_mode.sum()
     # The moments leave out the k = 0 (mean-flow) mode, where 1/k diverges.
+    e_k0 = e_mode.reshape(-1)[0] if lo == 0 else torch.zeros((), dtype=adt, device=dev)
     inv_k = torch.where(kmag > 0, 1.0 / torch.clamp(kmag, min=GUARD), 0.0).to(adt)
-    e_fluct = e_sum - e_mode.reshape(-1)[0]
     m_inv = (e_mode * inv_k).sum()
     k2a = k2.to(adt)
     m_2 = (e_mode * k2a).sum()
     del e_mode, inv_k, kmag
+    # Exact Helmholtz energy split (k = 0 and Nyquist: solenoidal).
+    div_amp2 = _abs2(sum(k * w for k, w in zip(ks, vhats))).to(adt) / torch.clamp(k2a, min=GUARD)
+    comp_e = (0.5 * div_amp2 * hw).sum()
+    # Enstrophy and dilatation by Parseval (Nyquist-zeroed derivatives).
+    dil = (div_amp2 * k2a * hw).sum()
+    del div_amp2, k2a
+    if nd == 3:
+        kx, ky, kz = ks
+        wx, wy, wz = vhats
+        whats = (1j * (ky * wz - kz * wy), 1j * (kz * wx - kx * wz), 1j * (kx * wy - ky * wx))
+        ens = sum(_abs2(w).to(adt) for w in whats) * hw
+    else:
+        kx, ky = ks
+        ens = _abs2(1j * (kx * vhats[1] - ky * vhats[0])).to(adt) * hw
+    return torch.stack([e_sum, e_k0, m_inv, m_2, comp_e, dil, ens.sum()])
+
+
+def turbulence_summary_ranked(vel_slabs, ranks, dens=None, pres=None, gamma=None,
+                              lengths=None) -> torch.Tensor:
+    """The packed float64 summary (``summary_names`` order) of the volume
+    whose x-slabs ``ranks`` plays (a list of velocity components each;
+    the whole volumes on a single device), with ``dens``, ``pres`` and
+    ``gamma`` lists of the same slabs (a scalar gamma: the same 0-d
+    tensor in each) or None. Pass 1: the pointwise sums, one packed
+    all_reduce (and a MAX for the Mach number); pass 2 the sum of s =
+    ln(rho/<rho>) and pass 3 of (s - <s>)^2, one all_reduce each; then
+    the spectral sums of each slab's share of the transforms
+    (``ranks.pencil_rfft``, ``summary_spectral_sums``), one all_reduce."""
+    nd = len(vel_slabs[0])
+    shape = [int(s) for s in vel_slabs[0][0].shape]
+    shape[0] *= ranks.d
+    shape = tuple(shape)
+    adt = accum_dtype()
+    ntot = float(np.prod(shape))
+    count = len(vel_slabs)
+    dens = dens if dens is not None else [None] * count
+    pres = pres if pres is not None else [None] * count
+    gamma = gamma if gamma is not None else [None] * count
+    firsts = [_summary_real_parts(v, d, p, g) for v, d, p, g in zip(vel_slabs, dens, pres, gamma)]
+    sums = ranks.reduce([f[0] for f in firsts]) / ntot
+    out = {"u_rms": torch.sqrt(sums[0]), "kinetic_energy": 0.5 * sums[0]}
+    k = 1
+    if dens[0] is not None:
+        out["kinetic_energy_density"] = 0.5 * sums[1]
+        rho_mean = sums[2]
+        k = 3
+        # log-density contrast moments, float64 on every device
+        logs = [torch.log(d.to(adt) / rho_mean) for d in dens]
+        mu_s = ranks.reduce([s.sum()[None] for s in logs])[0] / ntot
+        var_s = ranks.reduce([(s - mu_s).square().sum()[None] for s in logs])[0] / ntot
+        del logs
+        out["mean_s"] = mu_s
+        out["sigma_s"] = torch.sqrt(var_s)
+    if pres[0] is not None:
+        out["mach_rms"] = torch.sqrt(sums[k])
+        out["mach_max"] = torch.sqrt(ranks.reduce([f[1] for f in firsts], "max")[0])
+        out["sound_speed_mean"] = sums[k + 1]
+    del firsts
+
+    # Spectral moments: one forward-transform set, Hermitian sums.
+    cols = shape[1] // ranks.d
+    vh = [ranks.pencil_rfft([s[c] for s in vel_slabs]) for c in range(nd)]
+    parts = [summary_spectral_sums([vh[c][i] for c in range(nd)], shape, r * cols, lengths)
+             for i, r in enumerate(ranks.ranks)]
+    del vh
+    e_sum, e_k0, m_inv, m_2, comp_e, dil, ens = ranks.reduce(parts)
+    e_fluct = e_sum - e_k0
     # L = (3 pi/4) int E/k dk / int E dk, lambda^2 = 5 int E dk / int k^2 E dk
     # (pi/2 and 2 in 2D).
     out["integral_scale"] = ((3.0 * np.pi / 4.0 if nd == 3 else np.pi / 2.0) * m_inv
                              / torch.clamp(e_fluct, min=GUARD))
     out["taylor_scale"] = torch.sqrt((5.0 if nd == 3 else 2.0) * e_fluct
                                      / torch.clamp(m_2, min=GUARD))
-    # Exact Helmholtz energy split (k = 0 and Nyquist: solenoidal).
-    div_amp2 = _abs2(sum(k * w for k, w in zip(ks, vhats))).to(adt) / torch.clamp(k2a, min=GUARD)
-    comp_e = (0.5 * div_amp2 * hw).sum()
     out["compressive_fraction"] = comp_e / torch.clamp(e_sum, min=GUARD)
     out["solenoidal_fraction"] = 1.0 - out["compressive_fraction"]
-    # Enstrophy and dilatation rms by Parseval (Nyquist-zeroed derivatives).
-    out["dilatation_rms"] = torch.sqrt((div_amp2 * k2a * hw).sum())
-    del div_amp2, k2a
-    if nd == 3:
-        ens = sum(_abs2(w).to(adt) for w in _vorticity_hats(vhats, shape, lengths)) * hw
-    else:
-        kx, ky = ks
-        ens = _abs2(1j * (kx * vhats[1] - ky * vhats[0])).to(adt) * hw
-    out["vorticity_rms"] = torch.sqrt(ens.sum())
-    names = summary_names(dens is not None, pres is not None)
+    out["dilatation_rms"] = torch.sqrt(dil)
+    out["vorticity_rms"] = torch.sqrt(ens)
+    names = summary_names(dens[0] is not None, pres[0] is not None)
     return torch.stack([out[k].to(adt) for k in names])
 
 
 def turbulence_summary_device(velx, vely, velz=None, dens=None, pres=None, gamma=5.0 / 3.0,
-                              lengths=None) -> Tuple[torch.Tensor, Tuple[str, ...]]:
+                              lengths=None, mesh=None) -> Tuple[torch.Tensor, Tuple[str, ...]]:
     """:func:`turbulence_summary` without the host fetch: the packed
     float64 vector on the input's device and its name order (series
-    drivers stack many of these and fetch once)."""
+    drivers stack many of these and fetch once). With ``mesh`` the
+    fields are the rank's x-slabs of a 3D volume slab-sharded over the
+    mesh's space axis (``turbulence_summary_ranked``); every rank gets
+    the whole volume's summary."""
     vels = _vels(velx, vely, velz)
     shape, key = _check_vels(vels, lengths, "turbulence_summary")
+    if mesh is not None and len(shape) != 3:
+        raise ValueError("the sharded turbulence summary needs a 3D volume")
     if pres is not None and dens is None:
         raise ValueError("mach statistics need BOTH pres and dens")
     for name, f in (("dens", dens), ("pres", pres)):
@@ -561,12 +630,15 @@ def turbulence_summary_device(velx, vely, velz=None, dens=None, pres=None, gamma
             g = torch.as_tensor(gamma, dtype=vels[0].dtype, device=vels[0].device)
         if g.ndim != 0 and tuple(int(s) for s in g.shape) != shape:
             raise ValueError(f"gamma shape {tuple(g.shape)} does not match velocity shape {shape}")
-    return _summary_vector(vels, dens, pres, g, shape, key), summary_names(dens is not None,
-                                                                          pres is not None)
+    ranks = runtime.SpaceRanks(mesh)
+    vec = turbulence_summary_ranked([list(vels)], ranks, None if dens is None else [dens],
+                                    None if pres is None else [pres], None if g is None else [g],
+                                    key)
+    return vec, summary_names(dens is not None, pres is not None)
 
 
 def turbulence_summary(velx, vely, velz=None, dens=None, pres=None, gamma=5.0 / 3.0,
-                       lengths=None) -> Dict[str, float]:
+                       lengths=None, mesh=None) -> Dict[str, float]:
     """One-call scalar turbulence report: ``u_rms``, specific
     ``kinetic_energy``; with ``dens`` the ``kinetic_energy_density``
     0.5<rho u^2> and the log-density moments ``mean_s``/``sigma_s``; with
@@ -576,7 +648,8 @@ def turbulence_summary(velx, vely, velz=None, dens=None, pres=None, gamma=5.0 / 
     E/|k| / sum E (pi/2 in 2D), the Taylor scale sqrt(5 sum E / sum k^2 E)
     (factor 2 in 2D), the exact solenoidal/compressive energy fractions
     and the vorticity and dilatation rms. The scale moments leave out
-    the k = 0 mode. Every sum is float64."""
+    the k = 0 mode. Every sum is float64. ``mesh`` as in
+    :func:`turbulence_summary_device`."""
     vec, names = turbulence_summary_device(velx, vely, velz, dens=dens, pres=pres, gamma=gamma,
-                                           lengths=lengths)
+                                           lengths=lengths, mesh=mesh)
     return dict(zip(names, vec.cpu().numpy().astype(np.float64).tolist()))

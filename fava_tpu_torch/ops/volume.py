@@ -12,7 +12,11 @@ hand-written kernel B8 on the card (``cuda_kernels.pdf2d_counts``);
 they are XLA code in fava_tpu. Bin edges are ``np.linspace`` on the
 host (fava_tpu's in-trace ``_edges_traced`` is its bit-identical twin),
 so a data-dependent range costs one device-to-host fetch of the range
-scalars before the histogram.
+scalars before the histogram. ``volume_integration``, ``volume_average``
+and ``mass_sum`` take ``mesh=`` for a volume slab-sharded over a device
+mesh: a local float64 sum on the rank's x-slab, then one all_reduce of
+the packed sums (ROADMAP A11d); the PDFs and ``binned_statistic`` take
+the whole volume (A11e).
 """
 
 from __future__ import annotations
@@ -23,39 +27,70 @@ import numpy as np
 import torch
 
 from fava_tpu_torch.ops import cuda_kernels
+from fava_tpu_torch.parallel import runtime
 from fava_tpu_torch.utils import accum_dtype
 
 
-def volume_integration(data: torch.Tensor, cell_volumes, blocklist=None) -> float:
-    """integral(field dV) = sum over leaf blocks of blocksum * cell_volume."""
+def _joined(vec: torch.Tensor, mesh) -> torch.Tensor:
+    """A rank's packed float64 partial sums, summed over the mesh's space
+    axis (one all_reduce); as they are with no mesh."""
+    return vec if mesh is None else runtime.all_reduce_packed(vec, mesh)
+
+
+def volume_integration(data: torch.Tensor, cell_volumes, blocklist=None, mesh=None) -> float:
+    """integral(field dV) = sum over leaf blocks of blocksum * cell_volume.
+    With ``mesh``, ``data`` is the rank's x-slab of a volume slab-sharded
+    over the mesh's space axis: a local float64 sum, then one all_reduce."""
     if blocklist is not None:
         data = torch.index_select(data, 0, torch.as_tensor(np.asarray(blocklist), device=data.device))
     if data.ndim == 3:  # single uniform block
         data = data[None]
     sums = data.to(accum_dtype()).sum(dim=tuple(range(1, data.ndim)))
     cv = torch.as_tensor(np.asarray(cell_volumes, dtype=np.float64), device=sums.device)
-    return float((sums * cv).sum())
+    return float(_joined((sums * cv).sum()[None], mesh)[0])
 
 
-def volume_average(data: torch.Tensor, cell_volumes, domain_volume: float, blocklist=None) -> float:
-    return volume_integration(data, cell_volumes, blocklist) / float(domain_volume)
+def volume_average(data: torch.Tensor, cell_volumes, domain_volume: float, blocklist=None,
+                   mesh=None) -> float:
+    return volume_integration(data, cell_volumes, blocklist, mesh) / float(domain_volume)
 
 
-def mass_sum(dens: torch.Tensor, cell_volume, masks: Optional[Dict[str, object]] = None) -> Dict[str, float]:
+def _rank_rows(mask, dens: torch.Tensor, mesh):
+    """A whole-volume mask cut to the rank's x-rows of ``dens`` (its x
+    axis the third from last): a view, on the host when it is a host
+    array; a mask that broadcasts along x stays whole."""
+    d = runtime.space_axis_size(mesh)
+    nx = int(dens.shape[-3]) * d
+    axis = np.ndim(mask) - 3
+    if axis < 0 or np.shape(mask)[axis] != nx:
+        return mask
+    lo, hi = runtime.slab_rows(nx, mesh)
+    if not isinstance(mask, torch.Tensor):
+        mask = np.asarray(mask)
+    return mask[(slice(None),) * axis + (slice(lo, hi),)]
+
+
+def mass_sum(dens: torch.Tensor, cell_volume, masks: Optional[Dict[str, object]] = None,
+             mesh=None) -> Dict[str, float]:
     """Total mass plus per-mask masses (the reference's mass_fraction).
 
     ``cell_volume`` is a scalar (uniform grids) or an array that
     broadcasts along the leading axis (AMR per-block volumes); masks are
-    boolean arrays or tensors broadcastable to ``dens``.
+    boolean arrays or tensors broadcastable to ``dens``. With ``mesh``,
+    ``dens`` is the rank's x-slab of a volume slab-sharded over the
+    mesh's space axis: the masks (whole-volume arrays) are cut to the
+    rank's rows before they reach the device, and one all_reduce joins
+    the packed sums.
     """
     masks = masks or {}
     cv = torch.as_tensor(np.asarray(cell_volume, dtype=np.float64), device=dens.device)
     mass = dens.to(accum_dtype()) * cv
     sums = [mass.sum()]
     for name in masks:
-        m = torch.as_tensor(masks[name], device=dens.device)
+        m = masks[name] if mesh is None else _rank_rows(masks[name], dens, mesh)
+        m = torch.as_tensor(m, device=dens.device)
         sums.append(torch.where(m, mass, 0.0).sum())
-    vec = torch.stack(sums).cpu().numpy()
+    vec = _joined(torch.stack(sums), mesh).cpu().numpy()
     out = {"total": float(vec[0])}
     out.update({n: float(vec[1 + i]) for i, n in enumerate(masks)})
     return out

@@ -44,6 +44,14 @@ def transpose_xy(local: torch.Tensor, mesh, axis_name: str = runtime.SPACE_AXIS)
     return recv.reshape(d * nxl, ny // d, m)
 
 
+def pencil_rfft(x_local: torch.Tensor, mesh, axis_name: str = runtime.SPACE_AXIS) -> torch.Tensor:
+    """The rank's y-slab (nx, ny/d, nz//2+1) of the normalized
+    (``norm="forward"``) real transform of a volume slab-sharded along x:
+    rfft2 over (y, z), the x <-> y exchange, the FFT over x."""
+    w = torch.fft.rfft2(x_local, dim=(1, 2), norm="forward")
+    return torch.fft.fft(transpose_xy(w, mesh, axis_name), dim=0, norm="forward")
+
+
 def pfft3(x_local: torch.Tensor, mesh=None, axis_name: str = runtime.SPACE_AXIS) -> torch.Tensor:
     """Forward unnormalized 3D FFT of a volume slab-sharded along x.
 

@@ -20,6 +20,14 @@ spectra (ops/spectra.py:281-288). Any other volume is held whole on
 every rank and takes the single-device paths. This moves data, not
 numbers.
 
+Rank-local analyses (ROADMAP A11d): an analysis of a sharded volume
+runs a body on the rank's x-slab and joins the bodies' contributions
+with a ``SpaceRanks``: the halo planes of a neighbour (``halo_x``), a
+packed all_reduce (``all_reduce_packed``) or an all_gather of per-row
+statistics, never of a whole field. ``gather_slabs`` gathers a whole
+volume, for ``data()``, ``save`` and the analyses that are not
+rank-local yet.
+
 Block and ingest placement (fava_tpu's ``block_sharding``,
 ``ingest_volume_sharding`` and ``ingest_sharding_fn``): a
 ``Placement`` takes the place of a ``NamedSharding``. It names the split
@@ -225,13 +233,122 @@ def shard_volume(x, mesh=None, axis: int = 0) -> torch.Tensor:
 
 
 def gather_slabs(slab: torch.Tensor, mesh=None, dim: int = 0) -> torch.Tensor:
-    """The whole tensor from every space rank's slab along ``dim`` (a
-    volume's x-slabs, or per-row statistics with ``dim=1``): one
-    all_gather on the space group, concatenated in rank order."""
+    """The whole volume from every space rank's x-slab along ``dim``: one
+    all_gather on the space group, concatenated in rank order. Only
+    ``data()``, ``save`` and the analyses that are not rank-local call it
+    (ROADMAP A11e); the rank-local analyses join with ``SpaceRanks``."""
     mesh = mesh if mesh is not None else _MESH
-    parts = [torch.empty_like(slab) for _ in range(space_axis_size(mesh))]
-    dist.all_gather(parts, slab.contiguous(), group=space_group(mesh))
+    return _all_gather(slab, mesh, dim)
+
+
+def _all_gather(part: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    parts = [torch.empty_like(part) for _ in range(space_axis_size(mesh))]
+    dist.all_gather(parts, part.contiguous(), group=space_group(mesh))
     return torch.cat(parts, dim=dim)
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce_packed(vec: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
+    """``vec`` reduced by ``op`` ("sum", "min" or "max") over the mesh's
+    space group, in place, and returned: one all_reduce of a packed
+    vector (float64 for the analyses' sums; the structure functions'
+    samples travel in the field dtype)."""
+    dist.all_reduce(vec, op=_OPS[op], group=space_group(mesh))
+    return vec
+
+
+def halo_x(slab: torch.Tensor, mesh, width: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(below, above): the ``width`` x-planes just below and just above
+    this rank's x-slab, with the periodic wrap across ranks 0 and d-1:
+    the last planes of rank r-1 and the first planes of rank r+1. One
+    ``batch_isend_irecv`` on the space group; on a one-rank space axis,
+    the slab's own wrapped planes."""
+    width = int(width)
+    if not 0 < width <= slab.shape[0]:
+        raise ValueError(f"a halo of {width} planes from a slab of {slab.shape[0]}")
+    d = space_axis_size(mesh)
+    if d == 1:
+        return slab[-width:], slab[:width]
+    group = space_group(mesh)
+    r = int(mesh.get_local_rank(SPACE_AXIS))
+    prev, nxt = (dist.get_global_rank(group, (r + s) % d) for s in (-1, 1))
+    below = torch.empty_like(slab[:width])
+    above = torch.empty_like(slab[:width])
+    # The same order of posting on every rank: a pair of ranks (d = 2)
+    # exchanges two messages each way, matched in order (and by tag).
+    ops = [
+        dist.P2POp(dist.isend, slab[-width:].contiguous(), nxt, group, 0),
+        dist.P2POp(dist.isend, slab[:width].contiguous(), prev, group, 1),
+        dist.P2POp(dist.irecv, below, prev, group, 0),
+        dist.P2POp(dist.irecv, above, nxt, group, 1),
+    ]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return below, above
+
+
+class SpaceRanks:
+    """The ranks of a space axis that this process plays, and the joins
+    of their contributions: what the rank-local analyses run on.
+
+    ``SpaceRanks(mesh)``: this rank of the mesh's space axis; each join
+    is one collective on the space group. ``SpaceRanks(d=d)``: every rank
+    0 .. d-1 of a virtual axis in turn, in this process (the virtual-rank
+    checks), and a join reduces or joins the list; ``SpaceRanks()`` is
+    the one rank of a single device. A rank-local body runs once for each
+    rank in ``ranks`` on that rank's x-slab (``slabs`` below are in that
+    order), and a join takes the list of the bodies' contributions and
+    returns the whole axis's, the same on every rank. Nothing here is
+    sized by the whole volume."""
+
+    def __init__(self, mesh=None, d: Optional[int] = None):
+        self.mesh = mesh
+        if mesh is not None:
+            self.d = space_axis_size(mesh)
+            self.ranks = (int(mesh.get_local_rank(SPACE_AXIS)) if self.d > 1 else 0,)
+        else:
+            self.d = 1 if d is None else int(d)
+            self.ranks = tuple(range(self.d))
+
+    def reduce(self, parts, op: str = "sum") -> torch.Tensor:
+        """The contributions reduced by ``op`` over the axis."""
+        if self.mesh is not None:
+            return all_reduce_packed(parts[0].clone(), self.mesh, op)
+        fn = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}[op]
+        out = parts[0]
+        for p in parts[1:]:
+            out = fn(out, p)
+        return out
+
+    def gather(self, parts, dim: int = 0) -> torch.Tensor:
+        """The contributions joined along ``dim`` in rank order."""
+        if self.mesh is not None:
+            return _all_gather(parts[0], self.mesh, dim)
+        return torch.cat(list(parts), dim=dim)
+
+    def halos(self, slabs, width: int = 1):
+        """(below, above) of each slab: ``halo_x`` under a mesh, else cut
+        from the neighbouring slabs of the list (periodic)."""
+        if self.mesh is not None:
+            return [halo_x(slabs[0], self.mesh, width)]
+        n = len(slabs)
+        return [(slabs[i - 1][-width:], slabs[(i + 1) % n][:width]) for i in range(n)]
+
+    def pencil_rfft(self, slabs):
+        """The y-slab (nx, ny/d, nz//2+1) of the normalized real transform
+        of the volume for each x-slab: under a mesh the pencil transform
+        (``parallel.fft.pencil_rfft``), else the whole volume's transform
+        cut into y-slabs."""
+        from fava_tpu_torch.parallel.fft import pencil_rfft
+
+        if self.mesh is not None:
+            return [pencil_rfft(slabs[0], self.mesh)]
+        whole = slabs[0] if len(slabs) == 1 else torch.cat(list(slabs))
+        w = torch.fft.rfftn(whole, norm="forward")
+        cols = int(w.shape[1]) // self.d
+        return [w[:, r * cols : (r + 1) * cols] for r in self.ranks]
 
 
 @dataclass(frozen=True)

@@ -104,6 +104,15 @@ def test_kernel_matches_plain(cuda_device, kernel):
         torch.cuda.synchronize()
         ref = ck._shell_bin_unfolded_plain(*(a.double() for a in p), nbins, SHAPE[2], 8, SHAPE[0])
         torch.testing.assert_close(got[:2], ref, rtol=1e-10, atol=0)
+    elif kernel == "shell_bin_values_rfft_chunk_1ch":
+        # A transposed y-slab of a pencil transform: rows 8.. of a 32-row axis.
+        p = f[0].abs()[8:24, :, : SHAPE[2] // 2 + 1].contiguous()
+        nbins = max(SHAPE) // 2 - 1
+        got = ck.shell_bin_values_rfft_chunk(p, None, nbins, SHAPE[0], SHAPE[2], 8)
+        torch.cuda.synchronize()
+        ref = ck._shell_bin_unfolded_plain(p.double(), None, nbins, SHAPE[2], 8, SHAPE[0])
+        assert got.shape == (1, nbins)
+        torch.testing.assert_close(got, ref, rtol=1e-10, atol=0)
     elif kernel == "shell_bin_sums_unfolded":
         odd = [a.abs()[1:, :, : SHAPE[2] // 2 + 1].contiguous() for a in f[:2]]
         nbins = max(SHAPE) // 2 - 1

@@ -67,7 +67,8 @@ NOT_PORTED = {
 # NamedSharding).
 PORT_ONLY = {
     "utils": {"field_dtype", "resolve_device"},
-    "parallel": {"Placement", "gather_slabs", "shards_volume", "space_axis_size"},
+    "parallel": {"Placement", "SpaceRanks", "all_reduce_packed", "gather_slabs", "halo_x",
+                 "shards_volume", "space_axis_size"},
 }
 
 
