@@ -114,8 +114,11 @@ no result):
    the one-pass (B11a) and row-chunked (B11b: K4's kernel through its
    own entry) folded binning on fava_tpu-style folds whose 7 pad rows
    hold NaN, and the fused z+y transform (B12) on sqrt(rho)*v_x against
-   their plain versions: B12's cluster FFT kernel (its plan, occupancy
-   and ptxas report printed) and its dense kernel on the same input, both
+   their plain versions: B12's cluster FFT kernel (its ptxas report, and
+   each plan with its radices and occupancy, printed) at 512^3 and, on its
+   mixed-radix route, at the cuts 512x512x480, 512x480x512 and
+   512x384x375 (odd z), and its dense kernel at 512^3 and at the cut
+   512x512x502 (z = 2 x 251, which only it takes), each launched once,
    against the float64 dense DFT and timed beside ``torch.fft.rfftn``
    over y and z (the library call), and the FFT kernel's two-pass plan on
    an (8, 1024, 1024) volume; then the spectra five ways, each with
@@ -123,9 +126,10 @@ no result):
    cuFFT into B9, (c) B12 and cuFFT along x into B9, (d)/(e) the main
    path's powers and fold padded as fava_tpu pads it into B11a/B11b;
    counts exact and sums held to (a) and to phase 4's float64 CPU path;
-   then (c) on the fields cut to 512x512x480, where B12 takes its dense
-   kernel, held to (a) on the same cut; each path's entry and its two
-   stages timed by CUDA events.
+   then (c) on the fields cut to 512x512x480 (B12's cluster kernel) and to
+   512x512x502 (its dense kernel), each held to (a) on the same cut with
+   exact counts; each path's entry and its two stages timed by CUDA
+   events.
 19. Stage 4's fractal dimension and structure functions (run after
    phase 12) on the 512^3 window as stage 4 reads it: the plt file's
    ``flam`` regridded to the window's uniform file (K7, its own
@@ -292,6 +296,7 @@ The last two lines are one JSON object with a row per kernel, then
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -3071,33 +3076,59 @@ def fused_kernel_rows(torch, ck, fields, nbins):
     del folds, padded, ref, got, k4, out3
     torch.cuda.empty_cache()
 
-    # B12 on sqrt(rho)*v_x: the cluster FFT kernel and the dense kernel
-    # against the float64 dense DFT, each timed beside one cuFFT rfftn over
-    # the y and z axes (the library call).
+    # B12 on sqrt(rho)*v_x and its cuts: the cluster FFT kernel (the
+    # power-of-two route at 512^3; the mixed-radix route at 512x512x480 (z =
+    # 15 x 16), 512x480x512 (y = 10 x 6 x 8) and 512x384x375 (odd z, rows
+    # paired)) and the dense kernel (512^3, and 512x512x502, whose factor 251
+    # only it takes) against the float64 dense DFT, each launched once and
+    # timed beside one cuFFT rfftn over the y and z axes (the library call).
+    # The kernels line's rows hold 512^3; their "shapes" the cuts.
     x = torch.sqrt(dens) * vels[0]
-    plan = ck._zy_fft_plan(ny, nz)
-    say(f"phase 18 zy_rfft_planar plan at ({ny}, {nz}): cluster {plan.cluster}, tile {plan.tile}, "
-        f"passes {plan.passes}, row batch {plan.batch}, shared bytes {plan.smem}, active clusters "
-        f"{ck.zy_fft_active_clusters(plan)}; radices z {plan.logs_z} y {plan.logs_y} (log2)")
     for line in ptxas_report("zy_fft_kernel"):
         say(f"phase 18 zy_fft_kernel ptxas: {line}")
-    ref = ck._zy_rfft_plain(x.double())
-    scale = max(float(r.abs().max()) for r in ref)
-    work = (4 * x.numel() + 8 * nx * ny * nzr, zy_fft_ops(nx, ny, nz))
-    library_ms = cuda_ms(torch, lambda: torch.fft.rfftn(x, dim=(1, 2)), 20)
-    for name, fn in (("zy_rfft_planar", ck.zy_rfft_planar), ("zy_rfft_planar_dense", ck._zy_rfft_dense)):
-        got = fn(x)
-        torch.cuda.synchronize()
-        max_abs = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref))
-        del got
-        rows[name] = kernel_row(torch, 18, name, max_abs, max_abs / (TOL_ZY * scale),
-                                f"{TOL_ZY!r} of the largest coefficient {scale!r}", lambda: fn(x),
-                                lambda: ck._zy_rfft_plain(x), work)
-        rows[name]["library_ms"] = library_ms
-    del ref
-    say(f"phase 18 zy_rfft_planar: cluster FFT {rows['zy_rfft_planar']['ms']!r} ms, dense kernel "
-        f"{rows['zy_rfft_planar_dense']['ms']!r} ms, library call torch.fft.rfftn(x, dim=(1, 2)) "
-        f"{library_ms!r} ms; library_ms null for B9 and B11: no single PyTorch call bins powers by shell")
+    cuts = {"512^3": x, "512x512x480": x[..., :480], "512x480x512": x[:, :480],
+            "512x384x375": x[:, :384, :375], "512x512x502": x[..., :502]}
+    b12 = {}
+    for cut, v in cuts.items():
+        v = v.contiguous()
+        vx, vy, vz = (int(n) for n in v.shape)
+        fft = ck._zy_uses_fft(v.shape)
+        names = ["zy_rfft_planar"] if fft else []
+        if not fft or cut == "512^3":
+            names.append("zy_rfft_planar_dense")
+        plan = ck._zy_fft_plan(vy, vz) if fft else None
+        if fft:
+            say(f"phase 18 zy_rfft_planar plan at {cut}: cluster {plan.cluster}, tile {plan.tile}, passes "
+                f"{plan.passes}, rows {plan.rows}, row batch {plan.batch}, shared bytes {plan.smem}, active "
+                f"clusters {ck.zy_fft_active_clusters(plan)}; radices z {plan.radices_z} y {plan.radices_y}")
+        ref = ck._zy_rfft_plain(v.double())
+        scale = max(float(r.abs().max()) for r in ref)
+        work = (4 * v.numel() + 8 * vx * vy * (vz // 2 + 1), zy_fft_ops(vx, vy, vz))
+        library_ms = cuda_ms(torch, lambda: torch.fft.rfftn(v, dim=(1, 2)), 20)
+        for name in names:
+            fn = ck.zy_rfft_planar if name == "zy_rfft_planar" else ck._zy_rfft_dense
+            ck.reset_launch_counts()
+            got = fn(v)
+            torch.cuda.synchronize()
+            if {k: n for k, n in ck.launch_counts().items() if n} != {name: 1}:
+                fail(f"{name} at {cut} launched {ck.launch_counts()}, expected {name} once")
+            max_abs = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref))
+            del got
+            row = kernel_row(torch, 18, f"{name} at {cut}", max_abs, max_abs / (TOL_ZY * scale),
+                             f"{TOL_ZY!r} of the largest coefficient {scale!r}", lambda: fn(v),
+                             lambda: ck._zy_rfft_plain(v), work)
+            row["library_ms"] = library_ms
+            if name == "zy_rfft_planar":
+                row.update(plan=dataclasses.asdict(plan), active_clusters=ck.zy_fft_active_clusters(plan))
+            b12[name, cut] = row
+            say(f"phase 18 {name} at {cut}: {row['ms']!r} ms, bound {row['bound_ms']!r} ms, plain "
+                f"{row['plain_ms']!r} ms, library call torch.fft.rfftn(x, dim=(1, 2)) {library_ms!r} ms")
+        del ref, v
+        torch.cuda.empty_cache()
+    for name in ("zy_rfft_planar", "zy_rfft_planar_dense"):
+        rows[name] = {**b12[name, "512^3"],
+                      "shapes": {cut: r for (n, cut), r in b12.items() if n == name and cut != "512^3"}}
+    say("phase 18 library_ms null for B9 and B11: no single PyTorch call bins powers by shell")
     del x
     torch.cuda.empty_cache()
 
@@ -3327,33 +3358,36 @@ def phase_fused(torch, np, fields, ref_spectra):
             np, out, ref, floor, f"{key} vs float64", 18,
             bound_of=lambda k, b=max(bounds[p], TOL_SPECTRA): b)
     times = {"stages_ms": fused_path_ms(torch, fields, nbins), "errors": errs}
-    times["dense_route"] = dense_route_path(torch, np, ck, fields, totals)
+    for nz, b12 in ((480, "zy_rfft_planar"), (502, "zy_rfft_planar_dense")):
+        times[f"cut_512x512x{nz}"] = cut_route_path(torch, ck, fields, totals, nz, b12)
     return rows, totals, times
 
 
-def dense_route_path(torch, np, ck, fields, totals):
-    """Path (c) on the fields cut to 512x512x480: z = 480 is no power of
-    two, so B12 takes its dense kernel (3 launches); held to path (a) on
-    the same cut, counts exact."""
+def cut_route_path(torch, ck, fields, totals, nz, b12):
+    """Path (c) on the fields cut to 512x512xnz, where B12 takes ``b12`` (3
+    launches): z = 480 = 2^5 x 3 x 5 the cluster FFT kernel's mixed-radix
+    route, z = 502 = 2 x 251 the dense kernel; held to path (a) on the same
+    cut, counts exact; one warm run timed (CUDA events)."""
     from fava_tpu_torch.experiments import planar_dft
     from fava_tpu_torch.ops.spectra import rfft_shell_sums
 
-    dens, *vels = (f[..., :480].contiguous() for f in fields)
+    dens, *vels = (f[..., :nz].contiguous() for f in fields)
     nbins = max(dens.shape) // 2 - 1
-    expect = {"zy_rfft_planar_dense": 3, "shell_bin_powers_fused": 1}
+    what = f"(c) on 512x512x{nz}"
+    expect = {b12: 3, "shell_bin_powers_fused": 1}
     (counts, sums), launches = counted(
-        torch, ck, "(c) on 512x512x480, B12 dense", lambda: planar_dft.rfft_shell_sums_fused_zy(
-            dens, vels, nbins), tuple(expect), 18)
+        torch, ck, f"{what}, B12 {b12}", lambda: planar_dft.rfft_shell_sums_fused_zy(dens, vels, nbins),
+        tuple(expect), 18)
     if {k: v for k, v in launches.items() if v} != expect:
-        fail(f"(c) on 512x512x480 launched {launches}, expected exactly {expect}")
+        fail(f"{what} launched {launches}, expected exactly {expect}")
     add_counts(totals, launches)
     ref_counts, ref_sums = rfft_shell_sums(dens, vels, nbins)
     if not torch.equal(counts, ref_counts):
-        fail("(c) on 512x512x480: counts differ from (a)'s")
+        fail(f"{what}: counts differ from (a)'s")
     err = float((sums - ref_sums).abs().max() / ref_sums.abs().max())
-    say(f"phase 18 (c) on 512x512x480 vs (a): max|diff|/scale {err!r} (bound {TOL_ZY_PATH!r})")
+    say(f"phase 18 {what} vs (a): max|diff|/scale {err!r} (bound {TOL_ZY_PATH!r})")
     if not err <= TOL_ZY_PATH:
-        fail("(c) on 512x512x480 disagrees with (a)")
+        fail(f"{what} disagrees with (a)")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     planar_dft.rfft_shell_sums_fused_zy(dens, vels, nbins)
@@ -3361,7 +3395,7 @@ def dense_route_path(torch, np, ck, fields, totals):
     torch.cuda.synchronize()
     del dens, vels
     torch.cuda.empty_cache()
-    return {"error_vs_a": err, "total_ms": start.elapsed_time(end)}
+    return {"b12": b12, "error_vs_a": err, "total_ms": start.elapsed_time(end)}
 
 
 # ---------------------------------------------------------------------------

@@ -13,26 +13,41 @@
 // planes: 0.54 GB in and 0.54 GB out at 512^3, 0.32 ms at 3.35 TB/s. Done as
 // FFTs its arithmetic is 6 GFLOP (0.09 ms at 67 TFLOP/s f32).
 //
-// zy_fft_kernel, the route for power-of-two ny (1..1024) and nz (2..1024).
-// The TPU kept a slab's intermediate Z (1 MB at 512^2) in VMEM; here a
-// thread-block cluster keeps it in its blocks' shared memory, so Z never
-// goes to device memory and the kernel moves only the bound's bytes. The
-// plan (cluster size C, passes P, row batch, slots a rank owns, strides,
-// shared bytes, radices) comes from _zy_fft_plan in ops/cuda_kernels.py.
-// The nz/2 + 1 kz columns are nz/2 slots: slot 0 holds the real columns
-// kz = 0 and nz/2 packed as one complex column, slot u > 0 holds kz = u, so
-// every rank owns a power-of-two range of slots. A cluster of C blocks does
-// pass p of slab i (grid (C P, nx)):
-//   phase 1: rank r transforms its ny/C rows along z, a batch of rows at a
-//     time in a work buffer: each row's nz reals as nz/2 complex values, read
-//     from device memory by the first of the in-place radix-16/8/4/2
-//     decimation-in-frequency passes; then X[k] = E[k] + W_nz^k O[k] from the
-//     digit-reversed result, stored through distributed shared memory
+// Two routes, chosen by shape alone (_zy_uses_fft in ops/cuda_kernels.py):
+//   zy_fft_kernel, a cluster FFT, for 7-smooth ny (1..1024) and nz
+//     (2..1024): extents whose prime factors are all <= 7, which FLASH's
+//     nxb x nblocks x 2^L gives for block counts of 3, 5 or 6 (384, 480,
+//     640, 768, ...) as well as for powers of two;
+//   zy_rfft_kernel, a dense DFT, for the rest (a prime factor above 7, as
+//     502 = 2 x 251 or 509, and nz = 1), up to 1024.
+//
+// zy_fft_kernel. The TPU kept a slab's intermediate Z (1 MB at 512^2) in
+// VMEM; here a thread-block cluster keeps it in its blocks' shared memory,
+// so Z never goes to device memory and the kernel moves only the bound's
+// bytes. The plan (cluster size C, passes P, row batch, slots a rank owns,
+// strides, shared bytes, radices) comes from _zy_fft_plan in
+// ops/cuda_kernels.py. The kz columns are column slots:
+//   even nz: nz/2 slots from an nz/2-point complex transform of each row
+//     (its nz reals as nz/2 complex values) and the post-twiddle X[k] =
+//     E[k] + W_nz^k O[k]; slot 0 holds the real columns kz = 0 and nz/2
+//     packed as one complex column, slot u > 0 holds kz = u;
+//   odd nz: (nz+1)/2 slots, slot u holds kz = u. Rows a and b (a pair of a
+//     batch; an odd batch's last row pairs with zeros) go through one
+//     nz-point complex transform C of x[a] + i x[b], split by Hermitian
+//     symmetry: X_a[k] = (C[k] + conj C[nz-k]) / 2, X_b[k] = (C[k] -
+//     conj C[nz-k]) / 2i. No real column is packed.
+// A cluster of C blocks does pass p of slab i (grid (C P, nx)):
+//   phase 1: rank r transforms its rows [r ny / C, (r+1) ny / C) along z, a
+//     batch at a time in a work buffer: the first of the in-place
+//     decimation-in-frequency passes reads the rows from device memory;
+//     then each X[k] of the slots of pass p, read from the digit-reversed
+//     result, is stored through distributed shared memory
 //     (cluster.map_shared_rank) straight into the rank that owns slot k,
 //     which holds all ny rows of its slots;
 //   cluster.sync(): every rank's slots are written and visible;
-//   phase 2: rank r runs the y passes down its slots in place, the last pass
-//     writing re and im, and splits slot 0 by Hermitian symmetry.
+//   phase 2: rank r runs the y passes down its slots in place, the last
+//     pass writing re and im; for even nz slot 0's transform is split by
+//     Hermitian symmetry into kz = 0 and nz/2.
 // Nothing reads another block's shared memory after the barrier, so a block
 // leaves when its phase 2 is done; a split barrier at the start
 // (barrier.cluster.arrive, then wait before the first store into another
@@ -40,23 +55,53 @@
 // cluster is done in P passes over slot ranges (1024^2: P = 2), each
 // re-running phase 1 for its slots. Two blocks of 256 threads share an SM
 // (~113 KB of shared memory each at 512^2), the one block shape that fits:
-// their phases overlap. Twiddles: for the post-process and for each pass
-// (W_L^(j t) at t L/R + j, so lanes on consecutive j read consecutive
-// entries), built once in device memory in double (sincospi), rounded once
-// to float, and copied into shared memory by every block with the digit
-// positions (zy_fft_tables_kernel). f32 arithmetic, no TF32: log2 n
-// rounding stages, ~1e-7 of the largest coefficient. Strides are odd and
-// phase 1's rows carry one padding slot per span of the first pass's digit,
-// so lanes hit distinct banks. The C entry checks the plan and that the
-// cluster can be scheduled (cudaOccupancyMaxActiveClusters); it returns an
-// error otherwise.
+// their phases overlap.
 //
-// zy_rfft_kernel, the dense route for every other shape up to 1024: Z = A .
-// [Cr | Ci] with Cr[z, k] = cos(2 pi z k / nz), Ci[z, k] = -sin(2 pi z k /
-// nz), then Y = W . Z with W[a, b] = exp(-2 pi i a b / ny). It does O(n)
-// work per output where an FFT does O(log n): 414 GFLOP per 512^3 volume,
-// 6.2 ms at the f32 peak, far over the bytes bound, so it serves only the
-// shapes the FFT kernel does not take.
+// Mixed radix. A pass of radix R on sub-transforms of length L is an R-point
+// DFT in registers on the values L/R apart, then twiddles W_L^(j t): radices
+// 2, 4, 8, 16 (as 4 x 4), 3, 5, 7 (the direct odd formula, its cosines and
+// sines folded to constants), and 6, 10, 12, 14, 15 by the prime-factor
+// (Good-Thomas) map of two coprime radices, which needs no twiddle between
+// them. The composites save a pass or beat the other factorings of their
+// extents on an H100 (probe_zy_fft.py --designs: 15 saves 6-9% at 480 and
+// 375, 12 2% at 384); 9 gained nothing and went. 14 gains nothing at 896
+// either, but without its case ptxas spilled this build at 128 registers
+// and 512 x 480 x 512 ran 1.268 against 1.125 ms (chip_smoke.py): it
+// stays. The plan takes the
+// fewest passes of these (240 = 15 x 16, 480 = 10 x 6 x 8, 375 = 15 x 5 x
+// 5), odd parts first, so that the first pass's global loads run along
+// rows. The output digit reversal is mixed radix (fft_pos). Where the
+// passes, batches and slot ranges are powers of two (power-of-two ny and
+// nz: zy_fft_kernel<true>) work items are split by shifts; otherwise
+// (zy_fft_kernel<false>) by multiplying with magic numbers (Dv<false>) that
+// the tables carry, one per divisor of the plan: a pass gives each thread
+// about one item, and integer division per item (~20 instructions each,
+// two an item) cost 1.58 against 1.46 ms at 512 x 512 x 480 on an H100.
+// The power-of-two plans keep the shift build: through the divisors they
+// ran 1.154 against 1.043 ms at 512^3 and 0.173 against 0.154 ms at (8,
+// 1024, 1024) (--designs, bit-equal). Rows and slots are shared out
+// unevenly (floor(r ny / C), floor(u slots / (C P))) when C or C P does not
+// divide them. Cluster sizes and pass counts stay powers of two.
+//
+// Twiddles: for the post-process and for each pass (W_L^(j t) at t L/R + j,
+// so lanes on consecutive j read consecutive entries), built once in device
+// memory in double (sincospi), rounded once to float, and copied into
+// shared memory by every block with the digit positions
+// (zy_fft_tables_kernel). f32 arithmetic, no TF32: one rounding stage a
+// pass, ~1e-7 of the largest coefficient. Strides are odd, and phase 1's
+// rows carry one padding slot per 2^v values where 2^v (v >= 2) is the
+// power of two in the first pass's span, so the post-process's
+// digit-reversed reads hit distinct banks. The C entry checks the plan and
+// that the cluster can be scheduled (cudaOccupancyMaxActiveClusters); it
+// returns an error otherwise.
+//
+// zy_rfft_kernel, the dense route: Z = A . [Cr | Ci] with Cr[z, k] =
+// cos(2 pi z k / nz), Ci[z, k] = -sin(2 pi z k / nz), then Y = W . Z with
+// W[a, b] = exp(-2 pi i a b / ny). It does O(n) work per output where an FFT
+// does O(log n): 414 GFLOP per 512^3 volume, 6.2 ms at the f32 peak, far
+// over the bytes bound, so it serves only the shapes the FFT kernel does
+// not take (Bluestein's algorithm or a generic-radix pass would take them
+// too).
 //
 // Design of the dense kernel. A block owns one slab and a tile of kTK = 16
 // kz columns: it computes Z[:, tile] (ny x 16 complex, 64 KB at ny = 512)
@@ -235,12 +280,37 @@ constexpr int kMaxStages = 10;  // ZY_MAX_STAGES in ops/cuda_kernels.py
 // kernel's static arrays (ZY_SMEM_MAX in ops/cuda_kernels.py).
 constexpr int kFftSmemMax = 232448 - 256;
 
-// The plan, as ZyFftPlan.as_ints() lays it out.
+// The plan, as ZyFftPlan.as_ints() lays it out: rows is the most rows a
+// rank holds, batch the rows of a batch (even for odd nz), tile the most
+// slots a rank owns, rz and ry the radices of the z and y passes.
 struct ZyFftPlan {
-  int ny, nz, cluster, passes, rows, batch, tile, ws, es, work, smem, nlz, nly;
-  int lz[kMaxStages], ly[kMaxStages];
+  int ny, nz, cluster, passes, rows, batch, tile, ws, es, work, smem, nrz, nry;
+  int rz[kMaxStages], ry[kMaxStages];
 };
-constexpr int kPlanHead = 13;  // ints before the radix logs
+constexpr int kPlanHead = 13;  // ints before the radices
+
+// The z transform's length (nz/2 for even nz, nz for odd) and the column
+// slots ((nz+1)/2 either way: nz/2 slots with kz 0 and nz/2 packed, or
+// (nz+1)/2 plain ones).
+__host__ __device__ __forceinline__ int zy_nt(const ZyFftPlan& p) { return (p.nz & 1) ? p.nz : p.nz >> 1; }
+__host__ __device__ __forceinline__ int zy_nslot(const ZyFftPlan& p) { return (p.nz + 1) >> 1; }
+
+__host__ __device__ __forceinline__ bool pow2(int n) { return n >= 1 && (n & (n - 1)) == 0; }
+
+// Whether every divisor of the plan is a power of two: zy_fft_kernel<true>,
+// whose tables hold no divisors.
+__host__ __device__ __forceinline__ bool plan_pow2(const ZyFftPlan& p) {
+  return pow2(p.ny) && pow2(p.nz) && pow2(p.batch);
+}
+
+// Phase 1's rows carry one padding slot per 2^v values, 2^v the power of two
+// in the first pass's span nt / R0 when v >= 2 (31: none).
+__host__ __device__ __forceinline__ int zy_pad(const ZyFftPlan& p) {
+  const int nt = zy_nt(p), span = p.nrz ? nt / p.rz[0] : nt;
+  int v = 0;
+  while (v < 30 && !((span >> v) & 1)) ++v;
+  return v >= 2 ? v : 31;
+}
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
 __device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
@@ -325,6 +395,174 @@ struct Dft<16> {  // 4 x 4: DFT4 down the columns, the twiddles W16^(j s), DFT4 
   }
 };
 
+// cos and sin of 2 pi m / P, 1 <= m <= (P-1)/2, for the odd radices; m is
+// a constant once the callers' loops are unrolled, so the switch folds.
+template <int P>
+struct UnitRoot;
+template <>
+struct UnitRoot<3> {
+  static __device__ __forceinline__ float cos(int) { return -0.5f; }
+  static __device__ __forceinline__ float sin(int) { return 0.86602540378443864676f; }
+};
+template <>
+struct UnitRoot<5> {
+  static __device__ __forceinline__ float cos(int m) {
+    return m == 1 ? 0.3090169943749474241f : -0.8090169943749474241f;
+  }
+  static __device__ __forceinline__ float sin(int m) {
+    return m == 1 ? 0.95105651629515357212f : 0.58778525229247312917f;
+  }
+};
+template <>
+struct UnitRoot<7> {
+  static __device__ __forceinline__ float cos(int m) {
+    return m == 1 ? 0.62348980185873353053f : m == 2 ? -0.22252093395631440429f : -0.90096886790241912624f;
+  }
+  static __device__ __forceinline__ float sin(int m) {
+    return m == 1 ? 0.78183148246802980871f : m == 2 ? 0.97492791218182360702f : 0.43388373911755812048f;
+  }
+};
+// An odd prime P-point DFT by the direct formula on symmetric sums: with a_n =
+// v[n] + v[P-n], b_n = v[n] - v[P-n] (1 <= n <= H = (P-1)/2), X[k] = re_k -
+// i im_k and X[P-k] = re_k + i im_k, re_k = v[0] + sum_n cos(2 pi n k / P)
+// a_n, im_k = sum_n sin(2 pi n k / P) b_n.
+template <int P>
+struct OddDft {
+  static __device__ __forceinline__ void run(float2* v) {
+    constexpr int H = (P - 1) / 2;
+    float2 a[H], b[H];
+    float2 x0 = v[0];
+#pragma unroll
+    for (int n = 1; n <= H; ++n) {
+      a[n - 1] = cadd(v[n], v[P - n]);
+      b[n - 1] = csub(v[n], v[P - n]);
+      x0 = cadd(x0, a[n - 1]);
+    }
+#pragma unroll
+    for (int k = 1; k <= H; ++k) {
+      float2 re = v[0], im = make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int n = 1; n <= H; ++n) {
+        const int m = (n * k) % P;  // 1 .. P-1 for prime P; m > H by symmetry
+        const float c = UnitRoot<P>::cos(m <= H ? m : P - m);
+        const float s = m <= H ? UnitRoot<P>::sin(m) : -UnitRoot<P>::sin(P - m);
+        re = make_float2(fmaf(c, a[n - 1].x, re.x), fmaf(c, a[n - 1].y, re.y));
+        im = make_float2(fmaf(s, b[n - 1].x, im.x), fmaf(s, b[n - 1].y, im.y));
+      }
+      v[k] = make_float2(re.x + im.y, re.y - im.x);
+      v[P - k] = make_float2(re.x - im.y, re.y + im.x);
+    }
+    v[0] = x0;
+  }
+};
+template <>
+struct Dft<3> : OddDft<3> {};
+template <>
+struct Dft<5> : OddDft<5> {};
+template <>
+struct Dft<7> : OddDft<7> {};
+
+__host__ __device__ constexpr int inverse_mod(int a, int m) {
+  int x = 1;
+  while ((a * x) % m != 1) ++x;
+  return x;
+}
+
+// An N1 N2-point DFT for coprime N1, N2 by the prime-factor map: input n =
+// (N2 n1 + N1 n2) mod N, DFT_N1 along n1, DFT_N2 along n2, output at the
+// CRT index k = (e1 k1 + e2 k2) mod N. No twiddles between the two.
+template <int N1, int N2>
+struct Pfa {
+  static __device__ __forceinline__ void run(float2* v) {
+    constexpr int N = N1 * N2;
+    constexpr int e1 = N2 * inverse_mod(N2 % N1, N1), e2 = N1 * inverse_mod(N1 % N2, N2);
+    float2 a[N2][N1];
+#pragma unroll
+    for (int n2 = 0; n2 < N2; ++n2) {
+#pragma unroll
+      for (int n1 = 0; n1 < N1; ++n1) a[n2][n1] = v[(N2 * n1 + N1 * n2) % N];
+      Dft<N1>::run(a[n2]);
+    }
+#pragma unroll
+    for (int k1 = 0; k1 < N1; ++k1) {
+      float2 t[N2];
+#pragma unroll
+      for (int n2 = 0; n2 < N2; ++n2) t[n2] = a[n2][k1];
+      Dft<N2>::run(t);
+#pragma unroll
+      for (int k2 = 0; k2 < N2; ++k2) v[(e1 * k1 + e2 * k2) % N] = t[k2];
+    }
+  }
+};
+template <>
+struct Dft<6> : Pfa<2, 3> {};
+template <>
+struct Dft<10> : Pfa<2, 5> {};
+template <>
+struct Dft<12> : Pfa<4, 3> {};
+template <>
+struct Dft<14> : Pfa<2, 7> {};
+template <>
+struct Dft<15> : Pfa<3, 5> {};
+
+#ifdef __CUDA_ARCH__
+__device__ __forceinline__ int log2_pow2(int d) { return __ffs(d) - 1; }
+__device__ __forceinline__ unsigned mul_hi(unsigned a, unsigned b) { return __umulhi(a, b); }
+#else
+__device__ int log2_pow2(int d);  // device code only
+__device__ unsigned mul_hi(unsigned a, unsigned b);
+#endif
+
+// Division by a divisor uniform across the block. P2 (every divisor of the
+// plan a power of two): a shift, its log taken where it is needed. Else
+// precomputed in the plan's tables (make_dv): a shift for a power of two,
+// otherwise the high word of n * m with m = ceil(2^32 / d), exact for n
+// and d up to 2^16 (every dividend of the kernel is an index into its
+// shared memory, < 29,056, or a slot's owner, bounded by plan_ok).
+template <bool P2>
+struct Dv;
+template <>
+struct Dv<true> {
+  int l, d;
+  Dv() = default;
+  __device__ __forceinline__ explicit Dv(int d_) : l(log2_pow2(d_)), d(d_) {}
+  __device__ __forceinline__ int div(int n) const { return n >> l; }
+  __device__ __forceinline__ int mul(int q) const { return q << l; }
+};
+template <>
+struct Dv<false> {
+  unsigned m;  // 0: d = 2^l
+  unsigned short d, l;
+  __device__ __forceinline__ int div(int n) const { return m ? (int)mul_hi((unsigned)n, m) : n >> l; }
+  __device__ __forceinline__ int mul(int q) const { return q * d; }
+};
+
+__device__ __forceinline__ Dv<false> make_dv(int d) {
+  Dv<false> v{0, (unsigned short)d, 0};
+  if (d & (d - 1))
+    v.m = 0xffffffffu / (unsigned)d + 1;
+  else
+    v.l = (unsigned short)log2_pow2(d);
+  return v;
+}
+
+// The mixed-radix kernel's divisors in its tables (kDivs of them): the z
+// and y passes' sub-lengths L/R, phase 1's sequences of a full batch, the
+// slot count, the two widths of a pass's slot range and of a rank's.
+constexpr int kDivs = 2 * kMaxStages + 6;
+enum { kDvZ = 0, kDvY = kMaxStages, kDvSeqs = 2 * kMaxStages, kDvSlots, kDvPass, kDvPassHi, kDvRank,
+       kDvRankHi };
+
+// The divisor d: P2, its shift; else the entry lo of the tables, or hi
+// when lo divides by another value (the two widths of a range).
+template <bool P2>
+__device__ __forceinline__ Dv<P2> divisor(int d, const Dv<false>* dvs, int lo, int hi) {
+  if constexpr (P2)
+    return Dv<true>(d);
+  else
+    return dvs[lo].d == d ? dvs[lo] : dvs[hi];
+}
+
 // Where a pass reads and writes element e of sequence s. The passes work in
 // place in shared memory, but phase 1's first pass reads the slab's rows
 // from device memory and phase 2's last pass writes the output.
@@ -336,10 +574,18 @@ struct SmemSeq {  // element e of sequence s at buf[s ss + (e + (e >> pad)) es]
   __device__ __forceinline__ void store(int s, int e, float2 v) const { buf[at(s, e)] = v; }
 };
 
-struct SlabRows {  // complex value e of row s: the reals 2e, 2e+1 of the row
+// Complex value e of sequence s of a batch. Even nz: the reals 2e, 2e+1 of
+// row s. Odd nz: (x[2s][e], x[2s+1][e]), the second 0 past the batch's
+// last row.
+template <bool P2>
+struct SlabRows {
   const float* src;
-  int nz, vec;  // vec: the slab is 8-byte aligned (float2 loads)
+  int nz, vec, odd, nrows;  // vec: the slab is 8-byte aligned (float2 loads)
   __device__ __forceinline__ float2 load(int s, int e) const {
+    if (!P2 && odd) {
+      const float* q = src + 2 * s * nz + e;
+      return make_float2(__ldg(q), 2 * s + 1 < nrows ? __ldg(q + nz) : 0.0f);
+    }
     const float* q = src + s * nz + 2 * e;
     return vec ? __ldg(reinterpret_cast<const float2*>(q)) : make_float2(__ldg(q), __ldg(q + 1));
   }
@@ -349,10 +595,10 @@ struct OutColumns {  // position e of column s holds output row ipos[e] of slot 
   float* re;  // the slab's planes
   float* im;
   const uint16_t* ipos;
-  SmemSeq stash;  // slot 0 (kz 0 and nz/2 packed) stays in shared memory for the split
-  int nzr, col0;
+  SmemSeq stash;  // even nz: slot 0 (kz 0 and nz/2 packed) stays in shared memory for the split
+  int nzr, col0, packed;
   __device__ __forceinline__ void store(int s, int e, float2 v) const {
-    if (col0 + s == 0) {
+    if (packed && col0 + s == 0) {
       stash.store(s, e, v);
       return;
     }
@@ -362,97 +608,123 @@ struct OutColumns {  // position e of column s holds output row ipos[e] of slot 
   }
 };
 
-// One in-place decimation-in-frequency pass of radix R = 2^LR over nseq
-// (<= 2^lseq) sequences of length 2^ln, on sub-transforms of length
-// L = 2^lL: x[g L + j + t L/R], t < R, goes through an R-point DFT and
-// output t, times W_L^(j t) = tw[t L/R + j] (the pass's own table, so
-// lanes on consecutive j read consecutive twiddles), goes back to
-// g L + t L/R + j. Work items run j fastest while L/R >= 16 (lanes on
-// consecutive elements), s fastest below (lanes on sequences, whose
-// strides are odd).
-template <int R, int LR, class Src, class Dst>
-__device__ void fft_pass(const Src& src, const Dst& dst, int ln, int lL, int lseq, int nseq,
+// One in-place decimation-in-frequency pass of radix R over nseq (<= slots)
+// sequences of length nt, on sub-transforms of length L: x[g L + j + t L/R],
+// t < R, goes through an R-point DFT and output t, times W_L^(j t) =
+// tw[t L/R + j] (the pass's own table, so lanes on consecutive j read
+// consecutive twiddles), goes back to g L + t L/R + j. Work items run j
+// fastest while L/R >= 16 (lanes on consecutive elements), s fastest below
+// (lanes on sequences, whose strides are odd).
+template <int R, bool P2, class Src, class Dst>
+__device__ void fft_pass(const Src& src, const Dst& dst, int nt, int L, Dv<P2> subd, Dv<P2> slotd, int nseq,
                          const float2* tw) {
-  const int lsub = lL - LR;
-  const int items = 1 << (lseq + ln - LR);
-  const bool jfast = lsub >= 4;
-  const int lfirst = jfast ? lsub : lseq, lsecond = jfast ? lseq : lsub;
+  const int sub = subd.d;
+  const int items = nt / R * slotd.d;
+  const bool jfast = sub >= 16;
+  const Dv<P2> first = jfast ? subd : slotd, second = jfast ? slotd : subd;
   for (int w = threadIdx.x; w < items; w += kFftThreads) {
-    const int a = w & ((1 << lfirst) - 1), b = (w >> lfirst) & ((1 << lsecond) - 1);
-    const int g = w >> (lfirst + lsecond);
+    const int q = first.div(w), a = w - first.mul(q);
+    const int g = second.div(q), b = q - second.mul(g);
     const int j = jfast ? a : b, s = jfast ? b : a;
     if (s >= nseq) continue;
-    const int e0 = (g << lL) + j;
+    const int e0 = (P2 ? subd.mul(g * R) : g * L) + j;  // offsets t L/R (P2: shifts)
     float2 v[R];
 #pragma unroll
-    for (int t = 0; t < R; ++t) v[t] = src.load(s, e0 + (t << lsub));
+    for (int t = 0; t < R; ++t) v[t] = src.load(s, e0 + subd.mul(t));
     Dft<R>::run(v);
-    if (lsub > 0) {
+    if (sub > 1) {
 #pragma unroll
-      for (int t = 1; t < R; ++t) v[t] = cmul(v[t], tw[(t << lsub) + j]);
+      for (int t = 1; t < R; ++t) v[t] = cmul(v[t], tw[subd.mul(t) + j]);
     }
 #pragma unroll
-    for (int t = 0; t < R; ++t) dst.store(s, e0 + (t << lsub), v[t]);
+    for (int t = 0; t < R; ++t) dst.store(s, e0 + subd.mul(t), v[t]);
   }
 }
 
-template <class Src, class Dst>
-__device__ void fft_pass_r(int lr, const Src& src, const Dst& dst, int ln, int lL, int lseq,
+template <bool P2, class Src, class Dst>
+__device__ void fft_pass_r(int r, const Src& src, const Dst& dst, int nt, int L, Dv<P2> subd, Dv<P2> slotd,
                            int nseq, const float2* tw) {
-  switch (lr) {
-    case 1: fft_pass<2, 1>(src, dst, ln, lL, lseq, nseq, tw); break;
-    case 2: fft_pass<4, 2>(src, dst, ln, lL, lseq, nseq, tw); break;
-    case 3: fft_pass<8, 3>(src, dst, ln, lL, lseq, nseq, tw); break;
-    default: fft_pass<16, 4>(src, dst, ln, lL, lseq, nseq, tw); break;
+  if constexpr (P2) {
+    switch (r) {
+      case 2: fft_pass<2, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 4: fft_pass<4, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 8: fft_pass<8, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      default: fft_pass<16, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+    }
+  } else {
+    switch (r) {
+      case 2: fft_pass<2, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 3: fft_pass<3, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 4: fft_pass<4, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 5: fft_pass<5, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 6: fft_pass<6, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 7: fft_pass<7, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 8: fft_pass<8, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 10: fft_pass<10, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 12: fft_pass<12, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 14: fft_pass<14, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 15: fft_pass<15, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      default: fft_pass<16, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+    }
   }
 }
 
-// A 2^ln-point transform of nseq sequences: the first pass reads src, the
+// An nt-point transform of nseq sequences: the first pass reads src, the
 // last writes dst, the others work in place in mid; a block barrier after
-// each pass. tw holds the passes' tables one after another (2^lL entries
-// for a pass on sub-transforms of length 2^lL). With no pass (ln = 0) it
-// copies src to dst.
-template <class Src, class Dst>
-__device__ void fft_run(const Src& src, const SmemSeq& mid, const Dst& dst, int ln,
-                        const int* logs, int nst, int lseq, int nseq, const float2* tw) {
+// each pass. Inlined: called, it takes its accessors through a stack frame
+// (the mixed-radix kernel 1.46 -> 1.17 ms at 512 x 512 x 480 on an H100). tw holds the passes' tables one after another (L entries for
+// a pass on sub-transforms of length L); subs the passes' sub-lengths
+// (P2: unread, shifts). With no pass (nt = 1) it copies src to dst.
+template <bool P2, class Src, class Dst>
+__device__ __forceinline__ void fft_run(const Src& src, const SmemSeq& mid, const Dst& dst, int nt, const int* radices,
+                        int nst, const Dv<false>* subs, Dv<P2> slotd, int nseq, const float2* tw) {
   if (nst == 0) {
     for (int s = threadIdx.x; s < nseq; s += kFftThreads) dst.store(s, 0, src.load(s, 0));
     __syncthreads();
     return;
   }
-  int lL = ln;
+  int L = nt;
   for (int i = 0; i < nst; ++i) {
     const bool first = i == 0, last = i == nst - 1;
+    Dv<P2> subd;
+    if constexpr (P2)
+      subd = Dv<true>(L >> log2_pow2(radices[i]));
+    else
+      subd = subs[i];
     if (first && last) {
-      fft_pass_r(logs[i], src, dst, ln, lL, lseq, nseq, tw);
+      fft_pass_r<P2>(radices[i], src, dst, nt, L, subd, slotd, nseq, tw);
     } else if (first) {
-      fft_pass_r(logs[i], src, mid, ln, lL, lseq, nseq, tw);
+      fft_pass_r<P2>(radices[i], src, mid, nt, L, subd, slotd, nseq, tw);
     } else if (last) {
-      fft_pass_r(logs[i], mid, dst, ln, lL, lseq, nseq, tw);
+      fft_pass_r<P2>(radices[i], mid, dst, nt, L, subd, slotd, nseq, tw);
     } else {
-      fft_pass_r(logs[i], mid, mid, ln, lL, lseq, nseq, tw);
+      fft_pass_r<P2>(radices[i], mid, mid, nt, L, subd, slotd, nseq, tw);
     }
-    tw += 1 << lL;
-    lL -= logs[i];
+    tw += L;
+    L = subd.d;
     __syncthreads();
   }
 }
 
-// Where the passes leave X[k]: k's digits in the passes' radices, reversed.
-__device__ __forceinline__ int fft_pos(int k, int ln, const int* logs, int nst) {
+// Where the passes leave X[k]: k's digits in the passes' radices, reversed
+// (digit i of k, k mod R_i after the lower digits, at span n / (R_0..R_i)).
+template <bool P2>
+__device__ __forceinline__ int fft_pos(int k, int n, const int* radices, int nst) {
   int p = 0;
   for (int i = 0; i < nst; ++i) {
-    ln -= logs[i];
-    p += (k & ((1 << logs[i]) - 1)) << ln;
-    k >>= logs[i];
+    const int r = radices[i];
+    if constexpr (P2) {
+      const int l = log2_pow2(r);
+      n >>= l;
+      p += (k & (r - 1)) * n;
+      k >>= l;
+    } else {
+      n /= r;
+      p += k % r * n;
+      k /= r;
+    }
   }
   return p;
-}
-
-__host__ __device__ __forceinline__ int log2i(int n) {  // n a power of two
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
 }
 
 // exp(-2 pi i m / len), built in double and rounded once to float.
@@ -462,35 +734,35 @@ __device__ __forceinline__ float2 twiddle(int m, int len) {
   return make_float2((float)cs, (float)-sn);
 }
 
-// Entries of a transform's pass tables: 2^lL for each pass, lL the
-// sub-transform's log length before the pass.
-__host__ __device__ __forceinline__ int pass_tables(int ln, const int* logs, int nst) {
+// Entries of an n-point transform's pass tables: L for each pass, L the
+// sub-transform's length before the pass.
+__host__ __device__ __forceinline__ int pass_tables(int n, const int* radices, int nst) {
   int total = 0;
   for (int i = 0; i < nst; ++i) {
-    total += 1 << ln;
-    ln -= logs[i];
+    total += n;
+    n /= radices[i];
   }
   return total;
 }
 
 // The passes' tables: W_L^(j t) at t L/R + j, t < R, j < L/R, per pass.
-__device__ void build_pass_tables(float2* tw, int ln, const int* logs, int nst, int first, int step) {
+__device__ void build_pass_tables(float2* tw, int L, const int* radices, int nst, int first, int step) {
   for (int i = 0; i < nst; ++i) {
-    const int lsub = ln - logs[i];
-    for (int m = first; m < (1 << ln); m += step)
-      tw[m] = twiddle((m >> lsub) * (m & ((1 << lsub) - 1)), 1 << ln);
-    tw += 1 << ln;
-    ln = lsub;
+    const int sub = L / radices[i];
+    for (int m = first; m < L; m += step) tw[m] = twiddle((m / sub) * (m % sub), L);
+    tw += L;
+    L = sub;
   }
 }
 
-// Bytes of a plan's tables, rounded up to 16: W_nz^k (k < n), the z and y
-// passes' tables (float2), then the z positions and the y rows (16-bit:
-// both are < 2048).
+// Bytes of a plan's tables, rounded up to 16: W_nz^k (k < nz/2, even nz
+// only), the z and y passes' tables (float2), the divisors (8 bytes each,
+// not for P2 plans), then the z positions and the y rows (16-bit: both
+// are < 2048).
 __host__ __device__ __forceinline__ int table_bytes(const ZyFftPlan& p) {
-  const int n = p.nz / 2;
-  const int b = 8 * (n + pass_tables(log2i(n), p.lz, p.nlz) + pass_tables(log2i(p.ny), p.ly, p.nly)) +
-                2 * (n + p.ny);
+  const int nt = zy_nt(p), nw = (p.nz & 1) ? 0 : nt, ndv = plan_pow2(p) ? 0 : kDivs;
+  const int b = 8 * (nw + pass_tables(nt, p.rz, p.nrz) + pass_tables(p.ny, p.ry, p.nry) + ndv) +
+                2 * (nt + p.ny);
   return (b + 15) & ~15;
 }
 
@@ -498,92 +770,109 @@ __host__ __device__ __forceinline__ int table_bytes(const ZyFftPlan& p) {
 // rounded once to float); every block of the FFT kernel copies them into
 // its shared memory.
 __global__ void zy_fft_tables_kernel(float2* out, const ZyFftPlan p) {
-  const int n = p.nz / 2, ln = log2i(n), lny = log2i(p.ny);
+  const int nt = zy_nt(p), odd = p.nz & 1, pad = zy_pad(p);
   const int first = blockIdx.x * blockDim.x + threadIdx.x, step = gridDim.x * blockDim.x;
-  float2* twpz = out + n;
-  float2* twpy = twpz + pass_tables(ln, p.lz, p.nlz);
-  uint16_t* posz = reinterpret_cast<uint16_t*>(twpy + pass_tables(lny, p.ly, p.nly));
-  uint16_t* iposy = posz + n;
-  // Phase 1's rows carry one padding slot per 2^zpad values (the span of
-  // the first pass's digit), which spreads the post-process's
-  // digit-reversed reads over the banks; posz holds padded positions.
-  const int zpad = ln - (p.nlz ? p.lz[0] : 0);
-  for (int k = first; k < n; k += step) {
-    out[k] = twiddle(k, p.nz);
-    const int q = fft_pos(k, ln, p.lz, p.nlz);
-    posz[k] = q + (q >> zpad);
+  float2* twpz = out + (odd ? 0 : nt);
+  float2* twpy = twpz + pass_tables(nt, p.rz, p.nrz);
+  Dv<false>* dvs = reinterpret_cast<Dv<false>*>(twpy + pass_tables(p.ny, p.ry, p.nry));
+  const int ndv = plan_pow2(p) ? 0 : kDivs;
+  uint16_t* posz = reinterpret_cast<uint16_t*>(dvs + ndv);
+  uint16_t* iposy = posz + nt;
+  if (ndv && first == 0) {  // the mixed-radix kernel's divisors (kDvZ ...)
+    for (int i = 0; i < kDivs; ++i) dvs[i] = make_dv(1);
+    for (int i = 0, L = nt; i < p.nrz; ++i) dvs[kDvZ + i] = make_dv(L /= p.rz[i]);
+    for (int i = 0, L = p.ny; i < p.nry; ++i) dvs[kDvY + i] = make_dv(L /= p.ry[i]);
+    const int nslot = zy_nslot(p), wide = nslot / p.passes;
+    dvs[kDvSeqs] = make_dv(odd ? p.batch / 2 : p.batch);
+    dvs[kDvSlots] = make_dv(nslot);
+    dvs[kDvPass] = make_dv(wide);
+    dvs[kDvPassHi] = make_dv(wide + 1);
+    dvs[kDvRank] = make_dv(p.tile > 1 ? p.tile - 1 : 1);
+    dvs[kDvRankHi] = make_dv(p.tile);
   }
-  for (int a = first; a < p.ny; a += step) iposy[fft_pos(a, lny, p.ly, p.nly)] = a;
-  build_pass_tables(twpz, ln, p.lz, p.nlz, first, step);
-  build_pass_tables(twpy, lny, p.ly, p.nly, first, step);
+  // posz holds padded positions (zy_pad), which spread the post-process's
+  // digit-reversed reads over the banks.
+  for (int k = first; k < nt; k += step) {
+    if (!odd) out[k] = twiddle(k, p.nz);
+    const int q = fft_pos<false>(k, nt, p.rz, p.nrz);
+    posz[k] = q + (q >> pad);
+  }
+  for (int a = first; a < p.ny; a += step) iposy[fft_pos<false>(a, p.ny, p.ry, p.nry)] = a;
+  build_pass_tables(twpz, nt, p.rz, p.nrz, first, step);
+  build_pass_tables(twpy, p.ny, p.ry, p.nry, first, step);
 }
 
+template <bool P2>
 __global__ void __launch_bounds__(kFftThreads, 2)
 zy_fft_kernel(const float* __restrict__ x, float* __restrict__ re, float* __restrict__ im,
               const float4* __restrict__ tables, const ZyFftPlan p, int vec) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
-  __shared__ int lz[kMaxStages], ly[kMaxStages];
+  __shared__ int rz[kMaxStages], ry[kMaxStages];
   extern __shared__ float4 smem4[];
-  const int ny = p.ny, nz = p.nz, n = nz >> 1, nzr = n + 1;
+  const int ny = p.ny, nz = p.nz, nzr = nz / 2 + 1;
+  const int odd = P2 ? 0 : nz & 1, nt = zy_nt(p), nslot = zy_nslot(p);
   const int tid = threadIdx.x;
-  const int ln = log2i(n), lny = log2i(ny);
   const int tb = table_bytes(p);
-  float2* twk = reinterpret_cast<float2*>(smem4);     // W_nz^k, k < n (the post-process)
-  float2* twpz = twk + n;                             // the z passes' tables
-  float2* twpy = twpz + pass_tables(ln, p.lz, p.nlz);  // the y passes' tables
-  const uint16_t* posz = reinterpret_cast<const uint16_t*>(twpy + pass_tables(lny, p.ly, p.nly));
-  const uint16_t* iposy = posz + n;  // the y row the y passes leave at position m; posz padded
+  float2* twk = reinterpret_cast<float2*>(smem4);        // W_nz^k, k < nz/2 (even nz: the post-process)
+  float2* twpz = twk + (odd ? 0 : nt);                   // the z passes' tables
+  float2* twpy = twpz + pass_tables(nt, p.rz, p.nrz);  // the y passes' tables
+  const Dv<false>* dvs = reinterpret_cast<const Dv<false>*>(twpy + pass_tables(ny, p.ry, p.nry));
+  const uint16_t* posz = reinterpret_cast<const uint16_t*>(dvs + (P2 ? 0 : kDivs));
+  const uint16_t* iposy = posz + nt;  // the y row the y passes leave at position m; posz padded
   float2* cols = reinterpret_cast<float2*>(smem4 + tb / 16);  // ny x es: all rows of my slots
   float2* work = cols + ny * p.es;                             // phase 1's row batch
 
   const int c = p.cluster, rank = (int)cluster.block_rank(), pass = blockIdx.x / c;
-  const int parts = p.passes * c;
+  const int lc = __ffs(c) - 1, lparts = __ffs(p.passes * c) - 1;
   const int64_t slab = blockIdx.y;
-  const int zpad = ln - (p.nlz ? p.lz[0] : 0);  // see zy_fft_tables_kernel
   // Every block of the cluster has started once this barrier's wait
   // returns: only then may the others store into its shared memory.
   asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
   if (tid < kMaxStages) {
-    lz[tid] = p.lz[tid];
-    ly[tid] = p.ly[tid];
+    rz[tid] = p.rz[tid];
+    ry[tid] = p.ry[tid];
   }
   for (int i = tid; i < tb / 16; i += kFftThreads) smem4[i] = __ldg(tables + i);
-  // First column slot of range u of the parts ranges (ZyFftPlan.bound):
-  // slot 0 holds kz = 0 and kz = n packed, slot u > 0 holds kz = u.
-  const int lparts = log2i(parts);
-  auto bound = [&](int u) { return (u * n) >> lparts; };
-  const int cp0 = bound(pass * c), wp = bound(pass * c + c) - cp0, lwp = log2i(wp);
+  // First column slot of range u of the C P ranges (ZyFftPlan.bound).
+  auto bound = [&](int u) { return (u * nslot) >> lparts; };
+  const int cp0 = bound(pass * c), wp = bound(pass * c + c) - cp0;
+  const int row0 = (rank * ny) >> lc, nrows = (((rank + 1) * ny) >> lc) - row0;
   __syncthreads();
+  const Dv<P2> wpd = divisor<P2>(wp, dvs, kDvPass, kDvPassHi);
+  const Dv<P2> nslotd = divisor<P2>(nslot, dvs, kDvSlots, kDvSlots);
 
   // Phase 1: this rank's rows, a batch at a time; each X[k] goes straight
   // into the shared memory of the rank that owns slot k.
-  const SmemSeq rows_mid{work, p.ws, 1, zpad};
-  const int lbatch = log2i(p.batch);
-  for (int b0 = 0; b0 < p.rows; b0 += p.batch) {
-    const SlabRows rows_in{x + (slab * ny + rank * p.rows + b0) * nz, nz, vec};
-    fft_run(rows_in, rows_mid, rows_mid, ln, lz, p.nlz, lbatch, p.batch, twpz);
+  const SmemSeq rows_mid{work, p.ws, 1, zy_pad(p)};
+  const Dv<P2> slotd = divisor<P2>(odd ? p.batch >> 1 : p.batch, dvs, kDvSeqs, kDvSeqs);  // a full batch
+  for (int b0 = 0; b0 < nrows; b0 += p.batch) {
+    const int nb = min(p.batch, nrows - b0);
+    const SlabRows<P2> rows_in{x + (slab * ny + row0 + b0) * nz, nz, vec, odd, nb};
+    fft_run<P2>(rows_in, rows_mid, rows_mid, nt, rz, p.nrz, dvs + kDvZ, slotd, odd ? (nb + 1) >> 1 : nb, twpz);
     if (b0 == 0) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-    // X[k] = E + W_nz^k O, E = (A + conj B) / 2, O = (A - conj B) / 2i,
-    // A = Zc[k], B = Zc[n - k]; X[0] = Re A + Im A and X[n] = Re A - Im A
-    // are real and share slot 0 as X[0] + i X[n]. Slot k belongs to range
-    // u = ceil((k + 1) parts / n) - 1, rank u - p C, column k - bound(u).
-    for (int e = tid; e < p.batch * wp; e += kFftThreads) {
-      const int row = e >> lwp, k = cp0 + (e & (wp - 1));
-      const float2* w = work + row * p.ws;
+    // Even nz: X[k] = E + W_nz^k O, E = (A + conj B) / 2, O = (A - conj B)
+    // / 2i, A = Zc[k], B = Zc[nt - k]; X[0] = Re A + Im A and X[nt] = Re A
+    // - Im A are real and share slot 0 as X[0] + i X[nt]. Odd nz: rows 2s
+    // and 2s+1 are E and O of pair s's C (A = C[k], B = C[nz - k]). Slot k
+    // belongs to range u = ceil((k + 1) C P / nslot) - 1, rank u - p C,
+    // column k - bound(u).
+    for (int e = tid; e < nb * wp; e += kFftThreads) {
+      const int row = wpd.div(e), k = cp0 + e - wpd.mul(row);
+      const float2* w = work + (odd ? row >> 1 : row) * p.ws;
       const float2 a = w[posz[k]];
       float2 z;
-      if (k == 0) {
+      if (!odd && k == 0) {
         z = make_float2(a.x + a.y, a.x - a.y);
       } else {
-        const float2 b = w[posz[n - k]];
+        const float2 b = w[posz[k == 0 ? 0 : nt - k]];
         const float2 ev = make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y));
         const float2 od = make_float2(0.5f * (a.y + b.y), -0.5f * (a.x - b.x));
-        z = cadd(ev, cmul(twk[k], od));
+        z = odd ? (row & 1 ? od : ev) : cadd(ev, cmul(twk[k], od));
       }
-      const int u = (((k + 1) * parts + n - 1) >> ln) - 1;
+      const int u = nslotd.div(((k + 1) << lparts) + nslot - 1) - 1;
       float2* dst = cluster.map_shared_rank(cols, u - pass * c);
-      dst[(rank * p.rows + b0 + row) * p.es + k - bound(u)] = z;
+      dst[(row0 + b0 + row) * p.es + k - bound(u)] = z;
     }
     __syncthreads();
   }
@@ -593,18 +882,21 @@ zy_fft_kernel(const float* __restrict__ x, float* __restrict__ re, float* __rest
   cluster.sync();
 
   // Phase 2: this rank's column slots, down the y axis in place; the last
-  // pass writes re and im. Slot 0's transform C = Y0 + i Yn is split after
-  // it: Y0[a] = (C[a] + conj C[-a]) / 2, Yn[a] = (C[a] - conj C[-a]) / 2i.
+  // pass writes re and im. Even nz: slot 0's transform C = Y0 + i Yn is
+  // split after it: Y0[a] = (C[a] + conj C[-a]) / 2, Yn[a] = (C[a] - conj
+  // C[-a]) / 2i.
   const int cr0 = bound(pass * c + rank), cr1 = bound(pass * c + rank + 1);
   if (cr1 > cr0) {
-    const int tw = cr1 - cr0;  // p.tile, or 1 when n < parts
+    const int tw = cr1 - cr0;  // p.tile or one less
     const SmemSeq cols_mid{cols, 1, p.es, 31};
-    const OutColumns cols_out{re + slab * ny * nzr, im + slab * ny * nzr, iposy, cols_mid, nzr, cr0};
-    fft_run(cols_mid, cols_mid, cols_out, lny, ly, p.nly, log2i(tw), tw, twpy);
-    if (cr0 == 0) {
+    const OutColumns cols_out{re + slab * ny * nzr, im + slab * ny * nzr, iposy, cols_mid, nzr, cr0, !odd};
+    fft_run<P2>(cols_mid, cols_mid, cols_out, ny, ry, p.nry, dvs + kDvY, divisor<P2>(tw, dvs, kDvRank, kDvRankHi), tw,
+                twpy);
+    if (cr0 == 0 && !odd) {
+      const int n = nz >> 1;
       for (int a = tid; a < ny; a += kFftThreads) {
-        const float2 ca = cols[fft_pos(a, lny, ly, p.nly) * p.es];
-        const float2 cb = cols[fft_pos((ny - a) & (ny - 1), lny, ly, p.nly) * p.es];
+        const float2 ca = cols[fft_pos<P2>(a, ny, ry, p.nry) * p.es];
+        const float2 cb = cols[fft_pos<P2>(a == 0 ? 0 : ny - a, ny, ry, p.nry) * p.es];
         const int64_t o = (slab * ny + a) * nzr;
         re[o] = 0.5f * (ca.x + cb.x);
         im[o] = 0.5f * (ca.y - cb.y);
@@ -615,42 +907,64 @@ zy_fft_kernel(const float* __restrict__ x, float* __restrict__ re, float* __rest
   }
 }
 
-bool pow2(int n) { return n >= 1 && (n & (n - 1)) == 0; }
+bool smooth7(int n) {
+  if (n < 1) return false;
+  const int primes[4] = {2, 3, 5, 7};
+  for (int f : primes)
+    while (n % f == 0) n /= f;
+  return n == 1;
+}
+
+bool radix_ok(int r) {  // a Dft<r> of fft_pass_r
+  switch (r) {
+    case 2: case 3: case 4: case 5: case 6: case 7: case 8: case 10: case 12: case 14: case 15: case 16:
+      return true;
+    default:
+      return false;
+  }
+}
+
+bool radices_ok(int n, const int* radices, int nst) {
+  if (nst < 0 || nst > kMaxStages) return false;
+  for (int i = 0; i < nst; ++i) {
+    if (!radix_ok(radices[i]) || n % radices[i]) return false;
+    n /= radices[i];
+  }
+  return n == 1;
+}
 
 // Whether the plan is one _zy_fft_plan could make: every shared-memory
 // index the kernel forms stays inside what the launch gives it.
 bool plan_ok(const ZyFftPlan& p) {
-  if (!pow2(p.ny) || p.ny > kMaxExtent || !pow2(p.nz) || p.nz < 2 || p.nz > kMaxExtent) return false;
-  if (!pow2(p.cluster) || p.cluster > 16 || p.cluster > p.ny || p.rows * p.cluster != p.ny) return false;
-  const int n = p.nz / 2, parts = p.cluster * p.passes;
-  if (!pow2(p.passes) || p.passes > n || !pow2(p.batch) || p.batch > p.rows) return false;
-  if (!pow2(p.tile) || p.tile != (n >= parts ? n / parts : 1) || p.es < p.tile || p.ws < n ||
-      p.work < p.batch * p.ws)
+  if (!smooth7(p.ny) || p.ny > kMaxExtent || !smooth7(p.nz) || p.nz < 2 || p.nz > kMaxExtent) return false;
+  if (!pow2(p.cluster) || p.cluster > 16 || p.cluster > p.ny || p.rows != (p.ny + p.cluster - 1) / p.cluster)
     return false;
-  if (p.nlz < 0 || p.nlz > kMaxStages || p.nly < 0 || p.nly > kMaxStages) return false;
-  int sz = 0, sy = 0;
-  for (int i = 0; i < p.nlz; ++i) {
-    if (p.lz[i] < 1 || p.lz[i] > 4) return false;
-    sz += p.lz[i];
-  }
-  for (int i = 0; i < p.nly; ++i) {
-    if (p.ly[i] < 1 || p.ly[i] > 4) return false;
-    sy += p.ly[i];
-  }
-  if ((1 << sz) != n || (1 << sy) != p.ny) return false;
-  if (p.ws < n + ((n - 1) >> (log2i(n) - (p.nlz ? p.lz[0] : 0)))) return false;
+  const int nt = zy_nt(p), nslot = zy_nslot(p), odd = p.nz & 1, parts = p.cluster * p.passes;
+  if (!pow2(p.passes) || p.passes > nslot || p.batch < 1 || p.batch > p.rows + odd || (odd && p.batch % 2))
+    return false;
+  if (pow2(p.ny) && pow2(p.nz) && !pow2(p.batch)) return false;  // shifts need a power-of-two batch
+  if (p.tile != (nslot + parts - 1) / parts || p.es < p.tile || p.work < (odd ? p.batch / 2 : p.batch) * p.ws)
+    return false;
+  if (!radices_ok(nt, p.rz, p.nrz) || !radices_ok(p.ny, p.ry, p.nry)) return false;
+  const int pad = zy_pad(p);
+  if (p.ws < nt + ((nt - 1) >> pad)) return false;
+  if ((long long)nslot * (parts + 1) > 65536) return false;  // the slot owners' dividend (Dv<false>)
   const long long smem = table_bytes(p) + 8LL * ((long long)p.ny * p.es + p.work);
   return smem == p.smem && smem <= kFftSmemMax;
 }
+
+using FftKernel = void (*)(const float*, float*, float*, const float4*, const ZyFftPlan, int);
+
+FftKernel fft_kernel(const ZyFftPlan& p) { return plan_pow2(p) ? zy_fft_kernel<true> : zy_fft_kernel<false>; }
 
 // The launch configuration of a plan over nx slabs: one cluster of C
 // blocks for each (pass, slab); the attributes set on the kernel.
 cudaError_t fft_config(const ZyFftPlan& p, int nx, cudaStream_t stream, cudaLaunchConfig_t* cfg,
                        cudaLaunchAttribute* attr) {
-  cudaError_t err = cudaFuncSetAttribute(zy_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         p.smem);
+  const FftKernel kernel = fft_kernel(p);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err == cudaSuccess && p.cluster > 8)
-    err = cudaFuncSetAttribute(zy_fft_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(p.cluster * p.passes, nx, 1);
@@ -671,8 +985,8 @@ ZyFftPlan read_plan(const int* v) {
   int* dst = &p.ny;
   for (int i = 0; i < kPlanHead; ++i) dst[i] = v[i];
   for (int i = 0; i < kMaxStages; ++i) {
-    p.lz[i] = v[kPlanHead + i];
-    p.ly[i] = v[kPlanHead + kMaxStages + i];
+    p.rz[i] = v[kPlanHead + i];
+    p.ry[i] = v[kPlanHead + kMaxStages + i];
   }
   return p;
 }
@@ -713,12 +1027,13 @@ int fava_zy_fft(const void* x, void* re, void* im, const void* tables, int nx, c
   cudaLaunchAttribute attr;
   cudaError_t err = fft_config(p, nx, (cudaStream_t)stream, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
+  const FftKernel kernel = fft_kernel(p);
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, zy_fft_kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   if (err != cudaSuccess) return (int)err;
   if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
-  err = cudaLaunchKernelEx(&cfg, zy_fft_kernel, (const float*)x, (float*)re, (float*)im,
-                           (const float4*)tables, p, vec);
+  err = cudaLaunchKernelEx(&cfg, kernel, (const float*)x, (float*)re, (float*)im, (const float4*)tables, p,
+                           vec);
   if (err != cudaSuccess) return (int)err;
   return launch_status();
 }
@@ -747,7 +1062,7 @@ int fava_zy_fft_clusters(const int* plan) {
   cudaLaunchAttribute attr;
   cudaError_t err = fft_config(p, 1, nullptr, &cfg, &attr);
   int clusters = 0;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, zy_fft_kernel, &cfg);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, fft_kernel(p), &cfg);
   return err == cudaSuccess ? clusters : -(int)err;
 }
 

@@ -5,8 +5,8 @@ kernel did the z-rfft and the y-DFT of an x-slab in one pass, keeping the
 slab's intermediate in VMEM. Here that kernel is B12
 (``ops.cuda_kernels.zy_rfft_planar``, ``csrc/dft_kernels.cu``): a
 cluster FFT kernel that keeps the slab's intermediate in a thread-block
-cluster's shared memory, for power-of-two y and z extents, and the dense
-DFT kernel for other shapes; the dense DFT products of ``ops/dft.py`` are
+cluster's shared memory, for y and z extents with no prime factor above
+7, and the dense DFT kernel for other shapes; the dense DFT products of ``ops/dft.py`` are
 the plain twin on the CPU. The x axis, which fava_tpu contracted with a
 dense einsum, is cuFFT (``torch.fft.fft``).
 

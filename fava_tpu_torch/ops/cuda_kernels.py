@@ -840,8 +840,8 @@ def shell_bin_powers_fused(re_stack, im_stack, nbins: int, full_nz: int):
 
 
 # ---------------------------------------------------------------------------
-# B12: the fused z-rfft + y-DFT of a real volume. Power-of-two y and z
-# extents take the cluster FFT kernel; every other shape the dense one.
+# B12: the fused z-rfft + y-DFT of a real volume. 7-smooth y and z extents
+# take the cluster FFT kernel; every other shape the dense one.
 
 ZY_MAX_EXTENT = 1024  # largest y and z extent of both kernels (csrc/dft_kernels.cu)
 ZY_MAX_SLABS = 65535  # largest x extent (the launch grid's y extent)
@@ -849,41 +849,63 @@ ZY_SMEM_MAX = 232448 - 256  # dynamic shared bytes of a block: sm_90's limit les
 ZY_SMEM_HALF = 233472 // 2 - 1024 - 256  # the same when two blocks share an SM (1 KB reserved each)
 ZY_MAX_STAGES = 10  # kMaxStages: FFT passes per axis
 ZY_CLUSTERS = (16, 8, 4, 2, 1)  # cluster sizes, in the plan's order of preference
+ZY_RADICES = (2, 3, 4, 5, 6, 7, 8, 10, 12, 14, 15, 16)  # the kernel's register DFTs (Dft<R>)
+ZY_DIVS = 2 * ZY_MAX_STAGES + 6  # kDivs: the mixed-radix kernel's divisors in its tables
 
 
 def zy_rfft_fits(shape) -> bool:
     """Whether B12 takes a real volume of this shape: 3D, x extent
     1..65535, y and z extents 1..1024, any parity (the cluster FFT kernel
-    for power-of-two y and z >= 2, the dense kernel for the rest)."""
+    for 7-smooth y and z >= 2, the dense kernel for the rest)."""
     if len(shape) != 3:
         return False
     nx, ny, nz = (int(s) for s in shape)
     return 1 <= nx <= ZY_MAX_SLABS and 1 <= ny <= ZY_MAX_EXTENT and 1 <= nz <= ZY_MAX_EXTENT
 
 
-def _pow2(n: int) -> bool:
-    return n >= 1 and n & (n - 1) == 0
+def _smooth7(n: int) -> bool:
+    """Whether n >= 1 has no prime factor above 7."""
+    if n < 1:
+        return False
+    for p in (2, 3, 5, 7):
+        while n % p == 0:
+            n //= p
+    return n == 1
 
 
 def _zy_uses_fft(shape) -> bool:
     """The route of a shape within ``zy_rfft_fits``: the cluster FFT kernel
-    for power-of-two ny (>= 1) and nz (>= 2: its real z-transform is an
-    nz/2-point complex FFT), the dense kernel otherwise."""
+    for 7-smooth ny (>= 1) and nz (>= 2), the dense kernel otherwise (a
+    prime factor above 7 in y or z, as 502 = 2 x 251 or 509, or nz = 1)."""
     if not zy_rfft_fits(shape):
         return False
     _nx, ny, nz = (int(s) for s in shape)
-    return _pow2(ny) and _pow2(nz) and nz >= 2
+    return _smooth7(ny) and _smooth7(nz) and nz >= 2
 
 
-def _radix_logs(n: int) -> Tuple[int, ...]:
-    """log2 of the radices of an n-point FFT's passes, first pass first:
-    the fewest passes of radix <= 16, the radices as even as they go,
-    larger first (256 = 16 x 16, 512 = 8 x 8 x 8, 1024 = 16 x 8 x 8).
-    Radix 32 would save a pass at 512 and 1024 but spills registers at two
-    blocks an SM."""
-    m = n.bit_length() - 1
-    passes = -(-m // 4)
-    return tuple(m // passes + (i < m % passes) for i in range(passes))
+@lru_cache(maxsize=None)
+def _radices(n: int) -> Tuple[int, ...]:
+    """The radices of an n-point FFT's passes (n 7-smooth), first pass
+    first: the fewest passes of the kernel's radices (``ZY_RADICES``,
+    <= 16), the most even of those (the largest smallest radix, then the
+    smallest largest), ordered by odd part, then size, largest first, so
+    that the first pass's span n / R0 keeps n's powers of two (240 = 15 x
+    16: the first pass's loads run along 16 consecutive values). Powers of
+    two: 256 = 16 x 16, 512 = 8 x 8 x 8, 1024 = 16 x 8 x 8. Radix 32 would
+    save a pass at 512 and 1024 but spills registers at two blocks an SM."""
+
+    def factorings(m, top):
+        if m == 1:
+            yield ()
+        for r in ZY_RADICES:
+            if r <= top and m % r == 0:
+                for rest in factorings(m // r, r):
+                    yield (r,) + rest
+
+    if not _smooth7(n):
+        raise ValueError(f"{n} has a prime factor above 7")
+    best = min(factorings(n, n), key=lambda f: (len(f), -min(f, default=1), max(f, default=1)))
+    return tuple(sorted(best, key=lambda r: (r // (r & -r), r), reverse=True))  # odd part, size
 
 
 @dataclass(frozen=True)
@@ -892,15 +914,18 @@ class ZyFftPlan:
 
     A cluster of ``cluster`` blocks does one pass over ``passes`` ranges of
     column slots of one slab. Block (rank) r transforms the slab rows
-    [r rows, (r+1) rows) along z, ``batch`` rows at a time in its work
-    buffer (row stride ``ws``), and stores each X[k] into the shared
-    memory of the rank that owns slot k: rank r owns the ``tile`` slots
-    [bound(p C + r), bound(p C + r + 1)) and holds all ny rows of them
-    (row stride ``es``). After one cluster barrier each rank transforms its
-    slots along y in place and writes them out (slot 0 split into kz = 0
-    and nz/2 after its transform). Strides are odd, so lanes that step by
-    them hit distinct banks; batches and slot ranges are powers of two,
-    so the kernel splits its work items with shifts."""
+    [r ny // C, (r+1) ny // C) (at most ``rows``) along z, ``batch`` rows at
+    a time in its work buffer (row stride ``ws``), and stores each X[k] into
+    the shared memory of the rank that owns slot k: rank r owns the slots
+    [bound(p C + r), bound(p C + r + 1)) (at most ``tile``) and holds all ny
+    rows of them (row stride ``es``). After one cluster barrier each rank
+    transforms its slots along y in place and writes them out (even nz:
+    slot 0 split into kz = 0 and nz/2 after its transform). Odd nz pairs
+    the rows of a batch (``batch`` even) as x[a] + i x[b] in one nz-point
+    transform. Strides are odd, so lanes that step by them hit distinct
+    banks. Cluster sizes and pass counts are powers of two; where ny and nz
+    are too, so are batches and slot ranges, and the kernel splits its work
+    items with shifts."""
 
     ny: int
     nz: int
@@ -913,76 +938,117 @@ class ZyFftPlan:
     es: int
     work: int  # float2 elements of the row-batch buffer
     smem: int  # dynamic shared bytes of a block
-    logs_z: Tuple[int, ...]  # radix passes of the nz/2-point z transform
-    logs_y: Tuple[int, ...]  # radix passes of the ny-point y transform
+    radices_z: Tuple[int, ...]  # radix passes of the nt-point z transform
+    radices_y: Tuple[int, ...]  # radix passes of the ny-point y transform
+
+    @property
+    def odd(self) -> bool:
+        return self.nz % 2 == 1
+
+    @property
+    def nt(self) -> int:
+        """Length of the z transform: nz/2 complex values a row for even
+        nz, nz for a pair of rows for odd nz."""
+        return self.nz if self.odd else self.nz // 2
+
+    @property
+    def nslot(self) -> int:
+        """Column slots: nz/2 for even nz (slot 0 holds the real columns kz
+        = 0 and nz/2 packed as one complex column, slot u > 0 kz = u), and
+        (nz+1)/2 for odd nz (slot u holds kz = u)."""
+        return (self.nz + 1) // 2
 
     def bound(self, u: int) -> int:
-        """First column slot of range u of the passes * cluster ranges. The
-        nz/2 slots cover the nz/2 + 1 kz columns: slot 0 holds the two real
-        columns kz = 0 and kz = nz/2 packed as one complex column, slot
-        u > 0 holds kz = u."""
-        return u * (self.nz // 2) // (self.passes * self.cluster)
+        """First column slot of range u of the passes * cluster ranges."""
+        return u * self.nslot // (self.passes * self.cluster)
+
+    def row_range(self, r: int) -> Tuple[int, int]:
+        """Rows of the slab that rank r transforms along z."""
+        return r * self.ny // self.cluster, (r + 1) * self.ny // self.cluster
 
     def as_ints(self) -> Tuple[int, ...]:
         """The int vector the C entry reads (struct ZyFftPlan)."""
-        def pad(logs):
-            return tuple(logs) + (0,) * (ZY_MAX_STAGES - len(logs))
+        def pad(radices):
+            return tuple(radices) + (0,) * (ZY_MAX_STAGES - len(radices))
 
         head = (self.ny, self.nz, self.cluster, self.passes, self.rows, self.batch, self.tile,
-                self.ws, self.es, self.work, self.smem, len(self.logs_z), len(self.logs_y))
-        return head + pad(self.logs_z) + pad(self.logs_y)
+                self.ws, self.es, self.work, self.smem, len(self.radices_z), len(self.radices_y))
+        return head + pad(self.radices_z) + pad(self.radices_y)
+
+
+def _zy_pad(nt: int, radices: Tuple[int, ...]) -> Optional[int]:
+    """Phase 1's rows carry one padding slot per 2^v values, 2^v the power
+    of two in the first pass's span nt / R0, when v >= 2 (zy_pad in the
+    kernel): the post-process reads the digit-reversed result at strides of
+    that span, which the padding makes odd. None: no padding (an odd span
+    strides the banks already; for 2 a two-way conflict costs less than a
+    third more buffer)."""
+    span = nt // radices[0] if radices else nt
+    v = (span & -span).bit_length() - 1
+    return v if v >= 2 else None
 
 
 def _fit_plan(ny: int, nz: int, cluster: int, passes: int, budget: int) -> Optional[ZyFftPlan]:
     """The plan of this cluster size and pass count within ``budget``
     shared bytes, or None: a rank's slots (all ny rows of them) and the
-    largest power-of-two batch of rows that fit beside the tables (the
-    twiddles of the post-process and of each pass, then the z positions
-    and the y rows in 16 bits, 16-byte rounded: ``_zy_fft_tables``). ``passes`` is a power of
-    two <= nz/2, so every range of slots is a power of two wide (or 0/1
-    wide when nz/2 < passes * cluster). Phase 1's rows hold one padding
-    slot per span of the first pass's digit (``ws``), which spreads the
-    post-process's digit-reversed reads over the shared-memory banks."""
-    n = nz // 2
-    tile = max(1, n // (passes * cluster))
-    rows = ny // cluster
-    logs_z, logs_y = _radix_logs(n), _radix_logs(ny)
-    zpad = (n.bit_length() - 1) - (logs_z[0] if logs_z else 0)
-    ws, es = (n + ((n - 1) >> zpad)) | 1, tile | 1
-    tables = -(-(8 * (n + _pass_tables(n, logs_z) + _pass_tables(ny, logs_y)) + 2 * (n + ny)) // 16) * 16
+    largest batch of rows that fits beside the tables (the twiddles of the
+    post-process (even nz) and of each pass, then the z positions and the y
+    rows in 16 bits, 16-byte rounded: ``_zy_fft_tables``; plans with a
+    non-power-of-two extent add the kernel's divisors, 8 bytes each). Batches are the
+    rank's most rows split into 1, 2, 4, ... even parts (rounded up to even
+    for odd nz, whose batches hold pairs of rows); ``passes`` is a power of
+    two <= the slots, and every range of slots is ``tile`` or one less wide
+    (0 or 1 when there are fewer slots than ranges)."""
+    odd = nz % 2
+    nt, nslot = (nz if odd else nz // 2), (nz + 1) // 2
+    tile = -(-nslot // (passes * cluster))
+    rows = -(-ny // cluster)
+    radices_z, radices_y = _radices(nt), _radices(ny)
+    pad = _zy_pad(nt, radices_z)
+    ws = (nt + ((nt - 1) >> pad if pad is not None else 0)) | 1
+    es = tile | 1
+    post = 0 if odd else nt
+    divs = 0 if ny & (ny - 1) == 0 and nz & (nz - 1) == 0 else ZY_DIVS
+    tables = -(-(8 * (post + _pass_tables(nt, radices_z) + _pass_tables(ny, radices_y) + divs)
+                 + 2 * (nt + ny)) // 16) * 16
     room = budget - tables - 8 * ny * es
-    batch = 1 << (rows.bit_length() - 1)
-    while batch > 1 and 8 * batch * ws > room:
-        batch //= 2
-    if 8 * batch * ws > room:
-        return None
-    work = batch * ws
+    parts = 1
+    while True:
+        batch = -(-rows // parts)
+        batch += batch % 2 if odd else 0
+        seqs = batch // 2 if odd else batch
+        if 8 * seqs * ws <= room:
+            break
+        if seqs == 1:
+            return None
+        parts *= 2
+    work = seqs * ws
     return ZyFftPlan(ny, nz, cluster, passes, rows, batch, tile, ws, es, work,
-                     tables + 8 * (ny * es + work), logs_z, logs_y)
+                     tables + 8 * (ny * es + work), radices_z, radices_y)
 
 
-def _pass_tables(n: int, logs: Tuple[int, ...]) -> int:
+def _pass_tables(n: int, radices: Tuple[int, ...]) -> int:
     """Twiddle entries of an n-point transform's per-pass tables: a pass
     on sub-transforms of length L keeps W_L^(j t) for t < R, j < L/R."""
     total = 0
-    for lg in logs:
+    for r in radices:
         total += n
-        n >>= lg
+        n //= r
     return total
 
 
 @lru_cache(maxsize=64)
 def _zy_fft_plan(ny: int, nz: int) -> ZyFftPlan:
-    """The cluster FFT kernel's plan for power-of-two ny <= 1024 and
-    2 <= nz <= 1024: the fewest passes over the slab; then two blocks an
-    SM if they fit, else one; then the largest cluster (<= 16, <= ny)
-    whose blocks' shared memory fits."""
+    """The cluster FFT kernel's plan for 7-smooth ny <= 1024 and 2 <= nz
+    <= 1024: the fewest passes over the slab; then two blocks an SM if
+    they fit, else one; then the largest cluster (<= 16, <= ny) whose
+    blocks' shared memory fits."""
     ny, nz = int(ny), int(nz)
-    if not (_pow2(ny) and _pow2(nz) and ny <= ZY_MAX_EXTENT and 2 <= nz <= ZY_MAX_EXTENT):
-        raise ValueError(f"the cluster FFT kernel takes power-of-two y <= 1024 and 2 <= z <= 1024, "
+    if not (_smooth7(ny) and _smooth7(nz) and ny <= ZY_MAX_EXTENT and 2 <= nz <= ZY_MAX_EXTENT):
+        raise ValueError(f"the cluster FFT kernel takes 7-smooth y <= 1024 and 2 <= z <= 1024, "
                          f"got ({ny}, {nz})")
     passes = 1
-    while passes <= nz // 2:
+    while passes <= (nz + 1) // 2:
         for budget in (ZY_SMEM_HALF, ZY_SMEM_MAX):
             for cluster in ZY_CLUSTERS:
                 if cluster <= ny:
@@ -1002,20 +1068,21 @@ def _twiddles(n: int, dtype: torch.dtype, device) -> torch.Tensor:
     return tw.to(device=device, dtype=cdt)
 
 
-def _fft_positions(n: int, logs: Tuple[int, ...]) -> torch.Tensor:
+def _fft_positions(n: int, radices: Tuple[int, ...]) -> torch.Tensor:
     """Where the in-place decimation-in-frequency passes leave X[k]: the
-    digit reversal of k in the passes' radices (fft_pos in the kernel)."""
+    mixed-radix digit reversal of k (fft_pos in the kernel): digit i of k,
+    k mod R_i after the lower digits, at span n / (R_0 ... R_i)."""
     pos = np.zeros(n, dtype=np.int64)
     k = np.arange(n)
     span = n
-    for lg in logs:
-        span >>= lg
-        pos += (k & ((1 << lg) - 1)) * span
-        k = k >> lg
+    for r in radices:
+        span //= r
+        pos += (k % r) * span
+        k = k // r
     return torch.from_numpy(pos)
 
 
-def _dif_passes(v: torch.Tensor, logs: Tuple[int, ...], table: torch.Tensor) -> torch.Tensor:
+def _dif_passes(v: torch.Tensor, radices: Tuple[int, ...], table: torch.Tensor) -> torch.Tensor:
     """The kernel's radix passes along v's last axis (length n dividing
     the table's length T), in the same order: a radix-R pass on
     sub-transforms of length L takes x[g L + j + t L/R], t < R, does an
@@ -1024,8 +1091,7 @@ def _dif_passes(v: torch.Tensor, logs: Tuple[int, ...], table: torch.Tensor) -> 
     n, big = v.shape[-1], table.numel()
     lead = v.shape[:-1]
     length = n
-    for lg in logs:
-        r = 1 << lg
+    for r in radices:
         sub = length // r
         t = torch.arange(r)
         dft_r = table[(t[:, None] * t[None, :] * (big // r)) % big]
@@ -1039,49 +1105,58 @@ def _dif_passes(v: torch.Tensor, logs: Tuple[int, ...], table: torch.Tensor) -> 
 def _zy_rfft_fft_plain(x: torch.Tensor, plan: ZyFftPlan):
     """(re, im) of the z-rfft then y-DFT of every x slab, as the cluster
     FFT kernel computes them: plain torch, in x's dtype, walking the
-    plan's ranks, passes, row batches and slot ranges. Phase 1: each
-    row's nz reals as nz/2 complex values, the z passes, then X[k] =
+    plan's ranks, passes, row batches and slot ranges. Phase 1, even nz:
+    each row's nz reals as nz/2 complex values, the z passes, then X[k] =
     E[k] + W_nz^k O[k] from the digit-reversed result, with the real X[0]
-    and X[nz/2] packed in slot 0, each rank's rows landing in the slots'
-    owners. Phase 2: each rank's slots, all rows, the y passes, written
-    out; slot 0 split by Hermitian symmetry."""
+    and X[nz/2] packed in slot 0; odd nz: rows 2s and 2s+1 of a batch (the
+    last with zeros when the batch is odd) as one complex row C, the z
+    passes, then X_2s = (C[k] + conj C[-k]) / 2 and X_2s+1 = (C[k] - conj
+    C[-k]) / 2i; each rank's rows landing in the slots' owners. Phase 2:
+    each rank's slots, all rows, the y passes, written out; even nz: slot 0
+    split by Hermitian symmetry."""
     nx, ny, nz = (int(s) for s in x.shape)
     if (ny, nz) != (plan.ny, plan.nz):
         raise ValueError(f"plan for ({plan.ny}, {plan.nz}), volume {tuple(x.shape)}")
-    n, c = nz // 2, plan.cluster
+    nt, c = plan.nt, plan.cluster
     tz, ty = _twiddles(nz, x.dtype, x.device), _twiddles(ny, x.dtype, x.device)
-    pos_z = _fft_positions(n, plan.logs_z).to(x.device)
-    pos_y = _fft_positions(ny, plan.logs_y).to(x.device)
-    re = torch.empty((nx, ny, n + 1), dtype=x.dtype, device=x.device)
+    pos_z = _fft_positions(nt, plan.radices_z).to(x.device)
+    pos_y = _fft_positions(ny, plan.radices_y).to(x.device)
+    re = torch.empty((nx, ny, nz // 2 + 1), dtype=x.dtype, device=x.device)
     im = torch.empty_like(re)
     for p in range(plan.passes):
         cp0, cp1 = plan.bound(p * c), plan.bound(p * c + c)
         k = torch.arange(cp0, cp1, device=x.device)
-        slices = []
+        z = []
         for r in range(c):
-            zsl = []
-            for b0 in range(r * plan.rows, (r + 1) * plan.rows, plan.batch):
-                rows = x[:, b0 : b0 + plan.batch]
-                zc = _dif_passes(torch.complex(rows[..., 0::2], rows[..., 1::2]), plan.logs_z, tz)
-                a, b = zc[..., pos_z[k]], zc[..., pos_z[(n - k) % n]].conj()
-                z = 0.5 * (a + b) - 0.5j * tz[k] * (a - b)
-                if cp0 == 0:  # slot 0: X[0] + i X[n], X[0] = Re A + Im A, X[n] = Re A - Im A
+            r0, r1 = plan.row_range(r)
+            for b0 in range(r0, r1, plan.batch):
+                rows = x[:, b0 : min(b0 + plan.batch, r1)]
+                if plan.odd:
+                    pairs = torch.nn.functional.pad(rows, (0, 0, 0, rows.shape[1] % 2))
+                    zc = _dif_passes(torch.complex(pairs[:, 0::2], pairs[:, 1::2]), plan.radices_z, tz)
+                    a, b = zc[..., pos_z[k]], zc[..., pos_z[(-k) % nz]].conj()
+                    out = torch.stack((0.5 * (a + b), -0.5j * (a - b)), dim=2)
+                    z.append(out.reshape(nx, -1, cp1 - cp0)[:, : rows.shape[1]])
+                    continue
+                zc = _dif_passes(torch.complex(rows[..., 0::2], rows[..., 1::2]), plan.radices_z, tz)
+                a, b = zc[..., pos_z[k]], zc[..., pos_z[(nt - k) % nt]].conj()
+                out = 0.5 * (a + b) - 0.5j * tz[k] * (a - b)
+                if cp0 == 0:  # slot 0: X[0] + i X[nt], X[0] = Re A + Im A, X[nt] = Re A - Im A
                     a0 = a[..., 0]
-                    z[..., 0] = torch.complex(a0.real + a0.imag, a0.real - a0.imag)
-                zsl.append(z)
-            slices.append(torch.cat(zsl, dim=1))
-        z = torch.cat(slices, dim=1)  # row a of the slab is row a % rows of rank a // rows
+                    out[..., 0] = torch.complex(a0.real + a0.imag, a0.real - a0.imag)
+                z.append(out)
+        z = torch.cat(z, dim=1)
         for r in range(c):
             cr0, cr1 = plan.bound(p * c + r), plan.bound(p * c + r + 1)
-            for t0 in range(cr0, cr1, plan.tile):
-                t1 = min(t0 + plan.tile, cr1)
-                y = _dif_passes(z[..., t0 - cp0 : t1 - cp0].transpose(1, 2), plan.logs_y, ty)
-                y = y[..., pos_y].transpose(1, 2)
-                re[..., t0:t1], im[..., t0:t1] = y.real, y.imag
-                if t0 == 0:  # Y0 = (C[a] + conj C[-a]) / 2, Yn = (C[a] - conj C[-a]) / 2i
-                    ca, cb = y[..., 0], y[:, (-torch.arange(ny, device=x.device)) % ny, 0].conj()
-                    y0, yn = 0.5 * (ca + cb), -0.5j * (ca - cb)
-                    re[..., 0], im[..., 0], re[..., n], im[..., n] = y0.real, y0.imag, yn.real, yn.imag
+            if cr1 == cr0:
+                continue
+            y = _dif_passes(z[..., cr0 - cp0 : cr1 - cp0].transpose(1, 2), plan.radices_y, ty)
+            y = y[..., pos_y].transpose(1, 2)
+            re[..., cr0:cr1], im[..., cr0:cr1] = y.real, y.imag
+            if cr0 == 0 and not plan.odd:  # Y0 = (C[a] + conj C[-a]) / 2, Yn = (C[a] - conj C[-a]) / 2i
+                ca, cb = y[..., 0], y[:, (-torch.arange(ny, device=x.device)) % ny, 0].conj()
+                y0, yn = 0.5 * (ca + cb), -0.5j * (ca - cb)
+                re[..., 0], im[..., 0], re[..., nt], im[..., nt] = y0.real, y0.imag, yn.real, yn.imag
     return re, im
 
 
@@ -1119,7 +1194,8 @@ def _zy_check(name: str, x: torch.Tensor) -> str:
 
 def _zy_rfft_dense(x: torch.Tensor):
     """B12's dense-DFT kernel (f32 products, O(n) work per output): the
-    route of ``zy_rfft_planar`` for shapes the FFT kernel does not take.
+    route of ``zy_rfft_planar`` for shapes the FFT kernel does not take: a
+    y or z extent with a prime factor above 7 (502, 509, 33), or nz = 1.
     Counted as ``zy_rfft_planar_dense``; the plain matmuls on the CPU."""
     name = "zy_rfft_planar_dense"
     if _zy_check(name, x) == "cpu":
@@ -1170,9 +1246,10 @@ def zy_rfft_planar(x: torch.Tensor):
     """(re, im), each (nx, ny, nz//2+1): the rfft along z then the DFT
     along y of a real (nx, ny, nz) volume, unnormalized, planar
     (fava_tpu/experiments/pallas_dft.py:92). On CUDA: float32, contiguous,
-    within ``zy_rfft_fits``; power-of-two y and z (``_zy_uses_fft``) take
-    the cluster FFT kernel, other shapes the dense kernel
-    (``_zy_rfft_dense``). On the CPU the plain dense matmuls."""
+    within ``zy_rfft_fits``; 7-smooth y and z >= 2 (``_zy_uses_fft``) take
+    the cluster FFT kernel, other shapes (a prime factor above 7, nz = 1)
+    the dense kernel (``_zy_rfft_dense``). On the CPU the plain dense
+    matmuls."""
     name = "zy_rfft_planar"
     if _zy_check(name, x) == "cpu":
         return _zy_rfft_plain(x)

@@ -6,23 +6,35 @@ Run from the repository root:
     python3 probe_zy_fft.py [--quick]
 
 It builds the kernels, prints the FFT kernel's ptxas report, holds the
-kernel to the float64 dense DFT (``_zy_rfft_plain``) on small shapes, on
-sqrt(rho)*v_x of ``make_example_fields(512)`` and on an (8, 1024, 1024)
-random volume (the two-pass plan), within 1e-5 of the largest coefficient;
-then times (CUDA events, warm) the kernel under its plan and under other
-cluster sizes, passes and shared-memory budgets, beside the dense kernel
-and ``torch.fft.rfftn(x, dim=(1, 2))``. ``--quick`` stops after the checks.
-``--phases`` instead times, at 512^3, builds of the kernel with one phase
-taken out of the source (their results are wrong; only their times count),
-to show where the kernel's time goes, after a build that sums each phase's
+kernel to the float64 dense DFT (``_zy_rfft_plain``) on small shapes
+(power-of-two and mixed-radix plans, odd y and z, every radix), on
+sqrt(rho)*v_x of ``make_example_fields(512)`` and its cuts to 512x512x480,
+512x480x512 and 512x384x375, and on an (8, 1024, 1024) random volume (the
+two-pass plan), within 1e-5 of the largest coefficient; then times (CUDA
+events, warm) the kernel under its plan and under other cluster sizes,
+passes and shared-memory budgets, beside the dense kernel (512^3, the
+512x512x480 cut, and the 512x512x502 cut, which only it takes) and
+``torch.fft.rfftn(x, dim=(1, 2))``. ``--quick`` stops after the checks.
+``--designs`` instead times, in turns, the kernel as built against a build
+without its power-of-two route (at 512^3 and (8, 1024, 1024), bit for bit,
+with both builds' SASS instruction counts), and each plan against the
+plans the kernel would take with fewer register DFTs (at 512x512x480,
+512x480x512, 512x384x375, 512x384x384 and 576^2, 640^2, 768^2, 896^2
+y-z planes), beside the dense kernel at 512x512x480.
+``--phases`` instead times, at 512^3, 512x512x480 and 512x384x375, builds
+of the kernel with one phase taken out of the source (their results are
+wrong; only their times count), each in turns with the whole build, to
+show where the kernel's time goes, after a build that sums each phase's
 and each pass's clock64() cycles over the blocks (``--timeline``: that
-build alone; ``--variants``: the other whole builds alone). Its last line
-is all its results as one JSON object.
+build alone; ``--variants``: the other whole builds (VARIANTS) alone,
+each in turns with the whole build and held to its result bit for bit).
+Its last line is all its results as one JSON object.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -33,7 +45,9 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 TOL_ZY = 1e-5
 SMALL = [(2, 2, 2), (3, 64, 32), (1, 1024, 2), (2, 1, 8), (2, 16, 2), (1, 2, 2), (2, 8, 1024),
-         (4, 1024, 8), (2, 512, 512)]
+         (4, 1024, 8), (2, 512, 512), (2, 45, 35), (2, 3, 9), (2, 7, 7), (2, 1, 3), (3, 12, 14),
+         (3, 10, 20), (2, 27, 18), (2, 15, 30), (2, 6, 12), (2, 49, 343), (2, 375, 6), (1, 1000, 1000),
+         (2, 768, 768), (2, 640, 640), (4, 96, 768)]
 
 
 def cuda_ms(torch, fn, reps):
@@ -54,9 +68,11 @@ REMOTE = "cluster.map_shared_rank(cols, u - pass * c)"
 ARRIVE = 'asm volatile("barrier.cluster.arrive.aligned;\\n" ::: "memory");'
 WAIT = 'asm volatile("barrier.cluster.wait.aligned;\\n" ::: "memory");'
 CUTS = {
-    "z transform": [("fft_run(rows_in, rows_mid, rows_mid, ln, lz, p.nlz, lbatch, p.batch, twpz);", "")],
-    "post-process": [("e < p.batch * wp;", "e < 0;")],
-    "y transform": [("fft_run(cols_mid, cols_mid, cols_out, lny, ly, p.nly, log2i(tw), tw, twpy);", "")],
+    "z transform": [("fft_run<P2>(rows_in, rows_mid, rows_mid, nt, rz, p.nrz, dvs + kDvZ, slotd, "
+                     "odd ? (nb + 1) >> 1 : nb, twpz);", "")],
+    "post-process": [("e < nb * wp;", "e < 0;")],
+    "y transform": [("fft_run<P2>(cols_mid, cols_mid, cols_out, ny, ry, p.nry, dvs + kDvY, "
+                     "divisor<P2>(tw, dvs, kDvRank, kDvRankHi), tw,\n                twpy);", "")],
     "output stores": [("re[o] = v.x;\n    im[o] = v.y;", "")],
     "DSMEM (local stores)": [(REMOTE, "cols")],
     "DSMEM and cluster barriers": [(REMOTE, "cols"), ('asm volatile("barrier.cluster', '// ('),
@@ -65,15 +81,17 @@ CUTS = {
     "global loads and stores": [(LOAD, "return make_float2((float)s, (float)e);"),
                                 ("re[o] = v.x;\n    im[o] = v.y;", "")],
 }
-# Other builds of the whole kernel, timed beside it.
+# Other builds of the whole kernel, timed beside it (their results are held
+# to this checkout's bit for bit).
 VARIANTS = {
-    "512 threads": [("constexpr int kFftThreads = 256;", "constexpr int kFftThreads = 512;"),
-                    ("__launch_bounds__(kFftThreads, 2)\nzy_fft_kernel(",
-                     "__launch_bounds__(kFftThreads)\nzy_fft_kernel(")],
+    "passes not inlined": [("template <int R, bool P2, class Src, class Dst>\n__device__ void fft_pass(",
+                            "template <int R, bool P2, class Src, class Dst>\n__device__ __noinline__ void "
+                            "fft_pass(")],
+    "transforms called": [("template <bool P2, class Src, class Dst>\n__device__ __forceinline__ void fft_run(",
+                           "template <bool P2, class Src, class Dst>\n__device__ __noinline__ void fft_run(")],
     "no minimum of two blocks an SM": [("__launch_bounds__(kFftThreads, 2)\nzy_fft_kernel(",
                                         "__launch_bounds__(kFftThreads)\nzy_fft_kernel(")],
-    "streaming stores": [("re[o] = v.x;\n    im[o] = v.y;", "__stcs(re + o, v.x);\n    __stcs(im + o, v.y);")],
-    "streaming loads": [("__ldg(reinterpret_cast<const float2*>(q))", "__ldcs(reinterpret_cast<const float2*>(q))")],
+    "pass offsets by multiplies": [("(P2 ? subd.mul(g * R) : g * L)", "g * L"), ("subd.mul(t)", "t * subd.d")],
 }
 
 
@@ -82,37 +100,39 @@ VARIANTS = {
 SPANS = ("tables", "z transforms", "post-process", "barrier", "y transforms")
 PASS_SPANS = tuple(f"{axis} pass {i}" for axis in "zy" for i in range(4))
 TIMELINE = [
-    ("// A 2^ln-point transform of nseq sequences",
-     "__device__ unsigned long long zy_timeline[16];\n// A 2^ln-point transform of nseq sequences"),
-    ("  int lL = ln;\n  for (int i = 0; i < nst; ++i) {\n",
-     "  int lL = ln;\n  for (int i = 0; i < nst; ++i) {\n    const long long tp_ = clock64();\n"),
-    ("    lL -= logs[i];\n    __syncthreads();\n",
-     "    lL -= logs[i];\n    __syncthreads();\n    if (threadIdx.x == 0) atomicAdd(&zy_timeline[(sizeof(Src) == "
-     "sizeof(SlabRows) ? 8 : 12) + i], (unsigned long long)(clock64() - tp_));\n"),
-    ("  const int zpad = ln - (p.nlz ? p.lz[0] : 0);  // see zy_fft_tables_kernel\n",
-     "  const int zpad = ln - (p.nlz ? p.lz[0] : 0);\n  long long tk[8] = {}; long long t_ = clock64();\n"),
+    ("#include <stdint.h>\n", "#include <stdint.h>\n#include <type_traits>\n"),
+    ("// An nt-point transform of nseq sequences",
+     "__device__ unsigned long long zy_timeline[16];\n// An nt-point transform of nseq sequences"),
+    ("  int L = nt;\n  for (int i = 0; i < nst; ++i) {\n",
+     "  int L = nt;\n  for (int i = 0; i < nst; ++i) {\n    const long long tp_ = clock64();\n"),
+    ("    L = subd.d;\n    __syncthreads();\n",
+     "    L = subd.d;\n    __syncthreads();\n    if (threadIdx.x == 0) atomicAdd(&zy_timeline["
+     "(std::is_same<Src, SmemSeq>::value ? 12 : 8) + i], (unsigned long long)(clock64() - tp_));\n"),
+    ("  // Every block of the cluster has started once this barrier's wait\n",
+     "  long long tk[8] = {}; long long t_ = clock64();\n  // Every block of the cluster has started once this barrier's wait\n"),
     ("  // Phase 1: this rank's rows", "  tk[0] += clock64() - t_; t_ = clock64(); tk[7] = 1;\n  // Phase 1: this rank's rows"),
-    ("p.batch, twpz);\n", "p.batch, twpz);\n    tk[1] += clock64() - t_; t_ = clock64();\n"),
+    ("odd ? (nb + 1) >> 1 : nb, twpz);\n", "odd ? (nb + 1) >> 1 : nb, twpz);\n    tk[1] += clock64() - t_; t_ = clock64();\n"),
     ("    __syncthreads();\n  }\n  // Every rank's stores",
      "    __syncthreads();\n    tk[2] += clock64() - t_; t_ = clock64();\n  }\n  // Every rank's stores"),
     ("  cluster.sync();\n\n  // Phase 2", "  cluster.sync();\n  tk[3] += clock64() - t_; t_ = clock64();\n\n  // Phase 2"),
-    ("\n}\n\nbool pow2(int n)",
+    ("\n}\n\nbool smooth7(int n)",
      "\n  tk[4] += clock64() - t_;\n  if (threadIdx.x == 0) { for (int i = 0; i < 5; ++i) atomicAdd(&zy_timeline[i], "
      "(unsigned long long)tk[i]); atomicAdd(&zy_timeline[6], 1ull); atomicAdd(&zy_timeline[7], "
-     "(unsigned long long)tk[7]); }\n}\n\nbool pow2(int n)"),
+     "(unsigned long long)tk[7]); }\n}\n\nbool smooth7(int n)"),
     ('}  // extern "C"', 'int fava_zy_timeline(void* out) { return (int)cudaMemcpyFromSymbol(out, zy_timeline, '
      '16 * sizeof(unsigned long long)); }\n}  // extern "C"'),
 ]
 
 
-def build_variant(nvcc, flags, edits, work: Path):
-    """The dft kernels' library with ``edits`` applied to the source."""
-    src = (HERE / "fava_tpu_torch" / "csrc" / "dft_kernels.cu").read_text()
+def build_variant(nvcc, flags, edits, work: Path, root: Path = HERE):
+    """The dft kernels' library of the checkout at ``root`` with ``edits``
+    applied to the source."""
+    src = (root / "fava_tpu_torch" / "csrc" / "dft_kernels.cu").read_text()
     for old, new in edits:
         if old not in src:
             sys.exit(f"edit target not found: {old!r}")
         src = src.replace(old, new)
-    for h in (HERE / "fava_tpu_torch" / "csrc").glob("*.cuh"):
+    for h in (root / "fava_tpu_torch" / "csrc").glob("*.cuh"):
         shutil.copy(h, work / h.name)
     (work / "k.cu").write_text(src)
     lib = work / "k.so"
@@ -122,6 +142,8 @@ def build_variant(nvcc, flags, edits, work: Path):
     so.fava_zy_fft.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                                                       ctypes.c_void_p]
     so.fava_zy_fft.restype = ctypes.c_int
+    so.fava_zy_fft_tables.argtypes = [ctypes.c_void_p] * 3
+    so.fava_zy_fft_table_bytes.argtypes = [ctypes.c_void_p]
     return so
 
 
@@ -154,33 +176,49 @@ def timeline(torch, ck, _build, x):
     return out
 
 
-def phase_times(torch, ck, _build, x):
-    """ms of the FFT kernel with each phase cut, and whole."""
-    ny, nz = int(x.shape[1]), int(x.shape[2])
-    plan = ck._zy_fft_plan(ny, nz)
-    ints = (ctypes.c_int * len(plan.as_ints()))(*plan.as_ints())
-    re, im = ck._zy_outputs(x)
-    tables = ck._zy_fft_tables(plan, str(x.device)).data_ptr()
+def phase_times(torch, ck, _build, volumes):
+    """ms of the FFT kernel on each of ``volumes`` in each other build (each
+    phase cut, not with ``--variants``, then VARIANTS), timed in turns with
+    the whole build: whole, other, other, whole; each build once."""
     nvcc = _build.find_nvcc()
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    out = {}
+    runs = []
+    for name, x in volumes:
+        plan = ck._zy_fft_plan(int(x.shape[1]), int(x.shape[2]))
+        ints = (ctypes.c_int * len(plan.as_ints()))(*plan.as_ints())
+        ref = ck.zy_rfft_planar(x)
+        runs.append((name, x, ints, ck._zy_fft_tables(plan, str(x.device)).data_ptr(), ck._zy_outputs(x), ref))
+    out = {name: {} for name, *_ in runs}
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def runner(so, vname, x, ints, tables, re, im):
+        def run():
+            err = so.fava_zy_fft(x.data_ptr(), re.data_ptr(), im.data_ptr(), tables, int(x.shape[0]),
+                                 ctypes.addressof(ints), 1, stream)
+            if err:
+                sys.exit(f"{vname}: launch error {err}")
+        return run
+
     with tempfile.TemporaryDirectory() as tmp:
         cuts = {} if "--variants" in sys.argv else {f"without {k}": v for k, v in CUTS.items()}
-        variants = {"whole": [], **cuts, **VARIANTS}
-        for i, (name, edits) in enumerate(variants.items()):
+        whole = None
+        for i, (vname, edits) in enumerate({"whole": [], **cuts, **VARIANTS}.items()):
             work = Path(tmp) / str(i)
             work.mkdir()
             so = build_variant(nvcc, flags, edits, work)
-            stream = torch.cuda.current_stream().cuda_stream
-
-            def run():
-                err = so.fava_zy_fft(x.data_ptr(), re.data_ptr(), im.data_ptr(), tables, int(x.shape[0]),
-                                     ctypes.addressof(ints), 1, stream)
-                if err:
-                    sys.exit(f"{name}: launch error {err}")
-
-            out[name] = cuda_ms(torch, run, 20)
-            print(f"phase cut {name}: {out[name]!r} ms", flush=True)
+            whole = whole or so
+            for name, x, ints, tables, (re, im), ref in runs:
+                if so is whole:
+                    continue
+                this = runner(so, vname, x, ints, tables, re, im)
+                base = runner(whole, "whole", x, ints, tables, re, im)
+                t = [cuda_ms(torch, f, 20) for f in (base, this, this, base)]
+                this()
+                torch.cuda.synchronize()
+                same = bool(torch.equal(re, ref[0]) and torch.equal(im, ref[1]))
+                out[name][vname] = {"ms": t[1:3], "whole_ms": [t[0], t[3]], "bit_equal": same}
+                print(f"build {vname!r} on {name}: {t[1]!r}, {t[2]!r} ms beside whole {t[0]!r}, {t[3]!r}; "
+                      f"bit-equal {same}", flush=True)
     return out
 
 
@@ -188,6 +226,129 @@ def rel_err(got, ref):
     scale = max(float(r.abs().max()) for r in ref)
     err = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref))
     return err / scale
+
+
+# The design probe (--designs): the kernel with its power-of-two route taken
+# out (every plan through the divisors of its tables), and plans with
+# fewer register DFTs.
+NO_POW2_ROUTE = [("return pow2(p.ny) && pow2(p.nz) && pow2(p.batch);", "return false;")]
+BASE_RADICES = (2, 3, 4, 5, 7, 8, 16)
+SASS_OPS = ("IMAD", "SHF", "LEA", "IADD3", "FFMA", "FADD", "FMUL", "LDS", "STS", "BRA")
+
+
+def sass_counts(so_path: Path, kernel: str):
+    """Instructions in the SASS of ``kernel``'s instantiations in the
+    library at ``so_path``: the total, the opcodes of SASS_OPS (any
+    suffix) and IMAD.HI / IMAD.SHL / IMAD.MOV apart (cuobjdump -sass)."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([cuobjdump, "-sass", str(so_path)], capture_output=True, text=True)
+    out, inside = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            inside = name if kernel in name and "tables" not in name else None
+            continue
+        if not inside or "*/" not in line:
+            continue
+        toks = line.split("*/", 1)[1].split()
+        op = toks[1] if len(toks) > 1 and toks[0].startswith("@") else (toks[0] if toks else "")
+        if not op or op.startswith("/*"):
+            continue
+        counts = out.setdefault(inside, {"total": 0})
+        counts["total"] += 1
+        for key in {op.split(".")[0], ".".join(op.split(".")[:2])}:
+            if key in SASS_OPS or key in ("IMAD.HI", "IMAD.SHL", "IMAD.MOV"):
+                counts[key] = counts.get(key, 0) + 1
+    return out or {"cuobjdump": res.stderr.strip()[:400]}
+
+
+def pow2_route(torch, ck, _build, volumes):
+    """ms of the FFT kernel as built and with its power-of-two route taken
+    out (NO_POW2_ROUTE: the plan then carries the divisors, 8 ZY_DIVS
+    bytes more), in turns (whole, without, without, whole; CUDA events,
+    20 warm calls each), the two results compared bit for bit, and each
+    build's SASS counts."""
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = {}
+        for name, edits in (("whole", []), ("no power-of-two route", NO_POW2_ROUTE)):
+            work = Path(tmp) / str(len(libs))
+            work.mkdir()
+            libs[name] = build_variant(_build.find_nvcc(), flags, edits, work)
+            out[f"sass {name}"] = sass_counts(work / "k.so", "zy_fft_kernel")
+            print(f"sass {name}: {json.dumps(out[f'sass {name}'])}", flush=True)
+        stream = torch.cuda.current_stream().cuda_stream
+        for vname, x in volumes:
+            plan = ck._zy_fft_plan(int(x.shape[1]), int(x.shape[2]))
+            runs = {}
+            for name, so in libs.items():
+                p = plan if name == "whole" else dataclasses.replace(plan, smem=plan.smem + 8 * ck.ZY_DIVS)
+                ints = (ctypes.c_int * len(p.as_ints()))(*p.as_ints())
+                nbytes = so.fava_zy_fft_table_bytes(ctypes.addressof(ints))
+                if nbytes < 0:
+                    sys.exit(f"{name}: the plan does not hold: {p}")
+                tables = torch.empty(nbytes // 4, dtype=torch.float32, device=x.device)
+                if so.fava_zy_fft_tables(ctypes.addressof(ints), tables.data_ptr(), stream):
+                    sys.exit(f"{name}: tables failed")
+                re, im = ck._zy_outputs(x)
+
+                def run(so=so, ints=ints, tables=tables, re=re, im=im, name=name):
+                    if so.fava_zy_fft(x.data_ptr(), re.data_ptr(), im.data_ptr(), tables.data_ptr(),
+                                      int(x.shape[0]), ctypes.addressof(ints), 1, stream):
+                        sys.exit(f"{name}: launch error")
+
+                runs[name] = (run, re, im, tables)
+            names = list(runs)
+            t = {f"{n} {i}": cuda_ms(torch, runs[n][0], 20) for i, n in ((1, names[0]), (1, names[1]))}
+            t.update({f"{n} {i}": cuda_ms(torch, runs[n][0], 20) for i, n in ((2, names[1]), (2, names[0]))})
+            (_, re0, im0, _), (_, re1, im1, _) = runs.values()
+            t["bit_equal"] = bool(torch.equal(re0, re1) and torch.equal(im0, im1))
+            out[vname] = t
+            print(f"power-of-two route {vname}: {json.dumps(t)}", flush=True)
+            del runs
+            torch.cuda.empty_cache()
+    return out
+
+
+def radix_plan(ck, ny: int, nz: int, radices):
+    """The plan _zy_fft_plan makes when the kernel's register DFTs are
+    ``radices``."""
+    kept = ck.ZY_RADICES
+    ck.ZY_RADICES = tuple(radices)
+    ck._radices.cache_clear()
+    try:
+        return ck._zy_fft_plan.__wrapped__(ny, nz)
+    finally:
+        ck.ZY_RADICES = kept
+        ck._radices.cache_clear()
+
+
+def radix_sets(torch, ck, volumes):
+    """ms of the FFT kernel under its plan, under the plan with only
+    BASE_RADICES, and under the plan without each composite radix that its
+    plan uses, in turns (each in order, then in reverse; CUDA events, 20
+    warm calls each), with each plan's radices and its error against the
+    plan's result (same function, other rounding)."""
+    out = {}
+    for vname, x in volumes:
+        ny, nz = int(x.shape[1]), int(x.shape[2])
+        plan = ck._zy_fft_plan(ny, nz)
+        plans = {"plan": plan, "base radices": radix_plan(ck, ny, nz, BASE_RADICES)}
+        for r in sorted(set(plan.radices_z + plan.radices_y) - set(BASE_RADICES)):
+            plans[f"without {r}"] = radix_plan(ck, ny, nz, [q for q in ck.ZY_RADICES if q != r])
+        ref = ck._zy_rfft_fft(x, plan)
+        t = {n: {"radices": [list(p.radices_z), list(p.radices_y)], "cluster": p.cluster, "batch": p.batch,
+                 "active_clusters": ck.zy_fft_active_clusters(p), "err": rel_err(ck._zy_rfft_fft(x, p), ref)}
+             for n, p in plans.items()}
+        order = list(plans)
+        for n in order + order[::-1]:
+            t[n].setdefault("ms", []).append(cuda_ms(torch, lambda p=plans[n]: ck._zy_rfft_fft(x, p), 20))
+        out[vname] = t
+        print(f"radix sets {vname}: {json.dumps(t)}", flush=True)
+        del ref
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -216,10 +377,37 @@ def main() -> None:
     if "--phases" in sys.argv or "--timeline" in sys.argv or "--variants" in sys.argv:
         f = flagship.make_example_fields(512)
         x = (torch.sqrt(f[0]) * f[1]).contiguous()
+        del f
+        volumes = [("512^3", x), ("512x512x480", x[..., :480].contiguous()),
+                   ("512x384x375", x[:, :384, :375].contiguous())]
         if "--variants" not in sys.argv:
-            out["timeline"] = timeline(torch, ck, _build, x)
+            out["timeline"] = {name: timeline(torch, ck, _build, v) for name, v in volumes}
         if "--timeline" not in sys.argv:
-            out["phase_ms"] = phase_times(torch, ck, _build, x)
+            out["phase_ms"] = phase_times(torch, ck, _build, volumes)
+        print(json.dumps(out), flush=True)
+        return
+    if "--designs" in sys.argv:
+        f = flagship.make_example_fields(512)
+        x = (torch.sqrt(f[0]) * f[1]).contiguous()
+        del f
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x1024 = torch.randn((8, 1024, 1024), generator=gen, device="cuda")
+        out["power_of_two_route"] = pow2_route(torch, ck, _build, [("512^3", x), ("(8, 1024, 1024)", x1024)])
+        del x1024
+        cuts = [("512x512x480", x[..., :480].contiguous()), ("512x480x512", x[:, :480].contiguous()),
+                ("512x384x375", x[:, :384, :375].contiguous()), ("512x384x384", x[:, :384, :384].contiguous())]
+        d = cuts[0][1]
+        out["times"]["512x512x480"] = t = {
+            "route": cuda_ms(torch, lambda: ck.zy_rfft_planar(d), 20),
+            "dense": cuda_ms(torch, lambda: ck._zy_rfft_dense(d), 3),
+            "rfftn": cuda_ms(torch, lambda: torch.fft.rfftn(d, dim=(1, 2)), 20)}
+        print(f"times 512x512x480 (ms): {json.dumps(t)}", flush=True)
+        out["radix_sets"] = radix_sets(torch, ck, cuts)
+        del x, cuts, d
+        torch.cuda.empty_cache()
+        wide = [(nx, n) for nx, n in ((256, 576), (256, 640), (256, 768), (128, 896))]
+        out["radix_sets"].update(radix_sets(torch, ck, [
+            (f"{nx}x{n}x{n}", torch.randn((nx, n, n), generator=gen, device="cuda")) for nx, n in wide]))
         print(json.dumps(out), flush=True)
         return
     ok = True
@@ -235,42 +423,51 @@ def main() -> None:
         out["checks"][str(shape)] = {"err": e, "vs_f32_twin": twin, "launched": launched}
         print(f"check {shape}: error {e!r} of the largest coefficient, vs the f32 FFT twin {twin!r}, "
               f"launched {launched}", flush=True)
-        ok &= e <= TOL_ZY and launched
+        ok &= e <= TOL_ZY and twin <= 1e-6 and launched
     fields = flagship.make_example_fields(512)
     x512 = (torch.sqrt(fields[0]) * fields[1]).contiguous()
     del fields
     x1024 = torch.from_numpy(rng.standard_normal((8, 1024, 1024))).float().cuda()
-    for name, x in (("sqrt(rho) v_x 512^3", x512), ("random (8, 1024, 1024)", x1024)):
-        plan = ck._zy_fft_plan(x.shape[1], x.shape[2])
+    volumes = [("512^3", x512), ("512x512x480", x512[..., :480].contiguous()),
+               ("512x480x512", x512[:, :480].contiguous()), ("512x384x375", x512[:, :384, :375].contiguous()),
+               ("(8, 1024, 1024)", x1024), ("512x512x502 (dense)", x512[..., :502].contiguous())]
+    for name, x in volumes:
+        fft = ck._zy_uses_fft(x.shape)
+        ck.reset_launch_counts()
         got = ck.zy_rfft_planar(x)
         torch.cuda.synchronize()
+        counts = {k: v for k, v in ck.launch_counts().items() if v}
         ref = ck._zy_rfft_plain(x.double())
         e = rel_err(got, ref)
-        dense = rel_err(ck._zy_rfft_dense(x), ref)
-        del ref
-        clusters = ck.zy_fft_active_clusters(plan)
-        out["checks"][name] = {"err": e, "dense_err": dense, "plan": plan.as_ints(),
-                               "active_clusters": clusters}
-        print(f"check {name}: error {e!r} (dense kernel {dense!r}); plan {plan}; active clusters "
-              f"{clusters}", flush=True)
-        ok &= e <= TOL_ZY
+        dense = rel_err(ck._zy_rfft_dense(x), ref) if not fft or name == "512^3" else None
+        del ref, got
+        entry = {"err": e, "dense_err": dense, "launches": counts}
+        if fft:
+            plan = ck._zy_fft_plan(x.shape[1], x.shape[2])
+            entry.update(plan=plan.as_ints(), active_clusters=ck.zy_fft_active_clusters(plan))
+            print(f"check {name}: plan {plan}; active clusters {entry['active_clusters']}", flush=True)
+        out["checks"][name] = entry
+        print(f"check {name}: error {e!r} (dense kernel {dense!r}); launches {counts}", flush=True)
+        ok &= e <= TOL_ZY and counts == {("zy_rfft_planar" if fft else "zy_rfft_planar_dense"): 1}
         torch.cuda.empty_cache()
     print(json.dumps({"checks_ok": bool(ok)}), flush=True)
     if "--quick" not in sys.argv:
-        for name, x in (("512^3", x512), ("(8, 1024, 1024)", x1024)):
+        for name, x in volumes:
             ny, nz = int(x.shape[1]), int(x.shape[2])
-            t = {"plan": cuda_ms(torch, lambda: ck.zy_rfft_planar(x), 20),
-                 "dense": cuda_ms(torch, lambda: ck._zy_rfft_dense(x), 3),
+            t = {"route": cuda_ms(torch, lambda: ck.zy_rfft_planar(x), 20),
                  "rfftn": cuda_ms(torch, lambda: torch.fft.rfftn(x, dim=(1, 2)), 20)}
-            for passes in (1, 2, 4):
-                for cluster in (16, 8, 4, 2):
-                    for budget in ("half", "full"):
-                        plan = ck._fit_plan(ny, nz, cluster, passes,
-                                            ck.ZY_SMEM_HALF if budget == "half" else ck.ZY_SMEM_MAX)
-                        if plan is None or ck.zy_fft_active_clusters(plan) < 1:
-                            continue
-                        key = f"C{cluster} P{passes} {budget} tile{plan.tile} batch{plan.batch}"
-                        t[key] = cuda_ms(torch, lambda: ck._zy_rfft_fft(x, plan), 20)
+            if name in ("512^3", "512x512x480", "512x512x502 (dense)"):
+                t["dense"] = cuda_ms(torch, lambda: ck._zy_rfft_dense(x), 3)
+            if ck._zy_uses_fft(x.shape):
+                for passes in (1, 2, 4):
+                    for cluster in (16, 8, 4, 2):
+                        for budget in ("half", "full"):
+                            plan = ck._fit_plan(ny, nz, cluster, passes,
+                                                ck.ZY_SMEM_HALF if budget == "half" else ck.ZY_SMEM_MAX)
+                            if plan is None or ck.zy_fft_active_clusters(plan) < 1:
+                                continue
+                            key = f"C{cluster} P{passes} {budget} tile{plan.tile} batch{plan.batch}"
+                            t[key] = cuda_ms(torch, lambda: ck._zy_rfft_fft(x, plan), 20)
             out["times"][name] = t
             print(f"times {name} (ms): {json.dumps(t)}", flush=True)
     print(json.dumps(out), flush=True)

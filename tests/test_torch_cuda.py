@@ -136,7 +136,7 @@ def test_kernel_matches_plain(cuda_device, kernel):
         torch.cuda.synchronize()
         assert torch.equal(counts, ref[0])
         torch.testing.assert_close(sums[:2], ref[1:], rtol=1e-10, atol=0)
-    elif kernel == "zy_rfft_planar":  # the FFT kernel: power-of-two y and z
+    elif kernel == "zy_rfft_planar":  # the FFT kernel's power-of-two route
         x = f[1][..., :32].contiguous()
         got = ck.zy_rfft_planar(x)
         torch.cuda.synchronize()
@@ -723,12 +723,19 @@ def test_onepass_folded_with_garbage_pad_rows(cuda_device, shape):
     torch.testing.assert_close(torch.stack(rows), ref[1:], rtol=1e-10, atol=1e-300)
 
 
-# B12's shapes and the kernel each takes: the cluster FFT kernel for
-# power-of-two y (1..1024) and z (2..1024), the dense kernel otherwise.
+# B12's shapes and the kernel each takes: the cluster FFT kernel for y
+# (1..1024) and z (2..1024) with no prime factor above 7 (power-of-two
+# and mixed-radix plans, odd z with paired rows), the dense kernel
+# otherwise (33 = 3 x 11, 22 = 2 x 11, 502 = 2 x 251, 509, nz = 1).
 ZY_ROUTES = [((2, 2, 2), "zy_rfft_planar"), ((3, 64, 32), "zy_rfft_planar"),
              ((4, 512, 512), "zy_rfft_planar"), ((2, 1024, 1024), "zy_rfft_planar"),
-             ((1, 1024, 2), "zy_rfft_planar"), ((3, 40, 50), "zy_rfft_planar_dense"),
-             ((2, 64, 33), "zy_rfft_planar_dense"), ((1, 1, 1), "zy_rfft_planar_dense")]
+             ((1, 1024, 2), "zy_rfft_planar"), ((3, 40, 50), "zy_rfft_planar"),
+             ((2, 64, 33), "zy_rfft_planar_dense"), ((1, 1, 1), "zy_rfft_planar_dense"),
+             ((2, 512, 480), "zy_rfft_planar"), ((2, 480, 512), "zy_rfft_planar"),
+             ((2, 384, 375), "zy_rfft_planar"), ((3, 45, 35), "zy_rfft_planar"),
+             ((2, 1, 7), "zy_rfft_planar"), ((2, 27, 18), "zy_rfft_planar"),
+             ((2, 49, 343), "zy_rfft_planar"), ((1, 1000, 1000), "zy_rfft_planar"),
+             ((2, 22, 502), "zy_rfft_planar_dense"), ((1, 509, 8), "zy_rfft_planar_dense")]
 
 
 @pytest.mark.cuda
@@ -750,18 +757,22 @@ def test_zy_rfft_matches_plain(cuda_device, shape, route):
 def test_zy_fft_kernel_fits_the_card_and_reads_unaligned_rows(cuda_device):
     """Every plan the rule makes for the path's shapes schedules at least
     one cluster; volumes that start 4 or 8 bytes off a 16-byte boundary
-    take the FFT kernel all the same (scalar or float2 row loads)."""
-    for ny, nz in ((512, 512), (1024, 1024), (1024, 2), (1, 1024), (16, 16)):
+    take the FFT kernel all the same (scalar or float2 row loads; odd z
+    rows are read by scalars)."""
+    for ny, nz in ((512, 512), (1024, 1024), (1024, 2), (1, 1024), (16, 16), (512, 480), (480, 512),
+                   (384, 375), (1000, 1000), (768, 768), (1024, 960)):
         assert ck.zy_fft_active_clusters(ck._zy_fft_plan(ny, nz), cuda_device) >= 1
-    base = _fields(cuda_device, shape=(3 * 64 * 64 + 2,), seed=1)[1]
-    for off in (1, 2):
-        x = base[off : off + 3 * 64 * 64].view(3, 64, 64)
-        assert x.data_ptr() % 16 == 4 * off
-        ck.reset_launch_counts()
-        got = ck.zy_rfft_planar(x)
-        torch.cuda.synchronize()
-        assert ck.launch_counts()["zy_rfft_planar"] == 1
-        _assert_zy_close(got, ck._zy_rfft_plain(x.double()))
+    for shape in ((3, 64, 64), (3, 48, 60), (3, 45, 35)):
+        size = shape[0] * shape[1] * shape[2]
+        base = _fields(cuda_device, shape=(size + 2,), seed=1)[1]
+        for off in (1, 2):
+            x = base[off : off + size].view(shape)
+            assert x.data_ptr() % 16 == 4 * off
+            ck.reset_launch_counts()
+            got = ck.zy_rfft_planar(x)
+            torch.cuda.synchronize()
+            assert ck.launch_counts()["zy_rfft_planar"] == 1
+            _assert_zy_close(got, ck._zy_rfft_plain(x.double()))
 
 
 @pytest.mark.cuda

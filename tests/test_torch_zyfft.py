@@ -3,10 +3,12 @@ the dense twin and to fava_tpu's fused z+y Pallas kernel.
 
 ``_zy_fft_plan`` is the split the CUDA kernel runs (csrc/dft_kernels.cu):
 clusters of blocks, kz column slots per rank and pass, row batches and
-column tiles. ``_zy_rfft_fft_plain`` walks that plan in plain torch: the
+column tiles, for y and z extents with no prime factor above 7 (mixed
+radix 2-16). ``_zy_rfft_fft_plain`` walks that plan in plain torch: the
 same radix passes in the same order, the same packing of the real kz = 0
-and kz = nz/2 columns into slot 0, the same split of rows and slots over
-the ranks and passes. It runs here in float64. Tolerances:
+and kz = nz/2 columns into slot 0 (even nz) or the same pairing of rows
+into one complex transform (odd nz), the same split of rows and slots
+over the ranks and passes. It runs here in float64. Tolerances:
 
 * against np.fft (float64 FFTs in another order): rtol 1e-12 of the
   largest coefficient;
@@ -28,7 +30,7 @@ from fava_tpu.experiments import pallas_dft
 from fava_tpu.ops import pallas_kernels as pk
 from fava_tpu_torch.ops import cuda_kernels as ck
 
-POW2 = [1 << i for i in range(11)]  # 1 .. 1024
+SMOOTH7 = [n for n in range(1, 1025) if ck._smooth7(n)]  # 1 .. 1024, no prime factor above 7
 
 
 @pytest.fixture()
@@ -49,26 +51,38 @@ def _close(got, ref_re, ref_im, rtol):
     assert err <= rtol * scale, (err, scale)
 
 
-@pytest.mark.parametrize("ny", POW2)
+@pytest.mark.parametrize("ny", SMOOTH7)
 def test_plan_covers_every_slot_and_row_once_and_fits(ny):
-    for nz in POW2[1:]:
+    for nz in SMOOTH7[1:]:
         plan = ck._zy_fft_plan(ny, nz)
-        n = nz // 2
+        n, odd = (nz + 1) // 2, nz % 2  # slots: nz/2 (slot 0 = kz 0 and nz/2) or (nz+1)/2
+        assert plan.nslot == n and plan.nt == (nz if odd else nz // 2)
         c, parts = plan.cluster, plan.passes * plan.cluster
-        assert plan.rows * c == ny and c <= 16 and c & (c - 1) == 0
+        assert c <= min(16, ny) and c & (c - 1) == 0 and plan.rows == -(-ny // c)
+        # the ranks' rows cover the slab's rows once
+        assert [a for r in range(c) for a in range(*plan.row_range(r))] == list(range(ny))
+        assert max(b - a for a, b in map(plan.row_range, range(c))) == plan.rows
         assert plan.passes & (plan.passes - 1) == 0 and plan.passes <= n
         bounds = [plan.bound(u) for u in range(parts + 1)]
         assert bounds[0] == 0 and bounds[-1] == n and bounds == sorted(bounds)
-        # n slots (slot 0 = kz 0 and nz/2) cover the nz/2 + 1 kz columns once.
+        # the n slots cover the nz/2 + 1 kz columns once
         slots = [u for a, b in zip(bounds, bounds[1:]) for u in range(a, b)]
         assert slots == list(range(n))
         widths = {b - a for a, b in zip(bounds, bounds[1:])}
-        assert widths <= {0, 1} if n < parts else widths == {plan.tile}
-        assert plan.tile & (plan.tile - 1) == 0 and plan.es >= plan.tile and plan.es % 2 == 1
-        assert plan.batch & (plan.batch - 1) == 0 and plan.rows % plan.batch == 0
-        assert plan.work == plan.batch * plan.ws and plan.ws >= n
+        assert max(widths) == plan.tile and widths <= {plan.tile - 1, plan.tile}
+        assert all(b > a for a, b in zip(bounds[::c], bounds[c::c]))  # every pass has a slot
+        assert n * (parts + 1) <= 1 << 16  # the slot owners' dividend, below 2^16 (Dv<false>)
+        assert plan.es >= plan.tile and plan.es % 2 == 1 and plan.ws % 2 == 1
+        assert 1 <= plan.batch <= plan.rows + odd and not (odd and plan.batch % 2)  # odd nz: pairs
+        assert plan.work == (plan.batch // 2 if odd else plan.batch) * plan.ws
+        pad = ck._zy_pad(plan.nt, plan.radices_z)
+        assert plan.ws >= plan.nt + ((plan.nt - 1) >> pad if pad is not None else 0)
         assert plan.smem <= ck.ZY_SMEM_MAX <= 232448 and plan.smem % 8 == 0
-        assert sum(plan.logs_z) == n.bit_length() - 1 and sum(plan.logs_y) == ny.bit_length() - 1
+        for radices, length in ((plan.radices_z, plan.nt), (plan.radices_y, ny)):
+            assert set(radices) <= set(ck.ZY_RADICES) and int(np.prod(radices)) == length
+        if ny & (ny - 1) == 0 and nz & (nz - 1) == 0:  # shifts: power-of-two batches and tiles
+            assert plan.batch & (plan.batch - 1) == 0 and plan.rows % plan.batch == 0
+            assert plan.tile & (plan.tile - 1) == 0 and (widths <= {0, 1} or widths == {plan.tile})
         assert len(plan.as_ints()) == 13 + 2 * ck.ZY_MAX_STAGES
 
 
@@ -83,20 +97,26 @@ def test_plan_at_the_path_shapes(shape):
         assert plan.passes == 2
 
 
-@pytest.mark.parametrize("n", [1, 2, 8, 64, 256, 512, 1024])
+@pytest.mark.parametrize("n", [1, 2, 8, 64, 256, 512, 1024, 3, 5, 6, 7, 9, 12, 15, 45, 240, 375, 480,
+                               1000])
 def test_fft_positions_are_the_digit_reversal(n):
-    logs = ck._radix_logs(n)
-    pos = ck._fft_positions(n, logs).numpy()
+    radices = ck._radices(n)
+    pos = ck._fft_positions(n, radices).numpy()
     assert sorted(pos.tolist()) == list(range(n))
     v = np.random.default_rng(n).standard_normal(n) + 1j * np.random.default_rng(n + 1).standard_normal(n)
-    out = ck._dif_passes(_t(v), logs, ck._twiddles(n, torch.float64, "cpu")).numpy()
+    out = ck._dif_passes(_t(v), radices, ck._twiddles(n, torch.float64, "cpu")).numpy()
     np.testing.assert_allclose(out[pos], np.fft.fft(v), rtol=1e-12, atol=1e-12)
 
 
 # Edges: y or z extent 1 or 2, a rank of one row (ny = 16 over 16 ranks),
-# ranks with no slot (nz/2 < ranks), and the 1024^2 two-pass plan.
+# ranks with no slot (fewer slots than ranks), the 1024^2 two-pass plan;
+# mixed radix: odd ny, odd nz (rows paired, an odd rank's last row with
+# zeros), ny = 3 and 7, uneven row shares (45 rows over 16 ranks), every
+# radix, and the 1000^2 two-pass plan.
 TWIN_SHAPES = [(2, 1, 2), (3, 2, 2), (2, 1, 8), (2, 8, 2), (2, 2, 1024), (2, 16, 4), (3, 64, 32),
-               (2, 16, 64), (1, 1024, 1024)]
+               (2, 16, 64), (1, 1024, 1024), (2, 45, 35), (2, 3, 9), (2, 7, 7), (2, 1, 3), (2, 16, 3),
+               (3, 15, 6), (2, 12, 14), (2, 10, 20), (2, 27, 18), (2, 49, 343), (1, 375, 12),
+               (1, 1000, 1000)]
 
 
 @pytest.mark.parametrize("shape", TWIN_SHAPES)
@@ -111,7 +131,8 @@ def test_fft_twin_matches_numpy_and_the_dense_twin(shape):
 
 
 @pytest.mark.parametrize("ny,nz,cluster,passes", [(64, 64, 4, 2), (32, 128, 8, 4), (16, 32, 2, 8),
-                                                  (8, 16, 8, 2)])
+                                                  (8, 16, 8, 2), (45, 35, 4, 2), (30, 60, 8, 4),
+                                                  (20, 9, 2, 4), (36, 27, 16, 2), (375, 6, 16, 2)])
 def test_fft_twin_under_other_plans(ny, nz, cluster, passes):
     """Plans with several passes and other cluster sizes than the rule's:
     pass and rank boundaries in the slots, the tiles and the rows."""
@@ -132,6 +153,18 @@ def test_fft_twin_matches_fava_tpu(force_interpret):
     np.testing.assert_allclose(im.numpy(), np.asarray(im_ref), rtol=1e-9, atol=1e-9)
 
 
+@pytest.mark.parametrize("shape", [(2, 48, 30), (2, 45, 35)])
+def test_mixed_radix_twin_matches_fava_tpu(force_interpret, shape):
+    """Odd and non-power-of-two y and z against fava_tpu's dense Pallas
+    kernel in interpret mode (fava_tpu's own gate takes only multiples of
+    128; its kernel takes any shape)."""
+    v = np.random.default_rng(sum(shape)).standard_normal(shape)
+    re_ref, im_ref = pallas_dft.zy_rfft_planar(jnp.asarray(v))
+    re, im = ck._zy_rfft_fft_plain(_t(v), ck._zy_fft_plan(*shape[1:]))
+    np.testing.assert_allclose(re.numpy(), np.asarray(re_ref), rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(im.numpy(), np.asarray(im_ref), rtol=1e-9, atol=1e-9)
+
+
 def test_fft_twin_in_float32_is_close():
     """In float32 the twin carries log2 n roundings, as the kernel does."""
     v = np.random.default_rng(9).standard_normal((2, 256, 256))
@@ -141,17 +174,30 @@ def test_fft_twin_in_float32_is_close():
     _close([g.double() for g in got], ref.real, ref.imag, 1e-6)
 
 
+def test_mixed_radix_twin_in_float32_is_close():
+    """The slab of path (c) at 512 x 512 x 480, cut to two x planes and 240
+    rows: radices 15 x 16 along z, one rounding stage a pass."""
+    v = np.random.default_rng(19).standard_normal((2, 240, 480))
+    got = ck._zy_rfft_fft_plain(_t(v).float(), ck._zy_fft_plan(240, 480))
+    assert got[0].dtype == torch.float32
+    ref = np.fft.fft(np.fft.rfft(v, axis=2), axis=1)
+    _close([g.double() for g in got], ref.real, ref.imag, 1e-6)
+
+
 ROUTES = {
     (2, 2, 2): True, (3, 64, 32): True, (4, 512, 512): True, (2, 1024, 1024): True,
-    (1, 1024, 2): True, (1, 1, 2): True, (3, 40, 50): False, (2, 64, 33): False, (1, 1, 1): False,
-    (4, 512, 480): False, (2, 1, 7): False, (1, 2048, 2): False, (65536, 2, 2): False,
+    (1, 1024, 2): True, (1, 1, 2): True, (3, 40, 50): True, (2, 64, 33): False, (1, 1, 1): False,
+    (4, 512, 480): True, (2, 1, 7): True, (1, 2048, 2): False, (65536, 2, 2): False,
+    (2, 22, 502): False, (1, 509, 8): False,
 }
 
 
 @pytest.mark.parametrize("shape", sorted(ROUTES))
 def test_route_by_shape(shape):
-    """Power-of-two y (1..1024) and z (2..1024) take the FFT kernel; other
-    shapes within zy_rfft_fits the dense one; the rest neither."""
+    """y (1..1024) and z (2..1024) with no prime factor above 7 take the
+    FFT kernel; other shapes within zy_rfft_fits (a factor 11 in 33 and
+    22, 251 in 502, the prime 509, nz = 1) the dense one; the rest
+    neither."""
     assert ck._zy_uses_fft(shape) == ROUTES[shape]
     if not ROUTES[shape]:
         fits = 1 <= shape[0] <= 65535 and max(shape[1:]) <= 1024
