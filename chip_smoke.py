@@ -287,7 +287,17 @@ no result):
    ``SpaceRanks(d=d)``: launches exactly d, box counts equal, the
    structure family equal bit for bit, sums within the same bounds; (c)
    the one-channel B6 on a transposed (128, 512, 257) slab at kx0 = 128
-   against its plain twin and its bound. At most 60 s.
+   against its plain twin and its bound. (a) and (b) also run the slice
+   of A11e: ``pdf1d`` and ``pdf2d`` (counted and mass-weighted),
+   ``binned_statistic``, ``density_pdf``, the Q-R PDF (periodic and
+   interior; B8 once a rank), the enstrophy, helicity, decomposed (plain
+   and weighted; the one-channel B6 once a rank and binned density, 3
+   for the decomposed spectra, where the single device runs K3 + the
+   one-channel B4), anisotropic (x and y) and transfer (plain and
+   dealiased, through the inverse pencil transform) spectra: counts
+   equal on the mesh and for the MIN/MAX-edged PDFs on the virtual
+   ranks, the cells of the density and Q-R PDFs that differ printed.
+   At most 60 s.
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -4914,7 +4924,22 @@ def phase_pod(torch, np, workdir: Path, card: str):
 # transform decomposition (the pencil: rfft2, exchange, fft along x,
 # against rfftn; TOL_SPECTRA of scale); the structure functions and the
 # increment PDFs read the same float32 cells and are equal bit for bit;
-# the box counts are equal.
+# the box counts are equal. The PDFs of A11e: the MIN/MAX-edged ones
+# (pdf1d, pdf2d, binned_statistic) bin the same float32 samples against
+# the same edges (an exact join), so their counts are equal, their
+# weighted sums within TOL_WSUM a bin (float64 atomics in another order)
+# and the binned means and standard deviations within TOL_RANKLOCAL of
+# their largest; the density and Q-R PDFs' edges come from float64 means
+# (TOL_RANKLOCAL), so on virtual ranks a sample within an edge's last
+# place may change bin: their cells that differ are printed, the moved
+# samples held to TOL_SHIFT (density) and MAX_QR_MOVED of the cells
+# (Q-R), and on the (1,) mesh, which sums in the single device's order,
+# the counts are equal. The velocity spectra: TOL_SPECTRA of scale
+# (their own largest shell; the decomposed spectra the total's, which
+# bounds a compressive part of rounding alone; helicity its Cauchy-
+# Schwarz bound, signed_scales), transfer and flux TOL_TRANSFER of the
+# sum of their shells' bounds (signed_scales of the undealiased
+# products, which bound the dealiased ones' factors too).
 TOL_RANKLOCAL = 1e-9
 RANKLOCAL_K12 = {"row_moments": 1, "centered_row_moments": 1}
 RANKLOCAL_B6 = "shell_bin_values_rfft_chunk_1ch"
@@ -4926,8 +4951,13 @@ def ranklocal_runs(ops, inputs, mesh):
     ops entries, with ``mesh`` or on the single device (mesh None)."""
     profiles, volume, spectra, fractal, structure, velocity, gradients = ops
     data, geoms, cv, cvb, blocklist, mask, flam, dens, vels, bounds, lengths = inputs
-    scalar = {RANKLOCAL_B6: 1} if mesh is not None else {"fold_quadrants_pair": 1,
-                                                          "shell_bin_values_folded_1ch": 1}
+    def b6(n):
+        """n binned densities: the one-channel B6 on the mesh, K3 + the
+        one-channel B4 on the single device (the window's even x and y)."""
+        return {RANKLOCAL_B6: n} if mesh is not None else {"fold_quadrants_pair": n,
+                                                           "shell_bin_values_folded_1ch": n}
+
+    scalar = b6(1)
     return {
         "reynolds_stress x": (lambda: profiles.reynolds_stress(data, geoms[0], mesh=mesh)[1:],
                               RANKLOCAL_K12),
@@ -4949,6 +4979,35 @@ def ranklocal_runs(ops, inputs, mesh):
             *vels, lengths=lengths, mesh=mesh), {}),
         "gradient statistics interior": (lambda: gradients.velocity_gradient_statistics(
             *vels, lengths=lengths, boundary="interior", mesh=mesh), {}),
+        # The slice of A11e: the PDFs, the Q-R PDF (B8) and the velocity
+        # spectra (one B6 a binned density).
+        "pdf1d": (lambda: volume.pdf1d(vels[0], mesh=mesh), {}),
+        "pdf1d mass": (lambda: volume.pdf1d(dens, weights=dens, mesh=mesh), {}),
+        "pdf2d": (lambda: volume.pdf2d(dens, vels[0], mesh=mesh), {"pdf2d_counts": 1}),
+        "pdf2d mass": (lambda: volume.pdf2d(dens, vels[0], weights=dens, mesh=mesh),
+                       {"pdf2d_weighted": 1}),
+        "binned statistic": (lambda: volume.binned_statistic(dens, vels[0], mesh=mesh), {}),
+        "density pdf": (lambda: volume.density_pdf(dens, mesh=mesh), {}),
+        "gradient invariant pdfs": (lambda: gradients.gradient_invariant_pdfs(
+            *vels, lengths=lengths, mesh=mesh), {"pdf2d_counts": 1}),
+        "gradient invariant pdfs interior": (lambda: gradients.gradient_invariant_pdfs(
+            *vels, lengths=lengths, boundary="interior", mesh=mesh), {"pdf2d_counts": 1}),
+        "enstrophy spectra": (lambda: velocity.enstrophy_spectrum(*vels, lengths=lengths,
+                                                                  mesh=mesh), b6(1)),
+        "helicity spectra": (lambda: velocity.helicity_spectrum(*vels, lengths=lengths, mesh=mesh),
+                             b6(1)),
+        "decomposed spectra": (lambda: velocity.decomposed_ke_spectra(*vels, lengths=lengths,
+                                                                      mesh=mesh), b6(3)),
+        "decomposed spectra weighted": (lambda: velocity.decomposed_ke_spectra(
+            *vels, dens=dens, lengths=lengths, mesh=mesh), b6(3)),
+        "anisotropic spectra x": (lambda: velocity.anisotropic_ke_spectra(*vels, axis=0, mesh=mesh),
+                                  {}),
+        "anisotropic spectra y": (lambda: velocity.anisotropic_ke_spectra(*vels, axis=1, mesh=mesh),
+                                  {}),
+        "transfer spectra": (lambda: velocity.transfer_spectrum(*vels, lengths=lengths, mesh=mesh),
+                             b6(1)),
+        "transfer spectra dealiased": (lambda: velocity.transfer_spectrum(
+            *vels, lengths=lengths, dealias=True, mesh=mesh), b6(1)),
     }
 
 
@@ -4993,6 +5052,34 @@ def virtual_ranklocal_runs(ops, runtime, inputs, d):
         "gradient statistics interior": (lambda: gradients.assemble_gradient_stats(
             gradients.gradient_stats_ranked(vel_slabs, ranks, lengths, "interior").cpu().numpy(),
             3), {}),
+        "pdf1d": (lambda: volume.pdf1d_ranked(cut(vels[0]), ranks), {}),
+        "pdf1d mass": (lambda: volume.pdf1d_ranked(cut(dens), ranks, weights=cut(dens)), {}),
+        "pdf2d": (lambda: volume.pdf2d_ranked(cut(dens), cut(vels[0]), ranks), {"pdf2d_counts": d}),
+        "pdf2d mass": (lambda: volume.pdf2d_ranked(cut(dens), cut(vels[0]), ranks,
+                                                   weights=cut(dens)), {"pdf2d_weighted": d}),
+        "binned statistic": (lambda: volume.binned_statistic_ranked(cut(dens), cut(vels[0]), ranks),
+                             {}),
+        "density pdf": (lambda: volume.density_pdf_ranked(cut(dens), ranks), {}),
+        "gradient invariant pdfs": (lambda: gradients.gradient_invariant_pdfs_ranked(
+            vel_slabs, ranks, lengths), {"pdf2d_counts": d}),
+        "gradient invariant pdfs interior": (lambda: gradients.gradient_invariant_pdfs_ranked(
+            vel_slabs, ranks, lengths, boundary="interior"), {"pdf2d_counts": d}),
+        "enstrophy spectra": (lambda: velocity.velocity_spectrum_ranked(
+            vel_slabs, ranks, lengths, "enstrophy"), {RANKLOCAL_B6: d}),
+        "helicity spectra": (lambda: velocity.velocity_spectrum_ranked(
+            vel_slabs, ranks, lengths, "helicity"), {RANKLOCAL_B6: d}),
+        "decomposed spectra": (lambda: velocity.decomposed_ke_spectra_ranked(
+            vel_slabs, ranks, None, lengths), {RANKLOCAL_B6: 3 * d}),
+        "decomposed spectra weighted": (lambda: velocity.decomposed_ke_spectra_ranked(
+            vel_slabs, ranks, cut(dens), lengths), {RANKLOCAL_B6: 3 * d}),
+        "anisotropic spectra x": (lambda: velocity.anisotropic_ke_spectra_ranked(
+            vel_slabs, ranks, 0), {}),
+        "anisotropic spectra y": (lambda: velocity.anisotropic_ke_spectra_ranked(
+            vel_slabs, ranks, 1), {}),
+        "transfer spectra": (lambda: velocity.transfer_spectrum_ranked(
+            vel_slabs, ranks, lengths, False), {RANKLOCAL_B6: d}),
+        "transfer spectra dealiased": (lambda: velocity.transfer_spectrum_ranked(
+            vel_slabs, ranks, lengths, True), {RANKLOCAL_B6: d}),
     }
 
 
@@ -5003,13 +5090,96 @@ def same_nested(np, a, b):
     return np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True)
 
 
-def hold_ranklocal(np, got, ref, vmax, dmax, what):
+def spectra_error(np, name, g, r, scales):
+    """max |diff| / (scale * bound) of one velocity spectrum of the slice
+    against the single device's (the phase's comment): NaN in the same
+    shells, the wavenumbers equal."""
+    worst = 0.0
+    for key, rv in r.items():
+        gv = np.asarray(g[key])
+        if key.startswith("k"):
+            if not np.array_equal(gv, rv):
+                fail(f"phase 27 {name}/{key}: other wavenumbers than the single device's")
+            continue
+        if not np.array_equal(np.isnan(gv), np.isnan(rv)):
+            fail(f"phase 27 {name}/{key}: NaN in other shells than the single device's")
+        ok = ~np.isnan(rv)
+        if name.startswith("transfer"):
+            scale, tol = scales["transfer"], TOL_TRANSFER
+        elif name.startswith("helicity"):
+            scale, tol = scales["helicity"], TOL_SPECTRA
+        elif name.startswith("decomposed"):
+            scale, tol = np.nanmax(np.abs(r["total"])), TOL_SPECTRA
+        elif name.startswith("anisotropic"):
+            scale, tol = np.abs(r[key.split("_")[0] + "_total"]).max(), TOL_SPECTRA
+        else:
+            scale, tol = np.abs(rv[ok]).max(), TOL_SPECTRA
+        worst = max(worst, float(np.abs(gv[ok] - rv[ok]).max() / scale / tol))
+    return worst
+
+
+def edged_pdf_error(np, name, g, r, ncells, same_edges, differ):
+    """The density PDF and the Q-R PDF against the single device's: the
+    moments, Q_w and the edges (normalised, or of the float64 mean and
+    sigma) within TOL_RANKLOCAL; the counts equal on the mesh
+    (``same_edges``), else the cells that differ recorded in ``differ``
+    and the samples moved held to TOL_SHIFT (density) or MAX_QR_MOVED of
+    the cells (Q-R): an edge from another float64 sum order moves only
+    the samples within its last place."""
+    errs = []
+    if name == "density pdf":
+        sigma = r["sigma_s"]
+        for key in ("rho_mean", "mean_s", "sigma_s", "skewness", "excess_kurtosis"):
+            errs.append(abs(g[key] - r[key]) / max(abs(r[key]), sigma, 1e-300))
+        errs.append(abs(g["lognormal_residual"] - r["lognormal_residual"]) / sigma**2)
+        span = r["edges"][-1] - r["edges"][0]
+        errs.append(float(np.abs(g["edges"] - r["edges"]).max() / span))
+    else:
+        errs.append(abs(g["q_w"] - r["q_w"]) / r["q_w"])
+        if not (np.array_equal(g["q_edges"], r["q_edges"])
+                and np.array_equal(g["r_edges"], r["r_edges"])):
+            fail(f"phase 27 {name}: other normalised edges than the single device's")
+    cells = int((np.asarray(g["counts"]) != np.asarray(r["counts"])).sum())
+    moved = float(np.abs(np.asarray(g["counts"]) - np.asarray(r["counts"])).sum()) / 2
+    differ[name] = cells
+    if same_edges and cells:
+        fail(f"phase 27 {name}: {cells} cells differ from the single device's on the mesh")
+    worst = max(errs) / TOL_RANKLOCAL
+    if name == "density pdf":
+        return max(worst, moved / TOL_SHIFT)
+    return max(worst, moved / ncells / MAX_QR_MOVED)
+
+
+def hold_ranklocal(np, got, ref, vmax, dmax, what, scales, ncells, same_edges):
     """Hold each analysis of the slice to the single device's result
-    (TOL_RANKLOCAL, TOL_SPECTRA, equality: the phase's comment)."""
-    worst = {}
+    (TOL_RANKLOCAL, TOL_SPECTRA, TOL_TRANSFER, TOL_WSUM, equality: the
+    phase's comment). ``scales`` are the signed spectra's
+    (``signed_scales``); ``same_edges`` says that the density and Q-R
+    PDFs' edges come from the same sums (the mesh), so their counts must
+    be equal."""
+    worst, differ = {}, {}
     for name, r in ref.items():
         g = got[name]
-        if name.startswith(("reynolds", "favre", "slice")):
+        if name in ("pdf1d", "pdf2d", "binned statistic", "pdf1d mass", "pdf2d mass"):
+            edges = [k for k in r if k.endswith("edges")]
+            if not all(np.array_equal(g[k], r[k]) for k in edges):
+                fail(f"{what} {name}: other edges than the single device's (an exact MIN/MAX join)")
+            if name.endswith("mass"):
+                err = np.abs(g["counts"] - r["counts"]) / (TOL_WSUM * np.abs(r["counts"])).clip(1e-300)
+                worst[name] = float(err.max())
+            elif not np.array_equal(g["counts"], r["counts"]):
+                fail(f"{what} {name}: counts differ from the single device's in "
+                     f"{int((g['counts'] != r['counts']).sum())} bins")
+            elif name == "binned statistic":
+                worst[name] = max(float(np.nanmax(np.abs(g[k] - r[k])) / np.nanmax(np.abs(r[k])))
+                                  for k in ("mean", "std")) / TOL_RANKLOCAL
+            else:
+                worst[name] = 0.0 if np.array_equal(g["pdf"], r["pdf"]) else float("inf")
+        elif name == "density pdf" or name.startswith("gradient invariant pdfs"):
+            worst[name] = edged_pdf_error(np, name, g, r, ncells, same_edges, differ)
+        elif "spectra" in name:
+            worst[name] = spectra_error(np, name, g, r, scales)
+        elif name.startswith(("reynolds", "favre", "slice")):
             worst[name] = compare_profiles(np, g, r, vmax, dmax, f"{what} {name}", 27) / TOL_PROFILES
         elif name in ("volume_integration", "mass_sum"):
             pairs = [(g, r)] if name == "volume_integration" else [(g[k], r[k]) for k in r]
@@ -5034,7 +5204,8 @@ def hold_ranklocal(np, got, ref, vmax, dmax, what):
             worst[name] = 0.0 if same_nested(np, g, r) else float("inf")
     top = max(worst, key=worst.get)
     say(f"phase 27 {what} vs the single device: worst error/bound {worst[top]!r} ({top}); "
-        f"{json.dumps(worst)}")
+        f"{json.dumps(worst)}; cells that differ from the single device's counts: "
+        f"{json.dumps(differ)}")
     bad = {k: v for k, v in worst.items() if not v <= 1.0}
     if bad:
         fail(f"{what} disagrees with the single device (error/bound): {bad}")
@@ -5081,7 +5252,9 @@ def phase_ranklocal(torch, np, workdir: Path, card: str):
     the structure functions and increment PDFs equal bit for bit, sums
     within the stated bounds of the single device. (c) The one-channel B6
     on a transposed (128, 512, 257) slab at kx0 = 128 against its plain
-    twin and its bound."""
+    twin and its bound. (a) and (b) include the slice of A11e (the PDFs,
+    the Q-R PDF, the velocity spectra: B8 and the one-channel B6 once a
+    rank, or 3 times for the decomposed spectra)."""
     import torch.distributed as dist
 
     import fava_tpu_torch
@@ -5114,13 +5287,18 @@ def phase_ranklocal(torch, np, workdir: Path, card: str):
                       flam, dens, vels, mesh.domain_bounds, mesh._domain_lengths())
             vmax = max(float(v.abs().max()) for v in vels)
             dmax = float(dens.abs().max())
+            sc = signed_scales(torch, ck, velocity, vels, mesh._domain_lengths())
+            scales = {"helicity": sc["helicity spectra"], "transfer": sc["transfer spectra"]}
+            times["signed_scales"] = scales
+            ncells = dens.numel()
             single, times["single_walls_s"], counts = run_exact_counts(
                 torch, ck, 27, ranklocal_runs(ops, inputs, None), "single device")
             add_counts(totals, counts)
             meshed, times["mesh_walls_s"], counts = run_exact_counts(
                 torch, ck, 27, ranklocal_runs(ops, inputs, m1), "(1,) mesh")
             add_counts(totals, counts)
-            times["mesh_errors"] = hold_ranklocal(np, meshed, single, vmax, dmax, "(1,) mesh")
+            times["mesh_errors"] = hold_ranklocal(np, meshed, single, vmax, dmax, "(1,) mesh",
+                                                  scales, ncells, True)
             times["mesh_over_single"] = {k: times["mesh_walls_s"][k] / times["single_walls_s"][k]
                                          for k in single}
             del meshed
@@ -5132,7 +5310,8 @@ def phase_ranklocal(torch, np, workdir: Path, card: str):
                 add_counts(totals, counts)
                 ref = {k: v for k, v in single.items() if k in got}
                 times[f"{d}_ranks_errors"] = hold_ranklocal(np, got, ref, vmax, dmax,
-                                                            f"{d} virtual ranks")
+                                                            f"{d} virtual ranks", scales, ncells,
+                                                            False)
                 ranks = parallel.runtime.SpaceRanks(d=d)
                 n = N // d
                 slabs = [flam.narrow(0, r * n, n) for r in range(d)]

@@ -14,15 +14,18 @@ and ``from_arrays`` keep only this rank's x-slab of each field (``load``
 reads the slab straight from the file). These analyses then run on the
 slab and join by halos, packed all_reduces, all_gathers of row
 statistics or coarse masks and the pencil transform, never of a whole
-field (ROADMAP A11a, A11d): ``kinetic_energy_spectra``,
+field (ROADMAP A11a, A11d, A11e): ``kinetic_energy_spectra``,
 ``flagship_analysis``, ``scalar_spectra``, ``fractal_dimension``,
 ``structure_functions`` and ``structure_function_exponents``,
 ``velocity_increment_pdfs``, ``turbulence_summary``,
-``velocity_gradient_statistics``, ``mass_fraction`` and FLASH's
-profiles and volume sums (mesh/flash_amr.py, which a sharded
-``from_amr`` shares). Every other analysis, like ``data()``, gets the
-whole volume by one all_gather on the space group: fava_tpu's numbers,
-as its partitioner gathers (ROADMAP A11e). ``save`` gathers the slabs
+``velocity_gradient_statistics``, ``gradient_invariant_pdfs``, the
+enstrophy, helicity, decomposed, anisotropic and transfer spectra,
+``pdf1d``, ``pdf2d``, ``binned_statistic``, ``density_pdf``,
+``mass_fraction`` and FLASH's profiles and volume sums
+(mesh/flash_amr.py, which a sharded ``from_amr`` shares). Every other
+analysis, like ``data()``, gets the whole volume by one all_gather on
+the space group: fava_tpu's numbers, as its partitioner gathers
+(ROADMAP A11f). ``save`` gathers the slabs
 and writes from rank 0; ``from_amr`` gathers before it collapses. The
 streamed paths read the file whole on every rank.
 ``reynolds_stress``, ``favre_profiles``, the slice profiles, ``mass_sum``
@@ -460,7 +463,8 @@ class FlashUniform(FLASH):
     @timer
     def enstrophy_spectra(self) -> Dict[str, np.ndarray]:
         """Shell-binned enstrophy spectrum (KE-spectra conventions)."""
-        return vel_ops.enstrophy_spectrum(*self._velocities(), lengths=self._domain_lengths())
+        return vel_ops.enstrophy_spectrum(*self._local_velocities(), lengths=self._domain_lengths(),
+                                          mesh=self._dmesh)
 
     @timer
     def helicity_spectra(self) -> Dict[str, np.ndarray]:
@@ -468,7 +472,8 @@ class FlashUniform(FLASH):
         vanishes identically in in-plane 2D flows)."""
         if self.ndim != 3:
             raise ValueError("helicity vanishes identically in 2D flows (3D datasets only)")
-        return vel_ops.helicity_spectrum(*self._velocities(), lengths=self._domain_lengths())
+        return vel_ops.helicity_spectrum(*self._local_velocities(), lengths=self._domain_lengths(),
+                                         mesh=self._dmesh)
 
     @timer
     def velocity_gradient_statistics(
@@ -522,8 +527,8 @@ class FlashUniform(FLASH):
         joint-histogram kernel (ops/gradients.gradient_invariant_pdfs).
         3D datasets only."""
         return grad_ops.gradient_invariant_pdfs(
-            *self._velocities(), lengths=self._domain_lengths(), nbins=nbins,
-            qr_range=qr_range, boundary=boundary,
+            *self._local_velocities(), lengths=self._domain_lengths(), nbins=nbins,
+            qr_range=qr_range, boundary=boundary, mesh=self._dmesh,
         )
 
     @timer
@@ -533,9 +538,10 @@ class FlashUniform(FLASH):
         shell). ``weighted=True`` transforms sqrt(rho) u
         (ops/velocity.decomposed_ke_spectra)."""
         return vel_ops.decomposed_ke_spectra(
-            *self._velocities(),
-            dens=self._scalar_volume("dens") if weighted else None,
+            *self._local_velocities(),
+            dens=self._local_volume("dens") if weighted else None,
             lengths=self._domain_lengths(),
+            mesh=self._dmesh,
         )
 
     @timer
@@ -598,7 +604,7 @@ class FlashUniform(FLASH):
         split into axial and transverse components, energy-exact
         (ops/velocity.anisotropic_ke_spectra)."""
         return vel_ops.anisotropic_ke_spectra(
-            *self._velocities(), axis=axis, lengths=self._domain_lengths()
+            *self._local_velocities(), axis=axis, lengths=self._domain_lengths(), mesh=self._dmesh
         )
 
     @timer
@@ -606,7 +612,8 @@ class FlashUniform(FLASH):
         """Nonlinear kinetic-energy transfer T(k) and flux Π(k), shell
         sums (ops/velocity.transfer_spectrum)."""
         return vel_ops.transfer_spectrum(
-            *self._velocities(), lengths=self._domain_lengths(), dealias=dealias
+            *self._local_velocities(), lengths=self._domain_lengths(), dealias=dealias,
+            mesh=self._dmesh,
         )
 
     @timer
@@ -740,27 +747,30 @@ class FlashUniform(FLASH):
 
     def _uniform_pdf_weights(self, weight: Optional[str]):
         """Uniform cells share one volume, so "volume" weighting is the
-        unweighted path (None); "mass" weights by dens."""
+        unweighted path (None); "mass" weights by dens (this rank's slab
+        of it under a sharding mesh)."""
         if weight in (None, "volume"):
             return None
         if weight == "mass":
-            return self._scalar_volume("dens")
+            return self._local_volume("dens")
         raise ValueError(f"Unknown pdf weight {weight}")
 
     @timer
     def pdf1d(self, field: str, weight: Optional[str] = "volume", **kwargs):
         """Weighted 1D PDF of a field."""
         return volume_ops.pdf1d(
-            self._scalar_volume(field), weights=self._uniform_pdf_weights(weight), **kwargs
+            self._local_volume(field), weights=self._uniform_pdf_weights(weight),
+            mesh=self._dmesh, **kwargs
         )
 
     @timer
     def pdf2d(self, field1: str, field2: str, weight: Optional[str] = "volume", **kwargs):
         """Weighted joint PDF of two fields (the joint-histogram kernel)."""
         return volume_ops.pdf2d(
-            self._scalar_volume(field1),
-            self._scalar_volume(field2),
+            self._local_volume(field1),
+            self._local_volume(field2),
             weights=self._uniform_pdf_weights(weight),
+            mesh=self._dmesh,
             **kwargs,
         )
 
@@ -772,9 +782,10 @@ class FlashUniform(FLASH):
         weight="volume" is the exact unweighted path, "mass" weights by
         dens."""
         return volume_ops.binned_statistic(
-            self._scalar_volume(xfield),
-            self._scalar_volume(yfield),
+            self._local_volume(xfield),
+            self._local_volume(yfield),
             weights=self._uniform_pdf_weights(weight),
+            mesh=self._dmesh,
             **kwargs,
         )
 
@@ -782,7 +793,8 @@ class FlashUniform(FLASH):
     def density_pdf(self, weight: Optional[str] = "volume", **kwargs) -> Dict[str, Any]:
         """Lognormality diagnostics of s = ln(rho/<rho>) (ops/volume.density_pdf)."""
         return volume_ops.density_pdf(
-            self._scalar_volume("dens"), weights=self._uniform_pdf_weights(weight), **kwargs
+            self._local_volume("dens"), weights=self._uniform_pdf_weights(weight),
+            mesh=self._dmesh, **kwargs
         )
 
     @timer

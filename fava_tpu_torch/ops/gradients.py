@@ -18,7 +18,9 @@ The gradient statistics of a volume slab-sharded over a device mesh
 x-slab with one halo plane from each neighbour (``parallel.runtime.halo_x``),
 one packed all_reduce joins the sums of pass 1 and one those of pass 2;
 ``boundary="interior"`` drops the global first and last x planes, on
-ranks 0 and d-1 only. The Q-R PDF takes the whole volume (A11e).
+ranks 0 and d-1 only. So does the Q-R PDF (A11e): the same halo plane,
+Q and R on the slab, one packed all_reduce for Q_w, B8 on the slab and
+one all_reduce of the counts.
 """
 
 from __future__ import annotations
@@ -234,12 +236,13 @@ def velocity_gradient_statistics(velx, vely, velz=None, lengths=None, boundary: 
     return assemble_gradient_stats(vec.cpu().numpy(), len(vels))
 
 
-def invariant_fields(vels, spacings, boundary: str):
-    """Per-cell invariants of A_ij = du_i/dx_j (lambda^3 + P lambda^2 +
-    Q lambda + R = 0): Q = (P^2 - tr(A^2))/2 and R = -det(A), P = -tr(A),
-    in the field dtype, and Q_w = <omega^2>/4 as a float64 0-d tensor."""
-    interior = boundary == "interior"
-    g = [[_gradient(vels[i], j, spacings[j], interior) for j in range(3)] for i in range(3)]
+def _invariants(vels, spacings, interior: bool, halos=None, x_cut=None):
+    """Q, R (the field dtype) and the float64 sum of omega^2 of a volume,
+    or with ``halos`` (one (below, above) pair a component) and ``x_cut``
+    of an x-slab (``_gradient``), over the cells the boundary keeps."""
+    halos = halos or [None] * 3
+    g = [[_gradient(vels[i], j, spacings[j], interior, halos[i], x_cut) for j in range(3)]
+         for i in range(3)]
     P = -(g[0][0] + g[1][1] + g[2][2])
     trA2 = sum(g[i][j] * g[j][i] for i in range(3) for j in range(3))
     Q = 0.5 * (P * P - trA2)
@@ -248,12 +251,19 @@ def invariant_fields(vels, spacings, boundary: str):
           - g[0][1] * (g[1][0] * g[2][2] - g[1][2] * g[2][0])
           + g[0][2] * (g[1][0] * g[2][1] - g[1][1] * g[2][0]))
     w2 = (g[2][1] - g[1][2]).square() + (g[0][2] - g[2][0]).square() + (g[1][0] - g[0][1]).square()
-    qw = w2.to(accum_dtype()).mean() / 4.0
-    return Q, R, qw
+    return Q, R, w2.to(accum_dtype()).sum()
+
+
+def invariant_fields(vels, spacings, boundary: str):
+    """Per-cell invariants of A_ij = du_i/dx_j (lambda^3 + P lambda^2 +
+    Q lambda + R = 0): Q = (P^2 - tr(A^2))/2 and R = -det(A), P = -tr(A),
+    in the field dtype, and Q_w = <omega^2>/4 as a float64 0-d tensor."""
+    Q, R, w2 = _invariants(vels, spacings, boundary == "interior")
+    return Q, R, w2 / Q.numel() / 4.0
 
 
 def gradient_invariant_pdfs(velx, vely, velz, lengths=None, nbins=(100, 100), qr_range: float = 8.0,
-                            boundary: str = "periodic") -> Dict[str, np.ndarray | float]:
+                            boundary: str = "periodic", mesh=None) -> Dict[str, np.ndarray | float]:
     """Joint PDF of the velocity-gradient invariants (Q, R), the
     Chong-Perry-Cantwell map. 3D only. The full compressible definitions
     (:func:`invariant_fields`), binned over Q/Q_w and R/Q_w^{3/2} in
@@ -261,30 +271,65 @@ def gradient_invariant_pdfs(velx, vely, velz, lengths=None, nbins=(100, 100), qr
     same differences; exact np.histogram2d counts (cells beyond the range
     dropped). Returns ``q_edges``/``r_edges`` (normalised units),
     ``counts``, ``pdf`` (integrates to ``inside_fraction``), ``q_w`` and
-    ``inside_fraction``."""
+    ``inside_fraction``. With ``mesh`` the velocities are the rank's
+    x-slabs of a volume slab-sharded over the mesh's space axis
+    (:func:`gradient_invariant_pdfs_ranked`); every rank gets the whole
+    volume's PDF."""
     vels = (velx, vely, velz)
     shape, key = _check_vels(vels, lengths, "gradient_invariant_pdfs")
     if len(shape) != 3:
         raise ValueError("gradient invariants need a 3D velocity field (3x3 tensor)")
-    _check_boundary(shape, boundary)
+    ranks = runtime.SpaceRanks(mesh)
+    _check_boundary((shape[0] * ranks.d,) + shape[1:], boundary)
+    return gradient_invariant_pdfs_ranked([list(vels)], ranks, key, nbins, qr_range, boundary)
+
+
+def gradient_invariant_pdfs_ranked(vel_slabs, ranks: runtime.SpaceRanks, lengths=None,
+                                   nbins=(100, 100), qr_range: float = 8.0,
+                                   boundary: str = "periodic") -> Dict[str, np.ndarray | float]:
+    """The Q-R PDF of the volume whose x-slabs ``ranks`` plays (a list of
+    the three velocity components each; the whole volumes on a single
+    device): one halo plane on each side of each slab, Q and R on the
+    slab (``boundary="interior"`` drops the global first and last x
+    planes only, as :func:`gradient_stats_ranked`), the sums of omega^2
+    by one packed SUM (Q_w), then B8 on each slab against the edges Q_w
+    scales and one SUM of the counts.
+
+    Q_w is a float64 mean whose sum follows the slabs, so its last place,
+    and with it the edges' (the edges scale with Q_w), may differ from
+    another decomposition's: a sample within that rounding of an edge
+    may fall in the neighbouring bin of another decomposition's PDF.
+    Every other sample is counted in the same bin."""
     if isinstance(nbins, int):
         nbins = (nbins, nbins)
     nbx, nby = int(nbins[0]), int(nbins[1])
     if min(nbx, nby) < 2:
         raise ValueError(f"gradient_invariant_pdfs needs nbins >= 2 per axis, got {nbins}")
+    rows = int(vel_slabs[0][0].shape[0])
+    shape = (rows * ranks.d,) + tuple(int(s) for s in vel_slabs[0][0].shape[1:])
+    interior = boundary == "interior"
+    spacings = _spacings(shape, lengths)
+    halos = [ranks.halos([v[i] for v in vel_slabs]) for i in range(3)]
+    cuts = [(1 if interior and r == 0 else 0, rows - 1 if interior and r == ranks.d - 1 else rows)
+            for r in ranks.ranks]
+    qr, parts = [], []
+    for k, vels in enumerate(vel_slabs):
+        Q, R, w2 = _invariants(vels, spacings, interior, [h[k] for h in halos], cuts[k])
+        qr.append((Q.contiguous().reshape(-1), R.contiguous().reshape(-1)))
+        parts.append(w2[None])
+        del Q, R
+    ntot = float(np.prod([s - 2 for s in shape] if interior else shape))
+    qw = float(ranks.reduce(parts)[0]) / ntot / 4.0
     r = float(qr_range)
-    Q, R, qw_t = invariant_fields(vels, _spacings(shape, key), boundary)
-    qw = float(qw_t)
     qs = max(qw, QW_FLOOR)
     rs = qs * np.sqrt(qs)
     xe = np.linspace(-r * qs, r * qs, nbx + 1)
     ye = np.linspace(-r * rs, r * rs, nby + 1)
-    counts = cuda_kernels.pdf2d_counts(Q.contiguous().reshape(-1), R.contiguous().reshape(-1), xe, ye)
+    counts = ranks.reduce([cuda_kernels.pdf2d_counts(q, rr, xe, ye) for q, rr in qr])
     counts = counts.cpu().numpy().astype(np.float64)
     # The edges are reported in normalised units.
     q_edges = np.linspace(-r, r, nbx + 1)
     r_edges = np.linspace(-r, r, nby + 1)
-    ntot = float(np.prod([s - 2 for s in shape] if boundary == "interior" else shape))
     areas = np.diff(q_edges)[:, None] * np.diff(r_edges)[None, :]
     return {
         "q_edges": q_edges,

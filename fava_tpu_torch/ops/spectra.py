@@ -15,7 +15,8 @@ bins with B6's wrapper, whose plain twin serves CPU tensors: fava_tpu's
 scatter-add branch and ``use_kernel_shell_binning`` exist for XLA's
 trace cache and its TPU/interpret choice. ``scalar_spectrum(...,
 mesh=)`` runs the same pencil transform on one field and bins the power
-of the rank's y-slab with the one-channel B6.
+of the rank's y-slab with the one-channel B6 (``density_slab_shell_sums``,
+which the sharded velocity spectra share).
 
 Shell binning replicates ``scipy.stats.binned_statistic(..., "mean")``
 with edges ``arange(max(n)//2) - 0.5``: right-inclusive last edge, NaN
@@ -161,34 +162,39 @@ def slab_shell_sums(ffts: Sequence[torch.Tensor], full_shape, lo: int, nbins: in
     )
 
 
-def scalar_slab_shell_sums(fhat: torch.Tensor, full_shape, lo: int, nbins: int) -> torch.Tensor:
-    """(1, nbins) float64 Hermitian-weighted shell sums of the power of
-    one y-slab of a normalized half-spectrum: ``fhat`` is (nx, ny_l,
-    nz//2+1), the columns ``lo .. lo+ny_l-1`` of the whole transform.
-    The rank-local body of the sharded scalar spectrum: the power,
-    transposed so that its slab axis is global y, binned by B6 with one
-    channel at offset ``lo``. The slabs' sums add up to the whole
-    volume's."""
+def density_slab_shell_sums(p: torch.Tensor, full_shape, lo: int, nbins: int) -> torch.Tensor:
+    """(1, nbins) float64 Hermitian-weighted shell sums of a real density
+    ``p`` on one y-slab of a half-spectrum: ``p`` is (nx, ny_l,
+    nz//2+1), the columns ``lo .. lo+ny_l-1`` of the whole (nx, ny,
+    nz//2+1) grid. The rank-local body of every sharded one-density
+    spectrum: the density transposed so that its slab axis is global y,
+    binned by B6 with one channel at offset ``lo`` (any ``nbins``). The
+    slabs' sums add up to the whole volume's."""
     _nx, ny, nz = (int(s) for s in full_shape)
-    p = _abs2(fhat).transpose(0, 1).contiguous()
-    return cuda_kernels.shell_bin_values_rfft_chunk(p, None, nbins, full_nx=ny, full_nz=nz, kx0=lo)
+    return cuda_kernels.shell_bin_values_rfft_chunk(p.transpose(0, 1).contiguous(), None, nbins,
+                                                    full_nx=ny, full_nz=nz, kx0=lo)
+
+
+def shell_means_from_sums(sums: torch.Tensor, full_shape, nbins: int) -> np.ndarray:
+    """The shell means of joined (C, nbins) or (nbins,) Hermitian shell
+    sums of a whole volume's half-spectrum: the static counts
+    (``static_shell_counts``, any ``nbins``), NaN for empty shells."""
+    return _shell_means(static_shell_counts(full_shape, nbins, sums.device), sums)
 
 
 def scalar_spectrum_from_slabs(fhats: Sequence[torch.Tensor], full_shape,
                                ranks: runtime.SpaceRanks) -> Dict[str, np.ndarray]:
     """The scalar spectrum of a 3D volume from the y-slabs of its
     normalized half-spectrum that ``ranks`` plays (``fhats``, in that
-    order): each slab's ``scalar_slab_shell_sums``, one join of the sums,
-    the static counts and the shell means."""
+    order): the power of each slab through ``density_slab_shell_sums``,
+    one join of the sums, the static counts and the shell means."""
     full_shape = tuple(int(s) for s in full_shape)
     nbins = max(full_shape) // 2 - 1
     cols = full_shape[1] // ranks.d
-    parts = [scalar_slab_shell_sums(f, full_shape, r * cols, nbins)
+    parts = [density_slab_shell_sums(_abs2(f), full_shape, r * cols, nbins)
              for f, r in zip(fhats, ranks.ranks)]
-    sums = ranks.reduce(parts)[0]
-    counts = static_shell_counts(full_shape, nbins, sums.device)
     k, factor = _shell_integral_factor(nbins, 3)
-    return {"k": k, "power": _shell_means(counts, sums) * factor}
+    return {"k": k, "power": shell_means_from_sums(ranks.reduce(parts)[0], full_shape, nbins) * factor}
 
 
 def local_spectra_fn(full_shape, nbins: int, mesh, axis_name: str = runtime.SPACE_AXIS):

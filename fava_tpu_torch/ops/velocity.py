@@ -14,8 +14,15 @@ walk sums it in float64. 2D data bins by a plain Hermitian-weighted
 float64 on every device. The summary of a volume slab-sharded over a
 device mesh (``mesh=``, ROADMAP A11d) is rank-local: packed float64 sums
 of each rank's x-slab joined by all_reduces, and the spectral sums of
-its y-slab of the pencil transform (``turbulence_summary_ranked``); the
-other analyses here take the whole volume (A11e).
+its y-slab of the pencil transform (``turbulence_summary_ranked``). So
+are the enstrophy, helicity, transfer, decomposed and anisotropic
+spectra (A11e, ``*_ranked``): the pencil transforms of the rank's
+x-slabs, each binned density on its y-slab through the one-channel B6
+(``spectra.density_slab_shell_sums``; the line and ring sums by
+``index_add_``), one all_reduce of the sums; the dealiased transfer
+brings its filtered velocities back through the inverse pencil
+transform. The Helmholtz parts, vorticity and dilatation take the
+whole volume (A11f).
 
 Conventions (fava_tpu's, unchanged):
 
@@ -38,6 +45,7 @@ import numpy as np
 import torch
 
 from fava_tpu_torch.ops import cuda_kernels
+from fava_tpu_torch.ops.spectra import density_slab_shell_sums, shell_means_from_sums
 from fava_tpu_torch.parallel import runtime
 from fava_tpu_torch.utils import accum_dtype
 
@@ -66,10 +74,12 @@ def _axis_view(values: np.ndarray, axis: int, nd: int, dtype, device) -> torch.T
     return torch.as_tensor(values, dtype=dtype, device=device).reshape(kshape)
 
 
-def _k_grids(shape: Tuple[int, ...], dtype, device, lengths, zero_nyquist: bool):
+def _k_grids(shape: Tuple[int, ...], dtype, device, lengths, zero_nyquist: bool, cols=None):
     """Broadcastable wavenumber grids on the trailing-axis rfft
     half-spectrum of a 2D or 3D volume (computed in float64 on the host,
-    then cast). ``zero_nyquist`` zeroes the Nyquist entry of even axes."""
+    then cast). ``zero_nyquist`` zeroes the Nyquist entry of even axes.
+    ``cols`` = (lo, n) cuts the y grid of a 3D volume to the columns
+    lo .. lo+n-1: a rank's y-slab of the pencil transform."""
     nd = len(shape)
     grids = []
     for axis, (n, f) in enumerate(zip(shape, _phys_factors(lengths, nd))):
@@ -77,6 +87,8 @@ def _k_grids(shape: Tuple[int, ...], dtype, device, lengths, zero_nyquist: bool)
         kv = kv * f
         if zero_nyquist and n % 2 == 0:
             kv[n // 2] = 0.0
+        if cols is not None and axis == 1:
+            kv = kv[cols[0] : cols[0] + cols[1]]
         grids.append(_axis_view(kv, axis, nd, dtype, device))
     return grids
 
@@ -95,9 +107,10 @@ def _abs2(z: torch.Tensor) -> torch.Tensor:
     return z.real.square() + z.imag.square()
 
 
-def _vorticity_hats(vhats, shape, lengths):
-    """i k x v̂ on the half-spectrum grid (Nyquist-zeroed k)."""
-    kx, ky, kz = _k_grids(shape, vhats[0].real.dtype, vhats[0].device, lengths, True)
+def _vorticity_hats(vhats, shape, lengths, cols=None):
+    """i k x v̂ on the half-spectrum grid (Nyquist-zeroed k), or on its
+    y-slab ``cols`` (``_k_grids``)."""
+    kx, ky, kz = _k_grids(shape, vhats[0].real.dtype, vhats[0].device, lengths, True, cols)
     wx, wy, wz = vhats
     return (1j * (ky * wz - kz * wy), 1j * (kz * wx - kx * wz), 1j * (kx * wy - ky * wx))
 
@@ -226,40 +239,93 @@ def _integral_factor(nbins: int, nd: int):
     return k, k ** (nd - 1) * (2.0 * np.pi * (nd - 1))
 
 
-def spectrum_density(vels, shape, lengths, which: str) -> torch.Tensor:
-    """The density the enstrophy ("enstrophy": 0.5 |ω̂|², 2D: the scalar
-    out-of-plane ω) or helicity ("helicity": Re(v̂* . ω̂), signed) spectrum
-    bins, on the rfft half-spectrum, 1/N forward transforms."""
-    ntot = int(np.prod(shape))
-    vhats = [_rfft(v) / ntot for v in vels]
+def _hats_density(vhats, shape, lengths, which: str, cols=None) -> torch.Tensor:
+    """The enstrophy or helicity density of the normalized half-spectra
+    ``vhats`` (their y-slab ``cols`` in 3D, ``_k_grids``)."""
     if len(shape) == 2:  # enstrophy only (helicity vanishes in 2D)
-        kx, ky = _k_grids(shape, vhats[0].real.dtype, vels[0].device, lengths, True)
+        kx, ky = _k_grids(shape, vhats[0].real.dtype, vhats[0].device, lengths, True)
         return 0.5 * _abs2(1j * (kx * vhats[1] - ky * vhats[0]))
-    whats = _vorticity_hats(vhats, shape, lengths)
+    whats = _vorticity_hats(vhats, shape, lengths, cols)
     if which == "enstrophy":
         return 0.5 * sum(_abs2(w) for w in whats)
     return sum(v.real * w.real + v.imag * w.imag for v, w in zip(vhats, whats))
 
 
-def _velocity_spectrum(vels, lengths, which: str) -> Dict[str, np.ndarray]:
+def spectrum_density(vels, shape, lengths, which: str) -> torch.Tensor:
+    """The density the enstrophy ("enstrophy": 0.5 |ω̂|², 2D: the scalar
+    out-of-plane ω) or helicity ("helicity": Re(v̂* . ω̂), signed) spectrum
+    bins, on the rfft half-spectrum, 1/N forward transforms."""
+    ntot = int(np.prod(shape))
+    return _hats_density([_rfft(v) / ntot for v in vels], shape, lengths, which)
+
+
+def _velocity_spectrum(vels, lengths, which: str, mesh=None) -> Dict[str, np.ndarray]:
     shape, key = _check_vels(vels, lengths, f"{which}_spectrum")
+    if mesh is not None:
+        return velocity_spectrum_ranked([list(vels)], _mesh_ranks(shape, which, mesh), key, which)
     nbins = max(shape) // 2 - 1
     mean = _bin_rfft_power(spectrum_density(vels, shape, key, which), shape, nbins).cpu().numpy()
     k, factor = _integral_factor(nbins, len(shape))
     return {"k": k, "power": mean * factor}
 
 
-def enstrophy_spectrum(velx, vely, velz=None, lengths=None) -> Dict[str, np.ndarray]:
+def enstrophy_spectrum(velx, vely, velz=None, lengths=None, mesh=None) -> Dict[str, np.ndarray]:
     """Shell-binned enstrophy spectrum 0.5 |ω̂|² (shell means, the KE
     spectra's binning and integral factor). 2D flows pass two components
-    (ω is the scalar out-of-plane vorticity there)."""
-    return _velocity_spectrum(_vels(velx, vely, velz), lengths, "enstrophy")
+    (ω is the scalar out-of-plane vorticity there). With ``mesh`` the
+    components are the rank's x-slabs of a 3D volume slab-sharded over
+    the mesh's space axis (any size, 1 included:
+    :func:`velocity_spectrum_ranked`); every rank gets the whole
+    volume's spectrum."""
+    return _velocity_spectrum(_vels(velx, vely, velz), lengths, "enstrophy", mesh)
 
 
-def helicity_spectrum(velx, vely, velz, lengths=None) -> Dict[str, np.ndarray]:
+def helicity_spectrum(velx, vely, velz, lengths=None, mesh=None) -> Dict[str, np.ndarray]:
     """Shell-binned helicity spectrum Re(v̂* . ω̂): signed, so shells may
-    be negative. 3D only (helicity vanishes identically in 2D flows)."""
-    return _velocity_spectrum((velx, vely, velz), lengths, "helicity")
+    be negative. 3D only (helicity vanishes identically in 2D flows).
+    ``mesh`` as in :func:`enstrophy_spectrum`."""
+    return _velocity_spectrum((velx, vely, velz), lengths, "helicity", mesh)
+
+
+def _mesh_ranks(shape, what: str, mesh) -> runtime.SpaceRanks:
+    """The ranks of an analysis of the rank's x-slabs (of ``shape``) of a
+    3D volume slab-sharded over ``mesh``."""
+    if len(shape) != 3:
+        raise ValueError(f"the sharded {what} spectrum needs a 3D volume")
+    return runtime.SpaceRanks(mesh)
+
+
+def _ranked_shape(vel_slabs, ranks) -> Tuple[int, int, int]:
+    """The whole (nx, ny, nz) of the volume whose x-slabs ``ranks`` plays."""
+    rows, ny, nz = (int(s) for s in vel_slabs[0][0].shape)
+    return rows * ranks.d, ny, nz
+
+
+def _pencil_hats(vel_slabs, ranks):
+    """The y-slabs of the normalized half-spectra of each component:
+    ``[c][k]``, component c of the slab k that ``ranks`` plays, and the
+    (lo, columns) of each slab's y-slab."""
+    shape = _ranked_shape(vel_slabs, ranks)
+    hats = [ranks.pencil_rfft([s[c] for s in vel_slabs]) for c in range(len(vel_slabs[0]))]
+    n = shape[1] // ranks.d
+    return hats, [(r * n, n) for r in ranks.ranks]
+
+
+def velocity_spectrum_ranked(vel_slabs, ranks, lengths, which: str) -> Dict[str, np.ndarray]:
+    """The enstrophy or helicity spectrum of the 3D volume whose x-slabs
+    ``ranks`` plays (a list of the three components each): the pencil
+    transforms, the density on each y-slab, the one-channel B6 on it
+    (``spectra.density_slab_shell_sums``), one join of the sums, the
+    static counts' shell means."""
+    shape = _ranked_shape(vel_slabs, ranks)
+    nbins = max(shape) // 2 - 1
+    hats, cols = _pencil_hats(vel_slabs, ranks)
+    parts = [density_slab_shell_sums(_hats_density([h[k] for h in hats], shape, lengths, which, c),
+                                     shape, c[0], nbins)
+             for k, c in enumerate(cols)]
+    del hats
+    k, factor = _integral_factor(nbins, 3)
+    return {"k": k, "power": shell_means_from_sums(ranks.reduce(parts)[0], shape, nbins) * factor}
 
 
 def _dealias_keep(shape: Tuple[int, ...], device) -> torch.Tensor:
@@ -282,7 +348,8 @@ def dealiased_nbins(shape: Tuple[int, ...]) -> int:
     return int(np.floor(kmax + 0.5)) + 1
 
 
-def transfer_spectrum(velx, vely, velz=None, lengths=None, dealias: bool = False) -> Dict[str, np.ndarray]:
+def transfer_spectrum(velx, vely, velz=None, lengths=None, dealias: bool = False,
+                      mesh=None) -> Dict[str, np.ndarray]:
     """Spectral kinetic-energy transfer T(k) and flux Π(k).
 
     T(k) = -Σ_shell Re(v̂*_i · i k_j F[u_i u_j]): the shell-summed
@@ -293,14 +360,65 @@ def transfer_spectrum(velx, vely, velz=None, lengths=None, dealias: bool = False
     velocities before the products are formed (from the filtered fields,
     after the inverse transforms) and bins ``dealiased_nbins`` shells.
     2D flows pass two components. Returns {"k", "transfer", "flux"}.
+    With ``mesh`` the components are the rank's x-slabs of a 3D volume
+    slab-sharded over the mesh's space axis (:func:`transfer_spectrum_ranked`).
     """
     vels = _vels(velx, vely, velz)
     shape, key = _check_vels(vels, lengths, "transfer_spectrum")
+    if mesh is not None:
+        return transfer_spectrum_ranked([list(vels)], _mesh_ranks(shape, "transfer", mesh), key,
+                                        dealias)
     nbins = dealiased_nbins(shape) if dealias else max(shape) // 2 - 1
     _, sums = _bin_rfft_stats(transfer_density(vels, shape, key, dealias), shape, nbins)
-    flux = -torch.cumsum(sums, 0)
-    stacked = torch.stack([sums, flux]).cpu().numpy()
+    return _transfer_out(sums, nbins)
+
+
+def _transfer_out(sums: torch.Tensor, nbins: int) -> Dict[str, np.ndarray]:
+    """{"k", "transfer", "flux"} of the whole volume's transfer shell sums:
+    the flux is minus their running sum."""
+    stacked = torch.stack([sums, -torch.cumsum(sums, 0)]).cpu().numpy()
     return {"k": np.arange(nbins, dtype=np.float64), "transfer": stacked[0], "flux": stacked[1]}
+
+
+def transfer_spectrum_ranked(vel_slabs, ranks, lengths, dealias: bool) -> Dict[str, np.ndarray]:
+    """The transfer spectrum of the 3D volume whose x-slabs ``ranks``
+    plays (a list of the three components each). The velocities'
+    pencil transforms; with ``dealias`` the 2/3-rule mask on each y-slab
+    and the filtered velocities back on the x-slabs through the inverse
+    pencil transform (``ranks.pencil_irfft``). Then the six products
+    u_i u_j formed on each x-slab and their pencil transforms, the
+    advection terms and the transfer density on each y-slab, the
+    one-channel B6 on it, one join of the sums; the flux is taken from
+    the joined sums."""
+    shape = _ranked_shape(vel_slabs, ranks)
+    nbins = dealiased_nbins(shape) if dealias else max(shape) // 2 - 1
+    vhats, cols = _pencil_hats(vel_slabs, ranks)
+    if dealias:
+        keep = _dealias_keep(shape, vel_slabs[0][0].device)
+        vhats = [[w * keep[:, lo : lo + n] for w, (lo, n) in zip(h, cols)] for h in vhats]
+        # The products must be formed from the FILTERED fields.
+        filtered = [ranks.pencil_irfft(h, shape) for h in vhats]
+        vel_slabs = [[f[k] for f in filtered] for k in range(len(cols))]
+        del filtered
+    rdt = vhats[0][0].real.dtype
+    ks = [_k_grids(shape, rdt, vhats[0][0].device, lengths, True, c) for c in cols]
+    adv = [[None] * 3 for _ in cols]
+    for i in range(3):
+        for j in range(i, 3):
+            qs = ranks.pencil_rfft([v[i] * v[j] for v in vel_slabs])
+            for k, q in enumerate(qs):
+                for row, kk in [(i, ks[k][j])] + ([(j, ks[k][i])] if i != j else []):
+                    adv[k][row] = kk * q if adv[k][row] is None else adv[k][row] + kk * q
+            del qs
+    del vel_slabs
+    parts = []
+    for k, (lo, _n) in enumerate(cols):
+        density = sum(vhats[i][k].real * adv[k][i].imag - vhats[i][k].imag * adv[k][i].real
+                      for i in range(3))
+        adv[k] = None
+        parts.append(density_slab_shell_sums(density, shape, lo, nbins))
+        del density
+    return _transfer_out(ranks.reduce(parts)[0], nbins)
 
 
 def transfer_density(vels, shape, lengths, dealias: bool) -> torch.Tensor:
@@ -338,7 +456,8 @@ def transfer_density(vels, shape, lengths, dealias: bool) -> torch.Tensor:
     return t_density
 
 
-def decomposed_ke_spectra(velx, vely, velz=None, dens=None, lengths=None) -> Dict[str, np.ndarray]:
+def decomposed_ke_spectra(velx, vely, velz=None, dens=None, lengths=None,
+                          mesh=None) -> Dict[str, np.ndarray]:
     """Solenoidal/compressive decomposition of the KE spectrum: the
     Helmholtz projection in spectral space, each power shell-binned with
     the KE spectra's conventions. The split is pointwise orthogonal, so
@@ -346,11 +465,17 @@ def decomposed_ke_spectra(velx, vely, velz=None, dens=None, lengths=None) -> Dic
     variable w = sqrt(rho) u is transformed instead. The k = 0 and
     Nyquist modes land in the solenoidal part. 2D flows pass two
     components. Returns {"k", "total", "solenoidal", "compressive"}.
+    With ``mesh`` the fields are the rank's x-slabs of a 3D volume
+    slab-sharded over the mesh's space axis
+    (:func:`decomposed_ke_spectra_ranked`).
     """
     vels = _vels(velx, vely, velz)
     shape, key = _check_vels(vels, lengths, "decomposed_ke_spectra")
     if dens is not None and tuple(int(s) for s in dens.shape) != shape:
         raise ValueError(f"dens shape {tuple(dens.shape)} does not match velocity shape {shape}")
+    if mesh is not None:
+        return decomposed_ke_spectra_ranked([list(vels)], _mesh_ranks(shape, "decomposed", mesh),
+                                            None if dens is None else [dens], key)
     nd = len(shape)
     nbins = max(shape) // 2 - 1
     ntot = int(np.prod(shape))
@@ -361,6 +486,15 @@ def decomposed_ke_spectra(velx, vely, velz=None, dens=None, lengths=None) -> Dic
     vhats = [_rfft(v) / ntot for v in vels]
     del vels
     ks = _k_grids(shape, vhats[0].real.dtype, vhats[0].device, key, True)
+    p_tot, p_sol, p_comp = _decomposed_powers(vhats, ks)
+    del vhats
+    stacked = torch.stack([_bin_rfft_power(p, shape, nbins) for p in (p_tot, p_sol, p_comp)])
+    return _decomposed_out(stacked.cpu().numpy(), nbins, nd)
+
+
+def _decomposed_powers(vhats, ks):
+    """The total, solenoidal and compressive powers of the normalized
+    half-spectra ``vhats`` on the wavenumber grids ``ks``."""
     comp_hats = _compressive_hats(vhats, ks)
     p_tot = p_sol = p_comp = None
     for w, c in zip(vhats, comp_hats):
@@ -368,12 +502,36 @@ def decomposed_ke_spectra(velx, vely, velz=None, dens=None, lengths=None) -> Dic
         p_tot = pt if p_tot is None else p_tot + pt
         p_sol = ps if p_sol is None else p_sol + ps
         p_comp = pc if p_comp is None else p_comp + pc
-    del vhats, comp_hats
-    stacked = torch.stack([_bin_rfft_power(p, shape, nbins) for p in (p_tot, p_sol, p_comp)])
-    stacked = stacked.cpu().numpy()
+    return p_tot, p_sol, p_comp
+
+
+def _decomposed_out(means: np.ndarray, nbins: int, nd: int) -> Dict[str, np.ndarray]:
     k, f = _integral_factor(nbins, nd)
-    return {"k": k, "total": stacked[0] * f, "solenoidal": stacked[1] * f,
-            "compressive": stacked[2] * f}
+    return {"k": k, "total": means[0] * f, "solenoidal": means[1] * f, "compressive": means[2] * f}
+
+
+def decomposed_ke_spectra_ranked(vel_slabs, ranks, dens=None, lengths=None) -> Dict[str, np.ndarray]:
+    """The decomposed spectra of the 3D volume whose x-slabs ``ranks``
+    plays (a list of the three components each; ``dens`` a list of the
+    density slabs, which transforms sqrt(rho) u on each slab): the
+    pencil transforms, the three powers on each y-slab, the one-channel
+    B6 on each (three launches a slab), one join of the (3, nbins) sums,
+    the static counts' shell means."""
+    shape = _ranked_shape(vel_slabs, ranks)
+    nbins = max(shape) // 2 - 1
+    if dens is not None:
+        vel_slabs = [[torch.sqrt(d) * v for v in vels] for vels, d in zip(vel_slabs, dens)]
+    hats, cols = _pencil_hats(vel_slabs, ranks)
+    del vel_slabs
+    parts = []
+    for k, c in enumerate(cols):
+        vh = [h[k] for h in hats]
+        powers = _decomposed_powers(vh, _k_grids(shape, vh[0].real.dtype, vh[0].device, lengths,
+                                                 True, c))
+        parts.append(torch.cat([density_slab_shell_sums(p, shape, c[0], nbins) for p in powers]))
+        del vh, powers
+    del hats
+    return _decomposed_out(shell_means_from_sums(ranks.reduce(parts), shape, nbins), nbins, 3)
 
 
 def _axis_bins(shape: Tuple[int, ...], axis: int) -> np.ndarray:
@@ -403,7 +561,8 @@ def _perp_bin_index(shape: Tuple[int, ...], axis: int):
     return bidx.ravel(), int(bidx.max()) + 1
 
 
-def anisotropic_ke_spectra(velx, vely, velz=None, axis: int = 0, lengths=None) -> Dict[str, np.ndarray]:
+def anisotropic_ke_spectra(velx, vely, velz=None, axis: int = 0, lengths=None,
+                           mesh=None) -> Dict[str, np.ndarray]:
     """Axis-resolved kinetic-energy spectra relative to ``axis``:
     parallel E(k_par) (summed over each perpendicular plane, binned by
     integer |k_axis|, bins 0..n/2) and perpendicular E(k_perp) (summed
@@ -415,29 +574,59 @@ def anisotropic_ke_spectra(velx, vely, velz=None, axis: int = 0, lengths=None) -
 
     Returns {"k_par", "par_total", "par_axial", "par_transverse",
     "k_perp", "perp_total", "perp_axial", "perp_transverse"}.
+    With ``mesh`` the components are the rank's x-slabs of a 3D volume
+    slab-sharded over the mesh's space axis
+    (:func:`anisotropic_ke_spectra_ranked`).
     """
     vels = _vels(velx, vely, velz)
     shape, _ = _check_vels(vels, lengths, "anisotropic_ke_spectra")
     nd = len(shape)
     if not 0 <= axis < nd:
         raise ValueError(f"axis must be in [0, {nd}), got {axis}")
-    adt = accum_dtype()
-    dev = vels[0].device
+    if mesh is not None:
+        return anisotropic_ke_spectra_ranked([list(vels)], _mesh_ranks(shape, "anisotropic", mesh),
+                                             axis)
     ntot = int(np.prod(shape))
-    npar = shape[axis] // 2 + 1
-    line_bins = torch.as_tensor(_axis_bins(shape, axis), device=dev)
-    ring_host, nperp = _perp_bin_index(shape, axis)
-    ring = torch.as_tensor(ring_host, device=dev)
-    perp_axes = tuple(a for a in range(nd) if a != axis)
-    hw = _hermitian_weights(shape, vels[0].dtype, dev)
+    packed = _line_ring_sums((_rfft(v) / ntot for v in vels), shape, axis, None).cpu().numpy()
+    return _anisotropic_out(packed, shape, axis)
+
+
+def _line_ring_sums(vhats, shape, axis: int, cols) -> torch.Tensor:
+    """The packed float64 [par_axial, perp_axial, par_transverse,
+    perp_transverse] sums of the normalized half-spectra ``vhats`` (an
+    iterable of the components, read once), or of their y-slab ``cols``
+    = (lo, n) of a 3D volume: the Hermitian-weighted power of the
+    ``axis`` component and of the others, each summed over the planes
+    perpendicular to ``axis`` and binned by |k_axis| (the line), and
+    summed along ``axis`` and binned by ring (the plane). The bins are
+    the host's (``_axis_bins``, ``_perp_bin_index``), cut to the slab's
+    ky rows."""
+    nd = len(shape)
+    adt = accum_dtype()
     p_ax = p_tr = None
-    for i, v in enumerate(vels):
-        q = 0.5 * _abs2(_rfft(v) / ntot) * hw
+    for i, w in enumerate(vhats):
+        q = 0.5 * _abs2(w) * _hermitian_weights(shape, w.real.dtype, w.device)
+        del w
         if i == axis:
             p_ax = q if p_ax is None else p_ax + q
         else:
             p_tr = q if p_tr is None else p_tr + q
         del q
+    dev = p_ax.device
+    npar = shape[axis] // 2 + 1
+    line_host = _axis_bins(shape, axis)
+    ring_host, nperp = _perp_bin_index(shape, axis)
+    if cols is not None:
+        lo, n = cols
+        if axis == 1:
+            line_host = line_host[lo : lo + n]
+        else:
+            plane = [shape[a] if a != nd - 1 else shape[a] // 2 + 1 for a in range(nd) if a != axis]
+            ring_host = ring_host.reshape(plane)
+            ring_host = (ring_host[lo : lo + n] if axis == 0 else ring_host[:, lo : lo + n]).ravel()
+    line_bins = torch.as_tensor(line_host, device=dev)
+    ring = torch.as_tensor(ring_host, device=dev)
+    perp_axes = tuple(a for a in range(nd) if a != axis)
 
     def one(p):
         # float64 sums of the density: the line over the perpendicular
@@ -448,8 +637,25 @@ def anisotropic_ke_spectra(velx, vely, velz=None, axis: int = 0, lengths=None) -
         eperp = torch.zeros(nperp, dtype=adt, device=dev).index_add_(0, ring, plane)
         return epar, eperp
 
-    (par_ax, perp_ax), (par_tr, perp_tr) = one(p_ax), one(p_tr)
-    packed = torch.cat([par_ax, perp_ax, par_tr, perp_tr]).cpu().numpy()
+    return torch.cat([*one(p_ax), *one(p_tr)])
+
+
+def anisotropic_ke_spectra_ranked(vel_slabs, ranks, axis: int = 0) -> Dict[str, np.ndarray]:
+    """The anisotropic spectra of the 3D volume whose x-slabs ``ranks``
+    plays (a list of the three components each): the pencil transforms,
+    each y-slab's line and ring sums (``_line_ring_sums``, its ky rows
+    of the host bins, ``index_add_``), one join of the packed
+    (2 npar + 2 nperp) vector."""
+    shape = _ranked_shape(vel_slabs, ranks)
+    hats, cols = _pencil_hats(vel_slabs, ranks)
+    parts = [_line_ring_sums((h[k] for h in hats), shape, axis, c) for k, c in enumerate(cols)]
+    del hats
+    return _anisotropic_out(ranks.reduce(parts).cpu().numpy(), shape, axis)
+
+
+def _anisotropic_out(packed: np.ndarray, shape, axis: int) -> Dict[str, np.ndarray]:
+    npar = shape[axis] // 2 + 1
+    nperp = (len(packed) - 2 * npar) // 2
     par_ax, perp_ax = packed[:npar], packed[npar : npar + nperp]
     par_tr, perp_tr = packed[npar + nperp : 2 * npar + nperp], packed[2 * npar + nperp :]
     return {

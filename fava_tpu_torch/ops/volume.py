@@ -15,8 +15,12 @@ so a data-dependent range costs one device-to-host fetch of the range
 scalars before the histogram. ``volume_integration``, ``volume_average``
 and ``mass_sum`` take ``mesh=`` for a volume slab-sharded over a device
 mesh: a local float64 sum on the rank's x-slab, then one all_reduce of
-the packed sums (ROADMAP A11d); the PDFs and ``binned_statistic`` take
-the whole volume (A11e).
+the packed sums (ROADMAP A11d). So do the PDFs and ``binned_statistic``
+(A11e): each is a body over the slabs that a ``parallel.SpaceRanks``
+plays (``*_ranked``; a single device runs it on its one slab), with an
+auto range by one MIN all_reduce of the slabs' (min, -max), the local
+counts (``bincount``, B8) or float64 sums, and one SUM all_reduce a
+pass.
 """
 
 from __future__ import annotations
@@ -96,10 +100,17 @@ def mass_sum(dens: torch.Tensor, cell_volume, masks: Optional[Dict[str, object]]
     return out
 
 
-def _range(values: torch.Tensor) -> Tuple[float, float]:
-    """(min, max) of the values as float64 host scalars (one fetch)."""
-    mm = torch.stack([values.min(), values.max()]).to(torch.float64).cpu().numpy()
-    return float(mm[0]), float(mm[1])
+def _ranges(fields, ranks: runtime.SpaceRanks):
+    """[(min, max)] of each field as float64 host scalars, over the volume
+    whose slabs ``ranks`` plays (``fields[f][k]``: slab k of field f):
+    each slab's (min, -max) of every field in one float64 vector, one
+    MIN join (negation is exact, so the MIN of -max gives the max), one
+    fetch. The join is exact: the edges built from it are the single
+    device's bit for bit."""
+    parts = [torch.stack([m for v in slabs for m in (v.min(), -v.max())]).to(torch.float64)
+             for slabs in zip(*fields)]
+    mm = ranks.reduce(parts, "min").cpu().numpy()
+    return [(float(mm[2 * f]), float(-mm[2 * f + 1])) for f in range(len(fields))]
 
 
 def _edges(lo: float, hi: float, nbins: int, device) -> Tuple[np.ndarray, torch.Tensor]:
@@ -145,6 +156,11 @@ def _check_shape(what: str, a, ref, ref_name: str) -> None:
         )
 
 
+def _lists(weights, count: int):
+    """The per-slab weights: the list given, or None for each slab."""
+    return [None] * count if weights is None else list(weights)
+
+
 def pdf1d(
     values: torch.Tensor,
     *,
@@ -152,21 +168,36 @@ def pdf1d(
     vrange: Optional[Tuple[float, float]] = None,
     weights: Optional[torch.Tensor] = None,
     density: bool = True,
+    mesh=None,
 ) -> Dict[str, np.ndarray]:
     """Weighted 1D PDF of a field: np.histogram semantics (half-open
     bins, the last closed, out-of-range samples dropped); exact counts,
-    float64 weight sums."""
+    float64 weight sums. With ``mesh``, ``values`` (and ``weights``) are
+    the rank's x-slab of a volume slab-sharded over the mesh's space
+    axis (:func:`pdf1d_ranked`); every rank gets the whole volume's
+    PDF."""
     _check_shape("weights", weights, values, "values")
+    if vrange is None and values.numel() == 0:
+        raise ValueError("pdf1d cannot auto-range an empty array; pass vrange")
+    return pdf1d_ranked([values], runtime.SpaceRanks(mesh), nbins=nbins, vrange=vrange,
+                        weights=None if weights is None else [weights], density=density)
+
+
+def pdf1d_ranked(values, ranks: runtime.SpaceRanks, *, nbins: int = 100, vrange=None,
+                 weights=None, density: bool = True) -> Dict[str, np.ndarray]:
+    """:func:`pdf1d` of the volume whose slabs ``ranks`` plays (``values``
+    and ``weights`` lists in that order): the range by one MIN join
+    (``_ranges``), the local counts (``bincount``) or float64 weight sums
+    of each slab, one SUM join."""
     if vrange is None:
-        if values.numel() == 0:
-            raise ValueError("pdf1d cannot auto-range an empty array; pass vrange")
-        vrange = _range(values)
+        (vrange,) = _ranges([values], ranks)
     lo, hi = float(vrange[0]), float(vrange[1])
     if hi <= lo:
         hi = lo + 1.0
-    edges, edges_t = _edges(lo, hi, nbins, values.device)
-    idx = cuda_kernels.bin_index(values, edges_t)
-    counts = _bin_sums(idx, nbins, weights).cpu().numpy().astype(np.float64)
+    edges, edges_t = _edges(lo, hi, nbins, values[0].device)
+    parts = [_bin_sums(cuda_kernels.bin_index(v, edges_t), nbins, w)
+             for v, w in zip(values, _lists(weights, len(values)))]
+    counts = ranks.reduce(parts).cpu().numpy().astype(np.float64)
     out = _density(counts, np.diff(edges)) if density else counts
     return {"edges": edges, "centers": 0.5 * (edges[1:] + edges[:-1]), "pdf": out, "counts": counts}
 
@@ -180,21 +211,35 @@ def pdf2d(
     yrange: Optional[Tuple[float, float]] = None,
     weights: Optional[torch.Tensor] = None,
     density: bool = True,
+    mesh=None,
 ) -> Dict[str, np.ndarray]:
     """Weighted joint PDF of two fields: np.histogram2d semantics against
     float64 linspace edges; exact counts (unweighted) or float64 weight
-    sums, from the joint-histogram kernel B8 on the card."""
+    sums, from the joint-histogram kernel B8 on the card. ``mesh`` as in
+    :func:`pdf1d` (:func:`pdf2d_ranked`)."""
     _check_shape("yvalues", yvalues, xvalues, "xvalues")
     _check_shape("weights", weights, xvalues, "xvalues")
     if xvalues.numel() == 0 and (xrange is None or yrange is None):
         raise ValueError("pdf2d cannot auto-range empty arrays; pass xrange/yrange")
+    return pdf2d_ranked([xvalues], [yvalues], runtime.SpaceRanks(mesh), nbins=nbins,
+                        xrange=xrange, yrange=yrange,
+                        weights=None if weights is None else [weights], density=density)
+
+
+def pdf2d_ranked(xvalues, yvalues, ranks: runtime.SpaceRanks, *, nbins=(100, 100), xrange=None,
+                 yrange=None, weights=None, density: bool = True) -> Dict[str, np.ndarray]:
+    """:func:`pdf2d` of the volume whose slabs ``ranks`` plays: the
+    missing ranges by one MIN join of both fields, B8 on each slab
+    (``cuda_kernels.pdf2d_counts``, counted or weighted), one SUM join
+    of the (nbx, nby) int64 counts or float64 sums."""
     if isinstance(nbins, int):
         nbins = (nbins, nbins)
     nbx, nby = int(nbins[0]), int(nbins[1])
-    if xrange is None:
-        xrange = _range(xvalues)
-    if yrange is None:
-        yrange = _range(yvalues)
+    missing = [v for v, r in ((xvalues, xrange), (yvalues, yrange)) if r is None]
+    if missing:
+        found = iter(_ranges(missing, ranks))
+        xrange = next(found) if xrange is None else xrange
+        yrange = next(found) if yrange is None else yrange
     xlo, xhi = map(float, xrange)
     ylo, yhi = map(float, yrange)
     if xhi <= xlo:
@@ -203,10 +248,21 @@ def pdf2d(
         yhi = ylo + 1.0
     xedges = np.linspace(xlo, xhi, nbx + 1)
     yedges = np.linspace(ylo, yhi, nby + 1)
-    counts = cuda_kernels.pdf2d_counts(xvalues, yvalues, xedges, yedges, weights=weights)
-    counts = counts.cpu().numpy().astype(np.float64)
+    parts = [cuda_kernels.pdf2d_counts(x, y, xedges, yedges, weights=w)
+             for x, y, w in zip(xvalues, yvalues, _lists(weights, len(xvalues)))]
+    counts = ranks.reduce(parts).cpu().numpy().astype(np.float64)
     out = _density(counts, np.outer(np.diff(xedges), np.diff(yedges))) if density else counts
     return {"xedges": xedges, "yedges": yedges, "pdf": out, "counts": counts}
+
+
+def _weighted_sums(values, weights, ranks: runtime.SpaceRanks) -> torch.Tensor:
+    """[sum of w * value, sum of w] over the volume (w = 1 without
+    weights: the sum and the sample count), one packed float64 SUM join;
+    ``values`` and ``weights`` are flat float64 slabs."""
+    parts = [torch.stack([v.sum(), torch.full((), float(v.numel()), dtype=v.dtype, device=v.device)])
+             if w is None else torch.stack([(w * v).sum(), w.sum()])
+             for v, w in zip(values, weights)]
+    return ranks.reduce(parts)
 
 
 def density_pdf(
@@ -217,6 +273,7 @@ def density_pdf(
     srange: Optional[Tuple[float, float]] = None,
     nsigma: float = 5.0,
     mach: Optional[float] = None,
+    mesh=None,
 ) -> Dict[str, object]:
     """Lognormality diagnostics of s = ln(rho / <rho>), <rho> the
     (optionally weighted) mean: the weighted s-PDF over ``srange``
@@ -225,7 +282,8 @@ def density_pdf(
     sums, the lognormal residual |mean_s + sigma_s^2 / 2| and, with the
     rms Mach number ``mach``, the driving parameter b from
     sigma_s^2 = ln(1 + b^2 M^2). ``weights``: per-cell volume (AMR) or
-    mass; None is uniform."""
+    mass; None is uniform. ``mesh`` as in :func:`pdf1d`
+    (:func:`density_pdf_ranked`)."""
     if nbins < 1:
         raise ValueError(f"nbins must be >= 1, got {nbins}")
     _check_shape("weights", weights, dens, "dens")
@@ -235,30 +293,49 @@ def density_pdf(
         # fixed range the caller gives is validated, not rewritten.
         if not shi > slo:
             raise ValueError(f"srange must satisfy lo < hi, got ({slo}, {shi})")
+    return density_pdf_ranked([dens], runtime.SpaceRanks(mesh),
+                              weights=None if weights is None else [weights], nbins=nbins,
+                              srange=srange, nsigma=nsigma, mach=mach)
+
+
+def density_pdf_ranked(dens, ranks: runtime.SpaceRanks, *, weights=None, nbins: int = 200,
+                       srange=None, nsigma: float = 5.0, mach=None) -> Dict[str, object]:
+    """:func:`density_pdf` of the volume whose slabs ``ranks`` plays, in
+    the single device's passes, each joined by one packed float64 SUM:
+    <rho> (with the sample count or the weight sum), <s>, the centred
+    moments of s; then the edges on the host and the counts (or weight
+    sums) of each slab, one SUM join. <rho> and <s> are float64 sums in
+    the order of the slabs, so the default edges may differ in the last
+    place from another decomposition's: a sample within that of an edge
+    may then fall in the neighbouring bin."""
     adt = accum_dtype()
-    r = dens.reshape(-1).to(adt)
-    wv = None if weights is None else weights.reshape(-1).to(adt)
-
-    def wmean(a):
-        return a.mean() if wv is None else (wv * a).sum() / wv.sum()
-
-    rho_mean = wmean(r)
-    s = torch.log(r / rho_mean)
-    mu = wmean(s)
-    d = s - mu
-    d2 = d * d
-    moments = torch.stack([rho_mean, mu, wmean(d2), wmean(d2 * d), wmean(d2 * d2)])
-    rho_mean, mu, m2, m3, m4 = moments.cpu().numpy().tolist()
+    rs = [d.reshape(-1).to(adt) for d in dens]
+    ws = [None if w is None else w.reshape(-1).to(adt) for w in _lists(weights, len(rs))]
+    sums = _weighted_sums(rs, ws, ranks)
+    norm = sums[1]
+    rho_mean = sums[0] / norm
+    ss = [torch.log(r / rho_mean) for r in rs]
+    del rs
+    mu = ranks.reduce([(s if w is None else w * s).sum()[None] for s, w in zip(ss, ws)])[0] / norm
+    parts = []
+    for s, w in zip(ss, ws):
+        d = s - mu
+        d2 = d * d
+        terms = (d2, d2 * d, d2 * d2)
+        parts.append(torch.stack([(t if w is None else w * t).sum() for t in terms]))
+        del d, d2, terms
+    m234 = ranks.reduce(parts) / norm
+    rho_mean, mu, m2, m3, m4 = torch.cat([torch.stack([rho_mean, mu]), m234]).cpu().numpy().tolist()
     sigma = float(np.sqrt(m2))
     if srange is not None:
-        lo, hi = slo, shi
+        lo, hi = (float(s) for s in srange)
     else:
         lo, hi = mu - nsigma * sigma, mu + nsigma * sigma
     if not hi > lo:
         hi = lo + 1.0
-    edges, edges_t = _edges(lo, hi, nbins, dens.device)
-    counts = _bin_sums(cuda_kernels.bin_index(s, edges_t), nbins, wv)
-    counts = counts.cpu().numpy().astype(np.float64)
+    edges, edges_t = _edges(lo, hi, nbins, ss[0].device)
+    parts = [_bin_sums(cuda_kernels.bin_index(s, edges_t), nbins, w) for s, w in zip(ss, ws)]
+    counts = ranks.reduce(parts).cpu().numpy().astype(np.float64)
     out = {
         "edges": edges,
         "centers": 0.5 * (edges[1:] + edges[:-1]),
@@ -286,6 +363,7 @@ def binned_statistic(
     nbins: int = 100,
     vrange: Optional[Tuple[float, float]] = None,
     weights: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> Dict[str, np.ndarray]:
     """Conditional bin statistics of ``y`` given ``x``: scipy's
     binned_statistic count/mean/std (population std; NaN for empty
@@ -293,40 +371,53 @@ def binned_statistic(
     measured x min/max. ``weights`` (AMR cell volumes, mass) make mean
     and std the weighted statistics and add ``weight_sums``. y is
     centered by its global (weighted) mean before the bin sums, as in
-    fava_tpu, so a large common offset does not cancel in the variance."""
+    fava_tpu, so a large common offset does not cancel in the variance.
+    ``mesh`` as in :func:`pdf1d` (:func:`binned_statistic_ranked`)."""
     if nbins < 1:
         raise ValueError(f"nbins must be >= 1, got {nbins}")
     if xvalues.numel() == 0:
         raise ValueError("binned_statistic needs at least one sample")
     _check_shape("y", yvalues, xvalues, "x")
     _check_shape("weights", weights, xvalues, "x")
+    if vrange is not None:
+        lo, hi = (float(v) for v in vrange)
+        if not hi > lo:
+            raise ValueError(f"vrange must satisfy lo < hi, got ({lo}, {hi})")
+    return binned_statistic_ranked([xvalues], [yvalues], runtime.SpaceRanks(mesh), nbins=nbins,
+                                   vrange=vrange, weights=None if weights is None else [weights])
+
+
+def binned_statistic_ranked(xvalues, yvalues, ranks: runtime.SpaceRanks, *, nbins: int = 100,
+                            vrange=None, weights=None) -> Dict[str, np.ndarray]:
+    """:func:`binned_statistic` of the volume whose slabs ``ranks``
+    plays, in the single device's passes: the x range by one MIN join,
+    the global (weighted) mean of y by one packed SUM, then each slab's
+    bin counts (as float64, exact below 2^53) and centred sums packed in
+    one vector, one SUM join."""
     adt = accum_dtype()
-    x = xvalues.reshape(-1).to(adt)
-    y = yvalues.reshape(-1).to(adt)
+    xs = [x.reshape(-1).to(adt) for x in xvalues]
+    ys = [y.reshape(-1).to(adt) for y in yvalues]
+    ws = [None if w is None else w.reshape(-1).to(adt) for w in _lists(weights, len(xs))]
     if vrange is None:
-        lo, hi = _range(x)
+        ((lo, hi),) = _ranges([xs], ranks)
         if not hi > lo:
             hi = lo + 1.0
     else:
         lo, hi = (float(v) for v in vrange)
-        if not hi > lo:
-            raise ValueError(f"vrange must satisfy lo < hi, got ({lo}, {hi})")
-    edges, edges_t = _edges(lo, hi, nbins, x.device)
-    idx = cuda_kernels.bin_index(x, edges_t)
-    counts = _bin_sums(idx, nbins, None)
-    if weights is None:
-        ymean = y.mean()
+    edges, edges_t = _edges(lo, hi, nbins, xs[0].device)
+    sums = _weighted_sums(ys, ws, ranks)
+    ymean = sums[0] / sums[1]
+    parts = []
+    for x, y, w in zip(xs, ys, ws):
+        idx = cuda_kernels.bin_index(x, edges_t)
         yc = y - ymean
-        sums = [yc, yc * yc]
-    else:
-        w = weights.reshape(-1).to(adt)
-        ymean = (w * y).sum() / w.sum()
-        yc = y - ymean
-        sums = [w * yc, w * yc * yc, w]
-    host = [_bin_sums(idx, nbins, v).cpu().numpy() for v in sums]
-    counts = counts.cpu().numpy().astype(np.float64)
-    sy, syy = host[0], host[1]
-    norm = host[2] if weights is not None else counts
+        rows = [yc, yc * yc] if w is None else [w * yc, w * yc * yc, w]
+        parts.append(torch.cat([_bin_sums(idx, nbins, None).to(adt)]
+                               + [_bin_sums(idx, nbins, v) for v in rows]))
+        del idx, yc, rows
+    host = ranks.reduce(parts).cpu().numpy().reshape(-1, nbins)
+    counts, sy, syy = host[0], host[1], host[2]
+    norm = host[3] if weights is not None else counts
     ymean = float(ymean)
     with np.errstate(invalid="ignore", divide="ignore"):
         mean_c = sy / norm

@@ -28,7 +28,7 @@ from fava_tpu_torch.parallel.runtime import (
     use_mesh,
     volume_sharding,
 )
-from fava_tpu_torch.parallel.fft import pfft3
+from fava_tpu_torch.parallel.fft import pencil_irfft, pfft3
 
 __all__ = [
     "SNAP_AXIS",
@@ -46,6 +46,7 @@ __all__ = [
     "ingest_volume_sharding",
     "is_pod_mesh",
     "make_device_mesh",
+    "pencil_irfft",
     "pfft3",
     "replicated",
     "set_mesh",

@@ -20,11 +20,12 @@ spectra (ops/spectra.py:281-288). Any other volume is held whole on
 every rank and takes the single-device paths. This moves data, not
 numbers.
 
-Rank-local analyses (ROADMAP A11d): an analysis of a sharded volume
+Rank-local analyses (ROADMAP A11d, A11e): an analysis of a sharded volume
 runs a body on the rank's x-slab and joins the bodies' contributions
 with a ``SpaceRanks``: the halo planes of a neighbour (``halo_x``), a
-packed all_reduce (``all_reduce_packed``) or an all_gather of per-row
-statistics, never of a whole field. ``gather_slabs`` gathers a whole
+packed all_reduce (``all_reduce_packed``), an all_gather of per-row
+statistics, or the pencil transform and its inverse (the spectra),
+never of a whole field. ``gather_slabs`` gathers a whole
 volume, for ``data()``, ``save`` and the analyses that are not
 rank-local yet.
 
@@ -236,7 +237,7 @@ def gather_slabs(slab: torch.Tensor, mesh=None, dim: int = 0) -> torch.Tensor:
     """The whole volume from every space rank's x-slab along ``dim``: one
     all_gather on the space group, concatenated in rank order. Only
     ``data()``, ``save`` and the analyses that are not rank-local call it
-    (ROADMAP A11e); the rank-local analyses join with ``SpaceRanks``."""
+    (ROADMAP A11f); the rank-local analyses join with ``SpaceRanks``."""
     mesh = mesh if mesh is not None else _MESH
     return _all_gather(slab, mesh, dim)
 
@@ -349,6 +350,22 @@ class SpaceRanks:
         w = torch.fft.rfftn(whole, norm="forward")
         cols = int(w.shape[1]) // self.d
         return [w[:, r * cols : (r + 1) * cols] for r in self.ranks]
+
+    def pencil_irfft(self, slabs_hat, full_shape):
+        """The x-slab (nx/d, ny, nz) for each y-slab (nx, ny/d, nz//2+1) of
+        a normalized half-spectrum, the inverse of ``pencil_rfft``: under
+        a mesh the inverse pencil transform (``parallel.fft.pencil_irfft``),
+        else the y-slabs joined, the whole volume's inverse cut into
+        x-slabs."""
+        from fava_tpu_torch.parallel.fft import pencil_irfft
+
+        full_shape = tuple(int(s) for s in full_shape)
+        if self.mesh is not None:
+            return [pencil_irfft(slabs_hat[0], full_shape, self.mesh)]
+        whole = slabs_hat[0] if len(slabs_hat) == 1 else torch.cat(list(slabs_hat), dim=1)
+        v = torch.fft.irfftn(whole, s=full_shape, norm="forward")
+        rows = full_shape[0] // self.d
+        return [v[r * rows : (r + 1) * rows] for r in self.ranks]
 
 
 @dataclass(frozen=True)

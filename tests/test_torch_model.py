@@ -68,7 +68,7 @@ NOT_PORTED = {
 PORT_ONLY = {
     "utils": {"field_dtype", "resolve_device"},
     "parallel": {"Placement", "SpaceRanks", "all_reduce_packed", "gather_slabs", "halo_x",
-                 "shards_volume", "space_axis_size"},
+                 "pencil_irfft", "shards_volume", "space_axis_size"},
 }
 
 
