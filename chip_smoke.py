@@ -298,6 +298,25 @@ no result):
    equal on the mesh and for the MIN/MAX-edged PDFs on the virtual
    ranks, the cells of the density and Q-R PDFs that differ printed.
    At most 60 s.
+28. The rank-local spectral analyses (after phase 27, on phase 8's 512^3
+   window): a one-rank NCCL world on cuda:0 with the (1,) "space" mesh.
+   (a) The filtered KE flux (the pipeline's defaults; and the sharp
+   kernel with pressure, p = rho^(5/3) standing in for the window's
+   missing pres), the two-point correlation of dens, the velocity
+   correlations, and the Helmholtz parts, vorticity and dilatation
+   (built on the host as the mesh's methods build them), each through
+   its ops entry with ``mesh=`` the (1,) mesh and on the single device,
+   with exact launches (the one-channel B6 once for the two-point
+   correlation on the mesh, K3 + the one-channel B4 on the single device,
+   no kernel for the others), held to each other (TOL_FLUX of the flux's
+   term scales, TOL_SPECTRA for the lines and the Helmholtz parts, the
+   derivative bound of helmholtz_identities for vorticity and
+   dilatation), with warm walls;
+   (b) the ranked bodies on d = 2, 4, 8 virtual ranks (the one-channel B6
+   d times for the two-point correlation) against the single device; (c)
+   the one-channel B6 on the (128, 512, 257) x-slab of the correlation
+   half-volume at kx0 = 128 against its plain twin and its bound. At
+   most 60 s.
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -2504,6 +2523,23 @@ def hold_lines(np, got, ref, tol, what, phase, keys=None):
     return {"worst": worst[top], "crossings_differ": moved}
 
 
+def flux_transforms(torch, vels, dens, pres):
+    """The unnormalized real transforms the flux filters (its definitions,
+    ops/coarse_grain.py): rho, rho u_i, rho u_i u_j for i <= j (u_i and
+    u_i u_j with ``dens`` None), and p and u_j with ``pres``."""
+    nd = len(vels)
+
+    def rf(x):
+        return torch.fft.rfftn(x if dens is None else dens * x)
+
+    f = {"rho": None if dens is None else torch.fft.rfftn(dens), "mom": [rf(v) for v in vels],
+         "qq": {(i, j): rf(vels[i] * vels[j]) for i in range(nd) for j in range(i, nd)}}
+    if pres is not None:
+        f["p"] = torch.fft.rfftn(pres)
+        f["u"] = [torch.fft.rfftn(v) for v in vels]
+    return f
+
+
 def flux_term_scales(torch, cg, vel_ops, vels, dens, pres, kcs, kernel, lengths):
     """The magnitude scale of each cutoff's flux statistics, from the same
     filtered terms the flux is made of: S_pi = mean over cells of
@@ -2514,7 +2550,7 @@ def flux_term_scales(torch, cg, vel_ops, vels, dens, pres, kcs, kernel, lengths)
     terms (the scale needs no more)."""
     shape = tuple(int(s) for s in vels[0].shape)
     nd = len(shape)
-    f = cg._forward(vels, dens, pres)
+    f = flux_transforms(torch, vels, dens, pres)
     spec0 = f["mom"][0]
     rdt, dev = spec0.real.dtype, spec0.device
     k2 = cg._k2_int(shape, rdt, dev)
@@ -2616,20 +2652,22 @@ def flux_pieces_ms(torch, cg, vels, dens, kcs, kernel, lengths, reps=3):
     ``reps`` warm calls): the forward transforms; the sweep over the
     cutoffs, split into its inverse transforms (one timed, times the 22 a
     cutoff takes with dens and no pres) and the eager products (the rest:
-    gains, products, quotients and the float64 means); the fetch of the
-    stacked statistics; and the whole call."""
-    from fava_tpu_torch.ops.velocity import _irfft
+    gains, products, quotients and the float64 sums); the fetch of the
+    stacked sums; and the whole call. The body of one device
+    (``SpaceRanks()``)."""
+    from fava_tpu_torch.parallel import SpaceRanks
 
     shape = tuple(int(s) for s in vels[0].shape)
-    f = cg._forward(vels, dens, None)
-    spec = f["mom"][0]
+    ranks = SpaceRanks()
+    f = cg._forward([vels], [dens], None, ranks)
+    spec = f["mom"][0][0]
     g = cg._filter_gain(cg._k2_int(shape, spec.real.dtype, spec.device), float(kcs[0]), kernel)
-    rows = [cg._scale_stats(f, shape, float(k), kernel, lengths) for k in kcs]
+    rows = [cg._scale_sums(f, shape, float(k), kernel, lengths, ranks)[0] for k in kcs]
     out = {
-        "forward_ms": cuda_ms(torch, lambda: cg._forward(vels, dens, None), reps),
-        "one_inverse_ms": cuda_ms(torch, lambda: _irfft(g * spec, shape), reps),
-        "sweep_ms": cuda_ms(torch, lambda: [cg._scale_stats(f, shape, float(k), kernel, lengths)
-                                            for k in kcs], reps),
+        "forward_ms": cuda_ms(torch, lambda: cg._forward([vels], [dens], None, ranks), reps),
+        "one_inverse_ms": cuda_ms(torch, lambda: ranks.pencil_irfft([g * spec], shape), reps),
+        "sweep_ms": cuda_ms(torch, lambda: [cg._scale_sums(f, shape, float(k), kernel, lengths,
+                                                           ranks) for k in kcs], reps),
         "fetch_ms": cuda_ms(torch, lambda: torch.stack(rows, dim=1).cpu(), reps),
         "call_ms": cuda_ms(torch, lambda: cg.filtered_ke_flux(*vels, dens=dens, cutoffs=kcs,
                                                               kernel=kernel, lengths=lengths), reps),
@@ -5337,6 +5375,273 @@ def phase_ranklocal(torch, np, workdir: Path, card: str):
     return totals, row
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the rank-local spectral analyses (A11f.1) in a one-rank NCCL world
+
+# The (1,) mesh and the virtual ranks against the single device: the
+# pencil transform (rfft2, exchange, fft along x) against rfftn, so the
+# fields, lines and shell curve carry another float32 transform
+# decomposition: the lines and shell curve by hold_lines (TOL_SPECTRA);
+# the Helmholtz parts TOL_SPECTRA of the largest |v| (a part may vanish);
+# vorticity and dilatation, whose spectral derivative raises the
+# transforms' float32 rounding (~2^-24 |v| at every wavenumber) by up to
+# |k|, TOL_IDENTITY of max |v| * sum_i (2 pi / L_i) (n_i / 2), the bound
+# of helmholtz_identities in physical wavenumbers; the flux's statistics
+# TOL_FLUX of their term scales (flux_term_scales). SPECTRAL_CUTOFFS are
+# the pipeline's; the pressure run takes the sharp kernel at
+# SPECTRAL_PRESSURE_CUTOFFS.
+SPECTRAL_CUTOFFS = (4.0, 8.0, 16.0)
+SPECTRAL_PRESSURE_CUTOFFS = (8.0, 32.0)
+SPECTRAL_GAMMA = 5.0 / 3.0
+SPECTRAL_SLAB = (128, 512, 257)  # (c): rank 1 of 4's x-slab of the 512^3 correlation half-volume
+SPECTRAL_FIELDS = ("helmholtz decomposition", "vorticity", "dilatation")
+
+
+def spectral_runs(ops, inputs, mesh, host):
+    """{name: (fn, exact launches)} of the six analyses through their ops
+    entries, with ``mesh`` or on the single device (mesh None); the field
+    analyses' results on the host (``SpaceRanks.host_volume``, as the
+    mesh's methods return them) when ``host``, else on the card."""
+    cg, tp, velocity, runtime = ops
+    dens, pres, vels, lengths = inputs
+    ranks = runtime.SpaceRanks(mesh)
+
+    def fields(out):
+        if isinstance(out, dict):
+            return {k: fields(v) for k, v in out.items()}
+        if isinstance(out, tuple):
+            return {f"omega_{a}": fields(v) for a, v in zip("xyz", out)}
+        return ranks.host_volume([out]) if host else out
+
+    two_point = ({RANKLOCAL_B6: 1} if mesh is not None
+                 else {"fold_quadrants_pair": 1, "shell_bin_values_folded_1ch": 1})
+    return {
+        "filtered ke flux": (lambda: cg.filtered_ke_flux(
+            *vels, dens=dens, cutoffs=SPECTRAL_CUTOFFS, lengths=lengths, mesh=mesh), {}),
+        "filtered ke flux pressure sharp": (lambda: cg.filtered_ke_flux(
+            *vels, dens=dens, pres=pres, cutoffs=SPECTRAL_PRESSURE_CUTOFFS, kernel="sharp",
+            lengths=lengths, mesh=mesh), {}),
+        "two point correlation": (lambda: tp.two_point_correlation(dens, lengths=lengths,
+                                                                   mesh=mesh), two_point),
+        "velocity correlations": (lambda: tp.velocity_correlations(*vels, lengths=lengths,
+                                                                   mesh=mesh), {}),
+        "helmholtz decomposition": (lambda: fields(velocity.helmholtz_decompose(
+            *vels, lengths=lengths, mesh=mesh)), {}),
+        "vorticity": (lambda: fields(velocity.vorticity(*vels, lengths=lengths, mesh=mesh)), {}),
+        "dilatation": (lambda: fields(velocity.dilatation(*vels, lengths=lengths, mesh=mesh)), {}),
+    }
+
+
+def virtual_spectral_runs(torch, ops, inputs, d):
+    """The ranked bodies on d virtual ranks' x-slabs (views of the whole
+    volumes), joined by ``runtime.SpaceRanks(d=d)``; the fields joined
+    on the card. The same names as ``spectral_runs``."""
+    cg, tp, velocity, runtime = ops
+    dens, pres, vels, lengths = inputs
+    ranks = runtime.SpaceRanks(d=d)
+    n = int(dens.shape[0]) // d
+
+    def cut(t):
+        return [t.narrow(0, r * n, n) for r in range(d)]
+
+    def joined(per_slab):
+        first = per_slab[0]
+        if isinstance(first, dict):
+            return {k: joined([s[k] for s in per_slab]) for k in first}
+        if isinstance(first, tuple):
+            return {f"omega_{a}": joined([s[i] for s in per_slab]) for i, a in enumerate("xyz")}
+        return torch.cat(per_slab)
+
+    vel_slabs = [list(v) for v in zip(*(cut(v) for v in vels))]
+    return {
+        "filtered ke flux": (lambda: cg.filtered_ke_flux_ranked(
+            vel_slabs, ranks, cut(dens), None, SPECTRAL_CUTOFFS, "gaussian", lengths), {}),
+        "filtered ke flux pressure sharp": (lambda: cg.filtered_ke_flux_ranked(
+            vel_slabs, ranks, cut(dens), cut(pres), SPECTRAL_PRESSURE_CUTOFFS, "sharp", lengths),
+            {}),
+        "two point correlation": (lambda: tp.two_point_correlation_ranked(cut(dens), ranks,
+                                                                          lengths),
+                                  {RANKLOCAL_B6: d}),
+        "velocity correlations": (lambda: tp.velocity_correlations_ranked(vel_slabs, ranks,
+                                                                          lengths), {}),
+        "helmholtz decomposition": (lambda: joined(velocity.helmholtz_decompose_ranked(
+            vel_slabs, ranks, lengths)), {}),
+        "vorticity": (lambda: joined(velocity.vorticity_ranked(vel_slabs, ranks, lengths)), {}),
+        "dilatation": (lambda: joined(velocity.dilatation_ranked(vel_slabs, ranks, lengths)), {}),
+    }
+
+
+def field_leaves(out):
+    """The arrays of a field analysis's nested dict, by their key path."""
+    if isinstance(out, dict):
+        return {f"{k}/{p}" if p else k: v for k, sub in out.items()
+                for p, v in field_leaves(sub).items()}
+    return {"": out}
+
+
+def field_error(torch, got, ref):
+    """max |diff| of one field (host numpy arrays or card tensors, in
+    their float32)."""
+    return float((torch.as_tensor(got) - torch.as_tensor(ref)).abs().max())
+
+
+def hold_spectral(torch, np, got, ref, scales, field_bounds, what):
+    """Each analysis of the slice against the single device's result (the
+    phase's comment): the flux TOL_FLUX of its term scales, the lines and
+    shell curve by ``hold_lines``, each field within its ``field_bounds``
+    entry."""
+    worst = {}
+    for name, r in ref.items():
+        g = got[name]
+        if name.startswith("filtered ke flux"):
+            worst[name] = hold_flux(np, g, r, scales[name], TOL_FLUX, f"{what} {name}", 28)
+        elif name in SPECTRAL_FIELDS:
+            gl, rl = field_leaves(g), field_leaves(r)
+            if sorted(gl) != sorted(rl):
+                fail(f"{what} {name}: fields {sorted(gl)}, expected {sorted(rl)}")
+            errs = {k: field_error(torch, gl[k], rl[k]) / field_bounds[name] for k in rl}
+            say(f"phase 28 {what} {name} vs the single device, error/bound per field: "
+                f"{json.dumps(errs)}")
+            worst[name] = max(errs.values())
+        else:
+            worst[name] = hold_lines(np, g, r, TOL_SPECTRA, f"{what} {name}", 28)["worst"]
+    top = max(worst, key=worst.get)
+    say(f"phase 28 {what} vs the single device: worst error/bound {worst[top]!r} ({top}); "
+        f"{json.dumps(worst)}")
+    bad = {k: v for k, v in worst.items() if not v <= 1.0}
+    if bad:
+        fail(f"{what} disagrees with the single device (error/bound): {bad}")
+    return worst
+
+
+def spectral_b6_row(torch, ck, dens):
+    """(c): the one-channel B6 on the (128, 512, 257) x-slab at kx0 = 128
+    of the dens correlation half-volume (as the sharded two-point
+    correlation bins it on rank 1 of 4) against its plain twin on the
+    same float32 values in float64, within TOL_BIN of each shell's sum of
+    |corr| (the values are signed), timed against its bound."""
+    nx, ny, nz = (int(s) for s in dens.shape)
+    nbins = min(nx, ny, nz) // 2
+    rows, lo = SPECTRAL_SLAB[0], SPECTRAL_SLAB[0]
+    fh = torch.fft.rfftn(dens - dens.double().mean().float(), norm="forward")
+    corr = torch.fft.irfftn(fh.real.square() + fh.imag.square(), s=(nx, ny, nz), norm="forward")
+    del fh
+    p = corr[lo : lo + rows, :, : nz // 2 + 1].contiguous()
+    del corr
+    if tuple(p.shape) != SPECTRAL_SLAB:
+        fail(f"phase 28 B6 slab {tuple(p.shape)}, expected {SPECTRAL_SLAB}")
+    got = ck.shell_bin_values_rfft_chunk(p, None, nbins, nx, nz, lo)
+    torch.cuda.synchronize()
+    p64 = p.double()
+    ref = ck._shell_bin_unfolded_plain(p64, None, nbins, nz, lo, nx)
+    ref_abs = ck._shell_bin_unfolded_plain(p64.abs(), None, nbins, nz, lo, nx)
+    del p64
+    if got.shape != (1, nbins):
+        fail(f"the one-channel B6 gave {tuple(got.shape)}")
+    err = (got - ref).abs()
+    ratio = float((err / (TOL_BIN * ref_abs).clamp(min=1e-300)).max())
+    inside = inside_cells(ck, p, nbins, full_nz=nz, kx0=lo, full_nx=nx)
+    return kernel_row(torch, 28,
+                      f"one-channel B6 on the correlation x-slab {SPECTRAL_SLAB} at kx0 {lo}",
+                      float(err.max()), ratio, TOL_BIN,
+                      lambda: ck.shell_bin_values_rfft_chunk(p, None, nbins, nx, nz, lo),
+                      lambda: ck._shell_bin_unfolded_plain(p, None, nbins, nz, lo, nx),
+                      (4 * inside + 8 * nbins, 4 * inside))
+
+
+def phase_ranklocal_spectral(torch, np, workdir: Path, card: str):
+    """Phase 28 (after phase 27, on phase 8's 512^3 window): a one-rank
+    NCCL world on cuda:0 and the (1,) "space" mesh. (a) The six analyses
+    of A11f.1 through their ops entries with ``mesh=`` the (1,) mesh and
+    on the single device, with exact launches (the one-channel B6 once
+    for the two-point correlation on the mesh; K3 + the one-channel B4 on
+    the single device; none for the others), held to each other, with
+    warm walls; (b) their ranked bodies on d = 2, 4, 8 virtual ranks
+    against the single device; (c) the one-channel B6 on a correlation
+    x-slab against its plain twin and its bound."""
+    import torch.distributed as dist
+
+    import fava_tpu_torch
+    from fava_tpu_torch import parallel
+    from fava_tpu_torch.ops import coarse_grain, twopoint, velocity
+    from fava_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    times = {"card": card}
+    totals = {}
+    ops = (coarse_grain, twopoint, velocity, parallel.runtime)
+    with tempfile.TemporaryDirectory(prefix="fava_spectral_") as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+                                timeout=parallel.runtime.COLLECTIVE_TIMEOUT)
+        try:
+            m1 = parallel.make_device_mesh((1,), device="cuda")
+            t0 = time.perf_counter()
+            uni = fava_tpu_torch.FLASH(workdir)
+            uni.load(file_type="uni", file_index=0, fields=list(NAMES))
+            dens = uni.mesh._volume("dens")
+            vels = [uni.mesh._volume(f"vel{a}") for a in "xyz"]
+            lengths = uni.mesh._domain_lengths()
+            times["load_s"] = time.perf_counter() - t0
+            pres = dens ** SPECTRAL_GAMMA
+            inputs = (dens, pres, vels, lengths)
+            vmax = max(float(v.abs().max()) for v in vels)
+            ksum = sum(2 * math.pi / L * (int(n) // 2) for L, n in zip(lengths, dens.shape))
+            bounds = {"helmholtz decomposition": TOL_SPECTRA * vmax,
+                      "vorticity": TOL_IDENTITY * vmax * ksum,
+                      "dilatation": TOL_IDENTITY * vmax * ksum}
+            times["field_bounds"] = bounds
+            t0 = time.perf_counter()
+            scales = {
+                "filtered ke flux": flux_term_scales(
+                    torch, coarse_grain, velocity, vels, dens, None, SPECTRAL_CUTOFFS, "gaussian",
+                    lengths),
+                "filtered ke flux pressure sharp": flux_term_scales(
+                    torch, coarse_grain, velocity, vels, dens, pres, SPECTRAL_PRESSURE_CUTOFFS,
+                    "sharp", lengths),
+            }
+            times["term_scales_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            single, times["single_walls_s"], counts = run_exact_counts(
+                torch, ck, 28, spectral_runs(ops, inputs, None, True), "single device")
+            add_counts(totals, counts)
+            meshed, times["mesh_walls_s"], counts = run_exact_counts(
+                torch, ck, 28, spectral_runs(ops, inputs, m1, True), "(1,) mesh")
+            add_counts(totals, counts)
+            t0 = time.perf_counter()
+            times["mesh_errors"] = hold_spectral(torch, np, meshed, single, scales, bounds,
+                                                 "(1,) mesh")
+            times["mesh_hold_s"] = time.perf_counter() - t0
+            times["mesh_over_single"] = {k: times["mesh_walls_s"][k] / times["single_walls_s"][k]
+                                         for k in single}
+            del meshed
+            # The single device's fields on the card, for the virtual ranks.
+            on_card = {k: fn() for k, (fn, _) in spectral_runs(ops, inputs, None, False).items()
+                       if k in SPECTRAL_FIELDS}
+            ref = {**{k: v for k, v in single.items() if k not in SPECTRAL_FIELDS}, **on_card}
+            del single
+            for d in VIRTUAL_RANKS:
+                got, times[f"{d}_ranks_walls_s"], counts = run_exact_counts(
+                    torch, ck, 28, virtual_spectral_runs(torch, ops, inputs, d),
+                    f"{d} virtual ranks")
+                add_counts(totals, counts)
+                times[f"{d}_ranks_errors"] = hold_spectral(torch, np, got, ref, scales, bounds,
+                                                           f"{d} virtual ranks")
+                del got
+            del ref, on_card
+            torch.cuda.empty_cache()
+            row = spectral_b6_row(torch, ck, dens)
+            del uni, dens, vels, pres, inputs
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    times["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase 28 rank-local spectral timings: {json.dumps(times)}")
+    if times["phase_s"] > 60:
+        fail(f"phase 28 took {times['phase_s']:.1f} s, over its 60 s")
+    return totals, row
+
+
 def main() -> None:
     sys.path.insert(0, str(HERE))
     try:
@@ -5429,11 +5734,14 @@ def main() -> None:
         pod_launches = phase_pod(torch, np, workdir, card)
         torch.cuda.empty_cache()
         ranklocal_launches, rows[RANKLOCAL_B6] = phase_ranklocal(torch, np, workdir, card)
+        torch.cuda.empty_cache()
+        spectral_launches, spectral_b6 = phase_ranklocal_spectral(torch, np, workdir, card)
+        say(f"phase 28 one-channel B6 on the correlation x-slab: {json.dumps(spectral_b6)}; {card}")
     torch.cuda.empty_cache()
     pipe_launches, pipe_times = phase_pipeline(torch, np)
     for counts in (amr4_launches, win_launches, odd_launches, entry_launches, series_launches,
                    velocity_launches, a8c_launches, sharded_launches, pod_launches,
-                   ranklocal_launches, pipe_launches):
+                   ranklocal_launches, spectral_launches, pipe_launches):
         add_counts(launches, counts)
     say(f"phase 11-12 stage-4 timings: {json.dumps({'card': card, 'window': win_times, 'odd': odd_times})}")
     say(f"phase 16-17 entry point and series timings: "

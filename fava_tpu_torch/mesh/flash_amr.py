@@ -21,7 +21,7 @@ every axis) and the volume sums (``volume_integration``,
 read the rank's slab (``_local_stack``) and join by collectives of row
 statistics or packed sums (``ops/profiles.py``, ``ops/volume.py``). The
 PDFs, ``binned_statistic``, ``sample_fields`` and the projection still
-take the volume gathered over the space group (A11f), as ``data()``
+take the volume gathered over the space group (A11f.2), as ``data()``
 answers, and ``save`` writes the gathered volume from rank 0 alone. A
 uniform mesh runs its further rank-local analyses on the slab
 (``mesh/flash_uniform.py``).

@@ -13,21 +13,26 @@ volume (the placement rule, ``parallel.runtime.shards_volume``), ``load``
 and ``from_arrays`` keep only this rank's x-slab of each field (``load``
 reads the slab straight from the file). These analyses then run on the
 slab and join by halos, packed all_reduces, all_gathers of row
-statistics or coarse masks and the pencil transform, never of a whole
-field (ROADMAP A11a, A11d, A11e): ``kinetic_energy_spectra``,
-``flagship_analysis``, ``scalar_spectra``, ``fractal_dimension``,
-``structure_functions`` and ``structure_function_exponents``,
-``velocity_increment_pdfs``, ``turbulence_summary``,
-``velocity_gradient_statistics``, ``gradient_invariant_pdfs``, the
-enstrophy, helicity, decomposed, anisotropic and transfer spectra,
-``pdf1d``, ``pdf2d``, ``binned_statistic``, ``density_pdf``,
-``mass_fraction`` and FLASH's profiles and volume sums
-(mesh/flash_amr.py, which a sharded ``from_amr`` shares). Every other
-analysis, like ``data()``, gets the whole volume by one all_gather on
-the space group: fava_tpu's numbers, as its partitioner gathers
-(ROADMAP A11f). ``save`` gathers the slabs
-and writes from rank 0; ``from_amr`` gathers before it collapses. The
-streamed paths read the file whole on every rank.
+statistics or coarse masks and the pencil transform and its inverse,
+never of a whole field (ROADMAP A11a, A11d, A11e, A11f.1):
+``kinetic_energy_spectra``, ``flagship_analysis``, ``scalar_spectra``,
+``fractal_dimension``, ``structure_functions`` and
+``structure_function_exponents``, ``velocity_increment_pdfs``,
+``turbulence_summary``, ``velocity_gradient_statistics``,
+``gradient_invariant_pdfs``, the enstrophy, helicity, decomposed,
+anisotropic and transfer spectra, ``pdf1d``, ``pdf2d``,
+``binned_statistic``, ``density_pdf``, ``mass_fraction``,
+``filtered_kinetic_energy_flux``, ``two_point_correlation``,
+``velocity_correlations``, ``helmholtz_decomposition``, ``vorticity``
+and ``dilatation`` (the last three return whole numpy fields, which they
+build on the host one slab at a time, ``SpaceRanks.host_volume``), and
+FLASH's profiles and volume sums (mesh/flash_amr.py, which a sharded
+``from_amr`` shares). ``flame_surface`` and ``projection``, like
+``data()``, get the whole volume by one all_gather on the space group:
+fava_tpu's numbers, as its partitioner gathers (ROADMAP A11f.2).
+``save`` gathers the slabs and writes from rank 0; ``from_amr`` gathers
+before it collapses. The streamed paths read the file whole on every
+rank.
 ``reynolds_stress``, ``favre_profiles``, the slice profiles, ``mass_sum``
 and the volume averages are FLASH's: on one block profiled along x the
 profiles take the uniform fast case (K1/K2). The velocity diagnostics
@@ -344,9 +349,6 @@ class FlashUniform(FLASH):
         vol = self._slab(field) if self._dmesh is not None else self._volume(field)
         return {field: fractal_ops.fractal_dimension(vol, contours, mesh=self._dmesh)}
 
-    def _velocities(self):
-        return [self._scalar_volume(f"vel{a}") for a in "xyz"[: self.ndim]]
-
     @timer
     def structure_functions(
         self,
@@ -437,28 +439,48 @@ class FlashUniform(FLASH):
             raise ValueError(f"streamed {what} requires a 3D dataset")
         return tuple(int(n) for n in (self.nxb, self.nyb, self.nzb))
 
+    def _host_field(self, t: torch.Tensor) -> np.ndarray:
+        """A field an analysis returns as this rank holds it (its x-slab
+        under a sharding mesh) as the whole numpy volume, the same on
+        every rank (``SpaceRanks.host_volume``)."""
+        return runtime.SpaceRanks(self._dmesh).host_volume([t])
+
     @timer
     def helmholtz_decomposition(self) -> Dict[str, Dict[str, np.ndarray]]:
         """Solenoidal/compressive velocity split by spectral projection on
-        this domain's physical wavenumber grid (ops/velocity.py)."""
-        out = vel_ops.helmholtz_decompose(*self._velocities(), lengths=self._domain_lengths())
-        return {part: {name: v.cpu().numpy() for name, v in comps.items()}
+        this domain's physical wavenumber grid (ops/velocity.py). Under a
+        sharding mesh the split runs on the rank's slab (the pencil
+        transform and its inverse) and each of the six fields is built on
+        the host slab by slab: every rank returns the same whole arrays,
+        which take the host memory of six volumes on each rank, and the
+        card holds one more slab while they are built."""
+        out = vel_ops.helmholtz_decompose(*self._local_velocities(), lengths=self._domain_lengths(),
+                                          mesh=self._dmesh)
+        return {part: {name: self._host_field(v) for name, v in comps.items()}
                 for part, comps in out.items()}
 
     @timer
     def vorticity(self) -> Dict[str, np.ndarray]:
         """Vorticity by spectral differentiation (2D: the scalar
-        out-of-plane component only)."""
-        out = vel_ops.vorticity(*self._velocities(), lengths=self._domain_lengths())
+        out-of-plane component only). Under a sharding mesh, rank-local
+        and built on the host slab by slab as
+        :meth:`helmholtz_decomposition` (three volumes on each rank's
+        host)."""
+        out = vel_ops.vorticity(*self._local_velocities(), lengths=self._domain_lengths(),
+                                mesh=self._dmesh)
         if self.ndim == 2:
-            return {"vortz": out.cpu().numpy()}
-        return {k: v.cpu().numpy() for k, v in zip(("vortx", "vorty", "vortz"), out)}
+            return {"vortz": self._host_field(out)}
+        return {k: self._host_field(v) for k, v in zip(("vortx", "vorty", "vortz"), out)}
 
     @timer
     def dilatation(self) -> Dict[str, np.ndarray]:
-        """Dilatation (velocity divergence) by spectral differentiation."""
-        d = vel_ops.dilatation(*self._velocities(), lengths=self._domain_lengths())
-        return {"dilatation": d.cpu().numpy()}
+        """Dilatation (velocity divergence) by spectral differentiation.
+        Under a sharding mesh, rank-local and built on the host slab by
+        slab as :meth:`helmholtz_decomposition` (one volume on each
+        rank's host)."""
+        d = vel_ops.dilatation(*self._local_velocities(), lengths=self._domain_lengths(),
+                               mesh=self._dmesh)
+        return {"dilatation": self._host_field(d)}
 
     @timer
     def enstrophy_spectra(self) -> Dict[str, np.ndarray]:
@@ -626,19 +648,21 @@ class FlashUniform(FLASH):
         """Favre-filtered SGS kinetic-energy flux sweep Pi_l: mean/RMS
         deformation work across a list of filter cutoffs, density-weighted,
         plus the baropycnal work when ``with_pressure`` and a ``pres``
-        field is on file (ops/coarse_grain.py)."""
+        field is on file (ops/coarse_grain.py; rank-local under a sharding
+        mesh)."""
         pres = None
         if with_pressure:
             if "pres" not in self.fields:
                 raise KeyError("with_pressure=True but this file carries no 'pres' field")
-            pres = self._scalar_volume("pres")
+            pres = self._local_volume("pres")
         return cg_ops.filtered_ke_flux(
-            *self._velocities(),
-            dens=self._scalar_volume("dens"),
+            *self._local_velocities(),
+            dens=self._local_volume("dens"),
             pres=pres,
             cutoffs=tuple(float(k) for k in cutoffs),
             kernel=kernel,
             lengths=self._domain_lengths(),
+            mesh=self._dmesh,
         )
 
     @timer
@@ -655,10 +679,10 @@ class FlashUniform(FLASH):
         """Scalar two-point autocorrelation R(r) = <f'(x)f'(x+r)>/var: the
         shell-averaged isotropic curve and per-axis lines with integral
         length scales (ops/twopoint.two_point_correlation; ``nbins`` and
-        the other keywords go there). ``streamed=True`` takes the
-        out-of-core path for 3D volumes: the per-axis lines and integral
-        scales only, the shell curve needing the whole correlation volume
-        (ops/outofcore.streamed_two_point_lines)."""
+        the other keywords go there; rank-local under a sharding mesh).
+        ``streamed=True`` takes the out-of-core path for 3D volumes: the
+        per-axis lines and integral scales only, the shell curve needing
+        the whole correlation volume (ops/outofcore.streamed_two_point_lines)."""
         if not streamed:
             self._reject_stream_knobs(
                 slab_rows=(slab_rows, None),
@@ -667,7 +691,8 @@ class FlashUniform(FLASH):
                 prefetch_depth=(prefetch_depth, 2),
             )
             return tp_ops.two_point_correlation(
-                self._scalar_volume(field), lengths=self._domain_lengths(), **kwargs
+                self._local_volume(field), lengths=self._domain_lengths(), mesh=self._dmesh,
+                **kwargs
             )
         if kwargs:
             # silently dropping e.g. nbins= would return a result that
@@ -701,7 +726,8 @@ class FlashUniform(FLASH):
     ) -> Dict[str, Any]:
         """Karman-Howarth longitudinal f(r) and transverse g(r) velocity
         correlations per axis with the L11/L22 integral scales and the
-        isotropy ratio L11/(2 L22) (ops/twopoint.velocity_correlations).
+        isotropy ratio L11/(2 L22) (ops/twopoint.velocity_correlations;
+        rank-local under a sharding mesh).
         ``streamed=True`` takes the out-of-core x-slab path for 3D volumes
         (ops/outofcore.streamed_velocity_correlations)."""
         if not streamed:
@@ -711,7 +737,8 @@ class FlashUniform(FLASH):
                 wire_dtype=(wire_dtype, None),
                 prefetch_depth=(prefetch_depth, 2),
             )
-            return tp_ops.velocity_correlations(*self._velocities(), lengths=self._domain_lengths())
+            return tp_ops.velocity_correlations(*self._local_velocities(),
+                                                lengths=self._domain_lengths(), mesh=self._dmesh)
         shape = self._shape3("velocity_correlations")
         return outofcore.streamed_velocity_correlations(
             self._streamed_loader(),

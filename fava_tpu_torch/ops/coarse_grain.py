@@ -1,7 +1,7 @@
 """Coarse-grained (filtered) kinetic-energy flux: the Favre scale
 decomposition of compressible turbulence.
 
-Counterpart of fava_tpu/ops/coarse_grain.py, single device. Definitions
+Counterpart of fava_tpu/ops/coarse_grain.py. Definitions
 (Favre filtering, 2D or 3D periodic boxes):
 
 * ``bar(f)``      = low-pass filter of f at cutoff k_c (spectral
@@ -21,14 +21,23 @@ bar(u_i u_j) - bar(u_i) bar(u_j). For a sharp filter on a divergence-free
 field the volume mean obeys the exact discrete identity <Pi_l> = flux(k_c)
 of ``ops.velocity.transfer_spectrum``.
 
-The transforms are ``torch.fft`` (cuFFT on the card). The forward
-transforms of rho, rho u_i, rho u_i u_j (and p, u_j) are taken ONCE
-(``_forward``); a Python loop over the cutoffs then filters and inverts
-per scale (``_scale_stats``), adding each (i, j) term into Pi as it is
-formed, so that the ~28 inverse volumes of a scale are never alive
-together. The arithmetic is fava_tpu's (no clamp of rho_b: a sharp
-filter can ring it towards 0 on lognormal density, and a clamp would be a
-different result); the means and rms are float64 sums.
+One body runs over the x-slabs that a ``parallel.SpaceRanks`` plays: the
+whole volume on a single device (``SpaceRanks()``), or under a device
+mesh (``mesh=``, ROADMAP A11f.1) the rank's x-slab of a 3D volume
+slab-sharded over its space axis. The products rho, rho u_i, rho u_i u_j
+(and p, u_j) are formed on the x-slab and given their normalized forward
+transforms ONCE (``_forward``: ``ranks.pencil_rfft``, each rank's y-slab
+of the half-spectrum; ``torch.fft``, cuFFT on the card). A Python loop
+over the cutoffs then filters on each y-slab (the gain of its global ky
+columns) and brings each filtered field back to the x-slab by the
+inverse pencil transform (``_scale_fields``), where tau, the Favre
+velocities, Pi and Lambda are formed, adding each (i, j) term into Pi
+as it is formed, so that the ~28 inverse volumes of a scale are never
+alive together. Each rank keeps float64 (sum, sum of squares) of every
+field of every cutoff, and ONE packed SUM joins the whole sweep; the
+means and rms divide by the whole volume's cell count. The arithmetic is
+fava_tpu's (no clamp of rho_b: a sharp filter can ring it towards 0 on
+lognormal density, and a clamp would be a different result).
 
 Conventions shared with ops/velocity.py: cutoffs are in INTEGER
 wavenumber units; ``lengths`` scales only the physical derivative
@@ -43,21 +52,29 @@ Kernels:
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from fava_tpu_torch.ops.velocity import _check_vels, _irfft, _k_grids, _rfft
+from fava_tpu_torch.ops.velocity import (
+    _check_vels,
+    _k_grids,
+    _mesh_ranks,
+    _ranked_shape,
+    _slab_cols,
+)
+from fava_tpu_torch.parallel import runtime
 from fava_tpu_torch.utils import accum_dtype
 
 _KERNELS = ("sharp", "gaussian")
 
 
-def _k2_int(shape: Tuple[int, ...], dtype, device) -> torch.Tensor:
+def _k2_int(shape: Tuple[int, ...], dtype, device, cols=None) -> torch.Tensor:
     """|k|^2 on the rfft half grid in INTEGER wavenumber units (no Nyquist
-    zeroing: the filter is an even operator)."""
-    ks = _k_grids(shape, dtype, device, None, zero_nyquist=False)
+    zeroing: the filter is an even operator), or on its y-slab ``cols``
+    (``_k_grids``)."""
+    ks = _k_grids(shape, dtype, device, None, zero_nyquist=False, cols=cols)
     return sum(k * k for k in ks)
 
 
@@ -71,50 +88,63 @@ def _filter_gain(k2: torch.Tensor, kc: float, kernel: str) -> torch.Tensor:
 
 
 def _flux_stat_names(with_pres: bool):
-    """Packed row order shared by _scale_stats and filtered_ke_flux."""
+    """Packed row order shared by _scale_sums and filtered_ke_flux_ranked."""
     names = ("pi_mean", "pi_rms")
     if with_pres:
         names = ("baropycnal_mean", "baropycnal_rms") + names
     return names
 
 
-def _forward(vels, dens, pres) -> Dict[str, object]:
-    """The forward transforms every scale filters (unnormalised; ``_irfft``
-    carries the whole 1/N, so bar() round-trips exactly under G == 1):
-    rho, rho u_i (or u_i), rho u_i u_j (or u_i u_j) for i <= j, and p with
-    u_j when ``pres`` is given."""
-    nd = len(vels)
-    if dens is not None:
-        f = {"rho": _rfft(dens), "mom": [_rfft(dens * v) for v in vels],
-             "qq": {(i, j): _rfft(dens * vels[i] * vels[j]) for i in range(nd) for j in range(i, nd)}}
-    else:
-        f = {"rho": None, "mom": [_rfft(v) for v in vels],
-             "qq": {(i, j): _rfft(vels[i] * vels[j]) for i in range(nd) for j in range(i, nd)}}
+def _forward(vel_slabs, dens, pres, ranks) -> Dict[str, object]:
+    """The transforms every scale filters, of the volume whose x-slabs
+    ``ranks`` plays (``vel_slabs`` a list of the components each, ``dens``
+    and ``pres`` lists of the slabs or None): the y-slabs (a list in slab
+    order, ``ranks.pencil_rfft``; normalized, so the inverse pencil
+    transform round-trips exactly under G == 1) of rho, rho u_i (or u_i),
+    rho u_i u_j (or u_i u_j) for i <= j, and of p with u_j when ``pres``
+    is given, each product formed on the x-slabs."""
+    nd = len(vel_slabs[0])
+    fwd = ranks.pencil_rfft
+    rho = dens if dens is not None else [None] * len(vel_slabs)
+
+    def weighted(r, x):
+        return x if r is None else r * x
+
+    f = {"rho": None if dens is None else fwd(dens),
+         "mom": [fwd([weighted(r, v[i]) for r, v in zip(rho, vel_slabs)]) for i in range(nd)],
+         "qq": {(i, j): fwd([weighted(r, v[i] * v[j]) for r, v in zip(rho, vel_slabs)])
+                for i in range(nd) for j in range(i, nd)}}
     if pres is not None:
-        f["p"] = _rfft(pres)
-        f["u"] = [_rfft(v) for v in vels]
+        f["p"] = fwd(pres)
+        f["u"] = [fwd([v[i] for v in vel_slabs]) for i in range(nd)]
     return f
 
 
-def _scale_fields(f, shape: Tuple[int, ...], kc: float, kernel: str, lengths) -> Dict[str, torch.Tensor]:
-    """Pi (and the baropycnal Lambda when ``f`` holds p) at one cutoff."""
+def _scale_fields(f, shape: Tuple[int, ...], kc: float, kernel: str, lengths,
+                  ranks) -> Dict[str, List[torch.Tensor]]:
+    """Pi (and the baropycnal Lambda when ``f`` holds p) at one cutoff:
+    the x-slab of each slab that ``ranks`` plays. Each bar() filters the
+    y-slabs of a transform (``_forward``) and brings the field back by
+    one inverse pencil transform."""
     nd = len(shape)
-    spec0 = f["mom"][0]
-    rdt = spec0.real.dtype
-    g = _filter_gain(_k2_int(shape, rdt, spec0.device), kc, kernel)
-    dks = _k_grids(shape, rdt, spec0.device, lengths, zero_nyquist=True)
+    spec0 = f["mom"][0][0]
+    rdt, dev = spec0.real.dtype, spec0.device
+    cols = _slab_cols(shape, ranks)
+    gains = [_filter_gain(_k2_int(shape, rdt, dev, c), kc, kernel) for c in cols]
+    dks = [_k_grids(shape, rdt, dev, lengths, True, c) for c in cols]
     compressible = f["rho"] is not None
+    slabs = range(len(cols))
 
     def bar(spec):
-        return _irfft(g * spec, shape)
+        return ranks.pencil_irfft([g * s for g, s in zip(gains, spec)], shape)
 
     def dbar(spec, j):
-        return bar(1j * dks[j] * spec)
+        return bar([1j * dk[j] * s for dk, s in zip(dks, spec)])
 
     mb = [bar(s) for s in f["mom"]]  # bar(rho u_i) (or bar(u_i))
     if compressible:
         rb = bar(f["rho"])
-        ub = [m / rb for m in mb]  # Favre velocity u~_i
+        ub = [[m / r for m, r in zip(m_i, rb)] for m_i in mb]  # Favre velocity u~_i
         drb = [dbar(f["rho"], j) for j in range(nd)]
     else:
         ub = mb
@@ -123,38 +153,51 @@ def _scale_fields(f, shape: Tuple[int, ...], kc: float, kernel: str, lengths) ->
         """d_j u~_i from filtered transforms: (d_j bar(rho u_i) - u~_i
         d_j bar(rho)) / rho_b, or d_j bar(u_i) at constant density."""
         d = dbar(f["mom"][i], j)
-        return (d - ub[i] * drb[j]) / rb if compressible else d
+        if not compressible:
+            return d
+        return [(dk - u * dr) / r for dk, u, dr, r in zip(d, ub[i], drb[j], rb)]
 
     # tau is symmetric: each (i <= j) stress meets d_j u~_i + d_i u~_j.
-    pi = None
+    pi = [None] * len(cols)
     for i in range(nd):
         for j in range(i, nd):
             tau = bar(f["qq"][(i, j)])
-            tau -= rb * ub[i] * ub[j] if compressible else ub[i] * ub[j]
-            du = d_ub(i, j) if i == j else d_ub(i, j) + d_ub(j, i)
-            term = -(tau * du)
+            du = d_ub(i, j)
+            if i != j:
+                du = [a + b for a, b in zip(du, d_ub(j, i))]
+            for k in slabs:
+                tau[k] -= rb[k] * ub[i][k] * ub[j][k] if compressible else ub[i][k] * ub[j][k]
+                term = -(tau[k] * du[k])
+                pi[k] = term if pi[k] is None else pi[k] + term
             del tau, du
-            pi = term if pi is None else pi + term
     out = {"pi": pi}
     if "p" in f:
-        lam = None
+        lam = [None] * len(cols)
         for j in range(nd):
             # tau(rho, u_j) = bar(rho u_j) - rho_b bar(u_j)
-            t = dbar(f["p"], j) * (mb[j] - rb * bar(f["u"][j])) / rb
-            lam = t if lam is None else lam + t
+            dp, uj = dbar(f["p"], j), bar(f["u"][j])
+            for k in slabs:
+                t = dp[k] * (mb[j][k] - rb[k] * uj[k]) / rb[k]
+                lam[k] = t if lam[k] is None else lam[k] + t
+            del dp, uj
         out["baropycnal"] = lam
     return out
 
 
-def _scale_stats(f, shape, kc: float, kernel: str, lengths) -> torch.Tensor:
-    """float64 (mean, rms) rows of one cutoff in ``_flux_stat_names`` order."""
-    fields = _scale_fields(f, shape, kc, kernel, lengths)
-    stats = {}
-    for name, vol in fields.items():
-        va = vol.to(accum_dtype())
-        stats[f"{name}_mean"] = va.mean()
-        stats[f"{name}_rms"] = torch.sqrt(va.square().mean())
-    return torch.stack([stats[k] for k in _flux_stat_names("baropycnal" in fields)])
+def _scale_sums(f, shape, kc: float, kernel: str, lengths, ranks) -> List[torch.Tensor]:
+    """The float64 sum (``*_mean`` rows) and sum of squares (``*_rms``
+    rows) of each field of one cutoff, in ``_flux_stat_names`` order: one
+    vector a slab that ``ranks`` plays."""
+    fields = _scale_fields(f, shape, kc, kernel, lengths, ranks)
+    adt = accum_dtype()
+    names = _flux_stat_names("baropycnal" in fields)
+    rows = []
+    for k in range(len(ranks.ranks)):
+        vols = {name: vol[k].to(adt) for name, vol in fields.items()}
+        rows.append(torch.stack([vols[n.rsplit("_", 1)[0]].sum() if n.endswith("_mean")
+                                 else vols[n.rsplit("_", 1)[0]].square().sum() for n in names]))
+        del vols
+    return rows
 
 
 def _prep(vels, dens, pres, cutoffs, kernel, lengths, what):
@@ -190,6 +233,7 @@ def filtered_ke_flux(
     cutoffs: Sequence[float] = (4.0, 8.0, 16.0),
     kernel: str = "gaussian",
     lengths: Optional[Sequence[float]] = None,
+    mesh=None,
 ) -> Dict[str, np.ndarray]:
     """Mean/RMS SGS kinetic-energy flux across a sweep of filter scales.
 
@@ -198,16 +242,38 @@ def filtered_ke_flux(
     entry per cutoff; ``scale`` = pi / k_c is the nominal filter width in
     box-fraction units. ``dens=None`` selects the constant-density limit.
     The forward transforms are taken once for the whole sweep and the
-    statistics fetched once (module docstring).
+    statistics joined and fetched once (module docstring). With ``mesh``
+    the fields are the rank's x-slabs of a 3D volume slab-sharded over the
+    mesh's space axis (:func:`filtered_ke_flux_ranked`); every rank gets
+    the whole volume's statistics.
     """
     vels = (velx, vely) if velz is None else (velx, vely, velz)
     shape, key, kcs = _prep(vels, dens, pres, cutoffs, kernel, lengths, "filtered_ke_flux")
-    f = _forward(vels, dens, pres)
-    rows = [_scale_stats(f, shape, float(kc), kernel, key) for kc in kcs]
+    ranks = _mesh_ranks(shape, "filtered KE flux", mesh)
+    return filtered_ke_flux_ranked([list(vels)], ranks, None if dens is None else [dens],
+                                   None if pres is None else [pres], kcs, kernel, key)
+
+
+def filtered_ke_flux_ranked(vel_slabs, ranks, dens, pres, cutoffs, kernel: str,
+                            lengths) -> Dict[str, np.ndarray]:
+    """:func:`filtered_ke_flux` of the volume whose x-slabs ``ranks``
+    plays (``vel_slabs`` a list of the components each, ``dens`` and
+    ``pres`` lists of the slabs or None; ``cutoffs`` and ``kernel`` as
+    checked by the entry): the forward transforms once, each cutoff's
+    float64 sums on each slab (``_scale_sums``), ONE SUM of the whole
+    sweep's, then the means and rms over the whole volume."""
+    shape = _ranked_shape(vel_slabs, ranks)
+    kcs = np.asarray(cutoffs, dtype=np.float64)
+    f = _forward(vel_slabs, dens, pres, ranks)
+    rows = [_scale_sums(f, shape, float(kc), kernel, lengths, ranks) for kc in kcs]
     del f
-    packed = torch.stack(rows, dim=1).cpu().numpy().astype(np.float64)  # (nstat, ncut)
+    sums = ranks.reduce([torch.stack([r[k] for r in rows], dim=1) for k in range(len(ranks.ranks))])
+    names = _flux_stat_names(pres is not None)
+    stats = sums / float(np.prod(shape))
+    packed = torch.stack([s if n.endswith("_mean") else torch.sqrt(s)
+                          for n, s in zip(names, stats)])
     res = {"kc": kcs.copy(), "scale": np.pi / kcs}
-    res.update(dict(zip(_flux_stat_names(pres is not None), packed)))
+    res.update(dict(zip(names, packed.cpu().numpy().astype(np.float64))))  # (nstat, ncut)
     return res
 
 
@@ -225,7 +291,13 @@ def sgs_flux_fields(
     """Pointwise SGS flux field(s) at ONE filter scale: ``{"pi": volume}``
     (+ ``"baropycnal"`` when ``pres`` is given) on the input's device, the
     inputs of intermittency statistics. Same definitions as
-    :func:`filtered_ke_flux`."""
+    :func:`filtered_ke_flux`. No mesh analysis: it takes whole volumes on
+    a single device (the body on ``SpaceRanks()``) and returns whole
+    fields."""
     vels = (velx, vely) if velz is None else (velx, vely, velz)
     shape, key, kcs = _prep(vels, dens, pres, (float(cutoff),), kernel, lengths, "sgs_flux_fields")
-    return _scale_fields(_forward(vels, dens, pres), shape, float(kcs[0]), kernel, key)
+    ranks = runtime.SpaceRanks()
+    f = _forward([list(vels)], None if dens is None else [dens], None if pres is None else [pres],
+                 ranks)
+    return {name: vol[0] for name, vol in
+            _scale_fields(f, shape, float(kcs[0]), kernel, key, ranks).items()}

@@ -21,8 +21,11 @@ x-slabs, each binned density on its y-slab through the one-channel B6
 (``spectra.density_slab_shell_sums``; the line and ring sums by
 ``index_add_``), one all_reduce of the sums; the dealiased transfer
 brings its filtered velocities back through the inverse pencil
-transform. The Helmholtz parts, vorticity and dilatation take the
-whole volume (A11f).
+transform. So are the Helmholtz parts, vorticity and dilatation (A11f.1,
+``*_ranked``): the pencil transforms, the projection or curl on each
+y-slab, and the inverse pencil transform gives each rank its x-slab of
+each output field; a single device runs the same bodies on one slab
+(``SpaceRanks()``).
 
 Conventions (fava_tpu's, unchanged):
 
@@ -39,7 +42,7 @@ Conventions (fava_tpu's, unchanged):
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -79,7 +82,8 @@ def _k_grids(shape: Tuple[int, ...], dtype, device, lengths, zero_nyquist: bool,
     half-spectrum of a 2D or 3D volume (computed in float64 on the host,
     then cast). ``zero_nyquist`` zeroes the Nyquist entry of even axes.
     ``cols`` = (lo, n) cuts the y grid of a 3D volume to the columns
-    lo .. lo+n-1: a rank's y-slab of the pencil transform."""
+    lo .. lo+n-1: a rank's y-slab of the pencil transform (``_slab_cols``;
+    None in 2D)."""
     nd = len(shape)
     grids = []
     for axis, (n, f) in enumerate(zip(shape, _phys_factors(lengths, nd))):
@@ -149,7 +153,8 @@ def _compressive_hats(vhats, ks):
     return [k * div for k in ks]
 
 
-def helmholtz_decompose(velx, vely, velz=None, lengths=None) -> Dict[str, Dict[str, torch.Tensor]]:
+def helmholtz_decompose(velx, vely, velz=None, lengths=None,
+                        mesh=None) -> Dict[str, Dict[str, torch.Tensor]]:
     """Solenoidal/compressive split of a periodic velocity field.
 
     The compressive (curl-free) part is the spectral projection onto k̂;
@@ -157,43 +162,98 @@ def helmholtz_decompose(velx, vely, velz=None, lengths=None) -> Dict[str, Dict[s
     exactly. The k = 0 and Nyquist modes land in the solenoidal part.
     2D flows pass two (nx, ny) components and ``velz=None``. Returns
     {"solenoidal": {velx, vely[, velz]}, "compressive": {...}} on the
-    input's device.
+    input's device. With ``mesh`` the components are the rank's x-slabs
+    of a 3D volume slab-sharded over the mesh's space axis, and so are
+    the parts (:func:`helmholtz_decompose_ranked`).
     """
     vels = _vels(velx, vely, velz)
     shape, key = _check_vels(vels, lengths, "helmholtz_decompose")
-    vhats = [_rfft(v) for v in vels]
-    ks = _k_grids(shape, vhats[0].real.dtype, vels[0].device, key, True)
-    comp_hats = _compressive_hats(vhats, ks)
-    del vhats
-    comp = []
-    while comp_hats:
-        comp.append(_irfft(comp_hats.pop(0), shape))
-    sol = [v - c for v, c in zip(vels, comp)]
-    names = ("velx", "vely", "velz")[: len(vels)]
-    return {"solenoidal": dict(zip(names, sol)), "compressive": dict(zip(names, comp))}
+    ranks = _mesh_ranks(shape, "Helmholtz decomposition", mesh)
+    return helmholtz_decompose_ranked([list(vels)], ranks, key)[0]
 
 
-def vorticity(velx, vely, velz=None, lengths=None):
+def helmholtz_decompose_ranked(vel_slabs, ranks,
+                               lengths) -> List[Dict[str, Dict[str, torch.Tensor]]]:
+    """The Helmholtz split of the volume whose x-slabs ``ranks`` plays (a
+    list of the components each; the whole volumes on a single device):
+    the pencil transforms, the compressive projection on each y-slab, the
+    inverse pencil transform of each compressive component (one at a
+    time), and the solenoidal part as each slab minus its compressive
+    part. One {"solenoidal": ..., "compressive": ...} of x-slabs a slab."""
+    shape = _ranked_shape(vel_slabs, ranks)
+    hats, cols = _pencil_hats(vel_slabs, ranks)
+    rdt, dev = hats[0][0].real.dtype, hats[0][0].device
+    comp_hats = [_compressive_hats([h[k] for h in hats],
+                                   _k_grids(shape, rdt, dev, lengths, True, c))
+                 for k, c in enumerate(cols)]
+    del hats
+    comp = [ranks.pencil_irfft(_take(comp_hats, c), shape) for c in range(len(shape))]
+    names = ("velx", "vely", "velz")[: len(shape)]
+    return [{"solenoidal": {n: v - comp[c][k] for c, (n, v) in enumerate(zip(names, vels))},
+             "compressive": {n: comp[c][k] for c, n in enumerate(names)}}
+            for k, vels in enumerate(vel_slabs)]
+
+
+def _take(per_slab, c: int):
+    """Entry ``c`` of each slab's list, dropped from it (so that a
+    transform's y-slabs are freed once inverted)."""
+    out = [lst[c] for lst in per_slab]
+    for lst in per_slab:
+        lst[c] = None
+    return out
+
+
+def vorticity(velx, vely, velz=None, lengths=None, mesh=None):
     """Vorticity ω = ∇ x v by spectral differentiation (periodic): the
-    (ωx, ωy, ωz) tuple in 3D, the scalar ∂x vy - ∂y vx in 2D."""
+    (ωx, ωy, ωz) tuple in 3D, the scalar ∂x vy - ∂y vx in 2D. With
+    ``mesh`` the components are the rank's x-slabs of a 3D volume
+    slab-sharded over the mesh's space axis, and so is ω
+    (:func:`vorticity_ranked`)."""
     vels = _vels(velx, vely, velz)
     shape, key = _check_vels(vels, lengths, "vorticity")
-    vhats = [_rfft(v) for v in vels]
+    return vorticity_ranked([list(vels)], _mesh_ranks(shape, "vorticity", mesh), key)[0]
+
+
+def vorticity_ranked(vel_slabs, ranks, lengths):
+    """The vorticity of the volume whose x-slabs ``ranks`` plays (a list
+    of the components each): the pencil transforms, i k x v̂ on each
+    y-slab, the inverse pencil transform of each component (one at a
+    time). One (ωx, ωy, ωz) tuple of x-slabs a slab; in 2D (one device)
+    the scalar ω."""
+    shape = _ranked_shape(vel_slabs, ranks)
+    hats, cols = _pencil_hats(vel_slabs, ranks)
+    rdt, dev = hats[0][0].real.dtype, hats[0][0].device
     if len(shape) == 2:
-        kx, ky = _k_grids(shape, vhats[0].real.dtype, vels[0].device, key, True)
-        return _irfft(1j * (kx * vhats[1] - ky * vhats[0]), shape)
-    whats = list(_vorticity_hats(vhats, shape, key))
-    del vhats
-    return tuple(_irfft(whats.pop(0), shape) for _ in range(3))
+        kx, ky = _k_grids(shape, rdt, dev, lengths, True)
+        return ranks.pencil_irfft([1j * (kx * vy - ky * vx) for vx, vy in zip(*hats)], shape)
+    whats = [list(_vorticity_hats([h[k] for h in hats], shape, lengths, c))
+             for k, c in enumerate(cols)]
+    del hats
+    omega = [ranks.pencil_irfft(_take(whats, c), shape) for c in range(3)]
+    return [tuple(w[k] for w in omega) for k in range(len(cols))]
 
 
-def dilatation(velx, vely, velz=None, lengths=None) -> torch.Tensor:
-    """Dilatation θ = ∇ . v by spectral differentiation (periodic)."""
+def dilatation(velx, vely, velz=None, lengths=None, mesh=None) -> torch.Tensor:
+    """Dilatation θ = ∇ . v by spectral differentiation (periodic). With
+    ``mesh`` the components are the rank's x-slabs of a 3D volume
+    slab-sharded over the mesh's space axis, and so is θ
+    (:func:`dilatation_ranked`)."""
     vels = _vels(velx, vely, velz)
     shape, key = _check_vels(vels, lengths, "dilatation")
-    vhats = [_rfft(v) for v in vels]
-    ks = _k_grids(shape, vhats[0].real.dtype, vels[0].device, key, True)
-    return _irfft(1j * sum(k * w for k, w in zip(ks, vhats)), shape)
+    return dilatation_ranked([list(vels)], _mesh_ranks(shape, "dilatation", mesh), key)[0]
+
+
+def dilatation_ranked(vel_slabs, ranks, lengths) -> List[torch.Tensor]:
+    """The dilatation of the volume whose x-slabs ``ranks`` plays (a list
+    of the components each): the pencil transforms, i k . v̂ on each
+    y-slab, one inverse pencil transform. One x-slab a slab."""
+    shape = _ranked_shape(vel_slabs, ranks)
+    hats, cols = _pencil_hats(vel_slabs, ranks)
+    rdt, dev = hats[0][0].real.dtype, hats[0][0].device
+    div = [1j * sum(k * h[i] for k, h in zip(_k_grids(shape, rdt, dev, lengths, True, c), hats))
+           for i, c in enumerate(cols)]
+    del hats
+    return ranks.pencil_irfft(div, shape)
 
 
 def _hermitian_weights(shape: Tuple[int, ...], dtype, device) -> torch.Tensor:
@@ -262,7 +322,8 @@ def spectrum_density(vels, shape, lengths, which: str) -> torch.Tensor:
 def _velocity_spectrum(vels, lengths, which: str, mesh=None) -> Dict[str, np.ndarray]:
     shape, key = _check_vels(vels, lengths, f"{which}_spectrum")
     if mesh is not None:
-        return velocity_spectrum_ranked([list(vels)], _mesh_ranks(shape, which, mesh), key, which)
+        return velocity_spectrum_ranked([list(vels)], _mesh_ranks(shape, f"{which} spectrum", mesh),
+                                        key, which)
     nbins = max(shape) // 2 - 1
     mean = _bin_rfft_power(spectrum_density(vels, shape, key, which), shape, nbins).cpu().numpy()
     k, factor = _integral_factor(nbins, len(shape))
@@ -289,26 +350,37 @@ def helicity_spectrum(velx, vely, velz, lengths=None, mesh=None) -> Dict[str, np
 
 def _mesh_ranks(shape, what: str, mesh) -> runtime.SpaceRanks:
     """The ranks of an analysis of the rank's x-slabs (of ``shape``) of a
-    3D volume slab-sharded over ``mesh``."""
-    if len(shape) != 3:
-        raise ValueError(f"the sharded {what} spectrum needs a 3D volume")
+    3D volume slab-sharded over ``mesh``; the single device's with no
+    mesh."""
+    if mesh is not None and len(shape) != 3:
+        raise ValueError(f"the sharded {what} needs a 3D volume")
     return runtime.SpaceRanks(mesh)
 
 
-def _ranked_shape(vel_slabs, ranks) -> Tuple[int, int, int]:
-    """The whole (nx, ny, nz) of the volume whose x-slabs ``ranks`` plays."""
-    rows, ny, nz = (int(s) for s in vel_slabs[0][0].shape)
-    return rows * ranks.d, ny, nz
+def _ranked_shape(vel_slabs, ranks) -> Tuple[int, ...]:
+    """The whole shape of the volume whose x-slabs ``ranks`` plays (a
+    list of the fields of each slab)."""
+    rows, *rest = (int(s) for s in vel_slabs[0][0].shape)
+    return (rows * ranks.d, *rest)
+
+
+def _slab_cols(shape, ranks):
+    """The (lo, columns) of the y-slab of each slab that ``ranks`` plays
+    (``_k_grids``' ``cols``): the ky columns of its share of the pencil
+    transform of a 3D volume; None in 2D (one device, no pencil)."""
+    if len(shape) != 3:
+        return [None] * len(ranks.ranks)
+    n = shape[1] // ranks.d
+    return [(r * n, n) for r in ranks.ranks]
 
 
 def _pencil_hats(vel_slabs, ranks):
     """The y-slabs of the normalized half-spectra of each component:
     ``[c][k]``, component c of the slab k that ``ranks`` plays, and the
-    (lo, columns) of each slab's y-slab."""
+    (lo, columns) of each slab's y-slab (``_slab_cols``)."""
     shape = _ranked_shape(vel_slabs, ranks)
     hats = [ranks.pencil_rfft([s[c] for s in vel_slabs]) for c in range(len(vel_slabs[0]))]
-    n = shape[1] // ranks.d
-    return hats, [(r * n, n) for r in ranks.ranks]
+    return hats, _slab_cols(shape, ranks)
 
 
 def velocity_spectrum_ranked(vel_slabs, ranks, lengths, which: str) -> Dict[str, np.ndarray]:
@@ -366,8 +438,8 @@ def transfer_spectrum(velx, vely, velz=None, lengths=None, dealias: bool = False
     vels = _vels(velx, vely, velz)
     shape, key = _check_vels(vels, lengths, "transfer_spectrum")
     if mesh is not None:
-        return transfer_spectrum_ranked([list(vels)], _mesh_ranks(shape, "transfer", mesh), key,
-                                        dealias)
+        return transfer_spectrum_ranked([list(vels)], _mesh_ranks(shape, "transfer spectrum", mesh),
+                                        key, dealias)
     nbins = dealiased_nbins(shape) if dealias else max(shape) // 2 - 1
     _, sums = _bin_rfft_stats(transfer_density(vels, shape, key, dealias), shape, nbins)
     return _transfer_out(sums, nbins)
@@ -474,7 +546,8 @@ def decomposed_ke_spectra(velx, vely, velz=None, dens=None, lengths=None,
     if dens is not None and tuple(int(s) for s in dens.shape) != shape:
         raise ValueError(f"dens shape {tuple(dens.shape)} does not match velocity shape {shape}")
     if mesh is not None:
-        return decomposed_ke_spectra_ranked([list(vels)], _mesh_ranks(shape, "decomposed", mesh),
+        return decomposed_ke_spectra_ranked([list(vels)],
+                                            _mesh_ranks(shape, "decomposed spectra", mesh),
                                             None if dens is None else [dens], key)
     nd = len(shape)
     nbins = max(shape) // 2 - 1
@@ -584,7 +657,8 @@ def anisotropic_ke_spectra(velx, vely, velz=None, axis: int = 0, lengths=None,
     if not 0 <= axis < nd:
         raise ValueError(f"axis must be in [0, {nd}), got {axis}")
     if mesh is not None:
-        return anisotropic_ke_spectra_ranked([list(vels)], _mesh_ranks(shape, "anisotropic", mesh),
+        return anisotropic_ke_spectra_ranked([list(vels)],
+                                             _mesh_ranks(shape, "anisotropic spectra", mesh),
                                              axis)
     ntot = int(np.prod(shape))
     packed = _line_ring_sums((_rfft(v) / ntot for v in vels), shape, axis, None).cpu().numpy()

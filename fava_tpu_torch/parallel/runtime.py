@@ -20,14 +20,18 @@ spectra (ops/spectra.py:281-288). Any other volume is held whole on
 every rank and takes the single-device paths. This moves data, not
 numbers.
 
-Rank-local analyses (ROADMAP A11d, A11e): an analysis of a sharded volume
-runs a body on the rank's x-slab and joins the bodies' contributions
-with a ``SpaceRanks``: the halo planes of a neighbour (``halo_x``), a
-packed all_reduce (``all_reduce_packed``), an all_gather of per-row
-statistics, or the pencil transform and its inverse (the spectra),
-never of a whole field. ``gather_slabs`` gathers a whole
-volume, for ``data()``, ``save`` and the analyses that are not
-rank-local yet.
+Rank-local analyses (ROADMAP A11d, A11e, A11f.1): an analysis of a
+sharded volume runs a body on the rank's x-slab and joins the bodies'
+contributions with a ``SpaceRanks``: the halo planes of a neighbour
+(``halo_x``), a packed all_reduce (``all_reduce_packed``), an all_gather
+of per-row statistics, or the pencil transform and its inverse (the
+spectra, filtering, correlations and the Helmholtz fields), never of a
+whole field on the device. The analyses that return whole fields build
+them on the host one slab at a time (``SpaceRanks.host_volume``).
+``gather_slabs`` gathers a whole volume, for ``data()``, ``save``,
+``from_amr`` and the analyses that are not rank-local yet (ROADMAP
+A11f.2: the flame surface, the projections, the AMR mesh's PDFs and
+``sample_fields``).
 
 Block and ingest placement (fava_tpu's ``block_sharding``,
 ``ingest_volume_sharding`` and ``ingest_sharding_fn``): a
@@ -236,8 +240,9 @@ def shard_volume(x, mesh=None, axis: int = 0) -> torch.Tensor:
 def gather_slabs(slab: torch.Tensor, mesh=None, dim: int = 0) -> torch.Tensor:
     """The whole volume from every space rank's x-slab along ``dim``: one
     all_gather on the space group, concatenated in rank order. Only
-    ``data()``, ``save`` and the analyses that are not rank-local call it
-    (ROADMAP A11f); the rank-local analyses join with ``SpaceRanks``."""
+    ``data()``, ``save``, ``from_amr`` and the analyses that are not
+    rank-local yet call it (ROADMAP A11f.2); the rank-local analyses join
+    with ``SpaceRanks``."""
     mesh = mesh if mesh is not None else _MESH
     return _all_gather(slab, mesh, dim)
 
@@ -366,6 +371,33 @@ class SpaceRanks:
         v = torch.fft.irfftn(whole, s=full_shape, norm="forward")
         rows = full_shape[0] // self.d
         return [v[r * rows : (r + 1) * rows] for r in self.ranks]
+
+    def host_volume(self, slabs) -> np.ndarray:
+        """The whole volume on the host, in numpy, from the x-slabs (of
+        equal shape) that the axis's ranks hold. A host array is
+        allocated whole and filled slab by slab: under a mesh the rank's
+        own slab is copied, then each rank's slab in turn is broadcast
+        on the space group through one slab-sized device buffer, so the
+        device holds the rank's slab and one more; every rank gets the
+        same array. The host holds the whole volume on every rank."""
+        first = slabs[0]
+        rows = int(first.shape[0])
+        out = torch.empty((rows * self.d,) + tuple(first.shape[1:]), dtype=first.dtype)
+        if self.mesh is None:
+            for r, slab in zip(self.ranks, slabs):
+                out[r * rows : (r + 1) * rows].copy_(slab)
+            return out.numpy()
+        mine = self.ranks[0]
+        out[mine * rows : (mine + 1) * rows].copy_(first)
+        if self.d > 1:
+            group = space_group(self.mesh)
+            buf = torch.empty_like(first, memory_format=torch.contiguous_format)
+            for r in range(self.d):
+                src = first.contiguous() if r == mine else buf
+                dist.broadcast(src, dist.get_global_rank(group, r), group=group)
+                if r != mine:
+                    out[r * rows : (r + 1) * rows].copy_(buf)
+        return out.numpy()
 
 
 @dataclass(frozen=True)

@@ -1175,7 +1175,9 @@ def _flux_scales(cg, vels, dens, kcs, kernel):
     from fava_tpu_torch.ops.velocity import _k_grids
 
     shape = tuple(vels[0].shape)
-    f = cg._forward(vels, dens, None)
+    f = {"rho": torch.fft.rfftn(dens), "mom": [torch.fft.rfftn(dens * v) for v in vels],
+         "qq": {(i, j): torch.fft.rfftn(dens * vels[i] * vels[j]) for i in range(3)
+                for j in range(i, 3)}}
     k2 = cg._k2_int(shape, torch.float64, "cpu")
     dks = _k_grids(shape, torch.float64, "cpu", None, True)
     out = []
@@ -1404,6 +1406,43 @@ def test_b6_on_transposed_y_slabs_matches_plain(cuda_device, nx, ny, nz, d):
     assert ck.launch_counts()["shell_bin_values_rfft_chunk"] == 2 * d
     whole = ck.shell_bin_sums_unfolded(*spectra.rfft_power_volumes(ffts, (nx, ny, nz)), nbins, nz)
     torch.testing.assert_close(acc[:2], whole, rtol=1e-10, atol=1e-300)
+
+
+# (nx, ny, nz, d): x-slabs of d ranks of a correlation half-volume, even
+# and odd nz, ny != nx.
+CORR_SLAB_CASES = [(32, 24, 48, 4), (16, 8, 25, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,nz,d", CORR_SLAB_CASES)
+def test_b6_on_correlation_x_slabs_matches_plain(cuda_device, nx, ny, nz, d):
+    """The sharded two-point correlation's binning: the one-channel B6 on
+    each rank's (nx/d, ny, nz//2+1) x-slab of the signed correlation
+    half-volume at kx0 = r*nx/d against its plain twin on the same float32
+    values in float64, one launch a slab, and the slabs' sums against B10
+    on the whole half-volume (1e-10 of each shell's sum of |corr|: float64
+    sums in another order)."""
+    shape = (nx, ny, nz)
+    f = _fields(cuda_device, shape=shape, seed=nz + d)[1]
+    fh = torch.fft.rfftn(f - f.double().mean().float(), norm="forward")
+    corr = torch.fft.irfftn(fh.real.square() + fh.imag.square(), s=shape, norm="forward")
+    half = corr[..., : nz // 2 + 1]
+    nbins = min(shape) // 2
+    rows = nx // d
+    ck.reset_launch_counts()
+    acc = torch.zeros(1, nbins, dtype=torch.float64, device=cuda_device)
+    for r in range(d):
+        p = half[r * rows : (r + 1) * rows].contiguous()
+        got = ck.shell_bin_values_rfft_chunk(p, None, nbins, full_nx=nx, full_nz=nz, kx0=r * rows)
+        ref = ck._shell_bin_unfolded_plain(p.double(), None, nbins, nz, r * rows, nx)
+        ref_abs = ck._shell_bin_unfolded_plain(p.double().abs(), None, nbins, nz, r * rows, nx)
+        assert ((got - ref).abs() <= 1e-10 * ref_abs).all(), r
+        acc += got
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["shell_bin_values_rfft_chunk_1ch"] == d
+    whole = ck.shell_bin_sums_unfolded(half.contiguous(), None, nbins, nz)
+    whole_abs = ck._shell_bin_unfolded_plain(half.double().abs(), None, nbins, nz)
+    assert ((acc - whole).abs() <= 1e-10 * whole_abs).all()
 
 
 @pytest.mark.cuda

@@ -194,7 +194,8 @@ def test_velocity_correlations_match_brute_force(shape):
     vels = [rng.standard_normal(shape) for _ in range(nd)]
     got = ttp.velocity_correlations(*[torch.tensor(v) for v in vels],
                                     lengths=tuple(0.5 * (i + 1) for i in range(nd)))
-    packed = ttp._velocity_corr([torch.tensor(v) for v in vels], shape).numpy()
+    packed = ttp._velocity_corr([[torch.tensor(v) for v in vels]],
+                                fava_tpu_torch.parallel.SpaceRanks()).numpy()
     halves = [n // 2 + 1 for n in shape]
     for a, ax in enumerate("xyz"[:nd]):
         fl = _brute_line(vels[a], a)
