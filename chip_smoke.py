@@ -317,6 +317,22 @@ no result):
    the one-channel B6 on the (128, 512, 257) x-slab of the correlation
    half-volume at kx0 = 128 against its plain twin and its bound. At
    most 60 s.
+29. The rank-local flame surface, projections, AMR-side PDFs and point
+   sampling (after phase 28, on phase 8's 512^3 window and phase 19's
+   flam window): a one-rank NCCL world on cuda:0 with the (1,) "space"
+   mesh. (a) The flame surface along x and y, the projections (dens
+   along x, velx weighted by dens along z), ``pdf1d``, ``pdf2d``
+   (cell-volume and mass weighted, and counted), ``binned_statistic``
+   and ``density_pdf`` on the window as a (1, 512, 512, 512) stack with
+   its cell-volume weights, and the sampling of SURFACE_POINTS seeded
+   cells, each through its ops entry with ``mesh=`` the (1,) mesh and on
+   the single device, with exact launches (B8 once per pdf2d, nothing
+   else), held to each other (TOL_RANKLOCAL of scale, TOL_WSUM per
+   weighted bin, counts, edges, the maximum gradient and the sampled
+   values exactly), with warm walls; (b) the ranked bodies on d = 2, 4,
+   8 virtual ranks (B8 d times per pdf2d; the density PDF's counts may
+   move TOL_SHIFT samples); (c) the weighted B8 on one (128, 512, 512)
+   x-slab's samples against its plain twin and its bound. At most 60 s.
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -5642,6 +5658,239 @@ def phase_ranklocal_spectral(torch, np, workdir: Path, card: str):
     return totals, row
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the rank-local flame surface, projections, AMR-side PDFs and
+# point sampling (A11f.2) in a one-rank NCCL world
+
+# The (1,) mesh and the virtual ranks against the single device, on the
+# window's float32 values: the gradients are the same float32 differences
+# on every decomposition (the halo planes are the neighbours' own rows),
+# so sigma, the area, the maps and the PDFs' float64 sums differ only by
+# their order: TOL_RANKLOCAL of each result's largest value; the maximum
+# gradient, the sampled values, the counts and the MIN/MAX edges exactly;
+# the weighted bin sums TOL_WSUM per bin; the density PDF's edges come
+# from float64 means in the slabs' order, so its counts are equal on the
+# mesh and may move at most TOL_SHIFT samples on the virtual ranks.
+SURFACE_SLAB = (128, 512, 512)  # (c): rank 1 of 4's x-slab of the window
+SURFACE_POINTS = 10_000
+SURFACE_SEED = 29
+
+
+def surface_inputs(torch, np, mesh, flm):
+    """The phase's inputs on the card: the flam, dens and velx volumes,
+    the window as a (1, nx, ny, nz) stack with its cell-volume and mass
+    weights, the deltas of each volume, and SURFACE_POINTS seeded cells
+    (block 0) with one on every x boundary of the virtual slabs."""
+    dens, velx = mesh._volume("dens"), mesh._volume("velx")
+    flam = flm.mesh._volume("flam")
+    stack = {"dens": dens[None], "velx": velx[None]}
+    cv = float(mesh.get_cell_volumes("LEAF")[0])
+    wv = torch.full_like(stack["dens"], cv)
+    wm = wv * stack["dens"]
+    rng = np.random.default_rng(SURFACE_SEED)
+    n = int(dens.shape[0])
+    cells = rng.integers(0, n, (SURFACE_POINTS, 3))
+    cells[: 2 * max(VIRTUAL_RANKS), 0] = np.arange(2 * max(VIRTUAL_RANKS)) * (n // (2 * max(VIRTUAL_RANKS)))
+    deltas = {}
+    for key, m in (("flam", flm.mesh), ("window", mesh)):
+        lengths = m._domain_lengths()
+        deltas[key] = [L / s for L, s in zip(lengths, (m.nxb, m.nyb, m.nzb))]
+    return flam, dens, velx, stack, wv, wm, deltas, np.zeros(SURFACE_POINTS, np.int64), cells
+
+
+def surface_runs(ops, inputs, ranks_of, d=None):
+    """{name: (fn, exact launches)} of the slice through its ops entries
+    with ``mesh`` (``ranks_of`` the mesh or None: the single device), or,
+    with ``d``, its ranked bodies on d virtual ranks' x-slabs (views)."""
+    flame, projection, volume, runtime = ops
+    flam, dens, velx, stack, wv, wm, deltas, blk, cells = inputs
+    if d is None:
+        mesh = ranks_of
+        return {
+            "flame surface x": (lambda: flame.flame_surface(flam, deltas["flam"], axis=0,
+                                                            mesh=mesh), {}),
+            "flame surface y": (lambda: flame.flame_surface(flam, deltas["flam"], axis=1,
+                                                            mesh=mesh), {}),
+            "projection dens x": (lambda: projection.project_uniform(dens, deltas["window"],
+                                                                     axis=0, mesh=mesh), {}),
+            "projection velx by dens z": (lambda: projection.project_uniform(
+                velx, deltas["window"], axis=2, weight=dens, mesh=mesh), {}),
+            "amr pdf1d volume": (lambda: volume.pdf1d(stack["velx"], weights=wv, mesh=mesh), {}),
+            "amr pdf2d volume": (lambda: volume.pdf2d(stack["dens"], stack["velx"], weights=wv,
+                                                      mesh=mesh), {"pdf2d_weighted": 1}),
+            "amr pdf2d mass": (lambda: volume.pdf2d(stack["dens"], stack["velx"], weights=wm,
+                                                    mesh=mesh), {"pdf2d_weighted": 1}),
+            "amr pdf2d": (lambda: volume.pdf2d(stack["dens"], stack["velx"], mesh=mesh),
+                          {"pdf2d_counts": 1}),
+            "amr binned statistic volume": (lambda: volume.binned_statistic(
+                stack["dens"], stack["velx"], weights=wv, mesh=mesh), {}),
+            "amr density pdf volume": (lambda: volume.density_pdf(stack["dens"], weights=wv,
+                                                                  mesh=mesh), {}),
+            "sample fields": (lambda: volume.sample_points_ranked(
+                [[stack["dens"]], [stack["velx"]]], runtime.SpaceRanks(mesh), blk, cells)
+                .cpu().numpy(), {}),
+        }
+    ranks = runtime.SpaceRanks(d=d)
+    n = int(dens.shape[0]) // d
+
+    def cut(t, dim=0):
+        return [t.narrow(dim, r * n, n) for r in range(d)]
+
+    st = {k: cut(v, 1) for k, v in stack.items()}
+    shape = tuple(flam.shape)
+    return {
+        "flame surface x": (lambda: flame.flame_surface_ranked(cut(flam), ranks, deltas["flam"],
+                                                               shape, 0), {}),
+        "flame surface y": (lambda: flame.flame_surface_ranked(cut(flam), ranks, deltas["flam"],
+                                                               shape, 1), {}),
+        "projection dens x": (lambda: projection.project_uniform_ranked(
+            cut(dens), ranks, deltas["window"], 0).cpu().numpy(), {}),
+        "projection velx by dens z": (lambda: projection.project_uniform_ranked(
+            cut(velx), ranks, deltas["window"], 2, cut(dens)).cpu().numpy(), {}),
+        "amr pdf1d volume": (lambda: volume.pdf1d_ranked(st["velx"], ranks, weights=cut(wv, 1)),
+                             {}),
+        "amr pdf2d volume": (lambda: volume.pdf2d_ranked(st["dens"], st["velx"], ranks,
+                                                         weights=cut(wv, 1)),
+                             {"pdf2d_weighted": d}),
+        "amr pdf2d mass": (lambda: volume.pdf2d_ranked(st["dens"], st["velx"], ranks,
+                                                       weights=cut(wm, 1)),
+                           {"pdf2d_weighted": d}),
+        "amr pdf2d": (lambda: volume.pdf2d_ranked(st["dens"], st["velx"], ranks),
+                      {"pdf2d_counts": d}),
+        "amr binned statistic volume": (lambda: volume.binned_statistic_ranked(
+            st["dens"], st["velx"], ranks, weights=cut(wv, 1)), {}),
+        "amr density pdf volume": (lambda: volume.density_pdf_ranked(st["dens"], ranks,
+                                                                     weights=cut(wv, 1)), {}),
+        "sample fields": (lambda: volume.sample_points_ranked(
+            [st["dens"], st["velx"]], ranks, blk, cells).cpu().numpy(), {}),
+    }
+
+
+def surface_error(np, name, g, r, same_edges, unit):
+    """error/bound of one result of the slice against the single device's
+    (the phase's comment); ``unit`` is the weight of one sample of the
+    volume-weighted density PDF (the cell volume)."""
+    if name.startswith("flame surface"):
+        if not (np.array_equal(g["x"], r["x"]) and g["max_gradient"] == r["max_gradient"]):
+            fail(f"phase 29 {name}: x or max_gradient differs from the single device's")
+        errs = [abs(g[k] - r[k]) / abs(r[k]) for k in ("area", "wrinkling")]
+        errs.append(float(np.abs(g["sigma"] - r["sigma"]).max() / np.abs(r["sigma"]).max()))
+        return max(errs) / TOL_RANKLOCAL
+    if name.startswith("projection"):
+        return float(np.abs(g - r).max() / np.abs(r).max()) / TOL_RANKLOCAL
+    if name == "sample fields":
+        return 0.0 if np.array_equal(g, r) else float("inf")
+    edges = [k for k in r if k.endswith("edges")]
+    weighted = name.endswith(("volume", "mass")) and "binned" not in name
+    if name.startswith("amr density pdf"):
+        sigma = r["sigma_s"]
+        errs = [abs(g[k] - r[k]) / max(abs(r[k]), sigma)
+                for k in ("rho_mean", "mean_s", "sigma_s", "skewness", "excess_kurtosis")]
+        errs.append(float(np.abs(g["edges"] - r["edges"]).max() / (r["edges"][-1] - r["edges"][0])))
+        excess = np.abs(g["counts"] - r["counts"]) - TOL_WSUM * np.abs(r["counts"])
+        moved = float(np.clip(excess, 0.0, None).sum()) / 2 / unit
+        if same_edges and moved:
+            fail(f"phase 29 {name}: counts differ from the single device's on the mesh")
+        return max(max(errs) / TOL_RANKLOCAL, moved / TOL_SHIFT)
+    if not all(np.array_equal(g[k], r[k]) for k in edges):
+        fail(f"phase 29 {name}: other edges than the single device's (an exact MIN/MAX join)")
+    if weighted:
+        return float((np.abs(g["counts"] - r["counts"])
+                      / (TOL_WSUM * np.abs(r["counts"])).clip(1e-300)).max())
+    if not np.array_equal(g["counts"], r["counts"]):
+        fail(f"phase 29 {name}: counts differ from the single device's")
+    if "binned" in name:
+        return max(float(np.nanmax(np.abs(g[k] - r[k])) / np.nanmax(np.abs(r[k])))
+                   for k in ("mean", "std")) / TOL_RANKLOCAL
+    return 0.0
+
+
+def hold_surface(np, got, ref, what, same_edges, unit):
+    """Each result of the slice against the single device's, worst
+    error/bound printed; fails above 1."""
+    worst = {name: surface_error(np, name, got[name], r, same_edges, unit)
+             for name, r in ref.items()}
+    top = max(worst, key=worst.get)
+    say(f"phase 29 {what} vs the single device: worst error/bound {worst[top]!r} ({top}); "
+        f"{json.dumps(worst)}")
+    bad = {k: v for k, v in worst.items() if not v <= 1.0}
+    if bad:
+        fail(f"{what} disagrees with the single device (error/bound): {bad}")
+    return worst
+
+
+def phase_ranklocal_surface(torch, np, workdir: Path, card: str):
+    """Phase 29 (after phase 28, on phase 8's 512^3 window and phase 19's
+    flam window): a one-rank NCCL world on cuda:0 and the (1,) "space"
+    mesh. (a) The flame surface (x and y), the projections (dens along x,
+    velx weighted by dens along z), the four AMR-side PDFs on the window
+    as a (1, 512, 512, 512) stack with its cell-volume (and mass)
+    weights, and the sampling of SURFACE_POINTS seeded cells, each
+    through its ops entry with ``mesh=`` the (1,) mesh and on the single
+    device, with exact launches (B8 once per pdf2d, nothing else), held
+    to each other, with warm walls; (b) their ranked bodies on d = 2, 4,
+    8 virtual ranks (B8 d times per pdf2d) against the single device; (c)
+    the weighted B8 on one (128, 512, 512) slab's samples against its
+    plain twin and its bound."""
+    import torch.distributed as dist
+
+    import fava_tpu_torch
+    from fava_tpu_torch import parallel
+    from fava_tpu_torch.ops import cuda_kernels as ck
+    from fava_tpu_torch.ops import flame, projection, volume
+
+    t_phase = time.perf_counter()
+    times = {"card": card}
+    totals = {}
+    ops = (flame, projection, volume, parallel.runtime)
+    with tempfile.TemporaryDirectory(prefix="fava_surface_") as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+                                timeout=parallel.runtime.COLLECTIVE_TIMEOUT)
+        try:
+            m1 = parallel.make_device_mesh((1,), device="cuda")
+            t0 = time.perf_counter()
+            uni = fava_tpu_torch.FLASH(workdir)
+            uni.load(file_type="uni", file_index=0, fields=["dens", "velx"])
+            flm = fava_tpu_torch.FLASH(workdir / "flam")
+            flm.load(file_type="uni", fields=["flam"])
+            inputs = surface_inputs(torch, np, uni.mesh, flm)
+            times["load_s"] = time.perf_counter() - t0
+            single, times["single_walls_s"], counts = run_exact_counts(
+                torch, ck, 29, surface_runs(ops, inputs, None), "single device")
+            add_counts(totals, counts)
+            meshed, times["mesh_walls_s"], counts = run_exact_counts(
+                torch, ck, 29, surface_runs(ops, inputs, m1), "(1,) mesh")
+            add_counts(totals, counts)
+            unit = float(inputs[4].reshape(-1)[0])
+            times["mesh_errors"] = hold_surface(np, meshed, single, "(1,) mesh", True, unit)
+            times["mesh_over_single"] = {k: times["mesh_walls_s"][k] / times["single_walls_s"][k]
+                                         for k in single}
+            del meshed
+            for d in VIRTUAL_RANKS:
+                got, times[f"{d}_ranks_walls_s"], counts = run_exact_counts(
+                    torch, ck, 29, surface_runs(ops, inputs, None, d), f"{d} virtual ranks")
+                add_counts(totals, counts)
+                times[f"{d}_ranks_errors"] = hold_surface(np, got, single, f"{d} virtual ranks",
+                                                          False, unit)
+                del got
+            _flam, dens, velx, _stack, wv, _wm, _deltas, _blk, _cells = inputs
+            lo, rows = SURFACE_SLAB[0], SURFACE_SLAB[0]
+            x, y, w = (t[lo : lo + rows].contiguous() for t in (dens, velx, wv[0]))
+            if tuple(x.shape) != SURFACE_SLAB:
+                fail(f"phase 29 B8 slab {tuple(x.shape)}, expected {SURFACE_SLAB}")
+            name, row = check_pdf2d_kernel(torch, np, ck, 29, x, y, w)
+            del uni, flm, inputs, single, dens, velx, wv, x, y, w
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    times["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase 29 rank-local surface timings: {json.dumps(times)}")
+    if times["phase_s"] > 60:
+        fail(f"phase 29 took {times['phase_s']:.1f} s, over its 60 s")
+    return totals, {"name": name, "slab": SURFACE_SLAB, **row}
+
+
 def main() -> None:
     sys.path.insert(0, str(HERE))
     try:
@@ -5737,11 +5986,14 @@ def main() -> None:
         torch.cuda.empty_cache()
         spectral_launches, spectral_b6 = phase_ranklocal_spectral(torch, np, workdir, card)
         say(f"phase 28 one-channel B6 on the correlation x-slab: {json.dumps(spectral_b6)}; {card}")
+        torch.cuda.empty_cache()
+        surface_launches, surface_b8 = phase_ranklocal_surface(torch, np, workdir, card)
+        say(f"phase 29 weighted B8 on the window's x-slab: {json.dumps(surface_b8)}; {card}")
     torch.cuda.empty_cache()
     pipe_launches, pipe_times = phase_pipeline(torch, np)
     for counts in (amr4_launches, win_launches, odd_launches, entry_launches, series_launches,
                    velocity_launches, a8c_launches, sharded_launches, pod_launches,
-                   ranklocal_launches, spectral_launches, pipe_launches):
+                   ranklocal_launches, spectral_launches, surface_launches, pipe_launches):
         add_counts(launches, counts)
     say(f"phase 11-12 stage-4 timings: {json.dumps({'card': card, 'window': win_times, 'odd': odd_times})}")
     say(f"phase 16-17 entry point and series timings: "

@@ -19,12 +19,15 @@ holds that slab (``_dmesh``). On a sharded mesh the profiles
 every axis) and the volume sums (``volume_integration``,
 ``volume_average``, ``mass_sum``) are rank-local (ROADMAP A11d): they
 read the rank's slab (``_local_stack``) and join by collectives of row
-statistics or packed sums (``ops/profiles.py``, ``ops/volume.py``). The
-PDFs, ``binned_statistic``, ``sample_fields`` and the projection still
-take the volume gathered over the space group (A11f.2), as ``data()``
-answers, and ``save`` writes the gathered volume from rank 0 alone. A
-uniform mesh runs its further rank-local analyses on the slab
-(``mesh/flash_uniform.py``).
+statistics or packed sums (``ops/profiles.py``, ``ops/volume.py``). So
+are the PDFs and ``binned_statistic`` (B8 on the slab; A11f.2), the
+projection (the collapsed mesh's one block through
+``ops/projection.project_uniform`` with ``mesh=``) and the point
+sampling (``sample_fields``, ``get_point_data``: each rank takes the
+points its rows hold, one SUM). Only ``data()`` answers with the volume
+gathered over the space group, and ``save`` writes the gathered volume
+from rank 0 alone. A uniform mesh runs its further rank-local analyses
+on the slab (``mesh/flash_uniform.py``).
 """
 
 from __future__ import annotations
@@ -450,28 +453,30 @@ class FLASH(Structured):
         return idx, int(blk[0])
 
     def get_point_data(self, blockID: int, point: List[int], field: str) -> float:
-        arr = self.host_data(field)
-        return float(arr[(blockID, *point[: self.ndim])])
+        cells = np.asarray(point[: self.ndim], dtype=np.int64)[None]
+        return float(self._sample_cells(np.array([blockID]), cells, [field])[0, 0])
 
     def sample_fields(self, points: np.ndarray, fields: Sequence[str], block_list=None):
         """Vectorized point sampling: {field: values}, per-point volume
         fraction and found flags. The gather runs on the device
-        (``torch.take``) and only the sampled values come to the host."""
+        (``torch.take``) and only the sampled values come to the host;
+        under a sharding mesh each rank samples its own points from its
+        x-slab (``_sample_cells``)."""
         blk, cells, found = self.locate_points(points, block_list)
         levels = np.asarray(self.refine_level)[blk]
         vol_frac = self._cell_volumes_for_levels(levels) / self.cell_volume_min
-        out = {}
-        flat = None
-        for field in fields:
-            stack = self._field_stack(field)
-            if flat is None:
-                shape = stack.shape
-                idx = np.asarray(blk, dtype=np.int64)
-                for a in range(1, stack.ndim):
-                    idx = idx * shape[a] + (cells[:, a - 1] if a - 1 < self.ndim else 0)
-                flat = torch.as_tensor(idx, device=stack.device)
-            out[field] = torch.take(stack, flat).cpu().numpy().astype(np.float64)
-        return out, vol_frac, found
+        values = self._sample_cells(blk, cells, fields)
+        return dict(zip(fields, values)), vol_frac, found
+
+    def _sample_cells(self, blk, cells, fields: Sequence[str]) -> np.ndarray:
+        """(fields, points) float64 values of ``fields`` at the cells
+        ``cells`` of blocks ``blk`` (``ops/volume.sample_points_ranked``
+        on the stacks as this rank holds them)."""
+        if not fields:
+            return np.zeros((0, len(blk)))
+        stacks = [[self._local_stack(f)] for f in fields]
+        return volume_ops.sample_points_ranked(stacks, runtime.SpaceRanks(self._dmesh), blk,
+                                               cells).cpu().numpy()
 
     # ------------------------------------------------------------------
     # Analyses
@@ -572,43 +577,50 @@ class FLASH(Structured):
     def mass_sum(self, masks: Optional[Dict[str, Any]] = None) -> Dict[str, float]:
         """Total (and per-mask) mass over the leaf cells (under a sharding
         mesh, over the rank's x-slab, the masks cut to its rows)."""
-        dens = self._leaf_stack("dens") if self._dmesh is None else self._local_stack("dens")
+        dens = self._leaf_values("dens")
         cv = np.asarray(self.get_cell_volumes("LEAF")).reshape((-1,) + (1,) * (dens.ndim - 1))
         return volume_ops.mass_sum(dens, cv, masks, mesh=self._dmesh)
 
+    def _leaf_values(self, field: str) -> torch.Tensor:
+        """A field's leaf cells as this rank holds them: the leaf stack,
+        or under a sharding mesh the rank's x-slab as one block."""
+        return self._leaf_stack(field) if self._dmesh is None else self._local_stack(field)
+
     def pdf1d(self, field: str, weight: Optional[str] = "volume", **kwargs):
-        vals = self._leaf_stack(field)
-        return volume_ops.pdf1d(vals, weights=self._pdf_weights(weight, vals.shape), **kwargs)
+        vals = self._leaf_values(field)
+        return volume_ops.pdf1d(vals, weights=self._pdf_weights(weight, vals.shape),
+                                mesh=self._dmesh, **kwargs)
 
     def pdf2d(self, field1: str, field2: str, weight: Optional[str] = "volume", **kwargs):
-        vals1 = self._leaf_stack(field1)
-        vals2 = self._leaf_stack(field2)
+        vals1 = self._leaf_values(field1)
+        vals2 = self._leaf_values(field2)
         return volume_ops.pdf2d(
-            vals1, vals2, weights=self._pdf_weights(weight, vals1.shape), **kwargs
+            vals1, vals2, weights=self._pdf_weights(weight, vals1.shape), mesh=self._dmesh,
+            **kwargs
         )
 
     def binned_statistic(self, xfield: str, yfield: str, weight: Optional[str] = "volume", **kwargs):
         """Conditional bin statistics over the leaf cells: per-bin raw
         counts + volume- (or mass-) weighted mean/std of yfield given
         xfield (weight=None for unweighted)."""
-        xv = self._leaf_stack(xfield)
-        yv = self._leaf_stack(yfield)
+        xv = self._leaf_values(xfield)
+        yv = self._leaf_values(yfield)
         return volume_ops.binned_statistic(
-            xv, yv, weights=self._pdf_weights(weight, xv.shape), **kwargs
+            xv, yv, weights=self._pdf_weights(weight, xv.shape), mesh=self._dmesh, **kwargs
         )
 
     def density_pdf(self, weight: Optional[str] = "volume", **kwargs):
         """Lognormality diagnostics of s = ln(rho/<rho>) over the leaf
         cells, per-level cell volumes weighting the mean and the s-PDF."""
-        vals = self._leaf_stack("dens")
+        vals = self._leaf_values("dens")
         return volume_ops.density_pdf(
-            vals, weights=self._pdf_weights(weight, vals.shape), **kwargs
+            vals, weights=self._pdf_weights(weight, vals.shape), mesh=self._dmesh, **kwargs
         )
 
     def _pdf_weights(self, weight: Optional[str], shape):
-        """Per-cell PDF weights in the field dtype: the leaf cell volume,
-        optionally times density (contiguous, as the pdf2d kernel takes
-        them)."""
+        """Per-cell PDF weights in the field dtype, of the ``shape`` that
+        ``_leaf_values`` gives: the leaf cell volume, optionally times
+        density (contiguous, as the pdf2d kernel takes them)."""
         if weight is None:
             return None
         if weight not in ("volume", "mass"):
@@ -618,7 +630,7 @@ class FLASH(Structured):
         )
         w = cv.reshape((-1,) + (1,) * (len(shape) - 1)).expand(shape)
         if weight == "mass":
-            return w * self._leaf_stack("dens")
+            return w * self._leaf_values("dens")
         return w.contiguous()
 
     def projection(
@@ -633,7 +645,10 @@ class FLASH(Structured):
         uniform regrid volume is materialized
         (ops/projection.project_amr). ``weight`` switches to the
         w-weighted line average. Returns the map over the two kept axes
-        plus their cell-center coordinates."""
+        plus their cell-center coordinates. Under a sharding mesh the
+        collapsed mesh is one block at the finest scale: the uniform
+        projection of the rank's x-slab (ops/projection.project_uniform
+        with ``mesh=``)."""
         plan = regrid_ops.RegridPlan(
             block_bounds=self.block_bounds,
             node_type=np.asarray(self.node_type),
@@ -642,6 +657,12 @@ class FLASH(Structured):
             nblks_vec=self.nBlksVec,
             ndim=self.ndim,
         )
+        if self._dmesh is not None:
+            w = self._local_stack(weight)[0] if weight is not None else None
+            m = projection_ops.project_uniform(self._local_stack(field)[0], plan.grid_delta,
+                                               axis=axis, weight=w, mesh=self._dmesh)
+            coords = projection_ops.amr_coords(plan, axis)
+            return {"map": m, "coord1": coords[0], "coord2": coords[1]}
         w = self._field_stack(weight) if weight is not None else None
         maps, coords = projection_ops.project_amr(
             plan, {field: self._field_stack(field)}, axis=axis, weight=w

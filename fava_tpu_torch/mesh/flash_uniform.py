@@ -14,7 +14,7 @@ and ``from_arrays`` keep only this rank's x-slab of each field (``load``
 reads the slab straight from the file). These analyses then run on the
 slab and join by halos, packed all_reduces, all_gathers of row
 statistics or coarse masks and the pencil transform and its inverse,
-never of a whole field (ROADMAP A11a, A11d, A11e, A11f.1):
+never of a whole field (ROADMAP A11a, A11d, A11e, A11f):
 ``kinetic_energy_spectra``, ``flagship_analysis``, ``scalar_spectra``,
 ``fractal_dimension``, ``structure_functions`` and
 ``structure_function_exponents``, ``velocity_increment_pdfs``,
@@ -25,14 +25,14 @@ anisotropic and transfer spectra, ``pdf1d``, ``pdf2d``,
 ``filtered_kinetic_energy_flux``, ``two_point_correlation``,
 ``velocity_correlations``, ``helmholtz_decomposition``, ``vorticity``
 and ``dilatation`` (the last three return whole numpy fields, which they
-build on the host one slab at a time, ``SpaceRanks.host_volume``), and
-FLASH's profiles and volume sums (mesh/flash_amr.py, which a sharded
-``from_amr`` shares). ``flame_surface`` and ``projection``, like
-``data()``, get the whole volume by one all_gather on the space group:
-fava_tpu's numbers, as its partitioner gathers (ROADMAP A11f.2).
-``save`` gathers the slabs and writes from rank 0; ``from_amr`` gathers
-before it collapses. The streamed paths read the file whole on every
-rank.
+build on the host one slab at a time, ``SpaceRanks.host_volume``),
+``flame_surface`` (one halo plane along x), ``projection`` (one SUM
+along x, else the map's rows gathered), and FLASH's profiles, volume
+sums, PDFs and point sampling (mesh/flash_amr.py, which a sharded
+``from_amr`` shares). Only ``data()`` gets the whole volume (one
+all_gather on the space group); ``save`` gathers the slabs and writes
+from rank 0, and ``from_amr`` gathers before it collapses. The streamed
+paths read the file whole on every rank.
 ``reynolds_stress``, ``favre_profiles``, the slice profiles, ``mass_sum``
 and the volume averages are FLASH's: on one block profiled along x the
 profiles take the uniform fast case (K1/K2). The velocity diagnostics
@@ -829,12 +829,14 @@ class FlashUniform(FLASH):
         """Flame surface density of a progress variable: coarea-formula
         front area, wrinkling factor against the axis-normal
         cross-section, slab-resolved sigma(x) profile and gradient
-        flame thickness (ops/flame.flame_surface). Central differences,
-        right for the non-periodic flame axis."""
-        vol = self._scalar_volume(field)
+        flame thickness (ops/flame.flame_surface; rank-local under a
+        sharding mesh). Central differences, right for the non-periodic
+        flame axis."""
         lengths = self._domain_lengths()
-        deltas = [lengths[a] / vol.shape[a] for a in range(self.ndim)]
-        return flame_ops.flame_surface(vol, deltas, axis=axis)
+        shape = self._global_shape()
+        deltas = [lengths[a] / shape[a] for a in range(self.ndim)]
+        return flame_ops.flame_surface(self._local_volume(field), deltas, axis=axis,
+                                       mesh=self._dmesh)
 
     @timer
     def projection(
@@ -842,18 +844,25 @@ class FlashUniform(FLASH):
     ) -> Dict[str, Any]:
         """Line-of-sight projection map integral(field dl) along
         ``axis`` (column density for field="dens"); ``weight`` gives
-        the w-weighted line average (ops/projection.project_uniform).
-        The map is over the kept axes with cell-center coordinates (2D
-        datasets give a 1D column profile: "map" + "coord1")."""
-        vol = self._scalar_volume(field)
+        the w-weighted line average (ops/projection.project_uniform;
+        rank-local under a sharding mesh). The map is over the kept axes
+        with cell-center coordinates (2D datasets give a 1D column
+        profile: "map" + "coord1")."""
+        vol = self._local_volume(field)
         nd = vol.dim()
         lengths = self._domain_lengths()
-        deltas = [lengths[a] / vol.shape[a] for a in range(nd)]
-        w = self._scalar_volume(weight) if weight is not None else None
-        m = projection_ops.project_uniform(vol, deltas, axis=axis, weight=w)
+        shape = self._global_shape()
+        deltas = [lengths[a] / shape[a] for a in range(nd)]
+        w = self._local_volume(weight) if weight is not None else None
+        m = projection_ops.project_uniform(vol, deltas, axis=axis, weight=w, mesh=self._dmesh)
         b = np.asarray(self.domain_bounds, dtype=np.float64)
         keep = [a for a in range(nd) if a != axis]
         out: Dict[str, Any] = {"map": m}
         for i, a in enumerate(keep, start=1):
-            out[f"coord{i}"] = b[a, 0] + (np.arange(vol.shape[a]) + 0.5) * deltas[a]
+            out[f"coord{i}"] = b[a, 0] + (np.arange(shape[a]) + 0.5) * deltas[a]
         return out
+
+    def _global_shape(self):
+        """The whole volume's cells along each of the ``ndim`` axes (the
+        file's, not the rank's slab)."""
+        return (self.nxb, self.nyb, self.nzb)[: self.ndim]

@@ -15,7 +15,11 @@ numerator and the denominator separately: both are linear along the
 line of sight, so per-level contributions add exactly.
 
 Plain torch on the stacks' device with float64 sums: fava_tpu has no
-Pallas kernel here (XLA fuses it), so neither does the port.
+Pallas kernel here (XLA fuses it), so neither does the port. The uniform
+projection is one body over the x-slabs that a ``parallel.SpaceRanks``
+plays (``project_uniform_ranked``), so a volume slab-sharded over a
+device mesh projects without gathering: along x one SUM of the partial
+line sums, along y or z the map's rows joined.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from fava_tpu_torch.parallel import runtime
 from fava_tpu_torch.utils import accum_dtype
 
 
@@ -33,24 +38,70 @@ def project_uniform(
     deltas: Sequence[float],
     axis: int = 0,
     weight: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> np.ndarray:
     """Projection of one uniform volume: integral f dl (or the
     w-weighted line average when ``weight`` is given). 2D volumes
-    project to 1D column profiles."""
+    project to 1D column profiles. With ``mesh``, ``vol`` (and
+    ``weight``) are the rank's x-slab of a 3D volume slab-sharded over
+    the mesh's space axis (:func:`project_uniform_ranked`); every rank
+    gets the whole map."""
     nd = vol.dim()
     if nd not in (2, 3):
         raise ValueError(f"projection requires a 2D or 3D volume, got {nd}D")
     if not 0 <= axis < nd:
         raise ValueError(f"axis must be in [0, {nd}), got {axis}")
+    if mesh is not None and nd != 3:
+        raise ValueError("the sharded projection needs a 3D volume")
+    return project_uniform_ranked([vol], runtime.SpaceRanks(mesh), deltas, axis,
+                                  None if weight is None else [weight]).cpu().numpy()
+
+
+def _line_sums(vol: torch.Tensor, weight: Optional[torch.Tensor], axis: int) -> torch.Tensor:
+    """A slab's float64 sums along ``axis``: of f, or the stacked
+    numerator and denominator (integral w f, integral w) when weighted."""
     adt = accum_dtype()
     if weight is None:
-        out = torch.sum(vol, dim=axis, dtype=adt) * float(deltas[axis])
-    else:
-        wa = weight.to(adt)
-        num = torch.sum(vol.to(adt) * wa, dim=axis)
-        den = torch.sum(wa, dim=axis)
-        out = num / torch.where(den != 0, den, torch.ones_like(den))
-    return out.cpu().numpy()
+        return torch.sum(vol, dim=axis, dtype=adt)
+    wa = weight.to(adt)
+    return torch.stack([torch.sum(vol.to(adt) * wa, dim=axis), torch.sum(wa, dim=axis)])
+
+
+def _line_map(sums: torch.Tensor, weighted: bool, dx: float) -> torch.Tensor:
+    """The map from ``_line_sums``: times dl, or the numerator over the
+    denominator (a zero denominator divides by one)."""
+    if not weighted:
+        return sums * dx
+    num, den = sums[0], sums[1]
+    return num / torch.where(den != 0, den, torch.ones_like(den))
+
+
+def project_uniform_ranked(slabs, ranks: runtime.SpaceRanks, deltas: Sequence[float],
+                           axis: int = 0, weight_slabs=None) -> torch.Tensor:
+    """:func:`project_uniform` of the volume whose x-slabs ``ranks`` plays
+    (``weight_slabs`` in the same order), as a tensor. Along x every line
+    crosses every slab: each slab's float64 partial line sums (the
+    numerator and denominator packed when weighted), one SUM join, then
+    the map. Along y or z each line lies in one slab: each slab's rows of
+    the map, joined along x in rank order."""
+    weighted = weight_slabs is not None
+    weights = list(weight_slabs) if weighted else [None] * len(slabs)
+    dx = float(deltas[axis])
+    parts = [_line_sums(v, w, axis) for v, w in zip(slabs, weights)]
+    if axis == 0:
+        return _line_map(ranks.reduce(parts), weighted, dx)
+    return ranks.gather([_line_map(p, weighted, dx) for p in parts])
+
+
+def amr_coords(plan, axis: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The cell-center coordinates of the finest grid along the two axes
+    that a projection along ``axis`` keeps."""
+    keep = tuple(a for a in range(3) if a != axis)
+    return tuple(
+        (np.arange(int(plan.total_cells[a])) + 0.5) * float(plan.grid_delta[a])
+        + float(plan.domain_box[a, 0])
+        for a in keep
+    )
 
 
 def project_amr(
@@ -131,8 +182,4 @@ def project_amr(
     else:
         out = {name: m.cpu().numpy() for name, m in maps.items()}
 
-    coords = tuple(
-        (np.arange(out_cells[k]) + 0.5) * float(plan.grid_delta[a]) + float(plan.domain_box[a, 0])
-        for k, a in enumerate(keep)
-    )
-    return out, coords
+    return out, amr_coords(plan, axis)

@@ -20,7 +20,8 @@ the packed sums (ROADMAP A11d). So do the PDFs and ``binned_statistic``
 plays (``*_ranked``; a single device runs it on its one slab), with an
 auto range by one MIN all_reduce of the slabs' (min, -max), the local
 counts (``bincount``, B8) or float64 sums, and one SUM all_reduce a
-pass.
+pass. ``sample_points_ranked`` samples block stacks at cells, each rank
+the points that its x-rows hold, joined by one SUM (A11f.2).
 """
 
 from __future__ import annotations
@@ -434,3 +435,34 @@ def binned_statistic_ranked(xvalues, yvalues, ranks: runtime.SpaceRanks, *, nbin
     if weights is not None:
         out["weight_sums"] = norm
     return out
+
+
+def sample_points_ranked(stacks, ranks: runtime.SpaceRanks, blk, cells) -> torch.Tensor:
+    """(fields, points) float64 values at the cells ``cells`` (points x
+    ndim, grid indices along the block's axes) of the blocks ``blk``, of
+    the block stacks whose x-slabs ``ranks`` plays (``stacks[f][k]``:
+    slab k of field f, an (nblocks, rows, ...) stack holding the x cells
+    ``[r rows, (r + 1) rows)`` of each block for rank r). A point belongs
+    to the rank whose rows hold its x cell: each rank takes its own
+    points from its slab (``torch.take``) into a zero vector, and one SUM
+    joins them, exact, since each value has one contributor."""
+    blk = np.asarray(blk, dtype=np.int64)
+    cells = np.asarray(cells, dtype=np.int64).reshape(blk.size, -1)
+    parts = []
+    for k, r in enumerate(ranks.ranks):
+        slabs = [s[k] for s in stacks]
+        shape = tuple(slabs[0].shape)
+        device = slabs[0].device
+        i = cells[:, 0] - r * shape[1]
+        own = np.nonzero((i >= 0) & (i < shape[1]))[0]
+        idx = blk[own]
+        for a in range(1, len(shape)):
+            c = i[own] if a == 1 else (cells[own, a - 1] if a - 1 < cells.shape[1] else 0)
+            idx = idx * shape[a] + c
+        flat = torch.as_tensor(idx, device=device)
+        mine = torch.as_tensor(own, device=device)
+        vec = torch.zeros((len(slabs), blk.size), dtype=torch.float64, device=device)
+        for f, s in enumerate(slabs):
+            vec[f, mine] = torch.take(s, flat).to(torch.float64)
+        parts.append(vec)
+    return ranks.reduce(parts)

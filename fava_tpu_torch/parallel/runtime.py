@@ -20,7 +20,7 @@ spectra (ops/spectra.py:281-288). Any other volume is held whole on
 every rank and takes the single-device paths. This moves data, not
 numbers.
 
-Rank-local analyses (ROADMAP A11d, A11e, A11f.1): an analysis of a
+Rank-local analyses (ROADMAP A11d, A11e, A11f): every analysis of a
 sharded volume runs a body on the rank's x-slab and joins the bodies'
 contributions with a ``SpaceRanks``: the halo planes of a neighbour
 (``halo_x``), a packed all_reduce (``all_reduce_packed``), an all_gather
@@ -28,10 +28,9 @@ of per-row statistics, or the pencil transform and its inverse (the
 spectra, filtering, correlations and the Helmholtz fields), never of a
 whole field on the device. The analyses that return whole fields build
 them on the host one slab at a time (``SpaceRanks.host_volume``).
-``gather_slabs`` gathers a whole volume, for ``data()``, ``save``,
-``from_amr`` and the analyses that are not rank-local yet (ROADMAP
-A11f.2: the flame surface, the projections, the AMR mesh's PDFs and
-``sample_fields``).
+``gather_slabs`` gathers a whole volume, only for ``data()``, ``save``
+and ``from_amr``, which gather by design: rank 0 writes, and a source
+that is itself sharded is gathered before the regrid.
 
 Block and ingest placement (fava_tpu's ``block_sharding``,
 ``ingest_volume_sharding`` and ``ingest_sharding_fn``): a
@@ -240,8 +239,7 @@ def shard_volume(x, mesh=None, axis: int = 0) -> torch.Tensor:
 def gather_slabs(slab: torch.Tensor, mesh=None, dim: int = 0) -> torch.Tensor:
     """The whole volume from every space rank's x-slab along ``dim``: one
     all_gather on the space group, concatenated in rank order. Only
-    ``data()``, ``save``, ``from_amr`` and the analyses that are not
-    rank-local yet call it (ROADMAP A11f.2); the rank-local analyses join
+    ``data()``, ``save`` and ``from_amr`` call it; every analysis joins
     with ``SpaceRanks``."""
     mesh = mesh if mesh is not None else _MESH
     return _all_gather(slab, mesh, dim)

@@ -225,10 +225,14 @@ class Pipeline:
         return half_width, dx, transverse
 
     def _flam_or_rpv1(self) -> bool:
+        """Whether the loaded file carries ``rpv1`` (preferred) or ``flam``,
+        which becomes ``self.flam``. The mesh's own lookup answers
+        (``_local_data``: the field as this rank holds it), so a sharded
+        volume is not gathered to find it."""
         self.flam = "rpv1"
-        if self.model.mesh.data(self.flam) is None:
+        if self.model.mesh._local_data(self.flam) is None:
             self.flam = "flam"
-        return self.model.mesh.data(self.flam) is not None
+        return self.model.mesh._local_data(self.flam) is not None
 
     # ------------------------------------------------------------------
     # Stage 1: per-plt Reynolds stress + flame window

@@ -1540,3 +1540,34 @@ def test_regrid_slabs_equal_the_whole_regrid(cuda_device, tmp_path, parts):
     assert {k: v for k, v in ck.launch_counts().items() if v} == {"regrid_fields": parts}
     for k in names:
         assert torch.equal(torch.cat([sl[k] for sl in slabs]), whole[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 4, 8])
+@pytest.mark.parametrize("weight", ["volume", "mass"])
+def test_weighted_b8_on_stack_slabs_matches_plain(cuda_device, d, weight):
+    """The AMR-side pdf2d of a sharded ``from_amr`` output: the weighted B8
+    on each rank's (1, nx/d, ny, nz) slab of the stack and of its weights
+    (the cell volume, or times dens) against its plain twin on the same
+    float32 values in float64, one launch a slab, and the slabs' sums
+    against the plain twin on the whole stack (weighted sums rtol 1e-12)."""
+    dens, velx = (f[None] for f in _fields(cuda_device)[:2])
+    w = torch.full_like(dens, 0.125)
+    if weight == "mass":
+        w = w * dens
+    nx = dens.shape[1]
+    xe = np.linspace(float(dens.min()), float(dens.max()), 13)
+    ye = np.linspace(float(velx.min()), float(velx.max()), 11)
+    rows = nx // d
+    acc = torch.zeros((12, 10), dtype=torch.float64, device=cuda_device)
+    for r in range(d):
+        x, y, ws = (t.narrow(1, r * rows, rows) for t in (dens, velx, w))
+        ck.reset_launch_counts()
+        got = ck.pdf2d_counts(x, y, xe, ye, weights=ws)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in ck.launch_counts().items() if v} == {"pdf2d_weighted": 1}
+        ref = ck._pdf2d_plain(x.double(), y.double(), xe, ye, ws.double())
+        torch.testing.assert_close(got, ref, rtol=1e-12, atol=0)
+        acc += got
+    whole = ck._pdf2d_plain(dens.double(), velx.double(), xe, ye, w.double())
+    torch.testing.assert_close(acc, whole, rtol=1e-12, atol=0)
