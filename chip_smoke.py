@@ -114,21 +114,24 @@ no result):
    the one-pass (B11a) and row-chunked (B11b: K4's kernel through its
    own entry) folded binning on fava_tpu-style folds whose 7 pad rows
    hold NaN, and the fused z+y transform (B12) on sqrt(rho)*v_x against
-   their plain versions: B12's cluster FFT kernel (its ptxas report, and
-   each plan with its radices and occupancy, printed) at 512^3 and, on its
-   mixed-radix route, at the cuts 512x512x480, 512x480x512 and
-   512x384x375 (odd z), and its dense kernel at 512^3 and at the cut
-   512x512x502 (z = 2 x 251, which only it takes), each launched once,
-   against the float64 dense DFT and timed beside ``torch.fft.rfftn``
-   over y and z (the library call), and the FFT kernel's two-pass plan on
-   an (8, 1024, 1024) volume; then the spectra five ways, each with
+   their plain versions: B12's cluster FFT kernel (the ptxas report of
+   its three builds, and each plan with its radices and occupancy,
+   printed) at 512^3, on its mixed-radix route at the cuts 512x512x480,
+   512x480x512 and 512x384x375 (odd z), and on its chirp route
+   (Bluestein) at 512x512x502 (z = 2 x 251), 512x502x512, 512x509x509
+   (both axes, odd z) and 512x512x1 (no z transform), and the dense
+   kernel, on no route now, at 512^3 and 512x512x502 (the time before the
+   chirp route), each launched once, against the float64 dense DFT and
+   timed beside ``torch.fft.rfftn`` over y and z (the library call), and
+   the FFT kernel's two-pass plan on an (8, 1024, 1024) volume; then the
+   spectra five ways, each with
    counters: (a) the main path (cuFFT, powers, K3, K4), (b) one stacked
    cuFFT into B9, (c) B12 and cuFFT along x into B9, (d)/(e) the main
    path's powers and fold padded as fava_tpu pads it into B11a/B11b;
    counts exact and sums held to (a) and to phase 4's float64 CPU path;
-   then (c) on the fields cut to 512x512x480 (B12's cluster kernel) and to
-   512x512x502 (its dense kernel), each held to (a) on the same cut with
-   exact counts; each path's entry and its two stages timed by CUDA
+   then (c) on the fields cut to 512x512x480 (B12's mixed-radix route)
+   and to 512x512x502 (its chirp route), each held to (a) on the same cut
+   with exact counts; each path's entry and its two stages timed by CUDA
    events.
 19. Stage 4's fractal dimension and structure functions (run after
    phase 12) on the 512^3 window as stage 4 reads it: the plt file's
@@ -3143,28 +3146,32 @@ def fused_kernel_rows(torch, ck, fields, nbins):
     # B12 on sqrt(rho)*v_x and its cuts: the cluster FFT kernel (the
     # power-of-two route at 512^3; the mixed-radix route at 512x512x480 (z =
     # 15 x 16), 512x480x512 (y = 10 x 6 x 8) and 512x384x375 (odd z, rows
-    # paired)) and the dense kernel (512^3, and 512x512x502, whose factor 251
-    # only it takes) against the float64 dense DFT, each launched once and
-    # timed beside one cuFFT rfftn over the y and z axes (the library call).
-    # The kernels line's rows hold 512^3; their "shapes" the cuts.
+    # paired); the chirp route at 512x512x502 (z = 2 x 251: 251 in a
+    # 512-point convolution), 512x502x512 (y in 1024), 512x509x509 (both)
+    # and 512x512x1 (no z transform)) and the dense kernel, on no route, at
+    # 512^3 and 512x512x502 (the time the chirp route replaces) against the
+    # float64 dense DFT, each launched once and timed beside one cuFFT rfftn
+    # over the y and z axes (the library call). The kernels line's rows
+    # hold 512^3; their "shapes" the cuts.
     x = torch.sqrt(dens) * vels[0]
-    for line in ptxas_report("zy_fft_kernel"):
+    for line in ptxas_report("zy_fft_kernel", entries=True):  # builds <0> pow2, <1> mixed, <2> chirp
         say(f"phase 18 zy_fft_kernel ptxas: {line}")
     cuts = {"512^3": x, "512x512x480": x[..., :480], "512x480x512": x[:, :480],
-            "512x384x375": x[:, :384, :375], "512x512x502": x[..., :502]}
+            "512x384x375": x[:, :384, :375], "512x512x502": x[..., :502], "512x502x512": x[:, :502],
+            "512x509x509": x[:, :509, :509], "512x512x1": x[..., :1]}
     b12 = {}
     for cut, v in cuts.items():
         v = v.contiguous()
         vx, vy, vz = (int(n) for n in v.shape)
-        fft = ck._zy_uses_fft(v.shape)
-        names = ["zy_rfft_planar"] if fft else []
-        if not fft or cut == "512^3":
+        names = ["zy_rfft_planar"]
+        if cut in ("512^3", "512x512x502"):
             names.append("zy_rfft_planar_dense")
-        plan = ck._zy_fft_plan(vy, vz) if fft else None
-        if fft:
-            say(f"phase 18 zy_rfft_planar plan at {cut}: cluster {plan.cluster}, tile {plan.tile}, passes "
-                f"{plan.passes}, rows {plan.rows}, row batch {plan.batch}, shared bytes {plan.smem}, active "
-                f"clusters {ck.zy_fft_active_clusters(plan)}; radices z {plan.radices_z} y {plan.radices_y}")
+        plan = ck._zy_fft_plan(vy, vz)
+        say(f"phase 18 zy_rfft_planar plan at {cut}: cluster {plan.cluster}, tile {plan.tile}, passes "
+            f"{plan.passes}, rows {plan.rows}, row batch {plan.batch}, shared bytes {plan.smem}, active "
+            f"clusters {ck.zy_fft_active_clusters(plan)}; radices z {plan.radices_z} y {plan.radices_y}; "
+            f"transform lengths z {plan.mz} y {plan.my} (chirp z {plan.chirp_z}, y {plan.chirp_y}, tables in "
+            f"{'global' if plan.chirp_global else 'shared'} memory)")
         ref = ck._zy_rfft_plain(v.double())
         scale = max(float(r.abs().max()) for r in ref)
         work = (4 * v.numel() + 8 * vx * vy * (vz // 2 + 1), zy_fft_ops(vx, vy, vz))
@@ -3422,15 +3429,15 @@ def phase_fused(torch, np, fields, ref_spectra):
             np, out, ref, floor, f"{key} vs float64", 18,
             bound_of=lambda k, b=max(bounds[p], TOL_SPECTRA): b)
     times = {"stages_ms": fused_path_ms(torch, fields, nbins), "errors": errs}
-    for nz, b12 in ((480, "zy_rfft_planar"), (502, "zy_rfft_planar_dense")):
-        times[f"cut_512x512x{nz}"] = cut_route_path(torch, ck, fields, totals, nz, b12)
+    for nz in (480, 502):
+        times[f"cut_512x512x{nz}"] = cut_route_path(torch, ck, fields, totals, nz, "zy_rfft_planar")
     return rows, totals, times
 
 
 def cut_route_path(torch, ck, fields, totals, nz, b12):
     """Path (c) on the fields cut to 512x512xnz, where B12 takes ``b12`` (3
     launches): z = 480 = 2^5 x 3 x 5 the cluster FFT kernel's mixed-radix
-    route, z = 502 = 2 x 251 the dense kernel; held to path (a) on the same
+    route, z = 502 = 2 x 251 its chirp route; held to path (a) on the same
     cut, counts exact; one warm run timed (CUDA events)."""
     from fava_tpu_torch.experiments import planar_dft
     from fava_tpu_torch.ops.spectra import rfft_shell_sums

@@ -13,13 +13,15 @@
 // planes: 0.54 GB in and 0.54 GB out at 512^3, 0.32 ms at 3.35 TB/s. Done as
 // FFTs its arithmetic is 6 GFLOP (0.09 ms at 67 TFLOP/s f32).
 //
-// Two routes, chosen by shape alone (_zy_uses_fft in ops/cuda_kernels.py):
-//   zy_fft_kernel, a cluster FFT, for 7-smooth ny (1..1024) and nz
-//     (2..1024): extents whose prime factors are all <= 7, which FLASH's
-//     nxb x nblocks x 2^L gives for block counts of 3, 5 or 6 (384, 480,
-//     640, 768, ...) as well as for powers of two;
-//   zy_rfft_kernel, a dense DFT, for the rest (a prime factor above 7, as
-//     502 = 2 x 251 or 509, and nz = 1), up to 1024.
+// zy_fft_kernel, a cluster FFT, takes every ny and nz in 1..1024
+// (zy_rfft_fits in ops/cuda_kernels.py). Extents whose prime factors are
+// all <= 7 (FLASH's nxb x nblocks x 2^L for block counts of 3, 5 or 6:
+// 384, 480, 640, 768, ..., and powers of two) take mixed-radix passes; an
+// extent with a prime factor above 7 (block counts of 11 or 13, windows
+// cut at any width: 502 = 2 x 251, 509, 511 = 7 x 73) is a chirp axis,
+// transformed by Bluestein's algorithm in the same kernel (chirp_run);
+// nz = 1 has no z transform. zy_rfft_kernel, a dense DFT, stays callable
+// on no route, as the time the chirp route replaced.
 //
 // zy_fft_kernel. The TPU kept a slab's intermediate Z (1 MB at 512^2) in
 // VMEM; here a thread-block cluster keeps it in its blocks' shared memory,
@@ -72,8 +74,8 @@
 // 5), odd parts first, so that the first pass's global loads run along
 // rows. The output digit reversal is mixed radix (fft_pos). Where the
 // passes, batches and slot ranges are powers of two (power-of-two ny and
-// nz: zy_fft_kernel<true>) work items are split by shifts; otherwise
-// (zy_fft_kernel<false>) by multiplying with magic numbers (Dv<false>) that
+// nz: zy_fft_kernel<kPow2>) work items are split by shifts; otherwise
+// (zy_fft_kernel<kMixed>, <kChirp>) by multiplying with magic numbers (Dv<false>) that
 // the tables carry, one per divisor of the plan: a pass gives each thread
 // about one item, and integer division per item (~20 instructions each,
 // two an item) cost 1.58 against 1.46 ms at 512 x 512 x 480 on an H100.
@@ -82,6 +84,23 @@
 // 1024, 1024) (--designs, bit-equal). Rows and slots are shared out
 // unevenly (floor(r ny / C), floor(u slots / (C P))) when C or C P does not
 // divide them. Cluster sizes and pass counts stay powers of two.
+//
+// Chirp axes (zy_fft_kernel<kChirp>, an instantiation of its own, so that
+// the other two compile as before: the mixed-radix build sits at 128
+// registers, where ptxas spilled on small changes). An n-point axis
+// becomes an m-point circular convolution with the chirp exp(i pi k^2 /
+// n), m >= 2n - 1 and 7-smooth (_chirp_length: <= 2048, at least two
+// passes): the premultiply as the first DIF pass reads the rows (zeros past
+// n), the DIF passes, the filter (the convolution kernel's transform,
+// digit-reversed) in one pass with the last DIF and the first inverse pass,
+// the inverse passes on the conjugated data reading digit-reversed and
+// leaving natural order, and the postmultiply as the last of them writes
+// (chirp_run). Along z, phase 1's rows grow to m values (the post-process
+// then reads natural order); along y, each slot column holds my rows, the
+// rows past ny read as zeros. The chirp and filter tables (nt + mz, ny +
+// my float2) are copied into shared memory with the others where the
+// plan's budget holds them, and read from device memory (L2) otherwise
+// (gtab: 1021 x 1019 needs 49 KB of them).
 //
 // Twiddles: for the post-process and for each pass (W_L^(j t) at t L/R + j,
 // so lanes on consecutive j read consecutive entries), built once in device
@@ -95,13 +114,11 @@
 // that the cluster can be scheduled (cudaOccupancyMaxActiveClusters); it
 // returns an error otherwise.
 //
-// zy_rfft_kernel, the dense route: Z = A . [Cr | Ci] with Cr[z, k] =
+// zy_rfft_kernel, the dense kernel: Z = A . [Cr | Ci] with Cr[z, k] =
 // cos(2 pi z k / nz), Ci[z, k] = -sin(2 pi z k / nz), then Y = W . Z with
 // W[a, b] = exp(-2 pi i a b / ny). It does O(n) work per output where an FFT
 // does O(log n): 414 GFLOP per 512^3 volume, 6.2 ms at the f32 peak, far
-// over the bytes bound, so it serves only the shapes the FFT kernel does
-// not take (Bluestein's algorithm or a generic-radix pass would take them
-// too).
+// over the bytes bound; the chirp route took its last shapes.
 //
 // Design of the dense kernel. A block owns one slab and a tile of kTK = 16
 // kz columns: it computes Z[:, tile] (ny x 16 complex, 64 KB at ny = 512)
@@ -280,14 +297,23 @@ constexpr int kMaxStages = 10;  // ZY_MAX_STAGES in ops/cuda_kernels.py
 // kernel's static arrays (ZY_SMEM_MAX in ops/cuda_kernels.py).
 constexpr int kFftSmemMax = 232448 - 256;
 
+constexpr int kMaxLength = 2048;  // longest transform: a chirp axis's convolution (16 x 16 x 8)
+
 // The plan, as ZyFftPlan.as_ints() lays it out: rows is the most rows a
 // rank holds, batch the rows of a batch (even for odd nz), tile the most
-// slots a rank owns, rz and ry the radices of the z and y passes.
+// slots a rank owns, rz and ry the radices of the z and y passes; mz and my
+// the lengths of the z and y transforms (nt and ny, or a chirp axis's
+// convolution), gtab 1 when the chirp axes' tables stay in global memory.
 struct ZyFftPlan {
   int ny, nz, cluster, passes, rows, batch, tile, ws, es, work, smem, nrz, nry;
   int rz[kMaxStages], ry[kMaxStages];
+  int mz, my, gtab;
 };
 constexpr int kPlanHead = 13;  // ints before the radices
+
+// The kernel's builds: every divisor of the plan a power of two (shifts),
+// 7-smooth extents (divisors from the tables), and a chirp axis.
+enum ZyMode { kPow2, kMixed, kChirp };
 
 // The z transform's length (nz/2 for even nz, nz for odd) and the column
 // slots ((nz+1)/2 either way: nz/2 slots with kz 0 and nz/2 packed, or
@@ -297,16 +323,34 @@ __host__ __device__ __forceinline__ int zy_nslot(const ZyFftPlan& p) { return (p
 
 __host__ __device__ __forceinline__ bool pow2(int n) { return n >= 1 && (n & (n - 1)) == 0; }
 
-// Whether every divisor of the plan is a power of two: zy_fft_kernel<true>,
-// whose tables hold no divisors.
-__host__ __device__ __forceinline__ bool plan_pow2(const ZyFftPlan& p) {
-  return pow2(p.ny) && pow2(p.nz) && pow2(p.batch);
+// The lengths of the z and y transforms: nt and ny but on a chirp axis.
+template <int Mode>
+__host__ __device__ __forceinline__ int zy_mz(const ZyFftPlan& p) { return Mode == kChirp ? p.mz : zy_nt(p); }
+template <int Mode>
+__host__ __device__ __forceinline__ int zy_my(const ZyFftPlan& p) { return Mode == kChirp ? p.my : p.ny; }
+
+// The build of a plan: kPow2 where every divisor is a power of two (its
+// tables hold no divisors; nz >= 2, whose rows the build never pairs),
+// kChirp where an axis has a prime factor above 7.
+__host__ __device__ __forceinline__ int zy_mode(const ZyFftPlan& p) {
+  if (p.mz != zy_nt(p) || p.my != p.ny) return kChirp;
+  return pow2(p.ny) && pow2(p.nz) && p.nz > 1 && pow2(p.batch) ? kPow2 : kMixed;
 }
 
+// Whether an axis is a chirp axis (kChirp plans only), which leaves natural
+// order: no positions table, and along z no padding.
+template <int Mode>
+__host__ __device__ __forceinline__ bool chirp_z(const ZyFftPlan& p) { return Mode == kChirp && p.mz != zy_nt(p); }
+template <int Mode>
+__host__ __device__ __forceinline__ bool chirp_y(const ZyFftPlan& p) { return Mode == kChirp && p.my != p.ny; }
+
 // Phase 1's rows carry one padding slot per 2^v values, 2^v the power of two
-// in the first pass's span nt / R0 when v >= 2 (31: none).
+// in the first pass's span mz / R0 when v >= 2 (31: none), which spreads the
+// post-process's digit-reversed reads over the banks.
+template <int Mode>
 __host__ __device__ __forceinline__ int zy_pad(const ZyFftPlan& p) {
-  const int nt = zy_nt(p), span = p.nrz ? nt / p.rz[0] : nt;
+  if (chirp_z<Mode>(p)) return 31;
+  const int nt = zy_mz<Mode>(p), span = p.nrz ? nt / p.rz[0] : nt;
   int v = 0;
   while (v < 30 && !((span >> v) & 1)) ++v;
   return v >= 2 ? v : 31;
@@ -591,7 +635,8 @@ struct SlabRows {
   }
 };
 
-struct OutColumns {  // position e of column s holds output row ipos[e] of slot col0 + s
+template <bool Natural>
+struct OutColumns {  // position e of column s holds output row ipos[e] (Natural: e) of slot col0 + s
   float* re;  // the slab's planes
   float* im;
   const uint16_t* ipos;
@@ -602,7 +647,7 @@ struct OutColumns {  // position e of column s holds output row ipos[e] of slot 
       stash.store(s, e, v);
       return;
     }
-    const int o = ipos[e] * nzr + col0 + s;
+    const int o = (Natural ? e : ipos[e]) * nzr + col0 + s;
     re[o] = v.x;
     im[o] = v.y;
   }
@@ -614,8 +659,9 @@ struct OutColumns {  // position e of column s holds output row ipos[e] of slot 
 // tw[t L/R + j] (the pass's own table, so lanes on consecutive j read
 // consecutive twiddles), goes back to g L + t L/R + j. Work items run j
 // fastest while L/R >= 16 (lanes on consecutive elements), s fastest below
-// (lanes on sequences, whose strides are odd).
-template <int R, bool P2, class Src, class Dst>
+// (lanes on sequences, whose strides are odd). Dit: the twiddles before the
+// DFT, which undoes the DIF pass on conjugated data (chirp_run).
+template <int R, bool P2, bool Dit = false, class Src, class Dst>
 __device__ void fft_pass(const Src& src, const Dst& dst, int nt, int L, Dv<P2> subd, Dv<P2> slotd, int nseq,
                          const float2* tw) {
   const int sub = subd.d;
@@ -631,8 +677,12 @@ __device__ void fft_pass(const Src& src, const Dst& dst, int nt, int L, Dv<P2> s
     float2 v[R];
 #pragma unroll
     for (int t = 0; t < R; ++t) v[t] = src.load(s, e0 + subd.mul(t));
+    if (Dit && sub > 1) {
+#pragma unroll
+      for (int t = 1; t < R; ++t) v[t] = cmul(v[t], tw[subd.mul(t) + j]);
+    }
     Dft<R>::run(v);
-    if (sub > 1) {
+    if (!Dit && sub > 1) {
 #pragma unroll
       for (int t = 1; t < R; ++t) v[t] = cmul(v[t], tw[subd.mul(t) + j]);
     }
@@ -641,30 +691,30 @@ __device__ void fft_pass(const Src& src, const Dst& dst, int nt, int L, Dv<P2> s
   }
 }
 
-template <bool P2, class Src, class Dst>
+template <bool P2, bool Dit = false, class Src, class Dst>
 __device__ void fft_pass_r(int r, const Src& src, const Dst& dst, int nt, int L, Dv<P2> subd, Dv<P2> slotd,
                            int nseq, const float2* tw) {
   if constexpr (P2) {
     switch (r) {
-      case 2: fft_pass<2, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
-      case 4: fft_pass<4, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
-      case 8: fft_pass<8, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
-      default: fft_pass<16, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 2: fft_pass<2, P2, Dit>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 4: fft_pass<4, P2, Dit>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 8: fft_pass<8, P2, Dit>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      default: fft_pass<16, P2, Dit>(src, dst, nt, L, subd, slotd, nseq, tw); break;
     }
   } else {
     switch (r) {
-      case 2: fft_pass<2, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
-      case 3: fft_pass<3, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
-      case 4: fft_pass<4, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
-      case 5: fft_pass<5, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
-      case 6: fft_pass<6, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
-      case 7: fft_pass<7, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
-      case 8: fft_pass<8, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
-      case 10: fft_pass<10, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
-      case 12: fft_pass<12, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
-      case 14: fft_pass<14, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
-      case 15: fft_pass<15, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
-      default: fft_pass<16, P2>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 2: fft_pass<2, P2, Dit>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 3: fft_pass<3, P2, Dit>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 4: fft_pass<4, P2, Dit>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 5: fft_pass<5, P2, Dit>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 6: fft_pass<6, P2, Dit>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 7: fft_pass<7, P2, Dit>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 8: fft_pass<8, P2, Dit>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 10: fft_pass<10, P2, Dit>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 12: fft_pass<12, P2, Dit>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 14: fft_pass<14, P2, Dit>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      case 15: fft_pass<15, P2, Dit>(src, dst, nt, L, subd, slotd, nseq, tw); break;
+      default: fft_pass<16, P2, Dit>(src, dst, nt, L, subd, slotd, nseq, tw); break;
     }
   }
 }
@@ -706,6 +756,110 @@ __device__ __forceinline__ void fft_run(const Src& src, const SmemSeq& mid, cons
   }
 }
 
+// Bluestein's algorithm: an n-point DFT X[k] = conj(b[k]) sum_j (x[j]
+// conj(b[j])) b[k - j], b[j] = exp(i pi j^2 / n), as an m-point circular
+// convolution (m >= 2n - 1, 7-smooth, so m > 16 and nst >= 2). With the
+// table chirp[j] = conj(b[j]): ChirpIn premultiplies the n values and pads
+// them with zeros to m as the first of the m-point DIF passes reads them.
+// The filter pass runs the last DIF pass, multiplies by the filter F =
+// FFT_m(b over +-j) / m, stored in the passes' digit-reversed order, and
+// conjugates, then runs the first pass of the inverse. The inverse passes
+// undo the DIF passes in reverse order on the conjugated data (fft_pass with
+// Dit: the same twiddle tables, then the DFT), from digit-reversed to
+// natural order, so no permutation runs between the two transforms; they
+// leave the conjugate of the convolution, which ChirpOut conjugates back,
+// multiplies by chirp[k] and stores for k < n only. Each of these steps is
+// a loop of its own around Dft<R>, in the chirp build only.
+template <class Src>
+struct ChirpIn {  // value e of sequence s times chirp[e]; 0 for e >= n
+  Src src;
+  const float2* chirp;
+  int n;
+  __device__ __forceinline__ float2 load(int s, int e) const {
+    return e < n ? cmul(src.load(s, e), chirp[e]) : make_float2(0.0f, 0.0f);
+  }
+};
+
+template <class Dst>
+struct ChirpOut {  // output e = chirp[e] conj(v), for e < n only
+  Dst dst;
+  const float2* chirp;
+  int n;
+  __device__ __forceinline__ void store(int s, int e, float2 v) const {
+    if (e < n) dst.store(s, e, cmul(chirp[e], make_float2(v.x, -v.y)));
+  }
+};
+
+// The last DIF pass (sub-transforms of length R, no twiddles), the filter
+// and the conjugate, and the first inverse pass, on the same R values.
+template <int R>
+__device__ void filter_pass(const SmemSeq& buf, int m, Dv<false> slotd, int nseq, const float2* filt) {
+  const int items = m / R * slotd.d;
+  for (int w = threadIdx.x; w < items; w += kFftThreads) {
+    const int g = slotd.div(w), s = w - slotd.mul(g);
+    if (s >= nseq) continue;
+    const int e0 = g * R;
+    float2 v[R];
+#pragma unroll
+    for (int t = 0; t < R; ++t) v[t] = buf.load(s, e0 + t);
+    Dft<R>::run(v);
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      const float2 f = filt[e0 + t];
+      v[t] = make_float2(fmaf(v[t].x, f.x, -v[t].y * f.y), -fmaf(v[t].x, f.y, v[t].y * f.x));
+    }
+    Dft<R>::run(v);
+#pragma unroll
+    for (int t = 0; t < R; ++t) buf.store(s, e0 + t, v[t]);
+  }
+}
+
+__device__ void filter_pass_r(int r, const SmemSeq& buf, int m, Dv<false> slotd, int nseq, const float2* filt) {
+  switch (r) {
+    case 2: filter_pass<2>(buf, m, slotd, nseq, filt); break;
+    case 3: filter_pass<3>(buf, m, slotd, nseq, filt); break;
+    case 4: filter_pass<4>(buf, m, slotd, nseq, filt); break;
+    case 5: filter_pass<5>(buf, m, slotd, nseq, filt); break;
+    case 6: filter_pass<6>(buf, m, slotd, nseq, filt); break;
+    case 7: filter_pass<7>(buf, m, slotd, nseq, filt); break;
+    case 8: filter_pass<8>(buf, m, slotd, nseq, filt); break;
+    case 10: filter_pass<10>(buf, m, slotd, nseq, filt); break;
+    case 12: filter_pass<12>(buf, m, slotd, nseq, filt); break;
+    case 14: filter_pass<14>(buf, m, slotd, nseq, filt); break;
+    case 15: filter_pass<15>(buf, m, slotd, nseq, filt); break;
+    default: filter_pass<16>(buf, m, slotd, nseq, filt); break;
+  }
+}
+
+// The chirp transform of nseq sequences through mid (see ChirpIn): src is
+// a ChirpIn, dst a ChirpOut; a block barrier after each pass.
+template <class Src, class Dst>
+__device__ __forceinline__ void chirp_run(const Src& src, const SmemSeq& mid, const Dst& dst, int m,
+                                          const int* radices, int nst, const Dv<false>* subs, Dv<false> slotd,
+                                          int nseq, const float2* tw, const float2* filt) {
+  int L = m;
+  for (int i = 0; i < nst - 1; ++i) {
+    if (i == 0)
+      fft_pass_r<false>(radices[i], src, mid, m, L, subs[i], slotd, nseq, tw);
+    else
+      fft_pass_r<false>(radices[i], mid, mid, m, L, subs[i], slotd, nseq, tw);
+    tw += L;
+    L = subs[i].d;
+    __syncthreads();
+  }
+  filter_pass_r(radices[nst - 1], mid, m, slotd, nseq, filt);
+  __syncthreads();
+  for (int i = nst - 2; i >= 0; --i) {  // back through the tables: pass i's starts L_i before pass i+1's
+    L *= radices[i];
+    tw -= L;
+    if (i == 0)
+      fft_pass_r<false, true>(radices[i], mid, dst, m, L, subs[i], slotd, nseq, tw);
+    else
+      fft_pass_r<false, true>(radices[i], mid, mid, m, L, subs[i], slotd, nseq, tw);
+    __syncthreads();
+  }
+}
+
 // Where the passes leave X[k]: k's digits in the passes' radices, reversed
 // (digit i of k, k mod R_i after the lower digits, at span n / (R_0..R_i)).
 template <bool P2>
@@ -734,6 +888,13 @@ __device__ __forceinline__ float2 twiddle(int m, int len) {
   return make_float2((float)cs, (float)-sn);
 }
 
+// exp(-i pi k^2 / n), the angle from k^2 mod 2n in integers.
+__device__ __forceinline__ float2 chirp_entry(int k, int n) {
+  double sn, cs;
+  sincospi((double)((k * k) % (2 * n)) / n, &sn, &cs);
+  return make_float2((float)cs, (float)-sn);
+}
+
 // Entries of an n-point transform's pass tables: L for each pass, L the
 // sub-transform's length before the pass.
 __host__ __device__ __forceinline__ int pass_tables(int n, const int* radices, int nst) {
@@ -757,31 +918,77 @@ __device__ void build_pass_tables(float2* tw, int L, const int* radices, int nst
 
 // Bytes of a plan's tables, rounded up to 16: W_nz^k (k < nz/2, even nz
 // only), the z and y passes' tables (float2), the divisors (8 bytes each,
-// not for P2 plans), then the z positions and the y rows (16-bit: both
-// are < 2048).
+// not for kPow2 plans), then the z positions and the y rows (16-bit: both
+// are < 2048; none on a chirp axis).
+template <int Mode>
 __host__ __device__ __forceinline__ int table_bytes(const ZyFftPlan& p) {
-  const int nt = zy_nt(p), nw = (p.nz & 1) ? 0 : nt, ndv = plan_pow2(p) ? 0 : kDivs;
-  const int b = 8 * (nw + pass_tables(nt, p.rz, p.nrz) + pass_tables(p.ny, p.ry, p.nry) + ndv) +
-                2 * (nt + p.ny);
+  const int nt = zy_nt(p), nw = (p.nz & 1) ? 0 : nt, ndv = Mode == kPow2 ? 0 : kDivs;
+  const int b = 8 * (nw + pass_tables(zy_mz<Mode>(p), p.rz, p.nrz) + pass_tables(zy_my<Mode>(p), p.ry, p.nry) +
+                     ndv) +
+                2 * ((chirp_z<Mode>(p) ? 0 : nt) + (chirp_y<Mode>(p) ? 0 : p.ny));
   return (b + 15) & ~15;
+}
+
+// Bytes of the chirp axes' tables, after the others, rounded up to 16: on a
+// chirp z axis the chirp (nt) and the filter (mz), then on a chirp y axis
+// the chirp (ny) and the filter (my).
+__host__ __device__ __forceinline__ int chirp_bytes(const ZyFftPlan& p) {
+  const int nt = zy_nt(p);
+  const int b = 8 * ((p.mz != nt ? nt + p.mz : 0) + (p.my != p.ny ? p.ny + p.my : 0));
+  return (b + 15) & ~15;
+}
+
+// Bytes of a plan's tables before the chirp axes' ones, for its build
+// (table_bytes<kChirp> is table_bytes<kMixed> on a plan with no chirp axis).
+__host__ __device__ __forceinline__ int head_bytes(const ZyFftPlan& p) {
+  return zy_mode(p) == kPow2 ? table_bytes<kPow2>(p) : table_bytes<kChirp>(p);
+}
+
+// Bytes every block copies into its shared memory.
+__host__ __device__ __forceinline__ int shared_table_bytes(const ZyFftPlan& p) {
+  return head_bytes(p) + (p.gtab ? 0 : chirp_bytes(p));
+}
+
+// The n-point chirp (exp(-i pi k^2 / n), k < n) and the m-point filter
+// F[pos(k)] = (1/m) sum_j b[j] W_m^(j k), b[j] = exp(i pi j^2 / n) at j
+// and m - j (0 <= j < n): (1 + 2 sum_{0<j<n} b[j] cos(2 pi j k / m)) / m,
+// summed in double and rounded once.
+__device__ void build_chirp_tables(float2* chirp, float2* filt, int n, int m, const int* radices, int nst,
+                                   int first, int step) {
+  for (int k = first; k < n; k += step) chirp[k] = chirp_entry(k, n);
+  for (int k = first; k < m; k += step) {
+    double fr = 1.0, fi = 0.0;
+    for (int j = 1; j < n; ++j) {
+      double sn, cs;
+      sincospi((double)((j * j) % (2 * n)) / n, &sn, &cs);
+      const double c = 2.0 * cospi(2.0 * ((j * k) % m) / m);
+      fr += c * cs;
+      fi += c * sn;
+    }
+    filt[fft_pos<false>(k, m, radices, nst)] = make_float2((float)(fr / m), (float)(fi / m));
+  }
 }
 
 // The tables of a plan, built once in device memory (double sincospi,
 // rounded once to float); every block of the FFT kernel copies them into
-// its shared memory.
+// its shared memory, but for the chirp axes' tables of a gtab plan, which
+// it reads from device memory.
 __global__ void zy_fft_tables_kernel(float2* out, const ZyFftPlan p) {
-  const int nt = zy_nt(p), odd = p.nz & 1, pad = zy_pad(p);
+  const int nt = zy_nt(p), odd = p.nz & 1, pad = zy_pad<kChirp>(p);
+  const bool cz = chirp_z<kChirp>(p), cy = chirp_y<kChirp>(p);
   const int first = blockIdx.x * blockDim.x + threadIdx.x, step = gridDim.x * blockDim.x;
   float2* twpz = out + (odd ? 0 : nt);
-  float2* twpy = twpz + pass_tables(nt, p.rz, p.nrz);
-  Dv<false>* dvs = reinterpret_cast<Dv<false>*>(twpy + pass_tables(p.ny, p.ry, p.nry));
-  const int ndv = plan_pow2(p) ? 0 : kDivs;
+  float2* twpy = twpz + pass_tables(p.mz, p.rz, p.nrz);
+  Dv<false>* dvs = reinterpret_cast<Dv<false>*>(twpy + pass_tables(p.my, p.ry, p.nry));
+  const int ndv = zy_mode(p) == kPow2 ? 0 : kDivs;
   uint16_t* posz = reinterpret_cast<uint16_t*>(dvs + ndv);
-  uint16_t* iposy = posz + nt;
+  uint16_t* iposy = posz + (cz ? 0 : nt);
+  float2* chz = out + head_bytes(p) / 8;
+  float2* chy = chz + (cz ? nt + p.mz : 0);
   if (ndv && first == 0) {  // the mixed-radix kernel's divisors (kDvZ ...)
     for (int i = 0; i < kDivs; ++i) dvs[i] = make_dv(1);
-    for (int i = 0, L = nt; i < p.nrz; ++i) dvs[kDvZ + i] = make_dv(L /= p.rz[i]);
-    for (int i = 0, L = p.ny; i < p.nry; ++i) dvs[kDvY + i] = make_dv(L /= p.ry[i]);
+    for (int i = 0, L = p.mz; i < p.nrz; ++i) dvs[kDvZ + i] = make_dv(L /= p.rz[i]);
+    for (int i = 0, L = p.my; i < p.nry; ++i) dvs[kDvY + i] = make_dv(L /= p.ry[i]);
     const int nslot = zy_nslot(p), wide = nslot / p.passes;
     dvs[kDvSeqs] = make_dv(odd ? p.batch / 2 : p.batch);
     dvs[kDvSlots] = make_dv(nslot);
@@ -791,37 +998,51 @@ __global__ void zy_fft_tables_kernel(float2* out, const ZyFftPlan p) {
     dvs[kDvRankHi] = make_dv(p.tile);
   }
   // posz holds padded positions (zy_pad), which spread the post-process's
-  // digit-reversed reads over the banks.
+  // digit-reversed reads over the banks; a chirp axis leaves natural order
+  // and has no positions.
   for (int k = first; k < nt; k += step) {
     if (!odd) out[k] = twiddle(k, p.nz);
-    const int q = fft_pos<false>(k, nt, p.rz, p.nrz);
-    posz[k] = q + (q >> pad);
+    if (!cz) {
+      const int q = fft_pos<false>(k, nt, p.rz, p.nrz);
+      posz[k] = q + (q >> pad);
+    }
   }
-  for (int a = first; a < p.ny; a += step) iposy[fft_pos<false>(a, p.ny, p.ry, p.nry)] = a;
-  build_pass_tables(twpz, nt, p.rz, p.nrz, first, step);
-  build_pass_tables(twpy, p.ny, p.ry, p.nry, first, step);
+  if (!cy)
+    for (int a = first; a < p.ny; a += step) iposy[fft_pos<false>(a, p.ny, p.ry, p.nry)] = a;
+  build_pass_tables(twpz, p.mz, p.rz, p.nrz, first, step);
+  build_pass_tables(twpy, p.my, p.ry, p.nry, first, step);
+  if (cz) build_chirp_tables(chz, chz + nt, nt, p.mz, p.rz, p.nrz, first, step);
+  if (cy) build_chirp_tables(chy, chy + p.ny, p.ny, p.my, p.ry, p.nry, first, step);
 }
 
-template <bool P2>
+template <int Mode>
 __global__ void __launch_bounds__(kFftThreads, 2)
 zy_fft_kernel(const float* __restrict__ x, float* __restrict__ re, float* __restrict__ im,
               const float4* __restrict__ tables, const ZyFftPlan p, int vec) {
   namespace cg = cooperative_groups;
+  constexpr bool P2 = Mode == kPow2, Chirp = Mode == kChirp;
   cg::cluster_group cluster = cg::this_cluster();
   __shared__ int rz[kMaxStages], ry[kMaxStages];
   extern __shared__ float4 smem4[];
   const int ny = p.ny, nz = p.nz, nzr = nz / 2 + 1;
   const int odd = P2 ? 0 : nz & 1, nt = zy_nt(p), nslot = zy_nslot(p);
+  const int mz = zy_mz<Mode>(p), my = zy_my<Mode>(p);
   const int tid = threadIdx.x;
-  const int tb = table_bytes(p);
+  const int hb = table_bytes<Mode>(p), tb = hb + (Chirp && !p.gtab ? chirp_bytes(p) : 0);
   float2* twk = reinterpret_cast<float2*>(smem4);        // W_nz^k, k < nz/2 (even nz: the post-process)
   float2* twpz = twk + (odd ? 0 : nt);                   // the z passes' tables
-  float2* twpy = twpz + pass_tables(nt, p.rz, p.nrz);  // the y passes' tables
-  const Dv<false>* dvs = reinterpret_cast<const Dv<false>*>(twpy + pass_tables(ny, p.ry, p.nry));
+  float2* twpy = twpz + pass_tables(mz, p.rz, p.nrz);  // the y passes' tables
+  const Dv<false>* dvs = reinterpret_cast<const Dv<false>*>(twpy + pass_tables(my, p.ry, p.nry));
+  const bool cz = chirp_z<Mode>(p), cy = chirp_y<Mode>(p);
   const uint16_t* posz = reinterpret_cast<const uint16_t*>(dvs + (P2 ? 0 : kDivs));
-  const uint16_t* iposy = posz + nt;  // the y row the y passes leave at position m; posz padded
-  float2* cols = reinterpret_cast<float2*>(smem4 + tb / 16);  // ny x es: all rows of my slots
-  float2* work = cols + ny * p.es;                             // phase 1's row batch
+  const uint16_t* iposy = posz + (cz ? 0 : nt);  // the y row the y passes leave at position m
+  float2* cols = reinterpret_cast<float2*>(smem4 + tb / 16);  // my x es: all rows of my slots
+  float2* work = cols + my * p.es;                             // phase 1's row batch
+  // A chirp axis's chirp and filter (chirp_bytes), in shared memory or (gtab) in device memory.
+  const float2* chz = nullptr;
+  if constexpr (Chirp)
+    chz = reinterpret_cast<const float2*>(p.gtab ? tables + hb / 16 : smem4 + hb / 16);
+  const float2* chy = chz + (cz ? nt + mz : 0);
 
   const int c = p.cluster, rank = (int)cluster.block_rank(), pass = blockIdx.x / c;
   const int lc = __ffs(c) - 1, lparts = __ffs(p.passes * c) - 1;
@@ -844,12 +1065,21 @@ zy_fft_kernel(const float* __restrict__ x, float* __restrict__ re, float* __rest
 
   // Phase 1: this rank's rows, a batch at a time; each X[k] goes straight
   // into the shared memory of the rank that owns slot k.
-  const SmemSeq rows_mid{work, p.ws, 1, zy_pad(p)};
+  const SmemSeq rows_mid{work, p.ws, 1, zy_pad<Mode>(p)};
   const Dv<P2> slotd = divisor<P2>(odd ? p.batch >> 1 : p.batch, dvs, kDvSeqs, kDvSeqs);  // a full batch
   for (int b0 = 0; b0 < nrows; b0 += p.batch) {
     const int nb = min(p.batch, nrows - b0);
     const SlabRows<P2> rows_in{x + (slab * ny + row0 + b0) * nz, nz, vec, odd, nb};
-    fft_run<P2>(rows_in, rows_mid, rows_mid, nt, rz, p.nrz, dvs + kDvZ, slotd, odd ? (nb + 1) >> 1 : nb, twpz);
+    if constexpr (Chirp) {
+      const int nseq = odd ? (nb + 1) >> 1 : nb;
+      if (cz)
+        chirp_run(ChirpIn<SlabRows<P2>>{rows_in, chz, nt}, rows_mid, ChirpOut<SmemSeq>{rows_mid, chz, nt}, mz, rz,
+                  p.nrz, dvs + kDvZ, slotd, nseq, twpz, chz + nt);
+      else
+        fft_run<P2>(rows_in, rows_mid, rows_mid, mz, rz, p.nrz, dvs + kDvZ, slotd, nseq, twpz);
+    } else {
+      fft_run<P2>(rows_in, rows_mid, rows_mid, nt, rz, p.nrz, dvs + kDvZ, slotd, odd ? (nb + 1) >> 1 : nb, twpz);
+    }
     if (b0 == 0) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
     // Even nz: X[k] = E + W_nz^k O, E = (A + conj B) / 2, O = (A - conj B)
     // / 2i, A = Zc[k], B = Zc[nt - k]; X[0] = Re A + Im A and X[nt] = Re A
@@ -860,12 +1090,12 @@ zy_fft_kernel(const float* __restrict__ x, float* __restrict__ re, float* __rest
     for (int e = tid; e < nb * wp; e += kFftThreads) {
       const int row = wpd.div(e), k = cp0 + e - wpd.mul(row);
       const float2* w = work + (odd ? row >> 1 : row) * p.ws;
-      const float2 a = w[posz[k]];
+      const float2 a = w[cz ? k : posz[k]];
       float2 z;
       if (!odd && k == 0) {
         z = make_float2(a.x + a.y, a.x - a.y);
       } else {
-        const float2 b = w[posz[k == 0 ? 0 : nt - k]];
+        const float2 b = w[cz ? (k == 0 ? 0 : nt - k) : posz[k == 0 ? 0 : nt - k]];
         const float2 ev = make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y));
         const float2 od = make_float2(0.5f * (a.y + b.y), -0.5f * (a.x - b.x));
         z = odd ? (row & 1 ? od : ev) : cadd(ev, cmul(twk[k], od));
@@ -889,14 +1119,26 @@ zy_fft_kernel(const float* __restrict__ x, float* __restrict__ re, float* __rest
   if (cr1 > cr0) {
     const int tw = cr1 - cr0;  // p.tile or one less
     const SmemSeq cols_mid{cols, 1, p.es, 31};
-    const OutColumns cols_out{re + slab * ny * nzr, im + slab * ny * nzr, iposy, cols_mid, nzr, cr0, !odd};
-    fft_run<P2>(cols_mid, cols_mid, cols_out, ny, ry, p.nry, dvs + kDvY, divisor<P2>(tw, dvs, kDvRank, kDvRankHi), tw,
-                twpy);
+    float* const re_slab = re + slab * ny * nzr;
+    float* const im_slab = im + slab * ny * nzr;
+    const OutColumns<false> cols_out{re_slab, im_slab, iposy, cols_mid, nzr, cr0, !odd};
+    if constexpr (Chirp) {
+      const Dv<false> rankd = divisor<false>(tw, dvs, kDvRank, kDvRankHi);
+      if (cy)
+        chirp_run(ChirpIn<SmemSeq>{cols_mid, chy, ny}, cols_mid,
+                  ChirpOut<OutColumns<true>>{{re_slab, im_slab, nullptr, cols_mid, nzr, cr0, !odd}, chy, ny}, my,
+                  ry, p.nry, dvs + kDvY, rankd, tw, twpy, chy + ny);
+      else
+        fft_run<false>(cols_mid, cols_mid, cols_out, ny, ry, p.nry, dvs + kDvY, rankd, tw, twpy);
+    } else {
+      fft_run<P2>(cols_mid, cols_mid, cols_out, ny, ry, p.nry, dvs + kDvY, divisor<P2>(tw, dvs, kDvRank, kDvRankHi),
+                  tw, twpy);
+    }
     if (cr0 == 0 && !odd) {
       const int n = nz >> 1;
-      for (int a = tid; a < ny; a += kFftThreads) {
-        const float2 ca = cols[fft_pos<P2>(a, ny, ry, p.nry) * p.es];
-        const float2 cb = cols[fft_pos<P2>(a == 0 ? 0 : ny - a, ny, ry, p.nry) * p.es];
+      for (int a = tid; a < ny; a += kFftThreads) {  // a chirp y axis leaves natural order
+        const float2 ca = cols[(cy ? a : fft_pos<P2>(a, ny, ry, p.nry)) * p.es];
+        const float2 cb = cols[(cy ? (a == 0 ? 0 : ny - a) : fft_pos<P2>(a == 0 ? 0 : ny - a, ny, ry, p.nry)) * p.es];
         const int64_t o = (slab * ny + a) * nzr;
         re[o] = 0.5f * (ca.x + cb.x);
         im[o] = 0.5f * (ca.y - cb.y);
@@ -933,29 +1175,44 @@ bool radices_ok(int n, const int* radices, int nst) {
   return n == 1;
 }
 
+// An n-point axis transformed at length m by the given passes: m = n for
+// 7-smooth n, else a chirp axis's convolution (7-smooth m >= 2n - 1, at
+// least two passes for chirp_run).
+bool axis_ok(int n, int m, const int* radices, int nst) {
+  if (m == n) return smooth7(n) && radices_ok(n, radices, nst);
+  return !smooth7(n) && smooth7(m) && m >= 2 * n - 1 && m <= kMaxLength && nst >= 2 && radices_ok(m, radices, nst);
+}
+
 // Whether the plan is one _zy_fft_plan could make: every shared-memory
 // index the kernel forms stays inside what the launch gives it.
 bool plan_ok(const ZyFftPlan& p) {
-  if (!smooth7(p.ny) || p.ny > kMaxExtent || !smooth7(p.nz) || p.nz < 2 || p.nz > kMaxExtent) return false;
+  if (p.ny < 1 || p.ny > kMaxExtent || p.nz < 1 || p.nz > kMaxExtent) return false;
   if (!pow2(p.cluster) || p.cluster > 16 || p.cluster > p.ny || p.rows != (p.ny + p.cluster - 1) / p.cluster)
     return false;
   const int nt = zy_nt(p), nslot = zy_nslot(p), odd = p.nz & 1, parts = p.cluster * p.passes;
   if (!pow2(p.passes) || p.passes > nslot || p.batch < 1 || p.batch > p.rows + odd || (odd && p.batch % 2))
     return false;
-  if (pow2(p.ny) && pow2(p.nz) && !pow2(p.batch)) return false;  // shifts need a power-of-two batch
+  if (pow2(p.ny) && pow2(p.nz) && p.nz > 1 && !pow2(p.batch)) return false;  // shifts need a power-of-two batch
   if (p.tile != (nslot + parts - 1) / parts || p.es < p.tile || p.work < (odd ? p.batch / 2 : p.batch) * p.ws)
     return false;
-  if (!radices_ok(nt, p.rz, p.nrz) || !radices_ok(p.ny, p.ry, p.nry)) return false;
-  const int pad = zy_pad(p);
-  if (p.ws < nt + ((nt - 1) >> pad)) return false;
+  if (!axis_ok(nt, p.mz, p.rz, p.nrz) || !axis_ok(p.ny, p.my, p.ry, p.nry)) return false;
+  if (p.gtab != 0 && (p.gtab != 1 || zy_mode(p) != kChirp)) return false;
+  const int pad = zy_pad<kChirp>(p);
+  if (p.ws < p.mz + ((p.mz - 1) >> pad)) return false;
   if ((long long)nslot * (parts + 1) > 65536) return false;  // the slot owners' dividend (Dv<false>)
-  const long long smem = table_bytes(p) + 8LL * ((long long)p.ny * p.es + p.work);
+  const long long smem = shared_table_bytes(p) + 8LL * ((long long)p.my * p.es + p.work);
   return smem == p.smem && smem <= kFftSmemMax;
 }
 
 using FftKernel = void (*)(const float*, float*, float*, const float4*, const ZyFftPlan, int);
 
-FftKernel fft_kernel(const ZyFftPlan& p) { return plan_pow2(p) ? zy_fft_kernel<true> : zy_fft_kernel<false>; }
+FftKernel fft_kernel(const ZyFftPlan& p) {
+  switch (zy_mode(p)) {
+    case kPow2: return zy_fft_kernel<kPow2>;
+    case kMixed: return zy_fft_kernel<kMixed>;
+    default: return zy_fft_kernel<kChirp>;
+  }
+}
 
 // The launch configuration of a plan over nx slabs: one cluster of C
 // blocks for each (pass, slab); the attributes set on the kernel.
@@ -988,6 +1245,9 @@ ZyFftPlan read_plan(const int* v) {
     p.rz[i] = v[kPlanHead + i];
     p.ry[i] = v[kPlanHead + kMaxStages + i];
   }
+  p.mz = v[kPlanHead + 2 * kMaxStages];
+  p.my = v[kPlanHead + 2 * kMaxStages + 1];
+  p.gtab = v[kPlanHead + 2 * kMaxStages + 2];
   return p;
 }
 
@@ -1047,10 +1307,11 @@ int fava_zy_fft_tables(const int* plan, void* out, void* stream) {
   return launch_status();
 }
 
-// Bytes of the plan's tables, or -1 for a plan that does not hold.
+// Bytes of the plan's tables (the chirp axes' ones included), or -1 for a
+// plan that does not hold.
 int fava_zy_fft_table_bytes(const int* plan) {
   const ZyFftPlan p = read_plan(plan);
-  return plan_ok(p) ? table_bytes(p) : -1;
+  return plan_ok(p) ? head_bytes(p) + chirp_bytes(p) : -1;
 }
 
 // Clusters of the plan that fit the card at once, or -(error code).

@@ -5,15 +5,16 @@ kernel did the z-rfft and the y-DFT of an x-slab in one pass, keeping the
 slab's intermediate in VMEM. Here that kernel is B12
 (``ops.cuda_kernels.zy_rfft_planar``, ``csrc/dft_kernels.cu``): a
 cluster FFT kernel that keeps the slab's intermediate in a thread-block
-cluster's shared memory, for y and z extents with no prime factor above
-7, and the dense DFT kernel for other shapes; the dense DFT products of ``ops/dft.py`` are
-the plain twin on the CPU. The x axis, which fava_tpu contracted with a
+cluster's shared memory, for every y and z extent up to 1024 (mixed
+radix, or Bluestein's algorithm for an extent with a prime factor above
+7); the dense DFT products of ``ops/dft.py`` are the plain twin on the
+CPU. The x axis, which fava_tpu contracted with a
 dense einsum, is cuFFT (``torch.fft.fft``).
 
 ``use_fused_zy(shape)`` is the kernels' own size check
 (``ops.cuda_kernels.zy_rfft_fits``): fava_tpu's gate (multiples of 128,
-ny*nz <= 512^2) was its matrix unit's tiling and VMEM; here both kernels
-take y and z extents up to 1024.
+ny*nz <= 512^2) was its matrix unit's tiling and VMEM; here the kernel
+takes y and z extents up to 1024.
 """
 
 from __future__ import annotations

@@ -28,7 +28,7 @@ wrapper                           replaces (fava_tpu/ops/, fava_tpu/experiments/
 ``shell_bin_sums_folded_onepass`` ``pallas_kernels.py:_shell_kernel_folded`` (:758)
 ``shell_bin_values_folded_rows``  ``pallas_kernels.py:_shell_kernel_folded_v2`` (:851)
 ``zy_rfft_planar``                ``pallas_dft.py:_zy_rfft_kernel`` (:53)
-``_zy_rfft_dense``                the same, shapes off the FFT kernel's route
+``_zy_rfft_dense``                the same, dense DFT (on no route; a yardstick)
 ================================  ==============================================
 
 The shell binnings take 1 to WALK_MAX_BINS shells: past SHELL_MAX_BINS
@@ -840,8 +840,10 @@ def shell_bin_powers_fused(re_stack, im_stack, nbins: int, full_nz: int):
 
 
 # ---------------------------------------------------------------------------
-# B12: the fused z-rfft + y-DFT of a real volume. 7-smooth y and z extents
-# take the cluster FFT kernel; every other shape the dense one.
+# B12: the fused z-rfft + y-DFT of a real volume. Every shape within
+# ``zy_rfft_fits`` takes the cluster FFT kernel: y and z extents with a
+# prime factor above 7 by Bluestein's algorithm (a chirp axis). The dense
+# kernel stays callable (``_zy_rfft_dense``) on no route.
 
 ZY_MAX_EXTENT = 1024  # largest y and z extent of both kernels (csrc/dft_kernels.cu)
 ZY_MAX_SLABS = 65535  # largest x extent (the launch grid's y extent)
@@ -855,12 +857,16 @@ ZY_DIVS = 2 * ZY_MAX_STAGES + 6  # kDivs: the mixed-radix kernel's divisors in i
 
 def zy_rfft_fits(shape) -> bool:
     """Whether B12 takes a real volume of this shape: 3D, x extent
-    1..65535, y and z extents 1..1024, any parity (the cluster FFT kernel
-    for 7-smooth y and z >= 2, the dense kernel for the rest)."""
+    1..65535, y and z extents 1..1024, any parity and any factors (the
+    cluster FFT kernel, a chirp axis for a prime factor above 7)."""
     if len(shape) != 3:
         return False
     nx, ny, nz = (int(s) for s in shape)
     return 1 <= nx <= ZY_MAX_SLABS and 1 <= ny <= ZY_MAX_EXTENT and 1 <= nz <= ZY_MAX_EXTENT
+
+
+# The route of a shape: every shape B12 takes goes through the cluster FFT kernel.
+_zy_uses_fft = zy_rfft_fits
 
 
 def _smooth7(n: int) -> bool:
@@ -873,14 +879,21 @@ def _smooth7(n: int) -> bool:
     return n == 1
 
 
-def _zy_uses_fft(shape) -> bool:
-    """The route of a shape within ``zy_rfft_fits``: the cluster FFT kernel
-    for 7-smooth ny (>= 1) and nz (>= 2), the dense kernel otherwise (a
-    prime factor above 7 in y or z, as 502 = 2 x 251 or 509, or nz = 1)."""
-    if not zy_rfft_fits(shape):
-        return False
-    _nx, ny, nz = (int(s) for s in shape)
-    return _smooth7(ny) and _smooth7(nz) and nz >= 2
+def _chirp_length(n: int) -> int:
+    """The length of the kernel's transform of an n-point axis: n itself
+    when n is 7-smooth; otherwise (a chirp axis, Bluestein's algorithm)
+    the circular convolution's length M >= 2n - 1: the 7-smooth number up
+    to the power of two above 2n - 2 with the fewest passes, the smallest
+    of those, or that power of two when it is within 1/8 of it and takes
+    no more passes (504 -> 512, 1008 -> 1024: radix-8 and -16 passes cost
+    less than odd ones; 601 -> 630 = 15 x 7 x 6, not 625 = 5^4). At most
+    2048 for n <= 1024."""
+    if _smooth7(n):
+        return n
+    lo = 2 * n - 1
+    p2 = 1 << (lo - 1).bit_length()
+    m = min((k for k in range(lo, p2 + 1) if _smooth7(k)), key=lambda k: (len(_radices(k)), k))
+    return p2 if 8 * m > 7 * p2 and len(_radices(p2)) <= len(_radices(m)) else m
 
 
 @lru_cache(maxsize=None)
@@ -917,15 +930,21 @@ class ZyFftPlan:
     [r ny // C, (r+1) ny // C) (at most ``rows``) along z, ``batch`` rows at
     a time in its work buffer (row stride ``ws``), and stores each X[k] into
     the shared memory of the rank that owns slot k: rank r owns the slots
-    [bound(p C + r), bound(p C + r + 1)) (at most ``tile``) and holds all ny
-    rows of them (row stride ``es``). After one cluster barrier each rank
-    transforms its slots along y in place and writes them out (even nz:
-    slot 0 split into kz = 0 and nz/2 after its transform). Odd nz pairs
-    the rows of a batch (``batch`` even) as x[a] + i x[b] in one nz-point
-    transform. Strides are odd, so lanes that step by them hit distinct
-    banks. Cluster sizes and pass counts are powers of two; where ny and nz
-    are too, so are batches and slot ranges, and the kernel splits its work
-    items with shifts."""
+    [bound(p C + r), bound(p C + r + 1)) (at most ``tile``) and holds all
+    ``my`` rows of them (row stride ``es``). After one cluster barrier each
+    rank transforms its slots along y in place and writes them out (even
+    nz: slot 0 split into kz = 0 and nz/2 after its transform). Odd nz
+    pairs the rows of a batch (``batch`` even) as x[a] + i x[b] in one
+    nz-point transform. Strides are odd, so lanes that step by them hit
+    distinct banks. Cluster sizes and pass counts are powers of two; where
+    ny and nz (>= 2) are too, so are batches and slot ranges, and the
+    kernel splits its work items with shifts.
+
+    A chirp axis (its transform length nt or ny has a prime factor above
+    7) runs Bluestein's algorithm: the transform of length ``mz`` (or
+    ``my``) > nt is a circular convolution with the chirp, whose tables sit
+    in global memory when ``chirp_global`` and in shared memory otherwise;
+    the other axis keeps mz = nt (my = ny)."""
 
     ny: int
     nz: int
@@ -938,8 +957,11 @@ class ZyFftPlan:
     es: int
     work: int  # float2 elements of the row-batch buffer
     smem: int  # dynamic shared bytes of a block
-    radices_z: Tuple[int, ...]  # radix passes of the nt-point z transform
-    radices_y: Tuple[int, ...]  # radix passes of the ny-point y transform
+    radices_z: Tuple[int, ...]  # radix passes of the mz-point z transform
+    radices_y: Tuple[int, ...]  # radix passes of the my-point y transform
+    mz: int  # length of the z transform: nt, or a chirp axis's convolution
+    my: int  # length of the y transform: ny, or a chirp axis's convolution
+    chirp_global: bool  # the chirp axes' tables read from global memory
 
     @property
     def odd(self) -> bool:
@@ -947,8 +969,8 @@ class ZyFftPlan:
 
     @property
     def nt(self) -> int:
-        """Length of the z transform: nz/2 complex values a row for even
-        nz, nz for a pair of rows for odd nz."""
+        """Length of the z DFT: nz/2 complex values a row for even nz, nz
+        for a pair of rows for odd nz."""
         return self.nz if self.odd else self.nz // 2
 
     @property
@@ -957,6 +979,14 @@ class ZyFftPlan:
         = 0 and nz/2 packed as one complex column, slot u > 0 kz = u), and
         (nz+1)/2 for odd nz (slot u holds kz = u)."""
         return (self.nz + 1) // 2
+
+    @property
+    def chirp_z(self) -> bool:
+        return self.mz != self.nt
+
+    @property
+    def chirp_y(self) -> bool:
+        return self.my != self.ny
 
     def bound(self, u: int) -> int:
         """First column slot of range u of the passes * cluster ranges."""
@@ -973,58 +1003,84 @@ class ZyFftPlan:
 
         head = (self.ny, self.nz, self.cluster, self.passes, self.rows, self.batch, self.tile,
                 self.ws, self.es, self.work, self.smem, len(self.radices_z), len(self.radices_y))
-        return head + pad(self.radices_z) + pad(self.radices_y)
+        return head + pad(self.radices_z) + pad(self.radices_y) + (self.mz, self.my,
+                                                                   int(self.chirp_global))
 
 
-def _zy_pad(nt: int, radices: Tuple[int, ...]) -> Optional[int]:
+def _zy_pad(n: int, radices: Tuple[int, ...]) -> Optional[int]:
     """Phase 1's rows carry one padding slot per 2^v values, 2^v the power
-    of two in the first pass's span nt / R0, when v >= 2 (zy_pad in the
-    kernel): the post-process reads the digit-reversed result at strides of
-    that span, which the padding makes odd. None: no padding (an odd span
-    strides the banks already; for 2 a two-way conflict costs less than a
-    third more buffer)."""
-    span = nt // radices[0] if radices else nt
+    of two in the first pass's span n / R0 (n the z transform's length,
+    mz), when v >= 2 (zy_pad in the kernel): the post-process reads the
+    digit-reversed result at strides of that span, which the padding makes
+    odd. None: no padding (an odd span strides the banks already; for 2 a
+    two-way conflict costs less than a third more buffer)."""
+    span = n // radices[0] if radices else n
     v = (span & -span).bit_length() - 1
     return v if v >= 2 else None
 
 
-def _fit_plan(ny: int, nz: int, cluster: int, passes: int, budget: int) -> Optional[ZyFftPlan]:
+def _round16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def _fit_plan(ny: int, nz: int, cluster: int, passes: int, budget: int,
+              chirp_global: bool = False) -> Optional[ZyFftPlan]:
     """The plan of this cluster size and pass count within ``budget``
-    shared bytes, or None: a rank's slots (all ny rows of them) and the
+    shared bytes, or None: a rank's slots (all ``my`` rows of them) and the
     largest batch of rows that fits beside the tables (the twiddles of the
-    post-process (even nz) and of each pass, then the z positions and the y
-    rows in 16 bits, 16-byte rounded: ``_zy_fft_tables``; plans with a
-    non-power-of-two extent add the kernel's divisors, 8 bytes each). Batches are the
-    rank's most rows split into 1, 2, 4, ... even parts (rounded up to even
-    for odd nz, whose batches hold pairs of rows); ``passes`` is a power of
-    two <= the slots, and every range of slots is ``tile`` or one less wide
-    (0 or 1 when there are fewer slots than ranges)."""
+    post-process (even nz) and of each pass, the kernel's divisors (8 bytes
+    each, for plans with an extent that is not a power of two or nz = 1),
+    then the z positions and the y rows in 16 bits (none on a chirp axis,
+    which leaves natural order; its rows are not padded), 16-byte rounded; then
+    a chirp axis's chirp (nt or ny entries) and filter (mz or my), unless
+    ``chirp_global``: ``_zy_fft_tables``). Batches are the rank's most rows
+    split into 1, 2, 4, ... even parts (rounded up to even for odd nz, whose
+    batches hold pairs of rows); with a chirp axis, into the fewest even
+    parts that fit (512x512x502 on an H100: 8 rows, 2.68 ms, against 4 rows,
+    3.22; probe_zy_fft.py --chirp); ``passes`` is a power of two <= the slots,
+    and every range of slots is ``tile`` or one less wide (0 or 1 when
+    there are fewer slots than ranges). None too where the slot owners'
+    dividend would pass 2^16 (plan_ok)."""
     odd = nz % 2
     nt, nslot = (nz if odd else nz // 2), (nz + 1) // 2
+    if nslot * (passes * cluster + 1) > 1 << 16:
+        return None
+    mz, my = _chirp_length(nt), _chirp_length(ny)
+    chirp = 8 * ((nt + mz) * (mz != nt) + (ny + my) * (my != ny))  # bytes of the chirp tables
+    if chirp_global and not chirp:
+        return None
     tile = -(-nslot // (passes * cluster))
     rows = -(-ny // cluster)
-    radices_z, radices_y = _radices(nt), _radices(ny)
-    pad = _zy_pad(nt, radices_z)
-    ws = (nt + ((nt - 1) >> pad if pad is not None else 0)) | 1
+    radices_z, radices_y = _radices(mz), _radices(my)
+    pad = _zy_pad(mz, radices_z) if mz == nt else None  # a chirp axis leaves natural order
+    ws = (mz + ((mz - 1) >> pad if pad is not None else 0)) | 1
     es = tile | 1
     post = 0 if odd else nt
-    divs = 0 if ny & (ny - 1) == 0 and nz & (nz - 1) == 0 else ZY_DIVS
-    tables = -(-(8 * (post + _pass_tables(nt, radices_z) + _pass_tables(ny, radices_y) + divs)
-                 + 2 * (nt + ny)) // 16) * 16
-    room = budget - tables - 8 * ny * es
-    parts = 1
-    while True:
-        batch = -(-rows // parts)
-        batch += batch % 2 if odd else 0
-        seqs = batch // 2 if odd else batch
-        if 8 * seqs * ws <= room:
-            break
-        if seqs == 1:
+    divs = 0 if ny & (ny - 1) == 0 and nz & (nz - 1) == 0 and nz > 1 else ZY_DIVS
+    tables = _round16(8 * (post + _pass_tables(mz, radices_z) + _pass_tables(my, radices_y) + divs)
+                      + 2 * (nt * (mz == nt) + ny * (my == ny)))
+    tables += 0 if chirp_global else _round16(chirp)
+    room = budget - tables - 8 * my * es
+    if chirp:
+        most, need = room // (8 * ws), -(-rows // 2) if odd else rows  # sequences: fit, and all rows
+        if most < 1:
             return None
-        parts *= 2
+        seqs = -(-need // -(-need // most))
+        batch = 2 * seqs if odd else seqs
+    else:
+        parts = 1
+        while True:
+            batch = -(-rows // parts)
+            batch += batch % 2 if odd else 0
+            seqs = batch // 2 if odd else batch
+            if 8 * seqs * ws <= room:
+                break
+            if seqs == 1:
+                return None
+            parts *= 2
     work = seqs * ws
     return ZyFftPlan(ny, nz, cluster, passes, rows, batch, tile, ws, es, work,
-                     tables + 8 * (ny * es + work), radices_z, radices_y)
+                     tables + 8 * (my * es + work), radices_z, radices_y, mz, my, chirp_global)
 
 
 def _pass_tables(n: int, radices: Tuple[int, ...]) -> int:
@@ -1039,24 +1095,35 @@ def _pass_tables(n: int, radices: Tuple[int, ...]) -> int:
 
 @lru_cache(maxsize=64)
 def _zy_fft_plan(ny: int, nz: int) -> ZyFftPlan:
-    """The cluster FFT kernel's plan for 7-smooth ny <= 1024 and 2 <= nz
-    <= 1024: the fewest passes over the slab; then two blocks an SM if
-    they fit, else one; then the largest cluster (<= 16, <= ny) whose
-    blocks' shared memory fits."""
+    """The cluster FFT kernel's plan for 1 <= ny, nz <= 1024: the fewest
+    passes over the slab; then two blocks an SM if they fit, else one;
+    then the largest cluster (<= 16, <= ny; 1 for nz = 1, whose one slot
+    leaves the other ranks idle: 512x512x1 on an H100 0.047 against 0.189
+    ms) whose blocks' shared memory fits, a chirp axis's tables in global
+    memory where that buys a larger row batch, else in shared memory. A
+    chirp axis along y alone takes two blocks an SM over two passes before
+    one block over one pass: its columns hold my >= 2 ny rows, and the z
+    transforms the second pass repeats are short (512x502x512 on an H100:
+    4.18 against 4.57 ms, probe_zy_fft.py --chirp). A shape no plan fits
+    raises ValueError (none within the extents: tests/test_torch_zyfft.py)."""
     ny, nz = int(ny), int(nz)
-    if not (_smooth7(ny) and _smooth7(nz) and ny <= ZY_MAX_EXTENT and 2 <= nz <= ZY_MAX_EXTENT):
-        raise ValueError(f"the cluster FFT kernel takes 7-smooth y <= 1024 and 2 <= z <= 1024, "
+    if not (1 <= ny <= ZY_MAX_EXTENT and 1 <= nz <= ZY_MAX_EXTENT):
+        raise ValueError(f"the cluster FFT kernel takes y and z extents 1..{ZY_MAX_EXTENT}, "
                          f"got ({ny}, {nz})")
-    passes = 1
-    while passes <= (nz + 1) // 2:
-        for budget in (ZY_SMEM_HALF, ZY_SMEM_MAX):
-            for cluster in ZY_CLUSTERS:
-                if cluster <= ny:
-                    plan = _fit_plan(ny, nz, cluster, passes, budget)
-                    if plan is not None:
-                        return plan
-        passes *= 2
-    raise ValueError(f"no cluster FFT plan fits ({ny}, {nz})")  # unreachable for the extents above
+    nt, nslot = (nz if nz % 2 else nz // 2), (nz + 1) // 2
+    order = [(passes, budget) for passes in (1 << i for i in range(nslot.bit_length()))
+             if passes <= nslot for budget in (ZY_SMEM_HALF, ZY_SMEM_MAX)]
+    if not _smooth7(ny) and _smooth7(nt) and (2, ZY_SMEM_HALF) in order:
+        order.remove((2, ZY_SMEM_HALF))
+        order.insert(1, (2, ZY_SMEM_HALF))
+    for passes, budget in order:
+        for cluster in ZY_CLUSTERS if nz > 1 else (1,):
+            if cluster <= ny:
+                fits = [p for p in (_fit_plan(ny, nz, cluster, passes, budget, home) for home in (False, True))
+                        if p is not None]
+                if fits:
+                    return max(fits, key=lambda p: p.batch)  # ties: tables in shared memory
+    raise ValueError(f"zy_rfft_planar: no cluster FFT plan fits ({ny}, {nz})")
 
 
 def _twiddles(n: int, dtype: torch.dtype, device) -> torch.Tensor:
@@ -1102,6 +1169,72 @@ def _dif_passes(v: torch.Tensor, radices: Tuple[int, ...], table: torch.Tensor) 
     return v
 
 
+def _dit_passes(v: torch.Tensor, radices: Tuple[int, ...], table: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``_dif_passes`` on conjugated data, as the kernel's
+    chirp route runs it (fft_pass with Dit): the passes in reverse order,
+    each multiplying x[g L + j + t L/R] by W_L^(j t) and then taking the
+    R-point DFT over t. Digit-reversed in, natural order out:
+    ``_dit_passes(conj(_dif_passes(x)))`` is n conj(x)."""
+    n, big = v.shape[-1], table.numel()
+    lead = v.shape[:-1]
+    lengths = [n]
+    for r in radices[:-1]:
+        lengths.append(lengths[-1] // r)
+    for r, length in zip(reversed(radices), reversed(lengths)):
+        sub = length // r
+        t = torch.arange(r)
+        dft_r = table[(t[:, None] * t[None, :] * (big // r)) % big]
+        tw = table[t[:, None] * torch.arange(sub)[None, :] * (big // length)]
+        u = v.reshape(*lead, n // length, r, sub) * tw
+        v = torch.einsum("...tj,ts->...sj", u, dft_r).reshape(*lead, n)
+    return v
+
+
+def _chirp_tables(n: int, m: int, radices: Tuple[int, ...], dtype: torch.dtype, device):
+    """(chirp, filter) of an n-point chirp axis transformed at length m,
+    as the kernel's tables hold them: exp(-i pi k^2 / n) for k < n (k^2
+    mod 2n in integers), and F = FFT_m(h) / m at the passes' digit-reversed
+    positions, h[j] = h[m - j] = exp(i pi j^2 / n) for j < n, 0 between;
+    float64, rounded once to ``dtype``'s complex type."""
+    k = np.arange(n, dtype=np.int64)
+    b = np.exp(1j * np.pi * ((k * k) % (2 * n)) / n)
+    h = np.zeros(m, dtype=np.complex128)
+    h[:n] = b
+    h[m - n + 1:] = b[1:][::-1]
+    filt = np.empty(m, dtype=np.complex128)
+    filt[_fft_positions(m, radices).numpy()] = np.fft.fft(h) / m
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    return (torch.from_numpy(b.conj()).to(device=device, dtype=cdt),
+            torch.from_numpy(filt).to(device=device, dtype=cdt))
+
+
+def _chirp_dft(v: torch.Tensor, m: int, radices: Tuple[int, ...], table: torch.Tensor, chirp: torch.Tensor,
+               filt: torch.Tensor) -> torch.Tensor:
+    """The n-point DFT along v's last axis by Bluestein's algorithm, as the
+    kernel's chirp route (chirp_run) does it: premultiply by the chirp and
+    pad to m, the m-point DIF passes, times the filter, conjugate, the
+    inverse passes (``_dit_passes``), conjugate and postmultiply by the
+    chirp. Natural order out."""
+    n = v.shape[-1]
+    a = torch.zeros(v.shape[:-1] + (m,), dtype=v.dtype, device=v.device)
+    a[..., :n] = v * chirp
+    d = _dit_passes((_dif_passes(a, radices, table) * filt).conj(), radices, table)
+    return chirp * d[..., :n].conj()
+
+
+def _zy_axis(plan: ZyFftPlan, axis: str, dtype: torch.dtype, device):
+    """The transform of one axis of ``plan`` as the kernel runs it: a
+    function of (..., n) complex rows, and where it leaves X[k] (the
+    passes' digit-reversed positions, or natural order on a chirp axis)."""
+    n, m, radices = ((plan.nt, plan.mz, plan.radices_z) if axis == "z" else
+                     (plan.ny, plan.my, plan.radices_y))
+    table = _twiddles(m, dtype, device)
+    if m == n:
+        return (lambda v: _dif_passes(v, radices, table)), _fft_positions(n, radices).to(device)
+    chirp, filt = _chirp_tables(n, m, radices, dtype, device)
+    return (lambda v: _chirp_dft(v, m, radices, table, chirp, filt)), torch.arange(n, device=device)
+
+
 def _zy_rfft_fft_plain(x: torch.Tensor, plan: ZyFftPlan):
     """(re, im) of the z-rfft then y-DFT of every x slab, as the cluster
     FFT kernel computes them: plain torch, in x's dtype, walking the
@@ -1113,14 +1246,15 @@ def _zy_rfft_fft_plain(x: torch.Tensor, plan: ZyFftPlan):
     passes, then X_2s = (C[k] + conj C[-k]) / 2 and X_2s+1 = (C[k] - conj
     C[-k]) / 2i; each rank's rows landing in the slots' owners. Phase 2:
     each rank's slots, all rows, the y passes, written out; even nz: slot 0
-    split by Hermitian symmetry."""
+    split by Hermitian symmetry. A chirp axis goes through ``_chirp_dft``
+    in place of the passes."""
     nx, ny, nz = (int(s) for s in x.shape)
     if (ny, nz) != (plan.ny, plan.nz):
         raise ValueError(f"plan for ({plan.ny}, {plan.nz}), volume {tuple(x.shape)}")
     nt, c = plan.nt, plan.cluster
-    tz, ty = _twiddles(nz, x.dtype, x.device), _twiddles(ny, x.dtype, x.device)
-    pos_z = _fft_positions(nt, plan.radices_z).to(x.device)
-    pos_y = _fft_positions(ny, plan.radices_y).to(x.device)
+    tz = _twiddles(nz, x.dtype, x.device)
+    z_transform, pos_z = _zy_axis(plan, "z", x.dtype, x.device)
+    y_transform, pos_y = _zy_axis(plan, "y", x.dtype, x.device)
     re = torch.empty((nx, ny, nz // 2 + 1), dtype=x.dtype, device=x.device)
     im = torch.empty_like(re)
     for p in range(plan.passes):
@@ -1133,12 +1267,12 @@ def _zy_rfft_fft_plain(x: torch.Tensor, plan: ZyFftPlan):
                 rows = x[:, b0 : min(b0 + plan.batch, r1)]
                 if plan.odd:
                     pairs = torch.nn.functional.pad(rows, (0, 0, 0, rows.shape[1] % 2))
-                    zc = _dif_passes(torch.complex(pairs[:, 0::2], pairs[:, 1::2]), plan.radices_z, tz)
+                    zc = z_transform(torch.complex(pairs[:, 0::2], pairs[:, 1::2]))
                     a, b = zc[..., pos_z[k]], zc[..., pos_z[(-k) % nz]].conj()
                     out = torch.stack((0.5 * (a + b), -0.5j * (a - b)), dim=2)
                     z.append(out.reshape(nx, -1, cp1 - cp0)[:, : rows.shape[1]])
                     continue
-                zc = _dif_passes(torch.complex(rows[..., 0::2], rows[..., 1::2]), plan.radices_z, tz)
+                zc = z_transform(torch.complex(rows[..., 0::2], rows[..., 1::2]))
                 a, b = zc[..., pos_z[k]], zc[..., pos_z[(nt - k) % nt]].conj()
                 out = 0.5 * (a + b) - 0.5j * tz[k] * (a - b)
                 if cp0 == 0:  # slot 0: X[0] + i X[nt], X[0] = Re A + Im A, X[nt] = Re A - Im A
@@ -1150,7 +1284,7 @@ def _zy_rfft_fft_plain(x: torch.Tensor, plan: ZyFftPlan):
             cr0, cr1 = plan.bound(p * c + r), plan.bound(p * c + r + 1)
             if cr1 == cr0:
                 continue
-            y = _dif_passes(z[..., cr0 - cp0 : cr1 - cp0].transpose(1, 2), plan.radices_y, ty)
+            y = y_transform(z[..., cr0 - cp0 : cr1 - cp0].transpose(1, 2))
             y = y[..., pos_y].transpose(1, 2)
             re[..., cr0:cr1], im[..., cr0:cr1] = y.real, y.imag
             if cr0 == 0 and not plan.odd:  # Y0 = (C[a] + conj C[-a]) / 2, Yn = (C[a] - conj C[-a]) / 2i
@@ -1193,10 +1327,12 @@ def _zy_check(name: str, x: torch.Tensor) -> str:
 
 
 def _zy_rfft_dense(x: torch.Tensor):
-    """B12's dense-DFT kernel (f32 products, O(n) work per output): the
-    route of ``zy_rfft_planar`` for shapes the FFT kernel does not take: a
-    y or z extent with a prime factor above 7 (502, 509, 33), or nz = 1.
-    Counted as ``zy_rfft_planar_dense``; the plain matmuls on the CPU."""
+    """B12's dense-DFT kernel (f32 products, O(n) work per output), the
+    same function as ``zy_rfft_planar`` for every shape within
+    ``zy_rfft_fits``. On no route since the cluster FFT kernel takes every
+    shape (Bluestein for a prime factor above 7, nz = 1 with an empty z
+    transform); kept as the time that route replaced. Counted as
+    ``zy_rfft_planar_dense``; the plain matmuls on the CPU."""
     name = "zy_rfft_planar_dense"
     if _zy_check(name, x) == "cpu":
         return _zy_rfft_plain(x)
@@ -1246,15 +1382,13 @@ def zy_rfft_planar(x: torch.Tensor):
     """(re, im), each (nx, ny, nz//2+1): the rfft along z then the DFT
     along y of a real (nx, ny, nz) volume, unnormalized, planar
     (fava_tpu/experiments/pallas_dft.py:92). On CUDA: float32, contiguous,
-    within ``zy_rfft_fits``; 7-smooth y and z >= 2 (``_zy_uses_fft``) take
-    the cluster FFT kernel, other shapes (a prime factor above 7, nz = 1)
-    the dense kernel (``_zy_rfft_dense``). On the CPU the plain dense
-    matmuls."""
+    within ``zy_rfft_fits``, through the cluster FFT kernel under
+    ``_zy_fft_plan``: mixed radix for 7-smooth y and z, Bluestein's
+    algorithm for an axis with a prime factor above 7, no z transform for
+    nz = 1. On the CPU the plain dense matmuls."""
     name = "zy_rfft_planar"
     if _zy_check(name, x) == "cpu":
         return _zy_rfft_plain(x)
-    if not _zy_uses_fft(x.shape):
-        return _zy_rfft_dense(x)
     return _zy_rfft_fft(x, _zy_fft_plan(int(x.shape[1]), int(x.shape[2])))
 
 

@@ -7,14 +7,23 @@ Run from the repository root:
 
 It builds the kernels, prints the FFT kernel's ptxas report, holds the
 kernel to the float64 dense DFT (``_zy_rfft_plain``) on small shapes
-(power-of-two and mixed-radix plans, odd y and z, every radix), on
-sqrt(rho)*v_x of ``make_example_fields(512)`` and its cuts to 512x512x480,
-512x480x512 and 512x384x375, and on an (8, 1024, 1024) random volume (the
-two-pass plan), within 1e-5 of the largest coefficient; then times (CUDA
-events, warm) the kernel under its plan and under other cluster sizes,
-passes and shared-memory budgets, beside the dense kernel (512^3, the
-512x512x480 cut, and the 512x512x502 cut, which only it takes) and
-``torch.fft.rfftn(x, dim=(1, 2))``. ``--quick`` stops after the checks.
+(power-of-two and mixed-radix plans, odd y and z, every radix, chirp axes
+and nz = 1), on sqrt(rho)*v_x of ``make_example_fields(512)`` and its cuts
+to 512x512x480, 512x480x512 and 512x384x375 (mixed radix) and to
+512x512x502, 512x502x512, 512x509x509 and 512x512x1 (chirp axes, nz = 1),
+and on an (8, 1024, 1024) random volume (the two-pass plan), within 1e-5
+of the largest coefficient; then times (CUDA events, warm) the kernel
+under its plan and under other cluster sizes, passes, shared-memory
+budgets, homes of the chirp tables (shared or global memory) and
+convolution lengths of a chirp axis, beside the dense kernel (512^3 and
+the 512x512x480 and 512x512x502 cuts) and ``torch.fft.rfftn(x, dim=(1,
+2))``. ``--quick`` stops after the checks.
+``--chirp`` instead times, on the chirp cuts, plans of one and two passes,
+both budgets, both homes of the chirp tables and cluster sizes 16 and 8
+at each row batch that fits (the results bit-equal to the plan's).
+``--parent DIR`` instead times the kernel as built against the build of
+DIR/fava_tpu_torch/csrc/dft_kernels.cu (another checkout) under the same
+plans, in turns, on the power-of-two and mixed-radix cuts, bit for bit.
 ``--designs`` instead times, in turns, the kernel as built against a build
 without its power-of-two route (at 512^3 and (8, 1024, 1024), bit for bit,
 with both builds' SASS instruction counts), and each plan against the
@@ -47,7 +56,11 @@ TOL_ZY = 1e-5
 SMALL = [(2, 2, 2), (3, 64, 32), (1, 1024, 2), (2, 1, 8), (2, 16, 2), (1, 2, 2), (2, 8, 1024),
          (4, 1024, 8), (2, 512, 512), (2, 45, 35), (2, 3, 9), (2, 7, 7), (2, 1, 3), (3, 12, 14),
          (3, 10, 20), (2, 27, 18), (2, 15, 30), (2, 6, 12), (2, 49, 343), (2, 375, 6), (1, 1000, 1000),
-         (2, 768, 768), (2, 640, 640), (4, 96, 768)]
+         (2, 768, 768), (2, 640, 640), (4, 96, 768),
+         # chirp axes: y, z (even and odd), both, nz = 1, the 2048-point convolution
+         (2, 22, 26), (2, 17, 38), (2, 13, 33), (2, 11, 1), (1, 1, 1), (2, 16, 1), (2, 64, 33),
+         (2, 22, 502), (1, 509, 8), (3, 11, 22), (2, 1, 11), (2, 502, 8), (2, 33, 64), (2, 127, 127),
+         (4, 512, 1), (1, 1021, 1019), (1, 1019, 1021)]
 
 
 def cuda_ms(torch, fn, reps):
@@ -72,7 +85,7 @@ CUTS = {
                      "odd ? (nb + 1) >> 1 : nb, twpz);", "")],
     "post-process": [("e < nb * wp;", "e < 0;")],
     "y transform": [("fft_run<P2>(cols_mid, cols_mid, cols_out, ny, ry, p.nry, dvs + kDvY, "
-                     "divisor<P2>(tw, dvs, kDvRank, kDvRankHi), tw,\n                twpy);", "")],
+                     "divisor<P2>(tw, dvs, kDvRank, kDvRankHi),\n                  tw, twpy);", "")],
     "output stores": [("re[o] = v.x;\n    im[o] = v.y;", "")],
     "DSMEM (local stores)": [(REMOTE, "cols")],
     "DSMEM and cluster barriers": [(REMOTE, "cols"), ('asm volatile("barrier.cluster', '// ('),
@@ -84,9 +97,10 @@ CUTS = {
 # Other builds of the whole kernel, timed beside it (their results are held
 # to this checkout's bit for bit).
 VARIANTS = {
-    "passes not inlined": [("template <int R, bool P2, class Src, class Dst>\n__device__ void fft_pass(",
-                            "template <int R, bool P2, class Src, class Dst>\n__device__ __noinline__ void "
-                            "fft_pass(")],
+    "passes not inlined": [("template <int R, bool P2, bool Dit = false, class Src, class Dst>\n"
+                            "__device__ void fft_pass(",
+                            "template <int R, bool P2, bool Dit = false, class Src, class Dst>\n"
+                            "__device__ __noinline__ void fft_pass(")],
     "transforms called": [("template <bool P2, class Src, class Dst>\n__device__ __forceinline__ void fft_run(",
                            "template <bool P2, class Src, class Dst>\n__device__ __noinline__ void fft_run(")],
     "no minimum of two blocks an SM": [("__launch_bounds__(kFftThreads, 2)\nzy_fft_kernel(",
@@ -231,7 +245,8 @@ def rel_err(got, ref):
 # The design probe (--designs): the kernel with its power-of-two route taken
 # out (every plan through the divisors of its tables), and plans with
 # fewer register DFTs.
-NO_POW2_ROUTE = [("return pow2(p.ny) && pow2(p.nz) && pow2(p.batch);", "return false;")]
+NO_POW2_ROUTE = [("return pow2(p.ny) && pow2(p.nz) && p.nz > 1 && pow2(p.batch) ? kPow2 : kMixed;",
+                  "return kMixed;")]
 BASE_RADICES = (2, 3, 4, 5, 7, 8, 16)
 SASS_OPS = ("IMAD", "SHF", "LEA", "IADD3", "FFMA", "FADD", "FMUL", "LDS", "STS", "BRA")
 
@@ -374,6 +389,23 @@ def main() -> None:
         if entry:
             print(f"ptxas: {line.strip()}", flush=True)
     out = {"card": card, "checks": {}, "times": {}}
+    if "--chirp" in sys.argv or "--parent" in sys.argv:
+        f = flagship.make_example_fields(512)
+        x = (torch.sqrt(f[0]) * f[1]).contiguous()
+        del f
+        if "--chirp" in sys.argv:
+            out["chirp_plans"] = chirp_plans(torch, ck, [
+                ("512x512x502", x[..., :502].contiguous()), ("512x502x512", x[:, :502].contiguous()),
+                ("512x509x509", x[:, :509, :509].contiguous()), ("512x512x1", x[..., :1].contiguous()),
+                ("512x509x1", x[:, :509, :1].contiguous())])
+        else:
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            out["parent"] = against_parent(torch, ck, _build, Path(sys.argv[sys.argv.index("--parent") + 1]), [
+                ("512^3", x), ("512x512x480", x[..., :480].contiguous()),
+                ("512x480x512", x[:, :480].contiguous()), ("512x384x375", x[:, :384, :375].contiguous()),
+                ("(8, 1024, 1024)", torch.randn((8, 1024, 1024), generator=gen, device="cuda"))])
+        print(json.dumps(out), flush=True)
+        return
     if "--phases" in sys.argv or "--timeline" in sys.argv or "--variants" in sys.argv:
         f = flagship.make_example_fields(512)
         x = (torch.sqrt(f[0]) * f[1]).contiguous()
@@ -430,25 +462,25 @@ def main() -> None:
     x1024 = torch.from_numpy(rng.standard_normal((8, 1024, 1024))).float().cuda()
     volumes = [("512^3", x512), ("512x512x480", x512[..., :480].contiguous()),
                ("512x480x512", x512[:, :480].contiguous()), ("512x384x375", x512[:, :384, :375].contiguous()),
-               ("(8, 1024, 1024)", x1024), ("512x512x502 (dense)", x512[..., :502].contiguous())]
+               ("(8, 1024, 1024)", x1024), ("512x512x502", x512[..., :502].contiguous()),
+               ("512x502x512", x512[:, :502].contiguous()), ("512x509x509", x512[:, :509, :509].contiguous()),
+               ("512x512x1", x512[..., :1].contiguous())]
     for name, x in volumes:
-        fft = ck._zy_uses_fft(x.shape)
         ck.reset_launch_counts()
         got = ck.zy_rfft_planar(x)
         torch.cuda.synchronize()
         counts = {k: v for k, v in ck.launch_counts().items() if v}
         ref = ck._zy_rfft_plain(x.double())
         e = rel_err(got, ref)
-        dense = rel_err(ck._zy_rfft_dense(x), ref) if not fft or name == "512^3" else None
+        dense = rel_err(ck._zy_rfft_dense(x), ref) if name in ("512^3", "512x512x502") else None
         del ref, got
         entry = {"err": e, "dense_err": dense, "launches": counts}
-        if fft:
-            plan = ck._zy_fft_plan(x.shape[1], x.shape[2])
-            entry.update(plan=plan.as_ints(), active_clusters=ck.zy_fft_active_clusters(plan))
-            print(f"check {name}: plan {plan}; active clusters {entry['active_clusters']}", flush=True)
+        plan = ck._zy_fft_plan(x.shape[1], x.shape[2])
+        entry.update(plan=plan.as_ints(), active_clusters=ck.zy_fft_active_clusters(plan))
+        print(f"check {name}: plan {plan}; active clusters {entry['active_clusters']}", flush=True)
         out["checks"][name] = entry
         print(f"check {name}: error {e!r} (dense kernel {dense!r}); launches {counts}", flush=True)
-        ok &= e <= TOL_ZY and counts == {("zy_rfft_planar" if fft else "zy_rfft_planar_dense"): 1}
+        ok &= e <= TOL_ZY and counts == {"zy_rfft_planar": 1}
         torch.cuda.empty_cache()
     print(json.dumps({"checks_ok": bool(ok)}), flush=True)
     if "--quick" not in sys.argv:
@@ -456,23 +488,154 @@ def main() -> None:
             ny, nz = int(x.shape[1]), int(x.shape[2])
             t = {"route": cuda_ms(torch, lambda: ck.zy_rfft_planar(x), 20),
                  "rfftn": cuda_ms(torch, lambda: torch.fft.rfftn(x, dim=(1, 2)), 20)}
-            if name in ("512^3", "512x512x480", "512x512x502 (dense)"):
+            if name in ("512^3", "512x512x480", "512x512x502"):
                 t["dense"] = cuda_ms(torch, lambda: ck._zy_rfft_dense(x), 3)
-            if ck._zy_uses_fft(x.shape):
-                for passes in (1, 2, 4):
-                    for cluster in (16, 8, 4, 2):
-                        for budget in ("half", "full"):
+            chirp = ck._zy_fft_plan(ny, nz).chirp_z or ck._zy_fft_plan(ny, nz).chirp_y
+            for passes in (1, 2, 4):
+                for cluster in (16, 8, 4, 2):
+                    for budget in ("half", "full"):
+                        for home in ("shared", "global") if chirp else ("shared",):
                             plan = ck._fit_plan(ny, nz, cluster, passes,
-                                                ck.ZY_SMEM_HALF if budget == "half" else ck.ZY_SMEM_MAX)
-                            if plan is None or ck.zy_fft_active_clusters(plan) < 1:
+                                                ck.ZY_SMEM_HALF if budget == "half" else ck.ZY_SMEM_MAX,
+                                                home == "global")
+                            if plan is None or passes > plan.nslot or ck.zy_fft_active_clusters(plan) < 1:
                                 continue
-                            key = f"C{cluster} P{passes} {budget} tile{plan.tile} batch{plan.batch}"
+                            key = f"C{cluster} P{passes} {budget} {home} tile{plan.tile} batch{plan.batch}"
                             t[key] = cuda_ms(torch, lambda: ck._zy_rfft_fft(x, plan), 20)
+            if chirp:
+                t.update(chirp_lengths(torch, ck, x))
             out["times"][name] = t
             print(f"times {name} (ms): {json.dumps(t)}", flush=True)
     print(json.dumps(out), flush=True)
     if not ok:
         sys.exit("the FFT kernel disagrees with the dense DFT")
+
+
+def chirp_plans(torch, ck, volumes):
+    """ms of the kernel on each chirp volume under its plan and under the
+    plans of 1 and 2 passes, both budgets, both homes of the chirp tables
+    and clusters of 16 and 8, each at the row batches that fit (up to 10
+    of them), with whether the result is bit-equal to the plan's."""
+    out = {}
+    for vname, x in volumes:
+        ny, nz = int(x.shape[1]), int(x.shape[2])
+        plan = ck._zy_fft_plan(ny, nz)
+        ref = ck._zy_rfft_fft(x, plan)
+        t = {"plan": [dataclasses.asdict(plan), cuda_ms(torch, lambda: ck._zy_rfft_fft(x, plan), 20)]}
+        for passes in (1, 2):
+            for budget in ("half", "full"):
+                for home in ("shared", "global"):
+                    for cluster in (16, 8, 4, 2, 1) if nz == 1 else (16, 8):
+                        limit = ck.ZY_SMEM_HALF if budget == "half" else ck.ZY_SMEM_MAX
+                        base = ck._fit_plan(ny, nz, cluster, passes, limit, home == "global")
+                        if base is None or passes > base.nslot:
+                            continue
+                        room = limit - (base.smem - 8 * base.work)
+                        most = min(room // (8 * base.ws), -(-base.rows // 2) if base.odd else base.rows)
+                        seqs = sorted({q for q in (1, 2, 3, 4, 5, 6, 7, 8, 12, 16, 24, 32, most) if q <= most})
+                        for q in seqs[-(4 if nz == 1 else 10):]:
+                            p = dataclasses.replace(base, batch=2 * q if base.odd else q, work=q * base.ws,
+                                                    smem=base.smem - 8 * base.work + 8 * q * base.ws)
+                            if ck.zy_fft_active_clusters(p) < 1:
+                                continue
+                            got = ck._zy_rfft_fft(x, p)
+                            same = bool(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]))
+                            key = f"C{cluster} P{passes} {budget} {home} batch{p.batch} smem{p.smem}"
+                            t[key] = [cuda_ms(torch, lambda: ck._zy_rfft_fft(x, p), 20), same]
+        out[vname] = t
+        print(f"chirp plans {vname}: {json.dumps(t)}", flush=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+# A build whose kernel finds its table bytes at run time, as the parent's did.
+RUNTIME_TABLE_BYTES = [("const int hb = table_bytes<Mode>(p),",
+                        "const int hb = Chirp ? table_bytes<kChirp>(p) : zy_mode(p) == kPow2 ? "
+                        "table_bytes<kPow2>(p) : table_bytes<kMixed>(p),")]
+
+
+def against_parent(torch, ck, _build, parent: Path, volumes):
+    """ms of the kernel as built and of the parent checkout's build under
+    the same plan (the first 33 ints of the plan vector are the parent's
+    struct), in turns: this, parent, parent, this (CUDA events, 20 warm
+    calls each), the two results compared bit for bit; the SASS counts of
+    both builds; then the same against the build RUNTIME_TABLE_BYTES."""
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    out = {"sass this": sass_counts(_build.build(), "zy_fft_kernel")}
+    stream = torch.cuda.current_stream().cuda_stream
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "p").mkdir()
+        (Path(tmp) / "v").mkdir()
+        so = build_variant(_build.find_nvcc(), flags, [], Path(tmp) / "p", root=parent)
+        out["sass parent"] = sass_counts(Path(tmp) / "p" / "k.so", "zy_fft_kernel")
+        variant = build_variant(_build.find_nvcc(), flags, RUNTIME_TABLE_BYTES, Path(tmp) / "v")
+        out["sass runtime table bytes"] = sass_counts(Path(tmp) / "v" / "k.so", "zy_fft_kernel")
+        for k in ("sass this", "sass parent", "sass runtime table bytes"):
+            print(f"{k}: {json.dumps(out[k])}", flush=True)
+        for vname, x in volumes:
+            plan = ck._zy_fft_plan(int(x.shape[1]), int(x.shape[2]))
+            ints = (ctypes.c_int * len(plan.as_ints()))(*plan.as_ints())
+            nbytes = so.fava_zy_fft_table_bytes(ctypes.addressof(ints))
+            tables = torch.empty(nbytes // 4, dtype=torch.float32, device=x.device)
+            if nbytes < 0 or so.fava_zy_fft_tables(ctypes.addressof(ints), tables.data_ptr(), stream):
+                sys.exit(f"parent build refuses the plan {plan}")
+            re, im = ck._zy_outputs(x)
+
+            def parent_run():
+                if so.fava_zy_fft(x.data_ptr(), re.data_ptr(), im.data_ptr(), tables.data_ptr(), int(x.shape[0]),
+                                  ctypes.addressof(ints), 1, stream):
+                    sys.exit("parent build: launch error")
+
+            def this_run():
+                return ck._zy_rfft_fft(x, plan)
+
+            vre, vim = ck._zy_outputs(x)
+
+            def variant_run():
+                if variant.fava_zy_fft(x.data_ptr(), vre.data_ptr(), vim.data_ptr(), tables.data_ptr(),
+                                       int(x.shape[0]), ctypes.addressof(ints), 1, stream):
+                    sys.exit("variant build: launch error")
+
+            t = [cuda_ms(torch, f, 20) for f in (this_run, parent_run, variant_run, variant_run, parent_run,
+                                                 this_run)]
+            got = this_run()
+            parent_run()
+            variant_run()
+            torch.cuda.synchronize()
+            same = bool(torch.equal(got[0], re) and torch.equal(got[1], im) and torch.equal(vre, re))
+            out[vname] = {"this_ms": [t[0], t[5]], "parent_ms": [t[1], t[4]], "runtime_table_bytes_ms": t[2:4],
+                          "bit_equal": same}
+            print(f"against parent {vname}: {json.dumps(out[vname])}", flush=True)
+            del tables, re, im, got
+            torch.cuda.empty_cache()
+    return out
+
+
+def chirp_lengths(torch, ck, x):
+    """ms of the kernel under the plan the rule makes when a chirp axis of
+    ``x`` is transformed at each 7-smooth length M from 2n - 1 up to the
+    power of two above (the fewest passes' two smallest and the power of
+    two), with its error against the plan's result."""
+    ny, nz = int(x.shape[1]), int(x.shape[2])
+    plan = ck._zy_fft_plan(ny, nz)
+    kept = ck._chirp_length
+    out = {}
+    for n, axis in ((plan.nt, "z"), (ny, "y")):
+        if ck._smooth7(n):
+            continue
+        lo = 2 * n - 1
+        p2 = 1 << (lo - 1).bit_length()
+        cands = sorted((k for k in range(lo, p2 + 1) if ck._smooth7(k)), key=lambda k: (len(ck._radices(k)), k))
+        for m in sorted(set(cands[:2] + [p2])):
+            ck._chirp_length = lambda k, n=n, m=m: m if k == n else kept(k)
+            try:
+                alt = ck._zy_fft_plan.__wrapped__(ny, nz)
+            finally:
+                ck._chirp_length = kept
+            err = rel_err(ck._zy_rfft_fft(x, alt), ck._zy_rfft_fft(x, plan))
+            out[f"{axis} M={m} {ck._radices(m)} C{alt.cluster} P{alt.passes} batch{alt.batch} err {err:.2e}"] = \
+                cuda_ms(torch, lambda: ck._zy_rfft_fft(x, alt), 20)
+    return out
 
 
 if __name__ == "__main__":

@@ -723,19 +723,27 @@ def test_onepass_folded_with_garbage_pad_rows(cuda_device, shape):
     torch.testing.assert_close(torch.stack(rows), ref[1:], rtol=1e-10, atol=1e-300)
 
 
-# B12's shapes and the kernel each takes: the cluster FFT kernel for y
-# (1..1024) and z (2..1024) with no prime factor above 7 (power-of-two
-# and mixed-radix plans, odd z with paired rows), the dense kernel
-# otherwise (33 = 3 x 11, 22 = 2 x 11, 502 = 2 x 251, 509, nz = 1).
+# B12's shapes and the kernel each takes: the cluster FFT kernel for
+# every y and z in 1..1024: power-of-two and mixed-radix plans (odd z with
+# paired rows) for extents with no prime factor above 7, the chirp route
+# (Bluestein) for the others (33 = 3 x 11, 22 = 2 x 11, 502 = 2 x 251,
+# 509), and an empty z transform for nz = 1. The dense kernel is on no
+# route. The chirp shapes: y only, z only (even and odd prime), both,
+# nz = 1, and 1021 x 1019 (2048-point convolutions, tables in global
+# memory).
 ZY_ROUTES = [((2, 2, 2), "zy_rfft_planar"), ((3, 64, 32), "zy_rfft_planar"),
              ((4, 512, 512), "zy_rfft_planar"), ((2, 1024, 1024), "zy_rfft_planar"),
              ((1, 1024, 2), "zy_rfft_planar"), ((3, 40, 50), "zy_rfft_planar"),
-             ((2, 64, 33), "zy_rfft_planar_dense"), ((1, 1, 1), "zy_rfft_planar_dense"),
+             ((2, 64, 33), "zy_rfft_planar"), ((1, 1, 1), "zy_rfft_planar"),
              ((2, 512, 480), "zy_rfft_planar"), ((2, 480, 512), "zy_rfft_planar"),
              ((2, 384, 375), "zy_rfft_planar"), ((3, 45, 35), "zy_rfft_planar"),
              ((2, 1, 7), "zy_rfft_planar"), ((2, 27, 18), "zy_rfft_planar"),
              ((2, 49, 343), "zy_rfft_planar"), ((1, 1000, 1000), "zy_rfft_planar"),
-             ((2, 22, 502), "zy_rfft_planar_dense"), ((1, 509, 8), "zy_rfft_planar_dense")]
+             ((2, 22, 502), "zy_rfft_planar"), ((1, 509, 8), "zy_rfft_planar"),
+             ((2, 502, 16), "zy_rfft_planar"), ((2, 64, 502), "zy_rfft_planar"),
+             ((2, 16, 509), "zy_rfft_planar"), ((2, 127, 127), "zy_rfft_planar"),
+             ((3, 64, 1), "zy_rfft_planar"), ((3, 22, 1), "zy_rfft_planar"),
+             ((1, 1021, 1019), "zy_rfft_planar")]
 
 
 @pytest.mark.cuda
@@ -756,13 +764,19 @@ def test_zy_rfft_matches_plain(cuda_device, shape, route):
 @pytest.mark.cuda
 def test_zy_fft_kernel_fits_the_card_and_reads_unaligned_rows(cuda_device):
     """Every plan the rule makes for the path's shapes schedules at least
-    one cluster; volumes that start 4 or 8 bytes off a 16-byte boundary
-    take the FFT kernel all the same (scalar or float2 row loads; odd z
-    rows are read by scalars)."""
+    one cluster, and so does every chirp plan: each extent 1..1024 with a
+    prime factor above 7 paired with 512 and with itself (the largest
+    shared memory, up to 2048-point convolutions); volumes that start 4
+    or 8 bytes off a 16-byte boundary take the FFT kernel all the same
+    (scalar or float2 row loads; odd z rows are read by scalars)."""
     for ny, nz in ((512, 512), (1024, 1024), (1024, 2), (1, 1024), (16, 16), (512, 480), (480, 512),
-                   (384, 375), (1000, 1000), (768, 768), (1024, 960)):
+                   (384, 375), (1000, 1000), (768, 768), (1024, 960), (512, 1), (1, 1)):
         assert ck.zy_fft_active_clusters(ck._zy_fft_plan(ny, nz), cuda_device) >= 1
-    for shape in ((3, 64, 64), (3, 48, 60), (3, 45, 35)):
+    for n in range(1, ck.ZY_MAX_EXTENT + 1):
+        if not ck._smooth7(n):
+            for ny, nz in ((n, 512), (512, n), (n, n)):
+                assert ck.zy_fft_active_clusters(ck._zy_fft_plan(ny, nz), cuda_device) >= 1, (ny, nz)
+    for shape in ((3, 64, 64), (3, 48, 60), (3, 45, 35), (3, 22, 26), (3, 13, 33)):
         size = shape[0] * shape[1] * shape[2]
         base = _fields(cuda_device, shape=(size + 2,), seed=1)[1]
         for off in (1, 2):
@@ -803,7 +817,7 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(32, 32, 48), (16, 20, 15), (32, 32, 32)])
+@pytest.mark.parametrize("shape", [(32, 32, 48), (16, 20, 15), (32, 32, 32), (32, 22, 26)])
 def test_fused_path_on_cuda_matches_the_cpu_path(cuda_device, shape):
     from fava_tpu_torch.experiments import folded_bins, planar_dft
     from fava_tpu_torch.ops import spectra
@@ -811,12 +825,11 @@ def test_fused_path_on_cuda_matches_the_cpu_path(cuda_device, shape):
     f = _fields(cuda_device, shape=shape, seed=7)
     nbins = max(shape) // 2 - 1
     ref = spectra.rfft_shell_sums(f[0].double().cpu(), [v.double().cpu() for v in f[1:]], nbins)
-    b12 = "zy_rfft_planar" if ck._zy_uses_fft(shape) else "zy_rfft_planar_dense"
     paths = {
         "stacked cuFFT, B9": (lambda: planar_dft.rfft_shell_sums_fused(f[0], f[1:], nbins),
                               {"shell_bin_powers_fused": 1}),
         "B12, B9": (lambda: planar_dft.rfft_shell_sums_fused_zy(f[0], f[1:], nbins),
-                    {"shell_bin_powers_fused": 1, b12: 3}),
+                    {"shell_bin_powers_fused": 1, "zy_rfft_planar": 3}),
         "pad8 fold, B11a": (lambda: folded_bins.rfft_shell_sums_folded(f[0], f[1:], nbins, "onepass"),
                             {"fold_quadrants_pair": 1, "shell_bin_sums_folded_onepass": 1}),
         "pad8 fold, B11b": (lambda: folded_bins.rfft_shell_sums_folded(f[0], f[1:], nbins, "rows"),
