@@ -14,7 +14,9 @@ no result):
 1. device: CUDA present; card name and power limit (nvidia-smi), CUDA,
    nvcc, triton and scipy versions (scipy must import: stage 1 fits with
    it).
-2. build: compile fava_tpu_torch/csrc/*.cu for sm_90a and load it.
+2. build: compile fava_tpu_torch/csrc/*.cu for sm_90a (one nvcc a
+   source, all at once; each source's compile seconds printed) and load
+   it.
 3. kernels: each of the four kernels against its plain PyTorch version
    at the 512^3 shapes of the flagship path (float32 in; the plain
    version gets the same values in float64), with stated tolerances;
@@ -336,6 +338,25 @@ no result):
    8 virtual ranks (B8 d times per pdf2d; the density PDF's counts may
    move TOL_SHIFT samples); (c) the weighted B8 on one (128, 512, 512)
    x-slab's samples against its plain twin and its bound. At most 60 s.
+30. The device trace and the NaN checks (run last, on fresh 512^3
+   example fields, beside phase 5's CUDA-event times: CUPTI stays
+   attached after a trace, and the host time it adds to every later CUDA
+   call would inflate the other phases' host-bound kernel times): one
+   warm ``flagship_analysis`` under
+   ``utils.profiling.device_trace`` with an ``annotate("flagship_step")``
+   span and ``timing.trace("flagship_step")``; the trace file parsed: K1,
+   K2, K3 and K4 found by their CUDA names as often as their launch
+   counters say, inside the span; the top 5 device operations by total
+   time, the device-busy share of the span (the union of kernel, copy and
+   memset intervals over its length) and each kernel's traced time beside
+   phase 5's CUDA-event time, printed with the card's name and power
+   limit; the same for one ``kinetic_energy_spectra`` (span
+   "spectra_step"). Then, under
+   ``utils.debug.enable_checks()``, the step on clean 64^3 example fields
+   runs, the same fields with one NaN planted in dens raise
+   FloatingPointError, and K4 on a power volume holding a NaN raises it
+   naming the kernel; after ``disable_checks()`` the planted NaN goes
+   through. At most 20 s.
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -378,7 +399,7 @@ SOURCES = {
     "shell_bin_powers_fused": "fava_tpu_torch/csrc/fused_spectra_kernels.cu",
     "shell_bin_sums_folded_onepass": "fava_tpu_torch/csrc/shell_bins.cuh",
     "shell_bin_values_folded_rows": "fava_tpu_torch/csrc/shell_bins.cuh",
-    "zy_rfft_planar": "fava_tpu_torch/csrc/dft_kernels.cu",
+    "zy_rfft_planar": "fava_tpu_torch/csrc/zy_fft.cuh",
     "zy_rfft_planar_dense": "fava_tpu_torch/csrc/dft_kernels.cu",
 }
 REPLACES = {
@@ -664,6 +685,8 @@ def phase_build():
     _build.library()
     secs = time.perf_counter() - t0
     say(f"phase 2 build: {lib_path.relative_to(HERE)} in {secs:.3f} s")
+    compiles = [ln[3:] for ln in (_build.BUILD_LOG or "").splitlines() if ln.startswith("== ")]
+    say(f"phase 2 compile seconds, one nvcc a source, all at once: {'; '.join(compiles)}")
     for line in (_build.BUILD_LOG or "").splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say(f"  ptxas: {line.strip()}")
@@ -986,6 +1009,173 @@ def phase_timings(torch, fields, model, batch, card):
         "nvidia_smi_after": smi.stdout.strip(),
     }
     say(f"phase 5 timings: {json.dumps(timings)}")
+    return stages
+
+# ---------------------------------------------------------------------------
+# Phase 30: the device trace and the NaN checks (run last)
+
+# Launch counter -> the CUDA name of its kernel in a trace (demangled).
+TRACE_KERNELS = {
+    "row_moments": r"(?<![A-Za-z_])row_moments_kernel\b",
+    "centered_row_moments": r"(?<![A-Za-z_])centered_row_moments_kernel\b",
+    "fold_quadrants_pair": r"(?<![A-Za-z_])fold_pair_kernel\b",
+    "shell_bin_values_folded": r"(?<![A-Za-z_])shell_walk_kernel<2, false, [^,]*FoldedRows\b",
+    "shell_bin_values_folded_1ch": r"(?<![A-Za-z_])shell_walk_kernel<1, false, [^,]*FoldedRows\b",
+}
+# Phase 5's CUDA-event stage of each flagship kernel.
+STAGE_OF = {"row_moments": "moments", "centered_row_moments": "centered",
+            "fold_quadrants_pair": "fold", "shell_bin_values_folded": "binning"}
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+TRACE_PHASE_S = 20.0  # the phase's own budget
+
+
+def traced(torch, ck, trace_dir: Path, span: str, fn):
+    """``fn()`` under device_trace with an ``annotate(span)`` span and
+    ``timing.trace(span)``, its launches counted; (launches, the trace's
+    complete events)."""
+    from fava_tpu_torch.utils import profiling, timing
+
+    ck.reset_launch_counts()
+    with profiling.device_trace(trace_dir, device="cuda"):
+        with profiling.annotate(span), timing.trace(span):
+            fn()
+    launches = ck.launch_counts()
+    (trace,) = trace_dir.glob("*.pt.trace.json")
+    events = [e for e in json.loads(trace.read_text())["traceEvents"] if e.get("ph") == "X"]
+    if len(timing.timings().get(span, ())) != 1:
+        fail(f"phase 30: timing.trace({span!r}) recorded {timing.timings().get(span)}")
+    return launches, events
+
+
+def trace_report(launches, events, span: str, what: str):
+    """Hold the trace of one call to its launch counts and report it: each
+    counted kernel by its CUDA name, as often as it launched, inside the
+    outermost ``span`` span; the top 5 device operations by total time
+    there; the union of device intervals over the span's length."""
+    import re
+
+    spans = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == span]
+    if not spans:
+        fail(f"phase 30 {what}: no {span!r} span in the trace")
+    s = max(spans, key=lambda e: e["dur"])
+    lo, hi = s["ts"], s["ts"] + s["dur"]
+    device = [e for e in events if e.get("cat") in DEVICE_CATS]
+    if not device:
+        fail(f"phase 30 {what}: the trace holds no device event")
+    inside = [e for e in device if lo <= e["ts"] and e["ts"] + e["dur"] <= hi]
+    counted = {k: v for k, v in launches.items() if v}
+    if not counted or not set(counted) <= set(TRACE_KERNELS):
+        fail(f"phase 30 {what}: launches {counted}, not all with a CUDA name to find")
+    kernel_ms = {}
+    for name, n in counted.items():
+        pat = re.compile(TRACE_KERNELS[name])
+        anywhere = [e for e in device if e.get("cat") == "kernel" and pat.search(e["name"])]
+        hits = [e for e in anywhere if e in inside]
+        if len(anywhere) != n or len(hits) != n:
+            fail(f"phase 30 {what}: {name} launched {n} times; the trace holds {len(anywhere)} "
+                 f"of its kernel, {len(hits)} inside the {span!r} span")
+        kernel_ms[name] = sum(e["dur"] for e in hits) / n / 1e3
+    totals = {}
+    for e in inside:
+        t = totals.setdefault(e["name"], [0.0, 0])
+        t[0] += e["dur"] / 1e3
+        t[1] += 1
+    top = sorted(totals.items(), key=lambda kv: -kv[1][0])[:5]
+    busy, end = 0.0, lo
+    for e in sorted(inside, key=lambda e: e["ts"]):
+        a, b = max(e["ts"], end), e["ts"] + e["dur"]
+        if b > a:
+            busy += b - a
+            end = b
+    return {
+        "span_ms": s["dur"] / 1e3,
+        "device_busy_share": busy / s["dur"],
+        "device_events": len(inside),
+        "top5_device_ops": [{"name": n[:120], "total_ms": t, "count": c} for n, (t, c) in top],
+        "kernel_traced_ms": kernel_ms,
+        "device_annotation": any(e.get("cat") == "gpu_user_annotation" and e["name"] == span
+                                 for e in events),
+    }
+
+
+def nan_trap(torch, np, ck):
+    """Under enable_checks(): clean 64^3 example fields run the step; one
+    NaN planted in dens raises FloatingPointError; K4 on a power volume
+    holding a NaN raises it naming the kernel. After disable_checks() the
+    planted NaN goes through. Returns the two errors' messages."""
+    import fava_tpu_torch
+    from fava_tpu_torch import flagship
+    from fava_tpu_torch.utils import debug
+
+    fields = flagship.make_example_fields(64)
+    planted = [f.clone() for f in fields]
+    planted[0][3, 5, 7] = float("nan")
+    clean_model = fava_tpu_torch.from_arrays(dict(zip(NAMES, fields)))
+    nan_model = fava_tpu_torch.from_arrays(dict(zip(NAMES, planted)))
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    total, longi = (torch.rand((33, 33, 33), generator=gen, device="cuda") for _ in range(2))
+    total[1, 1, 1] = float("nan")
+    torch.cuda.synchronize()
+    errors = {}
+    try:
+        debug.enable_checks()
+        out = clean_model.flagship_analysis()
+        if not all(np.isfinite(np.asarray(v)).all() for v in out.values()):
+            fail("phase 30: the clean step's outputs are not finite")
+        for what, fn in (("op", nan_model.flagship_analysis),
+                         ("kernel", lambda: ck.shell_bin_values_folded(total, longi, 31, 64, 64))):
+            try:
+                fn()
+            except FloatingPointError as e:
+                errors[what] = str(e)
+            else:
+                fail(f"phase 30: a NaN ({what}) went through enable_checks()")
+    finally:
+        debug.disable_checks()
+    if "shell_bin_values_folded" not in errors["kernel"]:
+        fail(f"phase 30: K4's NaN error does not name the kernel: {errors['kernel']}")
+    out = nan_model.flagship_analysis()
+    if not np.isnan(np.asarray(out["mean_dens"])).any():
+        fail("phase 30: after disable_checks() the planted NaN did not reach mean_dens")
+    return errors
+
+
+def phase_trace(torch, np, model, stages, card):
+    """One warm flagship_analysis and one kinetic_energy_spectra of the
+    512^3 example fields under device_trace, held to their launch counts
+    and reported beside phase 5's CUDA-event times; then the NaN trap.
+    Returns the traced runs' launches."""
+    from fava_tpu_torch.ops import cuda_kernels as ck
+    from fava_tpu_torch.utils import timing
+
+    t_phase = time.perf_counter()
+    model.flagship_analysis()  # warm
+    model.kinetic_energy_spectra()
+    torch.cuda.synchronize()
+    totals = {}
+    with tempfile.TemporaryDirectory(prefix="fava_trace_") as tmp:
+        # (not "kinetic_energy_spectra": its @timer records under that name)
+        for span, fn in (("flagship_step", model.flagship_analysis),
+                         ("spectra_step", model.kinetic_energy_spectra)):
+            timing.reset_timings()
+            launches, events = traced(torch, ck, Path(tmp) / span, span, fn)
+            if span == "flagship_step" and any(launches[k] != 1 for k in FLAGSHIP_KERNELS):
+                fail(f"phase 30: the traced step launched {launches}")
+            report = trace_report(launches, events, span, span)
+            report["host_wall_s"] = timing.timings()[span][0]
+            report["phase5_cuda_event_ms"] = {k: stages[STAGE_OF[k]] for k in report["kernel_traced_ms"]
+                                              if k in STAGE_OF}
+            say(f"phase 30 trace {span}: {json.dumps({'card': card, **report})}")
+            add_counts(totals, launches)
+    timing.reset_timings()
+    errors = nan_trap(torch, np, ck)
+    say(f"phase 30 NaN trap: {json.dumps(errors)}")
+    secs = time.perf_counter() - t_phase
+    say(f"phase 30 seconds {secs!r}; {card}")
+    if secs > TRACE_PHASE_S:
+        fail(f"phase 30 took {secs:.1f} s, over its {TRACE_PHASE_S} s")
+    return totals
+
 
 # ---------------------------------------------------------------------------
 # Phase 6: the AMR file and its load
@@ -5924,7 +6114,7 @@ def main() -> None:
     fields = flagship.make_example_fields(N)
     rows = phase_kernels(torch, fields)
     launches, _errs, model, batch, ref_spectra = phase_main(torch, np, fields)
-    phase_timings(torch, fields, model, batch, card)
+    stages = phase_timings(torch, fields, model, batch, card)
     del model, batch
     torch.cuda.empty_cache()
     fused_rows, fused_launches, fused_times = phase_fused(torch, np, fields, ref_spectra)
@@ -6009,6 +6199,12 @@ def main() -> None:
         f"{json.dumps({'card': card, 'window': surface_times, 'pipeline': pipe_times})}")
     torch.cuda.empty_cache()
     phase_particles(torch, np, card)
+    torch.cuda.empty_cache()
+    # Phase 30 runs last: CUPTI stays attached after a trace, and every
+    # later CUDA call of the process pays host time for it.
+    model = fava_tpu_torch.from_arrays(dict(zip(NAMES, flagship.make_example_fields(N))))
+    add_counts(launches, phase_trace(torch, np, model, stages, card))
+    del model
 
     if any(m.split(".")[0] in ("jax", "fava_tpu") for m in sys.modules):
         fail("JAX or fava_tpu was imported")

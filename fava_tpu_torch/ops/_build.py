@@ -3,10 +3,12 @@
 Each ``fava_tpu_torch/csrc/*.cu`` is compiled by its own ``nvcc``
 process for Hopper (``sm_90a``), all started together, and the objects
 are linked into one shared library with a plain C interface, loaded
-with ctypes. The build happens at first use, into
-``fava_tpu_torch/_build/``, keyed by a hash of the sources, headers and
-flags, so a fresh checkout builds once and later processes reuse the
-library. Nothing here runs at import time.
+with ctypes. The build happens at first use, into ``BUILD_DIR``
+(``fava_tpu_torch/_build/`` unless ``utils.enable_compilation_cache``
+points it elsewhere), keyed by a hash of the sources, headers and flags,
+so a fresh checkout builds once and later processes, and checkouts with
+the same sources sharing one directory, reuse the library. Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -17,13 +19,16 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 from pathlib import Path
 from typing import Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+DEFAULT_BUILD_DIR = _PKG / "_build"
+BUILD_DIR = DEFAULT_BUILD_DIR
 DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
 NVCC_FLAGS = (
     "-gencode",
@@ -97,14 +102,42 @@ def library_path() -> Path:
 
 
 BUILD_LOG: Optional[str] = None
+# The library that library() loaded, once it has.
+_LOADED: Optional[Path] = None
+
+
+def set_build_dir(path) -> None:
+    """Build into and load from ``path`` from now on. Raises RuntimeError
+    once ``library()`` has loaded a library from another directory: that
+    library stays loaded in this process."""
+    global BUILD_DIR
+    path = Path(path).resolve()
+    if _LOADED is not None and _LOADED.parent.resolve() != path:
+        raise RuntimeError(
+            f"the kernel library is already loaded from {_LOADED}; this process cannot "
+            f"build into or load from {path}"
+        )
+    BUILD_DIR = path
+
+
+def _compile(nvcc: str, src: Path, obj: Path):
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT,
+        text=True,
+    )
+    return proc, time.perf_counter() - t0
 
 
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists.
 
     One nvcc per source, all running at once, then one link. Raises when
-    nvcc is missing or a compile or the link fails. The compilers'
-    resource reports (``-Xptxas -v``) are kept in ``BUILD_LOG``.
+    nvcc is missing or a compile or the link fails. ``BUILD_LOG`` keeps,
+    for each source, its compile seconds (on its ``== name: s s`` line)
+    and the compiler's resource report (``-Xptxas -v``).
     """
     global BUILD_LOG
     out = library_path()
@@ -112,20 +145,14 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = _sources()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
-        objs = [Path(work) / f"{src.stem}.o" for src in _sources()]
-        procs = [
-            subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT,
-                text=True,
-            )
-            for src, obj in zip(_sources(), objs)
-        ]
+        objs = [Path(work) / f"{src.stem}.o" for src in sources]
+        with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+            runs = list(pool.map(_compile, [nvcc] * len(sources), sources, objs))
         logs, failed = [], []
-        for src, proc in zip(_sources(), procs):
-            logs.append(f"== {src.name}\n{proc.communicate()[0]}")
+        for src, (proc, secs) in zip(sources, runs):
+            logs.append(f"== {src.name}: {secs:.1f} s\n{proc.stdout}")
             if proc.returncode != 0:
                 failed.append(f"{src.name} ({proc.returncode})")
         BUILD_LOG = "".join(logs)
@@ -145,7 +172,10 @@ def build() -> Path:
 @lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The built kernel library with every entry's argtypes declared."""
-    lib = ctypes.CDLL(str(build()))
+    global _LOADED
+    path = build()
+    lib = ctypes.CDLL(str(path))
+    _LOADED = path
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)

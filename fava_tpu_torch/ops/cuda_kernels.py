@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from fava_tpu_torch.ops import _build, dft
-from fava_tpu_torch.utils import accum_dtype, resolve_device
+from fava_tpu_torch.utils import accum_dtype, debug, resolve_device
 
 NMOM = 13  # raw row moments
 NCEN = 9  # 6 centered covariances + 3 centered first moments
@@ -128,7 +128,10 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launch(kernel: str, device: torch.device, fn, *args) -> None:
+def _launch(kernel: str, device: torch.device, fn, *args, wrote=()) -> None:
+    """Launch ``fn(*args, stream)`` on the current stream and count it.
+    ``wrote``: the tensors the launch writes, checked for NaN while
+    ``utils.debug`` checks are on."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
@@ -136,6 +139,8 @@ def _launch(kernel: str, device: torch.device, fn, *args) -> None:
         msg = _build.library().fava_error_string(err).decode()
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {err} ({msg})")
     _LAUNCHES[kernel] += 1
+    if debug.NAN_CHECKS:
+        debug.check_outputs(f"the CUDA kernel of {kernel}", wrote)
 
 
 # ---------------------------------------------------------------------------
@@ -185,7 +190,7 @@ def row_moments_volume(dens, vx, vy, vz) -> torch.Tensor:
     row_len = ny * nz
     _launch(
         name, dens.device, lib.fava_row_moments, *(f.data_ptr() for f in fields), out.data_ptr(),
-        nx, row_len, _vec_ok(row_len, *fields),
+        nx, row_len, _vec_ok(row_len, *fields), wrote=(out,),
     )
     return out
 
@@ -239,7 +244,7 @@ def centered_row_moments(dens, vx, vy, vz, means) -> torch.Tensor:
     row_len = ny * nz
     _launch(
         name, dens.device, lib.fava_centered_row_moments, *(f.data_ptr() for f in fields),
-        means.data_ptr(), out.data_ptr(), nx, row_len, _vec_ok(row_len, *fields),
+        means.data_ptr(), out.data_ptr(), nx, row_len, _vec_ok(row_len, *fields), wrote=(out,),
     )
     return out
 
@@ -281,6 +286,7 @@ def fold_quadrants_pair(total, longi) -> Tuple[torch.Tensor, torch.Tensor]:
     _launch(
         name, total.device, _build.library().fava_fold_quadrants_pair,
         total.data_ptr(), longi.data_ptr(), to.data_ptr(), lo.data_ptr(), nx, ny, nzr, blocks,
+        wrote=(to, lo),
     )
     return to, lo
 
@@ -353,6 +359,7 @@ def _shell_bin_folded(name: str, vols, nbins: int, full_ny: int, full_nz: int) -
         nzr, int(nbins), full_ny, full_nz, len(vols),
         _walk_blocks("fava_shell_bin_folded_blocks_per_sm", (len(vols), 0), len(vols), nxh * rows,
                      int(nbins), total.device),
+        wrote=(out,),
     )
     return out
 
@@ -609,6 +616,7 @@ def shell_bin_sums_unfolded(total, longi: Optional[torch.Tensor], nbins: int, fu
         None if longi is None else longi.data_ptr(), out.data_ptr(), nx, ny, nzr, int(nbins),
         int(full_nz), len(vols),
         _unfolded_launch_blocks(total.shape, full_nz, len(vols), int(nbins), total.device),
+        wrote=(out,),
     )
     return out
 
@@ -650,6 +658,7 @@ def shell_bin_values_rfft_chunk(total, longi: Optional[torch.Tensor], nbins: int
             None if longi is None else longi.data_ptr(), sums.data_ptr(), rows, ny, nzr,
             int(nbins), full_nx, full_nz, kx0, c,
             _unfolded_launch_blocks(total.shape, full_nz, c, int(nbins), total.device),
+            wrote=(sums,),
         )
     if longi is None:
         return sums
@@ -740,6 +749,7 @@ def shell_bin_sums_folded_onepass(total, longi, nbins: int, full_nx: int, full_n
             full_ny, full_nz,
             _walk_blocks("fava_shell_bin_folded_blocks_per_sm", (2, 1), 3, nxh * rows, nbins,
                          total.device),
+            wrote=(out,),
         )
     return _with_transverse(out[0], out[1:])
 
@@ -835,6 +845,7 @@ def shell_bin_powers_fused(re_stack, im_stack, nbins: int, full_nz: int):
             ny, nzr, nbins, full_nz, interleaved,
             _walk_blocks("fava_shell_bin_powers_fused_blocks_per_sm", (interleaved,), 3,
                          (nx // 2 + 1) * (ny // 2 + 1), nbins, re_stack.device),
+            wrote=(out,),
         )
     return _with_transverse(out[0], out[1:])
 
@@ -1339,7 +1350,7 @@ def _zy_rfft_dense(x: torch.Tensor):
     nx, ny, nz = (int(s) for s in x.shape)
     re, im = _zy_outputs(x)
     _launch(name, x.device, _build.library().fava_zy_rfft, x.data_ptr(), re.data_ptr(),
-            im.data_ptr(), nx, ny, nz)
+            im.data_ptr(), nx, ny, nz, wrote=(re, im))
     return re, im
 
 
@@ -1400,7 +1411,7 @@ def _zy_rfft_fft(x: torch.Tensor, plan: ZyFftPlan):
     re, im = _zy_outputs(x)
     vec = int(x.data_ptr() % 8 == 0)  # float2 row loads
     _launch("zy_rfft_planar", x.device, _build.library().fava_zy_fft, x.data_ptr(), re.data_ptr(),
-            im.data_ptr(), tables.data_ptr(), nx, ctypes.addressof(ints), vec)
+            im.data_ptr(), tables.data_ptr(), nx, ctypes.addressof(ints), vec, wrote=(re, im))
     return re, im
 
 
@@ -1473,6 +1484,7 @@ def block_row_moments(dens, vx, vy, vz) -> torch.Tensor:
     _launch(
         name, dens.device, _build.library().fava_block_row_moments, *(f.data_ptr() for f in fields),
         out.data_ptr(), nrows, row_len, _vec_ok(row_len, *fields), _row_blocks(nrows, dens.device),
+        wrote=(out,),
     )
     return out
 
@@ -1495,7 +1507,7 @@ def block_centered_row_moments(dens, vx, vy, vz, means) -> torch.Tensor:
     _launch(
         name, dens.device, _build.library().fava_block_centered_row_moments,
         *(f.data_ptr() for f in fields), means.data_ptr(), out.data_ptr(), nrows, row_len,
-        _vec_ok(row_len, *fields), _row_blocks(nrows, dens.device),
+        _vec_ok(row_len, *fields), _row_blocks(nrows, dens.device), wrote=(out,),
     )
     return out
 
@@ -1637,7 +1649,7 @@ def regrid_fields(stacks, leaf_table, offsets, scales, out_shape, origin, ncells
             name, first.device, lib.fava_regrid_fields, ctypes.addressof(srcs),
             ctypes.addressof(dsts), len(chunk), leaf_table.data_ptr(), offsets.data_ptr(),
             shifts.data_ptr(), *out_shape, *origin, *ncells, ty, tz, *first.shape[1:], blocks,
-            threads,
+            threads, wrote=[outs[i] for i in chunk],
         )
     return outs
 
@@ -1850,7 +1862,7 @@ def pdf2d_counts(x, y, xedges, yedges, weights=None) -> torch.Tensor:
     _launch(
         name, x.device, _build.library().fava_pdf2d, x.data_ptr(), y.data_ptr(),
         None if weights is None else weights.data_ptr(), table.data_ptr(), out.data_ptr(), n, nbx,
-        nby, vec, launch["shared"], launch["smem"], launch["blocks"],
+        nby, vec, launch["shared"], launch["smem"], launch["blocks"], wrote=(out,),
     )
     return out
 

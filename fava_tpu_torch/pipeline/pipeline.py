@@ -508,9 +508,10 @@ def _reynolds_as_dict(result) -> dict:
 
 @timer
 def main(workdir: Optional[Path] = None, device="cuda") -> int:
-    from fava_tpu_torch.utils import configure_logging
+    from fava_tpu_torch.utils import configure_logging, enable_compilation_cache
 
     configure_logging()
+    enable_compilation_cache()
 
     pipe = Pipeline(workdir, device=device)
     pipe.restart()

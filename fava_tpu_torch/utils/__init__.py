@@ -1,5 +1,7 @@
-"""Host utilities: type tables, exceptions, timing, device/dtype policy,
-interrupt handling and logging setup."""
+"""Host utilities: type tables, exceptions, timing and trace spans,
+device/dtype policy, interrupt handling, logging setup and the kernel
+build cache (``profiling`` and ``debug`` are imported by name, as in
+fava_tpu)."""
 
 from fava_tpu_torch.utils._exceptions import (
     InvalidAnalysisError,
@@ -7,6 +9,7 @@ from fava_tpu_torch.utils._exceptions import (
     NotCallableError,
 )
 from fava_tpu_torch.utils._types import HID_T, NP_T
+from fava_tpu_torch.utils.cache import enable_compilation_cache
 from fava_tpu_torch.utils.interrupt import FAVAInterruptHandler, InterruptHandler
 from fava_tpu_torch.utils.logging_config import configure as configure_logging
 from fava_tpu_torch.utils.precision import (
@@ -19,7 +22,7 @@ from fava_tpu_torch.utils.precision import (
     set_compute_dtype,
     to_device,
 )
-from fava_tpu_torch.utils.timing import reset_timings, timer, timings
+from fava_tpu_torch.utils.timing import reset_timings, timer, timings, trace
 
 __all__ = [
     "HID_T",
@@ -34,6 +37,7 @@ __all__ = [
     "complex_dtype",
     "compute_dtype",
     "configure_logging",
+    "enable_compilation_cache",
     "field_dtype",
     "reset_timings",
     "resolve_device",
@@ -41,4 +45,5 @@ __all__ = [
     "timer",
     "timings",
     "to_device",
+    "trace",
 ]

@@ -1,10 +1,11 @@
 """Wall-clock timing of registered analyses.
 
-Counterpart of fava_tpu/utils/timing.py without the profiler
-annotations: the decorator records per-name wall-clock samples and
-prints one line per call. Device work is asynchronous under PyTorch, so
-a sample covers the device only where the timed function waits for its
-result (the analyses return host arrays, which does).
+Counterpart of fava_tpu/utils/timing.py: the decorator records per-name
+wall-clock samples and prints one line per call; ``trace`` records a
+region's sample inside a profiler span (utils/profiling.py). Device work
+is asynchronous under PyTorch, so a sample covers the device only where
+the timed code waits for its result (the analyses return host arrays,
+which does).
 """
 
 from __future__ import annotations
@@ -12,7 +13,10 @@ from __future__ import annotations
 import functools
 import time
 from collections import defaultdict
+from contextlib import contextmanager
 from typing import Any, Callable, Dict, List
+
+from fava_tpu_torch.utils.profiling import annotate
 
 _TIMINGS: Dict[str, List[float]] = defaultdict(list)
 
@@ -27,6 +31,18 @@ def timings() -> Dict[str, List[float]]:
 
 def reset_timings() -> None:
     _TIMINGS.clear()
+
+
+@contextmanager
+def trace(name: str):
+    """Context manager: wall-clock a region into ``timings()`` under
+    ``name``, inside an ``annotate(name)`` profiler span. It does not
+    synchronize the device (nor does fava_tpu's): the sample covers the
+    region's device work only where the region waits for it."""
+    tbeg = time.perf_counter()
+    with annotate(name):
+        yield
+    _TIMINGS[name].append(time.perf_counter() - tbeg)
 
 
 def timer(func: Callable[..., Any]) -> Callable[..., Any]:

@@ -23,7 +23,8 @@ both budgets, both homes of the chirp tables and cluster sizes 16 and 8
 at each row batch that fits (the results bit-equal to the plan's).
 ``--parent DIR`` instead times the kernel as built against the build of
 DIR/fava_tpu_torch/csrc/dft_kernels.cu (another checkout) under the same
-plans, in turns, on the power-of-two and mixed-radix cuts, bit for bit.
+plans, in turns, on the power-of-two, mixed-radix and chirp cuts and nz
+= 1, bit for bit.
 ``--designs`` instead times, in turns, the kernel as built against a build
 without its power-of-two route (at 512^3 and (8, 1024, 1024), bit for bit,
 with both builds' SASS instruction counts), and each plan against the
@@ -49,6 +50,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -75,7 +77,7 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-# Text edits of csrc/dft_kernels.cu that take one phase out of the FFT kernel.
+# Text edits of one_unit()'s source that take one phase out of the FFT kernel.
 LOAD = "return vec ? __ldg(reinterpret_cast<const float2*>(q)) : make_float2(__ldg(q), __ldg(q + 1));"
 REMOTE = "cluster.map_shared_rank(cols, u - pass * c)"
 ARRIVE = 'asm volatile("barrier.cluster.arrive.aligned;\\n" ::: "memory");'
@@ -129,19 +131,33 @@ TIMELINE = [
     ("    __syncthreads();\n  }\n  // Every rank's stores",
      "    __syncthreads();\n    tk[2] += clock64() - t_; t_ = clock64();\n  }\n  // Every rank's stores"),
     ("  cluster.sync();\n\n  // Phase 2", "  cluster.sync();\n  tk[3] += clock64() - t_; t_ = clock64();\n\n  // Phase 2"),
-    ("\n}\n\nbool smooth7(int n)",
+    ("\n}\n\n}  // namespace\n\nnamespace fava_zy {",
      "\n  tk[4] += clock64() - t_;\n  if (threadIdx.x == 0) { for (int i = 0; i < 5; ++i) atomicAdd(&zy_timeline[i], "
      "(unsigned long long)tk[i]); atomicAdd(&zy_timeline[6], 1ull); atomicAdd(&zy_timeline[7], "
-     "(unsigned long long)tk[7]); }\n}\n\nbool smooth7(int n)"),
+     "(unsigned long long)tk[7]); }\n}\n\n}  // namespace\n\nnamespace fava_zy {"),
     ('}  // extern "C"', 'int fava_zy_timeline(void* out) { return (int)cudaMemcpyFromSymbol(out, zy_timeline, '
      '16 * sizeof(unsigned long long)); }\n}  // extern "C"'),
 ]
 
 
+def one_unit(root: Path) -> str:
+    """The dft kernels of the checkout at ``root`` as one translation unit:
+    dft_kernels.cu with zy_fft.cuh in place of its include and the builds'
+    sources (zy_fft_*.cu) after it, where the checkout has them."""
+    csrc = root / "fava_tpu_torch" / "csrc"
+    src = (csrc / "dft_kernels.cu").read_text()
+    if (csrc / "zy_fft.cuh").is_file():
+        head = (csrc / "zy_fft.cuh").read_text().replace("#pragma once\n", "")
+        src = src.replace('#include "zy_fft.cuh"\n', head)
+        for unit in sorted(csrc.glob("zy_fft_*.cu")):
+            src += unit.read_text().replace('#include "zy_fft.cuh"\n', "")
+    return src
+
+
 def build_variant(nvcc, flags, edits, work: Path, root: Path = HERE):
     """The dft kernels' library of the checkout at ``root`` with ``edits``
-    applied to the source."""
-    src = (root / "fava_tpu_torch" / "csrc" / "dft_kernels.cu").read_text()
+    applied to its source, built as one translation unit (one_unit)."""
+    src = one_unit(root)
     for old, new in edits:
         if old not in src:
             sys.exit(f"edit target not found: {old!r}")
@@ -403,6 +419,8 @@ def main() -> None:
             out["parent"] = against_parent(torch, ck, _build, Path(sys.argv[sys.argv.index("--parent") + 1]), [
                 ("512^3", x), ("512x512x480", x[..., :480].contiguous()),
                 ("512x480x512", x[:, :480].contiguous()), ("512x384x375", x[:, :384, :375].contiguous()),
+                ("512x512x502", x[..., :502].contiguous()), ("512x502x512", x[:, :502].contiguous()),
+                ("512x509x509", x[:, :509, :509].contiguous()), ("512x512x1", x[..., :1].contiguous()),
                 ("(8, 1024, 1024)", torch.randn((8, 1024, 1024), generator=gen, device="cuda"))])
         print(json.dumps(out), flush=True)
         return
@@ -566,9 +584,12 @@ def against_parent(torch, ck, _build, parent: Path, volumes):
     with tempfile.TemporaryDirectory() as tmp:
         (Path(tmp) / "p").mkdir()
         (Path(tmp) / "v").mkdir()
-        so = build_variant(_build.find_nvcc(), flags, [], Path(tmp) / "p", root=parent)
+        with ThreadPoolExecutor(2) as pool:  # the two builds at once
+            so = pool.submit(build_variant, _build.find_nvcc(), flags, [], Path(tmp) / "p", parent)
+            variant = pool.submit(build_variant, _build.find_nvcc(), flags, RUNTIME_TABLE_BYTES,
+                                  Path(tmp) / "v")
+            so, variant = so.result(), variant.result()
         out["sass parent"] = sass_counts(Path(tmp) / "p" / "k.so", "zy_fft_kernel")
-        variant = build_variant(_build.find_nvcc(), flags, RUNTIME_TABLE_BYTES, Path(tmp) / "v")
         out["sass runtime table bytes"] = sass_counts(Path(tmp) / "v" / "k.so", "zy_fft_kernel")
         for k in ("sass this", "sass parent", "sass runtime table bytes"):
             print(f"{k}: {json.dumps(out[k])}", flush=True)

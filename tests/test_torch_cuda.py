@@ -1584,3 +1584,50 @@ def test_weighted_b8_on_stack_slabs_matches_plain(cuda_device, d, weight):
         acc += got
     whole = ck._pdf2d_plain(dens.double(), velx.double(), xe, ye, w.double())
     torch.testing.assert_close(acc, whole, rtol=1e-12, atol=0)
+
+
+@pytest.mark.cuda
+def test_device_trace_captures_k1_inside_its_span(cuda_device, tmp_path):
+    """``device_trace`` on the card records K1's launch by its CUDA name,
+    once, inside the ``annotate`` span around it."""
+    import json
+    import re
+
+    from fava_tpu_torch.utils import profiling
+
+    f = _fields(cuda_device)
+    ck.row_moments_volume(*f)  # built and warm
+    torch.cuda.synchronize()
+    with profiling.device_trace(tmp_path, device="cuda"):
+        with profiling.annotate("k1_span"):
+            ck.row_moments_volume(*f)
+            torch.cuda.synchronize()
+    (trace,) = tmp_path.glob("*.pt.trace.json")
+    events = [e for e in json.loads(trace.read_text())["traceEvents"] if e.get("ph") == "X"]
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and re.search(r"(?<![A-Za-z_])row_moments_kernel", e["name"])]
+    spans = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == "k1_span"]
+    assert len(k1) == 1 and len(spans) == 1
+    s, k = spans[0], k1[0]
+    assert s["ts"] <= k["ts"] and k["ts"] + k["dur"] <= s["ts"] + s["dur"]
+
+
+@pytest.mark.cuda
+def test_launch_nan_check_names_the_kernel(cuda_device):
+    """Under ``enable_checks`` a NaN in K4's output (from a NaN planted in
+    its input power) raises FloatingPointError naming the kernel; after
+    ``disable_checks`` it goes through."""
+    from fava_tpu_torch.utils import debug
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    total = torch.rand((9, 9, 9), generator=g, device=cuda_device)
+    longi = torch.rand((9, 9, 9), generator=g, device=cuda_device)
+    total[1, 1, 1] = float("nan")
+    try:
+        debug.enable_checks()
+        with pytest.raises(FloatingPointError, match="shell_bin_values_folded"):
+            ck.shell_bin_values_folded(total, longi, 7, 16, 16)
+        ck.shell_bin_values_folded(longi, longi, 7, 16, 16)  # clean: no error
+    finally:
+        debug.disable_checks()
+    assert torch.isnan(ck.shell_bin_values_folded(total, longi, 7, 16, 16)).any()

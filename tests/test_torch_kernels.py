@@ -355,9 +355,13 @@ def test_package_sources_are_present():
         "fused_spectra_kernels.cu",
         "pdf2d_kernels.cu",
         "spectra_kernels.cu",
+        "zy_fft_chirp.cu",
+        "zy_fft_mixed.cu",
+        "zy_fft_pow2.cu",
     ]
     assert (_build.CSRC / "row_moments.cuh").is_file()
     assert (_build.CSRC / "shell_bins.cuh").is_file()
+    assert (_build.CSRC / "zy_fft.cuh").is_file()
     assert set(_build._SIGNATURES) >= {
         "fava_block_row_moments",
         "fava_block_centered_row_moments",

@@ -58,11 +58,8 @@ def test_package_exports_the_reference_names():
         assert name in fava_tpu_torch.__all__
 
 
-# fava_tpu's exports the port leaves out: ROADMAP A12 (enable_compilation_cache,
-# trace).
-NOT_PORTED = {
-    "utils": {"enable_compilation_cache", "trace"},
-}
+# fava_tpu's exports the port leaves out: none.
+NOT_PORTED = {}
 # The port's exports beyond fava_tpu's (Placement stands in for jax's
 # NamedSharding).
 PORT_ONLY = {

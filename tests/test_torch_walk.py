@@ -443,7 +443,8 @@ def launches(monkeypatch):
         return 77
 
     monkeypatch.setattr(ck, "_walk_blocks", walk_blocks)
-    monkeypatch.setattr(ck, "_launch", lambda kernel, dev, fn, *a: seen["launch"].append((kernel, fn, a[-1])))
+    monkeypatch.setattr(ck, "_launch",
+                        lambda kernel, dev, fn, *a, wrote=(): seen["launch"].append((kernel, fn, a[-1])))
     return seen
 
 
