@@ -30,6 +30,7 @@ from fava_tpu_torch.ops.profiles import assemble_profile_stats, uniform_row_stat
 from fava_tpu_torch.ops.spectra import rfft_shell_sums, sharded_power_spectra
 from fava_tpu_torch.parallel import runtime
 from fava_tpu_torch.utils import field_dtype, resolve_device
+from fava_tpu_torch.utils.profiling import SPAN_PROFILES, annotate
 
 
 def uniform_analysis_step(dens, velx, vely, velz, mesh=None) -> Dict[str, torch.Tensor]:
@@ -55,26 +56,29 @@ def uniform_analysis_step(dens, velx, vely, velz, mesh=None) -> Dict[str, torch.
     # which avoids the cancellation of the one-pass expansion. Under a
     # mesh every row is whole on one rank, so both passes are local.
     layer = float(ny * nz)
-    moments, centered = uniform_row_stats(
-        [(dens, *vels)], None if mesh is None else runtime.SpaceRanks(mesh))
-    d_row = moments[0]
-    means = moments[1:4] / layer
-    stress, favre_mean, favre_rms = assemble_profile_stats(
-        d_row, means, centered[6:9], centered[:6], layer
-    )
+    with annotate(SPAN_PROFILES):
+        moments, centered = uniform_row_stats(
+            [(dens, *vels)], None if mesh is None else runtime.SpaceRanks(mesh))
+        d_row = moments[0]
+        means = moments[1:4] / layer
+        stress, favre_mean, favre_rms = assemble_profile_stats(
+            d_row, means, centered[6:9], centered[:6], layer
+        )
+        mean_dens = d_row / layer
+        # Row sums already hold every cell once: the total mass without
+        # another pass over the density volume.
+        total_mass = d_row.sum()
 
     return {
         "spectra_counts": counts,
         "spectra_total": sums3[0],
         "spectra_longitudinal": sums3[1],
         "spectra_transverse": sums3[2],
-        "mean_dens": d_row / layer,
+        "mean_dens": mean_dens,
         "reynolds_stress": stress,
         "favre_mean": favre_mean,
         "favre_rms": favre_rms,
-        # Row sums already hold every cell once: the total mass without
-        # another pass over the density volume.
-        "total_mass": d_row.sum(),
+        "total_mass": total_mass,
     }
 
 

@@ -70,6 +70,7 @@ from fava_tpu_torch.ops import velocity as vel_ops
 from fava_tpu_torch.ops import volume as volume_ops
 from fava_tpu_torch.parallel import runtime
 from fava_tpu_torch.utils import field_dtype, timer
+from fava_tpu_torch.utils.profiling import SPAN_SYNC_OUTPUTS, annotate
 
 
 def streams_out_of_core(shape, dtype: torch.dtype, free_bytes: float, resident_bytes: int = 0) -> bool:
@@ -319,7 +320,8 @@ class FlashUniform(FLASH):
             out = flagship.uniform_analysis_step(*map(self._slab, names), mesh=self._dmesh)
         else:
             out = flagship.uniform_analysis_step(*map(self._volume, names))
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        with annotate(SPAN_SYNC_OUTPUTS):
+            return {k: v.cpu().numpy() for k, v in out.items()}
 
     @timer
     def kinetic_energy_spectra(self) -> Dict[str, np.ndarray]:

@@ -57,6 +57,7 @@ import torch
 
 from fava_tpu_torch.ops import _build, dft
 from fava_tpu_torch.utils import accum_dtype, debug, resolve_device
+from fava_tpu_torch.utils.profiling import SPAN_BINNING, SPAN_SYNC_COUNTS, annotate
 
 NMOM = 13  # raw row moments
 NCEN = 9  # 6 centered covariances + 3 centered first moments
@@ -512,7 +513,8 @@ def _static_counts(shape, nbins: int, full_nz: int, device) -> torch.Tensor:
     nx, ny, _ = (int(s) for s in shape)
     fshape = (nx // 2 + 1, ny // 2 + 1, full_nz // 2 + 1)
     counts = _folded_counts(fshape, int(nbins), nx, ny, int(full_nz), str(torch.device(device)))
-    return torch.tensor(counts, dtype=accum_dtype(), device=device)
+    with annotate(SPAN_SYNC_COUNTS):
+        return torch.tensor(counts, dtype=accum_dtype(), device=device)
 
 
 def _even_xy(shape) -> bool:
@@ -526,12 +528,13 @@ def shell_bin_sums_rfft(total, longi, nbins: int, full_nz: int):
     in exact arithmetic). Even x and y extents fold the quadrants (K3)
     and bin the folded values (K4); an odd one bins the volumes
     unfolded (B10)."""
-    if _even_xy(total.shape):
-        ft, fl = fold_quadrants_pair(total, longi)
-        sums2 = shell_bin_values_folded(ft, fl, int(nbins), int(total.shape[1]), full_nz)
-    else:
-        sums2 = shell_bin_sums_unfolded(total, longi, int(nbins), full_nz)
-    return _with_transverse(_static_counts(total.shape, nbins, full_nz, sums2.device), sums2)
+    with annotate(SPAN_BINNING):
+        if _even_xy(total.shape):
+            ft, fl = fold_quadrants_pair(total, longi)
+            sums2 = shell_bin_values_folded(ft, fl, int(nbins), int(total.shape[1]), full_nz)
+        else:
+            sums2 = shell_bin_sums_unfolded(total, longi, int(nbins), full_nz)
+        return _with_transverse(_static_counts(total.shape, nbins, full_nz, sums2.device), sums2)
 
 
 def shell_bin_sums_rfft_scalar(p, nbins: int, full_nz: int):

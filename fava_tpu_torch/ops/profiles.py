@@ -57,6 +57,7 @@ import torch
 from fava_tpu_torch.ops import cuda_kernels
 from fava_tpu_torch.parallel import runtime
 from fava_tpu_torch.utils import accum_dtype
+from fava_tpu_torch.utils.profiling import SPAN_SYNC_INDEX, annotate
 
 AXES_NAMES = "xyz"
 
@@ -594,7 +595,8 @@ def assemble_profile_stats(d_row, means, c1, cov, layer):
     safe_d = torch.where(d_row > 0, d_row, torch.ones_like(d_row))
     favre_mean = means + c1 / safe_d
     di = favre_mean - means
-    diag_cov = cov[list(_DIAG)]
+    with annotate(SPAN_SYNC_INDEX):
+        diag_cov = cov[list(_DIAG)]
     var = (diag_cov - 2.0 * di * c1 + di * di * d_row) / safe_d
     favre_rms = torch.sqrt(torch.clamp(var, min=0.0))
     return stress, favre_mean, favre_rms

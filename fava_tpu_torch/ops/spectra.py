@@ -35,6 +35,7 @@ from fava_tpu_torch.ops import cuda_kernels
 from fava_tpu_torch.parallel import runtime
 from fava_tpu_torch.parallel.fft import _wavenumbers, pencil_rfft
 from fava_tpu_torch.utils import accum_dtype
+from fava_tpu_torch.utils.profiling import SPAN_POWERS, SPAN_TRANSFORMS, annotate
 
 
 def _split_nyquist(k: torch.Tensor, n: int, idx: torch.Tensor):
@@ -76,44 +77,46 @@ def rfft_power_volumes(
     share of the pencil transform); the Nyquist split applies where a
     global index is n/2, and only there.
     """
-    nx, ny, nz = full_shape
-    nzr = ffts[0].shape[-1]
-    rdt = ffts[0].real.dtype
-    dev = ffts[0].device
-    if kx is None:
-        jx = torch.arange(nx, device=dev)
-        kx = _wavenumbers(nx, rdt, dev)
-    if ky is None:
-        jy = torch.arange(ny, device=dev)
-        ky = _wavenumbers(ny, rdt, dev)
-    jx = jx.to(dev)[:, None, None]
-    kx = kx.to(device=dev, dtype=rdt)[:, None, None]
-    jy = jy.to(dev)[None, :, None]
-    ky = ky.to(device=dev, dtype=rdt)[None, :, None]
-    jz = torch.arange(nzr, device=dev)[None, None, :]
-    kz = jz.to(rdt)
+    with annotate(SPAN_POWERS):
+        nx, ny, nz = full_shape
+        nzr = ffts[0].shape[-1]
+        rdt = ffts[0].real.dtype
+        dev = ffts[0].device
+        if kx is None:
+            jx = torch.arange(nx, device=dev)
+            kx = _wavenumbers(nx, rdt, dev)
+        if ky is None:
+            jy = torch.arange(ny, device=dev)
+            ky = _wavenumbers(ny, rdt, dev)
+        jx = jx.to(dev)[:, None, None]
+        kx = kx.to(device=dev, dtype=rdt)[:, None, None]
+        jy = jy.to(dev)[None, :, None]
+        ky = ky.to(device=dev, dtype=rdt)[None, :, None]
+        jz = torch.arange(nzr, device=dev)[None, None, :]
+        kz = jz.to(rdt)
 
-    total = 0.5 * (_abs2(ffts[0]) + _abs2(ffts[1]) + _abs2(ffts[2]))
+        total = 0.5 * (_abs2(ffts[0]) + _abs2(ffts[1]) + _abs2(ffts[2]))
 
-    kx_r, kx_n = _split_nyquist(kx, nx, jx)
-    ky_r, ky_n = _split_nyquist(ky, ny, jy)
-    kz_r, kz_n = _split_nyquist(kz, nz, jz)
-    reg = kx_r * ffts[0] + ky_r * ffts[1] + kz_r * ffts[2]
-    nyq = kx_n * ffts[0] + ky_n * ffts[1] + kz_n * ffts[2]
+        kx_r, kx_n = _split_nyquist(kx, nx, jx)
+        ky_r, ky_n = _split_nyquist(ky, ny, jy)
+        kz_r, kz_n = _split_nyquist(kz, nz, jz)
+        reg = kx_r * ffts[0] + ky_r * ffts[1] + kz_r * ffts[2]
+        nyq = kx_n * ffts[0] + ky_n * ffts[1] + kz_n * ffts[2]
 
-    # k2 is integer-valued: clamping at 1 only touches k = 0, where the
-    # projections are exactly 0 (fava_tpu's 1e-30 guard gives the same).
-    inv_k2 = 1.0 / torch.clamp(kx * kx + ky * ky + kz * kz, min=1.0)
-    longi = torch.where(jz == 0, _abs2(reg - nyq), _abs2(reg) + _abs2(nyq)) * inv_k2
-    # cuFFT may return permuted strides, which elementwise ops keep; the
-    # binning kernels take row-major volumes.
-    return total.contiguous(), longi.contiguous()
+        # k2 is integer-valued: clamping at 1 only touches k = 0, where the
+        # projections are exactly 0 (fava_tpu's 1e-30 guard gives the same).
+        inv_k2 = 1.0 / torch.clamp(kx * kx + ky * ky + kz * kz, min=1.0)
+        longi = torch.where(jz == 0, _abs2(reg - nyq), _abs2(reg) + _abs2(nyq)) * inv_k2
+        # cuFFT may return permuted strides, which elementwise ops keep; the
+        # binning kernels take row-major volumes.
+        return total.contiguous(), longi.contiguous()
 
 
 def kinetic_transforms(dens, vels):
     """The three normalized real transforms of sqrt(rho)*v of a 3D volume."""
-    sqrt_d = torch.sqrt(dens)
-    return [torch.fft.rfftn(sqrt_d * v, norm="forward") for v in vels]
+    with annotate(SPAN_TRANSFORMS):
+        sqrt_d = torch.sqrt(dens)
+        return [torch.fft.rfftn(sqrt_d * v, norm="forward") for v in vels]
 
 
 def kinetic_power_volumes(dens, vels) -> Tuple[torch.Tensor, torch.Tensor]:

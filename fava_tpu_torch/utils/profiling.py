@@ -7,12 +7,19 @@ Chrome/Perfetto trace (``*.pt.trace.json``, as
 ``torch.profiler.tensorboard_trace_handler`` names it) under ``logdir``;
 ``annotate`` adds named spans, which the trace shows on the host
 timeline and, projected, on the device timeline, so device timelines
-attribute kernel time to specific analyses.
+attribute kernel time to specific analyses. With no profiler running a
+span is a shared no-op: the spans below stay in the step at no cost.
+
+The flagship step's stages and its synchronising copies carry the
+``SPAN_*`` names. A trace records each span and the CUDA calls that
+launch device work on one host clock, and every launch shares a
+correlation id with the device operation it started, so a stage's device
+time is the time of the operations whose launch falls inside its span.
 """
 
 from __future__ import annotations
 
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import torch
@@ -22,6 +29,23 @@ from fava_tpu_torch.utils.precision import resolve_device
 # Host-side names of the CUDA API calls that put work on the card, as a
 # CUDA trace records them.
 _LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
+
+SPAN_TRANSFORMS = "fava.transforms"
+"""sqrt(rho), the three products and rfftn; read by transforms_ms_per_snapshot."""
+SPAN_POWERS = "fava.powers"
+"""The total and longitudinal power volumes; read by powers_ms_per_snapshot."""
+SPAN_BINNING = "fava.binning"
+"""Fold and K4 (or B10), the static counts, transverse; read by binning_ms_per_snapshot."""
+SPAN_PROFILES = "fava.profiles"
+"""K1, K2 and the profiles' assembly; read by profiles_ms_per_snapshot."""
+SPAN_SYNC_COUNTS = "fava.sync.counts"
+"""The shell counts' copy to the card, a stream sync; its site in host_syncs_per_snapshot."""
+SPAN_SYNC_INDEX = "fava.sync.index"
+"""The covariance diagonal's index copy, a stream sync; its site in host_syncs_per_snapshot."""
+SPAN_SYNC_OUTPUTS = "fava.sync.outputs"
+"""The outputs' copies to the host, a sync each; their site in host_syncs_per_snapshot."""
+
+_OFF = nullcontext()
 
 
 @contextmanager
@@ -73,5 +97,8 @@ def device_trace(logdir: str | Path, device="cuda"):
 
 
 def annotate(name: str):
-    """Named trace span (context manager) for host and device timelines."""
+    """Named trace span (context manager) for host and device timelines;
+    with no profiler running, one shared no-op that records nothing."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
     return torch.profiler.record_function(name)

@@ -7,24 +7,38 @@ trace where fava_tpu writes a jax.profiler one; ``trace`` records into
 its directory in fava_tpu's order and points the kernel build there;
 ``enable_checks`` traps a NaN where ``jax_debug_nans`` does. The NaN
 comparison runs both flagship steps in float64 on the same numpy input.
+
+The flagship step's ``fava.*`` spans: free with no profiler running, in
+order inside a CPU trace, and on the card (tests marked ``cuda``, which
+use no JAX) every synchronisation of a warm step inside a
+``fava.sync.*`` span and every device operation credited, by its launch,
+to the stage that ran it. On the card, where there is no JAX:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_profiling.py
 """
 
 import json
+import re
 from pathlib import Path
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-import fava_tpu
+try:  # the reference; the card's machine has no JAX, and the card tests use none
+    import jax
+
+    import fava_tpu
+    from fava_tpu import flagship as jflag
+    from fava_tpu.utils import cache as jcache
+    from fava_tpu.utils import debug as jdebug
+    from fava_tpu.utils import profiling as jprofiling
+    from fava_tpu.utils import timing as jtiming
+except ModuleNotFoundError:
+    jax = fava_tpu = jflag = jcache = jdebug = jprofiling = jtiming = None
+
 import fava_tpu_torch
-from fava_tpu import flagship as jflag
-from fava_tpu.utils import cache as jcache
-from fava_tpu.utils import debug as jdebug
-from fava_tpu.utils import profiling as jprofiling
-from fava_tpu.utils import timing as jtiming
-from fava_tpu_torch import pipeline
+from fava_tpu_torch import flagship, pipeline
 from fava_tpu_torch.ops import _build
 from fava_tpu_torch.utils import cache, debug, profiling, timing
 
@@ -103,6 +117,176 @@ def test_trace_records_inside_an_annotate_span(tmp_path):
     assert len(spans) == 1 and spans[0]["cat"] == "user_annotation"
     assert len(timing.timings()["step"]) == 1
     timing.reset_timings()
+
+
+STAGES = (profiling.SPAN_TRANSFORMS, profiling.SPAN_POWERS, profiling.SPAN_BINNING,
+          profiling.SPAN_PROFILES)
+# A snapshot's spans by their start, and the stage that holds each sync span.
+STEP_SPANS = [profiling.SPAN_TRANSFORMS, profiling.SPAN_POWERS, profiling.SPAN_BINNING,
+              profiling.SPAN_SYNC_COUNTS, profiling.SPAN_PROFILES, profiling.SPAN_SYNC_INDEX]
+HELD_BY = {profiling.SPAN_SYNC_COUNTS: profiling.SPAN_BINNING,
+           profiling.SPAN_SYNC_INDEX: profiling.SPAN_PROFILES}
+
+
+def _fava_spans(logdir):
+    return sorted((e for e in _trace_events(logdir) if e.get("ph") == "X"
+                   and e.get("cat") == "user_annotation" and e["name"].startswith("fava.")),
+                  key=lambda e: e["ts"])
+
+
+def _assert_held(spans):
+    """Each sync span lies inside the last span of the stage that holds it."""
+    for i, e in enumerate(spans):
+        if e["name"] in HELD_BY:
+            outer = [o for o in spans[:i] if o["name"] == HELD_BY[e["name"]]][-1]
+            assert _inside(e, outer), (e, outer)
+
+
+def test_annotate_is_a_shared_noop_without_a_profiler(monkeypatch):
+    def refuse(*args):
+        raise AssertionError("a span was entered with no profiler running")
+
+    monkeypatch.setattr(torch.ops.profiler, "_record_function_enter_new", refuse)
+    with pytest.raises(AssertionError, match="no profiler running"):  # the patch bites
+        with torch.profiler.record_function("span"):
+            pass
+    assert not torch.autograd._profiler_enabled()
+    span = profiling.annotate(profiling.SPAN_POWERS)
+    assert span is profiling.annotate("another") is profiling._OFF
+    with span:
+        pass
+    timing.reset_timings()
+    with timing.trace("untraced"):  # still records its wall sample
+        pass
+    assert len(timing.timings()["untraced"]) == 1
+    timing.reset_timings()
+    flagship.uniform_analysis_step(*flagship.make_example_fields(8, device="cpu"))
+
+
+def test_series_step_records_its_stages_in_order(tmp_path):
+    batch = flagship.make_example_field_batch(2, 16, device="cpu")
+    ref = flagship.series_analysis_step(*batch)
+    with profiling.device_trace(tmp_path, device="cpu"):
+        out = flagship.series_analysis_step(*batch)
+    spans = _fava_spans(tmp_path)
+    assert [e["name"] for e in spans] == STEP_SPANS * 2
+    _assert_held(spans)
+    assert set(out) == set(ref) and all(torch.equal(out[k], ref[k]) for k in ref)
+
+
+def test_flagship_analysis_records_its_stages_and_the_outputs_copy(tmp_path):
+    fields = flagship.make_example_fields(16, device="cpu")
+    model = fava_tpu_torch.from_arrays(dict(zip(NAMES, fields)), device="cpu")
+    ref = model.flagship_analysis()
+    with profiling.device_trace(tmp_path, device="cpu"):
+        out = model.flagship_analysis()
+    spans = _fava_spans(tmp_path)
+    assert [e["name"] for e in spans] == STEP_SPANS + [profiling.SPAN_SYNC_OUTPUTS]
+    _assert_held(spans)
+    assert set(out) == set(ref) and all(np.array_equal(out[k], ref[k]) for k in ref)
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _warm_step(entry: str, device):
+    """The step a cell runs, called once: the kernels' build, the cached
+    shell counts and cuFFT's plans are behind it."""
+    batch = flagship.make_example_field_batch(2, 64, device=device)
+    if entry == "series":
+        step = lambda: flagship.series_analysis_step(*batch)  # noqa: E731
+    else:
+        model = fava_tpu_torch.from_arrays(dict(zip(NAMES, (f[0] for f in batch))), device=device)
+        step = model.flagship_analysis
+    step()
+    torch.cuda.synchronize(device)
+    return step
+
+
+class _SyncSpan:
+    """Stands in for record_function: the stream may synchronise inside a
+    ``fava.sync.*`` span and raises anywhere else."""
+
+    def __init__(self, name: str, entered: list):
+        self.sync = name.startswith("fava.sync.")
+        entered.append(name)
+
+    def __enter__(self):
+        if self.sync:
+            torch.cuda.set_sync_debug_mode(0)
+        return self
+
+    def __exit__(self, *exc):
+        if self.sync:
+            torch.cuda.set_sync_debug_mode("error")
+        return False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,syncs", [
+    ("series", [profiling.SPAN_SYNC_COUNTS, profiling.SPAN_SYNC_INDEX] * 2),
+    ("flagship_analysis", [profiling.SPAN_SYNC_COUNTS, profiling.SPAN_SYNC_INDEX,
+                           profiling.SPAN_SYNC_OUTPUTS]),
+])
+def test_every_synchronisation_of_a_warm_step_is_in_a_sync_span(cuda_device, monkeypatch, entry,
+                                                                 syncs):
+    step = _warm_step(entry, cuda_device)
+    entered = []
+    monkeypatch.setattr(torch.autograd, "_profiler_enabled", lambda: True)
+    monkeypatch.setattr(torch.profiler, "record_function", lambda name: _SyncSpan(name, entered))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert [n for n in entered if n.startswith("fava.sync.")] == syncs
+
+
+# Device operations of known name and the stage that must launch them
+# (None: outside every stage); the rest go wherever their launch lies.
+LAUNCHED_IN = (
+    (re.compile(r"fft", re.I), profiling.SPAN_TRANSFORMS),  # cuFFT's kernels
+    (re.compile(r"row_moments_kernel"), profiling.SPAN_PROFILES),  # K1, K2
+    (re.compile(r"fold_pair_kernel|shell_walk_kernel"), profiling.SPAN_BINNING),  # K3, K4
+    (re.compile(r"^Memcpy DtoH"), None),  # the outputs
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,snapshots", [("series", 2), ("flagship_analysis", 1)])
+def test_device_ops_are_credited_to_the_stage_that_launched_them(cuda_device, tmp_path, entry,
+                                                                 snapshots):
+    """Every device operation of a traced step has its launch on the host
+    (the same correlation id), and the innermost stage span around the
+    launch is the stage that ran it: the rule the benchmark's stage
+    metrics read. The device's timestamps are not compared with the
+    host's: they drift apart, by up to milliseconds in one trace."""
+    step = _warm_step(entry, cuda_device)
+    with profiling.device_trace(tmp_path, device=cuda_device):
+        step()
+    events = [e for e in _trace_events(tmp_path) if e.get("ph") == "X"]
+    stages = [e for e in events if e.get("cat") == "user_annotation" and e["name"] in STAGES]
+    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and "correlation" in e.get("args", {})}
+    credited = {name: [] for name in STAGES + (None,)}
+    for op in events:
+        if op.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        t = launched_at[op["args"]["correlation"]]
+        held = [s for s in stages if s["ts"] <= t <= s["ts"] + s["dur"]]
+        stage = min(held, key=lambda s: s["dur"])["name"] if held else None
+        credited[stage].append(op["name"])
+        for pattern, want in LAUNCHED_IN:
+            if pattern.search(op["name"]):
+                assert stage == want, (op["name"], stage)
+    assert all(credited[name] for name in STAGES), credited
+    for name in (profiling.SPAN_BINNING, profiling.SPAN_PROFILES):  # the counts, the index
+        assert sum(n.startswith("Memcpy HtoD") for n in credited[name]) == snapshots
 
 
 @pytest.fixture()
