@@ -46,7 +46,7 @@ no result):
    ``mesh.from_amr`` of the window [1.5,2.5]x[0,1]x[0,1] to 512^3 with
    the uniform file written (K7), the window equal to the plain regrid;
    the file read back as ``uni`` and equal to the regridded tensors;
-   its ``flagship_analysis`` (K1-K4), finite with the static counts. The
+   its ``flagship_analysis`` (K1, K2, B9), finite with the static counts. The
    profiles are then held to the plain float64 path on the CPU.
 9. AMR timings: file synthesis and write, HDF5->card per field, the
    leaf gather, K5, K6, scatter and assembly, K7, the uniform write and
@@ -83,7 +83,7 @@ no result):
    513) chunks at kx0 = 0, 448 and 896 and on a chunk of an odd-nx
    (1023) volume; the 8 chunks of a snapshot add up to B10 on the whole
    volume, and their time against their bound; B6's launch and
-   occupancy; phase 18's spectra paths (a) and (b) on these fields, timed.
+   occupancy; phase 18's spectra paths (a) and (m) on these fields, timed.
 14. Streamed step at 1024^3: ``ops.outofcore.streamed_uniform_analysis``
    from the host copy through a host-memory slab loader, twice, each run
    with counters (B6 per chunk, K5/K6 per slab) and held to the in-core
@@ -104,7 +104,7 @@ no result):
    periodic box.
 16. Entry point: the 512^3 window file's x-slab read rate, then
    ``FLASH(d).load("uni").flagship_analysis(streamed=True, slab_rows=64,
-   chunk_rows=128)`` and ``flagship_analysis()`` (in core: K1-K4, no
+   chunk_rows=128)`` and ``flagship_analysis()`` (in core: K1, K2, B9, no
    B6), held to each other and to the float64 CPU path of phase 11.
 17. Series: three more 512^3 uniform files from ``make_example_fields``;
    ``flagship_series`` with the auto batch and with batch 3, each
@@ -127,9 +127,9 @@ no result):
    timed beside ``torch.fft.rfftn`` over y and z (the library call), and
    the FFT kernel's two-pass plan on an (8, 1024, 1024) volume; then the
    spectra five ways, each with
-   counters: (a) the main path (cuFFT, powers, K3, K4), (b) one stacked
-   cuFFT into B9, (c) B12 and cuFFT along x into B9, (d)/(e) the main
-   path's powers and fold padded as fava_tpu pads it into B11a/B11b;
+   counters: (a) the power volumes into K3 and K4, (m) the main path
+   (cuFFT into one stack, B9), (c) B12 and cuFFT along x into B9, (d)/(e)
+   the power volumes and fold padded as fava_tpu pads it into B11a/B11b;
    counts exact and sums held to (a) and to phase 4's float64 CPU path;
    then (c) on the fields cut to 512x512x480 (B12's mixed-radix route)
    and to 512x512x502 (its chirp route), each held to (a) on the same cut
@@ -170,7 +170,7 @@ no result):
       in process with the counters reset around it: rc 0, two analysis
       files and two 512^3 uniform files, fava_tpu's checkpoint, no fit
       fallback and each centroid within PIPE_FIT_CELLS finest cells of
-      the front, K3, K4, B4, K5, K6, K7 and B8 launched, and every
+      the front, B9, K3, B4, K5, K6, K7 and B8 launched, and every
       stage-4 dataset equal (TOL_RERUN) to the analyses run again on the
       extracted files; the stage walls from the pipeline's prints.
    b. ``python -m fava_tpu_torch`` again in the same directory: rc 0, no
@@ -272,7 +272,7 @@ no result):
    window (4 fields) and the 2048x512x512 full domain (dens), stacked and
    equal to the single regrid, each rank's bmax printed against nB; (c)
    ``flagship_series(batch=2)`` on the pod (B6, K1, K2 a snapshot) against
-   the call without a mesh (K1-K4; TOL_SPECTRA, TOL_PROFILES, counts
+   the call without a mesh (K1, K2, B9; TOL_SPECTRA, TOL_PROFILES, counts
    exact); (d) ``reynolds_series`` and ``favre_series`` on phase 24's
    288-leaf plt series under the pod against the calls without one; (e)
    ``SnapshotPrefetcher`` with ``ingest_sharding_fn`` on the window file:
@@ -422,8 +422,7 @@ REPLACES = {
     "zy_rfft_planar": "fava_tpu/experiments/pallas_dft.py:53",
     "zy_rfft_planar_dense": "fava_tpu/experiments/pallas_dft.py:53",
 }
-FLAGSHIP_KERNELS = ("row_moments", "centered_row_moments", "fold_quadrants_pair",
-                    "shell_bin_values_folded")
+FLAGSHIP_KERNELS = ("row_moments", "centered_row_moments", "shell_bin_powers_fused")
 AMR_KERNELS = ("block_row_moments", "block_centered_row_moments", "regrid_fields")
 # Kernel vs plain float64 version on the same values (see phase_kernels).
 TOL_MOMENTS = 1e-10  # of the sum of |terms|: f64 sums of 2.6e5 terms, n*eps ~ 3e-11
@@ -574,8 +573,8 @@ PIPE_STAGE4 = {"fractal dimension": "fractal_dimension", "structure functions": 
                "filtered ke flux": "filtered_kinetic_energy_flux",
                "two point correlation": "two_point_correlation",
                "velocity correlations": "velocity_correlations"}
-# K3, K4, B4 (stage 4 spectra), K5, K6 (stage 1), K7 (stage 3), B8 (pdf2d).
-PIPE_KERNELS = ("fold_quadrants_pair", "shell_bin_values_folded", "shell_bin_values_folded_1ch",
+# B9, K3, B4 (stage 4 spectra), K5, K6 (stage 1), K7 (stage 3), B8 (pdf2d).
+PIPE_KERNELS = ("shell_bin_powers_fused", "fold_quadrants_pair", "shell_bin_values_folded_1ch",
                 "block_row_moments", "block_centered_row_moments", "regrid_fields", "pdf2d_counts")
 PIPE_WORK_LINES = ("[stage 1] reynolds stress", "[stage 3] extract window", "[stage 3] window exists",
                    "[stage 4] uniform analyses", "pipeline complete")
@@ -952,33 +951,27 @@ def stage_ms(torch, fields):
     """One step's device time per stage (CUDA events between stages)."""
     from fava_tpu_torch.ops import cuda_kernels as ck
     from fava_tpu_torch.ops.profiles import assemble_profile_stats
-    from fava_tpu_torch.ops.spectra import rfft_power_volumes
+    from fava_tpu_torch.ops.spectra import kinetic_transforms
 
     dens, vx, vy, vz = fields
     nx, ny, nz = dens.shape
     nbins = max(nx, ny, nz) // 2 - 1
     layer = float(ny * nz)
-    names = ("fft", "powers", "fold", "binning", "moments", "centered", "assembly")
+    names = ("fft", "spectra", "moments", "centered", "assembly")
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
     ev[0].record()
-    sq = torch.sqrt(dens)
-    ffts = [torch.fft.rfftn(sq * v, norm="forward") for v in (vx, vy, vz)]
-    del sq
+    spec = torch.view_as_real(kinetic_transforms(dens, (vx, vy, vz)))
     ev[1].record()
-    total, longi = rfft_power_volumes(ffts, (nx, ny, nz))
-    del ffts
+    ck.shell_bin_powers_fused(spec[..., 0], spec[..., 1], nbins, nz)
+    del spec
     ev[2].record()
-    folded = ck.fold_quadrants_pair(total, longi)
-    ev[3].record()
-    ck.shell_bin_values_folded(*folded, nbins, ny, nz)
-    ev[4].record()
     mom = ck.row_moments_volume(dens, vx, vy, vz)
-    ev[5].record()
+    ev[3].record()
     means = (mom[1:4] / layer).contiguous()
     cen = ck.centered_row_moments(dens, vx, vy, vz, means)
-    ev[6].record()
+    ev[4].record()
     assemble_profile_stats(mom[0], means, cen[6:9], cen[:6], layer)
-    ev[7].record()
+    ev[5].record()
     torch.cuda.synchronize()
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
@@ -1019,12 +1012,13 @@ TRACE_KERNELS = {
     "row_moments": r"(?<![A-Za-z_])row_moments_kernel\b",
     "centered_row_moments": r"(?<![A-Za-z_])centered_row_moments_kernel\b",
     "fold_quadrants_pair": r"(?<![A-Za-z_])fold_pair_kernel\b",
+    "shell_bin_powers_fused": r"(?<![A-Za-z_])powers_fold_bin_kernel\b",
     "shell_bin_values_folded": r"(?<![A-Za-z_])shell_walk_kernel<2, false, [^,]*FoldedRows\b",
     "shell_bin_values_folded_1ch": r"(?<![A-Za-z_])shell_walk_kernel<1, false, [^,]*FoldedRows\b",
 }
 # Phase 5's CUDA-event stage of each flagship kernel.
 STAGE_OF = {"row_moments": "moments", "centered_row_moments": "centered",
-            "fold_quadrants_pair": "fold", "shell_bin_values_folded": "binning"}
+            "shell_bin_powers_fused": "spectra"}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACE_PHASE_S = 20.0  # the phase's own budget
 
@@ -1669,8 +1663,7 @@ def check_anl_file(np, path, results):
 def window_stage4_runs(model):
     """The stage-4 analyses of the window and the kernels each must launch."""
     return {
-        "kinetic energy spectra": (model.kinetic_energy_spectra,
-                                   ("fold_quadrants_pair", "shell_bin_values_folded")),
+        "kinetic energy spectra": (model.kinetic_energy_spectra, ("shell_bin_powers_fused",)),
         "scalar spectra": (lambda: model.scalar_spectra("dens"),
                            ("fold_quadrants_pair", "shell_bin_values_folded_1ch")),
         "pdf1d": (lambda: model.pdf1d("velx"), ()),
@@ -1879,30 +1872,32 @@ def phase_chunk_kernel(torch, fields):
 
 
 def main_vs_fused_ms(torch, fields, reps=3):
-    """Phase 13 on the 1024^3 fields: phase 18's paths (a) (the main path's
-    spectra) and (b) (stacked cuFFT into B9), warm device ms per call
-    (CUDA events); counts equal and sums within TOL_SPECTRA of scale."""
-    from fava_tpu_torch.experiments import planar_dft
-    from fava_tpu_torch.ops.spectra import rfft_shell_sums
+    """Phase 13 on the 1024^3 fields: phase 18's paths (a) (the power
+    volumes into K3 and K4) and (m) (the main path's spectra: cuFFT into
+    one stack, B9), warm device ms per call (CUDA events); counts equal
+    and sums within TOL_SPECTRA of scale."""
+    from fava_tpu_torch.ops import cuda_kernels as ck
+    from fava_tpu_torch.ops.spectra import kinetic_power_volumes, rfft_shell_sums
 
     dens, *vels = fields
     nbins = max(dens.shape) // 2 - 1
-    paths = {"a": lambda: rfft_shell_sums(dens, vels, nbins),
-             "b": lambda: planar_dft.rfft_shell_sums_fused(dens, vels, nbins)}
-    (ca, sa), (cb, sb) = (run() for run in paths.values())
-    err = float((sa - sb).abs().max() / sa.abs().max())
-    if not (torch.equal(ca, cb) and err <= TOL_SPECTRA):
-        fail(f"at 1024^3 path (b) disagrees with path (a): max|diff|/scale {err!r}")
-    del ca, sa, cb, sb
+    nz = int(dens.shape[2])
+    paths = {"a": lambda: ck.shell_bin_sums_rfft(*kinetic_power_volumes(dens, vels), nbins, nz),
+             "m": lambda: rfft_shell_sums(dens, vels, nbins)}
+    (ca, sa), (cm, sm) = (run() for run in paths.values())
+    err = float((sm - sa).abs().max() / sa.abs().max())
+    if not (torch.equal(ca, cm) and err <= TOL_SPECTRA):
+        fail(f"at 1024^3 path (m) disagrees with path (a): max|diff|/scale {err!r}")
+    del ca, sa, cm, sm
     out = {f"{key}_ms": cuda_ms(torch, run, reps) for key, run in paths.items()}
-    out["b_vs_a"] = err
-    say(f"phase 13 spectra at 1024^3, (a) main path vs (b) stacked cuFFT -> B9: {out}")
+    out["m_vs_a"] = err
+    say(f"phase 13 spectra at 1024^3, (a) power volumes -> K3, K4 vs (m) main path: {out}")
     return out
 
 
 def streamed_run(torch, np, ck, loader, n, what, phase, **kw):
     """One streamed_uniform_analysis with the counters reset before and
-    checked after: B6 once per chunk, K5/K6 once per slab, no K1-K4."""
+    checked after: B6 once per chunk, K5/K6 once per slab, no K1, K2 or B9."""
     from fava_tpu_torch.ops import outofcore
 
     ck.reset_launch_counts()
@@ -2049,7 +2044,7 @@ def phase_entry_point(torch, np, workdir: Path, cpu):
     incore, n2 = counted(torch, ck, "flagship_analysis()", uni.flagship_analysis, FLAGSHIP_KERNELS, 16)
     if any(n1[k] for k in FLAGSHIP_KERNELS) or n2["shell_bin_values_rfft_chunk"]:
         fail("the streamed and the in-core entry points crossed paths")
-    say("phase 16 flagship_analysis() ran in core (K1-K4 launched, B6 not)")
+    say("phase 16 flagship_analysis() ran in core (K1, K2, B9 launched, B6 not)")
     check_outputs(np, streamed, (nx, nx, nx), "single")
     floor = output_floors([uni.mesh.data(k) for k in NAMES])
     walls = {"streamed_s": wall_per_call(torch, lambda: uni.flagship_analysis(
@@ -3505,9 +3500,9 @@ def ptxas_report(kernel: str, entries: bool = False):
 def fused_path_ms(torch, fields, nbins, reps=3):
     """Median device ms over ``reps`` warm runs (CUDA events) of each
     spectra path: the total of its entry function, and its two stages,
-    timed through the functions the entry composes: (a)
-    ops.spectra.rfft_shell_sums, (b) experiments.planar_dft.rfft_shell_sums_fused,
-    (c) planar_dft.rfft_shell_sums_fused_zy, (d) and (e)
+    timed through the functions the entry composes: (a) the power volumes
+    and ops.cuda_kernels.shell_bin_sums_rfft, (m) ops.spectra.rfft_shell_sums,
+    (c) experiments.planar_dft.rfft_shell_sums_fused_zy, (d) and (e)
     experiments.folded_bins.rfft_shell_sums_folded."""
     from fava_tpu_torch.experiments import folded_bins, planar_dft
     from fava_tpu_torch.ops import cuda_kernels as ck
@@ -3529,11 +3524,13 @@ def fused_path_ms(torch, fields, nbins, reps=3):
                 powers_then(lambda t, lo: folded_bins.shell_sums_padded_fold(t, lo, nbins, nz, binning)))
 
     paths = {
-        "a": ((lambda: spectra.rfft_shell_sums(dens, vels, nbins),
+        "a": ((lambda: ck.shell_bin_sums_rfft(*spectra.kinetic_power_volumes(dens, vels), nbins,
+                                              nz),
                lambda: spectra.kinetic_transforms(dens, vels),
                powers_then(lambda t, lo: ck.shell_bin_sums_rfft(t, lo, nbins, nz))), "powers_K3_K4"),
-        "b": ((lambda: planar_dft.rfft_shell_sums_fused(dens, vels, nbins),
-               lambda: planar_dft.velocity_transforms(dens, vels), b9), "B9"),
+        "m": ((lambda: spectra.rfft_shell_sums(dens, vels, nbins),
+               lambda: torch.view_as_real(spectra.kinetic_transforms(dens, vels)),
+               lambda r: b9((r[..., 0], r[..., 1]))), "B9"),
         "c": ((lambda: planar_dft.rfft_shell_sums_fused_zy(dens, vels, nbins),
                lambda: planar_dft.velocity_transforms_fused_zy(dens, vels), b9), "B9"),
         "d": (folded("onepass"), "powers_K3_pad_B11a"),
@@ -3565,7 +3562,7 @@ def phase_fused(torch, np, fields, ref_spectra):
     each other and to phase 4's float64 CPU path; stage times."""
     from fava_tpu_torch.experiments import folded_bins, planar_dft
     from fava_tpu_torch.ops import cuda_kernels as ck
-    from fava_tpu_torch.ops.spectra import rfft_shell_sums
+    from fava_tpu_torch.ops.spectra import kinetic_power_volumes, rfft_shell_sums
 
     dens, *vels = fields
     nx, ny, nz = (int(s) for s in dens.shape)
@@ -3574,10 +3571,11 @@ def phase_fused(torch, np, fields, ref_spectra):
     fold_then = {"fold_quadrants_pair": 1}
 
     runs = {
-        "(a) cuFFT, powers, K3, K4": (lambda: rfft_shell_sums(dens, vels, nbins),
-                                      {"fold_quadrants_pair": 1, "shell_bin_values_folded": 1}),
-        "(b) stacked cuFFT, B9": (lambda: planar_dft.rfft_shell_sums_fused(dens, vels, nbins),
-                                  {"shell_bin_powers_fused": 1}),
+        "(a) cuFFT, powers, K3, K4": (
+            lambda: ck.shell_bin_sums_rfft(*kinetic_power_volumes(dens, vels), nbins, nz),
+            {"fold_quadrants_pair": 1, "shell_bin_values_folded": 1}),
+        "(m) main path: cuFFT into one stack, B9": (lambda: rfft_shell_sums(dens, vels, nbins),
+                                                    {"shell_bin_powers_fused": 1}),
         "(c) B12 and cuFFT along x, B9": (
             lambda: planar_dft.rfft_shell_sums_fused_zy(dens, vels, nbins),
             {"zy_rfft_planar": 3, "shell_bin_powers_fused": 1}),
@@ -3603,9 +3601,9 @@ def phase_fused(torch, np, fields, ref_spectra):
                for s in spectra.values()):
         fail("the spectra paths' counts differ from the float64 path's")
     say(f"phase 18 counts of the {len(spectra)} paths: equal to the float64 path's")
-    # Against (a): (b) differs by float32 vs float64 powers, (c) also by B12,
+    # Against (a): (m) differs by float32 vs float64 powers, (c) also by B12,
     # (d) and (e) only by the order of the same float64 sums.
-    bounds = {"a": TOL_SPECTRA, "b": TOL_SPECTRA, "c": TOL_ZY_PATH, "d": TOL_BIN, "e": TOL_BIN}
+    bounds = {"a": TOL_SPECTRA, "m": TOL_SPECTRA, "c": TOL_ZY_PATH, "d": TOL_BIN, "e": TOL_BIN}
     a_key = next(iter(spectra))
     no_counts = {k: v for k, v in spectra[a_key].items() if k != "spectra_counts"}
     ref = {k: v for k, v in ref_spectra.items() if k != "spectra_counts"}
@@ -3895,8 +3893,7 @@ def phase_wide_walk(torch, np):
     rows = wide_rows(torch, ck, fields, nbins)
 
     model = fava_tpu_torch.from_arrays(dict(zip(NAMES, fields)))
-    runs = {"kinetic energy spectra": (model.kinetic_energy_spectra,
-                                       ("fold_quadrants_pair", "shell_bin_values_folded")),
+    runs = {"kinetic energy spectra": (model.kinetic_energy_spectra, ("shell_bin_powers_fused",)),
             "flagship analysis": (model.flagship_analysis, FLAGSHIP_KERNELS)}
     results, walls, totals = run_counted(torch, ck, 20, runs, "16384x64x64")
     check_outputs(np, results["flagship analysis"], WIDE_SHAPE, "single")
@@ -4744,11 +4741,13 @@ def hold_sums(what, got, ref, tol, phase=25):
 def virtual_ranks(torch, ck, spectra, fields, nbins):
     """The global rfftn cut into d y-slabs; each slab's powers and B6 at
     its offset (the rank-local binning of the sharded spectra), summed,
-    against the single-device shell sums; B6 on one transposed slab
-    against its plain twin, and timed against its bound."""
+    against the single device's binning of the same float32 power volumes
+    (K3 + K4); B6 on one transposed slab against its plain twin, and timed
+    against its bound."""
     nx, ny, nz = (int(s) for s in fields[0].shape)
     ffts = spectra.kinetic_transforms(fields[0], fields[1:])
-    _counts, whole = spectra.rfft_shell_sums(fields[0], fields[1:], nbins)
+    _counts, whole = ck.shell_bin_sums_rfft(*spectra.rfft_power_volumes(ffts, (nx, ny, nz)),
+                                            nbins, nz)
     def summed(d):
         cols = ny // d
         return sum(spectra.slab_shell_sums([f[:, r * cols : (r + 1) * cols] for f in ffts],

@@ -5,14 +5,14 @@ the TPU they lost to its production path (fused z+y transform 88.7 vs
 67.0 ms at 512^3; planar stacked transforms 116 vs 113 ms). Those verdicts
 are fava_tpu's history, measured on a TPU, and say nothing of the port;
 the port's numbers come from ``chip_smoke.py`` on the H100 (PERF.md).
-The port carries the modules because they run the last of fava_tpu's
-Pallas kernels: the fused powers + fold + shell binning (B9,
-``ops.cuda_kernels.shell_bin_powers_fused``), the fused z-rfft + y-DFT
-(B12, ``ops.cuda_kernels.zy_rfft_planar``), and fava_tpu's first two
-folded binning kernels (B11), which only its tests and probes reached.
+The port carries the modules because they run fava_tpu's fused-spectrum
+paths: the fused z-rfft + y-DFT (B12, ``ops.cuda_kernels.zy_rfft_planar``)
+and fava_tpu's first two folded binning kernels (B11), which only its
+tests and probes reached, and the stacked transforms into the fused
+powers + fold + shell binning (B9, ``ops.cuda_kernels.shell_bin_powers_fused``).
 Nothing in ``fava_tpu_torch.ops`` or the analyses imports from here;
-the main path (``ops.spectra.rfft_shell_sums``) keeps the fold and the
-folded binning (K3, K4).
+the main path (``ops.spectra.rfft_shell_sums``) bins with B9 too, for
+even x and y extents.
 
 Contents:
   planar_dft  -- stacked rfft of the three velocity volumes (one cuFFT

@@ -8,8 +8,8 @@ multiple of 8), then the one-pass binning with counts in the kernel
 (``ops.cuda_kernels.shell_bin_sums_folded_onepass``) or the row-chunked
 values-only binning with the static counts
 (``ops.cuda_kernels.shell_bin_values_folded_rows``). Even x and y
-extents. The same result as the main path's ``ops.spectra.rfft_shell_sums``,
-which folds without padding and bins with K4.
+extents. The same result as ``ops.cuda_kernels.shell_bin_sums_rfft``
+on the power volumes, which folds without padding and bins with K4.
 """
 
 from __future__ import annotations

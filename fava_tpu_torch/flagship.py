@@ -3,9 +3,11 @@ and Favre x-profiles of one uniform snapshot.
 
 Counterpart of fava_tpu/flagship.py. PyTorch runs eagerly, so the step
 is a sequence of cuFFT transforms, plain tensor ops and the hand-written
-kernels of ``ops/cuda_kernels.py`` (K1-K4; the unfolded binning B10 in
-place of K3/K4 for odd x or y extents); ``series_analysis_step`` is a
-Python loop over snapshots where fava_tpu used ``lax.scan``.
+kernels of ``ops/cuda_kernels.py``: K1 and K2 for the profiles, and B9,
+which forms the powers, folds and shell-bins them in one pass over the
+transforms (for odd x or y extents, the power volumes and the unfolded
+binning B10); ``series_analysis_step`` is a Python loop over snapshots
+where fava_tpu used ``lax.scan``.
 
 With a device mesh (``parallel/``) the inputs are the rank's x-slabs:
 the spectra come from the pencil transform and B6 on each rank's

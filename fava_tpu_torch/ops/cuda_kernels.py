@@ -57,7 +57,7 @@ import torch
 
 from fava_tpu_torch.ops import _build, dft
 from fava_tpu_torch.utils import accum_dtype, debug, resolve_device
-from fava_tpu_torch.utils.profiling import SPAN_BINNING, SPAN_SYNC_COUNTS, annotate
+from fava_tpu_torch.utils.profiling import SPAN_BINNING, SPAN_POWERS, SPAN_SYNC_COUNTS, annotate
 
 NMOM = 13  # raw row moments
 NCEN = 9  # 6 centered covariances + 3 centered first moments
@@ -826,7 +826,10 @@ def shell_bin_powers_fused(re_stack, im_stack, nbins: int, full_nz: int):
     transverse = total - longitudinal]. On CUDA the stacks are float32,
     contiguous planar or the two ``torch.view_as_real`` halves of one
     contiguous complex64 stack (cuFFT's output, read in place); counts
-    come from the kernel and equal the static counts."""
+    come from the kernel and equal the static counts, with no copy from
+    the host. The launch and its output's zero-fill lie in the
+    ``fava.powers`` span (the plain version's power volumes open it), the
+    transverse row in ``fava.binning``."""
     name = "shell_bin_powers_fused"
     if re_stack.ndim != 4 or re_stack.shape[0] != 3 or im_stack.shape != re_stack.shape:
         raise ValueError(f"{name}: two (3, nx, ny, nzr) stacks required")
@@ -839,18 +842,20 @@ def shell_bin_powers_fused(re_stack, im_stack, nbins: int, full_nz: int):
     if _device_kind(name, re_stack, im_stack) == "cpu":
         out = _powers_fused_plain(re_stack, im_stack, nbins, full_nz)
     else:
-        interleaved = _stack_layout(name, re_stack, im_stack)
-        _check_bins(name, nbins, (nx // 2) ** 2 + (ny // 2) ** 2)
-        out = torch.zeros((3, nbins), dtype=torch.float64, device=re_stack.device)
-        _launch(
-            name, re_stack.device, _build.library().fava_shell_bin_powers_fused,
-            re_stack.data_ptr(), None if interleaved else im_stack.data_ptr(), out.data_ptr(), nx,
-            ny, nzr, nbins, full_nz, interleaved,
-            _walk_blocks("fava_shell_bin_powers_fused_blocks_per_sm", (interleaved,), 3,
-                         (nx // 2 + 1) * (ny // 2 + 1), nbins, re_stack.device),
-            wrote=(out,),
-        )
-    return _with_transverse(out[0], out[1:])
+        with annotate(SPAN_POWERS):
+            interleaved = _stack_layout(name, re_stack, im_stack)
+            _check_bins(name, nbins, (nx // 2) ** 2 + (ny // 2) ** 2)
+            out = torch.zeros((3, nbins), dtype=torch.float64, device=re_stack.device)
+            _launch(
+                name, re_stack.device, _build.library().fava_shell_bin_powers_fused,
+                re_stack.data_ptr(), None if interleaved else im_stack.data_ptr(), out.data_ptr(),
+                nx, ny, nzr, nbins, full_nz, interleaved,
+                _walk_blocks("fava_shell_bin_powers_fused_blocks_per_sm", (interleaved,), 3,
+                             (nx // 2 + 1) * (ny // 2 + 1), nbins, re_stack.device),
+                wrote=(out,),
+            )
+    with annotate(SPAN_BINNING):
+        return _with_transverse(out[0], out[1:])
 
 
 # ---------------------------------------------------------------------------

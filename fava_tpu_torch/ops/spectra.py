@@ -3,9 +3,12 @@
 Counterpart of fava_tpu/ops/spectra.py. The transforms are ``torch.fft``
 (cuFFT on the card); fava_tpu's dense-DFT matmuls exist only for the
 TPU. 3D volumes take real transforms and the Hermitian shell binning of
-``ops/cuda_kernels.py`` (fold + K4 for even x and y extents, B10 for
-odd ones); 1D/2D datasets take full complex transforms and a plain
-``index_add_`` binning, as fava_tpu's generic branch does.
+``ops/cuda_kernels.py``: the KE spectra of even x and y extents bin the
+three transforms in one pass with B9 (powers, fold and binning, the
+power volumes never formed); odd extents form the power volumes and bin
+them with B10; the scalar spectra fold (K3) and bin (B4 or B10). 1D/2D
+datasets take full complex transforms and a plain ``index_add_``
+binning, as fava_tpu's generic branch does.
 
 Over a device mesh (``parallel/``), ``sharded_power_spectra`` runs the
 rank-local body ``local_spectra_fn``: the pencil transform of the
@@ -112,11 +115,28 @@ def rfft_power_volumes(
         return total.contiguous(), longi.contiguous()
 
 
-def kinetic_transforms(dens, vels):
-    """The three normalized real transforms of sqrt(rho)*v of a 3D volume."""
+def kinetic_transforms(dens, vels) -> torch.Tensor:
+    """The three normalized real transforms of sqrt(rho)*v of a 3D volume,
+    as one contiguous (3, nx, ny, nz//2+1) complex stack, which B9 reads
+    in place. Each transform writes its slot through ``out=``, scaled as
+    it is written."""
     with annotate(SPAN_TRANSFORMS):
+        nx, ny, nz = (int(s) for s in dens.shape)
+        spec = torch.empty((3, nx, ny, nz // 2 + 1),
+                           dtype=torch.promote_types(dens.dtype, torch.complex64),
+                           device=dens.device)
+        # The first two products go into the last slot, not yet written (a
+        # half-spectrum holds a real volume), the third into sqrt(rho)'s
+        # buffer: the stack costs no memory over three separate transforms.
+        scratch = torch.view_as_real(spec[2]).view(-1)[: nx * ny * nz].view(nx, ny, nz)
         sqrt_d = torch.sqrt(dens)
-        return [torch.fft.rfftn(sqrt_d * v, norm="forward") for v in vels]
+        for c, v in enumerate(vels):
+            w = sqrt_d.mul_(v) if c == 2 else torch.mul(sqrt_d, v, out=scratch)
+            # A batch of one: cuFFT then writes the spectrum in row-major
+            # order (without it, z-major), so the scaling into the slot is
+            # one contiguous pass, not a transpose.
+            torch.fft.rfftn(w[None], dim=(1, 2, 3), norm="forward", out=spec[c : c + 1])
+        return spec
 
 
 def kinetic_power_volumes(dens, vels) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -127,10 +147,16 @@ def kinetic_power_volumes(dens, vels) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def rfft_shell_sums(dens, vels, nbins: int):
     """(counts, sums[3]) of the kinetic-energy power of sqrt(rho)*v of a
-    3D volume, shell-binned: three real transforms, the power volumes,
-    then the Hermitian binning (even x and y: fold + K4; else B10)."""
-    total, longi = kinetic_power_volumes(dens, vels)
-    return cuda_kernels.shell_bin_sums_rfft(total, longi, nbins, int(dens.shape[2]))
+    3D volume, shell-binned. Even x and y extents: the transforms'
+    stack straight into B9 (powers, fold and binning in one pass, counts
+    from the kernel). Odd ones: the power volumes and B10
+    (``shell_bin_sums_rfft``)."""
+    nx, ny, nz = (int(s) for s in dens.shape)
+    if nx % 2 or ny % 2:
+        total, longi = kinetic_power_volumes(dens, vels)
+        return cuda_kernels.shell_bin_sums_rfft(total, longi, nbins, nz)
+    parts = torch.view_as_real(kinetic_transforms(dens, vels))
+    return cuda_kernels.shell_bin_powers_fused(parts[..., 0], parts[..., 1], nbins, nz)
 
 
 def static_shell_counts(full_shape, nbins: int, device) -> torch.Tensor:

@@ -33,9 +33,11 @@ _LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
 SPAN_TRANSFORMS = "fava.transforms"
 """sqrt(rho), the three products and rfftn; read by transforms_ms_per_snapshot."""
 SPAN_POWERS = "fava.powers"
-"""The total and longitudinal power volumes; read by powers_ms_per_snapshot."""
+"""The total and longitudinal power volumes, or B9 (powers, fold and binning in
+one pass); read by powers_ms_per_snapshot."""
 SPAN_BINNING = "fava.binning"
-"""Fold and K4 (or B10), the static counts, transverse; read by binning_ms_per_snapshot."""
+"""Fold and K4 (or B10), the static counts and transverse, or B9's transverse
+alone; read by binning_ms_per_snapshot."""
 SPAN_PROFILES = "fava.profiles"
 """K1, K2 and the profiles' assembly; read by profiles_ms_per_snapshot."""
 SPAN_SYNC_COUNTS = "fava.sync.counts"

@@ -262,13 +262,37 @@ def test_step_on_cuda_matches_the_cpu_path(cuda_device):
     f = _fields(cuda_device, shape=(32, 32, 32))
     ck.reset_launch_counts()
     got = flagship.uniform_analysis_step(*f)
-    counts = ck.launch_counts()
-    assert all(counts[k] == 1 for k in ck.KERNELS[:4]) and sum(counts.values()) == 4
+    counts = {k: v for k, v in ck.launch_counts().items() if v}
+    assert counts == {"row_moments": 1, "centered_row_moments": 1, "shell_bin_powers_fused": 1}
     ref = flagship.uniform_analysis_step(*(a.double().cpu() for a in f))
     for key, r in ref.items():
         g = got[key].cpu()
         bound = 1e-5 if key.startswith("spectra_") else 1e-9
         assert float((g - r).abs().max() / r.abs().max()) <= bound, key
+
+
+@pytest.mark.cuda
+def test_step_peak_memory_is_below_the_volumes_route(cuda_device):
+    """At 256^3 the step's peak allocation over its inputs (the
+    transforms' stack into B9) is below that of the spectra alone through
+    the power volumes and K3 + K4, each warm and measured from a reset."""
+    from fava_tpu_torch.ops import spectra
+
+    f = _fields(cuda_device, shape=(256, 256, 256), seed=3)
+    nbins = 256 // 2 - 1
+    runs = {"step": lambda: flagship.uniform_analysis_step(*f),
+            "volumes route": lambda: ck.shell_bin_sums_rfft(
+                *spectra.kinetic_power_volumes(f[0], f[1:]), nbins, 256)}
+    peaks = {}
+    for name, run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+    assert peaks["step"] < peaks["volumes route"], peaks
 
 
 @pytest.mark.cuda
@@ -576,8 +600,9 @@ def test_stage4_on_cuda_matches_the_cpu_path(cuda_device, shape):
             assert counts["pdf2d_counts"] == counts["pdf2d_weighted"] == 1
             if odd:
                 assert counts["shell_bin_sums_unfolded"] == 3 and counts["shell_bin_values_folded"] == 0
-            else:
-                assert counts["shell_bin_values_folded"] == 2
+            else:  # the KE spectra and the step: B9; the scalar spectrum: K3 + B4
+                assert counts["shell_bin_powers_fused"] == 2
+                assert counts["shell_bin_values_folded"] == 0
                 assert counts["shell_bin_values_folded_1ch"] == 1
     cpu, gpu = outs["cpu"], outs["cuda"]
     _spectra_close(gpu["ke"], cpu["ke"], 1e-5)

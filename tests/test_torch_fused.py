@@ -278,6 +278,86 @@ def _probe_fused_path(fields, nbins):
     return pk.shell_bin_powers_fused(re / ntot, im / ntot, nbins, dens.shape[2])
 
 
+def _volumes_route(dens, vels, nbins):
+    """The spectra through the power volumes and ``shell_bin_sums_rfft``
+    (K3 + K4 for even x and y, B10 for odd): the route of every 3D KE
+    spectrum before B9 took the even extents."""
+    return ck.shell_bin_sums_rfft(*tspectra.kinetic_power_volumes(dens, vels), nbins,
+                                  int(dens.shape[2]))
+
+
+def _fava_tpu_shell_sums(fields, nbins):
+    """fava_tpu's float64 reference of the rfft shell sums: its power
+    volumes and the jnp Hermitian binning of the half-spectrum."""
+    dens, *vels = (jnp.asarray(f) for f in fields)
+    sd = jnp.sqrt(dens)
+    ffts = [jnp.fft.rfftn(sd * v) / dens.size for v in vels]
+    total, longi, _, _ = jspectra.rfft_power_volumes(ffts, dens.shape)
+    return pk._shell_bin_jnp_rfft(total, longi, total - longi, nbins, dens.shape[2])
+
+
+def _spied(monkeypatch, names):
+    """Calls of each named ``cuda_kernels`` wrapper, counted as it runs."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        real = getattr(ck, name)
+
+        def spy(*args, real=real, name=name, **kwargs):
+            calls[name] += 1
+            return real(*args, **kwargs)
+        monkeypatch.setattr(ck, name, spy)
+    return calls
+
+
+ROUTE_WRAPPERS = ("shell_bin_powers_fused", "fold_quadrants_pair", "shell_bin_values_folded",
+                  "shell_bin_sums_unfolded")
+
+
+@pytest.mark.parametrize("shape,route", [
+    ((8, 12, 10), {"shell_bin_powers_fused": 1}),
+    ((16, 8, 9), {"shell_bin_powers_fused": 1}),
+    ((6, 6, 1), {"shell_bin_powers_fused": 1}),
+    ((9, 8, 10), {"shell_bin_sums_unfolded": 1}),
+    ((8, 7, 9), {"shell_bin_sums_unfolded": 1}),
+])
+def test_rfft_shell_sums_equal_the_volumes_route(monkeypatch, shape, route):
+    """``rfft_shell_sums`` bins the transforms' stack with B9 for even x
+    and y extents and equals the power volumes binned by K3 + K4; odd x
+    or y still take the volumes and B10. Both held to fava_tpu's float64
+    reference: counts exact, sums rtol 1e-10."""
+    rng = np.random.default_rng(sum(shape) + 3)
+    fields = [1.0 + 0.5 * rng.random(shape)] + [rng.standard_normal(shape) for _ in range(3)]
+    nbins = max(shape) // 2 - 1
+    dens, *vels = (_t(f) for f in fields)
+    old_counts, old_sums = _volumes_route(dens, vels, nbins)
+    calls = _spied(monkeypatch, ROUTE_WRAPPERS)
+    counts, sums = tspectra.rfft_shell_sums(dens, vels, nbins)
+    assert calls == {**dict.fromkeys(ROUTE_WRAPPERS, 0), **route}
+    assert counts.dtype == sums.dtype == torch.float64 and sums.shape == (3, nbins)
+    np.testing.assert_array_equal(counts.numpy(), old_counts.numpy())
+    np.testing.assert_allclose(sums.numpy(), old_sums.numpy(), rtol=1e-10, atol=0)
+    c_ref, s_ref = (np.asarray(a) for a in _fava_tpu_shell_sums(fields, nbins))
+    np.testing.assert_array_equal(counts.numpy(), c_ref)
+    np.testing.assert_allclose(sums.numpy(), s_ref, rtol=1e-10, atol=1e-12 * np.abs(s_ref).max())
+
+
+def test_kinetic_transforms_are_one_contiguous_stack():
+    """The three normalized transforms in one (3, nx, ny, nz//2+1) stack,
+    the inputs left as they were (the products are formed in buffers of
+    the function's own)."""
+    shape = (6, 4, 7)
+    rng = np.random.default_rng(5)
+    fields = [1.0 + 0.5 * rng.random(shape)] + [rng.standard_normal(shape) for _ in range(3)]
+    dens, *vels = (_t(f) for f in fields)
+    spec = tspectra.kinetic_transforms(dens, vels)
+    assert spec.shape == (3, 6, 4, 4) and spec.dtype == torch.complex128 and spec.is_contiguous()
+    for c in range(3):
+        ref = np.fft.rfftn(np.sqrt(fields[0]) * fields[c + 1]) / fields[0].size
+        np.testing.assert_allclose(spec[c].numpy(), ref, rtol=1e-12, atol=1e-15)
+    for got, want in zip([dens, *vels], fields):
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("shape", [(16, 16, 16), (8, 12, 10)])
 def test_fused_path_matches_fava_tpu(force_interpret, shape):
     rng = np.random.default_rng(sum(shape))
@@ -288,7 +368,7 @@ def test_fused_path_matches_fava_tpu(force_interpret, shape):
     runs = {
         "stacked cuFFT + B9": planar_dft.rfft_shell_sums_fused(dens, vels, nbins),
         "B12 + FFT along x + B9": planar_dft.rfft_shell_sums_fused_zy(dens, vels, nbins),
-        "main path (K3 + K4)": tspectra.rfft_shell_sums(dens, vels, nbins),
+        "power volumes + K3 + K4": _volumes_route(dens, vels, nbins),
     }
     for what, (counts, sums) in runs.items():
         np.testing.assert_array_equal(counts.numpy(), c_ref, err_msg=what)
@@ -340,9 +420,9 @@ def test_folded_path_matches_fava_tpu(force_interpret, shape, binning):
     counts, sums = folded_bins.rfft_shell_sums_folded(dens, vels, nbins, binning)
     np.testing.assert_array_equal(counts.numpy(), c_ref)
     np.testing.assert_allclose(sums.numpy(), s_ref, rtol=1e-10, atol=1e-12 * np.abs(s_ref).max())
-    main = tspectra.rfft_shell_sums(dens, vels, nbins)
-    np.testing.assert_array_equal(counts.numpy(), main[0].numpy())
-    np.testing.assert_allclose(sums.numpy(), main[1].numpy(), rtol=1e-12, atol=0)
+    volumes = _volumes_route(dens, vels, nbins)
+    np.testing.assert_array_equal(counts.numpy(), volumes[0].numpy())
+    np.testing.assert_allclose(sums.numpy(), volumes[1].numpy(), rtol=1e-12, atol=0)
 
 
 def test_pad_rows8_is_fava_tpus_fold_layout():

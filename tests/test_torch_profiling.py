@@ -121,11 +121,12 @@ def test_trace_records_inside_an_annotate_span(tmp_path):
 
 STAGES = (profiling.SPAN_TRANSFORMS, profiling.SPAN_POWERS, profiling.SPAN_BINNING,
           profiling.SPAN_PROFILES)
-# A snapshot's spans by their start, and the stage that holds each sync span.
-STEP_SPANS = [profiling.SPAN_TRANSFORMS, profiling.SPAN_POWERS, profiling.SPAN_BINNING,
-              profiling.SPAN_SYNC_COUNTS, profiling.SPAN_PROFILES, profiling.SPAN_SYNC_INDEX]
-HELD_BY = {profiling.SPAN_SYNC_COUNTS: profiling.SPAN_BINNING,
-           profiling.SPAN_SYNC_INDEX: profiling.SPAN_PROFILES}
+# A snapshot's spans on the CPU by their start, and the stage that holds each
+# sync span. B9's plain twin sends the static counts after its power volumes,
+# outside the stages; on the card B9 counts the shells and sends none.
+STEP_SPANS = [profiling.SPAN_TRANSFORMS, profiling.SPAN_POWERS, profiling.SPAN_SYNC_COUNTS,
+              profiling.SPAN_BINNING, profiling.SPAN_PROFILES, profiling.SPAN_SYNC_INDEX]
+HELD_BY = {profiling.SPAN_SYNC_INDEX: profiling.SPAN_PROFILES}
 
 
 def _fava_spans(logdir):
@@ -228,9 +229,8 @@ class _SyncSpan:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry,syncs", [
-    ("series", [profiling.SPAN_SYNC_COUNTS, profiling.SPAN_SYNC_INDEX] * 2),
-    ("flagship_analysis", [profiling.SPAN_SYNC_COUNTS, profiling.SPAN_SYNC_INDEX,
-                           profiling.SPAN_SYNC_OUTPUTS]),
+    ("series", [profiling.SPAN_SYNC_INDEX] * 2),
+    ("flagship_analysis", [profiling.SPAN_SYNC_INDEX, profiling.SPAN_SYNC_OUTPUTS]),
 ])
 def test_every_synchronisation_of_a_warm_step_is_in_a_sync_span(cuda_device, monkeypatch, entry,
                                                                  syncs):
@@ -251,6 +251,7 @@ def test_every_synchronisation_of_a_warm_step_is_in_a_sync_span(cuda_device, mon
 LAUNCHED_IN = (
     (re.compile(r"fft", re.I), profiling.SPAN_TRANSFORMS),  # cuFFT's kernels
     (re.compile(r"row_moments_kernel"), profiling.SPAN_PROFILES),  # K1, K2
+    (re.compile(r"powers_fold_bin_kernel"), profiling.SPAN_POWERS),  # B9
     (re.compile(r"fold_pair_kernel|shell_walk_kernel"), profiling.SPAN_BINNING),  # K3, K4
     (re.compile(r"^Memcpy DtoH"), None),  # the outputs
 )
@@ -285,8 +286,12 @@ def test_device_ops_are_credited_to_the_stage_that_launched_them(cuda_device, tm
             if pattern.search(op["name"]):
                 assert stage == want, (op["name"], stage)
     assert all(credited[name] for name in STAGES), credited
-    for name in (profiling.SPAN_BINNING, profiling.SPAN_PROFILES):  # the counts, the index
-        assert sum(n.startswith("Memcpy HtoD") for n in credited[name]) == snapshots
+    b9 = re.compile(r"(?<![A-Za-z0-9_])powers_fold_bin_kernel\b")
+    assert sum(bool(b9.search(n)) for n in credited[profiling.SPAN_POWERS]) == snapshots
+    host_copies = {name: sum(n.startswith("Memcpy HtoD") for n in credited[name])
+                   for name in STAGES}
+    # the covariance diagonal's index, the one copy the step sends
+    assert host_copies == {**dict.fromkeys(STAGES, 0), profiling.SPAN_PROFILES: snapshots}
 
 
 @pytest.fixture()
